@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of ``gnss_sim_receiver_tpu`` for NVIDIA Hopper.
+
+The JAX package stays the reference; this package mirrors its module names
+(``models.acquisition``, ``models.tracking``, ``ops.pcps`` ...) and runs the
+GPS L1 C/A chain, from a sample capture to a position, on one CUDA device.
+Its device kernels are written by hand (CUDA C++ under ``csrc/``, Triton in
+``ops/pcps.py``) and each has a plain PyTorch version beside it,
+which runs only on CPU tensors.  The package imports torch, NumPy and SciPy,
+never JAX and nothing of ``gnss_sim_receiver_tpu``.
+"""

@@ -1,0 +1,28 @@
+"""Signal and physical constants for supported GNSS signals.
+
+Mirrors the per-system constant headers of the reference
+(``src/core/system_parameters/GPS_L1_CA.h`` etc.) with only the values the
+GPS L1 C/A chain of the PyTorch port needs.  All values are public ICD constants.
+"""
+
+# --- physical ---------------------------------------------------------------
+SPEED_OF_LIGHT_M_S = 299_792_458.0
+GPS_GM = 3.986005e14          # WGS-84 earth gravitational constant [m^3/s^2]
+GPS_OMEGA_EARTH_DOT = 7.2921151467e-5  # WGS-84 earth rotation rate [rad/s]
+GPS_F_RELATIVISTIC = -4.442807633e-10  # relativistic clock factor [s/m^0.5]
+
+# --- GPS L1 C/A (reference: src/core/system_parameters/GPS_L1_CA.h) ---------
+GPS_L1_FREQ_HZ = 1_575.42e6
+GPS_L1_CA_CODE_RATE_CPS = 1.023e6
+GPS_L1_CA_CODE_LENGTH_CHIPS = 1023
+GPS_L1_CA_CODE_PERIOD_S = GPS_L1_CA_CODE_LENGTH_CHIPS / GPS_L1_CA_CODE_RATE_CPS
+GPS_L1_CA_CODE_PERIOD_MS = 1.0
+GPS_L1_CA_CHIPS_PER_SYMBOL = 1023
+GPS_L1_CA_BIT_RATE_BPS = 50
+GPS_L1_CA_CODES_PER_BIT = 20
+GPS_L1_CA_PREAMBLE_BITS = (1, 0, 0, 0, 1, 0, 1, 1)
+GPS_L1_CA_OPT_ACQ_FS_SPS = 2_000_000  # GPS_L1_CA.h:53 acquisition-optimal fs
+
+# --- GPS time ---------------------------------------------------------------
+GPS_WEEK_SECONDS = 604_800
+GPS_TOW_MAX_MS = 604_800_000

@@ -1,0 +1,150 @@
+// K2: per-epoch multicorrelator, written for Hopper.
+//
+// Replaces gnss_sim_receiver_tpu/ops/correlator.py:gather_blocks (line 30)
+// and correlate_multitap (line 39), as called once per epoch by
+// models/tracking.py:_epoch_step (line 376): for every channel c,
+//
+//   corr[c,k] = sum_{b < n_samples[c]} code[c, idx(c,k,b)]
+//                                      * x[pos[c] + b] * exp(-j phase(c,b))
+//   phase(c,b) = rem_carr[c] + 2 pi dop[c] b / fs
+//   idx(c,k,b) = floor((rem_code[c] + code_freq[c] b / fs + tap[k]) * ovs)
+//                mod table_len
+//
+// with pos clamped to [0, n_x - block_size] as gather_blocks clamps it.
+//
+// What bounds it on the H100: one epoch of C = 8 channels reads C blocks of
+// B = 2048 samples (128 KB) and the channels' code tables (8 x 32 KB), and
+// does ~K+1 table/NCO evaluations per sample: a few microseconds of memory
+// traffic at most, so a launch is bound by its own latency.  The design
+// keeps everything in one launch: one CTA per channel loads its band-
+// limited table row (1023 x 8 float32 = 32 KB for GPS L1 C/A) into shared
+// memory once, threads stride over the samples computing the carrier NCO
+// with sincosf, the wipeoff and the K floor-index gathers from shared
+// memory, and a block reduction folds the K complex sums.  The [C, B]
+// gathered block and the [C, K, B] code values of the JAX program never
+// reach device memory.
+//
+// The NCO arithmetic is written with explicit round-to-nearest operations in
+// the JAX program's order (no FMA contraction), so the floor indices agree
+// with the plain version's.
+//
+// Plain PyTorch version: gnss_sim_receiver_tpu_torch/ops/correlator.py
+// (gather_blocks + correlate_multitap).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxTaps = 8;
+constexpr int kThreads = 256;
+constexpr float kTwoPi = 6.2831854820251465f;   // float32(2 pi)
+
+__global__ void __launch_bounds__(kThreads)
+multicorr_kernel(const float2* __restrict__ x, int n_x,
+                 const float* __restrict__ codes,      // [C, L]
+                 int table_len,
+                 const float* __restrict__ taps,       // [K]
+                 int n_taps,
+                 const int* __restrict__ pos,          // [C]
+                 const float* __restrict__ rem_code,   // [C]
+                 const float* __restrict__ code_freq,  // [C]
+                 const float* __restrict__ rem_carr,   // [C]
+                 const float* __restrict__ dop,        // [C]
+                 const int* __restrict__ n_samples,    // [C]
+                 float inv_fs, float k_ovs, int block_size,
+                 float2* __restrict__ out) {           // [C, K]
+  extern __shared__ float table[];
+  const int c = blockIdx.x;
+  const float* row = codes + (size_t)c * table_len;
+  for (int i = threadIdx.x; i < table_len; i += kThreads) table[i] = row[i];
+  __syncthreads();
+
+  int p = pos[c];
+  const int max_start = n_x - block_size;
+  p = p < 0 ? 0 : (p > max_start ? max_start : p);
+  const float2* xb = x + p;
+  const int n_c = n_samples[c];
+  const float rcp = rem_code[c];
+  const float cf = code_freq[c];
+  const float rca = rem_carr[c];
+  const float w = __fmul_rn(kTwoPi, dop[c]);   // (2 pi) * dop
+  float tap[kMaxTaps];
+#pragma unroll
+  for (int k = 0; k < kMaxTaps; ++k) tap[k] = k < n_taps ? taps[k] : 0.0f;
+  float acc_re[kMaxTaps], acc_im[kMaxTaps];
+#pragma unroll
+  for (int k = 0; k < kMaxTaps; ++k) { acc_re[k] = 0.0f; acc_im[k] = 0.0f; }
+
+  for (int b = threadIdx.x; b < block_size; b += kThreads) {
+    const float n = (float)b;
+    if (!(n < (float)n_c)) continue;               // integration mask
+    const float phase = __fadd_rn(rca, __fmul_rn(__fmul_rn(w, n), inv_fs));
+    float s, co;
+    sincosf(phase, &s, &co);
+    const float2 v = xb[b];
+    // x * exp(-j phase)
+    const float xr = __fadd_rn(__fmul_rn(v.x, co), __fmul_rn(v.y, s));
+    const float xi = __fsub_rn(__fmul_rn(v.y, co), __fmul_rn(v.x, s));
+    const float chips = __fadd_rn(rcp, __fmul_rn(__fmul_rn(cf, n), inv_fs));
+#pragma unroll
+    for (int k = 0; k < kMaxTaps; ++k) {
+      if (k < n_taps) {
+        int idx = (int)floorf(__fmul_rn(__fadd_rn(chips, tap[k]), k_ovs));
+        idx %= table_len;
+        if (idx < 0) idx += table_len;
+        const float cv = table[idx];
+        acc_re[k] += cv * xr;
+        acc_im[k] += cv * xi;
+      }
+    }
+  }
+
+  __shared__ float red[kThreads / 32][2 * kMaxTaps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kMaxTaps; ++k) {
+    float re = acc_re[k], im = acc_im[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      re += __shfl_down_sync(0xffffffffu, re, o);
+      im += __shfl_down_sync(0xffffffffu, im, o);
+    }
+    if (lane == 0) { red[warp][2 * k] = re; red[warp][2 * k + 1] = im; }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * n_taps) {
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) s += red[i][threadIdx.x];
+    reinterpret_cast<float*>(out + (size_t)c * n_taps)[threadIdx.x] = s;
+  }
+}
+
+}  // namespace
+
+extern "C" int multicorrelate(const void* x, int n_x, const void* codes,
+                              int table_len, const void* taps, int n_taps,
+                              const void* pos, const void* rem_code,
+                              const void* code_freq, const void* rem_carr,
+                              const void* dop, const void* n_samples,
+                              float inv_fs, float k_ovs, int block_size,
+                              void* out, int n_ch, void* stream) {
+  if (n_taps < 1 || n_taps > kMaxTaps || n_ch < 1 || table_len < 1 ||
+      block_size < 1 || n_x < block_size)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)table_len * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        multicorr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  multicorr_kernel<<<n_ch, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float2*)x, n_x, (const float*)codes, table_len,
+      (const float*)taps, n_taps, (const int*)pos, (const float*)rem_code,
+      (const float*)code_freq, (const float*)rem_carr, (const float*)dop,
+      (const int*)n_samples, inv_fs, k_ovs, block_size, (float2*)out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,406 @@
+"""Receiver orchestration, PyTorch port of
+``gnss_sim_receiver_tpu.models.receiver`` for the implicit GPS L1 C/A chain
+and the batch entry point.
+
+Host-side orchestration of the chain — acquisition scheduling with
+re-acquisition and satellite rotation, acquisition -> tracking handoff,
+chunked tracking over the capture, LNAV telemetry, observables ticks and
+least-squares PVT — driven by the AcquisitionManager event model
+(models.control).  The capture is uploaded to the device once; each
+iteration dispatches one tracking chunk and then pulls and host-processes
+the PREVIOUS iteration's chunk, so the host work of chunk k overlaps the
+device work of chunk k+1 (the pipelined batch mode of the JAX receiver).
+
+Usage: ``Receiver(ReceiverConf(...)).process_array(x)``; `device=None` means
+the CUDA card and raises without one, device="cpu" runs the plain versions
+of the kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from gnss_sim_receiver_tpu_torch.device import resolve_device, upload
+from gnss_sim_receiver_tpu_torch.models.acquisition import (
+    AcqConf, PcpsAcquisitionEngine)
+from gnss_sim_receiver_tpu_torch.models.control import (AcquisitionManager,
+                                                        ChannelState)
+from gnss_sim_receiver_tpu_torch.models.observables import (
+    ObsConf, ObservablesEngine)
+from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf, solve_pvt
+from gnss_sim_receiver_tpu_torch.models.telemetry import TelemetryDecoder
+from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
+                                                         TrackingEngine)
+from gnss_sim_receiver_tpu_torch.nav.ephemeris import adj_gps_week
+
+
+@dataclasses.dataclass
+class ReceiverConf:
+    fs: float = 2_000_000.0
+    prns: tuple = tuple(range(1, 33))
+    max_channels: int = 12
+    max_acq_channels: int = 8         # Channels.in_acquisition
+    acq: AcqConf | None = None
+    trk: TrackingConf | None = None
+    obs: ObsConf | None = None
+    pvt: PvtConf | None = None
+    chunk_epochs: int = 1000          # 1 ms epochs per chunk (chunk ~ 1 s)
+    output_rate_ms: int = 20          # observable (and PVT) epoch interval
+    # telemetry fail-safe: drop a TRACKING channel that produced no valid
+    # TOW for this long (gps_l1_ca_telemetry_decoder_gs.cc:448-460); 0 off
+    tlm_timeout_s: float = 30.0
+
+    def __post_init__(self):
+        if self.acq is None:
+            self.acq = AcqConf(fs_in=self.fs, max_dwells=2)
+        if self.trk is None:
+            self.trk = TrackingConf(fs=self.fs)
+        if self.obs is None:
+            self.obs = ObsConf(fs=self.fs, interval_ms=self.output_rate_ms)
+        if self.pvt is None:
+            self.pvt = PvtConf()
+        # observables history must out-span a tracking chunk
+        if self.obs.history_len < self.chunk_epochs + 128:
+            self.obs = dataclasses.replace(
+                self.obs, history_len=self.chunk_epochs + 128)
+
+
+@dataclasses.dataclass
+class ReceiverRun:
+    solutions: list            # [PvtSolution]
+    observation_epochs: list   # [ObservationEpoch]
+    channel_prns: list[int]    # final PRN per channel (0 = idle)
+    channel_states: list       # final ChannelState per channel
+    ephemerides: dict          # prn -> GpsEphemeris
+    events: list               # [(channel, ChannelEvent)]
+
+
+class _ChainRt:
+    """Runtime state of the GPS L1 C/A chain."""
+
+    def __init__(self, conf: ReceiverConf, device):
+        n = conf.max_channels
+        self.n_channels = n
+        self.trk_conf = conf.trk
+        self.mgr = AcquisitionManager(conf.prns, n,
+                                      max_acq_channels=conf.max_acq_channels)
+        self.trk = TrackingEngine(conf.trk, prns=[0] * n, device=device)
+        self.tlm = TelemetryDecoder([0] * n)
+        self.nominal = conf.trk.nominal_epoch_samples
+        self.margin = self.trk._read_margin()
+        self.epoch_base = [0] * n
+        self.acq_engines = {}
+        self.done = 0
+        self.total = 0
+        self.decim = 1                # set by the session (tick stride)
+        self.pending_resets = []      # (channel, prn) TLM/obs resets to
+        #                               apply after the in-flight chunk
+        # per-channel epochs since start_tracking
+        self.epochs_run = np.zeros(n, np.int64)
+
+
+class ReceiverSession:
+    """One batch run over a whole capture: `attach_array(x)`,
+    `run_to_end()`, `result()`.
+
+    Fail-safe: a channel TRACKING longer than `conf.tlm_timeout_s` without
+    ever producing a valid TOW is dropped back to acquisition."""
+
+    def __init__(self, conf: ReceiverConf, device=None):
+        if conf.pvt.positioning_mode not in ("Single", "Static"):
+            raise NotImplementedError(
+                f"PVT.positioning_mode {conf.pvt.positioning_mode} is not "
+                "ported")
+        self.conf = conf
+        self.device = resolve_device(device)
+        # decimated transfers push one observables row per tick
+        self.max_mult = 128
+        self.chain = rt = _ChainRt(conf, self.device)
+        self.n_total = rt.n_channels
+        epoch_ms = rt.nominal / conf.fs * 1000.0
+        # one kept epoch per observable tick (capped at 90 ms spacing so
+        # the observables history interpolation stays bracketed)
+        rt.decim = max(1, int(min(conf.obs.interval_ms, 90.0) // epoch_ms))
+        rows = int(conf.chunk_epochs * self.max_mult // rt.decim) + 256
+        if conf.obs.history_len < rows:
+            conf.obs.history_len = rows
+        self.obs_eng = ObservablesEngine(
+            conf.obs, n_channels=self.n_total,
+            carrier_freq_hz=np.full(self.n_total, conf.trk.carrier_freq_hz),
+            fs_per_channel=np.full(self.n_total, conf.fs))
+        self.ephemerides = {}
+        self.solutions = []
+        self.obs_epochs = []
+        self.last_fix = None
+        self._x = None
+        self._len = 0
+        self.cursor = 0               # acquisition head (absolute sample)
+        self.chunk_mult = 1
+        self.chunk_s = conf.chunk_epochs * 1e-3
+        self._inflight = []
+        self._trk_start_abs = np.full(self.n_total, -1, np.int64)
+        self._tow_seen = np.zeros(self.n_total, bool)
+
+    # -- input ----------------------------------------------------------------
+
+    def attach_array(self, x) -> None:
+        """The whole capture (NumPy array or tensor), uploaded once."""
+        if isinstance(x, np.ndarray):
+            x = upload(x.astype(np.complex64, copy=False), self.device)
+        self._x = x.to(device=self.device, dtype=torch.complex64)
+        self._len = len(self._x)
+        rt = self.chain
+        rt.total = max((self._len - rt.margin) // rt.nominal - 2, 0)
+
+    def run_to_end(self) -> None:
+        """Process the whole attached capture."""
+        while self.chain.done < self.chain.total or self._inflight:
+            if not self._iterate() and not self._inflight:
+                break
+
+    # -- core loop -------------------------------------------------------------
+
+    def _chunk_n(self) -> int:
+        rt = self.chain
+        return int(round(self.chunk_s * self.chunk_mult
+                         / (rt.nominal / self.conf.fs)))
+
+    def _acquire(self, rt) -> bool:
+        """Search the channels awaiting acquisition; arm the detected ones.
+        Returns False when a new lock happened (an FSM event)."""
+        quiet = True
+        mgr = rt.mgr
+        group = mgr.acquiring_channels()
+        if not group:
+            return quiet
+        prns = tuple(mgr.channels[c].prn for c in group)
+        eng = rt.acq_engines.get(prns)
+        if eng is None:
+            eng = PcpsAcquisitionEngine(self.conf.acq, prns=prns,
+                                        device=self.device)
+            rt.acq_engines[prns] = eng
+        if self.cursor + eng.n_samples_needed > self._len:
+            return quiet
+        res = eng.acquire_from(self._x, self.cursor)
+        for k, c in enumerate(group):
+            mgr.on_acq_result(c, bool(res.detected[k]),
+                              float(res.doppler_hz[k]))
+            if mgr.channels[c].state != ChannelState.TRACKING:
+                continue
+            quiet = False
+            prn = mgr.channels[c].prn
+            rt.trk.set_channel_prn(c, prn)
+            start_abs = int(res.samplestamp + res.delay_samples[k])
+            # arm at the CHAIN FRONT: advance by an integer number of
+            # Doppler-corrected code periods to where the next chunk
+            # starts, so a channel armed behind the front does not trail
+            # every other channel
+            act_now = rt.trk.active_host
+            if act_now.any():
+                front = int(rt.trk.abs_start[act_now].max())
+                if front > start_abs:
+                    trk = self.conf.trk
+                    cf0 = (trk.code_rate_cps
+                           * (1.0 + float(res.doppler_hz[k])
+                              / trk.carrier_freq_hz))
+                    s_per = self.conf.fs * trk.code_length_chips / cf0
+                    kper = int(np.ceil((front - start_abs) / s_per))
+                    start_abs = int(round(start_abs + kper * s_per))
+            rt.trk.start_tracking(c, float(res.doppler_hz[k]), start_abs)
+            # a chunk dispatched BEFORE this arm is still in flight: reset
+            # the decoders after its rows so bit edges stay aligned
+            if self._inflight:
+                rt.pending_resets.append((c, prn))
+            else:
+                rt.tlm.reset_channel(c, prn, epoch_base=rt.epoch_base[c])
+                self.obs_eng.reset_channel(c)
+            rt.epochs_run[c] = 0
+            self._trk_start_abs[c] = start_abs
+            self._tow_seen[c] = False
+        return quiet
+
+    def _iterate(self) -> bool:
+        """One FSM + chunk iteration.  Returns False when nothing could
+        advance."""
+        rt = self.chain
+        tick_bound = None
+        progressed = False
+        advanced = False
+        quiet = True
+        staged = []
+        # ---- phase 1: FSM + device dispatch --------------------------------
+        if rt.done < rt.total:
+            rt.mgr.schedule()
+            quiet = self._acquire(rt) and quiet
+            tracking = rt.mgr.tracking_channels()
+            chunk_n = self._chunk_n()
+            if not tracking:
+                rt.done += min(chunk_n, rt.total - rt.done)
+                advanced = True
+            else:
+                n = min(chunk_n, rt.total - rt.done,
+                        rt.trk.epochs_that_fit(self._len))
+                if 0 < n < chunk_n:
+                    # eat the tail in ONE block-aligned chunk (+ one
+                    # sub-block remainder of < 2 blocks next iteration)
+                    q = rt.trk.block_epochs
+                    if n >= 2 * q:
+                        n = (n // q) * q
+                if n <= 0:
+                    rt.done = rt.total   # capture exhausted
+                    advanced = True
+                else:
+                    rt.done += n
+                    progressed = advanced = True
+                    # FLL pull-in on: the block kernel runs from the first
+                    # chunk (its FLL + wide-DLL staging absorb the
+                    # acquisition handoff errors)
+                    need = (0 if rt.trk_conf.enable_fll_pullin
+                            else rt.trk_conf.fll_pullin_epochs + 1000)
+                    use_blocks = all(rt.epochs_run[c] >= need
+                                     for c in tracking)
+                    staged.append((tracking, n, rt.trk.process_begin(
+                        self._x, 0, n, decim=rt.decim,
+                        use_blocks=use_blocks)))
+
+        # ---- phase 2: pull + host-process the PREVIOUS iteration's chunk ---
+        staged, self._inflight = self._inflight, staged
+        for tracking, n, handle in staged:
+            outs = rt.trk.process_end(handle)
+            # channels (re)armed after this chunk was dispatched: its rows
+            # predate the arm; hide them from telemetry and observables
+            stale = outs.pop("stale_channels")
+            if stale.any():
+                outs["valid"] = outs["valid"] & ~stale[None, :]
+                outs["valid_full"] = outs["valid_full"] & ~stale[None, :]
+            for c in range(rt.n_channels):
+                rt.epoch_base[c] += n
+            inc = [c for c in tracking if not stale[c]]
+            rt.epochs_run[inc] += n
+            # a channel feeds OBSERVABLES only once its loops have settled
+            # after (re)acquisition; telemetry sees every epoch.  Gating is
+            # epoch-index exact, whatever the chunk sizes.
+            settle = rt.trk_conf.fll_pullin_epochs + 2500
+            eb_settle = rt.epochs_run - n
+            rows = outs["rows"]
+            tlm_res = rt.tlm.process({"prompt": outs["prompt"],
+                                      "valid": outs["valid_full"]})
+            for _, eph in tlm_res.new_ephemerides:
+                self._store_eph(eph)
+            if len(rows) == 0:
+                # tail chunk shorter than one tick stride: telemetry only
+                quiet = self._handle_lock_loss(rt, tracking) and quiet
+                continue
+            tlm_obs = dataclasses.replace(
+                tlm_res, tow_at_epoch_ms=tlm_res.tow_at_epoch_ms[rows],
+                tow_valid=tlm_res.tow_valid[rows])
+            gate = (rows[:, None] + eb_settle[None, :]) < settle
+            if (gate & outs["valid"]).any():
+                # gate a COPY for the observables push only: the cursor and
+                # tick bound below keep the device's real validity
+                outs = dict(outs, valid=outs["valid"] & ~gate,
+                            valid_ungated=outs["valid"])
+            self.obs_eng.push_epochs(outs, tlm_obs, channel_offset=0)
+            self._tow_seen |= tlm_obs.tow_valid.any(axis=0)
+            if rt.pending_resets:
+                for c, prn in rt.pending_resets:
+                    rt.tlm.reset_channel(c, prn,
+                                         epoch_base=rt.epoch_base[c])
+                    self.obs_eng.reset_channel(c)
+                rt.pending_resets = []
+            # --- loss-of-lock events + TLM-timeout fail-safe ---------------
+            quiet = self._handle_lock_loss(rt, tracking) and quiet
+            if self.conf.tlm_timeout_s > 0:
+                sc_last = outs["sample_counter"][-1]
+                for c in tracking:
+                    if (rt.mgr.channels[c].state == ChannelState.TRACKING
+                            and not self._tow_seen[c]
+                            and self._trk_start_abs[c] >= 0
+                            and (sc_last[c] - self._trk_start_abs[c])
+                            / self.conf.fs > self.conf.tlm_timeout_s):
+                        quiet = False
+                        rt.mgr.on_tracking_lost(c)
+                        rt.trk.stop_channel(c)
+            valid_cols = np.asarray(
+                outs.get("valid_ungated", outs["valid"])[-1])
+            if valid_cols.any():
+                up_to = int(outs["sample_counter"][-1][valid_cols].min())
+                tick_bound = up_to
+                self.cursor = max(self.cursor, up_to - rt.margin)
+
+        # --- observables + PVT ----------------------------------------------
+        if tick_bound is not None:
+            self._solve(tick_bound)
+        if not progressed:
+            self.cursor += int(self.chunk_s * self.conf.fs)
+            advanced = True
+        self.chunk_mult = (min(self.chunk_mult * 2, self.max_mult)
+                           if quiet else 1)
+        return advanced
+
+    def _store_eph(self, eph) -> None:
+        """Adopt a decoded ephemeris, resolving the 10-bit GPS week."""
+        if 0 <= eph.week <= 1023:
+            eph = dataclasses.replace(eph, week=adj_gps_week(eph.week))
+        self.ephemerides[eph.prn] = eph
+
+    def _handle_lock_loss(self, rt, tracking) -> bool:
+        quiet = True
+        lost = rt.trk.lock_lost_host
+        for c in tracking:
+            if lost[c]:
+                quiet = False
+                rt.mgr.on_tracking_lost(c)
+                rt.trk.stop_channel(c)
+        return quiet
+
+    def _prn_map(self) -> list:
+        return [self.chain.mgr.channels[c].prn
+                for c in range(self.n_total)]
+
+    def _solve(self, tick_bound: int) -> None:
+        conf = self.conf
+        prn_map = self._prn_map()
+        freq_map = np.full(self.n_total, conf.trk.carrier_freq_hz)
+        for epoch in self.obs_eng.pull_ticks(tick_bound):
+            self.obs_epochs.append(epoch)
+            sol = solve_pvt(epoch, prn_map, self.ephemerides, conf.pvt,
+                            x0=None if self.last_fix is None
+                            else self.last_fix.rx_ecef_m,
+                            carrier_freq_hz=freq_map)
+            if sol.valid:
+                self.last_fix = sol
+                self.solutions.append(sol)
+
+    # -- output ----------------------------------------------------------------
+
+    def result(self) -> ReceiverRun:
+        rt = self.chain
+        return ReceiverRun(
+            solutions=self.solutions,
+            observation_epochs=self.obs_epochs,
+            channel_prns=self._prn_map(),
+            channel_states=[rt.mgr.channels[c].state
+                            for c in range(self.n_total)],
+            ephemerides=self.ephemerides,
+            events=list(rt.mgr.events))
+
+
+class Receiver:
+    """The port's entry point.  `device=None` means the CUDA card and raises
+    without one; pass device="cpu" for the plain versions of the kernels."""
+
+    def __init__(self, conf: ReceiverConf, device=None):
+        self.conf = conf
+        self.device = resolve_device(device)
+
+    def process_array(self, x) -> ReceiverRun:
+        """Run the whole receiver over an in-memory capture (NumPy
+        complex64 array or tensor)."""
+        s = ReceiverSession(self.conf, device=self.device)
+        s.attach_array(x)
+        s.run_to_end()
+        return s.result()

@@ -1,0 +1,191 @@
+"""GPS L1 C/A telemetry decoding engine (host-side).
+
+Equivalent of the reference gps_l1_ca_telemetry_decoder_gs
+(src/algorithms/telemetry_decoder/gnuradio_blocks/
+gps_l1_ca_telemetry_decoder_gs.cc): consumes the tracking engine's
+per-epoch prompt outputs (device-produced, 1 kHz per channel), performs
+bit synchronization, 50 bps bit decisions, LNAV subframe sync/parity
+(nav.lnav), ephemeris assembly, and stamps every epoch with
+TOW_at_current_symbol_ms.  Bit-level work is 50 bps x channels — host work
+by design (SURVEY.md section 7: "decode host-side from device-produced
+prompt-symbol batches").
+
+GPS LNAV decoder copied from ``gnss_sim_receiver_tpu.models.telemetry`` for
+the PyTorch port; the other constellations' decoders wait for later
+slices."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from gnss_sim_receiver_tpu_torch.nav import lnav
+from gnss_sim_receiver_tpu_torch.nav.ephemeris import (GpsEphemeris,
+                                                       fields_to_ephemeris)
+
+CODES_PER_BIT = 20
+
+
+@dataclasses.dataclass
+class _ChannelTlmState:
+    prompts_i: list = dataclasses.field(default_factory=list)
+    epoch_count: int = 0
+    n_seen: int = 0                # valid epochs since channel (re)start
+    prompt_base: int = -1          # global epoch index of prompts_i[0]
+    bit_phase: int | None = None        # epoch index mod 20 of bit starts
+    transition_hist: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(CODES_PER_BIT, np.int64))
+    last_sign: float = 0.0
+    n_bits_emitted: int = 0
+    frame: lnav.LnavFrameDecoder = dataclasses.field(
+        default_factory=lnav.LnavFrameDecoder)
+    # TOW anchor: epoch index of a subframe's first epoch + its TOW (ms)
+    anchor_epoch: int | None = None
+    anchor_tow_ms: float = 0.0
+    # PLL locked 180 deg off (inverted preamble) — half-cycle phase flag
+    polarity_inverted: bool = False
+    # ephemeris assembly
+    sf_fields: dict = dataclasses.field(default_factory=dict)
+    ephemeris: GpsEphemeris | None = None
+
+
+@dataclasses.dataclass
+class TelemetryOutputs:
+    tow_at_epoch_ms: np.ndarray      # [T, C] float64, nan if unknown
+    tow_valid: np.ndarray            # [T, C] bool
+    new_ephemerides: list            # [(channel, GpsEphemeris), ...]
+    # [C] half-cycle carrier-phase correction (0.0 or 0.5 cycles): 0.5 when
+    # the channel's PLL is known (from frame sync) to be locked 180 deg off
+    # — the reference's Flag_PLL_180_deg_phase_locked + GPS_PI correction
+    # (gps_l1_ca_telemetry_decoder_gs.cc).  None = no correction known.
+    phase_half_cycles: np.ndarray | None = None
+
+
+class TelemetryDecoder:
+    def __init__(self, prns):
+        self.prns = [int(p) for p in prns]
+        self.ch = [_ChannelTlmState() for _ in self.prns]
+        # assistance data from subframes 4/5 (gps_navigation_message.cc
+        # almanac / iono / UTC decode, :494+): prn -> almanac field dict,
+        # plus the broadcast iono/UTC parameter set
+        self.almanac: dict[int, dict] = {}
+        self.iono_utc: dict | None = None
+
+    def reset_channel(self, c: int, prn: int | None = None,
+                      epoch_base: int | None = None) -> None:
+        """Restart a channel's bit/frame sync after satellite reassignment."""
+        st = _ChannelTlmState()
+        if epoch_base is not None:
+            st.epoch_count = epoch_base
+        self.ch[c] = st
+        if prn is not None:
+            self.prns[c] = int(prn)
+
+    def process(self, track_outs: dict) -> TelemetryOutputs:
+        """Consume tracking outputs ([T, C] arrays from
+        TrackingEngine.process) and extend each channel's bit stream."""
+        prompts = track_outs["prompt"]
+        valid = track_outs["valid"]
+        t_len, n_ch = prompts.shape
+        tow = np.full((t_len, n_ch), np.nan)
+        new_eph = []
+        for c in range(n_ch):
+            st = self.ch[c]
+            base = st.epoch_count
+            v = np.asarray(valid[:, c], bool)
+            vi = np.flatnonzero(v)
+            st.epoch_count = base + t_len
+            if vi.size:
+                pi = np.real(np.asarray(prompts[:, c]))[vi].astype(
+                    np.float64)
+                s = np.where(pi >= 0.0, 1.0, -1.0)
+                prev = np.concatenate(([st.last_sign], s[:-1]))
+                tr = (prev != 0.0) & (s != prev)
+                np.add.at(st.transition_hist,
+                          (base + vi[tr]) % CODES_PER_BIT, 1)
+                st.last_sign = float(s[-1])
+                if not st.prompts_i:
+                    st.prompt_base = base + int(vi[0])
+                st.prompts_i.extend(pi.tolist())
+                st.n_seen += int(vi.size)
+            if st.bit_phase is None and st.n_seen >= 200:
+                self._try_bit_sync(st)
+            # TOW gating anchor BEFORE this batch's decodes: _emit_bits
+            # advances anchor_epoch to the LATEST in-batch subframe, and
+            # gating on that would un-stamp every epoch before it — on a
+            # 30 s adaptive chunk that silently dropped all but the last
+            # ~6 s of observables (the r4 batch-vs-streaming fix-count
+            # divergence).  TOW is linear in epoch, so once ANY anchor
+            # exists the whole batch extrapolates from the latest one;
+            # only a channel's FIRST-ever anchor limits the gate.
+            anchor0 = st.anchor_epoch
+            if st.bit_phase is not None:
+                self._emit_bits(st, c, new_eph)
+            if st.anchor_epoch is not None:
+                gate = anchor0 if anchor0 is not None else st.anchor_epoch
+                idx = base + np.arange(t_len)
+                m = v & (idx >= gate)
+                tow[m, c] = (st.anchor_tow_ms
+                             + (idx[m] + 1 - st.anchor_epoch) * 1.0)
+        half = np.array([0.5 if st.polarity_inverted else 0.0
+                         for st in self.ch])
+        return TelemetryOutputs(tow_at_epoch_ms=tow,
+                                tow_valid=~np.isnan(tow),
+                                new_ephemerides=new_eph,
+                                phase_half_cycles=half)
+
+    # -- internals ----------------------------------------------------------
+    def _try_bit_sync(self, st: _ChannelTlmState) -> None:
+        """Bit edge = dominant transition phase (the histogram equivalent of
+        the reference's 20-symbol sign-pattern sync,
+        dll_pll_veml_tracking.cc:1852-1867)."""
+        h = st.transition_hist
+        total = h.sum()
+        if total < 8:
+            return
+        top = int(h.argmax())
+        if h[top] < 0.8 * total:
+            return
+        st.bit_phase = top  # bits start at epochs where idx % 20 == top
+
+    def _emit_bits(self, st: _ChannelTlmState, c: int, new_eph: list) -> None:
+        # local list index of the first bit boundary: prompts_i[i] belongs
+        # to global epoch prompt_base + i (valid epochs are contiguous
+        # while a channel holds lock)
+        phase = (st.bit_phase - st.prompt_base) % CODES_PER_BIT
+        nbits_avail = (len(st.prompts_i) - phase) // CODES_PER_BIT
+        if nbits_avail <= st.n_bits_emitted:
+            return
+        seg = np.asarray(st.prompts_i[phase + st.n_bits_emitted
+                                      * CODES_PER_BIT:
+                                      phase + nbits_avail * CODES_PER_BIT])
+        acc = seg.reshape(-1, CODES_PER_BIT).sum(axis=1)
+        bits = (acc >= 0).astype(np.int64).tolist()
+        st.n_bits_emitted = nbits_avail
+        for ev in st.frame.push_bits(bits):
+            sf_start_epoch = (st.prompt_base + phase
+                              + ev.bit_index * CODES_PER_BIT)
+            tow_sf_start_s = ev.tow_next_s - lnav.SUBFRAME_SECONDS
+            st.anchor_epoch = sf_start_epoch
+            st.anchor_tow_ms = tow_sf_start_s * 1000.0
+            st.polarity_inverted = bool(ev.inverted)
+            if ev.sf_id in (4, 5) and ev.fields:
+                sv = int(ev.fields.get("sv_id", 0))
+                if sv == lnav.IONO_SV_ID:
+                    self.iono_utc = dict(ev.fields)
+                elif 1 <= sv <= 32:
+                    self.almanac[sv] = dict(ev.fields)
+            if ev.sf_id in (1, 2, 3):
+                st.sf_fields[ev.sf_id] = ev.fields
+                if all(k in st.sf_fields for k in (1, 2, 3)):
+                    f1, f2, f3 = (st.sf_fields[1], st.sf_fields[2],
+                                  st.sf_fields[3])
+                    if int(f2["iode"]) == int(f3["iode_sf3"]) and \
+                       int(f1["iodc"]) % 256 == int(f2["iode"]):
+                        eph = fields_to_ephemeris(self.prns[c], f1, f2, f3)
+                        if (st.ephemeris is None
+                                or st.ephemeris.iode != eph.iode
+                                or st.ephemeris.toe != eph.toe):
+                            st.ephemeris = eph
+                            new_eph.append((c, eph))

@@ -1,0 +1,128 @@
+"""Parity of the port's PCPS acquisition (kernel K3: the wipeoff kernel and
+the peak/CFAR epilogue kernel around cuFFT) with the JAX package on the CPU,
+where the wrappers run their plain versions.
+
+Tolerances: the grid and the statistic agree to 1e-4 relative (float32
+FFTs of 2000 points in another library: ~1e-6 relative per value, summed);
+the Doppler and delay indices must be identical.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gnss_sim_receiver_tpu.models import acquisition as jacq
+from gnss_sim_receiver_tpu.ops import pcps as jpcps
+from gnss_sim_receiver_tpu.ops import prn_codes as jpc
+from gnss_sim_receiver_tpu.sim import SatelliteSignalParams, generate_baseband
+from gnss_sim_receiver_tpu_torch.models import acquisition as pacq
+from gnss_sim_receiver_tpu_torch.ops import pcps as ppcps
+from tests.fixtures import FS, static_scenario_capture
+
+M, N, C = 2, 2000, 4
+
+
+@pytest.fixture(scope="module")
+def grid_inputs():
+    """Two 1 ms dwells holding PRNs 3 and 11 (45 dB-Hz, off-grid Doppler)
+    in noise, searched for PRNs 3, 7, 11, 20 over 41 Doppler bins."""
+    prns = [3, 7, 11, 20]
+    sats = [SatelliteSignalParams(prn=3, cn0_db_hz=45.0, doppler_hz=1310.0,
+                                  delay_chips=211.3,
+                                  nav_bits=np.ones(8, np.int8)),
+            SatelliteSignalParams(prn=11, cn0_db_hz=45.0, doppler_hz=-2890.0,
+                                  delay_chips=777.7,
+                                  nav_bits=np.ones(8, np.int8))]
+    x = generate_baseband(sats, FS, M * N, noise=True, seed=5
+                          ).reshape(M, N).astype(np.complex64)
+    codes = np.stack([jpc.sample_code(jpc.gps_l1_ca_code(p), FS, 1.023e6, N)
+                      for p in prns])
+    cfc = np.conj(np.fft.fft(codes, axis=-1)).astype(np.complex64)
+    dops = jpcps.doppler_grid(5000.0, 250.0)
+    assert len(dops) == 41
+    return x, cfc, dops
+
+
+def test_pcps_grid_matches_jax(grid_inputs):
+    x, cfc, dops = grid_inputs
+    want = np.asarray(jpcps.pcps_grid(jnp.asarray(x), jnp.asarray(cfc),
+                                      jnp.asarray(dops), FS))
+    got = ppcps.pcps_grid(torch.from_numpy(x), torch.from_numpy(cfc),
+                          torch.from_numpy(dops), FS).numpy()
+    assert got.shape == (C, 41, N)
+    assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
+
+
+def test_cfar_statistic_matches_jax(grid_inputs):
+    """max_to_input_power_stat on each side's grid, and the port's whole
+    search (wipeoff -> FFT -> product -> IFFT -> peak) against JAX."""
+    x, cfc, dops = grid_inputs
+    grid = jpcps.pcps_grid(jnp.asarray(x), jnp.asarray(cfc),
+                           jnp.asarray(dops), FS)
+    js, jd, jn = (np.asarray(a) for a in jpcps.max_to_input_power_stat(
+        grid, jnp.float32(M)))
+    t = ppcps.time_axis(N, FS, "cpu")
+    ps, pd, pn = (a.numpy() for a in ppcps.pcps_search(
+        torch.from_numpy(x), torch.from_numpy(cfc), torch.from_numpy(dops),
+        t))
+    assert np.array_equal(pd, jd) and np.array_equal(pn, jn)
+    assert pd.dtype == np.int32 and pn.dtype == np.int32
+    assert np.allclose(ps, js, rtol=1e-4)
+    # the two present satellites stand above the absent ones
+    assert min(ps[0], ps[2]) > max(ps[1], ps[3])
+
+
+def test_grid_peak_first_index_on_ties():
+    """argmax over (Doppler, delay) returns the FIRST maximal cell, as
+    jnp.argmax does (a flat grid is all ties)."""
+    g = np.zeros((2, 5, 7), np.float32)
+    g[1, 3, 2] = g[1, 1, 6] = g[1, 4, 0] = 2.0
+    jp, jd, jn = (np.asarray(a) for a in jpcps.grid_peak(jnp.asarray(g)))
+    pp, pd, pn = (a.numpy() for a in ppcps.grid_peak(torch.from_numpy(g)))
+    assert np.array_equal(pd, jd) and np.array_equal(pn, jn)
+    assert (pd[1], pn[1]) == (1, 6) and (pd[0], pn[0]) == (0, 0)
+
+
+def test_cfar_threshold_and_grid_copies():
+    assert np.array_equal(ppcps.doppler_grid(5000.0, 250.0, 100.0),
+                          jpcps.doppler_grid(5000.0, 250.0, 100.0))
+    for pfa, cells, dwells in ((0.01, 82000, 2), (1e-3, 41 * 4000, 1)):
+        assert ppcps.cfar_threshold(pfa, cells, dwells) == \
+            jpcps.cfar_threshold(pfa, cells, dwells)
+
+
+@pytest.fixture(scope="module")
+def capture():
+    x, _ = static_scenario_capture()
+    return x
+
+
+@pytest.mark.parametrize("where", ["host", "device"])
+def test_acquire_from_matches_jax(capture, where):
+    """The engines on the first 2 ms of the static scenario (PRNs 1-10 of
+    which 1, 3, 4, 5, 9, 10 are present): the same detections, Doppler and
+    delay.  'host' passes NumPy (the window starts exactly at the cursor);
+    'device' passes the device-resident capture (a JAX array / a tensor),
+    whose window start rounds down to the same 128-aligned row grid in
+    both, here from a cursor of 5000."""
+    prns = tuple(range(1, 11))
+    conf_j = jacq.AcqConf(fs_in=FS, max_dwells=2)
+    conf_p = pacq.AcqConf(fs_in=FS, max_dwells=2)
+    jeng = jacq.PcpsAcquisitionEngine(conf_j, prns)
+    peng = pacq.PcpsAcquisitionEngine(conf_p, prns, device="cpu")
+    assert peng.threshold == jeng.threshold
+    if where == "host":
+        x = capture[:8000]
+        jr = jeng.acquire_from(x, 0)
+        pr = peng.acquire_from(x, 0)
+    else:
+        x = capture[:40000]
+        jr = jeng.acquire_from(jnp.asarray(x), 5000)
+        pr = peng.acquire_from(torch.from_numpy(x), 5000)
+    assert pr.samplestamp == jr.samplestamp
+    assert np.array_equal(pr.detected, jr.detected)
+    assert sorted(np.asarray(prns)[pr.detected]) == [1, 3, 4, 5, 9, 10]
+    assert np.array_equal(pr.doppler_hz, jr.doppler_hz)
+    assert np.array_equal(pr.delay_samples, jr.delay_samples)
+    assert np.allclose(pr.test_stat, jr.test_stat, rtol=1e-4)
