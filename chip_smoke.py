@@ -7,23 +7,37 @@ Phases (any failure exits non-zero, before the result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions;
-2. build every kernel of the main path from the sources in this checkout
-   (the CUDA C++ libraries, one ``nvcc`` per source in parallel, and the
-   Triton kernels by a first launch);
-3. each kernel against its plain PyTorch version on the card at the shapes
-   of the main path, with the stated tolerance, and its time beside the
-   plain version's;
-4. the main path: a 26 s GPS L1 C/A capture at 2 Msps (the repo's static
-   scenario, synthesized by the port's own simulator and cached under
-   ``build/``) through ``Receiver(ReceiverConf(fs=2e6, prns=1..10,
-   max_channels=8)).process_array(x)``, with every kernel's launch counter
-   set to 0 just before and read just after; the tracked PRNs, the fix
-   count and the mean position error are checked against the scenario.
+2. build every kernel from the sources in this checkout (the CUDA C++
+   libraries, one ``nvcc`` per source in parallel; the Triton kernels
+   compile at their first launch).  Two child processes meanwhile
+   synthesize the captures of phases 4 and 4c into ``build/`` (outside
+   every timed window);
+3. each kernel (K1, K2, K3 wipeoff and peak, K3b, K5a, K5b, K5c, K5d in
+   both modes) against its plain PyTorch version on the card at the shape
+   its path launches it at, with the stated tolerance, and its time there
+   beside the plain version's and its bound;
+4. the main path, conf-driven: the repo's 26 s static scenario at 4 Msps
+   (synthesized by the port's own simulator, written as an ``ishort``
+   file) goes through ``python -m gnss_sim_receiver_tpu_torch
+   --config_file=...`` called in process: file -> SignalConditioner (x2
+   decimating FIR, K5a) -> Receiver with two-step acquisition (K3, K3b)
+   and tracking (K1, K2) -> position, with every launch counter set to 0
+   just before and read just after; the tracked PRNs, the fix count and
+   the mean position error are checked against the scenario;
+4b. the conditioner alone on the first 4 M samples, through pulse
+   blanking (K5c), FIR + direct resampler and the linear resampler (K5d),
+   and on the 1 M samples of phase 3's notch check through the notch (K5b):
+   counters read the same way, every output held against the plain
+   versions on the same input;
+4c. the array entry point, ``Receiver(ReceiverConf(fs=2e6, prns=1..10,
+   max_channels=8)).process_array(x)`` on an 8 s capture at 2 Msps: the
+   tracked set and the launches of K1, K2 and K3 are checked.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
 of JAX.  ``--profile`` adds a torch.profiler breakdown of a second run of
-the main path (device busy share, time by kernel).
+the main path (device busy share, time by kernel).  ``--kernels-only`` stops
+after phase 3 and prints no result line: the quick check of a new kernel.
 """
 
 from __future__ import annotations
@@ -45,6 +59,13 @@ SCENARIO_PRNS = (1, 3, 4, 5, 9, 10)
 T0 = 345600.0
 DUR = 26.0
 FS = 2_000_000.0
+FS_FILE = 4_000_000.0          # the capture file's rate (phase 4)
+DIRECT_DUR = 8.0               # phase 4c runs the array entry point this deep
+COND_SAMPLES = 4_000_000       # phase 4b: the conditioner alone
+# the notch (phases 3 and 4b): its sequential plain version takes about a
+# minute per million samples on the card, so both phases use this length
+NOTCH_SAMPLES = (1 << 20) + 5
+NOTCH_F0, NOTCH_BW = 0.1, 0.01
 RX_LLH = (40.0, -75.0, 100.0)
 
 
@@ -120,6 +141,26 @@ def compare(name, got, want, rtol: float) -> float:
 
 # ---- phase 3: each kernel against its plain version ------------------------
 
+def _row(name, route, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
+         shape, library_ms=None):
+    """One kernel's entry of the `kernels` line.  `shape` says at what
+    shape `ms`, `plain_ms`, `bound_ms` and `library_ms` were taken: the one
+    the kernel's path launches it at."""
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"  {name} [{shape}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}"
+          + ("" if library_ms is None else f", library {library_ms:.4f} ms"))
+    return dict(name=name, route=route, source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, shape=shape)
+
+
+def _cnoise(rng, n, dev):
+    import torch
+    x = torch.from_numpy(rng.standard_normal((n, 2)).astype(np.float32))
+    return torch.view_as_complex(x).to(dev)
+
+
 def check_k1(dev, rng):
     """K1 at the main-path shape: C=8 channels, E=20 epochs, K=3 taps,
     F=4096 bins, the window spectra of a 1000-epoch chunk."""
@@ -161,12 +202,11 @@ def check_k1(dev, rng):
     # per (c, e, f): lag angle 4, sincos 2, two complex products 12;
     # per tap: angle 3, sincos 2, complex multiply-accumulate 8
     n_ops = c * e * nfft * (18 + k * 13)
-    return dict(name="K1_block_correlate", route="cuda",
-                source="gnss_sim_receiver_tpu_torch/csrc/block_correlator.cu",
-                replaces="gnss_sim_receiver_tpu/models/tracking_block.py:148",
-                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
-                **dict(zip(("bound_ms", "bound_by"),
-                           bound_ms(n_bytes, n_ops))))
+    return _row("K1_block_correlate", "cuda",
+                "gnss_sim_receiver_tpu_torch/csrc/block_correlator.cu",
+                "gnss_sim_receiver_tpu/models/tracking_block.py:148",
+                err, ms, plain, n_bytes, n_ops,
+                f"C={c} channels, E={e} epochs, K={k} taps, F={nfft} bins")
 
 
 def check_k2(dev, rng):
@@ -207,30 +247,17 @@ def check_k2(dev, rng):
     # per sample: phase 3, sincos 2, wipeoff 6, chips 3; per tap: index 3,
     # multiply-accumulate 4
     n_ops = n_samp * (14 + 3 * 7)
-    return dict(name="K2_multicorrelate", route="cuda",
-                source="gnss_sim_receiver_tpu_torch/csrc/multicorrelator.cu",
-                replaces="gnss_sim_receiver_tpu/ops/correlator.py:39",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **dict(zip(("bound_ms", "bound_by"),
-                           bound_ms(n_bytes, n_ops))))
+    return _row("K2_multicorrelate", "cuda",
+                "gnss_sim_receiver_tpu_torch/csrc/multicorrelator.cu",
+                "gnss_sim_receiver_tpu/ops/correlator.py:39",
+                err, ms, plain_ms, n_bytes, n_ops,
+                f"C={c} channels, B={b}-sample blocks, K=3 taps")
 
 
 def acq_dwells(dev):
     """2 ms of the static scenario (6 satellites) for the K3 checks."""
     import torch
-    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
-        make_sky_constellation
-    from gnss_sim_receiver_tpu_torch.sim.scenario import \
-        build_static_scenario
-    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
-        generate_baseband
-    ephs = [e for e in make_sky_constellation(RX_LLH[0], RX_LLH[1],
-                                              toe=T0 + 600)
-            if e.prn in SCENARIO_PRNS]
-    sats = build_static_scenario(ephs, rx_true_ecef(), T0, 1.0,
-                                 cn0_db_hz=47.0, subframe_cycle=(1, 2, 3))
-    x = generate_baseband(sats, FS, 4000, noise=True, seed=42,
-                          bandlimit_oversample=4)
+    x = synthesize(FS, 1.0, n_samples=4000)
     return torch.from_numpy(x.astype(np.complex64)).to(dev).reshape(2, 2000)
 
 
@@ -255,14 +282,12 @@ def check_k3(dev):
     err = compare("K3 pcps_wipe", got, want, 1e-5)
     n_bytes = m * n * 8 + d * 4 + n * 4 + m * d * n * 8
     n_ops = m * d * n * (2 + 2 + 6)      # phase 2, sincos 2, product 6
-    out.append(dict(
-        name="K3_pcps_wipe", route="triton",
-        source="gnss_sim_receiver_tpu_torch/ops/pcps.py",
-        replaces="gnss_sim_receiver_tpu/ops/pcps.py:33", max_abs_err=err,
-        ms=time_ms(lambda: pcps.pcps_wipe(x, dops, t)),
-        plain_ms=time_ms(lambda: pcps._wipe_plain(x, dops, t)),
-        library_ms=None,
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, n_ops)))))
+    out.append(_row(
+        "K3_pcps_wipe", "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+        "gnss_sim_receiver_tpu/ops/pcps.py:33", err,
+        time_ms(lambda: pcps.pcps_wipe(x, dops, t)),
+        time_ms(lambda: pcps._wipe_plain(x, dops, t)), n_bytes, n_ops,
+        f"M={m} dwells, D={d} Doppler bins, N={n} samples"))
 
     spec = torch.fft.fft(want, dim=-1)
     corr = torch.fft.ifft(spec[:, None] * cfc[None, :, None], dim=-1)
@@ -272,14 +297,12 @@ def check_k3(dev):
     err = compare("K3 pcps_peak", got, want, 1e-4)
     n_bytes = m * c * d * n * 8 + c * 12
     n_ops = m * c * d * n * 3 + c * d * n * 2   # |.|^2 3, sum + compare 2
-    out.append(dict(
-        name="K3_pcps_peak", route="triton",
-        source="gnss_sim_receiver_tpu_torch/ops/pcps.py",
-        replaces="gnss_sim_receiver_tpu/ops/pcps.py:107", max_abs_err=err,
-        ms=time_ms(lambda: pcps.pcps_peak(corr, m)),
-        plain_ms=time_ms(lambda: pcps._peak_plain(corr, m)),
-        library_ms=None,
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, n_ops)))))
+    out.append(_row(
+        "K3_pcps_peak", "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+        "gnss_sim_receiver_tpu/ops/pcps.py:107", err,
+        time_ms(lambda: pcps.pcps_peak(corr, m)),
+        time_ms(lambda: pcps._peak_plain(corr, m)), n_bytes, n_ops,
+        f"M={m} dwells, C={c} channels, D={d} Doppler bins, N={n} samples"))
 
     # the whole search: port (wipeoff, cuFFT, peak) beside torch.fft + torch ops
     port = time_ms(lambda: pcps.pcps_search(x, cfc, dops, t))
@@ -293,7 +316,227 @@ def check_k3(dev):
     return out
 
 
-# ---- phase 4: the main path ------------------------------------------------
+def check_k5a(dev, rng):
+    """K5a against its plain version at N = 4 M (+3, an odd length):
+    decimation 1, 2, 4 x taps 5, 31, 63 without mixing, and three of those
+    with a nonzero IF (N < 2^24, where float32(n) holds every integer).
+    Then against its plain version, and timed, at the main path's shape:
+    the 26 s capture at 4 Msps (104 M samples), 31 taps, decimation 2, no
+    mixing."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import filters
+    x = _cnoise(rng, COND_SAMPLES + 3, dev)
+    worst = 0.0
+    cases = [(d, t, 0.0) for d in (1, 2, 4) for t in (5, 31, 63)]
+    cases += [(2, 31, 1.0e6), (1, 5, -412.5e3), (4, 63, 1.0e6)]
+    for dec, n_taps, fc in cases:
+        taps = torch.from_numpy(filters.design_lowpass(n_taps, 0.45)).to(dev)
+        w = filters.lo_step(fc, FS_FILE)
+        xs = x if fc == 0.0 else x[:COND_SAMPLES]
+        got = filters.fir_decim(xs, taps, dec, w)
+        want = filters._fir_plain(
+            xs if fc == 0.0 else filters._mix_plain(xs, w), taps, dec)
+        torch.cuda.synchronize()
+        # 1e-5 of the scale: the kernel sums the taps by fused multiply-adds
+        worst = max(worst, compare(
+            f"K5a fir_decim dec={dec} T={n_taps} IF={fc:g}", got, want, 1e-5))
+    del x, got, want
+    n, n_taps, dec = int(FS_FILE * DUR), 31, 2
+    x = _cnoise(rng, n, dev)
+    taps = torch.from_numpy(filters.design_lowpass(n_taps, 0.45)).to(dev)
+    got = filters.fir_decim(x, taps, dec)
+    want = filters._fir_plain(x, taps, dec)
+    torch.cuda.synchronize()
+    worst = max(worst, compare(
+        f"K5a fir_decim N={n} dec={dec} T={n_taps} (the main path's shape)",
+        got, want, 1e-5))
+    del want
+    ms = time_ms(lambda: filters.fir_decim(x, taps, dec), reps=3)
+    plain = time_ms(lambda: filters._fir_plain(x, taps, dec), reps=1)
+    # the library yardstick: one conv1d over the two planes, given them
+    # already split and padded (float32, TF32 off); the port never calls it
+    pad = n_taps // 2
+    planes = torch.nn.functional.pad(
+        torch.view_as_real(x).T.contiguous(), (pad, n_taps - 1 - pad))[:, None]
+    kern = taps.flip(0)[None, None].contiguous()
+    lib = torch.nn.functional.conv1d(planes, kern, stride=dec)
+    compare("K5a conv1d yardstick against the kernel",
+            torch.view_as_complex(lib[:, 0].T.contiguous()), got, 1e-5)
+    del lib, got
+    library = time_ms(lambda: torch.nn.functional.conv1d(planes, kern,
+                                                         stride=dec), reps=3)
+    n_out = -(-n // dec)
+    return _row("K5a_fir_decim", "cuda",
+                "gnss_sim_receiver_tpu_torch/csrc/fir_decim.cu",
+                "gnss_sim_receiver_tpu/ops/filters.py:29", worst, ms, plain,
+                8 * n + 4 * n_taps + 8 * n_out, 4 * n_taps * n_out,
+                f"N={n} samples, T={n_taps} taps, decimation {dec}, no mixing",
+                library)
+
+
+def check_k5b(dev, rng):
+    """K5b at the length, notch frequency and width that phase 4b gives it
+    (N = 1 M + 5: 16 CTAs of chunks, so the carries cross CTAs) against the
+    sequential plain version run on the card over the whole stream, with a
+    strong continuous wave on the notch.  Returns the row and the (input,
+    plain output) pair, which phase 4b sends through the conditioner."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import filters
+    n, f0, bw = NOTCH_SAMPLES, NOTCH_F0, NOTCH_BW
+    x = _cnoise(rng, n, dev)
+    x = x + 10.0 * torch.exp(2j * np.pi * f0 * torch.arange(
+        n, device=dev, dtype=torch.float64)).to(torch.complex64)
+    got = filters.notch_filter(x, f0, bw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = filters._notch_plain(x, *filters.notch_coefficients(f0, bw))
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    # 1e-4 of the scale: the chunk carries round differently from the
+    # sequential scan; the pole radius 1 - pi*bw forgets them
+    err = compare(f"K5b notch_filter N={n} f0={f0} bw={bw}", got, want, 1e-4)
+    ms = time_ms(lambda: filters.notch_filter(x, f0, bw))
+    for n_big in (COND_SAMPLES, int(FS_FILE * DUR)):
+        xb = _cnoise(rng, n_big, dev)
+        t = time_ms(lambda: filters.notch_filter(xb, f0, bw), reps=3)
+        print(f"  K5b notch_filter at N={n_big} (timed only): {t:.4f} ms "
+              f"(bound {bound_ms(16 * n_big, 16 * n_big)[0]:.4f} ms)")
+        del xb
+    row = _row("K5b_notch_filter", "cuda",
+               "gnss_sim_receiver_tpu_torch/csrc/notch.cu",
+               "gnss_sim_receiver_tpu/ops/filters.py:58", err, ms, plain,
+               16 * n, 16 * n,
+               f"N={n} samples, f0={f0}, bw={bw}; plain_ms is one eager run, "
+               "host-timed")
+    return row, (x, want)
+
+
+def check_k5c(dev, rng):
+    """K5c at 4 M samples with an even window count, and with an odd count
+    and a ragged tail; pulses over some windows.  The outputs must be
+    identical: the same windows blanked, every other sample untouched."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import filters
+    worst = 0.0
+    for n in (COND_SAMPLES, COND_SAMPLES - 64 + 17):
+        x = _cnoise(rng, n, dev) * float(np.sqrt(0.5))
+        for start in rng.integers(0, n - 200, 50):
+            x[start:start + 150] += 40.0
+        got = filters.pulse_blanking(x, 4.0, 64)
+        want = filters._blank_plain(x, 4.0, 64)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        print(f"  K5c pulse_blanking N={n} ({n // 64} windows): "
+              f"{int((want == 0).sum())} samples blanked, {n_diff} differ")
+        if n_diff:
+            fail(f"K5c pulse_blanking: {n_diff} samples differ")
+        worst = max(worst, float((got - want).abs().max()))
+    ms = time_ms(lambda: filters.pulse_blanking(x, 4.0, 64))
+    plain = time_ms(lambda: filters._blank_plain(x, 4.0, 64), reps=5)
+    return _row("K5c_pulse_blanking", "triton",
+                "gnss_sim_receiver_tpu_torch/ops/filters.py",
+                "gnss_sim_receiver_tpu/ops/filters.py:82", worst, ms, plain,
+                16 * n + 8 * (n // 64), 5 * n,
+                f"N={n} samples, {n // 64} windows of 64 and a ragged tail")
+
+
+def check_k5d(dev, rng):
+    """K5d, both modes at ratios 2.0 and 4/3 from 4 M samples.  Direct
+    must be identical (the same float32 index picks the same sample);
+    linear to 1e-6 of the scale (multiply-add contraction).  One row per
+    mode: each has its wrapper, its counter and its compiled kernel."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import resampler
+    n = COND_SAMPLES
+    x = _cnoise(rng, n, dev)
+    worst = 0.0
+    for ratio in (2.0, 4.0 / 3.0):
+        n_out = resampler.output_length(n, ratio, 1.0)
+        got = resampler.direct_resampler(x, ratio, n_out)
+        want = resampler._direct_plain(x, float(np.float32(ratio)), n_out)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"K5d direct_resampler ratio {ratio}: outputs differ")
+        print(f"  K5d direct_resampler ratio {ratio:.4f}: identical")
+        got = resampler.linear_resampler(x, ratio, n_out)
+        want = resampler._linear_plain(x, float(np.float32(ratio)), n_out)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(
+            f"K5d linear_resampler ratio {ratio:.4f}", got, want, 1e-6))
+    # both modes timed as phase 4b launches them: direct 4 M -> 2 M (ratio
+    # 2), linear 4 M -> 3 M (ratio 4/3)
+    src = "gnss_sim_receiver_tpu_torch/ops/resampler.py"
+    n_d = resampler.output_length(n, 2.0, 1.0)
+    n_l = resampler.output_length(n, 4.0 / 3.0, 1.0)
+    r32 = float(np.float32(4.0 / 3.0))
+    return [
+        _row("K5d_direct_resampler", "triton", src,
+             "gnss_sim_receiver_tpu/ops/resampler.py:25", 0.0,
+             time_ms(lambda: resampler.direct_resampler(x, 2.0, n_d)),
+             time_ms(lambda: resampler._direct_plain(x, 2.0, n_d), reps=5),
+             8 * n_d + 8 * n_d, 3 * n_d,
+             f"{n} -> {n_d} samples, ratio 2 (reads every second sample)"),
+        _row("K5d_linear_resampler", "triton", src,
+             "gnss_sim_receiver_tpu/ops/resampler.py:35", worst,
+             time_ms(lambda: resampler.linear_resampler(x, 4.0 / 3.0, n_l)),
+             time_ms(lambda: resampler._linear_plain(x, r32, n_l), reps=5),
+             8 * n + 8 * n_l, 10 * n_l,
+             f"{n} -> {n_l} samples, ratio 4/3")]
+
+
+def check_k3b(dev):
+    """K3b at the main-path shape: M=2 dwells, C=8 channels, D2=2*4+1=9
+    Doppler rows per channel, N=2000; then the whole two-step search
+    against its plain composition."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import (AcqConf,
+                                                                code_replicas)
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    acq = AcqConf(fs_in=FS, max_dwells=2)
+    x = acq_dwells(dev)
+    cfc = torch.from_numpy(code_replicas(acq, range(1, 9))).to(dev)
+    dops = torch.from_numpy(pcps.doppler_grid(5000.0, 250.0)).to(dev)
+    t = pcps.time_axis(2000, FS, dev)
+    m, n, c, d2 = 2, 2000, 8, 9
+    centers = dops[torch.arange(c, device=dev) * 5]
+    dops2 = (centers[:, None] + (torch.arange(d2, device=dev) - 4)[None, :]
+             * 125.0).to(torch.float32).contiguous()
+    got = pcps.pcps_wipe_per_channel(x, dops2, t)
+    want = pcps._wipe_per_channel_plain(x, dops2, t)
+    torch.cuda.synchronize()
+    err = compare("K3b pcps_wipe_per_channel", got, want, 1e-5)
+
+    def plain_search():
+        stat, di, de = pcps.max_to_input_power_stat(
+            pcps.pcps_grid(x, cfc, dops, FS), 2.0)
+        hz = dops[di.long()]
+        d2s = hz[:, None] + ((torch.arange(d2, device=dev) - 4)
+                             * 125.0).to(torch.float32)[None, :]
+        stat2, di2, _ = pcps.max_to_input_power_stat(
+            pcps.pcps_grid_per_channel(x, cfc, d2s, FS), 2.0)
+        return torch.stack([stat, torch.gather(d2s, 1, di2.long()[:, None]
+                                               )[:, 0],
+                            de.to(torch.float32), stat2])
+    got = pcps.pcps_search_two_steps(x, cfc, dops, t, True, 4, 125.0)
+    want = plain_search()
+    compare("K3b two-step search [4, C]", got, want, 1e-4)
+    port = time_ms(lambda: pcps.pcps_search_two_steps(x, cfc, dops, t, True,
+                                                      4, 125.0))
+    print(f"  K3b two-step search (M={m}, C={c}, D=41 then D2={d2}, N={n}): "
+          f"port {port:.4f} ms, torch.fft + torch ops yardstick "
+          f"{time_ms(plain_search):.4f} ms")
+    return _row("K3b_pcps_wipe_per_channel", "triton",
+                "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+                "gnss_sim_receiver_tpu/ops/pcps.py:65", err,
+                time_ms(lambda: pcps.pcps_wipe_per_channel(x, dops2, t)),
+                time_ms(lambda: pcps._wipe_per_channel_plain(x, dops2, t)),
+                m * n * 8 + c * d2 * 4 + n * 4 + m * c * d2 * n * 8,
+                m * c * d2 * n * 10,
+                f"M={m} dwells, C={c} channels, D2={d2} Doppler rows each, "
+                f"N={n} samples")
+
+
+# ---- phases 4, 4b, 4c: the main paths --------------------------------------
 
 def rx_true_ecef():
     from gnss_sim_receiver_tpu_torch.utils import geodesy
@@ -301,76 +544,296 @@ def rx_true_ecef():
                                RX_LLH[2])
 
 
-def scenario_capture(root: str) -> np.ndarray:
-    """The 26 s static scenario (6 satellites, 47 dB-Hz), cached."""
+CONF = """\
+GNSS-SDR.internal_fs_sps=2000000
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={capture}
+SignalSource.item_type=ishort
+SignalSource.sampling_frequency=4000000
+InputFilter.implementation=Freq_Xlating_Fir_Filter
+InputFilter.number_of_taps=31
+InputFilter.cutoff=0.45
+InputFilter.decimation_factor=2
+InputFilter.IF=0
+Resampler.implementation=Pass_Through
+Channels_1C.count=8
+Channels.in_acquisition=8
+Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition
+Acquisition_1C.coherent_integration_time_ms=1
+Acquisition_1C.pfa=0.01
+Acquisition_1C.doppler_max=5000
+Acquisition_1C.doppler_step=250
+Acquisition_1C.max_dwells=2
+Acquisition_1C.make_two_steps=true
+Acquisition_1C.second_nbins=4
+Acquisition_1C.second_doppler_step=125
+Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking
+Observables.implementation=Hybrid_Observables
+PVT.implementation=RTKLIB_PVT
+PVT.output_rate_ms=20
+"""
+
+
+def synthesize(fs: float, dur: float, n_samples=None) -> np.ndarray:
+    """The static scenario (6 satellites, 47 dB-Hz) at rate `fs`: all
+    `dur` seconds of it, or its first `n_samples` samples."""
     from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
         make_sky_constellation
     from gnss_sim_receiver_tpu_torch.sim.scenario import \
         build_static_scenario
     from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
         generate_baseband
-    path = os.path.join(root, "build", "static_scenario_26s_v2.npy")
-    if os.path.exists(path):
-        return np.load(path)
     ephs = [e for e in make_sky_constellation(RX_LLH[0], RX_LLH[1],
                                               toe=T0 + 600)
             if e.prn in SCENARIO_PRNS]
-    sats = build_static_scenario(ephs, rx_true_ecef(), T0, DUR,
+    sats = build_static_scenario(ephs, rx_true_ecef(), T0, dur,
                                  cn0_db_hz=47.0, subframe_cycle=(1, 2, 3))
-    x = generate_baseband(sats, FS, int(FS * DUR), noise=True, seed=42,
-                          bandlimit_oversample=4)
+    return generate_baseband(
+        sats, fs, int(fs * dur) if n_samples is None else n_samples,
+        noise=True, seed=42, bandlimit_oversample=4)
+
+
+def capture_paths(root: str) -> dict:
+    build = os.path.join(root, "build")
+    return {"file": os.path.join(build, "static_scenario_26s_4msps_v1.ishort"),
+            "direct": os.path.join(build, "static_scenario_8s_2msps_v1.npy")}
+
+
+def make_capture(root: str, which: str) -> None:
+    """Synthesize one capture into ``build/`` unless it is there: "file",
+    the 26 s scenario at 4 Msps as interleaved int16 (104 M samples,
+    416 MB), or "direct", its first 8 s at 2 Msps as complex64."""
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    path = capture_paths(root)[which]
+    if os.path.exists(path):
+        return
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.save(path + ".tmp.npy", x)
-    os.replace(path + ".tmp.npy", path)
-    return x
+    tmp = path + f".{os.getpid()}.tmp"
+    if which == "file":
+        write_samples(tmp, synthesize(FS_FILE, DUR), "ishort", scale=200.0)
+    else:
+        with open(tmp, "wb") as fh:
+            np.save(fh, synthesize(FS, DIRECT_DUR))
+    os.replace(tmp, path)
 
 
-def main_path(root: str, wrappers) -> dict:
-    import torch
-    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
-    from gnss_sim_receiver_tpu_torch.models.receiver import (Receiver,
-                                                             ReceiverConf)
-    from gnss_sim_receiver_tpu_torch.utils import geodesy
+def start_synthesis(root: str) -> dict:
+    """One child process per capture, so that the synthesis runs beside
+    phases 2 and 3."""
+    return {which: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--synthesize", which],
+        cwd=root) for which in capture_paths(root)}
+
+
+def wait_for(procs: dict, which: str) -> None:
     t0 = time.perf_counter()
-    x = scenario_capture(root)
-    print(f"  capture: {len(x)} samples ({x.nbytes / 1e6:.0f} MB), "
-          f"{time.perf_counter() - t0:.1f} s to synthesize or load")
-    rx = Receiver(ReceiverConf(fs=FS, prns=tuple(range(1, 11)),
-                               max_channels=8))
+    rc = procs[which].wait()
+    if rc != 0:
+        fail(f"synthesis of the {which!r} capture exited with {rc}")
+    print(f"  waited {time.perf_counter() - t0:.1f} s for the {which!r} "
+          "capture (synthesis, not timed)", flush=True)
+
+
+def reset(wrappers) -> None:
     for w in wrappers.values():
         w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run = rx.process_array(x)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+
+def read_launches(wrappers, needed) -> dict:
     launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"  launches: {launches}")
+    for name in needed:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on this path")
+    return launches
+
+
+def check_run(run, min_fixes: int) -> None:
+    """The tracked set and, with `min_fixes`, the fixes and the mean
+    position error against the scenario."""
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.utils import geodesy
     tracked = sorted(p for p, s in zip(run.channel_prns, run.channel_states)
                      if s == ChannelState.TRACKING)
+    print(f"  tracked PRNs {tracked}, {len(run.ephemerides)} ephemerides, "
+          f"{len(run.solutions)} fixes")
+    if tracked != list(SCENARIO_PRNS):
+        fail(f"tracked PRNs {tracked}, expected {list(SCENARIO_PRNS)}")
+    if not min_fixes:
+        return
     ref = (np.radians(RX_LLH[0]), np.radians(RX_LLH[1]))
     rx_true = rx_true_ecef()
     enu = np.array([geodesy.ecef_to_enu(s.rx_ecef_m - rx_true, ref)
                     for s in run.solutions]).reshape(-1, 3)
     if not np.isfinite(enu).all():
         fail("non-finite position")
-    err_2d = float(np.linalg.norm(enu.mean(0)[:2])) if len(enu) else np.inf
-    err_3d = float(np.linalg.norm(enu.mean(0))) if len(enu) else np.inf
-    print(f"  tracked PRNs {tracked}, {len(run.ephemerides)} ephemerides, "
-          f"{len(run.solutions)} fixes, mean error 2D {err_2d:.3f} m, "
-          f"3D {err_3d:.3f} m")
-    print(f"  wall {wall:.3f} s for {DUR:.0f} s of signal: real-time factor "
-          f"{DUR / wall:.3f}")
-    print(f"  launches: {launches}")
-    if tracked != list(SCENARIO_PRNS):
-        fail(f"tracked PRNs {tracked}, expected {list(SCENARIO_PRNS)}")
-    if len(run.solutions) < 5:
+    if len(run.solutions) < min_fixes:
         fail(f"only {len(run.solutions)} fixes")
+    err_2d = float(np.linalg.norm(enu.mean(0)[:2]))
+    err_3d = float(np.linalg.norm(enu.mean(0)))
+    print(f"  mean error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
     if not (err_2d < 2.0 and err_3d < 5.0):
         fail(f"position error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+
+
+MAIN_PATH_KERNELS = ("K1_block_correlate", "K2_multicorrelate",
+                     "K3_pcps_wipe", "K3_pcps_peak",
+                     "K3b_pcps_wipe_per_channel", "K5a_fir_decim")
+
+
+def main_path(root: str, wrappers) -> dict:
+    """Phase 4: conf file -> ishort capture -> conditioner -> receiver ->
+    position, through the port's CLI called in process."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    capture = capture_paths(root)["file"]
+    conf = os.path.join(root, "build", "chip_smoke_rx.conf")
+    with open(conf, "w") as fh:
+        fh.write(CONF.format(capture=capture))
+    print(f"  capture: {os.path.getsize(capture) / 1e6:.0f} MB ishort at "
+          f"{FS_FILE / 1e6:.0f} Msps; conf: {conf}")
+    reset(wrappers)
+    torch.cuda.synchronize()
+    res = run_cli([f"--config_file={conf}"])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, MAIN_PATH_KERNELS)
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    check_run(res.run, min_fixes=5)
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f} ({100 * sec['condition'] / wall:.1f} % of "
+          f"the wall time), receiver {sec['receiver']:.3f}")
+    print(f"  wall {wall:.3f} s from file open to the last fix for "
+          f"{DUR:.0f} s of signal: real-time factor {DUR / wall:.3f}")
     return launches
+
+
+COND_KERNELS = ("K5a_fir_decim", "K5b_notch_filter", "K5c_pulse_blanking",
+                "K5d_direct_resampler", "K5d_linear_resampler")
+
+
+def conditioner_path(root: str, wrappers, notch_case) -> dict:
+    """Phase 4b: SignalConditioner.process alone, once per configuration,
+    on the first 4 M samples of the capture file (the notch: on the
+    `notch_case` input of phase 3, whose sequential plain output is at
+    hand).  Every K5 kernel must be launched through it, and every output
+    is held against the plain versions composed on the same input."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.conditioner import \
+        SignalConditioner
+    from gnss_sim_receiver_tpu_torch.ops import filters, resampler
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import read_samples
+    x = read_samples(capture_paths(root)["file"], "ishort",
+                     count=COND_SAMPLES)
+    xd = torch.from_numpy(x).cuda()
+    x_notch, want_notch = notch_case
+    taps = torch.from_numpy(filters.design_lowpass(31, 0.45)).cuda()
+    # the output lengths as the conditioner computes them
+    n_half = resampler.output_length(COND_SAMPLES, 1.0, 1.0 / (4e6 / 2e6))
+    n_3m = resampler.output_length(COND_SAMPLES, 1.0, 1.0 / (4e6 / 3e6))
+    # name: (conf keys, input, plain version of the chain, tolerance as in
+    # phase 3; 0 means identical)
+    configs = {
+        "Notch_Filter": (
+            {"InputFilter.implementation": "Notch_Filter",
+             "InputFilter.f0_norm": str(NOTCH_F0),
+             "InputFilter.bw_norm": str(NOTCH_BW)},
+            x_notch.cpu().numpy(), lambda: want_notch, 1e-4),
+        "Pulse_Blanking_Filter": (
+            {"InputFilter.implementation": "Pulse_Blanking_Filter"},
+            x, lambda: filters._blank_plain(xd, 4.0, 64), 0.0),
+        "Fir_Filter + Direct_Resampler": (
+            {"InputFilter.implementation": "Fir_Filter",
+             "InputFilter.number_of_taps": "31",
+             "Resampler.implementation": "Direct_Resampler",
+             "Resampler.sample_freq_out": "2000000"},
+            x, lambda: resampler._direct_plain(
+                filters._fir_plain(xd, taps, 1), 2.0, n_half), 1e-5),
+        "Mmse_Resampler": (
+            {"Resampler.implementation": "Mmse_Resampler",
+             "Resampler.sample_freq_out": "3000000"},
+            x, lambda: resampler._linear_plain(
+                xd, float(np.float32(4e6 / 3e6)), n_3m), 1e-6),
+    }
+    reset(wrappers)
+    outputs = {}
+    for name, (props, x_in, _, _) in configs.items():
+        cond = SignalConditioner(InMemoryConfiguration(props), fs_in=FS_FILE)
+        t0 = time.perf_counter()
+        y = cond.process(x_in)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not (y.is_cuda and y.dtype == torch.complex64):
+            fail(f"conditioner {name}: output {y.device} {y.dtype}")
+        print(f"  {name}: {len(x_in)} -> {len(y)} samples at "
+              f"{cond.fs_out / 1e6:.3f} Msps, {dt:.3f} s with the upload")
+        outputs[name] = y
+    launches = read_launches(wrappers, COND_KERNELS)
+    for name, (_, _, plain, rtol) in configs.items():
+        want = plain()
+        if rtol:
+            compare(f"conditioner {name} against the plain chain",
+                    outputs[name], want, rtol)
+        elif not torch.equal(outputs[name], want):
+            fail(f"conditioner {name}: differs from the plain chain")
+        else:
+            print(f"  conditioner {name} against the plain chain: identical "
+                  f"({int((want == 0).sum())} samples blanked)")
+    return launches
+
+
+def direct_path(root: str, wrappers) -> dict:
+    """Phase 4c: the array entry point, Receiver.process_array on a
+    complex64 array at 2 Msps, 8 s of the scenario: long enough to acquire
+    and track, too short for a fix."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.receiver import (Receiver,
+                                                             ReceiverConf)
+    x = np.load(capture_paths(root)["direct"])
+    rx = Receiver(ReceiverConf(fs=FS, prns=tuple(range(1, 11)),
+                               max_channels=8))
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = rx.process_array(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers, MAIN_PATH_KERNELS[:4])
+    check_run(run, min_fixes=0)
+    print(f"  wall {wall:.3f} s for {DIRECT_DUR:.0f} s of signal: real-time "
+          f"factor {DIRECT_DUR / wall:.3f}")
+    return launches
+
+
+def array_entry_on_conditioned(root: str) -> None:
+    """The array entry point (PRNs 1-10, one-step acquisition) on the same
+    conditioned 26 s capture, timed beside the conf-driven receiver within
+    one process: host speed differs between machines, so only such a pair
+    says whether the two paths cost the same."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.conditioner import \
+        SignalConditioner
+    from gnss_sim_receiver_tpu_torch.models.receiver import (Receiver,
+                                                             ReceiverConf)
+    from gnss_sim_receiver_tpu_torch.utils.config import FileConfiguration
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import read_samples
+    conf = FileConfiguration(os.path.join(root, "build",
+                                          "chip_smoke_rx.conf"))
+    y = SignalConditioner(conf, fs_in=FS_FILE).process(
+        read_samples(capture_paths(root)["file"], "ishort"))
+    rx = Receiver(ReceiverConf(fs=FS, prns=tuple(range(1, 11)),
+                               max_channels=8))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = rx.process_array(y)
+    torch.cuda.synchronize()
+    print(f"  array entry point on the conditioned capture: receiver "
+          f"{time.perf_counter() - t0:.3f} s")
+    check_run(run, min_fixes=5)
 
 
 def profile_main_path(root: str) -> None:
@@ -379,20 +842,16 @@ def profile_main_path(root: str) -> None:
     device time by kernel and host time by operator."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from gnss_sim_receiver_tpu_torch.models.receiver import (Receiver,
-                                                             ReceiverConf)
-    x = scenario_capture(root)
-    rx = Receiver(ReceiverConf(fs=FS, prns=tuple(range(1, 11)),
-                               max_channels=8))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rx.process_array(x)
-    torch.cuda.synchronize()
-    print(f"  unprofiled second run: wall {time.perf_counter() - t0:.3f} s")
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    argv = ["--config_file=" + os.path.join(root, "build",
+                                            "chip_smoke_rx.conf")]
+    res = run_cli(argv)
+    print(f"  unprofiled second run: seconds {res.seconds}")
+    array_entry_on_conditioned(root)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rx.process_array(x)
+        run_cli(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
@@ -400,11 +859,16 @@ def profile_main_path(root: str) -> None:
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in avgs) / 1e6
+    # device events only (kernels and copies): an operator's entry carries
+    # its kernels' device time as well and would count it twice
+    from torch.autograd import DeviceType
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e6
     n_ops = sum(e.count for e in avgs if e.key.startswith("aten::"))
     print(f"  profiled run: wall {wall:.3f} s, device busy {busy:.3f} s "
-          f"({100 * busy / wall:.1f} %), {n_ops} aten operator calls")
-    for e in sorted(avgs, key=dev_us, reverse=True)[:15]:
+          f"({100 * busy / wall:.1f} %) in {sum(e.count for e in kernels)} "
+          f"kernels and copies, {n_ops} aten operator calls")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         print(f"    {dev_us(e) / 1e3:10.1f} ms  {e.count:8d}x  {e.key[:90]}")
     for e in sorted(avgs, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:10]:
@@ -413,11 +877,14 @@ def profile_main_path(root: str) -> None:
 
 
 def main() -> int:
+    root = os.path.dirname(os.path.abspath(__file__))
+    if sys.argv[1:2] == ["--synthesize"]:
+        make_capture(root, sys.argv[2])
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.abspath(__file__))
 
     print("== phase 1: card", flush=True)
     card = card_line()
@@ -427,9 +894,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
-    from gnss_sim_receiver_tpu_torch.ops import correlator, cuda_build, pcps
+    kernels_only = "--kernels-only" in sys.argv[1:]
+    procs = {} if kernels_only else start_synthesis(root)
+    try:
+        return run_phases(root, card, procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
+
+def run_phases(root: str, card: str, procs: dict) -> int:
+    """Phases 2 to 4c and the result lines; `procs` are the synthesis
+    children (none with --kernels-only)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.ops import (correlator, cuda_build,
+                                                 filters, pcps, resampler)
     print("== phase 2: build", flush=True)
     t0 = time.perf_counter()
     secs = cuda_build.build_all()
@@ -445,24 +927,47 @@ def main() -> int:
     rng = np.random.default_rng(1234)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    rows = [check_k1(dev, rng), check_k2(dev, rng), *check_k3(dev)]
+    k5b_row, notch_case = check_k5b(dev, rng)
+    rows = [check_k1(dev, rng), check_k2(dev, rng), *check_k3(dev),
+            check_k3b(dev), check_k5a(dev, rng), k5b_row,
+            check_k5c(dev, rng), *check_k5d(dev, rng)]
+    torch.cuda.empty_cache()
     print(f"  phase 3 took {time.perf_counter() - t0:.1f} s (includes the "
           "Triton compiles)", flush=True)
+    if not procs:
+        print(json.dumps({"kernels": rows}))
+        return 0
 
-    print("== phase 4: main path", flush=True)
     wrappers = {"K1_block_correlate": tb.block_correlate,
                 "K2_multicorrelate": correlator.multicorrelate,
                 "K3_pcps_wipe": pcps.pcps_wipe,
-                "K3_pcps_peak": pcps.pcps_peak}
+                "K3_pcps_peak": pcps.pcps_peak,
+                "K3b_pcps_wipe_per_channel": pcps.pcps_wipe_per_channel,
+                "K5a_fir_decim": filters.fir_decim,
+                "K5b_notch_filter": filters.notch_filter,
+                "K5c_pulse_blanking": filters.pulse_blanking,
+                "K5d_direct_resampler": resampler.direct_resampler,
+                "K5d_linear_resampler": resampler.linear_resampler}
+    print("== phase 4: main path (conf file -> capture file -> conditioner "
+          "-> receiver -> position)", flush=True)
+    for which in procs:           # no child may run beside a timed window
+        wait_for(procs, which)
     launches = main_path(root, wrappers)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
     if "--profile" in sys.argv[1:]:
         print("== profile of the main path", flush=True)
         profile_main_path(root)
+    print("== phase 4b: the conditioner alone", flush=True)
+    cond = conditioner_path(root, wrappers, notch_case)
+    for name in COND_KERNELS[1:]:
+        launches[name] = cond[name]
+    print("== phase 4c: the array entry point (process_array, "
+          f"{DIRECT_DUR:.0f} s at 2 Msps)", flush=True)
+    direct_path(root, wrappers)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

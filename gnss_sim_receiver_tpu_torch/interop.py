@@ -6,15 +6,25 @@ fields under dotted keys (``"dll.vel"``, ``"cn0_acc.sum_m2"``), which is the
 layout of the JAX package's TrackState too; the acquisition replica tables
 (conj code FFTs and Doppler bins) travel as a dict of arrays.  Feeding the
 same arrays to the JAX functions and to the port makes their state and
-tables identical, bit for bit.
+tables identical, bit for bit.  The conditioner's tables (FIR taps, beam
+weights) travel the same way, and :func:`receiver_conf_from_fields` turns a
+receiver configuration given as a plain dict of dataclass fields (the JAX
+package's ``dataclasses.asdict(ReceiverConf)``) into the port's.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from gnss_sim_receiver_tpu_torch.models.tracking import TrackState
+from gnss_sim_receiver_tpu_torch.models.acquisition import AcqConf
+from gnss_sim_receiver_tpu_torch.models.observables import ObsConf
+from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf
+from gnss_sim_receiver_tpu_torch.models.receiver import ReceiverConf
+from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
+                                                         TrackState)
 from gnss_sim_receiver_tpu_torch.ops import cn0 as cn0_ops
 from gnss_sim_receiver_tpu_torch.ops import loop_filters as lf
 
@@ -72,3 +82,88 @@ def acq_tables_from_numpy(arrays: dict, device) -> dict:
 def acq_tables_to_numpy(tables: dict) -> dict:
     """NumPy copies of the acquisition replica tables."""
     return {k: v.detach().cpu().numpy() for k, v in tables.items()}
+
+
+def conditioner_tables_to_numpy(cond) -> dict:
+    """NumPy copies of a SignalConditioner's tables: ``taps`` [T] float32
+    (FIR implementations) and ``beam_weights`` [E] complex64
+    (Beamformer_Filter).  Takes the port's conditioner or any object with
+    the same ``_taps`` / ``_beam_weights`` attributes (the JAX package's)."""
+    out = {}
+    taps = getattr(cond, "_taps", None)
+    if taps is not None:
+        out["taps"] = _to_numpy(taps).astype(np.float32)
+    weights = getattr(cond, "_beam_weights", None)
+    if weights is not None:
+        out["beam_weights"] = _to_numpy(weights).astype(np.complex64)
+    return out
+
+
+def conditioner_tables_from_numpy(cond, arrays: dict) -> None:
+    """Set the port conditioner's tables from NumPy arrays, on its device."""
+    if "taps" in arrays:
+        cond._taps = _to_tensor(np.asarray(arrays["taps"], np.float32),
+                                cond.device)
+    if "beam_weights" in arrays:
+        cond._beam_weights = _to_tensor(
+            np.asarray(arrays["beam_weights"], np.complex64), cond.device)
+
+
+def _conf_from_fields(cls, fields: dict, where: str):
+    """`cls(**fields)` for the fields the port's dataclass has.  A field it
+    lacks must hold its default on the other side, given in `_ABSENT`:
+    anything else selects a feature the port does not carry."""
+    known = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for name, value in fields.items():
+        if name in known:
+            kwargs[name] = value
+        elif name in _ABSENT[cls] and _ABSENT[cls][name] == value:
+            continue
+        else:
+            raise NotImplementedError(
+                f"{where}.{name}={value!r} is not ported")
+    return cls(**kwargs)
+
+
+# fields of the JAX package's confs that the port lacks, with the one value
+# (the default) under which the port computes the same thing
+_ABSENT = {
+    AcqConf: dict(threshold=0.0, use_cfar_algorithm=True,
+                  bit_transition_flag=False, variant="pcps", caf_bins=0,
+                  fine_doppler_iters=3, quicksync_fold=4, tong_init=1,
+                  tong_max=2, tong_max_dwells=10),
+    TrackingConf: dict(pll_filter_order=3, dll_filter_order=2,
+                       fll_decision_directed=False,
+                       very_early_late_space_chips=0.0, lock_rectify=False,
+                       tracking_mode="dll_pll", bayes_forgetting=0.995,
+                       bayes_nu0=30.0, extend_correlation_symbols=1,
+                       secondary_code=(), doppler_bias_hz=0.0,
+                       track_pilot=False, kf_q_code_chips2=1e-4,
+                       kf_q_phase_cyc2=1e-6, kf_q_dop_hz2=1.0,
+                       kf_q_doprate_hz2s2=10.0, kf_r_code_chips2=2e-3,
+                       kf_r_phase_cyc2=5e-4),
+    ObsConf: {},
+    PvtConf: dict(iono_alpha=(0.0,) * 4, iono_beta=(0.0,) * 4,
+                  raim_fde=False, raim_threshold_m=30.0,
+                  raim_max_exclusions=2),
+    ReceiverConf: dict(enable_pvt_kf=False, enable_pvt_ekf=False,
+                       pvt_ekf=None, rf_fs={}, chains=(), gps_chain=True,
+                       hybrid_mode=False, pre_2009_file=False, ps_channel=-1,
+                       ps_range_m=0.4, enable_rx_clock_propagation=False,
+                       clk_prop_after_n_fixes=10, share_rx_clock_bias=False,
+                       rtk=None, rtk_base_ecef_m=None),
+}
+
+
+def receiver_conf_from_fields(fields: dict) -> ReceiverConf:
+    """The port's ReceiverConf from a plain dict of a ReceiverConf's
+    dataclass fields, the nested acq / trk / obs / pvt confs as dicts too
+    (``dataclasses.asdict`` of the JAX package's conf).  Raises
+    NotImplementedError for a field that selects what the port lacks."""
+    fields = dict(fields)
+    for name, cls in (("acq", AcqConf), ("trk", TrackingConf),
+                      ("obs", ObsConf), ("pvt", PvtConf)):
+        if fields.get(name) is not None:
+            fields[name] = _conf_from_fields(cls, fields[name], name)
+    return _conf_from_fields(ReceiverConf, fields, "receiver")

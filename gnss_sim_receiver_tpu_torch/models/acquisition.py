@@ -3,8 +3,10 @@
 CFAR statistic, GPS L1 C/A).
 
 Given a window of samples, every searching channel's (Doppler x code delay)
-grid is searched in one batch (kernel K3, :func:`ops.pcps.pcps_search`),
-and one packed [3, C] buffer comes back to the host per acquisition.
+grid is searched in one batch (kernel K3), optionally refined on a narrow
+per-channel Doppler grid (kernel K3b, ``make_two_steps``), through
+:func:`ops.pcps.pcps_search_two_steps`, and one packed [4, C] buffer comes
+back to the host per acquisition.
 """
 
 from __future__ import annotations
@@ -22,13 +24,17 @@ from gnss_sim_receiver_tpu_torch.ops import pcps, prn_codes
 @dataclasses.dataclass
 class AcqConf:
     """Reference Acq_Conf (acquisition/libs/acq_conf.h:33-81) subset: the
-    single-step CFAR PCPS search."""
+    CFAR PCPS search with the optional two-step Doppler refinement."""
     fs_in: float = 2_000_000.0
     doppler_max: float = 5000.0
     doppler_step: float = 250.0
+    doppler_center: float = 0.0
     sampled_ms: int = 1
     max_dwells: int = 1
     pfa: float = 0.01
+    make_two_steps: bool = False
+    doppler_step2: float = 125.0
+    num_doppler_bins_step2: int = 4
 
 
 @dataclasses.dataclass
@@ -67,7 +73,8 @@ class PcpsAcquisitionEngine:
         self.code_fft_conj = upload(code_replicas(conf, self.prns),
                                     self.device)
         self.dopplers = upload(pcps.doppler_grid(conf.doppler_max,
-                                                 conf.doppler_step),
+                                                 conf.doppler_step,
+                                                 conf.doppler_center),
                                self.device)
         self._t = pcps.time_axis(self.fft_size, fs, self.device)
         n_cells = self.fft_size * len(self.dopplers)
@@ -79,7 +86,11 @@ class PcpsAcquisitionEngine:
         return self.fft_size * self.conf.max_dwells
 
     def acquire_from(self, x, start: int) -> AcqResults:
-        """Acquisition over the capture window that starts near `start`.
+        """Acquisition over the capture window that starts near `start`:
+        the coarse grid and, with `make_two_steps`, the narrow-grid Doppler
+        refinement (pcps_acquisition.cc:698-758) in one fused search with
+        one packed pull.  The step-two statistic is folded into the
+        detection as max(stat, stat2), both being the same CFAR statistic.
 
         A host capture (NumPy) has the window [start, start + need) sliced
         on the host and uploaded.  A device-resident capture (a tensor) is
@@ -105,11 +116,13 @@ class PcpsAcquisitionEngine:
                 raise ValueError(f"need {need} samples, got {len(seg)}")
             x_dwells = upload(seg, self.device)
         x_dwells = x_dwells.to(torch.complex64).reshape(m, n)
-        stat, dop_idx, del_idx = pcps.pcps_search(
-            x_dwells, self.code_fft_conj, self.dopplers, self._t)
-        buf = torch.stack([stat, self.dopplers[dop_idx.long()],
-                           del_idx.to(torch.float32)]).cpu().numpy()
-        stat = buf[0].astype(np.float64)
+        conf = self.conf
+        buf = pcps.pcps_search_two_steps(
+            x_dwells, self.code_fft_conj, self.dopplers, self._t,
+            two_steps=bool(conf.make_two_steps),
+            n_side=int(conf.num_doppler_bins_step2),
+            step2=float(conf.doppler_step2)).cpu().numpy()
+        stat = np.maximum(buf[0], buf[3]).astype(np.float64)
         return AcqResults(
             detected=stat > self.threshold, test_stat=stat,
             delay_samples=buf[2].astype(np.float64),

@@ -1,0 +1,211 @@
+"""Block factory: reference configuration strings -> engine configuration.
+
+PyTorch port of ``gnss_sim_receiver_tpu.models.factory`` for the GPS L1 C/A
+chain (reference GNSSBlockFactory, src/core/receiver/
+gnss_block_factory.cc:639-1335): maps the `Role.implementation` strings and
+per-role keys of a GNSS-SDR conf file onto the port's engine confs.
+
+The port carries one chain and a subset of its options.  A conf key that
+selects something the port lacks is never read and dropped: it raises
+NotImplementedError naming the key, with the words "not ported".
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from gnss_sim_receiver_tpu_torch.models.acquisition import AcqConf
+from gnss_sim_receiver_tpu_torch.models.observables import ObsConf
+from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf
+from gnss_sim_receiver_tpu_torch.models.receiver import Receiver, ReceiverConf
+from gnss_sim_receiver_tpu_torch.models.tracking import TrackingConf
+from gnss_sim_receiver_tpu_torch.utils.config import Configuration
+
+_ACQ_IMPL = "GPS_L1_CA_PCPS_Acquisition"
+_TRK_IMPL = "GPS_L1_CA_DLL_PLL_Tracking"
+# the signal groups of the JAX factory whose chains the port lacks
+_OTHER_SIGNALS = ("1B", "2S", "L5", "5X", "7X", "E6", "1G", "2G", "B1", "B3",
+                  "S1")
+_PVT_MODES = ("Single", "Static")
+
+
+def _not_ported(key: str, value, what: str = ""):
+    return NotImplementedError(
+        f"{key}={value}: {what + ' is ' if what else ''}not ported")
+
+
+def _refuse_unless(config: Configuration, key: str, default):
+    """Raise if `key` is set to anything but `default`, the one value the
+    port implements."""
+    value = config.property(key, default)
+    if value != default:
+        raise _not_ported(key, value)
+
+
+@dataclasses.dataclass
+class SourceSpec:
+    implementation: str
+    filename: str
+    item_type: str
+    sampling_frequency: float
+    samples: int
+
+
+def source_from_config(config: Configuration) -> SourceSpec:
+    return SourceSpec(
+        implementation=config.property("SignalSource.implementation",
+                                       "File_Signal_Source"),
+        filename=config.property("SignalSource.filename", ""),
+        item_type=config.property("SignalSource.item_type", "gr_complex"),
+        sampling_frequency=float(
+            config.property("SignalSource.sampling_frequency", 0)),
+        samples=config.property("SignalSource.samples", 0),
+    )
+
+
+def _check_impls(config: Configuration) -> None:
+    for key, impl in (("Acquisition_1C.implementation", _ACQ_IMPL),
+                      ("Tracking_1C.implementation", _TRK_IMPL)):
+        _refuse_unless(config, key, impl)
+
+
+def _acq_from_config(config: Configuration, base: AcqConf) -> AcqConf:
+    """Acquisition_1C.* keys -> AcqConf (the reference adapter's Acq_Conf
+    fill, gps_l1_ca_pcps_acquisition.cc)."""
+    p = "Acquisition_1C."
+    _refuse_unless(config, p + "use_CFAR_algorithm", True)
+    _refuse_unless(config, p + "bit_transition_flag", False)
+    pfa = config.property(p + "pfa", base.pfa)
+    if pfa <= 0:
+        raise _not_ported(p + "pfa", pfa, "a fixed threshold (pfa <= 0)")
+    return dataclasses.replace(
+        base,
+        doppler_max=float(config.property(p + "doppler_max",
+                                          base.doppler_max)),
+        doppler_step=float(config.property(p + "doppler_step",
+                                           base.doppler_step)),
+        sampled_ms=config.property(p + "coherent_integration_time_ms",
+                                   base.sampled_ms),
+        max_dwells=max(config.property(p + "max_dwells", base.max_dwells),
+                       1),
+        pfa=pfa,
+        make_two_steps=config.property(p + "make_two_steps",
+                                       base.make_two_steps),
+        doppler_step2=float(config.property(p + "second_doppler_step",
+                                            base.doppler_step2)),
+        num_doppler_bins_step2=config.property(
+            p + "second_nbins", base.num_doppler_bins_step2),
+    )
+
+
+def _trk_from_config(config: Configuration,
+                     base: TrackingConf) -> TrackingConf:
+    """Tracking_1C.* keys -> TrackingConf (the reference adapter's
+    Dll_Pll_Conf fill, dll_pll_conf.h:42-80)."""
+    p = "Tracking_1C."
+    _refuse_unless(config, p + "order", 3)
+    _refuse_unless(config, p + "extend_correlation_symbols", 1)
+    _refuse_unless(config, p + "very_early_late_space_chips", 0.0)
+    return dataclasses.replace(
+        base,
+        pll_bw_hz=config.property(p + "pll_bw_hz", base.pll_bw_hz),
+        dll_bw_hz=config.property(p + "dll_bw_hz", base.dll_bw_hz),
+        enable_fll_pullin=config.property(p + "enable_fll_pullin",
+                                          base.enable_fll_pullin),
+        fll_bw_hz=config.property(p + "fll_bw_hz", base.fll_bw_hz),
+        early_late_space_chips=config.property(
+            p + "early_late_space_chips", base.early_late_space_chips),
+        cn0_min_db_hz=config.property(p + "cn0_min", base.cn0_min_db_hz),
+        max_lock_fail=config.property(p + "max_lock_fail",
+                                      base.max_lock_fail),
+        pll_bw_narrow_hz=config.property(p + "pll_bw_narrow_hz",
+                                         base.pll_bw_narrow_hz),
+        dll_bw_narrow_hz=config.property(p + "dll_bw_narrow_hz",
+                                         base.dll_bw_narrow_hz),
+    )
+
+
+def _pinned_channels(config: Configuration, offset: int, count: int) -> dict:
+    """Channel<i>.satellite pinning for the chain occupying global channel
+    indexes [offset, offset+count) (assign_channels,
+    gnss_flowgraph.cc:1391-1415)."""
+    pinned = {}
+    for i in range(count):
+        sat = config.property(f"Channel{offset + i}.satellite", 0)
+        if sat:
+            pinned[i] = sat
+    return pinned
+
+
+def pvt_conf_from_config(config: Configuration) -> PvtConf:
+    """PVT solver keys (the rtklib_pvt adapter's conf fill,
+    rtklib_pvt.cc:78-917, the solver-behavior subset)."""
+    mode = config.property("PVT.positioning_mode", "Single")
+    if mode not in _PVT_MODES:
+        raise _not_ported("PVT.positioning_mode", mode)
+    _refuse_unless(config, "PVT.iono_model", "OFF")
+    _refuse_unless(config, "PVT.trop_model", "OFF")
+    _refuse_unless(config, "PVT.raim_fde", False)
+    return PvtConf(
+        positioning_mode=mode,
+        elevation_mask_deg=config.property("PVT.elevation_mask", 5.0),
+        max_gdop=config.property("PVT.threshold_reject_GDOP", 30.0),
+        # fork receiver-antenna attitude (rtklib_pvt.cc:92-94)
+        antenna_attitude_fix=config.property(
+            "ReceiverAntennaAttitude.fix", True),
+        antenna_az_rad=np.radians(config.property(
+            "ReceiverAntennaAttitude.az_deg", 0.0)),
+        antenna_el_rad=np.radians(config.property(
+            "ReceiverAntennaAttitude.el_deg", 90.0)),
+    )
+
+
+def receiver_conf_from_config(config: Configuration) -> ReceiverConf:
+    """Build the receiver configuration from reference-style keys for the
+    GPS L1 C/A chain."""
+    fs = float(config.property("GNSS-SDR.internal_fs_sps", 2_000_000))
+    for sig in _OTHER_SIGNALS:
+        key = f"Channels_{sig}.count"
+        n = config.property(key, 0)
+        if n > 0:
+            raise _not_ported(key, n, f"the {sig} signal chain")
+    _refuse_unless(config, "GNSS-SDR.use_acquisition_resampler", False)
+    # fork hybrid/pseudolite + rx clock keys (rtklib_pvt.cc:910-917)
+    _refuse_unless(config, "GNSS-SDR.hybrid_mode", False)
+    _refuse_unless(config, "GNSS-SDR.pre_2009_file", False)
+    _refuse_unless(config, "GNSS-SDR.pseudo_sat_ch_id", -1)
+    _refuse_unless(config, "PVT.enable_rx_clock_propagation", False)
+    _refuse_unless(config, "PVT.share_rx_clock_bias", False)
+    _refuse_unless(config, "PVT.enable_pvt_kf", False)
+    _refuse_unless(config, "Observables.smoothing_factor", 0)
+
+    # GPS L1 C/A is the reference's default chain: 8 channels when the conf
+    # does not say
+    n_1c = config.property("Channels_1C.count", 8)
+    if n_1c < 1:
+        raise ValueError("Channels_1C.count must be at least 1: the port "
+                         "carries the GPS L1 C/A chain only")
+    _check_impls(config)
+    acq = _acq_from_config(
+        config, AcqConf(fs_in=fs, doppler_max=5000, doppler_step=250,
+                        sampled_ms=1, max_dwells=2, pfa=0.01))
+    trk = _trk_from_config(config, TrackingConf(fs=fs))
+    interval_ms = config.property("Observables.observable_interval_ms", 20)
+    obs = ObsConf(fs=fs, interval_ms=interval_ms)
+    in_acq = config.property("Channels.in_acquisition", 0)
+    return ReceiverConf(
+        pinned_channels=_pinned_channels(config, 0, n_1c),
+        fs=fs, prns=tuple(range(1, 33)), max_channels=n_1c,
+        max_acq_channels=min(in_acq, n_1c) if in_acq else n_1c,
+        acq=acq, trk=trk, obs=obs, pvt=pvt_conf_from_config(config),
+        output_rate_ms=interval_ms,
+        pvt_rate_ms=config.property("PVT.output_rate_ms", 0),
+    )
+
+
+def make_receiver(config: Configuration, device=None) -> Receiver:
+    """The receiver a conf file describes.  `device=None` means the CUDA
+    card and raises without one."""
+    return Receiver(receiver_conf_from_config(config), device=device)

@@ -49,6 +49,13 @@ class ReceiverConf:
     pvt: PvtConf | None = None
     chunk_epochs: int = 1000          # 1 ms epochs per chunk (chunk ~ 1 s)
     output_rate_ms: int = 20          # observable (and PVT) epoch interval
+    # PVT solve cadence (reference PVT.output_rate_ms vs
+    # Observables.observable_interval_ms split): observable epochs form
+    # every output_rate_ms; the solver runs only on epochs aligned to
+    # pvt_rate_ms.  0 = solve on every observable epoch.
+    pvt_rate_ms: int = 0
+    # channel index -> PRN pinning (Channel<i>.satellite)
+    pinned_channels: dict = dataclasses.field(default_factory=dict)
     # telemetry fail-safe: drop a TRACKING channel that produced no valid
     # TOW for this long (gps_l1_ca_telemetry_decoder_gs.cc:448-460); 0 off
     tlm_timeout_s: float = 30.0
@@ -86,7 +93,8 @@ class _ChainRt:
         self.n_channels = n
         self.trk_conf = conf.trk
         self.mgr = AcquisitionManager(conf.prns, n,
-                                      max_acq_channels=conf.max_acq_channels)
+                                      max_acq_channels=conf.max_acq_channels,
+                                      pinned=conf.pinned_channels)
         self.trk = TrackingEngine(conf.trk, prns=[0] * n, device=device)
         self.tlm = TelemetryDecoder([0] * n)
         self.nominal = conf.trk.nominal_epoch_samples
@@ -367,6 +375,10 @@ class ReceiverSession:
         freq_map = np.full(self.n_total, conf.trk.carrier_freq_hz)
         for epoch in self.obs_eng.pull_ticks(tick_bound):
             self.obs_epochs.append(epoch)
+            # PVT solve cadence (PVT.output_rate_ms decimation)
+            if conf.pvt_rate_ms and int(round(
+                    epoch.rx_time_s * 1000.0)) % conf.pvt_rate_ms:
+                continue
             sol = solve_pvt(epoch, prn_map, self.ephemerides, conf.pvt,
                             x0=None if self.last_fix is None
                             else self.last_fix.rx_ecef_m,

@@ -10,7 +10,7 @@ importing this module builds nothing.
 
 No ``--use_fast_math``: the block correlator's angles reach ~2*pi*(1 +
 |f|/2N) and ``__sinf`` would lose the accuracy its int32 angle reduction
-keeps.
+keeps; the FIR kernel's LO phase reaches millions of radians.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("block_correlator", "multicorrelator")
+SOURCES = ("block_correlator", "multicorrelator", "fir_decim", "notch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,4 +1,4 @@
-"""Batched Parallel Code Phase Search (PCPS) acquisition (kernel K3).
+"""Batched Parallel Code Phase Search (PCPS) acquisition (kernels K3 and K3b).
 
 PyTorch port of ``gnss_sim_receiver_tpu.ops.pcps``, GPS L1 C/A path: the
 whole (channels x Doppler bins x code delay) grid of one acquisition is
@@ -18,10 +18,17 @@ The search is cut into two hand-written Triton kernels with cuFFT
   ``max_to_input_power_stat``).  The [C, D, N] grid never reaches device
   memory.
 
+The two-step refinement (kernel K3b) searches a narrow Doppler row set per
+channel around each coarse hit: :func:`pcps_wipe_per_channel` writes the
+[M, C, D2, N] wiped dwells from a [C, D2] Doppler table built on the device,
+and the same cuFFT and peak stages follow.  :func:`pcps_search_two_steps`
+chains both steps and packs (stat, doppler_hz, delay_idx, stat2) as [4, C],
+with no host pull between the steps.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors.  :func:`pcps_grid`, :func:`grid_peak` and
-:func:`max_to_input_power_stat` are the plain versions, line for line with
-the JAX functions.
+version for CPU tensors.  :func:`pcps_grid`, :func:`pcps_grid_per_channel`,
+:func:`grid_peak` and :func:`max_to_input_power_stat` are the plain
+versions, line for line with the JAX functions.
 """
 
 from __future__ import annotations
@@ -79,6 +86,28 @@ def pcps_grid(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
     wiped = _wipe_plain(x_dwells, dopplers, time_axis(n, fs, x_dwells.device))
     spec = torch.fft.fft(wiped, dim=-1)
     prod = spec[:, None, :, :] * code_fft_conj[None, :, None, :]
+    corr = torch.fft.ifft(prod, dim=-1)
+    mag = corr.real ** 2 + corr.imag ** 2
+    return torch.sum(mag, dim=0)
+
+
+def _wipe_per_channel_plain(x_dwells, dopplers, t):
+    phase = -2.0 * math.pi * dopplers[:, :, None] * t[None, None, :]
+    carrier = torch.complex(torch.cos(phase), torch.sin(phase))   # [C, D, N]
+    return x_dwells[:, None, None, :] * carrier[None]             # [M,C,D,N]
+
+
+def pcps_grid_per_channel(x_dwells: torch.Tensor,
+                          code_fft_conj: torch.Tensor,
+                          dopplers: torch.Tensor, fs: float) -> torch.Tensor:
+    """PCPS grid [C, D, N] float32 where every channel searches its OWN
+    Doppler bin set, `dopplers` [C, D] (plain version of the two-step
+    refinement up to the grid; pcps_acquisition.cc:698-758 make_2_steps)."""
+    m, n = x_dwells.shape
+    wiped = _wipe_per_channel_plain(x_dwells, dopplers,
+                                    time_axis(n, fs, x_dwells.device))
+    spec = torch.fft.fft(wiped, dim=-1)
+    prod = spec * code_fft_conj[None, :, None, :]
     corr = torch.fft.ifft(prod, dim=-1)
     mag = corr.real ** 2 + corr.imag ** 2
     return torch.sum(mag, dim=0)
@@ -208,16 +237,49 @@ def pcps_wipe(x_dwells: torch.Tensor, dopplers: torch.Tensor,
     m, n = x_dwells.shape
     d = dopplers.shape[0]
     out = torch.empty((m, d, n), dtype=torch.complex64, device=dev)
-    wipe_kernel, _, _ = _kernels()
-    block = 1024
-    wipe_kernel[((n + block - 1) // block, d, m)](
-        torch.view_as_real(x_dwells), t, dopplers, torch.view_as_real(out),
-        n, d, float(np.float32(-2.0 * math.pi)), BLOCK=block, num_warps=4)
+    _launch_wipe(x_dwells, dopplers, t, out)
     pcps_wipe.launches += 1
     return out
 
 
 pcps_wipe.launches = 0
+
+
+def _launch_wipe(x_dwells, dopplers, t, out):
+    """The wipeoff kernel over `dopplers.numel()` Doppler rows: row r of
+    every dwell of `out` is x * exp(-j 2 pi dopplers.flat[r] t)."""
+    m, n = x_dwells.shape
+    rows = dopplers.numel()
+    wipe_kernel, _, _ = _kernels()
+    block = 1024
+    wipe_kernel[((n + block - 1) // block, rows, m)](
+        torch.view_as_real(x_dwells), t, dopplers, torch.view_as_real(out),
+        n, rows, float(np.float32(-2.0 * math.pi)), BLOCK=block, num_warps=4)
+
+
+def pcps_wipe_per_channel(x_dwells: torch.Tensor, dopplers: torch.Tensor,
+                          t: torch.Tensor) -> torch.Tensor:
+    """K3b wipeoff kernel: [M, N] dwells x [C, D2] per-channel Doppler table
+    -> [M, C, D2, N] complex64 wiped dwells (the cuFFT input of the
+    two-step refinement).  The wipeoff kernel runs with the table's C * D2
+    rows as its Doppler axis."""
+    if not check_kernel_device(x_dwells, "pcps_wipe_per_channel"):
+        return _wipe_per_channel_plain(x_dwells, dopplers, t)
+    dev = x_dwells.device
+    require(x_dwells, torch.complex64, dev, "pcps_wipe_per_channel: x_dwells")
+    require(dopplers, torch.float32, dev, "pcps_wipe_per_channel: dopplers")
+    require(t, torch.float32, dev, "pcps_wipe_per_channel: t")
+    if dopplers.dim() != 2:
+        raise ValueError("pcps_wipe_per_channel: dopplers must be [C, D2]")
+    m, n = x_dwells.shape
+    c, d2 = dopplers.shape
+    out = torch.empty((m, c, d2, n), dtype=torch.complex64, device=dev)
+    _launch_wipe(x_dwells, dopplers, t, out)
+    pcps_wipe_per_channel.launches += 1
+    return out
+
+
+pcps_wipe_per_channel.launches = 0
 
 
 def pcps_peak(corr: torch.Tensor, n_dwells: int):
@@ -262,3 +324,30 @@ def pcps_search(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
     corr = torch.fft.ifft(spec[:, None, :, :]
                           * code_fft_conj[None, :, None, :], dim=-1)
     return pcps_peak(corr, m)
+
+
+def pcps_search_two_steps(x_dwells: torch.Tensor,
+                          code_fft_conj: torch.Tensor,
+                          dopplers: torch.Tensor, t: torch.Tensor,
+                          two_steps: bool, n_side: int,
+                          step2: float) -> torch.Tensor:
+    """The fused search of the JAX engine: the coarse CFAR search, then
+    (with `two_steps`) every channel's narrow grid of 2 * n_side + 1 bins
+    `step2` Hz apart around its coarse Doppler.  Returns the packed [4, C]
+    float32 buffer (stat, doppler_hz, delay_idx, stat2); stat2 is 0 without
+    the second step.  Nothing is pulled to the host in between."""
+    m = x_dwells.shape[0]
+    stat, dop_idx, del_idx = pcps_search(x_dwells, code_fft_conj, dopplers, t)
+    dop_hz = dopplers[dop_idx.long()]
+    stat2 = torch.zeros_like(stat)
+    if two_steps:
+        offs = ((torch.arange(2 * n_side + 1, device=dopplers.device)
+                 - n_side) * float(np.float32(step2))).to(torch.float32)
+        dops2 = (dop_hz[:, None] + offs[None, :]).contiguous()    # [C, D2]
+        wiped = pcps_wipe_per_channel(x_dwells, dops2, t)
+        spec = torch.fft.fft(wiped, dim=-1)
+        corr = torch.fft.ifft(spec * code_fft_conj[None, :, None, :], dim=-1)
+        stat2, dop2_idx, _ = pcps_peak(corr, m)
+        dop_hz = torch.gather(dops2, 1, dop2_idx.long()[:, None])[:, 0]
+    return torch.stack([stat.to(torch.float32), dop_hz.to(torch.float32),
+                        del_idx.to(torch.float32), stat2.to(torch.float32)])

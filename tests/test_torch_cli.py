@@ -1,0 +1,233 @@
+"""The port's factory and CLI against the JAX package's: one conf text
+builds both receiver configurations, which must agree field by field; conf
+keys for what the port lacks are refused by name; and
+``python -m gnss_sim_receiver_tpu_torch --config_file=... --device=cpu``
+runs a 4 Msps ishort capture through the conditioner and the receiver as
+``python -m gnss_sim_receiver_tpu`` does.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from gnss_sim_receiver_tpu.__main__ import main as jax_main
+from gnss_sim_receiver_tpu.models import factory as jfactory
+from gnss_sim_receiver_tpu.utils.config import \
+    FileConfiguration as JaxFileConfiguration
+from gnss_sim_receiver_tpu_torch import interop
+from gnss_sim_receiver_tpu_torch.__main__ import main, run_cli, unported_key
+from gnss_sim_receiver_tpu_torch.models import factory
+from gnss_sim_receiver_tpu_torch.utils.config import (FileConfiguration,
+                                                      InMemoryConfiguration)
+from gnss_sim_receiver_tpu_torch.utils.sample_io import (read_samples,
+                                                         write_samples)
+from tests.fixtures import static_scenario_capture
+
+# the canonical operating point: a 4 Msps ishort file decimated x2 inside
+# the receiver, 8 channels, two-step acquisition
+CONF = """\
+GNSS-SDR.internal_fs_sps=2000000
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={filename}
+SignalSource.item_type=ishort
+SignalSource.sampling_frequency=4000000
+SignalConditioner.implementation=Signal_Conditioner
+DataTypeAdapter.implementation=Ishort_To_Complex
+InputFilter.implementation=Freq_Xlating_Fir_Filter
+InputFilter.number_of_taps=31
+InputFilter.cutoff=0.45
+InputFilter.decimation_factor=2
+InputFilter.IF=0
+Resampler.implementation=Pass_Through
+Channels_1C.count=8
+Channels.in_acquisition=8
+Channel.signal=1C
+Channel3.satellite=9
+Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition
+Acquisition_1C.coherent_integration_time_ms=1
+Acquisition_1C.pfa=0.01
+Acquisition_1C.doppler_max=5000
+Acquisition_1C.doppler_step=250
+Acquisition_1C.max_dwells=2
+Acquisition_1C.make_two_steps=true
+Acquisition_1C.second_nbins=4
+Acquisition_1C.second_doppler_step=125
+Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking
+Tracking_1C.pll_bw_hz=35.0
+Tracking_1C.dll_bw_hz=2.0
+TelemetryDecoder_1C.implementation=GPS_L1_CA_Telemetry_Decoder
+Observables.implementation=Hybrid_Observables
+PVT.implementation=RTKLIB_PVT
+PVT.output_rate_ms=20
+"""
+
+
+def _write_conf(tmp_path, text, name="rx.conf"):
+    path = tmp_path / name
+    path.write_text(text)
+    return path
+
+
+def test_factory_matches_jax_field_by_field(tmp_path):
+    path = _write_conf(tmp_path, CONF.format(filename="cap.ishort"))
+    ref = jfactory.receiver_conf_from_config(JaxFileConfiguration(path))
+    got = factory.receiver_conf_from_config(FileConfiguration(path))
+    # the JAX conf as a plain dict of its dataclass fields, turned into the
+    # port's: every field the port has must agree, and every field it lacks
+    # must hold the value under which both compute the same thing
+    want = interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    assert got == want
+    for name in ("acq", "trk", "obs", "pvt"):
+        for f in dataclasses.fields(getattr(got, name)):
+            assert getattr(getattr(got, name), f.name) == \
+                getattr(getattr(ref, name), f.name), (name, f.name)
+    assert got.acq.make_two_steps and got.acq.doppler_step2 == 125.0
+    assert got.acq.num_doppler_bins_step2 == 4
+    assert got.max_channels == 8 and got.max_acq_channels == 8
+    assert got.pinned_channels == {3: 9} == ref.pinned_channels
+    assert got.pvt_rate_ms == 20 == ref.pvt_rate_ms
+    assert got.prns == tuple(range(1, 33))
+    src = factory.source_from_config(FileConfiguration(path))
+    ref_src = jfactory.source_from_config(JaxFileConfiguration(path))
+    for f in dataclasses.fields(src):
+        assert getattr(src, f.name) == getattr(ref_src, f.name)
+    assert src.item_type == "ishort" and src.sampling_frequency == 4e6
+
+
+def test_factory_defaults_match_jax():
+    from gnss_sim_receiver_tpu.utils.config import \
+        InMemoryConfiguration as JaxInMemory
+    ref = jfactory.receiver_conf_from_config(JaxInMemory())
+    got = factory.receiver_conf_from_config(InMemoryConfiguration())
+    assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    assert got.max_channels == 8 and not got.acq.make_two_steps
+
+
+@pytest.mark.parametrize("line", [
+    "Acquisition_1C.implementation=Exotic_Acq",
+    "Acquisition_1C.implementation=GPS_L1_CA_PCPS_Tong_Acquisition",
+    "Acquisition_1C.use_CFAR_algorithm=false",
+    "Acquisition_1C.bit_transition_flag=true",
+    "Acquisition_1C.pfa=0",
+    "Tracking_1C.implementation=GPS_L1_CA_KF_Tracking",
+    "Tracking_1C.extend_correlation_symbols=20",
+    "Tracking_1C.order=2",
+    "Channels_1B.count=4",
+    "Channels_L5.count=2",
+    "PVT.positioning_mode=RTK_Static",
+    "PVT.positioning_mode=PPP_Static",
+    "PVT.iono_model=Broadcast",
+    "PVT.raim_fde=true",
+    "PVT.enable_pvt_kf=true",
+    "GNSS-SDR.hybrid_mode=true",
+    "GNSS-SDR.pseudo_sat_ch_id=3",
+    "GNSS-SDR.pre_2009_file=true",
+    "GNSS-SDR.use_acquisition_resampler=true",
+])
+def test_factory_refuses_unported_keys(tmp_path, line):
+    """A key that selects what the port lacks raises NotImplementedError
+    naming the key, with the words "not ported"; the key is never read and
+    dropped."""
+    path = _write_conf(tmp_path, line + "\n", "bad.conf")
+    key = line.split("=")[0]
+    with pytest.raises(NotImplementedError, match="not ported") as err:
+        factory.receiver_conf_from_config(FileConfiguration(path))
+    assert key in str(err.value)
+
+
+def test_interop_refuses_fields_the_port_lacks():
+    from gnss_sim_receiver_tpu.models.acquisition import AcqConf
+    from gnss_sim_receiver_tpu.models.receiver import ReceiverConf
+    ref = ReceiverConf(acq=AcqConf(variant="tong"))
+    with pytest.raises(NotImplementedError, match="acq.variant"):
+        interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+
+
+@pytest.mark.parametrize("line,key", [
+    ("PVT.flag_kml=true", "PVT.flag_kml"),
+    ("PVT.rinex_output_enabled=true", "PVT.rinex_output_enabled"),
+    ("PVT.nmea_dump_filename=out.nmea", "PVT.nmea_dump_filename"),
+    ("Monitor.enable_monitor=true", "Monitor.enable_monitor"),
+    ("GNSS-SDR.SUPL_gps_enabled=true", "GNSS-SDR.SUPL_gps_enabled"),
+    ("SignalSource.implementation=File_Timestamp_Signal_Source",
+     "SignalSource.implementation"),
+    ("SignalSource.implementation=Labsat_Signal_Source",
+     "SignalSource.implementation"),
+    ("Channels_1B.count=4", "Channels_1B.count"),
+])
+def test_cli_stops_on_unported_features(tmp_path, capsys, line, key):
+    """Exit code 2 and a message naming the key, before any file is read."""
+    path = _write_conf(tmp_path, CONF.format(filename="absent.ishort")
+                       + line + "\n")
+    assert main([f"--config_file={path}", "--device=cpu"]) == 2
+    err = capsys.readouterr().err
+    assert key in err and "not ported" in err
+
+
+def test_cli_refuses_the_log_flags(tmp_path):
+    path = _write_conf(tmp_path, CONF.format(filename="absent.ishort"))
+    with pytest.raises(SystemExit) as err:
+        main([f"--config_file={path}", "--device=cpu", "--log_dir=/tmp"])
+    assert err.value.code == 2
+    assert unported_key(FileConfiguration(path)) is None
+
+
+def test_cli_needs_a_card_or_cpu_by_name(tmp_path):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card path is the "
+                    "CPU machines'")
+    path = _write_conf(tmp_path, CONF.format(filename="absent.ishort"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([f"--config_file={path}"])
+
+
+def test_sample_io_round_trip(tmp_path):
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal(1001) + 1j * rng.standard_normal(1001)
+         ).astype(np.complex64)
+    from gnss_sim_receiver_tpu.utils import sample_io as jio
+    for item_type, scale in (("ishort", 200.0), ("ibyte", 20.0),
+                             ("gr_complex", 1.0), ("short", 100.0)):
+        ours, theirs = tmp_path / "a.bin", tmp_path / "b.bin"
+        write_samples(ours, x, item_type, scale=scale)
+        jio.write_samples(theirs, x, item_type, scale=scale)
+        assert ours.read_bytes() == theirs.read_bytes()
+        got = read_samples(ours, item_type, count=500, offset_items=3)
+        want = jio.read_samples(theirs, item_type, count=500, offset_items=3)
+        assert got.dtype == np.complex64 and np.array_equal(got, want)
+
+
+def _tracked(out: str) -> list:
+    line = [ln for ln in out.splitlines() if ln.startswith("Channels")][0]
+    return [int(p) for p in line.split("[")[1].rstrip("]").split(",")
+            if p.strip()]
+
+
+def test_cli_runs_receiver_from_conf(tmp_path, capsys):
+    """tests/test_cli.py::test_cli_runs_receiver_from_conf on the port, at
+    the canonical operating point: the 2 Msps fixture upsampled to 4 Msps
+    by sample repetition, cut to 8 s and written as ishort, goes through
+    the conf above (x2 decimating FIR, two-step acquisition) on both CLIs.
+    8 s: channels acquire and track, no ephemeris yet, so exit code 1."""
+    x, _ = static_scenario_capture()
+    cap = tmp_path / "cap.ishort"
+    write_samples(cap, np.repeat(x[: int(2e6 * 8)], 2), "ishort",
+                  scale=200.0)
+    conf = _write_conf(tmp_path, CONF.format(filename=cap))
+    res = run_cli([f"--config_file={conf}", "--device=cpu"])
+    out = capsys.readouterr().out
+    assert res.exit_code == 1
+    assert "Reading" in out and "32000000 samples at 4.000 Msps" in out
+    assert "conditioned -> 16000000 samples at 2.000 Msps" in out
+    assert "Ephemerides decoded: []" in out and "No position fix." in out
+    assert set(res.seconds) == {"read", "condition", "receiver"}
+    prns = _tracked(out)
+    assert len(set(prns) & {1, 3, 4, 5, 9, 10}) >= 5
+    # channel 3 is pinned to PRN 9
+    assert res.run.channel_prns[3] == 9
+    rc = jax_main([f"--config_file={conf}"])
+    ref_out = capsys.readouterr().out
+    assert rc == 1
+    assert sorted(_tracked(ref_out)) == sorted(prns)

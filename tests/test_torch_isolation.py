@@ -80,6 +80,23 @@ te = trk.TrackingEngine(trk.TrackingConf(fs=fs), [7], device="cpu")
 te.start_tracking(0, float(res.doppler_hz[0]), int(res.delay_samples[0]))
 outs = te.process_end(te.process_begin(x, 0, 20, decim=10))
 assert outs["valid_full"].all() and outs["sample_counter"].shape == (2, 1)
+# the conf-driven path: CLI module, factory, conditioner and its kernels'
+# plain versions
+from gnss_sim_receiver_tpu_torch import __main__ as cli
+from gnss_sim_receiver_tpu_torch.models.conditioner import SignalConditioner
+from gnss_sim_receiver_tpu_torch.models.factory import (
+    receiver_conf_from_config)
+from gnss_sim_receiver_tpu_torch.utils.config import InMemoryConfiguration
+conf = InMemoryConfiguration({
+    "InputFilter.implementation": "Freq_Xlating_Fir_Filter",
+    "InputFilter.decimation_factor": "2", "InputFilter.IF": "250000",
+    "Resampler.implementation": "Mmse_Resampler",
+    "Resampler.sample_freq_out": "750000",
+    "Acquisition_1C.make_two_steps": "true"})
+y = SignalConditioner(conf, fs_in=fs, device="cpu").process(x)
+assert y.shape == (22500,) and bool(torch.isfinite(y.abs()).all())
+assert receiver_conf_from_config(conf).acq.make_two_steps
+assert cli.unported_key(conf) is None
 assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
