@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the GPS receiver on one CUDA card.
+"""Drive the PyTorch/CUDA port of the GNSS receiver on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,13 +9,15 @@ Phases (any failure exits non-zero, before the result line):
    versions;
 2. build every kernel from the sources in this checkout (the CUDA C++
    libraries, one ``nvcc`` per source in parallel; the Triton kernels
-   compile at their first launch).  Two child processes meanwhile
-   synthesize the captures of phases 4 and 4c into ``build/`` (outside
+   compile at their first launch).  Three child processes meanwhile
+   synthesize the captures of phases 4, 4c and 5 into ``build/`` (outside
    every timed window);
-3. each kernel (K1, K2, K3 wipeoff and peak, K3b, K5a, K5b, K5c, K5d in
-   both modes) against its plain PyTorch version on the card at the shape
-   its path launches it at, with the stated tolerance, and its time there
-   beside the plain version's and its bound;
+3. each kernel (K1 and K2 with the GPS and the Galileo E1 tables, K3
+   wipeoff and peak, K3b, K4a in both modes, K5a, K5b, K5c, K5d in both
+   modes) against its plain PyTorch version on the card at the shape its
+   path launches it at, with the stated tolerance, and its time there
+   beside the plain version's and its bound; K1, K2 and K4a also at the
+   reference hybrid conf's 20 Msps shapes (the ``other_shapes`` line);
 4. the main path, conf-driven: the repo's 26 s static scenario at 4 Msps
    (synthesized by the port's own simulator, written as an ``ishort``
    file) goes through ``python -m gnss_sim_receiver_tpu_torch
@@ -31,13 +33,22 @@ Phases (any failure exits non-zero, before the result line):
    versions on the same input;
 4c. the array entry point, ``Receiver(ReceiverConf(fs=2e6, prns=1..10,
    max_channels=8)).process_array(x)`` on an 8 s capture at 2 Msps: the
-   tracked set and the launches of K1, K2 and K3 are checked.
+   tracked set and the launches of K1, K2 and K3 are checked;
+5. the hybrid path: the 26 s hybrid scenario (GPS PRNs 1, 3, 4, 5 and
+   Galileo PRNs 11-15) at 4 Msps through the CLI with a GPS L1 C/A + Galileo
+   E1-B conf (10 + 10 channels, CCCWSR acquisition on E1, K4a; 5-tap VEML
+   tracking through K1 and K2) to a joint position: the tracked sets, the
+   ephemerides, the fixes and the mean position error are checked, the
+   counters read as in phase 4;
+5b. the E1 chain's 8 ms acquisition (K4a) on the card-resident hybrid
+   capture: PRNs 11-15 detected, every cell equal to the plain version's.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
 of JAX.  ``--profile`` adds a torch.profiler breakdown of a second run of
-the main path (device busy share, time by kernel).  ``--kernels-only`` stops
-after phase 3 and prints no result line: the quick check of a new kernel.
+the paths of phases 4 and 5 (device busy share, time by kernel).
+``--kernels-only`` stops after phase 3 and prints no result line: the quick
+check of a new kernel.
 """
 
 from __future__ import annotations
@@ -67,6 +78,11 @@ COND_SAMPLES = 4_000_000       # phase 4b: the conditioner alone
 NOTCH_SAMPLES = (1 << 20) + 5
 NOTCH_F0, NOTCH_BW = 0.1, 0.01
 RX_LLH = (40.0, -75.0, 100.0)
+# phase 5: the hybrid scenario of tests/test_hybrid_position.py (4 GPS and
+# 5 Galileo satellites, 48 dB-Hz, seed 17), 26 s at 4 Msps
+HYB_GPS_PRNS = (1, 3, 4, 5)
+HYB_GAL_PRNS = (11, 12, 13, 14, 15)
+FS_REF_HYBRID = 20_000_000.0   # the reference hybrid conf's rate (phase 3)
 
 
 def fail(msg: str) -> None:
@@ -161,16 +177,17 @@ def _cnoise(rng, n, dev):
     return torch.view_as_complex(x).to(dev)
 
 
-def check_k1(dev, rng):
-    """K1 at the main-path shape: C=8 channels, E=20 epochs, K=3 taps,
-    F=4096 bins, the window spectra of a 1000-epoch chunk."""
+def check_k1(dev, rng, conf, c: int, e: int, taps, chunk_epochs: int,
+             name: str, label: str):
+    """K1 against its plain version at `conf`'s FFT length, C channels, E
+    epochs per block, the given taps (in chips), the window spectra of a
+    `chunk_epochs`-epoch chunk; timed there."""
     import torch
-    from gnss_sim_receiver_tpu_torch.models import tracking as trk
     from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
-    conf = trk.TrackingConf(fs=FS)
+    fs, rate = conf.fs, conf.code_rate_cps
     s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
-    c, e, k = 8, 20, 3
-    n = 1000 * s0 + nfft + 512
+    k = len(taps)
+    n = chunk_epochs * s0 + nfft + 512
     x = torch.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(n)
                           ).astype(np.complex64)).to(dev)
     xf_all = tb._window_spectra(x, s0, nfft).contiguous()
@@ -182,19 +199,20 @@ def check_k1(dev, rng):
                           ).to(dev)
     lag = rng.uniform(16.0, 16.0 + s0, (c, e)).astype(np.float32)
     lag_int = np.round(lag).astype(np.int32)
+    w_max = 2 * np.pi * 5000.0 / fs          # +-5 kHz of Doppler
     args = (xf_all, rf, w0, torch.from_numpy(lag_int).to(dev),
             torch.from_numpy((lag - lag_int).astype(np.float32)).to(dev),
             torch.from_numpy(rng.uniform(0, 650, (c, e)).astype(np.float32)
                              ).to(dev),
             torch.from_numpy(np.outer(rng.uniform(0.97, 0.99, c),
-                                      [-0.25, 0.0, 0.25]).astype(np.float32)
-                             * np.float32(FS / 1.023e6)).to(dev),
-            torch.from_numpy(rng.uniform(-0.016, 0.016, c).astype(np.float32)
+                                      -np.asarray(taps)).astype(np.float32)
+                             * np.float32(fs / rate)).to(dev),
+            torch.from_numpy(rng.uniform(-w_max, w_max, c).astype(np.float32)
                              ).to(dev))
     got = tb.block_correlate(*args)
     want = tb._block_correlate_plain(*args)
     torch.cuda.synchronize()
-    err = compare("K1 block_correlate", got, want, 1e-4)
+    err = compare(f"{name} ({label})", got, want, 1e-4)
     ms = time_ms(lambda: tb.block_correlate(*args))
     plain = time_ms(lambda: tb._block_correlate_plain(*args), reps=3)
     rows = len({int(w) + i for w in w0.tolist() for i in range(e)})
@@ -202,62 +220,67 @@ def check_k1(dev, rng):
     # per (c, e, f): lag angle 4, sincos 2, two complex products 12;
     # per tap: angle 3, sincos 2, complex multiply-accumulate 8
     n_ops = c * e * nfft * (18 + k * 13)
-    return _row("K1_block_correlate", "cuda",
+    return _row(name, "cuda",
                 "gnss_sim_receiver_tpu_torch/csrc/block_correlator.cu",
-                "gnss_sim_receiver_tpu/models/tracking_block.py:148",
+                "gnss_sim_receiver_tpu/models/tracking_block.py:149",
                 err, ms, plain, n_bytes, n_ops,
-                f"C={c} channels, E={e} epochs, K={k} taps, F={nfft} bins")
+                f"{label}: C={c} channels, E={e} epochs, K={k} taps, "
+                f"F={nfft} bins")
 
 
-def check_k2(dev, rng):
-    """K2 at the main-path shape: C=8 channels, B=2048-sample blocks, K=3
-    taps, 1023x8 band-limited tables."""
+def check_k2(dev, rng, conf, c: int, taps, provider, name: str,
+             label: str):
+    """K2 against its plain version at `conf`'s block size, C channels, the
+    given taps (chips) and the band-limited tables of `provider`'s codes
+    (8 entries per chip); timed there."""
     import torch
-    from gnss_sim_receiver_tpu_torch.models import tracking as trk
     from gnss_sim_receiver_tpu_torch.ops import correlator, prn_codes
-    conf = trk.TrackingConf(fs=FS)
-    c, b = 8, conf.block_size
-    n = 1 << 18
+    fs, s0, b = conf.fs, conf.nominal_epoch_samples, conf.block_size
+    n = max(1 << 18, 4 * b)
     x = torch.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(n)
                           ).astype(np.complex64)).to(dev)
     codes = torch.from_numpy(np.stack([
         prn_codes.bandlimited_table_normalized(
-            prn_codes.gps_l1_ca_code(p), FS, conf.code_rate_cps, 2000, 8)
+            provider(p), fs, conf.code_rate_cps, s0, 8)
         for p in range(1, c + 1)])).to(dev)
-    taps = torch.tensor([0.25, 0.0, -0.25], dtype=torch.float32, device=dev)
+    taps_t = torch.tensor(taps, dtype=torch.float32, device=dev)
 
     def t(a, dt=np.float32):
         return torch.from_numpy(np.asarray(a, dt)).to(dev)
-    args = (x, t(rng.integers(0, n - b, c), np.int32), b, codes, taps,
-            t(rng.uniform(0, 1, c)), t(1.023e6 + rng.uniform(-5, 5, c)),
+    args = (x, t(rng.integers(0, n - b, c), np.int32), b, codes, taps_t,
+            t(rng.uniform(0, 1, c)),
+            t(conf.code_rate_cps + rng.uniform(-5, 5, c)),
             t(rng.uniform(0, 2 * np.pi, c)), t(rng.uniform(-5000, 5000, c)),
-            t(rng.integers(1999, 2002, c), np.int32), FS, 8)
+            t(rng.integers(s0 - 1, s0 + 2, c), np.int32), fs, 8)
     got = correlator.multicorrelate(*args)
 
     def plain():
         return correlator.correlate_multitap(
-            correlator.gather_blocks(x, args[1], b), codes, taps, *args[5:])
+            correlator.gather_blocks(x, args[1], b), codes, taps_t,
+            *args[5:])
     want = plain()
     torch.cuda.synchronize()
-    err = compare("K2 multicorrelate", got, want, 1e-4)
+    err = compare(f"{name} ({label})", got, want, 1e-4)
     ms = time_ms(lambda: correlator.multicorrelate(*args))
     plain_ms = time_ms(plain)
     n_samp = int(args[9].sum())
-    n_bytes = c * b * 8 + codes.numel() * 4 + c * 3 * 8
+    k = len(taps)
+    n_bytes = c * b * 8 + codes.numel() * 4 + c * k * 8
     # per sample: phase 3, sincos 2, wipeoff 6, chips 3; per tap: index 3,
     # multiply-accumulate 4
-    n_ops = n_samp * (14 + 3 * 7)
-    return _row("K2_multicorrelate", "cuda",
+    n_ops = n_samp * (14 + k * 7)
+    return _row(name, "cuda",
                 "gnss_sim_receiver_tpu_torch/csrc/multicorrelator.cu",
                 "gnss_sim_receiver_tpu/ops/correlator.py:39",
                 err, ms, plain_ms, n_bytes, n_ops,
-                f"C={c} channels, B={b}-sample blocks, K=3 taps")
+                f"{label}: C={c} channels, B={b}-sample blocks, K={k} taps, "
+                f"table {codes.shape[1]} float32")
 
 
 def acq_dwells(dev):
     """2 ms of the static scenario (6 satellites) for the K3 checks."""
     import torch
-    x = synthesize(FS, 1.0, n_samples=4000)
+    x = synthesize(FS, 0.002)
     return torch.from_numpy(x.astype(np.complex64)).to(dev).reshape(2, 2000)
 
 
@@ -501,10 +524,10 @@ def check_k3b(dev):
     centers = dops[torch.arange(c, device=dev) * 5]
     dops2 = (centers[:, None] + (torch.arange(d2, device=dev) - 4)[None, :]
              * 125.0).to(torch.float32).contiguous()
-    got = pcps.pcps_wipe_per_channel(x, dops2, t)
+    got = pcps.pcps_wipe(x, dops2, t)
     want = pcps._wipe_per_channel_plain(x, dops2, t)
     torch.cuda.synchronize()
-    err = compare("K3b pcps_wipe_per_channel", got, want, 1e-5)
+    err = compare("K3b pcps_wipe, [C, D2] table", got, want, 1e-5)
 
     def plain_search():
         stat, di, de = pcps.max_to_input_power_stat(
@@ -528,12 +551,97 @@ def check_k3b(dev):
     return _row("K3b_pcps_wipe_per_channel", "triton",
                 "gnss_sim_receiver_tpu_torch/ops/pcps.py",
                 "gnss_sim_receiver_tpu/ops/pcps.py:65", err,
-                time_ms(lambda: pcps.pcps_wipe_per_channel(x, dops2, t)),
+                time_ms(lambda: pcps.pcps_wipe(x, dops2, t)),
                 time_ms(lambda: pcps._wipe_per_channel_plain(x, dops2, t)),
                 m * n * 8 + c * d2 * 4 + n * 4 + m * c * d2 * n * 8,
                 m * c * d2 * n * 10,
                 f"M={m} dwells, C={c} channels, D2={d2} Doppler rows each, "
                 f"N={n} samples")
+
+
+def hybrid_chain(fs: float, impl: str = "CCCWSR"):
+    """The Galileo E1-B chain that the factory builds from phase 5's conf
+    text at rate `fs` with Galileo_E1_PCPS_<impl>_Ambiguous_Acquisition:
+    the path's acquisition and tracking confs."""
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    props = conf_properties(HYBRID_CONF.format(capture="", fs=int(fs)))
+    props["Acquisition_1B.implementation"] = \
+        f"Galileo_E1_PCPS_{impl}_Ambiguous_Acquisition"
+    (chain,) = receiver_conf_from_config(InMemoryConfiguration(props)).chains
+    return chain
+
+
+def check_k4a(dev, fs: float, variant: str, extra: list):
+    """K4a on the planes its path gives it: the hybrid scenario's first
+    dwells at rate `fs`, the E1 chain's acquisition conf (M=2 dwells, D=81
+    Doppler bins, N = 4 ms of samples), C=10 channels (PRNs 11-20, of which
+    11-15 are present).  The kernel against its plain version on the same
+    planes (statistic to 1e-4 of its scale, cells exact), and the whole
+    search against the JAX-form grid (pcps_cccwsr_grid / pcps_8ms_grid) and
+    statistic.  Returns the row; 8 ms and 20 Msps results go to `extra`."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    chain = hybrid_chain(fs, {"cccwsr": "CCCWSR", "8ms": "8ms"}[variant])
+    acq = chain.acq
+    prns = tuple(range(11, 21))
+    eng = PcpsAcquisitionEngine(
+        acq, prns, code_provider=chain.code_provider, sc_rate=chain.sc_rate,
+        code_provider2=chain.data_code_provider)
+    m, need, n = acq.max_dwells, eng.n_samples_needed, eng.fft_size
+    x = torch.from_numpy(synthesize_hybrid(fs, need)).to(dev).reshape(m, -1)
+    cfc = eng.code_fft_conj
+    cfc2 = eng.code2_fft_conj if eng.code2_fft_conj is not None else cfc
+    corr = pcps.dual_correlations(x, cfc, cfc2, eng.dopplers, eng._t,
+                                  variant)
+    label = f"{variant} at {fs / 1e6:g} Msps"
+    got = pcps.pcps_dual_peak(corr, m)
+    want = pcps._dual_peak_plain(corr, m)
+    torch.cuda.synchronize()
+    err = compare(f"K4a pcps_dual_peak ({label}) statistic", got[0], want[0],
+                  1e-4)
+    compare(f"K4a pcps_dual_peak ({label}) cells", got[1:], want[1:], 0.0)
+    # the whole search against the JAX functions' form, line for line
+    buf = pcps.pcps_search_dual(x, cfc, cfc2, eng.dopplers, eng._t, variant)
+    if variant == "cccwsr":
+        grid = pcps.pcps_cccwsr_grid(x, cfc2, cfc, eng.dopplers, fs)
+    else:
+        grid = pcps.pcps_8ms_grid(x, cfc, eng.dopplers, fs)
+    stat, di, de = pcps.max_to_input_power_stat(grid, float(2 * m))
+    del grid
+    compare(f"K4a search ({label}) statistic", buf[0], stat, 1e-4)
+    compare(f"K4a search ({label}) Doppler and delay",
+            buf[1:3].to(torch.int64),
+            torch.stack([eng.dopplers[di.long()], de.float()]).to(
+                torch.int64), 0.0)
+    found = [p for p, v in zip(prns, buf[0].tolist()) if v > eng.threshold]
+    print(f"  K4a search ({label}): detected PRNs {found} (threshold "
+          f"{eng.threshold:.2f})")
+    if found != [11, 12, 13, 14, 15]:
+        fail(f"K4a search ({label}) detected {found}")
+    ms = time_ms(lambda: pcps.pcps_dual_peak(corr, m))
+    plain = time_ms(lambda: pcps._dual_peak_plain(corr, m), reps=3)
+    c, d = len(prns), len(eng.dopplers)
+    # per (dwell, cell): sums and differences 4, two |.|^2 6, max 1,
+    # accumulate 1; per cell: compare and sum 2
+    row = _row("K4a_pcps_dual_peak", "triton",
+               "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+               "gnss_sim_receiver_tpu/ops/pcps.py:"
+               + ("242" if variant == "cccwsr" else "213"), err, ms, plain,
+               corr.numel() * 8 + c * 12, m * c * d * n * 12 + c * d * n * 2,
+               f"{label}: M={m} dwells, C={c} channels, D={d} Doppler bins, "
+               f"N={n} samples, two [M, C, D, N] complex64 planes "
+               f"({corr.numel() * 8 / 1e6:.1f} MB)")
+    del corr
+    torch.cuda.empty_cache()
+    if variant == "cccwsr" and fs == FS_FILE:
+        return row
+    extra.append(row)
+    return None
 
 
 # ---- phases 4, 4b, 4c: the main paths --------------------------------------
@@ -574,6 +682,38 @@ PVT.output_rate_ms=20
 """
 
 
+# phase 5: the reference's hybrid operating point (conf/gnss-sdr_Hybrid_
+# byte.conf as tests/test_cli.py:78-95 records it: 10 + 10 channels, E1
+# Doppler step 125 Hz, PLL 15 Hz, very-early-late 0.6 chips) at 4 Msps,
+# with CCCWSR acquisition on the E1 chain; every PRN unpinned
+HYBRID_CONF = """\
+GNSS-SDR.internal_fs_sps={fs}
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={capture}
+SignalSource.item_type=ishort
+SignalSource.sampling_frequency={fs}
+Channels_1C.count=10
+Channels_1B.count=10
+Channels.in_acquisition=20
+Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition
+Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking
+Acquisition_1B.implementation=Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition
+Acquisition_1B.doppler_step=125
+Tracking_1B.implementation=Galileo_E1_DLL_PLL_VEML_Tracking
+Tracking_1B.very_early_late_space_chips=0.6
+Tracking_1B.pll_bw_hz=15
+PVT.implementation=RTKLIB_PVT
+PVT.positioning_mode=Single
+PVT.output_rate_ms=20
+"""
+
+
+def conf_properties(text: str) -> dict:
+    """key -> value of a conf text's `key=value` lines."""
+    return dict(line.split("=", 1) for line in text.splitlines()
+                if "=" in line)
+
+
 def synthesize(fs: float, dur: float, n_samples=None) -> np.ndarray:
     """The static scenario (6 satellites, 47 dB-Hz) at rate `fs`: all
     `dur` seconds of it, or its first `n_samples` samples."""
@@ -593,16 +733,43 @@ def synthesize(fs: float, dur: float, n_samples=None) -> np.ndarray:
         noise=True, seed=42, bandlimit_oversample=4)
 
 
+def synthesize_hybrid(fs: float, n_samples: int) -> np.ndarray:
+    """The first `n_samples` of the hybrid scenario at rate `fs`: GPS PRNs
+    1, 3, 4, 5 (LNAV) and Galileo PRNs 11-15 (E1-B, I/NAV pages), 48 dB-Hz,
+    the 26 s geometry (tests/test_hybrid_position.py:25-58)."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
+        generate_baseband
+    base = make_sky_constellation(RX_LLH[0], RX_LLH[1], toe=T0 + 600)
+    gps = [e for e in base if e.prn in HYB_GPS_PRNS]
+    toe60 = round((T0 + 600) / 60.0) * 60.0   # INAV toe LSB is 60 s
+    gal = [dataclasses.replace(e, system="Galileo", prn=prn, toe=toe60,
+                               toc=toe60, iod_nav=137, bgd_e1e5b=0.0)
+           for prn, e in zip(HYB_GAL_PRNS, (e for e in base
+                                            if e.prn not in HYB_GPS_PRNS))]
+    sats = build_static_scenario(gps + gal, rx_true_ecef(), T0, DUR,
+                                 cn0_db_hz=48.0, subframe_cycle=(1, 2, 3))
+    return generate_baseband(sats, fs, n_samples, noise=True, seed=17,
+                             bandlimit_oversample=4)
+
+
 def capture_paths(root: str) -> dict:
     build = os.path.join(root, "build")
     return {"file": os.path.join(build, "static_scenario_26s_4msps_v1.ishort"),
-            "direct": os.path.join(build, "static_scenario_8s_2msps_v1.npy")}
+            "direct": os.path.join(build, "static_scenario_8s_2msps_v1.npy"),
+            "hybrid": os.path.join(build,
+                                   "hybrid_scenario_26s_4msps_v1.ishort")}
 
 
 def make_capture(root: str, which: str) -> None:
     """Synthesize one capture into ``build/`` unless it is there: "file",
     the 26 s scenario at 4 Msps as interleaved int16 (104 M samples,
-    416 MB), or "direct", its first 8 s at 2 Msps as complex64."""
+    416 MB), "direct", its first 8 s at 2 Msps as complex64, or "hybrid",
+    the 26 s hybrid scenario at 4 Msps as interleaved int16."""
     from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
     path = capture_paths(root)[which]
     if os.path.exists(path):
@@ -611,6 +778,9 @@ def make_capture(root: str, which: str) -> None:
     tmp = path + f".{os.getpid()}.tmp"
     if which == "file":
         write_samples(tmp, synthesize(FS_FILE, DUR), "ishort", scale=200.0)
+    elif which == "hybrid":
+        write_samples(tmp, synthesize_hybrid(FS_FILE, int(FS_FILE * DUR)),
+                      "ishort", scale=200.0)
     else:
         with open(tmp, "wb") as fh:
             np.save(fh, synthesize(FS, DIRECT_DUR))
@@ -619,7 +789,7 @@ def make_capture(root: str, which: str) -> None:
 
 def start_synthesis(root: str) -> dict:
     """One child process per capture, so that the synthesis runs beside
-    phases 2 and 3."""
+    phases 2 to 4c."""
     return {which: subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--synthesize", which],
         cwd=root) for which in capture_paths(root)}
@@ -635,12 +805,15 @@ def wait_for(procs: dict, which: str) -> None:
 
 
 def reset(wrappers) -> None:
-    for w in wrappers.values():
-        w.launches = 0
+    """Set every launch counter to 0; `wrappers` maps a kernel's name to
+    its wrapper and the wrapper's counter attribute."""
+    for fn, attr in wrappers.values():
+        setattr(fn, attr, 0)
 
 
 def read_launches(wrappers, needed) -> dict:
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in wrappers.items()}
     print(f"  launches: {launches}")
     for name in needed:
         if launches[name] <= 0:
@@ -809,45 +982,142 @@ def direct_path(root: str, wrappers) -> dict:
     return launches
 
 
-def array_entry_on_conditioned(root: str) -> None:
-    """The array entry point (PRNs 1-10, one-step acquisition) on the same
-    conditioned 26 s capture, timed beside the conf-driven receiver within
-    one process: host speed differs between machines, so only such a pair
-    says whether the two paths cost the same."""
+HYBRID_KERNELS = ("K1_block_correlate", "K2_multicorrelate", "K3_pcps_wipe",
+                  "K3_pcps_peak", "K4a_pcps_dual_peak")
+
+
+def check_hybrid_run(run) -> None:
+    """Phase 5's checks (tests/test_hybrid_position.py:67-97): the tracked
+    set of each system, the ephemerides decoded, the fixes and the mean
+    position error."""
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.utils import geodesy
+    tracked = {"GPS": [], "Galileo": []}
+    for p, st, sy in zip(run.channel_prns, run.channel_states,
+                         run.channel_systems):
+        if st == ChannelState.TRACKING:
+            tracked[sy].append(p)
+    gps_eph = sorted(k for k in run.ephemerides if isinstance(k, int))
+    gal_eph = sorted(k[1] for k in run.ephemerides if isinstance(k, tuple))
+    n_last = run.solutions[-1].n_sats if run.solutions else 0
+    print(f"  tracked GPS {sorted(tracked['GPS'])}, Galileo "
+          f"{sorted(tracked['Galileo'])}; ephemerides GPS {gps_eph}, "
+          f"Galileo {gal_eph}; {len(run.solutions)} fixes, the last with "
+          f"{n_last} satellites")
+    if sorted(tracked["GPS"]) != list(HYB_GPS_PRNS) \
+            or sorted(tracked["Galileo"]) != list(HYB_GAL_PRNS):
+        fail(f"tracked {tracked}")
+    if gps_eph != list(HYB_GPS_PRNS) or gal_eph != list(HYB_GAL_PRNS):
+        fail(f"ephemerides GPS {gps_eph}, Galileo {gal_eph}")
+    if len(run.solutions) < 5 or n_last < 7:
+        fail(f"{len(run.solutions)} fixes, the last with {n_last} "
+             "satellites")
+    ref = (np.radians(RX_LLH[0]), np.radians(RX_LLH[1]))
+    enu = np.array([geodesy.ecef_to_enu(s.rx_ecef_m - rx_true_ecef(), ref)
+                    for s in run.solutions])
+    if not np.isfinite(enu).all():
+        fail("non-finite position")
+    err_2d = float(np.linalg.norm(enu.mean(0)[:2]))
+    err_3d = float(np.linalg.norm(enu.mean(0)))
+    print(f"  mean error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
+    if not (err_2d < 2.0 and err_3d < 5.0):
+        fail(f"position error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
+
+
+def hybrid_path(root: str, wrappers, card: str) -> dict:
+    """Phase 5: the hybrid conf (GPS L1 C/A + Galileo E1-B, 10 + 10
+    channels, CCCWSR on E1) -> the 26 s hybrid capture -> receiver -> a
+    joint position, through the port's CLI called in process."""
     import torch
-    from gnss_sim_receiver_tpu_torch.models.conditioner import \
-        SignalConditioner
-    from gnss_sim_receiver_tpu_torch.models.receiver import (Receiver,
-                                                             ReceiverConf)
-    from gnss_sim_receiver_tpu_torch.utils.config import FileConfiguration
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    capture = capture_paths(root)["hybrid"]
+    conf = os.path.join(root, "build", "chip_smoke_hybrid.conf")
+    with open(conf, "w") as fh:
+        fh.write(HYBRID_CONF.format(capture=capture, fs=int(FS_FILE)))
+    print(f"  capture: {os.path.getsize(capture) / 1e6:.0f} MB ishort at "
+          f"{FS_FILE / 1e6:.0f} Msps; conf: {conf}")
+    reset(wrappers)
+    torch.cuda.synchronize()
+    res = run_cli([f"--config_file={conf}"])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, HYBRID_KERNELS)
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    check_hybrid_run(res.run)
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}")
+    print(f"  wall {wall:.3f} s from file open to the last fix for "
+          f"{DUR:.0f} s of signal: real-time factor {DUR / wall:.3f} "
+          f"({card})")
+    return launches
+
+
+def hybrid_8ms(root: str, wrappers) -> dict:
+    """Phase 5b: the E1 chain's acquisition engine of the same conf with
+    Galileo_E1_PCPS_8ms_Ambiguous_Acquisition, on the first second of the
+    hybrid capture resident on the card (a window that starts off the
+    128-sample grid), PRNs 11-20.  PRNs 11-15 must be detected, and each
+    channel's (Doppler, delay) must equal the plain version's on the same
+    window, the statistic to 1e-4 of it."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.ops import pcps
     from gnss_sim_receiver_tpu_torch.utils.sample_io import read_samples
-    conf = FileConfiguration(os.path.join(root, "build",
-                                          "chip_smoke_rx.conf"))
-    y = SignalConditioner(conf, fs_in=FS_FILE).process(
-        read_samples(capture_paths(root)["file"], "ishort"))
-    rx = Receiver(ReceiverConf(fs=FS, prns=tuple(range(1, 11)),
-                               max_channels=8))
+    chain = hybrid_chain(FS_FILE, "8ms")
+    x = torch.from_numpy(read_samples(capture_paths(root)["hybrid"],
+                                      "ishort", count=int(FS_FILE))).cuda()
+    prns = tuple(range(11, 21))
+    eng = PcpsAcquisitionEngine(
+        chain.acq, prns, code_provider=chain.code_provider,
+        sc_rate=chain.sc_rate, code_provider2=chain.data_code_provider)
+    start = 100_003
+    reset(wrappers)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run = rx.process_array(y)
+    res = eng.acquire_from(x, start)
     torch.cuda.synchronize()
-    print(f"  array entry point on the conditioned capture: receiver "
-          f"{time.perf_counter() - t0:.3f} s")
-    check_run(run, min_fixes=5)
+    launches = read_launches(wrappers, ("K4a_pcps_dual_peak",))
+    found = [p for p, d in zip(prns, res.detected) if d]
+    print(f"  8 ms acquisition at sample {start}: detected PRNs {found} "
+          f"(threshold {res.threshold:.2f}), Doppler "
+          f"{res.doppler_hz[:5].tolist()} Hz, delay "
+          f"{res.delay_samples[:5].tolist()}")
+    if not set(HYB_GAL_PRNS) <= set(found):
+        fail(f"8 ms acquisition detected {found}")
+    m, n = chain.acq.max_dwells, eng.fft_size
+    x_dw = x[start:start + eng.n_samples_needed].reshape(m, 2 * n)
+    stat, di, de = pcps.max_to_input_power_stat(
+        pcps.pcps_8ms_grid(x_dw, eng.code_fft_conj, eng.dopplers, FS_FILE),
+        float(2 * m))
+    want_dop = eng.dopplers[di.long()].double().cpu().numpy()
+    want_del = np.mod(de.double().cpu().numpy(), n)
+    if not (np.array_equal(res.doppler_hz, want_dop)
+            and np.array_equal(res.delay_samples, want_del)):
+        fail(f"8 ms acquisition against its plain version: Doppler "
+             f"{res.doppler_hz} vs {want_dop}, delay {res.delay_samples} vs "
+             f"{want_del}")
+    rel = np.abs(res.test_stat - stat.double().cpu().numpy()) \
+        / np.abs(stat.double().cpu().numpy())
+    print(f"  against the plain version: Doppler and delay identical, "
+          f"statistic within {rel.max():.2e} (tolerance 1e-4)")
+    if rel.max() > 1e-4:
+        fail("8 ms acquisition statistic differs from the plain version")
+    return launches
 
 
-def profile_main_path(root: str) -> None:
-    """`--profile`: the main path twice more, plain and under
-    torch.profiler: wall time, device busy share (kernel time over wall),
-    device time by kernel and host time by operator."""
+def profile_cli_path(root: str, conf_name: str) -> None:
+    """`--profile`: the CLI path of the conf `build/<conf_name>` (phase 4's
+    or phase 5's) twice more, plain and under torch.profiler: wall time,
+    device busy share (kernel time over wall), device time by kernel and
+    host time by operator."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from gnss_sim_receiver_tpu_torch.__main__ import run_cli
-    argv = ["--config_file=" + os.path.join(root, "build",
-                                            "chip_smoke_rx.conf")]
+    argv = ["--config_file=" + os.path.join(root, "build", conf_name)]
     res = run_cli(argv)
     print(f"  unprofiled second run: seconds {res.seconds}")
-    array_entry_on_conditioned(root)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -906,12 +1176,15 @@ def main() -> int:
 
 
 def run_phases(root: str, card: str, procs: dict) -> int:
-    """Phases 2 to 4c and the result lines; `procs` are the synthesis
+    """Phases 2 to 5b and the result lines; `procs` are the synthesis
     children (none with --kernels-only)."""
     import torch
+    from gnss_sim_receiver_tpu_torch import signals
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
     from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
     from gnss_sim_receiver_tpu_torch.ops import (correlator, cuda_build,
-                                                 filters, pcps, resampler)
+                                                 filters, pcps, prn_codes,
+                                                 resampler)
     print("== phase 2: build", flush=True)
     t0 = time.perf_counter()
     secs = cuda_build.build_all()
@@ -928,26 +1201,56 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     k5b_row, notch_case = check_k5b(dev, rng)
-    rows = [check_k1(dev, rng), check_k2(dev, rng), *check_k3(dev),
-            check_k3b(dev), check_k5a(dev, rng), k5b_row,
-            check_k5c(dev, rng), *check_k5d(dev, rng)]
+    gps = trk.TrackingConf(fs=FS)
+    gps_taps = (0.25, 0.0, -0.25)
+    extra = []        # the same kernels at the shapes of other modes/rates
+    rows = [check_k1(dev, rng, gps, 8, 20, gps_taps, 1000,
+                     "K1_block_correlate", "GPS L1 C/A at 2 Msps"),
+            check_k2(dev, rng, gps, 8, gps_taps, prn_codes.gps_l1_ca_code,
+                     "K2_multicorrelate", "GPS L1 C/A at 2 Msps")]
+    for fs in (FS_FILE, FS_REF_HYBRID):
+        e1 = hybrid_chain(fs).trk
+        d, dv = e1.early_late_space_chips, e1.very_early_late_space_chips
+        e1_taps = (dv, d / 2, 0.0, -d / 2, -dv)
+        label = f"Galileo E1-B at {fs / 1e6:g} Msps"
+        k1 = check_k1(dev, rng, e1, 10, 5, e1_taps, 250,
+                      "K1_block_correlate_E1", label)
+        k2 = check_k2(dev, rng, e1, 10, e1_taps, signals.CodeProvider("1B"),
+                      "K2_multicorrelate_E1", label)
+        if fs == FS_FILE:
+            rows += [k1, k2]
+        else:
+            extra += [k1, k2]
+        torch.cuda.empty_cache()
+    rows += [*check_k3(dev), check_k3b(dev)]
+    for variant in ("cccwsr", "8ms"):
+        for fs in (FS_FILE, FS_REF_HYBRID):
+            row = check_k4a(dev, fs, variant, extra)
+            if row is not None:
+                rows.append(row)
+    rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
+             *check_k5d(dev, rng)]
     torch.cuda.empty_cache()
     print(f"  phase 3 took {time.perf_counter() - t0:.1f} s (includes the "
           "Triton compiles)", flush=True)
+    print(json.dumps({"other_shapes": extra}))
     if not procs:
         print(json.dumps({"kernels": rows}))
         return 0
 
-    wrappers = {"K1_block_correlate": tb.block_correlate,
-                "K2_multicorrelate": correlator.multicorrelate,
-                "K3_pcps_wipe": pcps.pcps_wipe,
-                "K3_pcps_peak": pcps.pcps_peak,
-                "K3b_pcps_wipe_per_channel": pcps.pcps_wipe_per_channel,
-                "K5a_fir_decim": filters.fir_decim,
-                "K5b_notch_filter": filters.notch_filter,
-                "K5c_pulse_blanking": filters.pulse_blanking,
-                "K5d_direct_resampler": resampler.direct_resampler,
-                "K5d_linear_resampler": resampler.linear_resampler}
+    wrappers = {
+        "K1_block_correlate": (tb.block_correlate, "launches"),
+        "K2_multicorrelate": (correlator.multicorrelate, "launches"),
+        "K3_pcps_wipe": (pcps.pcps_wipe, "launches"),
+        "K3_pcps_peak": (pcps.pcps_peak, "launches"),
+        "K3b_pcps_wipe_per_channel": (pcps.pcps_wipe,
+                                      "launches_per_channel"),
+        "K4a_pcps_dual_peak": (pcps.pcps_dual_peak, "launches"),
+        "K5a_fir_decim": (filters.fir_decim, "launches"),
+        "K5b_notch_filter": (filters.notch_filter, "launches"),
+        "K5c_pulse_blanking": (filters.pulse_blanking, "launches"),
+        "K5d_direct_resampler": (resampler.direct_resampler, "launches"),
+        "K5d_linear_resampler": (resampler.linear_resampler, "launches")}
     print("== phase 4: main path (conf file -> capture file -> conditioner "
           "-> receiver -> position)", flush=True)
     for which in procs:           # no child may run beside a timed window
@@ -955,7 +1258,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     launches = main_path(root, wrappers)
     if "--profile" in sys.argv[1:]:
         print("== profile of the main path", flush=True)
-        profile_main_path(root)
+        profile_cli_path(root, "chip_smoke_rx.conf")
     print("== phase 4b: the conditioner alone", flush=True)
     cond = conditioner_path(root, wrappers, notch_case)
     for name in COND_KERNELS[1:]:
@@ -963,6 +1266,17 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     print("== phase 4c: the array entry point (process_array, "
           f"{DIRECT_DUR:.0f} s at 2 Msps)", flush=True)
     direct_path(root, wrappers)
+    print("== phase 5: the hybrid path (GPS L1 C/A + Galileo E1-B conf -> "
+          "capture file -> receiver -> joint position)", flush=True)
+    hybrid = hybrid_path(root, wrappers, card)
+    if "--profile" in sys.argv[1:]:
+        print("== profile of the hybrid path", flush=True)
+        profile_cli_path(root, "chip_smoke_hybrid.conf")
+    for name in ("K1_block_correlate", "K2_multicorrelate"):
+        launches[name + "_E1"] = hybrid[name]
+    launches["K4a_pcps_dual_peak"] = hybrid["K4a_pcps_dual_peak"]
+    print("== phase 5b: 8 ms acquisition on the hybrid capture", flush=True)
+    hybrid_8ms(root, wrappers)
     for r in rows:
         r["launches"] = launches[r["name"]]
 

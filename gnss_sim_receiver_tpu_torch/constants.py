@@ -2,12 +2,14 @@
 
 Mirrors the per-system constant headers of the reference
 (``src/core/system_parameters/GPS_L1_CA.h`` etc.) with only the values the
-GPS L1 C/A chain of the PyTorch port needs.  All values are public ICD constants.
+GPS L1 C/A and Galileo E1 chains of the PyTorch port need.  All values are
+public ICD constants.
 """
 
 # --- physical ---------------------------------------------------------------
 SPEED_OF_LIGHT_M_S = 299_792_458.0
 GPS_GM = 3.986005e14          # WGS-84 earth gravitational constant [m^3/s^2]
+GALILEO_GM = 3.986004418e14   # GTRF earth gravitational constant [m^3/s^2]
 GPS_OMEGA_EARTH_DOT = 7.2921151467e-5  # WGS-84 earth rotation rate [rad/s]
 GPS_F_RELATIVISTIC = -4.442807633e-10  # relativistic clock factor [s/m^0.5]
 
@@ -22,6 +24,12 @@ GPS_L1_CA_BIT_RATE_BPS = 50
 GPS_L1_CA_CODES_PER_BIT = 20
 GPS_L1_CA_PREAMBLE_BITS = (1, 0, 0, 0, 1, 0, 1, 1)
 GPS_L1_CA_OPT_ACQ_FS_SPS = 2_000_000  # GPS_L1_CA.h:53 acquisition-optimal fs
+
+# --- Galileo E1 (reference: src/core/system_parameters/Galileo_E1.h) --------
+GALILEO_E1_FREQ_HZ = 1_575.42e6
+GALILEO_E1_CODE_RATE_CPS = 1.023e6
+GALILEO_E1_B_CODE_LENGTH_CHIPS = 4092
+GALILEO_E1_CODE_PERIOD_S = 4e-3
 
 # --- GPS time ---------------------------------------------------------------
 GPS_WEEK_SECONDS = 604_800

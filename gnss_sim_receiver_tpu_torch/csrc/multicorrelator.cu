@@ -16,13 +16,18 @@
 // B = 2048 samples (128 KB) and the channels' code tables (8 x 32 KB), and
 // does ~K+1 table/NCO evaluations per sample: a few microseconds of memory
 // traffic at most, so a launch is bound by its own latency.  The design
-// keeps everything in one launch: one CTA per channel loads its band-
-// limited table row (1023 x 8 float32 = 32 KB for GPS L1 C/A) into shared
-// memory once, threads stride over the samples computing the carrier NCO
-// with sincosf, the wipeoff and the K floor-index gathers from shared
-// memory, and a block reduction folds the K complex sums.  The [C, B]
-// gathered block and the [C, K, B] code values of the JAX program never
-// reach device memory.
+// keeps everything in one launch: one CTA per channel, threads stride over
+// the samples computing the carrier NCO with sincosf, the wipeoff and the
+// K floor-index gathers from the channel's band-limited table row, and a
+// block reduction folds the K complex sums.  The [C, B] gathered block and
+// the [C, K, B] code values of the JAX program never reach device memory.
+//
+// The table row is read through the read-only data cache (__ldg), not
+// staged in shared memory: the Galileo E1 table (8184 sub-chips x 8 =
+// 261,888 bytes) is larger than the 227 KB of shared memory a CTA may
+// have, and a CTA's samples span one code period, i.e. nearly the whole
+// row.  Every row (32 KB for GPS L1 C/A, 256 KB for E1) stays resident in
+// the 50 MB L2, and the taps of neighbouring samples hit the same lines.
 //
 // The NCO arithmetic is written with explicit round-to-nearest operations in
 // the JAX program's order (no FMA contraction), so the floor indices agree
@@ -54,11 +59,8 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
                  const int* __restrict__ n_samples,    // [C]
                  float inv_fs, float k_ovs, int block_size,
                  float2* __restrict__ out) {           // [C, K]
-  extern __shared__ float table[];
   const int c = blockIdx.x;
-  const float* row = codes + (size_t)c * table_len;
-  for (int i = threadIdx.x; i < table_len; i += kThreads) table[i] = row[i];
-  __syncthreads();
+  const float* __restrict__ table = codes + (size_t)c * table_len;
 
   int p = pos[c];
   const int max_start = n_x - block_size;
@@ -93,7 +95,7 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
         int idx = (int)floorf(__fmul_rn(__fadd_rn(chips, tap[k]), k_ovs));
         idx %= table_len;
         if (idx < 0) idx += table_len;
-        const float cv = table[idx];
+        const float cv = __ldg(table + idx);
         acc_re[k] += cv * xr;
         acc_im[k] += cv * xi;
       }
@@ -134,14 +136,7 @@ extern "C" int multicorrelate(const void* x, int n_x, const void* codes,
   if (n_taps < 1 || n_taps > kMaxTaps || n_ch < 1 || table_len < 1 ||
       block_size < 1 || n_x < block_size)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)table_len * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        multicorr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  multicorr_kernel<<<n_ch, kThreads, smem, (cudaStream_t)stream>>>(
+  multicorr_kernel<<<n_ch, kThreads, 0, (cudaStream_t)stream>>>(
       (const float2*)x, n_x, (const float*)codes, table_len,
       (const float*)taps, n_taps, (const int*)pos, (const float*)rem_code,
       (const float*)code_freq, (const float*)rem_carr, (const float*)dop,

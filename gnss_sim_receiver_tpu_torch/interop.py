@@ -9,7 +9,8 @@ same arrays to the JAX functions and to the port makes their state and
 tables identical, bit for bit.  The conditioner's tables (FIR taps, beam
 weights) travel the same way, and :func:`receiver_conf_from_fields` turns a
 receiver configuration given as a plain dict of dataclass fields (the JAX
-package's ``dataclasses.asdict(ReceiverConf)``) into the port's.
+package's ``dataclasses.asdict(ReceiverConf)``, signal chains included)
+into the port's.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from gnss_sim_receiver_tpu_torch.models.acquisition import AcqConf
+from gnss_sim_receiver_tpu_torch.models.acquisition import AcqConf, VARIANTS
 from gnss_sim_receiver_tpu_torch.models.observables import ObsConf
 from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf
-from gnss_sim_receiver_tpu_torch.models.receiver import ReceiverConf
+from gnss_sim_receiver_tpu_torch import signals
+from gnss_sim_receiver_tpu_torch.models.receiver import (ReceiverConf,
+                                                         SignalChainConf)
 from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
                                                          TrackState)
 from gnss_sim_receiver_tpu_torch.ops import cn0 as cn0_ops
@@ -111,12 +114,13 @@ def conditioner_tables_from_numpy(cond, arrays: dict) -> None:
 
 def _conf_from_fields(cls, fields: dict, where: str):
     """`cls(**fields)` for the fields the port's dataclass has.  A field it
-    lacks must hold its default on the other side, given in `_ABSENT`:
-    anything else selects a feature the port does not carry."""
+    lacks must hold its default on the other side, given in `_ABSENT`, and
+    a field of `_SUPPORTED` one of the values listed there: anything else
+    selects a feature the port does not carry."""
     known = {f.name for f in dataclasses.fields(cls)}
     kwargs = {}
     for name, value in fields.items():
-        if name in known:
+        if name in known and value in _SUPPORTED.get((cls, name), (value,)):
             kwargs[name] = value
         elif name in _ABSENT[cls] and _ABSENT[cls][name] == value:
             continue
@@ -126,16 +130,18 @@ def _conf_from_fields(cls, fields: dict, where: str):
     return cls(**kwargs)
 
 
+# fields the port has for some of the values the JAX package takes
+_SUPPORTED = {(AcqConf, "variant"): VARIANTS}
+
 # fields of the JAX package's confs that the port lacks, with the one value
 # (the default) under which the port computes the same thing
 _ABSENT = {
     AcqConf: dict(threshold=0.0, use_cfar_algorithm=True,
-                  bit_transition_flag=False, variant="pcps", caf_bins=0,
+                  bit_transition_flag=False, caf_bins=0,
                   fine_doppler_iters=3, quicksync_fold=4, tong_init=1,
                   tong_max=2, tong_max_dwells=10),
     TrackingConf: dict(pll_filter_order=3, dll_filter_order=2,
-                       fll_decision_directed=False,
-                       very_early_late_space_chips=0.0, lock_rectify=False,
+                       lock_rectify=False,
                        tracking_mode="dll_pll", bayes_forgetting=0.995,
                        bayes_nu0=30.0, extend_correlation_symbols=1,
                        secondary_code=(), doppler_bias_hz=0.0,
@@ -147,23 +153,50 @@ _ABSENT = {
     PvtConf: dict(iono_alpha=(0.0,) * 4, iono_beta=(0.0,) * 4,
                   raim_fde=False, raim_threshold_m=30.0,
                   raim_max_exclusions=2),
+    SignalChainConf: dict(rf_channel_id=0, acq_decim=1, freq_slot=0,
+                          day_base_s=0.0, assist_wait=False),
     ReceiverConf: dict(enable_pvt_kf=False, enable_pvt_ekf=False,
-                       pvt_ekf=None, rf_fs={}, chains=(), gps_chain=True,
-                       hybrid_mode=False, pre_2009_file=False, ps_channel=-1,
+                       pvt_ekf=None, rf_fs={}, hybrid_mode=False,
+                       pre_2009_file=False, ps_channel=-1,
                        ps_range_m=0.4, enable_rx_clock_propagation=False,
                        clk_prop_after_n_fixes=10, share_rx_clock_bias=False,
                        rtk=None, rtk_base_ecef_m=None),
 }
 
 
-def receiver_conf_from_fields(fields: dict) -> ReceiverConf:
-    """The port's ReceiverConf from a plain dict of a ReceiverConf's
-    dataclass fields, the nested acq / trk / obs / pvt confs as dicts too
-    (``dataclasses.asdict`` of the JAX package's conf).  Raises
-    NotImplementedError for a field that selects what the port lacks."""
+def _nested(fields: dict, where: str) -> dict:
+    """`fields` with its acq / trk / obs / pvt dicts turned into the port's
+    confs."""
     fields = dict(fields)
     for name, cls in (("acq", AcqConf), ("trk", TrackingConf),
                       ("obs", ObsConf), ("pvt", PvtConf)):
         if fields.get(name) is not None:
-            fields[name] = _conf_from_fields(cls, fields[name], name)
+            fields[name] = _conf_from_fields(cls, fields[name],
+                                             f"{where}.{name}")
+    return fields
+
+
+def _chain_from_fields(fields: dict, where: str) -> SignalChainConf:
+    """A signal chain from its fields.  The code providers (functions of the
+    other package) become the port's own for the chain's signal: the data
+    code, and the E1-C pilot as the second replica family."""
+    fields = _nested(fields, where)
+    sig = fields["signal"]
+    if fields.get("code_provider") is not None:
+        fields["code_provider"] = signals.CodeProvider(sig)
+    if fields.get("data_code_provider") is not None:
+        fields["data_code_provider"] = signals.CodeProvider(sig, "C")
+    return _conf_from_fields(SignalChainConf, fields, where)
+
+
+def receiver_conf_from_fields(fields: dict) -> ReceiverConf:
+    """The port's ReceiverConf from a plain dict of a ReceiverConf's
+    dataclass fields, the nested acq / trk / obs / pvt confs and the signal
+    chains as dicts too (``dataclasses.asdict`` of the JAX package's conf).
+    Raises NotImplementedError for a field that selects what the port
+    lacks."""
+    fields = _nested(fields, "receiver")
+    fields["chains"] = tuple(
+        _chain_from_fields(c, f"receiver.chains[{i}]")
+        for i, c in enumerate(fields.get("chains", ())))
     return _conf_from_fields(ReceiverConf, fields, "receiver")

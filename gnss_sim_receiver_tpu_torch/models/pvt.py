@@ -10,9 +10,9 @@ omitted for the simulator fixtures (the simulator emits no iono/tropo
 delay).
 
 Copy of ``gnss_sim_receiver_tpu.models.pvt`` for the PyTorch port, single
-point only: the iono and tropo models must stay "OFF" (the atmosphere
-module is not part of the port yet, and a non-OFF model raises), and the
-SBAS, RAIM and multi-constellation hooks are left out.
+point only, GPS and Galileo: the iono and tropo models must stay "OFF" (the
+atmosphere module is not part of the port yet, and a non-OFF model
+raises), and the SBAS and RAIM hooks are left out.
 """
 
 from __future__ import annotations
@@ -66,13 +66,17 @@ class PvtSolution:
 
 
 def solve_pvt(obs, prns, ephemerides: dict, conf: PvtConf = PvtConf(),
-              x0=None, carrier_freq_hz=None, exclude_channels=(),
-              fixed_clock_bias_s=None) -> PvtSolution:
+              x0=None, systems=None, carrier_freq_hz=None,
+              exclude_channels=(), fixed_clock_bias_s=None) -> PvtSolution:
     """Solve position/time (+velocity) from one ObservationEpoch.
 
     obs: models.observables.ObservationEpoch
     prns: [C] channel -> PRN mapping
-    ephemerides: {prn: GpsEphemeris}
+    ephemerides: {prn: GpsEphemeris} for GPS; Galileo under ("Galileo",
+      prn) keys
+    systems: optional [C] channel -> constellation (default all "GPS");
+      mixed-constellation epochs assume a common timescale (GGTO = 0, true
+      for the simulator)
     exclude_channels: channels never used in the solution (the hybrid
       pseudolite channel — its observable is a time-transfer product, not
       a navigation range; rtklib_pvt_gs.cc:2346 erases it from the map)
@@ -86,9 +90,12 @@ def solve_pvt(obs, prns, ephemerides: dict, conf: PvtConf = PvtConf(),
             "atmospheric models are not ported: iono_model and trop_model "
             "must be OFF")
     prns = np.asarray(prns)
+    if systems is None:
+        systems = ["GPS"] * len(prns)
 
     def _key(c):
-        return int(prns[c])
+        return (int(prns[c]) if systems[c] == "GPS"
+                else (systems[c], int(prns[c])))
 
     excl = set(exclude_channels)
     idx = [c for c in range(len(prns))

@@ -1,15 +1,22 @@
 """Receiver orchestration, PyTorch port of
-``gnss_sim_receiver_tpu.models.receiver`` for the implicit GPS L1 C/A chain
-and the batch entry point.
+``gnss_sim_receiver_tpu.models.receiver`` for the GPS L1 C/A ("1C") and
+Galileo E1-B ("1B") signal chains and the batch entry point.
 
-Host-side orchestration of the chain — acquisition scheduling with
+The receiver runs one *signal chain* per configured signal over the same
+sample stream — the reference's per-signal channel groups
+(Channels_1C.count / Channels_1B.count, gnss_flowgraph.cc
+set_signals_list) — each with its own acquisition grid, tracking engine and
+telemetry decoder, all feeding one observables engine and one PVT solver.
+
+Host-side orchestration of every chain — acquisition scheduling with
 re-acquisition and satellite rotation, acquisition -> tracking handoff,
-chunked tracking over the capture, LNAV telemetry, observables ticks and
+chunked tracking over the capture, telemetry, observables ticks and
 least-squares PVT — driven by the AcquisitionManager event model
 (models.control).  The capture is uploaded to the device once; each
-iteration dispatches one tracking chunk and then pulls and host-processes
-the PREVIOUS iteration's chunk, so the host work of chunk k overlaps the
-device work of chunk k+1 (the pipelined batch mode of the JAX receiver).
+iteration dispatches one tracking chunk per chain and then pulls and
+host-processes the PREVIOUS iteration's chunks, so the host work of chunk k
+overlaps the device work of chunk k+1 (the pipelined batch mode of the JAX
+receiver).
 
 Usage: ``Receiver(ReceiverConf(...)).process_array(x)``; `device=None` means
 the CUDA card and raises without one, device="cpu" runs the plain versions
@@ -23,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from gnss_sim_receiver_tpu_torch import signals
 from gnss_sim_receiver_tpu_torch.device import resolve_device, upload
 from gnss_sim_receiver_tpu_torch.models.acquisition import (
     AcqConf, PcpsAcquisitionEngine)
@@ -31,10 +39,64 @@ from gnss_sim_receiver_tpu_torch.models.control import (AcquisitionManager,
 from gnss_sim_receiver_tpu_torch.models.observables import (
     ObsConf, ObservablesEngine)
 from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf, solve_pvt
-from gnss_sim_receiver_tpu_torch.models.telemetry import TelemetryDecoder
+from gnss_sim_receiver_tpu_torch.models.telemetry import (
+    GalileoE1bTelemetryDecoder, TelemetryDecoder)
 from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
                                                          TrackingEngine)
 from gnss_sim_receiver_tpu_torch.nav.ephemeris import adj_gps_week
+
+
+@dataclasses.dataclass
+class SignalChainConf:
+    """One per-signal channel group (the reference's Channels_<sig> block +
+    its Acquisition_<sig>/Tracking_<sig> engine parameters)."""
+    signal: str = "1C"                 # "1C" (GPS L1 C/A) | "1B" (GAL E1B)
+    system: str = "GPS"
+    prns: tuple = tuple(range(1, 33))
+    n_channels: int = 8
+    max_acq_channels: int = 8
+    acq: AcqConf | None = None
+    trk: TrackingConf | None = None
+    code_provider: object = None       # prn -> +-1 sub-chip table
+    sc_rate: float | None = None       # sub-chip rate for acquisition
+    # the second replica family of the cccwsr acquisition (the E1-C pilot
+    # on a data-only E1 chain, models/factory.py)
+    data_code_provider: object = None
+    # chain-local channel index -> PRN pinning (Channel<i>.satellite)
+    pinned: dict = dataclasses.field(default_factory=dict)
+
+    def telemetry_decoder(self, prns):
+        if self.signal == "1B":
+            return GalileoE1bTelemetryDecoder(prns)
+        if self.signal == "1C":
+            return TelemetryDecoder(prns)
+        raise NotImplementedError(f"signal chain {self.signal} is not ported")
+
+
+def galileo_e1b_chain(fs: float, prns=tuple(range(1, 37)), n_channels=4,
+                      track_pilot: bool = False,
+                      **trk_overrides) -> SignalChainConf:
+    """Galileo E1-B data chain: BOC(1,1) sub-chip engines, 4 ms coherent
+    acquisition, decision-directed FLL pull-in.  (The JAX package's pilot
+    tracking, track_pilot=True, is not ported.)"""
+    if track_pilot:
+        raise NotImplementedError("track_pilot=True (E1-C pilot tracking "
+                                  "with CS25 secondary sync) is not ported")
+    sig = signals.GALILEO_E1B
+    trk_kw = dict(
+        fs=fs, code_rate_cps=sig.sc_rate, code_length_chips=sig.sc_length,
+        carrier_freq_hz=sig.carrier_freq_hz, early_late_space_chips=0.5,
+        enable_fll_pullin=True, fll_decision_directed=True,
+        fll_pullin_epochs=100)
+    trk_kw.update(trk_overrides)
+    return SignalChainConf(
+        signal="1B", system="Galileo", prns=tuple(prns),
+        n_channels=n_channels, max_acq_channels=n_channels,
+        acq=AcqConf(fs_in=fs, sampled_ms=4, doppler_step=125.0,
+                    max_dwells=2, make_two_steps=True, doppler_step2=31.25),
+        trk=TrackingConf(**trk_kw),
+        code_provider=signals.CodeProvider("1B"),
+        sc_rate=sig.sc_rate)
 
 
 @dataclasses.dataclass
@@ -54,7 +116,10 @@ class ReceiverConf:
     # every output_rate_ms; the solver runs only on epochs aligned to
     # pvt_rate_ms.  0 = solve on every observable epoch.
     pvt_rate_ms: int = 0
-    # channel index -> PRN pinning (Channel<i>.satellite)
+    chains: tuple = ()                # SignalChainConfs beyond GPS L1;
+    # set gps_chain=False to drop the implicit GPS L1 chain entirely
+    gps_chain: bool = True
+    # GPS-chain channel index -> PRN pinning (Channel<i>.satellite)
     pinned_channels: dict = dataclasses.field(default_factory=dict)
     # telemetry fail-safe: drop a TRACKING channel that produced no valid
     # TOW for this long (gps_l1_ca_telemetry_decoder_gs.cc:448-460); 0 off
@@ -74,30 +139,47 @@ class ReceiverConf:
             self.obs = dataclasses.replace(
                 self.obs, history_len=self.chunk_epochs + 128)
 
+    def all_chains(self) -> list[SignalChainConf]:
+        out = []
+        if self.gps_chain:
+            out.append(SignalChainConf(
+                signal="1C", system="GPS", prns=tuple(self.prns),
+                n_channels=self.max_channels,
+                max_acq_channels=self.max_acq_channels,
+                acq=self.acq, trk=self.trk,
+                pinned=dict(self.pinned_channels)))
+        out.extend(self.chains)
+        if not out:
+            raise ValueError("receiver configured with no signal chains")
+        return out
+
 
 @dataclasses.dataclass
 class ReceiverRun:
     solutions: list            # [PvtSolution]
     observation_epochs: list   # [ObservationEpoch]
-    channel_prns: list[int]    # final PRN per channel (0 = idle)
+    channel_prns: list[int]    # final PRN per (global) channel (0 = idle)
     channel_states: list       # final ChannelState per channel
-    ephemerides: dict          # prn -> GpsEphemeris
+    ephemerides: dict          # prn (GPS) | (system, prn) -> GpsEphemeris
     events: list               # [(channel, ChannelEvent)]
+    channel_systems: list = ()  # constellation per channel
 
 
 class _ChainRt:
-    """Runtime state of the GPS L1 C/A chain."""
+    """Runtime state of one signal chain."""
 
-    def __init__(self, conf: ReceiverConf, device):
-        n = conf.max_channels
-        self.n_channels = n
-        self.trk_conf = conf.trk
-        self.mgr = AcquisitionManager(conf.prns, n,
-                                      max_acq_channels=conf.max_acq_channels,
-                                      pinned=conf.pinned_channels)
-        self.trk = TrackingEngine(conf.trk, prns=[0] * n, device=device)
-        self.tlm = TelemetryDecoder([0] * n)
-        self.nominal = conf.trk.nominal_epoch_samples
+    def __init__(self, spec: SignalChainConf, obs_offset: int, device):
+        self.spec = spec
+        self.offset = obs_offset      # global channel index of channel 0
+        n = spec.n_channels
+        self.mgr = AcquisitionManager(spec.prns, n,
+                                      max_acq_channels=spec.max_acq_channels,
+                                      pinned=spec.pinned)
+        self.trk = TrackingEngine(spec.trk, prns=[0] * n,
+                                  code_provider=spec.code_provider,
+                                  device=device)
+        self.tlm = spec.telemetry_decoder([0] * n)
+        self.nominal = spec.trk.nominal_epoch_samples
         self.margin = self.trk._read_margin()
         self.epoch_base = [0] * n
         self.acq_engines = {}
@@ -108,6 +190,19 @@ class _ChainRt:
         #                               apply after the in-flight chunk
         # per-channel epochs since start_tracking
         self.epochs_run = np.zeros(n, np.int64)
+
+    def eph_key(self, prn: int):
+        return prn if self.spec.system == "GPS" else (self.spec.system, prn)
+
+
+def _channel_maps(chains, n_total):
+    prn_map = [0] * n_total
+    sys_map = ["GPS"] * n_total
+    for rt in chains:
+        for c in range(rt.spec.n_channels):
+            prn_map[rt.offset + c] = rt.mgr.channels[c].prn
+            sys_map[rt.offset + c] = rt.spec.system
+    return prn_map, sys_map
 
 
 class ReceiverSession:
@@ -126,19 +221,29 @@ class ReceiverSession:
         self.device = resolve_device(device)
         # decimated transfers push one observables row per tick
         self.max_mult = 128
-        self.chain = rt = _ChainRt(conf, self.device)
-        self.n_total = rt.n_channels
-        epoch_ms = rt.nominal / conf.fs * 1000.0
-        # one kept epoch per observable tick (capped at 90 ms spacing so
-        # the observables history interpolation stays bracketed)
-        rt.decim = max(1, int(min(conf.obs.interval_ms, 90.0) // epoch_ms))
-        rows = int(conf.chunk_epochs * self.max_mult // rt.decim) + 256
-        if conf.obs.history_len < rows:
-            conf.obs.history_len = rows
+        chains = []
+        n_total = 0
+        for spec in conf.all_chains():
+            chains.append(_ChainRt(spec, n_total, self.device))
+            n_total += spec.n_channels
+        self.chains = chains
+        self.n_total = n_total
+        self.freq_map = np.concatenate(
+            [np.full(rt.spec.n_channels, rt.spec.trk.carrier_freq_hz)
+             for rt in chains])
+        for rt in chains:
+            # one kept epoch per observable tick (capped at 90 ms spacing so
+            # the observables history interpolation stays bracketed); the
+            # history must hold what one chunk pushes at the largest chunk
+            epoch_ms = rt.nominal / conf.fs * 1000.0
+            rt.decim = max(1, int(min(conf.obs.interval_ms, 90.0)
+                                  // epoch_ms))
+            rows = int(conf.chunk_epochs * self.max_mult // rt.decim) + 256
+            if conf.obs.history_len < rows:
+                conf.obs.history_len = rows
         self.obs_eng = ObservablesEngine(
-            conf.obs, n_channels=self.n_total,
-            carrier_freq_hz=np.full(self.n_total, conf.trk.carrier_freq_hz),
-            fs_per_channel=np.full(self.n_total, conf.fs))
+            conf.obs, n_channels=n_total, carrier_freq_hz=self.freq_map,
+            fs_per_channel=np.full(n_total, conf.fs))
         self.ephemerides = {}
         self.solutions = []
         self.obs_epochs = []
@@ -148,9 +253,9 @@ class ReceiverSession:
         self.cursor = 0               # acquisition head (absolute sample)
         self.chunk_mult = 1
         self.chunk_s = conf.chunk_epochs * 1e-3
-        self._inflight = []
-        self._trk_start_abs = np.full(self.n_total, -1, np.int64)
-        self._tow_seen = np.zeros(self.n_total, bool)
+        self._inflight = []           # (rt, tracking, n, handle)
+        self._trk_start_abs = np.full(n_total, -1, np.int64)
+        self._tow_seen = np.zeros(n_total, bool)
 
     # -- input ----------------------------------------------------------------
 
@@ -160,35 +265,38 @@ class ReceiverSession:
             x = upload(x.astype(np.complex64, copy=False), self.device)
         self._x = x.to(device=self.device, dtype=torch.complex64)
         self._len = len(self._x)
-        rt = self.chain
-        rt.total = max((self._len - rt.margin) // rt.nominal - 2, 0)
+        for rt in self.chains:
+            rt.total = max((self._len - rt.margin) // rt.nominal - 2, 0)
 
     def run_to_end(self) -> None:
         """Process the whole attached capture."""
-        while self.chain.done < self.chain.total or self._inflight:
+        while (any(rt.done < rt.total for rt in self.chains)
+               or self._inflight):
             if not self._iterate() and not self._inflight:
                 break
 
     # -- core loop -------------------------------------------------------------
 
-    def _chunk_n(self) -> int:
-        rt = self.chain
+    def _chunk_n(self, rt) -> int:
         return int(round(self.chunk_s * self.chunk_mult
                          / (rt.nominal / self.conf.fs)))
 
     def _acquire(self, rt) -> bool:
-        """Search the channels awaiting acquisition; arm the detected ones.
-        Returns False when a new lock happened (an FSM event)."""
+        """Search the chain's channels awaiting acquisition; arm the
+        detected ones.  Returns False when a new lock happened (an FSM
+        event)."""
         quiet = True
-        mgr = rt.mgr
+        mgr, spec = rt.mgr, rt.spec
         group = mgr.acquiring_channels()
         if not group:
             return quiet
         prns = tuple(mgr.channels[c].prn for c in group)
         eng = rt.acq_engines.get(prns)
         if eng is None:
-            eng = PcpsAcquisitionEngine(self.conf.acq, prns=prns,
-                                        device=self.device)
+            eng = PcpsAcquisitionEngine(
+                spec.acq, prns=prns, code_provider=spec.code_provider,
+                sc_rate=spec.sc_rate, code_provider2=spec.data_code_provider,
+                device=self.device)
             rt.acq_engines[prns] = eng
         if self.cursor + eng.n_samples_needed > self._len:
             return quiet
@@ -210,7 +318,7 @@ class ReceiverSession:
             if act_now.any():
                 front = int(rt.trk.abs_start[act_now].max())
                 if front > start_abs:
-                    trk = self.conf.trk
+                    trk = spec.trk
                     cf0 = (trk.code_rate_cps
                            * (1.0 + float(res.doppler_hz[k])
                               / trk.carrier_freq_hz))
@@ -218,130 +326,151 @@ class ReceiverSession:
                     kper = int(np.ceil((front - start_abs) / s_per))
                     start_abs = int(round(start_abs + kper * s_per))
             rt.trk.start_tracking(c, float(res.doppler_hz[k]), start_abs)
-            # a chunk dispatched BEFORE this arm is still in flight: reset
-            # the decoders after its rows so bit edges stay aligned
-            if self._inflight:
+            # a chunk of this chain dispatched BEFORE this arm is still in
+            # flight: reset the decoders after its rows so bit edges stay
+            # aligned
+            if any(frt is rt for frt, *_ in self._inflight):
                 rt.pending_resets.append((c, prn))
             else:
                 rt.tlm.reset_channel(c, prn, epoch_base=rt.epoch_base[c])
-                self.obs_eng.reset_channel(c)
+                self.obs_eng.reset_channel(rt.offset + c)
             rt.epochs_run[c] = 0
-            self._trk_start_abs[c] = start_abs
-            self._tow_seen[c] = False
+            g = rt.offset + c
+            self._trk_start_abs[g] = start_abs
+            self._tow_seen[g] = False
         return quiet
 
+    def _dispatch(self, rt):
+        """Phase 1 for one chain: FSM, acquisition and the dispatch of its
+        next tracking chunk.  Returns (quiet, progressed, staged entry or
+        None)."""
+        rt.mgr.schedule()
+        quiet = self._acquire(rt)
+        tracking = rt.mgr.tracking_channels()
+        chunk_n = self._chunk_n(rt)
+        if not tracking:
+            rt.done += min(chunk_n, rt.total - rt.done)
+            return quiet, False, None
+        n = min(chunk_n, rt.total - rt.done, rt.trk.epochs_that_fit(self._len))
+        if 0 < n < chunk_n:
+            # eat the tail in ONE block-aligned chunk (+ one sub-block
+            # remainder of < 2 blocks next iteration)
+            q = rt.trk.block_epochs
+            if n >= 2 * q:
+                n = (n // q) * q
+        if n <= 0:
+            rt.done = rt.total   # capture exhausted
+            return quiet, False, None
+        rt.done += n
+        # FLL pull-in on: the block kernel runs from the first chunk (its
+        # FLL + wide-DLL staging absorb the acquisition handoff errors)
+        need = (0 if rt.spec.trk.enable_fll_pullin
+                else rt.spec.trk.fll_pullin_epochs + 1000)
+        use_blocks = all(rt.epochs_run[c] >= need for c in tracking)
+        handle = rt.trk.process_begin(self._x, 0, n, decim=rt.decim,
+                                      use_blocks=use_blocks)
+        return quiet, True, (rt, tracking, n, handle)
+
+    def _consume(self, rt, tracking, n, handle):
+        """Phase 2 for one pulled chunk: telemetry, observables, lock-loss
+        events and the TLM-timeout fail-safe.  Returns (quiet, tick bound
+        or None)."""
+        spec = rt.spec
+        outs = rt.trk.process_end(handle)
+        # channels (re)armed after this chunk was dispatched: its rows
+        # predate the arm; hide them from telemetry and observables
+        stale = outs.pop("stale_channels")
+        if stale.any():
+            outs["valid"] = outs["valid"] & ~stale[None, :]
+            outs["valid_full"] = outs["valid_full"] & ~stale[None, :]
+        for c in range(spec.n_channels):
+            rt.epoch_base[c] += n
+        inc = [c for c in tracking if not stale[c]]
+        rt.epochs_run[inc] += n
+        # a channel feeds OBSERVABLES only once its loops have settled after
+        # (re)acquisition; telemetry sees every epoch.  Gating is
+        # epoch-index exact, whatever the chunk sizes.
+        settle = spec.trk.fll_pullin_epochs + 2500
+        eb_settle = rt.epochs_run - n
+        rows = outs["rows"]
+        tlm_res = rt.tlm.process({"prompt": outs["prompt"],
+                                  "valid": outs["valid_full"]})
+        if len(rows) == 0:
+            # tail chunk shorter than one tick stride: telemetry only
+            for _, eph in tlm_res.new_ephemerides:
+                self._store_eph(rt, eph)
+            return self._handle_lock_loss(rt, tracking), None
+        tlm_obs = dataclasses.replace(
+            tlm_res, tow_at_epoch_ms=tlm_res.tow_at_epoch_ms[rows],
+            tow_valid=tlm_res.tow_valid[rows])
+        gate = (rows[:, None] + eb_settle[None, :]) < settle
+        if (gate & outs["valid"]).any():
+            # gate a COPY for the observables push only: the cursor and
+            # tick bound below keep the device's real validity
+            outs = dict(outs, valid=outs["valid"] & ~gate,
+                        valid_ungated=outs["valid"])
+        for _, eph in tlm_res.new_ephemerides:
+            self._store_eph(rt, eph)
+        self.obs_eng.push_epochs(outs, tlm_obs, channel_offset=rt.offset)
+        self._tow_seen[rt.offset:rt.offset + spec.n_channels] |= \
+            tlm_obs.tow_valid.any(axis=0)
+        if rt.pending_resets:
+            for c, prn in rt.pending_resets:
+                rt.tlm.reset_channel(c, prn, epoch_base=rt.epoch_base[c])
+                self.obs_eng.reset_channel(rt.offset + c)
+            rt.pending_resets = []
+        # --- loss-of-lock events + TLM-timeout fail-safe -------------------
+        quiet = self._handle_lock_loss(rt, tracking)
+        if self.conf.tlm_timeout_s > 0:
+            sc_last = outs["sample_counter"][-1]
+            for c in tracking:
+                g = rt.offset + c
+                if (rt.mgr.channels[c].state == ChannelState.TRACKING
+                        and not self._tow_seen[g]
+                        and self._trk_start_abs[g] >= 0
+                        and (sc_last[c] - self._trk_start_abs[g])
+                        / self.conf.fs > self.conf.tlm_timeout_s):
+                    quiet = False
+                    rt.mgr.on_tracking_lost(c)
+                    rt.trk.stop_channel(c)
+        valid_cols = np.asarray(outs.get("valid_ungated", outs["valid"])[-1])
+        if not valid_cols.any():
+            return quiet, None
+        up_to = int(outs["sample_counter"][-1][valid_cols].min())
+        self.cursor = max(self.cursor, up_to - rt.margin)
+        return quiet, up_to
+
     def _iterate(self) -> bool:
-        """One FSM + chunk iteration.  Returns False when nothing could
-        advance."""
-        rt = self.chain
-        tick_bound = None
+        """One FSM + chunk iteration over every chain.  Returns False when
+        nothing could advance."""
+        tick_bounds = []
         progressed = False
         advanced = False
         quiet = True
         staged = []
-        # ---- phase 1: FSM + device dispatch --------------------------------
-        if rt.done < rt.total:
-            rt.mgr.schedule()
-            quiet = self._acquire(rt) and quiet
-            tracking = rt.mgr.tracking_channels()
-            chunk_n = self._chunk_n()
-            if not tracking:
-                rt.done += min(chunk_n, rt.total - rt.done)
-                advanced = True
-            else:
-                n = min(chunk_n, rt.total - rt.done,
-                        rt.trk.epochs_that_fit(self._len))
-                if 0 < n < chunk_n:
-                    # eat the tail in ONE block-aligned chunk (+ one
-                    # sub-block remainder of < 2 blocks next iteration)
-                    q = rt.trk.block_epochs
-                    if n >= 2 * q:
-                        n = (n // q) * q
-                if n <= 0:
-                    rt.done = rt.total   # capture exhausted
-                    advanced = True
-                else:
-                    rt.done += n
-                    progressed = advanced = True
-                    # FLL pull-in on: the block kernel runs from the first
-                    # chunk (its FLL + wide-DLL staging absorb the
-                    # acquisition handoff errors)
-                    need = (0 if rt.trk_conf.enable_fll_pullin
-                            else rt.trk_conf.fll_pullin_epochs + 1000)
-                    use_blocks = all(rt.epochs_run[c] >= need
-                                     for c in tracking)
-                    staged.append((tracking, n, rt.trk.process_begin(
-                        self._x, 0, n, decim=rt.decim,
-                        use_blocks=use_blocks)))
-
-        # ---- phase 2: pull + host-process the PREVIOUS iteration's chunk ---
-        staged, self._inflight = self._inflight, staged
-        for tracking, n, handle in staged:
-            outs = rt.trk.process_end(handle)
-            # channels (re)armed after this chunk was dispatched: its rows
-            # predate the arm; hide them from telemetry and observables
-            stale = outs.pop("stale_channels")
-            if stale.any():
-                outs["valid"] = outs["valid"] & ~stale[None, :]
-                outs["valid_full"] = outs["valid_full"] & ~stale[None, :]
-            for c in range(rt.n_channels):
-                rt.epoch_base[c] += n
-            inc = [c for c in tracking if not stale[c]]
-            rt.epochs_run[inc] += n
-            # a channel feeds OBSERVABLES only once its loops have settled
-            # after (re)acquisition; telemetry sees every epoch.  Gating is
-            # epoch-index exact, whatever the chunk sizes.
-            settle = rt.trk_conf.fll_pullin_epochs + 2500
-            eb_settle = rt.epochs_run - n
-            rows = outs["rows"]
-            tlm_res = rt.tlm.process({"prompt": outs["prompt"],
-                                      "valid": outs["valid_full"]})
-            for _, eph in tlm_res.new_ephemerides:
-                self._store_eph(eph)
-            if len(rows) == 0:
-                # tail chunk shorter than one tick stride: telemetry only
-                quiet = self._handle_lock_loss(rt, tracking) and quiet
+        # ---- phase 1: per-chain FSM + device dispatch ----------------------
+        # every chain's chunk is dispatched before any chunk is pulled
+        for rt in self.chains:
+            if rt.done >= rt.total:
                 continue
-            tlm_obs = dataclasses.replace(
-                tlm_res, tow_at_epoch_ms=tlm_res.tow_at_epoch_ms[rows],
-                tow_valid=tlm_res.tow_valid[rows])
-            gate = (rows[:, None] + eb_settle[None, :]) < settle
-            if (gate & outs["valid"]).any():
-                # gate a COPY for the observables push only: the cursor and
-                # tick bound below keep the device's real validity
-                outs = dict(outs, valid=outs["valid"] & ~gate,
-                            valid_ungated=outs["valid"])
-            self.obs_eng.push_epochs(outs, tlm_obs, channel_offset=0)
-            self._tow_seen |= tlm_obs.tow_valid.any(axis=0)
-            if rt.pending_resets:
-                for c, prn in rt.pending_resets:
-                    rt.tlm.reset_channel(c, prn,
-                                         epoch_base=rt.epoch_base[c])
-                    self.obs_eng.reset_channel(c)
-                rt.pending_resets = []
-            # --- loss-of-lock events + TLM-timeout fail-safe ---------------
-            quiet = self._handle_lock_loss(rt, tracking) and quiet
-            if self.conf.tlm_timeout_s > 0:
-                sc_last = outs["sample_counter"][-1]
-                for c in tracking:
-                    if (rt.mgr.channels[c].state == ChannelState.TRACKING
-                            and not self._tow_seen[c]
-                            and self._trk_start_abs[c] >= 0
-                            and (sc_last[c] - self._trk_start_abs[c])
-                            / self.conf.fs > self.conf.tlm_timeout_s):
-                        quiet = False
-                        rt.mgr.on_tracking_lost(c)
-                        rt.trk.stop_channel(c)
-            valid_cols = np.asarray(
-                outs.get("valid_ungated", outs["valid"])[-1])
-            if valid_cols.any():
-                up_to = int(outs["sample_counter"][-1][valid_cols].min())
-                tick_bound = up_to
-                self.cursor = max(self.cursor, up_to - rt.margin)
+            q, prog, entry = self._dispatch(rt)
+            quiet = q and quiet
+            advanced = True
+            progressed = progressed or prog
+            if entry is not None:
+                staged.append(entry)
+
+        # ---- phase 2: pull + host-process the PREVIOUS iteration's chunks --
+        staged, self._inflight = self._inflight, staged
+        for entry in staged:
+            q, bound = self._consume(*entry)
+            quiet = q and quiet
+            if bound is not None:
+                tick_bounds.append(bound)
 
         # --- observables + PVT ----------------------------------------------
-        if tick_bound is not None:
-            self._solve(tick_bound)
+        if tick_bounds:
+            self._solve(min(tick_bounds))
         if not progressed:
             self.cursor += int(self.chunk_s * self.conf.fs)
             advanced = True
@@ -349,11 +478,12 @@ class ReceiverSession:
                            if quiet else 1)
         return advanced
 
-    def _store_eph(self, eph) -> None:
-        """Adopt a decoded ephemeris, resolving the 10-bit GPS week."""
-        if 0 <= eph.week <= 1023:
+    def _store_eph(self, rt, eph) -> None:
+        """Adopt a decoded ephemeris under the chain's key, resolving the
+        10-bit GPS week."""
+        if rt.spec.system == "GPS" and 0 <= eph.week <= 1023:
             eph = dataclasses.replace(eph, week=adj_gps_week(eph.week))
-        self.ephemerides[eph.prn] = eph
+        self.ephemerides[rt.eph_key(eph.prn)] = eph
 
     def _handle_lock_loss(self, rt, tracking) -> bool:
         quiet = True
@@ -365,14 +495,9 @@ class ReceiverSession:
                 rt.trk.stop_channel(c)
         return quiet
 
-    def _prn_map(self) -> list:
-        return [self.chain.mgr.channels[c].prn
-                for c in range(self.n_total)]
-
     def _solve(self, tick_bound: int) -> None:
         conf = self.conf
-        prn_map = self._prn_map()
-        freq_map = np.full(self.n_total, conf.trk.carrier_freq_hz)
+        prn_map, sys_map = _channel_maps(self.chains, self.n_total)
         for epoch in self.obs_eng.pull_ticks(tick_bound):
             self.obs_epochs.append(epoch)
             # PVT solve cadence (PVT.output_rate_ms decimation)
@@ -382,7 +507,7 @@ class ReceiverSession:
             sol = solve_pvt(epoch, prn_map, self.ephemerides, conf.pvt,
                             x0=None if self.last_fix is None
                             else self.last_fix.rx_ecef_m,
-                            carrier_freq_hz=freq_map)
+                            systems=sys_map, carrier_freq_hz=self.freq_map)
             if sol.valid:
                 self.last_fix = sol
                 self.solutions.append(sol)
@@ -390,15 +515,18 @@ class ReceiverSession:
     # -- output ----------------------------------------------------------------
 
     def result(self) -> ReceiverRun:
-        rt = self.chain
+        prn_map, sys_map = _channel_maps(self.chains, self.n_total)
+        states, events = [], []
+        for rt in self.chains:
+            states.extend(rt.mgr.channels[c].state
+                          for c in range(rt.spec.n_channels))
+            events.extend((rt.offset + c, ev) for c, ev in rt.mgr.events)
         return ReceiverRun(
             solutions=self.solutions,
             observation_epochs=self.obs_epochs,
-            channel_prns=self._prn_map(),
-            channel_states=[rt.mgr.channels[c].state
-                            for c in range(self.n_total)],
-            ephemerides=self.ephemerides,
-            events=list(rt.mgr.events))
+            channel_prns=prn_map, channel_states=states,
+            ephemerides=self.ephemerides, events=events,
+            channel_systems=sys_map)
 
 
 class Receiver:
@@ -411,7 +539,8 @@ class Receiver:
 
     def process_array(self, x) -> ReceiverRun:
         """Run the whole receiver over an in-memory capture (NumPy
-        complex64 array or tensor)."""
+        complex64 array or tensor).  Ephemeris keys: PRN int for GPS,
+        (system, prn) otherwise."""
         s = ReceiverSession(self.conf, device=self.device)
         s.attach_array(x)
         s.run_to_end()

@@ -10,9 +10,9 @@ TOW_at_current_symbol_ms.  Bit-level work is 50 bps x channels — host work
 by design (SURVEY.md section 7: "decode host-side from device-produced
 prompt-symbol batches").
 
-GPS LNAV decoder copied from ``gnss_sim_receiver_tpu.models.telemetry`` for
-the PyTorch port; the other constellations' decoders wait for later
-slices."""
+GPS LNAV and Galileo E1-B I/NAV decoders copied from
+``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port; the other
+constellations' decoders wait for later slices."""
 
 from __future__ import annotations
 
@@ -21,10 +21,52 @@ import dataclasses
 import numpy as np
 
 from gnss_sim_receiver_tpu_torch.nav import lnav
-from gnss_sim_receiver_tpu_torch.nav.ephemeris import (GpsEphemeris,
-                                                       fields_to_ephemeris)
+from gnss_sim_receiver_tpu_torch.nav.ephemeris import (
+    GpsEphemeris, fields_to_ephemeris, words_to_galileo_ephemeris)
+from gnss_sim_receiver_tpu_torch.nav.inav import InavPageDecoder
 
 CODES_PER_BIT = 20
+E1B_EPOCH_MS = 4.0   # one 250-sps INAV symbol per 4 ms E1B code epoch
+
+
+def _collect_column(st, prompts_col, valid_col) -> tuple:
+    """Vectorized per-epoch collection for one channel: returns (pi, base,
+    v) — the valid epochs' prompt-I values in order (float64), the batch's
+    global base epoch index, and the validity mask — while advancing
+    st.epoch_count and latching st.symbol_base on the first valid epoch.
+    Replaces the per-epoch Python loop (1 kHz x channels) with batched
+    NumPy."""
+    v = np.asarray(valid_col, bool)
+    base = st.epoch_count
+    st.epoch_count = base + len(v)
+    if not v.any():
+        return np.empty(0, np.float64), base, v
+    if st.symbol_base < 0:
+        st.symbol_base = base + int(np.argmax(v))
+    pi = np.real(np.asarray(prompts_col))[v].astype(np.float64)
+    return pi, base, v
+
+
+def _stamp_tow_column(tow_col, v, base, st, epoch_ms: float,
+                      after_anchor: bool, anchor0=None) -> None:
+    """Vectorized TOW stamping: tow_col[e] = anchor + (idx+1-anchor_epoch)
+    * epoch_ms for valid epochs.
+
+    after_anchor=True gates on `anchor0` — the anchor the channel had
+    BEFORE this batch's decodes.  Gating on the current (post-decode)
+    anchor would un-stamp every epoch before the LATEST in-batch
+    word/subframe: on a 30 s adaptive chunk that silently dropped all
+    but the last few seconds of observables.  TOW is linear in the
+    epoch index, so the whole batch extrapolates exactly from the
+    newest anchor; only a channel's FIRST-ever anchor limits the gate
+    (no TOW claim before the first decoded timestamp)."""
+    if st.anchor_epoch is None:
+        return
+    idx = base + np.arange(len(v))
+    gate = anchor0 if anchor0 is not None else st.anchor_epoch
+    m = v if not after_anchor else (v & (idx >= gate))
+    tow_col[m] = (st.anchor_tow_ms
+                  + (idx[m] + 1 - st.anchor_epoch) * epoch_ms)
 
 
 @dataclasses.dataclass
@@ -189,3 +231,90 @@ class TelemetryDecoder:
                                 or st.ephemeris.toe != eph.toe):
                             st.ephemeris = eph
                             new_eph.append((c, eph))
+
+
+# ---------------------------------------------------------------------------
+# Galileo E1B INAV telemetry (the reference's unified
+# galileo_telemetry_decoder_gs with frame_type=1, host-side)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _GalChannelTlmState:
+    epoch_count: int = 0
+    symbol_base: int = -1       # global epoch index of the first symbol fed
+    decoder: object = None      # nav.inav.InavPageDecoder
+    words: dict = dataclasses.field(default_factory=dict)  # wt -> fields
+    words_iod: dict = dataclasses.field(default_factory=dict)
+    anchor_epoch: int | None = None
+    anchor_tow_ms: float = 0.0
+    ephemeris: object = None
+    iono: dict | None = None
+
+
+class GalileoE1bTelemetryDecoder:
+    """Consumes TrackingEngine outputs for E1B channels (4 ms epochs = one
+    250-sps INAV symbol each) and produces TOW stamps + Galileo ephemerides.
+
+    Same process() interface as TelemetryDecoder; page/word logic lives in
+    nav.inav (galileo_telemetry_decoder_gs.cc / galileo_inav_message.cc
+    equivalents).  TOW anchoring follows the reference's
+    TOW_at_Preamble = TOW_5 semantics (galileo_telemetry_decoder_gs.cc:1109):
+    word 5's page-start symbol is transmitted at GST TOW_5."""
+
+    def __init__(self, prns):
+        self._mk = InavPageDecoder
+        self.prns = [int(p) for p in prns]
+        self.ch = [_GalChannelTlmState(decoder=InavPageDecoder())
+                   for _ in self.prns]
+
+    def reset_channel(self, c: int, prn: int | None = None,
+                      epoch_base: int | None = None) -> None:
+        st = _GalChannelTlmState(decoder=self._mk())
+        if epoch_base is not None:
+            st.epoch_count = epoch_base
+        self.ch[c] = st
+        if prn is not None:
+            self.prns[c] = int(prn)
+
+    def process(self, track_outs: dict) -> TelemetryOutputs:
+        prompts = track_outs["prompt"]
+        valid = track_outs["valid"]
+        t_len, n_ch = prompts.shape
+        tow = np.full((t_len, n_ch), np.nan)
+        new_eph = []
+        for c in range(n_ch):
+            st = self.ch[c]
+            pi, base, v = _collect_column(st, prompts[:, c], valid[:, c])
+            anchor0 = st.anchor_epoch
+            for ev in st.decoder.push_symbols(pi.tolist()):
+                if not ev.crc_ok:
+                    continue
+                self._handle_word(st, c, ev, new_eph,
+                                  words_to_galileo_ephemeris)
+            _stamp_tow_column(tow[:, c], v, base, st, E1B_EPOCH_MS,
+                              after_anchor=True, anchor0=anchor0)
+        return TelemetryOutputs(tow_at_epoch_ms=tow,
+                                tow_valid=~np.isnan(tow),
+                                new_ephemerides=new_eph)
+
+    def _handle_word(self, st, c, ev, new_eph, to_eph) -> None:
+        wt = ev.word_type
+        if wt in (1, 2, 3, 4):
+            st.words[wt] = ev.fields
+            st.words_iod[wt] = int(ev.fields["iod_nav"])
+        elif wt == 5:
+            st.words[5] = ev.fields
+            # TOW anchor: page start symbol was transmitted at TOW_5
+            st.anchor_epoch = st.symbol_base + ev.page_start_symbol
+            st.anchor_tow_ms = ev.fields["tow"] * 1000.0
+            st.iono = {k: ev.fields.get(k, 0.0)
+                       for k in ("ai0", "ai1", "ai2")}
+        if all(k in st.words for k in (1, 2, 3, 4)):
+            iods = {st.words_iod[k] for k in (1, 2, 3, 4)}
+            if len(iods) == 1:
+                eph = to_eph(self.prns[c], st.words)
+                if (st.ephemeris is None
+                        or st.ephemeris.iod_nav != eph.iod_nav
+                        or st.ephemeris.toe != eph.toe):
+                    st.ephemeris = eph
+                    new_eph.append((c, eph))

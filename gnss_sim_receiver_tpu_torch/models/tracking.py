@@ -1,5 +1,6 @@
 """Batched DLL/PLL tracking engine, PyTorch port of
-``gnss_sim_receiver_tpu.models.tracking`` (``dll_pll`` mode, GPS L1 C/A).
+``gnss_sim_receiver_tpu.models.tracking`` (``dll_pll`` mode: GPS L1 C/A with
+3 taps, Galileo E1-B data with 5 VEML taps).
 
 All channels advance one code epoch per step over a shared sample chunk;
 the per-channel sample pointer and the fractional code/carrier remnants are
@@ -49,7 +50,9 @@ def f32(v) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class TrackingConf:
     """Reference Dll_Pll_Conf subset (tracking/libs/dll_pll_conf.h:42-80),
-    the fields of the dll_pll GPS L1 C/A chain."""
+    the fields of the dll_pll GPS L1 C/A and Galileo E1-B data chains.
+    Rates and lengths are in sub-chips for BOC signals (E1: 2.046e6 and
+    8184)."""
     fs: float = 2_000_000.0
     code_rate_cps: float = constants.GPS_L1_CA_CODE_RATE_CPS
     code_length_chips: int = constants.GPS_L1_CA_CODE_LENGTH_CHIPS
@@ -59,7 +62,16 @@ class TrackingConf:
     enable_fll_pullin: bool = True
     fll_bw_hz: float = 15.0
     fll_pullin_epochs: int = 250
+    # the two-quadrant decision-directed FLL discriminator
+    # (discriminators.fll_cross_dot_decision) in place of the four-quadrant
+    # one: insensitive to a symbol flip between the two prompts (E1-B
+    # carries one symbol per epoch)
+    fll_decision_directed: bool = False
     early_late_space_chips: float = 0.5
+    # > 0 adds very-early/very-late taps (5-tap VEML, the BOC sideband
+    # disambiguator of dll_pll_VEML_tracking) closed by the
+    # dll_nc_vemlp_normalized discriminator on the per-epoch path
+    very_early_late_space_chips: float = 0.0
     cn0_window_epochs: int = 20
     cn0_min_db_hz: float = 25.0
     carrier_lock_threshold: float = 0.75
@@ -223,8 +235,10 @@ def _dll_pll_update(conf: TrackingConf, state: TrackState, prompt,
     out_gain = 2.4 * wn
     # FLL assist during pull-in (run_dll_pll :1080-1099)
     if conf.enable_fll_pullin:
-        freq_err = discriminators.fll_cross_dot(state.prompt_prev, prompt,
-                                                t_int)
+        fll_fn = (discriminators.fll_cross_dot_decision
+                  if conf.fll_decision_directed
+                  else discriminators.fll_cross_dot)
+        freq_err = fll_fn(state.prompt_prev, prompt, t_int)
         in_pullin = (state.epoch > 0) & (state.epoch < conf.fll_pullin_epochs)
         pll_vel = torch.where(
             in_pullin,
@@ -257,12 +271,22 @@ def _epoch_step(conf: TrackingConf, codes: torch.Tensor, taps: torch.Tensor,
                           state.rem_code_phase, state.code_freq,
                           state.rem_carr_phase, state.carrier_doppler, n_c,
                           fs, table_oversample=k_ovs)
-    early, prompt, late = corr[:, 0], corr[:, 1], corr[:, 2]
+    veml = conf.very_early_late_space_chips > 0.0
+    if veml:   # taps = [VE, E, P, L, VL]
+        v_early, early, prompt, late, v_late = corr.unbind(1)
+    else:
+        early, prompt, late = corr.unbind(1)
 
     # --- loop closure (run_dll_pll :1065) ---------------------------------
     carr_err_cyc = discriminators.pll_costas(prompt) / (2.0 * math.pi)
-    code_err_chips = discriminators.dll_nc_e_minus_l_normalized(
-        torch.abs(early), torch.abs(late), f32(conf.early_late_space_chips))
+    if veml:
+        code_err_chips = discriminators.dll_nc_vemlp_normalized(
+            torch.abs(v_early), torch.abs(early), torch.abs(late),
+            torch.abs(v_late), f32(conf.early_late_space_chips))
+    else:
+        code_err_chips = discriminators.dll_nc_e_minus_l_normalized(
+            torch.abs(early), torch.abs(late),
+            f32(conf.early_late_space_chips))
     carrier_doppler, code_freq, pll_new, dll_new = _dll_pll_update(
         conf, state, prompt, carr_err_cyc, code_err_chips, t_int)
 
@@ -414,9 +438,15 @@ class TrackingEngine:
     one; pass device="cpu" for the plain versions of the kernels.
     """
 
-    def __init__(self, conf: TrackingConf, prns, device=None):
+    def __init__(self, conf: TrackingConf, prns, code_provider=None,
+                 device=None):
+        """code_provider(prn) -> +-1 sub-chip table of length
+        conf.code_length_chips (default: GPS L1 C/A); for BOC signals the
+        sub-chip expansion (signals.subchip_table), conf rates in
+        sub-chip units."""
         self.conf = conf
         self.device = resolve_device(device)
+        self.code_provider = code_provider or prn_codes.gps_l1_ca_code
         self.prns = [int(p) for p in prns]
         self.n_channels = len(self.prns)
         # band-limited sub-chip replica tables: both kernels (per-epoch
@@ -427,8 +457,13 @@ class TrackingEngine:
                                      for p in self.prns])
         self.codes = torch.from_numpy(self._codes_host).to(self.device)
         d = conf.early_late_space_chips
-        self.taps = torch.tensor([+d / 2, 0.0, -d / 2], dtype=F32,
-                                 device=self.device)
+        dv = conf.very_early_late_space_chips
+        if dv > 0.0:   # 5-tap VEML (reference very-early spacing, e.g. E1)
+            tap_list = [+dv, +d / 2, 0.0, -d / 2, -dv]
+        else:
+            tap_list = [+d / 2, 0.0, -d / 2]
+        self.taps = torch.from_numpy(np.array(tap_list, np.float32)).to(
+            self.device)
         self.state = _init_state(self.n_channels, self.device)
         self.abs_start = np.zeros(self.n_channels, np.int64)
         # --- chunk chaining / pipelining state (see process_begin) --------
@@ -450,7 +485,7 @@ class TrackingEngine:
                 self.conf.code_length_chips * self.table_oversample,
                 np.float32)
         return prn_codes.bandlimited_table_normalized(
-            prn_codes.gps_l1_ca_code(prn), self.conf.fs,
+            np.asarray(self.code_provider(prn), np.float32), self.conf.fs,
             self.conf.code_rate_cps, self.conf.nominal_epoch_samples,
             self.table_oversample)
 

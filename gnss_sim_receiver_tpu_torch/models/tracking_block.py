@@ -1,8 +1,9 @@
 """Block-processing tracking, PyTorch port of
-``gnss_sim_receiver_tpu.models.tracking_block`` (dll_pll, GPS L1 C/A).
+``gnss_sim_receiver_tpu.models.tracking_block`` (dll_pll: GPS L1 C/A, and
+Galileo E1-B data with 5 taps).
 
-One step per BLOCK of `e_block` epochs (default 20 = one GPS bit), with the
-loops closing at block cadence:
+One step per BLOCK of `e_block` epochs (~20 ms: 20 GPS epochs, 5 E1
+epochs), with the loops closing at block cadence:
 
 - the chunk is cut into a fixed grid of overlapping windows (length
   :func:`block_fft_size`, stride one code period) and FFT'd ONCE for all
@@ -14,6 +15,10 @@ loops closing at block cadence:
   phasor x tap phasor over the F bins into the E/P/L correlations
   [C, E, K], building both phasors in registers — the [C, E, F] phasor and
   product tensors of the JAX program never reach device memory;
+- the DLL closes on the taps next to the prompt, E - L, whatever the tap
+  count: with the 5 VEML taps [VE, E, P, L, VL] of E1 the block closure
+  reads taps 1 and 3, as the JAX block closure does (tracking_block.py
+  :296-299,360-363; the per-epoch path closes the VEMLP discriminator);
 - the loop closure per block is torch ops on [C] tensors in a Python loop
   over the blocks.
 
@@ -280,8 +285,12 @@ def _block_body(conf: TrackingConf, e_block: int, codes_rep, taps, xf_all,
         prev_prompts = torch.cat([st.prompt_prev[:, None], prompt[:, :-1]],
                                  dim=1)
         t_pair = n_len / fs32                                   # [C, E]
-        f_err_m = _median(discriminators.fll_cross_dot(prev_prompts, prompt,
-                                                       t_pair))
+        # data chains whose symbols flip every epoch (E1-B) take the
+        # two-quadrant decision-directed form
+        fll_fn = (discriminators.fll_cross_dot_decision
+                  if conf.fll_decision_directed
+                  else discriminators.fll_cross_dot)
+        f_err_m = _median(fll_fn(prev_prompts, prompt, t_pair))
         # engaged during pull-in AND whenever carrier lock is missing
         in_pullin = ((st.epoch < conf.fll_pullin_epochs)
                      | (st.carrier_lock < f32(conf.carrier_lock_threshold)))

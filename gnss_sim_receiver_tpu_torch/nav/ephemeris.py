@@ -6,8 +6,8 @@ position math of rtklib_ephemeris.cc (eph2pos).
 Angles that LNAV transmits in semicircles are stored in semicircles here so
 the encode/decode roundtrip is bit-exact; the propagator converts.
 
-GPS-only copy of ``gnss_sim_receiver_tpu.nav.ephemeris`` for the PyTorch
-port (the port imports nothing from the JAX package).
+Copy of the GPS and Galileo parts of ``gnss_sim_receiver_tpu.nav.ephemeris``
+for the PyTorch port (the port imports nothing from the JAX package).
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ _PI = np.pi  # semicircle -> rad
 class GpsEphemeris:
     prn: int = 0
     week: int = 0
+    # constellation ("GPS" or "Galileo"): selects GM for the propagator and
+    # the group-delay fields that apply (tgd vs bgd_*); the Kepler broadcast
+    # model is otherwise identical (Galileo OS SIS ICD 5.1.1 vs IS-GPS-200)
+    system: str = "GPS"
     # clock (subframe 1)
     toc: float = 0.0
     af0: float = 0.0
@@ -50,13 +54,17 @@ class GpsEphemeris:
     crs: float = 0.0
     cic: float = 0.0
     cis: float = 0.0
+    # Galileo broadcast group delays (INAV word 5); unused for GPS
+    bgd_e1e5a: float = 0.0
+    bgd_e1e5b: float = 0.0
+    iod_nav: int = 0
 
     def sat_pos_clock(self, t_gps_s):
         """ECEF position [m] and SV clock bias [s] at GPS transmit time
         t_gps_s (seconds of week).  Vectorized over t."""
         t = np.asarray(t_gps_s, dtype=np.float64)
         a = self.sqrt_a ** 2
-        n0 = np.sqrt(constants.GPS_GM / a ** 3)
+        n0 = np.sqrt(_gm(self.system) / a ** 3)
         tk = _wrap_week(t - self.toe)
         n = n0 + self.delta_n_sc * _PI
         m = self.m0_sc * _PI + n * tk
@@ -118,7 +126,7 @@ def sat_states_batch(ephs, t_sv_s):
     k = len(ephs)
     f = {name: np.array([getattr(e, name) for e in ephs], np.float64)
          for name in _BATCH_FIELDS}
-    gm = constants.GPS_GM
+    gm = np.array([_gm(e.system) for e in ephs], np.float64)
 
     def _eval(t):
         # t [..., K] broadcast against the [K] field arrays
@@ -164,6 +172,11 @@ def sat_states_batch(ephs, t_sv_s):
     return pos, clk, vel
 
 
+def _gm(system: str) -> float:
+    """Earth's gravitational constant of the system's broadcast model."""
+    return constants.GALILEO_GM if system == "Galileo" else constants.GPS_GM
+
+
 def _wrap_week(dt):
     """Half-week wrap of time differences (IS-GPS-200 20.3.3.4.3)."""
     dt = np.asarray(dt, dtype=np.float64)
@@ -207,6 +220,50 @@ def fields_to_ephemeris(prn: int, f1: dict, f2: dict, f3: dict
         omega_dot_sc=f3["omega_dot"], i0_sc=f3["i0"], idot_sc=f3["idot"],
         cuc=f2["cuc"], cus=f2["cus"], crc=f3["crc"], crs=f2["crs"],
         cic=f3["cic"], cis=f3["cis"],
+    )
+
+
+def galileo_ephemeris_to_words(eph: GpsEphemeris) -> dict[int, dict]:
+    """Ephemeris -> INAV word-type 1..5 physical field dicts (inverse of
+    words_to_galileo_ephemeris; layouts in nav.inav.WORD_FIELDS)."""
+    iod = int(eph.iod_nav or eph.iode) % 1024
+    w1 = dict(iod_nav=iod, toe=eph.toe, m0=eph.m0_sc, ecc=eph.ecc,
+              sqrt_a=eph.sqrt_a)
+    w2 = dict(iod_nav=iod, omega0=eph.omega0_sc, i0=eph.i0_sc,
+              omega=eph.omega_sc, idot=eph.idot_sc)
+    w3 = dict(iod_nav=iod, omega_dot=eph.omega_dot_sc,
+              delta_n=eph.delta_n_sc, cuc=eph.cuc, cus=eph.cus,
+              crc=eph.crc, crs=eph.crs, sisa=107)
+    w4 = dict(iod_nav=iod, svid=eph.prn, cic=eph.cic, cis=eph.cis,
+              toc=eph.toc, af0=eph.af0, af1=eph.af1, af2=eph.af2)
+    w5 = dict(bgd_e1e5a=eph.bgd_e1e5a, bgd_e1e5b=eph.bgd_e1e5b,
+              wn=eph.week, tow=0.0)
+    return {1: w1, 2: w2, 3: w3, 4: w4, 5: w5}
+
+
+def words_to_galileo_ephemeris(prn: int, words: dict[int, dict]
+                               ) -> GpsEphemeris:
+    """INAV decoded word fields (types 1-4, optionally 5) -> ephemeris.
+    Caller is responsible for IOD_nav consistency across words 1-4
+    (galileo_inav_message.cc:202 have_new_ephemeris)."""
+    w1, w2, w3, w4 = words[1], words[2], words[3], words[4]
+    w5 = words.get(5, {})
+    return GpsEphemeris(
+        prn=prn, system="Galileo", week=int(w5.get("wn", 0)),
+        iod_nav=int(w1["iod_nav"]), iode=int(w1["iod_nav"]),
+        iodc=int(w1["iod_nav"]),
+        toe=w1["toe"], m0_sc=w1["m0"], ecc=w1["ecc"], sqrt_a=w1["sqrt_a"],
+        omega0_sc=w2["omega0"], i0_sc=w2["i0"], omega_sc=w2["omega"],
+        idot_sc=w2["idot"],
+        omega_dot_sc=w3["omega_dot"], delta_n_sc=w3["delta_n"],
+        cuc=w3["cuc"], cus=w3["cus"], crc=w3["crc"], crs=w3["crs"],
+        cic=w4["cic"], cis=w4["cis"], toc=w4["toc"],
+        af0=w4["af0"], af1=w4["af1"], af2=w4["af2"],
+        bgd_e1e5a=w5.get("bgd_e1e5a", 0.0),
+        bgd_e1e5b=w5.get("bgd_e1e5b", 0.0),
+        # INAV clock terms are E1/E5b dual-frequency referenced, so an
+        # E1-only user corrects with BGD(E1,E5b) (OS SIS ICD 5.1.5)
+        tgd=w5.get("bgd_e1e5b", 0.0),
     )
 
 

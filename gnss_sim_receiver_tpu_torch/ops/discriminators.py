@@ -1,5 +1,6 @@
 """Tracking discriminators (vectorized over channels), PyTorch port of
-``gnss_sim_receiver_tpu.ops.discriminators``: the GPS L1 C/A subset.
+``gnss_sim_receiver_tpu.ops.discriminators``: the subset of the GPS L1 C/A
+and Galileo E1-B (5-tap VEML) chains.
 
 Batched equivalents of the reference's scalar discriminator library
 (src/algorithms/tracking/libs/tracking_discriminators.h:46-195).  Inputs
@@ -34,6 +35,21 @@ def fll_cross_dot(prompt_prev: torch.Tensor, prompt: torch.Tensor,
     return torch.atan2(cross, dot) / (2.0 * math.pi * t_sep_s)
 
 
+def fll_cross_dot_decision(prompt_prev: torch.Tensor, prompt: torch.Tensor,
+                           t_sep_s) -> torch.Tensor:
+    """Two-quadrant (decision-directed) cross/dot frequency discriminator
+    [Hz] (reference fll_diff_atan with atan): half the pull range of the
+    four-quadrant form, but insensitive to a symbol flip BETWEEN the
+    prompts, which negates cross and dot together."""
+    i1, q1 = prompt_prev.real, prompt_prev.imag
+    i2, q2 = prompt.real, prompt.imag
+    cross = i1 * q2 - i2 * q1
+    dot = i1 * i2 + q1 * q2
+    sgn = torch.where(dot >= 0, 1.0, -1.0)
+    return torch.atan2(cross * sgn, torch.abs(dot)) / (2.0 * math.pi
+                                                       * t_sep_s)
+
+
 def dll_nc_e_minus_l_normalized(early_mag: torch.Tensor,
                                 late_mag: torch.Tensor,
                                 spacing_chips: float) -> torch.Tensor:
@@ -45,3 +61,17 @@ def dll_nc_e_minus_l_normalized(early_mag: torch.Tensor,
                       (early_mag - late_mag) / torch.clamp(denom, min=1e-20),
                       torch.zeros_like(denom))
     return 0.5 * (2.0 - spacing_chips) * raw
+
+
+def dll_nc_vemlp_normalized(ve: torch.Tensor, e: torch.Tensor,
+                            l: torch.Tensor, vl: torch.Tensor,
+                            spacing_chips) -> torch.Tensor:
+    """Very-early/early/late/very-late power discriminator [chips] for BOC
+    signals (reference dll_nc_vemlp_normalized)."""
+    p_early = torch.sqrt(ve * ve + e * e)
+    p_late = torch.sqrt(vl * vl + l * l)
+    denom = p_early + p_late
+    raw = torch.where(denom > 0,
+                      (p_early - p_late) / torch.clamp(denom, min=1e-20),
+                      torch.zeros_like(denom))
+    return 0.5 * spacing_chips * raw

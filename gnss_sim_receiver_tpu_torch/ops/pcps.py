@@ -1,6 +1,7 @@
-"""Batched Parallel Code Phase Search (PCPS) acquisition (kernels K3 and K3b).
+"""Batched Parallel Code Phase Search acquisition (kernels K3, K3b and K4a).
 
-PyTorch port of ``gnss_sim_receiver_tpu.ops.pcps``, GPS L1 C/A path: the
+PyTorch port of ``gnss_sim_receiver_tpu.ops.pcps`` (the PCPS grid, its
+two-step refinement, and the CCCWSR and 8 ms grids of Galileo E1): the
 whole (channels x Doppler bins x code delay) grid of one acquisition is
 searched in one batch.
 
@@ -19,16 +20,25 @@ The search is cut into two hand-written Triton kernels with cuFFT
   memory.
 
 The two-step refinement (kernel K3b) searches a narrow Doppler row set per
-channel around each coarse hit: :func:`pcps_wipe_per_channel` writes the
-[M, C, D2, N] wiped dwells from a [C, D2] Doppler table built on the device,
-and the same cuFFT and peak stages follow.  :func:`pcps_search_two_steps`
+channel around each coarse hit: :func:`pcps_wipe` given a [C, D2] Doppler
+table built on the device writes the [M, C, D2, N] wiped dwells, and the
+same cuFFT and peak stages follow.  :func:`pcps_search_two_steps`
 chains both steps and packs (stat, doppler_hz, delay_idx, stat2) as [4, C],
 with no host pull between the steps.
 
+The Galileo E1 sign-recovery variants (kernel K4a) correlate each dwell
+twice — CCCWSR with the data and the pilot replica, 8 ms its two code
+periods with the one replica — into one [M, C, D, 2, N] tensor
+(:func:`dual_correlations`: the wipeoff kernel, cuFFT), and
+:func:`pcps_dual_peak` reads both planes once, forming sum_m max(|a+b|^2,
+|a-b|^2) per cell and the same statistic with 2 M correlations per cell;
+:func:`pcps_search_dual` packs the [4, C] buffer of the two-step search.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors.  :func:`pcps_grid`, :func:`pcps_grid_per_channel`,
-:func:`grid_peak` and :func:`max_to_input_power_stat` are the plain
-versions, line for line with the JAX functions.
+:func:`pcps_cccwsr_grid`, :func:`pcps_8ms_grid`, :func:`grid_peak` and
+:func:`max_to_input_power_stat` are the plain versions, line for line with
+the JAX functions.
 """
 
 from __future__ import annotations
@@ -141,6 +151,61 @@ def _peak_plain(corr, n_dwells):
     return max_to_input_power_stat(torch.sum(mag, dim=0), float(n_dwells))
 
 
+def pcps_8ms_grid(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
+                  dopplers: torch.Tensor, fs: float) -> torch.Tensor:
+    """Galileo E1 8 ms grid [C, D, N] (galileo_pcps_8ms_acquisition_cc.cc):
+    each dwell spans TWO code periods, both halves correlated separately
+    (carrier wiped over the full dwell so their relative phase is kept) and
+    combined under both symbol-sign hypotheses, max(|c1+c2|^2, |c1-c2|^2),
+    summed over dwells.  x_dwells [M, 2N], code_fft_conj [C, N]."""
+    m, n2 = x_dwells.shape
+    n = n2 // 2
+    wiped = _wipe_plain(x_dwells, dopplers,
+                        time_axis(n2, fs, x_dwells.device))  # [M, D, 2N]
+    halves = wiped.reshape(m, -1, 2, n)                      # [M, D, 2, N]
+    spec = torch.fft.fft(halves, dim=-1)
+    corr = torch.fft.ifft(spec[:, None] * code_fft_conj[None, :, None,
+                                                        None, :],
+                          dim=-1)                            # [M,C,D,2,N]
+    c1 = corr[..., 0, :]
+    c2 = corr[..., 1, :]
+    plus = torch.abs(c1 + c2) ** 2
+    minus = torch.abs(c1 - c2) ** 2
+    return torch.sum(torch.maximum(plus, minus), dim=0)
+
+
+def pcps_cccwsr_grid(x_dwells: torch.Tensor,
+                     code_data_fft_conj: torch.Tensor,
+                     code_pilot_fft_conj: torch.Tensor,
+                     dopplers: torch.Tensor, fs: float) -> torch.Tensor:
+    """Coherent Channel Combining With Sign Recovery grid [C, D, N] (E1
+    data + pilot, pcps_cccwsr_acquisition_cc.cc): the dwell correlated with
+    the data and the pilot codes separately, combined under both relative
+    signs, max(|d+p|^2, |d-p|^2), summed over dwells."""
+    m, n = x_dwells.shape
+    wiped = _wipe_plain(x_dwells, dopplers,
+                        time_axis(n, fs, x_dwells.device))   # [M, D, N]
+    spec = torch.fft.fft(wiped, dim=-1)
+    cd = torch.fft.ifft(spec[:, None, :, :]
+                        * code_data_fft_conj[None, :, None, :], dim=-1)
+    cp = torch.fft.ifft(spec[:, None, :, :]
+                        * code_pilot_fft_conj[None, :, None, :], dim=-1)
+    plus = torch.abs(cd + cp) ** 2
+    minus = torch.abs(cd - cp) ** 2
+    return torch.sum(torch.maximum(plus, minus), dim=0)
+
+
+def _dual_peak_plain(corr, n_dwells):
+    """Plain version of K4a: corr [M, C, D, 2, N] holds the two correlation
+    planes a = [..., 0, :] and b = [..., 1, :]; the CFAR statistic of the
+    sign-recovery grid sum_m max(|a+b|^2, |a-b|^2) against 2 * n_dwells
+    correlations per cell (acquisition.py:_acquire_dual's n_eff)."""
+    a, b = corr[..., 0, :], corr[..., 1, :]
+    grid = torch.sum(torch.maximum(torch.abs(a + b) ** 2,
+                                   torch.abs(a - b) ** 2), dim=0)
+    return max_to_input_power_stat(grid, float(2 * n_dwells))
+
+
 # ---- Triton kernels --------------------------------------------------------
 
 @functools.cache
@@ -219,67 +284,88 @@ def _kernels():
         tl.store(dop_ptr + c, d_best.to(tl.int32))
         tl.store(del_ptr + c, delay)
 
-    return wipe_kernel, row_kernel, stat_kernel
+    @triton.jit
+    def dual_row_kernel(corr_ptr, rmax_ptr, rarg_ptr, rsum_ptr, n_dwells,
+                        n_ch, n_dop, n, BLOCK: tl.constexpr):
+        # K4a, one (Doppler row, channel): the planes a, b of every dwell
+        # read once, tile by tile; per lane the running max of
+        # sum_m max(|a+b|^2, |a-b|^2) with its first index, and the sum
+        d = tl.program_id(0)
+        c = tl.program_id(1)
+        lanes = tl.arange(0, BLOCK)
+        best = tl.full([BLOCK], float("-inf"), tl.float32)
+        best_i = tl.zeros([BLOCK], dtype=tl.int32)
+        total = tl.zeros([BLOCK], dtype=tl.float32)
+        for start in range(0, n, BLOCK):
+            offs = start + lanes
+            mask = offs < n
+            acc = tl.zeros([BLOCK], dtype=tl.float32)
+            for m in range(n_dwells):
+                row = ((m * n_ch + c) * n_dop + d) * 2
+                pa = corr_ptr + (row * n + offs) * 2
+                pb = corr_ptr + ((row + 1) * n + offs) * 2
+                ar = tl.load(pa, mask=mask, other=0.0)
+                ai = tl.load(pa + 1, mask=mask, other=0.0)
+                br = tl.load(pb, mask=mask, other=0.0)
+                bi = tl.load(pb + 1, mask=mask, other=0.0)
+                sr = ar + br
+                si = ai + bi
+                dr = ar - br
+                di = ai - bi
+                acc += tl.maximum(sr * sr + si * si, dr * dr + di * di)
+            vals = tl.where(mask, acc, float("-inf"))
+            better = vals > best
+            best = tl.where(better, vals, best)
+            best_i = tl.where(better, offs, best_i)
+            total += acc
+        rmax = tl.max(best, axis=0)
+        rarg = tl.min(tl.where(best == rmax, best_i, n), axis=0)
+        o = c * n_dop + d
+        tl.store(rmax_ptr + o, rmax)
+        tl.store(rarg_ptr + o, rarg.to(tl.int32))
+        tl.store(rsum_ptr + o, tl.sum(total, axis=0))
+
+    return wipe_kernel, row_kernel, stat_kernel, dual_row_kernel
 
 
 # ---- wrappers --------------------------------------------------------------
 
 def pcps_wipe(x_dwells: torch.Tensor, dopplers: torch.Tensor,
               t: torch.Tensor) -> torch.Tensor:
-    """K3 wipeoff kernel: [M, N] dwells x [D] Doppler bins -> [M, D, N]
-    complex64 wiped dwells x * exp(-j 2 pi f_d t) (the cuFFT input)."""
+    """The wipeoff kernel: [M, N] dwells x exp(-j 2 pi f_d t) (the cuFFT
+    input).  A [D] Doppler grid gives [M, D, N] (K3; counted in
+    ``pcps_wipe.launches``); a [C, D2] per-channel table gives [M, C, D2, N]
+    (K3b, the two-step refinement; counted in
+    ``pcps_wipe.launches_per_channel``), the kernel running over the
+    table's C * D2 rows as its Doppler axis."""
+    if dopplers.dim() not in (1, 2):
+        raise ValueError("pcps_wipe: dopplers must be [D] or [C, D2]")
     if not check_kernel_device(x_dwells, "pcps_wipe"):
+        if dopplers.dim() == 2:
+            return _wipe_per_channel_plain(x_dwells, dopplers, t)
         return _wipe_plain(x_dwells, dopplers, t)
     dev = x_dwells.device
     require(x_dwells, torch.complex64, dev, "pcps_wipe: x_dwells")
     require(dopplers, torch.float32, dev, "pcps_wipe: dopplers")
     require(t, torch.float32, dev, "pcps_wipe: t")
     m, n = x_dwells.shape
-    d = dopplers.shape[0]
-    out = torch.empty((m, d, n), dtype=torch.complex64, device=dev)
-    _launch_wipe(x_dwells, dopplers, t, out)
-    pcps_wipe.launches += 1
-    return out
-
-
-pcps_wipe.launches = 0
-
-
-def _launch_wipe(x_dwells, dopplers, t, out):
-    """The wipeoff kernel over `dopplers.numel()` Doppler rows: row r of
-    every dwell of `out` is x * exp(-j 2 pi dopplers.flat[r] t)."""
-    m, n = x_dwells.shape
+    out = torch.empty((m, *dopplers.shape, n), dtype=torch.complex64,
+                      device=dev)
+    wipe_kernel = _kernels()[0]
     rows = dopplers.numel()
-    wipe_kernel, _, _ = _kernels()
     block = 1024
     wipe_kernel[((n + block - 1) // block, rows, m)](
         torch.view_as_real(x_dwells), t, dopplers, torch.view_as_real(out),
         n, rows, float(np.float32(-2.0 * math.pi)), BLOCK=block, num_warps=4)
-
-
-def pcps_wipe_per_channel(x_dwells: torch.Tensor, dopplers: torch.Tensor,
-                          t: torch.Tensor) -> torch.Tensor:
-    """K3b wipeoff kernel: [M, N] dwells x [C, D2] per-channel Doppler table
-    -> [M, C, D2, N] complex64 wiped dwells (the cuFFT input of the
-    two-step refinement).  The wipeoff kernel runs with the table's C * D2
-    rows as its Doppler axis."""
-    if not check_kernel_device(x_dwells, "pcps_wipe_per_channel"):
-        return _wipe_per_channel_plain(x_dwells, dopplers, t)
-    dev = x_dwells.device
-    require(x_dwells, torch.complex64, dev, "pcps_wipe_per_channel: x_dwells")
-    require(dopplers, torch.float32, dev, "pcps_wipe_per_channel: dopplers")
-    require(t, torch.float32, dev, "pcps_wipe_per_channel: t")
-    if dopplers.dim() != 2:
-        raise ValueError("pcps_wipe_per_channel: dopplers must be [C, D2]")
-    m, n = x_dwells.shape
-    c, d2 = dopplers.shape
-    out = torch.empty((m, c, d2, n), dtype=torch.complex64, device=dev)
-    _launch_wipe(x_dwells, dopplers, t, out)
-    pcps_wipe_per_channel.launches += 1
+    if dopplers.dim() == 2:
+        pcps_wipe.launches_per_channel += 1
+    else:
+        pcps_wipe.launches += 1
     return out
 
 
-pcps_wipe_per_channel.launches = 0
+pcps_wipe.launches = 0
+pcps_wipe.launches_per_channel = 0
 
 
 def pcps_peak(corr: torch.Tensor, n_dwells: int):
@@ -294,23 +380,70 @@ def pcps_peak(corr: torch.Tensor, n_dwells: int):
     if m != n_dwells:
         raise ValueError("pcps_peak: n_dwells must match corr.shape[0]")
     import triton
-    _, row_kernel, stat_kernel = _kernels()
-    rmax = torch.empty((c, d), dtype=torch.float32, device=dev)
-    rarg = torch.empty((c, d), dtype=torch.int32, device=dev)
-    rsum = torch.empty((c, d), dtype=torch.float32, device=dev)
-    row_kernel[(d, c)](torch.view_as_real(corr), rmax, rarg, rsum, m, c, d,
+    _, row_kernel, _, _ = _kernels()
+    rows = _row_buffers(c, d, dev)
+    row_kernel[(d, c)](torch.view_as_real(corr), *rows, m, c, d,
                        n, BLOCK=triton.next_power_of_2(n), num_warps=8)
-    stat = torch.empty(c, dtype=torch.float32, device=dev)
-    dop_idx = torch.empty(c, dtype=torch.int32, device=dev)
-    del_idx = torch.empty(c, dtype=torch.int32, device=dev)
-    stat_kernel[(c,)](rmax, rarg, rsum, stat, dop_idx, del_idx, d, d // 2,
-                      float(np.float32(1.0) / np.float32(n)), float(m),
-                      BLOCK_D=triton.next_power_of_2(d), num_warps=1)
+    out = _stat(rows, n, m)
     pcps_peak.launches += 1
-    return stat, dop_idx, del_idx
+    return out
 
 
 pcps_peak.launches = 0
+
+
+def _row_buffers(c, d, dev):
+    """Per (channel, Doppler row): max, first argmax and sum of the grid."""
+    return (torch.empty((c, d), dtype=torch.float32, device=dev),
+            torch.empty((c, d), dtype=torch.int32, device=dev),
+            torch.empty((c, d), dtype=torch.float32, device=dev))
+
+
+def _stat(rows, n: int, n_sums: int):
+    """The stat kernel over the row buffers: (stat [C], doppler_idx [C],
+    delay_idx [C]), the noise power taken as the opposite row's mean / 2 /
+    `n_sums`, the correlations summed per cell (max_to_input_power_stat)."""
+    import triton
+    stat_kernel = _kernels()[2]
+    rmax = rows[0]
+    c, d = rmax.shape
+    dev = rmax.device
+    stat = torch.empty(c, dtype=torch.float32, device=dev)
+    dop_idx = torch.empty(c, dtype=torch.int32, device=dev)
+    del_idx = torch.empty(c, dtype=torch.int32, device=dev)
+    stat_kernel[(c,)](*rows, stat, dop_idx, del_idx, d, d // 2,
+                      float(np.float32(1.0) / np.float32(n)),
+                      float(n_sums),
+                      BLOCK_D=triton.next_power_of_2(d), num_warps=1)
+    return stat, dop_idx, del_idx
+
+
+def pcps_dual_peak(corr: torch.Tensor, n_dwells: int):
+    """K4a, the sign-recovery kernel: [M, C, D, 2, N] complex64, the two
+    correlation planes a = [..., 0, :] and b = [..., 1, :] of the CCCWSR
+    (data, pilot) or 8 ms (first half, second half) search -> (stat [C],
+    doppler_idx [C] int32, delay_idx [C] int32): the CFAR statistic of the
+    grid sum_m max(|a+b|^2, |a-b|^2) with 2 * n_dwells correlations per
+    cell.  Each plane is read once; the [C, D, N] grid never reaches
+    device memory."""
+    if not check_kernel_device(corr, "pcps_dual_peak"):
+        return _dual_peak_plain(corr, n_dwells)
+    dev = corr.device
+    require(corr, torch.complex64, dev, "pcps_dual_peak: corr")
+    m, c, d, two, n = corr.shape
+    if two != 2 or m != n_dwells:
+        raise ValueError("pcps_dual_peak: corr must be [n_dwells, C, D, 2, "
+                         "N]")
+    dual_row_kernel = _kernels()[3]
+    rows = _row_buffers(c, d, dev)
+    dual_row_kernel[(d, c)](torch.view_as_real(corr), *rows, m, c, d, n,
+                            BLOCK=1024, num_warps=4)
+    out = _stat(rows, n, 2 * m)
+    pcps_dual_peak.launches += 1
+    return out
+
+
+pcps_dual_peak.launches = 0
 
 
 def pcps_search(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
@@ -344,10 +477,57 @@ def pcps_search_two_steps(x_dwells: torch.Tensor,
         offs = ((torch.arange(2 * n_side + 1, device=dopplers.device)
                  - n_side) * float(np.float32(step2))).to(torch.float32)
         dops2 = (dop_hz[:, None] + offs[None, :]).contiguous()    # [C, D2]
-        wiped = pcps_wipe_per_channel(x_dwells, dops2, t)
+        wiped = pcps_wipe(x_dwells, dops2, t)
         spec = torch.fft.fft(wiped, dim=-1)
         corr = torch.fft.ifft(spec * code_fft_conj[None, :, None, :], dim=-1)
         stat2, dop2_idx, _ = pcps_peak(corr, m)
         dop_hz = torch.gather(dops2, 1, dop2_idx.long()[:, None])[:, 0]
     return torch.stack([stat.to(torch.float32), dop_hz.to(torch.float32),
                         del_idx.to(torch.float32), stat2.to(torch.float32)])
+
+
+def dual_correlations(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
+                      code2_fft_conj: torch.Tensor | None,
+                      dopplers: torch.Tensor, t: torch.Tensor,
+                      variant: str) -> torch.Tensor:
+    """The two correlation planes of a sign-recovery search as one
+    [M, C, D, 2, N] complex64 tensor (K4a's input), through the wipeoff
+    kernel and cuFFT:
+
+    - "cccwsr": x_dwells [M, N] wiped, one forward FFT, then one inverse
+      FFT of the products with the two replica families, plane 0 with
+      `code2_fft_conj` (the acquisition engine's second family), plane 1
+      with `code_fft_conj`, as acquisition.py:_acquire_dual orders them;
+    - "8ms": x_dwells [M, 2N] wiped over the whole 2N (the halves keep their
+      relative phase, pcps.py:226-230), each half FFT'd and multiplied by
+      the one replica; plane 0 the first half, plane 1 the second.
+    `t` is the wipeoff's time axis over the dwell ([N] or [2N])."""
+    m = x_dwells.shape[0]
+    wiped = pcps_wipe(x_dwells, dopplers, t)                 # [M, D, n]
+    if variant == "cccwsr":
+        spec = torch.fft.fft(wiped, dim=-1)[:, None, :, None, :]
+        codes = torch.stack([code2_fft_conj, code_fft_conj], dim=1)
+    elif variant == "8ms":
+        n = wiped.shape[-1] // 2
+        spec = torch.fft.fft(wiped.reshape(m, -1, 2, n), dim=-1)[:, None]
+        codes = code_fft_conj[:, None, :]
+    else:
+        raise ValueError(f"dual_correlations: variant {variant!r}")
+    return torch.fft.ifft(spec * codes[None, :, None, :, :], dim=-1)
+
+
+def pcps_search_dual(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
+                     code2_fft_conj: torch.Tensor | None,
+                     dopplers: torch.Tensor, t: torch.Tensor,
+                     variant: str) -> torch.Tensor:
+    """The sign-recovery search of acquisition.py:_acquire_dual
+    ("cccwsr" or "8ms", see :func:`dual_correlations`), then K4a.  Returns
+    the packed [4, C] float32 buffer of :func:`pcps_search_two_steps`
+    (stat, doppler_hz, delay_idx, stat2) with stat2 = 0: the dual variants
+    search one grid, whatever make_two_steps says."""
+    corr = dual_correlations(x_dwells, code_fft_conj, code2_fft_conj,
+                             dopplers, t, variant)
+    stat, dop_idx, del_idx = pcps_dual_peak(corr, x_dwells.shape[0])
+    return torch.stack([stat.to(torch.float32),
+                        dopplers[dop_idx.long()].to(torch.float32),
+                        del_idx.to(torch.float32), torch.zeros_like(stat)])

@@ -13,8 +13,8 @@ Timing model (matches sim.signal_generator):
   delay(t) = range(t)/c - dt_sv(t); tau indexes both the spreading code and
   the LNAV bit stream whose first subframe starts at TOW = t_gps0.
 
-GPS L1 C/A copy of ``gnss_sim_receiver_tpu.sim.scenario`` for the PyTorch
-port.
+GPS L1 C/A and Galileo E1-B copy of ``gnss_sim_receiver_tpu.sim.scenario``
+for the PyTorch port.
 The quadratic fit of delay(t) over the scenario duration keeps residuals
 sub-millimeter for <= 60 s static scenarios (MEO range acceleration
 < 1 m/s^2 changes by < 1e-3 m/s^2).
@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from gnss_sim_receiver_tpu_torch import constants
-from gnss_sim_receiver_tpu_torch.nav import lnav
+from gnss_sim_receiver_tpu_torch.nav import inav, lnav
 from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
     SatelliteSignalParams
 from gnss_sim_receiver_tpu_torch.utils import geodesy
@@ -68,9 +68,11 @@ def build_static_scenario(ephemerides, rx_ecef, t_gps0: float,
                           n_frames: int | None = None,
                           subframe_cycle=(1, 2, 3, 4, 5)
                           ) -> list[SatelliteSignalParams]:
-    """GPS L1 C/A SatelliteSignalParams for every visible satellite of a
-    static receiver.  t_gps0 must be a multiple of 6 (LNAV subframe
-    grid)."""
+    """SatelliteSignalParams for every visible satellite of a static
+    receiver.  t_gps0 must be a multiple of 6 (LNAV subframe grid; also a
+    multiple of the 2 s INAV page grid, so Galileo ephemerides — marked by
+    eph.system — get an E1B signal whose INAV page stream starts at
+    t_gps0)."""
     if t_gps0 % 6.0:
         raise ValueError("t_gps0 must be a multiple of 6 s (subframe grid)")
     rx_ecef = np.asarray(rx_ecef, dtype=np.float64)
@@ -90,12 +92,22 @@ def build_static_scenario(ephemerides, rx_ecef, t_gps0: float,
         d0 = d[0]
         d2 = (d[2] - 2.0 * d[1] + d[0]) / (duration_s / 2.0) ** 2
         d1 = (d[2] - d[0]) / duration_s - d2 * duration_s / 2.0
-        f_c = constants.GPS_L1_FREQ_HZ
-        stream = lnav.frames_for_ephemeris(
-            eph, t_gps0, n_frames=n_frames, subframe_cycle=subframe_cycle)
+        f_c = constants.GPS_L1_FREQ_HZ   # == Galileo E1 carrier
+        if eph.system == "Galileo":
+            n_rep = int(np.ceil((duration_s + 12.0)
+                                / (5 * inav.PAGE_SECONDS)))
+            stream = inav.pages_for_ephemeris(eph, t0_gst_s=t_gps0,
+                                              n_repeats=n_rep)
+            system, signal = "Galileo", "1B"
+        else:
+            stream = lnav.frames_for_ephemeris(
+                eph, t_gps0, n_frames=n_frames,
+                subframe_cycle=subframe_cycle)
+            system, signal = "GPS", "1C"
         nav_bits = (2 * stream - 1).astype(np.int8)
         sats.append(SatelliteSignalParams(
-            prn=eph.prn, cn0_db_hz=cn0_db_hz,
+            prn=eph.prn, system=system, signal=signal,
+            cn0_db_hz=cn0_db_hz,
             doppler_hz=-f_c * d1, doppler_rate_hz_s=-f_c * d2,
             delay_sec=d0, delay_chips=0.0,
             # geometric carrier phase at t=0: the received phase is

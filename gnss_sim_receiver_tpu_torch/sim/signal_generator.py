@@ -18,9 +18,10 @@ Signal model per satellite (constant Doppler + optional rate):
   carrier         = exp(j(2 pi (f_d t + f_dr t^2/2) + phi0))
   amplitude       = sqrt(10^(CN0/10) / fs)   with unit complex noise variance
 
-GPS L1 C/A copy of ``gnss_sim_receiver_tpu.sim.signal_generator`` for the
-PyTorch port: the same arithmetic, so a capture synthesized here equals the
-JAX package's fixture sample for sample.
+GPS L1 C/A and Galileo E1 (E1-B data, E1-C pilot) copy of
+``gnss_sim_receiver_tpu.sim.signal_generator`` for the PyTorch port: the
+same arithmetic, so a capture synthesized here equals the JAX package's
+fixture sample for sample.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import dataclasses
 import numpy as np
 
 from gnss_sim_receiver_tpu_torch import constants
+from gnss_sim_receiver_tpu_torch import signals as sigdefs
 from gnss_sim_receiver_tpu_torch.ops import prn_codes
 
 
@@ -38,6 +40,8 @@ class SatelliteSignalParams:
     """One simulated satellite signal (reference SignalSource.{PRN_i, CN0_dB_i,
     doppler_Hz_i, delay_chips_i, delay_sec_i} parameter set)."""
     prn: int
+    system: str = "GPS"
+    signal: str = "1C"                   # "1C" | "1B" (E1-B) | "1P" (E1-C)
     cn0_db_hz: float = 44.0
     doppler_hz: float = 0.0
     doppler_rate_hz_s: float = 0.0
@@ -53,13 +57,33 @@ def cn0_to_amplitude(cn0_db_hz: float, fs: float) -> float:
     return float(np.sqrt(10.0 ** (cn0_db_hz / 10.0) / fs))
 
 
+def _sig_params(sat: SatelliteSignalParams):
+    """(subchip table +-1 int8, sc_rate, subchips_per_symbol) per signal."""
+    if sat.signal == "1C":
+        code = prn_codes.gps_l1_ca_code(sat.prn).astype(np.int8)
+        return (code, constants.GPS_L1_CA_CODE_RATE_CPS,
+                constants.GPS_L1_CA_CODE_LENGTH_CHIPS
+                * constants.GPS_L1_CA_CODES_PER_BIT)
+    if sat.signal == "1B":
+        sub = sigdefs.subchip_table(sigdefs.GALILEO_E1B, sat.prn
+                                    ).astype(np.int8)
+        # E1B: 250 sps, one 4092-chip code period per symbol (BOC sub-chips)
+        return sub, sigdefs.GALILEO_E1B.sc_rate, len(sub)
+    if sat.signal == "1P":
+        # E1-C pilot: BOC(1,1) E1C primary; nav_bits carry the CS25
+        # secondary signs (one chip per 4 ms code period)
+        sub = sigdefs.boc11_expand(
+            sigdefs.galileo_e1_code(sat.prn, "C")).astype(np.int8)
+        return sub, sigdefs.GALILEO_E1B.sc_rate, len(sub)
+    raise NotImplementedError(
+        f"simulator signal {sat.system}/{sat.signal} is not ported")
+
+
 def _sat_chip_table(sat: SatelliteSignalParams) -> np.ndarray:
     """Pre-expanded sub-chip sequence table[i % L] * bit[i // L_sym] over
     the whole nav-symbol stream, as int8 — one gather per sample instead of
     two gathers + two mods in the hot loop."""
-    code = prn_codes.gps_l1_ca_code(sat.prn).astype(np.int8)
-    sc_per_sym = (constants.GPS_L1_CA_CODE_LENGTH_CHIPS
-                  * constants.GPS_L1_CA_CODES_PER_BIT)
+    code, _, sc_per_sym = _sig_params(sat)
     bits = np.asarray(sat.nav_bits, dtype=np.int8)
     reps_per_sym = sc_per_sym // len(code)
     table = np.tile(code, reps_per_sym * len(bits))
@@ -81,8 +105,8 @@ def _sat_signal_block(sat: SatelliteSignalParams, fs: float,
     exact to ~6e-5 chips / 2e-6 rad within a block — well below the
     sub-centimeter fidelity the fixtures need.
     """
-    f_c = constants.GPS_L1_FREQ_HZ
-    code_rate = constants.GPS_L1_CA_CODE_RATE_CPS
+    f_c = constants.GPS_L1_FREQ_HZ  # L1/E1 band (same carrier)
+    _, code_rate, _ = _sig_params(sat)  # sub-chip rate
     if getattr(sat, "_chip_table", None) is None:
         sat._chip_table = _sat_chip_table(sat)
     table = sat._chip_table
@@ -92,7 +116,10 @@ def _sat_signal_block(sat: SatelliteSignalParams, fs: float,
     # anchors (f64, one per block)
     s_b = start_sample + b * np.arange(nblk, dtype=np.float64)
     t_b = s_b / fs
-    delay0 = sat.delay_sec + sat.delay_chips / code_rate
+    # delay_chips is in ICD chips; code_rate here is the SUB-chip rate
+    icd_chip_rate = (code_rate / 2.0 if sat.signal in ("1B", "1P")
+                     else code_rate)
+    delay0 = sat.delay_sec + sat.delay_chips / icd_chip_rate
     dop_code0 = sat.doppler_hz
     f_code = f_c
     delay_b = delay0 - (dop_code0 / f_code) * t_b \

@@ -56,12 +56,13 @@ def test_pcps_grid_per_channel_matches_jax(per_channel_inputs):
 
 
 def test_wipe_per_channel_is_the_flat_wipe(per_channel_inputs):
-    """The K3b wrapper hands the kernel the table's C * D2 rows as its
-    Doppler axis: on the CPU the two plain versions must agree exactly."""
+    """Given a [C, D2] table (K3b) the wipeoff hands the kernel the table's
+    C * D2 rows as its Doppler axis: on the CPU the two plain versions must
+    agree exactly."""
     x, _, dops = per_channel_inputs
     t = ppcps.time_axis(N, FS, "cpu")
     xt, dt = torch.from_numpy(x), torch.from_numpy(dops)
-    per_channel = ppcps.pcps_wipe_per_channel(xt, dt, t)
+    per_channel = ppcps.pcps_wipe(xt, dt, t)
     flat = ppcps.pcps_wipe(xt, dt.reshape(-1), t)
     assert per_channel.shape == (M, 3, 9, N)
     assert torch.equal(per_channel.reshape(M, 27, N), flat)

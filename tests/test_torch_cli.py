@@ -23,6 +23,7 @@ from gnss_sim_receiver_tpu_torch.utils.config import (FileConfiguration,
 from gnss_sim_receiver_tpu_torch.utils.sample_io import (read_samples,
                                                          write_samples)
 from tests.fixtures import static_scenario_capture
+from tests.test_hybrid_position import hybrid_capture  # noqa: F401
 
 # the canonical operating point: a 4 Msps ishort file decimated x2 inside
 # the receiver, 8 channels, two-step acquisition
@@ -63,6 +64,32 @@ PVT.output_rate_ms=20
 """
 
 
+# the hybrid operating point (the reference's gnss-sdr_Hybrid_byte.conf as
+# tests/test_cli.py:78-95 records it: 10 + 10 channels, E1 Doppler step
+# 125 Hz, PLL 15 Hz, very-early-late 0.6 chips) at 4 Msps, with CCCWSR
+# acquisition on the Galileo E1-B chain, every PRN unpinned
+HYBRID_CONF = """\
+GNSS-SDR.internal_fs_sps=4000000
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={filename}
+SignalSource.item_type=ishort
+SignalSource.sampling_frequency=4000000
+Channels_1C.count=10
+Channels_1B.count=10
+Channels.in_acquisition=20
+Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition
+Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking
+Acquisition_1B.implementation=Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition
+Acquisition_1B.doppler_step=125
+Tracking_1B.implementation=Galileo_E1_DLL_PLL_VEML_Tracking
+Tracking_1B.very_early_late_space_chips=0.6
+Tracking_1B.pll_bw_hz=15
+PVT.implementation=RTKLIB_PVT
+PVT.positioning_mode=Single
+PVT.output_rate_ms=20
+"""
+
+
 def _write_conf(tmp_path, text, name="rx.conf"):
     path = tmp_path / name
     path.write_text(text)
@@ -95,6 +122,57 @@ def test_factory_matches_jax_field_by_field(tmp_path):
     assert src.item_type == "ishort" and src.sampling_frequency == 4e6
 
 
+@pytest.mark.parametrize("impl,variant", [
+    ("Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition", "cccwsr"),
+    ("Galileo_E1_PCPS_8ms_Ambiguous_Acquisition", "8ms"),
+    ("Galileo_E1_PCPS_Ambiguous_Acquisition", "pcps")])
+def test_factory_matches_jax_on_the_hybrid_conf(tmp_path, impl, variant):
+    """Both chains from one hybrid conf text, field by field: the E1
+    chain's acquisition variant, its second replica family, the spacings
+    scaled to sub-chips (0.6 chips very-early-late -> 1.2)."""
+    text = HYBRID_CONF.format(filename="cap.ishort").replace(
+        "Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition", impl)
+    path = _write_conf(tmp_path, text)
+    ref = jfactory.receiver_conf_from_config(JaxFileConfiguration(path))
+    got = factory.receiver_conf_from_config(FileConfiguration(path))
+    assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    assert got.gps_chain and ref.gps_chain and got.max_channels == 10
+    (chain,), (ref_chain,) = got.chains, ref.chains
+    assert (chain.signal, chain.system, chain.n_channels, chain.prns) == (
+        ref_chain.signal, ref_chain.system, ref_chain.n_channels,
+        ref_chain.prns) == ("1B", "Galileo", 10, tuple(range(1, 37)))
+    for name in ("acq", "trk"):
+        for f in dataclasses.fields(getattr(chain, name)):
+            assert getattr(getattr(chain, name), f.name) == \
+                getattr(getattr(ref_chain, name), f.name), (name, f.name)
+    assert chain.acq.variant == variant and chain.acq.doppler_step == 125.0
+    assert chain.trk.very_early_late_space_chips == pytest.approx(1.2)
+    assert chain.trk.early_late_space_chips == 0.5
+    assert chain.trk.pll_bw_hz == 15.0 and chain.trk.fll_decision_directed
+    assert (chain.data_code_provider is None) == \
+        (ref_chain.data_code_provider is None) == (variant != "cccwsr")
+    assert chain.sc_rate == ref_chain.sc_rate == 2.046e6
+    assert got.pvt_rate_ms == 20 == ref.pvt_rate_ms
+    # 10 + 10 global channels, the E1 chain's pinning offset past 1C's
+    assert sum(c.n_channels for c in got.all_chains()) == 20
+
+
+@pytest.mark.parametrize("line", [
+    "Acquisition_1B.implementation=Galileo_E1_PCPS_QuickSync_Acquisition",
+    "Tracking_1B.implementation=Galileo_E1_DLL_PLL_VEML_Tracking_Fpga",
+    "Acquisition_1B.use_CFAR_algorithm=false",
+    "Tracking_1B.extend_correlation_symbols=4",
+    "Channels_1B.RF_channel_ID=1",
+])
+def test_factory_refuses_unported_e1_keys(tmp_path, line):
+    """The E1 chain's keys for what the port lacks, by name."""
+    path = _write_conf(tmp_path, "Channels_1B.count=2\n" + line + "\n",
+                       "bad.conf")
+    with pytest.raises(NotImplementedError, match="not ported") as err:
+        factory.receiver_conf_from_config(FileConfiguration(path))
+    assert line.split("=")[0] in str(err.value)
+
+
 def test_factory_defaults_match_jax():
     from gnss_sim_receiver_tpu.utils.config import \
         InMemoryConfiguration as JaxInMemory
@@ -113,7 +191,7 @@ def test_factory_defaults_match_jax():
     "Tracking_1C.implementation=GPS_L1_CA_KF_Tracking",
     "Tracking_1C.extend_correlation_symbols=20",
     "Tracking_1C.order=2",
-    "Channels_1B.count=4",
+    "Channels_5X.count=4",
     "Channels_L5.count=2",
     "PVT.positioning_mode=RTK_Static",
     "PVT.positioning_mode=PPP_Static",
@@ -154,7 +232,7 @@ def test_interop_refuses_fields_the_port_lacks():
      "SignalSource.implementation"),
     ("SignalSource.implementation=Labsat_Signal_Source",
      "SignalSource.implementation"),
-    ("Channels_1B.count=4", "Channels_1B.count"),
+    ("Channels_5X.count=4", "Channels_5X.count"),
 ])
 def test_cli_stops_on_unported_features(tmp_path, capsys, line, key):
     """Exit code 2 and a message naming the key, before any file is read."""
@@ -231,3 +309,33 @@ def test_cli_runs_receiver_from_conf(tmp_path, capsys):
     ref_out = capsys.readouterr().out
     assert rc == 1
     assert sorted(_tracked(ref_out)) == sorted(prns)
+
+
+def test_cli_hybrid_conf_runs_both_chains(tmp_path, capsys, hybrid_capture):
+    """Both CLIs on the hybrid conf and the first 8 s of the hybrid capture
+    (tests/test_hybrid_position.py) written as ishort: the same tracked
+    PRNs, GPS and Galileo both among them, and the same exit code (8 s is
+    too short for a fix)."""
+    x, _ = hybrid_capture
+    cap = tmp_path / "hyb.ishort"
+    write_samples(cap, x[: int(4e6 * 8)], "ishort", scale=200.0)
+    conf = _write_conf(tmp_path, HYBRID_CONF.format(filename=cap))
+    # two intra-op threads: the suite runs this file beside five other
+    # workers, and more threads only oversubscribe the cores
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        res = run_cli([f"--config_file={conf}", "--device=cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "32000000 samples at 4.000 Msps" in out
+    prns = _tracked(out)
+    systems = res.run.channel_systems
+    assert systems == ["GPS"] * 10 + ["Galileo"] * 10
+    assert {1, 3, 4, 5} <= set(prns) and {11, 12, 13, 14, 15} & set(prns)
+    rc = jax_main([f"--config_file={conf}"])
+    ref_out = capsys.readouterr().out
+    assert rc == res.exit_code
+    assert _tracked(ref_out) == prns

@@ -3,8 +3,10 @@ CPU, and its state carries across intact.
 
 - no file of gnss_sim_receiver_tpu_torch/ nor chip_smoke.py imports jax or
   gnss_sim_receiver_tpu (an AST scan);
-- the port acquires and tracks in a process where both names cannot be
-  imported;
+- the port acquires and tracks (GPS L1 C/A, and Galileo E1-B with the
+  sign-recovery acquisition and 5 taps) in a process where both names cannot
+  be imported, and opens no file of the JAX package: its Galileo code
+  tables are its own package data, shipped by pyproject.toml;
 - the entry points raise without a card unless device="cpu" is passed;
 - chip_smoke.py fails, printing no result line, without a card and in a
   directory that holds nothing else of the repo;
@@ -59,7 +61,7 @@ def test_port_imports_nothing_of_jax():
 
 
 _BLOCKED_RUN = r"""
-import sys
+import os, sys
 for name in ("jax", "jaxlib", "gnss_sim_receiver_tpu"):
     sys.modules[name] = None          # any import of them now raises
 import numpy as np, torch
@@ -97,6 +99,56 @@ y = SignalConditioner(conf, fs_in=fs, device="cpu").process(x)
 assert y.shape == (22500,) and bool(torch.isfinite(y.abs()).all())
 assert receiver_conf_from_config(conf).acq.make_two_steps
 assert cli.unported_key(conf) is None
+# the hybrid slice: the E1 chain from a conf, its code tables (the port's
+# own package data), the sign-recovery acquisition, 5-tap tracking and
+# the I/NAV decoder, with every file open watched
+import builtins
+opened = []
+_open = builtins.open
+def _watch(file, *a, **k):
+    opened.append(str(file))
+    return _open(file, *a, **k)
+builtins.open = _watch
+from gnss_sim_receiver_tpu_torch import signals
+from gnss_sim_receiver_tpu_torch.models.telemetry import (
+    GalileoE1bTelemetryDecoder)
+from gnss_sim_receiver_tpu_torch.nav import inav
+chain, = receiver_conf_from_config(InMemoryConfiguration({
+    "GNSS-SDR.internal_fs_sps": "4000000", "Channels_1B.count": "2",
+    "Acquisition_1B.implementation":
+        "Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition",
+    "Tracking_1B.very_early_late_space_chips": "0.6"})).chains
+fs = 4e6
+sats = [SatelliteSignalParams(prn=12, system="Galileo", signal="1B",
+                              cn0_db_hz=50.0, doppler_hz=-750.0,
+                              delay_chips=1000.0,
+                              nav_bits=np.ones(8, np.int8))]
+x = generate_baseband(sats, fs, 12 * 16000, noise=True, seed=4)
+eng = PcpsAcquisitionEngine(chain.acq, [12, 13],
+                            code_provider=chain.code_provider,
+                            sc_rate=chain.sc_rate,
+                            code_provider2=chain.data_code_provider,
+                            device="cpu")
+res = eng.acquire_from(torch.from_numpy(x), 0)
+assert list(res.detected) == [True, False], res
+te = trk.TrackingEngine(chain.trk, [12], code_provider=chain.code_provider,
+                        device="cpu")
+assert te.taps.numel() == 5
+te.start_tracking(0, float(res.doppler_hz[0]), int(res.delay_samples[0]))
+outs = te.process_end(te.process_begin(x, 0, 10, decim=5))
+assert outs["valid_full"].all() and outs["sample_counter"].shape == (2, 1)
+GalileoE1bTelemetryDecoder([12]).process({"prompt": outs["prompt"],
+                                          "valid": outs["valid_full"]})
+assert len(inav.pages_for_ephemeris(
+    __import__("gnss_sim_receiver_tpu_torch.nav.ephemeris",
+               fromlist=["x"]).make_sky_constellation(40.0, -75.0,
+                                                      346200.0)[0],
+    345600.0, n_repeats=1)) == 2500
+builtins.open = _open
+assert any(p.endswith("galileo_e1_codes.npz") for p in opened), opened
+bad = [p for p in opened if "gnss_sim_receiver_tpu" + os.sep in p
+       or p.endswith("galileo_codes.npz")]
+assert not bad, bad
 assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -172,3 +224,14 @@ def test_interop_round_trip():
     for k in tables:
         assert back[k].dtype == tables[k].dtype
         assert np.array_equal(back[k], tables[k])
+
+
+def test_package_data_ships_the_e1_codes():
+    """pyproject.toml ships the port's data files, and the E1 table holds
+    the E1-B and E1-C rows of every satellite."""
+    text = (ROOT / "pyproject.toml").read_text()
+    assert '"gnss_sim_receiver_tpu_torch" = ["data/*.npz"]' in text
+    with np.load(ROOT / "gnss_sim_receiver_tpu_torch" / "data"
+                 / "galileo_e1_codes.npz") as z:
+        assert sorted(z.files) == ["e1b", "e1c", "e1c_sec"]
+        assert z["e1b"].shape == z["e1c"].shape == (50, 512)
