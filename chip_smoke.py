@@ -9,15 +9,15 @@ Phases (any failure exits non-zero, before the result line):
    versions;
 2. build every kernel from the sources in this checkout (the CUDA C++
    libraries, one ``nvcc`` per source in parallel; the Triton kernels
-   compile at their first launch).  Three child processes meanwhile
-   synthesize the captures of phases 4, 4c and 5 into ``build/`` (outside
+   compile at their first launch).  Two child processes meanwhile
+   synthesize the captures of phases 4 and 4c into ``build/`` (outside
    every timed window);
 3. each kernel (K1 and K2 with the GPS and the Galileo E1 tables, K3
-   wipeoff and peak, K3b, K4a in both modes, K5a, K5b, K5c, K5d in both
-   modes) against its plain PyTorch version on the card at the shape its
-   path launches it at, with the stated tolerance, and its time there
-   beside the plain version's and its bound; K1, K2 and K4a also at the
-   reference hybrid conf's 20 Msps shapes (the ``other_shapes`` line);
+   wipeoff and peak, K3b, K4a in both modes, K4b fold and resolve, K5a, K5b,
+   K5c, K5d in both modes, K6) against its plain PyTorch version on the
+   card at the shape its path launches it at, with the stated tolerance,
+   and its time there beside the plain version's and its bound; other
+   shapes of the same kernels (the ``other_shapes`` line);
 4. the main path, conf-driven: the repo's 26 s static scenario at 4 Msps
    (synthesized by the port's own simulator, written as an ``ishort``
    file) goes through ``python -m gnss_sim_receiver_tpu_torch
@@ -34,21 +34,35 @@ Phases (any failure exits non-zero, before the result line):
 4c. the array entry point, ``Receiver(ReceiverConf(fs=2e6, prns=1..10,
    max_channels=8)).process_array(x)`` on an 8 s capture at 2 Msps: the
    tracked set and the launches of K1, K2 and K3 are checked;
-5. the hybrid path: the 26 s hybrid scenario (GPS PRNs 1, 3, 4, 5 and
-   Galileo PRNs 11-15) at 4 Msps through the CLI with a GPS L1 C/A + Galileo
-   E1-B conf (10 + 10 channels, CCCWSR acquisition on E1, K4a; 5-tap VEML
+4d. phase 4's conf and capture with QuickSync acquisition (K4b) through the
+   CLI to a position; then the Tong and Fine Doppler engines on the
+   card-resident 2 Msps capture: the scenario's PRNs detected, each result
+   equal to the same engine's plain run on the same samples;
+5. the hybrid path at the reference conf's 20 Msps: the 26 s hybrid
+   scenario (GPS PRNs 1, 3, 4, 5 and Galileo PRNs 11-15) synthesized on the
+   card by the device generator (K6), quantized there and written as an
+   ``ibyte`` file, then through the CLI with a GPS L1 C/A + Galileo E1-B
+   conf (10 + 10 channels, CCCWSR acquisition on E1, K4a; 5-tap VEML
    tracking through K1 and K2) to a joint position: the tracked sets, the
    ephemerides, the fixes and the mean position error are checked, the
    counters read as in phase 4;
 5b. the E1 chain's 8 ms acquisition (K4a) on the card-resident hybrid
-   capture: PRNs 11-15 detected, every cell equal to the plain version's.
+   capture: PRNs 11-15 detected, every cell equal to the plain version's;
+6. the full chain of bench.py: the 12-satellite, 120 s scenario at 2 Msps
+   made on the card by the device generator (K6) and kept there, through
+   ``Receiver(ReceiverConf(fs=2e6, prns=1..12, max_channels=12,
+   max_acq_channels=12, pvt_rate_ms=500)).process_array(x)`` once: the
+   tracked set, the fixes and the mean position error are checked, the
+   real-time factor printed.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
 of JAX.  ``--profile`` adds a torch.profiler breakdown of a second run of
-the paths of phases 4 and 5 (device busy share, time by kernel).
-``--kernels-only`` stops after phase 3 and prints no result line: the quick
-check of a new kernel.
+the paths of phases 5 and 6 (device busy share, time by kernel).
+``--witness`` adds, after phase 6, the hybrid receiver on variants of
+phase 5's capture (rate, chips, quantization, noise seed) to show what moves
+its position error.  ``--kernels-only`` stops after phase 3 and prints no
+result line: the quick check of a new kernel.
 """
 
 from __future__ import annotations
@@ -79,10 +93,21 @@ NOTCH_SAMPLES = (1 << 20) + 5
 NOTCH_F0, NOTCH_BW = 0.1, 0.01
 RX_LLH = (40.0, -75.0, 100.0)
 # phase 5: the hybrid scenario of tests/test_hybrid_position.py (4 GPS and
-# 5 Galileo satellites, 48 dB-Hz, seed 17), 26 s at 4 Msps
+# 5 Galileo satellites, 48 dB-Hz, seed 17), 26 s at the reference hybrid
+# conf's 20 Msps, written as ibyte (noise sigma 14 LSB per component)
 HYB_GPS_PRNS = (1, 3, 4, 5)
 HYB_GAL_PRNS = (11, 12, 13, 14, 15)
-FS_REF_HYBRID = 20_000_000.0   # the reference hybrid conf's rate (phase 3)
+FS_REF_HYBRID = 20_000_000.0
+HYB_BYTE_SCALE = 20.0
+# phase 6: bench.py:_bench_full_chain's scenario (bench.py:128-155): 12
+# satellites at these offsets (bench.py:136-139), 47 dB-Hz, seed 3, 120 s
+# at 2 Msps, 12 channels, PVT every 500 ms
+FULL_OFFSETS = [(0.0, 0.0), (40.0, 15.0), (-35.0, 20.0), (15.0, 55.0),
+                (-20.0, -50.0), (45.0, -25.0), (-45.0, -15.0), (5.0, -60.0),
+                (30.0, 40.0), (-10.0, 62.0), (25.0, -42.0), (-28.0, 47.0)]
+FULL_DUR = 120.0
+FULL_PRNS = tuple(range(1, 13))
+K6_CHUNK = 1 << 22             # the device generator's launch (its default)
 
 
 def fail(msg: str) -> None:
@@ -277,11 +302,12 @@ def check_k2(dev, rng, conf, c: int, taps, provider, name: str,
                 f"table {codes.shape[1]} float32")
 
 
-def acq_dwells(dev):
-    """2 ms of the static scenario (6 satellites) for the K3 checks."""
+def acq_dwells(dev, m: int = 2):
+    """`m` ms of the static scenario (6 satellites) as [m, 2000] dwells, for
+    the K3 and K4b checks."""
     import torch
-    x = synthesize(FS, 0.002)
-    return torch.from_numpy(x.astype(np.complex64)).to(dev).reshape(2, 2000)
+    x = synthesize(FS, m * 1e-3)
+    return torch.from_numpy(x.astype(np.complex64)).to(dev).reshape(m, 2000)
 
 
 def check_k3(dev):
@@ -581,7 +607,8 @@ def check_k4a(dev, fs: float, variant: str, extra: list):
     11-15 are present).  The kernel against its plain version on the same
     planes (statistic to 1e-4 of its scale, cells exact), and the whole
     search against the JAX-form grid (pcps_cccwsr_grid / pcps_8ms_grid) and
-    statistic.  Returns the row; 8 ms and 20 Msps results go to `extra`."""
+    statistic.  Returns the row of phase 5's shape (CCCWSR at 20 Msps); the
+    other results go to `extra`."""
     import torch
     from gnss_sim_receiver_tpu_torch.models.acquisition import \
         PcpsAcquisitionEngine
@@ -638,10 +665,172 @@ def check_k4a(dev, fs: float, variant: str, extra: list):
                f"({corr.numel() * 8 / 1e6:.1f} MB)")
     del corr
     torch.cuda.empty_cache()
-    if variant == "cccwsr" and fs == FS_FILE:
+    if variant == "cccwsr" and fs == FS_REF_HYBRID:
         return row
     extra.append(row)
     return None
+
+
+def check_k4b(dev, extra: list):
+    """K4b (both kernels) at the GPS 2 Msps shape that phase 4d launches:
+    M=8 dwells of the static scenario (QUICKSYNC_CONF's max_dwells), D=41
+    Doppler bins, N=2000, fold 4, C=8 channels (PRNs 1-8).  The fold kernel
+    against its plain version (1e-5 of the scale); the K3 peak kernel that
+    follows it, on the [M, C, D, N/fold] planes, against its plain version
+    (1e-4; its row at this shape goes to `extra`); the resolve kernel
+    against its plain version at the folded search's own peaks (delays
+    identical, magnitudes to 1e-4); then the whole search against the
+    JAX-form grid, statistic and resolve at M=8."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import (AcqConf,
+                                                                sampled_codes)
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    fold = 4
+    props = conf_properties(QUICKSYNC_CONF)
+    m = int(props["Acquisition_1C.max_dwells"])
+    if fold != int(props["Acquisition_1C.folding_factor"]):
+        fail("K4b: the check's fold is not phase 4d's")
+    acq = AcqConf(fs_in=FS, max_dwells=m)
+    x = acq_dwells(dev, m)
+    codes_h = sampled_codes(acq, range(1, 9))
+    codes = torch.from_numpy(codes_h).to(dev)
+    cffc = torch.from_numpy(pcps.fold_codes(codes_h, fold)).to(dev)
+    dops = torch.from_numpy(pcps.doppler_grid(5000.0, 250.0)).to(dev)
+    t = pcps.time_axis(2000, FS, dev)
+    n, d, c = 2000, dops.shape[0], codes.shape[0]
+    nf = n // fold
+    src = "gnss_sim_receiver_tpu_torch/ops/pcps.py"
+    got = pcps.pcps_quicksync_fold(x, dops, t, fold)
+    want = pcps._fold_plain(x, dops, t, fold)
+    torch.cuda.synchronize()
+    err = compare("K4b pcps_quicksync_fold", got, want, 1e-5)
+    rows = [_row(
+        "K4b_quicksync_fold", "triton", src,
+        "gnss_sim_receiver_tpu/ops/pcps.py:151", err,
+        time_ms(lambda: pcps.pcps_quicksync_fold(x, dops, t, fold)),
+        time_ms(lambda: pcps._fold_plain(x, dops, t, fold)),
+        m * n * 8 + n * 4 + d * 4 + m * d * nf * 8,
+        # per (dwell, bin, sample): phase 2, sincos 2, product 6, fold sum 2
+        m * d * n * 12,
+        f"M={m} dwells, D={d} Doppler bins, N={n} samples, fold {fold} "
+        f"-> N/fold={nf}")]
+    # the K3 peak kernel on the folded planes, as the search launches it
+    spec = torch.fft.fft(want, dim=-1)
+    corr = torch.fft.ifft(spec[:, None] * cffc[None, :, None], dim=-1)
+    peak = pcps.pcps_peak(corr, m)
+    peak_plain = pcps._peak_plain(corr, m)
+    torch.cuda.synchronize()
+    err = compare("K3 pcps_peak (QuickSync planes)", peak, peak_plain, 1e-4)
+    extra.append(_row(
+        "K3_pcps_peak", "triton", src, "gnss_sim_receiver_tpu/ops/pcps.py:107",
+        err, time_ms(lambda: pcps.pcps_peak(corr, m)),
+        time_ms(lambda: pcps._peak_plain(corr, m)),
+        m * c * d * nf * 8 + c * 12, m * c * d * nf * 3 + c * d * nf * 2,
+        f"GPS L1 C/A QuickSync: M={m} dwells, C={c} channels, D={d} Doppler "
+        f"bins, N/fold={nf} folded lags"))
+    # the resolve at the folded search's peaks
+    stat, di, lag = peak
+    dop_hz = dops[di.long()].contiguous()
+    got = pcps.pcps_quicksync_resolve(x[0], codes, dop_hz, lag, t, fold)
+    want = pcps._resolve_plain(x[0], codes, dop_hz, lag, t, fold)
+    torch.cuda.synchronize()
+    compare("K4b pcps_quicksync_resolve delays", got[0], want[0], 0.0)
+    err = compare("K4b pcps_quicksync_resolve magnitudes", got[1], want[1],
+                  1e-4)
+    rows.append(_row(
+        "K4b_quicksync_resolve", "triton", src,
+        "gnss_sim_receiver_tpu/ops/pcps.py:182", err,
+        time_ms(lambda: pcps.pcps_quicksync_resolve(x[0], codes, dop_hz, lag,
+                                                    t, fold)),
+        time_ms(lambda: pcps._resolve_plain(x[0], codes, dop_hz, lag, t,
+                                            fold)),
+        n * 8 + n * 4 + c * n * 4 + c * 8 + c * 8,
+        # per (channel, candidate, sample): phase 2, sincos 2, wipeoff 6,
+        # index 2, multiply-accumulate 4
+        c * fold * n * 16,
+        f"C={c} channels x {fold} candidates, N={n} samples (dwell 0)"))
+    del corr, spec
+    # the whole search against the JAX functions' form
+    buf = pcps.pcps_search_quicksync(x, codes, cffc, dops, t, fold)
+    grid = pcps.pcps_quicksync_grid(x, codes, dops, FS, fold)
+    ws, wd, wl = pcps.max_to_input_power_stat(grid, float(m))
+    wdel, _ = pcps.quicksync_resolve(x[0], codes, dops[wd.long()], wl, FS,
+                                     fold)
+    compare("K4b search statistic", buf[0], ws, 1e-4)
+    compare("K4b search Doppler and delay", buf[1:3].to(torch.int64),
+            torch.stack([dops[wd.long()], (wdel % n).float()]).to(
+                torch.int64), 0.0)
+    found = [p for p, v in zip(range(1, 9), buf[0].tolist())
+             if v > pcps.cfar_threshold(0.01, nf * d, m)]
+    print(f"  K4b search: detected PRNs {found} at fold {fold}, {m} dwells "
+          f"(port {time_ms(lambda: pcps.pcps_search_quicksync(x, codes, cffc, dops, t, fold)):.4f} ms)")
+    return rows
+
+
+def check_k6(dev, fs: float, sats, dur: float, seed: int, label: str):
+    """K6 at the shape its path launches it at: the scenario `sats` at rate
+    `fs`, `dur` seconds, one launch of K6_CHUNK samples.  Noiseless against
+    its plain version on the card (1e-5 of the scale) on the first chunk
+    (its first blocks gather at sub-chip indices k < 0) and on the last;
+    then the noise: zero mean and unit variance (+-0.02), and the same
+    samples whether the chunk is made in one launch or in two."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.sim import device_generator as dg
+    b = 8192
+    dg._fill_nav_bits(sats, seed)
+    n_total = int(fs * dur)
+    tabs = dg._prepare(sats, fs, n_total, 0, dev)
+    n = K6_CHUNK
+    n_sat = len(sats)
+    neg = int((tabs[5][:, : n // b] < 0).sum())
+    print(f"  K6 ({label}): {n_sat} satellites, {neg} of the first chunk's "
+          f"{n_sat * (n // b)} (satellite, block) anchors have base < 0")
+    if not neg:
+        fail("K6: the first chunk has no negative sub-chip index")
+    worst = 0.0
+
+    def plain(blk0, n_s):
+        sl = slice(blk0, blk0 + -(-n_s // b))
+        return dg._expand_plain(*tabs[:5], *(a[:, sl] for a in tabs[5:10]),
+                                tabs[10], n_s)
+    for blk0 in (0, (n_total - n) // b):
+        got = dg.expand(*tabs, n, blk0=blk0)
+        want = plain(blk0, n)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(
+            f"K6 device_generator ({label}, block {blk0})", got, want, 1e-5))
+    clean = dg.expand(*tabs, n)
+    key = 0x5EED0000 + seed
+    noisy = dg.expand(*tabs, n, noise_key=key)
+    half = n // 2
+    split = torch.cat([dg.expand(*tabs, half, noise_key=key),
+                       dg.expand(*tabs, half, blk0=half // b, noise_key=key,
+                                 sample0=half)])
+    z = (noisy - clean).to(torch.complex128)
+    mean = complex(z.mean())
+    var = float((z.abs() ** 2).mean())
+    print(f"  K6 noise ({label}): mean {mean:.2e}, variance {var:.5f}; "
+          f"two launches {'identical' if torch.equal(split, noisy) else 'DIFFER'}")
+    if abs(mean) > 0.01 or abs(var - 1.0) > 0.02 or \
+            not torch.equal(split, noisy):
+        fail(f"K6 noise ({label})")
+    del clean, noisy, split, z, got, want
+    ms = time_ms(lambda: dg.expand(*tabs, n))
+    plain_ms = time_ms(lambda: plain(0, n), reps=3)
+    nblk = -(-n // b)
+    n_bytes = (8 * n + 20 * n_sat * nblk + tabs[0].numel()
+               + tabs[2].numel() + 16 * n_sat)
+    # per (sample, satellite): chip offset 2, floor and index 2, two
+    # floor-mods and a floor-div 6, chip x symbol x amplitude 2, phase 2,
+    # sincos 2, accumulate 4
+    n_ops = n * n_sat * 20
+    return _row("K6_device_generator", "cuda",
+                "gnss_sim_receiver_tpu_torch/csrc/device_generator.cu",
+                "gnss_sim_receiver_tpu/sim/device_generator.py:32", worst,
+                ms, plain_ms, n_bytes, n_ops,
+                f"{label}: S={n_sat} satellites, one launch of {n} samples "
+                f"(of {n_total}), tables {tuple(tabs[0].shape)} and "
+                f"{tuple(tabs[2].shape)} int8, noiseless")
 
 
 # ---- phases 4, 4b, 4c: the main paths --------------------------------------
@@ -683,14 +872,14 @@ PVT.output_rate_ms=20
 
 
 # phase 5: the reference's hybrid operating point (conf/gnss-sdr_Hybrid_
-# byte.conf as tests/test_cli.py:78-95 records it: 10 + 10 channels, E1
-# Doppler step 125 Hz, PLL 15 Hz, very-early-late 0.6 chips) at 4 Msps,
-# with CCCWSR acquisition on the E1 chain; every PRN unpinned
+# byte.conf as tests/test_cli.py:78-95 records it: an ibyte file at 20 Msps,
+# 10 + 10 channels, E1 Doppler step 125 Hz, PLL 15 Hz, very-early-late 0.6
+# chips), with CCCWSR acquisition on the E1 chain; every PRN unpinned
 HYBRID_CONF = """\
 GNSS-SDR.internal_fs_sps={fs}
 SignalSource.implementation=File_Signal_Source
 SignalSource.filename={capture}
-SignalSource.item_type=ishort
+SignalSource.item_type=ibyte
 SignalSource.sampling_frequency={fs}
 Channels_1C.count=10
 Channels_1B.count=10
@@ -706,6 +895,17 @@ PVT.implementation=RTKLIB_PVT
 PVT.positioning_mode=Single
 PVT.output_rate_ms=20
 """
+
+
+# phase 4d: phase 4's conf with QuickSync acquisition.  Folding the 1 ms
+# dwell by 4 folds the noise of four segments into each lag; at the
+# scenario's 47 dB-Hz two dwells leave most satellites under the threshold
+# (the JAX engine's statistics are the same), so the search takes 8.
+QUICKSYNC_CONF = CONF.replace(
+    "Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition",
+    "Acquisition_1C.implementation=GPS_L1_CA_PCPS_QuickSync_Acquisition\n"
+    "Acquisition_1C.folding_factor=4").replace(
+    "Acquisition_1C.max_dwells=2", "Acquisition_1C.max_dwells=8")
 
 
 def conf_properties(text: str) -> dict:
@@ -733,17 +933,15 @@ def synthesize(fs: float, dur: float, n_samples=None) -> np.ndarray:
         noise=True, seed=42, bandlimit_oversample=4)
 
 
-def synthesize_hybrid(fs: float, n_samples: int) -> np.ndarray:
-    """The first `n_samples` of the hybrid scenario at rate `fs`: GPS PRNs
-    1, 3, 4, 5 (LNAV) and Galileo PRNs 11-15 (E1-B, I/NAV pages), 48 dB-Hz,
-    the 26 s geometry (tests/test_hybrid_position.py:25-58)."""
+def hybrid_sats():
+    """The hybrid scenario's satellites: GPS PRNs 1, 3, 4, 5 (LNAV) and
+    Galileo PRNs 11-15 (E1-B, I/NAV pages), 48 dB-Hz, the 26 s geometry
+    (tests/test_hybrid_position.py:25-58)."""
     import dataclasses
     from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
         make_sky_constellation
     from gnss_sim_receiver_tpu_torch.sim.scenario import \
         build_static_scenario
-    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
-        generate_baseband
     base = make_sky_constellation(RX_LLH[0], RX_LLH[1], toe=T0 + 600)
     gps = [e for e in base if e.prn in HYB_GPS_PRNS]
     toe60 = round((T0 + 600) / 60.0) * 60.0   # INAV toe LSB is 60 s
@@ -751,10 +949,34 @@ def synthesize_hybrid(fs: float, n_samples: int) -> np.ndarray:
                                toc=toe60, iod_nav=137, bgd_e1e5b=0.0)
            for prn, e in zip(HYB_GAL_PRNS, (e for e in base
                                             if e.prn not in HYB_GPS_PRNS))]
-    sats = build_static_scenario(gps + gal, rx_true_ecef(), T0, DUR,
+    return build_static_scenario(gps + gal, rx_true_ecef(), T0, DUR,
                                  cn0_db_hz=48.0, subframe_cycle=(1, 2, 3))
-    return generate_baseband(sats, fs, n_samples, noise=True, seed=17,
-                             bandlimit_oversample=4)
+
+
+def synthesize_hybrid(fs: float, n_samples: int) -> np.ndarray:
+    """The first `n_samples` of the hybrid scenario at rate `fs`, by the
+    host simulator (band-limited, seed 17)."""
+    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
+        generate_baseband
+    return generate_baseband(hybrid_sats(), fs, n_samples, noise=True,
+                             seed=17, bandlimit_oversample=4)
+
+
+def full_chain_sats():
+    """bench.py:_bench_full_chain's scenario (bench.py:128-155): 12
+    satellites for a 12-channel receiver, 47 dB-Hz, LNAV subframes 1-3,
+    120 s."""
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    ephs = make_sky_constellation(RX_LLH[0], RX_LLH[1], toe=T0 + 600,
+                                  offsets_deg=FULL_OFFSETS)
+    sats = build_static_scenario(ephs, rx_true_ecef(), T0, FULL_DUR,
+                                 cn0_db_hz=47.0, subframe_cycle=(1, 2, 3))
+    if tuple(s.prn for s in sats) != FULL_PRNS:
+        fail(f"full-chain scenario: satellites {[s.prn for s in sats]}")
+    return sats
 
 
 def capture_paths(root: str) -> dict:
@@ -762,14 +984,16 @@ def capture_paths(root: str) -> dict:
     return {"file": os.path.join(build, "static_scenario_26s_4msps_v1.ishort"),
             "direct": os.path.join(build, "static_scenario_8s_2msps_v1.npy"),
             "hybrid": os.path.join(build,
-                                   "hybrid_scenario_26s_4msps_v1.ishort")}
+                                   "hybrid_scenario_26s_20msps_v1.ibyte")}
+
+
+SYNTHESIZED = ("file", "direct")        # by the child processes
 
 
 def make_capture(root: str, which: str) -> None:
     """Synthesize one capture into ``build/`` unless it is there: "file",
     the 26 s scenario at 4 Msps as interleaved int16 (104 M samples,
-    416 MB), "direct", its first 8 s at 2 Msps as complex64, or "hybrid",
-    the 26 s hybrid scenario at 4 Msps as interleaved int16."""
+    416 MB), or "direct", its first 8 s at 2 Msps as complex64."""
     from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
     path = capture_paths(root)[which]
     if os.path.exists(path):
@@ -778,9 +1002,6 @@ def make_capture(root: str, which: str) -> None:
     tmp = path + f".{os.getpid()}.tmp"
     if which == "file":
         write_samples(tmp, synthesize(FS_FILE, DUR), "ishort", scale=200.0)
-    elif which == "hybrid":
-        write_samples(tmp, synthesize_hybrid(FS_FILE, int(FS_FILE * DUR)),
-                      "ishort", scale=200.0)
     else:
         with open(tmp, "wb") as fh:
             np.save(fh, synthesize(FS, DIRECT_DUR))
@@ -788,11 +1009,11 @@ def make_capture(root: str, which: str) -> None:
 
 
 def start_synthesis(root: str) -> dict:
-    """One child process per capture, so that the synthesis runs beside
-    phases 2 to 4c."""
+    """One child process per host-synthesized capture, so that the
+    synthesis runs beside phases 2 and 3."""
     return {which: subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--synthesize", which],
-        cwd=root) for which in capture_paths(root)}
+        cwd=root) for which in SYNTHESIZED}
 
 
 def wait_for(procs: dict, which: str) -> None:
@@ -986,12 +1207,23 @@ HYBRID_KERNELS = ("K1_block_correlate", "K2_multicorrelate", "K3_pcps_wipe",
                   "K3_pcps_peak", "K4a_pcps_dual_peak")
 
 
+def mean_error(run) -> tuple[float, float]:
+    """The 2D and 3D norms of the mean ENU error of a run's fixes."""
+    from gnss_sim_receiver_tpu_torch.utils import geodesy
+    ref = (np.radians(RX_LLH[0]), np.radians(RX_LLH[1]))
+    enu = np.array([geodesy.ecef_to_enu(s.rx_ecef_m - rx_true_ecef(), ref)
+                    for s in run.solutions])
+    if not np.isfinite(enu).all():
+        fail("non-finite position")
+    return (float(np.linalg.norm(enu.mean(0)[:2])),
+            float(np.linalg.norm(enu.mean(0))))
+
+
 def check_hybrid_run(run) -> None:
     """Phase 5's checks (tests/test_hybrid_position.py:67-97): the tracked
     set of each system, the ephemerides decoded, the fixes and the mean
     position error."""
     from gnss_sim_receiver_tpu_torch.models.control import ChannelState
-    from gnss_sim_receiver_tpu_torch.utils import geodesy
     tracked = {"GPS": [], "Galileo": []}
     for p, st, sy in zip(run.channel_prns, run.channel_states,
                          run.channel_systems):
@@ -1012,30 +1244,60 @@ def check_hybrid_run(run) -> None:
     if len(run.solutions) < 5 or n_last < 7:
         fail(f"{len(run.solutions)} fixes, the last with {n_last} "
              "satellites")
-    ref = (np.radians(RX_LLH[0]), np.radians(RX_LLH[1]))
-    enu = np.array([geodesy.ecef_to_enu(s.rx_ecef_m - rx_true_ecef(), ref)
-                    for s in run.solutions])
-    if not np.isfinite(enu).all():
-        fail("non-finite position")
-    err_2d = float(np.linalg.norm(enu.mean(0)[:2]))
-    err_3d = float(np.linalg.norm(enu.mean(0)))
+    err_2d, err_3d = mean_error(run)
     print(f"  mean error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
     if not (err_2d < 2.0 and err_3d < 5.0):
         fail(f"position error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
 
 
+def make_hybrid_capture(root: str, wrappers) -> dict:
+    """Phase 5's capture: the 26 s hybrid scenario at 20 Msps (520 M
+    samples) made on the card by the device generator (K6, seed 17 for the
+    noise), quantized there and written as an ibyte file (1.04 GB), outside
+    every timed window.  Returns K6's launches."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    path = capture_paths(root)["hybrid"]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    n = int(FS_REF_HYBRID * DUR)
+    sats = hybrid_sats()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = generate_baseband_device_resident(sats, FS_REF_HYBRID, n, noise=True,
+                                          seed=17)
+    torch.cuda.synchronize()
+    gen = time.perf_counter() - t0
+    launches = read_launches(wrappers, ("K6_device_generator",))
+    t0 = time.perf_counter()
+    tmp = path + f".{os.getpid()}.tmp"
+    write_samples(tmp, x, "ibyte", scale=HYB_BYTE_SCALE)
+    os.replace(tmp, path)
+    wrote = time.perf_counter() - t0
+    print(f"  K6 made {n / 1e6:.0f} M samples ({len(sats)} satellites, "
+          f"{8 * n / 1e9:.2f} GB on the card) in {gen:.3f} s; quantized on "
+          f"the card and written as ibyte ({os.path.getsize(path) / 1e9:.2f} "
+          f"GB) in {wrote:.3f} s (not timed)")
+    del x
+    torch.cuda.empty_cache()
+    return launches
+
+
 def hybrid_path(root: str, wrappers, card: str) -> dict:
     """Phase 5: the hybrid conf (GPS L1 C/A + Galileo E1-B, 10 + 10
-    channels, CCCWSR on E1) -> the 26 s hybrid capture -> receiver -> a
-    joint position, through the port's CLI called in process."""
+    channels, CCCWSR on E1) at 20 Msps -> the 26 s ibyte capture ->
+    receiver -> a joint position, through the port's CLI called in
+    process."""
     import torch
     from gnss_sim_receiver_tpu_torch.__main__ import run_cli
     capture = capture_paths(root)["hybrid"]
     conf = os.path.join(root, "build", "chip_smoke_hybrid.conf")
     with open(conf, "w") as fh:
-        fh.write(HYBRID_CONF.format(capture=capture, fs=int(FS_FILE)))
-    print(f"  capture: {os.path.getsize(capture) / 1e6:.0f} MB ishort at "
-          f"{FS_FILE / 1e6:.0f} Msps; conf: {conf}")
+        fh.write(HYBRID_CONF.format(capture=capture, fs=int(FS_REF_HYBRID)))
+    print(f"  capture: {os.path.getsize(capture) / 1e6:.0f} MB ibyte at "
+          f"{FS_REF_HYBRID / 1e6:.0f} Msps; conf: {conf}")
     reset(wrappers)
     torch.cuda.synchronize()
     res = run_cli([f"--config_file={conf}"])
@@ -1066,9 +1328,10 @@ def hybrid_8ms(root: str, wrappers) -> dict:
         PcpsAcquisitionEngine
     from gnss_sim_receiver_tpu_torch.ops import pcps
     from gnss_sim_receiver_tpu_torch.utils.sample_io import read_samples
-    chain = hybrid_chain(FS_FILE, "8ms")
+    chain = hybrid_chain(FS_REF_HYBRID, "8ms")
     x = torch.from_numpy(read_samples(capture_paths(root)["hybrid"],
-                                      "ishort", count=int(FS_FILE))).cuda()
+                                      "ibyte",
+                                      count=int(FS_REF_HYBRID))).cuda()
     prns = tuple(range(11, 21))
     eng = PcpsAcquisitionEngine(
         chain.acq, prns, code_provider=chain.code_provider,
@@ -1089,7 +1352,8 @@ def hybrid_8ms(root: str, wrappers) -> dict:
     m, n = chain.acq.max_dwells, eng.fft_size
     x_dw = x[start:start + eng.n_samples_needed].reshape(m, 2 * n)
     stat, di, de = pcps.max_to_input_power_stat(
-        pcps.pcps_8ms_grid(x_dw, eng.code_fft_conj, eng.dopplers, FS_FILE),
+        pcps.pcps_8ms_grid(x_dw, eng.code_fft_conj, eng.dopplers,
+                           FS_REF_HYBRID),
         float(2 * m))
     want_dop = eng.dopplers[di.long()].double().cpu().numpy()
     want_del = np.mod(de.double().cpu().numpy(), n)
@@ -1107,21 +1371,228 @@ def hybrid_8ms(root: str, wrappers) -> dict:
     return launches
 
 
-def profile_cli_path(root: str, conf_name: str) -> None:
-    """`--profile`: the CLI path of the conf `build/<conf_name>` (phase 4's
-    or phase 5's) twice more, plain and under torch.profiler: wall time,
-    device busy share (kernel time over wall), device time by kernel and
-    host time by operator."""
+QUICKSYNC_KERNELS = ("K4b_quicksync_fold", "K4b_quicksync_resolve",
+                     "K3_pcps_peak", "K1_block_correlate", "K5a_fir_decim")
+
+
+def quicksync_path(root: str, wrappers) -> dict:
+    """Phase 4d, first half: phase 4's conf with
+    GPS_L1_CA_PCPS_QuickSync_Acquisition (folding_factor=4) and phase 4's
+    capture through the CLI to a position; the same checks as phase 4."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    conf = os.path.join(root, "build", "chip_smoke_quicksync.conf")
+    with open(conf, "w") as fh:
+        fh.write(QUICKSYNC_CONF.format(capture=capture_paths(root)["file"]))
+    reset(wrappers)
+    torch.cuda.synchronize()
+    res = run_cli([f"--config_file={conf}"])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, QUICKSYNC_KERNELS)
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    check_run(res.run, min_fixes=5)
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}; "
+          f"real-time factor {DUR / wall:.3f}")
+    return launches
+
+
+def tong_fine_doppler(root: str, wrappers) -> None:
+    """Phase 4d, second half: the acquisition engines that the factory
+    builds from phase 4's conf with GPS_L1_CA_PCPS_Tong_Acquisition and
+    GPS_L1_CA_PCPS_Acquisition_Fine_Doppler, PRNs 1-10, on the 2 Msps
+    capture resident on the card (a window off the 128-sample grid).  The
+    scenario's PRNs must be detected, and the detections equal the same
+    engine's plain run on the same samples (Doppler and delay identical
+    where detected, the statistic to 1e-4)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    x = torch.from_numpy(np.load(capture_paths(root)["direct"])[: int(FS)]
+                         ).cuda()
+    prns = tuple(range(1, 11))
+    start = 100_003
+    needed = {"tong": ("K3_pcps_wipe", "K3_pcps_peak"),
+              "fine_doppler": ("K3_pcps_wipe", "K3_pcps_peak",
+                               "K3b_pcps_wipe_per_channel")}
+    for impl in ("GPS_L1_CA_PCPS_Tong_Acquisition",
+                 "GPS_L1_CA_PCPS_Acquisition_Fine_Doppler"):
+        props = conf_properties(CONF.format(capture=""))
+        props["Acquisition_1C.implementation"] = impl
+        acq = receiver_conf_from_config(InMemoryConfiguration(props)).acq
+        eng = PcpsAcquisitionEngine(acq, prns)
+        reset(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.acquire_from(x, start)
+        dt = time.perf_counter() - t0
+        print(f"  {impl}:")
+        read_launches(wrappers, needed[acq.variant])
+        want = PcpsAcquisitionEngine(acq, prns, device="cpu").acquire_from(
+            x.cpu(), start)
+        found = [p for p, d in zip(prns, res.detected) if d]
+        print(f"  detected PRNs {found} in {dt * 1e3:.1f} ms (one pull); "
+              f"Doppler {res.doppler_hz[res.detected].tolist()} Hz, delay "
+              f"{res.delay_samples[res.detected].tolist()}")
+        if found != list(SCENARIO_PRNS):
+            fail(f"{impl} detected {found}")
+        det = want.detected
+        if not (np.array_equal(res.detected, det)
+                and np.array_equal(res.doppler_hz[det], want.doppler_hz[det])
+                and np.array_equal(res.delay_samples[det],
+                                   want.delay_samples[det])):
+            fail(f"{impl} against its plain run: {res} vs {want}")
+        rel = np.abs(res.test_stat - want.test_stat)[det] \
+            / want.test_stat[det]
+        print(f"  against the plain run: detections, Doppler and delay "
+              f"identical, statistic within {rel.max():.2e} (tolerance "
+              f"1e-4)")
+        if rel.max() > 1e-4:
+            fail(f"{impl}: statistic differs from the plain run")
+
+
+def hybrid_witness() -> None:
+    """--witness: what moves phase 5's position error.  The hybrid conf's
+    receiver (`Receiver.process_array` on a card tensor, as the CLI runs
+    it after its pass-through conditioner) on variants of phase 5's
+    capture that differ in one thing each: the same K6 capture (seed 17)
+    quantized as ibyte (phase 5's samples) or left in float32; other noise
+    seeds; the rate (4 Msps); and the host simulator's band-limited chips
+    (seed 17, 4 Msps, the capture of the earlier 4 Msps phase 5).  Prints
+    the tracked count, fixes and mean 2D/3D error of each; checks nothing."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.models.factory import make_receiver
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import \
+        quantize_interleaved
+
+    def k6(fs, seed):
+        return generate_baseband_device_resident(
+            hybrid_sats(), fs, int(fs * DUR), noise=True, seed=seed)
+
+    def ibyte(x):
+        q = quantize_interleaved(x, "ibyte", HYB_BYTE_SCALE)
+        return torch.view_as_complex(q.view(-1, 2).float())
+
+    def host4():
+        return torch.from_numpy(
+            synthesize_hybrid(FS_FILE, int(FS_FILE * DUR))).cuda()
+    hi, lo = FS_REF_HYBRID, FS_FILE
+    cases = [("K6, ibyte", hi, 17, lambda: ibyte(k6(hi, 17))),
+             ("K6, float32", hi, 17, lambda: k6(hi, 17)),
+             ("K6, float32", hi, 18, lambda: k6(hi, 18)),
+             ("K6, float32", hi, 19, lambda: k6(hi, 19)),
+             ("K6, float32", lo, 17, lambda: k6(lo, 17)),
+             ("K6, float32", lo, 18, lambda: k6(lo, 18)),
+             ("host band-limited, float32", lo, 17, host4)]
+    for what, fs, seed, make in cases:
+        props = conf_properties(HYBRID_CONF.format(capture="", fs=int(fs)))
+        rx = make_receiver(InMemoryConfiguration(props))
+        x = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = rx.process_array(x)
+        wall = time.perf_counter() - t0
+        n_trk = sum(1 for st in run.channel_states
+                    if st == ChannelState.TRACKING)
+        e2, e3 = mean_error(run) if run.solutions else (float("nan"),) * 2
+        print(f"  witness {what} at {fs / 1e6:g} Msps, seed {seed}: "
+              f"{n_trk} tracked, {len(run.solutions)} fixes, mean error 2D "
+              f"{e2:.3f} m, 3D {e3:.3f} m (receiver {wall:.1f} s)",
+              flush=True)
+        del x, rx, run
+        torch.cuda.empty_cache()
+
+
+FULL_CHAIN_KERNELS = ("K1_block_correlate", "K2_multicorrelate",
+                      "K3_pcps_wipe", "K3_pcps_peak")
+
+
+def full_chain(wrappers, card: str) -> dict:
+    """Phase 6: bench.py:_bench_full_chain's scenario made on the card by
+    the device generator (K6) and kept there, through
+    Receiver.process_array once.  All 12 PRNs tracked, >= 5 fixes, 3D < 5 m
+    (the mean over the fixes from the 6th on, as bench.py reports it)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.models.receiver import (Receiver,
+                                                             ReceiverConf)
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    sats = full_chain_sats()
+    n = int(FS * FULL_DUR)
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = generate_baseband_device_resident(sats, FS, n, noise=True, seed=3)
+    torch.cuda.synchronize()
+    gen = time.perf_counter() - t0
+    k6 = read_launches(wrappers, ("K6_device_generator",))
+    print(f"  K6 made {n / 1e6:.0f} M samples ({len(sats)} satellites) on "
+          f"the card in {gen:.3f} s")
+    rx = Receiver(ReceiverConf(fs=FS, prns=FULL_PRNS, max_channels=12,
+                               max_acq_channels=12, pvt_rate_ms=500))
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = rx.process_array(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers, FULL_CHAIN_KERNELS)
+    tracked = sorted(p for p, st in zip(run.channel_prns, run.channel_states)
+                     if st == ChannelState.TRACKING)
+    rx_true = rx_true_ecef()
+    n_fix = len(run.solutions)
+    err = float("nan")
+    if n_fix > 5:
+        pos = np.mean([s.rx_ecef_m for s in run.solutions[5:]], axis=0)
+        err = float(np.linalg.norm(pos - rx_true))
+    print(f"  tracked PRNs {tracked}, {len(run.ephemerides)} ephemerides, "
+          f"{n_fix} fixes; mean position error (fixes 6 on) {err:.3f} m")
+    print(f"  receiver wall {wall:.3f} s for {FULL_DUR:.0f} s of signal: "
+          f"real-time factor {FULL_DUR / wall:.3f} ({card})")
+    if tracked != list(FULL_PRNS):
+        fail(f"tracked PRNs {tracked}, expected {list(FULL_PRNS)}")
+    if n_fix < 5 or not err < 5.0:
+        fail(f"{n_fix} fixes, mean position error {err:.3f} m")
+    if "--profile" in sys.argv[1:]:
+        print("== profile of the full chain", flush=True)
+
+        def again():
+            t0 = time.perf_counter()
+            rx.process_array(x)
+            torch.cuda.synchronize()
+            return f"receiver wall {time.perf_counter() - t0:.3f} s"
+        profile_path(again)
+    del x
+    torch.cuda.empty_cache()
+    launches["K6_device_generator"] = k6["K6_device_generator"]
+    return launches
+
+
+def profile_path(run) -> None:
+    """`--profile`: `run()` (one run of a path, returning a line to print)
+    twice more, plain and under torch.profiler: wall time, device busy
+    share (kernel time over wall), device time by kernel and host time by
+    operator."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
-    argv = ["--config_file=" + os.path.join(root, "build", conf_name)]
-    res = run_cli(argv)
-    print(f"  unprofiled second run: seconds {res.seconds}")
+    print(f"  unprofiled second run: {run()}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_cli(argv)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
@@ -1176,7 +1647,7 @@ def main() -> int:
 
 
 def run_phases(root: str, card: str, procs: dict) -> int:
-    """Phases 2 to 5b and the result lines; `procs` are the synthesis
+    """Phases 2 to 6 and the result lines; `procs` are the synthesis
     children (none with --kernels-only)."""
     import torch
     from gnss_sim_receiver_tpu_torch import signals
@@ -1185,6 +1656,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     from gnss_sim_receiver_tpu_torch.ops import (correlator, cuda_build,
                                                  filters, pcps, prn_codes,
                                                  resampler)
+    from gnss_sim_receiver_tpu_torch.sim import device_generator
     print("== phase 2: build", flush=True)
     t0 = time.perf_counter()
     secs = cuda_build.build_all()
@@ -1208,7 +1680,15 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                      "K1_block_correlate", "GPS L1 C/A at 2 Msps"),
             check_k2(dev, rng, gps, 8, gps_taps, prn_codes.gps_l1_ca_code,
                      "K2_multicorrelate", "GPS L1 C/A at 2 Msps")]
-    for fs in (FS_FILE, FS_REF_HYBRID):
+    # phase 5's GPS chain: 10 channels at 20 Msps
+    gps20 = trk.TrackingConf(fs=FS_REF_HYBRID)
+    label = f"GPS L1 C/A at {FS_REF_HYBRID / 1e6:g} Msps"
+    extra += [check_k1(dev, rng, gps20, 10, 20, gps_taps, 250,
+                       "K1_block_correlate", label),
+              check_k2(dev, rng, gps20, 10, gps_taps,
+                       prn_codes.gps_l1_ca_code, "K2_multicorrelate", label)]
+    torch.cuda.empty_cache()
+    for fs in (FS_REF_HYBRID, FS_FILE):
         e1 = hybrid_chain(fs).trk
         d, dv = e1.early_late_space_chips, e1.very_early_late_space_chips
         e1_taps = (dv, d / 2, 0.0, -d / 2, -dv)
@@ -1217,19 +1697,25 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                       "K1_block_correlate_E1", label)
         k2 = check_k2(dev, rng, e1, 10, e1_taps, signals.CodeProvider("1B"),
                       "K2_multicorrelate_E1", label)
-        if fs == FS_FILE:
+        if fs == FS_REF_HYBRID:
             rows += [k1, k2]
         else:
             extra += [k1, k2]
         torch.cuda.empty_cache()
     rows += [*check_k3(dev), check_k3b(dev)]
     for variant in ("cccwsr", "8ms"):
-        for fs in (FS_FILE, FS_REF_HYBRID):
+        for fs in (FS_REF_HYBRID, FS_FILE):
             row = check_k4a(dev, fs, variant, extra)
             if row is not None:
                 rows.append(row)
+    rows += check_k4b(dev, extra)
     rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
              *check_k5d(dev, rng)]
+    torch.cuda.empty_cache()
+    rows.append(check_k6(dev, FS_REF_HYBRID, hybrid_sats(), DUR, 17,
+                         f"hybrid at {FS_REF_HYBRID / 1e6:g} Msps"))
+    extra.append(check_k6(dev, FS, full_chain_sats(), FULL_DUR, 3,
+                          f"full chain at {FS / 1e6:g} Msps"))
     torch.cuda.empty_cache()
     print(f"  phase 3 took {time.perf_counter() - t0:.1f} s (includes the "
           "Triton compiles)", flush=True)
@@ -1246,19 +1732,19 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         "K3b_pcps_wipe_per_channel": (pcps.pcps_wipe,
                                       "launches_per_channel"),
         "K4a_pcps_dual_peak": (pcps.pcps_dual_peak, "launches"),
+        "K4b_quicksync_fold": (pcps.pcps_quicksync_fold, "launches"),
+        "K4b_quicksync_resolve": (pcps.pcps_quicksync_resolve, "launches"),
         "K5a_fir_decim": (filters.fir_decim, "launches"),
         "K5b_notch_filter": (filters.notch_filter, "launches"),
         "K5c_pulse_blanking": (filters.pulse_blanking, "launches"),
         "K5d_direct_resampler": (resampler.direct_resampler, "launches"),
-        "K5d_linear_resampler": (resampler.linear_resampler, "launches")}
+        "K5d_linear_resampler": (resampler.linear_resampler, "launches"),
+        "K6_device_generator": (device_generator.expand, "launches")}
     print("== phase 4: main path (conf file -> capture file -> conditioner "
           "-> receiver -> position)", flush=True)
     for which in procs:           # no child may run beside a timed window
         wait_for(procs, which)
     launches = main_path(root, wrappers)
-    if "--profile" in sys.argv[1:]:
-        print("== profile of the main path", flush=True)
-        profile_cli_path(root, "chip_smoke_rx.conf")
     print("== phase 4b: the conditioner alone", flush=True)
     cond = conditioner_path(root, wrappers, notch_case)
     for name in COND_KERNELS[1:]:
@@ -1266,17 +1752,37 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     print("== phase 4c: the array entry point (process_array, "
           f"{DIRECT_DUR:.0f} s at 2 Msps)", flush=True)
     direct_path(root, wrappers)
-    print("== phase 5: the hybrid path (GPS L1 C/A + Galileo E1-B conf -> "
-          "capture file -> receiver -> joint position)", flush=True)
+    print("== phase 4d: QuickSync acquisition through the CLI; Tong and "
+          "Fine Doppler on the card", flush=True)
+    quick = quicksync_path(root, wrappers)
+    for name in QUICKSYNC_KERNELS[:2]:
+        launches[name] = quick[name]
+    tong_fine_doppler(root, wrappers)
+    print("== phase 5: the hybrid path at 20 Msps (device generator -> "
+          "ibyte file -> GPS L1 C/A + Galileo E1-B conf -> receiver -> joint "
+          "position)", flush=True)
+    k6 = make_hybrid_capture(root, wrappers)["K6_device_generator"]
     hybrid = hybrid_path(root, wrappers, card)
     if "--profile" in sys.argv[1:]:
+        from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+        argv = ["--config_file="
+                + os.path.join(root, "build", "chip_smoke_hybrid.conf")]
         print("== profile of the hybrid path", flush=True)
-        profile_cli_path(root, "chip_smoke_hybrid.conf")
+        profile_path(lambda: f"seconds {run_cli(argv).seconds}")
     for name in ("K1_block_correlate", "K2_multicorrelate"):
         launches[name + "_E1"] = hybrid[name]
     launches["K4a_pcps_dual_peak"] = hybrid["K4a_pcps_dual_peak"]
     print("== phase 5b: 8 ms acquisition on the hybrid capture", flush=True)
     hybrid_8ms(root, wrappers)
+    print("== phase 6: the full chain (bench.py's 12-satellite, 120 s "
+          "scenario made on the card -> process_array)", flush=True)
+    full = full_chain(wrappers, card)
+    if "--witness" in sys.argv[1:]:
+        print("== witness: phase 5's position error by rate, chips, "
+              "quantization and noise", flush=True)
+        hybrid_witness()
+    # K6's launches: phase 5's capture and phase 6's
+    launches["K6_device_generator"] = k6 + full["K6_device_generator"]
     for r in rows:
         r["launches"] = launches[r["name"]]
 

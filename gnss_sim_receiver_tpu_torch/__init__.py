@@ -4,7 +4,9 @@ The JAX package stays the reference; this package mirrors its module names
 (``models.acquisition``, ``models.tracking``, ``ops.pcps`` ...) and runs the
 GPS L1 C/A and Galileo E1-B chains, alone or together, from a conf file and
 a capture file through the signal conditioner to a position, on one CUDA
-device (``python -m gnss_sim_receiver_tpu_torch --config_file=rx.conf``).
+device (``python -m gnss_sim_receiver_tpu_torch --config_file=rx.conf``),
+and synthesizes multi-satellite captures on the card
+(``sim.device_generator``).
 Its device kernels are written by hand (CUDA C++ under ``csrc/``, Triton in
 ``ops/pcps.py``, ``ops/filters.py`` and ``ops/resampler.py``) and each has a
 plain PyTorch version beside it, which runs only on CPU tensors.  The

@@ -137,9 +137,7 @@ _SUPPORTED = {(AcqConf, "variant"): VARIANTS}
 # (the default) under which the port computes the same thing
 _ABSENT = {
     AcqConf: dict(threshold=0.0, use_cfar_algorithm=True,
-                  bit_transition_flag=False, caf_bins=0,
-                  fine_doppler_iters=3, quicksync_fold=4, tong_init=1,
-                  tong_max=2, tong_max_dwells=10),
+                  bit_transition_flag=False, caf_bins=0),
     TrackingConf: dict(pll_filter_order=3, dll_filter_order=2,
                        lock_rectify=False,
                        tracking_mode="dll_pll", bayes_forgetting=0.995,

@@ -1,7 +1,8 @@
 """Batched PCPS acquisition engine, PyTorch port of
 ``gnss_sim_receiver_tpu.models.acquisition``: the ``pcps`` variant with the
-CFAR statistic (GPS L1 C/A, Galileo E1) and the Galileo E1 sign-recovery
-variants ``cccwsr`` and ``8ms``.
+CFAR statistic (GPS L1 C/A, Galileo E1), the Galileo E1 sign-recovery
+variants ``cccwsr`` and ``8ms``, and the GPS L1 C/A variants
+``quicksync``, ``tong`` and ``fine_doppler``.
 
 Given a window of samples, every searching channel's (Doppler x code delay)
 grid is searched in one batch and one packed [4, C] buffer comes back to the
@@ -12,7 +13,16 @@ host per acquisition:
   :func:`ops.pcps.pcps_search_two_steps`;
 - ``cccwsr`` / ``8ms``: two correlation planes per cell combined under both
   sign hypotheses by kernel K4a, through :func:`ops.pcps.pcps_search_dual`
-  (acquisition.py:_acquire_dual: one grid, no second step).
+  (acquisition.py:_acquire_dual: one grid, no second step);
+- ``quicksync``: the dwell folded by `quicksync_fold` before the FFT and
+  the fold ambiguity resolved on the card (kernel K4b,
+  :func:`ops.pcps.pcps_search_quicksync`);
+- ``fine_doppler``: the coarse search, then narrow per-channel grids with
+  the step divided by 4 each iteration (K3, K3b,
+  :func:`ops.pcps.pcps_search_fine_doppler`);
+- ``tong``: the Tong sequential detector over `tong_max_dwells` successive
+  single-dwell searches (K3, :func:`ops.pcps.pcps_search_dwells`), its
+  counters run on the host after the one pull.
 """
 
 from __future__ import annotations
@@ -26,16 +36,19 @@ from gnss_sim_receiver_tpu_torch import constants
 from gnss_sim_receiver_tpu_torch.device import resolve_device, upload
 from gnss_sim_receiver_tpu_torch.ops import pcps, prn_codes
 
-VARIANTS = ("pcps", "cccwsr", "8ms")
+VARIANTS = ("pcps", "cccwsr", "8ms", "quicksync", "tong", "fine_doppler")
 
 
 @dataclasses.dataclass
 class AcqConf:
     """Reference Acq_Conf (acquisition/libs/acq_conf.h:33-81) subset: the
     CFAR PCPS search with the optional two-step Doppler refinement, and the
-    engine variant ("pcps", "cccwsr": coherent data + pilot combining with
+    engine variant ("pcps"; "cccwsr": coherent data + pilot combining with
     sign recovery, pcps_cccwsr_acquisition_cc; "8ms": two code periods per
-    dwell under both symbol signs, galileo_pcps_8ms_acquisition_cc)."""
+    dwell under both symbol signs, galileo_pcps_8ms_acquisition_cc;
+    "quicksync": folded FFT, pcps_quicksync_acquisition_cc; "tong": the
+    Tong sequential detector, pcps_tong_acquisition_cc; "fine_doppler":
+    iterative Doppler zoom, pcps_acquisition_fine_doppler_cc)."""
     fs_in: float = 2_000_000.0
     doppler_max: float = 5000.0
     doppler_step: float = 250.0
@@ -47,6 +60,11 @@ class AcqConf:
     doppler_step2: float = 125.0
     num_doppler_bins_step2: int = 4
     variant: str = "pcps"
+    fine_doppler_iters: int = 3      # zoom iterations (step /4 each)
+    quicksync_fold: int = 4          # QuickSync folding factor
+    tong_init: int = 1               # Tong counter init (tong_init_val)
+    tong_max: int = 2                # declare at this count (tong_max_val)
+    tong_max_dwells: int = 10        # dismissal dwell cap (tong_max_dwells)
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -65,20 +83,30 @@ class AcqResults:
     samplestamp: int                # sample index of block start
 
 
-def code_replicas(conf: AcqConf, prns, code_provider=None,
+def sampled_codes(conf: AcqConf, prns, code_provider=None,
                   sc_rate: float | None = None) -> np.ndarray:
-    """[C, N] complex64 conj(FFT(sampled code)) per PRN (the adapter-side
-    precompute of the reference), computed on the host in NumPy.
-    `code_provider(prn)` gives the +-1 sub-chip table at `sc_rate` (default
-    GPS L1 C/A)."""
+    """[C, N] float32 +-1 codes sampled at fs_in over one coherent
+    integration, per PRN, on the host.  `code_provider(prn)` gives the +-1
+    sub-chip table at `sc_rate` (default GPS L1 C/A)."""
     code_provider = code_provider or prn_codes.gps_l1_ca_code
     sc_rate = sc_rate or constants.GPS_L1_CA_CODE_RATE_CPS
     n = int(round(conf.fs_in * 1e-3 * conf.sampled_ms))
-    codes = np.stack([
+    return np.stack([
         prn_codes.sample_code(np.asarray(code_provider(int(p)), np.float32),
                               conf.fs_in, sc_rate, n)
         for p in prns])
+
+
+def replica_fft(codes: np.ndarray) -> np.ndarray:
+    """[C, N] complex64 conj(FFT(code)) of sampled codes, on the host."""
     return np.conj(np.fft.fft(codes, axis=-1)).astype(np.complex64)
+
+
+def code_replicas(conf: AcqConf, prns, code_provider=None,
+                  sc_rate: float | None = None) -> np.ndarray:
+    """[C, N] complex64 conj(FFT(sampled code)) per PRN (the adapter-side
+    precompute of the reference), computed on the host in NumPy."""
+    return replica_fft(sampled_codes(conf, prns, code_provider, sc_rate))
 
 
 class PcpsAcquisitionEngine:
@@ -96,9 +124,14 @@ class PcpsAcquisitionEngine:
         self.prns = [int(p) for p in prns]
         fs = conf.fs_in
         self.fft_size = int(round(fs * 1e-3 * conf.sampled_ms))
-        self.code_fft_conj = upload(
-            code_replicas(conf, self.prns, code_provider, sc_rate),
-            self.device)
+        codes = sampled_codes(conf, self.prns, code_provider, sc_rate)
+        self.code_fft_conj = upload(replica_fft(codes), self.device)
+        if conf.variant == "quicksync":
+            # the time-domain codes (the resolve) and the folded replica
+            self.codes_time = upload(codes, self.device)
+            self.code_fold_fft_conj = upload(
+                pcps.fold_codes(codes, int(conf.quicksync_fold)),
+                self.device)
         # the second replica family (cccwsr: data + pilot)
         self.code2_fft_conj = None
         if code_provider2 is not None and conf.variant == "cccwsr":
@@ -112,7 +145,12 @@ class PcpsAcquisitionEngine:
         dwell = self.fft_size * (2 if conf.variant == "8ms" else 1)
         self._t = pcps.time_axis(dwell, fs, self.device)
         n_cells = self.fft_size * len(self.dopplers)
-        if conf.variant == "pcps":
+        if conf.variant == "quicksync":
+            # the Gamma-inverse threshold sized for the folded cell count
+            self.threshold = pcps.cfar_threshold(
+                conf.pfa, (self.fft_size // int(conf.quicksync_fold))
+                * len(self.dopplers), conf.max_dwells)
+        elif conf.variant not in ("cccwsr", "8ms"):
             self.threshold = pcps.cfar_threshold(conf.pfa, n_cells,
                                                  conf.max_dwells)
         else:
@@ -124,13 +162,15 @@ class PcpsAcquisitionEngine:
 
     @property
     def n_samples_needed(self) -> int:
+        if self.conf.variant == "tong":
+            return self.fft_size * self.conf.tong_max_dwells
         if self.conf.variant == "8ms":
             return 2 * self.fft_size * self.conf.max_dwells
         return self.fft_size * self.conf.max_dwells
 
     def acquire_from(self, x, start: int) -> AcqResults:
-        """Acquisition over the capture window that starts near `start`, in
-        one search with one packed pull.
+        """Acquisition over the capture window that starts near `start`,
+        with one packed pull.
 
         pcps: the coarse grid and, with `make_two_steps`, the narrow-grid
         Doppler refinement (pcps_acquisition.cc:698-758), the step-two
@@ -142,31 +182,14 @@ class PcpsAcquisitionEngine:
         samples, the row index clamped to [0, len // row - 2] — a slice
         view, no copy.
 
-        cccwsr / 8ms: the window [start, start + need) exactly, as the JAX
-        engine's `acquire` on a slice; a device capture is sliced on the
-        device (a view, no host round trip)."""
+        Every other variant: the window [start, start + need) exactly, as
+        the JAX engine's `acquire` on a slice; a device capture is sliced on
+        the device (a view, no host round trip)."""
         conf = self.conf
+        if conf.variant != "pcps":
+            return self._acquire_variant(x, int(start))
         m = conf.max_dwells
         need = self.n_samples_needed
-        if conf.variant != "pcps":
-            samplestamp = int(start)
-            if isinstance(x, torch.Tensor):
-                seg = x[samplestamp:samplestamp + need].to(self.device)
-            else:
-                seg = upload(np.asarray(x[start:start + need], np.complex64),
-                             self.device)
-            if len(seg) < need:
-                raise ValueError(f"need {need} samples, got {len(seg)}")
-            x_dwells = seg.to(torch.complex64).reshape(m, need // m)
-            buf = pcps.pcps_search_dual(
-                x_dwells, self.code_fft_conj, self.code2_fft_conj
-                if self.code2_fft_conj is not None else self.code_fft_conj,
-                self.dopplers, self._t, conf.variant).cpu().numpy()
-            delay = buf[2].astype(np.float64)
-            if conf.variant == "8ms":
-                delay = np.mod(delay, self.fft_size)
-            return self._results(buf[0].astype(np.float64), delay, buf[1],
-                                 samplestamp)
         if isinstance(x, torch.Tensor):
             g = -(-need // 128) * 128
             w = len(x) // g
@@ -178,10 +201,7 @@ class PcpsAcquisitionEngine:
             x_dwells = x[samplestamp:samplestamp + need].to(self.device)
         else:
             samplestamp = int(start)
-            seg = np.asarray(x[start:start + need], np.complex64)
-            if len(seg) < need:
-                raise ValueError(f"need {need} samples, got {len(seg)}")
-            x_dwells = upload(seg, self.device)
+            x_dwells = self._window(x, samplestamp, need)
         x_dwells = x_dwells.to(torch.complex64).reshape(m, self.fft_size)
         buf = pcps.pcps_search_two_steps(
             x_dwells, self.code_fft_conj, self.dopplers, self._t,
@@ -191,6 +211,84 @@ class PcpsAcquisitionEngine:
         stat = np.maximum(buf[0], buf[3]).astype(np.float64)
         return self._results(stat, buf[2].astype(np.float64), buf[1],
                              samplestamp)
+
+    def _window(self, x, start: int, need: int) -> torch.Tensor:
+        """The capture's samples [start, start + need) on the engine's
+        device: a view of a tensor, or the host slice uploaded."""
+        if isinstance(x, torch.Tensor):
+            seg = x[start:start + need].to(self.device)
+        else:
+            seg = upload(np.asarray(x[start:start + need], np.complex64),
+                         self.device)
+        if len(seg) < need:
+            raise ValueError(f"need {need} samples, got {len(seg)}")
+        return seg.to(torch.complex64)
+
+    def _acquire_variant(self, x, start: int) -> AcqResults:
+        """The variants' searches on the window [start, start + need)."""
+        conf = self.conf
+        m, n = conf.max_dwells, self.fft_size
+        seg = self._window(x, start, self.n_samples_needed)
+        if conf.variant == "tong":
+            return self._tong(seg.reshape(conf.tong_max_dwells, n), start)
+        if conf.variant == "quicksync":
+            buf = pcps.pcps_search_quicksync(
+                seg.reshape(m, n), self.codes_time, self.code_fold_fft_conj,
+                self.dopplers, self._t, int(conf.quicksync_fold))
+        elif conf.variant == "fine_doppler":
+            buf = pcps.pcps_search_fine_doppler(
+                seg.reshape(m, n), self.code_fft_conj, self.dopplers,
+                self._t, conf.doppler_step / 2.0,
+                int(conf.fine_doppler_iters))
+        else:
+            buf = pcps.pcps_search_dual(
+                seg.reshape(m, -1), self.code_fft_conj,
+                self.code2_fft_conj if self.code2_fft_conj is not None
+                else self.code_fft_conj, self.dopplers, self._t, conf.variant)
+        buf = buf.cpu().numpy()
+        # the fine Doppler zoom's last statistic joins the detection (the
+        # CFAR statistic on both sides); the others leave stat2 at 0
+        stat = np.maximum(buf[0], buf[3]).astype(np.float64)
+        delay = buf[2].astype(np.float64)
+        if conf.variant == "8ms":
+            delay = np.mod(delay, n)
+        return self._results(stat, delay, buf[1], start)
+
+    def _tong(self, x_dwells: torch.Tensor, start: int) -> AcqResults:
+        """Tong sequential detector (acquisition.py:_acquire_tong): per
+        channel a counter starts at tong_init; each dwell above the
+        threshold adds 1, each below subtracts 1; detection at tong_max,
+        dismissal at 0 or after the last dwell.  Every dwell's search runs
+        on the card before the one pull; the counters then run on the host
+        in the JAX engine's order (once no channel is alive the later
+        dwells change nothing)."""
+        conf = self.conf
+        c = len(self.prns)
+        buf = pcps.pcps_search_dwells(x_dwells, self.code_fft_conj,
+                                      self.dopplers, self._t).cpu().numpy()
+        k_counter = np.full(c, conf.tong_init, np.int32)
+        alive = np.ones(c, bool)
+        detected = np.zeros(c, bool)
+        best = dict(stat=np.zeros(c), delay=np.zeros(c), dop=np.zeros(c))
+        for d in range(x_dwells.shape[0]):
+            if not alive.any():
+                break
+            stat = buf[0, d].astype(np.float64)
+            up = stat > self.threshold
+            k_counter = np.where(alive & up, k_counter + 1,
+                                 np.where(alive, k_counter - 1, k_counter))
+            better = alive & (stat > best["stat"])
+            best["stat"] = np.where(better, stat, best["stat"])
+            best["delay"] = np.where(better, buf[2, d], best["delay"])
+            best["dop"] = np.where(better, buf[1, d], best["dop"])
+            newly = alive & (k_counter >= conf.tong_max)
+            detected |= newly
+            alive &= ~newly & (k_counter > 0)
+        return AcqResults(
+            detected=detected, test_stat=best["stat"],
+            delay_samples=best["delay"].astype(np.float64),
+            doppler_hz=best["dop"].astype(np.float64),
+            threshold=self.threshold, samplestamp=int(start))
 
     def _results(self, stat, delay, doppler_hz, samplestamp) -> AcqResults:
         return AcqResults(

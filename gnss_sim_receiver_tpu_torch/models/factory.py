@@ -30,7 +30,10 @@ from gnss_sim_receiver_tpu_torch.utils.config import Configuration
 # accepted Role.implementation strings per ported signal, and the engine
 # variant each acquisition string selects (gnss_block_factory.cc:652-1335)
 _ACQ_IMPLS = {
-    "1C": {"GPS_L1_CA_PCPS_Acquisition": "pcps"},
+    "1C": {"GPS_L1_CA_PCPS_Acquisition": "pcps",
+           "GPS_L1_CA_PCPS_QuickSync_Acquisition": "quicksync",
+           "GPS_L1_CA_PCPS_Tong_Acquisition": "tong",
+           "GPS_L1_CA_PCPS_Acquisition_Fine_Doppler": "fine_doppler"},
     "1B": {"Galileo_E1_PCPS_Ambiguous_Acquisition": "pcps",
            "Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition": "cccwsr",
            "Galileo_E1_PCPS_8ms_Ambiguous_Acquisition": "8ms"},
@@ -120,6 +123,12 @@ def _acq_from_config(config: Configuration, sig: str,
         num_doppler_bins_step2=config.property(
             p + "second_nbins", base.num_doppler_bins_step2),
         variant=variant,
+        # the variants' own keys, read with the JAX factory's defaults
+        # (factory.py:212-215)
+        tong_init=config.property(p + "tong_init_val", 1),
+        tong_max=config.property(p + "tong_max_val", 2),
+        tong_max_dwells=config.property(p + "tong_max_dwells", 10),
+        quicksync_fold=config.property(p + "folding_factor", 4),
     )
 
 

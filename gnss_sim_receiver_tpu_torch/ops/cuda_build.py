@@ -10,7 +10,8 @@ importing this module builds nothing.
 
 No ``--use_fast_math``: the block correlator's angles reach ~2*pi*(1 +
 |f|/2N) and ``__sinf`` would lose the accuracy its int32 angle reduction
-keeps; the FIR kernel's LO phase reaches millions of radians.
+keeps; the FIR kernel's LO phase reaches millions of radians and the device
+generator's carrier phase ~130 rad within an anchor block.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("block_correlator", "multicorrelator", "fir_decim", "notch")
+SOURCES = ("block_correlator", "multicorrelator", "fir_decim", "notch",
+           "device_generator")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,7 +1,9 @@
-"""Batched Parallel Code Phase Search acquisition (kernels K3, K3b and K4a).
+"""Batched Parallel Code Phase Search acquisition (kernels K3, K3b, K4a and
+K4b).
 
 PyTorch port of ``gnss_sim_receiver_tpu.ops.pcps`` (the PCPS grid, its
-two-step refinement, and the CCCWSR and 8 ms grids of Galileo E1): the
+two-step refinement, the CCCWSR and 8 ms grids of Galileo E1 and the
+QuickSync folded grid of GPS L1 C/A): the
 whole (channels x Doppler bins x code delay) grid of one acquisition is
 searched in one batch.
 
@@ -34,11 +36,24 @@ periods with the one replica — into one [M, C, D, 2, N] tensor
 |a-b|^2) per cell and the same statistic with 2 M correlations per cell;
 :func:`pcps_search_dual` packs the [4, C] buffer of the two-step search.
 
+QuickSync (kernel K4b) folds the dwell by `fold` before the FFT: the fold
+kernel (:func:`pcps_quicksync_fold`) wipes the carrier and sums the `fold`
+equal segments in one pass, writing [M, D, N/fold] (the [M, D, N] wiped
+dwells never reach device memory); cuFFT, the product with the folded
+code's conjugate spectrum and the K3 peak kernel follow on the
+[M, C, D, N/fold] planes; the resolve kernel (:func:`pcps_quicksync_resolve`)
+then takes the full-length correlation of dwell 0 at the `fold` candidate
+delays of each channel and keeps the largest, on the card.
+:func:`pcps_search_quicksync` packs the [4, C] buffer.  The Fine Doppler
+(:func:`pcps_search_fine_doppler`) and Tong (:func:`pcps_search_dwells`)
+searches reuse K3 and K3b.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors.  :func:`pcps_grid`, :func:`pcps_grid_per_channel`,
-:func:`pcps_cccwsr_grid`, :func:`pcps_8ms_grid`, :func:`grid_peak` and
-:func:`max_to_input_power_stat` are the plain versions, line for line with
-the JAX functions.
+:func:`pcps_cccwsr_grid`, :func:`pcps_8ms_grid`,
+:func:`pcps_quicksync_grid`, :func:`quicksync_resolve`, :func:`grid_peak`
+and :func:`max_to_input_power_stat` are the plain versions, line for line
+with the JAX functions.
 """
 
 from __future__ import annotations
@@ -206,6 +221,80 @@ def _dual_peak_plain(corr, n_dwells):
     return max_to_input_power_stat(grid, float(2 * n_dwells))
 
 
+def _fold_plain(x_dwells, dopplers, t, fold: int):
+    """Plain version of the K4b fold kernel: the [M, D, N] wiped dwells
+    summed over `fold` equal segments -> [M, D, N // fold]."""
+    m, n = x_dwells.shape
+    nf = n // fold
+    wiped = _wipe_plain(x_dwells, dopplers, t)                 # [M, D, N]
+    return wiped[..., : nf * fold].reshape(m, -1, fold, nf).sum(dim=2)
+
+
+def fold_codes(codes_sampled: np.ndarray, fold: int) -> np.ndarray:
+    """[C, N // fold] complex64 conj(FFT(code folded by `fold`)), the
+    QuickSync replica, on the host (the JAX function folds the code inside
+    its program; here once per acquisition engine)."""
+    c, n = codes_sampled.shape
+    nf = n // fold
+    code_f = np.asarray(codes_sampled, np.float32)[:, : nf * fold].reshape(
+        c, fold, nf).sum(axis=1)
+    return np.conj(np.fft.fft(code_f.astype(np.complex64),
+                              axis=-1)).astype(np.complex64)
+
+
+def pcps_quicksync_grid(x_dwells: torch.Tensor, codes_sampled: torch.Tensor,
+                        dopplers: torch.Tensor, fs: float,
+                        fold: int) -> torch.Tensor:
+    """QuickSync folded grid [C, D, N // fold] float32
+    (pcps_quicksync_acquisition_cc.cc): the dwell and the local code both
+    folded by summing `fold` equal segments, so the grid resolves the code
+    phase modulo N / fold.  codes_sampled [C, N] float32 +-1."""
+    m, n = x_dwells.shape
+    folded = _fold_plain(x_dwells, dopplers,
+                         time_axis(n, fs, x_dwells.device), fold)
+    cfc = torch.from_numpy(fold_codes(codes_sampled.cpu().numpy(), fold)
+                           ).to(x_dwells.device)
+    spec = torch.fft.fft(folded, dim=-1)                        # [M, D, NF]
+    corr = torch.fft.ifft(spec[:, None, :, :] * cfc[None, :, None, :],
+                          dim=-1)
+    mag = corr.real ** 2 + corr.imag ** 2
+    return torch.sum(mag, dim=0)
+
+
+def _resolve_plain(x_dwell, codes_sampled, doppler_hz, delay_mod, t,
+                   fold: int):
+    """Plain version of the K4b resolve kernel: |sum wiped * roll(code, d)|
+    at the `fold` candidates d = delay_mod + k * N // fold -> ([C] int32
+    delays, [C] float32 magnitudes), the first k on ties."""
+    c, n = codes_sampled.shape
+    nf = n // fold
+    ph = -2.0 * math.pi * doppler_hz[:, None] * t[None, :]
+    wiped = x_dwell[None, :] * torch.complex(torch.cos(ph), torch.sin(ph))
+    cand = (delay_mod.to(torch.int64)[:, None]
+            + nf * torch.arange(fold, device=t.device)[None, :])   # [C, K]
+    # jnp.roll(code, d)[i] = code[(i - d) mod N]
+    idx = torch.remainder(torch.arange(n, device=t.device)[None, None, :]
+                          - cand[:, :, None], n)
+    rolled = torch.gather(codes_sampled[:, None, :].expand(c, fold, n), 2,
+                          idx)
+    mags = torch.abs(torch.sum(wiped[:, None, :] * rolled, dim=-1))
+    k = torch.argmax(mags, dim=1)
+    return (torch.gather(cand, 1, k[:, None])[:, 0].to(torch.int32),
+            torch.gather(mags, 1, k[:, None])[:, 0])
+
+
+def quicksync_resolve(x_dwell: torch.Tensor, codes_sampled: torch.Tensor,
+                      doppler_hz: torch.Tensor, delay_mod: torch.Tensor,
+                      fs: float, fold: int = 4):
+    """Resolve the QuickSync fold ambiguity (the JAX function's form): the
+    full-length correlation at the `fold` candidate delays
+    delay_mod + k * N / fold for each channel's detected Doppler; returns
+    ([C] delays, [C] magnitudes) of the winning candidates."""
+    return _resolve_plain(x_dwell, codes_sampled, doppler_hz, delay_mod,
+                          time_axis(codes_sampled.shape[1], fs,
+                                    x_dwell.device), fold)
+
+
 # ---- Triton kernels --------------------------------------------------------
 
 @functools.cache
@@ -325,7 +414,65 @@ def _kernels():
         tl.store(rarg_ptr + o, rarg.to(tl.int32))
         tl.store(rsum_ptr + o, tl.sum(total, axis=0))
 
-    return wipe_kernel, row_kernel, stat_kernel, dual_row_kernel
+    @triton.jit
+    def fold_kernel(x_ptr, t_ptr, dop_ptr, out_ptr, n, nf, n_dop, fold,
+                    neg_two_pi, BLOCK: tl.constexpr):
+        # K4b fold: x [M, N] -> out [M, D, NF] complex64 (interleaved
+        # float32), out[m, d, j] = sum_f x[m, f NF + j] exp(-j w_d t)
+        pid_j = tl.program_id(0)
+        d = tl.program_id(1)
+        m = tl.program_id(2)
+        j = pid_j * BLOCK + tl.arange(0, BLOCK)
+        mask = j < nf
+        w = neg_two_pi * tl.load(dop_ptr + d)
+        acc_r = tl.zeros([BLOCK], dtype=tl.float32)
+        acc_i = tl.zeros([BLOCK], dtype=tl.float32)
+        for f in range(fold):
+            idx = f * nf + j
+            phase = w * tl.load(t_ptr + idx, mask=mask, other=0.0)
+            c = libdevice.cos(phase)
+            s = libdevice.sin(phase)
+            src = x_ptr + (m * n + idx) * 2
+            xr = tl.load(src, mask=mask, other=0.0)
+            xi = tl.load(src + 1, mask=mask, other=0.0)
+            acc_r += xr * c - xi * s
+            acc_i += xr * s + xi * c
+        dst = out_ptr + ((m * n_dop + d) * nf + j) * 2
+        tl.store(dst, acc_r, mask=mask)
+        tl.store(dst + 1, acc_i, mask=mask)
+
+    @triton.jit
+    def resolve_kernel(x_ptr, t_ptr, code_ptr, dop_ptr, lag_ptr, mag_ptr,
+                       n, nf, fold, neg_two_pi, BLOCK: tl.constexpr):
+        # K4b resolve, one (channel, candidate k): |sum_i x[i] exp(-j w t_i)
+        # code[c, (i - d) mod N]| at d = lag[c] + k NF
+        c = tl.program_id(0)
+        k = tl.program_id(1)
+        dly = tl.load(lag_ptr + c) + k * nf
+        w = neg_two_pi * tl.load(dop_ptr + c)
+        lanes = tl.arange(0, BLOCK)
+        acc_r = tl.zeros([BLOCK], dtype=tl.float32)
+        acc_i = tl.zeros([BLOCK], dtype=tl.float32)
+        for start in range(0, n, BLOCK):
+            offs = start + lanes
+            mask = offs < n
+            phase = w * tl.load(t_ptr + offs, mask=mask, other=0.0)
+            cs = libdevice.cos(phase)
+            sn = libdevice.sin(phase)
+            xr = tl.load(x_ptr + offs * 2, mask=mask, other=0.0)
+            xi = tl.load(x_ptr + offs * 2 + 1, mask=mask, other=0.0)
+            ci = offs - dly
+            ci = tl.where(ci < 0, ci + n, ci)
+            code = tl.load(code_ptr + c * n + ci, mask=mask, other=0.0)
+            acc_r += (xr * cs - xi * sn) * code
+            acc_i += (xr * sn + xi * cs) * code
+        vr = tl.sum(acc_r, axis=0)
+        vi = tl.sum(acc_i, axis=0)
+        tl.store(mag_ptr + c * fold + k, tl.sqrt(vr * vr + vi * vi))
+
+    return dict(wipe=wipe_kernel, row=row_kernel, stat=stat_kernel,
+                dual_row=dual_row_kernel, fold=fold_kernel,
+                resolve=resolve_kernel)
 
 
 # ---- wrappers --------------------------------------------------------------
@@ -351,7 +498,7 @@ def pcps_wipe(x_dwells: torch.Tensor, dopplers: torch.Tensor,
     m, n = x_dwells.shape
     out = torch.empty((m, *dopplers.shape, n), dtype=torch.complex64,
                       device=dev)
-    wipe_kernel = _kernels()[0]
+    wipe_kernel = _kernels()["wipe"]
     rows = dopplers.numel()
     block = 1024
     wipe_kernel[((n + block - 1) // block, rows, m)](
@@ -380,7 +527,7 @@ def pcps_peak(corr: torch.Tensor, n_dwells: int):
     if m != n_dwells:
         raise ValueError("pcps_peak: n_dwells must match corr.shape[0]")
     import triton
-    _, row_kernel, _, _ = _kernels()
+    row_kernel = _kernels()["row"]
     rows = _row_buffers(c, d, dev)
     row_kernel[(d, c)](torch.view_as_real(corr), *rows, m, c, d,
                        n, BLOCK=triton.next_power_of_2(n), num_warps=8)
@@ -404,7 +551,7 @@ def _stat(rows, n: int, n_sums: int):
     delay_idx [C]), the noise power taken as the opposite row's mean / 2 /
     `n_sums`, the correlations summed per cell (max_to_input_power_stat)."""
     import triton
-    stat_kernel = _kernels()[2]
+    stat_kernel = _kernels()["stat"]
     rmax = rows[0]
     c, d = rmax.shape
     dev = rmax.device
@@ -434,7 +581,7 @@ def pcps_dual_peak(corr: torch.Tensor, n_dwells: int):
     if two != 2 or m != n_dwells:
         raise ValueError("pcps_dual_peak: corr must be [n_dwells, C, D, 2, "
                          "N]")
-    dual_row_kernel = _kernels()[3]
+    dual_row_kernel = _kernels()["dual_row"]
     rows = _row_buffers(c, d, dev)
     dual_row_kernel[(d, c)](torch.view_as_real(corr), *rows, m, c, d, n,
                             BLOCK=1024, num_warps=4)
@@ -459,6 +606,17 @@ def pcps_search(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
     return pcps_peak(corr, m)
 
 
+def _narrow_search(x_dwells, code_fft_conj, dops2, t):
+    """One narrow per-channel grid (K3b wipe, cuFFT, K3 peak) over the
+    [C, D2] Doppler table -> (stat2 [C], the winning Doppler [C])."""
+    m = x_dwells.shape[0]
+    wiped = pcps_wipe(x_dwells, dops2, t)
+    spec = torch.fft.fft(wiped, dim=-1)
+    corr = torch.fft.ifft(spec * code_fft_conj[None, :, None, :], dim=-1)
+    stat2, dop2_idx, _ = pcps_peak(corr, m)
+    return stat2, torch.gather(dops2, 1, dop2_idx.long()[:, None])[:, 0]
+
+
 def pcps_search_two_steps(x_dwells: torch.Tensor,
                           code_fft_conj: torch.Tensor,
                           dopplers: torch.Tensor, t: torch.Tensor,
@@ -469,7 +627,6 @@ def pcps_search_two_steps(x_dwells: torch.Tensor,
     `step2` Hz apart around its coarse Doppler.  Returns the packed [4, C]
     float32 buffer (stat, doppler_hz, delay_idx, stat2); stat2 is 0 without
     the second step.  Nothing is pulled to the host in between."""
-    m = x_dwells.shape[0]
     stat, dop_idx, del_idx = pcps_search(x_dwells, code_fft_conj, dopplers, t)
     dop_hz = dopplers[dop_idx.long()]
     stat2 = torch.zeros_like(stat)
@@ -477,11 +634,7 @@ def pcps_search_two_steps(x_dwells: torch.Tensor,
         offs = ((torch.arange(2 * n_side + 1, device=dopplers.device)
                  - n_side) * float(np.float32(step2))).to(torch.float32)
         dops2 = (dop_hz[:, None] + offs[None, :]).contiguous()    # [C, D2]
-        wiped = pcps_wipe(x_dwells, dops2, t)
-        spec = torch.fft.fft(wiped, dim=-1)
-        corr = torch.fft.ifft(spec * code_fft_conj[None, :, None, :], dim=-1)
-        stat2, dop2_idx, _ = pcps_peak(corr, m)
-        dop_hz = torch.gather(dops2, 1, dop2_idx.long()[:, None])[:, 0]
+        stat2, dop_hz = _narrow_search(x_dwells, code_fft_conj, dops2, t)
     return torch.stack([stat.to(torch.float32), dop_hz.to(torch.float32),
                         del_idx.to(torch.float32), stat2.to(torch.float32)])
 
@@ -531,3 +684,147 @@ def pcps_search_dual(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
     return torch.stack([stat.to(torch.float32),
                         dopplers[dop_idx.long()].to(torch.float32),
                         del_idx.to(torch.float32), torch.zeros_like(stat)])
+
+
+def pcps_quicksync_fold(x_dwells: torch.Tensor, dopplers: torch.Tensor,
+                        t: torch.Tensor, fold: int) -> torch.Tensor:
+    """K4b fold kernel: [M, N] dwells x exp(-j 2 pi f_d t) over a [D]
+    Doppler grid, summed over `fold` equal segments -> [M, D, N // fold]
+    complex64 (the QuickSync cuFFT input); the [M, D, N] wiped dwells are
+    never written."""
+    if not check_kernel_device(x_dwells, "pcps_quicksync_fold"):
+        return _fold_plain(x_dwells, dopplers, t, fold)
+    dev = x_dwells.device
+    require(x_dwells, torch.complex64, dev, "pcps_quicksync_fold: x_dwells")
+    require(dopplers, torch.float32, dev, "pcps_quicksync_fold: dopplers")
+    require(t, torch.float32, dev, "pcps_quicksync_fold: t")
+    m, n = x_dwells.shape
+    nf = n // fold
+    d = dopplers.shape[0]
+    if dopplers.dim() != 1 or fold < 1 or nf < 1 or t.shape[0] < nf * fold:
+        raise ValueError("pcps_quicksync_fold: bad shapes")
+    out = torch.empty((m, d, nf), dtype=torch.complex64, device=dev)
+    block = 512
+    _kernels()["fold"][((nf + block - 1) // block, d, m)](
+        torch.view_as_real(x_dwells), t, dopplers, torch.view_as_real(out),
+        n, nf, d, fold, float(np.float32(-2.0 * math.pi)), BLOCK=block,
+        num_warps=4)
+    pcps_quicksync_fold.launches += 1
+    return out
+
+
+pcps_quicksync_fold.launches = 0
+
+
+def pcps_quicksync_resolve(x_dwell: torch.Tensor,
+                           codes_sampled: torch.Tensor,
+                           doppler_hz: torch.Tensor,
+                           delay_mod: torch.Tensor, t: torch.Tensor,
+                           fold: int):
+    """K4b resolve kernel: for each channel c, the full-length correlation
+    |sum_i x[i] exp(-j 2 pi f_c t_i) code[c, (i - d) mod N]| at the `fold`
+    candidates d = delay_mod[c] + k * N // fold (one program per (channel,
+    candidate)), then the largest candidate, first on ties, on the card ->
+    ([C] int32 delays, [C] float32 magnitudes).  x_dwell [N] complex64,
+    codes_sampled [C, N] float32, doppler_hz [C] float32, delay_mod [C]
+    int32."""
+    if not check_kernel_device(x_dwell, "pcps_quicksync_resolve"):
+        return _resolve_plain(x_dwell, codes_sampled, doppler_hz, delay_mod,
+                              t, fold)
+    dev = x_dwell.device
+    require(x_dwell, torch.complex64, dev, "pcps_quicksync_resolve: x_dwell")
+    require(codes_sampled, torch.float32, dev,
+            "pcps_quicksync_resolve: codes_sampled")
+    require(doppler_hz, torch.float32, dev,
+            "pcps_quicksync_resolve: doppler_hz")
+    require(delay_mod, torch.int32, dev, "pcps_quicksync_resolve: delay_mod")
+    require(t, torch.float32, dev, "pcps_quicksync_resolve: t")
+    c, n = codes_sampled.shape
+    nf = n // fold
+    if x_dwell.shape != (n,) or t.shape[0] < n or doppler_hz.shape != (c,) \
+            or delay_mod.shape != (c,) or nf < 1:
+        raise ValueError("pcps_quicksync_resolve: bad shapes")
+    mags = torch.empty((c, fold), dtype=torch.float32, device=dev)
+    _kernels()["resolve"][(c, fold)](
+        torch.view_as_real(x_dwell), t, codes_sampled, doppler_hz, delay_mod,
+        mags, n, nf, fold, float(np.float32(-2.0 * math.pi)), BLOCK=1024,
+        num_warps=4)
+    pcps_quicksync_resolve.launches += 1
+    k = torch.argmax(mags, dim=1)
+    delays = delay_mod + nf * k.to(torch.int32)
+    return delays, torch.gather(mags, 1, k[:, None])[:, 0]
+
+
+pcps_quicksync_resolve.launches = 0
+
+
+def pcps_search_quicksync(x_dwells: torch.Tensor, codes_sampled: torch.Tensor,
+                          code_fold_fft_conj: torch.Tensor,
+                          dopplers: torch.Tensor, t: torch.Tensor,
+                          fold: int) -> torch.Tensor:
+    """The QuickSync search of acquisition.py:_acquire_quicksync: the fold
+    kernel, cuFFT, the product with the folded replica's conjugate
+    spectrum `code_fold_fft_conj` [C, N // fold] into cuFFT inverse, the K3
+    peak kernel on the [M, C, D, N // fold] planes (the folded lag), then
+    the resolve kernel on dwell 0 at each channel's Doppler.  Returns the
+    packed [4, C] float32 buffer (stat, doppler_hz, delay mod N, 0); the
+    Doppler index and the folded lag never leave the card."""
+    m, n = x_dwells.shape
+    folded = pcps_quicksync_fold(x_dwells, dopplers, t, fold)
+    spec = torch.fft.fft(folded, dim=-1)
+    corr = torch.fft.ifft(spec[:, None, :, :]
+                          * code_fold_fft_conj[None, :, None, :], dim=-1)
+    stat, dop_idx, lag = pcps_peak(corr, m)
+    dop_hz = dopplers[dop_idx.long()].contiguous()
+    delays, _ = pcps_quicksync_resolve(x_dwells[0], codes_sampled, dop_hz,
+                                       lag, t, fold)
+    return torch.stack([stat.to(torch.float32), dop_hz,
+                        torch.remainder(delays, n).to(torch.float32),
+                        torch.zeros_like(stat)])
+
+
+def pcps_search_fine_doppler(x_dwells: torch.Tensor,
+                             code_fft_conj: torch.Tensor,
+                             dopplers: torch.Tensor, t: torch.Tensor,
+                             step_hz: float, iters: int) -> torch.Tensor:
+    """The Fine Doppler search of acquisition.py:_fine_doppler: the coarse
+    CFAR search, then `iters` (at least 1) narrow grids of 9 bins around
+    each channel's current Doppler, the step starting at `step_hz` and
+    divided by 4 each time (the table formed in float64 and rounded to
+    float32, as the JAX engine forms it on the host).  Returns the packed
+    [4, C] buffer (stat, doppler_hz, delay_idx, stat2 of the last
+    iteration) with no host pull in between."""
+    stat, dop_idx, del_idx = pcps_search(x_dwells, code_fft_conj, dopplers, t)
+    dop = dopplers[dop_idx.long()]
+    stat2 = torch.zeros_like(stat)
+    step = float(step_hz)
+    for _ in range(max(int(iters), 1)):
+        offs = (torch.arange(9, dtype=torch.float64, device=dop.device)
+                - 4) * step
+        dops2 = (dop.to(torch.float64)[:, None] + offs[None, :]).to(
+            torch.float32).contiguous()
+        stat2, dop = _narrow_search(x_dwells, code_fft_conj, dops2, t)
+        step /= 4.0
+    return torch.stack([stat.to(torch.float32), dop.to(torch.float32),
+                        del_idx.to(torch.float32), stat2.to(torch.float32)])
+
+
+def pcps_search_dwells(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
+                       dopplers: torch.Tensor,
+                       t: torch.Tensor) -> torch.Tensor:
+    """One single-dwell CFAR search per row of x_dwells [T, N] (the Tong
+    detector's successive dwells, acquisition.py:_acquire_tong), all in one
+    wipeoff and one peak launch: the [T, C, D, N] correlations are read by
+    the K3 peak kernel as T * C channels of one dwell.  Returns [3, T, C]
+    float32 (stat, doppler_hz, delay_idx)."""
+    n_dw, n = x_dwells.shape
+    c = code_fft_conj.shape[0]
+    d = dopplers.shape[0]
+    wiped = pcps_wipe(x_dwells, dopplers, t)                  # [T, D, N]
+    spec = torch.fft.fft(wiped, dim=-1)
+    corr = torch.fft.ifft(spec[:, None, :, :]
+                          * code_fft_conj[None, :, None, :], dim=-1)
+    stat, dop_idx, del_idx = pcps_peak(corr.reshape(1, n_dw * c, d, n), 1)
+    return torch.stack([stat.to(torch.float32),
+                        dopplers[dop_idx.long()].to(torch.float32),
+                        del_idx.to(torch.float32)]).reshape(3, n_dw, c)

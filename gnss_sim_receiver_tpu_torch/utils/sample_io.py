@@ -5,8 +5,9 @@ Covers the item formats of the reference file signal sources and data-type
 adapters (src/algorithms/signal_source/adapters/file_signal_source.cc,
 src/algorithms/data_type_adapter/): interleaved byte/short IQ, real
 byte/short, and gr_complex float32 files.  Interleaved integers are
-de-interleaved with NumPy.  The timestamp, NSR, SPIR and LabSat readers are
-not ported.
+de-interleaved with NumPy.  A capture that lives on the card is quantized
+there (:func:`quantize_interleaved`) and only its integers come to the host.
+The timestamp, NSR, SPIR and LabSat readers are not ported.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 
 # item_type string -> (numpy dtype, complex interleaved?)
 _FORMATS = {
@@ -48,10 +50,39 @@ def read_samples(path: str | Path, item_type: str = "gr_complex",
     return raw.astype(np.float32).astype(np.complex64)
 
 
-def write_samples(path: str | Path, x: np.ndarray,
-                  item_type: str = "gr_complex", scale: float = 1.0) -> None:
-    """Write complex64 baseband to a raw capture file in the given format."""
+def quantize_interleaved(x: torch.Tensor, item_type: str, scale: float,
+                         chunk: int = 1 << 24) -> torch.Tensor:
+    """The interleaved integer samples of an interleaved integer format
+    ("ibyte", "ishort", ...) for a complex64 tensor, computed on the
+    tensor's device as :func:`write_samples` computes them on the host:
+    rint(scale * x) (half to even), clipped to the type's range.  Chunked,
+    so that no float copy of the whole capture is made."""
     dtype, interleaved = _FORMATS[item_type]
+    if not interleaved or dtype == np.complex64:
+        raise ValueError(f"{item_type} is not an interleaved integer format")
+    info = np.iinfo(dtype)
+    tdtype = {np.int8: torch.int8, np.int16: torch.int16}[dtype]
+    planes = torch.view_as_real(x.to(torch.complex64)).reshape(-1)
+    out = torch.empty(planes.shape, dtype=tdtype, device=x.device)
+    for i in range(0, len(planes), 2 * chunk):
+        part = torch.round(planes[i:i + 2 * chunk] * float(np.float32(scale)))
+        out[i:i + 2 * chunk] = part.clamp_(info.min, info.max).to(tdtype)
+    return out
+
+
+def write_samples(path: str | Path, x, item_type: str = "gr_complex",
+                  scale: float = 1.0) -> None:
+    """Write complex64 baseband (a NumPy array, or a tensor on any device)
+    to a raw capture file in the given format.  A tensor in an interleaved
+    integer format is quantized on its device and only the integers cross
+    to the host."""
+    dtype, interleaved = _FORMATS[item_type]
+    if isinstance(x, torch.Tensor):
+        if interleaved and dtype != np.complex64:
+            quantize_interleaved(x, item_type, scale).cpu().numpy().tofile(
+                path)
+            return
+        x = x.cpu().numpy()
     x = np.asarray(x)
     if dtype == np.complex64:
         (x.astype(np.complex64) * scale).tofile(path)

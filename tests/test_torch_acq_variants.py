@@ -147,7 +147,8 @@ def test_acquire_dual_matches_jax(e1, variant, source):
 
 
 def test_unported_variant_is_refused():
-    assert VARIANTS == ("pcps", "cccwsr", "8ms")
-    for variant in ("tong", "quicksync", "fine_doppler", "iq_caf"):
+    assert VARIANTS == ("pcps", "cccwsr", "8ms", "quicksync", "tong",
+                        "fine_doppler")
+    for variant in ("iq_caf", "assisted"):
         with pytest.raises(NotImplementedError, match="not ported"):
             AcqConf(variant=variant)

@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from gnss_sim_receiver_tpu.__main__ import main as jax_main
 from gnss_sim_receiver_tpu.models import factory as jfactory
@@ -20,7 +21,8 @@ from gnss_sim_receiver_tpu_torch.__main__ import main, run_cli, unported_key
 from gnss_sim_receiver_tpu_torch.models import factory
 from gnss_sim_receiver_tpu_torch.utils.config import (FileConfiguration,
                                                       InMemoryConfiguration)
-from gnss_sim_receiver_tpu_torch.utils.sample_io import (read_samples,
+from gnss_sim_receiver_tpu_torch.utils.sample_io import (quantize_interleaved,
+                                                         read_samples,
                                                          write_samples)
 from tests.fixtures import static_scenario_capture
 from tests.test_hybrid_position import hybrid_capture  # noqa: F401
@@ -184,7 +186,7 @@ def test_factory_defaults_match_jax():
 
 @pytest.mark.parametrize("line", [
     "Acquisition_1C.implementation=Exotic_Acq",
-    "Acquisition_1C.implementation=GPS_L1_CA_PCPS_Tong_Acquisition",
+    "Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition_Fpga",
     "Acquisition_1C.use_CFAR_algorithm=false",
     "Acquisition_1C.bit_transition_flag=true",
     "Acquisition_1C.pfa=0",
@@ -217,7 +219,7 @@ def test_factory_refuses_unported_keys(tmp_path, line):
 def test_interop_refuses_fields_the_port_lacks():
     from gnss_sim_receiver_tpu.models.acquisition import AcqConf
     from gnss_sim_receiver_tpu.models.receiver import ReceiverConf
-    ref = ReceiverConf(acq=AcqConf(variant="tong"))
+    ref = ReceiverConf(acq=AcqConf(variant="iq_caf"))
     with pytest.raises(NotImplementedError, match="acq.variant"):
         interop.receiver_conf_from_fields(dataclasses.asdict(ref))
 
@@ -275,6 +277,21 @@ def test_sample_io_round_trip(tmp_path):
         got = read_samples(ours, item_type, count=500, offset_items=3)
         want = jio.read_samples(theirs, item_type, count=500, offset_items=3)
         assert got.dtype == np.complex64 and np.array_equal(got, want)
+    # a tensor is quantized by torch (on its device): the same bytes as the
+    # host writers, at halves (rint rounds half to even) and past the
+    # type's range, and chunk by chunk
+    edges = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 127.5, -128.5, 1e6,
+                      -1e6, 32767.5, -32768.5], np.float32)
+    for item_type, scale in (("ishort", 200.0), ("ibyte", 20.0)):
+        e = edges / np.float32(scale)
+        xe = np.concatenate([x, e + 1j * e[::-1]]).astype(np.complex64)
+        ours, theirs = tmp_path / "a.bin", tmp_path / "b.bin"
+        write_samples(ours, torch.from_numpy(xe), item_type, scale=scale)
+        jio.write_samples(theirs, xe, item_type, scale=scale)
+        assert ours.read_bytes() == theirs.read_bytes()
+        q = quantize_interleaved(torch.from_numpy(xe), item_type, scale,
+                                 chunk=100)
+        assert q.numpy().tobytes() == theirs.read_bytes()
 
 
 def _tracked(out: str) -> list:

@@ -82,6 +82,20 @@ te = trk.TrackingEngine(trk.TrackingConf(fs=fs), [7], device="cpu")
 te.start_tracking(0, float(res.doppler_hz[0]), int(res.delay_samples[0]))
 outs = te.process_end(te.process_begin(x, 0, 20, decim=10))
 assert outs["valid_full"].all() and outs["sample_counter"].shape == (2, 1)
+# the device generator (K6's plain version) and the QuickSync, Tong and
+# Fine Doppler engines on its capture
+from gnss_sim_receiver_tpu_torch.sim.device_generator import (
+    generate_baseband_device_resident)
+sat = SatelliteSignalParams(prn=7, cn0_db_hz=50.0, doppler_hz=1500.0,
+                            delay_chips=300.0, nav_bits=np.ones(4, np.int8))
+xd = generate_baseband_device_resident([sat], fs, 24576, seed=3,
+                                       device="cpu")
+for variant in ("quicksync", "tong", "fine_doppler"):
+    eng = PcpsAcquisitionEngine(AcqConf(fs_in=fs, max_dwells=4,
+                                        tong_max_dwells=8, variant=variant),
+                                [7, 8], device="cpu")
+    res = eng.acquire_from(xd, 0)
+    assert list(res.detected) == [True, False], (variant, res)
 # the conf-driven path: CLI module, factory, conditioner and its kernels'
 # plain versions
 from gnss_sim_receiver_tpu_torch import __main__ as cli
