@@ -13,11 +13,13 @@ Phases (any failure exits non-zero, before the result line):
    synthesize the captures of phases 4 and 4c into ``build/`` (outside
    every timed window);
 3. each kernel (K1 and K2 with the GPS and the Galileo E1 tables, K3
-   wipeoff and peak, K3b, K4a in both modes, K4b fold and resolve, K5a, K5b,
-   K5c, K5d in both modes, K6) against its plain PyTorch version on the
-   card at the shape its path launches it at, with the stated tolerance,
-   and its time there beside the plain version's and its bound; other
-   shapes of the same kernels (the ``other_shapes`` line);
+   wipeoff and peak, K3b, K4a in both modes, K4b fold and resolve, K4c with
+   and without its Doppler boxcar, K5a, K5b, K5c, K5d in both modes, K6)
+   against its plain PyTorch version on the card at the shape its path
+   launches it at, with the stated tolerance, and its time there beside
+   the plain version's and its bound; other shapes of the same kernels
+   (the ``other_shapes`` line: among them K1, K2, K3, K3b and K6 at phase
+   7's shapes);
 4. the main path, conf-driven: the repo's 26 s static scenario at 4 Msps
    (synthesized by the port's own simulator, written as an ``ishort``
    file) goes through ``python -m gnss_sim_receiver_tpu_torch
@@ -53,7 +55,18 @@ Phases (any failure exits non-zero, before the result line):
    ``Receiver(ReceiverConf(fs=2e6, prns=1..12, max_channels=12,
    max_acq_channels=12, pvt_rate_ms=500)).process_array(x)`` once: the
    tracked set, the fixes and the mean position error are checked, the
-   real-time factor printed.
+   real-time factor printed;
+7. the wideband path at 20 Msps: a GPS L5 + Galileo E5a scenario (GPS
+   PRNs 1, 3, 4, 5 on L5 with CNAV, Galileo PRNs 11-15 on E5a-I with
+   F/NAV, phase 5's geometry, 48 dB-Hz) made on the card by the device
+   generator (K6) for 60 s (an F/NAV page carries one word every 10 s and
+   words 1-4 repeat every 40 s), written as an ``ibyte`` file, then
+   through the CLI with a GPS L5I + Galileo E5a conf (10 + 10 channels,
+   Galileo_E5a_Noncoherent_IQ_Acquisition_CAF with a 500 Hz CAF window,
+   K4c; two-step PCPS on L5, K3 and K3b; tracking through K1 and K2) to a
+   joint position: the tracked sets, the CNAV and F/NAV ephemerides, the
+   fixes and the mean position error checked, the counters read as in
+   phase 4.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -108,6 +121,14 @@ FULL_OFFSETS = [(0.0, 0.0), (40.0, 15.0), (-35.0, 20.0), (15.0, 55.0),
 FULL_DUR = 120.0
 FULL_PRNS = tuple(range(1, 13))
 K6_CHUNK = 1 << 22             # the device generator's launch (its default)
+# phase 7: the wideband scenario, phase 5's satellites on L5 and E5a, 60 s
+# at 20 Msps (the shortest length at which every F/NAV ephemeris decodes:
+# a channel that locks in its first seconds has words 2, 3, 4 and 1 by
+# 50 s), toe and toc on the CNAV 300 s and F/NAV 60 s grids
+FS_WIDEBAND = 20_000_000.0
+WB_DUR = 60.0
+WB_TOE = T0 + 600.0
+F_L5 = 1_176.45e6
 
 
 def fail(msg: str) -> None:
@@ -671,6 +692,160 @@ def check_k4a(dev, fs: float, variant: str, extra: list):
     return None
 
 
+def check_k4c(dev, extra: list):
+    """K4c on the planes its path gives it: phase 7's first dwells (the
+    device generator's, seed 17), the E5a chain's acquisition conf (M=2
+    dwells, D=41 Doppler bins of 250 Hz, N = 2 ms = 40000 samples: the
+    doubled FFT of bit_transition_flag), C=10 channels (PRNs 11-20, of
+    which 11-15 are present), with the CAF boxcar of phase 7's conf (b=1)
+    and without it (b=0).  The kernel against its plain version on the
+    same planes (statistic to 1e-4 of its scale, cells exact), the whole
+    search against the JAX-form grid (pcps_e5a_noncoherent_iq_grid) and
+    statistic, and the detection decision: the same PRNs above the
+    threshold as the plain version, at least 3 of them, none absent.
+    Returns the row of phase 7's shape (b=1); the b=0 row goes to
+    `extra`."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    _, e5a = wideband_chains()
+    prns = tuple(range(11, 21))
+    eng = PcpsAcquisitionEngine(
+        e5a.acq, prns, code_provider=e5a.code_provider, sc_rate=e5a.sc_rate,
+        code_provider2=e5a.data_code_provider)
+    m, need, n = e5a.acq.max_dwells, eng.n_samples_needed, eng.fft_size
+    x = wideband_dwells(dev, need).reshape(m, n)
+    cfi, cfq = eng.code_fft_conj, eng.code2_fft_conj
+    if n != 2 * eng.n_coherent:
+        fail("K4c: phase 7's E5a search does not double its FFT")
+    corr = pcps.dual_correlations(x, cfi, cfq, eng.dopplers, eng._t,
+                                  "iq_caf")
+    c, d = len(prns), len(eng.dopplers)
+    row = None
+    for b in (0, e5a.acq.caf_bins):
+        label = f"E5a I/Q, b={b}, at {FS_WIDEBAND / 1e6:g} Msps"
+        got = pcps.pcps_caf_peak(corr, m, b)
+        want = pcps._caf_peak_plain(corr, m, b)
+        torch.cuda.synchronize()
+        err = compare(f"K4c pcps_caf_peak ({label}) statistic", got[0],
+                      want[0], 1e-4)
+        compare(f"K4c pcps_caf_peak ({label}) cells", got[1:], want[1:], 0.0)
+        buf = pcps.pcps_search_iq_caf(x, cfi, cfq, eng.dopplers, eng._t, b)
+        stat, di, de = pcps.max_to_input_power_stat(
+            pcps.pcps_e5a_noncoherent_iq_grid(x, cfi, cfq, eng.dopplers,
+                                              FS_WIDEBAND, b), float(2 * m))
+        compare(f"K4c search ({label}) statistic", buf[0], stat, 1e-4)
+        compare(f"K4c search ({label}) Doppler and delay",
+                buf[1:3].to(torch.int64),
+                torch.stack([eng.dopplers[di.long()], de.float()]).to(
+                    torch.int64), 0.0)
+        found = [p for p, v in zip(prns, buf[0].tolist())
+                 if v > eng.threshold]
+        plain = [p for p, v in zip(prns, stat.tolist()) if v > eng.threshold]
+        print(f"  K4c search ({label}): detected PRNs {found}, the plain "
+              f"version {plain} (threshold {eng.threshold:.2f})")
+        if found != plain or not set(found) <= set(HYB_GAL_PRNS) \
+                or len(found) < 3:
+            fail(f"K4c search ({label}) detected {found}, plain {plain}")
+        ms = time_ms(lambda: pcps.pcps_caf_peak(corr, m, b))
+        plain = time_ms(lambda: pcps._caf_peak_plain(corr, m, b), reps=3)
+        # per (dwell, cell): two |.|^2 6, accumulate 2; per cell: the
+        # boxcar's 2b + 1 multiply-adds, compare and sum 2
+        r = _row("K4c_pcps_caf_peak", "triton",
+                 "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+                 "gnss_sim_receiver_tpu/ops/pcps.py:269", err, ms, plain,
+                 corr.numel() * 8 + c * 12,
+                 m * c * d * n * 8 + c * d * n * (2 * (2 * b + 1) + 2),
+                 f"{label}: M={m} dwells, C={c} channels, D={d} Doppler "
+                 f"bins, N={n} samples, the I and Q [M, C, D, N] complex64 "
+                 f"planes ({corr.numel() * 8 / 1e6:.1f} MB)")
+        if b == e5a.acq.caf_bins:
+            row = r
+        else:
+            extra.append(r)
+    del corr
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_wideband_shapes(dev, rng, extra: list) -> None:
+    """K1 and K2 with the 10230-chip E5a-I tables of phase 7's E5a chain,
+    and K3 (both kernels) and K3b at its L5 chain's acquisition shape
+    (M=2, C=10 PRNs 1-10, D=41, N=20000; D2=9), each against its plain
+    version, timed; the rows go to `extra`."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    l5, e5a = wideband_chains()
+    taps = (0.25, 0.0, -0.25)
+    label = f"Galileo E5a-I at {FS_WIDEBAND / 1e6:g} Msps"
+    extra += [check_k1(dev, rng, e5a.trk, 10, 20, taps, 250,
+                       "K1_block_correlate", label),
+              check_k2(dev, rng, e5a.trk, 10, taps, e5a.code_provider,
+                       "K2_multicorrelate", label)]
+    torch.cuda.empty_cache()
+    eng = PcpsAcquisitionEngine(l5.acq, tuple(range(1, 11)),
+                                code_provider=l5.code_provider,
+                                sc_rate=l5.sc_rate)
+    m, n = l5.acq.max_dwells, eng.fft_size
+    x = wideband_dwells(dev, eng.n_samples_needed).reshape(m, n)
+    dops, t, cfc = eng.dopplers, eng._t, eng.code_fft_conj
+    c, d = cfc.shape[0], dops.shape[0]
+    label = f"GPS L5I at {FS_WIDEBAND / 1e6:g} Msps"
+    got = pcps.pcps_wipe(x, dops, t)
+    want = pcps._wipe_plain(x, dops, t)
+    torch.cuda.synchronize()
+    err = compare(f"K3 pcps_wipe ({label})", got, want, 1e-5)
+    extra.append(_row(
+        "K3_pcps_wipe", "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+        "gnss_sim_receiver_tpu/ops/pcps.py:33", err,
+        time_ms(lambda: pcps.pcps_wipe(x, dops, t)),
+        time_ms(lambda: pcps._wipe_plain(x, dops, t)),
+        m * n * 8 + d * 4 + n * 4 + m * d * n * 8, m * d * n * 10,
+        f"{label}: M={m} dwells, D={d} Doppler bins, N={n} samples"))
+    spec = torch.fft.fft(want, dim=-1)
+    del got, want
+    corr = torch.fft.ifft(spec[:, None] * cfc[None, :, None], dim=-1)
+    del spec
+    got = pcps.pcps_peak(corr, m)
+    want = pcps._peak_plain(corr, m)
+    torch.cuda.synchronize()
+    err = compare(f"K3 pcps_peak ({label}) statistic", got[0], want[0],
+                  1e-4)
+    compare(f"K3 pcps_peak ({label}) cells", got[1:], want[1:], 0.0)
+    extra.append(_row(
+        "K3_pcps_peak", "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+        "gnss_sim_receiver_tpu/ops/pcps.py:107", err,
+        time_ms(lambda: pcps.pcps_peak(corr, m)),
+        time_ms(lambda: pcps._peak_plain(corr, m), reps=3),
+        m * c * d * n * 8 + c * 12, m * c * d * n * 3 + c * d * n * 2,
+        f"{label}: M={m} dwells, C={c} channels, D={d} Doppler bins, "
+        f"N={n} samples"))
+    del corr
+    d2 = 2 * l5.acq.num_doppler_bins_step2 + 1
+    dops2 = (dops[torch.arange(c, device=dev) * 4][:, None]
+             + (torch.arange(d2, device=dev) - d2 // 2)[None, :]
+             * float(l5.acq.doppler_step2)).to(torch.float32).contiguous()
+    got = pcps.pcps_wipe(x, dops2, t)
+    want = pcps._wipe_per_channel_plain(x, dops2, t)
+    torch.cuda.synchronize()
+    err = compare(f"K3b pcps_wipe ({label}), [C, D2] table", got, want, 1e-5)
+    extra.append(_row(
+        "K3b_pcps_wipe_per_channel", "triton",
+        "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+        "gnss_sim_receiver_tpu/ops/pcps.py:65", err,
+        time_ms(lambda: pcps.pcps_wipe(x, dops2, t)),
+        time_ms(lambda: pcps._wipe_per_channel_plain(x, dops2, t)),
+        m * n * 8 + c * d2 * 4 + n * 4 + m * c * d2 * n * 8,
+        m * c * d2 * n * 10,
+        f"{label}: M={m} dwells, C={c} channels, D2={d2} Doppler rows "
+        f"each, N={n} samples"))
+    del got, want
+    torch.cuda.empty_cache()
+
+
 def check_k4b(dev, extra: list):
     """K4b (both kernels) at the GPS 2 Msps shape that phase 4d launches:
     M=8 dwells of the static scenario (QUICKSYNC_CONF's max_dwells), D=41
@@ -897,6 +1072,36 @@ PVT.output_rate_ms=20
 """
 
 
+# phase 7: the wideband operating point (BASELINE.json config 4: GPS L5 and
+# Galileo E5a on one 20 Msps RF stream, 10 + 10 channels), the E5a chain on
+# the non-coherent I/Q search with a 500 Hz CAF window (one 250 Hz Doppler
+# bin each side); every PRN unpinned.  Both searches double their FFT
+# (bit_transition_flag): the L5I and E5a-I data signals change sign at every
+# 1 ms code epoch (NH10, CS20), and a 1 ms dwell cut by such an edge puts
+# the Doppler peak up to ~800 Hz off, where the tracking FLL (decision-
+# directed, +-250 Hz at 1 ms) locks 500 Hz off
+WIDEBAND_CONF = """\
+GNSS-SDR.internal_fs_sps={fs}
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={capture}
+SignalSource.item_type=ibyte
+SignalSource.sampling_frequency={fs}
+Channels_L5.count=10
+Channels_5X.count=10
+Channels.in_acquisition=20
+Acquisition_L5.implementation=GPS_L5i_PCPS_Acquisition
+Acquisition_L5.bit_transition_flag=true
+Tracking_L5.implementation=GPS_L5_DLL_PLL_Tracking
+Acquisition_5X.implementation=Galileo_E5a_Noncoherent_IQ_Acquisition_CAF
+Acquisition_5X.CAF_window_hz=500
+Acquisition_5X.bit_transition_flag=true
+Tracking_5X.implementation=Galileo_E5a_DLL_PLL_Tracking
+PVT.implementation=RTKLIB_PVT
+PVT.positioning_mode=Single
+PVT.output_rate_ms=20
+"""
+
+
 # phase 4d: phase 4's conf with QuickSync acquisition.  Folding the 1 ms
 # dwell by 4 folds the noise of four segments into each lag; at the
 # scenario's 47 dB-Hz two dwells leave most satellites under the threshold
@@ -962,6 +1167,83 @@ def synthesize_hybrid(fs: float, n_samples: int) -> np.ndarray:
                              seed=17, bandlimit_oversample=4)
 
 
+def e5a_satellites(ephs, rx_ecef, t0: float, dur: float, cn0: float):
+    """Galileo E5a-I signals for Galileo ephemerides, as the scenario's L5
+    branch builds GPS L5 ones (the scenario builder has no E5a band):
+    the light-time delay fitted by a quadratic over `dur`, Doppler, code
+    Doppler and carrier phase on the 1176.45 MHz carrier, F/NAV pages from
+    `t0` spread by CS20 as per-epoch signs."""
+    from gnss_sim_receiver_tpu_torch.nav import fnav
+    from gnss_sim_receiver_tpu_torch.sim import scenario
+    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
+        SatelliteSignalParams
+    ts = np.array([0.0, dur / 2.0, dur])
+    out = []
+    for eph in ephs:
+        d = np.array([scenario._light_time_delay(eph, rx_ecef, t0 + t)
+                      for t in ts])
+        d0 = d[0]
+        d2 = (d[2] - 2.0 * d[1] + d[0]) / (dur / 2.0) ** 2
+        d1 = (d[2] - d[0]) / dur - d2 * dur / 2.0
+        pages = fnav.pages_for_ephemeris(
+            eph, t0, n_repeats=int(np.ceil((dur + 20.0) / 40.0)))
+        out.append(SatelliteSignalParams(
+            prn=eph.prn, system="Galileo", signal="5X", cn0_db_hz=cn0,
+            doppler_hz=-F_L5 * d1, doppler_rate_hz_s=-F_L5 * d2,
+            delay_sec=d0, delay_chips=0.0,
+            carrier_phase_rad=float(np.mod(-2.0 * np.pi * F_L5 * d0,
+                                           2.0 * np.pi)),
+            code_doppler_hz=-F_L5 * d1, carrier_ref_hz=F_L5,
+            nav_bits=fnav.e5a_epoch_signs(pages, eph.prn)))
+    return out
+
+
+def wideband_sats():
+    """Phase 7's satellites: phase 5's geometry with toe = toc = WB_TOE,
+    GPS PRNs 1, 3, 4, 5 on L5 (CNAV at 50 bps, NH10) and Galileo PRNs 11-15
+    on E5a-I (F/NAV, CS20), 48 dB-Hz."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    base = [dataclasses.replace(e, toe=WB_TOE, toc=WB_TOE)
+            for e in make_sky_constellation(RX_LLH[0], RX_LLH[1],
+                                            toe=WB_TOE)]
+    gps = [e for e in base if e.prn in HYB_GPS_PRNS]
+    gal = [dataclasses.replace(e, system="Galileo", prn=prn, iod_nav=137,
+                               bgd_e1e5a=0.0)
+           for prn, e in zip(HYB_GAL_PRNS, (e for e in base
+                                            if e.prn not in HYB_GPS_PRNS))]
+    sats = build_static_scenario(gps, rx_true_ecef(), T0, WB_DUR,
+                                 cn0_db_hz=48.0, band="L5")
+    sats += e5a_satellites(gal, rx_true_ecef(), T0, WB_DUR, 48.0)
+    if [(s.signal, s.prn) for s in sats] != (
+            [("L5", p) for p in HYB_GPS_PRNS]
+            + [("5X", p) for p in HYB_GAL_PRNS]):
+        fail(f"wideband scenario: {[(s.signal, s.prn) for s in sats]}")
+    return sats
+
+
+def wideband_dwells(dev, n: int):
+    """The first `n` samples of phase 7's scenario on the card, by the
+    device generator (seed 17), for the phase 3 checks."""
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    return generate_baseband_device_resident(wideband_sats(), FS_WIDEBAND, n,
+                                             noise=True, seed=17, device=dev)
+
+
+def wideband_chains(fs: float = FS_WIDEBAND):
+    """The (L5, E5a) chains that the factory builds from phase 7's conf."""
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    props = conf_properties(WIDEBAND_CONF.format(capture="", fs=int(fs)))
+    return receiver_conf_from_config(InMemoryConfiguration(props)).chains
+
+
 def full_chain_sats():
     """bench.py:_bench_full_chain's scenario (bench.py:128-155): 12
     satellites for a 12-channel receiver, 47 dB-Hz, LNAV subframes 1-3,
@@ -984,7 +1266,9 @@ def capture_paths(root: str) -> dict:
     return {"file": os.path.join(build, "static_scenario_26s_4msps_v1.ishort"),
             "direct": os.path.join(build, "static_scenario_8s_2msps_v1.npy"),
             "hybrid": os.path.join(build,
-                                   "hybrid_scenario_26s_20msps_v1.ibyte")}
+                                   "hybrid_scenario_26s_20msps_v1.ibyte"),
+            "wideband": os.path.join(build,
+                                     "wideband_scenario_60s_20msps_v1.ibyte")}
 
 
 SYNTHESIZED = ("file", "direct")        # by the child processes
@@ -1581,6 +1865,108 @@ def full_chain(wrappers, card: str) -> dict:
     return launches
 
 
+WIDEBAND_KERNELS = ("K1_block_correlate", "K2_multicorrelate",
+                    "K3_pcps_wipe", "K3_pcps_peak",
+                    "K3b_pcps_wipe_per_channel", "K4c_pcps_caf_peak")
+
+
+def make_wideband_capture(root: str, wrappers) -> dict:
+    """Phase 7's capture: the 60 s wideband scenario at 20 Msps (1.2 G
+    samples, 9.6 GB on the card) made by the device generator (K6, seed 17
+    for the noise), quantized there and written as an ibyte file (2.4 GB),
+    outside every timed window.  Returns K6's launches."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    path = capture_paths(root)["wideband"]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    n = int(FS_WIDEBAND * WB_DUR)
+    sats = wideband_sats()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = generate_baseband_device_resident(sats, FS_WIDEBAND, n, noise=True,
+                                          seed=17)
+    torch.cuda.synchronize()
+    gen = time.perf_counter() - t0
+    launches = read_launches(wrappers, ("K6_device_generator",))
+    t0 = time.perf_counter()
+    tmp = path + f".{os.getpid()}.tmp"
+    write_samples(tmp, x, "ibyte", scale=HYB_BYTE_SCALE)
+    os.replace(tmp, path)
+    wrote = time.perf_counter() - t0
+    print(f"  K6 made {n / 1e6:.0f} M samples ({len(sats)} satellites, "
+          f"{8 * n / 1e9:.2f} GB on the card) in {gen:.3f} s; quantized on "
+          f"the card and written as ibyte ({os.path.getsize(path) / 1e9:.2f} "
+          f"GB) in {wrote:.3f} s (not timed)")
+    del x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_wideband_run(run) -> None:
+    """Phase 7's checks: the tracked set of each system, 4 CNAV and 5 F/NAV
+    ephemerides, >= 5 fixes with the last on >= 7 satellites, and the mean
+    position error (2D < 2 m, 3D < 5 m, the thresholds of phase 5)."""
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    tracked = {"GPS": [], "Galileo": []}
+    for p, st, sy in zip(run.channel_prns, run.channel_states,
+                         run.channel_systems):
+        if st == ChannelState.TRACKING:
+            tracked[sy].append(p)
+    gps_eph = sorted(k for k in run.ephemerides if isinstance(k, int))
+    gal_eph = sorted(k[1] for k in run.ephemerides if isinstance(k, tuple))
+    n_last = run.solutions[-1].n_sats if run.solutions else 0
+    print(f"  tracked GPS L5 {sorted(tracked['GPS'])}, Galileo E5a "
+          f"{sorted(tracked['Galileo'])}; CNAV ephemerides {gps_eph}, F/NAV "
+          f"ephemerides {gal_eph}; {len(run.solutions)} fixes, the last with "
+          f"{n_last} satellites")
+    if sorted(tracked["GPS"]) != list(HYB_GPS_PRNS) \
+            or sorted(tracked["Galileo"]) != list(HYB_GAL_PRNS):
+        fail(f"tracked {tracked}")
+    if gps_eph != list(HYB_GPS_PRNS) or gal_eph != list(HYB_GAL_PRNS):
+        fail(f"ephemerides GPS {gps_eph}, Galileo {gal_eph}")
+    if len(run.solutions) < 5 or n_last < 7:
+        fail(f"{len(run.solutions)} fixes, the last with {n_last} "
+             "satellites")
+    err_2d, err_3d = mean_error(run)
+    print(f"  mean error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
+    if not (err_2d < 2.0 and err_3d < 5.0):
+        fail(f"position error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
+
+
+def wideband_path(root: str, wrappers, card: str) -> dict:
+    """Phase 7: the wideband conf (GPS L5I + Galileo E5a, 10 + 10
+    channels, the E5a I/Q search with its CAF boxcar) at 20 Msps -> the
+    60 s ibyte capture -> receiver -> a joint position, through the port's
+    CLI called in process."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    capture = capture_paths(root)["wideband"]
+    conf = os.path.join(root, "build", "chip_smoke_wideband.conf")
+    with open(conf, "w") as fh:
+        fh.write(WIDEBAND_CONF.format(capture=capture, fs=int(FS_WIDEBAND)))
+    print(f"  capture: {os.path.getsize(capture) / 1e6:.0f} MB ibyte at "
+          f"{FS_WIDEBAND / 1e6:.0f} Msps; conf: {conf}")
+    reset(wrappers)
+    torch.cuda.synchronize()
+    res = run_cli([f"--config_file={conf}"])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, WIDEBAND_KERNELS)
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    check_wideband_run(res.run)
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}")
+    print(f"  wall {wall:.3f} s from file open to the last fix for "
+          f"{WB_DUR:.0f} s of signal: real-time factor {WB_DUR / wall:.3f} "
+          f"({card})")
+    return launches
+
+
 def profile_path(run) -> None:
     """`--profile`: `run()` (one run of a path, returning a line to print)
     twice more, plain and under torch.profiler: wall time, device busy
@@ -1647,7 +2033,7 @@ def main() -> int:
 
 
 def run_phases(root: str, card: str, procs: dict) -> int:
-    """Phases 2 to 6 and the result lines; `procs` are the synthesis
+    """Phases 2 to 7 and the result lines; `procs` are the synthesis
     children (none with --kernels-only)."""
     import torch
     from gnss_sim_receiver_tpu_torch import signals
@@ -1709,6 +2095,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
             if row is not None:
                 rows.append(row)
     rows += check_k4b(dev, extra)
+    rows.append(check_k4c(dev, extra))
+    check_wideband_shapes(dev, rng, extra)
     rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
              *check_k5d(dev, rng)]
     torch.cuda.empty_cache()
@@ -1716,6 +2104,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                          f"hybrid at {FS_REF_HYBRID / 1e6:g} Msps"))
     extra.append(check_k6(dev, FS, full_chain_sats(), FULL_DUR, 3,
                           f"full chain at {FS / 1e6:g} Msps"))
+    extra.append(check_k6(dev, FS_WIDEBAND, wideband_sats(), WB_DUR, 17,
+                          f"wideband at {FS_WIDEBAND / 1e6:g} Msps"))
     torch.cuda.empty_cache()
     print(f"  phase 3 took {time.perf_counter() - t0:.1f} s (includes the "
           "Triton compiles)", flush=True)
@@ -1734,6 +2124,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         "K4a_pcps_dual_peak": (pcps.pcps_dual_peak, "launches"),
         "K4b_quicksync_fold": (pcps.pcps_quicksync_fold, "launches"),
         "K4b_quicksync_resolve": (pcps.pcps_quicksync_resolve, "launches"),
+        "K4c_pcps_caf_peak": (pcps.pcps_caf_peak, "launches"),
         "K5a_fir_decim": (filters.fir_decim, "launches"),
         "K5b_notch_filter": (filters.notch_filter, "launches"),
         "K5c_pulse_blanking": (filters.pulse_blanking, "launches"),
@@ -1781,8 +2172,16 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         print("== witness: phase 5's position error by rate, chips, "
               "quantization and noise", flush=True)
         hybrid_witness()
-    # K6's launches: phase 5's capture and phase 6's
-    launches["K6_device_generator"] = k6 + full["K6_device_generator"]
+    print("== phase 7: the wideband path at 20 Msps (device generator -> "
+          "ibyte file -> GPS L5 + Galileo E5a conf -> receiver -> joint "
+          "position)", flush=True)
+    k6_wb = make_wideband_capture(root, wrappers)["K6_device_generator"]
+    wide = wideband_path(root, wrappers, card)
+    os.remove(capture_paths(root)["wideband"])
+    launches["K4c_pcps_caf_peak"] = wide["K4c_pcps_caf_peak"]
+    # K6's launches: the captures of phases 5, 6 and 7
+    launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
+                                       + k6_wb)
     for r in rows:
         r["launches"] = launches[r["name"]]
 

@@ -2,7 +2,8 @@
 
 Mirrors the per-system constant headers of the reference
 (``src/core/system_parameters/GPS_L1_CA.h`` etc.) with only the values the
-GPS L1 C/A and Galileo E1 chains of the PyTorch port need.  All values are
+GPS L1 C/A, GPS L5, Galileo E1 and Galileo E5a chains of the PyTorch port
+need.  All values are
 public ICD constants.
 """
 
@@ -25,11 +26,22 @@ GPS_L1_CA_CODES_PER_BIT = 20
 GPS_L1_CA_PREAMBLE_BITS = (1, 0, 0, 0, 1, 0, 1, 1)
 GPS_L1_CA_OPT_ACQ_FS_SPS = 2_000_000  # GPS_L1_CA.h:53 acquisition-optimal fs
 
+# --- GPS L5 (reference: src/core/system_parameters/GPS_L5.h) ---------------
+GPS_L5_FREQ_HZ = 1_176.45e6
+GPS_L5_CODE_RATE_CPS = 10.23e6
+GPS_L5_CODE_LENGTH_CHIPS = 10230
+GPS_L5I_NH_CODE = (0, 0, 0, 0, 1, 1, 0, 1, 0, 1)       # 10-bit Neuman-Hofman
+
 # --- Galileo E1 (reference: src/core/system_parameters/Galileo_E1.h) --------
 GALILEO_E1_FREQ_HZ = 1_575.42e6
 GALILEO_E1_CODE_RATE_CPS = 1.023e6
 GALILEO_E1_B_CODE_LENGTH_CHIPS = 4092
 GALILEO_E1_CODE_PERIOD_S = 4e-3
+
+# --- Galileo E5a (reference: src/core/system_parameters/Galileo_E5a.h) ------
+GALILEO_E5A_FREQ_HZ = 1_176.45e6
+GALILEO_E5A_CODE_RATE_CPS = 10.23e6
+GALILEO_E5A_CODE_LENGTH_CHIPS = 10230
 
 # --- GPS time ---------------------------------------------------------------
 GPS_WEEK_SECONDS = 604_800

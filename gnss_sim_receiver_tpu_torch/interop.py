@@ -136,8 +136,7 @@ _SUPPORTED = {(AcqConf, "variant"): VARIANTS}
 # fields of the JAX package's confs that the port lacks, with the one value
 # (the default) under which the port computes the same thing
 _ABSENT = {
-    AcqConf: dict(threshold=0.0, use_cfar_algorithm=True,
-                  bit_transition_flag=False, caf_bins=0),
+    AcqConf: dict(threshold=0.0, use_cfar_algorithm=True),
     TrackingConf: dict(pll_filter_order=3, dll_filter_order=2,
                        lock_rectify=False,
                        tracking_mode="dll_pll", bayes_forgetting=0.995,
@@ -152,7 +151,7 @@ _ABSENT = {
                   raim_fde=False, raim_threshold_m=30.0,
                   raim_max_exclusions=2),
     SignalChainConf: dict(rf_channel_id=0, acq_decim=1, freq_slot=0,
-                          day_base_s=0.0, assist_wait=False),
+                          day_base_s=0.0),
     ReceiverConf: dict(enable_pvt_kf=False, enable_pvt_ekf=False,
                        pvt_ekf=None, rf_fs={}, hybrid_mode=False,
                        pre_2009_file=False, ps_channel=-1,
@@ -177,13 +176,17 @@ def _nested(fields: dict, where: str) -> dict:
 def _chain_from_fields(fields: dict, where: str) -> SignalChainConf:
     """A signal chain from its fields.  The code providers (functions of the
     other package) become the port's own for the chain's signal: the data
-    code, and the E1-C pilot as the second replica family."""
+    code, and the pilot (E1-C, E5a-Q) as the second replica family."""
     fields = _nested(fields, where)
     sig = fields["signal"]
     if fields.get("code_provider") is not None:
         fields["code_provider"] = signals.CodeProvider(sig)
     if fields.get("data_code_provider") is not None:
-        fields["data_code_provider"] = signals.CodeProvider(sig, "C")
+        if sig not in signals.PILOT_COMPONENT:
+            raise NotImplementedError(
+                f"{where}.data_code_provider of signal {sig} is not ported")
+        fields["data_code_provider"] = signals.CodeProvider(
+            sig, signals.PILOT_COMPONENT[sig])
     return _conf_from_fields(SignalChainConf, fields, where)
 
 

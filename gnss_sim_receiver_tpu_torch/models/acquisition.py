@@ -1,7 +1,8 @@
 """Batched PCPS acquisition engine, PyTorch port of
 ``gnss_sim_receiver_tpu.models.acquisition``: the ``pcps`` variant with the
-CFAR statistic (GPS L1 C/A, Galileo E1), the Galileo E1 sign-recovery
-variants ``cccwsr`` and ``8ms``, and the GPS L1 C/A variants
+CFAR statistic (GPS L1 C/A, GPS L5, Galileo E1, Galileo E5a), the Galileo
+E1 sign-recovery variants ``cccwsr`` and ``8ms``, the Galileo E5a
+non-coherent I/Q variant ``iq_caf`` and the GPS L1 C/A variants
 ``quicksync``, ``tong`` and ``fine_doppler``.
 
 Given a window of samples, every searching channel's (Doppler x code delay)
@@ -14,6 +15,10 @@ host per acquisition:
 - ``cccwsr`` / ``8ms``: two correlation planes per cell combined under both
   sign hypotheses by kernel K4a, through :func:`ops.pcps.pcps_search_dual`
   (acquisition.py:_acquire_dual: one grid, no second step);
+- ``iq_caf``: the E5a-I and E5a-Q correlations of every cell summed
+  non-coherently and smoothed along Doppler by the CAF boxcar, kernel K4c,
+  through :func:`ops.pcps.pcps_search_iq_caf` (the same `_acquire_dual`
+  branch: one grid, no second step);
 - ``quicksync``: the dwell folded by `quicksync_fold` before the FFT and
   the fold ambiguity resolved on the card (kernel K4b,
   :func:`ops.pcps.pcps_search_quicksync`);
@@ -36,7 +41,8 @@ from gnss_sim_receiver_tpu_torch import constants
 from gnss_sim_receiver_tpu_torch.device import resolve_device, upload
 from gnss_sim_receiver_tpu_torch.ops import pcps, prn_codes
 
-VARIANTS = ("pcps", "cccwsr", "8ms", "quicksync", "tong", "fine_doppler")
+VARIANTS = ("pcps", "cccwsr", "8ms", "iq_caf", "quicksync", "tong",
+            "fine_doppler")
 
 
 @dataclasses.dataclass
@@ -46,9 +52,11 @@ class AcqConf:
     engine variant ("pcps"; "cccwsr": coherent data + pilot combining with
     sign recovery, pcps_cccwsr_acquisition_cc; "8ms": two code periods per
     dwell under both symbol signs, galileo_pcps_8ms_acquisition_cc;
-    "quicksync": folded FFT, pcps_quicksync_acquisition_cc; "tong": the
-    Tong sequential detector, pcps_tong_acquisition_cc; "fine_doppler":
-    iterative Doppler zoom, pcps_acquisition_fine_doppler_cc)."""
+    "iq_caf": E5a non-coherent I/Q with CAF Doppler smoothing,
+    galileo_e5a_noncoherent_iq_acquisition_caf_cc; "quicksync": folded
+    FFT, pcps_quicksync_acquisition_cc; "tong": the Tong sequential
+    detector, pcps_tong_acquisition_cc; "fine_doppler": iterative Doppler
+    zoom, pcps_acquisition_fine_doppler_cc)."""
     fs_in: float = 2_000_000.0
     doppler_max: float = 5000.0
     doppler_step: float = 250.0
@@ -60,6 +68,13 @@ class AcqConf:
     doppler_step2: float = 125.0
     num_doppler_bins_step2: int = 4
     variant: str = "pcps"
+    caf_bins: int = 0                # iq_caf: Doppler boxcar half-width
+    # double the FFT so one full clean code period always exists even when
+    # a symbol edge falls inside the dwell (pcps_acquisition.cc:607,656):
+    # ported for the pcps and iq_caf variants (the GPS L5I and Galileo
+    # E5a-I data signals change sign at every 1 ms code epoch, NH10 and
+    # CS20)
+    bit_transition_flag: bool = False
     fine_doppler_iters: int = 3      # zoom iterations (step /4 each)
     quicksync_fold: int = 4          # QuickSync folding factor
     tong_init: int = 1               # Tong counter init (tong_init_val)
@@ -70,6 +85,11 @@ class AcqConf:
         if self.variant not in VARIANTS:
             raise NotImplementedError(
                 f"acquisition variant {self.variant!r} is not ported")
+        if self.bit_transition_flag and self.variant not in ("pcps",
+                                                             "iq_caf"):
+            raise NotImplementedError(
+                f"bit_transition_flag with the {self.variant} variant is not "
+                "ported")
 
 
 @dataclasses.dataclass
@@ -111,10 +131,11 @@ def code_replicas(conf: AcqConf, prns, code_provider=None,
 
 class PcpsAcquisitionEngine:
     """Batched PCPS acquisition over a fixed PRN set.  Signal-agnostic: pass
-    code_provider(prn) -> +-1 sub-chip table and sc_rate for Galileo E1
-    (defaults: GPS L1 C/A); `code_provider2` is the second replica family of
-    the cccwsr variant.  `device=None` means the CUDA card and raises
-    without one; pass device="cpu" for the plain versions of the kernels."""
+    code_provider(prn) -> +-1 sub-chip table and sc_rate for the other
+    signals (defaults: GPS L1 C/A); `code_provider2` is the second replica
+    family of the cccwsr (E1-C pilot) and iq_caf (E5a-Q) variants.
+    `device=None` means the CUDA card and raises without one; pass
+    device="cpu" for the plain versions of the kernels."""
 
     def __init__(self, conf: AcqConf, prns, code_provider=None,
                  sc_rate: float | None = None, code_provider2=None,
@@ -123,20 +144,27 @@ class PcpsAcquisitionEngine:
         self.device = resolve_device(device)
         self.prns = [int(p) for p in prns]
         fs = conf.fs_in
-        self.fft_size = int(round(fs * 1e-3 * conf.sampled_ms))
+        self.n_coherent = int(round(fs * 1e-3 * conf.sampled_ms))
+        # bit-transition mode: one code period + zero padding, so each lag
+        # correlates N samples out of the 2N buffer
+        self.fft_size = (2 * self.n_coherent if conf.bit_transition_flag
+                         else self.n_coherent)
         codes = sampled_codes(conf, self.prns, code_provider, sc_rate)
-        self.code_fft_conj = upload(replica_fft(codes), self.device)
+        self.code_fft_conj = upload(replica_fft(self._padded(codes)),
+                                    self.device)
         if conf.variant == "quicksync":
             # the time-domain codes (the resolve) and the folded replica
             self.codes_time = upload(codes, self.device)
             self.code_fold_fft_conj = upload(
                 pcps.fold_codes(codes, int(conf.quicksync_fold)),
                 self.device)
-        # the second replica family (cccwsr: data + pilot)
+        # the second replica family (cccwsr: data + pilot; iq_caf: E5a-I +
+        # E5a-Q)
         self.code2_fft_conj = None
-        if code_provider2 is not None and conf.variant == "cccwsr":
-            self.code2_fft_conj = upload(
-                code_replicas(conf, self.prns, code_provider2, sc_rate),
+        if code_provider2 is not None and conf.variant in ("cccwsr",
+                                                           "iq_caf"):
+            self.code2_fft_conj = upload(replica_fft(self._padded(
+                sampled_codes(conf, self.prns, code_provider2, sc_rate))),
                 self.device)
         self.dopplers = upload(pcps.doppler_grid(conf.doppler_max,
                                                  conf.doppler_step,
@@ -150,6 +178,11 @@ class PcpsAcquisitionEngine:
             self.threshold = pcps.cfar_threshold(
                 conf.pfa, (self.fft_size // int(conf.quicksync_fold))
                 * len(self.dopplers), conf.max_dwells)
+        elif conf.variant == "iq_caf":
+            # every cell sums TWO correlations per dwell (the I and Q
+            # planes); no sign hypotheses, so the Pfa is not split
+            self.threshold = pcps.cfar_threshold(conf.pfa, n_cells,
+                                                 2 * conf.max_dwells)
         elif conf.variant not in ("cccwsr", "8ms"):
             self.threshold = pcps.cfar_threshold(conf.pfa, n_cells,
                                                  conf.max_dwells)
@@ -159,6 +192,12 @@ class PcpsAcquisitionEngine:
             # per-cell Pfa is union-bounded at pfa/2 (acquisition.py:368-377)
             self.threshold = pcps.cfar_threshold(conf.pfa / 2.0, n_cells,
                                                  2 * conf.max_dwells)
+
+    def _padded(self, codes: np.ndarray) -> np.ndarray:
+        """The sampled codes, zero-padded to the FFT size."""
+        if self.fft_size == codes.shape[1]:
+            return codes
+        return np.concatenate([codes, np.zeros_like(codes)], axis=-1)
 
     @property
     def n_samples_needed(self) -> int:
@@ -209,8 +248,10 @@ class PcpsAcquisitionEngine:
             n_side=int(conf.num_doppler_bins_step2),
             step2=float(conf.doppler_step2)).cpu().numpy()
         stat = np.maximum(buf[0], buf[3]).astype(np.float64)
-        return self._results(stat, buf[2].astype(np.float64), buf[1],
-                             samplestamp)
+        delay = buf[2].astype(np.float64)
+        if conf.bit_transition_flag:
+            delay = np.mod(delay, self.n_coherent)   # the peak repeats at +N
+        return self._results(stat, delay, buf[1], samplestamp)
 
     def _window(self, x, start: int, need: int) -> torch.Tensor:
         """The capture's samples [start, start + need) on the engine's
@@ -241,17 +282,24 @@ class PcpsAcquisitionEngine:
                 self._t, conf.doppler_step / 2.0,
                 int(conf.fine_doppler_iters))
         else:
-            buf = pcps.pcps_search_dual(
-                seg.reshape(m, -1), self.code_fft_conj,
-                self.code2_fft_conj if self.code2_fft_conj is not None
-                else self.code_fft_conj, self.dopplers, self._t, conf.variant)
+            code2 = (self.code2_fft_conj if self.code2_fft_conj is not None
+                     else self.code_fft_conj)
+            if conf.variant == "iq_caf":
+                buf = pcps.pcps_search_iq_caf(
+                    seg.reshape(m, n), self.code_fft_conj, code2,
+                    self.dopplers, self._t, int(conf.caf_bins))
+            else:
+                buf = pcps.pcps_search_dual(
+                    seg.reshape(m, -1), self.code_fft_conj, code2,
+                    self.dopplers, self._t, conf.variant)
         buf = buf.cpu().numpy()
         # the fine Doppler zoom's last statistic joins the detection (the
         # CFAR statistic on both sides); the others leave stat2 at 0
         stat = np.maximum(buf[0], buf[3]).astype(np.float64)
         delay = buf[2].astype(np.float64)
-        if conf.variant == "8ms":
-            delay = np.mod(delay, n)
+        if conf.variant == "8ms" or conf.bit_transition_flag:
+            # the peak repeats one code period later
+            delay = np.mod(delay, self.n_coherent)
         return self._results(stat, delay, buf[1], start)
 
     def _tong(self, x_dwells: torch.Tensor, start: int) -> AcqResults:

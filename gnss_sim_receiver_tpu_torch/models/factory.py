@@ -1,12 +1,13 @@
 """Block factory: reference configuration strings -> engine configuration.
 
 PyTorch port of ``gnss_sim_receiver_tpu.models.factory`` for the GPS L1 C/A
-("1C") and Galileo E1-B ("1B") chains (reference GNSSBlockFactory,
+("1C"), Galileo E1-B ("1B"), GPS L5I ("L5") and Galileo E5a-I ("5X") chains
+(reference GNSSBlockFactory,
 src/core/receiver/gnss_block_factory.cc:639-1335): maps the
 `Role.implementation` strings and per-role keys of a GNSS-SDR conf file onto
 the port's engine confs.
 
-The port carries these two chains and a subset of their options.  A conf
+The port carries these four chains and a subset of their options.  A conf
 key that selects something the port lacks is never read and dropped: it
 raises NotImplementedError naming the key, with the words "not ported".
 """
@@ -21,9 +22,9 @@ from gnss_sim_receiver_tpu_torch import signals
 from gnss_sim_receiver_tpu_torch.models.acquisition import AcqConf
 from gnss_sim_receiver_tpu_torch.models.observables import ObsConf
 from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf
-from gnss_sim_receiver_tpu_torch.models.receiver import (Receiver,
-                                                         ReceiverConf,
-                                                         galileo_e1b_chain)
+from gnss_sim_receiver_tpu_torch.models.receiver import (
+    Receiver, ReceiverConf, galileo_e1b_chain, galileo_e5a_chain,
+    gps_l5_chain)
 from gnss_sim_receiver_tpu_torch.models.tracking import TrackingConf
 from gnss_sim_receiver_tpu_torch.utils.config import Configuration
 
@@ -37,16 +38,26 @@ _ACQ_IMPLS = {
     "1B": {"Galileo_E1_PCPS_Ambiguous_Acquisition": "pcps",
            "Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition": "cccwsr",
            "Galileo_E1_PCPS_8ms_Ambiguous_Acquisition": "8ms"},
+    "L5": {"GPS_L5i_PCPS_Acquisition": "pcps"},
+    "5X": {"Galileo_E5a_Pcps_Acquisition": "pcps",
+           "Galileo_E5a_Noncoherent_IQ_Acquisition_CAF": "iq_caf"},
 }
 _TRK_IMPLS = {
-    "1C": "GPS_L1_CA_DLL_PLL_Tracking",
-    "1B": "Galileo_E1_DLL_PLL_VEML_Tracking",
+    "1C": ("GPS_L1_CA_DLL_PLL_Tracking",),
+    "1B": ("Galileo_E1_DLL_PLL_VEML_Tracking",),
+    "L5": ("GPS_L5_DLL_PLL_Tracking", "GPS_L5i_DLL_PLL_Tracking"),
+    "5X": ("Galileo_E5a_DLL_PLL_Tracking",),
 }
 _DEFAULT_ACQ = {"1C": "GPS_L1_CA_PCPS_Acquisition",
-                "1B": "Galileo_E1_PCPS_Ambiguous_Acquisition"}
+                "1B": "Galileo_E1_PCPS_Ambiguous_Acquisition",
+                "L5": "GPS_L5i_PCPS_Acquisition",
+                "5X": "Galileo_E5a_Pcps_Acquisition"}
+# the ported chains beyond GPS L1 C/A, in the JAX factory's order
+# (ALL_SIGNALS, factory.py:118), and their builders
+_CHAIN_BUILDERS = {"1B": galileo_e1b_chain, "L5": gps_l5_chain,
+                   "5X": galileo_e5a_chain}
 # the signal groups of the JAX factory whose chains the port lacks
-_OTHER_SIGNALS = ("2S", "L5", "5X", "7X", "E6", "1G", "2G", "B1", "B3",
-                  "S1")
+_OTHER_SIGNALS = ("2S", "7X", "E6", "1G", "2G", "B1", "B3", "S1")
 _PVT_MODES = ("Single", "Static")
 
 
@@ -101,10 +112,20 @@ def _acq_from_config(config: Configuration, sig: str,
     variant = _variant(config, sig)
     p = f"Acquisition_{sig}."
     _refuse_unless(config, p + "use_CFAR_algorithm", True)
-    _refuse_unless(config, p + "bit_transition_flag", False)
+    bit_transition = config.property(p + "bit_transition_flag",
+                                     base.bit_transition_flag)
+    if bit_transition and variant not in ("pcps", "iq_caf"):
+        raise _not_ported(p + "bit_transition_flag", bit_transition,
+                          f"the doubled FFT of the {variant} search")
     pfa = config.property(p + "pfa", base.pfa)
     if pfa <= 0:
         raise _not_ported(p + "pfa", pfa, "a fixed threshold (pfa <= 0)")
+    # E5a CAF Doppler smoothing window (total Hz -> boxcar half-width in
+    # bins; galileo_e5a_noncoherent_iq_acquisition_caf_cc CAF_window_hz,
+    # the JAX factory's factory.py:183-187)
+    caf_hz = float(config.property(p + "CAF_window_hz", 0.0))
+    dstep = float(config.property(p + "doppler_step", base.doppler_step))
+    caf_bins = int(caf_hz / (2.0 * dstep)) if caf_hz > 0 else 0
     return dataclasses.replace(
         base,
         doppler_max=float(config.property(p + "doppler_max",
@@ -123,6 +144,8 @@ def _acq_from_config(config: Configuration, sig: str,
         num_doppler_bins_step2=config.property(
             p + "second_nbins", base.num_doppler_bins_step2),
         variant=variant,
+        caf_bins=caf_bins,
+        bit_transition_flag=bit_transition,
         # the variants' own keys, read with the JAX factory's defaults
         # (factory.py:212-215)
         tong_init=config.property(p + "tong_init_val", 1),
@@ -137,7 +160,9 @@ def _trk_from_config(config: Configuration, sig: str,
     """Tracking_<sig>.* keys -> TrackingConf (the reference adapters'
     Dll_Pll_Conf fill, dll_pll_conf.h:42-80)."""
     p = f"Tracking_{sig}."
-    _refuse_unless(config, p + "implementation", _TRK_IMPLS[sig])
+    impl = config.property(p + "implementation", _TRK_IMPLS[sig][0])
+    if impl not in _TRK_IMPLS[sig]:
+        raise _not_ported(p + "implementation", impl)
     _refuse_unless(config, p + "order", 3)
     _refuse_unless(config, p + "extend_correlation_symbols", 1)
     # spacing keys are in chips; the sub-chip engines of E1 (BOC) scale x2
@@ -200,39 +225,47 @@ def pvt_conf_from_config(config: Configuration) -> PvtConf:
 
 
 def chains_from_config(config: Configuration) -> list:
-    """The chains beyond GPS L1 C/A that Channels_<sig>.count configures:
-    the Galileo E1-B data chain ("1B"); every other signal is refused."""
+    """The chains beyond GPS L1 C/A that Channels_<sig>.count configures,
+    in the JAX factory's order: the Galileo E1-B data chain ("1B"), GPS L5I
+    ("L5") and Galileo E5a-I ("5X"), each on the one RF stream; every other
+    signal is refused."""
     fs = float(config.property("GNSS-SDR.internal_fs_sps", 2_000_000))
     for sig in _OTHER_SIGNALS:
         key = f"Channels_{sig}.count"
         n = config.property(key, 0)
         if n > 0:
             raise _not_ported(key, n, f"the {sig} signal chain")
-    n = config.property("Channels_1B.count", 0)
-    if n <= 0:
-        return []
-    # one RF stream: the multi-band front end is not ported
-    _refuse_unless(config, "Channels_1B.RF_channel_ID", 0)
-    chain = galileo_e1b_chain(fs, n_channels=n)
     in_acq = config.property("Channels.in_acquisition", 0)
-    if in_acq:
-        chain.max_acq_channels = min(in_acq, n)
-    chain.acq = _acq_from_config(config, "1B", chain.acq)
-    chain.trk = _trk_from_config(config, "1B", chain.trk)
-    if chain.acq.variant == "cccwsr":
-        # data-only E1 chain: CCCWSR still needs the second (pilot E1-C)
-        # replica family; the combining grid is symmetric in data/pilot so
-        # the slot order is free (the JAX factory, factory.py:331-338)
-        chain.data_code_provider = signals.CodeProvider("1B", "C")
-    chain.pinned = _pinned_channels(config,
-                                    config.property("Channels_1C.count", 0),
-                                    n)
-    return [chain]
+    chains = []
+    offset = config.property("Channels_1C.count", 0)
+    for sig, builder in _CHAIN_BUILDERS.items():
+        n = config.property(f"Channels_{sig}.count", 0)
+        if n <= 0:
+            continue
+        # one RF stream: the multi-band front end is not ported
+        _refuse_unless(config, f"Channels_{sig}.RF_channel_ID", 0)
+        chain = builder(fs, n_channels=n)
+        if in_acq:
+            chain.max_acq_channels = min(in_acq, n)
+        chain.acq = _acq_from_config(config, sig, chain.acq)
+        chain.trk = _trk_from_config(config, sig, chain.trk)
+        if chain.acq.variant in ("cccwsr", "iq_caf"):
+            # the second replica family: the E1-C pilot for CCCWSR on the
+            # data-only E1 chain (the combining grid is symmetric in
+            # data/pilot, so the slot order is free), E5a-Q for the I/Q
+            # search (the JAX factory, factory.py:331-345)
+            chain.data_code_provider = signals.CodeProvider(
+                sig, signals.PILOT_COMPONENT[sig])
+        chain.pinned = _pinned_channels(config, offset, n)
+        offset += n
+        chains.append(chain)
+    return chains
 
 
 def receiver_conf_from_config(config: Configuration) -> ReceiverConf:
     """Build the receiver configuration from reference-style keys for the
-    GPS L1 C/A chain and the Galileo E1-B chain."""
+    GPS L1 C/A chain and the Galileo E1-B, GPS L5I and Galileo E5a-I
+    chains."""
     fs = float(config.property("GNSS-SDR.internal_fs_sps", 2_000_000))
     chains = chains_from_config(config)
     _refuse_unless(config, "GNSS-SDR.use_acquisition_resampler", False)

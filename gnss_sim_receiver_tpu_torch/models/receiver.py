@@ -1,6 +1,7 @@
 """Receiver orchestration, PyTorch port of
-``gnss_sim_receiver_tpu.models.receiver`` for the GPS L1 C/A ("1C") and
-Galileo E1-B ("1B") signal chains and the batch entry point.
+``gnss_sim_receiver_tpu.models.receiver`` for the GPS L1 C/A ("1C"),
+Galileo E1-B ("1B"), GPS L5I ("L5") and Galileo E5a-I ("5X") signal chains
+and the batch entry point.
 
 The receiver runs one *signal chain* per configured signal over the same
 sample stream — the reference's per-signal channel groups
@@ -40,7 +41,8 @@ from gnss_sim_receiver_tpu_torch.models.observables import (
     ObsConf, ObservablesEngine)
 from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf, solve_pvt
 from gnss_sim_receiver_tpu_torch.models.telemetry import (
-    GalileoE1bTelemetryDecoder, TelemetryDecoder)
+    GalileoE1bTelemetryDecoder, GalileoE5aTelemetryDecoder,
+    GpsCnavTelemetryDecoder, TelemetryDecoder)
 from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
                                                          TrackingEngine)
 from gnss_sim_receiver_tpu_torch.nav.ephemeris import adj_gps_week
@@ -50,7 +52,7 @@ from gnss_sim_receiver_tpu_torch.nav.ephemeris import adj_gps_week
 class SignalChainConf:
     """One per-signal channel group (the reference's Channels_<sig> block +
     its Acquisition_<sig>/Tracking_<sig> engine parameters)."""
-    signal: str = "1C"                 # "1C" (GPS L1 C/A) | "1B" (GAL E1B)
+    signal: str = "1C"                 # "1C" | "1B" | "L5" | "5X"
     system: str = "GPS"
     prns: tuple = tuple(range(1, 33))
     n_channels: int = 8
@@ -60,16 +62,29 @@ class SignalChainConf:
     code_provider: object = None       # prn -> +-1 sub-chip table
     sc_rate: float | None = None       # sub-chip rate for acquisition
     # the second replica family of the cccwsr acquisition (the E1-C pilot
-    # on a data-only E1 chain, models/factory.py)
+    # on a data-only E1 chain) and of the iq_caf one (E5a-Q),
+    # models/factory.py
     data_code_provider: object = None
     # chain-local channel index -> PRN pinning (Channel<i>.satellite)
     pinned: dict = dataclasses.field(default_factory=dict)
+    # secondary-band behavior of the JAX receiver: when another chain of the
+    # same system on another carrier exists, each PRN's acquisition waits
+    # until that band has locked it and searches a Doppler-projected narrow
+    # grid (gnss_flowgraph.cc:2615-2750).  The port carries the flag; the
+    # gate itself is not ported, so a configuration in which it would act
+    # is refused (ReceiverConf).  Without such a chain the gate is inactive
+    # and the chain cold-starts.
+    assist_wait: bool = False
 
     def telemetry_decoder(self, prns):
         if self.signal == "1B":
             return GalileoE1bTelemetryDecoder(prns)
         if self.signal == "1C":
             return TelemetryDecoder(prns)
+        if self.signal == "L5":
+            return GpsCnavTelemetryDecoder(prns)
+        if self.signal == "5X":
+            return GalileoE5aTelemetryDecoder(prns)
         raise NotImplementedError(f"signal chain {self.signal} is not ported")
 
 
@@ -97,6 +112,62 @@ def galileo_e1b_chain(fs: float, prns=tuple(range(1, 37)), n_channels=4,
         trk=TrackingConf(**trk_kw),
         code_provider=signals.CodeProvider("1B"),
         sc_rate=sig.sc_rate)
+
+
+def _wideband_chain(sig, fs: float, prns, n_channels: int,
+                    trk_overrides) -> SignalChainConf:
+    """The GPS L5I and Galileo E5a-I chains: 10.23 Mcps, 1 ms epochs, a
+    50 Hz PLL with a 100-epoch decision-directed FLL pull-in, 2-dwell 1 ms
+    acquisition refined on a 62.5 Hz step (receiver.py:188-237)."""
+    trk_kw = dict(
+        fs=fs, code_rate_cps=sig.chip_rate_cps,
+        code_length_chips=sig.code_length_chips,
+        carrier_freq_hz=sig.carrier_freq_hz,
+        early_late_space_chips=0.5, pll_bw_hz=50.0,
+        enable_fll_pullin=True, fll_decision_directed=True,
+        fll_pullin_epochs=100)
+    trk_kw.update(trk_overrides)
+    return SignalChainConf(
+        assist_wait=True,
+        signal=sig.signal, system=sig.system, prns=tuple(prns),
+        n_channels=n_channels, max_acq_channels=n_channels,
+        acq=AcqConf(fs_in=fs, sampled_ms=1, doppler_max=5000.0,
+                    doppler_step=250.0, max_dwells=2,
+                    make_two_steps=True, doppler_step2=62.5),
+        trk=TrackingConf(**trk_kw),
+        code_provider=signals.CodeProvider(sig.signal),
+        sc_rate=sig.chip_rate_cps)
+
+
+def gps_l5_chain(fs: float, prns=tuple(range(1, 33)), n_channels=4,
+                 **trk_overrides) -> SignalChainConf:
+    """GPS L5I chain: 10.23 Mcps, 1 ms epochs, NH10-spread 100-sps CNAV
+    symbols (GPS_L5_* blocks)."""
+    return _wideband_chain(signals.GPS_L5I, fs, prns, n_channels,
+                           trk_overrides)
+
+
+def galileo_e5a_chain(fs: float, prns=tuple(range(1, 37)), n_channels=4,
+                      **trk_overrides) -> SignalChainConf:
+    """Galileo E5a-I chain: 10.23 Mcps, 1 ms epochs, CS20-spread 50-sps
+    F/NAV symbols (the GALILEO_E5A_* blocks)."""
+    return _wideband_chain(signals.GALILEO_E5A_I, fs, prns, n_channels,
+                           trk_overrides)
+
+
+def _refuse_assist_gate(chains) -> None:
+    """The JAX receiver's secondary-band gate (receiver.py:1199-1203) acts
+    on a chain with assist_wait when a chain of the same system on another
+    carrier exists: the port lacks the assisted search, so it refuses."""
+    for spec in chains:
+        if spec.assist_wait and any(
+                r.system == spec.system
+                and r.trk.carrier_freq_hz != spec.trk.carrier_freq_hz
+                for r in chains):
+            raise NotImplementedError(
+                f"the {spec.signal} chain beside another {spec.system} "
+                "band (Doppler-assisted secondary-band acquisition) is not "
+                "ported")
 
 
 @dataclasses.dataclass
@@ -138,6 +209,8 @@ class ReceiverConf:
         if self.obs.history_len < self.chunk_epochs + 128:
             self.obs = dataclasses.replace(
                 self.obs, history_len=self.chunk_epochs + 128)
+        if self.gps_chain or self.chains:
+            _refuse_assist_gate(self.all_chains())
 
     def all_chains(self) -> list[SignalChainConf]:
         out = []

@@ -10,9 +10,9 @@ TOW_at_current_symbol_ms.  Bit-level work is 50 bps x channels — host work
 by design (SURVEY.md section 7: "decode host-side from device-produced
 prompt-symbol batches").
 
-GPS LNAV and Galileo E1-B I/NAV decoders copied from
-``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port; the other
-constellations' decoders wait for later slices."""
+GPS LNAV, Galileo E1-B I/NAV, GPS L5 CNAV and Galileo E5a F/NAV decoders
+copied from ``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port;
+the other signals' decoders wait for later slices."""
 
 from __future__ import annotations
 
@@ -20,9 +20,14 @@ import dataclasses
 
 import numpy as np
 
+from gnss_sim_receiver_tpu_torch import constants, signals
 from gnss_sim_receiver_tpu_torch.nav import lnav
+from gnss_sim_receiver_tpu_torch.nav.cnav import (CnavDecoder,
+                                                  messages_to_ephemeris)
 from gnss_sim_receiver_tpu_torch.nav.ephemeris import (
     GpsEphemeris, fields_to_ephemeris, words_to_galileo_ephemeris)
+from gnss_sim_receiver_tpu_torch.nav.fnav import (FnavPageDecoder,
+                                                  fnav_words_to_ephemeris)
 from gnss_sim_receiver_tpu_torch.nav.inav import InavPageDecoder
 
 CODES_PER_BIT = 20
@@ -318,3 +323,199 @@ class GalileoE1bTelemetryDecoder:
                         or st.ephemeris.toe != eph.toe):
                     st.ephemeris = eph
                     new_eph.append((c, eph))
+
+
+# ---------------------------------------------------------------------------
+# GPS L5I CNAV telemetry (the reference's gps_l5_telemetry_decoder_gs on top
+# of libswiftcnav, here nav.cnav)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _CnavChannelTlmState:
+    epoch_count: int = 0
+    symbol_base: int = -1        # global epoch index of decoder symbol 0
+    decoder: object = None       # CnavDecoder or FnavPageDecoder
+    msgs: dict = dataclasses.field(default_factory=dict)
+    anchor_epoch: int | None = None
+    anchor_tow_ms: float = 0.0
+    ephemeris: object = None
+    # secondary-code (NH10 / CS20) synchronization
+    nh_buf: list = dataclasses.field(default_factory=list)
+    nh_off: int | None = None    # epoch index mod len(code) of symbol starts
+    pend: list = dataclasses.field(default_factory=list)
+
+
+def _fold_secondary(st: _CnavChannelTlmState, pattern: np.ndarray,
+                    margin: float = 1.2, min_symbols: int = 20) -> list:
+    """Shared secondary-code / symbol-boundary synchronizer: consume
+    st.pend per-epoch prompts and emit soft symbols spanning len(pattern)
+    epochs each, wiped by `pattern` (+-1).  The phase offset is found by
+    group-coherence voting — the winning cyclic offset maximizes
+    sum |group-coherent sum| and must beat the runner-up by `margin` — and
+    st.symbol_base shifts accordingly."""
+    n_cs = len(pattern)
+    if st.nh_off is None:
+        st.nh_buf.extend(st.pend)
+        st.pend = []
+        if len(st.nh_buf) < min_symbols * n_cs:
+            return []
+        s = np.sign(np.asarray(st.nh_buf, np.float64))
+        n = (len(s) // n_cs) * n_cs
+        best, best_score, second = 0, -1.0, -1.0
+        for off in range(n_cs):
+            w = s[off:off + n - n_cs].reshape(-1, n_cs) * pattern
+            score = float(np.abs(w.sum(axis=1)).sum())
+            if score > best_score:
+                best, best_score, second = off, score, best_score
+            elif score > second:
+                second = score
+        if best_score < margin * max(second, 1e-9):
+            return []                 # ambiguous, wait for more
+        st.nh_off = best
+        # symbol 0 starts at buffered epoch `best`
+        st.symbol_base += best
+        st.pend = list(st.nh_buf[best:])
+        st.nh_buf = []
+    n_av = len(st.pend) // n_cs
+    if not n_av:
+        return []
+    arr = np.asarray(st.pend[:n_av * n_cs], np.float64).reshape(n_av, n_cs)
+    del st.pend[:n_av * n_cs]
+    return (arr * pattern).sum(axis=1).tolist()
+
+
+class GpsCnavTelemetryDecoder:
+    """Consumes TrackingEngine outputs for GPS L5I ("L5": 1 ms epochs,
+    100-sps CNAV symbols spread by NH10) channels and produces TOW stamps +
+    CNAV ephemerides.
+
+    Same process() interface as TelemetryDecoder.  TOW semantics: each
+    message's TOW field is the GPS time of the NEXT message start
+    (IS-GPS-705 20.3.3.1 / nav.cnav), i.e. of symbol start_symbol + 600.
+    (The JAX decoder's L2C CM mode, signal "2S", waits for the L2C chain.)
+    """
+
+    EPOCHS_PER_SYMBOL = 10
+    EPOCH_MS = 1.0
+
+    def __init__(self, prns):
+        self.prns = [int(p) for p in prns]
+        self.ch = [_CnavChannelTlmState(decoder=CnavDecoder())
+                   for _ in self.prns]
+        self._nh = 1.0 - 2.0 * np.asarray(constants.GPS_L5I_NH_CODE,
+                                          np.float64)
+
+    def reset_channel(self, c: int, prn: int | None = None,
+                      epoch_base: int | None = None) -> None:
+        st = _CnavChannelTlmState(decoder=CnavDecoder())
+        if epoch_base is not None:
+            st.epoch_count = epoch_base
+        self.ch[c] = st
+        if prn is not None:
+            self.prns[c] = int(prn)
+
+    def process(self, track_outs: dict) -> TelemetryOutputs:
+        prompts = track_outs["prompt"]
+        valid = track_outs["valid"]
+        t_len, n_ch = prompts.shape
+        tow = np.full((t_len, n_ch), np.nan)
+        new_eph = []
+        epb = self.EPOCHS_PER_SYMBOL
+        for c in range(n_ch):
+            st = self.ch[c]
+            pi, base, v = _collect_column(st, prompts[:, c], valid[:, c])
+            st.pend.extend(pi.tolist())
+            for ev in st.decoder.push_symbols(_fold_secondary(st, self._nh)):
+                if not ev.crc_ok or ev.msg_type not in (10, 11, 30):
+                    continue
+                st.msgs[ev.msg_type] = ev.fields
+                # TOW anchor at the next message boundary
+                st.anchor_epoch = (st.symbol_base
+                                   + (ev.start_symbol + 600) * epb)
+                st.anchor_tow_ms = ev.tow_s * 1000.0
+                self._try_ephemeris(st, c, new_eph)
+            _stamp_tow_column(tow[:, c], v, base, st, self.EPOCH_MS,
+                              after_anchor=False)
+        return TelemetryOutputs(tow_at_epoch_ms=tow,
+                                tow_valid=~np.isnan(tow),
+                                new_ephemerides=new_eph)
+
+    def _try_ephemeris(self, st, c, new_eph) -> None:
+        if not all(mt in st.msgs for mt in (10, 11, 30)):
+            return
+        if st.msgs[10]["toe"] != st.msgs[11]["toe"]:
+            return   # CNAV consistency gate (gps_cnav_navigation_message)
+        eph = messages_to_ephemeris(self.prns[c], st.msgs)
+        if (st.ephemeris is None or st.ephemeris.toe != eph.toe):
+            st.ephemeris = eph
+            new_eph.append((c, eph))
+
+
+# ---------------------------------------------------------------------------
+# Galileo E5a F/NAV telemetry (the reference's galileo_telemetry_decoder_gs
+# with frame_type=2, host-side)
+# ---------------------------------------------------------------------------
+
+class GalileoE5aTelemetryDecoder:
+    """Consumes TrackingEngine outputs for E5a-I channels (1 ms epochs;
+    50-sps F/NAV symbols spread by the 20-chip secondary code CS20),
+    synchronizes the secondary code, forms soft symbols, decodes F/NAV
+    pages (nav.fnav) and produces TOW stamps + Galileo ephemerides.
+
+    TOW semantics: every F/NAV word's TOW field is the GST of its own
+    page's first symbol."""
+
+    def __init__(self, prns):
+        self.prns = [int(p) for p in prns]
+        self.ch = [_CnavChannelTlmState(decoder=FnavPageDecoder())
+                   for _ in self.prns]
+        # CS20 is the same for every satellite (Galileo_E5a.h:3581)
+        self._cs = signals.e5a_secondary_code(0, "I").astype(np.float64)
+
+    def reset_channel(self, c: int, prn: int | None = None,
+                      epoch_base: int | None = None) -> None:
+        st = _CnavChannelTlmState(decoder=FnavPageDecoder())
+        if epoch_base is not None:
+            st.epoch_count = epoch_base
+        self.ch[c] = st
+        if prn is not None:
+            self.prns[c] = int(prn)
+
+    def process(self, track_outs: dict) -> TelemetryOutputs:
+        prompts = track_outs["prompt"]
+        valid = track_outs["valid"]
+        t_len, n_ch = prompts.shape
+        tow = np.full((t_len, n_ch), np.nan)
+        new_eph = []
+        for c in range(n_ch):
+            st = self.ch[c]
+            pi, base, v = _collect_column(st, prompts[:, c], valid[:, c])
+            st.pend.extend(pi.tolist())
+            soft = _fold_secondary(st, self._cs, margin=1.2, min_symbols=10)
+            for ev in st.decoder.push_symbols(soft):
+                if not ev.crc_ok or ev.word_type not in (1, 2, 3, 4):
+                    continue
+                st.msgs[ev.word_type] = ev.fields
+                # TOW anchor: page start symbol transmitted at the word's
+                # TOW; symbols are 20 epochs each
+                st.anchor_epoch = (st.symbol_base
+                                   + ev.page_start_symbol * 20)
+                st.anchor_tow_ms = ev.fields["tow"] * 1000.0
+                self._try_ephemeris(st, c, new_eph)
+            _stamp_tow_column(tow[:, c], v, base, st, 1.0,
+                              after_anchor=False)
+        return TelemetryOutputs(tow_at_epoch_ms=tow,
+                                tow_valid=~np.isnan(tow),
+                                new_ephemerides=new_eph)
+
+    def _try_ephemeris(self, st, c, new_eph) -> None:
+        if not all(w in st.msgs for w in (1, 2, 3)):
+            return
+        iods = {int(st.msgs[w]["iod_nav"]) for w in (1, 2, 3)}
+        if len(iods) != 1:
+            return
+        eph = fnav_words_to_ephemeris(self.prns[c], st.msgs)
+        if (st.ephemeris is None or st.ephemeris.iod_nav != eph.iod_nav
+                or st.ephemeris.toe != eph.toe):
+            st.ephemeris = eph
+            new_eph.append((c, eph))

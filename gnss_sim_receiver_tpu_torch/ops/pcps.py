@@ -1,9 +1,10 @@
-"""Batched Parallel Code Phase Search acquisition (kernels K3, K3b, K4a and
-K4b).
+"""Batched Parallel Code Phase Search acquisition (kernels K3, K3b, K4a, K4b
+and K4c).
 
 PyTorch port of ``gnss_sim_receiver_tpu.ops.pcps`` (the PCPS grid, its
-two-step refinement, the CCCWSR and 8 ms grids of Galileo E1 and the
-QuickSync folded grid of GPS L1 C/A): the
+two-step refinement, the CCCWSR and 8 ms grids of Galileo E1, the
+QuickSync folded grid of GPS L1 C/A and the Galileo E5a non-coherent I/Q
+grid with its CAF Doppler smoothing): the
 whole (channels x Doppler bins x code delay) grid of one acquisition is
 searched in one batch.
 
@@ -36,6 +37,16 @@ periods with the one replica — into one [M, C, D, 2, N] tensor
 |a-b|^2) per cell and the same statistic with 2 M correlations per cell;
 :func:`pcps_search_dual` packs the [4, C] buffer of the two-step search.
 
+The Galileo E5a non-coherent I/Q search (kernel K4c) correlates each dwell
+with the E5a-I and the E5a-Q primaries into the same [M, C, D, 2, N] form
+(:func:`dual_correlations` with "iq_caf"), and :func:`pcps_caf_peak` reads
+both planes of every Doppler row once per row of its boxcar, forming
+sum_m |ci|^2 + |cq|^2, the (2b+1)-row Doppler boxcar of the CAF filter
+(zero-padded at the two Doppler edges, divided by 2b+1 everywhere, as
+``jnp.convolve(..., mode="same")``) and the CFAR statistic of the smoothed
+grid with 2 M correlations per cell; :func:`pcps_search_iq_caf` packs the
+[4, C] buffer.
+
 QuickSync (kernel K4b) folds the dwell by `fold` before the FFT: the fold
 kernel (:func:`pcps_quicksync_fold`) wipes the carrier and sums the `fold`
 equal segments in one pass, writing [M, D, N/fold] (the [M, D, N] wiped
@@ -51,9 +62,10 @@ searches reuse K3 and K3b.
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors.  :func:`pcps_grid`, :func:`pcps_grid_per_channel`,
 :func:`pcps_cccwsr_grid`, :func:`pcps_8ms_grid`,
-:func:`pcps_quicksync_grid`, :func:`quicksync_resolve`, :func:`grid_peak`
-and :func:`max_to_input_power_stat` are the plain versions, line for line
-with the JAX functions.
+:func:`pcps_quicksync_grid`, :func:`quicksync_resolve`,
+:func:`pcps_e5a_noncoherent_iq_grid`, :func:`grid_peak` and
+:func:`max_to_input_power_stat` are the plain versions, line for line with
+the JAX functions.
 """
 
 from __future__ import annotations
@@ -219,6 +231,57 @@ def _dual_peak_plain(corr, n_dwells):
     grid = torch.sum(torch.maximum(torch.abs(a + b) ** 2,
                                    torch.abs(a - b) ** 2), dim=0)
     return max_to_input_power_stat(grid, float(2 * n_dwells))
+
+
+def pcps_e5a_noncoherent_iq_grid(x_dwells: torch.Tensor,
+                                 code_i_fft_conj: torch.Tensor,
+                                 code_q_fft_conj: torch.Tensor,
+                                 dopplers: torch.Tensor, fs: float,
+                                 caf_bins: int = 0) -> torch.Tensor:
+    """Galileo E5a non-coherent I/Q grid [C, D, N] float32
+    (galileo_e5a_noncoherent_iq_acquisition_caf_cc.cc): |corr_I|^2 +
+    |corr_Q|^2 summed over the dwells; with caf_bins > 0 smoothed along
+    Doppler by a (2 caf_bins + 1)-bin boxcar (:func:`caf_smooth`)."""
+    m, n = x_dwells.shape
+    wiped = _wipe_plain(x_dwells, dopplers,
+                        time_axis(n, fs, x_dwells.device))   # [M, D, N]
+    spec = torch.fft.fft(wiped, dim=-1)
+    ci = torch.fft.ifft(spec[:, None, :, :]
+                        * code_i_fft_conj[None, :, None, :], dim=-1)
+    cq = torch.fft.ifft(spec[:, None, :, :]
+                        * code_q_fft_conj[None, :, None, :], dim=-1)
+    grid = torch.sum(torch.abs(ci) ** 2 + torch.abs(cq) ** 2, dim=0)
+    return caf_smooth(grid, caf_bins)
+
+
+def caf_smooth(grid: torch.Tensor, caf_bins: int) -> torch.Tensor:
+    """The CAF filter's Doppler boxcar over a [C, D, N] grid: per (channel,
+    delay) column, jnp.convolve(col, ones(k) / k, mode="same") with
+    k = 2 caf_bins + 1 — the column zero-padded by caf_bins rows at each
+    edge, every output the sum of its k neighbours times float32(1/k), in
+    order of the row.  caf_bins = 0 returns the grid unchanged."""
+    if caf_bins <= 0:
+        return grid
+    k = 2 * caf_bins + 1
+    kern = float(np.float32(1.0) / np.float32(k))
+    c, d, n = grid.shape
+    pad = torch.zeros((c, caf_bins, n), dtype=grid.dtype, device=grid.device)
+    padded = torch.cat([pad, grid, pad], dim=1)
+    out = padded[:, 0:d] * kern
+    for s in range(1, k):
+        out = out + padded[:, s:s + d] * kern
+    return out
+
+
+def _caf_peak_plain(corr, n_dwells, caf_bins: int):
+    """Plain version of K4c: corr [M, C, D, 2, N] holds the E5a-I and E5a-Q
+    correlation planes; the CFAR statistic of the CAF-smoothed grid
+    sum_m |ci|^2 + |cq|^2 against 2 * n_dwells correlations per cell
+    (acquisition.py:_acquire_dual's n_eff)."""
+    ci, cq = corr[..., 0, :], corr[..., 1, :]
+    grid = torch.sum(torch.abs(ci) ** 2 + torch.abs(cq) ** 2, dim=0)
+    return max_to_input_power_stat(caf_smooth(grid, caf_bins),
+                                   float(2 * n_dwells))
 
 
 def _fold_plain(x_dwells, dopplers, t, fold: int):
@@ -414,6 +477,63 @@ def _kernels():
         tl.store(rarg_ptr + o, rarg.to(tl.int32))
         tl.store(rsum_ptr + o, tl.sum(total, axis=0))
 
+    # K4c replaces gnss_sim_receiver_tpu/ops/pcps.py:269
+    # pcps_e5a_noncoherent_iq_grid with the statistic the JAX engine takes
+    # of its grid (max_to_input_power_stat, :107).  Bound on the H100 by
+    # bytes: the two [M, C, D, N] complex64 planes read once (525 MB at
+    # the wideband path's M=2, C=10, D=41, N=40000), under one float32
+    # operation per byte.  The [C, D, N] grid of the JAX program, and its
+    # smoothed copy, never reach device memory: each program re-reads the
+    # 2b neighbouring rows of its boxcar, which the programs of rows
+    # d - b .. d + b (launched side by side) have just brought into L2.
+    @triton.jit
+    def caf_row_kernel(corr_ptr, rmax_ptr, rarg_ptr, rsum_ptr, n_dwells,
+                       n_ch, n_dop, n, inv_k, CAF_BINS: tl.constexpr,
+                       BLOCK: tl.constexpr):
+        # K4c, one (Doppler row d, channel): tile by tile over the delays,
+        # the smoothed row sum_s raw[d - b + s] * (1/k), raw[j] =
+        # sum_m |ci|^2 + |cq|^2 of row j (rows outside [0, D) are the
+        # boxcar's zero padding); per lane the running max with its first
+        # index, and the sum
+        d = tl.program_id(0)
+        c = tl.program_id(1)
+        lanes = tl.arange(0, BLOCK)
+        best = tl.full([BLOCK], float("-inf"), tl.float32)
+        best_i = tl.zeros([BLOCK], dtype=tl.int32)
+        total = tl.zeros([BLOCK], dtype=tl.float32)
+        for start in range(0, n, BLOCK):
+            offs = start + lanes
+            mask = offs < n
+            acc = tl.zeros([BLOCK], dtype=tl.float32)
+            for s in tl.static_range(2 * CAF_BINS + 1):
+                j = d - CAF_BINS + s
+                lm = mask & (j >= 0) & (j < n_dop)
+                raw = tl.zeros([BLOCK], dtype=tl.float32)
+                for m in range(n_dwells):
+                    row = ((m * n_ch + c) * n_dop + j) * 2
+                    pa = corr_ptr + (row * n + offs) * 2
+                    pb = corr_ptr + ((row + 1) * n + offs) * 2
+                    ar = tl.load(pa, mask=lm, other=0.0)
+                    ai = tl.load(pa + 1, mask=lm, other=0.0)
+                    br = tl.load(pb, mask=lm, other=0.0)
+                    bi = tl.load(pb + 1, mask=lm, other=0.0)
+                    raw += (ar * ar + ai * ai) + (br * br + bi * bi)
+                if CAF_BINS == 0:
+                    acc = raw
+                else:
+                    acc += raw * inv_k
+            vals = tl.where(mask, acc, float("-inf"))
+            better = vals > best
+            best = tl.where(better, vals, best)
+            best_i = tl.where(better, offs, best_i)
+            total += acc
+        rmax = tl.max(best, axis=0)
+        rarg = tl.min(tl.where(best == rmax, best_i, n), axis=0)
+        o = c * n_dop + d
+        tl.store(rmax_ptr + o, rmax)
+        tl.store(rarg_ptr + o, rarg.to(tl.int32))
+        tl.store(rsum_ptr + o, tl.sum(total, axis=0))
+
     @triton.jit
     def fold_kernel(x_ptr, t_ptr, dop_ptr, out_ptr, n, nf, n_dop, fold,
                     neg_two_pi, BLOCK: tl.constexpr):
@@ -471,7 +591,8 @@ def _kernels():
         tl.store(mag_ptr + c * fold + k, tl.sqrt(vr * vr + vi * vi))
 
     return dict(wipe=wipe_kernel, row=row_kernel, stat=stat_kernel,
-                dual_row=dual_row_kernel, fold=fold_kernel,
+                dual_row=dual_row_kernel, caf_row=caf_row_kernel,
+                fold=fold_kernel,
                 resolve=resolve_kernel)
 
 
@@ -593,6 +714,36 @@ def pcps_dual_peak(corr: torch.Tensor, n_dwells: int):
 pcps_dual_peak.launches = 0
 
 
+def pcps_caf_peak(corr: torch.Tensor, n_dwells: int, caf_bins: int):
+    """K4c, the E5a non-coherent I/Q kernel: [M, C, D, 2, N] complex64, the
+    E5a-I plane [..., 0, :] and the E5a-Q plane [..., 1, :] -> (stat [C],
+    doppler_idx [C] int32, delay_idx [C] int32): the CFAR statistic of the
+    grid sum_m |ci|^2 + |cq|^2 smoothed along Doppler by the
+    (2 caf_bins + 1)-row boxcar (:func:`caf_smooth`), with 2 * n_dwells
+    correlations per cell.  The [C, D, N] grid never reaches device
+    memory."""
+    if not check_kernel_device(corr, "pcps_caf_peak"):
+        return _caf_peak_plain(corr, n_dwells, caf_bins)
+    dev = corr.device
+    require(corr, torch.complex64, dev, "pcps_caf_peak: corr")
+    m, c, d, two, n = corr.shape
+    if two != 2 or m != n_dwells or caf_bins < 0:
+        raise ValueError("pcps_caf_peak: corr must be [n_dwells, C, D, 2, "
+                         "N] and caf_bins >= 0")
+    rows = _row_buffers(c, d, dev)
+    k = 2 * caf_bins + 1
+    _kernels()["caf_row"][(d, c)](
+        torch.view_as_real(corr), *rows, m, c, d, n,
+        float(np.float32(1.0) / np.float32(k)), CAF_BINS=caf_bins,
+        BLOCK=1024, num_warps=4)
+    out = _stat(rows, n, 2 * m)
+    pcps_caf_peak.launches += 1
+    return out
+
+
+pcps_caf_peak.launches = 0
+
+
 def pcps_search(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
                 dopplers: torch.Tensor, t: torch.Tensor):
     """The whole CFAR search: (stat [C], doppler_idx [C], delay_idx [C]).
@@ -653,13 +804,17 @@ def dual_correlations(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
       with `code_fft_conj`, as acquisition.py:_acquire_dual orders them;
     - "8ms": x_dwells [M, 2N] wiped over the whole 2N (the halves keep their
       relative phase, pcps.py:226-230), each half FFT'd and multiplied by
-      the one replica; plane 0 the first half, plane 1 the second.
+      the one replica; plane 0 the first half, plane 1 the second;
+    - "iq_caf": as "cccwsr", plane 0 with `code_fft_conj` (E5a-I), plane 1
+      with `code2_fft_conj` (E5a-Q).
     `t` is the wipeoff's time axis over the dwell ([N] or [2N])."""
     m = x_dwells.shape[0]
     wiped = pcps_wipe(x_dwells, dopplers, t)                 # [M, D, n]
-    if variant == "cccwsr":
+    if variant in ("cccwsr", "iq_caf"):
         spec = torch.fft.fft(wiped, dim=-1)[:, None, :, None, :]
-        codes = torch.stack([code2_fft_conj, code_fft_conj], dim=1)
+        pair = ((code2_fft_conj, code_fft_conj) if variant == "cccwsr"
+                else (code_fft_conj, code2_fft_conj))
+        codes = torch.stack(pair, dim=1)
     elif variant == "8ms":
         n = wiped.shape[-1] // 2
         spec = torch.fft.fft(wiped.reshape(m, -1, 2, n), dim=-1)[:, None]
@@ -681,6 +836,24 @@ def pcps_search_dual(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
     corr = dual_correlations(x_dwells, code_fft_conj, code2_fft_conj,
                              dopplers, t, variant)
     stat, dop_idx, del_idx = pcps_dual_peak(corr, x_dwells.shape[0])
+    return torch.stack([stat.to(torch.float32),
+                        dopplers[dop_idx.long()].to(torch.float32),
+                        del_idx.to(torch.float32), torch.zeros_like(stat)])
+
+
+def pcps_search_iq_caf(x_dwells: torch.Tensor, code_i_fft_conj: torch.Tensor,
+                       code_q_fft_conj: torch.Tensor,
+                       dopplers: torch.Tensor, t: torch.Tensor,
+                       caf_bins: int) -> torch.Tensor:
+    """The E5a non-coherent I/Q search of acquisition.py:_acquire_dual
+    ("iq_caf"): the wipeoff kernel, one cuFFT forward, the products with
+    the E5a-I and E5a-Q replicas into one cuFFT inverse, then K4c.  Returns
+    the packed [4, C] float32 buffer (stat, doppler_hz, delay_idx, 0): one
+    grid, whatever make_two_steps says."""
+    corr = dual_correlations(x_dwells, code_i_fft_conj, code_q_fft_conj,
+                             dopplers, t, "iq_caf")
+    stat, dop_idx, del_idx = pcps_caf_peak(corr, x_dwells.shape[0],
+                                           caf_bins)
     return torch.stack([stat.to(torch.float32),
                         dopplers[dop_idx.long()].to(torch.float32),
                         del_idx.to(torch.float32), torch.zeros_like(stat)])

@@ -1,0 +1,85 @@
+"""GPS L5 I/Q PRN code generation, the L5 part of
+``gnss_sim_receiver_tpu.ops.prn_codes_multi`` for the PyTorch port.
+
+Host-side NumPy generation (the device sees constant tables), the
+functional equivalent of the reference replica generator
+(src/algorithms/libs/gps_l5_signal_replica.cc).  Register polynomials and
+per-PRN constants are public ICD data (IS-GPS-705 table 3-I).
+
+Codes are returned as +-1 float32 with bit b -> 2b-1 (the GPS C/A
+convention of ops.prn_codes).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+GPS_L5_LENGTH = 10230
+
+# XB code advance (chips) per PRN 1..37, IS-GPS-705 table 3-I (reference
+# GPS_L5.h GPS_L5I_INIT_REG / GPS_L5Q_INIT_REG)
+_L5I_XB_ADV = (266, 365, 804, 1138, 1509, 1559, 1756, 2084, 2170, 2303,
+               2527, 2687, 2930, 3471, 3940, 4132, 4332, 4924, 5343, 5443,
+               5641, 5816, 5898, 5918, 5955, 6243, 6345, 6477, 6518, 6875,
+               7168, 7187, 7329, 7577, 7720, 7777, 8057)
+_L5Q_XB_ADV = (1701, 323, 5292, 2020, 5429, 7136, 1041, 5947, 4315, 148,
+               535, 1939, 5206, 5910, 3595, 5135, 6082, 6990, 3546, 1523,
+               4548, 4484, 1893, 3961, 7106, 5299, 4660, 276, 4389, 3783,
+               1591, 1601, 749, 1387, 1661, 3210, 708)
+
+
+def _pm1(bits: np.ndarray) -> np.ndarray:
+    return (2.0 * bits - 1.0).astype(np.float32)
+
+
+def _l5_xa() -> np.ndarray:
+    """XA sequence over 10230 chips: 13-stage register, taps 13,12,10,9,
+    output stage 13, short-cycled at state 1111111111101 -> all ones
+    (gps_l5_signal_replica.cc:24-33)."""
+    reg = np.ones(13, dtype=np.int64)
+    reset_state = np.array([1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 1],
+                           np.int64)
+    out = np.empty(GPS_L5_LENGTH, dtype=np.int64)
+    for i in range(GPS_L5_LENGTH):
+        out[i] = reg[12]
+        if (reg == reset_state).all():
+            reg[:] = 1
+        else:
+            fb = reg[12] ^ reg[11] ^ reg[9] ^ reg[8]
+            reg[1:] = reg[:-1]
+            reg[0] = fb
+    return out
+
+
+def _l5_xb() -> np.ndarray:
+    """XB sequence over 10230 chips: taps 13,12,8,7,6,4,3,1, free-running
+    (gps_l5_signal_replica.cc:49-55)."""
+    reg = np.ones(13, dtype=np.int64)
+    out = np.empty(GPS_L5_LENGTH, dtype=np.int64)
+    for i in range(GPS_L5_LENGTH):
+        out[i] = reg[12]
+        fb = reg[12] ^ reg[11] ^ reg[7] ^ reg[6] ^ reg[5] ^ reg[3] \
+            ^ reg[2] ^ reg[0]
+        reg[1:] = reg[:-1]
+        reg[0] = fb
+    return out
+
+
+@functools.lru_cache(maxsize=2)
+def _l5_bases():
+    return _l5_xa(), _l5_xb()
+
+
+@functools.lru_cache(maxsize=80)
+def gps_l5_code(prn: int, quadrature: bool = False) -> np.ndarray:
+    """GPS L5 I (data) or Q (pilot) code, 10230 chips at 10.23 Mcps:
+    code[n] = XA[n] ^ XB[(n + advance_prn) % 10230]."""
+    adv_table = _L5Q_XB_ADV if quadrature else _L5I_XB_ADV
+    if not 1 <= prn <= len(adv_table):
+        raise ValueError(f"L5 PRN out of range: {prn}")
+    xa, xb = _l5_bases()
+    n = np.arange(GPS_L5_LENGTH)
+    bits = xa ^ xb[(n + adv_table[prn - 1]) % GPS_L5_LENGTH]
+    return _pm1(bits)

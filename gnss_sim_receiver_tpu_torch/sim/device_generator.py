@@ -79,10 +79,9 @@ def _anchors(sats, fs, start_sample, nblk, amp_fs):
         icd_chip_rate = (code_rate / 2.0 if sat.signal in ("1B", "1P")
                          else code_rate)
         delay0 = sat.delay_sec + sat.delay_chips / icd_chip_rate
-        dop_code0 = (sat.code_doppler_hz
-                     if getattr(sat, "code_doppler_hz", None) is not None
+        dop_code0 = (sat.code_doppler_hz if sat.code_doppler_hz is not None
                      else sat.doppler_hz)
-        f_code = getattr(sat, "carrier_ref_hz", None) or f_c
+        f_code = sat.carrier_ref_hz or f_c
         delay_b = delay0 - (dop_code0 / f_code) * t_b \
             - (sat.doppler_rate_hz_s / f_code) * t_b * t_b / 2.0
         chipf_b = (t_b - delay_b) * code_rate

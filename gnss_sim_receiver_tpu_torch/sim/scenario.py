@@ -13,8 +13,8 @@ Timing model (matches sim.signal_generator):
   delay(t) = range(t)/c - dt_sv(t); tau indexes both the spreading code and
   the LNAV bit stream whose first subframe starts at TOW = t_gps0.
 
-GPS L1 C/A and Galileo E1-B copy of ``gnss_sim_receiver_tpu.sim.scenario``
-for the PyTorch port.
+GPS L1 C/A, GPS L5 and Galileo E1-B copy of
+``gnss_sim_receiver_tpu.sim.scenario`` for the PyTorch port.
 The quadratic fit of delay(t) over the scenario duration keeps residuals
 sub-millimeter for <= 60 s static scenarios (MEO range acceleration
 < 1 m/s^2 changes by < 1e-3 m/s^2).
@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from gnss_sim_receiver_tpu_torch import constants
-from gnss_sim_receiver_tpu_torch.nav import inav, lnav
+from gnss_sim_receiver_tpu_torch.nav import cnav, inav, lnav
 from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
     SatelliteSignalParams
 from gnss_sim_receiver_tpu_torch.utils import geodesy
@@ -66,13 +66,15 @@ def build_static_scenario(ephemerides, rx_ecef, t_gps0: float,
                           duration_s: float, cn0_db_hz: float = 47.0,
                           elevation_mask_deg: float = 5.0,
                           n_frames: int | None = None,
-                          subframe_cycle=(1, 2, 3, 4, 5)
+                          subframe_cycle=(1, 2, 3, 4, 5),
+                          band: str = "L1"
                           ) -> list[SatelliteSignalParams]:
     """SatelliteSignalParams for every visible satellite of a static
     receiver.  t_gps0 must be a multiple of 6 (LNAV subframe grid; also a
     multiple of the 2 s INAV page grid, so Galileo ephemerides — marked by
     eph.system — get an E1B signal whose INAV page stream starts at
-    t_gps0)."""
+    t_gps0).  band="L5" gives the GPS satellites' L5I signals instead
+    (CNAV at 50 bps, NH10-spread) and skips the others."""
     if t_gps0 % 6.0:
         raise ValueError("t_gps0 must be a multiple of 6 s (subframe grid)")
     rx_ecef = np.asarray(rx_ecef, dtype=np.float64)
@@ -93,18 +95,35 @@ def build_static_scenario(ephemerides, rx_ecef, t_gps0: float,
         d2 = (d[2] - 2.0 * d[1] + d[0]) / (duration_s / 2.0) ** 2
         d1 = (d[2] - d[0]) / duration_s - d2 * duration_s / 2.0
         f_c = constants.GPS_L1_FREQ_HZ   # == Galileo E1 carrier
-        if eph.system == "Galileo":
+        code_dop = None
+        carrier_ref = None
+        if band == "L5":
+            # GPS L5 stream of the SAME constellation (dual-band front
+            # end): geometry identical, Doppler/phase on the L5 carrier,
+            # CNAV@50bps x NH10 per-epoch signs
+            if eph.system != "GPS":
+                continue
+            f_c = constants.GPS_L5_FREQ_HZ
+            n_rep = int(np.ceil((duration_s + 24.0) / 18.0))
+            sym = cnav.symbols_for_ephemeris(eph, t_gps0,
+                                             n_repeats=n_rep, bps=50.0)
+            system, signal = "GPS", "L5"
+            nav_bits = cnav.l5i_epoch_signs(sym)   # already +-1 per epoch
+            code_dop = -f_c * d1
+            carrier_ref = f_c
+        elif eph.system == "Galileo":
             n_rep = int(np.ceil((duration_s + 12.0)
                                 / (5 * inav.PAGE_SECONDS)))
             stream = inav.pages_for_ephemeris(eph, t0_gst_s=t_gps0,
                                               n_repeats=n_rep)
             system, signal = "Galileo", "1B"
+            nav_bits = (2 * stream - 1).astype(np.int8)
         else:
             stream = lnav.frames_for_ephemeris(
                 eph, t_gps0, n_frames=n_frames,
                 subframe_cycle=subframe_cycle)
             system, signal = "GPS", "1C"
-        nav_bits = (2 * stream - 1).astype(np.int8)
+            nav_bits = (2 * stream - 1).astype(np.int8)
         sats.append(SatelliteSignalParams(
             prn=eph.prn, system=system, signal=signal,
             cn0_db_hz=cn0_db_hz,
@@ -116,5 +135,6 @@ def build_static_scenario(ephemerides, rx_ecef, t_gps0: float,
             # makes double-difference ambiguities non-integer (RTK)
             carrier_phase_rad=float(np.mod(-2.0 * np.pi * f_c * d0,
                                            2.0 * np.pi)),
+            code_doppler_hz=code_dop, carrier_ref_hz=carrier_ref,
             nav_bits=nav_bits))
     return sats

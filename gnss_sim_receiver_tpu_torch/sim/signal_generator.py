@@ -18,9 +18,9 @@ Signal model per satellite (constant Doppler + optional rate):
   carrier         = exp(j(2 pi (f_d t + f_dr t^2/2) + phi0))
   amplitude       = sqrt(10^(CN0/10) / fs)   with unit complex noise variance
 
-GPS L1 C/A and Galileo E1 (E1-B data, E1-C pilot) copy of
-``gnss_sim_receiver_tpu.sim.signal_generator`` for the PyTorch port: the
-same arithmetic, so a capture synthesized here equals the JAX package's
+GPS L1 C/A, GPS L5I, Galileo E1 (E1-B data, E1-C pilot) and Galileo E5a-I
+copy of ``gnss_sim_receiver_tpu.sim.signal_generator`` for the PyTorch port:
+the same arithmetic, so a capture synthesized here equals the JAX package's
 fixture sample for sample.
 """
 
@@ -32,7 +32,7 @@ import numpy as np
 
 from gnss_sim_receiver_tpu_torch import constants
 from gnss_sim_receiver_tpu_torch import signals as sigdefs
-from gnss_sim_receiver_tpu_torch.ops import prn_codes
+from gnss_sim_receiver_tpu_torch.ops import prn_codes, prn_codes_multi
 
 
 @dataclasses.dataclass
@@ -41,7 +41,8 @@ class SatelliteSignalParams:
     doppler_Hz_i, delay_chips_i, delay_sec_i} parameter set)."""
     prn: int
     system: str = "GPS"
-    signal: str = "1C"                   # "1C" | "1B" (E1-B) | "1P" (E1-C)
+    # "1C" | "1B" (E1-B) | "1P" (E1-C) | "L5" (L5I) | "5X" (E5a-I)
+    signal: str = "1C"
     cn0_db_hz: float = 44.0
     doppler_hz: float = 0.0
     doppler_rate_hz_s: float = 0.0
@@ -49,6 +50,11 @@ class SatelliteSignalParams:
     delay_sec: float = 0.0
     carrier_phase_rad: float = 0.0
     nav_bits: np.ndarray | None = None   # +-1 at 50 bps; None -> random
+    # off-L1 signals: the PHYSICAL Doppler driving the code rate and delay
+    # dynamics, and its reference carrier.  None -> doppler_hz over the L1
+    # carrier (the L5 / E5a scenarios set both to their own carrier)
+    code_doppler_hz: float | None = None
+    carrier_ref_hz: float | None = None
 
 
 def cn0_to_amplitude(cn0_db_hz: float, fs: float) -> float:
@@ -75,6 +81,16 @@ def _sig_params(sat: SatelliteSignalParams):
         sub = sigdefs.boc11_expand(
             sigdefs.galileo_e1_code(sat.prn, "C")).astype(np.int8)
         return sub, sigdefs.GALILEO_E1B.sc_rate, len(sub)
+    if sat.signal == "L5":
+        # L5I: nav_bits are per-1 ms-EPOCH signs (symbol x NH10 pre-spread,
+        # nav.cnav.l5i_epoch_signs)
+        return (prn_codes_multi.gps_l5_code(sat.prn).astype(np.int8),
+                constants.GPS_L5_CODE_RATE_CPS, 10230)
+    if sat.signal == "5X":
+        # E5a-I: nav_bits are per-1 ms-EPOCH signs (F/NAV symbol x CS20
+        # secondary pre-spread, nav.fnav.e5a_epoch_signs)
+        return (sigdefs.galileo_e5a_code(sat.prn, "I").astype(np.int8),
+                constants.GALILEO_E5A_CODE_RATE_CPS, 10230)
     raise NotImplementedError(
         f"simulator signal {sat.system}/{sat.signal} is not ported")
 
@@ -120,8 +136,9 @@ def _sat_signal_block(sat: SatelliteSignalParams, fs: float,
     icd_chip_rate = (code_rate / 2.0 if sat.signal in ("1B", "1P")
                      else code_rate)
     delay0 = sat.delay_sec + sat.delay_chips / icd_chip_rate
-    dop_code0 = sat.doppler_hz
-    f_code = f_c
+    dop_code0 = (sat.code_doppler_hz if sat.code_doppler_hz is not None
+                 else sat.doppler_hz)
+    f_code = sat.carrier_ref_hz or f_c
     delay_b = delay0 - (dop_code0 / f_code) * t_b \
         - (sat.doppler_rate_hz_s / f_code) * t_b * t_b / 2.0
     tau_b = t_b - delay_b

@@ -188,13 +188,13 @@ def test_factory_defaults_match_jax():
     "Acquisition_1C.implementation=Exotic_Acq",
     "Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition_Fpga",
     "Acquisition_1C.use_CFAR_algorithm=false",
-    "Acquisition_1C.bit_transition_flag=true",
+    "PVT.share_rx_clock_bias=true",
     "Acquisition_1C.pfa=0",
     "Tracking_1C.implementation=GPS_L1_CA_KF_Tracking",
     "Tracking_1C.extend_correlation_symbols=20",
     "Tracking_1C.order=2",
-    "Channels_5X.count=4",
-    "Channels_L5.count=2",
+    "Channels_7X.count=4",
+    "Channels_2S.count=2",
     "PVT.positioning_mode=RTK_Static",
     "PVT.positioning_mode=PPP_Static",
     "PVT.iono_model=Broadcast",
@@ -219,7 +219,7 @@ def test_factory_refuses_unported_keys(tmp_path, line):
 def test_interop_refuses_fields_the_port_lacks():
     from gnss_sim_receiver_tpu.models.acquisition import AcqConf
     from gnss_sim_receiver_tpu.models.receiver import ReceiverConf
-    ref = ReceiverConf(acq=AcqConf(variant="iq_caf"))
+    ref = ReceiverConf(acq=AcqConf(variant="assisted"))
     with pytest.raises(NotImplementedError, match="acq.variant"):
         interop.receiver_conf_from_fields(dataclasses.asdict(ref))
 
@@ -234,7 +234,7 @@ def test_interop_refuses_fields_the_port_lacks():
      "SignalSource.implementation"),
     ("SignalSource.implementation=Labsat_Signal_Source",
      "SignalSource.implementation"),
-    ("Channels_5X.count=4", "Channels_5X.count"),
+    ("Channels_7X.count=4", "Channels_7X.count"),
 ])
 def test_cli_stops_on_unported_features(tmp_path, capsys, line, key):
     """Exit code 2 and a message naming the key, before any file is read."""

@@ -4,7 +4,8 @@ CPU, and its state carries across intact.
 - no file of gnss_sim_receiver_tpu_torch/ nor chip_smoke.py imports jax or
   gnss_sim_receiver_tpu (an AST scan);
 - the port acquires and tracks (GPS L1 C/A, and Galileo E1-B with the
-  sign-recovery acquisition and 5 taps) in a process where both names cannot
+  sign-recovery acquisition and 5 taps), builds the wideband chains and
+  acquires E5a with the I/Q search, in a process where both names cannot
   be imported, and opens no file of the JAX package: its Galileo code
   tables are its own package data, shipped by pyproject.toml;
 - the entry points raise without a card unless device="cpu" is passed;
@@ -158,8 +159,46 @@ assert len(inav.pages_for_ephemeris(
                fromlist=["x"]).make_sky_constellation(40.0, -75.0,
                                                       346200.0)[0],
     345600.0, n_repeats=1)) == 2500
+# the wideband slice: the L5 and E5a chains from a conf, the E5a code
+# tables (package data), the iq_caf search with the doubled FFT, and the
+# F/NAV and CNAV decoders
+from gnss_sim_receiver_tpu_torch.models.telemetry import (
+    GalileoE5aTelemetryDecoder, GpsCnavTelemetryDecoder)
+from gnss_sim_receiver_tpu_torch.nav import cnav, fec, fnav
+l5, e5a = receiver_conf_from_config(InMemoryConfiguration({
+    "GNSS-SDR.internal_fs_sps": "12000000", "Channels_L5.count": "1",
+    "Channels_5X.count": "2",
+    "Acquisition_5X.implementation":
+        "Galileo_E5a_Noncoherent_IQ_Acquisition_CAF",
+    "Acquisition_5X.CAF_window_hz": "500",
+    "Acquisition_5X.bit_transition_flag": "true"})).chains
+assert (l5.signal, e5a.signal, e5a.acq.variant) == ("L5", "5X", "iq_caf")
+fs = 12e6
+sats = [SatelliteSignalParams(prn=4, system="Galileo", signal="5X",
+                              cn0_db_hz=50.0, doppler_hz=2250.0,
+                              delay_chips=5000.0,
+                              nav_bits=np.ones(8, np.int8))]
+x = generate_baseband(sats, fs, 5 * 12000, noise=True, seed=23)
+eng = PcpsAcquisitionEngine(e5a.acq, [4, 27],
+                            code_provider=e5a.code_provider,
+                            sc_rate=e5a.sc_rate,
+                            code_provider2=e5a.data_code_provider,
+                            device="cpu")
+res = eng.acquire_from(x, 0)
+assert list(res.detected) == [True, False], res
+eph = __import__("gnss_sim_receiver_tpu_torch.nav.ephemeris",
+                 fromlist=["x"]).make_sky_constellation(40.0, -75.0,
+                                                        345600.0)[0]
+assert len(fnav.pages_for_ephemeris(eph, 345600.0, n_repeats=1)) == 2000
+assert len(cnav.symbols_for_ephemeris(eph, 345600.0, n_repeats=1,
+                                      bps=50.0)) == 1800
+assert len(fec.viterbi27_decode(np.ones(16, np.float32))) == 8
+for dec in (GalileoE5aTelemetryDecoder([4]), GpsCnavTelemetryDecoder([4])):
+    dec.process({"prompt": np.ones((40, 1), np.complex64),
+                 "valid": np.ones((40, 1), bool)})
 builtins.open = _open
 assert any(p.endswith("galileo_e1_codes.npz") for p in opened), opened
+assert any(p.endswith("galileo_e5a_codes.npz") for p in opened), opened
 bad = [p for p in opened if "gnss_sim_receiver_tpu" + os.sep in p
        or p.endswith("galileo_codes.npz")]
 assert not bad, bad
@@ -238,6 +277,17 @@ def test_interop_round_trip():
     for k in tables:
         assert back[k].dtype == tables[k].dtype
         assert np.array_equal(back[k], tables[k])
+
+
+def test_package_data_ships_the_e5a_codes():
+    """The E5a table holds the E5a-I and E5a-Q rows of every satellite and
+    the CS20 and per-PRN CS100 secondary codes."""
+    with np.load(ROOT / "gnss_sim_receiver_tpu_torch" / "data"
+                 / "galileo_e5a_codes.npz") as z:
+        assert sorted(z.files) == ["e5ai", "e5ai_sec", "e5aq", "e5aq_sec"]
+        assert z["e5ai"].shape == z["e5aq"].shape == (50, 1279)
+        assert z["e5ai_sec"].shape == (20,)
+        assert z["e5aq_sec"].shape == (47, 13)
 
 
 def test_package_data_ships_the_e1_codes():

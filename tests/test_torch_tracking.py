@@ -21,11 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from gnss_sim_receiver_tpu import signals as jsig
+from gnss_sim_receiver_tpu.models import receiver as jrx
 from gnss_sim_receiver_tpu.models import tracking as jtrk
 from gnss_sim_receiver_tpu.models import tracking_block as jtb
 from gnss_sim_receiver_tpu.ops import prn_codes as jpc
 from gnss_sim_receiver_tpu.sim import SatelliteSignalParams, generate_baseband
 from gnss_sim_receiver_tpu_torch import interop
+from gnss_sim_receiver_tpu_torch.models import receiver as prx
 from gnss_sim_receiver_tpu_torch.models import tracking as ptrk
 from gnss_sim_receiver_tpu_torch.models import tracking_block as ptb
 
@@ -45,7 +48,7 @@ def _armed(conf, prns, dops, delay_samples):
         f0 = conf.code_rate_cps * (1.0 + dops[ch] / conf.carrier_freq_hz)
         st = jtrk._arm_channel(st, ch, float(dops[ch]), float(f0))
     pos = np.asarray(delay_samples, np.int64)
-    phase0 = np.mod(2.0 * np.pi * np.asarray(dops) * pos / FS,
+    phase0 = np.mod(2.0 * np.pi * np.asarray(dops) * pos / conf.fs,
                     2.0 * np.pi).astype(np.float32)
     return st._replace(pos=jnp.asarray(pos.astype(np.int32)),
                        rem_carr_phase=jnp.asarray(phase0))
@@ -155,16 +158,72 @@ def test_track_chunk_blocks_matches_jax(clean):
     assert np.abs(dj["carrier_doppler"] - dp["carrier_doppler"]).max() < 0.01
 
 
-def test_block_matches_jax_op_by_op(clean):
+# the one-block op-by-op cases beyond the 2 Msps `clean` scenario: the
+# rates and code lengths of the hybrid (GPS L1 C/A at 20 Msps) and wideband
+# (Galileo E5a-I, 10230 chips at 10.23 Mcps, 20 Msps) conf paths, where the
+# int32 lag product f * lag_int of K1 passes 2^31
+OP_CASES = {
+    "gps_l1_2msps": None,
+    "gps_l1_20msps": dict(signal="1C", prns=PRNS, dops=DOPS,
+                          delays=[5870, 9800, 15200]),
+    "galileo_e5a_20msps": dict(signal="5X", prns=[11, 19],
+                               dops=[-1800.0, 2300.0], delays=[7001, 13456]),
+}
+FS_WIDE = 20_000_000.0
+
+
+def _wide_scenario(signal, prns, dops, delays):
+    """Noise-free 50 dB-Hz satellites at 20 Msps armed on truth, with the
+    conf the path tracks them with: GPS L1 C/A under the `clean`
+    scenario's conf, E5a-I under the wideband chain's (FLL pull-in on)."""
+    if signal == "1C":
+        jconf = jtrk.TrackingConf(fs=FS_WIDE, enable_fll_pullin=False)
+        pconf = ptrk.TrackingConf(fs=FS_WIDE, enable_fll_pullin=False)
+        codes = [jpc.gps_l1_ca_code(p) for p in prns]
+        extra = {}
+    else:
+        jconf = jrx.galileo_e5a_chain(FS_WIDE).trk
+        pconf = prx.galileo_e5a_chain(FS_WIDE).trk
+        codes = [jsig.galileo_e5a_code(p, "I") for p in prns]
+        extra = dict(system="Galileo", carrier_ref_hz=jconf.carrier_freq_hz)
+    rate, s0 = jconf.code_rate_cps, jconf.nominal_epoch_samples
+    sats = [SatelliteSignalParams(
+        prn=p, signal=signal, cn0_db_hz=50.0, doppler_hz=d,
+        code_doppler_hz=d if extra else None,
+        delay_chips=n * rate / FS_WIDE, nav_bits=np.ones(64, np.int8),
+        **extra) for p, d, n in zip(prns, dops, delays)]
+    x = generate_baseband(sats, FS_WIDE, max(delays) + 24 * s0 + 4096,
+                          noise=False)
+    st = _armed(jconf, prns, dops, delays)
+    tables = np.stack([jpc.bandlimited_table_normalized(c, FS_WIDE, rate, s0)
+                       for c in codes])
+    return dict(x=x, jconf=jconf, pconf=pconf, jst=st,
+                pst=interop.track_state_from_numpy(
+                    interop.track_state_to_numpy(st), "cpu"),
+                tables=tables, taps=np.array([0.25, 0.0, -0.25], np.float32))
+
+
+@pytest.mark.parametrize("case", list(OP_CASES))
+def test_block_matches_jax_op_by_op(clean, case):
     """One block against the JAX program run op by op (jax.disable_jit):
     the port is that program's arithmetic, so the code NCO (code rate,
     code phase remnant, sample pointer) agrees bit for bit and the rest
-    to float32 rounding.  The jitted JAX program differs from both by
-    XLA's own float rewrites (multiply-add contraction, reciprocal
-    multiplication): at block 1 the code phase of the zero-Doppler channel
-    is 0 there and -1/512 chip here and op by op — the source of the
-    meter-level pseudorange differences test_torch_receiver.py bounds."""
-    c = clean
+    to float32 rounding, at 2 Msps and at the 20 Msps of the hybrid and
+    wideband paths (there the int32 lag product wraps, in both packages
+    alike).  The jitted JAX program differs from both by XLA's own float
+    rewrites (multiply-add contraction, reciprocal multiplication): at
+    block 1 the code phase of the zero-Doppler channel is 0 there and
+    -1/512 chip here and op by op — the source of the meter-level
+    pseudorange differences test_torch_receiver.py bounds.
+
+    The DLL velocity is held to 1e-5 of itself; at 20 Msps also to 1e-7
+    chip/s absolute, because there the channels armed on truth close E - L
+    to ~1e-7 of |E| and the velocity (~1e-5 chip/s) carries the float32
+    rounding of the two FFT and sin/cos libraries and of the contraction
+    order magnified by that cancellation (measured: up to 2.1e-8 chip/s,
+    1.5e-3 of itself); the code rate it feeds, bit-exact above, has an ulp
+    of 0.0625 chip/s at 1.023 Mchip/s."""
+    c = clean if OP_CASES[case] is None else _wide_scenario(**OP_CASES[case])
     rep = jtb.code_spectra(c["jconf"], c["tables"])
     with jax.disable_jit():
         sj, _ = jtb.track_chunk_blocks(c["jconf"], 1, E_BLOCK, rep,
@@ -179,7 +238,8 @@ def test_block_matches_jax_op_by_op(clean):
     for k in ("pos", "rem_code_phase", "code_freq", "epoch", "ext_n",
               "active"):
         assert np.array_equal(dj[k], dp[k]), (k, dj[k], dp[k])
-    assert np.allclose(dj["dll.vel"], dp["dll.vel"], rtol=1e-5, atol=0)
+    atol = 0.0 if OP_CASES[case] is None else 1e-7
+    assert np.allclose(dj["dll.vel"], dp["dll.vel"], rtol=1e-5, atol=atol)
     assert np.abs(dj["carrier_doppler"] - dp["carrier_doppler"]).max() < 1e-3
 
 
