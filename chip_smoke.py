@@ -12,14 +12,16 @@ Phases (any failure exits non-zero, before the result line):
    compile at their first launch).  Two child processes meanwhile
    synthesize the captures of phases 4 and 4c into ``build/`` (outside
    every timed window);
-3. each kernel (K1 and K2 with the GPS and the Galileo E1 tables, K3
-   wipeoff and peak, K3b, K4a in both modes, K4b fold and resolve, K4c with
-   and without its Doppler boxcar, K5a, K5b, K5c, K5d in both modes, K6)
-   against its plain PyTorch version on the card at the shape its path
+3. each kernel (the block step K8a and K8b first, at four shapes; K1 and
+   K2 with the GPS and the Galileo E1 tables, K3 wipeoff and peak, K3b,
+   K4a in both modes, K4b fold and resolve, K4c with and without its
+   Doppler boxcar, K5a, K5b, K5c, K5d in both modes, K6) against its
+   plain PyTorch version on the card at the shape its path
    launches it at, with the stated tolerance, and its time there beside
    the plain version's and its bound; other shapes of the same kernels
    (the ``other_shapes`` line: among them K1, K2, K3, K3b and K6 at phase
-   7's shapes);
+   7's shapes); once phase 4's capture is written, one 50-block chunk of
+   phase 4's path through the kernels and through the plain block body;
 4. the main path, conf-driven: the repo's 26 s static scenario at 4 Msps
    (synthesized by the port's own simulator, written as an ``ishort``
    file) goes through ``python -m gnss_sim_receiver_tpu_torch
@@ -70,8 +72,10 @@ Phases (any failure exits non-zero, before the result line):
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
-of JAX.  ``--profile`` adds a torch.profiler breakdown of a second run of
-the paths of phases 5 and 6 (device busy share, time by kernel).
+of JAX.  Every tracking phase checks that K8a and K8b ran once per block
+(= K1's launches).  ``--profile`` adds a torch.profiler breakdown of a
+second run of the paths of phases 5, 6 and 7 (device busy share, kernel
+launch calls, time by kernel).
 ``--witness`` adds, after phase 6, the hybrid receiver on variants of
 phase 5's capture (rate, chips, quantization, noise seed) to show what moves
 its position error.  ``--kernels-only`` stops after phase 3 and prints no
@@ -272,6 +276,225 @@ def check_k1(dev, rng, conf, c: int, e: int, taps, chunk_epochs: int,
                 err, ms, plain, n_bytes, n_ops,
                 f"{label}: C={c} channels, E={e} epochs, K={k} taps, "
                 f"F={nfft} bins")
+
+
+def block_state(rng, conf, c: int, e: int, n_wins: int, dev):
+    """A TrackState of C channels with every field the block step reads
+    spread over the range its paths give it: the last channel inactive,
+    epochs on both sides of the FLL pull-in edge, ext_n on both sides of
+    the DLL switch (50), lock_fail up to max_lock_fail, integer bit-sync
+    histograms (one channel a transition short of sync), prev_sign in
+    {-1, 0, 1}, negative carrier phases."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import interop
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    s0 = conf.nominal_epoch_samples
+    st = interop.track_state_to_numpy(trk._init_state(c, "cpu"))
+    dop = rng.uniform(-4500.0, 4500.0, c)
+    hist = rng.integers(0, 3, (c, 20)).astype(np.float32)
+    hist[0] = 0.0
+    hist[0, rng.integers(0, 20)] = conf.bit_sync_min_transitions - 1
+    ep = conf.fll_pullin_epochs
+
+    def f(a):
+        return np.asarray(a, np.float32)
+    st.update({
+        "active": np.arange(c) < c - 1,
+        "pos": rng.integers(-8, (n_wins - e - 1) * s0, c).astype(np.int32),
+        "rem_code_phase": f(rng.uniform(-0.5, 0.5, c)),
+        "code_freq": f(conf.code_rate_cps * (1.0 + dop / conf.carrier_freq_hz)
+                       + rng.uniform(-0.05, 0.05, c)),
+        "carrier_doppler": f(dop),
+        "rem_carr_phase": f(rng.uniform(-1.0, 2.0 * np.pi, c)),
+        "acc_phase_cycles": f(rng.uniform(-1e5, 1e5, c)),
+        "acc_phase_comp": f(rng.uniform(-1e-3, 1e-3, c)),
+        "dll.vel": f(rng.uniform(-0.5, 0.5, c)),
+        "pll.vel": f(dop + rng.uniform(-1.0, 1.0, c)),
+        "pll.acc": f(rng.uniform(-5.0, 5.0, c)),
+        "prompt_prev": (rng.standard_normal(c) + 1j * rng.standard_normal(c)
+                        ).astype(np.complex64) * 1000,
+        "epoch": rng.integers(max(ep - 3 * e, 0), ep + 3 * e, c
+                              ).astype(np.int32),
+        "carrier_lock": f(rng.uniform(0.3, 1.0, c)),
+        "lock_fail": f(rng.integers(0, conf.max_lock_fail + 1, c)),
+        "bit_hist": hist,
+        "prev_sign": f(rng.choice([-1.0, 0.0, 1.0], c)),
+        "bit_synced": rng.random(c) < 0.3,
+        "bit_phase": rng.integers(0, 20, c).astype(np.int32),
+        "ext_n": rng.integers(45, 55, c).astype(np.int32)})
+    return interop.track_state_from_numpy(st, dev)
+
+
+def block_corr(rng, c: int, e: int, taps, dev):
+    """[C, E, K] correlations shaped like a tracked channel's: a triangle
+    over the taps, a carrier phase error, nav-bit sign flips and noise."""
+    import torch
+    amp = rng.uniform(200.0, 2000.0, (c, 1, 1))
+    tri = np.maximum(1.0 - np.abs(np.asarray(taps)) * 2.0, 0.1)[None, None]
+    bits = np.where(rng.random((c, e, 1)) < 0.2, -1.0, 1.0)
+    ph = rng.normal(0.0, 0.3, (c, e, 1))
+    noise = rng.standard_normal((c, e, len(taps), 2)) @ [1.0, 1j] * 60.0
+    return torch.from_numpy((amp * tri * bits * np.exp(1j * ph) + noise
+                             ).astype(np.complex64)).to(dev)
+
+
+def ulps(got, want):
+    """|got - want| in units of want's float32 ulp."""
+    import torch
+    a = want.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return ((got - want).abs() / ulp).max().item()
+
+
+def closure_flips(conf, got, want) -> list:
+    """The integer and bool state fields in which K8b's next state differs
+    from the plain version's, per channel, each with the plain version's
+    margin to the thresholds that decide it (carrier lock and C/N0, the
+    only float comparisons upstream of lock_fail, lock_lost and active),
+    relative to the threshold."""
+    from gnss_sim_receiver_tpu_torch import interop
+    g = interop.track_state_to_numpy(got)
+    w = interop.track_state_to_numpy(want)
+    flips = []
+    for k in ("active", "pos", "epoch", "lock_fail", "lock_lost",
+              "bit_synced", "bit_phase", "ext_n", "bit_hist"):
+        diff = g[k] != w[k]
+        for ch in np.flatnonzero(diff.reshape(diff.shape[0], -1).any(1)):
+            margin = None
+            if k in ("active", "lock_fail", "lock_lost"):
+                margin = min(
+                    abs(w["carrier_lock"][ch] - conf.carrier_lock_threshold)
+                    / conf.carrier_lock_threshold,
+                    abs(w["cn0_db_hz"][ch] - conf.cn0_min_db_hz)
+                    / conf.cn0_min_db_hz)
+            flips.append((k, int(ch), margin))
+    return flips
+
+
+K8_RTOL = 1e-5          # K8b's float fields, of max |plain|
+
+
+def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
+             names, label: str):
+    """K8a and K8b against their plain versions at `conf`'s FFT length, C
+    channels, E = the conf's block epochs, the given taps (chips), the
+    block replica of `provider`'s band-limited codes, a chunk of `n_wins`
+    windows; timed there.  K8a: the integer outputs exact, the float ones
+    within 2 ulp, the replica within 1e-6 of its row's largest modulus.
+    K8b: the float fields of the next state and the block's plane rows
+    within K8_RTOL of max |plain|; the integer and bool fields exact, or
+    flipped only where the plain version's carrier lock or C/N0 lies
+    within K8_RTOL of its threshold."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import interop
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.ops import prn_codes
+    s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
+    e = max(2, int(round(0.02 / conf.t_epoch_nominal_s)))
+    k = len(taps)
+    tables = np.stack([prn_codes.bandlimited_table_normalized(
+        provider(p), conf.fs, conf.code_rate_cps, s0, 8)
+        for p in range(1, c + 1)])
+    codes_rep = tb.code_spectra(conf, tables, dev)
+    taps_t = torch.tensor(taps, dtype=torch.float32, device=dev)
+    st = block_state(rng, conf, c, e, n_wins, dev)
+    shape = (f"{label}: C={c} channels, E={e} epochs, K={k} taps, "
+             f"F={nfft} bins")
+
+    # ---- K8a ----------------------------------------------------------
+    got = tb.block_prologue(conf, e, codes_rep, taps_t, n_wins, st)
+    want = tb._block_prologue_plain(conf, e, codes_rep, taps_t, n_wins, st)
+    torch.cuda.synchronize()
+    for name in ("n_cum", "n_next", "n_len", "n_total", "w0", "lag_int"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            fail(f"K8a ({label}): {name} differs from the plain version")
+    worst_ulp = 0.0
+    for name in ("rem_end", "rem_new", "lag_frac", "ph_sc", "tap_samps",
+                 "omega"):
+        u = ulps(getattr(got, name), getattr(want, name))
+        worst_ulp = max(worst_ulp, u)
+        if u > 2.0:
+            fail(f"K8a ({label}): {name} {u:g} ulp from the plain version")
+    rep_err = ((got.rep_t - want.rep_t).abs().amax(1)
+               / want.rep_t.abs().amax(1).clamp(min=1e-30)).max().item()
+    print(f"  K8a_block_prologue ({label}): integer outputs identical, "
+          f"floats within {worst_ulp:g} ulp (tolerance 2), replica within "
+          f"{rep_err:.2e} of its row's max modulus (tolerance 1e-6)")
+    if rep_err > 1e-6:
+        fail(f"K8a ({label}): replica error {rep_err:.2e}")
+    a_err = float((got.rep_t - want.rep_t).abs().max())
+    a_ms = time_ms(lambda: tb.block_prologue(conf, e, codes_rep, taps_t,
+                                             n_wins, st))
+    a_plain = time_ms(lambda: tb._block_prologue_plain(
+        conf, e, codes_rep, taps_t, n_wins, st))
+    # reads: the replica table and 5 state fields; writes: the complex
+    # replica, 6 [C, E] and 4 [C] vectors and the taps;
+    # per (c, m): angle 1, sincos 2, two products 2
+    a_bytes = c * nfft * (4 + 8) + c * 5 * 4 + c * e * 6 * 4 + c * 4 * 4 \
+        + c * k * 4
+    a_ops = c * nfft * 5 + c * e * 30
+    row_a = _row(names[0], "cuda",
+                 "gnss_sim_receiver_tpu_torch/csrc/block_step.cu",
+                 "gnss_sim_receiver_tpu/models/tracking_block.py:204",
+                 a_err, a_ms, a_plain, a_bytes, a_ops, shape)
+
+    # ---- K8b ----------------------------------------------------------
+    corr = block_corr(rng, c, e, taps, dev)
+    t = 3 * e
+    planes = tb._empty_planes(t, c, dev)
+    planes_p = tb._empty_planes(t, c, dev)
+    for pl in (planes, planes_p):
+        for v in pl.values():
+            v.zero_()
+    new_k = tb.block_closure(conf, e, corr, want, st, planes, 1)
+    new_p, outs = tb._block_closure_plain(conf, e, corr, want, st)
+    tb._write_rows(planes_p, outs, 1, e)
+    torch.cuda.synchronize()
+    flips = closure_flips(conf, new_k, new_p)
+    for field, ch, margin in flips:
+        print(f"  K8b ({label}): {field} of channel {ch} differs; plain "
+              f"margin to its threshold {margin}")
+        if margin is None or margin > K8_RTOL:
+            fail(f"K8b ({label}): {field} of channel {ch} differs outside "
+                 "the float tolerance of its threshold")
+    gk = interop.track_state_to_numpy(new_k)
+    gp = interop.track_state_to_numpy(new_p)
+    b_err = 0.0
+    for key in gp:
+        if key in ("active", "pos", "epoch", "lock_fail", "lock_lost",
+                   "bit_synced", "bit_phase", "ext_n", "bit_hist"):
+            continue
+        if not np.array_equal(gk[key], gp[key]):
+            b_err = max(b_err, compare(
+                f"K8b ({label}) state {key}", torch.from_numpy(gk[key]),
+                torch.from_numpy(gp[key]), K8_RTOL))
+    for key, _ in tb.PLANES:
+        if not torch.equal(planes[key], planes_p[key]):
+            b_err = max(b_err, compare(f"K8b ({label}) plane {key}",
+                                       planes[key], planes_p[key], K8_RTOL))
+    print(f"  K8b_block_closure ({label}): {len(flips)} integer or bool "
+          f"fields flipped at a threshold; state and plane rows within "
+          f"{b_err:.3e} (tolerance {K8_RTOL:g} x max |plain|)")
+    b_ms = time_ms(lambda: tb.block_closure(conf, e, corr, want, st,
+                                            planes, 1))
+
+    def plain_closure():
+        _, o = tb._block_closure_plain(conf, e, corr, want, st)
+        tb._write_rows(planes_p, o, 1, e)
+    b_plain = time_ms(plain_closure)
+    # reads: 23 state fields (bit_hist 20 wide), the correlations, 6 of
+    # K8a's vectors; writes: the next state and E rows of the 12 planes;
+    # per (c, e): discriminators 30, FLL 20, lock 10, bit sync 20 + 2E
+    # (rank and bin counts); per c: loop filters and commit 80
+    st_bytes = c * (22 * 4 + 8 + 20 * 4)
+    b_bytes = 2 * st_bytes + c * e * k * 8 + c * e * 4 * 4 + c * 2 * 4 \
+        + e * c * (8 + 9 * 4 + 2 * 4 + 1)
+    b_ops = c * e * (80 + 2 * e) + c * 80
+    row_b = _row(names[1], "cuda",
+                 "gnss_sim_receiver_tpu_torch/csrc/block_step.cu",
+                 "gnss_sim_receiver_tpu/models/tracking_block.py:359",
+                 b_err, b_ms, b_plain, b_bytes, b_ops, shape)
+    return row_a, row_b
 
 
 def check_k2(dev, rng, conf, c: int, taps, provider, name: str,
@@ -1354,6 +1577,101 @@ def check_run(run, min_fixes: int) -> None:
         fail(f"position error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
 
 
+def check_block_chunk(root: str) -> None:
+    """Phase 3, continued, once phase 4's capture is written: one chunk of
+    50 blocks (1 s) of phase 4's GPS path, through the kernel path (K8a,
+    cuFFT, K1, K8b) and through the plain block body (K1 through its
+    kernel in both) on the card, from the same state: channels armed on
+    the first 1.5 s of the capture, conditioned by phase 4's conf, by that
+    conf's own acquisition (PRNs 1-10, 8 channels).  Holds the active sets
+    identical, the code boundary of every epoch (sample counter at the
+    epoch end minus the replica's code phase, as the observables read it)
+    within 1e-3 chip, the Doppler within 0.5 Hz and the prompts within
+    1e-3 of their largest modulus."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.conditioner import \
+        SignalConditioner
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.models.tracking import TrackingEngine
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import read_samples
+    capture = capture_paths(root)["file"]
+    config = InMemoryConfiguration(conf_properties(CONF.format(
+        capture=capture)))
+    rconf = receiver_conf_from_config(config)
+    x = SignalConditioner(config, fs_in=FS_FILE).process(
+        read_samples(capture, "ishort", count=int(1.5 * FS_FILE)))
+    prns = tuple(range(1, 11))
+    res = PcpsAcquisitionEngine(rconf.acq, prns).acquire_from(x, 0)
+    found = [(p, float(d), int(res.samplestamp + dl))
+             for p, ok, d, dl in zip(prns, res.detected, res.doppler_hz,
+                                     res.delay_samples) if ok][:8]
+    if [p for p, _, _ in found] != list(SCENARIO_PRNS):
+        fail(f"50-block chunk: acquisition found {found}")
+    conf = rconf.trk
+    eng = TrackingEngine(conf, [p for p, _, _ in found] + [0, 0])
+    for ch, (_, dop, start) in enumerate(found):
+        eng.start_tracking(ch, dop, start)
+    st = eng.state._replace(pos=torch.tensor(
+        eng.abs_start.astype(np.int32), device=x.device))
+    eng._ensure_block_tables()
+    e_blk, n_blk = eng.block_epochs, 50
+    args = (conf, n_blk, e_blk, eng._codes_rep, eng.taps)
+    xf_all = tb._window_spectra(x, conf.nominal_epoch_samples,
+                                tb.block_fft_size(conf))
+    tb.track_chunk_blocks(*args, x, st)          # builds, plans the FFTs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_st, got = tb.track_chunk_blocks(*args, x, st)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_st, want = tb._chunk_plain(*args, xf_all, st)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+
+    def boundary(o):
+        end = (o["pos_start"] + o["n_samples"]).double()
+        return ((end - o["code_phase_samples"].double())
+                * o["code_freq_cps"].double() / conf.fs)     # chips
+    valid = want["valid"]
+    d_code = (boundary(got) - boundary(want))[valid].abs().max().item()
+    d_dop = (got["carrier_doppler_hz"] - want["carrier_doppler_hz"]
+             ).abs().max().item()
+    d_prompt = ((got["prompt"] - want["prompt"]).abs().max()
+                / want["prompt"].abs().max()).item()
+    same = (torch.equal(got_st.active, want_st.active)
+            and torch.equal(got["valid"], valid))
+    print(f"  50-block chunk of phase 4's path (PRNs {list(SCENARIO_PRNS)} "
+          f"armed by acquisition, 2 idle channels): active sets "
+          f"{'identical' if same else 'DIFFERENT'}; code boundary within "
+          f"{d_code:.2e} chip (tolerance 1e-3), Doppler within {d_dop:.3e} "
+          f"Hz (0.5), prompts within {d_prompt:.2e} of the largest (1e-3)")
+    print(f"  host time: kernel path {1e3 * t_k / n_blk:.3f} ms per block, "
+          f"plain block body {1e3 * t_p / n_blk:.3f} ms per block")
+    if not (same and d_code < 1e-3 and d_dop < 0.5 and d_prompt < 1e-3):
+        fail("50-block chunk: the kernel path departs from the plain path")
+
+
+BLOCK_STEP_KERNELS = ("K8a_block_prologue", "K8b_block_closure")
+
+
+def check_block_launches(launches: dict, receiver_s: float) -> None:
+    """K8a and K8b ran once per block of the path (= K1's launches); the
+    receiver's milliseconds per block."""
+    k1 = launches["K1_block_correlate"]
+    k8 = [launches[n] for n in BLOCK_STEP_KERNELS]
+    if not k1 or k8 != [k1, k1]:
+        fail(f"K8a, K8b and K1 launches differ: {k8} vs {k1}")
+    print(f"  block step: {k1} blocks (K8a = K8b = K1 launches), receiver "
+          f"{1e3 * receiver_s / k1:.3f} ms per block")
+
+
 MAIN_PATH_KERNELS = ("K1_block_correlate", "K2_multicorrelate",
                      "K3_pcps_wipe", "K3_pcps_peak",
                      "K3b_pcps_wipe_per_channel", "K5a_fir_decim")
@@ -1383,6 +1701,7 @@ def main_path(root: str, wrappers) -> dict:
     print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
           f"{sec['condition']:.3f} ({100 * sec['condition'] / wall:.1f} % of "
           f"the wall time), receiver {sec['receiver']:.3f}")
+    check_block_launches(launches, sec["receiver"])
     print(f"  wall {wall:.3f} s from file open to the last fix for "
           f"{DUR:.0f} s of signal: real-time factor {DUR / wall:.3f}")
     return launches
@@ -1484,6 +1803,7 @@ def direct_path(root: str, wrappers) -> dict:
     check_run(run, min_fixes=0)
     print(f"  wall {wall:.3f} s for {DIRECT_DUR:.0f} s of signal: real-time "
           f"factor {DIRECT_DUR / wall:.3f}")
+    check_block_launches(launches, wall)
     return launches
 
 
@@ -1597,6 +1917,7 @@ def hybrid_path(root: str, wrappers, card: str) -> dict:
     print(f"  wall {wall:.3f} s from file open to the last fix for "
           f"{DUR:.0f} s of signal: real-time factor {DUR / wall:.3f} "
           f"({card})")
+    check_block_launches(launches, sec["receiver"])
     return launches
 
 
@@ -1681,6 +2002,7 @@ def quicksync_path(root: str, wrappers) -> dict:
     print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
           f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}; "
           f"real-time factor {DUR / wall:.3f}")
+    check_block_launches(launches, sec["receiver"])
     return launches
 
 
@@ -1846,6 +2168,7 @@ def full_chain(wrappers, card: str) -> dict:
           f"{n_fix} fixes; mean position error (fixes 6 on) {err:.3f} m")
     print(f"  receiver wall {wall:.3f} s for {FULL_DUR:.0f} s of signal: "
           f"real-time factor {FULL_DUR / wall:.3f} ({card})")
+    check_block_launches(launches, wall)
     if tracked != list(FULL_PRNS):
         fail(f"tracked PRNs {tracked}, expected {list(FULL_PRNS)}")
     if n_fix < 5 or not err < 5.0:
@@ -1964,6 +2287,11 @@ def wideband_path(root: str, wrappers, card: str) -> dict:
     print(f"  wall {wall:.3f} s from file open to the last fix for "
           f"{WB_DUR:.0f} s of signal: real-time factor {WB_DUR / wall:.3f} "
           f"({card})")
+    check_block_launches(launches, sec["receiver"])
+    if "--profile" in sys.argv[1:]:
+        argv = [f"--config_file={conf}"]
+        print("== profile of the wideband path", flush=True)
+        profile_path(lambda: f"seconds {run_cli(argv).seconds}")
     return launches
 
 
@@ -1992,9 +2320,12 @@ def profile_path(run) -> None:
     kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     n_ops = sum(e.count for e in avgs if e.key.startswith("aten::"))
+    launch_calls = {e.key: e.count for e in avgs
+                    if e.key.startswith(("cudaLaunch", "cuLaunch"))}
     print(f"  profiled run: wall {wall:.3f} s, device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f} %) in {sum(e.count for e in kernels)} "
-          f"kernels and copies, {n_ops} aten operator calls")
+          f"kernels and copies, {n_ops} aten operator calls; launch calls "
+          f"{launch_calls}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         print(f"    {dev_us(e) / 1e3:10.1f} ms  {e.count:8d}x  {e.key[:90]}")
     for e in sorted(avgs, key=lambda e: e.self_cpu_time_total,
@@ -2058,16 +2389,35 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     rng = np.random.default_rng(1234)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    k5b_row, notch_case = check_k5b(dev, rng)
     gps = trk.TrackingConf(fs=FS)
     gps_taps = (0.25, 0.0, -0.25)
-    extra = []        # the same kernels at the shapes of other modes/rates
-    rows = [check_k1(dev, rng, gps, 8, 20, gps_taps, 1000,
+    gps20 = trk.TrackingConf(fs=FS_REF_HYBRID)
+    e1 = hybrid_chain(FS_REF_HYBRID).trk
+    d, dv = e1.early_late_space_chips, e1.very_early_late_space_chips
+    e1_taps = (dv, d / 2, 0.0, -d / 2, -dv)
+    # the block step first (the newest kernels), at the shapes its paths
+    # launch: phase 4 (C=8) and 6 (C=12) at 2 Msps, phase 5's E1 and GPS
+    # chains at 20 Msps (phase 7's L5 and E5a chains share the GPS one's
+    # E, K and F)
+    rng8 = np.random.default_rng(8)
+    k8 = "K8a_block_prologue", "K8b_block_closure"
+    k8_e1 = tuple(n + "_E1" for n in k8)
+    gps_code = prn_codes.gps_l1_ca_code
+    rows = [*check_k8(dev, rng8, gps, 8, gps_taps, gps_code, 1000, k8,
+                      "GPS L1 C/A at 2 Msps"),
+            *check_k8(dev, rng8, e1, 10, e1_taps, signals.CodeProvider("1B"),
+                      250, k8_e1, "Galileo E1-B at 20 Msps")]
+    extra = [*check_k8(dev, rng8, gps, 12, gps_taps, gps_code, 1000, k8,
+                       "GPS L1 C/A at 2 Msps, 12 channels"),
+             *check_k8(dev, rng8, gps20, 10, gps_taps, gps_code, 250, k8,
+                       "GPS L1 C/A at 20 Msps")]
+    torch.cuda.empty_cache()
+    k5b_row, notch_case = check_k5b(dev, rng)
+    rows += [check_k1(dev, rng, gps, 8, 20, gps_taps, 1000,
                      "K1_block_correlate", "GPS L1 C/A at 2 Msps"),
             check_k2(dev, rng, gps, 8, gps_taps, prn_codes.gps_l1_ca_code,
                      "K2_multicorrelate", "GPS L1 C/A at 2 Msps")]
     # phase 5's GPS chain: 10 channels at 20 Msps
-    gps20 = trk.TrackingConf(fs=FS_REF_HYBRID)
     label = f"GPS L1 C/A at {FS_REF_HYBRID / 1e6:g} Msps"
     extra += [check_k1(dev, rng, gps20, 10, 20, gps_taps, 250,
                        "K1_block_correlate", label),
@@ -2116,6 +2466,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
 
     wrappers = {
         "K1_block_correlate": (tb.block_correlate, "launches"),
+        "K8a_block_prologue": (tb.block_prologue, "launches"),
+        "K8b_block_closure": (tb.block_closure, "launches"),
         "K2_multicorrelate": (correlator.multicorrelate, "launches"),
         "K3_pcps_wipe": (pcps.pcps_wipe, "launches"),
         "K3_pcps_peak": (pcps.pcps_peak, "launches"),
@@ -2135,6 +2487,10 @@ def run_phases(root: str, card: str, procs: dict) -> int:
           "-> receiver -> position)", flush=True)
     for which in procs:           # no child may run beside a timed window
         wait_for(procs, which)
+    print("== phase 3, continued: a 50-block chunk of phase 4's path on its "
+          "capture, kernel path against the plain block body", flush=True)
+    check_block_chunk(root)
+    torch.cuda.empty_cache()
     launches = main_path(root, wrappers)
     print("== phase 4b: the conditioner alone", flush=True)
     cond = conditioner_path(root, wrappers, notch_case)
@@ -2160,7 +2516,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                 + os.path.join(root, "build", "chip_smoke_hybrid.conf")]
         print("== profile of the hybrid path", flush=True)
         profile_path(lambda: f"seconds {run_cli(argv).seconds}")
-    for name in ("K1_block_correlate", "K2_multicorrelate"):
+    for name in ("K1_block_correlate", "K2_multicorrelate",
+                 *BLOCK_STEP_KERNELS):
         launches[name + "_E1"] = hybrid[name]
     launches["K4a_pcps_dual_peak"] = hybrid["K4a_pcps_dual_peak"]
     print("== phase 5b: 8 ms acquisition on the hybrid capture", flush=True)

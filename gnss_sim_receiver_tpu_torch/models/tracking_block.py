@@ -19,8 +19,13 @@ epochs), with the loops closing at block cadence:
   count: with the 5 VEML taps [VE, E, P, L, VL] of E1 the block closure
   reads taps 1 and 3, as the JAX block closure does (tracking_block.py
   :296-299,360-363; the per-epoch path closes the VEMLP discriminator);
-- the loop closure per block is torch ops on [C] tensors in a Python loop
-  over the blocks.
+- the rest of the scan body is two kernels (``csrc/block_step.cu``): K8a
+  (:func:`block_prologue`: epoch boundaries, K1's inputs, the ramped
+  replica) before the replica FFT and K8b (:func:`block_closure`: the
+  loop closure, the commit and the block's rows of the [T, C] output
+  planes) after K1.  Their plain versions, :func:`_block_prologue_plain`
+  and :func:`_block_closure_plain`, are the JAX body's operations in its
+  order; the CPU runs them.
 
 Epoch boundaries are closed-form within a block (the code NCO rate is
 constant there): the cumulative sample count of epoch e is exactly
@@ -31,6 +36,8 @@ the per-epoch scan, so chunks can alternate between the two.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -136,8 +143,8 @@ def _block_correlate_plain(xf_all, rf, w0, lag_int, lag_frac, ph_sc,
 def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
                     w0: torch.Tensor, lag_int: torch.Tensor,
                     lag_frac: torch.Tensor, ph_sc: torch.Tensor,
-                    tap_samps: torch.Tensor,
-                    omega: torch.Tensor) -> torch.Tensor:
+                    tap_samps: torch.Tensor, omega: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """K1 wrapper: E/P/L correlations [C, E, K] complex64 of one block.
 
     corr[c,e,k] = 1/F sum_f xf_all[w0[c]+e, f] rf[c,f] e^{j ang_l[c,e,f]}
@@ -145,10 +152,11 @@ def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
     - ph_sc[c,e] (the int32 product reduced exactly) and ang_t = 2 pi f
     tap_samps[c,k]/F - omega[c] tap_samps[c,k]; f runs over the signed bins.
     Launches ``csrc/block_correlator.cu`` for CUDA tensors, runs the plain
-    version for CPU tensors."""
+    version for CPU tensors; the result goes into `out` when it is given."""
     if not check_kernel_device(xf_all, "block_correlate"):
-        return _block_correlate_plain(xf_all, rf, w0, lag_int, lag_frac,
-                                      ph_sc, tap_samps, omega)
+        res = _block_correlate_plain(xf_all, rf, w0, lag_int, lag_frac,
+                                     ph_sc, tap_samps, omega)
+        return res if out is None else out.copy_(res)
     dev = xf_all.device
     c, e = lag_int.shape
     k = tap_samps.shape[1]
@@ -161,7 +169,11 @@ def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
         require(t, dt, dev, f"block_correlate: {name}")
     if rf.shape != (c, nfft) or n_wins < e:
         raise ValueError("block_correlate: shape mismatch")
-    out = torch.empty((c, e, k), dtype=torch.complex64, device=dev)
+    if out is None:
+        out = torch.empty((c, e, k), dtype=torch.complex64, device=dev)
+    require(out, torch.complex64, dev, "block_correlate: out")
+    if out.shape != (c, e, k):
+        raise ValueError("block_correlate: out shape mismatch")
     err = _lib().block_correlate(
         xf_all.data_ptr(), rf.data_ptr(), w0.data_ptr(), lag_int.data_ptr(),
         lag_frac.data_ptr(), ph_sc.data_ptr(), tap_samps.data_ptr(),
@@ -185,7 +197,24 @@ def _lib():
     return lib
 
 
-# ---- one block of the scan -------------------------------------------------
+# ---- one block of the scan: the plain versions -----------------------------
+
+class BlockPrologue(NamedTuple):
+    """One block's epoch boundaries and K1 inputs (kernel K8a's outputs)."""
+    rep_t: torch.Tensor       # [C, F] complex64 Doppler-ramped replica
+    n_cum: torch.Tensor       # [C, E] samples from pos to epoch e's start
+    n_next: torch.Tensor      # [C, E] ... to epoch e's end
+    n_len: torch.Tensor       # [C, E] epoch lengths, samples
+    rem_end: torch.Tensor     # [C, E] code phase at epoch end, chips
+    n_total: torch.Tensor     # [C] block length, samples
+    rem_new: torch.Tensor     # [C] code phase after the block, chips
+    w0: torch.Tensor          # [C] int32 window of epoch 0
+    lag_int: torch.Tensor     # [C, E] int32 replica lag in the window
+    lag_frac: torch.Tensor    # [C, E]
+    ph_sc: torch.Tensor       # [C, E] carrier phase at the epoch start, rad
+    tap_samps: torch.Tensor   # [C, K] tap offsets, samples
+    omega: torch.Tensor       # [C] rad/sample
+
 
 def _median(x: torch.Tensor) -> torch.Tensor:
     """Median over the last axis, the mean of the two middle values for an
@@ -195,23 +224,20 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return (v[..., (n - 1) // 2] + v[..., n // 2]) * 0.5
 
 
-def _block_body(conf: TrackingConf, e_block: int, codes_rep, taps, xf_all,
-                st: TrackState):
-    """Advance every channel by one block of e_block epochs."""
+def _block_prologue_plain(conf: TrackingConf, e_block: int, codes_rep,
+                          taps, n_wins: int, st: TrackState) -> BlockPrologue:
+    """Plain version of K8a: the closed-form epoch boundaries of the block,
+    the Doppler-ramped replica and K1's window, lag and phase inputs."""
     fs = conf.fs
-    dev = xf_all.device
+    dev = codes_rep.device
     s0 = conf.nominal_epoch_samples
     nfft = block_fft_size(conf)
-    n_wins = xf_all.shape[0]
-    c_ch = codes_rep.shape[0]
     l_chips = f32(conf.code_length_chips)
     e_idx = torch.arange(e_block, dtype=F32, device=dev)          # [E]
     two_pi = f32(2.0 * np.pi)
     m_axis = torch.arange(nfft, dtype=F32, device=dev)[None, :]   # [1, F]
     fs32 = f32(fs)
-    prompt_i = taps.shape[0] // 2
 
-    act = st.active
     rate = st.code_freq                                        # [C] chips/s
     dop = st.carrier_doppler                                   # [C]
     s_per = l_chips / rate * fs32                              # [C] samples
@@ -228,12 +254,11 @@ def _block_body(conf: TrackingConf, e_block: int, codes_rep, taps, xf_all,
     n_total = torch.round(f32(e_block) * s_per - u0)           # [C]
     rem_new = (n_total - (f32(e_block) * s_per - u0)) * rate / fs32
 
-    # ---- replica spectra with the Doppler ramp (cuFFT) ----------------
+    # ---- the replica with the Doppler ramp (the caller FFTs it) --------
     omega = two_pi * dop / fs32                                # rad/sample
     ramp = omega[:, None] * m_axis                             # [C, F]
     rep_t = torch.complex(codes_rep * torch.cos(ramp),
                           codes_rep * torch.sin(ramp))
-    rf = torch.conj_physical(torch.fft.fft(rep_t, dim=-1))    # [C, F]
 
     # ---- window selection: epoch e of channel c reads window w0_c + e --
     w0 = torch.clamp(torch.div(st.pos, s0, rounding_mode="floor"), 0,
@@ -252,10 +277,32 @@ def _block_body(conf: TrackingConf, e_block: int, codes_rep, taps, xf_all,
         ecs - 0.5 * stretch[:, None] / rate[:, None] * fs32)
     lag_int = torch.round(lag)
     lag_frac = lag - lag_int
+    return BlockPrologue(
+        rep_t=rep_t, n_cum=n_cum, n_next=n_next, n_len=n_len,
+        rem_end=rem_end, n_total=n_total, rem_new=rem_new, w0=w0,
+        lag_int=lag_int.to(I32).contiguous(),
+        lag_frac=lag_frac.contiguous(), ph_sc=ph_sc.contiguous(),
+        tap_samps=tap_samps.contiguous(), omega=omega.contiguous())
 
-    corr = block_correlate(xf_all, rf, w0, lag_int.to(I32).contiguous(),
-                           lag_frac.contiguous(), ph_sc.contiguous(),
-                           tap_samps.contiguous(), omega.contiguous())
+
+def _block_closure_plain(conf: TrackingConf, e_block: int, corr,
+                         pro: BlockPrologue, st: TrackState):
+    """Plain version of K8b: the loop closure of one block from its
+    correlations [C, E, K] -> (the next TrackState, the block's [E, C]
+    output planes)."""
+    fs = conf.fs
+    dev = corr.device
+    s0 = conf.nominal_epoch_samples
+    c_ch = corr.shape[0]
+    two_pi = f32(2.0 * np.pi)
+    fs32 = f32(fs)
+    prompt_i = corr.shape[2] // 2
+    act = st.active
+    rate = st.code_freq
+    dop = st.carrier_doppler
+    n_cum, n_next, n_len = pro.n_cum, pro.n_next, pro.n_len
+    rem_end, n_total, rem_new = pro.rem_end, pro.n_total, pro.rem_new
+
     prompt = corr[:, :, prompt_i]                              # [C, E]
     early = corr[:, :, prompt_i - 1]
     late = corr[:, :, prompt_i + 1]
@@ -401,20 +448,355 @@ def _block_body(conf: TrackingConf, e_block: int, codes_rep, taps, xf_all,
     return new_state, outs
 
 
+# the chunk's [T, C] output planes, the outputs of track_chunk
+PLANES = (("prompt", torch.complex64), ("early_mag", F32),
+          ("late_mag", F32), ("carrier_doppler_hz", F32),
+          ("code_freq_cps", F32), ("rem_code_phase_chips", F32),
+          ("acc_phase_cycles", F32), ("code_phase_samples", F32),
+          ("pos_start", I32), ("n_samples", I32), ("cn0_db_hz", F32),
+          ("valid", torch.bool))
+
+
+def _empty_planes(n_epochs: int, n_ch: int, device) -> dict:
+    return {k: torch.empty((n_epochs, n_ch), dtype=dt, device=device)
+            for k, dt in PLANES}
+
+
+def _write_rows(planes: dict, outs: dict, block: int, e_block: int) -> None:
+    """Block `block`'s [E, C] outputs into rows block*E.. of the planes."""
+    rows = slice(block * e_block, (block + 1) * e_block)
+    for k, _ in PLANES:
+        planes[k][rows] = outs[k]
+
+
+# ---- kernels K8a and K8b ---------------------------------------------------
+
+# the TrackState fields that the block step reads or writes, in the order
+# of csrc/block_step.cu's StatePtrs ("dll_vel" is st.dll.vel); the others
+# (cn0_acc, kf_*, ext_p/e/l, sec_*, bayes_*) pass through unchanged
+_STATE_FIELDS = (
+    ("active", torch.bool), ("pos", I32), ("rem_code_phase", F32),
+    ("code_freq", F32), ("carrier_doppler", F32), ("rem_carr_phase", F32),
+    ("acc_phase_cycles", F32), ("acc_phase_comp", F32), ("dll_vel", F32),
+    ("dll_acc", F32), ("pll_vel", F32), ("pll_acc", F32),
+    ("prompt_prev", torch.complex64), ("epoch", I32), ("cn0_db_hz", F32),
+    ("carrier_lock", F32), ("lock_fail", F32), ("lock_lost", torch.bool),
+    ("bit_hist", F32), ("prev_sign", F32), ("bit_synced", torch.bool),
+    ("bit_phase", I32), ("ext_n", I32))
+_P = ctypes.c_void_p
+_F = ctypes.c_float
+_I = ctypes.c_int
+
+
+def _state_field(st: TrackState, name: str) -> torch.Tensor:
+    if name[:4] in ("dll_", "pll_"):
+        return getattr(getattr(st, name[:3]), name[4:])
+    return getattr(st, name)
+
+
+class _StatePtrs(ctypes.Structure):
+    _fields_ = [(name, _P) for name, _ in _STATE_FIELDS]
+
+
+class _ProloguePtrs(ctypes.Structure):
+    _fields_ = [(name, _P) for name in BlockPrologue._fields]
+
+
+class _PlanePtrs(ctypes.Structure):
+    _fields_ = [(name, _P) for name, _ in PLANES]
+
+
+class _PrologueArgs(ctypes.Structure):
+    _fields_ = [("st", _StatePtrs), ("out", _ProloguePtrs),
+                ("codes_rep", _P), ("taps", _P),
+                *((n, _F) for n in ("fs", "l_chips", "inv_fs", "two_pi",
+                                    "inv_fc", "lead")),
+                *((n, _I) for n in ("s0", "n_epochs", "nfft", "n_taps",
+                                    "w_max"))]
+
+
+class _ClosureArgs(ctypes.Structure):
+    _fields_ = [("src", _StatePtrs), ("dst", _StatePtrs),
+                ("pro", _ProloguePtrs), ("planes", _PlanePtrs),
+                ("corr", _P),
+                *((n, _F) for n in (
+                    "fs", "inv_fs", "two_pi", "inv_two_pi", "inv_e",
+                    "el_gain", "dll_bw_wide", "dll_bw_narrow", "inv_053",
+                    "pll_k3", "pll_k11", "pll_k24", "fll_k4",
+                    "lock_threshold", "cn0_min", "max_lock_fail",
+                    "code_rate", "inv_fc", "bit_sync_min")),
+                *((n, _I) for n in (
+                    "s0", "n_epochs", "n_taps", "n_ch", "n_rows",
+                    "fll_pullin_epochs", "enable_fll", "fll_decision"))]
+
+
+def _recip(v) -> float:
+    """1 / float32(v) in float32: how ATen's CUDA division by a CPU scalar
+    divides (it multiplies by this reciprocal)."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
+def _fl(v) -> float:
+    return float(np.float32(v))
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(conf: TrackingConf, e_block: int) -> dict:
+    """The scalars of one conf's block step, each rounded as the plain
+    version rounds it: the loop-filter gains are products of 0-d float32
+    CPU tensors there, computed here by the same torch expressions."""
+    wn = f32(conf.pll_bw_narrow_hz) / 0.7845
+    return dict(
+        fs=_fl(conf.fs), l_chips=_fl(conf.code_length_chips),
+        inv_fs=_recip(conf.fs), two_pi=_fl(2.0 * np.pi),
+        inv_two_pi=_recip(np.float32(2.0 * np.pi)),
+        inv_fc=_recip(conf.carrier_freq_hz), lead=_fl(_LEAD),
+        inv_e=_recip(e_block),
+        el_gain=float(0.5 * (2.0 - f32(conf.early_late_space_chips))),
+        dll_bw_wide=_fl(conf.dll_bw_hz),
+        dll_bw_narrow=_fl(conf.dll_bw_narrow_hz), inv_053=_recip(0.53),
+        pll_k3=float(wn * wn * wn), pll_k11=float(1.1 * wn * wn),
+        pll_k24=float(2.4 * wn), fll_k4=float(4.0 * f32(conf.fll_bw_hz)),
+        lock_threshold=_fl(conf.carrier_lock_threshold),
+        cn0_min=_fl(conf.cn0_min_db_hz), max_lock_fail=_fl(conf.max_lock_fail),
+        code_rate=_fl(conf.code_rate_cps),
+        bit_sync_min=_fl(conf.bit_sync_min_transitions),
+        s0=conf.nominal_epoch_samples,
+        fll_pullin_epochs=conf.fll_pullin_epochs,
+        enable_fll=int(conf.enable_fll_pullin),
+        fll_decision=int(conf.fll_decision_directed))
+
+
+def _state_ptrs(st: TrackState, dev, what: str) -> _StatePtrs:
+    c = st.active.shape[0]
+    ptrs = _StatePtrs()
+    for name, dt in _STATE_FIELDS:
+        t = _state_field(st, name)
+        require(t, dt, dev, f"{what}: state field {name}")
+        if t.shape != ((c, 20) if name == "bit_hist" else (c,)):
+            raise ValueError(f"{what}: state field {name} has shape "
+                             f"{tuple(t.shape)}")
+        setattr(ptrs, name, t.data_ptr())
+    return ptrs
+
+
+def _prologue_ptrs(pro: BlockPrologue, c: int, e: int, nfft: int, k: int,
+                   dev) -> _ProloguePtrs:
+    ptrs = _ProloguePtrs()
+    for name, t in zip(BlockPrologue._fields, pro):
+        dt = (torch.complex64 if name == "rep_t"
+              else I32 if name in ("w0", "lag_int") else F32)
+        shape = {"rep_t": (c, nfft), "tap_samps": (c, k)}.get(
+            name, (c,) if name in ("n_total", "rem_new", "w0", "omega")
+            else (c, e))
+        require(t, dt, dev, f"block step: {name}")
+        if t.shape != shape:
+            raise ValueError(f"block step: {name} has shape "
+                             f"{tuple(t.shape)}, not {shape}")
+        setattr(ptrs, name, t.data_ptr())
+    return ptrs
+
+
+def _empty_prologue(c: int, e: int, nfft: int, k: int, dev) -> BlockPrologue:
+    def t(*shape, dt=F32):
+        return torch.empty(shape, dtype=dt, device=dev)
+    return BlockPrologue(
+        rep_t=t(c, nfft, dt=torch.complex64), n_cum=t(c, e), n_next=t(c, e),
+        n_len=t(c, e), rem_end=t(c, e), n_total=t(c), rem_new=t(c),
+        w0=t(c, dt=I32), lag_int=t(c, e, dt=I32), lag_frac=t(c, e),
+        ph_sc=t(c, e), tap_samps=t(c, k), omega=t(c))
+
+
+def _empty_state(st: TrackState) -> TrackState:
+    """A TrackState with fresh tensors for the fields the block step
+    writes and `st`'s own tensors for the rest."""
+    def fresh(t):
+        return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    new = {name: fresh(getattr(st, name)) for name, _ in _STATE_FIELDS
+           if name[:4] not in ("dll_", "pll_")}
+    new["dll"] = lf.LoopFilterState(*map(fresh, st.dll))
+    new["pll"] = lf.LoopFilterState(*map(fresh, st.pll))
+    return st._replace(**new)
+
+
+def _prologue_args(conf, e_block, codes_rep, taps, n_wins, st,
+                   out) -> _PrologueArgs:
+    dev = codes_rep.device
+    c, nfft = codes_rep.shape
+    k = taps.shape[0]
+    require(codes_rep, F32, dev, "block_prologue: codes_rep")
+    require(taps, F32, dev, "block_prologue: taps")
+    if nfft != block_fft_size(conf) or st.active.shape != (c,):
+        raise ValueError("block_prologue: shape mismatch")
+    consts = _constants(conf, e_block)
+    return _PrologueArgs(
+        st=_state_ptrs(st, dev, "block_prologue"),
+        out=_prologue_ptrs(out, c, e_block, nfft, k, dev),
+        codes_rep=codes_rep.data_ptr(), taps=taps.data_ptr(),
+        **{n: consts[n] for n, _ in _PrologueArgs._fields_ if n in consts},
+        n_epochs=e_block, nfft=nfft, n_taps=k,
+        w_max=max(n_wins - e_block, 0))
+
+
+def _closure_args(conf, e_block, corr, pro, src, dst,
+                  planes) -> _ClosureArgs:
+    dev = corr.device
+    c, e, k = corr.shape
+    require(corr, torch.complex64, dev, "block_closure: corr")
+    if e != e_block or not 1 <= e_block <= 32:
+        raise ValueError("block_closure: E must match the block and be "
+                         "at most 32 (one warp lane per epoch)")
+    n_rows = planes["prompt"].shape[0]
+    pp = _PlanePtrs()
+    for name, dt in PLANES:
+        require(planes[name], dt, dev, f"block_closure: plane {name}")
+        if planes[name].shape != (n_rows, c):
+            raise ValueError(f"block_closure: plane {name} shape")
+        setattr(pp, name, planes[name].data_ptr())
+    consts = _constants(conf, e_block)
+    return _ClosureArgs(
+        src=_state_ptrs(src, dev, "block_closure"),
+        dst=_state_ptrs(dst, dev, "block_closure"),
+        pro=_prologue_ptrs(pro, c, e, pro.rep_t.shape[1], k, dev),
+        planes=pp, corr=corr.data_ptr(),
+        **{n: consts[n] for n, _ in _ClosureArgs._fields_ if n in consts},
+        n_epochs=e, n_taps=k, n_ch=c, n_rows=n_rows)
+
+
+def _step_lib():
+    lib = cuda_build.load("block_step")
+    if lib.block_prologue.argtypes is None:
+        lib.block_prologue.argtypes = [_PrologueArgs, _I, _P]
+        lib.block_prologue.restype = _I
+        lib.block_closure.argtypes = [_ClosureArgs, _I, _P]
+        lib.block_closure.restype = _I
+    return lib
+
+
+def _launch_prologue(args: _PrologueArgs, n_ch: int, stream: int) -> None:
+    cuda_build.check(_step_lib().block_prologue(args, n_ch, stream),
+                     "block_prologue")
+    block_prologue.launches += 1
+
+
+def _launch_closure(args: _ClosureArgs, block: int, stream: int) -> None:
+    cuda_build.check(_step_lib().block_closure(args, block, stream),
+                     "block_closure")
+    block_closure.launches += 1
+
+
+def block_prologue(conf: TrackingConf, e_block: int, codes_rep: torch.Tensor,
+                   taps: torch.Tensor, n_wins: int,
+                   st: TrackState) -> BlockPrologue:
+    """K8a wrapper: one block's epoch boundaries, K1's inputs and the
+    Doppler-ramped replica from the state (see BlockPrologue).  Launches
+    ``csrc/block_step.cu``'s block_prologue for CUDA tensors, runs
+    :func:`_block_prologue_plain` for CPU tensors."""
+    if not check_kernel_device(codes_rep, "block_prologue"):
+        return _block_prologue_plain(conf, e_block, codes_rep, taps, n_wins,
+                                     st)
+    c, nfft = codes_rep.shape
+    out = _empty_prologue(c, e_block, nfft, taps.shape[0], codes_rep.device)
+    _launch_prologue(
+        _prologue_args(conf, e_block, codes_rep, taps, n_wins, st, out), c,
+        torch.cuda.current_stream(codes_rep.device).cuda_stream)
+    return out
+
+
+block_prologue.launches = 0
+
+
+def block_closure(conf: TrackingConf, e_block: int, corr: torch.Tensor,
+                  pro: BlockPrologue, st: TrackState, planes: dict,
+                  block: int) -> TrackState:
+    """K8b wrapper: the loop closure of one block from its correlations
+    [C, E, K]; returns the next TrackState and writes the block's rows
+    block*E.. of the chunk's [T, C] `planes`.  Launches
+    ``csrc/block_step.cu``'s block_closure for CUDA tensors, runs
+    :func:`_block_closure_plain` for CPU tensors."""
+    if not check_kernel_device(corr, "block_closure"):
+        new, outs = _block_closure_plain(conf, e_block, corr, pro, st)
+        _write_rows(planes, outs, block, e_block)
+        return new
+    out = _empty_state(st)
+    _launch_closure(_closure_args(conf, e_block, corr, pro, st, out, planes),
+                    block, torch.cuda.current_stream(corr.device).cuda_stream)
+    return out
+
+
+block_closure.launches = 0
+
+
+# ---- the chunk -------------------------------------------------------------
+
+def _chunk_plain(conf: TrackingConf, n_blocks: int, e_block: int,
+                 codes_rep, taps, xf_all, state: TrackState):
+    """The block loop through the plain versions (on any device; K1
+    through its wrapper): the form the CPU runs and the card's K8a and
+    K8b are held against."""
+    planes = _empty_planes(n_blocks * e_block, codes_rep.shape[0],
+                           xf_all.device)
+    for b in range(n_blocks):
+        pro = _block_prologue_plain(conf, e_block, codes_rep, taps,
+                                    xf_all.shape[0], state)
+        rf = torch.conj_physical(torch.fft.fft(pro.rep_t, dim=-1))
+        corr = block_correlate(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
+                               pro.ph_sc, pro.tap_samps, pro.omega)
+        state, outs = _block_closure_plain(conf, e_block, corr, pro, state)
+        _write_rows(planes, outs, b, e_block)
+    return state, planes
+
+
+def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
+                codes_rep, taps, xf_all, state: TrackState):
+    """The block loop on the card: per block K8a, cuFFT, the conjugate, K1
+    and K8b into buffers allocated once per chunk, with no host sync.  The
+    state ping-pongs between two buffers; the launch arguments of the
+    three (source, destination) pairs are built once."""
+    dev = xf_all.device
+    c, nfft = codes_rep.shape
+    k = taps.shape[0]
+    planes = _empty_planes(n_blocks * e_block, c, dev)
+    pro = _empty_prologue(c, e_block, nfft, k, dev)
+    bufs = (_empty_state(state), _empty_state(state))
+    rf = torch.empty((c, nfft), dtype=torch.complex64, device=dev)
+    corr = torch.empty((c, e_block, k), dtype=torch.complex64, device=dev)
+    n_wins = xf_all.shape[0]
+    pairs = ((state, bufs[0]), (bufs[0], bufs[1]), (bufs[1], bufs[0]))
+    p_args = [_prologue_args(conf, e_block, codes_rep, taps, n_wins, src,
+                             pro) for src, _ in pairs]
+    c_args = [_closure_args(conf, e_block, corr, pro, src, dst, planes)
+              for src, dst in pairs]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for b in range(n_blocks):
+        i = 0 if b == 0 else 1 + (b - 1) % 2
+        _launch_prologue(p_args[i], c, stream)
+        # no out= for the FFT: ATen would add a kernel that applies the
+        # (unit) normalization into it
+        torch.conj_physical(torch.fft.fft(pro.rep_t, dim=-1), out=rf)
+        block_correlate(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
+                        pro.ph_sc, pro.tap_samps, pro.omega, out=corr)
+        _launch_closure(c_args[i], b, stream)
+    return bufs[(n_blocks - 1) % 2], planes
+
+
 def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
                        codes_rep: torch.Tensor, taps: torch.Tensor,
                        x_chunk: torch.Tensor, state: TrackState):
     """Run n_blocks blocks of e_block epochs each.  Returns (new_state,
     outs) with the same per-epoch [T, C] output planes as track_chunk
     (T = n_blocks*e_block).  `codes_rep` is the [C, F] time-domain block
-    replica of code_spectra()."""
+    replica of code_spectra().  On the card each block is K8a, cuFFT, the
+    conjugate, K1 and K8b; on the CPU the plain versions."""
+    if n_blocks < 1:
+        raise ValueError("track_chunk_blocks: n_blocks must be >= 1")
     xf_all = _window_spectra(x_chunk, conf.nominal_epoch_samples,
                              block_fft_size(conf))
-    outs = []
-    for _ in range(n_blocks):
-        state, o = _block_body(conf, e_block, codes_rep, taps, xf_all, state)
-        outs.append(o)
-    return state, {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    if check_kernel_device(xf_all, "track_chunk_blocks"):
+        return _chunk_cuda(conf, n_blocks, e_block, codes_rep, taps, xf_all,
+                           state)
+    return _chunk_plain(conf, n_blocks, e_block, codes_rep, taps, xf_all,
+                        state)
 
 
 def track_chunk_blocks_packed_decim(conf: TrackingConf, n_blocks: int,

@@ -12,6 +12,11 @@ No ``--use_fast_math``: the block correlator's angles reach ~2*pi*(1 +
 |f|/2N) and ``__sinf`` would lose the accuracy its int32 angle reduction
 keeps; the FIR kernel's LO phase reaches millions of radians and the device
 generator's carrier phase ~130 rad within an anchor block.
+
+``block_step.cu`` (K8a, K8b) alone is built with ``--fmad=false``: it
+repeats the plain PyTorch version operation by operation, where every
+torch op rounds on its own, so no ``a*b+c`` may be contracted into an FMA.
+The other sources keep nvcc's default.
 """
 
 from __future__ import annotations
@@ -28,9 +33,11 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("block_correlator", "multicorrelator", "fir_decim", "notch",
-           "device_generator")
+           "device_generator", "block_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source beyond NVCC_FLAGS
+SOURCE_FLAGS = {"block_step": ("--fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,9 +54,14 @@ def nvcc_path() -> str:
                        "machine with the card, at first use")
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -68,7 +80,7 @@ def build_all(names=SOURCES) -> dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT),
