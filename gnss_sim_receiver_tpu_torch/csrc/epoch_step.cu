@@ -1,0 +1,510 @@
+// K9: the loop closure of the per-epoch tracking scan, written for Hopper.
+//
+// Replaces the body of gnss_sim_receiver_tpu/models/tracking.py:_epoch_step
+// (lines 376-703, run by jax.lax.scan in track_chunk at :712) after the
+// correlation K2 (csrc/multicorrelator.cu): one epoch of C channels takes
+// two launches on the card, K2 then K9, with nothing in between.
+//
+// K9, epoch_closure: one warp per channel.  The lanes hold what the JAX
+// body keeps in [C, 32] and [C, 20] arrays: lane i the secondary-code sign
+// buffer's slot i and the correlation of that buffer with the code shifted
+// by i (n_sec <= 32), lane p the bit-sync histogram's bin p; the argmax of
+// either is a warp max and a ballot (its first index, as jnp.argmax picks).
+// Every lane computes the channel's scalar closure, lane 0 commits it:
+//
+// - secondary-code sync (tracking.py:417-456): the sign of prompt-I into
+//   slot epoch % n_sec, the hard match over every cyclic shift, sec_off
+//   and sec_polarity on the first full match, the wipeoff of P, E and L;
+// - the wide closure (:464-506): Costas PLL, E - L or VEMLP DLL, the
+//   third-order PLL and second-order DLL with the FLL pull-in;
+// - extended integration (:508-593): the bit-sync histogram and its
+//   dominance test (GPS) or secondary-aligned groups (pilot), the coherent
+//   sums, the narrow closure on them, the per-channel wide / closed / hold
+//   choice and the reset when a group closes;
+// - the NCO carry, C/N0 and lock on the wiped prompt (:595-630), the
+//   commit under the active mask, the epoch's row of the chunk's [T, C]
+//   output planes, and the NEXT epoch's length, which K2 reads from n_c.
+//
+// It reads the state from one buffer and writes the next state into
+// another (the caller ping-pongs two), so nothing is aliased; n_c is read
+// and then rewritten by the channel's own warp.  Launch-latency bound: it
+// moves about 1 kB per channel.
+//
+// The arithmetic is the plain PyTorch version's, operation by operation
+// (gnss_sim_receiver_tpu_torch/models/tracking.py:_epoch_closure_plain), as
+// torch runs it on the card: this file is built with --fmad=false so no
+// a*b+c is contracted (each torch op rounds on its own); a division by a
+// CPU scalar is a multiplication by its float reciprocal (the wrapper
+// passes the reciprocals); rintf is torch.round (half to even); float
+// remainders are floor-mods; a complex times a real promotes the real to
+// a complex (x + 0j).  The shift correlations and the histogram are sums
+// of small integers, exact in any order.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+// the launch arguments (by value, laid out as the wrapper's ctypes
+// Structures; outside the anonymous namespace so that the extern "C" entry
+// point that takes them keeps external linkage)
+// the TrackState fields the closure reads or writes (dll, pll and the
+// seven C/N0 accumulators split); bool fields are one byte
+struct EpochStatePtrs {
+  uint8_t* active;
+  int32_t* pos;
+  float* rem_code_phase;
+  float* code_freq;
+  float* carrier_doppler;
+  float* rem_carr_phase;
+  float* acc_phase_cycles;
+  float* acc_phase_comp;
+  float* dll_vel;
+  float* dll_acc;
+  float* pll_vel;
+  float* pll_acc;
+  float2* prompt_prev;
+  int32_t* epoch;
+  float* acc_abs_i;
+  float* acc_abs_q;
+  float* acc_m2;
+  float* acc_m4;
+  float* acc_i;
+  float* acc_q;
+  float* acc_count;
+  float* cn0_db_hz;
+  float* carrier_lock;
+  float* lock_fail;
+  uint8_t* lock_lost;
+  float* bit_hist;                      // [C, 20]
+  float* prev_sign;
+  uint8_t* bit_synced;
+  int32_t* bit_phase;
+  float2* ext_p;
+  float2* ext_e;
+  float2* ext_l;
+  int32_t* ext_n;
+  float* sec_buf;                       // [C, 32]
+  uint8_t* sec_synced;
+  int32_t* sec_off;
+  float* sec_polarity;
+};
+
+// the chunk's [T, C] output planes
+struct EpochPlanePtrs {
+  float2* prompt;
+  float* early_mag;
+  float* late_mag;
+  float* carrier_doppler_hz;
+  float* code_freq_cps;
+  float* rem_code_phase_chips;
+  float* acc_phase_cycles;
+  float* code_phase_samples;
+  int32_t* pos_start;
+  int32_t* n_samples;
+  float* cn0_db_hz;
+  uint8_t* valid;
+  float2* pilot_prompt;
+};
+
+struct EpochArgs {
+  EpochStatePtrs src;
+  EpochStatePtrs dst;
+  EpochPlanePtrs planes;
+  const float2* corr;                   // [C, K] or [C, K + 1] (data prompt)
+  int32_t* n_c;                         // [C] this epoch's lengths; next's
+  const float* sec;                     // [n_sec] +-1
+  float fs;
+  float inv_fs;                         // float(1 / float(fs))
+  float code_len;                       // code period, chips
+  float two_pi;                         // float32(2 pi)
+  float inv_two_pi;                     // float(1 / two_pi)
+  float el_gain;                        // 0.5 * (2 - early_late_space)
+  float veml_gain;                      // 0.5 * early_late_space
+  float pll_k3;                         // wn^3, 1.1 wn^2, 2.4 wn (wide PLL)
+  float pll_k11;
+  float pll_k24;
+  float npll_k3;                        // the same, narrow PLL
+  float npll_k11;
+  float npll_k24;
+  float dll_k2;                         // wn^2, 1.414213562 wn (wide DLL)
+  float dll_k14;
+  float ndll_k2;                        // the same, narrow DLL
+  float ndll_k14;
+  float fll_k4;                         // 4.0 * fll_bw_hz
+  float k_ext_f;                        // float(extend_correlation_symbols)
+  float lock_threshold;
+  float cn0_min;
+  float max_lock_fail;
+  float code_rate;
+  float inv_fc;                         // float(1 / float(carrier_freq_hz))
+  float bit_sync_min;
+  float sec_thresh;                     // float32(n_sec) - 0.5
+  int32_t n_taps;                       // 3, or 5 (VEML)
+  int32_t veml;
+  int32_t has_data;                     // corr has the data prompt column
+  int32_t n_ch;
+  int32_t n_rows;                       // T, the planes' rows
+  int32_t n_sec;                        // 0: no secondary code
+  int32_t k_ext;                        // extend_correlation_symbols
+  int32_t fll_on;                       // FLL pull-in on the wide closure
+  int32_t fll_decision;
+  int32_t fll_pullin_epochs;
+  int32_t cn0_window;
+  int32_t block_size;
+  int32_t nominal;                      // nominal epoch samples
+};
+
+namespace {
+
+constexpr int kBits = 20;               // bit-sync histogram bins
+constexpr int kSecMax = 32;             // N_SEC_MAX
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int floor_mod_i(int a, int b) {   // b > 0
+  const int r = a % b;
+  return (r != 0 && r < 0) ? r + b : r;
+}
+
+// torch.remainder on floats (ATen's form)
+__device__ __forceinline__ float floor_mod(float a, float b) {
+  float m = fmodf(a, b);
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
+  return m;
+}
+
+// torch.clamp(x, min=lo): NaN passes through
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+
+__device__ __forceinline__ float sign_f(float x) {           // torch.sign
+  return (float)((0.0f < x) - (x < 0.0f));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float cmag(float2 z) { return hypotf(z.x, z.y); }
+
+// z * w for a real w, promoted to the complex w + 0j as ATen multiplies
+__device__ __forceinline__ float2 cmul_real(float2 z, float w) {
+  return make_float2(z.x * w - z.y * 0.0f, z.x * 0.0f + z.y * w);
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+// discriminators.pll_costas(z) / (2 pi)
+__device__ __forceinline__ float costas_cyc(float2 z, float inv_two_pi) {
+  return atan2f(z.y * sign_f(z.x), fabsf(z.x)) * inv_two_pi;
+}
+
+// the where(denom > 0, (a - b) / clamp(denom, 1e-20), 0) of the DLL forms
+__device__ __forceinline__ float dll_raw(float a, float b) {
+  const float denom = a + b;
+  return denom > 0.0f ? (a - b) / clamp_min(denom, 1e-20f) : 0.0f;
+}
+
+// the loop filters of one _dll_pll_update: the third-order PLL's
+// integrators and the second-order DLL (its velocity and output)
+struct Loop {
+  float pll_vel, pll_acc, dll_vel, dll_out;
+};
+
+__device__ __forceinline__ Loop loop_filters(float k3, float k11, float dk2,
+                                             float dk14, float pll_vel0,
+                                             float pll_acc0, float dll_vel0,
+                                             float carr_err, float code_err,
+                                             float t) {
+  Loop r;
+  r.pll_acc = pll_acc0 + k3 * t * carr_err;
+  r.pll_vel = pll_vel0 + t * (r.pll_acc + k11 * carr_err);
+  r.dll_vel = dll_vel0 + dk2 * t * code_err;
+  r.dll_out = r.dll_vel + dk14 * code_err;
+  return r;
+}
+
+// code_rate_from_doppler: the carrier-aided code rate
+__device__ __forceinline__ float aided_rate(const EpochArgs& a, float dop) {
+  return a.code_rate * (1.0f + dop * a.inv_fc);
+}
+
+__global__ void __launch_bounds__(32)
+epoch_closure_kernel(EpochArgs a, int row) {
+  const int c = blockIdx.x;
+  const int lane = threadIdx.x;
+  const EpochStatePtrs& s = a.src;
+  const EpochStatePtrs& d = a.dst;
+
+  const bool act = s.active[c] != 0;
+  const int32_t epoch = s.epoch[c];
+  const int32_t n_c = a.n_c[c];
+  const float t_int = (float)n_c * a.inv_fs;
+  const int n_out = a.n_taps + a.has_data;
+  const float2* cr = a.corr + (size_t)c * n_out;
+  const int pi = a.veml ? 2 : 1;
+  const float2 prompt = cr[pi];
+  const float2 early = cr[pi - 1];
+  const float2 late = cr[pi + 1];
+  const float early_mag = cmag(early);
+  const float late_mag = cmag(late);
+
+  // ---- secondary-code sync + wipeoff ------------------------------------
+  const bool sec_synced0 = s.sec_synced[c] != 0;
+  float buf = s.sec_buf[c * kSecMax + lane];
+  bool sec_synced = sec_synced0;
+  int32_t sec_off = s.sec_off[c];
+  float sec_polarity = s.sec_polarity[c];
+  float wipe = 1.0f;
+  if (a.n_sec > 0) {
+    const int n = a.n_sec;
+    const float sign_now = prompt.x >= 0.0f ? 1.0f : -1.0f;
+    if (lane == floor_mod_i(epoch, n)) buf = sign_now;
+    // lane `off` < n: sum_i buf[i] * sec[(i + off) % n]
+    float corr_sec = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const float b = __shfl_sync(kFull, buf, i);
+      if (lane < n) corr_sec += b * a.sec[(i + lane) % n];
+    }
+    const float mag = lane < n ? fabsf(corr_sec) : -INFINITY;
+    const float top = warp_max(mag);
+    const int best_off = __ffs(__ballot_sync(kFull, lane < n && mag == top)) - 1;
+    const float best = __shfl_sync(kFull, corr_sec, best_off);
+    const bool hit = !sec_synced0 && epoch >= n && fabsf(best) >= a.sec_thresh;
+    sec_synced = sec_synced0 || hit;
+    if (hit) {
+      sec_off = best_off;
+      sec_polarity = sign_f(best);
+    }
+    const float chip = a.sec[floor_mod_i(epoch + sec_off, n)] * sec_polarity;
+    wipe = sec_synced ? chip : 1.0f;
+  }
+  const float2 prompt_w = cmul_real(prompt, wipe);
+  const float2 early_w = cmul_real(early, wipe);
+  const float2 late_w = cmul_real(late, wipe);
+
+  // ---- the wide closure (run_dll_pll) -------------------------------------
+  const float carr_err = costas_cyc(prompt_w, a.inv_two_pi);
+  float code_err;
+  if (a.veml) {
+    const float ve = cmag(cr[0]);
+    const float vl = cmag(cr[4]);
+    const float p_early = sqrtf(ve * ve + early_mag * early_mag);
+    const float p_late = sqrtf(vl * vl + late_mag * late_mag);
+    code_err = a.veml_gain * dll_raw(p_early, p_late);
+  } else {
+    code_err = a.el_gain * dll_raw(early_mag, late_mag);
+  }
+  const float pll_vel0 = s.pll_vel[c];
+  const float pll_acc0 = s.pll_acc[c];
+  const float dll_vel0 = s.dll_vel[c];
+  const float dll_acc0 = s.dll_acc[c];
+  const float dop0 = s.carrier_doppler[c];
+  const float rate0 = s.code_freq[c];
+  Loop w = loop_filters(a.pll_k3, a.pll_k11, a.dll_k2, a.dll_k14, pll_vel0,
+                        pll_acc0, dll_vel0, carr_err, code_err, t_int);
+  if (a.fll_on) {
+    const float2 prev = s.prompt_prev[c];
+    const float cross = prev.x * prompt_w.y - prompt_w.x * prev.y;
+    const float dot = prev.x * prompt_w.x + prev.y * prompt_w.y;
+    float f_err;
+    if (a.fll_decision) {
+      const float sgn = dot >= 0.0f ? 1.0f : -1.0f;
+      f_err = atan2f(cross * sgn, fabsf(dot)) / (a.two_pi * t_int);
+    } else {
+      f_err = atan2f(cross, dot) / (a.two_pi * t_int);
+    }
+    if (epoch > 0 && epoch < a.fll_pullin_epochs)
+      w.pll_vel = w.pll_vel + a.fll_k4 * t_int * f_err;
+  }
+  float doppler = w.pll_vel + a.pll_k24 * carr_err;
+  float code_freq = aided_rate(a, doppler) + w.dll_out;
+  float pll_vel = w.pll_vel, pll_acc = w.pll_acc, dll_vel = w.dll_vel;
+
+  // ---- extended coherent integration --------------------------------------
+  const bool bin = lane < kBits;
+  float hist = bin ? s.bit_hist[c * kBits + lane] : 0.0f;
+  float prev_sign = s.prev_sign[c];
+  bool bit_synced = s.bit_synced[c] != 0;
+  int32_t bit_phase = s.bit_phase[c];
+  float2 ext_p = s.ext_p[c], ext_e = s.ext_e[c], ext_l = s.ext_l[c];
+  int32_t ext_n = s.ext_n[c];
+  if (a.k_ext > 1) {
+    bool at_bit_start;
+    if (a.n_sec > 0) {
+      bit_synced = sec_synced;
+      prev_sign = prompt_w.x >= 0.0f ? 1.0f : -1.0f;
+      at_bit_start = floor_mod_i(epoch + sec_off, a.n_sec) == 0;
+    } else {
+      const float sign = prompt.x >= 0.0f ? 1.0f : -1.0f;
+      const float prev0 = s.prev_sign[c];
+      const bool flip = prev0 != 0.0f && sign != prev0;
+      const int idx20 = floor_mod_i(epoch, kBits);
+      const bool synced0 = bit_synced;
+      hist = hist + ((!synced0 && flip && lane == idx20) ? 1.0f : 0.0f);
+      const float peak = warp_max(bin ? hist : -INFINITY);
+      const int arg = __ffs(__ballot_sync(kFull, bin && hist == peak)) - 1;
+      const float second =
+          warp_max(bin ? (lane == arg ? 0.0f : hist) : -INFINITY);
+      const bool newly = !synced0 && peak >= a.bit_sync_min &&
+                         peak >= 4.0f * clamp_min(second, 1.0f);
+      bit_synced = synced0 || newly;
+      if (newly) bit_phase = arg;
+      prev_sign = sign;
+      at_bit_start = idx20 == bit_phase;
+    }
+    const bool ext_on = bit_synced && epoch >= a.fll_pullin_epochs;
+    const bool restart = at_bit_start || s.ext_n[c] <= 0;
+    const float2 zero = make_float2(0.0f, 0.0f);
+    ext_p = ext_on ? (restart ? prompt_w : cadd(ext_p, prompt_w)) : zero;
+    ext_e = ext_on ? (restart ? early_w : cadd(ext_e, early_w)) : zero;
+    ext_l = ext_on ? (restart ? late_w : cadd(ext_l, late_w)) : zero;
+    ext_n = ext_on ? (restart ? 1 : ext_n + 1) : 0;
+    const bool close_now = ext_on && ext_n == a.k_ext;
+    // the narrow closure on the coherent sums (no FLL)
+    const float carr_x = costas_cyc(ext_p, a.inv_two_pi);
+    const float code_x = a.el_gain * dll_raw(cmag(ext_e), cmag(ext_l));
+    const Loop x = loop_filters(a.npll_k3, a.npll_k11, a.ndll_k2, a.ndll_k14,
+                                pll_vel0, pll_acc0, dll_vel0, carr_x, code_x,
+                                t_int * a.k_ext_f);
+    const float dop_x = x.pll_vel + a.npll_k24 * carr_x;
+    if (ext_on) {                      // closed, else hold
+      doppler = close_now ? dop_x : dop0;
+      code_freq = close_now ? aided_rate(a, dop_x) + x.dll_out : rate0;
+      pll_vel = close_now ? x.pll_vel : pll_vel0;
+      pll_acc = close_now ? x.pll_acc : pll_acc0;
+      dll_vel = close_now ? x.dll_vel : dll_vel0;
+    }
+    if (close_now) {
+      ext_p = ext_e = ext_l = zero;
+      ext_n = 0;
+    }
+  }
+
+  // ---- NCO phase carry with the frequencies used this epoch ---------------
+  const float rem_code0 = s.rem_code_phase[c];
+  const float rem_code = rem_code0 + rate0 * t_int - a.code_len;
+  const float carr_adv = dop0 * t_int;
+  const float rem_carr =
+      floor_mod(s.rem_carr_phase[c] + a.two_pi * carr_adv, a.two_pi);
+  const float acc_cyc = s.acc_phase_cycles[c];
+  const float acc_comp = s.acc_phase_comp[c];
+  const float y = carr_adv - acc_comp;
+  const float t_sum = acc_cyc + y;
+  const float comp = (t_sum - acc_cyc) - y;
+  const int32_t pos = s.pos[c];
+
+  // ---- C/N0 + lock on the wiped prompt ------------------------------------
+  const float ip = prompt_w.x, qp = prompt_w.y;
+  const float p2 = ip * ip + qp * qp;
+  const float sum_abs_i = s.acc_abs_i[c] + fabsf(ip);
+  const float sum_abs_q = s.acc_abs_q[c] + fabsf(qp);
+  const float sum_m2 = s.acc_m2[c] + p2;
+  const float sum_m4 = s.acc_m4[c] + p2 * p2;
+  const float sum_i = s.acc_i[c] + ip;
+  const float sum_q = s.acc_q[c] + qp;
+  const float count = s.acc_count[c] + 1.0f;
+  const bool window_done = floor_mod_i(epoch + 1, a.cn0_window) == 0;
+  const float nn = clamp_min(count, 1.0f);
+  const float m2 = sum_m2 / nn;
+  const float m4 = sum_m4 / nn;
+  const float p_d = sqrtf(clamp_min(2.0f * m2 * m2 - m4, 0.0f));
+  const float p_n = clamp_min(m2 - p_d, 1e-20f);
+  const float cn0_new = 10.0f * log10f(clamp_min(p_d / p_n / t_int, 1e-10f));
+  const float i2 = sum_i * sum_i;
+  const float q2 = sum_q * sum_q;
+  const float lock_val = (i2 - q2) / clamp_min(i2 + q2, 1e-20f);
+  const float lock0 = s.carrier_lock[c];
+  const float lock_new = 0.75f * lock0 + 0.25f * lock_val;
+  const float cn0_0 = s.cn0_db_hz[c];
+  const float cn0_db = window_done ? cn0_new : cn0_0;
+  const float carrier_lock = window_done ? lock_new : lock0;
+  const bool locked = (carrier_lock > a.lock_threshold && cn0_db > a.cn0_min) ||
+                      epoch < a.fll_pullin_epochs;
+  const float fail0 = s.lock_fail[c];
+  const float fail_c = locked ? clamp_min(fail0 - 1.0f, 0.0f) : fail0 + 1.0f;
+  const bool lost0 = s.lock_lost[c] != 0;
+  const float fail = window_done ? fail_c : fail0;
+  const bool lost = window_done ? ((fail_c > a.max_lock_fail) || lost0) : lost0;
+
+  // ---- the epoch's row of the output planes -------------------------------
+  if (lane == 0) {
+    const size_t o = (size_t)row * a.n_ch + c;
+    a.planes.prompt[o] = a.has_data ? cr[a.n_taps] : prompt;
+    a.planes.pilot_prompt[o] = prompt;
+    a.planes.early_mag[o] = early_mag;
+    a.planes.late_mag[o] = late_mag;
+    a.planes.carrier_doppler_hz[o] = dop0;
+    a.planes.code_freq_cps[o] = rate0;
+    a.planes.rem_code_phase_chips[o] = rem_code0;
+    a.planes.acc_phase_cycles[o] = t_sum - comp;
+    a.planes.code_phase_samples[o] = rem_code * a.fs / rate0;
+    a.planes.pos_start[o] = pos;
+    a.planes.n_samples[o] = n_c;
+    a.planes.cn0_db_hz[o] = cn0_db;
+    a.planes.valid[o] = act ? 1 : 0;
+  }
+
+  // ---- masked commit (inactive channels advance nominally) ----------------
+  if (bin) d.bit_hist[c * kBits + lane] = act ? hist : s.bit_hist[c * kBits + lane];
+  d.sec_buf[c * kSecMax + lane] = act ? buf : s.sec_buf[c * kSecMax + lane];
+  if (lane != 0) return;
+  const float rem_code_new = act ? rem_code : rem_code0;
+  const float code_freq_new = act ? code_freq : rate0;
+  d.active[c] = (act && !lost) ? 1 : 0;
+  d.pos[c] = act ? pos + n_c : pos + a.nominal;
+  d.rem_code_phase[c] = rem_code_new;
+  d.code_freq[c] = code_freq_new;
+  d.carrier_doppler[c] = act ? doppler : dop0;
+  d.rem_carr_phase[c] = act ? rem_carr : s.rem_carr_phase[c];
+  d.acc_phase_cycles[c] = act ? t_sum : acc_cyc;
+  d.acc_phase_comp[c] = act ? comp : acc_comp;
+  d.dll_vel[c] = act ? dll_vel : dll_vel0;
+  d.dll_acc[c] = dll_acc0;
+  d.pll_vel[c] = act ? pll_vel : pll_vel0;
+  d.pll_acc[c] = act ? pll_acc : pll_acc0;
+  d.prompt_prev[c] = act ? prompt_w : s.prompt_prev[c];
+  d.epoch[c] = act ? epoch + 1 : epoch;
+  d.acc_abs_i[c] = act ? (window_done ? 0.0f : sum_abs_i) : s.acc_abs_i[c];
+  d.acc_abs_q[c] = act ? (window_done ? 0.0f : sum_abs_q) : s.acc_abs_q[c];
+  d.acc_m2[c] = act ? (window_done ? 0.0f : sum_m2) : s.acc_m2[c];
+  d.acc_m4[c] = act ? (window_done ? 0.0f : sum_m4) : s.acc_m4[c];
+  d.acc_i[c] = act ? (window_done ? 0.0f : sum_i) : s.acc_i[c];
+  d.acc_q[c] = act ? (window_done ? 0.0f : sum_q) : s.acc_q[c];
+  d.acc_count[c] = act ? (window_done ? 0.0f : count) : s.acc_count[c];
+  d.cn0_db_hz[c] = act ? cn0_db : cn0_0;
+  d.carrier_lock[c] = act ? carrier_lock : lock0;
+  d.lock_fail[c] = act ? fail : fail0;
+  d.lock_lost[c] = act ? (lost ? 1 : 0) : s.lock_lost[c];
+  d.prev_sign[c] = act ? prev_sign : s.prev_sign[c];
+  d.bit_synced[c] = act ? (bit_synced ? 1 : 0) : s.bit_synced[c];
+  d.bit_phase[c] = act ? bit_phase : s.bit_phase[c];
+  d.ext_p[c] = act ? ext_p : s.ext_p[c];
+  d.ext_e[c] = act ? ext_e : s.ext_e[c];
+  d.ext_l[c] = act ? ext_l : s.ext_l[c];
+  d.ext_n[c] = act ? ext_n : s.ext_n[c];
+  d.sec_synced[c] = act ? (sec_synced ? 1 : 0) : s.sec_synced[c];
+  d.sec_off[c] = act ? sec_off : s.sec_off[c];
+  d.sec_polarity[c] = act ? sec_polarity : s.sec_polarity[c];
+  // the next epoch's length from the committed code NCO (update_tracking_
+  // vars), read by the next K2
+  int n_next = (int)rintf((a.code_len - rem_code_new) / code_freq_new * a.fs);
+  n_next = n_next < 1 ? 1 : (n_next > a.block_size ? a.block_size : n_next);
+  a.n_c[c] = n_next;
+}
+
+}  // namespace
+
+extern "C" int epoch_closure(EpochArgs a, int row, void* stream) {
+  if (a.n_ch < 1 || (a.n_taps != 3 && a.n_taps != 5) ||
+      a.veml != (a.n_taps == 5) || a.has_data < 0 || a.has_data > 1 ||
+      a.n_sec < 0 || a.n_sec > kSecMax || a.cn0_window < 1 || row < 0 ||
+      row >= a.n_rows || a.block_size < 1)
+    return (int)cudaErrorInvalidValue;
+  epoch_closure_kernel<<<a.n_ch, 32, 0, (cudaStream_t)stream>>>(a, row);
+  return (int)cudaGetLastError();
+}

@@ -11,6 +11,16 @@
 //                mod table_len
 //
 // with pos clamped to [0, n_x - block_size] as gather_blocks clamps it.
+// On a track_pilot chain (tracking.py:398-408, a second correlate_multitap
+// with a zero tap on the data code) the same pass also sums
+//
+//   corr[c,K] = sum_b data[c, idx_d(c,b)] * x[pos[c] + b] * exp(-j phase(c,b))
+//   idx_d(c,b) = floor((rem_code[c] + code_freq[c] b / fs + 0) * data_ovs)
+//                mod data_table_len
+//
+// from the channel's data table: the output is then [C, K+1].  The data
+// tap is a template parameter, so a launch without a data table runs the
+// same code as before it existed.
 //
 // What bounds it on the H100: one epoch of C = 8 channels reads C blocks of
 // B = 2048 samples (128 KB) and the channels' code tables (8 x 32 KB), and
@@ -45,6 +55,7 @@ constexpr int kMaxTaps = 8;
 constexpr int kThreads = 256;
 constexpr float kTwoPi = 6.2831854820251465f;   // float32(2 pi)
 
+template <bool kData>
 __global__ void __launch_bounds__(kThreads)
 multicorr_kernel(const float2* __restrict__ x, int n_x,
                  const float* __restrict__ codes,      // [C, L]
@@ -58,9 +69,14 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
                  const float* __restrict__ dop,        // [C]
                  const int* __restrict__ n_samples,    // [C]
                  float inv_fs, float k_ovs, int block_size,
-                 float2* __restrict__ out) {           // [C, K]
+                 const float* __restrict__ data,       // [C, L'] or null
+                 int data_table_len, float data_ovs,
+                 float2* __restrict__ out) {           // [C, K(+1)]
   const int c = blockIdx.x;
   const float* __restrict__ table = codes + (size_t)c * table_len;
+  const float* __restrict__ dtable =
+      kData ? data + (size_t)c * data_table_len : nullptr;
+  const int n_out = n_taps + (kData ? 1 : 0);
 
   int p = pos[c];
   const int max_start = n_x - block_size;
@@ -77,6 +93,7 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
   float acc_re[kMaxTaps], acc_im[kMaxTaps];
 #pragma unroll
   for (int k = 0; k < kMaxTaps; ++k) { acc_re[k] = 0.0f; acc_im[k] = 0.0f; }
+  float dacc_re = 0.0f, dacc_im = 0.0f;
 
   for (int b = threadIdx.x; b < block_size; b += kThreads) {
     const float n = (float)b;
@@ -100,9 +117,17 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
         acc_im[k] += cv * xi;
       }
     }
+    if (kData) {                                    // the data prompt
+      int idx = (int)floorf(__fmul_rn(__fadd_rn(chips, 0.0f), data_ovs));
+      idx %= data_table_len;
+      if (idx < 0) idx += data_table_len;
+      const float cv = __ldg(dtable + idx);
+      dacc_re += cv * xr;
+      dacc_im += cv * xi;
+    }
   }
 
-  __shared__ float red[kThreads / 32][2 * kMaxTaps];
+  __shared__ float red[kThreads / 32][2 * kMaxTaps + 2];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -115,12 +140,30 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
     }
     if (lane == 0) { red[warp][2 * k] = re; red[warp][2 * k + 1] = im; }
   }
+  if (kData) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      dacc_re += __shfl_down_sync(0xffffffffu, dacc_re, o);
+      dacc_im += __shfl_down_sync(0xffffffffu, dacc_im, o);
+    }
+    if (lane == 0) {
+      red[warp][2 * kMaxTaps] = dacc_re;
+      red[warp][2 * kMaxTaps + 1] = dacc_im;
+    }
+  }
   __syncthreads();
+  float* row = reinterpret_cast<float*>(out + (size_t)c * n_out);
   if (threadIdx.x < 2 * n_taps) {
     float s = 0.0f;
 #pragma unroll
     for (int i = 0; i < kThreads / 32; ++i) s += red[i][threadIdx.x];
-    reinterpret_cast<float*>(out + (size_t)c * n_taps)[threadIdx.x] = s;
+    row[threadIdx.x] = s;
+  } else if (kData && threadIdx.x < 2 * n_taps + 2) {
+    const int j = 2 * kMaxTaps + threadIdx.x - 2 * n_taps;
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) s += red[i][j];
+    row[threadIdx.x] = s;
   }
 }
 
@@ -132,14 +175,18 @@ extern "C" int multicorrelate(const void* x, int n_x, const void* codes,
                               const void* code_freq, const void* rem_carr,
                               const void* dop, const void* n_samples,
                               float inv_fs, float k_ovs, int block_size,
-                              void* out, int n_ch, void* stream) {
+                              const void* data, int data_table_len,
+                              float data_ovs, void* out, int n_ch,
+                              void* stream) {
   if (n_taps < 1 || n_taps > kMaxTaps || n_ch < 1 || table_len < 1 ||
-      block_size < 1 || n_x < block_size)
+      block_size < 1 || n_x < block_size || (data && data_table_len < 1))
     return (int)cudaErrorInvalidValue;
-  multicorr_kernel<<<n_ch, kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = data ? multicorr_kernel<true> : multicorr_kernel<false>;
+  kernel<<<n_ch, kThreads, 0, (cudaStream_t)stream>>>(
       (const float2*)x, n_x, (const float*)codes, table_len,
       (const float*)taps, n_taps, (const int*)pos, (const float*)rem_code,
       (const float*)code_freq, (const float*)rem_carr, (const float*)dop,
-      (const int*)n_samples, inv_fs, k_ovs, block_size, (float2*)out);
+      (const int*)n_samples, inv_fs, k_ovs, block_size, (const float*)data,
+      data_table_len, data_ovs, (float2*)out);
   return (int)cudaGetLastError();
 }

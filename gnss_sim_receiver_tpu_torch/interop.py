@@ -140,9 +140,8 @@ _ABSENT = {
     TrackingConf: dict(pll_filter_order=3, dll_filter_order=2,
                        lock_rectify=False,
                        tracking_mode="dll_pll", bayes_forgetting=0.995,
-                       bayes_nu0=30.0, extend_correlation_symbols=1,
-                       secondary_code=(), doppler_bias_hz=0.0,
-                       track_pilot=False, kf_q_code_chips2=1e-4,
+                       bayes_nu0=30.0, doppler_bias_hz=0.0,
+                       kf_q_code_chips2=1e-4,
                        kf_q_phase_cyc2=1e-6, kf_q_dop_hz2=1.0,
                        kf_q_doprate_hz2s2=10.0, kf_r_code_chips2=2e-3,
                        kf_r_phase_cyc2=5e-4),
@@ -176,17 +175,27 @@ def _nested(fields: dict, where: str) -> dict:
 def _chain_from_fields(fields: dict, where: str) -> SignalChainConf:
     """A signal chain from its fields.  The code providers (functions of the
     other package) become the port's own for the chain's signal: the data
-    code, and the pilot (E1-C, E5a-Q) as the second replica family."""
+    code, and the pilot (E1-C, E5a-Q) as the second replica family; on a
+    track_pilot chain (galileo_e1b_chain's) the pilot code tracks and the
+    data code feeds the data-prompt correlator."""
     fields = _nested(fields, where)
     sig = fields["signal"]
+    pilot = fields.get("trk") is not None and fields["trk"].track_pilot
+    if pilot and sig != "1B":
+        raise NotImplementedError(
+            f"{where}.trk.track_pilot of signal {sig} is not ported")
+    data, second = signals.CodeProvider(sig), None
+    if sig in signals.PILOT_COMPONENT:
+        second = signals.CodeProvider(sig, signals.PILOT_COMPONENT[sig])
+    if pilot:
+        data, second = second, data
     if fields.get("code_provider") is not None:
-        fields["code_provider"] = signals.CodeProvider(sig)
+        fields["code_provider"] = data
     if fields.get("data_code_provider") is not None:
-        if sig not in signals.PILOT_COMPONENT:
+        if second is None:
             raise NotImplementedError(
                 f"{where}.data_code_provider of signal {sig} is not ported")
-        fields["data_code_provider"] = signals.CodeProvider(
-            sig, signals.PILOT_COMPONENT[sig])
+        fields["data_code_provider"] = second
     return _conf_from_fields(SignalChainConf, fields, where)
 
 

@@ -164,7 +164,6 @@ def _trk_from_config(config: Configuration, sig: str,
     if impl not in _TRK_IMPLS[sig]:
         raise _not_ported(p + "implementation", impl)
     _refuse_unless(config, p + "order", 3)
-    _refuse_unless(config, p + "extend_correlation_symbols", 1)
     # spacing keys are in chips; the sub-chip engines of E1 (BOC) scale x2
     sc = 2.0 if sig == "1B" else 1.0
     return dataclasses.replace(
@@ -182,6 +181,9 @@ def _trk_from_config(config: Configuration, sig: str,
         cn0_min_db_hz=config.property(p + "cn0_min", base.cn0_min_db_hz),
         max_lock_fail=config.property(p + "max_lock_fail",
                                       base.max_lock_fail),
+        extend_correlation_symbols=config.property(
+            p + "extend_correlation_symbols",
+            base.extend_correlation_symbols),
         pll_bw_narrow_hz=config.property(p + "pll_bw_narrow_hz",
                                          base.pll_bw_narrow_hz),
         dll_bw_narrow_hz=config.property(p + "dll_bw_narrow_hz",

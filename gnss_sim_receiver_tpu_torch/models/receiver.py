@@ -63,7 +63,8 @@ class SignalChainConf:
     sc_rate: float | None = None       # sub-chip rate for acquisition
     # the second replica family of the cccwsr acquisition (the E1-C pilot
     # on a data-only E1 chain) and of the iq_caf one (E5a-Q),
-    # models/factory.py
+    # models/factory.py; on a track_pilot chain the DATA component's table
+    # for the tracking engine's data-prompt correlator
     data_code_provider: object = None
     # chain-local channel index -> PRN pinning (Channel<i>.satellite)
     pinned: dict = dataclasses.field(default_factory=dict)
@@ -91,27 +92,46 @@ class SignalChainConf:
 def galileo_e1b_chain(fs: float, prns=tuple(range(1, 37)), n_channels=4,
                       track_pilot: bool = False,
                       **trk_overrides) -> SignalChainConf:
-    """Galileo E1-B data chain: BOC(1,1) sub-chip engines, 4 ms coherent
-    acquisition, decision-directed FLL pull-in.  (The JAX package's pilot
-    tracking, track_pilot=True, is not ported.)"""
-    if track_pilot:
-        raise NotImplementedError("track_pilot=True (E1-C pilot tracking "
-                                  "with CS25 secondary sync) is not ported")
+    """Galileo E1 chain: BOC(1,1) sub-chip engines, 4 ms coherent
+    acquisition, decision-directed FLL pull-in.
+
+    track_pilot=True is the reference's default E1 configuration
+    (Tracking_1B.track_pilot=true): the loops track the E1-C PILOT (CS25
+    secondary sync + wipeoff), which acquisition searches too, while a
+    data-prompt correlator taps E1-B for I/NAV telemetry
+    (dll_pll_veml_tracking.cc:1050-1061).  The port runs it on the
+    per-epoch kernels only: with extend_correlation_symbols == 1 the JAX
+    package closes such a chain on the block kernel, whose pilot form is
+    not ported, so that combination raises."""
     sig = signals.GALILEO_E1B
     trk_kw = dict(
         fs=fs, code_rate_cps=sig.sc_rate, code_length_chips=sig.sc_length,
         carrier_freq_hz=sig.carrier_freq_hz, early_late_space_chips=0.5,
         enable_fll_pullin=True, fll_decision_directed=True,
         fll_pullin_epochs=100)
+    code_provider = signals.CodeProvider("1B")
+    data_provider = None
+    if track_pilot:
+        trk_kw.update(
+            track_pilot=True,
+            secondary_code=tuple(
+                int(v) for v in (signals.e1c_secondary_code() > 0)))
+        code_provider = signals.CodeProvider("1B", "C")
+        data_provider = signals.CodeProvider("1B")
     trk_kw.update(trk_overrides)
+    trk = TrackingConf(**trk_kw)
+    if track_pilot and trk.extend_correlation_symbols == 1:
+        raise NotImplementedError(
+            "track_pilot=True with extend_correlation_symbols=1 (the block "
+            "kernel's pilot form: data replica FFT, CS25 sync) is not "
+            "ported")
     return SignalChainConf(
         signal="1B", system="Galileo", prns=tuple(prns),
         n_channels=n_channels, max_acq_channels=n_channels,
         acq=AcqConf(fs_in=fs, sampled_ms=4, doppler_step=125.0,
                     max_dwells=2, make_two_steps=True, doppler_step2=31.25),
-        trk=TrackingConf(**trk_kw),
-        code_provider=signals.CodeProvider("1B"),
-        sc_rate=sig.sc_rate)
+        trk=trk, code_provider=code_provider,
+        data_code_provider=data_provider, sc_rate=sig.sc_rate)
 
 
 def _wideband_chain(sig, fs: float, prns, n_channels: int,
@@ -248,9 +268,11 @@ class _ChainRt:
         self.mgr = AcquisitionManager(spec.prns, n,
                                       max_acq_channels=spec.max_acq_channels,
                                       pinned=spec.pinned)
-        self.trk = TrackingEngine(spec.trk, prns=[0] * n,
-                                  code_provider=spec.code_provider,
-                                  device=device)
+        self.trk = TrackingEngine(
+            spec.trk, prns=[0] * n, code_provider=spec.code_provider,
+            device=device,
+            data_code_provider=(spec.data_code_provider
+                                if spec.trk.track_pilot else None))
         self.tlm = spec.telemetry_decoder([0] * n)
         self.nominal = spec.trk.nominal_epoch_samples
         self.margin = self.trk._read_margin()

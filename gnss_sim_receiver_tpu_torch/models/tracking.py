@@ -1,12 +1,18 @@
 """Batched DLL/PLL tracking engine, PyTorch port of
 ``gnss_sim_receiver_tpu.models.tracking`` (``dll_pll`` mode: GPS L1 C/A with
-3 taps, Galileo E1-B data with 5 VEML taps).
+3 taps, Galileo E1-B data with 5 VEML taps, the E1-C pilot with a data-prompt
+correlator on E1-B, secondary-code sync and extended coherent integration).
 
 All channels advance one code epoch per step over a shared sample chunk;
 the per-channel sample pointer and the fractional code/carrier remnants are
-the carried :class:`TrackState`.  The per-epoch correlation is kernel K2
-(:func:`ops.correlator.multicorrelate`); the loop closure runs as torch ops
-on [C] tensors, in a Python loop over the epochs of a chunk.
+the carried :class:`TrackState`.  One epoch is the correlation, kernel K2
+(:func:`ops.correlator.multicorrelate`, with the data prompt of a pilot
+chain in the same pass), then the loop closure, kernel K9
+(:func:`epoch_closure`, ``csrc/epoch_step.cu``): secondary-code sync and
+wipeoff, bit sync and extended integration, DLL/PLL/FLL, C/N0 and lock,
+the masked commit and the epoch's row of the chunk's [T, C] output planes.
+Its plain version, :func:`_epoch_closure_plain`, is the JAX body's
+operations in its order; the CPU runs it.
 
 The host-side :class:`TrackingEngine` keeps absolute sample bookkeeping
 (int64) and the acquisition -> tracking handoff, and hands every chunk to
@@ -20,7 +26,9 @@ agree to rounding.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -28,14 +36,16 @@ import numpy as np
 import torch
 
 from gnss_sim_receiver_tpu_torch import constants
-from gnss_sim_receiver_tpu_torch.device import resolve_device, upload
+from gnss_sim_receiver_tpu_torch.device import (check_kernel_device,
+                                                require, resolve_device,
+                                                upload)
 from gnss_sim_receiver_tpu_torch.ops import cn0 as cn0_ops
+from gnss_sim_receiver_tpu_torch.ops import correlator, cuda_build
 from gnss_sim_receiver_tpu_torch.ops import discriminators
 from gnss_sim_receiver_tpu_torch.ops import loop_filters as lf
 from gnss_sim_receiver_tpu_torch.ops import prn_codes
-from gnss_sim_receiver_tpu_torch.ops.correlator import multicorrelate
 
-N_SEC_MAX = 32   # longest supported secondary code (TrackState layout)
+N_SEC_MAX = 32   # longest supported secondary code (NH20, CS25 fit)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -50,9 +60,8 @@ def f32(v) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class TrackingConf:
     """Reference Dll_Pll_Conf subset (tracking/libs/dll_pll_conf.h:42-80),
-    the fields of the dll_pll GPS L1 C/A and Galileo E1-B data chains.
-    Rates and lengths are in sub-chips for BOC signals (E1: 2.046e6 and
-    8184)."""
+    the fields of the dll_pll chains.  Rates and lengths are in sub-chips
+    for BOC signals (E1: 2.046e6 and 8184)."""
     fs: float = 2_000_000.0
     code_rate_cps: float = constants.GPS_L1_CA_CODE_RATE_CPS
     code_length_chips: int = constants.GPS_L1_CA_CODE_LENGTH_CHIPS
@@ -76,10 +85,25 @@ class TrackingConf:
     cn0_min_db_hz: float = 25.0
     carrier_lock_threshold: float = 0.75
     max_lock_fail: int = 50
-    # the block kernel closes its loops at block cadence with these
+    # extended coherent integration (reference tracking states 2->3->4,
+    # dll_pll_veml_tracking.cc:1789-2027): after bit sync (or, on a pilot,
+    # secondary-code sync) the prompts are summed coherently over
+    # extend_correlation_symbols epochs and the loops close at that cadence
+    # with the narrow bandwidths (the block kernel closes at block cadence
+    # with them too)
+    extend_correlation_symbols: int = 1
     pll_bw_narrow_hz: float = 15.0
     dll_bw_narrow_hz: float = 0.5
     bit_sync_min_transitions: int = 16
+    # secondary code (pilot channels: E1-C CS25, L5Q NH20): hard sign-match
+    # sync of the prompt signs against the sequence, then per-epoch wipeoff
+    # (reference acquire_secondary(), dll_pll_veml_tracking.cc:925-969)
+    secondary_code: tuple = ()
+    # track_pilot: the loops close on the pilot code (this conf's code and
+    # secondary describe the pilot) while a data-prompt correlator taps the
+    # data code for telemetry (dll_pll_veml_tracking.cc:1050-1061); the
+    # engine is then built with data_code_provider
+    track_pilot: bool = False
 
     @property
     def t_epoch_nominal_s(self) -> float:
@@ -98,8 +122,8 @@ class TrackingConf:
 
 class TrackState(NamedTuple):
     """Per-channel carried state; every field is [C]-shaped (the fields of
-    the JAX TrackState; the kf_*, ext_*, sec_* and bayes_* fields are
-    carried for layout parity and unused by dll_pll tracking)."""
+    the JAX TrackState; the kf_* and bayes_* fields are carried for layout
+    parity and unused by dll_pll tracking)."""
     active: torch.Tensor            # bool
     pos: torch.Tensor               # int32 next epoch start (chunk-relative)
     rem_code_phase: torch.Tensor    # float32 chips into the code period
@@ -126,11 +150,12 @@ class TrackState(NamedTuple):
     ext_p: torch.Tensor             # [C] complex64 coherent P accumulator
     ext_e: torch.Tensor             # [C] complex64 coherent E accumulator
     ext_l: torch.Tensor             # [C] complex64 coherent L accumulator
-    ext_n: torch.Tensor             # [C] int32 (block kernel: blocks run)
+    ext_n: torch.Tensor             # [C] int32 symbols accumulated (block
+    #                                 kernel: blocks run)
     sec_buf: torch.Tensor           # [C, N_SEC_MAX] recent prompt-I signs
     sec_synced: torch.Tensor        # [C] bool
-    sec_off: torch.Tensor           # [C] int32
-    sec_polarity: torch.Tensor      # [C] +-1
+    sec_off: torch.Tensor           # [C] int32: sec chip = sec[(e+off)%N]
+    sec_polarity: torch.Tensor      # [C] +-1 (180-deg phase lock flag)
     bayes_nu: torch.Tensor          # [C] float32
     bayes_psi_code: torch.Tensor    # [C] float32
     bayes_psi_carr: torch.Tensor    # [C] float32
@@ -218,6 +243,11 @@ def _arm_channel(s: TrackState, ch: int, doppler_hz: float,
     )
 
 
+def _fll_on(conf: TrackingConf) -> bool:
+    return conf.enable_fll_pullin and (conf.fll_decision_directed
+                                       or not conf.secondary_code)
+
+
 def code_rate_from_doppler(conf: TrackingConf, doppler) -> torch.Tensor:
     """Carrier-aided code rate (float32): rate * (1 + dop/fc)."""
     return (f32(conf.code_rate_cps)
@@ -225,16 +255,22 @@ def code_rate_from_doppler(conf: TrackingConf, doppler) -> torch.Tensor:
 
 
 def _dll_pll_update(conf: TrackingConf, state: TrackState, prompt,
-                    carr_err_cyc, code_err_chips, t_int):
+                    carr_err_cyc, code_err_chips, t_int,
+                    pll_bw_hz=None, dll_bw_hz=None, apply_fll=True):
     """Classic loop closure (run_dll_pll :1065-1152): FLL-assisted PLL +
-    carrier-aided DLL."""
-    wn = f32(conf.pll_bw_hz / 0.7845)            # third-order PLL
+    carrier-aided DLL.  Bandwidth overrides serve the narrow (extended
+    coherent integration) closure."""
+    pll_bw = conf.pll_bw_hz if pll_bw_hz is None else pll_bw_hz
+    dll_bw = conf.dll_bw_hz if dll_bw_hz is None else dll_bw_hz
+    wn = f32(pll_bw / 0.7845)                    # third-order PLL
     pll_acc = state.pll.acc + wn * wn * wn * t_int * carr_err_cyc
     pll_vel = state.pll.vel + t_int * (pll_acc
                                        + 1.1 * wn * wn * carr_err_cyc)
     out_gain = 2.4 * wn
-    # FLL assist during pull-in (run_dll_pll :1080-1099)
-    if conf.enable_fll_pullin:
+    # FLL assist during pull-in (run_dll_pll :1080-1099); a channel with a
+    # secondary code takes it only in decision-directed form (the
+    # every-epoch chip flips corrupt the four-quadrant pairs before sync)
+    if _fll_on(conf) and apply_fll:
         fll_fn = (discriminators.fll_cross_dot_decision
                   if conf.fll_decision_directed
                   else discriminators.fll_cross_dot)
@@ -248,37 +284,92 @@ def _dll_pll_update(conf: TrackingConf, state: TrackState, prompt,
     carrier_doppler = pll_vel + out_gain * carr_err_cyc
     # DLL with carrier aiding (:1126-1129)
     dll_new, dll_out = lf.second_order_step(
-        state.dll, code_err_chips, f32(conf.dll_bw_hz), t_int)
+        state.dll, code_err_chips, f32(dll_bw), t_int)
     code_freq = code_rate_from_doppler(conf, carrier_doppler) + dll_out
     return carrier_doppler, code_freq, pll_new, dll_new
 
 
-def _epoch_step(conf: TrackingConf, codes: torch.Tensor, taps: torch.Tensor,
-                x_chunk: torch.Tensor, state: TrackState):
-    """Advance every channel by one code epoch. Returns (state', outputs)."""
+# ---- the per-epoch step: the plain versions --------------------------------
+
+def secondary_pm1(conf: TrackingConf) -> np.ndarray:
+    """The conf's secondary code as +-1 float32 (a {0, 1} code maps 0 to
+    -1, as the JAX body reads it)."""
+    code = conf.secondary_code
+    if set(code) <= {0, 1}:
+        return np.array(code, np.float32) * 2.0 - 1.0
+    return np.array(code, np.float32)
+
+
+def _check_epoch_conf(conf: TrackingConf) -> None:
+    """The JAX body's asserts on the secondary code and the extension."""
+    n_sec = len(conf.secondary_code)
+    k_ext = conf.extend_correlation_symbols
+    if n_sec > N_SEC_MAX:
+        raise ValueError(f"secondary code longer than N_SEC_MAX={N_SEC_MAX}")
+    if k_ext > 1 and n_sec and n_sec % k_ext:
+        raise ValueError("extend_correlation_symbols must divide the "
+                         "secondary length")
+    if k_ext > 1 and not n_sec and 20 % k_ext:
+        raise ValueError("extend_correlation_symbols must divide 20")
+
+
+def _epoch_length(conf: TrackingConf, state: TrackState) -> torch.Tensor:
+    """Samples of each channel's next epoch from its code NCO
+    (update_tracking_vars :1189), int32 in [1, block_size]."""
+    n_c = torch.round((f32(conf.code_length_chips) - state.rem_code_phase)
+                      / state.code_freq * conf.fs).to(I32)
+    return torch.clamp(n_c, 1, conf.block_size)
+
+
+def _epoch_closure_plain(conf: TrackingConf, state: TrackState,
+                         corr: torch.Tensor, data_prompt, n_c: torch.Tensor):
+    """Plain version of K9: one epoch's loop closure from the correlations
+    `corr` [C, K] (and the data prompt [C] of a pilot chain, or None) over
+    `n_c` samples -> (the next TrackState, the epoch's output row)."""
+    _check_epoch_conf(conf)
     fs = conf.fs
+    dev = corr.device
     code_len = f32(conf.code_length_chips)
-
-    # --- epoch length from the current code NCO (update_tracking_vars) ----
-    n_c = torch.round((code_len - state.rem_code_phase)
-                      / state.code_freq * fs).to(I32)
-    n_c = torch.clamp(n_c, 1, conf.block_size)
     t_int = n_c.to(F32) / f32(fs)
-
-    # --- correlate (do_correlation_step :1037): kernel K2 ----------------
-    k_ovs = codes.shape[1] // conf.code_length_chips
-    corr = multicorrelate(x_chunk, state.pos, conf.block_size, codes, taps,
-                          state.rem_code_phase, state.code_freq,
-                          state.rem_carr_phase, state.carrier_doppler, n_c,
-                          fs, table_oversample=k_ovs)
     veml = conf.very_early_late_space_chips > 0.0
     if veml:   # taps = [VE, E, P, L, VL]
         v_early, early, prompt, late, v_late = corr.unbind(1)
     else:
         early, prompt, late = corr.unbind(1)
 
+    # --- secondary-code sync + wipeoff (acquire_secondary :925-969) -------
+    n_sec = len(conf.secondary_code)
+    if n_sec:
+        sec = _sec_device(conf, dev)
+        sign_now = torch.where(prompt.real >= 0.0, 1.0, -1.0)
+        slot = torch.remainder(state.epoch, n_sec)
+        slot_hot = (torch.arange(N_SEC_MAX, device=dev)[None, :]
+                    == slot[:, None])
+        sec_buf = torch.where(slot_hot, sign_now[:, None], state.sec_buf)
+        # hard sign-match over all cyclic shifts: buf[i] must equal
+        # polarity * sec[(i+off) % n] for one off with |corr| == n
+        shift = torch.zeros((n_sec, N_SEC_MAX), dtype=F32, device=dev)
+        i = torch.arange(n_sec, device=dev)
+        shift[:, :n_sec] = sec[(i[None, :] + i[:, None]) % n_sec]
+        corr_sec = sec_buf @ shift.T                           # [C, n_sec]
+        best_off = torch.argmax(torch.abs(corr_sec), dim=-1)
+        best = torch.gather(corr_sec, 1, best_off[:, None])[:, 0]
+        hit = (~state.sec_synced & (state.epoch >= n_sec)
+               & (torch.abs(best) >= float(np.float32(n_sec) - 0.5)))
+        sec_synced = state.sec_synced | hit
+        sec_off = torch.where(hit, best_off.to(I32), state.sec_off)
+        sec_polarity = torch.where(hit, torch.sign(best), state.sec_polarity)
+        chip_idx = torch.remainder(state.epoch + sec_off, n_sec)
+        wipe = torch.where(sec_synced, sec[chip_idx.long()] * sec_polarity,
+                           1.0)
+        prompt_w, early_w, late_w = prompt * wipe, early * wipe, late * wipe
+    else:
+        prompt_w, early_w, late_w = prompt, early, late
+        sec_buf, sec_synced = state.sec_buf, state.sec_synced
+        sec_off, sec_polarity = state.sec_off, state.sec_polarity
+
     # --- loop closure (run_dll_pll :1065) ---------------------------------
-    carr_err_cyc = discriminators.pll_costas(prompt) / (2.0 * math.pi)
+    carr_err_cyc = discriminators.pll_costas(prompt_w) / (2.0 * math.pi)
     if veml:
         code_err_chips = discriminators.dll_nc_vemlp_normalized(
             torch.abs(v_early), torch.abs(early), torch.abs(late),
@@ -288,7 +379,78 @@ def _epoch_step(conf: TrackingConf, codes: torch.Tensor, taps: torch.Tensor,
             torch.abs(early), torch.abs(late),
             f32(conf.early_late_space_chips))
     carrier_doppler, code_freq, pll_new, dll_new = _dll_pll_update(
-        conf, state, prompt, carr_err_cyc, code_err_chips, t_int)
+        conf, state, prompt_w, carr_err_cyc, code_err_chips, t_int)
+
+    # --- extended coherent integration (states 2->3->4) -------------------
+    bit_hist, prev_sign = state.bit_hist, state.prev_sign
+    bit_synced, bit_phase = state.bit_synced, state.bit_phase
+    ext_p, ext_e, ext_l = state.ext_p, state.ext_e, state.ext_l
+    ext_n = state.ext_n
+    k_ext = conf.extend_correlation_symbols
+    if k_ext > 1:
+        if n_sec:
+            # pilot: the secondary code is the symbol structure; groups
+            # align to its boundaries after wipeoff
+            bit_synced = sec_synced
+            prev_sign = torch.where(prompt_w.real >= 0, 1.0, -1.0)
+            at_bit_start = torch.remainder(state.epoch + sec_off, n_sec) == 0
+        else:
+            # on-device bit sync: histogram of prompt-I sign transitions
+            # over epoch % 20 (the reference's 20-symbol pattern sync,
+            # dll_pll_veml_tracking.cc:1852-1867)
+            prev_sign = torch.where(prompt.real >= 0, 1.0, -1.0)
+            flip = (state.prev_sign != 0.0) & (prev_sign != state.prev_sign)
+            idx20 = torch.remainder(state.epoch, 20)
+            bins = torch.arange(20, device=dev)[None, :]
+            onehot = (bins == idx20[:, None]).to(F32)
+            bit_hist = state.bit_hist + torch.where(
+                ((~state.bit_synced) & flip)[:, None], onehot, 0.0)
+            peak = torch.amax(bit_hist, dim=-1)
+            arg = torch.argmax(bit_hist, dim=-1)
+            second = torch.amax(torch.where(bins == arg[:, None], 0.0,
+                                            bit_hist), dim=-1)
+            # dominance test: sign errors scatter spurious transitions over
+            # all bins, so the top bin must clearly dominate
+            newly = (~state.bit_synced
+                     & (peak >= conf.bit_sync_min_transitions)
+                     & (peak >= 4.0 * torch.clamp(second, min=1.0)))
+            bit_synced = state.bit_synced | newly
+            bit_phase = torch.where(newly, arg.to(I32), state.bit_phase)
+            at_bit_start = idx20 == bit_phase
+        ext_on = bit_synced & (state.epoch >= conf.fll_pullin_epochs)
+        restart = at_bit_start | (state.ext_n <= 0)
+
+        def group(new, acc):
+            return torch.where(ext_on, torch.where(restart, new, acc + new),
+                               0.0)
+        ext_p = group(prompt_w, state.ext_p)
+        ext_e = group(early_w, state.ext_e)
+        ext_l = group(late_w, state.ext_l)
+        ext_n = torch.where(ext_on, torch.where(restart, 1, state.ext_n + 1),
+                            0)
+        close_now = ext_on & (ext_n == k_ext)
+        # narrow-bandwidth closure on the coherent sums
+        carr_err_ext = discriminators.pll_costas(ext_p) / (2.0 * math.pi)
+        code_err_ext = discriminators.dll_nc_e_minus_l_normalized(
+            torch.abs(ext_e), torch.abs(ext_l),
+            f32(conf.early_late_space_chips))
+        dop_ext, cf_ext, pll_ext, dll_ext = _dll_pll_update(
+            conf, state, prompt_w, carr_err_ext, code_err_ext,
+            t_int * k_ext, pll_bw_hz=conf.pll_bw_narrow_hz,
+            dll_bw_hz=conf.dll_bw_narrow_hz, apply_fll=False)
+
+        def sel3(wide, ext, hold):   # wide (pre-sync) | closed | hold
+            return torch.where(~ext_on, wide,
+                               torch.where(close_now, ext, hold))
+        carrier_doppler = sel3(carrier_doppler, dop_ext,
+                               state.carrier_doppler)
+        code_freq = sel3(code_freq, cf_ext, state.code_freq)
+        pll_new = lf.LoopFilterState(*map(sel3, pll_new, pll_ext, state.pll))
+        dll_new = lf.LoopFilterState(*map(sel3, dll_new, dll_ext, state.dll))
+        ext_p = torch.where(close_now, 0.0, ext_p)
+        ext_e = torch.where(close_now, 0.0, ext_e)
+        ext_l = torch.where(close_now, 0.0, ext_l)
+        ext_n = torch.where(close_now, 0, ext_n)
 
     # --- NCO phase carry with the frequencies USED this epoch -------------
     rem_code = state.rem_code_phase + state.code_freq * t_int - code_len
@@ -302,8 +464,9 @@ def _epoch_step(conf: TrackingConf, codes: torch.Tensor, taps: torch.Tensor,
     comp = (t_sum - state.acc_phase_cycles) - y
     pos_next = state.pos + n_c
 
-    # --- C/N0 + lock detection every cn0_window epochs (:972-1035) --------
-    acc = cn0_ops.accumulate(state.cn0_acc, prompt)
+    # --- C/N0 + lock detection every cn0_window epochs (:972-1035), on the
+    # secondary-wiped prompt ----------------------------------------------
+    acc = cn0_ops.accumulate(state.cn0_acc, prompt_w)
     window_done = torch.remainder(state.epoch + 1,
                                   conf.cn0_window_epochs) == 0
     cn0_new = cn0_ops.cn0_m2m4_estimate(acc, t_int)
@@ -328,6 +491,9 @@ def _epoch_step(conf: TrackingConf, codes: torch.Tensor, taps: torch.Tensor,
     def sel(new, old):
         return torch.where(act, new, old)
 
+    def sel_rows(new, old):
+        return torch.where(act[:, None], new, old)
+
     new_state = state._replace(
         active=act & ~lost,
         pos=torch.where(act, pos_next,
@@ -340,16 +506,28 @@ def _epoch_step(conf: TrackingConf, codes: torch.Tensor, taps: torch.Tensor,
         acc_phase_comp=sel(comp, state.acc_phase_comp),
         dll=lf.LoopFilterState(*map(sel, dll_new, state.dll)),
         pll=lf.LoopFilterState(*map(sel, pll_new, state.pll)),
-        prompt_prev=sel(prompt, state.prompt_prev),
+        prompt_prev=sel(prompt_w, state.prompt_prev),
         epoch=torch.where(act, state.epoch + 1, state.epoch),
         cn0_acc=cn0_ops.Cn0AccumState(*map(sel, acc, state.cn0_acc)),
         cn0_db_hz=sel(cn0_db, state.cn0_db_hz),
         carrier_lock=sel(carrier_lock, state.carrier_lock),
         lock_fail=sel(fail, state.lock_fail),
         lock_lost=sel(lost, state.lock_lost),
+        bit_hist=sel_rows(bit_hist, state.bit_hist),
+        prev_sign=sel(prev_sign, state.prev_sign),
+        bit_synced=sel(bit_synced, state.bit_synced),
+        bit_phase=sel(bit_phase, state.bit_phase),
+        ext_p=sel(ext_p, state.ext_p), ext_e=sel(ext_e, state.ext_e),
+        ext_l=sel(ext_l, state.ext_l), ext_n=sel(ext_n, state.ext_n),
+        sec_buf=sel_rows(sec_buf, state.sec_buf),
+        sec_synced=sel(sec_synced, state.sec_synced),
+        sec_off=sel(sec_off, state.sec_off),
+        sec_polarity=sel(sec_polarity, state.sec_polarity),
     )
     outputs = {
-        "prompt": prompt,
+        # telemetry reads "prompt": on a track_pilot chain the DATA
+        # component's prompt; the pilot prompt stays beside it
+        "prompt": prompt if data_prompt is None else data_prompt,
         "early_mag": torch.abs(early),
         "late_mag": torch.abs(late),
         "carrier_doppler_hz": state.carrier_doppler,
@@ -364,20 +542,342 @@ def _epoch_step(conf: TrackingConf, codes: torch.Tensor, taps: torch.Tensor,
         "n_samples": n_c,
         "cn0_db_hz": cn0_db,
         "valid": act,
+        "pilot_prompt": prompt,
     }
     return new_state, outputs
 
 
+def _correlate(conf: TrackingConf, codes, taps, x_chunk, state: TrackState,
+               n_c, data_codes=None):
+    """K2 over one epoch -> (corr [C, K], data prompt [C] or None): the
+    data prompt of a track_pilot chain is one more zero-offset tap on the
+    data table, in the same pass."""
+    k_ovs = codes.shape[1] // conf.code_length_chips
+    data = conf.track_pilot and data_codes is not None
+    corr = correlator.multicorrelate(
+        x_chunk, state.pos, conf.block_size, codes, taps,
+        state.rem_code_phase, state.code_freq, state.rem_carr_phase,
+        state.carrier_doppler, n_c, conf.fs, table_oversample=k_ovs,
+        data_codes=data_codes if data else None,
+        data_oversample=(data_codes.shape[1] // conf.code_length_chips
+                         if data else 1))
+    if data:
+        return corr[:, :-1], corr[:, -1]
+    return corr, None
+
+
+def _epoch_step(conf: TrackingConf, codes: torch.Tensor, taps: torch.Tensor,
+                x_chunk: torch.Tensor, state: TrackState,
+                data_codes: torch.Tensor | None = None):
+    """Advance every channel by one code epoch: K2, then the closure's
+    plain version.  Returns (state', outputs)."""
+    n_c = _epoch_length(conf, state)
+    corr, data_prompt = _correlate(conf, codes, taps, x_chunk, state, n_c,
+                                   data_codes)
+    return _epoch_closure_plain(conf, state, corr, data_prompt, n_c)
+
+
+# the chunk's [T, C] output planes (the block scan writes the first twelve;
+# the per-epoch scan all of them)
+PLANES = (("prompt", torch.complex64), ("early_mag", F32),
+          ("late_mag", F32), ("carrier_doppler_hz", F32),
+          ("code_freq_cps", F32), ("rem_code_phase_chips", F32),
+          ("acc_phase_cycles", F32), ("code_phase_samples", F32),
+          ("pos_start", I32), ("n_samples", I32), ("cn0_db_hz", F32),
+          ("valid", torch.bool))
+EPOCH_PLANES = PLANES + (("pilot_prompt", torch.complex64),)
+
+
+def _empty_planes(n_epochs: int, n_ch: int, device,
+                  planes=PLANES) -> dict:
+    return {k: torch.empty((n_epochs, n_ch), dtype=dt, device=device)
+            for k, dt in planes}
+
+
+# ---- kernel K9 ---------------------------------------------------------------
+
+# the TrackState fields that the epoch closure reads or writes, in the order
+# of csrc/epoch_step.cu's EpochStatePtrs ("dll_vel" is st.dll.vel, "acc_m2"
+# st.cn0_acc.sum_m2); kf_p, kf_fdot and bayes_* pass through unchanged
+_CN0_FIELDS = dict(zip(("acc_abs_i", "acc_abs_q", "acc_m2", "acc_m4",
+                        "acc_i", "acc_q", "acc_count"),
+                       cn0_ops.Cn0AccumState._fields))
+_EPOCH_STATE_FIELDS = (
+    ("active", torch.bool), ("pos", I32), ("rem_code_phase", F32),
+    ("code_freq", F32), ("carrier_doppler", F32), ("rem_carr_phase", F32),
+    ("acc_phase_cycles", F32), ("acc_phase_comp", F32), ("dll_vel", F32),
+    ("dll_acc", F32), ("pll_vel", F32), ("pll_acc", F32),
+    ("prompt_prev", torch.complex64), ("epoch", I32),
+    *((name, F32) for name in _CN0_FIELDS),
+    ("cn0_db_hz", F32), ("carrier_lock", F32), ("lock_fail", F32),
+    ("lock_lost", torch.bool), ("bit_hist", F32), ("prev_sign", F32),
+    ("bit_synced", torch.bool), ("bit_phase", I32),
+    ("ext_p", torch.complex64), ("ext_e", torch.complex64),
+    ("ext_l", torch.complex64), ("ext_n", I32), ("sec_buf", F32),
+    ("sec_synced", torch.bool), ("sec_off", I32), ("sec_polarity", F32))
+_WIDE = {"bit_hist": 20, "sec_buf": N_SEC_MAX}
+_P = ctypes.c_void_p
+_F = ctypes.c_float
+_I = ctypes.c_int
+
+
+def _epoch_field(st: TrackState, name: str) -> torch.Tensor:
+    if name[:4] in ("dll_", "pll_"):
+        return getattr(getattr(st, name[:3]), name[4:])
+    if name in _CN0_FIELDS:
+        return getattr(st.cn0_acc, _CN0_FIELDS[name])
+    return getattr(st, name)
+
+
+class _EpochStatePtrs(ctypes.Structure):
+    _fields_ = [(name, _P) for name, _ in _EPOCH_STATE_FIELDS]
+
+
+class _EpochPlanePtrs(ctypes.Structure):
+    _fields_ = [(name, _P) for name, _ in EPOCH_PLANES]
+
+
+class _EpochArgs(ctypes.Structure):
+    _fields_ = [("src", _EpochStatePtrs), ("dst", _EpochStatePtrs),
+                ("planes", _EpochPlanePtrs), ("corr", _P), ("n_c", _P),
+                ("sec", _P),
+                *((n, _F) for n in (
+                    "fs", "inv_fs", "code_len", "two_pi", "inv_two_pi",
+                    "el_gain", "veml_gain", "pll_k3", "pll_k11", "pll_k24",
+                    "npll_k3", "npll_k11", "npll_k24", "dll_k2", "dll_k14",
+                    "ndll_k2", "ndll_k14", "fll_k4", "k_ext_f",
+                    "lock_threshold", "cn0_min", "max_lock_fail",
+                    "code_rate", "inv_fc", "bit_sync_min", "sec_thresh")),
+                *((n, _I) for n in (
+                    "n_taps", "veml", "has_data", "n_ch", "n_rows", "n_sec",
+                    "k_ext", "fll_on", "fll_decision", "fll_pullin_epochs",
+                    "cn0_window", "block_size", "nominal"))]
+
+
+def _recip(v) -> float:
+    """1 / float32(v) in float32: how ATen's CUDA division by a CPU scalar
+    divides (it multiplies by this reciprocal)."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
+def _fl(v) -> float:
+    return float(np.float32(v))
+
+
+@functools.lru_cache(maxsize=None)
+def _epoch_constants(conf: TrackingConf) -> dict:
+    """The scalars of one conf's epoch closure, each rounded as the plain
+    version rounds it: the loop-filter gains are products of 0-d float32
+    CPU tensors there, computed here by the same torch expressions."""
+    def pll(bw):
+        wn = f32(bw / 0.7845)
+        return (float(wn * wn * wn), float(1.1 * wn * wn), float(2.4 * wn))
+
+    def dll(bw):
+        wn = f32(bw) / 0.53
+        return float(wn * wn), float(1.414213562 * wn)
+    sp = f32(conf.early_late_space_chips)
+    n_sec = len(conf.secondary_code)
+    c = dict(zip(("pll_k3", "pll_k11", "pll_k24"), pll(conf.pll_bw_hz)))
+    c.update(zip(("npll_k3", "npll_k11", "npll_k24"),
+                 pll(conf.pll_bw_narrow_hz)))
+    c.update(zip(("dll_k2", "dll_k14"), dll(conf.dll_bw_hz)))
+    c.update(zip(("ndll_k2", "ndll_k14"), dll(conf.dll_bw_narrow_hz)))
+    c.update(
+        fs=_fl(conf.fs), inv_fs=_recip(conf.fs),
+        code_len=_fl(conf.code_length_chips), two_pi=_fl(2.0 * math.pi),
+        inv_two_pi=_recip(2.0 * math.pi),
+        el_gain=float(0.5 * (2.0 - sp)), veml_gain=float(0.5 * sp),
+        fll_k4=float(4.0 * f32(conf.fll_bw_hz)),
+        k_ext_f=_fl(conf.extend_correlation_symbols),
+        lock_threshold=_fl(conf.carrier_lock_threshold),
+        cn0_min=_fl(conf.cn0_min_db_hz), max_lock_fail=_fl(conf.max_lock_fail),
+        code_rate=_fl(conf.code_rate_cps), inv_fc=_recip(conf.carrier_freq_hz),
+        bit_sync_min=_fl(conf.bit_sync_min_transitions),
+        sec_thresh=float(np.float32(n_sec) - 0.5),
+        veml=int(conf.very_early_late_space_chips > 0.0), n_sec=n_sec,
+        k_ext=conf.extend_correlation_symbols, fll_on=int(_fll_on(conf)),
+        fll_decision=int(conf.fll_decision_directed),
+        fll_pullin_epochs=conf.fll_pullin_epochs,
+        cn0_window=conf.cn0_window_epochs, block_size=conf.block_size,
+        nominal=conf.nominal_epoch_samples)
+    return c
+
+
+def _epoch_state_ptrs(st: TrackState, dev, what: str) -> _EpochStatePtrs:
+    c = st.active.shape[0]
+    ptrs = _EpochStatePtrs()
+    for name, dt in _EPOCH_STATE_FIELDS:
+        t = _epoch_field(st, name)
+        require(t, dt, dev, f"{what}: state field {name}")
+        shape = (c, _WIDE[name]) if name in _WIDE else (c,)
+        if t.shape != shape:
+            raise ValueError(f"{what}: state field {name} has shape "
+                             f"{tuple(t.shape)}, not {shape}")
+        setattr(ptrs, name, t.data_ptr())
+    return ptrs
+
+
+def _empty_epoch_state(st: TrackState) -> TrackState:
+    """A TrackState with fresh tensors for the fields the epoch closure
+    writes and `st`'s own tensors for the rest."""
+    def fresh(t):
+        return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    new = {name: fresh(getattr(st, name)) for name, _ in _EPOCH_STATE_FIELDS
+           if name[:4] not in ("dll_", "pll_") and name not in _CN0_FIELDS}
+    new["dll"] = lf.LoopFilterState(*map(fresh, st.dll))
+    new["pll"] = lf.LoopFilterState(*map(fresh, st.pll))
+    new["cn0_acc"] = cn0_ops.Cn0AccumState(*map(fresh, st.cn0_acc))
+    return st._replace(**new)
+
+
+@functools.lru_cache(maxsize=None)
+def _sec_device(conf: TrackingConf, dev: torch.device) -> torch.Tensor:
+    """The secondary code (+-1 float32) on `dev`, one upload per conf and
+    device; one zero for none."""
+    sec = secondary_pm1(conf) if conf.secondary_code else np.zeros(1)
+    return torch.from_numpy(sec.astype(np.float32)).to(dev)
+
+
+def _epoch_args(conf, corr, n_c, sec, src, dst, planes) -> _EpochArgs:
+    dev = corr.device
+    _check_epoch_conf(conf)
+    c = src.active.shape[0]
+    k = 5 if conf.very_early_late_space_chips > 0.0 else 3
+    has_data = corr.shape[1] - k
+    require(corr, torch.complex64, dev, "epoch_closure: corr")
+    require(n_c, I32, dev, "epoch_closure: n_c")
+    require(sec, F32, dev, "epoch_closure: sec")
+    if corr.shape[0] != c or has_data not in (0, 1) or n_c.shape != (c,) \
+            or sec.numel() < len(conf.secondary_code):
+        raise ValueError("epoch_closure: shape mismatch")
+    n_rows = planes["prompt"].shape[0]
+    pp = _EpochPlanePtrs()
+    for name, dt in EPOCH_PLANES:
+        require(planes[name], dt, dev, f"epoch_closure: plane {name}")
+        if planes[name].shape != (n_rows, c):
+            raise ValueError(f"epoch_closure: plane {name} shape")
+        setattr(pp, name, planes[name].data_ptr())
+    consts = _epoch_constants(conf)
+    return _EpochArgs(
+        src=_epoch_state_ptrs(src, dev, "epoch_closure"),
+        dst=_epoch_state_ptrs(dst, dev, "epoch_closure"),
+        planes=pp, corr=corr.data_ptr(), n_c=n_c.data_ptr(),
+        sec=sec.data_ptr(),
+        **{n: consts[n] for n, _ in _EpochArgs._fields_ if n in consts},
+        n_taps=k, has_data=has_data, n_ch=c, n_rows=n_rows)
+
+
+def _epoch_lib():
+    lib = cuda_build.load("epoch_step")
+    if lib.epoch_closure.argtypes is None:
+        lib.epoch_closure.argtypes = [_EpochArgs, _I, _P]
+        lib.epoch_closure.restype = _I
+    return lib
+
+
+def _launch_closure(args: _EpochArgs, row: int, stream: int) -> None:
+    cuda_build.check(_epoch_lib().epoch_closure(args, row, stream),
+                     "epoch_closure")
+    epoch_closure.launches += 1
+
+
+def _write_row(planes: dict, outs: dict, row: int) -> None:
+    for k, _ in EPOCH_PLANES:
+        planes[k][row] = outs[k]
+
+
+def epoch_closure(conf: TrackingConf, corr: torch.Tensor,
+                  n_c: torch.Tensor, st: TrackState, planes: dict,
+                  row: int) -> TrackState:
+    """K9 wrapper: one epoch's loop closure from its correlations `corr`
+    [C, K] or [C, K+1] (the last column the data prompt of a track_pilot
+    chain) over `n_c` samples; returns the next TrackState, writes the
+    epoch's row `row` of the chunk's [T, C] `planes` (EPOCH_PLANES) and,
+    on the card, the next epoch's lengths into `n_c`.  Launches
+    ``csrc/epoch_step.cu``'s epoch_closure for CUDA tensors, runs
+    :func:`_epoch_closure_plain` for CPU tensors."""
+    k = 5 if conf.very_early_late_space_chips > 0.0 else 3
+    if not check_kernel_device(corr, "epoch_closure"):
+        data = corr[:, k] if corr.shape[1] > k else None
+        new, outs = _epoch_closure_plain(conf, st, corr[:, :k], data, n_c)
+        _write_row(planes, outs, row)
+        n_c.copy_(_epoch_length(conf, new))
+        return new
+    out = _empty_epoch_state(st)
+    _launch_closure(_epoch_args(conf, corr, n_c,
+                                _sec_device(conf, corr.device), st, out,
+                                planes),
+                    row, torch.cuda.current_stream(corr.device).cuda_stream)
+    return out
+
+
+epoch_closure.launches = 0
+
+
+# ---- the chunk ---------------------------------------------------------------
+
+def _chunk_plain(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
+                 state: TrackState, data_codes=None):
+    """The epoch loop through the plain closure (K2 through its wrapper):
+    the form the CPU runs and the card's K9 is held against."""
+    planes = _empty_planes(n_epochs, codes.shape[0], x_chunk.device,
+                           EPOCH_PLANES)
+    for e in range(n_epochs):
+        state, outs = _epoch_step(conf, codes, taps, x_chunk, state,
+                                  data_codes)
+        _write_row(planes, outs, e)
+    return state, planes
+
+
+def _chunk_cuda(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
+                state: TrackState, data_codes=None):
+    """The epoch loop on the card: per epoch K2 then K9, into buffers
+    allocated once per chunk, with no host sync and no torch op between
+    them.  K9 writes the next epoch's lengths into the `n_c` buffer K2
+    reads; the state ping-pongs between two buffers; the launch arguments
+    of the three (source, destination) pairs are built once."""
+    dev = x_chunk.device
+    c = codes.shape[0]
+    k = taps.shape[0]
+    data = conf.track_pilot and data_codes is not None
+    planes = _empty_planes(n_epochs, c, dev, EPOCH_PLANES)
+    bufs = (_empty_epoch_state(state), _empty_epoch_state(state))
+    n_c = _epoch_length(conf, state)
+    corr = torch.empty((c, k + int(data)), dtype=torch.complex64, device=dev)
+    sec = _sec_device(conf, dev)
+    pairs = ((state, bufs[0]), (bufs[0], bufs[1]), (bufs[1], bufs[0]))
+    k_ovs = codes.shape[1] // conf.code_length_chips
+    d_ovs = data_codes.shape[1] // conf.code_length_chips if data else 1
+    k2_args = [correlator.launch_args(
+        x_chunk, src.pos, conf.block_size, codes, taps, src.rem_code_phase,
+        src.code_freq, src.rem_carr_phase, src.carrier_doppler, n_c,
+        conf.fs, k_ovs, corr, data_codes if data else None, d_ovs)
+        for src, _ in pairs]
+    k9_args = [_epoch_args(conf, corr, n_c, sec, src, dst, planes)
+               for src, dst in pairs]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for e in range(n_epochs):
+        i = 0 if e == 0 else 1 + (e - 1) % 2
+        correlator.launch(k2_args[i])
+        _launch_closure(k9_args[i], e, stream)
+    return bufs[(n_epochs - 1) % 2], planes
+
+
 def track_chunk(conf: TrackingConf, n_epochs: int, codes: torch.Tensor,
                 taps: torch.Tensor, x_chunk: torch.Tensor,
-                state: TrackState):
+                state: TrackState, data_codes: torch.Tensor | None = None):
     """Run `n_epochs` code epochs of every channel over one sample chunk.
-    Returns (new_state, outputs) with [T, C] output planes."""
-    outs = []
-    for _ in range(n_epochs):
-        state, o = _epoch_step(conf, codes, taps, x_chunk, state)
-        outs.append(o)
-    return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    Returns (new_state, outputs) with [T, C] output planes (EPOCH_PLANES).
+    On the card each epoch is K2 then K9; on the CPU K2's and K9's plain
+    versions.  `data_codes` are the data tables of a track_pilot chain."""
+    if n_epochs < 1:
+        raise ValueError("track_chunk: n_epochs must be >= 1")
+    if check_kernel_device(x_chunk, "track_chunk"):
+        return _chunk_cuda(conf, n_epochs, codes, taps, x_chunk, state,
+                           data_codes)
+    return _chunk_plain(conf, n_epochs, codes, taps, x_chunk, state,
+                        data_codes)
 
 
 # float planes pulled at the decimated (observable-tick) stride, fixed order
@@ -419,11 +919,12 @@ def pack_decim(outs: dict, new_state: TrackState, n_epochs: int,
 
 def track_chunk_packed_decim(conf: TrackingConf, n_epochs: int, decim: int,
                              codes: torch.Tensor, taps: torch.Tensor,
-                             x_chunk: torch.Tensor, state: TrackState):
+                             x_chunk: torch.Tensor, state: TrackState,
+                             data_codes: torch.Tensor | None = None):
     """track_chunk with the device -> host transfer cut to what the host
     pipeline consumes: (new_state, buf int32), see :func:`pack_decim`."""
     new_state, outs = track_chunk(conf, n_epochs, codes, taps, x_chunk,
-                                  state)
+                                  state, data_codes)
     return new_state, pack_decim(outs, new_state, n_epochs, decim)
 
 
@@ -439,23 +940,32 @@ class TrackingEngine:
     """
 
     def __init__(self, conf: TrackingConf, prns, code_provider=None,
-                 device=None):
+                 device=None, data_code_provider=None):
         """code_provider(prn) -> +-1 sub-chip table of length
         conf.code_length_chips (default: GPS L1 C/A); for BOC signals the
         sub-chip expansion (signals.subchip_table), conf rates in
-        sub-chip units."""
+        sub-chip units.  With conf.track_pilot, data_code_provider gives
+        the DATA component's table for the data-prompt correlator."""
         self.conf = conf
         self.device = resolve_device(device)
         self.code_provider = code_provider or prn_codes.gps_l1_ca_code
+        self.data_code_provider = data_code_provider
         self.prns = [int(p) for p in prns]
         self.n_channels = len(self.prns)
         # band-limited sub-chip replica tables: both kernels (per-epoch
         # gather and block FFT) correlate against the SAME filtered
         # waveform, so amplitudes and lock points agree across handoffs
         self.table_oversample = 8
-        self._codes_host = np.stack([self._replica_table(p)
-                                     for p in self.prns])
+        self._codes_host = np.stack([
+            self._replica_table(self.code_provider, p) for p in self.prns])
         self.codes = torch.from_numpy(self._codes_host).to(self.device)
+        self._data_host = self.data_codes = None
+        if conf.track_pilot and data_code_provider is not None:
+            self._data_host = np.stack([
+                self._replica_table(data_code_provider, p)
+                for p in self.prns])
+            self.data_codes = torch.from_numpy(self._data_host).to(
+                self.device)
         d = conf.early_late_space_chips
         dv = conf.very_early_late_space_chips
         if dv > 0.0:   # 5-tap VEML (reference very-early spacing, e.g. E1)
@@ -474,29 +984,37 @@ class TrackingEngine:
         self._code_freq_host = np.full(self.n_channels,
                                        conf.code_rate_cps, np.float64)
         self._dispatch_seq = 0
+        self.epochs_dispatched = 0      # every epoch of every chunk
         # host mirrors of the state flags, refreshed from the packed pull
         self.active_host = np.zeros(self.n_channels, bool)
         self.lock_lost_host = np.zeros(self.n_channels, bool)
         self._codes_rep = None          # block-kernel replica, built lazily
 
-    def _replica_table(self, prn: int) -> np.ndarray:
+    def _replica_table(self, provider, prn: int) -> np.ndarray:
         if prn <= 0:
             return np.zeros(
                 self.conf.code_length_chips * self.table_oversample,
                 np.float32)
         return prn_codes.bandlimited_table_normalized(
-            np.asarray(self.code_provider(prn), np.float32), self.conf.fs,
+            np.asarray(provider(prn), np.float32), self.conf.fs,
             self.conf.code_rate_cps, self.conf.nominal_epoch_samples,
             self.table_oversample)
 
     def set_channel_prn(self, ch: int, prn: int) -> None:
         """Re-point a channel at a different satellite (swaps its code-table
-        row; the tensor is replaced, never written in place, so a chunk
-        still in flight keeps the table it was dispatched with)."""
+        rows; the tensors are replaced, never written in place, so a chunk
+        still in flight keeps the tables it was dispatched with)."""
         self.prns[ch] = int(prn)
         self._codes_host = self._codes_host.copy()
-        self._codes_host[ch] = self._replica_table(int(prn))
+        self._codes_host[ch] = self._replica_table(self.code_provider,
+                                                   int(prn))
         self.codes = torch.from_numpy(self._codes_host).to(self.device)
+        if self._data_host is not None:
+            self._data_host = self._data_host.copy()
+            self._data_host[ch] = self._replica_table(
+                self.data_code_provider, int(prn))
+            self.data_codes = torch.from_numpy(self._data_host).to(
+                self.device)
         self._codes_rep = None
 
     def stop_channel(self, ch: int) -> None:
@@ -522,11 +1040,15 @@ class TrackingEngine:
         self.lock_lost_host[ch] = False
 
     def _read_margin(self) -> int:
-        """Samples a chunk may read past its last epoch: the larger of the
-        per-epoch block and the block kernel's window (+ guards)."""
+        """Samples a chunk may read past its last epoch: the per-epoch
+        block, or with extend_correlation_symbols == 1 (a chain the block
+        kernel may run) the larger of it and the block kernel's window
+        (+ guards), so chunk sizing never depends on the kernel choice."""
         from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
-        return max(self.conf.block_size + 64,
-                   tb.block_fft_size(self.conf) + 256 + 64)
+        m = self.conf.block_size + 64
+        if self.conf.extend_correlation_symbols == 1:
+            m = max(m, tb.block_fft_size(self.conf) + 256 + 64)
+        return m
 
     def max_position(self) -> int:
         active = self.active_host
@@ -548,7 +1070,8 @@ class TrackingEngine:
 
     def block_mode_ok(self, n_epochs: int) -> bool:
         """Whether this chunk can run on the block kernel."""
-        return (n_epochs % self.block_epochs == 0
+        return (self.conf.extend_correlation_symbols == 1
+                and n_epochs % self.block_epochs == 0
                 and n_epochs >= 2 * self.block_epochs)
 
     def _ensure_block_tables(self):
@@ -557,17 +1080,24 @@ class TrackingEngine:
             self._codes_rep = tb.code_spectra(self.conf, self._codes_host,
                                               device=self.device)
 
+    def process(self, x, x_abs_start: int, n_epochs: int, decim: int = 1):
+        """Track `n_epochs` epochs of the samples `x` (absolute start index
+        `x_abs_start`) on the per-epoch kernels: process_begin + process_end,
+        by default with every epoch's observable planes (decim=1)."""
+        return self.process_end(self.process_begin(x, x_abs_start, n_epochs,
+                                                   decim))
+
     def process_begin(self, x, x_abs_start: int, n_epochs: int,
                       decim: int, use_blocks: bool = False):
         """Dispatch the chunk's device work; returns an opaque handle for
         process_end.  The transfer is the rate-split format: int8 prompt
-        symbols per epoch + the observable planes every decim-th epoch.
+        symbols per epoch + the observable planes every decim-th epoch
+        (decim=1: every epoch).
 
         `x` is the capture (a device tensor, sliced in place, or a NumPy
         array, uploaded per chunk) with absolute start index x_abs_start."""
-        if decim is None or decim <= 1:
-            raise NotImplementedError(
-                "the port carries the decimated transfer only (decim > 1)")
+        if decim is None or decim < 1:
+            raise ValueError("decim must be >= 1")
         active = self.active_host
         if not active.any():
             raise RuntimeError("no active channels")
@@ -581,6 +1111,11 @@ class TrackingEngine:
                 "engine a windowed sample array with a larger x_abs_start")
         from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
         use_blk = use_blocks and self.block_mode_ok(n_epochs)
+        if use_blk and (self.conf.secondary_code or self.conf.track_pilot):
+            raise NotImplementedError(
+                "the block kernel's secondary-code sync and data prompt "
+                "(a pilot chain with extend_correlation_symbols == 1) are "
+                "not ported")
         blk_extra = tb.block_fft_size(self.conf) + 256 if use_blk else 0
         need0 = int(rel[active].max()) + n_epochs * (
             self.conf.nominal_epoch_samples + 2) + self.conf.block_size
@@ -630,7 +1165,7 @@ class TrackingEngine:
         else:
             new_state, buf = track_chunk_packed_decim(
                 self.conf, int(n_epochs), int(decim), self.codes,
-                self.taps, x_dev, state)
+                self.taps, x_dev, state, self.data_codes)
         meta = self._chain_dispatch(new_state, x_abs_start, n_epochs)
         return (new_state, buf, int(x_abs_start), int(n_epochs), int(decim),
                 meta)
@@ -643,6 +1178,7 @@ class TrackingEngine:
         self.state = new_state            # pos stays window-relative
         self._chain_base = int(x_abs_start)
         self._dispatch_seq += 1
+        self.epochs_dispatched += n_epochs
         act = self.active_host
         s_per = (self.conf.fs * self.conf.code_length_chips
                  / self._code_freq_host)

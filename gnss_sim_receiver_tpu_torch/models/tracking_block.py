@@ -44,8 +44,8 @@ import torch
 
 from gnss_sim_receiver_tpu_torch.device import check_kernel_device, require
 from gnss_sim_receiver_tpu_torch.models.tracking import (
-    F32, I32, TrackState, TrackingConf, code_rate_from_doppler, f32,
-    pack_decim)
+    F32, I32, PLANES, TrackState, TrackingConf, _empty_planes, _fl, _recip,
+    code_rate_from_doppler, f32, pack_decim)
 from gnss_sim_receiver_tpu_torch.ops import cuda_build, discriminators
 from gnss_sim_receiver_tpu_torch.ops import loop_filters as lf
 
@@ -448,20 +448,6 @@ def _block_closure_plain(conf: TrackingConf, e_block: int, corr,
     return new_state, outs
 
 
-# the chunk's [T, C] output planes, the outputs of track_chunk
-PLANES = (("prompt", torch.complex64), ("early_mag", F32),
-          ("late_mag", F32), ("carrier_doppler_hz", F32),
-          ("code_freq_cps", F32), ("rem_code_phase_chips", F32),
-          ("acc_phase_cycles", F32), ("code_phase_samples", F32),
-          ("pos_start", I32), ("n_samples", I32), ("cn0_db_hz", F32),
-          ("valid", torch.bool))
-
-
-def _empty_planes(n_epochs: int, n_ch: int, device) -> dict:
-    return {k: torch.empty((n_epochs, n_ch), dtype=dt, device=device)
-            for k, dt in PLANES}
-
-
 def _write_rows(planes: dict, outs: dict, block: int, e_block: int) -> None:
     """Block `block`'s [E, C] outputs into rows block*E.. of the planes."""
     rows = slice(block * e_block, (block + 1) * e_block)
@@ -528,16 +514,6 @@ class _ClosureArgs(ctypes.Structure):
                 *((n, _I) for n in (
                     "s0", "n_epochs", "n_taps", "n_ch", "n_rows",
                     "fll_pullin_epochs", "enable_fll", "fll_decision"))]
-
-
-def _recip(v) -> float:
-    """1 / float32(v) in float32: how ATen's CUDA division by a CPU scalar
-    divides (it multiplies by this reciprocal)."""
-    return float(np.float32(1.0) / np.float32(v))
-
-
-def _fl(v) -> float:
-    return float(np.float32(v))
 
 
 @functools.lru_cache(maxsize=None)

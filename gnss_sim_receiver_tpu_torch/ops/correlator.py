@@ -6,9 +6,11 @@ a per-channel offset, against K shifted copies of its code.
 
 :func:`multicorrelate` is the wrapper the tracking loop calls.  On a CUDA
 tensor it launches the hand-written kernel ``csrc/multicorrelator.cu``
-(gather, carrier NCO, wipeoff, code NCO, K dot products in one launch); on
-a CPU tensor it runs the plain version, :func:`gather_blocks` followed by
-:func:`correlate_multitap`, which mirror the JAX functions line by line.
+(gather, carrier NCO, wipeoff, code NCO, K dot products in one launch, and
+on a track_pilot chain the data prompt from a second table in the same
+pass); on a CPU tensor it runs the plain version, :func:`gather_blocks`
+followed by :func:`correlate_multitap` (once more on the data table with a
+zero tap), which mirror the JAX functions line by line.
 """
 
 from __future__ import annotations
@@ -71,16 +73,47 @@ def multicorrelate(x: torch.Tensor, positions: torch.Tensor,
                    rem_carrier_phase_rad: torch.Tensor,
                    carrier_doppler_hz: torch.Tensor,
                    n_samples: torch.Tensor, fs: float,
-                   table_oversample: int = 1) -> torch.Tensor:
+                   table_oversample: int = 1,
+                   data_codes: torch.Tensor | None = None,
+                   data_oversample: int = 1) -> torch.Tensor:
     """K2 wrapper: gather_blocks + correlate_multitap -> [C, K] complex64.
-    Launches ``csrc/multicorrelator.cu`` for CUDA tensors and runs the
-    plain version for CPU tensors."""
+    With `data_codes` ([C, L'] tables, `data_oversample` entries per chip)
+    one more zero-offset tap on them comes out of the same pass: [C, K+1],
+    the last column the data prompt of a track_pilot chain.  Launches
+    ``csrc/multicorrelator.cu`` for CUDA tensors and runs the plain version
+    for CPU tensors."""
     if not check_kernel_device(x, "multicorrelate"):
         blocks = gather_blocks(x, positions, block_size)
-        return correlate_multitap(
-            blocks, codes, taps, rem_code_phase_chips, code_freq_chips,
-            rem_carrier_phase_rad, carrier_doppler_hz, n_samples, fs,
-            table_oversample)
+        nco = (rem_code_phase_chips, code_freq_chips, rem_carrier_phase_rad,
+               carrier_doppler_hz, n_samples, fs)
+        corr = correlate_multitap(blocks, codes, taps, *nco,
+                                  table_oversample)
+        if data_codes is None:
+            return corr
+        zero_tap = torch.zeros(1, dtype=torch.float32, device=x.device)
+        return torch.cat([corr, correlate_multitap(
+            blocks, data_codes, zero_tap, *nco, data_oversample)], dim=1)
+    out = torch.empty((codes.shape[0], taps.shape[0]
+                       + (data_codes is not None)),
+                      dtype=torch.complex64, device=x.device)
+    launch(launch_args(x, positions, block_size, codes, taps,
+                       rem_code_phase_chips, code_freq_chips,
+                       rem_carrier_phase_rad, carrier_doppler_hz, n_samples,
+                       fs, table_oversample, out, data_codes,
+                       data_oversample))
+    return out
+
+
+multicorrelate.launches = 0
+
+
+def launch_args(x, positions, block_size, codes, taps, rem_code_phase_chips,
+                code_freq_chips, rem_carrier_phase_rad, carrier_doppler_hz,
+                n_samples, fs, table_oversample, out, data_codes=None,
+                data_oversample=1) -> tuple:
+    """K2's checked launch arguments on CUDA tensors, writing into `out`
+    ([C, K], or [C, K+1] with `data_codes`): build once, launch with
+    :func:`launch` as often as the tensors hold the next inputs."""
     c, table_len = codes.shape
     k = taps.shape[0]
     f32 = torch.float32
@@ -89,7 +122,10 @@ def multicorrelate(x: torch.Tensor, positions: torch.Tensor,
                 code_freq=(code_freq_chips, f32),
                 rem_carr=(rem_carrier_phase_rad, f32),
                 dop=(carrier_doppler_hz, f32), pos=(positions, torch.int32),
-                n_samples=(n_samples, torch.int32))
+                n_samples=(n_samples, torch.int32),
+                out=(out, torch.complex64))
+    if data_codes is not None:
+        args["data_codes"] = (data_codes, f32)
     for name, (t, dt) in args.items():
         require(t, dt, x.device, f"multicorrelate: {name}")
     require(x, torch.complex64, x.device, "multicorrelate: x")
@@ -97,22 +133,27 @@ def multicorrelate(x: torch.Tensor, positions: torch.Tensor,
         raise ValueError("multicorrelate: x must be one-dimensional")
     if x.shape[0] < block_size:
         raise ValueError("multicorrelate: chunk shorter than one block")
-    out = torch.empty((c, k), dtype=torch.complex64, device=x.device)
-    lib = _lib()
+    n_out = k + (data_codes is not None)
+    if out.shape != (c, n_out) or (data_codes is not None
+                                   and data_codes.shape[0] != c):
+        raise ValueError("multicorrelate: shape mismatch")
     inv_fs = float(torch.tensor(1.0 / fs, dtype=f32))
-    err = lib.multicorrelate(
-        x.data_ptr(), x.shape[0], codes.data_ptr(), table_len,
-        taps.data_ptr(), k, positions.data_ptr(),
-        rem_code_phase_chips.data_ptr(), code_freq_chips.data_ptr(),
-        rem_carrier_phase_rad.data_ptr(), carrier_doppler_hz.data_ptr(),
-        n_samples.data_ptr(), inv_fs, float(table_oversample), block_size,
-        out.data_ptr(), c, torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "multicorrelate")
+    return (x.data_ptr(), x.shape[0], codes.data_ptr(), table_len,
+            taps.data_ptr(), k, positions.data_ptr(),
+            rem_code_phase_chips.data_ptr(), code_freq_chips.data_ptr(),
+            rem_carrier_phase_rad.data_ptr(), carrier_doppler_hz.data_ptr(),
+            n_samples.data_ptr(), inv_fs, float(table_oversample),
+            block_size,
+            None if data_codes is None else data_codes.data_ptr(),
+            0 if data_codes is None else data_codes.shape[1],
+            float(data_oversample), out.data_ptr(), c,
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def launch(args: tuple) -> None:
+    """Launch K2 with :func:`launch_args`' arguments; counts the launch."""
+    cuda_build.check(_lib().multicorrelate(*args), "multicorrelate")
     multicorrelate.launches += 1
-    return out
-
-
-multicorrelate.launches = 0
 
 
 def _lib():
@@ -120,6 +161,7 @@ def _lib():
     fn = lib.multicorrelate
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, f, f, i, p, i, p]
+        fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, f, f, i, p, i, f,
+                       p, i, p]
         fn.restype = ctypes.c_int
     return lib

@@ -13,10 +13,10 @@ No ``--use_fast_math``: the block correlator's angles reach ~2*pi*(1 +
 keeps; the FIR kernel's LO phase reaches millions of radians and the device
 generator's carrier phase ~130 rad within an anchor block.
 
-``block_step.cu`` (K8a, K8b) alone is built with ``--fmad=false``: it
-repeats the plain PyTorch version operation by operation, where every
-torch op rounds on its own, so no ``a*b+c`` may be contracted into an FMA.
-The other sources keep nvcc's default.
+``block_step.cu`` (K8a, K8b) and ``epoch_step.cu`` (K9) are built with
+``--fmad=false``: they repeat the plain PyTorch version operation by
+operation, where every torch op rounds on its own, so no ``a*b+c`` may be
+contracted into an FMA.  The other sources keep nvcc's default.
 """
 
 from __future__ import annotations
@@ -33,11 +33,12 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("block_correlator", "multicorrelator", "fir_decim", "notch",
-           "device_generator", "block_step")
+           "device_generator", "block_step", "epoch_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags of one source beyond NVCC_FLAGS
-SOURCE_FLAGS = {"block_step": ("--fmad=false",)}
+SOURCE_FLAGS = {"block_step": ("--fmad=false",),
+                "epoch_step": ("--fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -268,11 +268,14 @@ def test_launch_structs_match_the_cuda_source(name):
 
 
 def test_block_step_builds_without_contraction():
-    """block_step.cu alone gets --fmad=false (it repeats torch's rounding
-    operation by operation); no source is built with fast math."""
-    assert "block_step" in cuda_build.SOURCES
-    assert "--fmad=false" in cuda_build.nvcc_flags("block_step")
+    """block_step.cu and epoch_step.cu alone get --fmad=false (they repeat
+    torch's rounding operation by operation); no source is built with fast
+    math."""
+    exact = ("block_step", "epoch_step")
+    for name in exact:
+        assert name in cuda_build.SOURCES
+        assert "--fmad=false" in cuda_build.nvcc_flags(name)
     for name in cuda_build.SOURCES:
         assert "--use_fast_math" not in cuda_build.nvcc_flags(name)
-        if name != "block_step":
+        if name not in exact:
             assert cuda_build.nvcc_flags(name) == cuda_build.NVCC_FLAGS

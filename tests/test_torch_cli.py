@@ -163,7 +163,6 @@ def test_factory_matches_jax_on_the_hybrid_conf(tmp_path, impl, variant):
     "Acquisition_1B.implementation=Galileo_E1_PCPS_QuickSync_Acquisition",
     "Tracking_1B.implementation=Galileo_E1_DLL_PLL_VEML_Tracking_Fpga",
     "Acquisition_1B.use_CFAR_algorithm=false",
-    "Tracking_1B.extend_correlation_symbols=4",
     "Channels_1B.RF_channel_ID=1",
 ])
 def test_factory_refuses_unported_e1_keys(tmp_path, line):
@@ -173,6 +172,60 @@ def test_factory_refuses_unported_e1_keys(tmp_path, line):
     with pytest.raises(NotImplementedError, match="not ported") as err:
         factory.receiver_conf_from_config(FileConfiguration(path))
     assert line.split("=")[0] in str(err.value)
+
+
+@pytest.mark.parametrize("line", [
+    "Tracking_1B.extend_correlation_symbols=4",
+    "Tracking_1C.extend_correlation_symbols=20",
+])
+def test_factory_maps_extend_correlation_symbols_like_jax(tmp_path, line):
+    """Tracking_<sig>.extend_correlation_symbols reaches the chain's
+    TrackingConf as the JAX factory puts it there (factory.py:246-252); the
+    whole configuration agrees field by field."""
+    path = _write_conf(tmp_path, "Channels_1B.count=2\n" + line + "\n",
+                       "ext.conf")
+    ref = jfactory.receiver_conf_from_config(JaxFileConfiguration(path))
+    got = factory.receiver_conf_from_config(FileConfiguration(path))
+    assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    value = int(line.split("=")[1])
+    sig = line.split("_")[1].split(".")[0]
+    (chain,), (ref_chain,) = got.chains, ref.chains
+    trk, ref_trk = ((got.trk, ref.trk) if sig == "1C"
+                    else (chain.trk, ref_chain.trk))
+    assert trk.extend_correlation_symbols == \
+        ref_trk.extend_correlation_symbols == value
+
+
+@pytest.mark.parametrize("ext", [1, 5])
+def test_e1_pilot_chain_like_jax_or_not_ported(ext):
+    """galileo_e1b_chain(track_pilot=True) builds the JAX chain's
+    configuration (pilot code, CS25, the data code beside) at
+    extend_correlation_symbols 5, and refuses 1, which the JAX package
+    closes on the block kernel's pilot form."""
+    from gnss_sim_receiver_tpu import signals as jsig
+    from gnss_sim_receiver_tpu.models import receiver as jrx
+    from gnss_sim_receiver_tpu_torch import signals
+    from gnss_sim_receiver_tpu_torch.models import receiver as prx
+    if ext == 1:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            prx.galileo_e1b_chain(4e6, track_pilot=True)
+        return
+    kw = dict(n_channels=3, track_pilot=True, extend_correlation_symbols=ext)
+    ref = jrx.ReceiverConf(fs=4e6, gps_chain=False,
+                           chains=(jrx.galileo_e1b_chain(4e6, **kw),))
+    got = prx.ReceiverConf(fs=4e6, gps_chain=False,
+                           chains=(prx.galileo_e1b_chain(4e6, **kw),))
+    assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    (chain,), (ref_chain,) = got.chains, ref.chains
+    assert chain.trk.track_pilot and chain.trk.secondary_code == \
+        ref_chain.trk.secondary_code and len(chain.trk.secondary_code) == 25
+    for mine, theirs in ((chain.code_provider, ref_chain.code_provider),
+                         (chain.data_code_provider,
+                          ref_chain.data_code_provider)):
+        assert np.array_equal(mine(12), theirs(12))
+    assert chain.code_provider == signals.CodeProvider("1B", "C")
+    assert np.array_equal(chain.data_code_provider(12),
+                          jsig.subchip_table(jsig.GALILEO_E1B, 12))
 
 
 def test_factory_defaults_match_jax():
@@ -191,7 +244,6 @@ def test_factory_defaults_match_jax():
     "PVT.share_rx_clock_bias=true",
     "Acquisition_1C.pfa=0",
     "Tracking_1C.implementation=GPS_L1_CA_KF_Tracking",
-    "Tracking_1C.extend_correlation_symbols=20",
     "Tracking_1C.order=2",
     "Channels_7X.count=4",
     "Channels_2S.count=2",

@@ -11,7 +11,8 @@ CPU, and its state carries across intact.
 - the entry points raise without a card unless device="cpu" is passed;
 - chip_smoke.py fails, printing no result line, without a card and in a
   directory that holds nothing else of the repo;
-- interop round-trips a TrackState and the acquisition tables exactly.
+- interop round-trips a TrackState (its secondary-code, extended-
+  integration and bit-sync fields too) and the acquisition tables exactly.
 """
 
 import ast
@@ -154,6 +155,18 @@ outs = te.process_end(te.process_begin(x, 0, 10, decim=5))
 assert outs["valid_full"].all() and outs["sample_counter"].shape == (2, 1)
 GalileoE1bTelemetryDecoder([12]).process({"prompt": outs["prompt"],
                                           "valid": outs["valid_full"]})
+# the pilot slice: the E1-C pilot chain (CS25, extended integration) with
+# its data-prompt correlator through the per-epoch closure's plain version
+from gnss_sim_receiver_tpu_torch.models.receiver import galileo_e1b_chain
+pilot = galileo_e1b_chain(fs, prns=(12,), n_channels=1, track_pilot=True,
+                          extend_correlation_symbols=5)
+te = trk.TrackingEngine(pilot.trk, [12], code_provider=pilot.code_provider,
+                        data_code_provider=pilot.data_code_provider,
+                        device="cpu")
+assert te.data_codes is not None and te.codes.shape == te.data_codes.shape
+te.start_tracking(0, float(res.doppler_hz[0]), int(res.delay_samples[0]))
+outs = te.process(x, 0, 10)
+assert outs["valid_full"].all() and int(te.state.epoch[0]) == 10
 assert len(inav.pages_for_ephemeris(
     __import__("gnss_sim_receiver_tpu_torch.nav.ephemeris",
                fromlist=["x"]).make_sky_constellation(40.0, -75.0,
@@ -262,6 +275,20 @@ def test_interop_round_trip():
     st = st._replace(pos=torch.tensor([5, -7, 123456], dtype=torch.int32),
                      prompt_prev=torch.tensor([1 + 2j, -3j, 0.5],
                                               dtype=torch.complex64))
+    # the secondary-code, extended-integration and bit-sync fields
+    st = st._replace(
+        sec_buf=torch.where(torch.rand(3, 32) < 0.5, 1.0, -1.0),
+        sec_synced=torch.tensor([True, False, True]),
+        sec_off=torch.tensor([3, 0, 24], dtype=torch.int32),
+        sec_polarity=torch.tensor([-1.0, 1.0, 1.0]),
+        ext_p=torch.tensor([1 - 2j, 0, 3.5j], dtype=torch.complex64),
+        ext_e=torch.tensor([2 + 1j, 0, -1], dtype=torch.complex64),
+        ext_l=torch.tensor([-2j, 0, 4], dtype=torch.complex64),
+        ext_n=torch.tensor([4, 0, 19], dtype=torch.int32),
+        bit_hist=torch.randint(0, 17, (3, 20)).float(),
+        prev_sign=torch.tensor([1.0, 0.0, -1.0]),
+        bit_synced=torch.tensor([False, True, True]),
+        bit_phase=torch.tensor([0, 7, 19], dtype=torch.int32))
     arrays = interop.track_state_to_numpy(st)
     assert "dll.vel" in arrays and "cn0_acc.sum_m4" in arrays
     back = interop.track_state_from_numpy(arrays, "cpu")
@@ -270,6 +297,14 @@ def test_interop_round_trip():
         assert a.dtype == b.dtype and np.array_equal(a, b)
     assert back.pos.dtype == torch.int32
     assert back.prompt_prev.dtype == torch.complex64
+    for name, dt in (("sec_buf", torch.float32), ("sec_synced", torch.bool),
+                     ("sec_off", torch.int32), ("sec_polarity", torch.float32),
+                     ("ext_p", torch.complex64), ("ext_e", torch.complex64),
+                     ("ext_l", torch.complex64), ("ext_n", torch.int32),
+                     ("bit_hist", torch.float32), ("prev_sign", torch.float32),
+                     ("bit_synced", torch.bool), ("bit_phase", torch.int32)):
+        assert getattr(back, name).dtype == dt, name
+        assert torch.equal(getattr(back, name), getattr(st, name)), name
     tables = {"code_fft_conj": np.array([[1 + 1j, 2 - 1j]], np.complex64),
               "dopplers": np.array([-250.0, 0.0, 250.0], np.float32)}
     t = interop.acq_tables_from_numpy(tables, "cpu")
