@@ -21,7 +21,11 @@ Phases (any failure exits non-zero, before the result line):
    Doppler boxcar, K5a, K5b, K5c, K5d in both modes, K6) against its
    plain PyTorch version on the card at the shape its path
    launches it at, with the stated tolerance, and its time there beside
-   the plain version's and its bound; other shapes of the same kernels
+   the plain version's and its bound (K1 and K2, which split each channel
+   over S CTAs and reduce in-launch, also launched twice for bit-identical
+   results, their arrival counters read back at 0 after the timing, K1
+   with two window starts out of range, K2's staged-table misses
+   printed); other shapes of the same kernels
    (the ``other_shapes`` line: among them K1, K2, K3, K3b and K6 at phase
    7's shapes); once phase 4's capture is written, one 50-block chunk of
    phase 4's path through the kernels and through the plain block body;
@@ -259,8 +263,9 @@ def check_k1(dev, rng, conf, c: int, e: int, taps, chunk_epochs: int,
     rf = torch.from_numpy((rng.standard_normal((c, nfft))
                            + 1j * rng.standard_normal((c, nfft))
                            ).astype(np.complex64)).to(dev)
-    w0 = torch.from_numpy(rng.integers(0, n_wins - e, c).astype(np.int32)
-                          ).to(dev)
+    w0_np = rng.integers(0, n_wins - e, c).astype(np.int32)
+    w0_np[:2] = (-2, n_wins)       # both clamps: the start below 0, past W-E
+    w0 = torch.from_numpy(w0_np).to(dev)
     lag = rng.uniform(16.0, 16.0 + s0, (c, e)).astype(np.float32)
     lag_int = np.round(lag).astype(np.int32)
     w_max = 2 * np.pi * 5000.0 / fs          # +-5 kHz of Doppler
@@ -273,23 +278,48 @@ def check_k1(dev, rng, conf, c: int, e: int, taps, chunk_epochs: int,
                              * np.float32(fs / rate)).to(dev),
             torch.from_numpy(rng.uniform(-w_max, w_max, c).astype(np.float32)
                              ).to(dev))
-    got = tb.block_correlate(*args)
+    scratch = tb.k1_scratch(c, e, k, nfft, dev)
+    slabs = scratch.partials.shape[1]
+    got = tb.block_correlate(*args, scratch=scratch)
+    again = tb.block_correlate(*args, scratch=scratch)
     want = tb._block_correlate_plain(*args)
     torch.cuda.synchronize()
     err = compare(f"{name} ({label})", got, want, 1e-4)
-    ms = time_ms(lambda: tb.block_correlate(*args))
+    same_bits(f"{name} ({label})", got, again)
+    ms = time_ms(lambda: tb.block_correlate(*args, scratch=scratch))
+    counters_at_zero(f"{name} ({label})", scratch.arrivals)
     plain = time_ms(lambda: tb._block_correlate_plain(*args), reps=3)
-    rows = len({int(w) + i for w in w0.tolist() for i in range(e)})
+    rows = len({min(max(int(w), 0), n_wins - e) + i for w in w0_np
+                for i in range(e)})
     n_bytes = rows * nfft * 8 + c * nfft * 8 + c * e * (4 * 3) + c * e * k * 8
-    # per (c, e, f): lag angle 4, sincos 2, two complex products 12;
-    # per tap: angle 3, sincos 2, complex multiply-accumulate 8
-    n_ops = c * e * nfft * (18 + k * 13)
+    # per (c, k, f): tap angle 3, sincos 2; per (c, e, f): lag angle 4,
+    # sincos 2, two complex products 12, a complex multiply-accumulate 8
+    # per tap
+    n_ops = c * nfft * (k * 5 + e * (18 + k * 8))
     return _row(name, "cuda",
                 "gnss_sim_receiver_tpu_torch/csrc/block_correlator.cu",
                 "gnss_sim_receiver_tpu/models/tracking_block.py:149",
                 err, ms, plain, n_bytes, n_ops,
                 f"{label}: C={c} channels, E={e} epochs, K={k} taps, "
-                f"F={nfft} bins")
+                f"F={nfft} bins, S={slabs} slabs")
+
+
+def same_bits(name, a, b) -> None:
+    """Fails unless two launches on the same inputs gave the same bits."""
+    import torch
+    if not torch.equal(torch.view_as_real(a), torch.view_as_real(b)):
+        fail(f"{name}: two launches on the same inputs differ")
+    print(f"  {name}: two launches bit-identical")
+
+
+def counters_at_zero(name, arrivals) -> None:
+    """Fails unless every arrival counter is back at 0 (after the timing's
+    CUDA-graph replays)."""
+    import torch
+    torch.cuda.synchronize()
+    if bool(arrivals.ne(0).any()):
+        fail(f"{name}: arrival counters not reset: {arrivals.tolist()}")
+    print(f"  {name}: arrival counters at 0 after the timed replays")
 
 
 def block_state(rng, conf, c: int, e: int, n_wins: int, dev):
@@ -542,9 +572,11 @@ def check_k2(dev, rng, conf, c: int, taps, provider, name: str,
             t(rng.uniform(0, 2 * np.pi, c)), t(rng.uniform(-5000, 5000, c)),
             t(rng.integers(s0 - 1, s0 + 2, c), np.int32), fs, 8)
 
+    scratch = correlator.k2_scratch(codes, len(taps), b, 8, data, 8)
+
     def kernel():
         return correlator.multicorrelate(*args, data_codes=data,
-                                         data_oversample=8)
+                                         data_oversample=8, scratch=scratch)
 
     def plain():
         blocks = correlator.gather_blocks(x, args[1], b)
@@ -556,9 +588,16 @@ def check_k2(dev, rng, conf, c: int, taps, provider, name: str,
         return torch.cat([corr, correlator.correlate_multitap(
             blocks, data, zero, *args[5:])], 1)
     got = kernel()
+    again = kernel()
     want = plain()
     torch.cuda.synchronize()
     err = compare(f"{name} ({label})", got, want, 1e-4)
+    same_bits(f"{name} ({label})", got, again)
+    print(f"  {name} ({label}): S={scratch.plan.slabs} slabs, staged "
+          f"{scratch.plan.stage} + {scratch.plan.data_stage} table entries, "
+          f"{int(scratch.misses)} reads outside them in two launches")
+    ms = time_ms(kernel)
+    counters_at_zero(f"{name} ({label})", scratch.arrivals)
     n_samp = int(args[9].sum())
     k = len(taps) + (data is not None)
     n_bytes = c * b * 8 + codes.numel() * 4 * (1 + (data is not None)) \
@@ -571,11 +610,11 @@ def check_k2(dev, rng, conf, c: int, taps, provider, name: str,
                 "gnss_sim_receiver_tpu/ops/correlator.py:39"
                 if data is None else
                 "gnss_sim_receiver_tpu/models/tracking.py:398",
-                err, time_ms(kernel), time_ms(plain), n_bytes, n_ops,
+                err, ms, time_ms(plain), n_bytes, n_ops,
                 f"{label}: C={c} channels, B={b}-sample blocks, K={len(taps)}"
                 f" taps{' + the data tap' if data is not None else ''}, "
                 f"table{'s' if data is not None else ''} {codes.shape[1]} "
-                "float32")
+                f"float32, S={scratch.plan.slabs} slabs")
 
 
 K9_RTOL = 1e-5          # K9's float fields where not identical, of max |plain|
@@ -2889,7 +2928,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     for name, s in secs.items():
         log = cuda_build.library_path(name).with_suffix(".log").read_text(
             errors="replace") if s else ""
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
         print(f"  {name}: nvcc {s:.1f} s; {'; '.join(regs)}")
     print(f"  CUDA libraries built in {time.perf_counter() - t0:.1f} s "
           "(parallel)", flush=True)

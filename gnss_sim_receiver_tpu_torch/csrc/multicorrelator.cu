@@ -19,29 +19,41 @@
 //                mod data_table_len
 //
 // from the channel's data table: the output is then [C, K+1].  The data
-// tap is a template parameter, so a launch without a data table runs the
-// same code as before it existed.
+// tap is a template parameter, so a launch without a data table runs no
+// code for it.
 //
-// What bounds it on the H100: one epoch of C = 8 channels reads C blocks of
-// B = 2048 samples (128 KB) and the channels' code tables (8 x 32 KB), and
-// does ~K+1 table/NCO evaluations per sample: a few microseconds of memory
-// traffic at most, so a launch is bound by its own latency.  The design
-// keeps everything in one launch: one CTA per channel, threads stride over
-// the samples computing the carrier NCO with sincosf, the wipeoff and the
-// K floor-index gathers from the channel's band-limited table row, and a
-// block reduction folds the K complex sums.  The [C, B] gathered block and
-// the [C, K, B] code values of the JAX program never reach device memory.
+// What bounds it on the H100: one epoch reads C blocks of B samples and
+// the table entries they touch (at 20 Msps and C = 10, 1.6 MB for Galileo
+// E1's B = 80896 and 16 KB per channel of table span), and does one
+// sincosf and K+1 floor-index gathers per sample.  The bytes take ~1 us,
+// the operations a few; the launch is latency-bound unless each channel's
+// samples spread over the card (C = 10 channels against 132 SMs) and the
+// gathers hit shared memory instead of L2.
 //
-// The table row is read through the read-only data cache (__ldg), not
-// staged in shared memory: the Galileo E1 table (8184 sub-chips x 8 =
-// 261,888 bytes) is larger than the 227 KB of shared memory a CTA may
-// have, and a CTA's samples span one code period, i.e. nearly the whole
-// row.  Every row (32 KB for GPS L1 C/A, 256 KB for E1) stays resident in
-// the 50 MB L2, and the taps of neighbouring samples hit the same lines.
-//
-// The NCO arithmetic is written with explicit round-to-nearest operations in
-// the JAX program's order (no FMA contraction), so the floor indices agree
-// with the plain version's.
+// The design:
+// - the grid is (S, C): slab s of channel c covers samples
+//   [s B/S, (s+1) B/S) of the channel's block (S from the planner in
+//   ops/correlator.py, about two CTAs per SM at the 20 Msps shapes, S = 1
+//   for small blocks), so the card fills and each thread walks a few
+//   samples;
+// - each CTA stages the span of the code table its slab touches (the
+//   data table's too) in shared memory, wrapped modulo the table length:
+//   the span's ends are the same float index expressions at the slab's
+//   first and last sample (the index is monotone in the sample), one
+//   entry of margin on each side (a span past the table's length stages
+//   the whole table).  A gather outside the staged span (a span larger
+//   than the planner's capacity) reads the table in global memory: the
+//   same value, counted in a debug counter;
+// - per sample the arithmetic is the first design's: the NCOs written
+//   with explicit round-to-nearest operations in the JAX program's order
+//   (no FMA contraction), so the floor indices agree with the plain
+//   version's;
+// - one launch, a fixed order: each CTA reduces its K(+1) complex sums
+//   (warp shuffles, then shared memory) into partials [C, S, K+1], and the
+//   last CTA of a channel to arrive (an atomic counter per channel) sums
+//   the S partials in slab order into out[c, :] and resets its counter to
+//   0 (with S = 1 the one CTA is the last).  The same inputs give the same
+//   bits on every launch; no float atomics.
 //
 // Plain PyTorch version: gnss_sim_receiver_tpu_torch/ops/correlator.py
 // (gather_blocks + correlate_multitap).
@@ -54,6 +66,48 @@ namespace {
 constexpr int kMaxTaps = 8;
 constexpr int kThreads = 256;
 constexpr float kTwoPi = 6.2831854820251465f;   // float32(2 pi)
+
+__device__ __forceinline__ int raw_index(float chips, float tap, float ovs) {
+  return (int)floorf(__fmul_rn(__fadd_rn(chips, tap), ovs));
+}
+
+__device__ __forceinline__ int wrap(int i, int len) {
+  i %= len;
+  return i < 0 ? i + len : i;
+}
+
+// A table span [r0, r0 + n) staged in shared memory; `r0` a raw (unwrapped)
+// floor index, entry j holding table[(r0 + j) mod len].
+struct Span {
+  int r0;
+  int n;
+};
+
+__device__ __forceinline__ Span stage_span(
+    float* __restrict__ smem, int cap, const float* __restrict__ table,
+    int len, int lo_raw, int hi_raw) {
+  Span sp;
+  sp.r0 = lo_raw - 1;
+  const long long want = (long long)hi_raw + 1 - sp.r0 + 1;
+  long long n = want < len ? want : len;
+  sp.n = (int)(n < cap ? n : cap);
+  const int base = wrap(sp.r0, len);
+  for (int j = threadIdx.x; j < sp.n; j += kThreads) {
+    const int t = base + j;
+    smem[j] = table[t >= len ? t - len : t];
+  }
+  return sp;
+}
+
+__device__ __forceinline__ float lookup(
+    const float* __restrict__ smem, Span sp, const float* __restrict__ table,
+    int len, int raw, unsigned& misses) {
+  const int off = raw - sp.r0;
+  if ((unsigned)off < (unsigned)sp.n) return smem[off];
+  if (sp.n == len) return smem[wrap(off, len)];   // the whole table staged
+  ++misses;
+  return __ldg(table + wrap(raw, len));
+}
 
 template <bool kData>
 __global__ void __launch_bounds__(kThreads)
@@ -71,12 +125,23 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
                  float inv_fs, float k_ovs, int block_size,
                  const float* __restrict__ data,       // [C, L'] or null
                  int data_table_len, float data_ovs,
+                 int stage_cap, int data_stage_cap,
+                 float2* __restrict__ partials,        // [C, S, K(+1)]
+                 unsigned* __restrict__ arrivals,      // [C]
+                 unsigned long long* __restrict__ misses,  // [1]
                  float2* __restrict__ out) {           // [C, K(+1)]
-  const int c = blockIdx.x;
+  extern __shared__ float stage[];                     // [cap + data cap]
+  __shared__ float red[kThreads / 32][2 * kMaxTaps + 2];
+  __shared__ bool last;
+  const int s = blockIdx.x;
+  const int n_slabs = gridDim.x;
+  const int c = blockIdx.y;
   const float* __restrict__ table = codes + (size_t)c * table_len;
   const float* __restrict__ dtable =
       kData ? data + (size_t)c * data_table_len : nullptr;
   const int n_out = n_taps + (kData ? 1 : 0);
+  const int lo = (int)((long long)s * block_size / n_slabs);
+  const int hi = (int)((long long)(s + 1) * block_size / n_slabs);
 
   int p = pos[c];
   const int max_start = n_x - block_size;
@@ -90,46 +155,74 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
   float tap[kMaxTaps];
 #pragma unroll
   for (int k = 0; k < kMaxTaps; ++k) tap[k] = k < n_taps ? taps[k] : 0.0f;
+
+  // the slab's index span: the chips at its first and last sample
+  const float chips_lo =
+      __fadd_rn(rcp, __fmul_rn(__fmul_rn(cf, (float)lo), inv_fs));
+  const float chips_hi =
+      __fadd_rn(rcp, __fmul_rn(__fmul_rn(cf, (float)(hi - 1)), inv_fs));
+  int r_lo = raw_index(chips_lo, tap[0], k_ovs);
+  int r_hi = r_lo;
+#pragma unroll
+  for (int k = 0; k < kMaxTaps; ++k) {
+    if (k < n_taps) {
+      const int a = raw_index(chips_lo, tap[k], k_ovs);
+      const int b = raw_index(chips_hi, tap[k], k_ovs);
+      r_lo = min(r_lo, min(a, b));
+      r_hi = max(r_hi, max(a, b));
+    }
+  }
+  const Span sp = stage_span(stage, stage_cap, table, table_len, r_lo, r_hi);
+  Span dsp = {0, 0};
+  float* dstage = stage + stage_cap;
+  if (kData) {
+    const int a = raw_index(chips_lo, 0.0f, data_ovs);
+    const int b = raw_index(chips_hi, 0.0f, data_ovs);
+    dsp = stage_span(dstage, data_stage_cap, dtable, data_table_len,
+                     min(a, b), max(a, b));
+  }
+  __syncthreads();
+
   float acc_re[kMaxTaps], acc_im[kMaxTaps];
 #pragma unroll
   for (int k = 0; k < kMaxTaps; ++k) { acc_re[k] = 0.0f; acc_im[k] = 0.0f; }
   float dacc_re = 0.0f, dacc_im = 0.0f;
+  unsigned n_miss = 0;
 
-  for (int b = threadIdx.x; b < block_size; b += kThreads) {
+  for (int b = lo + threadIdx.x; b < hi; b += kThreads) {
     const float n = (float)b;
     if (!(n < (float)n_c)) continue;               // integration mask
     const float phase = __fadd_rn(rca, __fmul_rn(__fmul_rn(w, n), inv_fs));
-    float s, co;
-    sincosf(phase, &s, &co);
+    float sn, co;
+    sincosf(phase, &sn, &co);
     const float2 v = xb[b];
     // x * exp(-j phase)
-    const float xr = __fadd_rn(__fmul_rn(v.x, co), __fmul_rn(v.y, s));
-    const float xi = __fsub_rn(__fmul_rn(v.y, co), __fmul_rn(v.x, s));
+    const float xr = __fadd_rn(__fmul_rn(v.x, co), __fmul_rn(v.y, sn));
+    const float xi = __fsub_rn(__fmul_rn(v.y, co), __fmul_rn(v.x, sn));
     const float chips = __fadd_rn(rcp, __fmul_rn(__fmul_rn(cf, n), inv_fs));
 #pragma unroll
     for (int k = 0; k < kMaxTaps; ++k) {
       if (k < n_taps) {
-        int idx = (int)floorf(__fmul_rn(__fadd_rn(chips, tap[k]), k_ovs));
-        idx %= table_len;
-        if (idx < 0) idx += table_len;
-        const float cv = __ldg(table + idx);
+        const float cv = lookup(stage, sp, table, table_len,
+                                raw_index(chips, tap[k], k_ovs), n_miss);
         acc_re[k] += cv * xr;
         acc_im[k] += cv * xi;
       }
     }
     if (kData) {                                    // the data prompt
-      int idx = (int)floorf(__fmul_rn(__fadd_rn(chips, 0.0f), data_ovs));
-      idx %= data_table_len;
-      if (idx < 0) idx += data_table_len;
-      const float cv = __ldg(dtable + idx);
+      const float cv = lookup(dstage, dsp, dtable, data_table_len,
+                              raw_index(chips, 0.0f, data_ovs), n_miss);
       dacc_re += cv * xr;
       dacc_im += cv * xi;
     }
   }
 
-  __shared__ float red[kThreads / 32][2 * kMaxTaps + 2];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    n_miss += __shfl_down_sync(0xffffffffu, n_miss, o);
+  if (lane == 0 && n_miss) atomicAdd(misses, (unsigned long long)n_miss);
 #pragma unroll
   for (int k = 0; k < kMaxTaps; ++k) {
     float re = acc_re[k], im = acc_im[k];
@@ -147,24 +240,40 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
       dacc_im += __shfl_down_sync(0xffffffffu, dacc_im, o);
     }
     if (lane == 0) {
-      red[warp][2 * kMaxTaps] = dacc_re;
-      red[warp][2 * kMaxTaps + 1] = dacc_im;
+      red[warp][2 * n_taps] = dacc_re;
+      red[warp][2 * n_taps + 1] = dacc_im;
     }
   }
   __syncthreads();
+  // this CTA's sums: float j of the [K(+1)] complex row
   float* row = reinterpret_cast<float*>(out + (size_t)c * n_out);
-  if (threadIdx.x < 2 * n_taps) {
-    float s = 0.0f;
+  const int j = threadIdx.x;
+  float sum = 0.0f;
+  if (j < 2 * n_out) {
 #pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) s += red[i][threadIdx.x];
-    row[threadIdx.x] = s;
-  } else if (kData && threadIdx.x < 2 * n_taps + 2) {
-    const int j = 2 * kMaxTaps + threadIdx.x - 2 * n_taps;
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) s += red[i][j];
-    row[threadIdx.x] = s;
+    for (int i = 0; i < kThreads / 32; ++i) sum += red[i][j];
   }
+  float* part = reinterpret_cast<float*>(partials + (size_t)c * n_slabs
+                                         * n_out);
+  if (j < 2 * n_out) part[(size_t)s * 2 * n_out + j] = sum;
+  // the CTA's partial is written; one thread publishes it (the barrier
+  // orders the other threads' stores before its fence) and counts it
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(arrivals + c, 1u) == (unsigned)(n_slabs - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (j < 2 * n_out) {
+    // slab order; this CTA's own partial from its register
+    float t = 0.0f;
+    for (int i = 0; i < n_slabs; ++i)
+      t += i == s ? sum : __ldcg(part + (size_t)i * 2 * n_out + j);
+    row[j] = t;
+  }
+  if (threadIdx.x == 0) arrivals[c] = 0u;
 }
 
 }  // namespace
@@ -177,16 +286,25 @@ extern "C" int multicorrelate(const void* x, int n_x, const void* codes,
                               float inv_fs, float k_ovs, int block_size,
                               const void* data, int data_table_len,
                               float data_ovs, void* out, int n_ch,
+                              int n_slabs, int stage_cap, int data_stage_cap,
+                              void* partials, void* arrivals, void* misses,
                               void* stream) {
-  if (n_taps < 1 || n_taps > kMaxTaps || n_ch < 1 || table_len < 1 ||
-      block_size < 1 || n_x < block_size || (data && data_table_len < 1))
+  if (n_taps < 1 || n_taps > kMaxTaps || n_ch < 1 || n_ch > 65535 ||
+      table_len < 1 || block_size < 1 || n_x < block_size ||
+      (data && data_table_len < 1) || n_slabs < 1 || n_slabs > block_size ||
+      stage_cap < 1 || data_stage_cap < (data ? 1 : 0) || !partials ||
+      !arrivals || !misses)
     return (int)cudaErrorInvalidValue;
+  // a stage past the shared memory a launch may take fails the launch
   auto kernel = data ? multicorr_kernel<true> : multicorr_kernel<false>;
-  kernel<<<n_ch, kThreads, 0, (cudaStream_t)stream>>>(
+  const size_t smem = sizeof(float) * (size_t)(stage_cap + data_stage_cap);
+  kernel<<<dim3(n_slabs, n_ch), kThreads, smem, (cudaStream_t)stream>>>(
       (const float2*)x, n_x, (const float*)codes, table_len,
       (const float*)taps, n_taps, (const int*)pos, (const float*)rem_code,
       (const float*)code_freq, (const float*)rem_carr, (const float*)dop,
       (const int*)n_samples, inv_fs, k_ovs, block_size, (const float*)data,
-      data_table_len, data_ovs, (float2*)out);
+      data_table_len, data_ovs, stage_cap, data_stage_cap,
+      (float2*)partials, (unsigned*)arrivals, (unsigned long long*)misses,
+      (float2*)out);
   return (int)cudaGetLastError();
 }

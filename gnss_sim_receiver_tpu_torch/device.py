@@ -10,6 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# an H100 SXM's streaming multiprocessors: what the launch planners aim at
+# where no card is asked (the CPU tests)
+H100_SMS = 132
+
 
 def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
@@ -20,6 +24,14 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of `device`, a CUDA card, for the launch
+    planners; H100_SMS for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
 
 
 def upload(a, device: torch.device) -> torch.Tensor:

@@ -833,10 +833,11 @@ def _chunk_plain(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
 def _chunk_cuda(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
                 state: TrackState, data_codes=None):
     """The epoch loop on the card: per epoch K2 then K9, into buffers
-    allocated once per chunk, with no host sync and no torch op between
-    them.  K9 writes the next epoch's lengths into the `n_c` buffer K2
-    reads; the state ping-pongs between two buffers; the launch arguments
-    of the three (source, destination) pairs are built once."""
+    allocated once per chunk (K2's scratch among them), with no host sync
+    and no torch op between them.  K9 writes the next epoch's lengths into
+    the `n_c` buffer K2 reads; the state ping-pongs between two buffers;
+    the launch arguments of the three (source, destination) pairs are
+    built once."""
     dev = x_chunk.device
     c = codes.shape[0]
     k = taps.shape[0]
@@ -849,11 +850,13 @@ def _chunk_cuda(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
     pairs = ((state, bufs[0]), (bufs[0], bufs[1]), (bufs[1], bufs[0]))
     k_ovs = codes.shape[1] // conf.code_length_chips
     d_ovs = data_codes.shape[1] // conf.code_length_chips if data else 1
+    k2_scratch = correlator.k2_scratch(codes, k, conf.block_size, k_ovs,
+                                       data_codes if data else None, d_ovs)
     k2_args = [correlator.launch_args(
         x_chunk, src.pos, conf.block_size, codes, taps, src.rem_code_phase,
         src.code_freq, src.rem_carr_phase, src.carrier_doppler, n_c,
-        conf.fs, k_ovs, corr, data_codes if data else None, d_ovs)
-        for src, _ in pairs]
+        conf.fs, k_ovs, corr, data_codes if data else None, d_ovs,
+        k2_scratch) for src, _ in pairs]
     k9_args = [_epoch_args(conf, corr, n_c, sec, src, dst, planes)
                for src, dst in pairs]
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -14,7 +14,9 @@ epochs), with the loops closing at block cadence:
   contracts window spectrum x replica spectrum x exact DTFT fractional-lag
   phasor x tap phasor over the F bins into the E/P/L correlations
   [C, E, K], building both phasors in registers — the [C, E, F] phasor and
-  product tensors of the JAX program never reach device memory;
+  product tensors of the JAX program never reach device memory; each
+  channel's bins are split over S CTAs (:func:`plan_k1`) whose partial
+  sums the launch adds in slab order (scratch :class:`K1Scratch`);
 - the DLL closes on the taps next to the prompt, E - L, whatever the tap
   count: with the 5 VEML taps [VE, E, P, L, VL] of E1 the block closure
   reads taps 1 and 3, as the JAX block closure does (tracking_block.py
@@ -42,7 +44,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gnss_sim_receiver_tpu_torch.device import check_kernel_device, require
+from gnss_sim_receiver_tpu_torch.device import (H100_SMS, check_kernel_device,
+                                                require, sm_count)
 from gnss_sim_receiver_tpu_torch.models.tracking import (
     F32, I32, PLANES, TrackState, TrackingConf, _empty_planes, _fl, _recip,
     code_rate_from_doppler, f32, pack_decim)
@@ -115,6 +118,44 @@ def _window_spectra(x_chunk: torch.Tensor, s0: int, nfft: int):
 
 # ---- kernel K1 -------------------------------------------------------------
 
+# K1's launch plan: one wave of CTAs, K1_CTAS_PER_SM on each SM (two CTAs
+# of 256 threads at ~90 registers fill an SM's register file; a second,
+# ragged wave measured slower on the H100), each CTA at least K1_MIN_SLAB
+# bins (one per thread)
+K1_CTAS_PER_SM = 2
+K1_MIN_SLAB = 256
+
+
+def plan_k1(n_ch: int, n_epochs: int, nfft: int, sms: int = H100_SMS) -> int:
+    """K1's slabs per channel (S) for C channels, E epochs and F bins: at
+    most K1_CTAS_PER_SM CTAs per SM of a card of `sms` SMs in all, no slab
+    under K1_MIN_SLAB bins.  Raises if no plan fits."""
+    if not (1 <= n_ch <= 65535 and n_epochs >= 1 and 2 <= nfft < 1 << 30):
+        raise ValueError(f"plan_k1: no plan for C={n_ch}, E={n_epochs}, "
+                         f"F={nfft}")
+    return max(1, min(K1_CTAS_PER_SM * sms // n_ch,
+                      nfft // K1_MIN_SLAB))
+
+
+class K1Scratch(NamedTuple):
+    """K1's scratch on the card: the slabs' partial sums [C, S, E, K] and
+    one arrival counter per channel (0 between launches: the last CTA of a
+    channel resets its own)."""
+    partials: torch.Tensor
+    arrivals: torch.Tensor
+
+
+def k1_scratch(n_ch: int, n_epochs: int, n_taps: int, nfft: int,
+               device) -> K1Scratch:
+    """K1's scratch for C channels, E epochs, K taps and F bins, planned by
+    :func:`plan_k1`: allocate once, launch often."""
+    slabs = plan_k1(n_ch, n_epochs, nfft, sm_count(torch.device(device)))
+    return K1Scratch(
+        torch.empty((n_ch, slabs, n_epochs, n_taps), dtype=torch.complex64,
+                    device=device),
+        torch.zeros(n_ch, dtype=torch.int32, device=device))
+
+
 def _block_correlate_plain(xf_all, rf, w0, lag_int, lag_frac, ph_sc,
                            tap_samps, omega):
     """Plain version of K1, the JAX program's [C, E, F] form."""
@@ -144,15 +185,18 @@ def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
                     w0: torch.Tensor, lag_int: torch.Tensor,
                     lag_frac: torch.Tensor, ph_sc: torch.Tensor,
                     tap_samps: torch.Tensor, omega: torch.Tensor,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    scratch: K1Scratch | None = None) -> torch.Tensor:
     """K1 wrapper: E/P/L correlations [C, E, K] complex64 of one block.
 
     corr[c,e,k] = 1/F sum_f xf_all[w0[c]+e, f] rf[c,f] e^{j ang_l[c,e,f]}
     e^{j ang_t[c,k,f]}, with ang_l = 2 pi ((f lag_int mod F) + f lag_frac)/F
     - ph_sc[c,e] (the int32 product reduced exactly) and ang_t = 2 pi f
-    tap_samps[c,k]/F - omega[c] tap_samps[c,k]; f runs over the signed bins.
-    Launches ``csrc/block_correlator.cu`` for CUDA tensors, runs the plain
-    version for CPU tensors; the result goes into `out` when it is given."""
+    tap_samps[c,k]/F - omega[c] tap_samps[c,k]; f runs over the signed bins;
+    rows clamp the start, clamp(w0, 0, W - E) + e.  Launches
+    ``csrc/block_correlator.cu`` for CUDA tensors, with `scratch` from
+    :func:`k1_scratch` (or its own), runs the plain version for CPU
+    tensors; the result goes into `out` when it is given."""
     if not check_kernel_device(xf_all, "block_correlate"):
         res = _block_correlate_plain(xf_all, rf, w0, lag_int, lag_frac,
                                      ph_sc, tap_samps, omega)
@@ -174,10 +218,20 @@ def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
     require(out, torch.complex64, dev, "block_correlate: out")
     if out.shape != (c, e, k):
         raise ValueError("block_correlate: out shape mismatch")
+    if scratch is None:
+        scratch = k1_scratch(c, e, k, nfft, dev)
+    slabs = scratch.partials.shape[1]
+    require(scratch.partials, torch.complex64, dev,
+            "block_correlate: scratch partials")
+    require(scratch.arrivals, I32, dev, "block_correlate: scratch arrivals")
+    if (scratch.partials.shape != (c, slabs, e, k)
+            or scratch.arrivals.shape != (c,) or not 1 <= slabs <= nfft):
+        raise ValueError("block_correlate: scratch shape mismatch")
     err = _lib().block_correlate(
         xf_all.data_ptr(), rf.data_ptr(), w0.data_ptr(), lag_int.data_ptr(),
         lag_frac.data_ptr(), ph_sc.data_ptr(), tap_samps.data_ptr(),
-        omega.data_ptr(), out.data_ptr(), c, e, k, n_wins, nfft,
+        omega.data_ptr(), out.data_ptr(), c, e, k, n_wins, nfft, slabs,
+        scratch.partials.data_ptr(), scratch.arrivals.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "block_correlate")
     block_correlate.launches += 1
@@ -192,7 +246,7 @@ def _lib():
     fn = lib.block_correlate
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -726,9 +780,10 @@ def _chunk_plain(conf: TrackingConf, n_blocks: int, e_block: int,
 def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
                 codes_rep, taps, xf_all, state: TrackState):
     """The block loop on the card: per block K8a, cuFFT, the conjugate, K1
-    and K8b into buffers allocated once per chunk, with no host sync.  The
-    state ping-pongs between two buffers; the launch arguments of the
-    three (source, destination) pairs are built once."""
+    and K8b into buffers allocated once per chunk (K1's scratch among
+    them), with no host sync.  The state ping-pongs between two buffers;
+    the launch arguments of the three (source, destination) pairs are
+    built once."""
     dev = xf_all.device
     c, nfft = codes_rep.shape
     k = taps.shape[0]
@@ -737,6 +792,7 @@ def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
     bufs = (_empty_state(state), _empty_state(state))
     rf = torch.empty((c, nfft), dtype=torch.complex64, device=dev)
     corr = torch.empty((c, e_block, k), dtype=torch.complex64, device=dev)
+    k1 = k1_scratch(c, e_block, k, nfft, dev)
     n_wins = xf_all.shape[0]
     pairs = ((state, bufs[0]), (bufs[0], bufs[1]), (bufs[1], bufs[0]))
     p_args = [_prologue_args(conf, e_block, codes_rep, taps, n_wins, src,
@@ -751,7 +807,8 @@ def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
         # (unit) normalization into it
         torch.conj_physical(torch.fft.fft(pro.rep_t, dim=-1), out=rf)
         block_correlate(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
-                        pro.ph_sc, pro.tap_samps, pro.omega, out=corr)
+                        pro.ph_sc, pro.tap_samps, pro.omega, out=corr,
+                        scratch=k1)
         _launch_closure(c_args[i], b, stream)
     return bufs[(n_blocks - 1) % 2], planes
 

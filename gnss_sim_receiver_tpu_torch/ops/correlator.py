@@ -11,16 +11,24 @@ on a track_pilot chain the data prompt from a second table in the same
 pass); on a CPU tensor it runs the plain version, :func:`gather_blocks`
 followed by :func:`correlate_multitap` (once more on the data table with a
 zero tap), which mirror the JAX functions line by line.
+
+The kernel splits each channel's block over S CTAs (:func:`plan_k2`) and
+sums the slabs' partial correlations in slab order inside the same
+launch; its scratch (:class:`K2Scratch`) holds the partials, one arrival
+counter per channel and the count of table reads that missed the staged
+span.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
-from gnss_sim_receiver_tpu_torch.device import check_kernel_device, require
+from gnss_sim_receiver_tpu_torch.device import (H100_SMS, check_kernel_device,
+                                                require, sm_count)
 from gnss_sim_receiver_tpu_torch.ops import cuda_build
 
 
@@ -66,6 +74,92 @@ def correlate_multitap(blocks: torch.Tensor, codes: torch.Tensor,
     return torch.einsum("ckb,cb->ck", code_vals.to(torch.complex64), xr)
 
 
+# ---- the launch plan ----------------------------------------------------------
+
+# blocks up to this many samples run one CTA per channel (GPS L1 C/A at
+# 2 Msps: B = 2048, a launch bound by its latency); longer ones are split
+# into slabs of at least K2_MIN_SLAB samples, two per thread
+K2_SMALL_BLOCK = 4096
+K2_MIN_SLAB = 512
+# staged floats per CTA: beside the kernel's ~0.6 KB of static shared
+# memory (its reduction) a CTA stays under the 48 KB a launch may take
+# without an opt-in; a larger stage would fail the launch
+K2_MAX_STAGE = 12032
+
+
+class K2Plan(NamedTuple):
+    """K2's launch shape: `slabs` CTAs per channel, and the entries of the
+    code table (`stage`) and of the data table (`data_stage`) each CTA
+    stages in shared memory."""
+    slabs: int
+    stage: int
+    data_stage: int
+
+
+def plan_k2(n_ch: int, block_size: int, table_len: int,
+            table_oversample: float, data_table_len: int = 0,
+            data_oversample: float = 1, sms: int = H100_SMS) -> K2Plan:
+    """K2's plan for C channels of B-sample blocks: about two CTAs per SM
+    of a card of `sms` SMs for long blocks, one CTA per channel
+    for short ones; the staged span of each table covers a slab's share of
+    one code period (the table's length over about B samples) with 6 %
+    and 4 chips of taps to spare.  A gather outside the span still reads
+    the right entry, from global memory.  Raises if no plan fits."""
+    if not (1 <= n_ch <= 65535 and block_size >= 1 and table_len >= 1
+            and data_table_len >= 0):
+        raise ValueError(f"plan_k2: no plan for C={n_ch}, B={block_size}, "
+                         f"table {table_len}, data table {data_table_len}")
+    if block_size <= K2_SMALL_BLOCK:
+        slabs = 1
+    else:
+        slabs = max(1, min(2 * sms // n_ch,
+                           block_size // K2_MIN_SLAB))
+    slab = -(-block_size // slabs)
+
+    def span(length: int, ovs: float) -> int:
+        if length == 0:
+            return 0
+        return min(length, math.ceil(slab * length / block_size * 1.0625)
+                   + 4 * math.ceil(ovs) + 8)
+    stage = span(table_len, table_oversample)
+    data_stage = span(data_table_len, data_oversample)
+    if stage + data_stage > K2_MAX_STAGE:
+        share = K2_MAX_STAGE // (2 if data_stage else 1)
+        stage = min(stage, share)
+        data_stage = min(data_stage, share)
+    return K2Plan(slabs, stage, data_stage)
+
+
+class K2Scratch(NamedTuple):
+    """K2's scratch on the card: the slabs' partial sums [C, S, K(+1)],
+    one arrival counter per channel (0 between launches: the last CTA of a
+    channel resets its own) and the count of code-table reads that missed
+    the staged span (a debug counter, int64 [1])."""
+    plan: K2Plan
+    partials: torch.Tensor
+    arrivals: torch.Tensor
+    misses: torch.Tensor
+
+
+def k2_scratch(codes: torch.Tensor, n_taps: int, block_size: int,
+               table_oversample: float,
+               data_codes: torch.Tensor | None = None,
+               data_oversample: float = 1) -> K2Scratch:
+    """The plan and scratch of K2 launches on `codes` ([C, L] tables) and,
+    with `data_codes`, the data tables: allocate once, launch often."""
+    c, table_len = codes.shape
+    data_len = 0 if data_codes is None else data_codes.shape[1]
+    dev = codes.device
+    plan = plan_k2(c, block_size, table_len, table_oversample, data_len,
+                   data_oversample, sm_count(dev))
+    n_out = n_taps + (data_codes is not None)
+    return K2Scratch(
+        plan, torch.empty((c, plan.slabs, n_out), dtype=torch.complex64,
+                          device=dev),
+        torch.zeros(c, dtype=torch.int32, device=dev),
+        torch.zeros(1, dtype=torch.int64, device=dev))
+
+
 def multicorrelate(x: torch.Tensor, positions: torch.Tensor,
                    block_size: int, codes: torch.Tensor,
                    taps: torch.Tensor, rem_code_phase_chips: torch.Tensor,
@@ -75,13 +169,15 @@ def multicorrelate(x: torch.Tensor, positions: torch.Tensor,
                    n_samples: torch.Tensor, fs: float,
                    table_oversample: int = 1,
                    data_codes: torch.Tensor | None = None,
-                   data_oversample: int = 1) -> torch.Tensor:
+                   data_oversample: int = 1,
+                   scratch: K2Scratch | None = None) -> torch.Tensor:
     """K2 wrapper: gather_blocks + correlate_multitap -> [C, K] complex64.
     With `data_codes` ([C, L'] tables, `data_oversample` entries per chip)
     one more zero-offset tap on them comes out of the same pass: [C, K+1],
     the last column the data prompt of a track_pilot chain.  Launches
-    ``csrc/multicorrelator.cu`` for CUDA tensors and runs the plain version
-    for CPU tensors."""
+    ``csrc/multicorrelator.cu`` for CUDA tensors, with `scratch` from
+    :func:`k2_scratch` (or its own), and runs the plain version for CPU
+    tensors."""
     if not check_kernel_device(x, "multicorrelate"):
         blocks = gather_blocks(x, positions, block_size)
         nco = (rem_code_phase_chips, code_freq_chips, rem_carrier_phase_rad,
@@ -100,7 +196,7 @@ def multicorrelate(x: torch.Tensor, positions: torch.Tensor,
                        rem_code_phase_chips, code_freq_chips,
                        rem_carrier_phase_rad, carrier_doppler_hz, n_samples,
                        fs, table_oversample, out, data_codes,
-                       data_oversample))
+                       data_oversample, scratch))
     return out
 
 
@@ -110,10 +206,12 @@ multicorrelate.launches = 0
 def launch_args(x, positions, block_size, codes, taps, rem_code_phase_chips,
                 code_freq_chips, rem_carrier_phase_rad, carrier_doppler_hz,
                 n_samples, fs, table_oversample, out, data_codes=None,
-                data_oversample=1) -> tuple:
+                data_oversample=1, scratch: K2Scratch | None = None
+                ) -> tuple:
     """K2's checked launch arguments on CUDA tensors, writing into `out`
-    ([C, K], or [C, K+1] with `data_codes`): build once, launch with
-    :func:`launch` as often as the tensors hold the next inputs."""
+    ([C, K], or [C, K+1] with `data_codes`) through `scratch` (allocated
+    here when not given): build once, launch with :func:`launch` as often
+    as the tensors hold the next inputs."""
     c, table_len = codes.shape
     k = taps.shape[0]
     f32 = torch.float32
@@ -137,6 +235,18 @@ def launch_args(x, positions, block_size, codes, taps, rem_code_phase_chips,
     if out.shape != (c, n_out) or (data_codes is not None
                                    and data_codes.shape[0] != c):
         raise ValueError("multicorrelate: shape mismatch")
+    if scratch is None:
+        scratch = k2_scratch(codes, k, block_size, table_oversample,
+                             data_codes, data_oversample)
+    plan = scratch.plan
+    for name, t, dt, shape in (
+            ("partials", scratch.partials, torch.complex64,
+             (c, plan.slabs, n_out)),
+            ("arrivals", scratch.arrivals, torch.int32, (c,)),
+            ("misses", scratch.misses, torch.int64, (1,))):
+        require(t, dt, x.device, f"multicorrelate: scratch {name}")
+        if t.shape != shape:
+            raise ValueError(f"multicorrelate: scratch {name} shape")
     inv_fs = float(torch.tensor(1.0 / fs, dtype=f32))
     return (x.data_ptr(), x.shape[0], codes.data_ptr(), table_len,
             taps.data_ptr(), k, positions.data_ptr(),
@@ -146,7 +256,9 @@ def launch_args(x, positions, block_size, codes, taps, rem_code_phase_chips,
             block_size,
             None if data_codes is None else data_codes.data_ptr(),
             0 if data_codes is None else data_codes.shape[1],
-            float(data_oversample), out.data_ptr(), c,
+            float(data_oversample), out.data_ptr(), c, plan.slabs,
+            plan.stage, plan.data_stage, scratch.partials.data_ptr(),
+            scratch.arrivals.data_ptr(), scratch.misses.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
 
 
@@ -162,6 +274,6 @@ def _lib():
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, f, f, i, p, i, f,
-                       p, i, p]
+                       p, i, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
