@@ -13,9 +13,13 @@ Phases (any failure exits non-zero, before the result line):
    synthesize the captures of phases 4 and 4c into ``build/`` (outside
    every timed window);
 3. each kernel (the per-epoch closure K9 first, at four shapes, with
-   K2's data-table form and a 50-epoch chunk of phase 8's E1 pilot chain
-   through K2 + K9 and through the plain loop; the block step K8a and K8b
-   next, at four shapes; K1 and
+   K2's data-table form; then the chunk kernel, K9 redesigned as one
+   launch per chunk, against the two-launch chunk, K2 then K9 per epoch,
+   bit for bit over 50 epochs at four shapes, timed per chunk and per
+   epoch by graph replay and on the host, and a 50-epoch chunk of phase
+   8's E1 pilot chain through it and through the plain loop; the block
+   step K8a and K8b next, at four shapes, each with K1 and K8b fused held
+   bit for bit against K1 then K8b; K1 and
    K2 with the GPS and the Galileo E1 tables, K3 wipeoff and peak, K3b,
    K4a in both modes, K4b fold and resolve, K4c with and without its
    Doppler boxcar, K5a, K5b, K5c, K5d in both modes, K6) against its
@@ -34,7 +38,8 @@ Phases (any failure exits non-zero, before the result line):
    file) goes through ``python -m gnss_sim_receiver_tpu_torch
    --config_file=...`` called in process: file -> SignalConditioner (x2
    decimating FIR, K5a) -> Receiver with two-step acquisition (K3, K3b)
-   and tracking (K1, K2) -> position, with every launch counter set to 0
+   and tracking (K8a, K1 with K8b fused; the chunk kernel on the chunk
+   tails) -> position, with every launch counter set to 0
    just before and read just after; the tracked PRNs, the fix count and
    the mean position error are checked against the scenario;
 4b. the conditioner alone on the first 4 M samples, through pulse
@@ -82,16 +87,19 @@ Phases (any failure exits non-zero, before the result line):
    5's conf, GPS tracking at extend_correlation_symbols=20 and the E1
    chain galileo_e1b_chain(track_pilot=True,
    extend_correlation_symbols=5) (E1-C pilot loops with CS25 sync, the
-   E1-B data prompt for I/NAV): per-epoch tracking, K2 then K9 every
-   epoch; phase 5's checks, every channel synced, K2 = K9 = the epochs
-   run, the real-time factor printed;
+   E1-B data prompt for I/NAV): per-epoch tracking, one launch of the
+   chunk kernel per chunk; phase 5's checks, every channel synced, the
+   chunk kernel's epochs = the epochs run and its launches = the chunks
+   dispatched, the real-time factor printed;
 8b. phase 4's conf with Tracking_1C.extend_correlation_symbols=20 through
-   the CLI on phase 4's file: phase 4's checks, K2 = K9 launches.
+   the CLI on phase 4's file: phase 4's checks, the chunk kernel alone.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
-of JAX.  Every block-tracking phase checks that K8a and K8b ran once per
-block (= K1's launches) and K9 once per epoch of the chunk tails (= K2's).  ``--profile`` adds a torch.profiler breakdown of a
+of JAX.  Every block-tracking phase checks that K8a and K1 with K8b fused
+ran once per block (= K1's launches) and the chunk kernel on the chunk
+tails; on every path the standalone K2, K9 and K8b read 0 (they are held
+against in phase 3 only).  ``--profile`` adds a torch.profiler breakdown of a
 second run of the paths of phases 5, 6, 7 and 8 (device busy share,
 kernel launch calls, time by kernel).
 ``--witness`` adds, after phase 6, the hybrid receiver on variants of
@@ -538,7 +546,103 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
                  "gnss_sim_receiver_tpu_torch/csrc/block_step.cu",
                  "gnss_sim_receiver_tpu/models/tracking_block.py:359",
                  b_err, b_ms, b_plain, b_bytes, b_ops, shape)
-    return row_a, row_b
+    row_f = check_block_close(dev, rng, conf, c, e, got, st, n_wins,
+                              names[2], label, shape, b_ms, b_bytes, b_ops)
+    return row_a, row_b, row_f
+
+
+def bits(t):
+    """`t` as integers of its bit pattern (floats and complex floats)."""
+    import torch
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 \
+        else t
+
+
+def differing(got_state, want_state, got_planes, want_planes) -> list:
+    """The state fields and planes whose bits differ."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import interop
+    gs = interop.track_state_to_numpy(got_state)
+    ws = interop.track_state_to_numpy(want_state)
+    out = [f"state {k}" for k in ws
+           if gs[k].tobytes() != ws[k].tobytes()]
+    return out + [f"plane {k}" for k in want_planes
+                  if not torch.equal(bits(got_planes[k]),
+                                     bits(want_planes[k]))]
+
+
+def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
+                      name: str, label: str, shape: str, k8b_ms: float,
+                      k8b_bytes: float, k8b_ops: float):
+    """K1 with K8b's closure in its epilogue (block_correlate_close, on the
+    replica spectrum as the FFT leaves it) against K1 on the conjugated
+    spectrum followed by the standalone K8b, from K8a's outputs `pro` and
+    the state `st`, on the window spectra of an `n_wins`-window noise
+    chunk: the correlations, the next state and the block's plane rows bit
+    for bit, two launches bit-identical.  Timed beside K1 alone on the same
+    inputs: the fused launch less K1's is what the closure costs there."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
+    x = _cnoise(rng, n_wins * s0 + nfft, dev)
+    xf_all = tb._window_spectra(x, s0, nfft).contiguous()
+    rf = torch.fft.fft(pro.rep_t, dim=-1)
+    rf_c = torch.conj_physical(rf)
+    k = pro.tap_samps.shape[1]
+    scratch = tb.k1_scratch(c, e, k, nfft, dev)
+    k1_in = (pro.w0, pro.lag_int, pro.lag_frac, pro.ph_sc, pro.tap_samps,
+             pro.omega)
+
+    def planes():
+        pl = tb._empty_planes(3 * e, c, dev)
+        for v in pl.values():
+            v.zero_()
+        return pl
+    corr_r = tb.block_correlate(xf_all, rf_c, *k1_in, scratch=scratch)
+    pl_r = planes()
+    new_r = tb.block_closure(conf, e, corr_r, pro, st, pl_r, 1)
+    outs = []
+    for _ in range(2):
+        corr_f, pl_f = torch.empty_like(corr_r), planes()
+        new_f = tb.block_correlate_close(conf, e, xf_all, rf, pro, st, pl_f,
+                                         1, corr=corr_f, scratch=scratch)
+        outs.append((corr_f, new_f, pl_f))
+    torch.cuda.synchronize()
+    for i, (corr_f, new_f, pl_f) in enumerate(outs):
+        diff = differing(new_f, new_r, pl_f, pl_r)
+        if not torch.equal(bits(corr_f), bits(corr_r)):
+            diff.insert(0, "correlations")
+        if diff:
+            fail(f"{name} ({label}): launch {i + 1} differs from K1 then "
+                 f"K8b in {diff}")
+    print(f"  {name} ({label}): correlations, next state and plane rows "
+          "bit for bit those of K1 then K8b; two launches bit-identical")
+    ms = time_ms(lambda: tb.block_correlate_close(
+        conf, e, xf_all, rf, pro, st, pl_f, 1, corr=corr_f, scratch=scratch))
+    k1_ms = time_ms(lambda: tb.block_correlate(
+        xf_all, rf_c, *k1_in, out=corr_r, scratch=scratch))
+    counters_at_zero(f"{name} ({label})", scratch.arrivals)
+
+    def plain():
+        corr = tb._block_correlate_plain(xf_all, torch.conj_physical(rf),
+                                         *k1_in)
+        _, o = tb._block_closure_plain(conf, e, corr, pro, st)
+        tb._write_rows(pl_r, o, 1, e)
+    plain_ms = time_ms(plain, reps=3)
+    print(f"  {name} ({label}): fused {ms:.4f} ms, K1 alone {k1_ms:.4f} ms: "
+          f"the closure adds {ms - k1_ms:.4f} ms (standalone K8b "
+          f"{k8b_ms:.4f} ms)")
+    rows = len({min(max(int(w), 0), xf_all.shape[0] - e) + i
+                for w in pro.w0.tolist() for i in range(e)})
+    n_bytes = rows * nfft * 8 + c * nfft * 8 + c * e * 12 + c * e * k * 8 \
+        + k8b_bytes
+    n_ops = c * nfft * (k * 5 + e * (18 + k * 8)) + k8b_ops
+    return _row(name, "cuda",
+                "gnss_sim_receiver_tpu_torch/csrc/block_correlator.cu",
+                "gnss_sim_receiver_tpu/models/tracking_block.py:149",
+                0.0, ms, plain_ms, n_bytes, n_ops, shape)
 
 
 def check_k2(dev, rng, conf, c: int, taps, provider, name: str,
@@ -822,6 +926,111 @@ def check_k9(dev, rng, conf, c: int, name: str, label: str):
                 + (" + data tap" if data else "")
                 + (f", secondary {n_sec}" if n_sec else "")
                 + f", k_ext={k_ext}")
+
+
+CHUNK_CHECK_EPOCHS = 50
+
+
+def check_epoch_chunk_bits(dev, rng, conf, c: int, name: str, label: str,
+                           path_epochs: int, chain=None):
+    """The chunk kernel (epoch_chunk) against the two-launch chunk
+    (standalone K2 then K9 per epoch) over CHUNK_CHECK_EPOCHS epochs from
+    epoch_state's edge states on a noise capture: every plane and the
+    final state bit for bit, two launches bit-identical, K2's staged-table
+    misses printed; the first epoch's prompts against the plain loop's
+    within K2's tolerance.  `chain` gives the code providers (a receiver
+    chain; GPS L1 C/A without).  Timed: the chunk of CHUNK_CHECK_EPOCHS
+    epochs and the path's chunk of `path_epochs` by graph replay, the
+    two-launch chunk and the plain loop of CHUNK_CHECK_EPOCHS; the host
+    time per epoch of the chunk kernel and of the two-launch chunk."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    t = CHUNK_CHECK_EPOCHS
+    if chain is None:
+        eng = trk.TrackingEngine(conf, range(1, c + 1), device=dev)
+    else:
+        eng = trk.TrackingEngine(conf, range(11, 11 + c),
+                                 code_provider=chain.code_provider,
+                                 data_code_provider=chain.data_code_provider,
+                                 device=dev)
+    codes, taps, dcodes = eng.codes, eng.taps, eng.data_codes
+    k = taps.shape[0]
+    st = epoch_state(rng, conf, c, rng.choice([-1.0, 1.0], c), dev)
+    x = _cnoise(rng, (1 << 20) + (path_epochs + 2) * conf.block_size, dev)
+    args = (conf, t, codes, taps, x, st, dcodes)
+    trk.epoch_chunk(*args)                       # builds, plans
+    misses = torch.zeros(1, dtype=torch.int64, device=dev)
+    runs = [trk.epoch_chunk(*args, misses=misses) for _ in range(2)]
+    ref_st, ref = trk._chunk_two_launch(*args)
+    torch.cuda.synchronize()
+    for i, (got_st, got) in enumerate(runs):
+        diff = differing(got_st, ref_st, got, ref)
+        if diff:
+            fail(f"{name} ({label}): launch {i + 1} differs from the "
+                 f"two-launch chunk in {diff}")
+    data, _, _, k2 = trk._chunk_inputs(conf, codes, taps, dcodes)
+    n_out = k + int(data is not None)
+    plan = trk._chunk_plan(c, k2, n_out)
+    print(f"  {name} ({label}): {t} epochs, planes and final state bit for "
+          "bit those of the two-launch chunk (K2 then K9 per epoch); two "
+          f"launches bit-identical; S={k2.slabs} slabs on clusters of "
+          f"S'={plan.cluster} CTAs ({plan.rounds} per CTA, {plan.smem} B of "
+          f"dynamic shared memory); {int(misses)} staged-table misses in "
+          "two launches")
+    plain_t0 = time.perf_counter()
+    _, plain = trk._chunk_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - plain_t0)
+    err = compare(f"{name} ({label}) first epoch's prompts",
+                  (runs[0][1]["prompt"][0], runs[0][1]["pilot_prompt"][0]),
+                  (plain["prompt"][0], plain["pilot_prompt"][0]), 1e-4)
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / t
+    h_chunk = host_ms(lambda: trk.epoch_chunk(*args))
+    h_two = host_ms(lambda: trk._chunk_two_launch(*args))
+
+    def fixed(n_ep):
+        """A launch of n_ep epochs with its arguments built once."""
+        launch = trk.chunk_launch(conf, n_ep, codes, taps, x, st, dcodes,
+                                  misses)
+        return lambda: trk.launch_chunk(launch)
+    ms = time_ms(fixed(t), reps=5)
+    ms_path = time_ms(fixed(path_epochs), reps=2)
+    two_ms = time_ms(lambda: trk._chunk_two_launch(*args), reps=1)
+    print(f"  {name} ({label}): {ms:.4f} ms per chunk of {t} epochs "
+          f"({ms / t:.5f} per epoch), {ms_path:.3f} ms per chunk of "
+          f"{path_epochs} ({ms_path / path_epochs:.5f} per epoch); the "
+          f"two-launch chunk {two_ms:.4f} ms ({two_ms / t:.5f} per epoch); "
+          f"host time per epoch: chunk kernel {h_chunk:.4f} ms, two-launch "
+          f"{h_two:.4f} ms; plain loop {plain_ms / t:.3f} ms per epoch")
+    # per epoch K2's bytes and operations (check_k2) and K9's (check_k9)
+    n_samp = float(trk._epoch_length(conf, st).sum())
+    k2_bytes = c * conf.block_size * 8 + codes.numel() * 4 \
+        * (1 + (data is not None)) + c * n_out * 8
+    st_bytes = c * sum(torch.empty(0, dtype=dt).element_size()
+                       * trk._WIDE.get(f, 1)
+                       for f, dt in trk._EPOCH_STATE_FIELDS)
+    k9_bytes = 2 * st_bytes + c * n_out * 8 + 2 * c * 4 \
+        + c * (2 * 8 + 8 * 4 + 2 * 4 + 1)
+    n_sec = len(conf.secondary_code)
+    n_ops = n_samp * (14 + n_out * 7) + c * (300 + 2 * n_sec * n_sec)
+    row = _row(name, "cuda", "gnss_sim_receiver_tpu_torch/csrc/epoch_chunk.cu",
+               "gnss_sim_receiver_tpu/models/tracking.py:712", err, ms,
+               plain_ms, t * (k2_bytes + k9_bytes), t * n_ops,
+               f"{label}: C={c} channels, K={k} taps"
+               + (" + data tap" if data is not None else "")
+               + f", k_ext={conf.extend_correlation_symbols}, T={t} epochs,"
+               f" S={k2.slabs} slabs, S'={plan.cluster}")
+    row["ms_per_epoch"] = ms / t
+    row["ms_path_chunk"] = ms_path
+    row["path_epochs"] = path_epochs
+    return row
 
 
 def acq_dwells(dev, m: int = 2):
@@ -1956,26 +2165,34 @@ def check_block_chunk(root: str) -> None:
         fail("50-block chunk: the kernel path departs from the plain path")
 
 
-BLOCK_STEP_KERNELS = ("K8a_block_prologue", "K8b_block_closure")
+BLOCK_STEP_KERNELS = ("K8a_block_prologue", "K1_K8b_block_correlate_close")
+# the standalone kernels that the fused ones replace on every path
+STANDALONE_KERNELS = ("K2_multicorrelate", "K9_epoch_closure",
+                      "K8b_block_closure")
+EPOCH_KERNELS = ("K9_epoch_chunk",)
 
 
 def check_block_launches(launches: dict, receiver_s: float) -> None:
-    """K8a and K8b ran once per block of the path (= K1's launches), K9
-    once per epoch of the chunk tails (= K2's); the receiver's
-    milliseconds per block."""
+    """K8a and K1 with K8b's closure fused ran once per block of the path
+    (= K1's launches), the standalone K2, K9 and K8b never; the chunk
+    tails ran the chunk kernel (its epochs counted beside its launches);
+    the receiver's milliseconds per block."""
     k1 = launches["K1_block_correlate"]
     k8 = [launches[n] for n in BLOCK_STEP_KERNELS]
     if not k1 or k8 != [k1, k1]:
-        fail(f"K8a, K8b and K1 launches differ: {k8} vs {k1}")
-    k2, k9 = (launches[n] for n in EPOCH_KERNELS)
-    if k9 != k2:
-        fail(f"the chunk tails ran K2 {k2} and K9 {k9} times")
-    print(f"  block step: {k1} blocks (K8a = K8b = K1 launches), receiver "
-          f"{1e3 * receiver_s / k1:.3f} ms per block; chunk tails {k2} "
-          "epochs (K2 = K9 launches)")
+        fail(f"K8a and K1 with K8b fused ran {k8} times, K1 {k1}")
+    if any(launches[n] for n in STANDALONE_KERNELS):
+        fail(f"standalone kernels launched on a block path: {launches}")
+    chunks, epochs = launches["K9_epoch_chunk"], launches["K9_epoch_chunk_epochs"]
+    if epochs < chunks or (chunks == 0) != (epochs == 0):
+        fail(f"the chunk tails ran {chunks} chunk launches of {epochs} epochs")
+    print(f"  block step: {k1} blocks (K8a = K1 with K8b fused = K1 "
+          f"launches; standalone K2, K9, K8b 0), receiver "
+          f"{1e3 * receiver_s / k1:.3f} ms per block; chunk tails {epochs} "
+          f"epochs in {chunks} launches of the chunk kernel")
 
 
-MAIN_PATH_KERNELS = ("K1_block_correlate", "K2_multicorrelate",
+MAIN_PATH_KERNELS = ("K1_block_correlate", "K9_epoch_chunk",
                      "K3_pcps_wipe", "K3_pcps_peak",
                      "K3b_pcps_wipe_per_channel", "K5a_fir_decim")
 
@@ -2110,7 +2327,7 @@ def direct_path(root: str, wrappers) -> dict:
     return launches
 
 
-HYBRID_KERNELS = ("K1_block_correlate", "K2_multicorrelate", "K3_pcps_wipe",
+HYBRID_KERNELS = ("K1_block_correlate", "K9_epoch_chunk", "K3_pcps_wipe",
                   "K3_pcps_peak", "K4a_pcps_dual_peak")
 
 
@@ -2435,7 +2652,7 @@ def hybrid_witness() -> None:
         torch.cuda.empty_cache()
 
 
-FULL_CHAIN_KERNELS = ("K1_block_correlate", "K2_multicorrelate",
+FULL_CHAIN_KERNELS = ("K1_block_correlate", "K9_epoch_chunk",
                       "K3_pcps_wipe", "K3_pcps_peak")
 
 
@@ -2502,7 +2719,7 @@ def full_chain(wrappers, card: str) -> dict:
     return launches
 
 
-WIDEBAND_KERNELS = ("K1_block_correlate", "K2_multicorrelate",
+WIDEBAND_KERNELS = ("K1_block_correlate", "K9_epoch_chunk",
                     "K3_pcps_wipe", "K3_pcps_peak",
                     "K3b_pcps_wipe_per_channel", "K4c_pcps_caf_peak")
 
@@ -2638,8 +2855,8 @@ def pilot_receiver_conf(fs: float = FS_REF_HYBRID):
 
 def check_epoch_chunk(dev) -> None:
     """Phase 3, continued: one 50-epoch chunk of phase 8's E1 pilot chain
-    (10 channels, PRNs 11-20) through K2 + K9 and through the plain loop
-    (K2 through its kernel in both) on the card, from the same state: the
+    (10 channels, PRNs 11-20) through the chunk kernel and through the
+    plain loop (K2 through its kernel) on the card, from the same state: the
     channels that the chain's own acquisition finds on the first 0.3 s of
     phase 8's scenario (made by K6) armed there.  Planes and states must
     be identical; if not, the code boundary of every epoch within 1e-3
@@ -2706,27 +2923,31 @@ def check_epoch_chunk(dev) -> None:
           f"boundary within {d_code:.2e} chip (1e-3), Doppler within "
           f"{d_dop:.3e} Hz (0.5), prompts within {d_prompt:.2e} (1e-3); "
           f"sec_synced {gs['sec_synced'].tolist()}")
-    print(f"  host time: K2 + K9 {1e3 * t_k / n_ep:.3f} ms per epoch, plain "
-          f"loop {1e3 * t_p / n_ep:.3f} ms per epoch")
+    print(f"  host time: the chunk kernel {1e3 * t_k / n_ep:.4f} ms per "
+          f"epoch, plain loop {1e3 * t_p / n_ep:.3f} ms per epoch")
     if not (same or (torch.equal(got["valid"], valid) and d_code < 1e-3
                      and d_dop < 0.5 and d_prompt < 1e-3)):
         fail("50-epoch chunk: the kernel path departs from the plain loop")
 
 
-EPOCH_KERNELS = ("K2_multicorrelate", "K9_epoch_closure")
-UNUSED_ON_EPOCH_PATHS = ("K1_block_correlate", *BLOCK_STEP_KERNELS)
+UNUSED_ON_EPOCH_PATHS = ("K1_block_correlate", *BLOCK_STEP_KERNELS,
+                         *STANDALONE_KERNELS)
 
 
 def check_epoch_launches(launches: dict, epochs: int, receiver_s: float):
-    """K2 and K9 ran once per epoch of the path (`epochs`, or as often as
-    each other when None) and the block kernels never."""
-    k2, k9 = (launches[n] for n in EPOCH_KERNELS)
-    if k9 != k2 or (epochs is not None and k9 != epochs) or not k9:
-        fail(f"K9 {k9} and K2 {k2} launches, {epochs} epochs run")
+    """The chunk kernel ran the path's epochs (`epochs`, when not None),
+    one launch per chunk; the standalone K2, K9 and K8b and the block
+    kernels never."""
+    chunks, ran = launches["K9_epoch_chunk"], launches["K9_epoch_chunk_epochs"]
+    if not chunks or ran < chunks or (epochs is not None and ran != epochs):
+        fail(f"the chunk kernel ran {chunks} launches of {ran} epochs, "
+             f"{epochs} epochs run")
     if any(launches[n] for n in UNUSED_ON_EPOCH_PATHS):
-        fail(f"block kernels launched on a per-epoch path: {launches}")
-    print(f"  per-epoch path: {k9} epochs (K2 = K9 launches; K1, K8a, K8b "
-          f"0), receiver {1e3 * receiver_s / k9:.4f} ms per epoch")
+        fail(f"other tracking kernels launched on a per-epoch path: "
+             f"{launches}")
+    print(f"  per-epoch path: {ran} epochs in {chunks} launches of the chunk "
+          f"kernel ({ran / chunks:.1f} epochs a launch; K2, K9, K1, K8a, "
+          f"K8b 0), receiver {1e3 * receiver_s / ran:.4f} ms per epoch")
 
 
 def check_pilot_states(session) -> None:
@@ -2789,8 +3010,12 @@ def pilot_path(wrappers, card: str) -> dict:
     check_pilot_states(session)
     epochs = {rt.spec.signal: rt.trk.epochs_dispatched
               for rt in session.chains}
-    print(f"  epochs run: {epochs}")
+    chunks = {rt.spec.signal: rt.trk._dispatch_seq for rt in session.chains}
+    print(f"  epochs run: {epochs}; chunks dispatched: {chunks}")
     check_epoch_launches(launches, sum(epochs.values()), wall)
+    if sum(chunks.values()) != launches["K9_epoch_chunk"]:
+        fail(f"{chunks} chunks dispatched, the chunk kernel launched "
+             f"{launches['K9_epoch_chunk']} times")
     print(f"  receiver wall {wall:.3f} s for {DUR:.0f} s of signal: "
           f"real-time factor {DUR / wall:.3f} ({card})")
     if "--profile" in sys.argv[1:]:
@@ -2806,9 +3031,10 @@ def pilot_path(wrappers, card: str) -> dict:
         profile_path(again)
     del x, session
     torch.cuda.empty_cache()
-    launches["K9_epoch_closure"] = epochs["1C"]
-    launches["K9_epoch_closure_E1"] = epochs["1B"]
-    launches["K2_multicorrelate_E1_data"] = epochs["1B"]
+    launches["K9_epoch_chunk"] = chunks["1C"]
+    launches["K9_epoch_chunk_E1"] = chunks["1B"]
+    launches["K9_epoch_closure_E1"] = launches["K9_epoch_closure"]
+    launches["K2_multicorrelate_E1_data"] = launches["K2_multicorrelate"]
     launches["K6_device_generator"] = k6["K6_device_generator"]
     return launches
 
@@ -2967,10 +3193,27 @@ def run_phases(root: str, card: str, procs: dict) -> int:
              for kw, lab in (({}, "k_ext 1"),
                              ({"extend_correlation_symbols": 20},
                               "k_ext 20"))]
+    # the chunk kernel against the two-launch chunk at phase 8's two chains'
+    # shapes (1 s chunks: 1000 GPS epochs, 250 E1 epochs), phase 8b's and
+    # the 2 Msps chunk tails'
+    rows += [check_epoch_chunk_bits(dev, rng9, gps20_ext, 10,
+                                    "K9_epoch_chunk",
+                                    "GPS L1 C/A at 20 Msps", 1000),
+             check_epoch_chunk_bits(dev, rng9, e1p, 10, "K9_epoch_chunk_E1",
+                                    "Galileo E1 pilot at 20 Msps", 250,
+                                    chain=pilot_receiver_conf().chains[0])]
+    extra += [check_epoch_chunk_bits(
+        dev, rng9, trk.TrackingConf(fs=FS, **kw), 8, "K9_epoch_chunk",
+        f"GPS L1 C/A at 2 Msps, {lab}", n)
+        for kw, lab, n in (({}, "k_ext 1", 30),
+                           ({"extend_correlation_symbols": 20}, "k_ext 20",
+                            1000))]
+    torch.cuda.empty_cache()
     check_epoch_chunk(dev)
     torch.cuda.empty_cache()
     rng8 = np.random.default_rng(8)
-    k8 = "K8a_block_prologue", "K8b_block_closure"
+    k8 = ("K8a_block_prologue", "K8b_block_closure",
+          "K1_K8b_block_correlate_close")
     k8_e1 = tuple(n + "_E1" for n in k8)
     gps_code = prn_codes.gps_l1_ca_code
     rows += [*check_k8(dev, rng8, gps, 8, gps_taps, gps_code, 1000, k8,
@@ -3038,8 +3281,12 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         "K1_block_correlate": (tb.block_correlate, "launches"),
         "K8a_block_prologue": (tb.block_prologue, "launches"),
         "K8b_block_closure": (tb.block_closure, "launches"),
+        "K1_K8b_block_correlate_close": (tb.block_correlate_close,
+                                         "launches"),
         "K9_epoch_closure": (trk.epoch_closure, "launches"),
         "K2_multicorrelate": (correlator.multicorrelate, "launches"),
+        "K9_epoch_chunk": (trk.epoch_chunk, "launches"),
+        "K9_epoch_chunk_epochs": (trk.epoch_chunk, "epochs"),
         "K3_pcps_wipe": (pcps.pcps_wipe, "launches"),
         "K3_pcps_peak": (pcps.pcps_peak, "launches"),
         "K3b_pcps_wipe_per_channel": (pcps.pcps_wipe,
@@ -3088,7 +3335,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         print("== profile of the hybrid path", flush=True)
         profile_path(lambda: f"seconds {run_cli(argv).seconds}")
     for name in ("K1_block_correlate", "K2_multicorrelate",
-                 *BLOCK_STEP_KERNELS):
+                 "K8b_block_closure", *BLOCK_STEP_KERNELS):
         launches[name + "_E1"] = hybrid[name]
     launches["K4a_pcps_dual_peak"] = hybrid["K4a_pcps_dual_peak"]
     print("== phase 5b: 8 ms acquisition on the hybrid capture", flush=True)
@@ -3113,7 +3360,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
           flush=True)
     pilot = pilot_path(wrappers, card)
     for name in ("K9_epoch_closure", "K9_epoch_closure_E1",
-                 "K2_multicorrelate_E1_data"):
+                 "K2_multicorrelate_E1_data", "K9_epoch_chunk",
+                 "K9_epoch_chunk_E1"):
         launches[name] = pilot[name]
     print("== phase 8b: phase 4's conf with "
           "Tracking_1C.extend_correlation_symbols=20 through the CLI",

@@ -3,8 +3,10 @@
 // Replace the body of gnss_sim_receiver_tpu/models/tracking_block.py:
 // track_chunk_blocks (lines 180-575, run by jax.lax.scan at :576) around
 // the correlation K1 (csrc/block_correlator.cu).  One block of E epochs
-// takes five launches on the card: K8a, the replica cuFFT, its conjugate,
-// K1 and K8b.
+// takes three launches on the card: K8a, the replica cuFFT, and K1 with
+// K8b's closure (the device function block_close) in its epilogue.  The
+// standalone K8b kernel here, a thin wrapper over block_close, is what
+// that fused form is held against.
 //
 // K8a, block_prologue (tracking_block.py:204-257): per channel c the
 // closed-form epoch boundaries of the block (n_cum, n_next, n_len,
@@ -16,7 +18,7 @@
 // the channel's [E] and [K] vectors.  Bound by writing the C x F complex64
 // replica (13 MB at the E1 shape, C = 10, F = 162000).
 //
-// K8b, block_closure (tracking_block.py:359-575): one warp per channel,
+// K8b, block_close (tracking_block.py:359-575): one warp per channel,
 // lane e holding epoch e (E <= 32): the Costas and E - L discriminators and
 // their block means (warp shuffles), the third-order PLL and second-order
 // DLL, the FLL pull-in on the exact median of the E pair errors, lock and
@@ -38,126 +40,9 @@
 // order than torch's reduction (a few ulps).  No --use_fast_math: the ramp
 // angle reaches ~250 rad at F = 162000, where __sinf loses it.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-// the launch arguments (by value, laid out as the wrapper's ctypes
-// Structures; outside the anonymous namespace so that the extern "C" entry
-// points that take them keep external linkage)
-// the TrackState fields the block step reads or writes (dll and pll split
-// into their two integrators); bool fields are one byte
-struct StatePtrs {
-  uint8_t* active;
-  int32_t* pos;
-  float* rem_code_phase;
-  float* code_freq;
-  float* carrier_doppler;
-  float* rem_carr_phase;
-  float* acc_phase_cycles;
-  float* acc_phase_comp;
-  float* dll_vel;
-  float* dll_acc;
-  float* pll_vel;
-  float* pll_acc;
-  float2* prompt_prev;
-  int32_t* epoch;
-  float* cn0_db_hz;
-  float* carrier_lock;
-  float* lock_fail;
-  uint8_t* lock_lost;
-  float* bit_hist;                      // [C, 20]
-  float* prev_sign;
-  uint8_t* bit_synced;
-  int32_t* bit_phase;
-  int32_t* ext_n;
-};
-
-// K8a's outputs; K8b reads the epoch boundaries back
-struct ProloguePtrs {
-  float2* rep_t;                        // [C, F]
-  float* n_cum;                         // [C, E]
-  float* n_next;                        // [C, E]
-  float* n_len;                         // [C, E]
-  float* rem_end;                       // [C, E]
-  float* n_total;                       // [C]
-  float* rem_new;                       // [C]
-  int32_t* w0;                          // [C]
-  int32_t* lag_int;                     // [C, E]
-  float* lag_frac;                      // [C, E]
-  float* ph_sc;                         // [C, E]
-  float* tap_samps;                     // [C, K]
-  float* omega;                         // [C]
-};
-
-struct PrologueArgs {
-  StatePtrs st;
-  ProloguePtrs out;
-  const float* codes_rep;               // [C, F]
-  const float* taps;                    // [K] chips
-  float fs;
-  float l_chips;
-  float inv_fs;                         // float(1 / float(fs))
-  float two_pi;                         // float32(2 pi)
-  float inv_fc;                         // float(1 / float(carrier_freq_hz))
-  float lead;                           // window lead, samples
-  int32_t s0;                           // nominal epoch samples
-  int32_t n_epochs;
-  int32_t nfft;
-  int32_t n_taps;
-  int32_t w_max;                        // max(n_wins - E, 0)
-};
-
-// the chunk's [T, C] output planes
-struct PlanePtrs {
-  float2* prompt;
-  float* early_mag;
-  float* late_mag;
-  float* carrier_doppler_hz;
-  float* code_freq_cps;
-  float* rem_code_phase_chips;
-  float* acc_phase_cycles;
-  float* code_phase_samples;
-  int32_t* pos_start;
-  int32_t* n_samples;
-  float* cn0_db_hz;
-  uint8_t* valid;
-};
-
-struct ClosureArgs {
-  StatePtrs src;
-  StatePtrs dst;
-  ProloguePtrs pro;
-  PlanePtrs planes;
-  const float2* corr;                   // [C, E, K]
-  float fs;
-  float inv_fs;
-  float two_pi;
-  float inv_two_pi;                     // float(1 / two_pi)
-  float inv_e;                          // float(1 / float(E)): means, t_sym
-  float el_gain;                        // 0.5 * (2 - early_late_space)
-  float dll_bw_wide;
-  float dll_bw_narrow;
-  float inv_053;                        // float(1 / float(0.53))
-  float pll_k3;                         // wn * wn * wn (PLL, narrow)
-  float pll_k11;                        // 1.1 * wn * wn
-  float pll_k24;                        // 2.4 * wn
-  float fll_k4;                         // 4.0 * fll_bw_hz
-  float lock_threshold;
-  float cn0_min;
-  float max_lock_fail;
-  float code_rate;
-  float inv_fc;
-  float bit_sync_min;
-  int32_t s0;
-  int32_t n_epochs;
-  int32_t n_taps;
-  int32_t n_ch;
-  int32_t n_rows;                       // T, the planes' rows
-  int32_t fll_pullin_epochs;
-  int32_t enable_fll;
-  int32_t fll_decision;
-};
+#include "block_step.cuh"
 
 namespace {
 
@@ -259,10 +144,10 @@ block_prologue_kernel(PrologueArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(32)
-block_closure_kernel(ClosureArgs a, int block) {
-  const int c = blockIdx.x;
-  const int lane = threadIdx.x;
+}  // namespace
+
+__device__ void block_close(const ClosureArgs& a, int c, int block) {
+  const int lane = threadIdx.x & 31;
   const int n_e = a.n_epochs;
   const bool on = lane < n_e;
   const int e = on ? lane : 0;          // idle lanes mirror epoch 0
@@ -442,6 +327,13 @@ block_closure_kernel(ClosureArgs a, int block) {
   d.ext_n[c] = act ? (ext_n + 1 < 10000 ? ext_n + 1 : 10000) : ext_n;
 }
 
+namespace {
+
+__global__ void __launch_bounds__(32)
+block_closure_kernel(const __grid_constant__ ClosureArgs a, int block) {
+  block_close(a, blockIdx.x, block);
+}
+
 }  // namespace
 
 extern "C" int block_prologue(PrologueArgs a, int n_ch, void* stream) {
@@ -453,11 +345,14 @@ extern "C" int block_prologue(PrologueArgs a, int n_ch, void* stream) {
   return (int)cudaGetLastError();
 }
 
+bool closure_args_invalid(const ClosureArgs& a, int block) {
+  return a.n_ch < 1 || a.n_epochs < 1 || a.n_epochs > kMaxEpochs ||
+         a.n_taps < 3 || a.n_taps > kMaxTaps || a.n_taps % 2 == 0 ||
+         block < 0 || (block + 1) * a.n_epochs > a.n_rows;
+}
+
 extern "C" int block_closure(ClosureArgs a, int block, void* stream) {
-  if (a.n_ch < 1 || a.n_epochs < 1 || a.n_epochs > kMaxEpochs ||
-      a.n_taps < 3 || a.n_taps > kMaxTaps || a.n_taps % 2 == 0 || block < 0 ||
-      (block + 1) * a.n_epochs > a.n_rows)
-    return (int)cudaErrorInvalidValue;
+  if (closure_args_invalid(a, block)) return (int)cudaErrorInvalidValue;
   block_closure_kernel<<<a.n_ch, 32, 0, (cudaStream_t)stream>>>(a, block);
   return (int)cudaGetLastError();
 }

@@ -2,10 +2,14 @@
 //
 // Replaces the body of gnss_sim_receiver_tpu/models/tracking.py:_epoch_step
 // (lines 376-703, run by jax.lax.scan in track_chunk at :712) after the
-// correlation K2 (csrc/multicorrelator.cu): one epoch of C channels takes
-// two launches on the card, K2 then K9, with nothing in between.
+// correlation K2 (csrc/multicorrelator.cu).  The closure is the device
+// function epoch_close; on the tracking paths the chunk kernel
+// (csrc/epoch_chunk.cu) runs it, after K2's slab body, for every epoch of
+// a chunk in one launch.  This file's kernel, epoch_closure, is the
+// standalone K9, a thin wrapper over it: one epoch of C channels as two
+// launches, K2 then K9, the form the chunk kernel is held against.
 //
-// K9, epoch_closure: one warp per channel.  The lanes hold what the JAX
+// The closure runs on one warp per channel.  The lanes hold what the JAX
 // body keeps in [C, 32] and [C, 20] arrays: lane i the secondary-code sign
 // buffer's slot i and the correlation of that buffer with the code shifted
 // by i (n_sec <= 32), lane p the bit-sync histogram's bin p; the argmax of
@@ -25,10 +29,12 @@
 //   commit under the active mask, the epoch's row of the chunk's [T, C]
 //   output planes, and the NEXT epoch's length, which K2 reads from n_c.
 //
-// It reads the state from one buffer and writes the next state into
-// another (the caller ping-pongs two), so nothing is aliased; n_c is read
-// and then rewritten by the channel's own warp.  Launch-latency bound: it
-// moves about 1 kB per channel.
+// It reads the state from one set of arrays and writes the next state into
+// another: the standalone kernel's caller ping-pongs two buffers, the
+// chunk kernel commits in place to its copy in shared memory (every lane
+// has read the state before lane 0 commits); n_c is read and then
+// rewritten by the channel's own warp.  Launch-latency bound as a kernel
+// of its own: it moves about 1 kB per channel.
 //
 // The arithmetic is the plain PyTorch version's, operation by operation
 // (gnss_sim_receiver_tpu_torch/models/tracking.py:_epoch_closure_plain), as
@@ -40,119 +46,9 @@
 // a complex (x + 0j).  The shift correlations and the histogram are sums
 // of small integers, exact in any order.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-// the launch arguments (by value, laid out as the wrapper's ctypes
-// Structures; outside the anonymous namespace so that the extern "C" entry
-// point that takes them keeps external linkage)
-// the TrackState fields the closure reads or writes (dll, pll and the
-// seven C/N0 accumulators split); bool fields are one byte
-struct EpochStatePtrs {
-  uint8_t* active;
-  int32_t* pos;
-  float* rem_code_phase;
-  float* code_freq;
-  float* carrier_doppler;
-  float* rem_carr_phase;
-  float* acc_phase_cycles;
-  float* acc_phase_comp;
-  float* dll_vel;
-  float* dll_acc;
-  float* pll_vel;
-  float* pll_acc;
-  float2* prompt_prev;
-  int32_t* epoch;
-  float* acc_abs_i;
-  float* acc_abs_q;
-  float* acc_m2;
-  float* acc_m4;
-  float* acc_i;
-  float* acc_q;
-  float* acc_count;
-  float* cn0_db_hz;
-  float* carrier_lock;
-  float* lock_fail;
-  uint8_t* lock_lost;
-  float* bit_hist;                      // [C, 20]
-  float* prev_sign;
-  uint8_t* bit_synced;
-  int32_t* bit_phase;
-  float2* ext_p;
-  float2* ext_e;
-  float2* ext_l;
-  int32_t* ext_n;
-  float* sec_buf;                       // [C, 32]
-  uint8_t* sec_synced;
-  int32_t* sec_off;
-  float* sec_polarity;
-};
-
-// the chunk's [T, C] output planes
-struct EpochPlanePtrs {
-  float2* prompt;
-  float* early_mag;
-  float* late_mag;
-  float* carrier_doppler_hz;
-  float* code_freq_cps;
-  float* rem_code_phase_chips;
-  float* acc_phase_cycles;
-  float* code_phase_samples;
-  int32_t* pos_start;
-  int32_t* n_samples;
-  float* cn0_db_hz;
-  uint8_t* valid;
-  float2* pilot_prompt;
-};
-
-struct EpochArgs {
-  EpochStatePtrs src;
-  EpochStatePtrs dst;
-  EpochPlanePtrs planes;
-  const float2* corr;                   // [C, K] or [C, K + 1] (data prompt)
-  int32_t* n_c;                         // [C] this epoch's lengths; next's
-  const float* sec;                     // [n_sec] +-1
-  float fs;
-  float inv_fs;                         // float(1 / float(fs))
-  float code_len;                       // code period, chips
-  float two_pi;                         // float32(2 pi)
-  float inv_two_pi;                     // float(1 / two_pi)
-  float el_gain;                        // 0.5 * (2 - early_late_space)
-  float veml_gain;                      // 0.5 * early_late_space
-  float pll_k3;                         // wn^3, 1.1 wn^2, 2.4 wn (wide PLL)
-  float pll_k11;
-  float pll_k24;
-  float npll_k3;                        // the same, narrow PLL
-  float npll_k11;
-  float npll_k24;
-  float dll_k2;                         // wn^2, 1.414213562 wn (wide DLL)
-  float dll_k14;
-  float ndll_k2;                        // the same, narrow DLL
-  float ndll_k14;
-  float fll_k4;                         // 4.0 * fll_bw_hz
-  float k_ext_f;                        // float(extend_correlation_symbols)
-  float lock_threshold;
-  float cn0_min;
-  float max_lock_fail;
-  float code_rate;
-  float inv_fc;                         // float(1 / float(carrier_freq_hz))
-  float bit_sync_min;
-  float sec_thresh;                     // float32(n_sec) - 0.5
-  int32_t n_taps;                       // 3, or 5 (VEML)
-  int32_t veml;
-  int32_t has_data;                     // corr has the data prompt column
-  int32_t n_ch;
-  int32_t n_rows;                       // T, the planes' rows
-  int32_t n_sec;                        // 0: no secondary code
-  int32_t k_ext;                        // extend_correlation_symbols
-  int32_t fll_on;                       // FLL pull-in on the wide closure
-  int32_t fll_decision;
-  int32_t fll_pullin_epochs;
-  int32_t cn0_window;
-  int32_t block_size;
-  int32_t nominal;                      // nominal epoch samples
-};
+#include "epoch_step.cuh"
 
 namespace {
 
@@ -233,19 +129,16 @@ __device__ __forceinline__ float aided_rate(const EpochArgs& a, float dop) {
   return a.code_rate * (1.0f + dop * a.inv_fc);
 }
 
-__global__ void __launch_bounds__(32)
-epoch_closure_kernel(EpochArgs a, int row) {
-  const int c = blockIdx.x;
-  const int lane = threadIdx.x;
-  const EpochStatePtrs& s = a.src;
-  const EpochStatePtrs& d = a.dst;
+}  // namespace
 
-  const bool act = s.active[c] != 0;
-  const int32_t epoch = s.epoch[c];
-  const int32_t n_c = a.n_c[c];
+__device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
+                            const EpochStatePtrs& d, int sc, int c,
+                            const float2* cr, int32_t* n_c_io, int row) {
+  const int lane = threadIdx.x & 31;
+  const bool act = s.active[sc] != 0;
+  const int32_t epoch = s.epoch[sc];
+  const int32_t n_c = *n_c_io;
   const float t_int = (float)n_c * a.inv_fs;
-  const int n_out = a.n_taps + a.has_data;
-  const float2* cr = a.corr + (size_t)c * n_out;
   const int pi = a.veml ? 2 : 1;
   const float2 prompt = cr[pi];
   const float2 early = cr[pi - 1];
@@ -254,11 +147,11 @@ epoch_closure_kernel(EpochArgs a, int row) {
   const float late_mag = cmag(late);
 
   // ---- secondary-code sync + wipeoff ------------------------------------
-  const bool sec_synced0 = s.sec_synced[c] != 0;
-  float buf = s.sec_buf[c * kSecMax + lane];
+  const bool sec_synced0 = s.sec_synced[sc] != 0;
+  float buf = s.sec_buf[sc * kSecMax + lane];
   bool sec_synced = sec_synced0;
-  int32_t sec_off = s.sec_off[c];
-  float sec_polarity = s.sec_polarity[c];
+  int32_t sec_off = s.sec_off[sc];
+  float sec_polarity = s.sec_polarity[sc];
   float wipe = 1.0f;
   if (a.n_sec > 0) {
     const int n = a.n_sec;
@@ -299,16 +192,16 @@ epoch_closure_kernel(EpochArgs a, int row) {
   } else {
     code_err = a.el_gain * dll_raw(early_mag, late_mag);
   }
-  const float pll_vel0 = s.pll_vel[c];
-  const float pll_acc0 = s.pll_acc[c];
-  const float dll_vel0 = s.dll_vel[c];
-  const float dll_acc0 = s.dll_acc[c];
-  const float dop0 = s.carrier_doppler[c];
-  const float rate0 = s.code_freq[c];
+  const float pll_vel0 = s.pll_vel[sc];
+  const float pll_acc0 = s.pll_acc[sc];
+  const float dll_vel0 = s.dll_vel[sc];
+  const float dll_acc0 = s.dll_acc[sc];
+  const float dop0 = s.carrier_doppler[sc];
+  const float rate0 = s.code_freq[sc];
   Loop w = loop_filters(a.pll_k3, a.pll_k11, a.dll_k2, a.dll_k14, pll_vel0,
                         pll_acc0, dll_vel0, carr_err, code_err, t_int);
   if (a.fll_on) {
-    const float2 prev = s.prompt_prev[c];
+    const float2 prev = s.prompt_prev[sc];
     const float cross = prev.x * prompt_w.y - prompt_w.x * prev.y;
     const float dot = prev.x * prompt_w.x + prev.y * prompt_w.y;
     float f_err;
@@ -327,12 +220,12 @@ epoch_closure_kernel(EpochArgs a, int row) {
 
   // ---- extended coherent integration --------------------------------------
   const bool bin = lane < kBits;
-  float hist = bin ? s.bit_hist[c * kBits + lane] : 0.0f;
-  float prev_sign = s.prev_sign[c];
-  bool bit_synced = s.bit_synced[c] != 0;
-  int32_t bit_phase = s.bit_phase[c];
-  float2 ext_p = s.ext_p[c], ext_e = s.ext_e[c], ext_l = s.ext_l[c];
-  int32_t ext_n = s.ext_n[c];
+  float hist = bin ? s.bit_hist[sc * kBits + lane] : 0.0f;
+  float prev_sign = s.prev_sign[sc];
+  bool bit_synced = s.bit_synced[sc] != 0;
+  int32_t bit_phase = s.bit_phase[sc];
+  float2 ext_p = s.ext_p[sc], ext_e = s.ext_e[sc], ext_l = s.ext_l[sc];
+  int32_t ext_n = s.ext_n[sc];
   if (a.k_ext > 1) {
     bool at_bit_start;
     if (a.n_sec > 0) {
@@ -341,7 +234,7 @@ epoch_closure_kernel(EpochArgs a, int row) {
       at_bit_start = floor_mod_i(epoch + sec_off, a.n_sec) == 0;
     } else {
       const float sign = prompt.x >= 0.0f ? 1.0f : -1.0f;
-      const float prev0 = s.prev_sign[c];
+      const float prev0 = s.prev_sign[sc];
       const bool flip = prev0 != 0.0f && sign != prev0;
       const int idx20 = floor_mod_i(epoch, kBits);
       const bool synced0 = bit_synced;
@@ -358,7 +251,7 @@ epoch_closure_kernel(EpochArgs a, int row) {
       at_bit_start = idx20 == bit_phase;
     }
     const bool ext_on = bit_synced && epoch >= a.fll_pullin_epochs;
-    const bool restart = at_bit_start || s.ext_n[c] <= 0;
+    const bool restart = at_bit_start || s.ext_n[sc] <= 0;
     const float2 zero = make_float2(0.0f, 0.0f);
     ext_p = ext_on ? (restart ? prompt_w : cadd(ext_p, prompt_w)) : zero;
     ext_e = ext_on ? (restart ? early_w : cadd(ext_e, early_w)) : zero;
@@ -386,28 +279,28 @@ epoch_closure_kernel(EpochArgs a, int row) {
   }
 
   // ---- NCO phase carry with the frequencies used this epoch ---------------
-  const float rem_code0 = s.rem_code_phase[c];
+  const float rem_code0 = s.rem_code_phase[sc];
   const float rem_code = rem_code0 + rate0 * t_int - a.code_len;
   const float carr_adv = dop0 * t_int;
   const float rem_carr =
-      floor_mod(s.rem_carr_phase[c] + a.two_pi * carr_adv, a.two_pi);
-  const float acc_cyc = s.acc_phase_cycles[c];
-  const float acc_comp = s.acc_phase_comp[c];
+      floor_mod(s.rem_carr_phase[sc] + a.two_pi * carr_adv, a.two_pi);
+  const float acc_cyc = s.acc_phase_cycles[sc];
+  const float acc_comp = s.acc_phase_comp[sc];
   const float y = carr_adv - acc_comp;
   const float t_sum = acc_cyc + y;
   const float comp = (t_sum - acc_cyc) - y;
-  const int32_t pos = s.pos[c];
+  const int32_t pos = s.pos[sc];
 
   // ---- C/N0 + lock on the wiped prompt ------------------------------------
   const float ip = prompt_w.x, qp = prompt_w.y;
   const float p2 = ip * ip + qp * qp;
-  const float sum_abs_i = s.acc_abs_i[c] + fabsf(ip);
-  const float sum_abs_q = s.acc_abs_q[c] + fabsf(qp);
-  const float sum_m2 = s.acc_m2[c] + p2;
-  const float sum_m4 = s.acc_m4[c] + p2 * p2;
-  const float sum_i = s.acc_i[c] + ip;
-  const float sum_q = s.acc_q[c] + qp;
-  const float count = s.acc_count[c] + 1.0f;
+  const float sum_abs_i = s.acc_abs_i[sc] + fabsf(ip);
+  const float sum_abs_q = s.acc_abs_q[sc] + fabsf(qp);
+  const float sum_m2 = s.acc_m2[sc] + p2;
+  const float sum_m4 = s.acc_m4[sc] + p2 * p2;
+  const float sum_i = s.acc_i[sc] + ip;
+  const float sum_q = s.acc_q[sc] + qp;
+  const float count = s.acc_count[sc] + 1.0f;
   const bool window_done = floor_mod_i(epoch + 1, a.cn0_window) == 0;
   const float nn = clamp_min(count, 1.0f);
   const float m2 = sum_m2 / nn;
@@ -418,16 +311,16 @@ epoch_closure_kernel(EpochArgs a, int row) {
   const float i2 = sum_i * sum_i;
   const float q2 = sum_q * sum_q;
   const float lock_val = (i2 - q2) / clamp_min(i2 + q2, 1e-20f);
-  const float lock0 = s.carrier_lock[c];
+  const float lock0 = s.carrier_lock[sc];
   const float lock_new = 0.75f * lock0 + 0.25f * lock_val;
-  const float cn0_0 = s.cn0_db_hz[c];
+  const float cn0_0 = s.cn0_db_hz[sc];
   const float cn0_db = window_done ? cn0_new : cn0_0;
   const float carrier_lock = window_done ? lock_new : lock0;
   const bool locked = (carrier_lock > a.lock_threshold && cn0_db > a.cn0_min) ||
                       epoch < a.fll_pullin_epochs;
-  const float fail0 = s.lock_fail[c];
+  const float fail0 = s.lock_fail[sc];
   const float fail_c = locked ? clamp_min(fail0 - 1.0f, 0.0f) : fail0 + 1.0f;
-  const bool lost0 = s.lock_lost[c] != 0;
+  const bool lost0 = s.lock_lost[sc] != 0;
   const float fail = window_done ? fail_c : fail0;
   const bool lost = window_done ? ((fail_c > a.max_lock_fail) || lost0) : lost0;
 
@@ -450,60 +343,75 @@ epoch_closure_kernel(EpochArgs a, int row) {
   }
 
   // ---- masked commit (inactive channels advance nominally) ----------------
-  if (bin) d.bit_hist[c * kBits + lane] = act ? hist : s.bit_hist[c * kBits + lane];
-  d.sec_buf[c * kSecMax + lane] = act ? buf : s.sec_buf[c * kSecMax + lane];
+  // every lane has read the state before lane 0 rewrites it in place
+  __syncwarp();
+  if (bin) d.bit_hist[sc * kBits + lane] = act ? hist : s.bit_hist[sc * kBits + lane];
+  d.sec_buf[sc * kSecMax + lane] = act ? buf : s.sec_buf[sc * kSecMax + lane];
   if (lane != 0) return;
   const float rem_code_new = act ? rem_code : rem_code0;
   const float code_freq_new = act ? code_freq : rate0;
-  d.active[c] = (act && !lost) ? 1 : 0;
-  d.pos[c] = act ? pos + n_c : pos + a.nominal;
-  d.rem_code_phase[c] = rem_code_new;
-  d.code_freq[c] = code_freq_new;
-  d.carrier_doppler[c] = act ? doppler : dop0;
-  d.rem_carr_phase[c] = act ? rem_carr : s.rem_carr_phase[c];
-  d.acc_phase_cycles[c] = act ? t_sum : acc_cyc;
-  d.acc_phase_comp[c] = act ? comp : acc_comp;
-  d.dll_vel[c] = act ? dll_vel : dll_vel0;
-  d.dll_acc[c] = dll_acc0;
-  d.pll_vel[c] = act ? pll_vel : pll_vel0;
-  d.pll_acc[c] = act ? pll_acc : pll_acc0;
-  d.prompt_prev[c] = act ? prompt_w : s.prompt_prev[c];
-  d.epoch[c] = act ? epoch + 1 : epoch;
-  d.acc_abs_i[c] = act ? (window_done ? 0.0f : sum_abs_i) : s.acc_abs_i[c];
-  d.acc_abs_q[c] = act ? (window_done ? 0.0f : sum_abs_q) : s.acc_abs_q[c];
-  d.acc_m2[c] = act ? (window_done ? 0.0f : sum_m2) : s.acc_m2[c];
-  d.acc_m4[c] = act ? (window_done ? 0.0f : sum_m4) : s.acc_m4[c];
-  d.acc_i[c] = act ? (window_done ? 0.0f : sum_i) : s.acc_i[c];
-  d.acc_q[c] = act ? (window_done ? 0.0f : sum_q) : s.acc_q[c];
-  d.acc_count[c] = act ? (window_done ? 0.0f : count) : s.acc_count[c];
-  d.cn0_db_hz[c] = act ? cn0_db : cn0_0;
-  d.carrier_lock[c] = act ? carrier_lock : lock0;
-  d.lock_fail[c] = act ? fail : fail0;
-  d.lock_lost[c] = act ? (lost ? 1 : 0) : s.lock_lost[c];
-  d.prev_sign[c] = act ? prev_sign : s.prev_sign[c];
-  d.bit_synced[c] = act ? (bit_synced ? 1 : 0) : s.bit_synced[c];
-  d.bit_phase[c] = act ? bit_phase : s.bit_phase[c];
-  d.ext_p[c] = act ? ext_p : s.ext_p[c];
-  d.ext_e[c] = act ? ext_e : s.ext_e[c];
-  d.ext_l[c] = act ? ext_l : s.ext_l[c];
-  d.ext_n[c] = act ? ext_n : s.ext_n[c];
-  d.sec_synced[c] = act ? (sec_synced ? 1 : 0) : s.sec_synced[c];
-  d.sec_off[c] = act ? sec_off : s.sec_off[c];
-  d.sec_polarity[c] = act ? sec_polarity : s.sec_polarity[c];
+  d.active[sc] = (act && !lost) ? 1 : 0;
+  d.pos[sc] = act ? pos + n_c : pos + a.nominal;
+  d.rem_code_phase[sc] = rem_code_new;
+  d.code_freq[sc] = code_freq_new;
+  d.carrier_doppler[sc] = act ? doppler : dop0;
+  d.rem_carr_phase[sc] = act ? rem_carr : s.rem_carr_phase[sc];
+  d.acc_phase_cycles[sc] = act ? t_sum : acc_cyc;
+  d.acc_phase_comp[sc] = act ? comp : acc_comp;
+  d.dll_vel[sc] = act ? dll_vel : dll_vel0;
+  d.dll_acc[sc] = dll_acc0;
+  d.pll_vel[sc] = act ? pll_vel : pll_vel0;
+  d.pll_acc[sc] = act ? pll_acc : pll_acc0;
+  d.prompt_prev[sc] = act ? prompt_w : s.prompt_prev[sc];
+  d.epoch[sc] = act ? epoch + 1 : epoch;
+  d.acc_abs_i[sc] = act ? (window_done ? 0.0f : sum_abs_i) : s.acc_abs_i[sc];
+  d.acc_abs_q[sc] = act ? (window_done ? 0.0f : sum_abs_q) : s.acc_abs_q[sc];
+  d.acc_m2[sc] = act ? (window_done ? 0.0f : sum_m2) : s.acc_m2[sc];
+  d.acc_m4[sc] = act ? (window_done ? 0.0f : sum_m4) : s.acc_m4[sc];
+  d.acc_i[sc] = act ? (window_done ? 0.0f : sum_i) : s.acc_i[sc];
+  d.acc_q[sc] = act ? (window_done ? 0.0f : sum_q) : s.acc_q[sc];
+  d.acc_count[sc] = act ? (window_done ? 0.0f : count) : s.acc_count[sc];
+  d.cn0_db_hz[sc] = act ? cn0_db : cn0_0;
+  d.carrier_lock[sc] = act ? carrier_lock : lock0;
+  d.lock_fail[sc] = act ? fail : fail0;
+  d.lock_lost[sc] = act ? (lost ? 1 : 0) : s.lock_lost[sc];
+  d.prev_sign[sc] = act ? prev_sign : s.prev_sign[sc];
+  d.bit_synced[sc] = act ? (bit_synced ? 1 : 0) : s.bit_synced[sc];
+  d.bit_phase[sc] = act ? bit_phase : s.bit_phase[sc];
+  d.ext_p[sc] = act ? ext_p : s.ext_p[sc];
+  d.ext_e[sc] = act ? ext_e : s.ext_e[sc];
+  d.ext_l[sc] = act ? ext_l : s.ext_l[sc];
+  d.ext_n[sc] = act ? ext_n : s.ext_n[sc];
+  d.sec_synced[sc] = act ? (sec_synced ? 1 : 0) : s.sec_synced[sc];
+  d.sec_off[sc] = act ? sec_off : s.sec_off[sc];
+  d.sec_polarity[sc] = act ? sec_polarity : s.sec_polarity[sc];
   // the next epoch's length from the committed code NCO (update_tracking_
   // vars), read by the next K2
   int n_next = (int)rintf((a.code_len - rem_code_new) / code_freq_new * a.fs);
   n_next = n_next < 1 ? 1 : (n_next > a.block_size ? a.block_size : n_next);
-  a.n_c[c] = n_next;
+  *n_c_io = n_next;
+}
+
+namespace {
+
+__global__ void __launch_bounds__(32)
+epoch_closure_kernel(const __grid_constant__ EpochArgs a, int row) {
+  const int c = blockIdx.x;
+  epoch_close(a, a.src, a.dst, c, c,
+              a.corr + (size_t)c * (a.n_taps + a.has_data), a.n_c + c, row);
 }
 
 }  // namespace
 
+bool epoch_args_invalid(const EpochArgs& a) {
+  return a.n_ch < 1 || (a.n_taps != 3 && a.n_taps != 5) ||
+         a.veml != (a.n_taps == 5) || a.has_data < 0 || a.has_data > 1 ||
+         a.n_sec < 0 || a.n_sec > kSecMax || a.cn0_window < 1 ||
+         a.block_size < 1;
+}
+
 extern "C" int epoch_closure(EpochArgs a, int row, void* stream) {
-  if (a.n_ch < 1 || (a.n_taps != 3 && a.n_taps != 5) ||
-      a.veml != (a.n_taps == 5) || a.has_data < 0 || a.has_data > 1 ||
-      a.n_sec < 0 || a.n_sec > kSecMax || a.cn0_window < 1 || row < 0 ||
-      row >= a.n_rows || a.block_size < 1)
+  if (epoch_args_invalid(a) || row < 0 || row >= a.n_rows)
     return (int)cudaErrorInvalidValue;
   epoch_closure_kernel<<<a.n_ch, 32, 0, (cudaStream_t)stream>>>(a, row);
   return (int)cudaGetLastError();

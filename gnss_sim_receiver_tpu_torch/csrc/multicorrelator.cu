@@ -55,17 +55,24 @@
 //   0 (with S = 1 the one CTA is the last).  The same inputs give the same
 //   bits on every launch; no float atomics.
 //
+// The slab body is the device function k2_slab (multicorrelator.cuh), which
+// the per-epoch chunk kernel (csrc/epoch_chunk.cu) runs too; this file's
+// kernel is the standalone K2, a thin wrapper over it with the in-launch
+// ordered sum.
+//
 // Plain PyTorch version: gnss_sim_receiver_tpu_torch/ops/correlator.py
 // (gather_blocks + correlate_multitap).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "multicorrelator.cuh"
 
 namespace {
 
-constexpr int kMaxTaps = 8;
-constexpr int kThreads = 256;
+constexpr int kMaxTaps = kK2MaxTaps;
+constexpr int kThreads = kK2Threads;
 constexpr float kTwoPi = 6.2831854820251465f;   // float32(2 pi)
+
+// the slab body's per-warp sums
+__shared__ float k2_red[kThreads / 32][2 * kMaxTaps + 2];
 
 __device__ __forceinline__ int raw_index(float chips, float tap, float ovs) {
   return (int)floorf(__fmul_rn(__fadd_rn(chips, tap), ovs));
@@ -110,51 +117,31 @@ __device__ __forceinline__ float lookup(
 }
 
 template <bool kData>
-__global__ void __launch_bounds__(kThreads)
-multicorr_kernel(const float2* __restrict__ x, int n_x,
-                 const float* __restrict__ codes,      // [C, L]
-                 int table_len,
-                 const float* __restrict__ taps,       // [K]
-                 int n_taps,
-                 const int* __restrict__ pos,          // [C]
-                 const float* __restrict__ rem_code,   // [C]
-                 const float* __restrict__ code_freq,  // [C]
-                 const float* __restrict__ rem_carr,   // [C]
-                 const float* __restrict__ dop,        // [C]
-                 const int* __restrict__ n_samples,    // [C]
-                 float inv_fs, float k_ovs, int block_size,
-                 const float* __restrict__ data,       // [C, L'] or null
-                 int data_table_len, float data_ovs,
-                 int stage_cap, int data_stage_cap,
-                 float2* __restrict__ partials,        // [C, S, K(+1)]
-                 unsigned* __restrict__ arrivals,      // [C]
-                 unsigned long long* __restrict__ misses,  // [1]
-                 float2* __restrict__ out) {           // [C, K(+1)]
-  extern __shared__ float stage[];                     // [cap + data cap]
-  __shared__ float red[kThreads / 32][2 * kMaxTaps + 2];
-  __shared__ bool last;
-  const int s = blockIdx.x;
-  const int n_slabs = gridDim.x;
-  const int c = blockIdx.y;
-  const float* __restrict__ table = codes + (size_t)c * table_len;
+__device__ __forceinline__ float slab_sums(const K2Args& a, int c, int s,
+                                           int p, float rcp, float cf,
+                                           float rca, float dop, int n_c) {
+  const int n_slabs = a.n_slabs;
+  const int n_taps = a.n_taps;
+  const int table_len = a.table_len;
+  const int data_table_len = a.data_table_len;
+  const int block_size = a.block_size;
+  const float inv_fs = a.inv_fs;
+  const float k_ovs = a.k_ovs;
+  const float data_ovs = a.data_ovs;
+  const float* __restrict__ table = a.codes + (size_t)c * table_len;
   const float* __restrict__ dtable =
-      kData ? data + (size_t)c * data_table_len : nullptr;
+      kData ? a.data + (size_t)c * data_table_len : nullptr;
   const int n_out = n_taps + (kData ? 1 : 0);
   const int lo = (int)((long long)s * block_size / n_slabs);
   const int hi = (int)((long long)(s + 1) * block_size / n_slabs);
 
-  int p = pos[c];
-  const int max_start = n_x - block_size;
+  const int max_start = a.n_x - block_size;
   p = p < 0 ? 0 : (p > max_start ? max_start : p);
-  const float2* xb = x + p;
-  const int n_c = n_samples[c];
-  const float rcp = rem_code[c];
-  const float cf = code_freq[c];
-  const float rca = rem_carr[c];
-  const float w = __fmul_rn(kTwoPi, dop[c]);   // (2 pi) * dop
+  const float2* __restrict__ xb = a.x + p;
+  const float w = __fmul_rn(kTwoPi, dop);     // (2 pi) * dop
   float tap[kMaxTaps];
 #pragma unroll
-  for (int k = 0; k < kMaxTaps; ++k) tap[k] = k < n_taps ? taps[k] : 0.0f;
+  for (int k = 0; k < kMaxTaps; ++k) tap[k] = k < n_taps ? a.taps[k] : 0.0f;
 
   // the slab's index span: the chips at its first and last sample
   const float chips_lo =
@@ -166,20 +153,22 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
 #pragma unroll
   for (int k = 0; k < kMaxTaps; ++k) {
     if (k < n_taps) {
-      const int a = raw_index(chips_lo, tap[k], k_ovs);
-      const int b = raw_index(chips_hi, tap[k], k_ovs);
-      r_lo = min(r_lo, min(a, b));
-      r_hi = max(r_hi, max(a, b));
+      const int ra = raw_index(chips_lo, tap[k], k_ovs);
+      const int rb = raw_index(chips_hi, tap[k], k_ovs);
+      r_lo = min(r_lo, min(ra, rb));
+      r_hi = max(r_hi, max(ra, rb));
     }
   }
-  const Span sp = stage_span(stage, stage_cap, table, table_len, r_lo, r_hi);
+  float* stage = k2_stage;
+  const Span sp = stage_span(stage, a.stage_cap, table, table_len, r_lo,
+                             r_hi);
   Span dsp = {0, 0};
-  float* dstage = stage + stage_cap;
+  float* dstage = stage + a.stage_cap;
   if (kData) {
-    const int a = raw_index(chips_lo, 0.0f, data_ovs);
-    const int b = raw_index(chips_hi, 0.0f, data_ovs);
-    dsp = stage_span(dstage, data_stage_cap, dtable, data_table_len,
-                     min(a, b), max(a, b));
+    const int ra = raw_index(chips_lo, 0.0f, data_ovs);
+    const int rb = raw_index(chips_hi, 0.0f, data_ovs);
+    dsp = stage_span(dstage, a.data_stage_cap, dtable, data_table_len,
+                     min(ra, rb), max(ra, rb));
   }
   __syncthreads();
 
@@ -222,7 +211,9 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     n_miss += __shfl_down_sync(0xffffffffu, n_miss, o);
-  if (lane == 0 && n_miss) atomicAdd(misses, (unsigned long long)n_miss);
+  if (lane == 0 && n_miss)
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.misses),
+              (unsigned long long)n_miss);
 #pragma unroll
   for (int k = 0; k < kMaxTaps; ++k) {
     float re = acc_re[k], im = acc_im[k];
@@ -231,7 +222,7 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
       re += __shfl_down_sync(0xffffffffu, re, o);
       im += __shfl_down_sync(0xffffffffu, im, o);
     }
-    if (lane == 0) { red[warp][2 * k] = re; red[warp][2 * k + 1] = im; }
+    if (lane == 0) { k2_red[warp][2 * k] = re; k2_red[warp][2 * k + 1] = im; }
   }
   if (kData) {
 #pragma unroll
@@ -240,19 +231,41 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
       dacc_im += __shfl_down_sync(0xffffffffu, dacc_im, o);
     }
     if (lane == 0) {
-      red[warp][2 * n_taps] = dacc_re;
-      red[warp][2 * n_taps + 1] = dacc_im;
+      k2_red[warp][2 * n_taps] = dacc_re;
+      k2_red[warp][2 * n_taps + 1] = dacc_im;
     }
   }
   __syncthreads();
   // this CTA's sums: float j of the [K(+1)] complex row
-  float* row = reinterpret_cast<float*>(out + (size_t)c * n_out);
   const int j = threadIdx.x;
   float sum = 0.0f;
   if (j < 2 * n_out) {
 #pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) sum += red[i][j];
+    for (int i = 0; i < kThreads / 32; ++i) sum += k2_red[i][j];
   }
+  return sum;
+}
+
+__global__ void __launch_bounds__(kThreads)
+multicorr_kernel(const __grid_constant__ K2Args a,
+                 const int* __restrict__ pos,          // [C]
+                 const float* __restrict__ rem_code,   // [C]
+                 const float* __restrict__ code_freq,  // [C]
+                 const float* __restrict__ rem_carr,   // [C]
+                 const float* __restrict__ dop,        // [C]
+                 const int* __restrict__ n_samples,    // [C]
+                 float2* __restrict__ partials,        // [C, S, K(+1)]
+                 unsigned* __restrict__ arrivals,      // [C]
+                 float2* __restrict__ out) {           // [C, K(+1)]
+  __shared__ bool last;
+  const int s = blockIdx.x;
+  const int n_slabs = gridDim.x;
+  const int c = blockIdx.y;
+  const int n_out = a.n_taps + (a.data ? 1 : 0);
+  const float sum = k2_slab(a, c, s, pos[c], rem_code[c], code_freq[c],
+                            rem_carr[c], dop[c], n_samples[c]);
+  float* row = reinterpret_cast<float*>(out + (size_t)c * n_out);
+  const int j = threadIdx.x;
   float* part = reinterpret_cast<float*>(partials + (size_t)c * n_slabs
                                          * n_out);
   if (j < 2 * n_out) part[(size_t)s * 2 * n_out + j] = sum;
@@ -278,33 +291,36 @@ multicorr_kernel(const float2* __restrict__ x, int n_x,
 
 }  // namespace
 
-extern "C" int multicorrelate(const void* x, int n_x, const void* codes,
-                              int table_len, const void* taps, int n_taps,
-                              const void* pos, const void* rem_code,
+__device__ float k2_slab(const K2Args& a, int c, int s, int pos,
+                         float rem_code, float code_freq, float rem_carr,
+                         float dop, int n_samples) {
+  return a.data ? slab_sums<true>(a, c, s, pos, rem_code, code_freq,
+                                  rem_carr, dop, n_samples)
+                : slab_sums<false>(a, c, s, pos, rem_code, code_freq,
+                                   rem_carr, dop, n_samples);
+}
+
+bool k2_args_invalid(const K2Args& a, int n_ch) {
+  return a.n_taps < 1 || a.n_taps > kMaxTaps || n_ch < 1 || n_ch > 65535 ||
+         a.table_len < 1 || a.block_size < 1 || a.n_x < a.block_size ||
+         (a.data && a.data_table_len < 1) || a.n_slabs < 1 ||
+         a.n_slabs > a.block_size || a.stage_cap < 1 ||
+         a.data_stage_cap < (a.data ? 1 : 0) || !a.misses;
+}
+
+extern "C" int multicorrelate(K2Args a, const void* pos, const void* rem_code,
                               const void* code_freq, const void* rem_carr,
                               const void* dop, const void* n_samples,
-                              float inv_fs, float k_ovs, int block_size,
-                              const void* data, int data_table_len,
-                              float data_ovs, void* out, int n_ch,
-                              int n_slabs, int stage_cap, int data_stage_cap,
-                              void* partials, void* arrivals, void* misses,
-                              void* stream) {
-  if (n_taps < 1 || n_taps > kMaxTaps || n_ch < 1 || n_ch > 65535 ||
-      table_len < 1 || block_size < 1 || n_x < block_size ||
-      (data && data_table_len < 1) || n_slabs < 1 || n_slabs > block_size ||
-      stage_cap < 1 || data_stage_cap < (data ? 1 : 0) || !partials ||
-      !arrivals || !misses)
+                              void* out, int n_ch, void* partials,
+                              void* arrivals, void* stream) {
+  if (k2_args_invalid(a, n_ch) || !partials || !arrivals)
     return (int)cudaErrorInvalidValue;
   // a stage past the shared memory a launch may take fails the launch
-  auto kernel = data ? multicorr_kernel<true> : multicorr_kernel<false>;
-  const size_t smem = sizeof(float) * (size_t)(stage_cap + data_stage_cap);
-  kernel<<<dim3(n_slabs, n_ch), kThreads, smem, (cudaStream_t)stream>>>(
-      (const float2*)x, n_x, (const float*)codes, table_len,
-      (const float*)taps, n_taps, (const int*)pos, (const float*)rem_code,
-      (const float*)code_freq, (const float*)rem_carr, (const float*)dop,
-      (const int*)n_samples, inv_fs, k_ovs, block_size, (const float*)data,
-      data_table_len, data_ovs, stage_cap, data_stage_cap,
-      (float2*)partials, (unsigned*)arrivals, (unsigned long long*)misses,
-      (float2*)out);
+  const size_t smem = sizeof(float) * (size_t)(a.stage_cap + a.data_stage_cap);
+  multicorr_kernel<<<dim3(a.n_slabs, n_ch), kThreads, smem,
+                     (cudaStream_t)stream>>>(
+      a, (const int*)pos, (const float*)rem_code, (const float*)code_freq,
+      (const float*)rem_carr, (const float*)dop, (const int*)n_samples,
+      (float2*)partials, (unsigned*)arrivals, (float2*)out);
   return (int)cudaGetLastError();
 }

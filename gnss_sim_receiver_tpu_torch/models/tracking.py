@@ -14,6 +14,14 @@ the masked commit and the epoch's row of the chunk's [T, C] output planes.
 Its plain version, :func:`_epoch_closure_plain`, is the JAX body's
 operations in its order; the CPU runs it.
 
+On the card a whole chunk is one launch of the chunk kernel
+(:func:`epoch_chunk`, ``csrc/epoch_chunk.cu``), the counterpart of the JAX
+program's ``lax.scan``: one thread-block cluster per channel runs K2's
+slab body and K9's closure for every epoch, the state held on the card
+between them (:func:`plan_epoch_chunk` sizes the clusters).  The
+standalone K2 and K9 stay as the two-launch loop it is held against
+(:func:`_chunk_two_launch`), on no tracking path.
+
 The host-side :class:`TrackingEngine` keeps absolute sample bookkeeping
 (int64) and the acquisition -> tracking handoff, and hands every chunk to
 the device in the same packed transfer layout as the JAX engine, so the
@@ -38,7 +46,7 @@ import torch
 from gnss_sim_receiver_tpu_torch import constants
 from gnss_sim_receiver_tpu_torch.device import (check_kernel_device,
                                                 require, resolve_device,
-                                                upload)
+                                                sm_count, upload)
 from gnss_sim_receiver_tpu_torch.ops import cn0 as cn0_ops
 from gnss_sim_receiver_tpu_torch.ops import correlator, cuda_build
 from gnss_sim_receiver_tpu_torch.ops import discriminators
@@ -768,11 +776,21 @@ def _epoch_args(conf, corr, n_c, sec, src, dst, planes) -> _EpochArgs:
         n_taps=k, has_data=has_data, n_ch=c, n_rows=n_rows)
 
 
+class _EpochChunkArgs(ctypes.Structure):
+    _fields_ = [("k2", correlator._K2Args), ("ep", _EpochArgs),
+                ("n_epochs", _I)]
+
+
 def _epoch_lib():
-    lib = cuda_build.load("epoch_step")
+    lib = cuda_build.load("epoch_kernels")
     if lib.epoch_closure.argtypes is None:
         lib.epoch_closure.argtypes = [_EpochArgs, _I, _P]
         lib.epoch_closure.restype = _I
+        lib.epoch_chunk.argtypes = [_EpochChunkArgs, _I, _I, _P]
+        lib.epoch_chunk.restype = _I
+        lib.epoch_chunk_max_clusters.argtypes = [_I, _I, _I,
+                                                 ctypes.POINTER(_I)]
+        lib.epoch_chunk_max_clusters.restype = _I
     return lib
 
 
@@ -815,12 +833,78 @@ def epoch_closure(conf: TrackingConf, corr: torch.Tensor,
 epoch_closure.launches = 0
 
 
-# ---- the chunk ---------------------------------------------------------------
+# ---- the chunk: kernel K9 redesigned ------------------------------------------
+
+# the chunk kernel's clusters (csrc/epoch_chunk.cu): at most 16 CTAs, the
+# non-portable size its library allows (8 and under are portable)
+EPOCH_CHUNK_MAX_CLUSTER = 16
+# the shared memory a CTA may take on an H100 (227 KB); beside its dynamic
+# part the kernel holds ~1.4 KB of static shared memory (K2's per-warp
+# sums, the channel's state and its pointers), bounded here
+SMEM_PER_CTA = 232448
+EPOCH_CHUNK_STATIC_SMEM = 2048
+
+
+class EpochChunkPlan(NamedTuple):
+    """The chunk kernel's launch shape: K2's own plan (S slabs and the
+    staged spans, unchanged), clusters of `cluster` CTAs (S') per channel,
+    `rounds` = ceil(S / S') slabs per CTA (slab s on CTA s mod S'), and
+    `smem` bytes of dynamic shared memory per CTA."""
+    k2: correlator.K2Plan
+    cluster: int
+    rounds: int
+    smem: int
+
+
+def epoch_chunk_smem(k2: correlator.K2Plan, n_out: int, cluster: int) -> int:
+    """Dynamic shared memory of a chunk-kernel CTA: K2's staged spans, then
+    its slabs' [K(+1)] complex partials (csrc/epoch_chunk.cu chunk_smem)."""
+    rounds = -(-k2.slabs // cluster)
+    return 4 * (k2.stage + k2.data_stage + rounds * 2 * n_out)
+
+
+def plan_epoch_chunk(n_ch: int, k2: correlator.K2Plan, n_out: int,
+                     max_clusters) -> EpochChunkPlan:
+    """The chunk kernel's plan for C channels of K(+1) = `n_out` outputs on
+    K2's plan `k2`: the cluster size S' (1 where S = 1; at most
+    EPOCH_CHUNK_MAX_CLUSTER) that runs the S slabs in the fewest rounds,
+    the smallest such, with the shared memory inside a CTA's 227 KB and
+    every channel's cluster resident at once (`max_clusters(S', smem)`,
+    the card's cudaOccupancyMaxActiveClusters, >= C).  Raises if no size
+    fits."""
+    if not (1 <= n_ch <= 65535 and 1 <= n_out <= 9 and k2.slabs >= 1):
+        raise ValueError(f"plan_epoch_chunk: no plan for C={n_ch}, "
+                         f"{n_out} outputs, {k2}")
+    sizes = sorted(range(1, min(EPOCH_CHUNK_MAX_CLUSTER, k2.slabs) + 1),
+                   key=lambda cl: (-(-k2.slabs // cl), cl))
+    for cl in sizes:
+        smem = epoch_chunk_smem(k2, n_out, cl)
+        if (smem + EPOCH_CHUNK_STATIC_SMEM <= SMEM_PER_CTA
+                and max_clusters(cl, smem) >= n_ch):
+            return EpochChunkPlan(k2, cl, -(-k2.slabs // cl), smem)
+    raise ValueError(f"plan_epoch_chunk: no cluster of C={n_ch} channels "
+                     f"on {k2} fits the card")
+
+
+def _card_max_clusters(n_ch: int, cluster: int, smem: int) -> int:
+    n = _I(0)
+    cuda_build.check(_epoch_lib().epoch_chunk_max_clusters(
+        cluster, n_ch, smem, ctypes.byref(n)), "epoch_chunk_max_clusters")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_plan(n_ch: int, k2: correlator.K2Plan,
+                n_out: int) -> EpochChunkPlan:
+    """plan_epoch_chunk with the current card's occupancy."""
+    return plan_epoch_chunk(n_ch, k2, n_out,
+                            functools.partial(_card_max_clusters, n_ch))
+
 
 def _chunk_plain(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
                  state: TrackState, data_codes=None):
     """The epoch loop through the plain closure (K2 through its wrapper):
-    the form the CPU runs and the card's K9 is held against."""
+    the form the CPU runs and the chunk kernel is held against."""
     planes = _empty_planes(n_epochs, codes.shape[0], x_chunk.device,
                            EPOCH_PLANES)
     for e in range(n_epochs):
@@ -830,33 +914,119 @@ def _chunk_plain(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
     return state, planes
 
 
-def _chunk_cuda(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
-                state: TrackState, data_codes=None):
-    """The epoch loop on the card: per epoch K2 then K9, into buffers
-    allocated once per chunk (K2's scratch among them), with no host sync
-    and no torch op between them.  K9 writes the next epoch's lengths into
-    the `n_c` buffer K2 reads; the state ping-pongs between two buffers;
-    the launch arguments of the three (source, destination) pairs are
-    built once."""
+def _chunk_inputs(conf: TrackingConf, codes, taps, data_codes):
+    """(data tables or None, table oversampling, data-table oversampling,
+    K2's plan) of one chunk on the card."""
+    data = data_codes if conf.track_pilot and data_codes is not None \
+        else None
+    k_ovs = codes.shape[1] // conf.code_length_chips
+    d_ovs = 1 if data is None else data.shape[1] // conf.code_length_chips
+    plan = correlator.plan_k2(
+        codes.shape[0], conf.block_size, codes.shape[1], k_ovs,
+        0 if data is None else data.shape[1], d_ovs, sm_count(codes.device))
+    return data, k_ovs, d_ovs, plan
+
+
+class ChunkLaunch(NamedTuple):
+    """One launch of the chunk kernel, its arguments built: the plan, the
+    ctypes arguments and the tensors they point to (the next state, the
+    planes, the lengths buffer)."""
+    plan: EpochChunkPlan
+    args: object                    # _EpochChunkArgs
+    state: TrackState
+    planes: dict
+    n_c: torch.Tensor
+    hold: tuple                     # the placeholder corr, the misses
+
+
+def chunk_launch(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
+                 state: TrackState, data_codes=None,
+                 misses: torch.Tensor | None = None) -> ChunkLaunch:
+    """The checked arguments of one chunk-kernel launch on CUDA tensors,
+    into fresh output buffers; launch with :func:`launch_chunk`."""
+    dev = x_chunk.device
+    c, k = codes.shape[0], taps.shape[0]
+    data, k_ovs, d_ovs, k2 = _chunk_inputs(conf, codes, taps, data_codes)
+    n_out = k + int(data is not None)
+    planes = _empty_planes(n_epochs, c, dev, EPOCH_PLANES)
+    out = _empty_epoch_state(state)
+    n_c = _epoch_length(conf, state)
+    if misses is None:
+        misses = torch.zeros(1, dtype=torch.int64, device=dev)
+    # the closure's correlations stay in shared memory: the argument's
+    # `corr` is a placeholder of the right shape, never read
+    corr = torch.empty((c, n_out), dtype=torch.complex64, device=dev)
+    args = _EpochChunkArgs(
+        k2=correlator.k2_args(x_chunk, conf.block_size, codes, taps, conf.fs,
+                              k_ovs, k2, misses, data, d_ovs),
+        ep=_epoch_args(conf, corr, n_c, _sec_device(conf, dev), state, out,
+                       planes),
+        n_epochs=n_epochs)
+    return ChunkLaunch(_chunk_plan(c, k2, n_out), args, out, planes, n_c,
+                       (corr, misses))
+
+
+def launch_chunk(launch: ChunkLaunch) -> None:
+    """Launch the chunk kernel; counts the launch and its epochs."""
+    cuda_build.check(_epoch_lib().epoch_chunk(
+        launch.args, launch.plan.cluster, launch.plan.smem,
+        torch.cuda.current_stream(launch.n_c.device).cuda_stream),
+        "epoch_chunk")
+    epoch_chunk.launches += 1
+    epoch_chunk.epochs += launch.args.n_epochs
+
+
+def epoch_chunk(conf: TrackingConf, n_epochs: int, codes: torch.Tensor,
+                taps: torch.Tensor, x_chunk: torch.Tensor, state: TrackState,
+                data_codes: torch.Tensor | None = None,
+                misses: torch.Tensor | None = None):
+    """The chunk kernel's wrapper: `n_epochs` epochs of every channel, K2's
+    correlation then K9's closure each, in one launch of
+    ``csrc/epoch_chunk.cu`` for CUDA tensors (one cluster of CTAs per
+    channel, :func:`plan_epoch_chunk`); :func:`_chunk_plain` for CPU
+    tensors.  Returns (new_state, [T, C] planes of EPOCH_PLANES).  Counts
+    its launches in ``epoch_chunk.launches`` and the epochs they ran in
+    ``epoch_chunk.epochs``; K2's staged-table misses go into `misses`
+    (int64 [1] on the card) when given."""
+    if not check_kernel_device(x_chunk, "epoch_chunk"):
+        return _chunk_plain(conf, n_epochs, codes, taps, x_chunk, state,
+                            data_codes)
+    launch = chunk_launch(conf, n_epochs, codes, taps, x_chunk, state,
+                          data_codes, misses)
+    launch_chunk(launch)
+    return launch.state, launch.planes
+
+
+epoch_chunk.launches = 0
+epoch_chunk.epochs = 0
+
+
+def _chunk_two_launch(conf: TrackingConf, n_epochs: int, codes, taps,
+                      x_chunk, state: TrackState, data_codes=None):
+    """The epoch loop of standalone kernels on the card, per epoch K2 then
+    K9, into buffers allocated once (K2's scratch among them), with no
+    host sync and no torch op between them: the form the chunk kernel is
+    held against bit for bit.  K9 writes the next epoch's lengths into the
+    `n_c` buffer K2 reads; the state ping-pongs between two buffers; the
+    launch arguments of the three (source, destination) pairs are built
+    once.  On no tracking path."""
     dev = x_chunk.device
     c = codes.shape[0]
     k = taps.shape[0]
-    data = conf.track_pilot and data_codes is not None
+    data, k_ovs, d_ovs, _ = _chunk_inputs(conf, codes, taps, data_codes)
     planes = _empty_planes(n_epochs, c, dev, EPOCH_PLANES)
     bufs = (_empty_epoch_state(state), _empty_epoch_state(state))
     n_c = _epoch_length(conf, state)
-    corr = torch.empty((c, k + int(data)), dtype=torch.complex64, device=dev)
+    corr = torch.empty((c, k + int(data is not None)), dtype=torch.complex64,
+                       device=dev)
     sec = _sec_device(conf, dev)
     pairs = ((state, bufs[0]), (bufs[0], bufs[1]), (bufs[1], bufs[0]))
-    k_ovs = codes.shape[1] // conf.code_length_chips
-    d_ovs = data_codes.shape[1] // conf.code_length_chips if data else 1
     k2_scratch = correlator.k2_scratch(codes, k, conf.block_size, k_ovs,
-                                       data_codes if data else None, d_ovs)
+                                       data, d_ovs)
     k2_args = [correlator.launch_args(
         x_chunk, src.pos, conf.block_size, codes, taps, src.rem_code_phase,
         src.code_freq, src.rem_carr_phase, src.carrier_doppler, n_c,
-        conf.fs, k_ovs, corr, data_codes if data else None, d_ovs,
-        k2_scratch) for src, _ in pairs]
+        conf.fs, k_ovs, corr, data, d_ovs, k2_scratch) for src, _ in pairs]
     k9_args = [_epoch_args(conf, corr, n_c, sec, src, dst, planes)
                for src, dst in pairs]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -872,15 +1042,13 @@ def track_chunk(conf: TrackingConf, n_epochs: int, codes: torch.Tensor,
                 state: TrackState, data_codes: torch.Tensor | None = None):
     """Run `n_epochs` code epochs of every channel over one sample chunk.
     Returns (new_state, outputs) with [T, C] output planes (EPOCH_PLANES).
-    On the card each epoch is K2 then K9; on the CPU K2's and K9's plain
-    versions.  `data_codes` are the data tables of a track_pilot chain."""
+    On the card one launch of the chunk kernel (:func:`epoch_chunk`); on
+    the CPU K2's and K9's plain versions, epoch by epoch.  `data_codes` are
+    the data tables of a track_pilot chain."""
     if n_epochs < 1:
         raise ValueError("track_chunk: n_epochs must be >= 1")
-    if check_kernel_device(x_chunk, "track_chunk"):
-        return _chunk_cuda(conf, n_epochs, codes, taps, x_chunk, state,
-                           data_codes)
-    return _chunk_plain(conf, n_epochs, codes, taps, x_chunk, state,
-                        data_codes)
+    return epoch_chunk(conf, n_epochs, codes, taps, x_chunk, state,
+                       data_codes)
 
 
 # float planes pulled at the decimated (observable-tick) stride, fixed order
@@ -929,6 +1097,33 @@ def track_chunk_packed_decim(conf: TrackingConf, n_epochs: int, decim: int,
     new_state, outs = track_chunk(conf, n_epochs, codes, taps, x_chunk,
                                   state, data_codes)
     return new_state, pack_decim(outs, new_state, n_epochs, decim)
+
+
+class _Pull(NamedTuple):
+    """A chunk's packed buffer on its way to the host.  On a card it is
+    copied into pinned memory when the chunk is dispatched, behind an
+    event, so that the pull waits for this chunk's work alone and not for
+    the chunks dispatched after it (a pageable copy waits for the whole
+    stream, and one launch per chunk leaves the host nothing else to
+    overlap with)."""
+    host: torch.Tensor
+    done: object                    # torch.cuda.Event, None on the CPU
+
+
+def _start_pull(buf: torch.Tensor) -> _Pull:
+    if not buf.is_cuda:
+        return _Pull(buf, None)
+    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(buf.device))
+    return _Pull(host, done)
+
+
+def _finish_pull(pull: _Pull) -> np.ndarray:
+    if pull.done is not None:
+        pull.done.synchronize()
+    return pull.host.numpy()
 
 
 class TrackingEngine:
@@ -1170,8 +1365,8 @@ class TrackingEngine:
                 self.conf, int(n_epochs), int(decim), self.codes,
                 self.taps, x_dev, state, self.data_codes)
         meta = self._chain_dispatch(new_state, x_abs_start, n_epochs)
-        return (new_state, buf, int(x_abs_start), int(n_epochs), int(decim),
-                meta)
+        return (new_state, _start_pull(buf), int(x_abs_start), int(n_epochs),
+                int(decim), meta)
 
     def _chain_dispatch(self, new_state, x_abs_start: int,
                         n_epochs: int) -> dict:
@@ -1193,11 +1388,11 @@ class TrackingEngine:
     def process_end(self, handle):
         """Materialize a process_begin handle: ONE device -> host pull,
         then host-side unpacking (identical to the JAX engine's)."""
-        _, buf, x_abs_start, n_epochs, decim, meta = handle
+        _, pull, x_abs_start, n_epochs, decim, meta = handle
         t, c = int(n_epochs), self.n_channels
         rows = np.arange(decim - 1, t, decim)
         td = len(rows)
-        raw = buf.cpu().numpy()                            # flat int32
+        raw = _finish_pull(pull)                           # flat int32
         n_sym_words = (t * c + 3) // 4
         sym = raw[:n_sym_words].view(np.int8)[: t * c].reshape(t, c)
         raw = raw[n_sym_words:]

@@ -27,7 +27,10 @@ epochs), with the loops closing at block cadence:
   loop closure, the commit and the block's rows of the [T, C] output
   planes) after K1.  Their plain versions, :func:`_block_prologue_plain`
   and :func:`_block_closure_plain`, are the JAX body's operations in its
-  order; the CPU runs them.
+  order; the CPU runs them.  On the card K8b runs in K1's epilogue
+  (:func:`block_correlate_close`), which also conjugates the replica
+  spectrum on load: a block is three launches, K8a, the cuFFT and K1
+  with K8b; the standalone K8b is what that fused form is held against.
 
 Epoch boundaries are closed-form within a block (the code NCO rate is
 constant there): the cumulative sample count of epoch e is exactly
@@ -201,6 +204,21 @@ def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
         res = _block_correlate_plain(xf_all, rf, w0, lag_int, lag_frac,
                                      ph_sc, tap_samps, omega)
         return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty((lag_int.shape[0], lag_int.shape[1],
+                           tap_samps.shape[1]), dtype=torch.complex64,
+                          device=xf_all.device)
+    _launch_k1(_k1_args(xf_all, rf, w0, lag_int, lag_frac, ph_sc, tap_samps,
+                        omega, out, scratch))
+    return out
+
+
+block_correlate.launches = 0
+
+
+def _k1_args(xf_all, rf, w0, lag_int, lag_frac, ph_sc, tap_samps, omega,
+             out, scratch: K1Scratch | None) -> tuple:
+    """K1's checked launch arguments on CUDA tensors (the stream last)."""
     dev = xf_all.device
     c, e = lag_int.shape
     k = tap_samps.shape[1]
@@ -209,13 +227,10 @@ def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
                         ("rf", rf, torch.complex64), ("w0", w0, I32),
                         ("lag_int", lag_int, I32), ("lag_frac", lag_frac, F32),
                         ("ph_sc", ph_sc, F32), ("tap_samps", tap_samps, F32),
-                        ("omega", omega, F32)):
+                        ("omega", omega, F32), ("out", out, torch.complex64)):
         require(t, dt, dev, f"block_correlate: {name}")
     if rf.shape != (c, nfft) or n_wins < e:
         raise ValueError("block_correlate: shape mismatch")
-    if out is None:
-        out = torch.empty((c, e, k), dtype=torch.complex64, device=dev)
-    require(out, torch.complex64, dev, "block_correlate: out")
     if out.shape != (c, e, k):
         raise ValueError("block_correlate: out shape mismatch")
     if scratch is None:
@@ -227,27 +242,45 @@ def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
     if (scratch.partials.shape != (c, slabs, e, k)
             or scratch.arrivals.shape != (c,) or not 1 <= slabs <= nfft):
         raise ValueError("block_correlate: scratch shape mismatch")
-    err = _lib().block_correlate(
-        xf_all.data_ptr(), rf.data_ptr(), w0.data_ptr(), lag_int.data_ptr(),
-        lag_frac.data_ptr(), ph_sc.data_ptr(), tap_samps.data_ptr(),
-        omega.data_ptr(), out.data_ptr(), c, e, k, n_wins, nfft, slabs,
-        scratch.partials.data_ptr(), scratch.arrivals.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "block_correlate")
+    return (xf_all.data_ptr(), rf.data_ptr(), w0.data_ptr(),
+            lag_int.data_ptr(), lag_frac.data_ptr(), ph_sc.data_ptr(),
+            tap_samps.data_ptr(), omega.data_ptr(), out.data_ptr(), c, e, k,
+            n_wins, nfft, slabs, scratch.partials.data_ptr(),
+            scratch.arrivals.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch_k1(args: tuple, close: tuple | None = None) -> None:
+    """Launch K1 with :func:`_k1_args`' arguments; with `close` =
+    (closure arguments, block) its fused form, which reads the replica
+    spectrum unconjugated and runs K8b's closure in its epilogue.  Counts
+    every launch in ``block_correlate.launches`` and the fused ones also in
+    ``block_correlate_close.launches``."""
+    lib = _lib()
+    if close is None:
+        cuda_build.check(lib.block_correlate(*args), "block_correlate")
+    else:
+        cuda_build.check(lib.block_correlate_close(*args[:-1], *close,
+                                                   args[-1]),
+                         "block_correlate_close")
+        block_correlate_close.launches += 1
     block_correlate.launches += 1
-    return out
-
-
-block_correlate.launches = 0
 
 
 def _lib():
-    lib = cuda_build.load("block_correlator")
+    lib = cuda_build.load("block_kernels")
     fn = lib.block_correlate
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
+        k1 = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p]
+        fn.argtypes = k1 + [p]
         fn.restype = ctypes.c_int
+        lib.block_correlate_close.argtypes = k1 + [_ClosureArgs, i, p]
+        lib.block_correlate_close.restype = ctypes.c_int
+        lib.block_prologue.argtypes = [_PrologueArgs, i, p]
+        lib.block_prologue.restype = ctypes.c_int
+        lib.block_closure.argtypes = [_ClosureArgs, i, p]
+        lib.block_closure.restype = ctypes.c_int
     return lib
 
 
@@ -693,24 +726,14 @@ def _closure_args(conf, e_block, corr, pro, src, dst,
         n_epochs=e, n_taps=k, n_ch=c, n_rows=n_rows)
 
 
-def _step_lib():
-    lib = cuda_build.load("block_step")
-    if lib.block_prologue.argtypes is None:
-        lib.block_prologue.argtypes = [_PrologueArgs, _I, _P]
-        lib.block_prologue.restype = _I
-        lib.block_closure.argtypes = [_ClosureArgs, _I, _P]
-        lib.block_closure.restype = _I
-    return lib
-
-
 def _launch_prologue(args: _PrologueArgs, n_ch: int, stream: int) -> None:
-    cuda_build.check(_step_lib().block_prologue(args, n_ch, stream),
+    cuda_build.check(_lib().block_prologue(args, n_ch, stream),
                      "block_prologue")
     block_prologue.launches += 1
 
 
 def _launch_closure(args: _ClosureArgs, block: int, stream: int) -> None:
-    cuda_build.check(_step_lib().block_closure(args, block, stream),
+    cuda_build.check(_lib().block_closure(args, block, stream),
                      "block_closure")
     block_closure.launches += 1
 
@@ -757,6 +780,40 @@ def block_closure(conf: TrackingConf, e_block: int, corr: torch.Tensor,
 block_closure.launches = 0
 
 
+def block_correlate_close(conf: TrackingConf, e_block: int,
+                          xf_all: torch.Tensor, rf: torch.Tensor,
+                          pro: BlockPrologue, st: TrackState, planes: dict,
+                          block: int, corr: torch.Tensor | None = None,
+                          scratch: K1Scratch | None = None) -> TrackState:
+    """K1 and K8b fused: K1 on the replica spectrum `rf` as the FFT leaves
+    it (the kernel conjugates it on load), then K8b's closure of block
+    `block` in the same launch; returns the next TrackState, writes the
+    block's rows of `planes` and the correlations into `corr` when given.
+    Launches ``csrc/block_correlator.cu``'s fused form for CUDA tensors;
+    for CPU tensors K1's plain version on conj(rf), then K8b's."""
+    if not check_kernel_device(xf_all, "block_correlate_close"):
+        res = _block_correlate_plain(xf_all, torch.conj_physical(rf),
+                                     pro.w0, pro.lag_int, pro.lag_frac,
+                                     pro.ph_sc, pro.tap_samps, pro.omega)
+        if corr is not None:
+            corr.copy_(res)
+        new, outs = _block_closure_plain(conf, e_block, res, pro, st)
+        _write_rows(planes, outs, block, e_block)
+        return new
+    if corr is None:
+        corr = torch.empty((rf.shape[0], e_block, pro.tap_samps.shape[1]),
+                           dtype=torch.complex64, device=rf.device)
+    out = _empty_state(st)
+    _launch_k1(_k1_args(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
+                        pro.ph_sc, pro.tap_samps, pro.omega, corr, scratch),
+               (_closure_args(conf, e_block, corr, pro, st, out, planes),
+                block))
+    return out
+
+
+block_correlate_close.launches = 0
+
+
 # ---- the chunk -------------------------------------------------------------
 
 def _chunk_plain(conf: TrackingConf, n_blocks: int, e_block: int,
@@ -779,18 +836,17 @@ def _chunk_plain(conf: TrackingConf, n_blocks: int, e_block: int,
 
 def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
                 codes_rep, taps, xf_all, state: TrackState):
-    """The block loop on the card: per block K8a, cuFFT, the conjugate, K1
-    and K8b into buffers allocated once per chunk (K1's scratch among
-    them), with no host sync.  The state ping-pongs between two buffers;
-    the launch arguments of the three (source, destination) pairs are
-    built once."""
+    """The block loop on the card: per block K8a, cuFFT, then K1 with
+    K8b's closure in its epilogue (three launches), into buffers allocated
+    once per chunk (K1's scratch among them), with no host sync.  The
+    state ping-pongs between two buffers; the launch arguments of K8a and
+    K8b for the three (source, destination) pairs are built once."""
     dev = xf_all.device
     c, nfft = codes_rep.shape
     k = taps.shape[0]
     planes = _empty_planes(n_blocks * e_block, c, dev)
     pro = _empty_prologue(c, e_block, nfft, k, dev)
     bufs = (_empty_state(state), _empty_state(state))
-    rf = torch.empty((c, nfft), dtype=torch.complex64, device=dev)
     corr = torch.empty((c, e_block, k), dtype=torch.complex64, device=dev)
     k1 = k1_scratch(c, e_block, k, nfft, dev)
     n_wins = xf_all.shape[0]
@@ -804,12 +860,11 @@ def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
         i = 0 if b == 0 else 1 + (b - 1) % 2
         _launch_prologue(p_args[i], c, stream)
         # no out= for the FFT: ATen would add a kernel that applies the
-        # (unit) normalization into it
-        torch.conj_physical(torch.fft.fft(pro.rep_t, dim=-1), out=rf)
-        block_correlate(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
-                        pro.ph_sc, pro.tap_samps, pro.omega, out=corr,
-                        scratch=k1)
-        _launch_closure(c_args[i], b, stream)
+        # (unit) normalization into it; K1 conjugates the spectrum on load
+        rf = torch.fft.fft(pro.rep_t, dim=-1)
+        _launch_k1(_k1_args(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
+                            pro.ph_sc, pro.tap_samps, pro.omega, corr, k1),
+                   (c_args[i], b))
     return bufs[(n_blocks - 1) % 2], planes
 
 
@@ -819,8 +874,8 @@ def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
     """Run n_blocks blocks of e_block epochs each.  Returns (new_state,
     outs) with the same per-epoch [T, C] output planes as track_chunk
     (T = n_blocks*e_block).  `codes_rep` is the [C, F] time-domain block
-    replica of code_spectra().  On the card each block is K8a, cuFFT, the
-    conjugate, K1 and K8b; on the CPU the plain versions."""
+    replica of code_spectra().  On the card each block is K8a, cuFFT and
+    K1 with K8b's closure fused; on the CPU the plain versions."""
     if n_blocks < 1:
         raise ValueError("track_chunk_blocks: n_blocks must be >= 1")
     xf_all = _window_spectra(x_chunk, conf.nominal_epoch_samples,

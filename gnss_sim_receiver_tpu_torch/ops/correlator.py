@@ -16,7 +16,9 @@ The kernel splits each channel's block over S CTAs (:func:`plan_k2`) and
 sums the slabs' partial correlations in slab order inside the same
 launch; its scratch (:class:`K2Scratch`) holds the partials, one arrival
 counter per channel and the count of table reads that missed the staged
-span.
+span.  The slab body is a device function that the per-epoch chunk kernel
+(``csrc/epoch_chunk.cu``, ``models/tracking.py:epoch_chunk``) runs too, on
+the same plan and with the same :class:`_K2Args`.
 """
 
 from __future__ import annotations
@@ -203,6 +205,50 @@ def multicorrelate(x: torch.Tensor, positions: torch.Tensor,
 multicorrelate.launches = 0
 
 
+class _K2Args(ctypes.Structure):
+    """csrc/multicorrelator.cuh's K2Args: the inputs of a K2 correlation
+    that do not change between epochs."""
+    _fields_ = [*((n, ctypes.c_void_p) for n in (
+                    "x", "codes", "taps", "data", "misses")),
+                *((n, ctypes.c_int) for n in (
+                    "n_x", "table_len", "n_taps", "block_size",
+                    "data_table_len", "n_slabs", "stage_cap",
+                    "data_stage_cap")),
+                *((n, ctypes.c_float) for n in (
+                    "inv_fs", "k_ovs", "data_ovs"))]
+
+
+def k2_args(x, block_size, codes, taps, fs, table_oversample, plan: K2Plan,
+            misses, data_codes=None, data_oversample=1) -> _K2Args:
+    """K2's checked epoch-invariant arguments on CUDA tensors, for `plan`,
+    counting staged-table misses into `misses` (int64 [1])."""
+    c, table_len = codes.shape
+    f32 = torch.float32
+    for name, t, dt in (("x", x, torch.complex64), ("codes", codes, f32),
+                        ("taps", taps, f32), ("misses", misses, torch.int64)):
+        require(t, dt, x.device, f"multicorrelate: {name}")
+    if data_codes is not None:
+        require(data_codes, f32, x.device, "multicorrelate: data_codes")
+        if data_codes.shape[0] != c:
+            raise ValueError("multicorrelate: shape mismatch")
+    if x.dim() != 1:
+        raise ValueError("multicorrelate: x must be one-dimensional")
+    if x.shape[0] < block_size:
+        raise ValueError("multicorrelate: chunk shorter than one block")
+    if misses.shape != (1,):
+        raise ValueError("multicorrelate: misses shape")
+    return _K2Args(
+        x=x.data_ptr(), codes=codes.data_ptr(), taps=taps.data_ptr(),
+        data=None if data_codes is None else data_codes.data_ptr(),
+        misses=misses.data_ptr(), n_x=x.shape[0], table_len=table_len,
+        n_taps=taps.shape[0], block_size=block_size,
+        data_table_len=0 if data_codes is None else data_codes.shape[1],
+        n_slabs=plan.slabs, stage_cap=plan.stage,
+        data_stage_cap=plan.data_stage,
+        inv_fs=float(torch.tensor(1.0 / fs, dtype=f32)),
+        k_ovs=float(table_oversample), data_ovs=float(data_oversample))
+
+
 def launch_args(x, positions, block_size, codes, taps, rem_code_phase_chips,
                 code_freq_chips, rem_carrier_phase_rad, carrier_doppler_hz,
                 n_samples, fs, table_oversample, out, data_codes=None,
@@ -212,28 +258,21 @@ def launch_args(x, positions, block_size, codes, taps, rem_code_phase_chips,
     ([C, K], or [C, K+1] with `data_codes`) through `scratch` (allocated
     here when not given): build once, launch with :func:`launch` as often
     as the tensors hold the next inputs."""
-    c, table_len = codes.shape
+    c = codes.shape[0]
     k = taps.shape[0]
     f32 = torch.float32
-    args = dict(codes=(codes, f32), taps=(taps, f32),
-                rem_code=(rem_code_phase_chips, f32),
-                code_freq=(code_freq_chips, f32),
-                rem_carr=(rem_carrier_phase_rad, f32),
-                dop=(carrier_doppler_hz, f32), pos=(positions, torch.int32),
-                n_samples=(n_samples, torch.int32),
-                out=(out, torch.complex64))
-    if data_codes is not None:
-        args["data_codes"] = (data_codes, f32)
-    for name, (t, dt) in args.items():
+    for name, t, dt in (("rem_code", rem_code_phase_chips, f32),
+                        ("code_freq", code_freq_chips, f32),
+                        ("rem_carr", rem_carrier_phase_rad, f32),
+                        ("dop", carrier_doppler_hz, f32),
+                        ("pos", positions, torch.int32),
+                        ("n_samples", n_samples, torch.int32),
+                        ("out", out, torch.complex64)):
         require(t, dt, x.device, f"multicorrelate: {name}")
-    require(x, torch.complex64, x.device, "multicorrelate: x")
-    if x.dim() != 1:
-        raise ValueError("multicorrelate: x must be one-dimensional")
-    if x.shape[0] < block_size:
-        raise ValueError("multicorrelate: chunk shorter than one block")
+        if t.shape[0] != c:
+            raise ValueError("multicorrelate: shape mismatch")
     n_out = k + (data_codes is not None)
-    if out.shape != (c, n_out) or (data_codes is not None
-                                   and data_codes.shape[0] != c):
+    if out.shape != (c, n_out):
         raise ValueError("multicorrelate: shape mismatch")
     if scratch is None:
         scratch = k2_scratch(codes, k, block_size, table_oversample,
@@ -242,23 +281,17 @@ def launch_args(x, positions, block_size, codes, taps, rem_code_phase_chips,
     for name, t, dt, shape in (
             ("partials", scratch.partials, torch.complex64,
              (c, plan.slabs, n_out)),
-            ("arrivals", scratch.arrivals, torch.int32, (c,)),
-            ("misses", scratch.misses, torch.int64, (1,))):
+            ("arrivals", scratch.arrivals, torch.int32, (c,))):
         require(t, dt, x.device, f"multicorrelate: scratch {name}")
         if t.shape != shape:
             raise ValueError(f"multicorrelate: scratch {name} shape")
-    inv_fs = float(torch.tensor(1.0 / fs, dtype=f32))
-    return (x.data_ptr(), x.shape[0], codes.data_ptr(), table_len,
-            taps.data_ptr(), k, positions.data_ptr(),
-            rem_code_phase_chips.data_ptr(), code_freq_chips.data_ptr(),
-            rem_carrier_phase_rad.data_ptr(), carrier_doppler_hz.data_ptr(),
-            n_samples.data_ptr(), inv_fs, float(table_oversample),
-            block_size,
-            None if data_codes is None else data_codes.data_ptr(),
-            0 if data_codes is None else data_codes.shape[1],
-            float(data_oversample), out.data_ptr(), c, plan.slabs,
-            plan.stage, plan.data_stage, scratch.partials.data_ptr(),
-            scratch.arrivals.data_ptr(), scratch.misses.data_ptr(),
+    a = k2_args(x, block_size, codes, taps, fs, table_oversample, plan,
+                scratch.misses, data_codes, data_oversample)
+    return (a, positions.data_ptr(), rem_code_phase_chips.data_ptr(),
+            code_freq_chips.data_ptr(), rem_carrier_phase_rad.data_ptr(),
+            carrier_doppler_hz.data_ptr(), n_samples.data_ptr(),
+            out.data_ptr(), c, scratch.partials.data_ptr(),
+            scratch.arrivals.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
 
 
@@ -269,11 +302,10 @@ def launch(args: tuple) -> None:
 
 
 def _lib():
-    lib = cuda_build.load("multicorrelator")
+    lib = cuda_build.load("epoch_kernels")
     fn = lib.multicorrelate
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, f, f, i, p, i, f,
-                       p, i, i, i, i, p, p, p, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [_K2Args, p, p, p, p, p, p, p, i, p, p, p]
         fn.restype = ctypes.c_int
     return lib

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA C++ kernels (``csrc/*.cu``).
 
-Each source has a plain C interface and is compiled by ``nvcc`` for
-``sm_90a`` into its own shared library under ``build/torch_kernels/`` at the
-repository root, then loaded with ctypes.  A library is named after its
-source and a hash of the source text and flags, so an edited kernel is
-rebuilt and a stale one is never loaded.  Builds happen at first use (or all
-at once, one ``nvcc`` per source in parallel, through :func:`build_all`);
+Each library has a plain C interface and is compiled by ``nvcc`` for
+``sm_90a`` under ``build/torch_kernels/`` at the repository root, then
+loaded with ctypes.  A library is named after itself and a hash of every
+source it is built from (its ``.cu`` translation units and the ``.cuh``
+headers they include) and of every flag, so an edited kernel is rebuilt and
+a stale one is never loaded.  Builds happen at first use (or all at once,
+one ``nvcc`` per translation unit in parallel, through :func:`build_all`);
 importing this module builds nothing.
 
 No ``--use_fast_math``: the block correlator's angles reach ~2*pi*(1 +
@@ -16,7 +17,23 @@ generator's carrier phase ~130 rad within an anchor block.
 ``block_step.cu`` (K8a, K8b) and ``epoch_step.cu`` (K9) are built with
 ``--fmad=false``: they repeat the plain PyTorch version operation by
 operation, where every torch op rounds on its own, so no ``a*b+c`` may be
-contracted into an FMA.  The other sources keep nvcc's default.
+contracted into an FMA.  The correlators, ``multicorrelator.cu`` (K2) and
+``block_correlator.cu`` (K1), keep nvcc's default contraction, which their
+accumulations were measured with.  Yet one kernel runs both kinds of body:
+the per-epoch chunk kernel (``epoch_chunk.cu``) calls K2's slab body and
+K9's closure, and K1's fused form calls K8b's closure.  A single
+translation unit under either flag would change the rounding of the other
+body, and the fused kernels would no longer give the bits of the
+standalone kernels they are held against.  So the tracking libraries are
+built from several translation units, each compiled with relocatable
+device code (``-rdc=true``) and its own flags, joined by ``nvcc -dlink``
+and linked into one shared library (:data:`LIBRARIES`).  Device LTO would
+inline across the units, but nvlink refuses to join units whose ``-fmad``
+differ.  Relocatable device code has a cost: a function called across
+units keeps the calling convention's registers, so the per-epoch
+library's units are capped at 128 registers (:data:`EPOCH_REGS`), and K1
+compiled with ``-rdc=true`` runs its E1 shape (five taps) slower than as a
+whole program, with the same bits (``PERF.md``).
 """
 
 from __future__ import annotations
@@ -24,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,13 +50,31 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("block_correlator", "multicorrelator", "fir_decim", "notch",
-           "device_generator", "block_step", "epoch_step")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one source beyond NVCC_FLAGS
+# each library's translation units (csrc/<unit>.cu); a library of several
+# is built with relocatable device code and one device link
+LIBRARIES = {
+    "epoch_kernels": ("multicorrelator", "epoch_step", "epoch_chunk"),
+    "block_kernels": ("block_correlator", "block_step"),
+    "fir_decim": ("fir_decim",),
+    "notch": ("notch",),
+    "device_generator": ("device_generator",),
+}
+SOURCES = tuple(u for units in LIBRARIES.values() for u in units)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v")
+# the per-epoch library's registers: with relocatable device code the
+# chunk kernel takes the most any function it calls takes (188 on sm_90a
+# uncapped: one CTA per SM, and clusters of 13 CTAs no longer all resident
+# for 10 channels); 128 fits two CTAs per SM
+EPOCH_REGS = ("-maxrregcount=128",)
+# flags of one translation unit beyond NVCC_FLAGS
 SOURCE_FLAGS = {"block_step": ("--fmad=false",),
-                "epoch_step": ("--fmad=false",)}
+                "epoch_step": ("--fmad=false",) + EPOCH_REGS,
+                "multicorrelator": EPOCH_REGS,
+                "epoch_chunk": EPOCH_REGS}
+RDC_FLAGS = ("-rdc=true",)
+LINK_FLAGS = ARCH + ("-Xcompiler", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -55,53 +91,124 @@ def nvcc_path() -> str:
                        "machine with the card, at first use")
 
 
-def nvcc_flags(name: str) -> tuple[str, ...]:
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+def library_of(unit: str) -> str:
+    """The library a translation unit is built into."""
+    for lib, units in LIBRARIES.items():
+        if unit in units:
+            return lib
+    raise KeyError(unit)
+
+
+def nvcc_flags(unit: str) -> tuple[str, ...]:
+    """The flags one translation unit is compiled with: relocatable device
+    code in a library of several."""
+    rdc = RDC_FLAGS if len(LIBRARIES[library_of(unit)]) > 1 else ()
+    return NVCC_FLAGS + rdc + SOURCE_FLAGS.get(unit, ())
+
+
+def _headers(unit: str) -> list[str]:
+    text = (CSRC_DIR / f"{unit}.cu").read_text()
+    return sorted(set(re.findall(r'#include "(\w+\.cuh)"', text)))
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()
-                            ).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The shared library `name` of LIBRARIES, named by a hash of its
+    translation units, the headers they include and every flag."""
+    h = hashlib.sha256()
+    units = LIBRARIES[name]
+    for unit in units:
+        h.update((CSRC_DIR / f"{unit}.cu").read_bytes())
+        h.update(" ".join(nvcc_flags(unit)).encode())
+        for header in _headers(unit):
+            h.update((CSRC_DIR / header).read_bytes())
+    if len(units) > 1:
+        h.update(" ".join(LINK_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, float]:
-    """Compile every named source whose library is missing, one ``nvcc``
-    process per source, all started together.  Returns the seconds each
-    build took (0.0 for a library already built); raises with the compiler
+def _start(cmd: list[str]) -> tuple[subprocess.Popen, float]:
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT), time.perf_counter())
+
+
+def _finish(proc: subprocess.Popen, what: str) -> bytes:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {what}:\n"
+                           + log.decode(errors="replace"))
+    return log
+
+
+def _finish_all(jobs, name: str) -> list[bytes]:
+    """Wait for every compile of library `name`; raise for the first that
+    failed."""
+    done = [(unit, proc.communicate()[0], proc.returncode)
+            for unit, proc, _, _ in jobs]
+    for unit, log, rc in done:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed for {name} ({unit}.cu):\n"
+                               + log.decode(errors="replace"))
+    return [log for _, log, _ in done]
+
+
+def build_all(names=tuple(LIBRARIES)) -> dict[str, float]:
+    """Build every named library that is missing: every translation unit
+    compiled at once, one ``nvcc`` process each, then the device link and
+    the link of each library of several.  Returns the seconds each build
+    took (0.0 for a library already built); raises with the compiler
     output when a build fails.  The ptxas report (registers, shared memory,
     spills) is kept beside each library as ``<lib>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
     seconds = {}
+    compiles = {}                      # library -> [(unit, proc, t0, out)]
     for name in names:
         out = library_path(name)
         if out.exists():
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT),
-                       tmp, out, time.perf_counter())
+        units = LIBRARIES[name]
+        jobs = []
+        for unit in units:
+            src = str(CSRC_DIR / f"{unit}.cu")
+            if len(units) == 1:
+                target, cmd = tmp, ["-shared", "-o", str(tmp), src]
+            else:
+                target = tmp.with_suffix(f".{unit}.o")
+                cmd = ["-c", "-o", str(target), src]
+            jobs.append((unit, *_start([nvcc_path(), *nvcc_flags(unit),
+                                        *cmd]), target))
+        compiles[name] = (jobs, tmp, out)
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_bytes(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log.decode(errors='replace')}")
+    for name, (jobs, tmp, out) in compiles.items():
+        logs = []
+        try:
+            logs += _finish_all(jobs, name)
+            if len(jobs) > 1:
+                objs = [str(o) for *_, o in jobs]
+                dlink = tmp.with_suffix(".dlink.o")
+                logs.append(_finish(_start(
+                    [nvcc_path(), *LINK_FLAGS, "-dlink", "-o", str(dlink),
+                     *objs])[0], f"{name} (device link)"))
+                logs.append(_finish(_start(
+                    [nvcc_path(), *LINK_FLAGS, "-shared", "-o", str(tmp),
+                     *objs, str(dlink)])[0], f"{name} (link)"))
+                for o in (*objs, str(dlink)):
+                    os.remove(o)
+        except RuntimeError as e:
+            failed.append(str(e))
             continue
+        finally:
+            out.with_suffix(".log").write_bytes(b"".join(logs))
+        seconds[name] = time.perf_counter() - min(t0 for _, _, t0, _ in jobs)
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library `name` of LIBRARIES, built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

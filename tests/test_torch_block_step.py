@@ -232,6 +232,66 @@ def test_block_planes_equal_per_block_concatenation():
         assert np.array_equal(ds[k], dw[k]), k
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_fused_block_step_on_cpu_is_k1_then_k8b(case, monkeypatch):
+    """K1 with K8b's closure fused (block_correlate_close, on the replica
+    spectrum as the FFT leaves it) takes, on CPU tensors, K1's plain
+    version on the conjugated spectrum and then K8b's plain version on its
+    output, from each case's edge state: the correlations land in `corr`,
+    the closure's rows in the block's rows of the planes (the other rows
+    untouched), its state is returned, and no launch counter moves."""
+    sig, seed = CASES[case]
+    rng = np.random.default_rng(seed)
+    c = _scenario(sig, seed)
+    a = _armed(sig, c["pconf"])
+    _edge(case, a, c["pconf"], rng)
+    conf, e = c["pconf"], sig["e"]
+    codes_rep = ptb.code_spectra(conf, c["tables"], "cpu")
+    taps, x = torch.from_numpy(c["taps"]), torch.from_numpy(c["x"])
+    st = interop.track_state_from_numpy(a, "cpu")
+    xf_all = ptb._window_spectra(x, conf.nominal_epoch_samples,
+                                 ptb.block_fft_size(conf))
+    pro = ptb._block_prologue_plain(conf, e, codes_rep, taps,
+                                    xf_all.shape[0], st)
+    rf = torch.fft.fft(pro.rep_t, dim=-1)
+    n_ch = len(a["active"])
+    planes = ptb._empty_planes(3 * e, n_ch, "cpu")
+    for v in planes.values():
+        v.zero_()
+    corr = torch.empty((n_ch, e, len(c["taps"])), dtype=torch.complex64)
+    seen = {}
+
+    def k1(*args, _f=ptb._block_correlate_plain):
+        seen["k1"] = (args, _f(*args))
+        return seen["k1"][1]
+
+    def k8b(*args, _f=ptb._block_closure_plain):
+        seen["k8b"] = (args, _f(*args))
+        return seen["k8b"][1]
+    monkeypatch.setattr(ptb, "_block_correlate_plain", k1)
+    monkeypatch.setattr(ptb, "_block_closure_plain", k8b)
+    counters = (ptb.block_correlate.launches,
+                ptb.block_correlate_close.launches,
+                ptb.block_closure.launches)
+    new = ptb.block_correlate_close(conf, e, xf_all, rf, pro, st, planes, 1,
+                                    corr=corr)
+    assert counters == (ptb.block_correlate.launches,
+                        ptb.block_correlate_close.launches,
+                        ptb.block_closure.launches)
+    (k1_args, k1_out), (k8b_args, (k8b_st, outs)) = seen["k1"], seen["k8b"]
+    assert k1_args[0] is xf_all and torch.equal(k1_args[1],
+                                                torch.conj_physical(rf))
+    assert all(t is u for t, u in zip(k1_args[2:], (
+        pro.w0, pro.lag_int, pro.lag_frac, pro.ph_sc, pro.tap_samps,
+        pro.omega)))
+    assert torch.equal(corr, k1_out)
+    assert k8b_args[:2] == (conf, e) and k8b_args[2] is k1_out
+    assert k8b_args[3] is pro and k8b_args[4] is st and new is k8b_st
+    for k in outs:
+        assert torch.equal(planes[k][e:2 * e], outs[k]), k
+        assert not planes[k][:e].any() and not planes[k][2 * e:].any(), k
+
+
 def _c_struct_fields(src: str, name: str):
     """(type, is_pointer, field) of each member of `struct name { ... };`
     in a CUDA source."""
@@ -248,11 +308,12 @@ def _c_struct_fields(src: str, name: str):
 @pytest.mark.parametrize("name", ["StatePtrs", "ProloguePtrs", "PlanePtrs",
                                   "PrologueArgs", "ClosureArgs"])
 def test_launch_structs_match_the_cuda_source(name):
-    """K8a's and K8b's launch arguments go to the kernels by value as
-    ctypes Structures: field for field, the names, order and types of
-    csrc/block_step.cu's structs (a pointer for every pointer, a nested
-    Structure for every struct, c_float and c_int for float and int32_t)."""
-    src = (Path(ptb.__file__).parents[1] / "csrc" / "block_step.cu"
+    """K8a's and K8b's launch arguments (K8b's also those of K1's fused
+    form) go to the kernels by value as ctypes Structures: field for
+    field, the names, order and types of csrc/block_step.cuh's structs (a
+    pointer for every pointer, a nested Structure for every struct,
+    c_float and c_int for float and int32_t)."""
+    src = (Path(ptb.__file__).parents[1] / "csrc" / "block_step.cuh"
            ).read_text()
     want = _c_struct_fields(src, name)
     got = getattr(ptb, f"_{name}")._fields_
@@ -267,15 +328,27 @@ def test_launch_structs_match_the_cuda_source(name):
             assert ct is getattr(ptb, f"_{t}"), n
 
 
-def test_block_step_builds_without_contraction():
+def test_block_step_builds_without_contraction(monkeypatch):
     """block_step.cu and epoch_step.cu alone get --fmad=false (they repeat
-    torch's rounding operation by operation); no source is built with fast
-    math."""
+    torch's rounding operation by operation); the correlators they are
+    linked with keep nvcc's default, each unit of a library of several is
+    compiled with relocatable device code, and every unit's flags are part
+    of its library's hash; no source is built with fast math."""
     exact = ("block_step", "epoch_step")
+    assert cuda_build.LIBRARIES["block_kernels"] == ("block_correlator",
+                                                     "block_step")
     for name in exact:
         assert name in cuda_build.SOURCES
         assert "--fmad=false" in cuda_build.nvcc_flags(name)
     for name in cuda_build.SOURCES:
-        assert "--use_fast_math" not in cuda_build.nvcc_flags(name)
+        flags = cuda_build.nvcc_flags(name)
+        assert "--use_fast_math" not in flags
+        rdc = len(cuda_build.LIBRARIES[cuda_build.library_of(name)]) > 1
+        assert flags == cuda_build.NVCC_FLAGS + (
+            cuda_build.RDC_FLAGS if rdc else ()) + cuda_build.SOURCE_FLAGS.get(
+                name, ())
         if name not in exact:
-            assert cuda_build.nvcc_flags(name) == cuda_build.NVCC_FLAGS
+            assert "--fmad=false" not in flags
+    built = cuda_build.library_path("block_kernels")
+    monkeypatch.setitem(cuda_build.SOURCE_FLAGS, "block_step", ())
+    assert cuda_build.library_path("block_kernels") != built

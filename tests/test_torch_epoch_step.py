@@ -42,6 +42,7 @@ from gnss_sim_receiver_tpu.sim import SatelliteSignalParams, generate_baseband
 from gnss_sim_receiver_tpu_torch import interop
 from gnss_sim_receiver_tpu_torch.models import receiver as prx
 from gnss_sim_receiver_tpu_torch.models import tracking as ptrk
+from gnss_sim_receiver_tpu_torch.ops import correlator as pcorr
 from gnss_sim_receiver_tpu_torch.ops import cuda_build
 from tests.test_torch_block_step import _c_struct_fields, _jax_state
 
@@ -326,6 +327,39 @@ def test_epoch_planes_equal_per_epoch_outputs():
     assert torch.equal(rows["prompt"][0], planes["prompt"][0])
 
 
+@pytest.mark.parametrize("case", ["gps_ext20", "e1_pilot"])
+def test_epoch_chunk_on_cpu_runs_the_plain_loop(case, monkeypatch):
+    """track_chunk goes through the chunk kernel's wrapper (epoch_chunk),
+    which on CPU tensors runs K2's and K9's plain versions epoch by epoch
+    (_chunk_plain, once, on the same inputs) and returns its result
+    unchanged; no kernel's launch counter moves."""
+    c = _scenario(case, 6)
+    a = _armed(c["sig"], c["pconf"])
+    conf = c["pconf"]
+    codes, taps = torch.from_numpy(c["codes"]), torch.from_numpy(c["taps"])
+    x = torch.from_numpy(c["x"])
+    data = None if c["data"] is None else torch.from_numpy(c["data"])
+    st0 = interop.track_state_from_numpy(a, "cpu")
+    calls = []
+
+    def spy(*args, _plain=ptrk._chunk_plain):
+        calls.append((args, _plain(*args)))
+        return calls[-1][1]
+    monkeypatch.setattr(ptrk, "_chunk_plain", spy)
+    counters = (ptrk.epoch_chunk.launches, ptrk.epoch_chunk.epochs,
+                ptrk.epoch_closure.launches, pcorr.multicorrelate.launches)
+    got = ptrk.track_chunk(conf, 4, codes, taps, x, st0, data)
+    assert counters == (ptrk.epoch_chunk.launches, ptrk.epoch_chunk.epochs,
+                        ptrk.epoch_closure.launches,
+                        pcorr.multicorrelate.launches)
+    assert len(calls) == 1
+    args, result = calls[0]
+    assert args[:2] == (conf, 4) and args[5] is st0
+    assert all(t is u for t, u in zip(args[2:5], (codes, taps, x)))
+    assert args[6] is data and got is result
+    assert len(result[1]["prompt"]) == 4
+
+
 def test_epoch_conf_checks_raise_value_errors():
     """The JAX body's asserts are ValueErrors in the port."""
     conf = ptrk.TrackingConf(extend_correlation_symbols=3)
@@ -341,19 +375,27 @@ def test_epoch_conf_checks_raise_value_errors():
                                              extend_correlation_symbols=10))
 
 
-@pytest.mark.parametrize("name", ["EpochStatePtrs", "EpochPlanePtrs",
-                                  "EpochArgs"])
+# each launch struct of the per-epoch kernels: its source and the module
+# holding its ctypes mirror
+_EPOCH_STRUCTS = {"EpochStatePtrs": ("epoch_step.cuh", ptrk),
+                  "EpochPlanePtrs": ("epoch_step.cuh", ptrk),
+                  "EpochArgs": ("epoch_step.cuh", ptrk),
+                  "K2Args": ("multicorrelator.cuh", pcorr),
+                  "EpochChunkArgs": ("epoch_chunk.cu", ptrk)}
+
+
+@pytest.mark.parametrize("name", list(_EPOCH_STRUCTS))
 def test_launch_structs_match_the_cuda_source(name):
-    """K9's launch arguments go to the kernel by value as ctypes
-    Structures: field for field, the names, order and types of
-    csrc/epoch_step.cu's structs (a pointer for every pointer, a nested
+    """K2's, K9's and the chunk kernel's launch arguments go to the kernels
+    by value as ctypes Structures: field for field, the names, order and
+    types of the structs in csrc/ (a pointer for every pointer, a nested
     Structure for every struct, c_float and c_int for float and int32_t)."""
     import ctypes
     from pathlib import Path
-    src = (Path(ptrk.__file__).parents[1] / "csrc" / "epoch_step.cu"
-           ).read_text()
+    source, module = _EPOCH_STRUCTS[name]
+    src = (Path(ptrk.__file__).parents[1] / "csrc" / source).read_text()
     want = _c_struct_fields(src, name)
-    got = getattr(ptrk, f"_{name}")._fields_
+    got = getattr(module, f"_{name}")._fields_
     assert [n for n, _ in got] == [n for _, _, n in want]
     scalars = {"float": ctypes.c_float, "int32_t": ctypes.c_int}
     for (n, ct), (t, pointer, _) in zip(got, want):
@@ -362,19 +404,21 @@ def test_launch_structs_match_the_cuda_source(name):
         elif t in scalars:
             assert ct is scalars[t], n
         else:
-            assert ct is getattr(ptrk, f"_{t}"), n
+            assert ct is getattr(_EPOCH_STRUCTS[t][1], f"_{t}"), n
 
 
-def test_epoch_step_builds_without_contraction():
-    """epoch_step.cu is built with --fmad=false, and the flag is part of
-    the library's hash: a build without it would be another library."""
-    import hashlib
-    flags = cuda_build.nvcc_flags("epoch_step")
-    assert "--fmad=false" in flags and "--use_fast_math" not in flags
-    src = (cuda_build.CSRC_DIR / "epoch_step.cu").read_bytes()
-
-    def lib(fl):
-        digest = hashlib.sha256(src + " ".join(fl).encode()).hexdigest()
-        return cuda_build.BUILD_DIR / f"libepoch_step-{digest[:12]}.so"
-    assert cuda_build.library_path("epoch_step") == lib(flags)
-    assert lib(cuda_build.NVCC_FLAGS) != lib(flags)
+def test_epoch_step_builds_without_contraction(monkeypatch):
+    """epoch_step.cu (K9's closure) is compiled with --fmad=false, K2's
+    multicorrelator.cu and the chunk kernel's epoch_chunk.cu with nvcc's
+    default contraction, all three with relocatable device code into one
+    library; every unit's flags are part of the library's hash: a build
+    without --fmad=false would be another library."""
+    units = cuda_build.LIBRARIES["epoch_kernels"]
+    assert set(units) == {"multicorrelator", "epoch_step", "epoch_chunk"}
+    for unit in units:
+        flags = cuda_build.nvcc_flags(unit)
+        assert "-rdc=true" in flags and "--use_fast_math" not in flags
+        assert ("--fmad=false" in flags) == (unit == "epoch_step")
+    built = cuda_build.library_path("epoch_kernels")
+    monkeypatch.setitem(cuda_build.SOURCE_FLAGS, "epoch_step", ())
+    assert cuda_build.library_path("epoch_kernels") != built
