@@ -16,13 +16,17 @@ Phases (any failure exits non-zero, before the result line):
    K2's data-table form; then the chunk kernel, K9 redesigned as one
    launch per chunk, against the two-launch chunk, K2 then K9 per epoch,
    bit for bit over 50 epochs at four shapes, timed per chunk and per
-   epoch by graph replay and on the host, and a 50-epoch chunk of phase
-   8's E1 pilot chain through it and through the plain loop; the block
+   epoch by graph replay and on the host, then at C = 300 channels, more
+   than the card keeps resident, in waves of clusters, and a 50-epoch
+   chunk of phase 8's E1 pilot chain through it and through the plain
+   loop; the block
    step K8a and K8b next, at four shapes, each with K1 and K8b fused held
    bit for bit against K1 then K8b; K1 and
    K2 with the GPS and the Galileo E1 tables, K3 wipeoff and peak, K3b,
    K4a in both modes, K4b fold and resolve, K4c with and without its
-   Doppler boxcar, K5a, K5b, K5c, K5d in both modes, K6) against its
+   Doppler boxcar, K3c (the first-vs-second-peak statistic) in its plain,
+   dual and CAF forms on K3's, K4a's and K4c's correlations, K5a, K5b,
+   K5c, K5d in both modes, K6) against its
    plain PyTorch version on the card at the shape its path
    launches it at, with the stated tolerance, and its time there beside
    the plain version's and its bound (K1 and K2, which split each channel
@@ -54,6 +58,16 @@ Phases (any failure exits non-zero, before the result line):
    CLI to a position; then the Tong and Fine Doppler engines on the
    card-resident 2 Msps capture: the scenario's PRNs detected, each result
    equal to the same engine's plain run on the same samples;
+4e. phase 4's conf with use_CFAR_algorithm=false, pfa=0 and a fixed
+   threshold through the CLI to a position (K3c on the coarse searches,
+   K3's peak kernel on the narrow grids); phase 4's checks; then the Tong
+   and Fine Doppler engines under that statistic, with
+   bit_transition_flag under CFAR, and with both, each equal to its plain
+   run;
+4f. the ROC harness (models/acq_performance.py, the trials as K3's
+   channel axis) at tests/test_acq_performance.py's size under its
+   bounds, and one 384-trial batch under the first-vs-second statistic
+   against the plain statistic;
 5. the hybrid path at the reference conf's 20 Msps: the 26 s hybrid
    scenario (GPS PRNs 1, 3, 4, 5 and Galileo PRNs 11-15) synthesized on the
    card by the device generator (K6), quantized there and written as an
@@ -64,6 +78,9 @@ Phases (any failure exits non-zero, before the result line):
    counters read as in phase 4;
 5b. the E1 chain's 8 ms acquisition (K4a) on the card-resident hybrid
    capture: PRNs 11-15 detected, every cell equal to the plain version's;
+5c. its CCCWSR and 8 ms acquisitions with use_CFAR_algorithm=false and the
+   fixed threshold (K3c's dual form) on the same capture, the same
+   checks;
 6. the full chain of bench.py: the 12-satellite, 120 s scenario at 2 Msps
    made on the card by the device generator (K6) and kept there, through
    ``Receiver(ReceiverConf(fs=2e6, prns=1..12, max_channels=12,
@@ -931,6 +948,32 @@ def check_k9(dev, rng, conf, c: int, name: str, label: str):
 CHUNK_CHECK_EPOCHS = 50
 
 
+def chunk_bytes(x, st0, st1, codes, data, planes) -> float:
+    """The bytes one chunk must move: the samples of `x` that its channels
+    read (the union of each channel's window, from its position in `st0`
+    to its position in `st1`), each code table once (they stay in L2),
+    the state in and out once and the planes written once."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    p0, p1 = (s.pos.cpu().numpy().astype(np.int64) for s in (st0, st1))
+    lo, hi = np.minimum(p0, p1), np.maximum(p0, p1)
+    order = np.argsort(lo)
+    n_samp, end = 0, 0
+    for a, b in zip(lo[order], hi[order]):      # the union's length
+        a = max(a, end)
+        if b > a:
+            n_samp += b - a
+            end = b
+    st_bytes = codes.shape[0] * sum(
+        torch.empty(0, dtype=dt).element_size() * trk._WIDE.get(f, 1)
+        for f, dt in trk._EPOCH_STATE_FIELDS)
+    return float(n_samp * x.element_size()
+                 + sum(t.numel() * t.element_size() for t in
+                       (codes, *(() if data is None else (data,))))
+                 + 2 * st_bytes
+                 + sum(v.numel() * v.element_size() for v in planes.values()))
+
+
 def check_epoch_chunk_bits(dev, rng, conf, c: int, name: str, label: str,
                            path_epochs: int, chain=None):
     """The chunk kernel (epoch_chunk) against the two-launch chunk
@@ -1009,20 +1052,14 @@ def check_epoch_chunk_bits(dev, rng, conf, c: int, name: str, label: str,
           f"two-launch chunk {two_ms:.4f} ms ({two_ms / t:.5f} per epoch); "
           f"host time per epoch: chunk kernel {h_chunk:.4f} ms, two-launch "
           f"{h_two:.4f} ms; plain loop {plain_ms / t:.3f} ms per epoch")
-    # per epoch K2's bytes and operations (check_k2) and K9's (check_k9)
+    # per epoch K2's operations (check_k2) and K9's (check_k9)
     n_samp = float(trk._epoch_length(conf, st).sum())
-    k2_bytes = c * conf.block_size * 8 + codes.numel() * 4 \
-        * (1 + (data is not None)) + c * n_out * 8
-    st_bytes = c * sum(torch.empty(0, dtype=dt).element_size()
-                       * trk._WIDE.get(f, 1)
-                       for f, dt in trk._EPOCH_STATE_FIELDS)
-    k9_bytes = 2 * st_bytes + c * n_out * 8 + 2 * c * 4 \
-        + c * (2 * 8 + 8 * 4 + 2 * 4 + 1)
     n_sec = len(conf.secondary_code)
     n_ops = n_samp * (14 + n_out * 7) + c * (300 + 2 * n_sec * n_sec)
+    n_bytes = chunk_bytes(x, st, runs[0][0], codes, data, runs[0][1])
     row = _row(name, "cuda", "gnss_sim_receiver_tpu_torch/csrc/epoch_chunk.cu",
                "gnss_sim_receiver_tpu/models/tracking.py:712", err, ms,
-               plain_ms, t * (k2_bytes + k9_bytes), t * n_ops,
+               plain_ms, n_bytes, t * n_ops,
                f"{label}: C={c} channels, K={k} taps"
                + (" + data tap" if data is not None else "")
                + f", k_ext={conf.extend_correlation_symbols}, T={t} epochs,"
@@ -1031,6 +1068,145 @@ def check_epoch_chunk_bits(dev, rng, conf, c: int, name: str, label: str,
     row["ms_path_chunk"] = ms_path
     row["path_epochs"] = path_epochs
     return row
+
+
+WAVES_CHANNELS = 300
+
+
+def check_epoch_chunk_waves(dev, rng):
+    """The chunk kernel at GPS 2 Msps (S' = 1) with C = WAVES_CHANNELS,
+    more channels than the card keeps clusters resident at once: the
+    planner's wave count and the card's resident count printed; over
+    CHUNK_CHECK_EPOCHS epochs from epoch_state's edge states every plane
+    and the final state bit for bit those of the two-launch chunk, two
+    launches bit-identical.  Timed per chunk by graph replay.  Returns its
+    row (for the other_shapes line)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    c, t = WAVES_CHANNELS, CHUNK_CHECK_EPOCHS
+    conf = trk.TrackingConf(fs=FS)
+    eng = trk.TrackingEngine(conf, [1 + i % 32 for i in range(c)],
+                             device=dev)
+    codes, taps = eng.codes, eng.taps
+    st = epoch_state(rng, conf, c, rng.choice([-1.0, 1.0], c), dev)
+    x = _cnoise(rng, (1 << 20) + (t + 2) * conf.block_size, dev)
+    args = (conf, t, codes, taps, x, st, None)
+    _, _, _, k2 = trk._chunk_inputs(conf, codes, taps, None)
+    plan = trk._chunk_plan(c, k2, taps.shape[0])
+    resident = trk._card_max_clusters(c, plan.cluster, plan.smem)
+    print(f"  chunk kernel at C={c}: S={k2.slabs}, S'={plan.cluster}, "
+          f"{resident} clusters resident on the card, {plan.waves} waves")
+    if resident >= c or plan.waves != -(-c // resident):
+        fail(f"chunk kernel at C={c}: {resident} resident, plan {plan}")
+    misses = torch.zeros(1, dtype=torch.int64, device=dev)
+    runs = [trk.epoch_chunk(*args, misses=misses) for _ in range(2)]
+    ref_st, ref = trk._chunk_two_launch(*args)
+    torch.cuda.synchronize()
+    for i, (got_st, got) in enumerate(runs):
+        diff = differing(got_st, ref_st, got, ref)
+        if diff:
+            fail(f"chunk kernel at C={c} (waves): launch {i + 1} differs "
+                 f"from the two-launch chunk in {diff}")
+    print(f"  chunk kernel at C={c}: {t} epochs, planes and final state bit "
+          "for bit those of the two-launch chunk; two launches "
+          f"bit-identical; {int(misses)} staged-table misses")
+    launch = trk.chunk_launch(conf, t, codes, taps, x, st, None, misses)
+    ms = time_ms(lambda: trk.launch_chunk(launch), reps=2)
+    two_ms = time_ms(lambda: trk._chunk_two_launch(*args), reps=1)
+    print(f"  chunk kernel at C={c}: {ms:.4f} ms per chunk of {t} epochs "
+          f"({ms / t:.5f} per epoch); the two-launch chunk {two_ms:.4f} ms")
+    n_samp = float(trk._epoch_length(conf, st).sum())
+    k = taps.shape[0]
+    n_ops = n_samp * (14 + k * 7) + c * 300
+    row = _row("K9_epoch_chunk", "cuda",
+               "gnss_sim_receiver_tpu_torch/csrc/epoch_chunk.cu",
+               "gnss_sim_receiver_tpu/models/tracking.py:712", 0.0, ms,
+               two_ms, chunk_bytes(x, st, runs[0][0], codes, None,
+                                   runs[0][1]), t * n_ops,
+               f"GPS L1 C/A at 2 Msps: C={c} channels, K={k} taps, T={t} "
+               f"epochs, S={k2.slabs}, S'={plan.cluster}, {plan.waves} waves "
+               f"({resident} clusters resident); plain_ms: the two-launch "
+               "chunk")
+    row["waves"] = plan.waves
+    row["resident"] = resident
+    return row
+
+
+WAVES_MODEL_FS = 20e6
+WAVES_MODEL_SLABS = 8
+
+
+def check_epoch_chunk_cluster_sizes(dev, rng) -> None:
+    """The planner's waves rule where it chooses among cluster sizes: GPS
+    L1 C/A at 20 Msps, C = WAVES_CHANNELS, K2's plan forced to S =
+    WAVES_MODEL_SLABS slabs (plan_k2 gives S = 1 above as many channels as
+    the card has SMs, so no path reaches this case).  Every size S'
+    that fits is launched over CHUNK_CHECK_EPOCHS epochs; planes and final
+    state must be bit for bit equal across sizes (the leader sums the
+    slabs in slab order whatever S').  Per size the card's resident
+    clusters, waves, rounds, the rule's cost waves x rounds and the time
+    per chunk (graph replay) are printed, then the planner's pick beside
+    the fastest size."""
+    import functools
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.ops import correlator
+    c, t, s = WAVES_CHANNELS, CHUNK_CHECK_EPOCHS, WAVES_MODEL_SLABS
+    conf = trk.TrackingConf(fs=WAVES_MODEL_FS)
+    eng = trk.TrackingEngine(conf, [1 + i % 32 for i in range(c)],
+                             device=dev)
+    codes, taps = eng.codes, eng.taps
+    n_out = taps.shape[0]
+    st = epoch_state(rng, conf, c, rng.choice([-1.0, 1.0], c), dev)
+    x = _cnoise(rng, (1 << 20) + (t + 2) * conf.block_size, dev)
+    path_s = trk._chunk_inputs(conf, codes, taps, None)[3].slabs
+    k2 = correlator.plan_k2(c, conf.block_size, codes.shape[1],
+                            codes.shape[1] // conf.code_length_chips,
+                            sms=-(-s * c // 2))
+    if k2.slabs != s:
+        fail(f"chunk kernel cluster sizes: forced plan {k2}, not S={s}")
+    fits = functools.partial(trk._card_max_clusters, c)
+    pick = trk.plan_epoch_chunk(c, k2, n_out, fits)
+    misses = torch.zeros(1, dtype=torch.int64, device=dev)
+    launches = []
+    for cl in range(1, min(trk.EPOCH_CHUNK_MAX_CLUSTER, s) + 1):
+        smem = trk.epoch_chunk_smem(k2, n_out, cl)
+        if smem + trk.EPOCH_CHUNK_STATIC_SMEM > trk.SMEM_PER_CTA:
+            continue
+        resident = fits(cl, smem)
+        if resident == 0:
+            continue
+        plan = trk.EpochChunkPlan(k2, cl, -(-s // cl), smem,
+                                  -(-c // resident))
+        launches.append((trk.chunk_launch(conf, t, codes, taps, x, st, None,
+                                          misses, plan), resident))
+        trk.launch_chunk(launches[-1][0])
+    torch.cuda.synchronize()
+    # compared before any is timed: a launch writes the lengths after the
+    # chunk into its n_c, so its replays start from other lengths
+    ref = launches[0][0]
+    for launch, _ in launches[1:]:
+        diff = differing(launch.state, ref.state, launch.planes, ref.planes)
+        if diff:
+            fail(f"chunk kernel at C={c}, S={s}: S'={launch.plan.cluster} "
+                 f"differs from S'={ref.plan.cluster} in {diff}")
+    timed = []
+    for launch, resident in launches:
+        ms = time_ms(lambda: trk.launch_chunk(launch), reps=2)
+        plan = launch.plan
+        timed.append((ms, plan))
+        print(f"  chunk kernel at 20 Msps, C={c}, S={s} (the path's plan: "
+              f"S={path_s}): S'={plan.cluster}: {resident} clusters "
+              f"resident, {plan.waves} waves x {plan.rounds} rounds = "
+              f"{plan.waves * plan.rounds}, {ms:.4f} ms per chunk of {t} "
+              "epochs")
+    best_ms, best = min(timed, key=lambda m: m[0])
+    pick_ms = next(m for m, p in timed if p.cluster == pick.cluster)
+    print(f"  chunk kernel at 20 Msps, C={c}, S={s}: {len(timed)} sizes bit "
+          f"for bit equal; the planner picks S'={pick.cluster} "
+          f"({pick.waves} waves x {pick.rounds} rounds), {pick_ms:.4f} ms; "
+          f"the fastest is S'={best.cluster}, {best_ms:.4f} ms "
+          f"({pick_ms / best_ms:.3f} x); {int(misses)} staged-table misses")
 
 
 def acq_dwells(dev, m: int = 2):
@@ -1093,7 +1269,69 @@ def check_k3(dev):
     compare("K3 pcps_search", got, want, 1e-4)
     print(f"  K3 search (M={m}, D={d}, N={n}, C={c}): port {port:.4f} ms, "
           f"torch.fft + torch ops yardstick {torch_ops:.4f} ms")
+    # K3c's plain form on the same correlations (the main path's coarse
+    # search under use_CFAR_algorithm=false), and the whole search so
+    spc = 2
+    out.append(check_k3c("K3c_pcps_second_peak", corr, m, spc, "plain", 0,
+                         f"M={m} dwells, C={c} channels, D={d} Doppler "
+                         f"bins, N={n} samples"))
+    got = pcps.pcps_search(x, cfc, dops, t, use_cfar=False,
+                           samples_per_chip=spc)
+    want = pcps.first_vs_second_peak_stat(pcps.pcps_grid(x, cfc, dops, FS),
+                                          spc)
+    compare("K3c pcps_search (first vs second) statistic", got[0], want[0],
+            1e-4)
+    compare("K3c pcps_search (first vs second) cells", got[1:], want[1:],
+            0.0)
     return out
+
+
+def check_k3c(name: str, corr, m: int, spc: int, form: str, caf_bins: int,
+              shape: str):
+    """K3c (pcps_second_peak) in the grid form `form` on the correlations
+    its search gives it, against its plain version (the grid materialised,
+    then first_vs_second_peak_stat): the statistic to 1e-4 of its scale,
+    the cells exact.  Timed whole (the form's row kernel, the tiles of the
+    peak row, the ratio) and the row kernel alone, whose difference is
+    what K3c adds to the search's peak; bound: the correlations read once
+    (that of the added part: the peak row's planes read again)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    label = f"{form} form, spc={spc}" + (f", b={caf_bins}" if form == "caf"
+                                         else "")
+    got = pcps.pcps_second_peak(corr, m, spc, form, caf_bins)
+    want = pcps._second_peak_plain(corr, spc, form, caf_bins)
+    torch.cuda.synchronize()
+    err = compare(f"K3c pcps_second_peak ({label}) statistic", got[0],
+                  want[0], 1e-4)
+    compare(f"K3c pcps_second_peak ({label}) cells", got[1:], want[1:], 0.0)
+    ms = time_ms(lambda: pcps.pcps_second_peak(corr, m, spc, form,
+                                               caf_bins))
+    row_ms = time_ms(lambda: pcps._row_pass(corr, m, form, caf_bins, "K3c"))
+    plain = time_ms(lambda: pcps._second_peak_plain(corr, spc, form,
+                                                    caf_bins), reps=3)
+    c, d, n = corr.shape[1], corr.shape[2], corr.shape[-1]
+    planes = 1 if form == "plain" else 2
+    k = 2 * caf_bins + 1 if form == "caf" else 1
+    row_bytes = m * c * n * 8 * planes * k
+    added_bound, _ = bound_ms(row_bytes, 0)
+    print(f"  K3c ({label}): the peak row's tiles and the ratio add "
+          f"{ms - row_ms:.4f} ms to the row kernel's {row_ms:.4f} ms; "
+          f"their bound {added_bound:.4f} ms (the peak row's planes read "
+          f"again, {row_bytes / 1e6:.3f} MB)")
+    # per (dwell, cell) of the grid and again of the peak row: |.|^2 3
+    # (plain), the sign hypotheses 12 (dual), two |.|^2 and their sum 8
+    # per boxcar row (CAF); per cell compare, sum 2; per row cell the zone
+    # 4 and the max 1
+    per = {"plain": 3, "dual": 12, "caf": 8 * k}[form]
+    n_ops = (m * c * d * n * per + c * d * n * (2 + (k if k > 1 else 0))
+             + m * c * n * per + c * n * 5)
+    row = _row(name, "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+               "gnss_sim_receiver_tpu/ops/pcps.py:123", err, ms, plain,
+               corr.numel() * 8 + c * 12, n_ops, f"{label}: {shape}")
+    row["added_ms"] = ms - row_ms
+    row["added_bound_ms"] = added_bound
+    return row
 
 
 def check_k5a(dev, rng):
@@ -1316,10 +1554,10 @@ def check_k3b(dev):
                 f"N={n} samples")
 
 
-def hybrid_chain(fs: float, impl: str = "CCCWSR"):
+def hybrid_chain(fs: float, impl: str = "CCCWSR", keys: dict | None = None):
     """The Galileo E1-B chain that the factory builds from phase 5's conf
-    text at rate `fs` with Galileo_E1_PCPS_<impl>_Ambiguous_Acquisition:
-    the path's acquisition and tracking confs."""
+    text at rate `fs` with Galileo_E1_PCPS_<impl>_Ambiguous_Acquisition
+    and the conf `keys`: the path's acquisition and tracking confs."""
     from gnss_sim_receiver_tpu_torch.models.factory import \
         receiver_conf_from_config
     from gnss_sim_receiver_tpu_torch.utils.config import \
@@ -1327,11 +1565,13 @@ def hybrid_chain(fs: float, impl: str = "CCCWSR"):
     props = conf_properties(HYBRID_CONF.format(capture="", fs=int(fs)))
     props["Acquisition_1B.implementation"] = \
         f"Galileo_E1_PCPS_{impl}_Ambiguous_Acquisition"
+    props.update(keys or {})
     (chain,) = receiver_conf_from_config(InMemoryConfiguration(props)).chains
     return chain
 
 
-def check_k4a(dev, fs: float, variant: str, extra: list):
+def check_k4a(dev, fs: float, variant: str, extra: list,
+              k3c: list):
     """K4a on the planes its path gives it: the hybrid scenario's first
     dwells at rate `fs`, the E1 chain's acquisition conf (M=2 dwells, D=81
     Doppler bins, N = 4 ms of samples), C=10 channels (PRNs 11-20, of which
@@ -1339,7 +1579,8 @@ def check_k4a(dev, fs: float, variant: str, extra: list):
     planes (statistic to 1e-4 of its scale, cells exact), and the whole
     search against the JAX-form grid (pcps_cccwsr_grid / pcps_8ms_grid) and
     statistic.  Returns the row of phase 5's shape (CCCWSR at 20 Msps); the
-    other results go to `extra`."""
+    other results go to `extra`.  At that shape K3c's dual form is held on
+    the same planes too, its row appended to `k3c`."""
     import torch
     from gnss_sim_receiver_tpu_torch.models.acquisition import \
         PcpsAcquisitionEngine
@@ -1394,6 +1635,11 @@ def check_k4a(dev, fs: float, variant: str, extra: list):
                f"{label}: M={m} dwells, C={c} channels, D={d} Doppler bins, "
                f"N={n} samples, two [M, C, D, N] complex64 planes "
                f"({corr.numel() * 8 / 1e6:.1f} MB)")
+    if variant == "cccwsr" and fs == FS_REF_HYBRID:
+        k3c.append(check_k3c(
+            "K3c_pcps_second_peak_dual", corr, m, eng.samples_per_chip,
+            "dual", 0, f"{label}: M={m} dwells, C={c} channels, D={d} "
+            f"Doppler bins, N={n} samples"))
     del corr
     torch.cuda.empty_cache()
     if variant == "cccwsr" and fs == FS_REF_HYBRID:
@@ -1402,7 +1648,7 @@ def check_k4a(dev, fs: float, variant: str, extra: list):
     return None
 
 
-def check_k4c(dev, extra: list):
+def check_k4c(dev, extra: list, k3c: list):
     """K4c on the planes its path gives it: phase 7's first dwells (the
     device generator's, seed 17), the E5a chain's acquisition conf (M=2
     dwells, D=41 Doppler bins of 250 Hz, N = 2 ms = 40000 samples: the
@@ -1414,7 +1660,8 @@ def check_k4c(dev, extra: list):
     statistic, and the detection decision: the same PRNs above the
     threshold as the plain version, at least 3 of them, none absent.
     Returns the row of phase 7's shape (b=1); the b=0 row goes to
-    `extra`."""
+    `extra`.  At b=1 K3c's CAF form is held on the same planes too, its
+    row appended to `k3c`."""
     import torch
     from gnss_sim_receiver_tpu_torch.models.acquisition import \
         PcpsAcquisitionEngine
@@ -1472,6 +1719,11 @@ def check_k4c(dev, extra: list):
                  f"planes ({corr.numel() * 8 / 1e6:.1f} MB)")
         if b == e5a.acq.caf_bins:
             row = r
+            k3c.append(check_k3c(
+                "K3c_pcps_second_peak_caf", corr, m, eng.samples_per_chip,
+                "caf", b, f"E5a I/Q at {FS_WIDEBAND / 1e6:g} Msps: M={m} "
+                f"dwells, C={c} channels, D={d} Doppler bins, N={n} "
+                "samples"))
         else:
             extra.append(r)
     del corr
@@ -2452,58 +2704,76 @@ def hybrid_path(root: str, wrappers, card: str) -> dict:
     return launches
 
 
-def hybrid_8ms(root: str, wrappers) -> dict:
-    """Phase 5b: the E1 chain's acquisition engine of the same conf with
-    Galileo_E1_PCPS_8ms_Ambiguous_Acquisition, on the first second of the
-    hybrid capture resident on the card (a window that starts off the
-    128-sample grid), PRNs 11-20.  PRNs 11-15 must be detected, and each
-    channel's (Doppler, delay) must equal the plain version's on the same
-    window, the statistic to 1e-4 of it."""
+def hybrid_acquisition(root: str, wrappers, impl: str = "8ms",
+                       keys: dict | None = None) -> dict:
+    """Phases 5b and 5c: the E1 chain's acquisition engine of phase 5's conf
+    with Galileo_E1_PCPS_<impl>_Ambiguous_Acquisition and the conf `keys`,
+    on the first second of the hybrid capture resident on the card (a
+    window that starts off the 128-sample grid), PRNs 11-20.  PRNs 11-15
+    must be detected, the detections must equal those of the plain
+    version (the JAX-form grid materialised, then its statistic: CFAR, or
+    first-vs-second with use_CFAR_algorithm=false) and each channel's
+    (Doppler, delay) must equal its, the statistic to 1e-4 of it."""
     import torch
     from gnss_sim_receiver_tpu_torch.models.acquisition import \
         PcpsAcquisitionEngine
     from gnss_sim_receiver_tpu_torch.ops import pcps
     from gnss_sim_receiver_tpu_torch.utils.sample_io import read_samples
-    chain = hybrid_chain(FS_REF_HYBRID, "8ms")
+    chain = hybrid_chain(FS_REF_HYBRID, impl, keys)
+    acq = chain.acq
     x = torch.from_numpy(read_samples(capture_paths(root)["hybrid"],
                                       "ibyte",
                                       count=int(FS_REF_HYBRID))).cuda()
     prns = tuple(range(11, 21))
     eng = PcpsAcquisitionEngine(
-        chain.acq, prns, code_provider=chain.code_provider,
+        acq, prns, code_provider=chain.code_provider,
         sc_rate=chain.sc_rate, code_provider2=chain.data_code_provider)
     start = 100_003
+    stat_kernel = ("K4a_pcps_dual_peak" if acq.use_cfar_algorithm
+                   else "K3c_pcps_second_peak_dual")
     reset(wrappers)
     torch.cuda.synchronize()
     res = eng.acquire_from(x, start)
     torch.cuda.synchronize()
-    launches = read_launches(wrappers, ("K4a_pcps_dual_peak",))
+    launches = read_launches(wrappers, (stat_kernel,))
     found = [p for p, d in zip(prns, res.detected) if d]
-    print(f"  8 ms acquisition at sample {start}: detected PRNs {found} "
-          f"(threshold {res.threshold:.2f}), Doppler "
+    print(f"  {impl} acquisition at sample {start}: detected PRNs {found} "
+          f"(threshold {res.threshold:.2f}), statistic "
+          f"{np.round(res.test_stat, 3).tolist()}, Doppler "
           f"{res.doppler_hz[:5].tolist()} Hz, delay "
           f"{res.delay_samples[:5].tolist()}")
     if not set(HYB_GAL_PRNS) <= set(found):
-        fail(f"8 ms acquisition detected {found}")
-    m, n = chain.acq.max_dwells, eng.fft_size
-    x_dw = x[start:start + eng.n_samples_needed].reshape(m, 2 * n)
-    stat, di, de = pcps.max_to_input_power_stat(
-        pcps.pcps_8ms_grid(x_dw, eng.code_fft_conj, eng.dopplers,
-                           FS_REF_HYBRID),
-        float(2 * m))
+        fail(f"{impl} acquisition detected {found}")
+    m, n = acq.max_dwells, eng.fft_size
+    x_dw = x[start:start + eng.n_samples_needed].reshape(m, -1)
+    if acq.variant == "8ms":
+        grid = pcps.pcps_8ms_grid(x_dw, eng.code_fft_conj, eng.dopplers,
+                                  FS_REF_HYBRID)
+    else:
+        grid = pcps.pcps_cccwsr_grid(x_dw, eng.code2_fft_conj,
+                                     eng.code_fft_conj, eng.dopplers,
+                                     FS_REF_HYBRID)
+    if acq.use_cfar_algorithm:
+        stat, di, de = pcps.max_to_input_power_stat(grid, float(2 * m))
+    else:
+        stat, di, de = pcps.first_vs_second_peak_stat(grid,
+                                                      eng.samples_per_chip)
+    del grid
     want_dop = eng.dopplers[di.long()].double().cpu().numpy()
-    want_del = np.mod(de.double().cpu().numpy(), n)
-    if not (np.array_equal(res.doppler_hz, want_dop)
+    want_del = np.mod(de.double().cpu().numpy(), eng.n_coherent)
+    want_stat = stat.double().cpu().numpy()
+    if not (np.array_equal(res.detected, want_stat > res.threshold)
+            and np.array_equal(res.doppler_hz, want_dop)
             and np.array_equal(res.delay_samples, want_del)):
-        fail(f"8 ms acquisition against its plain version: Doppler "
+        fail(f"{impl} acquisition against its plain version: Doppler "
              f"{res.doppler_hz} vs {want_dop}, delay {res.delay_samples} vs "
-             f"{want_del}")
-    rel = np.abs(res.test_stat - stat.double().cpu().numpy()) \
-        / np.abs(stat.double().cpu().numpy())
-    print(f"  against the plain version: Doppler and delay identical, "
-          f"statistic within {rel.max():.2e} (tolerance 1e-4)")
+             f"{want_del}, statistic {res.test_stat} vs {want_stat}")
+    rel = np.abs(res.test_stat - want_stat) / np.abs(want_stat)
+    print(f"  against the plain version: detections, Doppler and delay "
+          f"identical, statistic within {rel.max():.2e} (tolerance 1e-4)")
     if rel.max() > 1e-4:
-        fail("8 ms acquisition statistic differs from the plain version")
+        fail(f"{impl} acquisition statistic differs from the plain version")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2537,14 +2807,53 @@ def quicksync_path(root: str, wrappers) -> dict:
     return launches
 
 
-def tong_fine_doppler(root: str, wrappers) -> None:
-    """Phase 4d, second half: the acquisition engines that the factory
-    builds from phase 4's conf with GPS_L1_CA_PCPS_Tong_Acquisition and
-    GPS_L1_CA_PCPS_Acquisition_Fine_Doppler, PRNs 1-10, on the 2 Msps
-    capture resident on the card (a window off the 128-sample grid).  The
-    scenario's PRNs must be detected, and the detections equal the same
-    engine's plain run on the same samples (Doppler and delay identical
-    where detected, the statistic to 1e-4)."""
+# the acquisition tail's conf keys (phases 4e and 5c): the first-vs-second-
+# peak statistic against a fixed threshold, at which the JAX receiver
+# acquires exactly the static scenario's PRNs (tests/test_torch_acq_tail.py
+# THRESHOLD); and the doubled FFT of bit_transition_flag
+RATIO_THRESHOLD = 2.5
+
+
+def ratio_props(sig: str) -> dict:
+    return {f"Acquisition_{sig}.use_CFAR_algorithm": "false",
+            f"Acquisition_{sig}.pfa": "0",
+            f"Acquisition_{sig}.threshold": str(RATIO_THRESHOLD)}
+
+
+BIT_PROPS = {"Acquisition_1C.bit_transition_flag": "true"}
+# phase 4d's engines under the CFAR statistic, and phase 4e's: the ratio,
+# the doubled FFT, both; (label, conf keys, what Tong and Fine Doppler
+# detect: "exact" the scenario's PRNs, "any" whatever the plain run
+# detects).  The fixed threshold is sized for two-dwell searches: Tong's
+# single 1 ms dwells can put a present satellite's ratio under it (PRN 3
+# on phase 4's capture, in the kernel run and the plain run alike).  That
+# JAX does the same is inferred from tests/test_torch_acq_tail.py, which
+# holds the port's Tong to JAX's under the ratio on its own capture; JAX
+# is not run on this one.  With
+# the ratio and the doubled FFT the peak repeats one code period later and
+# the ratio stays near 1 (acquisition.py:45-48) unless a bit edge cuts one
+# of the two periods
+CFAR_CASES = (("CFAR", {}, dict(tong="exact", fine_doppler="exact")),)
+TAIL_CASES = (("first vs second", ratio_props("1C"),
+               dict(tong="any", fine_doppler="exact")),
+              ("CFAR, bit_transition_flag", BIT_PROPS,
+               dict(tong="exact", fine_doppler="exact")),
+              ("first vs second, bit_transition_flag",
+               {**ratio_props("1C"), **BIT_PROPS},
+               dict(tong="any", fine_doppler="any")))
+
+
+def tong_fine_doppler(root: str, wrappers, cases=CFAR_CASES) -> None:
+    """Phase 4d, second half (and phase 4e's with TAIL_CASES): the
+    acquisition engines that the factory builds from phase 4's conf with
+    GPS_L1_CA_PCPS_Tong_Acquisition and
+    GPS_L1_CA_PCPS_Acquisition_Fine_Doppler and each case's keys, PRNs
+    1-10, on the 2 Msps capture resident on the card (a window off the
+    128-sample grid).  The scenario's PRNs must be detected as the case
+    says; every result must equal the same engine's plain run on the same
+    samples (detections identical, Doppler and delay identical where
+    detected and on the scenario's PRNs, the statistic to 1e-4 on every
+    channel)."""
     import torch
     from gnss_sim_receiver_tpu_torch.models.acquisition import \
         PcpsAcquisitionEngine
@@ -2556,43 +2865,176 @@ def tong_fine_doppler(root: str, wrappers) -> None:
                          ).cuda()
     prns = tuple(range(1, 11))
     start = 100_003
-    needed = {"tong": ("K3_pcps_wipe", "K3_pcps_peak"),
-              "fine_doppler": ("K3_pcps_wipe", "K3_pcps_peak",
-                               "K3b_pcps_wipe_per_channel")}
-    for impl in ("GPS_L1_CA_PCPS_Tong_Acquisition",
-                 "GPS_L1_CA_PCPS_Acquisition_Fine_Doppler"):
-        props = conf_properties(CONF.format(capture=""))
-        props["Acquisition_1C.implementation"] = impl
-        acq = receiver_conf_from_config(InMemoryConfiguration(props)).acq
-        eng = PcpsAcquisitionEngine(acq, prns)
-        reset(wrappers)
+    for label, keys, expect in cases:
+        for impl in ("GPS_L1_CA_PCPS_Tong_Acquisition",
+                     "GPS_L1_CA_PCPS_Acquisition_Fine_Doppler"):
+            props = conf_properties(CONF.format(capture=""))
+            props["Acquisition_1C.implementation"] = impl
+            props.update(keys)
+            acq = receiver_conf_from_config(InMemoryConfiguration(props)).acq
+            eng = PcpsAcquisitionEngine(acq, prns)
+            stat_kernel = ("K3_pcps_peak" if acq.use_cfar_algorithm
+                           else "K3c_pcps_second_peak")
+            needed = ("K3_pcps_wipe", stat_kernel) + (
+                ("K3b_pcps_wipe_per_channel", "K3_pcps_peak")
+                if acq.variant == "fine_doppler" else ())
+            reset(wrappers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.acquire_from(x, start)
+            dt = time.perf_counter() - t0
+            print(f"  {impl} ({label}; threshold {res.threshold:.3f}):")
+            read_launches(wrappers, needed)
+            want = PcpsAcquisitionEngine(acq, prns, device="cpu"
+                                         ).acquire_from(x.cpu(), start)
+            found = [p for p, d in zip(prns, res.detected) if d]
+            print(f"  detected PRNs {found} in {dt * 1e3:.1f} ms (one pull);"
+                  f" statistic {np.round(res.test_stat, 3).tolist()}")
+            if expect[acq.variant] == "exact" \
+                    and found != list(SCENARIO_PRNS):
+                fail(f"{impl} ({label}) detected {found}")
+            det = want.detected | np.isin(prns, SCENARIO_PRNS)
+            if not (np.array_equal(res.detected, want.detected)
+                    and np.array_equal(res.doppler_hz[det],
+                                       want.doppler_hz[det])
+                    and np.array_equal(res.delay_samples[det],
+                                       want.delay_samples[det])):
+                fail(f"{impl} ({label}) against its plain run: {res} vs "
+                     f"{want}")
+            rel = np.abs(res.test_stat - want.test_stat) / want.test_stat
+            print(f"  against the plain run: detections, Doppler and delay "
+                  f"identical, statistic within {rel.max():.2e} (tolerance "
+                  f"1e-4)")
+            if rel.max() > 1e-4:
+                fail(f"{impl} ({label}): statistic differs from the plain "
+                     "run")
+
+
+RATIO_CONF = CONF.replace(
+    "Acquisition_1C.pfa=0.01\n",
+    "".join(f"{k}={v}\n" for k, v in ratio_props("1C").items()))
+RATIO_KERNELS = ("K3c_pcps_second_peak", "K3_pcps_wipe", "K3_pcps_peak",
+                 "K3b_pcps_wipe_per_channel", "K1_block_correlate",
+                 "K5a_fir_decim")
+
+
+def ratio_path(root: str, wrappers) -> dict:
+    """Phase 4e, first part: phase 4's conf with use_CFAR_algorithm=false,
+    pfa=0 and threshold=RATIO_THRESHOLD and phase 4's capture through the
+    CLI to a position; phase 4's checks.  Every coarse search takes K3c
+    (its launches = the coarse wipeoffs), every narrow grid K3's peak
+    kernel (= the narrow wipeoffs)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    conf = os.path.join(root, "build", "chip_smoke_ratio.conf")
+    with open(conf, "w") as fh:
+        fh.write(RATIO_CONF.format(capture=capture_paths(root)["file"]))
+    reset(wrappers)
+    torch.cuda.synchronize()
+    res = run_cli([f"--config_file={conf}"])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, RATIO_KERNELS)
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    check_run(res.run, min_fixes=5)
+    k3c, coarse = launches["K3c_pcps_second_peak"], launches["K3_pcps_wipe"]
+    peak = launches["K3_pcps_peak"]
+    narrow = launches["K3b_pcps_wipe_per_channel"]
+    print(f"  acquisition: {coarse} coarse searches through K3c ({k3c}), "
+          f"{narrow} narrow grids through K3's peak kernel ({peak})")
+    if k3c != coarse or peak != narrow:
+        fail("K3c and K3's peak kernel do not take the coarse and the narrow "
+             "searches one each")
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}; "
+          f"real-time factor {DUR / wall:.3f}")
+    check_block_launches(launches, sec["receiver"])
+    return launches
+
+
+ROC_KERNELS = ("K3_pcps_wipe", "K3_pcps_peak", "K3c_pcps_second_peak")
+
+
+def roc_path(wrappers) -> dict:
+    """Phase 4f: the ROC harness (models/acq_performance.py) at
+    tests/test_acq_performance.py's size and seeds, its bounds asserted:
+    sweep over 30, 40, 45 dB-Hz (Pfa 0.05, 384 trials), the dwell-gain
+    pair at 38 dB-Hz (1 and 2 dwells), then one _trial_stats of 384 trials
+    under the first-vs-second-peak statistic, held against the plain
+    statistic of the same trials.  Each sweep's seconds printed."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import acq_performance as perf
+    from gnss_sim_receiver_tpu_torch.ops import pcps, prn_codes
+    reset(wrappers)
+    secs = {}
+
+    def timed(name, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = eng.acquire_from(x, start)
-        dt = time.perf_counter() - t0
-        print(f"  {impl}:")
-        read_launches(wrappers, needed[acq.variant])
-        want = PcpsAcquisitionEngine(acq, prns, device="cpu").acquire_from(
-            x.cpu(), start)
-        found = [p for p, d in zip(prns, res.detected) if d]
-        print(f"  detected PRNs {found} in {dt * 1e3:.1f} ms (one pull); "
-              f"Doppler {res.doppler_hz[res.detected].tolist()} Hz, delay "
-              f"{res.delay_samples[res.detected].tolist()}")
-        if found != list(SCENARIO_PRNS):
-            fail(f"{impl} detected {found}")
-        det = want.detected
-        if not (np.array_equal(res.detected, det)
-                and np.array_equal(res.doppler_hz[det], want.doppler_hz[det])
-                and np.array_equal(res.delay_samples[det],
-                                   want.delay_samples[det])):
-            fail(f"{impl} against its plain run: {res} vs {want}")
-        rel = np.abs(res.test_stat - want.test_stat)[det] \
-            / want.test_stat[det]
-        print(f"  against the plain run: detections, Doppler and delay "
-              f"identical, statistic within {rel.max():.2e} (tolerance "
-              f"1e-4)")
-        if rel.max() > 1e-4:
-            fail(f"{impl}: statistic differs from the plain run")
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+    pfa_hat, pd, thr = timed("roc", lambda: perf.sweep(
+        cn0_db_hz=(30.0, 40.0, 45.0), pfa=0.05, n_trials=384, seed=2))
+    print(f"  ROC sweep (384 trials, Pfa 0.05, threshold {thr:.3f}): "
+          f"pfa_hat {pfa_hat:.4f}, pd {pd} in {secs['roc']:.3f} s")
+    if not (0.002 <= pfa_hat <= 0.075 and pd[30.0] <= 0.2
+            and pd[45.0] >= 0.95 and pd[30.0] <= pd[40.0] <= pd[45.0]):
+        fail(f"ROC sweep outside tests/test_acq_performance.py's bounds: "
+             f"{pfa_hat}, {pd}")
+    _, pd1, _ = timed("dwells 1", lambda: perf.sweep(
+        cn0_db_hz=(38.0,), pfa=0.01, n_trials=384, max_dwells=1, seed=5))
+    _, pd2, _ = timed("dwells 2", lambda: perf.sweep(
+        cn0_db_hz=(38.0,), pfa=0.01, n_trials=384, max_dwells=2, seed=5))
+    print(f"  dwell gain at 38 dB-Hz: pd {pd1[38.0]:.4f} (1 dwell, "
+          f"{secs['dwells 1']:.3f} s), {pd2[38.0]:.4f} (2 dwells, "
+          f"{secs['dwells 2']:.3f} s)")
+    if not (pd2[38.0] >= pd1[38.0]
+            and (pd2[38.0] - pd1[38.0] > 0.05 or pd1[38.0] > 0.9)):
+        fail(f"dwell gain outside tests/test_acq_performance.py's bounds: "
+             f"{pd1}, {pd2}")
+    dev = torch.device("cuda")
+    n, t_n = 2000, 384
+    code = prn_codes.sample_code(prn_codes.gps_l1_ca_code(1), FS, 1.023e6, n)
+    code_t = torch.from_numpy(code.astype(np.float32)).to(dev)
+    cfc = torch.from_numpy(np.conj(np.fft.fft(code))[None].astype(
+        np.complex64)).to(dev)
+    dops = torch.from_numpy(pcps.doppler_grid(5000.0, 250.0)).to(dev)
+    amp = float(np.sqrt(2.0 * 10.0 ** 4.0 / FS))            # 40 dB-Hz
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    stat = timed("ratio trials", lambda: perf._trial_stats(
+        gen, code_t, cfc, dops, amp, 1375.0, 700, n, t_n, FS, False, 2, 1))
+    launches = read_launches(wrappers, ROC_KERNELS)
+
+    def plain(x):
+        """The same statistic through the plain versions: the wipeoff, the
+        grid materialised, first_vs_second_peak_stat."""
+        corr = torch.fft.ifft(torch.fft.fft(pcps._wipe_plain(
+            x.reshape(t_n, n), dops, pcps.time_axis(n, FS, dev)), dim=-1)
+            * cfc[0], dim=-1).reshape(1, t_n, len(dops), n)
+        return pcps.first_vs_second_peak_stat(pcps._plain_grid(corr), 2)[0]
+    gen.manual_seed(7)
+    x = perf.trial_signal(gen, code_t, amp, 1375.0, 700, n, t_n, FS, 1)
+    compare("4f _trial_stats (first vs second, 384 trials) against the "
+            "plain statistic", stat, plain(x), 1e-4)
+    # warm, host-timed to the synchronize: one batch through the kernels
+    # (the noise drawn too) and the plain statistic of the same batch
+    timed("ratio trials warm", lambda: perf._trial_stats(
+        gen, code_t, cfc, dops, amp, 1375.0, 700, n, t_n, FS, False, 2, 1))
+    timed("ratio trials plain", lambda: plain(x))
+    print(f"  _trial_stats (first vs second, 40 dB-Hz, 384 trials) in "
+          f"{secs['ratio trials'] * 1e3:.1f} ms (first at its shape), "
+          f"{secs['ratio trials warm'] * 1e3:.3f} ms warm, the plain "
+          f"statistic of the batch {secs['ratio trials plain'] * 1e3:.3f} "
+          f"ms: median ratio {float(stat.median()):.3f}, "
+          f"{int((stat > RATIO_THRESHOLD).sum())} of {t_n} above "
+          f"{RATIO_THRESHOLD}")
+    print(f"  seconds: {json.dumps(secs)}")
+    return dict(launches=launches, seconds=secs)
 
 
 def hybrid_witness() -> None:
@@ -3208,6 +3650,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         for kw, lab, n in (({}, "k_ext 1", 30),
                            ({"extend_correlation_symbols": 20}, "k_ext 20",
                             1000))]
+    extra.append(check_epoch_chunk_waves(dev, rng9))
+    check_epoch_chunk_cluster_sizes(dev, np.random.default_rng(11))
     torch.cuda.empty_cache()
     check_epoch_chunk(dev)
     torch.cuda.empty_cache()
@@ -3252,13 +3696,15 @@ def run_phases(root: str, card: str, procs: dict) -> int:
             extra += [k1, k2]
         torch.cuda.empty_cache()
     rows += [*check_k3(dev), check_k3b(dev)]
+    k3c = []
     for variant in ("cccwsr", "8ms"):
         for fs in (FS_REF_HYBRID, FS_FILE):
-            row = check_k4a(dev, fs, variant, extra)
+            row = check_k4a(dev, fs, variant, extra, k3c)
             if row is not None:
                 rows.append(row)
     rows += check_k4b(dev, extra)
-    rows.append(check_k4c(dev, extra))
+    rows.append(check_k4c(dev, extra, k3c))
+    rows += k3c
     check_wideband_shapes(dev, rng, extra)
     rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
              *check_k5d(dev, rng)]
@@ -3295,6 +3741,10 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         "K4b_quicksync_fold": (pcps.pcps_quicksync_fold, "launches"),
         "K4b_quicksync_resolve": (pcps.pcps_quicksync_resolve, "launches"),
         "K4c_pcps_caf_peak": (pcps.pcps_caf_peak, "launches"),
+        "K3c_pcps_second_peak": (pcps.pcps_second_peak, "launches"),
+        "K3c_pcps_second_peak_dual": (pcps.pcps_second_peak,
+                                      "launches_dual"),
+        "K3c_pcps_second_peak_caf": (pcps.pcps_second_peak, "launches_caf"),
         "K5a_fir_decim": (filters.fir_decim, "launches"),
         "K5b_notch_filter": (filters.notch_filter, "launches"),
         "K5c_pulse_blanking": (filters.pulse_blanking, "launches"),
@@ -3323,6 +3773,15 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     for name in QUICKSYNC_KERNELS[:2]:
         launches[name] = quick[name]
     tong_fine_doppler(root, wrappers)
+    print("== phase 4e: the first-vs-second-peak statistic and a fixed "
+          "threshold through the CLI; Tong and Fine Doppler under it and "
+          "with bit_transition_flag", flush=True)
+    ratio = ratio_path(root, wrappers)
+    launches["K3c_pcps_second_peak"] = ratio["K3c_pcps_second_peak"]
+    tong_fine_doppler(root, wrappers, TAIL_CASES)
+    print("== phase 4f: the ROC harness (trials as K3's channels)",
+          flush=True)
+    roc_path(wrappers)
     print("== phase 5: the hybrid path at 20 Msps (device generator -> "
           "ibyte file -> GPS L1 C/A + Galileo E1-B conf -> receiver -> joint "
           "position)", flush=True)
@@ -3339,7 +3798,13 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         launches[name + "_E1"] = hybrid[name]
     launches["K4a_pcps_dual_peak"] = hybrid["K4a_pcps_dual_peak"]
     print("== phase 5b: 8 ms acquisition on the hybrid capture", flush=True)
-    hybrid_8ms(root, wrappers)
+    hybrid_acquisition(root, wrappers)
+    print("== phase 5c: CCCWSR and 8 ms acquisition under the "
+          "first-vs-second-peak statistic on the hybrid capture",
+          flush=True)
+    launches["K3c_pcps_second_peak_dual"] = sum(
+        hybrid_acquisition(root, wrappers, impl, ratio_props("1B"))[
+            "K3c_pcps_second_peak_dual"] for impl in ("CCCWSR", "8ms"))
     print("== phase 6: the full chain (bench.py's 12-satellite, 120 s "
           "scenario made on the card -> process_array)", flush=True)
     full = full_chain(wrappers, card)

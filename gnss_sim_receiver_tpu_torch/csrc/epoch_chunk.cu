@@ -19,8 +19,11 @@
 //
 // The design:
 // - the grid is (S', C), one thread-block cluster of S' CTAs per channel
-//   (S' from the planner in models/tracking.py: at most 16, every cluster
-//   resident at once, S' = 1 where K2's plan has one slab); CTA r of
+//   (S' from the planner in models/tracking.py: at most 16, S' = 1 where
+//   K2's plan has one slab; every cluster resident at once where the card
+//   holds C of them, else the card runs them in waves: the clusters share
+//   nothing but the staged-table miss count, an integer atomicAdd, so no
+//   cluster waits for another); CTA r of
 //   channel c correlates the slabs s of K2's plan (ops/correlator.py
 //   plan_k2, unchanged) with s mod S' == r, each with K2's slab body, and
 //   keeps their [K(+1)] partial sums in its own shared memory;

@@ -136,7 +136,7 @@ _SUPPORTED = {(AcqConf, "variant"): VARIANTS}
 # fields of the JAX package's confs that the port lacks, with the one value
 # (the default) under which the port computes the same thing
 _ABSENT = {
-    AcqConf: dict(threshold=0.0, use_cfar_algorithm=True),
+    AcqConf: {},
     TrackingConf: dict(pll_filter_order=3, dll_filter_order=2,
                        lock_rectify=False,
                        tracking_mode="dll_pll", bayes_forgetting=0.995,

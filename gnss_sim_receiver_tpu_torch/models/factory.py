@@ -111,15 +111,6 @@ def _acq_from_config(config: Configuration, sig: str,
     Acq_Conf fill, e.g. gps_l1_ca_pcps_acquisition.cc)."""
     variant = _variant(config, sig)
     p = f"Acquisition_{sig}."
-    _refuse_unless(config, p + "use_CFAR_algorithm", True)
-    bit_transition = config.property(p + "bit_transition_flag",
-                                     base.bit_transition_flag)
-    if bit_transition and variant not in ("pcps", "iq_caf"):
-        raise _not_ported(p + "bit_transition_flag", bit_transition,
-                          f"the doubled FFT of the {variant} search")
-    pfa = config.property(p + "pfa", base.pfa)
-    if pfa <= 0:
-        raise _not_ported(p + "pfa", pfa, "a fixed threshold (pfa <= 0)")
     # E5a CAF Doppler smoothing window (total Hz -> boxcar half-width in
     # bins; galileo_e5a_noncoherent_iq_acquisition_caf_cc CAF_window_hz,
     # the JAX factory's factory.py:183-187)
@@ -136,7 +127,10 @@ def _acq_from_config(config: Configuration, sig: str,
                                    base.sampled_ms),
         max_dwells=max(config.property(p + "max_dwells", base.max_dwells),
                        1),
-        pfa=pfa,
+        pfa=config.property(p + "pfa", base.pfa),
+        threshold=config.property(p + "threshold", base.threshold),
+        use_cfar_algorithm=config.property(p + "use_CFAR_algorithm",
+                                           base.use_cfar_algorithm),
         make_two_steps=config.property(p + "make_two_steps",
                                        base.make_two_steps),
         doppler_step2=float(config.property(p + "second_doppler_step",
@@ -145,7 +139,8 @@ def _acq_from_config(config: Configuration, sig: str,
             p + "second_nbins", base.num_doppler_bins_step2),
         variant=variant,
         caf_bins=caf_bins,
-        bit_transition_flag=bit_transition,
+        bit_transition_flag=config.property(p + "bit_transition_flag",
+                                            base.bit_transition_flag),
         # the variants' own keys, read with the JAX factory's defaults
         # (factory.py:212-215)
         tong_init=config.property(p + "tong_init_val", 1),

@@ -848,12 +848,15 @@ EPOCH_CHUNK_STATIC_SMEM = 2048
 class EpochChunkPlan(NamedTuple):
     """The chunk kernel's launch shape: K2's own plan (S slabs and the
     staged spans, unchanged), clusters of `cluster` CTAs (S') per channel,
-    `rounds` = ceil(S / S') slabs per CTA (slab s on CTA s mod S'), and
-    `smem` bytes of dynamic shared memory per CTA."""
+    `rounds` = ceil(S / S') slabs per CTA (slab s on CTA s mod S'), `smem`
+    bytes of dynamic shared memory per CTA, and `waves`, the number of
+    times the card fills with resident clusters to run the C channels (1
+    where every channel's cluster is resident at once)."""
     k2: correlator.K2Plan
     cluster: int
     rounds: int
     smem: int
+    waves: int = 1
 
 
 def epoch_chunk_smem(k2: correlator.K2Plan, n_out: int, cluster: int) -> int:
@@ -866,24 +869,42 @@ def epoch_chunk_smem(k2: correlator.K2Plan, n_out: int, cluster: int) -> int:
 def plan_epoch_chunk(n_ch: int, k2: correlator.K2Plan, n_out: int,
                      max_clusters) -> EpochChunkPlan:
     """The chunk kernel's plan for C channels of K(+1) = `n_out` outputs on
-    K2's plan `k2`: the cluster size S' (1 where S = 1; at most
-    EPOCH_CHUNK_MAX_CLUSTER) that runs the S slabs in the fewest rounds,
-    the smallest such, with the shared memory inside a CTA's 227 KB and
-    every channel's cluster resident at once (`max_clusters(S', smem)`,
-    the card's cudaOccupancyMaxActiveClusters, >= C).  Raises if no size
-    fits."""
+    K2's plan `k2`, over the cluster sizes S' (1 where S = 1; at most
+    EPOCH_CHUNK_MAX_CLUSTER) whose shared memory fits a CTA's 227 KB and
+    of which the card keeps at least one resident (`max_clusters(S',
+    smem)`, the card's cudaOccupancyMaxActiveClusters):
+
+    - where some size keeps every channel's cluster resident at once
+      (`max_clusters >= C`), the one that runs the S slabs in the fewest
+      rounds, the smallest such;
+    - else the one that takes the fewest waves times rounds,
+      ceil(C / max_clusters) * ceil(S / S'), the smallest on ties: the
+      clusters are independent (their only barriers are cluster
+      barriers), so the card runs them wave after wave.
+
+    Raises if no size fits."""
     if not (1 <= n_ch <= 65535 and 1 <= n_out <= 9 and k2.slabs >= 1):
         raise ValueError(f"plan_epoch_chunk: no plan for C={n_ch}, "
                          f"{n_out} outputs, {k2}")
-    sizes = sorted(range(1, min(EPOCH_CHUNK_MAX_CLUSTER, k2.slabs) + 1),
-                   key=lambda cl: (-(-k2.slabs // cl), cl))
-    for cl in sizes:
+    fits = []                         # (waves, rounds, S', smem)
+    for cl in range(1, min(EPOCH_CHUNK_MAX_CLUSTER, k2.slabs) + 1):
         smem = epoch_chunk_smem(k2, n_out, cl)
-        if (smem + EPOCH_CHUNK_STATIC_SMEM <= SMEM_PER_CTA
-                and max_clusters(cl, smem) >= n_ch):
-            return EpochChunkPlan(k2, cl, -(-k2.slabs // cl), smem)
-    raise ValueError(f"plan_epoch_chunk: no cluster of C={n_ch} channels "
-                     f"on {k2} fits the card")
+        if smem + EPOCH_CHUNK_STATIC_SMEM > SMEM_PER_CTA:
+            continue
+        resident = max_clusters(cl, smem)
+        if resident > 0:
+            fits.append((-(-n_ch // resident), -(-k2.slabs // cl), cl,
+                         smem))
+    if not fits:
+        raise ValueError(f"plan_epoch_chunk: no cluster of C={n_ch} "
+                         f"channels on {k2} fits the card")
+    at_once = [f for f in fits if f[0] == 1]
+    if at_once:
+        waves, rounds, cl, smem = min(at_once, key=lambda f: (f[1], f[2]))
+    else:
+        waves, rounds, cl, smem = min(fits,
+                                      key=lambda f: (f[0] * f[1], f[2]))
+    return EpochChunkPlan(k2, cl, rounds, smem, waves)
 
 
 def _card_max_clusters(n_ch: int, cluster: int, smem: int) -> int:
@@ -941,13 +962,19 @@ class ChunkLaunch(NamedTuple):
 
 def chunk_launch(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
                  state: TrackState, data_codes=None,
-                 misses: torch.Tensor | None = None) -> ChunkLaunch:
+                 misses: torch.Tensor | None = None,
+                 plan: EpochChunkPlan | None = None) -> ChunkLaunch:
     """The checked arguments of one chunk-kernel launch on CUDA tensors,
-    into fresh output buffers; launch with :func:`launch_chunk`."""
+    into fresh output buffers; launch with :func:`launch_chunk`.  `plan`
+    (K2's plan within it too) replaces the card's :func:`_chunk_plan`
+    where given, as a check of the planner's choice does."""
     dev = x_chunk.device
     c, k = codes.shape[0], taps.shape[0]
     data, k_ovs, d_ovs, k2 = _chunk_inputs(conf, codes, taps, data_codes)
     n_out = k + int(data is not None)
+    if plan is None:
+        plan = _chunk_plan(c, k2, n_out)
+    k2 = plan.k2
     planes = _empty_planes(n_epochs, c, dev, EPOCH_PLANES)
     out = _empty_epoch_state(state)
     n_c = _epoch_length(conf, state)
@@ -962,8 +989,7 @@ def chunk_launch(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
         ep=_epoch_args(conf, corr, n_c, _sec_device(conf, dev), state, out,
                        planes),
         n_epochs=n_epochs)
-    return ChunkLaunch(_chunk_plan(c, k2, n_out), args, out, planes, n_c,
-                       (corr, misses))
+    return ChunkLaunch(plan, args, out, planes, n_c, (corr, misses))
 
 
 def launch_chunk(launch: ChunkLaunch) -> None:

@@ -1,5 +1,5 @@
-"""Batched Parallel Code Phase Search acquisition (kernels K3, K3b, K4a, K4b
-and K4c).
+"""Batched Parallel Code Phase Search acquisition (kernels K3, K3b, K3c, K4a,
+K4b and K4c).
 
 PyTorch port of ``gnss_sim_receiver_tpu.ops.pcps`` (the PCPS grid, its
 two-step refinement, the CCCWSR and 8 ms grids of Galileo E1, the
@@ -47,6 +47,15 @@ sum_m |ci|^2 + |cq|^2, the (2b+1)-row Doppler boxcar of the CAF filter
 grid with 2 M correlations per cell; :func:`pcps_search_iq_caf` packs the
 [4, C] buffer.
 
+The first-vs-second-peak statistic of ``use_CFAR_algorithm=false``
+(kernel K3c, :func:`pcps_second_peak`) takes the peak from the row kernel
+of the search that found it (K3's, K4a's or K4c's: the grid form
+"plain", "dual" or "caf"), forms only the peak's Doppler row again from
+the correlations, tiled over programs, zeroes the cells within
+samples_per_chip of the peak delay (circularly), and a second launch
+combines the tiles' maxima into the ratio; :func:`detect` picks K3c or
+the CFAR kernel for every search function.
+
 QuickSync (kernel K4b) folds the dwell by `fold` before the FFT: the fold
 kernel (:func:`pcps_quicksync_fold`) wipes the carrier and sums the `fold`
 equal segments in one pass, writing [M, D, N/fold] (the [M, D, N] wiped
@@ -63,9 +72,9 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors.  :func:`pcps_grid`, :func:`pcps_grid_per_channel`,
 :func:`pcps_cccwsr_grid`, :func:`pcps_8ms_grid`,
 :func:`pcps_quicksync_grid`, :func:`quicksync_resolve`,
-:func:`pcps_e5a_noncoherent_iq_grid`, :func:`grid_peak` and
-:func:`max_to_input_power_stat` are the plain versions, line for line with
-the JAX functions.
+:func:`pcps_e5a_noncoherent_iq_grid`, :func:`grid_peak`,
+:func:`max_to_input_power_stat` and :func:`first_vs_second_peak_stat` are
+the plain versions, line for line with the JAX functions.
 """
 
 from __future__ import annotations
@@ -173,9 +182,33 @@ def max_to_input_power_stat(grid: torch.Tensor, n_dwells):
     return peak / torch.clamp(input_power, min=1e-30), dop_idx, del_idx
 
 
+def first_vs_second_peak_stat(grid: torch.Tensor, samples_per_chip: int):
+    """First/second-peak ratio with a +-1 chip circular exclusion zone
+    around the main peak (pcps_acquisition.cc:531-597): the peak's Doppler
+    row with the cells within `samples_per_chip` of the peak delay
+    (circularly) set to 0, its max the second peak.  Returns (test_stat
+    [C], doppler_idx [C], delay_idx [C])."""
+    c, d, n = grid.shape
+    peak, dop_idx, del_idx = grid_peak(grid)
+    rows = torch.gather(grid, 1, dop_idx.long()[:, None, None].expand(
+        c, 1, n))[:, 0]
+    pos = torch.arange(n, dtype=torch.int32, device=grid.device)[None, :]
+    dist = torch.abs(torch.remainder(pos - del_idx[:, None] + n // 2, n)
+                     - n // 2)
+    masked = torch.where(dist <= samples_per_chip,
+                         torch.zeros((), dtype=grid.dtype,
+                                     device=grid.device), rows)
+    second = torch.max(masked, dim=-1).values
+    return peak / torch.clamp(second, min=1e-30), dop_idx, del_idx
+
+
+def _plain_grid(corr):
+    """The PCPS grid of [M, C, D, N] correlations: sum_m |corr|^2."""
+    return torch.sum(corr.real ** 2 + corr.imag ** 2, dim=0)
+
+
 def _peak_plain(corr, n_dwells):
-    mag = corr.real ** 2 + corr.imag ** 2                         # [M,C,D,N]
-    return max_to_input_power_stat(torch.sum(mag, dim=0), float(n_dwells))
+    return max_to_input_power_stat(_plain_grid(corr), float(n_dwells))
 
 
 def pcps_8ms_grid(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
@@ -222,15 +255,20 @@ def pcps_cccwsr_grid(x_dwells: torch.Tensor,
     return torch.sum(torch.maximum(plus, minus), dim=0)
 
 
+def _dual_grid(corr):
+    """The sign-recovery grid of [M, C, D, 2, N] correlation planes
+    a = [..., 0, :], b = [..., 1, :]: sum_m max(|a+b|^2, |a-b|^2)."""
+    a, b = corr[..., 0, :], corr[..., 1, :]
+    return torch.sum(torch.maximum(torch.abs(a + b) ** 2,
+                                   torch.abs(a - b) ** 2), dim=0)
+
+
 def _dual_peak_plain(corr, n_dwells):
     """Plain version of K4a: corr [M, C, D, 2, N] holds the two correlation
     planes a = [..., 0, :] and b = [..., 1, :]; the CFAR statistic of the
     sign-recovery grid sum_m max(|a+b|^2, |a-b|^2) against 2 * n_dwells
     correlations per cell (acquisition.py:_acquire_dual's n_eff)."""
-    a, b = corr[..., 0, :], corr[..., 1, :]
-    grid = torch.sum(torch.maximum(torch.abs(a + b) ** 2,
-                                   torch.abs(a - b) ** 2), dim=0)
-    return max_to_input_power_stat(grid, float(2 * n_dwells))
+    return max_to_input_power_stat(_dual_grid(corr), float(2 * n_dwells))
 
 
 def pcps_e5a_noncoherent_iq_grid(x_dwells: torch.Tensor,
@@ -273,15 +311,38 @@ def caf_smooth(grid: torch.Tensor, caf_bins: int) -> torch.Tensor:
     return out
 
 
+def _caf_grid(corr, caf_bins: int):
+    """The CAF-smoothed grid of [M, C, D, 2, N] E5a-I and E5a-Q planes:
+    sum_m |ci|^2 + |cq|^2 through :func:`caf_smooth`."""
+    ci, cq = corr[..., 0, :], corr[..., 1, :]
+    grid = torch.sum(torch.abs(ci) ** 2 + torch.abs(cq) ** 2, dim=0)
+    return caf_smooth(grid, caf_bins)
+
+
 def _caf_peak_plain(corr, n_dwells, caf_bins: int):
     """Plain version of K4c: corr [M, C, D, 2, N] holds the E5a-I and E5a-Q
     correlation planes; the CFAR statistic of the CAF-smoothed grid
     sum_m |ci|^2 + |cq|^2 against 2 * n_dwells correlations per cell
     (acquisition.py:_acquire_dual's n_eff)."""
-    ci, cq = corr[..., 0, :], corr[..., 1, :]
-    grid = torch.sum(torch.abs(ci) ** 2 + torch.abs(cq) ** 2, dim=0)
-    return max_to_input_power_stat(caf_smooth(grid, caf_bins),
+    return max_to_input_power_stat(_caf_grid(corr, caf_bins),
                                    float(2 * n_dwells))
+
+
+# the grid forms of K3c, one per search that finds the peak (K3, K4a, K4c)
+FORMS = ("plain", "dual", "caf")
+
+
+def _second_peak_plain(corr, samples_per_chip: int, form: str,
+                       caf_bins: int = 0):
+    """Plain version of K3c: the first-vs-second-peak statistic of the grid
+    of `form` (:data:`FORMS`) over the correlations, materialised."""
+    if form == "plain":
+        grid = _plain_grid(corr)
+    elif form == "dual":
+        grid = _dual_grid(corr)
+    else:
+        grid = _caf_grid(corr, caf_bins)
+    return first_vs_second_peak_stat(grid, samples_per_chip)
 
 
 def _fold_plain(x_dwells, dopplers, t, fold: int):
@@ -534,6 +595,102 @@ def _kernels():
         tl.store(rarg_ptr + o, rarg.to(tl.int32))
         tl.store(rsum_ptr + o, tl.sum(total, axis=0))
 
+    # K3c replaces gnss_sim_receiver_tpu/ops/pcps.py:123
+    # first_vs_second_peak_stat.  The peak (row d_best, delay) comes from
+    # the row buffers of the search's own row kernel (K3, K4a or K4c); only
+    # the peak row of each channel is formed again from the correlations,
+    # in the grid form FORM of that search (0: sum_m |c|^2; 1: sum_m
+    # max(|a+b|^2, |a-b|^2); 2: the (2b+1)-row boxcar of sum_m |ci|^2 +
+    # |cq|^2), tiled over programs.  Bound by bytes: the row's planes read
+    # once more, M C N 8 bytes (plain form), beside the row kernel's read
+    # of the whole grid.
+    @triton.jit
+    def _peak_cell(rmax_ptr, rarg_ptr, c, n_dop, BLOCK_D: tl.constexpr):
+        # the first Doppler row holding the channel's peak, the peak and
+        # its delay (the stat kernel's choice)
+        dd = tl.arange(0, BLOCK_D)
+        dmask = dd < n_dop
+        rmax = tl.load(rmax_ptr + c * n_dop + dd, mask=dmask,
+                       other=float("-inf"))
+        peak = tl.max(rmax, axis=0)
+        d_best = tl.min(tl.where((rmax == peak) & dmask, dd, BLOCK_D), axis=0)
+        return peak, d_best, tl.load(rarg_ptr + c * n_dop + d_best)
+
+    @triton.jit
+    def second_tile_kernel(corr_ptr, rmax_ptr, rarg_ptr, tmax_ptr, n_dwells,
+                           n_ch, n_dop, n, spc, inv_k, n_tiles,
+                           FORM: tl.constexpr, CAF_BINS: tl.constexpr,
+                           BLOCK: tl.constexpr, BLOCK_D: tl.constexpr):
+        # K3c, one (channel, tile of the peak row): the tile's cells of the
+        # row, those within spc of the peak delay (circularly) set to 0,
+        # and their max; the values are >= 0, so the 0s and the masked
+        # lanes past N leave the row's max unchanged
+        c = tl.program_id(0)
+        tile = tl.program_id(1)
+        _, d, delay = _peak_cell(rmax_ptr, rarg_ptr, c, n_dop, BLOCK_D)
+        offs = tile * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        acc = tl.zeros([BLOCK], dtype=tl.float32)
+        if FORM == 0:
+            for m in range(n_dwells):
+                src = corr_ptr + (((m * n_ch + c) * n_dop + d) * n + offs) * 2
+                re = tl.load(src, mask=mask, other=0.0)
+                im = tl.load(src + 1, mask=mask, other=0.0)
+                acc += re * re + im * im
+        elif FORM == 1:
+            for m in range(n_dwells):
+                row = ((m * n_ch + c) * n_dop + d) * 2
+                pa = corr_ptr + (row * n + offs) * 2
+                pb = corr_ptr + ((row + 1) * n + offs) * 2
+                ar = tl.load(pa, mask=mask, other=0.0)
+                ai = tl.load(pa + 1, mask=mask, other=0.0)
+                br = tl.load(pb, mask=mask, other=0.0)
+                bi = tl.load(pb + 1, mask=mask, other=0.0)
+                sr = ar + br
+                si = ai + bi
+                dr = ar - br
+                di = ai - bi
+                acc += tl.maximum(sr * sr + si * si, dr * dr + di * di)
+        else:
+            for s in tl.static_range(2 * CAF_BINS + 1):
+                j = d - CAF_BINS + s
+                lm = mask & (j >= 0) & (j < n_dop)
+                raw = tl.zeros([BLOCK], dtype=tl.float32)
+                for m in range(n_dwells):
+                    row = ((m * n_ch + c) * n_dop + j) * 2
+                    pa = corr_ptr + (row * n + offs) * 2
+                    pb = corr_ptr + ((row + 1) * n + offs) * 2
+                    ar = tl.load(pa, mask=lm, other=0.0)
+                    ai = tl.load(pa + 1, mask=lm, other=0.0)
+                    br = tl.load(pb, mask=lm, other=0.0)
+                    bi = tl.load(pb + 1, mask=lm, other=0.0)
+                    raw += (ar * ar + ai * ai) + (br * br + bi * bi)
+                if CAF_BINS == 0:
+                    acc = raw
+                else:
+                    acc += raw * inv_k
+        half = n // 2
+        dist = tl.abs((offs - delay + half + n) % n - half)
+        vals = tl.where(mask & (dist > spc), acc, 0.0)
+        tl.store(tmax_ptr + c * n_tiles + tile, tl.max(vals, axis=0))
+
+    @triton.jit
+    def second_stat_kernel(rmax_ptr, rarg_ptr, tmax_ptr, stat_ptr, dop_ptr,
+                           del_ptr, n_dop, n_tiles, BLOCK_D: tl.constexpr,
+                           BLOCK_T: tl.constexpr):
+        # K3c's second launch, one channel: the tiles' maxima combined (a
+        # max, so in any order), the ratio of the peak to the second peak
+        c = tl.program_id(0)
+        peak, d_best, delay = _peak_cell(rmax_ptr, rarg_ptr, c, n_dop,
+                                         BLOCK_D)
+        tt = tl.arange(0, BLOCK_T)
+        tmax = tl.load(tmax_ptr + c * n_tiles + tt, mask=tt < n_tiles,
+                       other=0.0)
+        second = tl.max(tmax, axis=0)
+        tl.store(stat_ptr + c, peak / tl.maximum(second, 1e-30))
+        tl.store(dop_ptr + c, d_best.to(tl.int32))
+        tl.store(del_ptr + c, delay)
+
     @triton.jit
     def fold_kernel(x_ptr, t_ptr, dop_ptr, out_ptr, n, nf, n_dop, fold,
                     neg_two_pi, BLOCK: tl.constexpr):
@@ -592,6 +749,8 @@ def _kernels():
 
     return dict(wipe=wipe_kernel, row=row_kernel, stat=stat_kernel,
                 dual_row=dual_row_kernel, caf_row=caf_row_kernel,
+                second_tile=second_tile_kernel,
+                second_stat=second_stat_kernel,
                 fold=fold_kernel,
                 resolve=resolve_kernel)
 
@@ -642,17 +801,8 @@ def pcps_peak(corr: torch.Tensor, n_dwells: int):
     max_to_input_power_stat over the dwell-summed |corr|^2 grid."""
     if not check_kernel_device(corr, "pcps_peak"):
         return _peak_plain(corr, n_dwells)
-    dev = corr.device
-    require(corr, torch.complex64, dev, "pcps_peak: corr")
-    m, c, d, n = corr.shape
-    if m != n_dwells:
-        raise ValueError("pcps_peak: n_dwells must match corr.shape[0]")
-    import triton
-    row_kernel = _kernels()["row"]
-    rows = _row_buffers(c, d, dev)
-    row_kernel[(d, c)](torch.view_as_real(corr), *rows, m, c, d,
-                       n, BLOCK=triton.next_power_of_2(n), num_warps=8)
-    out = _stat(rows, n, m)
+    rows = _row_pass(corr, n_dwells, "plain", 0, "pcps_peak")
+    out = _stat(rows, corr.shape[-1], n_dwells)
     pcps_peak.launches += 1
     return out
 
@@ -686,6 +836,41 @@ def _stat(rows, n: int, n_sums: int):
     return stat, dop_idx, del_idx
 
 
+# K3c's row tile: 1024 lanes, grid (C, ceil(N / 1024)); never one program
+# per row (K3's row kernel holds a 65536-lane row at N = 40000)
+SECOND_BLOCK = 1024
+
+
+def _row_pass(corr, n_dwells: int, form: str, caf_bins: int, who: str):
+    """The row kernel of the search that finds the peak (K3's for "plain",
+    K4a's for "dual", K4c's for "caf") into fresh row buffers: per
+    (channel, Doppler row) the max, its first index and the sum."""
+    import triton
+    dev = corr.device
+    require(corr, torch.complex64, dev, f"{who}: corr")
+    if form == "plain":
+        m, c, d, n = corr.shape
+    else:
+        m, c, d, two, n = corr.shape
+        if two != 2:
+            raise ValueError(f"{who}: corr must be [n_dwells, C, D, 2, N]")
+    if m != n_dwells or caf_bins < 0:
+        raise ValueError(f"{who}: n_dwells must match corr.shape[0] and "
+                         "caf_bins >= 0")
+    rows = _row_buffers(c, d, dev)
+    args = (torch.view_as_real(corr), *rows, m, c, d, n)
+    if form == "plain":
+        _kernels()["row"][(d, c)](*args, BLOCK=triton.next_power_of_2(n),
+                                  num_warps=8)
+    elif form == "dual":
+        _kernels()["dual_row"][(d, c)](*args, BLOCK=1024, num_warps=4)
+    else:
+        _kernels()["caf_row"][(d, c)](
+            *args, float(np.float32(1.0) / np.float32(2 * caf_bins + 1)),
+            CAF_BINS=caf_bins, BLOCK=1024, num_warps=4)
+    return rows
+
+
 def pcps_dual_peak(corr: torch.Tensor, n_dwells: int):
     """K4a, the sign-recovery kernel: [M, C, D, 2, N] complex64, the two
     correlation planes a = [..., 0, :] and b = [..., 1, :] of the CCCWSR
@@ -696,17 +881,8 @@ def pcps_dual_peak(corr: torch.Tensor, n_dwells: int):
     device memory."""
     if not check_kernel_device(corr, "pcps_dual_peak"):
         return _dual_peak_plain(corr, n_dwells)
-    dev = corr.device
-    require(corr, torch.complex64, dev, "pcps_dual_peak: corr")
-    m, c, d, two, n = corr.shape
-    if two != 2 or m != n_dwells:
-        raise ValueError("pcps_dual_peak: corr must be [n_dwells, C, D, 2, "
-                         "N]")
-    dual_row_kernel = _kernels()["dual_row"]
-    rows = _row_buffers(c, d, dev)
-    dual_row_kernel[(d, c)](torch.view_as_real(corr), *rows, m, c, d, n,
-                            BLOCK=1024, num_warps=4)
-    out = _stat(rows, n, 2 * m)
+    rows = _row_pass(corr, n_dwells, "dual", 0, "pcps_dual_peak")
+    out = _stat(rows, corr.shape[-1], 2 * n_dwells)
     pcps_dual_peak.launches += 1
     return out
 
@@ -724,19 +900,8 @@ def pcps_caf_peak(corr: torch.Tensor, n_dwells: int, caf_bins: int):
     memory."""
     if not check_kernel_device(corr, "pcps_caf_peak"):
         return _caf_peak_plain(corr, n_dwells, caf_bins)
-    dev = corr.device
-    require(corr, torch.complex64, dev, "pcps_caf_peak: corr")
-    m, c, d, two, n = corr.shape
-    if two != 2 or m != n_dwells or caf_bins < 0:
-        raise ValueError("pcps_caf_peak: corr must be [n_dwells, C, D, 2, "
-                         "N] and caf_bins >= 0")
-    rows = _row_buffers(c, d, dev)
-    k = 2 * caf_bins + 1
-    _kernels()["caf_row"][(d, c)](
-        torch.view_as_real(corr), *rows, m, c, d, n,
-        float(np.float32(1.0) / np.float32(k)), CAF_BINS=caf_bins,
-        BLOCK=1024, num_warps=4)
-    out = _stat(rows, n, 2 * m)
+    rows = _row_pass(corr, n_dwells, "caf", caf_bins, "pcps_caf_peak")
+    out = _stat(rows, corr.shape[-1], 2 * n_dwells)
     pcps_caf_peak.launches += 1
     return out
 
@@ -744,17 +909,86 @@ def pcps_caf_peak(corr: torch.Tensor, n_dwells: int, caf_bins: int):
 pcps_caf_peak.launches = 0
 
 
+def pcps_second_peak(corr: torch.Tensor, n_dwells: int, samples_per_chip: int,
+                     form: str = "plain", caf_bins: int = 0):
+    """K3c, the first-vs-second-peak statistic (``use_CFAR_algorithm=
+    false``; first_vs_second_peak_stat): the correlations of a search in
+    the grid form `form` of :data:`FORMS` ("plain": K3's [M, C, D, N];
+    "dual": K4a's [M, C, D, 2, N] sign-recovery planes; "caf": K4c's E5a
+    I and Q planes with the (2 caf_bins + 1)-row boxcar) -> (stat [C],
+    doppler_idx [C] int32, delay_idx [C] int32): the grid's peak over the
+    max of its Doppler row with the cells within `samples_per_chip` of the
+    peak delay (circularly) zeroed.  Three launches: the form's row kernel
+    (the peak), the row tiles of the peak row, the ratio, counted once in
+    ``pcps_second_peak.launches`` (plain form), ``.launches_dual`` or
+    ``.launches_caf``.  The [C, D, N] grid never reaches device memory."""
+    if form not in FORMS:
+        raise ValueError(f"pcps_second_peak: form {form!r}")
+    if not check_kernel_device(corr, "pcps_second_peak"):
+        return _second_peak_plain(corr, samples_per_chip, form, caf_bins)
+    import triton
+    rows = _row_pass(corr, n_dwells, form, caf_bins, "pcps_second_peak")
+    c, d = rows[0].shape
+    n = corr.shape[-1]
+    dev = corr.device
+    n_tiles = -(-n // SECOND_BLOCK)
+    tmax = torch.empty((c, n_tiles), dtype=torch.float32, device=dev)
+    block_d = triton.next_power_of_2(d)
+    _kernels()["second_tile"][(c, n_tiles)](
+        torch.view_as_real(corr), rows[0], rows[1], tmax, n_dwells, c, d, n,
+        int(samples_per_chip),
+        float(np.float32(1.0) / np.float32(2 * caf_bins + 1)), n_tiles,
+        FORM=FORMS.index(form), CAF_BINS=caf_bins if form == "caf" else 0,
+        BLOCK=SECOND_BLOCK, BLOCK_D=block_d, num_warps=4)
+    stat = torch.empty(c, dtype=torch.float32, device=dev)
+    dop_idx = torch.empty(c, dtype=torch.int32, device=dev)
+    del_idx = torch.empty(c, dtype=torch.int32, device=dev)
+    _kernels()["second_stat"][(c,)](
+        rows[0], rows[1], tmax, stat, dop_idx, del_idx, d, n_tiles,
+        BLOCK_D=block_d, BLOCK_T=triton.next_power_of_2(n_tiles),
+        num_warps=1)
+    counter = "launches" if form == "plain" else f"launches_{form}"
+    setattr(pcps_second_peak, counter,
+            getattr(pcps_second_peak, counter) + 1)
+    return stat, dop_idx, del_idx
+
+
+pcps_second_peak.launches = 0
+pcps_second_peak.launches_dual = 0
+pcps_second_peak.launches_caf = 0
+
+
+def detect(corr: torch.Tensor, n_dwells: int, use_cfar: bool = True,
+           samples_per_chip: int = 1, form: str = "plain",
+           caf_bins: int = 0):
+    """The detection statistic of a search's correlations: the CFAR
+    statistic of the form's kernel (K3 peak, K4a, K4c) with `use_cfar`,
+    else K3c's first-vs-second-peak ratio.  (stat [C], doppler_idx [C],
+    delay_idx [C])."""
+    if not use_cfar:
+        return pcps_second_peak(corr, n_dwells, samples_per_chip, form,
+                                caf_bins)
+    if form == "plain":
+        return pcps_peak(corr, n_dwells)
+    if form == "dual":
+        return pcps_dual_peak(corr, n_dwells)
+    return pcps_caf_peak(corr, n_dwells, caf_bins)
+
+
 def pcps_search(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
-                dopplers: torch.Tensor, t: torch.Tensor):
-    """The whole CFAR search: (stat [C], doppler_idx [C], delay_idx [C]).
+                dopplers: torch.Tensor, t: torch.Tensor,
+                use_cfar: bool = True, samples_per_chip: int = 1):
+    """The whole search: (stat [C], doppler_idx [C], delay_idx [C]).
     The wipeoff kernel, cuFFT forward, the product with conj(code FFT)
-    into cuFFT inverse, the peak kernel."""
+    into cuFFT inverse, then the CFAR statistic (K3's peak kernel) or,
+    without `use_cfar`, the first-vs-second-peak ratio (K3c) with a
+    `samples_per_chip` exclusion zone."""
     m = x_dwells.shape[0]
     wiped = pcps_wipe(x_dwells, dopplers, t)
     spec = torch.fft.fft(wiped, dim=-1)
     corr = torch.fft.ifft(spec[:, None, :, :]
                           * code_fft_conj[None, :, None, :], dim=-1)
-    return pcps_peak(corr, m)
+    return detect(corr, m, use_cfar, samples_per_chip)
 
 
 def _narrow_search(x_dwells, code_fft_conj, dops2, t):
@@ -772,13 +1006,17 @@ def pcps_search_two_steps(x_dwells: torch.Tensor,
                           code_fft_conj: torch.Tensor,
                           dopplers: torch.Tensor, t: torch.Tensor,
                           two_steps: bool, n_side: int,
-                          step2: float) -> torch.Tensor:
-    """The fused search of the JAX engine: the coarse CFAR search, then
+                          step2: float, use_cfar: bool = True,
+                          samples_per_chip: int = 1) -> torch.Tensor:
+    """The fused search of the JAX engine: the coarse search (the CFAR
+    statistic, or the first-vs-second-peak ratio without `use_cfar`), then
     (with `two_steps`) every channel's narrow grid of 2 * n_side + 1 bins
-    `step2` Hz apart around its coarse Doppler.  Returns the packed [4, C]
-    float32 buffer (stat, doppler_hz, delay_idx, stat2); stat2 is 0 without
-    the second step.  Nothing is pulled to the host in between."""
-    stat, dop_idx, del_idx = pcps_search(x_dwells, code_fft_conj, dopplers, t)
+    `step2` Hz apart around its coarse Doppler, always under the CFAR
+    statistic (acquisition.py:94).  Returns the packed [4, C] float32
+    buffer (stat, doppler_hz, delay_idx, stat2); stat2 is 0 without the
+    second step.  Nothing is pulled to the host in between."""
+    stat, dop_idx, del_idx = pcps_search(x_dwells, code_fft_conj, dopplers, t,
+                                         use_cfar, samples_per_chip)
     dop_hz = dopplers[dop_idx.long()]
     stat2 = torch.zeros_like(stat)
     if two_steps:
@@ -827,15 +1065,18 @@ def dual_correlations(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
 def pcps_search_dual(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
                      code2_fft_conj: torch.Tensor | None,
                      dopplers: torch.Tensor, t: torch.Tensor,
-                     variant: str) -> torch.Tensor:
+                     variant: str, use_cfar: bool = True,
+                     samples_per_chip: int = 1) -> torch.Tensor:
     """The sign-recovery search of acquisition.py:_acquire_dual
-    ("cccwsr" or "8ms", see :func:`dual_correlations`), then K4a.  Returns
-    the packed [4, C] float32 buffer of :func:`pcps_search_two_steps`
-    (stat, doppler_hz, delay_idx, stat2) with stat2 = 0: the dual variants
-    search one grid, whatever make_two_steps says."""
+    ("cccwsr" or "8ms", see :func:`dual_correlations`), then K4a (K3c's
+    dual form without `use_cfar`).  Returns the packed [4, C] float32
+    buffer of :func:`pcps_search_two_steps` (stat, doppler_hz, delay_idx,
+    stat2) with stat2 = 0: the dual variants search one grid, whatever
+    make_two_steps says."""
     corr = dual_correlations(x_dwells, code_fft_conj, code2_fft_conj,
                              dopplers, t, variant)
-    stat, dop_idx, del_idx = pcps_dual_peak(corr, x_dwells.shape[0])
+    stat, dop_idx, del_idx = detect(corr, x_dwells.shape[0], use_cfar,
+                                    samples_per_chip, "dual")
     return torch.stack([stat.to(torch.float32),
                         dopplers[dop_idx.long()].to(torch.float32),
                         del_idx.to(torch.float32), torch.zeros_like(stat)])
@@ -844,16 +1085,18 @@ def pcps_search_dual(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
 def pcps_search_iq_caf(x_dwells: torch.Tensor, code_i_fft_conj: torch.Tensor,
                        code_q_fft_conj: torch.Tensor,
                        dopplers: torch.Tensor, t: torch.Tensor,
-                       caf_bins: int) -> torch.Tensor:
+                       caf_bins: int, use_cfar: bool = True,
+                       samples_per_chip: int = 1) -> torch.Tensor:
     """The E5a non-coherent I/Q search of acquisition.py:_acquire_dual
     ("iq_caf"): the wipeoff kernel, one cuFFT forward, the products with
-    the E5a-I and E5a-Q replicas into one cuFFT inverse, then K4c.  Returns
-    the packed [4, C] float32 buffer (stat, doppler_hz, delay_idx, 0): one
-    grid, whatever make_two_steps says."""
+    the E5a-I and E5a-Q replicas into one cuFFT inverse, then K4c (K3c's
+    CAF form without `use_cfar`).  Returns the packed [4, C] float32
+    buffer (stat, doppler_hz, delay_idx, 0): one grid, whatever
+    make_two_steps says."""
     corr = dual_correlations(x_dwells, code_i_fft_conj, code_q_fft_conj,
                              dopplers, t, "iq_caf")
-    stat, dop_idx, del_idx = pcps_caf_peak(corr, x_dwells.shape[0],
-                                           caf_bins)
+    stat, dop_idx, del_idx = detect(corr, x_dwells.shape[0], use_cfar,
+                                    samples_per_chip, "caf", caf_bins)
     return torch.stack([stat.to(torch.float32),
                         dopplers[dop_idx.long()].to(torch.float32),
                         del_idx.to(torch.float32), torch.zeros_like(stat)])
@@ -959,15 +1202,19 @@ def pcps_search_quicksync(x_dwells: torch.Tensor, codes_sampled: torch.Tensor,
 def pcps_search_fine_doppler(x_dwells: torch.Tensor,
                              code_fft_conj: torch.Tensor,
                              dopplers: torch.Tensor, t: torch.Tensor,
-                             step_hz: float, iters: int) -> torch.Tensor:
+                             step_hz: float, iters: int,
+                             use_cfar: bool = True,
+                             samples_per_chip: int = 1) -> torch.Tensor:
     """The Fine Doppler search of acquisition.py:_fine_doppler: the coarse
-    CFAR search, then `iters` (at least 1) narrow grids of 9 bins around
-    each channel's current Doppler, the step starting at `step_hz` and
-    divided by 4 each time (the table formed in float64 and rounded to
-    float32, as the JAX engine forms it on the host).  Returns the packed
-    [4, C] buffer (stat, doppler_hz, delay_idx, stat2 of the last
-    iteration) with no host pull in between."""
-    stat, dop_idx, del_idx = pcps_search(x_dwells, code_fft_conj, dopplers, t)
+    search (CFAR, or K3c without `use_cfar`), then `iters` (at least 1)
+    narrow CFAR grids of 9 bins around each channel's current Doppler, the
+    step starting at `step_hz` and divided by 4 each time (the table
+    formed in float64 and rounded to float32, as the JAX engine forms it
+    on the host).  Returns the packed [4, C] buffer (stat, doppler_hz,
+    delay_idx, stat2 of the last iteration) with no host pull in
+    between."""
+    stat, dop_idx, del_idx = pcps_search(x_dwells, code_fft_conj, dopplers, t,
+                                         use_cfar, samples_per_chip)
     dop = dopplers[dop_idx.long()]
     stat2 = torch.zeros_like(stat)
     step = float(step_hz)
@@ -983,13 +1230,15 @@ def pcps_search_fine_doppler(x_dwells: torch.Tensor,
 
 
 def pcps_search_dwells(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
-                       dopplers: torch.Tensor,
-                       t: torch.Tensor) -> torch.Tensor:
-    """One single-dwell CFAR search per row of x_dwells [T, N] (the Tong
+                       dopplers: torch.Tensor, t: torch.Tensor,
+                       use_cfar: bool = True,
+                       samples_per_chip: int = 1) -> torch.Tensor:
+    """One single-dwell search per row of x_dwells [T, N] (the Tong
     detector's successive dwells, acquisition.py:_acquire_tong), all in one
-    wipeoff and one peak launch: the [T, C, D, N] correlations are read by
-    the K3 peak kernel as T * C channels of one dwell.  Returns [3, T, C]
-    float32 (stat, doppler_hz, delay_idx)."""
+    wipeoff and one statistic launch: the [T, C, D, N] correlations are
+    read by the K3 peak kernel (K3c without `use_cfar`) as T * C channels
+    of one dwell.  Returns [3, T, C] float32 (stat, doppler_hz,
+    delay_idx)."""
     n_dw, n = x_dwells.shape
     c = code_fft_conj.shape[0]
     d = dopplers.shape[0]
@@ -997,7 +1246,8 @@ def pcps_search_dwells(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
     spec = torch.fft.fft(wiped, dim=-1)
     corr = torch.fft.ifft(spec[:, None, :, :]
                           * code_fft_conj[None, :, None, :], dim=-1)
-    stat, dop_idx, del_idx = pcps_peak(corr.reshape(1, n_dw * c, d, n), 1)
+    stat, dop_idx, del_idx = detect(corr.reshape(1, n_dw * c, d, n), 1,
+                                    use_cfar, samples_per_chip)
     return torch.stack([stat.to(torch.float32),
                         dopplers[dop_idx.long()].to(torch.float32),
                         del_idx.to(torch.float32)]).reshape(3, n_dw, c)

@@ -166,12 +166,37 @@ def test_factory_matches_jax_on_the_hybrid_conf(tmp_path, impl, variant):
     "Channels_1B.RF_channel_ID=1",
 ])
 def test_factory_refuses_unported_e1_keys(tmp_path, line):
-    """The E1 chain's keys for what the port lacks, by name."""
+    """The E1 chain's keys for what the port lacks, by name; a key the port
+    has since taken up (PORTED_KEYS) builds the JAX factory's
+    configuration instead."""
     path = _write_conf(tmp_path, "Channels_1B.count=2\n" + line + "\n",
                        "bad.conf")
+    if line in PORTED_KEYS:
+        _check_ported_key(path, line)
+        return
     with pytest.raises(NotImplementedError, match="not ported") as err:
         factory.receiver_conf_from_config(FileConfiguration(path))
     assert line.split("=")[0] in str(err.value)
+
+
+# keys these refusal tests once listed, now ported (the first-vs-second-
+# peak statistic and the fixed threshold), and the AcqConf field each sets
+PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
+               ("use_cfar_algorithm", False),
+               "Acquisition_1C.use_CFAR_algorithm=false":
+               ("use_cfar_algorithm", False),
+               "Acquisition_1C.pfa=0": ("pfa", 0)}
+
+
+def _check_ported_key(path, line):
+    """The conf at `path` builds, in both packages, the same configuration,
+    the key's value in its chain's AcqConf."""
+    ref = jfactory.receiver_conf_from_config(JaxFileConfiguration(path))
+    got = factory.receiver_conf_from_config(FileConfiguration(path))
+    assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    acq = got.acq if "_1C." in line else got.chains[0].acq
+    field, value = PORTED_KEYS[line]
+    assert getattr(acq, field) == value
 
 
 @pytest.mark.parametrize("line", [
@@ -260,8 +285,12 @@ def test_factory_defaults_match_jax():
 def test_factory_refuses_unported_keys(tmp_path, line):
     """A key that selects what the port lacks raises NotImplementedError
     naming the key, with the words "not ported"; the key is never read and
-    dropped."""
+    dropped.  A key the port has since taken up (PORTED_KEYS) builds the
+    JAX factory's configuration instead."""
     path = _write_conf(tmp_path, line + "\n", "bad.conf")
+    if line in PORTED_KEYS:
+        _check_ported_key(path, line)
+        return
     key = line.split("=")[0]
     with pytest.raises(NotImplementedError, match="not ported") as err:
         factory.receiver_conf_from_config(FileConfiguration(path))

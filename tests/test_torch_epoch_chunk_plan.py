@@ -12,11 +12,14 @@ partials in slab order.  The kernel runs only on the card; on the CPU:
   the opt-in its library sets), the shared memory within a CTA's 227 KB,
   S' = 1 where K2 has one slab, and every cluster is resident at once by
   a model of the card's occupancy (the card is asked on the card); the
-  same at bench.py's 48 channels;
+  same at bench.py's 48 channels; at 192 and 300 channels, where the
+  modelled card holds fewer clusters than channels, the plan runs them in
+  the fewest waves times rounds;
 - the slab-then-ordered sum that this ownership gives carries the bits
   of the sum over the slabs in order (float32, no reassociation);
-- the planner raises where nothing fits; a hypothesis case over (C, B,
-  table lengths) holds the same properties wherever it plans.
+- the planner raises where nothing fits and plans waves where too few
+  clusters are resident; a hypothesis case over (C, B, table lengths)
+  holds the same properties wherever it plans.
 """
 
 import numpy as np
@@ -92,7 +95,10 @@ def _check(plan: ptrk.EpochChunkPlan, n_ch: int, n_out: int) -> None:
     assert plan.smem + ptrk.EPOCH_CHUNK_STATIC_SMEM <= 227 * 1024
     if k2.slabs == 1:
         assert plan.cluster == 1
-    assert modelled_max_clusters(plan.cluster, plan.smem) >= n_ch
+    # every channel's cluster resident at once, or the waves that run them
+    resident = modelled_max_clusters(plan.cluster, plan.smem)
+    assert resident >= 1
+    assert plan.waves == -(-n_ch // resident)
 
 
 def _plan(sig, fs, data, c):
@@ -150,12 +156,45 @@ def test_ordered_sum_carries_the_slab_order_bits(slabs):
         assert got.tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("sig,fs,data", SHAPES)
+@pytest.mark.parametrize("c", [192, 300])
+def test_plan_runs_large_channel_counts_in_waves(sig, fs, data, c):
+    """At 192 channels (the bench's largest count) and 300 every property
+    holds; where the modelled card keeps fewer clusters than channels
+    resident (GPS at 2 Msps: two single-CTA clusters on each of 132 SMs,
+    264) the plan takes waves, and no cluster size takes fewer waves
+    times rounds."""
+    plan, n_out = _plan(sig, fs, data, c)
+    _check(plan, c, n_out)
+    if (sig, fs) == ("gps", 2e6):
+        assert (plan.cluster, plan.waves) == (1, 1 if c == 192 else 2)
+    cost = plan.waves * plan.rounds
+    for cl in range(1, min(plan.k2.slabs, ptrk.EPOCH_CHUNK_MAX_CLUSTER) + 1):
+        smem = ptrk.epoch_chunk_smem(plan.k2, n_out, cl)
+        resident = modelled_max_clusters(cl, smem)
+        if smem + ptrk.EPOCH_CHUNK_STATIC_SMEM > ptrk.SMEM_PER_CTA \
+                or resident < 1:
+            continue
+        if plan.waves > 1:
+            assert -(-c // resident) * -(-plan.k2.slabs // cl) >= cost
+
+
 def test_plan_raises_where_nothing_fits():
     k2 = pcorr.K2Plan(26, 2000, 0)
     with pytest.raises(ValueError):       # no cluster resident
         ptrk.plan_epoch_chunk(10, k2, 3, lambda cl, smem: 0)
-    with pytest.raises(ValueError):       # too few resident
-        ptrk.plan_epoch_chunk(10, k2, 3, lambda cl, smem: 9)
+    # too few resident: two waves of 9 clusters, S' = 13 (two rounds, the
+    # fewest, at the smallest size that gives them)
+    waves = ptrk.plan_epoch_chunk(10, k2, 3, lambda cl, smem: 9)
+    assert (waves.cluster, waves.rounds, waves.waves) == (13, 2, 2)
+    # a size that keeps every cluster resident wins over fewer rounds in
+    # waves; among sizes that all take waves, waves times rounds decides
+    waves = ptrk.plan_epoch_chunk(
+        10, k2, 3, lambda cl, smem: 10 if cl <= 4 else 2)
+    assert (waves.cluster, waves.rounds, waves.waves) == (4, 7, 1)
+    waves = ptrk.plan_epoch_chunk(
+        100, k2, 3, lambda cl, smem: 50 if cl <= 4 else 20)
+    assert (waves.cluster, waves.rounds, waves.waves) == (13, 2, 5)
     with pytest.raises(ValueError):       # stages past 227 KB
         ptrk.plan_epoch_chunk(10, pcorr.K2Plan(4, 60000, 0), 3,
                               modelled_max_clusters)
@@ -177,7 +216,7 @@ def test_plan_asks_for_residency_of_every_channel():
 
 
 @settings(max_examples=200, deadline=None)
-@given(c=st.integers(1, 64), b=st.integers(128, 100_000),
+@given(c=st.integers(1, 400), b=st.integers(128, 100_000),
        table=st.integers(1, 70_000), data=st.integers(0, 70_000),
        ovs=st.sampled_from([1, 2, 8]), taps=st.sampled_from([3, 5]))
 def test_plan_properties_hold_wherever_it_plans(c, b, table, data, ovs,
@@ -187,9 +226,22 @@ def test_plan_properties_hold_wherever_it_plans(c, b, table, data, ovs,
     plan = ptrk.plan_epoch_chunk(c, k2, n_out, modelled_max_clusters)
     assert plan.k2 == k2
     _check(plan, c, n_out)
-    # no cluster size that runs the slabs in fewer rounds, or in as many
-    # with fewer CTAs, keeps every channel's cluster resident
+    # where every cluster is resident, no cluster size that runs the slabs
+    # in fewer rounds, or in as many with fewer CTAs, keeps every channel's
+    # cluster resident; where the plan takes waves, no size keeps them all
+    # resident, and none takes fewer waves times rounds, or as many with
+    # fewer CTAs
     for cl in range(1, min(k2.slabs, ptrk.EPOCH_CHUNK_MAX_CLUSTER) + 1):
-        if (-(-k2.slabs // cl), cl) < (plan.rounds, plan.cluster):
-            smem = ptrk.epoch_chunk_smem(k2, n_out, cl)
-            assert modelled_max_clusters(cl, smem) < c
+        smem = ptrk.epoch_chunk_smem(k2, n_out, cl)
+        if smem + ptrk.EPOCH_CHUNK_STATIC_SMEM > ptrk.SMEM_PER_CTA:
+            continue
+        resident = modelled_max_clusters(cl, smem)
+        rounds = -(-k2.slabs // cl)
+        if plan.waves == 1:
+            if (rounds, cl) < (plan.rounds, plan.cluster):
+                assert resident < c
+        else:
+            assert resident < c
+            if resident >= 1:
+                assert (-(-c // resident) * rounds, cl) >= (
+                    plan.waves * plan.rounds, plan.cluster)
