@@ -8,10 +8,11 @@ Phases (any failure exits non-zero, before the result line):
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions;
 2. build every kernel from the sources in this checkout (the CUDA C++
-   libraries, one ``nvcc`` per source in parallel; the Triton kernels
-   compile at their first launch).  Two child processes meanwhile
-   synthesize the captures of phases 4 and 4c into ``build/`` (outside
-   every timed window);
+   libraries, one ``nvcc`` per source in parallel, and the block library
+   a second time with ``--fmad=false`` into a directory of its own; the
+   Triton kernels compile at their first launch).  Two child processes
+   meanwhile synthesize the captures of phases 4 and 4c into ``build/``
+   (outside every timed window);
 3. each kernel (the per-epoch closure K9 first, at four shapes, with
    K2's data-table form; then the chunk kernel, K9 redesigned as one
    launch per chunk, against the two-launch chunk, K2 then K9 per epoch,
@@ -20,8 +21,13 @@ Phases (any failure exits non-zero, before the result line):
    than the card keeps resident, in waves of clusters, and a 50-epoch
    chunk of phase 8's E1 pilot chain through it and through the plain
    loop; the block
-   step K8a and K8b next, at four shapes, each with K1 and K8b fused held
-   bit for bit against K1 then K8b; K1 and
+   step K8a and K8b next, at four shapes, bit for bit against their plain
+   versions and against the --fmad=false build, each with K1 and K8b
+   fused held bit for bit against K1 then K8b, and with the next block's
+   prologue folded in against K1, K8b, then K8a; the two-launch block
+   chunk (K8a once, then the cuFFT and the folded launch per block)
+   against the three-launch chunk and the plain chunk, bit for bit over
+   50 blocks at the same four shapes; K1 and
    K2 with the GPS and the Galileo E1 tables, K3 wipeoff and peak, K3b,
    K4a in both modes, K4b fold and resolve, K4c with and without its
    Doppler boxcar, K3c (the first-vs-second-peak statistic) in its plain,
@@ -42,10 +48,11 @@ Phases (any failure exits non-zero, before the result line):
    file) goes through ``python -m gnss_sim_receiver_tpu_torch
    --config_file=...`` called in process: file -> SignalConditioner (x2
    decimating FIR, K5a) -> Receiver with two-step acquisition (K3, K3b)
-   and tracking (K8a, K1 with K8b fused; the chunk kernel on the chunk
-   tails) -> position, with every launch counter set to 0
-   just before and read just after; the tracked PRNs, the fix count and
-   the mean position error are checked against the scenario;
+   and tracking (K8a once a chunk, K1 with K8b and the next block's
+   prologue fused; the chunk kernel on the chunk tails) -> position,
+   with every launch counter set to 0 just before and read just after;
+   the tracked PRNs, the fix count and the mean position error are
+   checked against the scenario;
 4b. the conditioner alone on the first 4 M samples, through pulse
    blanking (K5c), FIR + direct resampler and the linear resampler (K5d),
    and on the 1 M samples of phase 3's notch check through the notch (K5b):
@@ -113,10 +120,12 @@ Phases (any failure exits non-zero, before the result line):
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
-of JAX.  Every block-tracking phase checks that K8a and K1 with K8b fused
-ran once per block (= K1's launches) and the chunk kernel on the chunk
-tails; on every path the standalone K2, K9 and K8b read 0 (they are held
-against in phase 3 only).  ``--profile`` adds a torch.profiler breakdown of a
+of JAX.  Every block-tracking phase checks that K1 with K8b fused ran
+once per block (= K1's launches), the next block's prologue folded into
+it but after each chunk's last block and K8a once per chunk (where the
+planner folds), and the chunk kernel on the chunk tails; on every path
+the standalone K2, K9 and K8b read 0 (they are held against in phase 3
+only).  ``--profile`` adds a torch.profiler breakdown of a
 second run of the paths of phases 5, 6, 7 and 8 (device busy share,
 kernel launch calls, time by kernel).
 ``--witness`` adds, after phase 6, the hybrid receiver on variants of
@@ -131,6 +140,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -441,6 +451,15 @@ def closure_flips(conf, got, want) -> list:
 
 
 K8_RTOL = 1e-5          # K8b's float fields, of max |plain|
+# the block library built a second time with --fmad=false, into a
+# directory of its own: block_step.cu rounds explicitly, so its K8a and
+# K8b must give the same bits under either flag
+FMAD_FALSE = ("--fmad=false",)
+
+
+def fmad_false_dir():
+    from gnss_sim_receiver_tpu_torch.ops import cuda_build
+    return cuda_build.BUILD_DIR / "fmad_false"
 
 
 def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
@@ -453,7 +472,9 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
     K8b: the float fields of the next state and the block's plane rows
     within K8_RTOL of max |plain|; the integer and bool fields exact, or
     flipped only where the plain version's carrier lock or C/N0 lies
-    within K8_RTOL of its threshold."""
+    within K8_RTOL of its threshold.  Then both bit for bit: against their
+    plain versions, and against the same kernels of the block library
+    built with --fmad=false."""
     import torch
     from gnss_sim_receiver_tpu_torch import interop
     from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
@@ -544,6 +565,8 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
     print(f"  K8b_block_closure ({label}): {len(flips)} integer or bool "
           f"fields flipped at a threshold; state and plane rows within "
           f"{b_err:.3e} (tolerance {K8_RTOL:g} x max |plain|)")
+    same_k8_bits(dev, conf, e, codes_rep, taps_t, n_wins, st, corr, got,
+                 want, new_k, new_p, planes, planes_p, label)
     b_ms = time_ms(lambda: tb.block_closure(conf, e, corr, want, st,
                                             planes, 1))
 
@@ -563,9 +586,52 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
                  "gnss_sim_receiver_tpu_torch/csrc/block_step.cu",
                  "gnss_sim_receiver_tpu/models/tracking_block.py:359",
                  b_err, b_ms, b_plain, b_bytes, b_ops, shape)
-    row_f = check_block_close(dev, rng, conf, c, e, got, st, n_wins,
-                              names[2], label, shape, b_ms, b_bytes, b_ops)
-    return row_a, row_b, row_f
+    rows_f = check_block_close(dev, rng, conf, c, e, got, st, n_wins,
+                               names[2:],
+                               label, shape, (codes_rep, taps_t),
+                               (a_bytes, a_ops), (b_ms, b_bytes, b_ops))
+    return (row_a, row_b, *rows_f)
+
+
+def same_k8_bits(dev, conf, e, codes_rep, taps_t, n_wins, st, corr, got,
+                 want, new_k, new_p, planes, planes_p, label) -> None:
+    """K8a's outputs `got` and K8b's next state `new_k` and plane rows
+    `planes` bit for bit those of the plain versions (`want`, `new_p`,
+    `planes_p`) and of the block library built with --fmad=false on the
+    same inputs."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.ops import cuda_build
+    alt = tb.bind(cuda_build.load("block_kernels", FMAD_FALSE,
+                                  fmad_false_dir()))
+    c, nfft = codes_rep.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    got_f = tb._empty_prologue(c, e, nfft, taps_t.shape[0], dev)
+    cuda_build.check(alt.block_prologue(tb._prologue_args(
+        conf, e, codes_rep, taps_t, n_wins, st, got_f), c, stream),
+        "block_prologue (--fmad=false)")
+    new_f = tb._empty_state(st)
+    planes_f = tb._empty_planes(planes["prompt"].shape[0], c, dev)
+    for v in planes_f.values():
+        v.zero_()
+    cuda_build.check(alt.block_closure(tb._closure_args(
+        conf, e, corr, want, st, new_f, planes_f), 1, stream),
+        "block_closure (--fmad=false)")
+    torch.cuda.synchronize()
+    fields = tb.BlockPrologue._fields
+    for other, what in ((want, "the plain version"),
+                        (got_f, "the --fmad=false build")):
+        diff = [n for n in fields if not torch.equal(
+            bits(getattr(got, n)), bits(getattr(other, n)))]
+        if diff:
+            fail(f"K8a ({label}): {diff} differ in bits from {what}")
+    for st_o, pl_o, what in ((new_p, planes_p, "the plain version"),
+                             (new_f, planes_f, "the --fmad=false build")):
+        diff = differing(new_k, st_o, planes, pl_o)
+        if diff:
+            fail(f"K8b ({label}): {diff} differ in bits from {what}")
+    print(f"  K8a and K8b ({label}): every output bit for bit that of the "
+          "plain version and of the --fmad=false build")
 
 
 def bits(t):
@@ -591,56 +657,89 @@ def differing(got_state, want_state, got_planes, want_planes) -> list:
 
 
 def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
-                      name: str, label: str, shape: str, k8b_ms: float,
-                      k8b_bytes: float, k8b_ops: float):
+                      names, label: str, shape: str, fold_in, k8a, k8b):
     """K1 with K8b's closure in its epilogue (block_correlate_close, on the
     replica spectrum as the FFT leaves it) against K1 on the conjugated
     spectrum followed by the standalone K8b, from K8a's outputs `pro` and
     the state `st`, on the window spectra of an `n_wins`-window noise
-    chunk: the correlations, the next state and the block's plane rows bit
-    for bit, two launches bit-identical.  Timed beside K1 alone on the same
-    inputs: the fused launch less K1's is what the closure costs there."""
+    chunk: the correlations, the next state and the block's plane rows
+    bit for bit, two launches bit-identical.  Then with the fold (`fold_in` = the
+    replica table and the taps): the same, and the next block's prologue
+    bit for bit the standalone K8a's on the next state, the fold flags
+    counting the two launches (S > 1) and the arrival counters at 0.
+    Timed beside K1 alone on the same inputs (the fused launch less K1's
+    is what the closure costs there) and the standalone K8a.  `k8a` and
+    `k8b` are (bytes, operations) and (ms, bytes, operations) of the
+    standalone kernels.  Returns the rows of the fused launch without and
+    with the fold."""
     import torch
     from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
     s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
     x = _cnoise(rng, n_wins * s0 + nfft, dev)
     xf_all = tb._window_spectra(x, s0, nfft).contiguous()
+    n_wins = xf_all.shape[0]
     rf = torch.fft.fft(pro.rep_t, dim=-1)
     rf_c = torch.conj_physical(rf)
     k = pro.tap_samps.shape[1]
     scratch = tb.k1_scratch(c, e, k, nfft, dev)
+    slabs = scratch.partials.shape[1]
     k1_in = (pro.w0, pro.lag_int, pro.lag_frac, pro.ph_sc, pro.tap_samps,
              pro.omega)
+    codes_rep, taps_t = fold_in
 
     def planes():
         pl = tb._empty_planes(3 * e, c, dev)
         for v in pl.values():
             v.zero_()
         return pl
+
+    def next_pro():
+        return tb._empty_prologue(c, e, nfft, k, dev)
     corr_r = tb.block_correlate(xf_all, rf_c, *k1_in, scratch=scratch)
     pl_r = planes()
     new_r = tb.block_closure(conf, e, corr_r, pro, st, pl_r, 1)
+    nxt_r = tb.block_prologue(conf, e, codes_rep, taps_t, n_wins, new_r)
     outs = []
-    for _ in range(2):
+    for fold in (None, None, next_pro(), next_pro()):
         corr_f, pl_f = torch.empty_like(corr_r), planes()
-        new_f = tb.block_correlate_close(conf, e, xf_all, rf, pro, st, pl_f,
-                                         1, corr=corr_f, scratch=scratch)
-        outs.append((corr_f, new_f, pl_f))
+        new_f = tb.block_correlate_close(
+            conf, e, xf_all, rf, pro, st, pl_f, 1, corr=corr_f,
+            scratch=scratch,
+            fold=None if fold is None else (codes_rep, taps_t, fold))
+        outs.append((corr_f, new_f, pl_f, fold))
     torch.cuda.synchronize()
-    for i, (corr_f, new_f, pl_f) in enumerate(outs):
+    flags = scratch.flags.tolist()
+    if flags != [2 if slabs > 1 else 0] * c:
+        fail(f"{names[1]} ({label}): fold flags {flags} after two folded "
+             f"launches of S={slabs} slabs")
+    counters_at_zero(f"{names[1]} ({label})", scratch.arrivals)
+    for i, (corr_f, new_f, pl_f, fold) in enumerate(outs):
         diff = differing(new_f, new_r, pl_f, pl_r)
         if not torch.equal(bits(corr_f), bits(corr_r)):
             diff.insert(0, "correlations")
+        if fold is not None:
+            diff += [f"next prologue {n}" for n in tb.BlockPrologue._fields
+                     if not torch.equal(bits(getattr(fold, n)),
+                                        bits(getattr(nxt_r, n)))]
         if diff:
-            fail(f"{name} ({label}): launch {i + 1} differs from K1 then "
-                 f"K8b in {diff}")
-    print(f"  {name} ({label}): correlations, next state and plane rows "
-          "bit for bit those of K1 then K8b; two launches bit-identical")
+            fail(f"{names[i // 2]} ({label}): launch {i % 2 + 1} differs "
+                 f"from K1 then K8b{' then K8a' if fold else ''} in {diff}")
+    print(f"  {names[0]} ({label}): correlations, next state and plane "
+          "rows bit for bit those of K1 then K8b; two launches "
+          f"bit-identical; with the fold ({names[1]}, S={slabs}) also the "
+          "next block's prologue bit for bit the standalone K8a's on K8b's "
+          f"state, fold flags {flags[0]} after two launches")
+    pl_f, corr_f, nxt = planes(), torch.empty_like(corr_r), next_pro()
     ms = time_ms(lambda: tb.block_correlate_close(
         conf, e, xf_all, rf, pro, st, pl_f, 1, corr=corr_f, scratch=scratch))
+    ms_fold = time_ms(lambda: tb.block_correlate_close(
+        conf, e, xf_all, rf, pro, st, pl_f, 1, corr=corr_f, scratch=scratch,
+        fold=(codes_rep, taps_t, nxt)))
     k1_ms = time_ms(lambda: tb.block_correlate(
         xf_all, rf_c, *k1_in, out=corr_r, scratch=scratch))
-    counters_at_zero(f"{name} ({label})", scratch.arrivals)
+    k8a_ms = time_ms(lambda: tb.block_prologue(conf, e, codes_rep, taps_t,
+                                               n_wins, new_r))
+    counters_at_zero(f"{names[0]} ({label})", scratch.arrivals)
 
     def plain():
         corr = tb._block_correlate_plain(xf_all, torch.conj_physical(rf),
@@ -648,18 +747,107 @@ def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
         _, o = tb._block_closure_plain(conf, e, corr, pro, st)
         tb._write_rows(pl_r, o, 1, e)
     plain_ms = time_ms(plain, reps=3)
-    print(f"  {name} ({label}): fused {ms:.4f} ms, K1 alone {k1_ms:.4f} ms: "
-          f"the closure adds {ms - k1_ms:.4f} ms (standalone K8b "
-          f"{k8b_ms:.4f} ms)")
-    rows = len({min(max(int(w), 0), xf_all.shape[0] - e) + i
+
+    def plain_fold():
+        _, _, o, _ = tb._step_plain(conf, e, xf_all, rf, pro, st,
+                                    codes_rep, taps_t)
+        tb._write_rows(pl_r, o, 1, e)
+    plain_fold_ms = time_ms(plain_fold, reps=3)
+    print(f"  {names[0]} ({label}): fused {ms:.4f} ms, K1 alone {k1_ms:.4f} "
+          f"ms in the same build: the closure adds {ms - k1_ms:.4f} ms "
+          f"(standalone K8b {k8b[0]:.4f} ms); with the fold {ms_fold:.4f} "
+          f"ms: the next prologue adds {ms_fold - ms:.4f} ms (standalone "
+          f"K8a {k8a_ms:.4f} ms; the fold "
+          f"{'saves' if ms_fold < ms + k8a_ms else 'costs'} "
+          f"{abs(ms + k8a_ms - ms_fold):.4f} ms of device time a block)")
+    rows = len({min(max(int(w), 0), n_wins - e) + i
                 for w in pro.w0.tolist() for i in range(e)})
     n_bytes = rows * nfft * 8 + c * nfft * 8 + c * e * 12 + c * e * k * 8 \
-        + k8b_bytes
-    n_ops = c * nfft * (k * 5 + e * (18 + k * 8)) + k8b_ops
-    return _row(name, "cuda",
-                "gnss_sim_receiver_tpu_torch/csrc/block_correlator.cu",
-                "gnss_sim_receiver_tpu/models/tracking_block.py:149",
-                0.0, ms, plain_ms, n_bytes, n_ops, shape)
+        + k8b[1]
+    n_ops = c * nfft * (k * 5 + e * (18 + k * 8)) + k8b[2]
+    src = "gnss_sim_receiver_tpu_torch/csrc/block_correlator.cu"
+    at = "gnss_sim_receiver_tpu/models/tracking_block.py:149"
+    row = _row(names[0], "cuda", src, at, 0.0, ms, plain_ms, n_bytes, n_ops,
+               shape + f", S={slabs} slabs")
+    row_fold = _row(names[1], "cuda", src, at, 0.0, ms_fold, plain_fold_ms,
+                    n_bytes + k8a[0], n_ops + k8a[1],
+                    shape + f", S={slabs} slabs")
+    row["k1_ms"] = row_fold["k1_ms"] = k1_ms
+    row_fold["k8a_ms"] = k8a_ms
+    return row, row_fold
+
+
+BLOCK_CHUNK_BLOCKS = 50
+
+
+def check_block_chunk_bits(dev, rng, conf, c: int, taps, provider,
+                           label: str) -> dict:
+    """The two-launch chunk (K8a for the first block, then per block the
+    cuFFT and K1 with K8b's closure and the next block's prologue fused)
+    against the three-launch chunk (per block K8a, the cuFFT, K1 with K8b)
+    and the plain chunk (the plain K8a and K8b around K1's kernel) over
+    BLOCK_CHUNK_BLOCKS blocks at `conf`'s shape with C channels, from
+    block_state's edge states on a noise capture: every plane and the final
+    state bit for bit; the arrival counters back at 0 and the fold flags at
+    the chunk's folded launches (with S > 1).  Timed per chunk by graph
+    replay and on the host per block, both forms."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.ops import prn_codes
+    s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
+    e = max(2, int(round(0.02 / conf.t_epoch_nominal_s)))
+    n = BLOCK_CHUNK_BLOCKS
+    tables = np.stack([prn_codes.bandlimited_table_normalized(
+        provider(p), conf.fs, conf.code_rate_cps, s0, 8)
+        for p in range(1, c + 1)])
+    codes_rep = tb.code_spectra(conf, tables, dev)
+    taps_t = torch.tensor(taps, dtype=torch.float32, device=dev)
+    st = block_state(rng, conf, c, e, 2 * e + 2, dev)
+    x = _cnoise(rng, (n * e + 2 * e + 4) * s0 + nfft, dev)
+    xf_all = tb._window_spectra(x, s0, nfft).contiguous()
+    args = (conf, n, e, codes_rep, taps_t, xf_all, st)
+    k1 = tb.k1_scratch(c, e, len(taps), nfft, dev)
+    slabs = k1.partials.shape[1]
+    two_st, two = tb._chunk_cuda(*args, fold=True, k1=k1)
+    three_st, three = tb._chunk_cuda(*args, fold=False)
+    plain_st, plain = tb._chunk_plain(*args)
+    torch.cuda.synchronize()
+    flags = k1.flags.tolist()
+    if flags != [n - 1 if slabs > 1 else 0] * c:
+        fail(f"two-launch chunk ({label}): fold flags {flags} after "
+             f"{n - 1} folded launches of S={slabs} slabs")
+    counters_at_zero(f"two-launch chunk ({label})", k1.arrivals)
+    for ref_st, ref, what in ((three_st, three, "the three-launch chunk"),
+                              (plain_st, plain, "the plain chunk")):
+        diff = differing(two_st, ref_st, two, ref)
+        if diff:
+            fail(f"two-launch chunk ({label}): {diff} differ in bits from "
+                 f"{what}")
+    active = int(two_st.active.sum())
+
+    def host_ms(fold):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb._chunk_cuda(*args, fold=fold)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+    # the median of 5 runs of each, in turns
+    runs = [(host_ms(True), host_ms(False)) for _ in range(5)]
+    h_two, h_three = (float(np.median(r)) for r in zip(*runs))
+    ms_two = time_ms(lambda: tb._chunk_cuda(*args, fold=True), reps=2)
+    ms_three = time_ms(lambda: tb._chunk_cuda(*args, fold=False), reps=2)
+    print(f"  two-launch chunk ({label}: C={c}, E={e}, F={nfft}, S={slabs}): "
+          f"{n} blocks, planes and final state bit for bit those of the "
+          f"three-launch chunk and of the plain chunk ({active} channels "
+          f"still active); fold flags {flags[0]}; device {ms_two:.4f} ms a "
+          f"chunk ({ms_two / n:.5f} a block) against {ms_three:.4f} "
+          f"({ms_three / n:.5f}); host {h_two:.4f} ms a block against "
+          f"{h_three:.4f} (medians of 5)")
+    return dict(name="block_chunk", shape=f"{label}: C={c}, E={e}, "
+                f"F={nfft}, S={slabs}, {n} blocks",
+                ms_two_launch=ms_two, ms_three_launch=ms_three,
+                host_ms_per_block_two_launch=h_two,
+                host_ms_per_block_three_launch=h_three)
 
 
 def check_k2(dev, rng, conf, c: int, taps, provider, name: str,
@@ -2338,15 +2526,19 @@ def check_run(run, min_fixes: int) -> None:
 
 def check_block_chunk(root: str) -> None:
     """Phase 3, continued, once phase 4's capture is written: one chunk of
-    50 blocks (1 s) of phase 4's GPS path, through the kernel path (K8a,
-    cuFFT, K1, K8b) and through the plain block body (K1 through its
-    kernel in both) on the card, from the same state: channels armed on
-    the first 1.5 s of the capture, conditioned by phase 4's conf, by that
-    conf's own acquisition (PRNs 1-10, 8 channels).  Holds the active sets
-    identical, the code boundary of every epoch (sample counter at the
-    epoch end minus the replica's code phase, as the observables read it)
-    within 1e-3 chip, the Doppler within 0.5 Hz and the prompts within
-    1e-3 of their largest modulus."""
+    50 blocks (1 s) of phase 4's GPS path, through the kernel path (K8a
+    once, then per block the cuFFT and K1 with K8b and the next block's
+    prologue), through the three-launch chunk (K8a, cuFFT, K1 with K8b per
+    block) and through the plain block body (K1 through its kernel in
+    each) on the card, from the same state: channels armed on the first
+    1.5 s of the capture, conditioned by phase 4's conf, by that conf's
+    own acquisition (PRNs 1-10, 8 channels).  The kernel path must equal
+    the three-launch chunk bit for bit; against the plain body it prints
+    whether the bits are equal and holds the active sets identical, the
+    code boundary of every epoch (sample counter at the epoch end minus
+    the replica's code phase, as the observables read it) within 1e-3
+    chip, the Doppler within 0.5 Hz and the prompts within 1e-3 of their
+    largest modulus."""
     import torch
     from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
     from gnss_sim_receiver_tpu_torch.models.acquisition import \
@@ -2393,6 +2585,13 @@ def check_block_chunk(root: str) -> None:
     want_st, want = tb._chunk_plain(*args, xf_all, st)
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t0
+    three_st, three = tb._chunk_cuda(*args, xf_all, st, fold=False)
+    torch.cuda.synchronize()
+    diff = differing(got_st, three_st, got, three)
+    if diff:
+        fail(f"50-block chunk: {diff} differ in bits from the three-launch "
+             "chunk")
+    plain_diff = differing(got_st, want_st, got, want)
 
     def boundary(o):
         end = (o["pos_start"] + o["n_samples"]).double()
@@ -2410,14 +2609,17 @@ def check_block_chunk(root: str) -> None:
           f"armed by acquisition, 2 idle channels): active sets "
           f"{'identical' if same else 'DIFFERENT'}; code boundary within "
           f"{d_code:.2e} chip (tolerance 1e-3), Doppler within {d_dop:.3e} "
-          f"Hz (0.5), prompts within {d_prompt:.2e} of the largest (1e-3)")
+          f"Hz (0.5), prompts within {d_prompt:.2e} of the largest (1e-3); "
+          "bit for bit the three-launch chunk's; against the plain body "
+          + ("bit for bit" if not plain_diff else f"{plain_diff} differ"))
     print(f"  host time: kernel path {1e3 * t_k / n_blk:.3f} ms per block, "
           f"plain block body {1e3 * t_p / n_blk:.3f} ms per block")
     if not (same and d_code < 1e-3 and d_dop < 0.5 and d_prompt < 1e-3):
         fail("50-block chunk: the kernel path departs from the plain path")
 
 
-BLOCK_STEP_KERNELS = ("K8a_block_prologue", "K1_K8b_block_correlate_close")
+BLOCK_STEP_KERNELS = ("K8a_block_prologue", "K1_K8b_block_correlate_close",
+                      "K1_K8b_K8a_block_step")
 # the standalone kernels that the fused ones replace on every path
 STANDALONE_KERNELS = ("K2_multicorrelate", "K9_epoch_closure",
                       "K8b_block_closure")
@@ -2425,28 +2627,40 @@ EPOCH_KERNELS = ("K9_epoch_chunk",)
 
 
 def check_block_launches(launches: dict, receiver_s: float) -> None:
-    """K8a and K1 with K8b's closure fused ran once per block of the path
-    (= K1's launches), the standalone K2, K9 and K8b never; the chunk
-    tails ran the chunk kernel (its epochs counted beside its launches);
-    the receiver's milliseconds per block."""
+    """K1 with K8b's closure fused ran once per block of the path (= K1's
+    launches); K8a once per chunk (its first block) and the fold for every
+    other block; the standalone K2, K9 and K8b never ran; the chunk tails
+    ran the chunk kernel (its epochs counted beside its launches); the
+    receiver's milliseconds per block."""
     k1 = launches["K1_block_correlate"]
-    k8 = [launches[n] for n in BLOCK_STEP_KERNELS]
-    if not k1 or k8 != [k1, k1]:
-        fail(f"K8a and K1 with K8b fused ran {k8} times, K1 {k1}")
+    fused, k8a, folds = (launches[n] for n in (
+        "K1_K8b_block_correlate_close", "K8a_block_prologue",
+        "K1_K8b_K8a_block_step"))
+    chunks = launches["block_chunks"]
+    if (not k1 or fused != k1 or k8a != chunks or k8a + folds != k1
+            or not chunks):
+        fail(f"K1 with K8b fused ran {fused} times, K1 {k1}, K8a {k8a}, the "
+             f"fold {folds}, in {chunks} chunks")
     if any(launches[n] for n in STANDALONE_KERNELS):
         fail(f"standalone kernels launched on a block path: {launches}")
-    chunks, epochs = launches["K9_epoch_chunk"], launches["K9_epoch_chunk_epochs"]
-    if epochs < chunks or (chunks == 0) != (epochs == 0):
-        fail(f"the chunk tails ran {chunks} chunk launches of {epochs} epochs")
-    print(f"  block step: {k1} blocks (K8a = K1 with K8b fused = K1 "
-          f"launches; standalone K2, K9, K8b 0), receiver "
-          f"{1e3 * receiver_s / k1:.3f} ms per block; chunk tails {epochs} "
-          f"epochs in {chunks} launches of the chunk kernel")
+    epochs = launches["K9_epoch_chunk_epochs"]
+    ep_chunks = launches["K9_epoch_chunk"]
+    if epochs < ep_chunks or (ep_chunks == 0) != (epochs == 0):
+        fail(f"the chunk tails ran {ep_chunks} chunk launches of {epochs} "
+             "epochs")
+    print(f"  block step: {k1} blocks in {chunks} chunks: K1 with K8b fused "
+          f"{fused} (= K1 launches), with the next prologue folded {folds}, "
+          f"K8a {k8a} (= chunks); standalone K2, K9, K8b "
+          f"0; receiver {1e3 * receiver_s / k1:.3f} ms per block; chunk "
+          f"tails {epochs} epochs in {ep_chunks} launches of the chunk "
+          "kernel")
 
 
-MAIN_PATH_KERNELS = ("K1_block_correlate", "K9_epoch_chunk",
-                     "K3_pcps_wipe", "K3_pcps_peak",
-                     "K3b_pcps_wipe_per_channel", "K5a_fir_decim")
+BLOCK_PATH_KERNELS = ("K1_block_correlate", "K1_K8b_K8a_block_step",
+                      "K9_epoch_chunk")
+ACQUISITION_KERNELS = ("K3_pcps_wipe", "K3_pcps_peak")
+MAIN_PATH_KERNELS = (BLOCK_PATH_KERNELS + ACQUISITION_KERNELS
+                     + ("K3b_pcps_wipe_per_channel", "K5a_fir_decim"))
 
 
 def main_path(root: str, wrappers) -> dict:
@@ -2571,7 +2785,8 @@ def direct_path(root: str, wrappers) -> dict:
     run = rx.process_array(x)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(wrappers, MAIN_PATH_KERNELS[:4])
+    launches = read_launches(wrappers, BLOCK_PATH_KERNELS
+                             + ACQUISITION_KERNELS)
     check_run(run, min_fixes=0)
     print(f"  wall {wall:.3f} s for {DIRECT_DUR:.0f} s of signal: real-time "
           f"factor {DIRECT_DUR / wall:.3f}")
@@ -3497,7 +3712,7 @@ def pilot_conf_path(root: str, wrappers, card: str) -> None:
     torch.cuda.synchronize()
     res = run_cli([f"--config_file={conf}"])
     torch.cuda.synchronize()
-    launches = read_launches(wrappers, EPOCH_KERNELS + MAIN_PATH_KERNELS[2:])
+    launches = read_launches(wrappers, EPOCH_KERNELS + MAIN_PATH_KERNELS[3:])
     if res.exit_code != 0:
         fail(f"the CLI returned {res.exit_code}")
     check_run(res.run, min_fixes=5)
@@ -3592,13 +3807,32 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     from gnss_sim_receiver_tpu_torch.sim import device_generator
     print("== phase 2: build", flush=True)
     t0 = time.perf_counter()
+    # the block library a second time with --fmad=false (phase 3 holds its
+    # K8a and K8b to the default build's bits), beside the others
+    variant = {}
+
+    def build_variant():
+        try:
+            variant["secs"] = cuda_build.build_all(
+                ("block_kernels",), FMAD_FALSE, fmad_false_dir())
+        except RuntimeError as err:
+            variant["error"] = err
+    variant_build = threading.Thread(target=build_variant)
+    variant_build.start()
     secs = cuda_build.build_all()
-    for name, s in secs.items():
-        log = cuda_build.library_path(name).with_suffix(".log").read_text(
-            errors="replace") if s else ""
+    variant_build.join()
+    if "error" in variant:
+        raise variant["error"]
+    for (name, s), extra, where in (
+            *((kv, (), None) for kv in secs.items()),
+            (("block_kernels", variant["secs"]["block_kernels"]),
+             FMAD_FALSE, fmad_false_dir())):
+        log = cuda_build.library_path(name, extra, where).with_suffix(
+            ".log").read_text(errors="replace") if s else ""
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"  {name}: nvcc {s:.1f} s; {'; '.join(regs)}")
+        print(f"  {name}{' ' + ' '.join(extra) if extra else ''}: nvcc "
+              f"{s:.1f} s; {'; '.join(regs)}")
     print(f"  CUDA libraries built in {time.perf_counter() - t0:.1f} s "
           "(parallel)", flush=True)
 
@@ -3657,7 +3891,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     torch.cuda.empty_cache()
     rng8 = np.random.default_rng(8)
     k8 = ("K8a_block_prologue", "K8b_block_closure",
-          "K1_K8b_block_correlate_close")
+          "K1_K8b_block_correlate_close", "K1_K8b_K8a_block_step")
     k8_e1 = tuple(n + "_E1" for n in k8)
     gps_code = prn_codes.gps_l1_ca_code
     rows += [*check_k8(dev, rng8, gps, 8, gps_taps, gps_code, 1000, k8,
@@ -3670,6 +3904,17 @@ def run_phases(root: str, card: str, procs: dict) -> int:
               *check_k8(dev, rng8, gps20, 10, gps_taps, gps_code, 250, k8,
                         "GPS L1 C/A at 20 Msps")]
     torch.cuda.empty_cache()
+    # the two-launch chunk at the same four shapes
+    for conf_, c_, taps_, prov, lab in (
+            (gps, 8, gps_taps, gps_code, "GPS L1 C/A at 2 Msps"),
+            (gps, 12, gps_taps, gps_code,
+             "GPS L1 C/A at 2 Msps, 12 channels"),
+            (gps20, 10, gps_taps, gps_code, "GPS L1 C/A at 20 Msps"),
+            (e1, 10, e1_taps, signals.CodeProvider("1B"),
+             "Galileo E1-B at 20 Msps")):
+        extra.append(check_block_chunk_bits(dev, rng8, conf_, c_, taps_,
+                                            prov, lab))
+        torch.cuda.empty_cache()
     k5b_row, notch_case = check_k5b(dev, rng)
     rows += [check_k1(dev, rng, gps, 8, 20, gps_taps, 1000,
                      "K1_block_correlate", "GPS L1 C/A at 2 Msps"),
@@ -3729,6 +3974,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         "K8b_block_closure": (tb.block_closure, "launches"),
         "K1_K8b_block_correlate_close": (tb.block_correlate_close,
                                          "launches"),
+        "K1_K8b_K8a_block_step": (tb.block_correlate_close, "folds"),
+        "block_chunks": (tb.track_chunk_blocks, "chunks"),
         "K9_epoch_closure": (trk.epoch_closure, "launches"),
         "K2_multicorrelate": (correlator.multicorrelate, "launches"),
         "K9_epoch_chunk": (trk.epoch_chunk, "launches"),

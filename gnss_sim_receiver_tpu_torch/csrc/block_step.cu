@@ -2,43 +2,56 @@
 //
 // Replace the body of gnss_sim_receiver_tpu/models/tracking_block.py:
 // track_chunk_blocks (lines 180-575, run by jax.lax.scan at :576) around
-// the correlation K1 (csrc/block_correlator.cu).  One block of E epochs
-// takes three launches on the card: K8a, the replica cuFFT, and K1 with
-// K8b's closure (the device function block_close) in its epilogue.  The
-// standalone K8b kernel here, a thin wrapper over block_close, is what
-// that fused form is held against.
+// the correlation K1 (csrc/block_correlator.cu).  This file is not a
+// translation unit of its own: block_correlator.cu includes it, so that
+// K1, the closure and the prologue are one whole program (no relocatable
+// device code, no cross-unit call).  A chunk of n blocks takes 1 + n
+// launches and n replica cuFFTs on the card: this file's K8a for the first
+// block, then per block the cuFFT and K1 with K8b's closure in its
+// epilogue, which also writes the next block's prologue (the fold).  The
+// standalone K8a and K8b kernels here are what the fused form is held
+// against.
 //
-// K8a, block_prologue (tracking_block.py:204-257): per channel c the
+// K8a, the block prologue (tracking_block.py:204-257): per channel c the
 // closed-form epoch boundaries of the block (n_cum, n_next, n_len,
 // rem_end [C, E]; n_total, rem_new [C]), K1's inputs (w0, lag_int,
 // lag_frac, ph_sc, tap_samps, omega) and the Doppler-ramped replica
 //   rep_t[c, m] = codes_rep[c, m] * (cos, sin)(omega_c * float(m)).
-// Grid (ceil(F / 256), C): every CTA recomputes its channel's omega and
-// writes its tile of the replica; the CTA of blockIdx.x == 0 also writes
-// the channel's [E] and [K] vectors.  Bound by writing the C x F complex64
-// replica (13 MB at the E1 shape, C = 10, F = 162000).
+// Standalone grid (ceil(F / 256), C): every CTA recomputes its channel's
+// omega and writes its tile of the replica; the CTA of blockIdx.x == 0
+// also writes the channel's [E] and [K] vectors.  Bound by writing the
+// C x F complex64 replica (13 MB at the E1 shape, C = 10, F = 162000).
 //
-// K8b, block_close (tracking_block.py:359-575): one warp per channel,
-// lane e holding epoch e (E <= 32): the Costas and E - L discriminators and
-// their block means (warp shuffles), the third-order PLL and second-order
-// DLL, the FLL pull-in on the exact median of the E pair errors, lock and
-// C/N0, the 20-bin bit-sync histogram with a first-index argmax, the Kahan
-// carrier phase, the commit under the active mask, and the block's E rows
-// of the chunk's twelve [T, C] output planes.  It reads the state from one
-// buffer and writes the next state into another (the caller ping-pongs
-// two), so nothing is aliased.  Launch-latency bound: it moves a few kB.
+// K8b, the block closure (tracking_block.py:359-575): three warps per
+// channel, lane e holding epoch e (E <= 32).  Warp 0 runs the chain the
+// next block waits on: the Costas and E - L discriminators and their block
+// means, the third-order PLL and second-order DLL, the FLL pull-in on the
+// exact median of the E pair errors, lock and C/N0, the Kahan carrier
+// phase and the commit under the active mask; beside it warp 1 runs the
+// 20-bin bit-sync histogram with a first-index argmax and its commit, and
+// warp 2 writes the block's E rows of the chunk's twelve [T, C] output
+// planes.  It reads the state from one buffer and writes the next state
+// into another (the caller ping-pongs two), so nothing is aliased.
+// Latency-bound: it moves a few kB.
 //
 // The arithmetic is the plain PyTorch version's, operation by operation
 // (gnss_sim_receiver_tpu_torch/models/tracking_block.py:
 // _block_prologue_plain, _block_closure_plain), as torch runs it on the
-// card: this file is built with --fmad=false so no a*b+c is contracted
-// (each torch op rounds on its own); a division by a CPU scalar is a
-// multiplication by its float reciprocal (what ATen's CUDA division does
-// with a CPU-scalar divisor; the wrapper passes the reciprocals); rintf is
-// torch.round (half to even); float remainders are floor-mods and the
-// int32 window index a floor-division.  The means over E run in another
-// order than torch's reduction (a few ulps).  No --use_fast_math: the ramp
-// angle reaches ~250 rad at F = 162000, where __sinf loses it.
+// card, where every op rounds on its own.  So every float product, sum,
+// difference and quotient here is an explicit round-to-nearest intrinsic
+// (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn), which the compiler never
+// contracts into an FMA: the file rounds the same under --fmad=true and
+// --fmad=false, and K1 around it keeps nvcc's default contraction, which
+// its accumulation was measured with.  That is why the block library
+// needs no -rdc=true: until the rounding was written out, this file had
+// to be built with --fmad=false in a unit of its own.  A division by a CPU
+// scalar is a multiplication by its float reciprocal (what ATen's CUDA
+// division does with a CPU-scalar divisor; the wrapper passes the
+// reciprocals); rintf is torch.round (half to even); float remainders are
+// floor-mods and the int32 window index a floor-division.  The means over
+// E are sums in the order of ATen's CUDA reduction (row_sum).  No
+// --use_fast_math: the ramp angle reaches ~250 rad at F = 162000, where
+// __sinf loses it.
 
 #include <math.h>
 
@@ -60,14 +73,29 @@ __device__ __forceinline__ int floor_div(int a, int b) {   // b > 0
 // torch.remainder on floats (ATen's form)
 __device__ __forceinline__ float floor_mod(float a, float b) {
   float m = fmodf(a, b);
-  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m = __fadd_rn(m, b);
   return m;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// The sum of v over the lanes, in the order of ATen's CUDA reduction of a
+// contiguous row of n <= 32 floats held by lanes < n, the other lanes
+// holding 0 (torch.sum and torch.mean over the last dim; ATen's
+// Reduce.cuh): lane x's value x + W added to lane x's (W the largest power
+// of two <= n), then a shuffle-down tree at offsets W/2, ..., 2, 1, which
+// is lane 0's sum in this butterfly (measured bit for bit against
+// torch.sum on the H100 at n = 5 and 20); each value first added to the
+// identity 0, as ATen adds it (a -0 becomes +0).  Returned to every lane.
+__device__ __forceinline__ float row_sum(float v) {
+  v = __fadd_rn(0.0f, v);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
   return v;
+}
+
+// torch.mean over the row: the sum times float(1 / n), as ATen's mean
+__device__ __forceinline__ float row_mean(float v, float inv_n) {
+  return __fmul_rn(row_sum(v), inv_n);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -85,228 +113,406 @@ __device__ __forceinline__ float warp_rank_value(float v, int rank, int r,
   return __shfl_sync(kFull, v, __ffs(hit) - 1);
 }
 
-__global__ void __launch_bounds__(kPrologueThreads)
-block_prologue_kernel(PrologueArgs a) {
-  const int c = blockIdx.y;
-  const int tid = threadIdx.x;
-  const float rate = a.st.code_freq[c];
-  const float dop = a.st.carrier_doppler[c];
-  const float omega = a.two_pi * dop * a.inv_fs;
+// ---- K8a -----------------------------------------------------------------
 
-  // the Doppler-ramped replica tile: angle = omega * float(m), never
-  // accumulated (float(m) is exact below 2^24)
-  const int m = blockIdx.x * kPrologueThreads + tid;
-  if (m < a.nfft) {
-    const size_t idx = (size_t)c * a.nfft + m;
-    float s, co;
-    sincosf(omega * (float)m, &s, &co);
-    const float code = a.codes_rep[idx];
-    a.out.rep_t[idx] = make_float2(code * co, code * s);
+// the state fields of channel c that the prologue reads
+struct ProState {
+  float rate, dop, rem_code, rem_carr;
+  int pos;
+};
+
+__device__ __forceinline__ ProState prologue_state(const PrologueArgs& a,
+                                                   int c) {
+  return {a.st.code_freq[c], a.st.carrier_doppler[c], a.st.rem_code_phase[c],
+          a.st.rem_carr_phase[c], a.st.pos[c]};
+}
+
+// the Doppler ramp, rad/sample, of a channel at Doppler `dop`
+__device__ __forceinline__ float prologue_ramp(const PrologueArgs& a,
+                                               float dop) {
+  return __fmul_rn(__fmul_rn(a.two_pi, dop), a.inv_fs);
+}
+
+// channel c's Doppler ramp
+__device__ __forceinline__ float prologue_omega(const PrologueArgs& a,
+                                                int c) {
+  return prologue_ramp(a, a.st.carrier_doppler[c]);
+}
+
+// the replica of channel c over samples [lo, hi), one per thread of
+// `n_threads` in turn: angle = omega * float(m), never accumulated
+// (float(m) is exact below 2^24); kBatch samples of a thread at a time,
+// their table loads issued together (the fold's CTAs write many samples
+// each)
+template <int kBatch>
+__device__ __forceinline__ void prologue_replica(const PrologueArgs& a, int c,
+                                                 float omega, int lo, int hi,
+                                                 int tid, int n_threads) {
+  const float* codes = a.codes_rep + (size_t)c * a.nfft;
+  float2* rep = a.out.rep_t + (size_t)c * a.nfft;
+  for (int m0 = lo + tid; m0 < hi; m0 += kBatch * n_threads) {
+    float code[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int m = m0 + u * n_threads;
+      code[u] = m < hi ? codes[m] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int m = m0 + u * n_threads;
+      if (m < hi) {
+        float sn, co;
+        sincosf(__fmul_rn(omega, (float)m), &sn, &co);
+        rep[m] = make_float2(__fmul_rn(code[u], co), __fmul_rn(code[u], sn));
+      }
+    }
   }
-  if (blockIdx.x != 0) return;
+}
 
+// channel c's epoch boundaries and K1's inputs from its state fields `s`:
+// thread tid < E writes epoch tid's, tid < K tap tid's, tid 0 the scalars
+__device__ __forceinline__ void prologue_vectors(const PrologueArgs& a, int c,
+                                                 int tid, const ProState& s) {
   const int n_e = a.n_epochs;
-  const float s_per = a.l_chips / rate * a.fs;
-  const float u0 = a.st.rem_code_phase[c] / rate * a.fs;
-  const int pos = a.st.pos[c];
+  if (tid >= n_e && tid >= a.n_taps) return;
+  const float rate = s.rate;
+  const float dop = s.dop;
+  const float omega = prologue_ramp(a, dop);
+  const float s_per = __fmul_rn(__fdiv_rn(a.l_chips, rate), a.fs);
+  const float u0 = __fmul_rn(__fdiv_rn(s.rem_code, rate), a.fs);
+  const int pos = s.pos;
   int w0 = floor_div(pos, a.s0);
   w0 = w0 < 0 ? 0 : (w0 > a.w_max ? a.w_max : w0);
-  const float stretch = a.l_chips * dop * a.inv_fc;
-  const float half_stretch = 0.5f * stretch / rate * a.fs;   // samples
+  const float stretch = __fmul_rn(__fmul_rn(a.l_chips, dop), a.inv_fc);
+  const float half_stretch =                                  // samples
+      __fmul_rn(__fdiv_rn(__fmul_rn(0.5f, stretch), rate), a.fs);
   if (tid < n_e) {
     const int ce = c * n_e + tid;
     const float e = (float)tid;
-    const float ecs = e * s_per - u0;
+    const float ecs = __fsub_rn(__fmul_rn(e, s_per), u0);
     const float n_cum = rintf(ecs);
-    const float ecs_next = (e + 1.0f) * s_per - u0;
+    const float ecs_next = __fsub_rn(__fmul_rn(__fadd_rn(e, 1.0f), s_per), u0);
     const float n_next = rintf(ecs_next);
     a.out.n_cum[ce] = n_cum;
     a.out.n_next[ce] = n_next;
-    a.out.n_len[ce] = n_next - n_cum;
-    a.out.rem_end[ce] = (n_next - ecs_next) * rate * a.inv_fs;
+    a.out.n_len[ce] = __fsub_rn(n_next, n_cum);
+    a.out.rem_end[ce] =
+        __fmul_rn(__fmul_rn(__fsub_rn(n_next, ecs_next), rate), a.inv_fs);
     const float d_int = (float)(pos - w0 * a.s0);
-    float lag = d_int + (ecs - e * (float)a.s0) + a.lead;
-    lag = lag - half_stretch;
-    a.out.ph_sc[ce] = a.st.rem_carr_phase[c] + omega * (ecs - half_stretch);
+    float lag = __fadd_rn(
+        __fadd_rn(d_int, __fsub_rn(ecs, __fmul_rn(e, (float)a.s0))), a.lead);
+    lag = __fsub_rn(lag, half_stretch);
+    a.out.ph_sc[ce] = __fadd_rn(
+        s.rem_carr, __fmul_rn(omega, __fsub_rn(ecs, half_stretch)));
     const float lag_int = rintf(lag);
     a.out.lag_int[ce] = (int32_t)lag_int;
-    a.out.lag_frac[ce] = lag - lag_int;
+    a.out.lag_frac[ce] = __fsub_rn(lag, lag_int);
   }
   if (tid < a.n_taps)
-    a.out.tap_samps[c * a.n_taps + tid] = -a.taps[tid] / rate * a.fs;
+    a.out.tap_samps[c * a.n_taps + tid] =
+        __fmul_rn(__fdiv_rn(-a.taps[tid], rate), a.fs);
   if (tid == 0) {
-    const float ecs_tot = (float)n_e * s_per - u0;
+    const float ecs_tot = __fsub_rn(__fmul_rn((float)n_e, s_per), u0);
     const float n_total = rintf(ecs_tot);
     a.out.n_total[c] = n_total;
-    a.out.rem_new[c] = (n_total - ecs_tot) * rate * a.inv_fs;
+    a.out.rem_new[c] =
+        __fmul_rn(__fmul_rn(__fsub_rn(n_total, ecs_tot), rate), a.inv_fs);
     a.out.w0[c] = w0;
     a.out.omega[c] = omega;
   }
 }
 
-}  // namespace
+// one sample of the replica per thread; the CTA that writes the vectors
+// loads the state before the replica's stores, which the compiler cannot
+// prove do not alias it, so that its loads overlap the table's (loaded
+// after them, they would wait on the table load, the sincos and the
+// stores); the other CTAs load only the Doppler
+__global__ void __launch_bounds__(kPrologueThreads)
+block_prologue_kernel(const __grid_constant__ PrologueArgs a) {
+  const int c = blockIdx.y;
+  const ProState s = blockIdx.x == 0
+      ? prologue_state(a, c)
+      : ProState{0.0f, a.st.carrier_doppler[c], 0.0f, 0.0f, 0};
+  const int m = blockIdx.x * kPrologueThreads + threadIdx.x;
+  if (m < a.nfft) {
+    const size_t i = (size_t)c * a.nfft + m;
+    const float code = a.codes_rep[i];
+    float sn, co;
+    sincosf(__fmul_rn(prologue_ramp(a, s.dop), (float)m), &sn, &co);
+    a.out.rep_t[i] = make_float2(__fmul_rn(code, co), __fmul_rn(code, sn));
+  }
+  if (blockIdx.x == 0) prologue_vectors(a, c, threadIdx.x, s);
+}
 
-__device__ void block_close(const ClosureArgs& a, int c, int block) {
-  const int lane = threadIdx.x & 31;
-  const int n_e = a.n_epochs;
-  const bool on = lane < n_e;
-  const int e = on ? lane : 0;          // idle lanes mirror epoch 0
-  const int ce = c * n_e + e;
+bool prologue_args_invalid(const PrologueArgs& a, int n_ch) {
+  return n_ch < 1 || a.n_epochs < 1 || a.n_epochs > kPrologueThreads ||
+         a.n_taps < 1 || a.n_taps > kPrologueThreads || a.nfft < 1 ||
+         a.s0 < 1;
+}
+
+// ---- K8b -----------------------------------------------------------------
+
+constexpr int kCloseWarps = 3;          // the closure's warps per channel
+
+// one lane's view of the block: lane e holds epoch e (idle lanes mirror
+// epoch 0)
+struct CloseLane {
+  int lane, n_e, e, ce;
+  bool on, act;
+  float rate, dop, t_blk;
+  int32_t epoch;
+  float2 prompt, early, late;
+};
+
+__device__ __forceinline__ CloseLane close_lane(const ClosureArgs& a, int c) {
+  CloseLane l;
+  l.lane = threadIdx.x & 31;
+  l.n_e = a.n_epochs;
+  l.on = l.lane < l.n_e;
+  l.e = l.on ? l.lane : 0;
+  l.ce = c * l.n_e + l.e;
+  l.act = a.src.active[c] != 0;
+  l.rate = a.src.code_freq[c];
+  l.dop = a.src.carrier_doppler[c];
+  l.epoch = a.src.epoch[c];
+  const float2* cr = a.corr + (size_t)l.ce * a.n_taps;
+  const int pi = a.n_taps / 2;
+  l.prompt = cr[pi];
+  l.early = cr[pi - 1];
+  l.late = cr[pi + 1];
+  l.t_blk = __fmul_rn(a.pro.n_total[c], a.inv_fs);
+  return l;
+}
+
+// lock and C/N0 over the block: (carrier lock, C/N0 in dB-Hz)
+__device__ __forceinline__ float2 close_lock(const ClosureArgs& a,
+                                             const CloseLane& l) {
+  const float pi_ = l.prompt.x;
+  const float pq_ = l.prompt.y;
+  const float ii = __fmul_rn(pi_, pi_);
+  const float qq = __fmul_rn(pq_, pq_);
+  const float p2 = __fadd_rn(ii, qq);
+  const float lock_e = __fdiv_rn(__fsub_rn(ii, qq), fmaxf(p2, 1e-12f));
+  const float carrier_lock =
+      row_mean(l.on ? lock_e : 0.0f, a.inv_e);
+  const float mean_abs_i =
+      row_mean(l.on ? fabsf(pi_) : 0.0f, a.inv_e);
+  const float total = row_mean(l.on ? p2 : 0.0f, a.inv_e);
+  const float sig = __fmul_rn(mean_abs_i, mean_abs_i);
+  const float noise = fmaxf(__fsub_rn(total, sig), 1e-12f);
+  const float t_sym = __fmul_rn(l.t_blk, a.inv_e);
+  const float cn0_lin = __fdiv_rn(fmaxf(__fdiv_rn(sig, noise), 1e-6f), t_sym);
+  return make_float2(carrier_lock, __fmul_rn(10.0f, log10f(cn0_lin)));
+}
+
+// warp 1: the bit-sync histogram (lane p < 20 holds bin p) and its commit
+__device__ __forceinline__ void close_bit_sync(const ClosureArgs& a, int c,
+                                               const CloseLane& l) {
   const StatePtrs& s = a.src;
   const StatePtrs& d = a.dst;
+  const float sign_e = l.prompt.x >= 0.0f ? 1.0f : -1.0f;
+  float prev_sign = __shfl_up_sync(kFull, sign_e, 1);
+  if (l.lane == 0) prev_sign = s.prev_sign[c];
+  const bool tr = l.on && prev_sign != 0.0f && sign_e != prev_sign;
+  int phase_mod = (l.epoch + l.e) % kBits;
+  if (phase_mod < 0) phase_mod += kBits;
+  const int tr_bin = tr ? phase_mod : -1;
+  float inc = 0.0f;
+  for (int j = 0; j < l.n_e; ++j)
+    inc = __fadd_rn(inc,
+                    __shfl_sync(kFull, tr_bin, j) == l.lane ? 1.0f : 0.0f);
+  const bool bin = l.lane < kBits;
+  const float hist_in = bin ? s.bit_hist[c * kBits + l.lane] : 0.0f;
+  const float hist = bin ? __fadd_rn(hist_in, inc) : 0.0f;
+  const float hist_total = row_sum(hist);               // integer counts
+  const float peak = warp_max(bin ? hist : -INFINITY);
+  const int top = __ffs(__ballot_sync(kFull, bin && hist == peak)) - 1;
+  const bool sync_ok = (hist_total >= a.bit_sync_min) &&
+                       (peak >= __fmul_rn(0.8f, hist_total));
+  const bool was_synced = s.bit_synced[c] != 0;
+  const bool newly_bit = sync_ok && !was_synced && l.act;
+  const float last_sign = __shfl_sync(kFull, sign_e, l.n_e - 1);
+  if (bin) d.bit_hist[c * kBits + l.lane] = l.act ? hist : hist_in;
+  if (l.lane != 0) return;
+  d.prev_sign[c] = l.act ? last_sign : s.prev_sign[c];
+  d.bit_synced[c] =
+      l.act ? ((was_synced || newly_bit) ? 1 : 0) : s.bit_synced[c];
+  d.bit_phase[c] = newly_bit ? top : s.bit_phase[c];
+}
 
-  const bool act = s.active[c] != 0;
-  const float rate = s.code_freq[c];
-  const float dop = s.carrier_doppler[c];
-  const int32_t epoch = s.epoch[c];
-  const float2* cr = a.corr + (size_t)ce * a.n_taps;
-  const int pi = a.n_taps / 2;
-  const float2 prompt = cr[pi];
-  const float2 early = cr[pi - 1];
-  const float2 late = cr[pi + 1];
-  const float n_total = a.pro.n_total[c];
-  const float t_blk = n_total * a.inv_fs;
+// warp 2: the block's E rows of the output planes
+__device__ __forceinline__ void close_planes(const ClosureArgs& a, int c,
+                                             int block, const CloseLane& l) {
+  const StatePtrs& s = a.src;
+  const float cn0_db = close_lock(a, l).y;
+  if (!l.on) return;
+  const size_t o = ((size_t)block * l.n_e + l.lane) * a.n_ch + c;
+  const float rem_end = a.pro.rem_end[l.ce];
+  a.planes.prompt[o] = l.prompt;
+  a.planes.early_mag[o] = hypotf(l.early.x, l.early.y);
+  a.planes.late_mag[o] = hypotf(l.late.x, l.late.y);
+  a.planes.carrier_doppler_hz[o] = l.dop;
+  a.planes.code_freq_cps[o] = l.rate;
+  a.planes.rem_code_phase_chips[o] = rem_end;
+  a.planes.acc_phase_cycles[o] = __fadd_rn(
+      __fsub_rn(s.acc_phase_cycles[c], s.acc_phase_comp[c]),
+      __fmul_rn(l.dop, __fmul_rn(a.pro.n_next[l.ce], a.inv_fs)));
+  a.planes.code_phase_samples[o] =
+      __fmul_rn(__fdiv_rn(rem_end, l.rate), a.fs);
+  a.planes.pos_start[o] = s.pos[c] + (int32_t)a.pro.n_cum[l.ce];
+  a.planes.n_samples[o] = (int32_t)a.pro.n_len[l.ce];
+  a.planes.cn0_db_hz[o] = cn0_db;
+  a.planes.valid[o] = l.act ? 1 : 0;
+}
+
+// The block's loop closure of channel c, run by kCloseWarps whole warps:
+// reads a.corr, a.pro and a.src, commits a.dst and writes the block's rows
+// block*E.. of the planes.  Warp 0 runs the loops (discriminators and
+// means, PLL, DLL, FLL median), lock and C/N0, the carrier phase and the
+// commit of everything but the bit sync; warp 1 the bit-sync histogram
+// and its commit; warp 2 the plane rows.  Where `next` is given (the fold,
+// with the channel's flag `flag` read as `gen` before the launch's
+// arrivals), warp 0 writes the next block's omega from the committed
+// Doppler as soon as it has it and publishes gen + 1 with release order,
+// so that the channel's other CTAs start on the next replica while the
+// closure goes on.
+__device__ __forceinline__ void block_close(const ClosureArgs& a, int c,
+                                            int block,
+                                            const PrologueArgs* next = nullptr,
+                                            unsigned* flag = nullptr,
+                                            unsigned gen = 0u) {
+  const CloseLane l = close_lane(a, c);
+  const int warp = threadIdx.x >> 5;
+  if (warp == 1) {
+    close_bit_sync(a, c, l);
+    return;
+  }
+  if (warp == 2) {
+    close_planes(a, c, block, l);
+    return;
+  }
+  const StatePtrs& s = a.src;
+  const StatePtrs& d = a.dst;
+  const float2 prompt = l.prompt;
+  const float t_blk = l.t_blk;
 
   // ---- per-epoch discriminators, block means ---------------------------
   const float sgn_i = (float)((0.0f < prompt.x) - (prompt.x < 0.0f));
-  const float carr_err =
-      atan2f(prompt.y * sgn_i, fabsf(prompt.x)) * a.inv_two_pi;
-  const float early_mag = hypotf(early.x, early.y);
-  const float late_mag = hypotf(late.x, late.y);
-  const float denom = early_mag + late_mag;
-  const float raw =
-      denom > 0.0f ? (early_mag - late_mag) / fmaxf(denom, 1e-20f) : 0.0f;
-  const float code_err = a.el_gain * raw;
-  const float carr_err_m = warp_sum(on ? carr_err : 0.0f) * a.inv_e;
-  const float code_err_m = warp_sum(on ? code_err : 0.0f) * a.inv_e;
+  const float carr_err = __fmul_rn(
+      atan2f(__fmul_rn(prompt.y, sgn_i), fabsf(prompt.x)), a.inv_two_pi);
+  const float early_mag = hypotf(l.early.x, l.early.y);
+  const float late_mag = hypotf(l.late.x, l.late.y);
+  const float denom = __fadd_rn(early_mag, late_mag);
+  const float raw = denom > 0.0f
+      ? __fdiv_rn(__fsub_rn(early_mag, late_mag), fmaxf(denom, 1e-20f))
+      : 0.0f;
+  const float code_err = __fmul_rn(a.el_gain, raw);
+  const float carr_err_m =
+      row_mean(l.on ? carr_err : 0.0f, a.inv_e);
+  const float code_err_m =
+      row_mean(l.on ? code_err : 0.0f, a.inv_e);
 
   // ---- loop filters: third-order PLL (narrow), second-order DLL ---------
-  float pll_acc = s.pll_acc[c] + a.pll_k3 * t_blk * carr_err_m;
-  float pll_vel = s.pll_vel[c] + t_blk * (pll_acc + a.pll_k11 * carr_err_m);
-  float doppler_new = pll_vel + a.pll_k24 * carr_err_m;
+  float pll_acc = __fadd_rn(
+      s.pll_acc[c], __fmul_rn(__fmul_rn(a.pll_k3, t_blk), carr_err_m));
+  float pll_vel = __fadd_rn(
+      s.pll_vel[c],
+      __fmul_rn(t_blk, __fadd_rn(pll_acc, __fmul_rn(a.pll_k11, carr_err_m))));
+  float doppler_new = __fadd_rn(pll_vel, __fmul_rn(a.pll_k24, carr_err_m));
   const float bw = s.ext_n[c] < 50 ? a.dll_bw_wide : a.dll_bw_narrow;
-  const float wn = bw * a.inv_053;
-  const float dll_vel = s.dll_vel[c] + wn * wn * t_blk * code_err_m;
-  const float dll_out = dll_vel + 1.414213562f * wn * code_err_m;
+  const float wn = __fmul_rn(bw, a.inv_053);
+  const float dll_vel = __fadd_rn(
+      s.dll_vel[c],
+      __fmul_rn(__fmul_rn(__fmul_rn(wn, wn), t_blk), code_err_m));
+  const float dll_out = __fadd_rn(
+      dll_vel, __fmul_rn(__fmul_rn(1.414213562f, wn), code_err_m));
 
   // ---- FLL pull-in on the median pair error ------------------------------
-  const bool pullin_epochs = epoch < a.fll_pullin_epochs;
+  const bool pullin_epochs = l.epoch < a.fll_pullin_epochs;
   if (a.enable_fll) {
     float2 prev;
     prev.x = __shfl_up_sync(kFull, prompt.x, 1);
     prev.y = __shfl_up_sync(kFull, prompt.y, 1);
-    if (lane == 0) prev = s.prompt_prev[c];
-    const float t_pair = a.pro.n_len[ce] * a.inv_fs;
-    const float cross = prev.x * prompt.y - prompt.x * prev.y;
-    const float dot = prev.x * prompt.x + prev.y * prompt.y;
+    if (l.lane == 0) prev = s.prompt_prev[c];
+    const float t_pair = __fmul_rn(a.pro.n_len[l.ce], a.inv_fs);
+    const float cross = __fsub_rn(__fmul_rn(prev.x, prompt.y),
+                                  __fmul_rn(prompt.x, prev.y));
+    const float dot = __fadd_rn(__fmul_rn(prev.x, prompt.x),
+                                __fmul_rn(prev.y, prompt.y));
     float f_err;
     if (a.fll_decision) {
       const float sgn = dot >= 0.0f ? 1.0f : -1.0f;
-      f_err = atan2f(cross * sgn, fabsf(dot)) / (a.two_pi * t_pair);
+      f_err = __fdiv_rn(atan2f(__fmul_rn(cross, sgn), fabsf(dot)),
+                        __fmul_rn(a.two_pi, t_pair));
     } else {
-      f_err = atan2f(cross, dot) / (a.two_pi * t_pair);
+      f_err = __fdiv_rn(atan2f(cross, dot), __fmul_rn(a.two_pi, t_pair));
     }
     // exact median: every lane ranks its value, then the midpoint rule
     int rank = 0;
-    for (int j = 0; j < n_e; ++j) {
+    for (int j = 0; j < l.n_e; ++j) {
       const float v = __shfl_sync(kFull, f_err, j);
-      rank += (v < f_err || (v == f_err && j < lane)) ? 1 : 0;
+      rank += (v < f_err || (v == f_err && j < l.lane)) ? 1 : 0;
     }
-    const float lo = warp_rank_value(f_err, rank, (n_e - 1) / 2, n_e);
-    const float hi = warp_rank_value(f_err, rank, n_e / 2, n_e);
-    const float f_err_m = (lo + hi) * 0.5f;
+    const float lo = warp_rank_value(f_err, rank, (l.n_e - 1) / 2, l.n_e);
+    const float hi = warp_rank_value(f_err, rank, l.n_e / 2, l.n_e);
+    const float f_err_m = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
     const bool in_pullin =
         pullin_epochs || (s.carrier_lock[c] < a.lock_threshold);
-    float g_fll = a.fll_k4 * t_blk;
+    float g_fll = __fmul_rn(a.fll_k4, t_blk);
     g_fll = isnan(g_fll) ? g_fll : fminf(g_fll, 0.5f);
-    const float g_eff = pullin_epochs ? g_fll : 0.3f * g_fll;
-    const float nudge = in_pullin ? g_eff * f_err_m : 0.0f;
-    doppler_new = doppler_new + nudge;
-    pll_vel = pll_vel + nudge;
+    const float g_eff = pullin_epochs ? g_fll : __fmul_rn(0.3f, g_fll);
+    const float nudge = in_pullin ? __fmul_rn(g_eff, f_err_m) : 0.0f;
+    doppler_new = __fadd_rn(doppler_new, nudge);
+    pll_vel = __fadd_rn(pll_vel, nudge);
   }
-  const float code_freq_new =
-      a.code_rate * (1.0f + doppler_new * a.inv_fc) + dll_out;
+  const float dop_next = l.act ? doppler_new : l.dop;
+  if (next && l.lane == 0) {
+    // the next block's ramp, as prologue_omega computes it from the state
+    next->out.omega[c] =
+        __fmul_rn(__fmul_rn(next->two_pi, dop_next), next->inv_fs);
+    __threadfence();
+    asm volatile("st.release.gpu.global.u32 [%0], %1;" :: "l"(flag),
+                 "r"(gen + 1u) : "memory");
+  }
+  const float code_freq_new = __fadd_rn(
+      __fmul_rn(a.code_rate,
+                __fadd_rn(1.0f, __fmul_rn(doppler_new, a.inv_fc))),
+      dll_out);
 
   // ---- lock / C/N0 over the block ----------------------------------------
-  const float pi_ = prompt.x;
-  const float pq_ = prompt.y;
-  const float p2 = pi_ * pi_ + pq_ * pq_;
-  const float lock_e = (pi_ * pi_ - pq_ * pq_) / fmaxf(p2, 1e-12f);
-  const float carrier_lock = warp_sum(on ? lock_e : 0.0f) * a.inv_e;
-  const float mean_abs_i = warp_sum(on ? fabsf(pi_) : 0.0f) * a.inv_e;
-  const float total = warp_sum(on ? p2 : 0.0f) * a.inv_e;
-  const float sig = mean_abs_i * mean_abs_i;
-  const float noise = fmaxf(total - sig, 1e-12f);
-  const float t_sym = t_blk * a.inv_e;
-  const float cn0_lin = fmaxf(sig / noise, 1e-6f) / t_sym;
-  const float cn0_db = 10.0f * log10f(cn0_lin);
+  const float2 lock = close_lock(a, l);
+  const float carrier_lock = lock.x;
+  const float cn0_db = lock.y;
   const bool bad = ((carrier_lock < a.lock_threshold) || (cn0_db < a.cn0_min))
                    && !pullin_epochs;
   const float lock_fail = s.lock_fail[c];
-  const float fail = bad ? lock_fail + 1.0f : fmaxf(lock_fail - 1.0f, 0.0f);
+  const float fail = bad ? __fadd_rn(lock_fail, 1.0f)
+                         : fmaxf(__fsub_rn(lock_fail, 1.0f), 0.0f);
   const bool lost = fail > a.max_lock_fail;
-
-  // ---- bit-sync histogram: lane p < 20 holds bin p -----------------------
-  const float sign_e = pi_ >= 0.0f ? 1.0f : -1.0f;
-  float prev_sign = __shfl_up_sync(kFull, sign_e, 1);
-  if (lane == 0) prev_sign = s.prev_sign[c];
-  const bool tr = on && prev_sign != 0.0f && sign_e != prev_sign;
-  int phase_mod = (epoch + e) % kBits;
-  if (phase_mod < 0) phase_mod += kBits;
-  const int tr_bin = tr ? phase_mod : -1;
-  float inc = 0.0f;
-  for (int j = 0; j < n_e; ++j)
-    inc += __shfl_sync(kFull, tr_bin, j) == lane ? 1.0f : 0.0f;
-  const bool bin = lane < kBits;
-  const float hist = bin ? s.bit_hist[c * kBits + lane] + inc : 0.0f;
-  const float hist_total = warp_sum(hist);
-  const float peak = warp_max(bin ? hist : -INFINITY);
-  const int top = __ffs(__ballot_sync(kFull, bin && hist == peak)) - 1;
-  const bool sync_ok =
-      (hist_total >= a.bit_sync_min) && (peak >= 0.8f * hist_total);
-  const bool was_synced = s.bit_synced[c] != 0;
-  const bool newly_bit = sync_ok && !was_synced && act;
 
   // ---- carrier phase (Kahan over blocks, not re-associated) --------------
   const float acc_cyc = s.acc_phase_cycles[c];
   const float acc_comp = s.acc_phase_comp[c];
-  const float y_k = dop * t_blk - acc_comp;
-  const float t_sum = acc_cyc + y_k;
-  const float comp = (t_sum - acc_cyc) - y_k;
-  const float rem_carr_new =
-      floor_mod(s.rem_carr_phase[c] + a.two_pi * dop * t_blk, a.two_pi);
-
-  // ---- the block's rows of the output planes -----------------------------
-  const int32_t pos = s.pos[c];
-  if (on) {
-    const size_t o = ((size_t)block * n_e + lane) * a.n_ch + c;
-    const float rem_end = a.pro.rem_end[ce];
-    a.planes.prompt[o] = prompt;
-    a.planes.early_mag[o] = early_mag;
-    a.planes.late_mag[o] = late_mag;
-    a.planes.carrier_doppler_hz[o] = dop;
-    a.planes.code_freq_cps[o] = rate;
-    a.planes.rem_code_phase_chips[o] = rem_end;
-    a.planes.acc_phase_cycles[o] =
-        (acc_cyc - acc_comp) + dop * (a.pro.n_next[ce] * a.inv_fs);
-    a.planes.code_phase_samples[o] = rem_end / rate * a.fs;
-    a.planes.pos_start[o] = pos + (int32_t)a.pro.n_cum[ce];
-    a.planes.n_samples[o] = (int32_t)a.pro.n_len[ce];
-    a.planes.cn0_db_hz[o] = cn0_db;
-    a.planes.valid[o] = act ? 1 : 0;
-  }
+  const float y_k = __fsub_rn(__fmul_rn(l.dop, t_blk), acc_comp);
+  const float t_sum = __fadd_rn(acc_cyc, y_k);
+  const float comp = __fsub_rn(__fsub_rn(t_sum, acc_cyc), y_k);
+  const float rem_carr_new = floor_mod(
+      __fadd_rn(s.rem_carr_phase[c],
+                __fmul_rn(__fmul_rn(a.two_pi, l.dop), t_blk)),
+      a.two_pi);
 
   // ---- masked commit (inactive channels advance nominally) ---------------
-  if (bin) d.bit_hist[c * kBits + lane] = act ? hist : s.bit_hist[c * kBits + lane];
-  const float2 last_prompt = make_float2(
-      __shfl_sync(kFull, prompt.x, n_e - 1), __shfl_sync(kFull, prompt.y, n_e - 1));
-  const float last_sign = __shfl_sync(kFull, sign_e, n_e - 1);
-  if (lane != 0) return;
+  const float2 last_prompt =
+      make_float2(__shfl_sync(kFull, prompt.x, l.n_e - 1),
+                  __shfl_sync(kFull, prompt.y, l.n_e - 1));
+  if (l.lane != 0) return;
+  const bool act = l.act;
+  const int32_t pos = s.pos[c];
   d.active[c] = (act && !lost) ? 1 : 0;
-  d.pos[c] = act ? pos + (int32_t)n_total : pos + n_e * a.s0;
+  d.pos[c] = act ? pos + (int32_t)a.pro.n_total[c] : pos + l.n_e * a.s0;
   d.rem_code_phase[c] = act ? a.pro.rem_new[c] : s.rem_code_phase[c];
-  d.code_freq[c] = act ? code_freq_new : rate;
-  d.carrier_doppler[c] = act ? doppler_new : dop;
+  d.code_freq[c] = act ? code_freq_new : l.rate;
+  d.carrier_doppler[c] = dop_next;
   d.rem_carr_phase[c] = act ? rem_carr_new : s.rem_carr_phase[c];
   d.acc_phase_cycles[c] = act ? t_sum : acc_cyc;
   d.acc_phase_comp[c] = act ? comp : acc_comp;
@@ -315,44 +521,39 @@ __device__ void block_close(const ClosureArgs& a, int c, int block) {
   d.pll_vel[c] = act ? pll_vel : s.pll_vel[c];
   d.pll_acc[c] = act ? pll_acc : s.pll_acc[c];
   d.prompt_prev[c] = act ? last_prompt : s.prompt_prev[c];
-  d.epoch[c] = act ? epoch + n_e : epoch;
+  d.epoch[c] = act ? l.epoch + l.n_e : l.epoch;
   d.cn0_db_hz[c] = act ? cn0_db : s.cn0_db_hz[c];
   d.carrier_lock[c] = act ? carrier_lock : s.carrier_lock[c];
   d.lock_fail[c] = act ? fail : lock_fail;
   d.lock_lost[c] = act ? (lost ? 1 : 0) : s.lock_lost[c];
-  d.prev_sign[c] = act ? last_sign : s.prev_sign[c];
-  d.bit_synced[c] = act ? ((was_synced || newly_bit) ? 1 : 0) : s.bit_synced[c];
-  d.bit_phase[c] = newly_bit ? top : s.bit_phase[c];
   const int32_t ext_n = s.ext_n[c];
   d.ext_n[c] = act ? (ext_n + 1 < 10000 ? ext_n + 1 : 10000) : ext_n;
 }
 
-namespace {
-
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32 * kCloseWarps)
 block_closure_kernel(const __grid_constant__ ClosureArgs a, int block) {
   block_close(a, blockIdx.x, block);
 }
 
-}  // namespace
-
-extern "C" int block_prologue(PrologueArgs a, int n_ch, void* stream) {
-  if (n_ch < 1 || a.n_epochs < 1 || a.n_epochs > kPrologueThreads ||
-      a.n_taps < 1 || a.n_taps > kPrologueThreads || a.nfft < 1 || a.s0 < 1)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((a.nfft + kPrologueThreads - 1) / kPrologueThreads, n_ch);
-  block_prologue_kernel<<<grid, kPrologueThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
+// true where the closure's arguments are past what it takes
 bool closure_args_invalid(const ClosureArgs& a, int block) {
   return a.n_ch < 1 || a.n_epochs < 1 || a.n_epochs > kMaxEpochs ||
          a.n_taps < 3 || a.n_taps > kMaxTaps || a.n_taps % 2 == 0 ||
          block < 0 || (block + 1) * a.n_epochs > a.n_rows;
 }
 
+}  // namespace
+
+extern "C" int block_prologue(PrologueArgs a, int n_ch, void* stream) {
+  if (prologue_args_invalid(a, n_ch)) return (int)cudaErrorInvalidValue;
+  dim3 grid((a.nfft + kPrologueThreads - 1) / kPrologueThreads, n_ch);
+  block_prologue_kernel<<<grid, kPrologueThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int block_closure(ClosureArgs a, int block, void* stream) {
   if (closure_args_invalid(a, block)) return (int)cudaErrorInvalidValue;
-  block_closure_kernel<<<a.n_ch, 32, 0, (cudaStream_t)stream>>>(a, block);
+  block_closure_kernel<<<a.n_ch, 32 * kCloseWarps, 0, (cudaStream_t)stream>>>(
+      a, block);
   return (int)cudaGetLastError();
 }

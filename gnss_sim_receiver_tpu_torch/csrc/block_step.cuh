@@ -1,9 +1,8 @@
-// K8a's and K8b's launch arguments and K8b's closure as a device function,
-// shared by the standalone kernels (csrc/block_step.cu) and K1's fused form
-// (csrc/block_correlator.cu, kClose), which runs the closure in its
-// epilogue.  Both live in one library built with relocatable device code
-// (ops/cuda_build.py), so that the closure keeps block_step.cu's
-// --fmad=false rounding wherever it runs.
+// K8a's and K8b's launch arguments, shared by their standalone kernels
+// (csrc/block_step.cu) and K1's fused form (csrc/block_correlator.cu,
+// kClose), which runs the closure in its epilogue and, with a fold, the
+// next block's prologue after it.  The structs are laid out as the
+// wrapper's ctypes Structures (models/tracking_block.py).
 
 #pragma once
 
@@ -106,7 +105,7 @@ struct ClosureArgs {
   float el_gain;                        // 0.5 * (2 - early_late_space)
   float dll_bw_wide;
   float dll_bw_narrow;
-  float inv_053;                        // float(1 / float(0.53))
+  float inv_053;                        // float(1 / 0.53), 0.53 a double
   float pll_k3;                         // wn * wn * wn (PLL, narrow)
   float pll_k11;                        // 1.1 * wn * wn
   float pll_k24;                        // 2.4 * wn
@@ -126,11 +125,3 @@ struct ClosureArgs {
   int32_t enable_fll;
   int32_t fll_decision;
 };
-
-// The block's loop closure of channel c, run by one whole warp (lane e
-// holding epoch e): reads a.corr, a.pro and a.src, commits a.dst and writes
-// the block's rows block*E.. of the planes.
-__device__ void block_close(const ClosureArgs& a, int c, int block);
-
-// true where the closure's arguments are past what it takes
-bool closure_args_invalid(const ClosureArgs& a, int block);

@@ -29,8 +29,11 @@ epochs), with the loops closing at block cadence:
   and :func:`_block_closure_plain`, are the JAX body's operations in its
   order; the CPU runs them.  On the card K8b runs in K1's epilogue
   (:func:`block_correlate_close`), which also conjugates the replica
-  spectrum on load: a block is three launches, K8a, the cuFFT and K1
-  with K8b; the standalone K8b is what that fused form is held against.
+  spectrum on load, and then writes the next block's prologue from the
+  state it committed (the fold): a chunk of n blocks is K8a once, then
+  per block the cuFFT and the fused launch, 1 + 2n launches; the standalone K8a and K8b, and the three-launch chunk
+  (``_chunk_cuda(..., fold=False)``: K8a, cuFFT, K1 with K8b per block),
+  are what the fused forms are held against.
 
 Epoch boundaries are closed-form within a block (the code NCO rate is
 constant there): the cumulative sample count of epoch e is exactly
@@ -141,11 +144,14 @@ def plan_k1(n_ch: int, n_epochs: int, nfft: int, sms: int = H100_SMS) -> int:
 
 
 class K1Scratch(NamedTuple):
-    """K1's scratch on the card: the slabs' partial sums [C, S, E, K] and
-    one arrival counter per channel (0 between launches: the last CTA of a
-    channel resets its own)."""
+    """K1's scratch on the card: the slabs' partial sums [C, S, E, K], one
+    arrival counter per channel (0 between launches: the last CTA of a
+    channel resets its own) and one fold flag per channel (the count of
+    the channel's folded launches, never reset: the channel's CTAs wait
+    for it to move past the value they read when they started)."""
     partials: torch.Tensor
     arrivals: torch.Tensor
+    flags: torch.Tensor
 
 
 def k1_scratch(n_ch: int, n_epochs: int, n_taps: int, nfft: int,
@@ -156,6 +162,7 @@ def k1_scratch(n_ch: int, n_epochs: int, n_taps: int, nfft: int,
     return K1Scratch(
         torch.empty((n_ch, slabs, n_epochs, n_taps), dtype=torch.complex64,
                     device=device),
+        torch.zeros(n_ch, dtype=torch.int32, device=device),
         torch.zeros(n_ch, dtype=torch.int32, device=device))
 
 
@@ -239,8 +246,10 @@ def _k1_args(xf_all, rf, w0, lag_int, lag_frac, ph_sc, tap_samps, omega,
     require(scratch.partials, torch.complex64, dev,
             "block_correlate: scratch partials")
     require(scratch.arrivals, I32, dev, "block_correlate: scratch arrivals")
+    require(scratch.flags, I32, dev, "block_correlate: scratch flags")
     if (scratch.partials.shape != (c, slabs, e, k)
-            or scratch.arrivals.shape != (c,) or not 1 <= slabs <= nfft):
+            or scratch.arrivals.shape != (c,) or scratch.flags.shape != (c,)
+            or not 1 <= slabs <= nfft):
         raise ValueError("block_correlate: scratch shape mismatch")
     return (xf_all.data_ptr(), rf.data_ptr(), w0.data_ptr(),
             lag_int.data_ptr(), lag_frac.data_ptr(), ph_sc.data_ptr(),
@@ -252,10 +261,13 @@ def _k1_args(xf_all, rf, w0, lag_int, lag_frac, ph_sc, tap_samps, omega,
 
 def _launch_k1(args: tuple, close: tuple | None = None) -> None:
     """Launch K1 with :func:`_k1_args`' arguments; with `close` =
-    (closure arguments, block) its fused form, which reads the replica
-    spectrum unconjugated and runs K8b's closure in its epilogue.  Counts
-    every launch in ``block_correlate.launches`` and the fused ones also in
-    ``block_correlate_close.launches``."""
+    (closure arguments, block, next block's prologue arguments as a ctypes
+    pointer or None, fold flags' pointer) its fused form, which reads the
+    replica spectrum unconjugated, runs K8b's closure in its epilogue and,
+    given the next block's arguments, writes that block's prologue.  Counts
+    every launch in ``block_correlate.launches``, the fused ones also in
+    ``block_correlate_close.launches`` and those with a fold in
+    ``block_correlate_close.folds``."""
     lib = _lib()
     if close is None:
         cuda_build.check(lib.block_correlate(*args), "block_correlate")
@@ -264,23 +276,29 @@ def _launch_k1(args: tuple, close: tuple | None = None) -> None:
                                                    args[-1]),
                          "block_correlate_close")
         block_correlate_close.launches += 1
+        block_correlate_close.folds += close[2] is not None
     block_correlate.launches += 1
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a block library's entry points."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    k1 = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p]
+    for fn, types in (
+            (lib.block_correlate, k1 + [p]),
+            (lib.block_correlate_close,
+             k1 + [_ClosureArgs, i, ctypes.POINTER(_PrologueArgs), p, p]),
+            (lib.block_prologue, [_PrologueArgs, i, p]),
+            (lib.block_closure, [_ClosureArgs, i, p])):
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _lib():
     lib = cuda_build.load("block_kernels")
-    fn = lib.block_correlate
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        k1 = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p]
-        fn.argtypes = k1 + [p]
-        fn.restype = ctypes.c_int
-        lib.block_correlate_close.argtypes = k1 + [_ClosureArgs, i, p]
-        lib.block_correlate_close.restype = ctypes.c_int
-        lib.block_prologue.argtypes = [_PrologueArgs, i, p]
-        lib.block_prologue.restype = ctypes.c_int
-        lib.block_closure.argtypes = [_ClosureArgs, i, p]
-        lib.block_closure.restype = ctypes.c_int
+    if lib.block_correlate.argtypes is None:
+        bind(lib)
     return lib
 
 
@@ -617,7 +635,11 @@ def _constants(conf: TrackingConf, e_block: int) -> dict:
         inv_e=_recip(e_block),
         el_gain=float(0.5 * (2.0 - f32(conf.early_late_space_chips))),
         dll_bw_wide=_fl(conf.dll_bw_hz),
-        dll_bw_narrow=_fl(conf.dll_bw_narrow_hz), inv_053=_recip(0.53),
+        dll_bw_narrow=_fl(conf.dll_bw_narrow_hz),
+        # the DLL divides a card tensor by the Python float 0.53: ATen on
+        # the card multiplies by float(1 / 0.53) taken in double
+        # (tools/probe_torch_rounding.py)
+        inv_053=float(np.float32(1.0 / 0.53)),
         pll_k3=float(wn * wn * wn), pll_k11=float(1.1 * wn * wn),
         pll_k24=float(2.4 * wn), fll_k4=float(4.0 * f32(conf.fll_bw_hz)),
         lock_threshold=_fl(conf.carrier_lock_threshold),
@@ -780,38 +802,71 @@ def block_closure(conf: TrackingConf, e_block: int, corr: torch.Tensor,
 block_closure.launches = 0
 
 
+def _step_plain(conf: TrackingConf, e_block: int, xf_all, rf,
+                pro: BlockPrologue, st: TrackState, codes_rep=None,
+                taps=None):
+    """Plain version of the fused launch: K1's plain version on conj(rf),
+    K8b's closure on its correlations and, given `codes_rep` and `taps` (a
+    fold), the next block's prologue from the state the closure returned
+    -> (the correlations, the next TrackState, the block's [E, C] output
+    planes, the next block's BlockPrologue or None)."""
+    corr = _block_correlate_plain(xf_all, torch.conj_physical(rf), pro.w0,
+                                  pro.lag_int, pro.lag_frac, pro.ph_sc,
+                                  pro.tap_samps, pro.omega)
+    new, outs = _block_closure_plain(conf, e_block, corr, pro, st)
+    nxt = None if codes_rep is None else _block_prologue_plain(
+        conf, e_block, codes_rep, taps, xf_all.shape[0], new)
+    return corr, new, outs, nxt
+
+
 def block_correlate_close(conf: TrackingConf, e_block: int,
                           xf_all: torch.Tensor, rf: torch.Tensor,
                           pro: BlockPrologue, st: TrackState, planes: dict,
                           block: int, corr: torch.Tensor | None = None,
-                          scratch: K1Scratch | None = None) -> TrackState:
+                          scratch: K1Scratch | None = None,
+                          fold: tuple | None = None) -> TrackState:
     """K1 and K8b fused: K1 on the replica spectrum `rf` as the FFT leaves
     it (the kernel conjugates it on load), then K8b's closure of block
     `block` in the same launch; returns the next TrackState, writes the
     block's rows of `planes` and the correlations into `corr` when given.
-    Launches ``csrc/block_correlator.cu``'s fused form for CUDA tensors;
-    for CPU tensors K1's plain version on conj(rf), then K8b's."""
+    With `fold` = (codes_rep, taps, next_pro) the launch also writes the
+    next block's prologue (K8a's outputs) from the next state into the
+    BlockPrologue `next_pro` (which must not be `pro`).  Launches
+    ``csrc/block_correlator.cu``'s fused form for CUDA tensors; for CPU
+    tensors :func:`_step_plain`."""
     if not check_kernel_device(xf_all, "block_correlate_close"):
-        res = _block_correlate_plain(xf_all, torch.conj_physical(rf),
-                                     pro.w0, pro.lag_int, pro.lag_frac,
-                                     pro.ph_sc, pro.tap_samps, pro.omega)
+        res, new, outs, nxt = _step_plain(conf, e_block, xf_all, rf, pro, st,
+                                          *(fold or ())[:2])
         if corr is not None:
             corr.copy_(res)
-        new, outs = _block_closure_plain(conf, e_block, res, pro, st)
         _write_rows(planes, outs, block, e_block)
+        if fold:
+            for dst, src in zip(fold[2], nxt):
+                dst.copy_(src)
         return new
     if corr is None:
         corr = torch.empty((rf.shape[0], e_block, pro.tap_samps.shape[1]),
                            dtype=torch.complex64, device=rf.device)
+    if scratch is None:
+        scratch = k1_scratch(*corr.shape, rf.shape[1], rf.device)
     out = _empty_state(st)
+    nxt = None
+    if fold:
+        codes_rep, taps, next_pro = fold
+        if next_pro.rep_t.data_ptr() == pro.rep_t.data_ptr():
+            raise ValueError("block_correlate_close: the next block's "
+                             "prologue must not be this block's")
+        nxt = ctypes.pointer(_prologue_args(
+            conf, e_block, codes_rep, taps, xf_all.shape[0], out, next_pro))
     _launch_k1(_k1_args(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
                         pro.ph_sc, pro.tap_samps, pro.omega, corr, scratch),
                (_closure_args(conf, e_block, corr, pro, st, out, planes),
-                block))
+                block, nxt, scratch.flags.data_ptr()))
     return out
 
 
 block_correlate_close.launches = 0
+block_correlate_close.folds = 0
 
 
 # ---- the chunk -------------------------------------------------------------
@@ -834,37 +889,82 @@ def _chunk_plain(conf: TrackingConf, n_blocks: int, e_block: int,
     return state, planes
 
 
+def _chunk_plain_folded(conf: TrackingConf, n_blocks: int, e_block: int,
+                        codes_rep, taps, xf_all, state: TrackState):
+    """The plain versions in the order of the card's two-launch chunk: K8a
+    for the first block, then per block the replica FFT and the fused
+    step, whose closure's state gives the next block's prologue
+    (:func:`_step_plain`; the last block writes none)."""
+    planes = _empty_planes(n_blocks * e_block, codes_rep.shape[0],
+                           xf_all.device)
+    pro = _block_prologue_plain(conf, e_block, codes_rep, taps,
+                                xf_all.shape[0], state)
+    for b in range(n_blocks):
+        rf = torch.fft.fft(pro.rep_t, dim=-1)
+        fold = (codes_rep, taps) if b + 1 < n_blocks else ()
+        _, state, outs, pro = _step_plain(conf, e_block, xf_all, rf, pro,
+                                          state, *fold)
+        _write_rows(planes, outs, b, e_block)
+    return state, planes
+
+
 def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
-                codes_rep, taps, xf_all, state: TrackState):
-    """The block loop on the card: per block K8a, cuFFT, then K1 with
-    K8b's closure in its epilogue (three launches), into buffers allocated
-    once per chunk (K1's scratch among them), with no host sync.  The
-    state ping-pongs between two buffers; the launch arguments of K8a and
-    K8b for the three (source, destination) pairs are built once."""
+                codes_rep, taps, xf_all, state: TrackState,
+                fold: bool = True, k1: K1Scratch | None = None):
+    """The block loop on the card into buffers allocated once per chunk
+    (K1's scratch among them), with no host sync.  With the fold (the
+    receiver's form, at every shape): K8a for the first block, then per
+    block the cuFFT and K1 with K8b's closure and the next block's
+    prologue in one launch (two prologue buffers, ping-ponged); without,
+    the fold's reference: per block K8a, the cuFFT and K1 with K8b (three
+    launches).  The state ping-pongs between two buffers; every launch's
+    arguments for the three (source, destination) pairs are built once,
+    K1's with the first spectrum's pointer, which each block's FFT output
+    replaces.  `k1` is K1's scratch (by default its own).  Counts the
+    chunks in ``track_chunk_blocks.chunks``."""
     dev = xf_all.device
     c, nfft = codes_rep.shape
     k = taps.shape[0]
+    n_wins = xf_all.shape[0]
+    if k1 is None:
+        k1 = k1_scratch(c, e_block, k, nfft, dev)
+    track_chunk_blocks.chunks += 1
     planes = _empty_planes(n_blocks * e_block, c, dev)
-    pro = _empty_prologue(c, e_block, nfft, k, dev)
+    pros = [_empty_prologue(c, e_block, nfft, k, dev)
+            for _ in range(2 if fold else 1)]
     bufs = (_empty_state(state), _empty_state(state))
     corr = torch.empty((c, e_block, k), dtype=torch.complex64, device=dev)
-    k1 = k1_scratch(c, e_block, k, nfft, dev)
-    n_wins = xf_all.shape[0]
     pairs = ((state, bufs[0]), (bufs[0], bufs[1]), (bufs[1], bufs[0]))
+    # the prologue buffer each pair's block reads: block 0 and the even
+    # blocks pair 0 and 2, the odd ones pair 1
+    ipro = (0, 1, 0) if fold else (0, 0, 0)
     p_args = [_prologue_args(conf, e_block, codes_rep, taps, n_wins, src,
-                             pro) for src, _ in pairs]
-    c_args = [_closure_args(conf, e_block, corr, pro, src, dst, planes)
-              for src, dst in pairs]
+                             pros[j]) for (src, _), j in zip(pairs, ipro)]
+    c_args = [_closure_args(conf, e_block, corr, pros[j], src, dst, planes)
+              for (src, dst), j in zip(pairs, ipro)]
+    # with the fold, the prologue that pair i's block writes is the one the
+    # pair of the next block reads: 0 -> 1, 1 -> 2, 2 -> 1
+    n_args = ([ctypes.pointer(p_args[j]) for j in (1, 2, 1)] if fold
+              else [None] * 3)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    k1_args = []
+    flags = k1.flags.data_ptr()
     for b in range(n_blocks):
         i = 0 if b == 0 else 1 + (b - 1) % 2
-        _launch_prologue(p_args[i], c, stream)
+        pro = pros[ipro[i]]
+        if b == 0 or not fold:
+            _launch_prologue(p_args[i], c, stream)
         # no out= for the FFT: ATen would add a kernel that applies the
         # (unit) normalization into it; K1 conjugates the spectrum on load
         rf = torch.fft.fft(pro.rep_t, dim=-1)
-        _launch_k1(_k1_args(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
-                            pro.ph_sc, pro.tap_samps, pro.omega, corr, k1),
-                   (c_args[i], b))
+        if not k1_args:
+            k1_args = [_k1_args(xf_all, rf, q.w0, q.lag_int, q.lag_frac,
+                                q.ph_sc, q.tap_samps, q.omega, corr, k1)
+                       for q in pros]
+        a = k1_args[ipro[i]]
+        _launch_k1((a[0], rf.data_ptr()) + a[2:],
+                   (c_args[i], b, n_args[i] if b + 1 < n_blocks else None,
+                    flags))
     return bufs[(n_blocks - 1) % 2], planes
 
 
@@ -874,8 +974,9 @@ def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
     """Run n_blocks blocks of e_block epochs each.  Returns (new_state,
     outs) with the same per-epoch [T, C] output planes as track_chunk
     (T = n_blocks*e_block).  `codes_rep` is the [C, F] time-domain block
-    replica of code_spectra().  On the card each block is K8a, cuFFT and
-    K1 with K8b's closure fused; on the CPU the plain versions."""
+    replica of code_spectra().  On the card K8a for the first block, then
+    per block the cuFFT and K1 with K8b's closure and the next block's
+    prologue fused (:func:`_chunk_cuda`); on the CPU the plain versions."""
     if n_blocks < 1:
         raise ValueError("track_chunk_blocks: n_blocks must be >= 1")
     xf_all = _window_spectra(x_chunk, conf.nominal_epoch_samples,
@@ -885,6 +986,9 @@ def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
                            state)
     return _chunk_plain(conf, n_blocks, e_block, codes_rep, taps, xf_all,
                         state)
+
+
+track_chunk_blocks.chunks = 0
 
 
 def track_chunk_blocks_packed_decim(conf: TrackingConf, n_blocks: int,

@@ -3,8 +3,8 @@
 Each library has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` under ``build/torch_kernels/`` at the repository root, then
 loaded with ctypes.  A library is named after itself and a hash of every
-source it is built from (its ``.cu`` translation units and the ``.cuh``
-headers they include) and of every flag, so an edited kernel is rebuilt and
+source it is built from (its ``.cu`` translation units and every file they
+include) and of every flag, so an edited kernel is rebuilt and
 a stale one is never loaded.  Builds happen at first use (or all at once,
 one ``nvcc`` per translation unit in parallel, through :func:`build_all`);
 importing this module builds nothing.
@@ -14,26 +14,32 @@ No ``--use_fast_math``: the block correlator's angles reach ~2*pi*(1 +
 keeps; the FIR kernel's LO phase reaches millions of radians and the device
 generator's carrier phase ~130 rad within an anchor block.
 
-``block_step.cu`` (K8a, K8b) and ``epoch_step.cu`` (K9) are built with
-``--fmad=false``: they repeat the plain PyTorch version operation by
-operation, where every torch op rounds on its own, so no ``a*b+c`` may be
-contracted into an FMA.  The correlators, ``multicorrelator.cu`` (K2) and
-``block_correlator.cu`` (K1), keep nvcc's default contraction, which their
-accumulations were measured with.  Yet one kernel runs both kinds of body:
-the per-epoch chunk kernel (``epoch_chunk.cu``) calls K2's slab body and
-K9's closure, and K1's fused form calls K8b's closure.  A single
-translation unit under either flag would change the rounding of the other
-body, and the fused kernels would no longer give the bits of the
-standalone kernels they are held against.  So the tracking libraries are
+``epoch_step.cu`` (K9's closure) is built with ``--fmad=false``: it
+repeats the plain PyTorch version operation by operation, where every
+torch op rounds on its own, so no ``a*b+c`` may be contracted into an FMA.
+The correlators, ``multicorrelator.cu`` (K2) and ``block_correlator.cu``
+(K1), keep nvcc's default contraction, which their accumulations were
+measured with.  The per-epoch chunk kernel (``epoch_chunk.cu``) calls K2's
+slab body and K9's closure, so a single translation unit under either flag
+would change the rounding of the other body.  So the per-epoch library is
 built from several translation units, each compiled with relocatable
 device code (``-rdc=true``) and its own flags, joined by ``nvcc -dlink``
 and linked into one shared library (:data:`LIBRARIES`).  Device LTO would
 inline across the units, but nvlink refuses to join units whose ``-fmad``
 differ.  Relocatable device code has a cost: a function called across
-units keeps the calling convention's registers, so the per-epoch
-library's units are capped at 128 registers (:data:`EPOCH_REGS`), and K1
-compiled with ``-rdc=true`` runs its E1 shape (five taps) slower than as a
-whole program, with the same bits (``PERF.md``).
+units keeps the calling convention's registers, so the per-epoch library's
+units are capped at 128 registers (:data:`EPOCH_REGS`).
+
+The block library needs none of that.  ``block_step.cu`` (K8a, K8b)
+writes every rounding of its float arithmetic out as a round-to-nearest
+intrinsic, which no flag contracts, so it gives the same bits under either
+``-fmad``; ``block_correlator.cu`` includes it and the library is one
+translation unit built with the default flags: K1 with the closure and
+the next block's prologue fused is a whole program, with no call across
+units (under ``-rdc=true`` K1 ran its E1 shape 1.8 times slower, with the
+same bits; ``PERF.md``).  :func:`build_all` and :func:`load` also
+build a library with extra flags into a directory of its own, for checks
+that compare two builds.
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # is built with relocatable device code and one device link
 LIBRARIES = {
     "epoch_kernels": ("multicorrelator", "epoch_step", "epoch_chunk"),
-    "block_kernels": ("block_correlator", "block_step"),
+    "block_kernels": ("block_correlator",),
     "fir_decim": ("fir_decim",),
     "notch": ("notch",),
     "device_generator": ("device_generator",),
@@ -69,14 +75,13 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # for 10 channels); 128 fits two CTAs per SM
 EPOCH_REGS = ("-maxrregcount=128",)
 # flags of one translation unit beyond NVCC_FLAGS
-SOURCE_FLAGS = {"block_step": ("--fmad=false",),
-                "epoch_step": ("--fmad=false",) + EPOCH_REGS,
+SOURCE_FLAGS = {"epoch_step": ("--fmad=false",) + EPOCH_REGS,
                 "multicorrelator": EPOCH_REGS,
                 "epoch_chunk": EPOCH_REGS}
 RDC_FLAGS = ("-rdc=true",)
 LINK_FLAGS = ARCH + ("-Xcompiler", "-fPIC")
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -99,31 +104,41 @@ def library_of(unit: str) -> str:
     raise KeyError(unit)
 
 
-def nvcc_flags(unit: str) -> tuple[str, ...]:
+def nvcc_flags(unit: str, extra: tuple[str, ...] = ()) -> tuple[str, ...]:
     """The flags one translation unit is compiled with: relocatable device
-    code in a library of several."""
+    code in a library of several, then the unit's own and `extra`."""
     rdc = RDC_FLAGS if len(LIBRARIES[library_of(unit)]) > 1 else ()
-    return NVCC_FLAGS + rdc + SOURCE_FLAGS.get(unit, ())
+    return NVCC_FLAGS + rdc + SOURCE_FLAGS.get(unit, ()) + tuple(extra)
 
 
-def _headers(unit: str) -> list[str]:
-    text = (CSRC_DIR / f"{unit}.cu").read_text()
-    return sorted(set(re.findall(r'#include "(\w+\.cuh)"', text)))
+def included(unit: str) -> list[str]:
+    """The files of csrc/ that `unit`.cu includes, directly or through
+    another (``#include "name.cu"`` or ``"name.cuh"``)."""
+    seen, todo = set(), [f"{unit}.cu"]
+    while todo:
+        text = (CSRC_DIR / todo.pop()).read_text()
+        for name in re.findall(r'#include "(\w+\.cuh?)"', text):
+            if name not in seen:
+                seen.add(name)
+                todo.append(name)
+    return sorted(seen)
 
 
-def library_path(name: str) -> Path:
-    """The shared library `name` of LIBRARIES, named by a hash of its
-    translation units, the headers they include and every flag."""
+def library_path(name: str, extra: tuple[str, ...] = (),
+                 build_dir: Path | None = None) -> Path:
+    """The shared library `name` of LIBRARIES (built with `extra` flags
+    into `build_dir`, by default BUILD_DIR), named by a hash of its
+    translation units, the files they include and every flag."""
     h = hashlib.sha256()
     units = LIBRARIES[name]
     for unit in units:
         h.update((CSRC_DIR / f"{unit}.cu").read_bytes())
-        h.update(" ".join(nvcc_flags(unit)).encode())
-        for header in _headers(unit):
+        h.update(" ".join(nvcc_flags(unit, extra)).encode())
+        for header in included(unit):
             h.update((CSRC_DIR / header).read_bytes())
     if len(units) > 1:
         h.update(" ".join(LINK_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return (build_dir or BUILD_DIR) / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(cmd: list[str]) -> tuple[subprocess.Popen, float]:
@@ -151,18 +166,20 @@ def _finish_all(jobs, name: str) -> list[bytes]:
     return [log for _, log, _ in done]
 
 
-def build_all(names=tuple(LIBRARIES)) -> dict[str, float]:
-    """Build every named library that is missing: every translation unit
-    compiled at once, one ``nvcc`` process each, then the device link and
-    the link of each library of several.  Returns the seconds each build
-    took (0.0 for a library already built); raises with the compiler
-    output when a build fails.  The ptxas report (registers, shared memory,
-    spills) is kept beside each library as ``<lib>.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build_all(names=tuple(LIBRARIES), extra: tuple[str, ...] = (),
+              build_dir: Path | None = None) -> dict[str, float]:
+    """Build every named library that is missing (with `extra` flags into
+    `build_dir`, by default BUILD_DIR): every translation unit compiled at
+    once, one ``nvcc`` process each, then the device link and the link of
+    each library of several.  Returns the seconds each build took (0.0 for
+    a library already built); raises with the compiler output when a build
+    fails.  The ptxas report (registers, shared memory, spills) is kept
+    beside each library as ``<lib>.log``."""
+    (build_dir or BUILD_DIR).mkdir(parents=True, exist_ok=True)
     seconds = {}
     compiles = {}                      # library -> [(unit, proc, t0, out)]
     for name in names:
-        out = library_path(name)
+        out = library_path(name, extra, build_dir)
         if out.exists():
             seconds[name] = 0.0
             continue
@@ -176,7 +193,7 @@ def build_all(names=tuple(LIBRARIES)) -> dict[str, float]:
             else:
                 target = tmp.with_suffix(f".{unit}.o")
                 cmd = ["-c", "-o", str(target), src]
-            jobs.append((unit, *_start([nvcc_path(), *nvcc_flags(unit),
+            jobs.append((unit, *_start([nvcc_path(), *nvcc_flags(unit, extra),
                                         *cmd]), target))
         compiles[name] = (jobs, tmp, out)
     failed = []
@@ -207,14 +224,17 @@ def build_all(names=tuple(LIBRARIES)) -> dict[str, float]:
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library `name` of LIBRARIES, built on first use."""
+def load(name: str, extra: tuple[str, ...] = (),
+         build_dir: Path | None = None) -> ctypes.CDLL:
+    """The loaded library `name` of LIBRARIES, built on first use (with
+    `extra` flags into `build_dir`, by default BUILD_DIR)."""
+    key = (name, tuple(extra), build_dir)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build_all((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
-            _libs[name] = lib
+            build_all((name,), extra, build_dir)
+            lib = ctypes.CDLL(str(library_path(name, extra, build_dir)))
+            _libs[key] = lib
         return lib
 
 

@@ -1,8 +1,11 @@
 """One block of the block scan from edge states: the JAX program op by op
 (jax.disable_jit) against the port's split plain path, the plain versions
 of kernels K8a (block prologue) and K8b (block closure) around the
-replica FFT and K1's plain version; and the chunk's preallocated [T, C]
-output planes against the per-block concatenation they replace.
+replica FFT and K1's plain version; the chunk's preallocated [T, C]
+output planes against the per-block concatenation they replace; the
+folded order of the card's two-launch chunk (the next block's prologue
+from the state a closure returns) against the plain chunk; the launch
+plan the fold's waits rely on; and the block library's build layout.
 
 The edge states are built with a NumPy seed on states armed on truth:
 an inactive channel, ext_n at 49 and 50 (the DLL's wide-to-narrow
@@ -26,6 +29,7 @@ within 1e-3 Hz.
 import ctypes
 import dataclasses
 import re
+import shutil
 from pathlib import Path
 
 import jax
@@ -328,27 +332,143 @@ def test_launch_structs_match_the_cuda_source(name):
             assert ct is getattr(ptb, f"_{t}"), n
 
 
-def test_block_step_builds_without_contraction(monkeypatch):
-    """block_step.cu and epoch_step.cu alone get --fmad=false (they repeat
-    torch's rounding operation by operation); the correlators they are
-    linked with keep nvcc's default, each unit of a library of several is
-    compiled with relocatable device code, and every unit's flags are part
-    of its library's hash; no source is built with fast math."""
-    exact = ("block_step", "epoch_step")
-    assert cuda_build.LIBRARIES["block_kernels"] == ("block_correlator",
-                                                     "block_step")
-    for name in exact:
-        assert name in cuda_build.SOURCES
-        assert "--fmad=false" in cuda_build.nvcc_flags(name)
-    for name in cuda_build.SOURCES:
-        flags = cuda_build.nvcc_flags(name)
-        assert "--use_fast_math" not in flags
-        rdc = len(cuda_build.LIBRARIES[cuda_build.library_of(name)]) > 1
-        assert flags == cuda_build.NVCC_FLAGS + (
-            cuda_build.RDC_FLAGS if rdc else ()) + cuda_build.SOURCE_FLAGS.get(
-                name, ())
-        if name not in exact:
-            assert "--fmad=false" not in flags
+def test_block_library_is_one_whole_program_unit(monkeypatch, tmp_path):
+    """The block library is one translation unit, block_correlator.cu,
+    which includes block_step.cu (K8a, K8b) and block_step.cuh: built with
+    the default flags (no -rdc=true, no --fmad=false; block_step.cu rounds
+    explicitly), so K1 with the closure and the fold is a whole program.
+    The per-epoch library keeps its layout: relocatable units, epoch_step
+    with --fmad=false and the register cap.  No source is built with fast
+    math; every flag, and every file a unit includes, is part of its
+    library's hash."""
+    assert cuda_build.LIBRARIES["block_kernels"] == ("block_correlator",)
+    assert "block_step" not in cuda_build.SOURCES
+    assert cuda_build.included("block_correlator") == ["block_step.cu",
+                                                       "block_step.cuh"]
+    flags = cuda_build.nvcc_flags("block_correlator")
+    assert flags == cuda_build.NVCC_FLAGS
+    assert "-rdc=true" not in flags and "--fmad=false" not in flags
+    for unit in cuda_build.LIBRARIES["epoch_kernels"]:
+        flags = cuda_build.nvcc_flags(unit)
+        assert "-rdc=true" in flags
+        assert ("--fmad=false" in flags) == (unit == "epoch_step")
+        assert set(cuda_build.EPOCH_REGS) <= set(flags)
+    for unit in cuda_build.SOURCES:
+        assert "--use_fast_math" not in cuda_build.nvcc_flags(unit)
     built = cuda_build.library_path("block_kernels")
-    monkeypatch.setitem(cuda_build.SOURCE_FLAGS, "block_step", ())
+    variant = cuda_build.library_path("block_kernels", ("--fmad=false",),
+                                      tmp_path)
+    assert variant.parent == tmp_path and variant.name != built.name
+    monkeypatch.setitem(cuda_build.SOURCE_FLAGS, "block_correlator",
+                        ("--fmad=false",))
+    assert cuda_build.library_path("block_kernels").name == variant.name
+    monkeypatch.delitem(cuda_build.SOURCE_FLAGS, "block_correlator")
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    assert cuda_build.library_path("block_kernels") == built
+    (csrc / "block_step.cu").write_text(
+        (csrc / "block_step.cu").read_text() + "\n")
     assert cuda_build.library_path("block_kernels") != built
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_folded_prologue_is_the_prologue_of_the_closed_state(case):
+    """The fused launch's plain version with a fold (_step_plain given the
+    replica table and the taps) returns, beside K1's and K8b's results,
+    block b+1's prologue: bit for bit K8a's plain version on the state that
+    block b's closure returned, field by field; and the fused wrapper on
+    CPU tensors writes it into the next prologue buffer it is given."""
+    sig, seed = CASES[case]
+    rng = np.random.default_rng(seed)
+    c = _scenario(sig, seed)
+    a = _armed(sig, c["pconf"])
+    _edge(case, a, c["pconf"], rng)
+    conf, e = c["pconf"], sig["e"]
+    codes_rep = ptb.code_spectra(conf, c["tables"], "cpu")
+    taps, x = torch.from_numpy(c["taps"]), torch.from_numpy(c["x"])
+    st = interop.track_state_from_numpy(a, "cpu")
+    xf_all = ptb._window_spectra(x, conf.nominal_epoch_samples,
+                                 ptb.block_fft_size(conf))
+    n_wins = xf_all.shape[0]
+    pro = ptb._block_prologue_plain(conf, e, codes_rep, taps, n_wins, st)
+    rf = torch.fft.fft(pro.rep_t, dim=-1)
+    corr, new, outs, nxt = ptb._step_plain(conf, e, xf_all, rf, pro, st,
+                                           codes_rep, taps)
+    want_st, want_outs = ptb._block_closure_plain(conf, e, corr, pro, st)
+    want = ptb._block_prologue_plain(conf, e, codes_rep, taps, n_wins,
+                                     want_st)
+    ds, dw = (interop.track_state_to_numpy(t) for t in (new, want_st))
+    assert all(np.array_equal(ds[k], dw[k]) for k in dw)
+    for k in outs:
+        assert torch.equal(outs[k], want_outs[k]), k
+    for name, got, ref in zip(ptb.BlockPrologue._fields, nxt, want):
+        assert got.dtype == ref.dtype and torch.equal(got, ref), name
+    # the next block moved on: its boundaries start from the new state
+    assert not torch.equal(nxt.ph_sc, pro.ph_sc)
+    next_pro = ptb._empty_prologue(len(a["active"]), e, codes_rep.shape[1],
+                                   len(c["taps"]), "cpu")
+    planes = ptb._empty_planes(e, len(a["active"]), "cpu")
+    got_st = ptb.block_correlate_close(conf, e, xf_all, rf, pro, st, planes,
+                                       0, fold=(codes_rep, taps, next_pro))
+    dg = interop.track_state_to_numpy(got_st)
+    assert all(np.array_equal(dg[k], dw[k]) for k in dw)
+    for name, got, ref in zip(ptb.BlockPrologue._fields, next_pro, want):
+        assert torch.equal(got, ref), name
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_folded_plain_chunk_equals_the_plain_chunk(case):
+    """The plain versions in the two-launch chunk's order
+    (_chunk_plain_folded: K8a for block 0, then per block the FFT and the
+    fused step with the next block's prologue, none after the last) give
+    _chunk_plain's final state and planes bit for bit over 3 blocks from
+    each case's edge state."""
+    sig, seed = CASES[case]
+    rng = np.random.default_rng(seed)
+    c = _scenario(sig, seed)
+    a = _armed(sig, c["pconf"])
+    _edge(case, a, c["pconf"], rng)
+    conf, e = c["pconf"], sig["e"]
+    codes_rep = ptb.code_spectra(conf, c["tables"], "cpu")
+    taps, x = torch.from_numpy(c["taps"]), torch.from_numpy(c["x"])
+    st = interop.track_state_from_numpy(a, "cpu")
+    xf_all = ptb._window_spectra(x, conf.nominal_epoch_samples,
+                                 ptb.block_fft_size(conf))
+    args = (conf, 3, e, codes_rep, taps, xf_all, st)
+    got_st, got = ptb._chunk_plain_folded(*args)
+    want_st, want = ptb._chunk_plain(*args)
+    ds, dw = (interop.track_state_to_numpy(t) for t in (got_st, want_st))
+    for k in dw:
+        assert np.array_equal(ds[k], dw[k]), k
+    assert list(got) == list(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+# the block shapes of chip_smoke.py's phase 3 (check_k8): GPS L1 C/A at 2
+# Msps with 8 and 12 channels, at 20 Msps (L5I and E5a-I share its E, K, F)
+# with 10, Galileo E1-B at 20 Msps with 10; and those tools/probe_fold.py
+# times the fold at, S from 1 to 13: (C, F)
+BLOCK_SHAPES = {"gps_2msps_c8": (8, 4096), "gps_2msps_c12": (12, 4096),
+                "gps_20msps": (10, 40500), "e1_20msps": (10, 162000),
+                "gps_2msps_c140": (140, 4096), "gps_20msps_c40": (40, 40500),
+                "gps_20msps_c66": (66, 40500),
+                "gps_20msps_c132": (132, 40500),
+                "gps_20msps_c264": (264, 40500),
+                "e1_20msps_c20": (20, 162000), "e1_20msps_c40": (40, 162000),
+                "gps_2msps_c300": (300, 4096)}
+
+
+@pytest.mark.parametrize("shape", list(BLOCK_SHAPES))
+def test_fold_waits_only_where_the_grid_is_resident(shape):
+    """The chunk folds K8a into the fused launch at every shape, where a
+    channel's S > 1 CTAs wait for its closure's flag: so plan_k1, on the
+    H100's 132 SMs, gives every grid of S > 1 one wave (C * S CTAs, at
+    most K1_CTAS_PER_SM per SM), and only a grid of S = 1, where nothing
+    waits, takes more (C = 300)."""
+    c, nfft = BLOCK_SHAPES[shape]
+    slabs = ptb.plan_k1(c, 20, nfft, 132)
+    assert 1 <= slabs <= nfft // ptb.K1_MIN_SLAB
+    assert slabs == 1 or c * slabs <= ptb.K1_CTAS_PER_SM * 132
+    assert (slabs == 1) == (c > ptb.K1_CTAS_PER_SM * 132 // 2)

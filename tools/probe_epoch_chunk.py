@@ -1,5 +1,5 @@
-"""Probe, on one CUDA card, what the relocatable-device-code build costs the
-tracking kernels, and where an epoch of the chunk kernel goes.
+"""Probe, on one CUDA card, what the register cap costs the per-epoch chunk
+kernel, and where an epoch of it goes.
 
     python3 tools/probe_epoch_chunk.py
 
@@ -14,10 +14,9 @@ and prints, with the card's name and power limit:
    CTAs, every variant's planes and state bit-equal to the library's;
 2. a clock64 breakdown of one epoch on the leader of channel 0 (the slabs,
    the first cluster barrier, the ordered sum, the closure, the second
-   barrier), from a copy of the source with time stamps added;
-3. K1 at the Galileo E1 20 Msps shape (C = 10, E = 5, K = 5, F = 162000)
-   built as a whole program (K8b's closure stubbed out of the unit) and
-   with -rdc=true, timed by CUDA-graph replay, outputs bit-equal.
+   barrier), from a copy of the source with time stamps added.
+
+(tools/probe_block_step.py probes the block step's fused launch.)
 
 Needs the card; imports nothing of JAX.
 """
@@ -37,9 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from gnss_sim_receiver_tpu_torch.models import tracking as trk  # noqa: E402
-from gnss_sim_receiver_tpu_torch.models import tracking_block as tb  # noqa: E402
 from gnss_sim_receiver_tpu_torch.ops import cuda_build  # noqa: E402
-from gnss_sim_receiver_tpu_torch.ops import prn_codes  # noqa: E402
 
 OUT = ROOT / "build" / "probe_epoch_chunk"
 C = 10
@@ -218,65 +215,6 @@ def probe_chunk(dev) -> None:
                   f"closure {part[3]:.0f}, barrier {part[4]:.0f}")
 
 
-def stub_closure(d: Path) -> None:
-    """K1's unit as a whole program: K8b's closure (and its argument check)
-    defined as stubs in it, so that nothing is left to link."""
-    p = d / "block_correlator.cu"
-    p.write_text(p.read_text() + '''
-__device__ void block_close(const ClosureArgs&, int, int) {}
-bool closure_args_invalid(const ClosureArgs&, int) { return true; }
-''')
-
-
-def probe_k1(dev) -> None:
-    from gnss_sim_receiver_tpu_torch import signals
-    from gnss_sim_receiver_tpu_torch.models.receiver import galileo_e1b_chain
-    conf = galileo_e1b_chain(20e6).trk
-    e, k = 5, 5
-    rng = np.random.default_rng(3)
-    s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
-    x = torch.from_numpy(rng.standard_normal(2 * (250 * s0 + nfft)).astype(
-        np.float32)).view(torch.complex64).to(dev)
-    xf = tb._window_spectra(x, s0, nfft).contiguous()
-    tables = np.stack([prn_codes.bandlimited_table_normalized(
-        signals.CodeProvider("1B")(p), conf.fs, conf.code_rate_cps, s0, 8)
-        for p in range(1, C + 1)])
-    rf = torch.conj_physical(torch.fft.fft(tb.code_spectra(
-        conf, tables, dev).to(torch.complex64), dim=-1))
-    lag = rng.uniform(16, 16 + s0, (C, e)).astype(np.float32)
-    ins = [torch.from_numpy(a).to(dev) for a in (
-        rng.integers(0, 240, C).astype(np.int32),
-        np.round(lag).astype(np.int32), (lag - np.round(lag)).astype(
-            np.float32), rng.uniform(0, 30, (C, e)).astype(np.float32),
-        rng.uniform(-30, 30, (C, k)).astype(np.float32),
-        rng.uniform(-1e-3, 1e-3, C).astype(np.float32))]
-    sc = tb.k1_scratch(C, e, k, nfft, dev)
-    outs = {}
-    for tag, units, flags, edit in (
-            ("k1_whole", ("block_correlator",),
-             lambda u: cuda_build.NVCC_FLAGS, stub_closure),
-            ("k1_rdc", cuda_build.LIBRARIES["block_kernels"],
-             cuda_build.nvcc_flags, None)):
-        lib = build(tag, units, flags, edit)
-        fn = lib.block_correlate
-        fn.argtypes = [P] * 9 + [I] * 6 + [P] * 3
-        out = torch.empty((C, e, k), dtype=torch.complex64, device=dev)
-        args = (xf.data_ptr(), rf.data_ptr(), *(t.data_ptr() for t in ins),
-                out.data_ptr(), C, e, k, xf.shape[0], nfft,
-                sc.partials.shape[1], sc.partials.data_ptr(),
-                sc.arrivals.data_ptr())
-        def stream():     # read inside a captured call: its side stream
-            return torch.cuda.current_stream(dev).cuda_stream
-        assert fn(*args, stream()) == 0
-        torch.cuda.synchronize()
-        outs[tag] = out.clone()
-        print(f"K1, Galileo E1 at 20 Msps (C={C}, E={e}, K={k}, F={nfft}), "
-              f"{tag}: {time_ms(lambda: fn(*args, stream()), 20):.4f} ms")
-    same = torch.equal(torch.view_as_real(outs["k1_whole"]).view(torch.int32),
-                       torch.view_as_real(outs["k1_rdc"]).view(torch.int32))
-    print(f"  outputs of the two builds bit-equal: {same}")
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe_epoch_chunk: no CUDA device", file=sys.stderr)
@@ -287,7 +225,6 @@ def main() -> int:
     dev = torch.device("cuda")
     OUT.mkdir(parents=True, exist_ok=True)
     probe_chunk(dev)
-    probe_k1(dev)
     return 0
 
 
