@@ -32,7 +32,11 @@ Phases (any failure exits non-zero, before the result line):
    K4a in both modes, K4b fold and resolve, K4c with and without its
    Doppler boxcar, K3c (the first-vs-second-peak statistic) in its plain,
    dual and CAF forms on K3's, K4a's and K4c's correlations, K5a, K5b,
-   K5c, K5d in both modes, K6) against its
+   K5c, K5d in both modes, K6, K3's row kernel alone at phase 9's
+   Doppler-sharded shape, K7's overlap-save fold at phase 9's shape
+   and at L = 4 N, K10a and K10b, the sigma-point filters' kernels, at
+   4096 filters of 4 and of 9 states under both rules, beside
+   torch.linalg.cholesky_ex and solve_ex) against its
    plain PyTorch version on the card at the shape its path
    launches it at, with the stated tolerance, and its time there beside
    the plain version's and its bound (K1 and K2, which split each channel
@@ -116,7 +120,26 @@ Phases (any failure exits non-zero, before the result line):
    chunk kernel's epochs = the epochs run and its launches = the chunks
    dispatched, the real-time factor printed;
 8b. phase 4's conf with Tracking_1C.extend_correlation_symbols=20 through
-   the CLI on phase 4's file: phase 4's checks, the chunk kernel alone.
+   the CLI on phase 4's file: phase 4's checks, the chunk kernel alone;
+9. the sharded steps (parallel.shard_steps, K7) on one rank over NCCL,
+   the process group made once: per-epoch tracking (the chunk kernel) and
+   block tracking (K8a, then cuFFT and the fused launch per block) of
+   192 GPS L1 C/A channels at 2 Msps (50 epochs, 50 blocks of 20), the
+   Doppler-sharded cold start over all 32 PRNs (2 dwells of 1 ms, 41 bins
+   of 250 Hz; K3's wipe and row kernel) and the time-sharded overlap-save
+   grid over 127 code periods of PRN 7 (K3's wipe, cuFFT, K7's fold).
+   One card is a world of one (NCCL refuses two ranks on one card), so
+   every collective is a copy: each step must equal the unsharded call of
+   the same port functions bit for bit; nothing here shows scaling.  The
+   Doppler search's cells must be the plain grid's at the scenario's
+   satellites, the overlap-save grid within 2e-4 of its plain version and
+   at the injected delay and Doppler; each step's counters (its kernels,
+   the NCCL calls) and host seconds are printed;
+9b. the sigma-point filters (ops.nonlinear, K10a and K10b around
+   torch.func.vmap of the model): 40 steps of 4096 independent filters
+   of tests/test_nonlinear.py's linear system under both rules, within
+   1e-2 of the exact Kalman filter and 1e-4 of the plain versions' run on
+   the CPU, then 4096 tanh-measurement filters converging.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -2158,6 +2181,180 @@ def check_k6(dev, fs: float, sats, dur: float, seed: int, label: str):
                 f"{tuple(tabs[2].shape)} int8, noiseless")
 
 
+# K7 at phase 9's time-sharded shape (127 code periods of PRN 7 at 2 Msps,
+# L + N = 256000, a smooth cuFFT size, D = 41 bins) and at L = 4 periods
+OS_PERIODS = 127
+OS_PRN = 7
+OS_DELAY, OS_DOPPLER = 777, 1500.0
+
+
+def check_k7(dev, rng, extra: list) -> dict:
+    """K7 (pcps_window_fold) against its plain version on the card: [D, L +
+    N] complex64 correlations folded to [D, N], 1e-5 of the plain grid's
+    largest value (the windows are summed in order, torch.sum in its own).
+    Returns the row of phase 9's shape; the L = 4 N row goes to `extra`."""
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    n = 2000
+    out = []
+    for d, periods in ((41, OS_PERIODS), (4, 4)):
+        row_len = (periods + 1) * n
+        corr = _cnoise(rng, d * row_len, dev).reshape(d, row_len)
+        got = pcps.pcps_window_fold(corr, n)
+        want = pcps._window_fold_plain(corr, n)
+        err = compare(f"K7 pcps_window_fold (D={d}, L={periods} N)", got,
+                      want, 1e-5)
+        n_lags = periods * n
+        out.append(_row(
+            "K7_pcps_window_fold", "triton",
+            "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+            "gnss_sim_receiver_tpu/parallel/shard_steps.py:226", err,
+            time_ms(lambda: pcps.pcps_window_fold(corr, n)),
+            time_ms(lambda: pcps._window_fold_plain(corr, n)),
+            d * n_lags * 8 + d * n * 4, d * n_lags * 4,
+            f"D={d} Doppler bins, L={n_lags} lags of {periods} periods, "
+            f"N={n}"))
+        del corr, got, want
+    extra.append(out[1])
+    return out[0]
+
+
+def check_k3_rows(dev) -> dict:
+    """K3's row kernel alone (pcps_rows: per channel and Doppler row the
+    max, first argmax and sum of the grid), the Doppler-sharded search's
+    reduction, at phase 9's shape: the static scenario's 2 dwells against
+    all 32 PRNs' replicas, 41 bins.  Against its plain version: the maxima
+    and sums within 1e-5 of the largest; each row's argmax a cell of the
+    plain grid holding the row's max within that tolerance (two cells a
+    rounding apart may swap)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import (AcqConf,
+                                                                code_replicas)
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    x = acq_dwells(dev)
+    cfc = torch.from_numpy(code_replicas(AcqConf(fs_in=FS, max_dwells=2),
+                                         range(1, 33))).to(dev)
+    dops = torch.from_numpy(pcps.doppler_grid(5000.0, 250.0)).to(dev)
+    spec = torch.fft.fft(pcps.pcps_wipe(x, dops, pcps.time_axis(2000, FS,
+                                                                dev)), dim=-1)
+    corr = torch.fft.ifft(spec[:, None] * cfc[None, :, None], dim=-1)
+    m, c, d, n = corr.shape
+    got, want = pcps.pcps_rows(corr, m), pcps._rows_plain(corr)
+    err = compare("K3 pcps_rows (max, sum)", (got[0], got[2]),
+                  (want[0], want[2]), 1e-5)
+    at = torch.gather(pcps._plain_grid(corr), -1,
+                      got[1].long()[..., None])[..., 0]
+    compare("K3 pcps_rows, the plain grid at each row's argmax", at,
+            want[0], 1e-5)
+    print(f"  K3 pcps_rows: {int((got[1] != want[1]).sum())} of {c * d} row "
+          "argmaxes differ from the plain version's")
+    return _row("K3_pcps_rows", "triton",
+                "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+                "gnss_sim_receiver_tpu/parallel/shard_steps.py:164", err,
+                time_ms(lambda: pcps.pcps_rows(corr, m)),
+                time_ms(lambda: pcps._rows_plain(corr)),
+                m * c * d * n * 8 + c * d * 12,
+                m * c * d * n * 3 + c * d * n * 2,
+                f"M={m} dwells, C={c} channels, D={d} Doppler bins, "
+                f"N={n} samples")
+
+
+SIGMA_BATCH = 4096
+
+
+def _spd(rng, b: int, n: int, dev, scale: float = 1.0):
+    import torch
+    a = rng.standard_normal((b, n, n))
+    m = scale * (a @ np.swapaxes(a, -1, -2) / n + 0.5 * np.eye(n))
+    return torch.from_numpy(m.astype(np.float32)).to(dev)
+
+
+def check_k10(dev, rng, extra: list) -> list:
+    """K10a (sigma_points) and K10b (sigma_moments, the time and the
+    measurement update) against their plain versions on the card at B =
+    SIGMA_BATCH filters, nx = 4, nz = 2 (phase 9b's shape) under both
+    rules and at nx = 9 (an 8-state PVT filter plus one), each within 1e-5
+    of the largest plain value: the factor, the sums and the solve run in
+    other orders (cuSOLVER's and cuBLAS's for the plain versions).  Timed
+    beside torch.linalg.cholesky_ex on [B, nx, nx] and
+    torch.linalg.solve_ex on [B, nz, nz] (the library reference times; the
+    _ex forms skip the host sync of the error check).  Returns the rows of
+    the cubature rule at nx = 4; the others go to `extra`."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import nonlinear as nl
+    b = SIGMA_BATCH
+    rows = []
+    for rule, nx, nz in (("cubature", 4, 2), ("unscented", 4, 2),
+                         ("cubature", 9, 2), ("unscented", 9, 2)):
+        shape = f"B={b} filters, nx={nx}, nz={nz}, {rule}"
+        pre, post, centre = nl._rule(nx, rule, None, torch.float32)
+        x = torch.from_numpy(rng.standard_normal((b, nx)).astype(
+            np.float32)).to(dev)
+        P = _spd(rng, b, nx, dev)
+        w = nl.sigma_weights(nx, rule, None, torch.float32, dev)
+        n_pts = w.shape[0]
+        pts = nl.sigma_points(x, P, rule)
+        err = compare(f"K10a sigma_points ({shape})", pts,
+                      nl._sigma_points_plain(x, P, pre, post, centre), 1e-5)
+        plain_ms = time_ms(
+            lambda: nl._sigma_points_plain(x, P, pre, post, centre))
+        lib_ms = time_ms(lambda: torch.linalg.cholesky_ex(P))
+        # operations: the factor n^3/3 multiply-adds, n square roots and
+        # n^2/2 divisions; the points a multiply and an add per element
+        ops = b * (2 * nx ** 3 / 3 + nx * nx / 2 + nx + 4 * nx * nx)
+        k10a = _row("K10a_sigma_points", "cuda",
+                    "gnss_sim_receiver_tpu_torch/csrc/sigma.cu",
+                    "gnss_sim_receiver_tpu/ops/nonlinear.py:64", err,
+                    time_ms(lambda: nl.sigma_points(x, P, rule)), plain_ms,
+                    4 * b * (nx + nx * nx + n_pts * nx), ops, shape, lib_ms)
+        F = torch.from_numpy(np.eye(nx, dtype=np.float32) + 0.05 * rng.
+                             standard_normal((nx, nx)).astype(np.float32))
+        H = torch.from_numpy(rng.standard_normal((nz, nx)).astype(
+            np.float32))
+        ypts = (pts @ F.to(dev).T).contiguous()
+        # a linear measurement: P_zz is H P H^T + R under either rule (the
+        # unscented centre weight is negative at nx > 3), so the solve is
+        # well conditioned and the check measures the kernel's rounding
+        zpts = (pts @ H.to(dev).T).contiguous()
+        Q = 0.01 * torch.eye(nx, device=dev)
+        R = _spd(rng, b, nz, dev, 0.1)
+        z = torch.from_numpy(rng.standard_normal((b, nz)).astype(
+            np.float32)).to(dev)
+        compare(f"K10b sigma_moments, time update ({shape})",
+                nl.sigma_moments(ypts, w, Q),
+                nl._sigma_moments_plain(ypts, w, Q), 1e-5)
+        upd = dict(z=z, x_pred=x, P_pred=P, pts=pts)
+        err = compare(f"K10b sigma_moments, measurement update ({shape})",
+                      nl.sigma_moments(zpts, w, R, **upd),
+                      nl._sigma_moments_plain(zpts, w, R, **upd), 1e-5)
+        plain_ms = time_ms(
+            lambda: nl._sigma_moments_plain(zpts, w, R, **upd))
+        pzz = _spd(rng, b, nz, dev)
+        rhs = torch.from_numpy(rng.standard_normal((b, nz, nx)).astype(
+            np.float32)).to(dev)
+        lib_ms = time_ms(lambda: torch.linalg.solve_ex(pzz, rhs))
+        print("  K10b the time update: "
+              f"{time_ms(lambda: nl.sigma_moments(ypts, w, Q)):.4f} ms")
+        # the measurement update: the z mean and deviations, P_zz, P_xz,
+        # the LU and the substitutions, K P_zz K^T, x, the symmetrisation
+        ops = b * (3 * n_pts * nz + n_pts * nx + 3 * n_pts * nz * nz
+                   + 3 * n_pts * nx * nz + 2 * nz ** 3 / 3
+                   + 2 * nz * nz * nx + 2 * nx * nz * nz + 2 * nx * nx * nz
+                   + 2 * nx * nz + 3 * nx * nx)
+        n_bytes = 4 * (b * (nz + 2 * nx + 2 * nx * nx + n_pts * (nx + nz)
+                            + nz * nz) + n_pts)
+        k10b = _row("K10b_sigma_moments", "cuda",
+                    "gnss_sim_receiver_tpu_torch/csrc/sigma.cu",
+                    "gnss_sim_receiver_tpu/ops/nonlinear.py:80", err,
+                    time_ms(lambda: nl.sigma_moments(zpts, w, R, **upd)),
+                    plain_ms, n_bytes, ops,
+                    shape + ", the measurement update", lib_ms)
+        if rows:
+            extra += [k10a, k10b]
+        else:
+            rows = [k10a, k10b]
+    return rows
+
+
 # ---- phases 4, 4b, 4c: the main paths --------------------------------------
 
 def rx_true_ecef():
@@ -3726,6 +3923,312 @@ def pilot_conf_path(root: str, wrappers, card: str) -> None:
           f"({card})")
 
 
+# ---- phases 9 and 9b: the sharded steps and the sigma-point filters -------
+
+# phase 9's operating point: bench.py's largest block row (192 channels of
+# GPS L1 C/A at 2 Msps), a cold start over all 32 PRNs (2 dwells of 1 ms,
+# 41 bins of 250 Hz), 127 code periods of PRN 7 time-sharded
+SHARD_CHANNELS = 192
+SHARD_EPOCHS = 50
+SHARD_BLOCKS, SHARD_E = 50, 20
+SHARD_KERNELS = {
+    "per-epoch tracking": ("K9_epoch_chunk",),
+    "block tracking": ("K8a_block_prologue", "K1_K8b_block_correlate_close",
+                       "K1_K8b_K8a_block_step"),
+    "Doppler-sharded acquisition": ("K3_pcps_wipe", "K3_pcps_rows"),
+    "time-sharded acquisition": ("K3_pcps_wipe", "K7_pcps_window_fold")}
+
+
+def shard_inputs(dev, rng):
+    """Phase 9's inputs: the 192 channels' tables (PRNs 1-32 six times),
+    states armed on a Doppler ramp, noise captures for both scans; the
+    static scenario's first 2 ms with all 32 PRNs' replicas; 127 periods
+    of PRN 7 (delay OS_DELAY, OS_DOPPLER Hz) in noise."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.acquisition import (AcqConf,
+                                                                code_replicas)
+    from gnss_sim_receiver_tpu_torch.ops import pcps, prn_codes
+    conf = trk.TrackingConf(fs=FS)
+    c, s0 = SHARD_CHANNELS, conf.nominal_epoch_samples
+    prns = [(i % 32) + 1 for i in range(c)]
+    tables = np.stack([prn_codes.bandlimited_table_normalized(
+        prn_codes.gps_l1_ca_code(p), FS, conf.code_rate_cps, s0, 8)
+        for p in prns])
+    st = trk._init_state(c, dev)._replace(
+        active=torch.ones(c, dtype=torch.bool, device=dev),
+        carrier_doppler=torch.linspace(-4500.0, 4500.0, c, device=dev))
+    n = 2000
+    n_os = OS_PERIODS * n
+    code7 = prn_codes.sample_code(prn_codes.gps_l1_ca_code(OS_PRN), FS,
+                                  conf.code_rate_cps, n)
+    t = np.arange(n_os) / FS
+    sig = np.roll(np.tile(code7, OS_PERIODS + 1)[:n_os], OS_DELAY)
+    os_x = (0.4 * sig * np.exp(2j * np.pi * OS_DOPPLER * t)
+            + 0.5 * (rng.standard_normal(n_os)
+                     + 1j * rng.standard_normal(n_os))).astype(np.complex64)
+    return dict(
+        conf=conf, codes=torch.from_numpy(tables).to(dev),
+        codes_rep=tb.code_spectra(conf, tables, dev),
+        taps=torch.tensor([0.25, 0.0, -0.25], device=dev), state=st,
+        x_epoch=_cnoise(rng, (SHARD_EPOCHS + 1) * s0 + conf.block_size, dev),
+        x_block=_cnoise(rng, (SHARD_BLOCKS * SHARD_E + 2 * SHARD_E + 4) * s0
+                        + tb.block_fft_size(conf), dev),
+        acq_x=acq_dwells(dev),
+        acq_cfc=torch.from_numpy(code_replicas(
+            AcqConf(fs_in=FS, max_dwells=2), range(1, 33))).to(dev),
+        dops=torch.from_numpy(pcps.doppler_grid(5000.0, 250.0)).to(dev),
+        os_x=torch.from_numpy(os_x).to(dev),
+        os_code=torch.from_numpy(np.asarray(code7, np.float32)).to(dev))
+
+
+def _sharded_step(name, wrappers, ss, run, unsharded, same) -> dict:
+    """One sharded step: its counters at 0 just before, read just after
+    (its kernels and at least one collective launched), its seconds on the
+    host; then the unsharded call of the same port functions, which `same`
+    holds it to, and the seconds of both a second time (warm: the first
+    call includes NCCL's communicator, plans and compiles).  Returns the
+    step's launches."""
+    import torch
+    reset(wrappers)
+    for k in ss.collectives:
+        ss.collectives[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(wrappers, SHARD_KERNELS[name])
+    calls = dict(ss.collectives)
+    if calls["all_gather"] + calls["all_reduce"] < 1:
+        fail(f"{name}: no NCCL collective was called")
+    same(got, unsharded())
+    torch.cuda.synchronize()
+    warm = []
+    for fn in (run, unsharded):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    print(f"  {name}: {secs:.4f} s sharded, {warm[0]:.4f} s a second time, "
+          f"the unsharded call {warm[1]:.4f} s (host, one rank); NCCL calls "
+          f"{calls}; equal to the unsharded call")
+    return launches
+
+
+def sharded_path(wrappers) -> dict:
+    """Phase 9: the four sharded steps on one rank over NCCL.  One process
+    on one card is a world of one (NCCL refuses two ranks on one card):
+    every collective is a copy, so each step equals the unsharded call bit
+    for bit, and nothing here shows scaling.  The overlap-save grid is also
+    held to its plain version (the plain wipe and fold around the same
+    cuFFT calls) within 2e-4 of its largest value (tests/test_shard_map.py's
+    tolerance) and must peak at the injected delay and Doppler.  Returns
+    the launches of K3's row kernel alone and of K7."""
+    import torch
+    import torch.distributed as dist
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    from gnss_sim_receiver_tpu_torch.parallel import (make_mesh, replicate,
+                                                      shard_channel_axis)
+    from gnss_sim_receiver_tpu_torch.parallel import shard_steps as ss
+    from gnss_sim_receiver_tpu_torch.parallel.mesh import backend_for
+    # one rank on this host's loopback: NCCL needs no other interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    print(f"  mesh: rank {mesh.rank} of {mesh.world} on {mesh.device}, "
+          f"backend {mesh.backend} ({time.perf_counter() - t0:.2f} s); a "
+          "world of one card: every collective is a copy, no scaling is "
+          "shown")
+    if mesh.world != 1 or mesh.backend != backend_for(mesh.device):
+        fail("phase 9 needs one rank, NCCL on a card")
+    inp = shard_inputs(mesh.device, np.random.default_rng(99))
+    conf, taps = inp["conf"], replicate(inp["taps"], mesh)
+
+    def same_tracking(got, want):
+        diff = differing(got[0], want[0], got[1], want[1])
+        if diff:
+            fail(f"sharded tracking: {diff} differ from the unsharded call")
+
+    def same_tensors(got, want):
+        for g, w in zip(got, want):
+            if not torch.equal(bits(g), bits(w)):
+                fail("sharded acquisition differs from the unsharded call")
+    codes = shard_channel_axis(inp["codes"], mesh)
+    st = shard_channel_axis(inp["state"], mesh)
+    x = replicate(inp["x_epoch"], mesh)
+    _sharded_step(
+        "per-epoch tracking", wrappers, ss,
+        lambda: ss.tracking_step_sharded(mesh, conf, SHARD_EPOCHS, codes,
+                                         taps, x, st),
+        lambda: trk.track_chunk(conf, SHARD_EPOCHS, codes, taps, x, st),
+        same_tracking)
+    rep = shard_channel_axis(inp["codes_rep"], mesh)
+    xb = replicate(inp["x_block"], mesh)
+    _sharded_step(
+        "block tracking", wrappers, ss,
+        lambda: ss.tracking_block_step_sharded(mesh, conf, SHARD_BLOCKS,
+                                               SHARD_E, rep, taps, xb, st),
+        lambda: tb.track_chunk_blocks(conf, SHARD_BLOCKS, SHARD_E, rep, taps,
+                                      xb, st), same_tracking)
+    dops_l = shard_channel_axis(inp["dops"], mesh)
+    acq_x, cfc = replicate((inp["acq_x"], inp["acq_cfc"]), mesh)
+    rows = _sharded_step(
+        "Doppler-sharded acquisition", wrappers, ss,
+        lambda: ss.acquisition_doppler_sharded(mesh, acq_x, cfc, dops_l, FS),
+        lambda: ss.acquisition_doppler(acq_x, cfc, inp["dops"], FS),
+        same_tensors)["K3_pcps_rows"]
+    peak, dop_hz, delay, noise = ss.acquisition_doppler_sharded(
+        mesh, acq_x, cfc, dops_l, FS)
+    grid = pcps.pcps_grid(acq_x, cfc, inp["dops"], FS)
+    want = pcps.grid_peak(grid)
+    sats = [p - 1 for p in SCENARIO_PRNS]
+    if not (torch.equal(delay[sats], want[2][sats]) and torch.equal(
+            dop_hz[sats], inp["dops"][want[1].long()][sats])):
+        fail("Doppler-sharded acquisition: the scenario's cells differ from "
+             "the plain grid's peaks")
+    compare("Doppler-sharded acquisition, peak (scenario PRNs)", peak[sats],
+            want[0][sats], 1e-4)
+    compare("Doppler-sharded acquisition, noise floor", noise,
+            grid.mean(dim=(1, 2)), 1e-4)
+    del grid
+    os_x = shard_channel_axis(inp["os_x"], mesh)
+    os_code, dops = replicate((inp["os_code"], inp["dops"]), mesh)
+    k7 = _sharded_step(
+        "time-sharded acquisition", wrappers, ss,
+        lambda: (ss.overlap_save_acq_grid(mesh, os_x, os_code, dops, FS),),
+        lambda: (ss.overlap_save_grid(os_x, os_code, dops, FS),),
+        same_tensors)["K7_pcps_window_fold"]
+    grid = ss.overlap_save_acq_grid(mesh, os_x, os_code, dops, FS)
+    n = os_code.shape[0]
+    ext = torch.cat([os_x, os_x[:n]])
+    t = ((torch.arange(ext.shape[0], dtype=torch.float32, device=ext.device))
+         / float(np.float32(FS)))
+    corr = torch.fft.ifft(torch.fft.fft(pcps._wipe_plain(ext[None], dops, t)[0],
+                                        dim=-1)
+                          * ss._code_fft_padded(os_code, os_x.shape[0])[None],
+                          dim=-1)
+    compare("time-sharded acquisition grid against its plain version", grid,
+            pcps._window_fold_plain(corr, n), 2e-4)
+    di, li = divmod(int(torch.argmax(grid)), n)
+    print(f"  time-sharded acquisition: [{grid.shape[0]}, {n}] grid over "
+          f"{OS_PERIODS} periods, peak at {float(dops[di]):g} Hz, delay "
+          f"{li} (injected {OS_DOPPLER:g} Hz, {OS_DELAY})")
+    if float(dops[di]) != OS_DOPPLER or li != OS_DELAY:
+        fail("time-sharded acquisition: the peak is not at the injected "
+             "delay and Doppler")
+    del corr, grid, ext
+    dist.destroy_process_group()
+    return {"K3_pcps_rows": rows, "K7_pcps_window_fold": k7}
+
+
+def _linear_filters(rng, b: int, nx: int = 4, nz: int = 2, steps: int = 40):
+    """tests/test_nonlinear.py's linear-Gaussian system, B independent
+    trajectories of it: (F, H, Q, R, zs [steps, B, nz])."""
+    F = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx))
+    H = rng.standard_normal((nz, nx))
+    Q, R = 0.01 * np.eye(nx), 0.1 * np.eye(nz)
+    x = rng.standard_normal((b, nx))
+    zs = []
+    for _ in range(steps):
+        x = x @ F.T + rng.multivariate_normal(np.zeros(nx), Q, b)
+        zs.append(x @ H.T + rng.multivariate_normal(np.zeros(nz), R, b))
+    return F, H, Q, R, np.array(zs)
+
+
+def _kalman(F, H, Q, R, zs, x0, P0):
+    """The exact Kalman filter over the batch (its covariance is the same
+    for every filter)."""
+    x, P = x0.copy(), P0.copy()
+    for z in zs:
+        x = x @ F.T
+        P = F @ P @ F.T + Q
+        S = H @ P @ H.T + R
+        K = np.linalg.solve(S.T, H @ P).T
+        x = x + (z - x @ H.T) @ K.T
+        P = P - K @ S @ K.T
+    return x, P
+
+
+def filters_path(wrappers, dev) -> dict:
+    """Phase 9b: SIGMA_BATCH independent filters on the card through K10a,
+    torch.func.vmap of the model and K10b: 40 steps of
+    tests/test_nonlinear.py's linear system under both rules, each within
+    1e-2 of the exact Kalman filter (that test's bound) and within 1e-4 of
+    the largest value of the plain versions' run on the CPU; then the tanh
+    measurement of test_cubature_converges_nonlinear_measurement, 150 steps
+    of SIGMA_BATCH random walks, converging as that test demands (on the
+    mean error over the filters).  Returns K10a's and K10b's launches."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import nonlinear as nl
+    rng = np.random.default_rng(3)
+    b = SIGMA_BATCH
+    F, H, Q, R, zs = _linear_filters(rng, b)
+    x_kf, P_kf = _kalman(F, H, Q, R, zs, np.zeros((b, 4)), np.eye(4))
+    Ft, Ht = (torch.from_numpy(m.astype(np.float32)) for m in (F, H))
+    zt = torch.from_numpy(zs.astype(np.float32))
+
+    def run(rule, device):
+        f, h = Ft.to(device), Ht.to(device)
+        q, r = (torch.from_numpy(m.astype(np.float32)).to(device)
+                for m in (Q, R))
+        x = torch.zeros(b, 4, device=device)
+        P = torch.eye(4, device=device).repeat(b, 1, 1)
+        z_all = zt.to(device)
+        for k in range(zs.shape[0]):
+            x, P = nl.sigma_predict(x, P, lambda s: f @ s, q, rule=rule)
+            x, P = nl.sigma_update(z_all[k], x, P, lambda s: h @ s, r,
+                                   rule=rule)
+        return x, P
+    reset(wrappers)
+    for rule in ("cubature", "unscented"):
+        run(rule, dev)                              # builds, warms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, P = run(rule, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        # the largest norm over the filters, as the test's per filter
+        ex = float(np.linalg.norm(x.cpu().numpy() - x_kf, axis=1).max())
+        ep = float(np.linalg.norm(P.cpu().numpy() - P_kf, axis=(1, 2)).max())
+        print(f"  {rule}: {zs.shape[0]} steps of {b} filters in {secs:.4f} s "
+              f"({1e3 * secs / zs.shape[0]:.3f} ms a step, host); against "
+              f"the Kalman filter: x {ex:.2e}, P {ep:.2e}")
+        if ex > 1e-2 or ep > 1e-2:
+            fail(f"phase 9b ({rule}): off the Kalman filter")
+        x_cpu, P_cpu = run(rule, "cpu")
+        compare(f"phase 9b ({rule}) against the plain versions",
+                (x.cpu(), P.cpu()), (x_cpu, P_cpu), 1e-4)
+    # the tanh measurement: scalar random walks
+    steps = 150
+    truth = np.cumsum(0.05 * rng.standard_normal((steps, b)), axis=0) + 1.0
+    zs = np.tanh(truth) + rng.normal(0, 0.1, (steps, b))
+    q = torch.tensor([[0.05 ** 2]], device=dev)
+    r = torch.tensor([[0.01]], device=dev)
+    x = torch.zeros(b, 1, device=dev)
+    P = torch.full((b, 1, 1), 4.0, device=dev)
+    z_all = torch.from_numpy(zs.astype(np.float32)).to(dev)
+    est = []
+    for k in range(steps):
+        x, P = nl.sigma_predict(x, P, lambda s: s, q)
+        x, P = nl.sigma_update(z_all[k], x, P, torch.tanh, r)
+        est.append(x[:, 0])
+    errs = np.abs(torch.stack(est).cpu().numpy() - truth).mean(axis=1)
+    print(f"  tanh measurement, {b} filters: mean error {errs[:10].mean():.4f}"
+          f" over the first 10 steps, {errs[-30:].mean():.4f} over the last "
+          "30")
+    if not (errs[-30:].mean() < 0.5 * errs[:10].mean()
+            and errs[-30:].mean() < 0.4):
+        fail("phase 9b: the tanh filters did not converge")
+    launches = read_launches(wrappers, ("K10a_sigma_points",
+                                        "K10b_sigma_moments"))
+    return {k: launches[k] for k in ("K10a_sigma_points",
+                                     "K10b_sigma_moments")}
+
+
 def profile_path(run) -> None:
     """`--profile`: `run()` (one run of a path, returning a line to print)
     twice more, plain and under torch.profiler: wall time, device busy
@@ -3802,8 +4305,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     from gnss_sim_receiver_tpu_torch.models import tracking as trk
     from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
     from gnss_sim_receiver_tpu_torch.ops import (correlator, cuda_build,
-                                                 filters, pcps, prn_codes,
-                                                 resampler)
+                                                 filters, nonlinear, pcps,
+                                                 prn_codes, resampler)
     from gnss_sim_receiver_tpu_torch.sim import device_generator
     print("== phase 2: build", flush=True)
     t0 = time.perf_counter()
@@ -3961,6 +4464,11 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     extra.append(check_k6(dev, FS_WIDEBAND, wideband_sats(), WB_DUR, 17,
                           f"wideband at {FS_WIDEBAND / 1e6:g} Msps"))
     torch.cuda.empty_cache()
+    rng7 = np.random.default_rng(7)
+    rows.append(check_k3_rows(dev))
+    rows.append(check_k7(dev, rng7, extra))
+    rows += check_k10(dev, rng7, extra)
+    torch.cuda.empty_cache()
     print(f"  phase 3 took {time.perf_counter() - t0:.1f} s (includes the "
           "Triton compiles)", flush=True)
     print(json.dumps({"other_shapes": extra}))
@@ -3997,7 +4505,11 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         "K5c_pulse_blanking": (filters.pulse_blanking, "launches"),
         "K5d_direct_resampler": (resampler.direct_resampler, "launches"),
         "K5d_linear_resampler": (resampler.linear_resampler, "launches"),
-        "K6_device_generator": (device_generator.expand, "launches")}
+        "K6_device_generator": (device_generator.expand, "launches"),
+        "K3_pcps_rows": (pcps.pcps_rows, "launches"),
+        "K7_pcps_window_fold": (pcps.pcps_window_fold, "launches"),
+        "K10a_sigma_points": (nonlinear.sigma_points, "launches"),
+        "K10b_sigma_moments": (nonlinear.sigma_moments, "launches")}
     print("== phase 4: main path (conf file -> capture file -> conditioner "
           "-> receiver -> position)", flush=True)
     for which in procs:           # no child may run beside a timed window
@@ -4079,6 +4591,15 @@ def run_phases(root: str, card: str, procs: dict) -> int:
           "Tracking_1C.extend_correlation_symbols=20 through the CLI",
           flush=True)
     pilot_conf_path(root, wrappers, card)
+    torch.cuda.empty_cache()
+    print("== phase 9: the sharded steps on one rank over NCCL (per-epoch "
+          "and block tracking of 192 channels, Doppler- and time-sharded "
+          "acquisition)", flush=True)
+    launches.update(sharded_path(wrappers))
+    torch.cuda.empty_cache()
+    print("== phase 9b: the sigma-point filters (4096 filters through K10a, "
+          "torch.func.vmap and K10b)", flush=True)
+    launches.update(filters_path(wrappers, dev))
     # K6's launches: the captures of phases 5, 6, 7 and 8
     launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
                                        + k6_wb + pilot["K6_device_generator"])

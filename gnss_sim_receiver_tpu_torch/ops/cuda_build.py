@@ -39,7 +39,8 @@ the next block's prologue fused is a whole program, with no call across
 units (under ``-rdc=true`` K1 ran its E1 shape 1.8 times slower, with the
 same bits; ``PERF.md``).  :func:`build_all` and :func:`load` also
 build a library with extra flags into a directory of its own, for checks
-that compare two builds.
+that compare two builds.  The sigma-point filters' kernels (``sigma.cu``,
+K10a and K10b) are one more unit with the default flags.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ LIBRARIES = {
     "fir_decim": ("fir_decim",),
     "notch": ("notch",),
     "device_generator": ("device_generator",),
+    "sigma_kernels": ("sigma",),
 }
 SOURCES = tuple(u for units in LIBRARIES.values() for u in units)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

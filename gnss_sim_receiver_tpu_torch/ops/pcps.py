@@ -1,5 +1,5 @@
 """Batched Parallel Code Phase Search acquisition (kernels K3, K3b, K3c, K4a,
-K4b and K4c).
+K4b, K4c and K7's fold).
 
 PyTorch port of ``gnss_sim_receiver_tpu.ops.pcps`` (the PCPS grid, its
 two-step refinement, the CCCWSR and 8 ms grids of Galileo E1, the
@@ -67,6 +67,12 @@ delays of each channel and keeps the largest, on the card.
 :func:`pcps_search_quicksync` packs the [4, C] buffer.  The Fine Doppler
 (:func:`pcps_search_fine_doppler`) and Tong (:func:`pcps_search_dwells`)
 searches reuse K3 and K3b.
+
+The sharded searches of ``parallel.shard_steps`` take two more: K3's row
+kernel alone (:func:`pcps_rows`, the per-row max, first argmax and sum a
+Doppler-sharded search reduces across ranks) and K7's fold
+(:func:`pcps_window_fold`, the time-sharded overlap-save search's |corr|^2
+folded modulo the code period over its valid lags).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors.  :func:`pcps_grid`, :func:`pcps_grid_per_channel`,
@@ -747,12 +753,37 @@ def _kernels():
         vi = tl.sum(acc_i, axis=0)
         tl.store(mag_ptr + c * fold + k, tl.sqrt(vr * vr + vi * vi))
 
+    # K7 replaces the fold of gnss_sim_receiver_tpu/parallel/
+    # shard_steps.py:224-227 (overlap_save_acq_grid, :184): |corr|^2 of the
+    # first L lags of each Doppler row folded modulo the code period N.  Bound
+    # by bytes: D L 8 read once, D N 4 written once (84 MB at D = 41, L =
+    # 254000), under one float32 operation per byte.  One program per
+    # (tile of N lags, row); the windows are summed in order in registers.
+    # Simple first: that is D ceil(N / 1024) programs (82 at D = 41), each
+    # a chain of L / N window loads, too few to keep the card's memory busy
+    # (PERF.md's table).
+    @triton.jit
+    def window_fold_kernel(corr_ptr, out_ptr, row_len, n, n_win,
+                           BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        d = tl.program_id(1)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        acc = tl.zeros([BLOCK], dtype=tl.float32)
+        for w in range(n_win):
+            src = corr_ptr + (d * row_len + w * n + offs) * 2
+            re = tl.load(src, mask=mask, other=0.0)
+            im = tl.load(src + 1, mask=mask, other=0.0)
+            acc += re * re + im * im
+        tl.store(out_ptr + d * n + offs, acc, mask=mask)
+
     return dict(wipe=wipe_kernel, row=row_kernel, stat=stat_kernel,
                 dual_row=dual_row_kernel, caf_row=caf_row_kernel,
                 second_tile=second_tile_kernel,
                 second_stat=second_stat_kernel,
                 fold=fold_kernel,
-                resolve=resolve_kernel)
+                resolve=resolve_kernel,
+                window_fold=window_fold_kernel)
 
 
 # ---- wrappers --------------------------------------------------------------
@@ -869,6 +900,68 @@ def _row_pass(corr, n_dwells: int, form: str, caf_bins: int, who: str):
             *args, float(np.float32(1.0) / np.float32(2 * caf_bins + 1)),
             CAF_BINS=caf_bins, BLOCK=1024, num_warps=4)
     return rows
+
+
+def _rows_plain(corr):
+    """Per (channel, Doppler row) of the dwell-summed |corr|^2 grid: the
+    max, its first index (int32) and the sum."""
+    grid = _plain_grid(corr)
+    rarg = torch.argmax(grid, dim=-1, keepdim=True)
+    return (torch.gather(grid, -1, rarg)[..., 0], rarg[..., 0].to(torch.int32),
+            torch.sum(grid, dim=-1))
+
+
+def pcps_rows(corr: torch.Tensor, n_dwells: int):
+    """K3's row kernel alone: [M, C, D, N] complex64 correlations ->
+    (max [C, D], first argmax [C, D] int32, sum [C, D]) of each Doppler
+    row of the dwell-summed |corr|^2 grid, the rows a Doppler-sharded
+    search reduces across ranks (``parallel.shard_steps``).  The [C, D, N]
+    grid never reaches device memory.  Counted in ``pcps_rows.launches``."""
+    if not check_kernel_device(corr, "pcps_rows"):
+        return _rows_plain(corr)
+    rows = _row_pass(corr, n_dwells, "plain", 0, "pcps_rows")
+    pcps_rows.launches += 1
+    return rows
+
+
+pcps_rows.launches = 0
+
+
+def _window_fold_plain(corr, n: int):
+    d, row_len = corr.shape
+    lags = corr[:, :row_len - n]
+    mag = lags.real ** 2 + lags.imag ** 2
+    return mag.reshape(d, -1, n).sum(dim=1)
+
+
+WINDOW_FOLD_BLOCK = 1024
+
+
+def pcps_window_fold(corr: torch.Tensor, n: int) -> torch.Tensor:
+    """K7, the overlap-save fold: [D, L + N] complex64 linear correlations
+    of an extended segment -> [D, N] float32, grid[d, k] = sum_w
+    |corr[d, w N + k]|^2 over the L / N code-period windows of the first L
+    lags (the valid ones; the last N are the halo's).  Counted in
+    ``pcps_window_fold.launches``."""
+    if corr.dim() != 2 or n < 1:
+        raise ValueError("pcps_window_fold: corr must be [D, L + N]")
+    d, row_len = corr.shape
+    n_lags = row_len - n
+    if n_lags < n or n_lags % n:
+        raise ValueError(f"pcps_window_fold: L = {n_lags} lags must be a "
+                         f"positive multiple of N = {n}")
+    if not check_kernel_device(corr, "pcps_window_fold"):
+        return _window_fold_plain(corr, n)
+    require(corr, torch.complex64, corr.device, "pcps_window_fold: corr")
+    out = torch.empty((d, n), dtype=torch.float32, device=corr.device)
+    _kernels()["window_fold"][(-(-n // WINDOW_FOLD_BLOCK), d)](
+        torch.view_as_real(corr), out, row_len, n, n_lags // n,
+        BLOCK=WINDOW_FOLD_BLOCK, num_warps=4)
+    pcps_window_fold.launches += 1
+    return out
+
+
+pcps_window_fold.launches = 0
 
 
 def pcps_dual_peak(corr: torch.Tensor, n_dwells: int):
