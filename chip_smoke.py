@@ -32,7 +32,10 @@ Phases (any failure exits non-zero, before the result line):
    K4a in both modes, K4b fold and resolve, K4c with and without its
    Doppler boxcar, K3c (the first-vs-second-peak statistic) in its plain,
    dual and CAF forms on K3's, K4a's and K4c's correlations, K5a, K5b,
-   K5c, K5d in both modes, K6, K3's row kernel alone at phase 9's
+   K5c, K5d in both modes, K6 (also bit for bit the kernel before its
+   redesign, one thread per sample, noiseless and with the phases' noise
+   key, on the first and the last chunk of the hybrid, full-chain and
+   wideband scenarios; both timed), K3's row kernel alone at phase 9's
    Doppler-sharded shape, K7's overlap-save fold at phase 9's shape
    and at L = 4 N, K10a and K10b, the sigma-point filters' kernels, at
    4096 filters of 4 and of 9 states under both rules, beside
@@ -45,7 +48,8 @@ Phases (any failure exits non-zero, before the result line):
    with two window starts out of range, K2's staged-table misses
    printed); other shapes of the same kernels
    (the ``other_shapes`` line: among them K1, K2, K3, K3b and K6 at phase
-   7's shapes); once phase 4's capture is written, one 50-block chunk of
+   7's shapes, and K3's peak at phase 5's GPS search, N = 20000); once
+   phase 4's capture is written, one 50-block chunk of
    phase 4's path through the kernels and through the plain block body;
 4. the main path, conf-driven: the repo's 26 s static scenario at 4 Msps
    (synthesized by the port's own simulator, written as an ``ishort``
@@ -201,6 +205,7 @@ FULL_OFFSETS = [(0.0, 0.0), (40.0, 15.0), (-35.0, 20.0), (15.0, 55.0),
 FULL_DUR = 120.0
 FULL_PRNS = tuple(range(1, 13))
 K6_CHUNK = 1 << 22             # the device generator's launch (its default)
+K6_TILE = 2048                 # its samples a CTA (kThreads * kPerThread)
 # phase 7: the wideband scenario, phase 5's satellites on L5 and E5a, 60 s
 # at 20 Msps (the shortest length at which every F/NAV ephemeris decodes:
 # a channel that locks in its first seconds has words 2, 3, 4 and 1 by
@@ -222,6 +227,35 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def sm_clock_during(fn, seconds: float = 3.0) -> str:
+    """The card's SM clock (MHz; `nvidia-smi` every 100 ms) while `fn`
+    runs back to back for `seconds`: "min / median / max of k readings
+    (max clock M)", or "not read" when nvidia-smi gives nothing."""
+    import torch
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = [ln.split(",") for ln in out.splitlines()
+            if "," in ln and ln.split(",")[0].strip().isdigit()]
+    if not rows:
+        return "not read"
+    # the first readings may come before the launches reach the card
+    mhz = sorted(int(r[0]) for r in (rows[3:] or rows))
+    top = rows[0][1].strip()
+    return (f"{mhz[0]} / {mhz[len(mhz) // 2]} / {mhz[-1]} MHz of "
+            f"{len(mhz)} readings (max clock {top} MHz)")
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -1458,18 +1492,7 @@ def check_k3(dev):
 
     spec = torch.fft.fft(want, dim=-1)
     corr = torch.fft.ifft(spec[:, None] * cfc[None, :, None], dim=-1)
-    got = pcps.pcps_peak(corr, m)
-    want = pcps._peak_plain(corr, m)
-    torch.cuda.synchronize()
-    err = compare("K3 pcps_peak", got, want, 1e-4)
-    n_bytes = m * c * d * n * 8 + c * 12
-    n_ops = m * c * d * n * 3 + c * d * n * 2   # |.|^2 3, sum + compare 2
-    out.append(_row(
-        "K3_pcps_peak", "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
-        "gnss_sim_receiver_tpu/ops/pcps.py:107", err,
-        time_ms(lambda: pcps.pcps_peak(corr, m)),
-        time_ms(lambda: pcps._peak_plain(corr, m)), n_bytes, n_ops,
-        f"M={m} dwells, C={c} channels, D={d} Doppler bins, N={n} samples"))
+    out.append(k3_peak_row(corr, m, None, 20))
 
     # the whole search: port (wipeoff, cuFFT, peak) beside torch.fft + torch ops
     port = time_ms(lambda: pcps.pcps_search(x, cfc, dops, t))
@@ -1495,6 +1518,92 @@ def check_k3(dev):
     compare("K3c pcps_search (first vs second) cells", got[1:], want[1:],
             0.0)
     return out
+
+
+def k3_peak_row(corr, m: int, label, plain_reps: int):
+    """K3's peak (the row kernel, then the stat kernel) on the [M, C, D, N]
+    correlations `corr` against its plain version: the statistic within
+    1e-4 of its scale, the Doppler and delay cells exact; timed beside the
+    plain version (`plain_reps` calls a replay)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    _, c, d, n = corr.shape
+    where = "" if label is None else f" ({label})"
+    got = pcps.pcps_peak(corr, m)
+    want = pcps._peak_plain(corr, m)
+    torch.cuda.synchronize()
+    err = compare(f"K3 pcps_peak{where} statistic", got[0], want[0], 1e-4)
+    compare(f"K3 pcps_peak{where} cells", got[1:], want[1:], 0.0)
+    shape = (f"M={m} dwells, C={c} channels, D={d} Doppler bins, N={n} "
+             "samples")
+    tile, warps = pcps.row_plan(n, "plain")
+    return _row(
+        "K3_pcps_peak", "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+        "gnss_sim_receiver_tpu/ops/pcps.py:107", err,
+        time_ms(lambda: pcps.pcps_peak(corr, m)),
+        time_ms(lambda: pcps._peak_plain(corr, m), reps=plain_reps),
+        m * c * d * n * 8 + c * 12,
+        m * c * d * n * 3 + c * d * n * 2,      # |.|^2 3, sum + compare 2
+        (shape if label is None else f"{label}: {shape}")
+        + f", tile {tile} lanes in {warps} warps")
+
+
+def check_k3_search_shapes(dev, extra: list) -> None:
+    """K3's peak at three more searches of the phases, each on the
+    correlations its engine makes of its own scenario (wipeoff, cuFFT,
+    the code replicas), C=10, D=41; the rows go to `extra`:
+    - phase 5's GPS L1 C/A search at 20 Msps (phase 8 runs the same):
+      M=2 dwells of the hybrid scenario made by K6, PRNs 1-10, N=20000
+      (one code period, no doubled FFT);
+    - phase 8's E1 two-step search (pilot_receiver_conf's E1 chain): M=2
+      dwells of phase 8's scenario made by K6, PRNs 11-20, N=80000;
+    - phase 4e's GPS L1 C/A search with bit_transition_flag: M=2 dwells of
+      the static scenario at 2 Msps, PRNs 1-10, N=4000 (the doubled
+      FFT)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+
+    def dwells(sats, eng, m):
+        return generate_baseband_device_resident(
+            sats, FS_REF_HYBRID, m * eng.fft_size, noise=True, seed=17,
+            device=dev).reshape(m, eng.fft_size)
+
+    def search(eng, x, label):
+        spec = torch.fft.fft(pcps.pcps_wipe(x, eng.dopplers, eng._t), dim=-1)
+        corr = torch.fft.ifft(
+            spec[:, None] * eng.code_fft_conj[None, :, None], dim=-1)
+        del spec
+        extra.append(k3_peak_row(corr, x.shape[0], label, 3))
+        del corr
+        torch.cuda.empty_cache()
+
+    acq = receiver_conf_from_config(InMemoryConfiguration(conf_properties(
+        HYBRID_CONF.format(capture="", fs=int(FS_REF_HYBRID))))).acq
+    eng = PcpsAcquisitionEngine(acq, tuple(range(1, 11)), device=dev)
+    search(eng, dwells(hybrid_sats(), eng, acq.max_dwells),
+           f"GPS L1 C/A at {FS_REF_HYBRID / 1e6:g} Msps")
+    e1 = pilot_receiver_conf().chains[0]
+    eng = PcpsAcquisitionEngine(e1.acq, tuple(range(11, 21)),
+                                code_provider=e1.code_provider,
+                                sc_rate=e1.sc_rate, device=dev)
+    search(eng, dwells(pilot_sats(), eng, e1.acq.max_dwells),
+           f"phase 8's E1 two-step search at {FS_REF_HYBRID / 1e6:g} Msps")
+    props = conf_properties(CONF.format(capture=""))
+    props.update(BIT_PROPS)
+    acq = receiver_conf_from_config(InMemoryConfiguration(props)).acq
+    eng = PcpsAcquisitionEngine(acq, tuple(range(1, 11)), device=dev)
+    m, n = acq.max_dwells, eng.fft_size
+    x = torch.from_numpy(synthesize(FS, 0.01, m * n).astype(np.complex64))
+    search(eng, x.to(dev).reshape(m, n),
+           f"GPS L1 C/A at {FS / 1e6:g} Msps, bit_transition_flag")
 
 
 def check_k3c(name: str, corr, m: int, spc: int, form: str, caf_bins: int,
@@ -1982,20 +2091,7 @@ def check_wideband_shapes(dev, rng, extra: list) -> None:
     del got, want
     corr = torch.fft.ifft(spec[:, None] * cfc[None, :, None], dim=-1)
     del spec
-    got = pcps.pcps_peak(corr, m)
-    want = pcps._peak_plain(corr, m)
-    torch.cuda.synchronize()
-    err = compare(f"K3 pcps_peak ({label}) statistic", got[0], want[0],
-                  1e-4)
-    compare(f"K3 pcps_peak ({label}) cells", got[1:], want[1:], 0.0)
-    extra.append(_row(
-        "K3_pcps_peak", "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
-        "gnss_sim_receiver_tpu/ops/pcps.py:107", err,
-        time_ms(lambda: pcps.pcps_peak(corr, m)),
-        time_ms(lambda: pcps._peak_plain(corr, m), reps=3),
-        m * c * d * n * 8 + c * 12, m * c * d * n * 3 + c * d * n * 2,
-        f"{label}: M={m} dwells, C={c} channels, D={d} Doppler bins, "
-        f"N={n} samples"))
+    extra.append(k3_peak_row(corr, m, label, 3))
     del corr
     d2 = 2 * l5.acq.num_doppler_bins_step2 + 1
     dops2 = (dops[torch.arange(c, device=dev) * 4][:, None]
@@ -2120,8 +2216,13 @@ def check_k6(dev, fs: float, sats, dur: float, seed: int, label: str):
     `fs`, `dur` seconds, one launch of K6_CHUNK samples.  Noiseless against
     its plain version on the card (1e-5 of the scale) on the first chunk
     (its first blocks gather at sub-chip indices k < 0) and on the last;
-    then the noise: zero mean and unit variance (+-0.02), and the same
-    samples whether the chunk is made in one launch or in two."""
+    on both chunks and on the path's own last chunk (n_total mod
+    K6_CHUNK samples, which ends in a partial tile), noiseless and with
+    the noise key the path draws from `seed`, bit for bit the kernel
+    before its redesign (the reference, one thread per sample); then the
+    noise: zero mean and unit variance (+-0.02), and the same samples
+    whether the chunk is made in one launch or in two.  Both kernels timed
+    noiseless and noisy, and the SM clock read while the new one runs."""
     import torch
     from gnss_sim_receiver_tpu_torch.sim import device_generator as dg
     b = 8192
@@ -2136,17 +2237,35 @@ def check_k6(dev, fs: float, sats, dur: float, seed: int, label: str):
     if not neg:
         fail("K6: the first chunk has no negative sub-chip index")
     worst = 0.0
+    path_key, _ = dg._noise_key(True, seed, None)
 
     def plain(blk0, n_s):
         sl = slice(blk0, blk0 + -(-n_s // b))
         return dg._expand_plain(*tabs[:5], *(a[:, sl] for a in tabs[5:10]),
                                 tabs[10], n_s)
-    for blk0 in (0, (n_total - n) // b):
-        got = dg.expand(*tabs, n, blk0=blk0)
-        want = plain(blk0, n)
+    # the path's own last chunk ends in a partial tile of the kernel
+    tail = n_total % n
+    if tail % K6_TILE == 0:
+        fail(f"K6 ({label}): the last chunk ({tail} samples) fills whole "
+             "tiles")
+    for blk0, n_s in ((0, n), ((n_total - n) // b, n),
+                      ((n_total - tail) // b, tail)):
+        got = dg.expand(*tabs, n_s, blk0=blk0)
+        want = plain(blk0, n_s)
         torch.cuda.synchronize()
         worst = max(worst, compare(
-            f"K6 device_generator ({label}, block {blk0})", got, want, 1e-5))
+            f"K6 device_generator ({label}, block {blk0}, {n_s} samples)",
+            got, want, 1e-5))
+        for key in (None, path_key):
+            kw = dict(blk0=blk0, noise_key=key, sample0=blk0 * b)
+            got = dg.expand(*tabs, n_s, **kw)
+            ref = dg._expand_reference(*tabs, n_s, **kw)
+            what = (f"K6 ({label}, block {blk0}, {n_s} samples, "
+                    f"{'noiseless' if key is None else 'noisy'})")
+            if not torch.equal(bits(got), bits(ref)):
+                fail(f"{what}: {int((bits(got) != bits(ref)).sum())} words "
+                     "differ from the reference kernel's")
+            print(f"  {what}: bit for bit the reference kernel")
     clean = dg.expand(*tabs, n)
     key = 0x5EED0000 + seed
     noisy = dg.expand(*tabs, n, noise_key=key)
@@ -2162,8 +2281,17 @@ def check_k6(dev, fs: float, sats, dur: float, seed: int, label: str):
     if abs(mean) > 0.01 or abs(var - 1.0) > 0.02 or \
             not torch.equal(split, noisy):
         fail(f"K6 noise ({label})")
-    del clean, noisy, split, z, got, want
+    del clean, noisy, split, z, got, want, ref
     ms = time_ms(lambda: dg.expand(*tabs, n))
+    noisy_ms = time_ms(lambda: dg.expand(*tabs, n, noise_key=path_key))
+    ref_ms = time_ms(lambda: dg._expand_reference(*tabs, n))
+    ref_noisy_ms = time_ms(lambda: dg._expand_reference(
+        *tabs, n, noise_key=path_key))
+    clock = sm_clock_during(lambda: dg.expand(*tabs, n))
+    print(f"  K6 ({label}): noiseless {ms:.4f} ms (reference kernel "
+          f"{ref_ms:.4f}), noisy {noisy_ms:.4f} ms (reference kernel "
+          f"{ref_noisy_ms:.4f}); SM clock over back-to-back noiseless "
+          f"launches {clock}")
     plain_ms = time_ms(lambda: plain(0, n), reps=3)
     nblk = -(-n // b)
     n_bytes = (8 * n + 20 * n_sat * nblk + tabs[0].numel()
@@ -2172,13 +2300,16 @@ def check_k6(dev, fs: float, sats, dur: float, seed: int, label: str):
     # floor-mods and a floor-div 6, chip x symbol x amplitude 2, phase 2,
     # sincos 2, accumulate 4
     n_ops = n * n_sat * 20
-    return _row("K6_device_generator", "cuda",
-                "gnss_sim_receiver_tpu_torch/csrc/device_generator.cu",
-                "gnss_sim_receiver_tpu/sim/device_generator.py:32", worst,
-                ms, plain_ms, n_bytes, n_ops,
-                f"{label}: S={n_sat} satellites, one launch of {n} samples "
-                f"(of {n_total}), tables {tuple(tabs[0].shape)} and "
-                f"{tuple(tabs[2].shape)} int8, noiseless")
+    row = _row("K6_device_generator", "cuda",
+               "gnss_sim_receiver_tpu_torch/csrc/device_generator.cu",
+               "gnss_sim_receiver_tpu/sim/device_generator.py:32", worst,
+               ms, plain_ms, n_bytes, n_ops,
+               f"{label}: S={n_sat} satellites, one launch of {n} samples "
+               f"(of {n_total}), tables {tuple(tabs[0].shape)} and "
+               f"{tuple(tabs[2].shape)} int8, noiseless")
+    row.update(noisy_ms=noisy_ms, reference_ms=ref_ms,
+               reference_noisy_ms=ref_noisy_ms, sm_clock=clock)
+    return row
 
 
 # K7 at phase 9's time-sharded shape (127 code periods of PRN 7 at 2 Msps,
@@ -4454,6 +4585,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     rows.append(check_k4c(dev, extra, k3c))
     rows += k3c
     check_wideband_shapes(dev, rng, extra)
+    check_k3_search_shapes(dev, extra)
     rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
              *check_k5d(dev, rng)]
     torch.cuda.empty_cache()

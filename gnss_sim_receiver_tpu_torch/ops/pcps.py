@@ -459,91 +459,12 @@ def _kernels():
         tl.store(dst, xr * c - xi * s, mask=mask)
         tl.store(dst + 1, xr * s + xi * c, mask=mask)
 
-    @triton.jit
-    def row_kernel(corr_ptr, rmax_ptr, rarg_ptr, rsum_ptr, n_dwells, n_ch,
-                   n_dop, n, BLOCK: tl.constexpr):
-        # one (Doppler row, channel): |corr|^2 summed over the dwells, then
-        # the row's max, first argmax and sum
-        d = tl.program_id(0)
-        c = tl.program_id(1)
-        offs = tl.arange(0, BLOCK)
-        mask = offs < n
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        for m in range(n_dwells):
-            src = corr_ptr + (((m * n_ch + c) * n_dop + d) * n + offs) * 2
-            re = tl.load(src, mask=mask, other=0.0)
-            im = tl.load(src + 1, mask=mask, other=0.0)
-            acc += re * re + im * im
-        vals = tl.where(mask, acc, float("-inf"))
-        rmax, rarg = tl.max(vals, axis=0, return_indices=True,
-                            return_indices_tie_break_left=True)
-        o = c * n_dop + d
-        tl.store(rmax_ptr + o, rmax)
-        tl.store(rarg_ptr + o, rarg.to(tl.int32))
-        tl.store(rsum_ptr + o, tl.sum(acc, axis=0))
-
-    @triton.jit
-    def stat_kernel(rmax_ptr, rarg_ptr, rsum_ptr, stat_ptr, dop_ptr,
-                    del_ptr, n_dop, half_d, inv_n, n_dwells_f,
-                    BLOCK_D: tl.constexpr):
-        # first Doppler row holding the channel's peak, its delay, and the
-        # CFAR statistic against the opposite row's mean power
-        c = tl.program_id(0)
-        dd = tl.arange(0, BLOCK_D)
-        dmask = dd < n_dop
-        rmax = tl.load(rmax_ptr + c * n_dop + dd, mask=dmask,
-                       other=float("-inf"))
-        peak = tl.max(rmax, axis=0)
-        d_best = tl.min(tl.where((rmax == peak) & dmask, dd, BLOCK_D), axis=0)
-        delay = tl.load(rarg_ptr + c * n_dop + d_best)
-        opp = (d_best + half_d) % n_dop
-        mean = tl.load(rsum_ptr + c * n_dop + opp) * inv_n
-        power = mean / 2.0 / n_dwells_f
-        tl.store(stat_ptr + c, peak / tl.maximum(power, 1e-30))
-        tl.store(dop_ptr + c, d_best.to(tl.int32))
-        tl.store(del_ptr + c, delay)
-
-    @triton.jit
-    def dual_row_kernel(corr_ptr, rmax_ptr, rarg_ptr, rsum_ptr, n_dwells,
-                        n_ch, n_dop, n, BLOCK: tl.constexpr):
-        # K4a, one (Doppler row, channel): the planes a, b of every dwell
-        # read once, tile by tile; per lane the running max of
-        # sum_m max(|a+b|^2, |a-b|^2) with its first index, and the sum
-        d = tl.program_id(0)
-        c = tl.program_id(1)
-        lanes = tl.arange(0, BLOCK)
-        best = tl.full([BLOCK], float("-inf"), tl.float32)
-        best_i = tl.zeros([BLOCK], dtype=tl.int32)
-        total = tl.zeros([BLOCK], dtype=tl.float32)
-        for start in range(0, n, BLOCK):
-            offs = start + lanes
-            mask = offs < n
-            acc = tl.zeros([BLOCK], dtype=tl.float32)
-            for m in range(n_dwells):
-                row = ((m * n_ch + c) * n_dop + d) * 2
-                pa = corr_ptr + (row * n + offs) * 2
-                pb = corr_ptr + ((row + 1) * n + offs) * 2
-                ar = tl.load(pa, mask=mask, other=0.0)
-                ai = tl.load(pa + 1, mask=mask, other=0.0)
-                br = tl.load(pb, mask=mask, other=0.0)
-                bi = tl.load(pb + 1, mask=mask, other=0.0)
-                sr = ar + br
-                si = ai + bi
-                dr = ar - br
-                di = ai - bi
-                acc += tl.maximum(sr * sr + si * si, dr * dr + di * di)
-            vals = tl.where(mask, acc, float("-inf"))
-            better = vals > best
-            best = tl.where(better, vals, best)
-            best_i = tl.where(better, offs, best_i)
-            total += acc
-        rmax = tl.max(best, axis=0)
-        rarg = tl.min(tl.where(best == rmax, best_i, n), axis=0)
-        o = c * n_dop + d
-        tl.store(rmax_ptr + o, rmax)
-        tl.store(rarg_ptr + o, rarg.to(tl.int32))
-        tl.store(rsum_ptr + o, tl.sum(total, axis=0))
-
+    # The grid's cells of one Doppler row, tile by tile.  K3's peak reads
+    # the [M, C, D, N] correlations (FORM 0: sum_m |c|^2); K4a the [M, C,
+    # D, 2, N] planes a, b (FORM 1: sum_m max(|a+b|^2, |a-b|^2)); K4c the
+    # E5a-I and E5a-Q planes (FORM 2: the (2b+1)-row Doppler boxcar of sum_m
+    # |ci|^2 + |cq|^2, rows outside [0, D) the boxcar's zero padding).
+    #
     # K4c replaces gnss_sim_receiver_tpu/ops/pcps.py:269
     # pcps_e5a_noncoherent_iq_grid with the statistic the JAX engine takes
     # of its grid (max_to_input_power_stat, :107).  Bound on the H100 by
@@ -554,88 +475,9 @@ def _kernels():
     # 2b neighbouring rows of its boxcar, which the programs of rows
     # d - b .. d + b (launched side by side) have just brought into L2.
     @triton.jit
-    def caf_row_kernel(corr_ptr, rmax_ptr, rarg_ptr, rsum_ptr, n_dwells,
-                       n_ch, n_dop, n, inv_k, CAF_BINS: tl.constexpr,
-                       BLOCK: tl.constexpr):
-        # K4c, one (Doppler row d, channel): tile by tile over the delays,
-        # the smoothed row sum_s raw[d - b + s] * (1/k), raw[j] =
-        # sum_m |ci|^2 + |cq|^2 of row j (rows outside [0, D) are the
-        # boxcar's zero padding); per lane the running max with its first
-        # index, and the sum
-        d = tl.program_id(0)
-        c = tl.program_id(1)
-        lanes = tl.arange(0, BLOCK)
-        best = tl.full([BLOCK], float("-inf"), tl.float32)
-        best_i = tl.zeros([BLOCK], dtype=tl.int32)
-        total = tl.zeros([BLOCK], dtype=tl.float32)
-        for start in range(0, n, BLOCK):
-            offs = start + lanes
-            mask = offs < n
-            acc = tl.zeros([BLOCK], dtype=tl.float32)
-            for s in tl.static_range(2 * CAF_BINS + 1):
-                j = d - CAF_BINS + s
-                lm = mask & (j >= 0) & (j < n_dop)
-                raw = tl.zeros([BLOCK], dtype=tl.float32)
-                for m in range(n_dwells):
-                    row = ((m * n_ch + c) * n_dop + j) * 2
-                    pa = corr_ptr + (row * n + offs) * 2
-                    pb = corr_ptr + ((row + 1) * n + offs) * 2
-                    ar = tl.load(pa, mask=lm, other=0.0)
-                    ai = tl.load(pa + 1, mask=lm, other=0.0)
-                    br = tl.load(pb, mask=lm, other=0.0)
-                    bi = tl.load(pb + 1, mask=lm, other=0.0)
-                    raw += (ar * ar + ai * ai) + (br * br + bi * bi)
-                if CAF_BINS == 0:
-                    acc = raw
-                else:
-                    acc += raw * inv_k
-            vals = tl.where(mask, acc, float("-inf"))
-            better = vals > best
-            best = tl.where(better, vals, best)
-            best_i = tl.where(better, offs, best_i)
-            total += acc
-        rmax = tl.max(best, axis=0)
-        rarg = tl.min(tl.where(best == rmax, best_i, n), axis=0)
-        o = c * n_dop + d
-        tl.store(rmax_ptr + o, rmax)
-        tl.store(rarg_ptr + o, rarg.to(tl.int32))
-        tl.store(rsum_ptr + o, tl.sum(total, axis=0))
-
-    # K3c replaces gnss_sim_receiver_tpu/ops/pcps.py:123
-    # first_vs_second_peak_stat.  The peak (row d_best, delay) comes from
-    # the row buffers of the search's own row kernel (K3, K4a or K4c); only
-    # the peak row of each channel is formed again from the correlations,
-    # in the grid form FORM of that search (0: sum_m |c|^2; 1: sum_m
-    # max(|a+b|^2, |a-b|^2); 2: the (2b+1)-row boxcar of sum_m |ci|^2 +
-    # |cq|^2), tiled over programs.  Bound by bytes: the row's planes read
-    # once more, M C N 8 bytes (plain form), beside the row kernel's read
-    # of the whole grid.
-    @triton.jit
-    def _peak_cell(rmax_ptr, rarg_ptr, c, n_dop, BLOCK_D: tl.constexpr):
-        # the first Doppler row holding the channel's peak, the peak and
-        # its delay (the stat kernel's choice)
-        dd = tl.arange(0, BLOCK_D)
-        dmask = dd < n_dop
-        rmax = tl.load(rmax_ptr + c * n_dop + dd, mask=dmask,
-                       other=float("-inf"))
-        peak = tl.max(rmax, axis=0)
-        d_best = tl.min(tl.where((rmax == peak) & dmask, dd, BLOCK_D), axis=0)
-        return peak, d_best, tl.load(rarg_ptr + c * n_dop + d_best)
-
-    @triton.jit
-    def second_tile_kernel(corr_ptr, rmax_ptr, rarg_ptr, tmax_ptr, n_dwells,
-                           n_ch, n_dop, n, spc, inv_k, n_tiles,
-                           FORM: tl.constexpr, CAF_BINS: tl.constexpr,
-                           BLOCK: tl.constexpr, BLOCK_D: tl.constexpr):
-        # K3c, one (channel, tile of the peak row): the tile's cells of the
-        # row, those within spc of the peak delay (circularly) set to 0,
-        # and their max; the values are >= 0, so the 0s and the masked
-        # lanes past N leave the row's max unchanged
-        c = tl.program_id(0)
-        tile = tl.program_id(1)
-        _, d, delay = _peak_cell(rmax_ptr, rarg_ptr, c, n_dop, BLOCK_D)
-        offs = tile * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
+    def _cells(corr_ptr, offs, mask, c, d, n_dwells, n_ch, n_dop, n, inv_k,
+               FORM: tl.constexpr, CAF_BINS: tl.constexpr,
+               BLOCK: tl.constexpr):
         acc = tl.zeros([BLOCK], dtype=tl.float32)
         if FORM == 0:
             for m in range(n_dwells):
@@ -675,6 +517,101 @@ def _kernels():
                     acc = raw
                 else:
                     acc += raw * inv_k
+        return acc
+
+    # The row kernel of K3 (FORM 0), K4a (1) and K4c (2), one program per
+    # (Doppler row, channel): the row's planes read once, tile by tile
+    # (BLOCK lanes, ROW_TILE at most); per lane the running max (strict >,
+    # so a lane keeps its first index) and the running sum, reduced once
+    # at the end: the row's max, its first index (the least index among
+    # the lanes at the max) and its sum.  A fixed tile bounds a long row's
+    # registers: a whole power-of-two row in one program (65536 lanes at
+    # N = 40000) spills, and 39 % of its lanes are masked off.
+    @triton.jit
+    def row_kernel(corr_ptr, rmax_ptr, rarg_ptr, rsum_ptr, n_dwells, n_ch,
+                   n_dop, n, inv_k, FORM: tl.constexpr,
+                   CAF_BINS: tl.constexpr, BLOCK: tl.constexpr):
+        d = tl.program_id(0)
+        c = tl.program_id(1)
+        lanes = tl.arange(0, BLOCK)
+        best = tl.full([BLOCK], float("-inf"), tl.float32)
+        best_i = tl.zeros([BLOCK], dtype=tl.int32)
+        total = tl.zeros([BLOCK], dtype=tl.float32)
+        for start in range(0, n, BLOCK):
+            offs = start + lanes
+            mask = offs < n
+            acc = _cells(corr_ptr, offs, mask, c, d, n_dwells, n_ch, n_dop,
+                         n, inv_k, FORM, CAF_BINS, BLOCK)
+            vals = tl.where(mask, acc, float("-inf"))
+            better = vals > best
+            best = tl.where(better, vals, best)
+            best_i = tl.where(better, offs, best_i)
+            total += acc
+        rmax = tl.max(best, axis=0)
+        rarg = tl.min(tl.where(best == rmax, best_i, n), axis=0)
+        o = c * n_dop + d
+        tl.store(rmax_ptr + o, rmax)
+        tl.store(rarg_ptr + o, rarg.to(tl.int32))
+        tl.store(rsum_ptr + o, tl.sum(total, axis=0))
+
+    @triton.jit
+    def stat_kernel(rmax_ptr, rarg_ptr, rsum_ptr, stat_ptr, dop_ptr,
+                    del_ptr, n_dop, half_d, inv_n, n_dwells_f,
+                    BLOCK_D: tl.constexpr):
+        # first Doppler row holding the channel's peak, its delay, and the
+        # CFAR statistic against the opposite row's mean power
+        c = tl.program_id(0)
+        dd = tl.arange(0, BLOCK_D)
+        dmask = dd < n_dop
+        rmax = tl.load(rmax_ptr + c * n_dop + dd, mask=dmask,
+                       other=float("-inf"))
+        peak = tl.max(rmax, axis=0)
+        d_best = tl.min(tl.where((rmax == peak) & dmask, dd, BLOCK_D), axis=0)
+        delay = tl.load(rarg_ptr + c * n_dop + d_best)
+        opp = (d_best + half_d) % n_dop
+        mean = tl.load(rsum_ptr + c * n_dop + opp) * inv_n
+        power = mean / 2.0 / n_dwells_f
+        tl.store(stat_ptr + c, peak / tl.maximum(power, 1e-30))
+        tl.store(dop_ptr + c, d_best.to(tl.int32))
+        tl.store(del_ptr + c, delay)
+
+    # K3c replaces gnss_sim_receiver_tpu/ops/pcps.py:123
+    # first_vs_second_peak_stat.  The peak (row d_best, delay) comes from
+    # the row buffers of the search's own row kernel (K3, K4a or K4c); only
+    # the peak row of each channel is formed again from the correlations,
+    # in the grid form FORM of that search (0: sum_m |c|^2; 1: sum_m
+    # max(|a+b|^2, |a-b|^2); 2: the (2b+1)-row boxcar of sum_m |ci|^2 +
+    # |cq|^2), tiled over programs.  Bound by bytes: the row's planes read
+    # once more, M C N 8 bytes (plain form), beside the row kernel's read
+    # of the whole grid.
+    @triton.jit
+    def _peak_cell(rmax_ptr, rarg_ptr, c, n_dop, BLOCK_D: tl.constexpr):
+        # the first Doppler row holding the channel's peak, the peak and
+        # its delay (the stat kernel's choice)
+        dd = tl.arange(0, BLOCK_D)
+        dmask = dd < n_dop
+        rmax = tl.load(rmax_ptr + c * n_dop + dd, mask=dmask,
+                       other=float("-inf"))
+        peak = tl.max(rmax, axis=0)
+        d_best = tl.min(tl.where((rmax == peak) & dmask, dd, BLOCK_D), axis=0)
+        return peak, d_best, tl.load(rarg_ptr + c * n_dop + d_best)
+
+    @triton.jit
+    def second_tile_kernel(corr_ptr, rmax_ptr, rarg_ptr, tmax_ptr, n_dwells,
+                           n_ch, n_dop, n, spc, inv_k, n_tiles,
+                           FORM: tl.constexpr, CAF_BINS: tl.constexpr,
+                           BLOCK: tl.constexpr, BLOCK_D: tl.constexpr):
+        # K3c, one (channel, tile of the peak row): the tile's cells of the
+        # row, those within spc of the peak delay (circularly) set to 0,
+        # and their max; the values are >= 0, so the 0s and the masked
+        # lanes past N leave the row's max unchanged
+        c = tl.program_id(0)
+        tile = tl.program_id(1)
+        _, d, delay = _peak_cell(rmax_ptr, rarg_ptr, c, n_dop, BLOCK_D)
+        offs = tile * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        acc = _cells(corr_ptr, offs, mask, c, d, n_dwells, n_ch, n_dop, n,
+                     inv_k, FORM, CAF_BINS, BLOCK)
         half = n // 2
         dist = tl.abs((offs - delay + half + n) % n - half)
         vals = tl.where(mask & (dist > spc), acc, 0.0)
@@ -778,7 +715,6 @@ def _kernels():
         tl.store(out_ptr + d * n + offs, acc, mask=mask)
 
     return dict(wipe=wipe_kernel, row=row_kernel, stat=stat_kernel,
-                dual_row=dual_row_kernel, caf_row=caf_row_kernel,
                 second_tile=second_tile_kernel,
                 second_stat=second_stat_kernel,
                 fold=fold_kernel,
@@ -867,16 +803,29 @@ def _stat(rows, n: int, n_sums: int):
     return stat, dop_idx, del_idx
 
 
-# K3c's row tile: 1024 lanes, grid (C, ceil(N / 1024)); never one program
-# per row (K3's row kernel holds a 65536-lane row at N = 40000)
+# K3c's row tile: 1024 lanes, grid (C, ceil(N / 1024))
 SECOND_BLOCK = 1024
+# the row kernel's tile: at most this many lanes, looped over the row
+ROW_TILE = 2048
+
+
+def row_plan(n: int, form: str) -> tuple[int, int]:
+    """The row kernel's (tile lanes, warps) for rows of `n` cells of the
+    grid form `form`: K3's plain rows the power of two that holds them, at
+    most ROW_TILE lanes; a full tile in 4 warps, a shorter one in 8 (on
+    the H100, 8 warps made K3's peak at N = 2000 slower and 4 warps
+    QuickSync's 512-lane rows: ``chip_smoke.py``); the two-plane forms
+    (K4a, K4c) 1024 lanes in 4 warps."""
+    if form != "plain":
+        return 1024, 4
+    tile = min(ROW_TILE, 1 << max(n - 1, 1).bit_length())
+    return tile, 4 if tile == ROW_TILE else 8
 
 
 def _row_pass(corr, n_dwells: int, form: str, caf_bins: int, who: str):
     """The row kernel of the search that finds the peak (K3's for "plain",
     K4a's for "dual", K4c's for "caf") into fresh row buffers: per
     (channel, Doppler row) the max, its first index and the sum."""
-    import triton
     dev = corr.device
     require(corr, torch.complex64, dev, f"{who}: corr")
     if form == "plain":
@@ -889,16 +838,12 @@ def _row_pass(corr, n_dwells: int, form: str, caf_bins: int, who: str):
         raise ValueError(f"{who}: n_dwells must match corr.shape[0] and "
                          "caf_bins >= 0")
     rows = _row_buffers(c, d, dev)
-    args = (torch.view_as_real(corr), *rows, m, c, d, n)
-    if form == "plain":
-        _kernels()["row"][(d, c)](*args, BLOCK=triton.next_power_of_2(n),
-                                  num_warps=8)
-    elif form == "dual":
-        _kernels()["dual_row"][(d, c)](*args, BLOCK=1024, num_warps=4)
-    else:
-        _kernels()["caf_row"][(d, c)](
-            *args, float(np.float32(1.0) / np.float32(2 * caf_bins + 1)),
-            CAF_BINS=caf_bins, BLOCK=1024, num_warps=4)
+    block, warps = row_plan(n, form)
+    _kernels()["row"][(d, c)](
+        torch.view_as_real(corr), *rows, m, c, d, n,
+        float(np.float32(1.0) / np.float32(2 * caf_bins + 1)),
+        FORM=FORMS.index(form), CAF_BINS=caf_bins if form == "caf" else 0,
+        BLOCK=block, num_warps=warps)
     return rows
 
 

@@ -11,7 +11,11 @@ card:
 - the per-sample float32 expansion (the code-chip and nav-symbol gathers,
   the carrier rotation, the sum over satellites and the noise) is one
   launch of ``csrc/device_generator.cu`` per chunk (:func:`expand`), which
-  writes the interleaved complex64 samples once.
+  writes the interleaved complex64 samples once: a thread makes 8 samples
+  of one anchor block, the chip and symbol indices advanced from one to
+  the next without a division.  :func:`_expand_reference` launches the
+  one-thread-per-sample kernel that this one replaced, whose bits it
+  repeats (checked on the card only).
 
 The noise is counter-based (Philox4x32-10 keyed by a seed drawn from a
 ``torch.Generator``, counted by the absolute sample index), so the card's
@@ -103,10 +107,11 @@ def _anchors(sats, fs, start_sample, nblk, amp_fs):
 
 # ---- K6: the per-sample expansion ------------------------------------------
 
-def _expand_plain(codes, code_len, bits, bits_len, sc_per_sym, base, frac,
-                  crate, ph0, phr, amp, n: int) -> torch.Tensor:
-    """Plain version of K6 without noise, line for line with the JAX
-    package's ``_expand_chunk``: [S, nblk] anchors -> complex64 [n]."""
+def _plain_indices(code_len, bits_len, sc_per_sym, base, frac, crate):
+    """The plain version's table indices of every sample of [S, nblk]
+    anchors, [S, nblk * 8192] int64 each: k = base + floor(frac + crate *
+    nloc), the chip k mod Lc and the symbol (k div sps) mod Nb (floor
+    operations)."""
     nloc = torch.arange(_B, dtype=torch.float32, device=frac.device)
     chip_off = frac[..., None] + crate[..., None] * nloc      # [S, nblk, b]
     k = (base[..., None].to(torch.int64)
@@ -114,10 +119,20 @@ def _expand_plain(codes, code_len, bits, bits_len, sc_per_sym, base, frac,
     lc = code_len.to(torch.int64)[:, None]
     nb = bits_len.to(torch.int64)[:, None]
     sps = sc_per_sym.to(torch.int64)[:, None]
-    chip = torch.gather(codes.to(torch.float32), 1, torch.remainder(k, lc))
-    sym = torch.gather(bits.to(torch.float32), 1, torch.remainder(
-        torch.div(k, sps, rounding_mode="floor"), nb))
+    return torch.remainder(k, lc), torch.remainder(
+        torch.div(k, sps, rounding_mode="floor"), nb)
+
+
+def _expand_plain(codes, code_len, bits, bits_len, sc_per_sym, base, frac,
+                  crate, ph0, phr, amp, n: int) -> torch.Tensor:
+    """Plain version of K6 without noise, line for line with the JAX
+    package's ``_expand_chunk``: [S, nblk] anchors -> complex64 [n]."""
+    chip_i, sym_i = _plain_indices(code_len, bits_len, sc_per_sym, base,
+                                   frac, crate)
+    chip = torch.gather(codes.to(torch.float32), 1, chip_i)
+    sym = torch.gather(bits.to(torch.float32), 1, sym_i)
     cv = chip * sym
+    nloc = torch.arange(_B, dtype=torch.float32, device=frac.device)
     ph = (ph0[..., None] + phr[..., None] * nloc).reshape(cv.shape)
     av = amp[:, None]
     re = (cv * av * torch.cos(ph)).sum(dim=0)
@@ -159,6 +174,31 @@ def expand(codes: torch.Tensor, code_len: torch.Tensor, bits: torch.Tensor,
             return y
         out.copy_(y)
         return out
+    out = _launch("device_generator", codes, code_len, bits, bits_len,
+                  sc_per_sym, base, frac, crate, ph0, phr, amp, n, blk0,
+                  noise_key, sample0, out)
+    expand.launches += 1
+    return out
+
+
+expand.launches = 0
+
+
+def _expand_reference(codes, code_len, bits, bits_len, sc_per_sym, base,
+                      frac, crate, ph0, phr, amp, n: int, *, blk0: int = 0,
+                      noise_key: int | None = None, sample0: int = 0,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """K6 before its redesign (one thread per sample, every index by floor
+    division): the bit-for-bit reference of :func:`expand` on the card,
+    CUDA tensors only; on no path, not counted."""
+    return _launch("device_generator_reference", codes, code_len, bits,
+                   bits_len, sc_per_sym, base, frac, crate, ph0, phr, amp, n,
+                   blk0, noise_key, sample0, out)
+
+
+def _launch(symbol, codes, code_len, bits, bits_len, sc_per_sym, base, frac,
+            crate, ph0, phr, amp, n, blk0, noise_key, sample0, out):
+    """Check the CUDA tensors and launch the library's `symbol`."""
     dev = frac.device
     n_sat, n_blocks = frac.shape
     for name, t, dt in (("codes", codes, torch.int8),
@@ -177,15 +217,14 @@ def expand(codes: torch.Tensor, code_len: torch.Tensor, bits: torch.Tensor,
             and base.shape == frac.shape == crate.shape == ph0.shape
             == phr.shape and amp.shape == (n_sat,)):
         raise ValueError("expand: tables and anchors disagree on S")
-    if n < 1 or blk0 < 0 or blk0 + nblk > n_blocks:
+    if n < 1 or blk0 < 0 or blk0 + -(-n // _B) > n_blocks:
         raise ValueError("expand: samples beyond the anchors")
     if out is None:
         out = torch.empty(n, dtype=torch.complex64, device=dev)
     require(out, torch.complex64, dev, "expand: out")
     if out.shape != (n,):
         raise ValueError("expand: out must be complex64 [n]")
-    lib = _lib()
-    err = lib.device_generator(
+    err = getattr(_lib(), symbol)(
         codes.data_ptr(), code_len.data_ptr(), codes.shape[1],
         bits.data_ptr(), bits_len.data_ptr(), bits.shape[1],
         sc_per_sym.data_ptr(), base.data_ptr(), frac.data_ptr(),
@@ -193,23 +232,19 @@ def expand(codes: torch.Tensor, code_len: torch.Tensor, bits: torch.Tensor,
         n_sat, n_blocks, blk0, n, 0 if noise_key is None else 1,
         0 if noise_key is None else int(noise_key), sample0, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "device_generator")
-    expand.launches += 1
+    cuda_build.check(err, symbol)
     return out
-
-
-expand.launches = 0
 
 
 def _lib():
     lib = cuda_build.load("device_generator")
-    fn = lib.device_generator
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        p, i, ll, ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_ulonglong)
-        fn.argtypes = [p, p, i, p, p, i, p, p, p, p, p, p, p, i, ll, ll, ll,
-                       i, ull, ll, p, p]
-        fn.restype = ctypes.c_int
+    p, i, ll, ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_ulonglong)
+    for fn in (lib.device_generator, lib.device_generator_reference):
+        if fn.restype is not ctypes.c_int or fn.argtypes is None:
+            fn.argtypes = [p, p, i, p, p, i, p, p, p, p, p, p, p, i, ll, ll,
+                           ll, i, ull, ll, p, p]
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -13,7 +13,16 @@ JAX package's on the CPU.
   power, correlation above 0.999).
 - Chunking is seamless; the noise has zero mean and unit variance (+-0.02);
   a sub-chip index past 2^31 raises OverflowError.
+- K6's tiled index arithmetic (one floor division per thread and
+  satellite, then compare-and-subtract), written out in numpy step for
+  step, gives exactly ``_expand_plain``'s chip and symbol indices: on the
+  first blocks of chip_smoke.py's hybrid and wideband scenarios (k < 0),
+  where k turns >= 0 (the nav-bit table wraps), and on steps longer than
+  a code period or symbol, or backwards (the kernel's fallback).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -158,3 +167,135 @@ def test_overflow_is_refused():
         pdg.generate_baseband_device_resident(
             _sats(PSat)[:1], FS, 8192, start_sample=int(late), noise=False,
             device="cpu")
+
+
+# ---- the tiled kernel's index arithmetic, step for step --------------------
+
+def _kernel_constants():
+    """kThreads and kPerThread of csrc/device_generator.cu."""
+    src = (Path(pdg.__file__).parents[1] / "csrc"
+           / "device_generator.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+                 for name in ("kThreads", "kPerThread"))
+
+
+def _tiled_indices(code_len, bits_len, sps, base, frac, crate):
+    """device_generator_kernel's chip and symbol indices of every sample of
+    [S, nblk] anchors, in numpy, step for step: a thread takes the floor
+    divisions at its first sample, then for each of its next samples
+    (kThreads on) advances by dk with the kernel's compare-and-subtract and
+    its fallback.  -> two [S, nblk * 8192] int64 arrays.
+
+    Written by hand to mirror csrc/device_generator.cu:172-198 (the
+    first sample's divisions in device_generator_kernel, then the
+    per-sample advance and its two fallbacks): an edit to either must be
+    made to the other.  Only kThreads and kPerThread are read from the
+    source, so these tests check this copy; what holds the kernel itself
+    is chip_smoke.py's bit-for-bit check against the reference kernel."""
+    threads, per = _kernel_constants()
+    b = 8192
+    j0 = (np.arange(b // (threads * per))[:, None] * threads * per
+          + np.arange(threads)[None, :]).ravel()     # first samples in a block
+    n_sat, nblk = base.shape
+    chip_out = np.empty((n_sat, nblk, b), np.int64)
+    sym_out = np.empty((n_sat, nblk, b), np.int64)
+
+    def floor_at(fr, cr, nloc):
+        return np.floor(fr + cr * nloc.astype(np.float32)).astype(np.int64)
+    for s in range(n_sat):
+        lc, sp, nb = int(code_len[s]), int(sps[s]), int(bits_len[s])
+        fr, cr = frac[s][:, None], crate[s][:, None]
+        f = floor_at(fr, cr, j0)
+        k = base[s][:, None].astype(np.int64) + f
+        ci = np.mod(k, lc)
+        q = np.floor_divide(k, sp)
+        si = k - q * sp
+        bi = np.mod(q, nb)
+        for r in range(per):
+            if r:
+                fn = floor_at(fr, cr, j0 + r * threads)
+                dk = fn - f
+                f = fn
+                ci = ci + dk
+                ci = np.where(ci >= lc, ci - lc, ci)
+                ci = np.where((ci < 0) | (ci >= lc), np.mod(ci, lc), ci)
+                si = si + dk
+                edge = si >= sp
+                si = np.where(edge, si - sp, si)
+                bi = np.where(edge, np.where(bi + 1 == nb, 0, bi + 1), bi)
+                far = (si < 0) | (si >= sp)
+                qs = np.floor_divide(si, sp)
+                si = np.where(far, si - qs * sp, si)
+                bi = np.where(far, np.mod(bi + qs, nb), bi)
+            chip_out[s][:, j0 + r * threads] = ci
+            sym_out[s][:, j0 + r * threads] = bi
+    return chip_out.reshape(n_sat, -1), sym_out.reshape(n_sat, -1)
+
+
+def _hold_to_plain(tabs, blocks):
+    """The tiled indices of anchor blocks `blocks` against _expand_plain's
+    own (_plain_indices); returns the plain indices."""
+    code_len, bits_len, sps = (t.numpy() for t in (tabs[1], tabs[3],
+                                                   tabs[4]))
+    base, frac, crate = (t[:, blocks].contiguous() for t in tabs[5:8])
+    want = pdg._plain_indices(tabs[1], tabs[3], tabs[4], base, frac, crate)
+    got = _tiled_indices(code_len, bits_len, sps, base.numpy(),
+                         frac.numpy(), crate.numpy())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    return want
+
+
+@pytest.fixture(scope="module")
+def scenarios():
+    """The hybrid (phase 5) and wideband (phase 7) scenarios of
+    chip_smoke.py, their tables and anchors on the CPU over 10 s."""
+    import chip_smoke
+    out = {}
+    for name, sats, fs in (("hybrid", chip_smoke.hybrid_sats(),
+                            chip_smoke.FS_REF_HYBRID),
+                           ("wideband", chip_smoke.wideband_sats(),
+                            chip_smoke.FS_WIDEBAND)):
+        pdg._fill_nav_bits(sats, 17)
+        out[name] = pdg._prepare(sats, fs, int(fs * 10.0), 0,
+                                  torch.device("cpu"))
+    return out
+
+
+@pytest.mark.parametrize("name", ["hybrid", "wideband"])
+def test_tiled_indices_first_chunk(scenarios, name):
+    """The first 16 blocks: every satellite's sub-chip index k < 0."""
+    tabs = scenarios[name]
+    assert (tabs[5][:, :16] < 0).all()
+    _hold_to_plain(tabs, slice(0, 16))
+
+
+@pytest.mark.parametrize("name", ["hybrid", "wideband"])
+def test_tiled_indices_table_wraps(scenarios, name):
+    """The blocks where k turns from negative to >= 0 for every satellite:
+    the symbol index wraps the nav-bit table (Nb - 1 -> 0) there, and the
+    chip index wraps the code table at least twice."""
+    tabs = scenarios[name]
+    neg = (tabs[5] < 0).sum(dim=1)
+    lo, hi = int(neg.min()) - 2, int(neg.max()) + 2
+    chip_i, sym_i = _hold_to_plain(tabs, slice(lo, hi))
+    nb = tabs[3][:, None]
+    assert ((sym_i[:, :-1] == nb - 1) & (sym_i[:, 1:] == 0)).any(dim=1).all()
+    assert (torch.diff(chip_i, dim=1) < 0).sum(dim=1).min() >= 2
+
+
+@pytest.mark.parametrize("crate", [3.7, 41.0, -0.3])
+def test_tiled_indices_fallback(crate):
+    """Steps past a whole code period or symbol (dk >= 2 Lc, 2 sps) and
+    backwards (dk < 0) take the kernel's fallback, with the same indices:
+    tiny tables, anchors on both sides of 0."""
+    rng = np.random.default_rng(int(abs(crate) * 10))
+    nblk = 3
+    tabs = [None, torch.tensor([13, 7], dtype=torch.int32), None,
+            torch.tensor([5, 3], dtype=torch.int32),
+            torch.tensor([4, 9], dtype=torch.int32),
+            torch.from_numpy(rng.integers(-40000, 40000, (2, nblk))
+                             .astype(np.int32)),
+            torch.from_numpy(rng.random((2, nblk)).astype(np.float32)),
+            torch.full((2, nblk), crate, dtype=torch.float32)]
+    _hold_to_plain(tabs, slice(0, nblk))

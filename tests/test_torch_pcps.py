@@ -4,7 +4,10 @@ where the wrappers run their plain versions.
 
 Tolerances: the grid and the statistic agree to 1e-4 relative (float32
 FFTs of 2000 points in another library: ~1e-6 relative per value, summed);
-the Doppler and delay indices must be identical.
+the Doppler and delay indices must be identical.  K3's row kernel's
+tile rule (a fixed tile looped over the row, per-lane running maxima)
+is written out in numpy and held to the plain rows exactly, ties
+included, and its launch plan never takes a tile above 2048 lanes.
 """
 
 import jax.numpy as jnp
@@ -126,3 +129,76 @@ def test_acquire_from_matches_jax(capture, where):
     assert np.array_equal(pr.doppler_hz, jr.doppler_hz)
     assert np.array_equal(pr.delay_samples, jr.delay_samples)
     assert np.allclose(pr.test_stat, jr.test_stat, rtol=1e-4)
+
+
+# ---- K3's row kernel: the tile rule -----------------------------------------
+
+def _tiled_rows(grid, block):
+    """The row kernel's reduction of a [C, D, N] grid in numpy, tile by
+    tile of `block` lanes: per lane the running max (strict >, so a lane
+    keeps its first index) and the running sum, then per row the max, the
+    least index among the lanes at the max, and the sum of the lanes.
+
+    Written by hand to mirror gnss_sim_receiver_tpu_torch/ops/pcps.py:
+    536-555 (row_kernel's loop over the tiles and its closing reduction):
+    an edit to either must be made to the other.  It checks the rule, not
+    the Triton kernel; chip_smoke.py holds the kernel to the plain version
+    on the card."""
+    c, d, n = grid.shape
+    best = np.full((c, d, block), -np.inf, np.float32)
+    best_i = np.zeros((c, d, block), np.int64)
+    total = np.zeros((c, d, block), np.float32)
+    lanes = np.arange(block)
+    for start in range(0, n, block):
+        offs = start + lanes
+        mask = offs < n
+        acc = np.zeros((c, d, block), np.float32)
+        acc[..., mask] = grid[..., offs[mask]]
+        vals = np.where(mask, acc, -np.inf)
+        better = vals > best
+        best = np.where(better, vals, best)
+        best_i = np.where(better, offs, best_i)
+        total += acc
+    rmax = best.max(axis=-1)
+    rarg = np.where(best == rmax[..., None], best_i, n).min(axis=-1)
+    return rmax, rarg, total.sum(axis=-1)
+
+
+def test_row_tile_rule_first_index_on_ties():
+    """At N = 40000 (the wideband L5I search's doubled FFT) the tiled
+    reduction gives _rows_plain's max, first argmax and sum: small integer
+    correlations (every value and sum exact in float32), the row's peak
+    planted twice in one tile, in two tiles on one lane, in two tiles with
+    the later tile's lane lower, and at the row's ends."""
+    m, c, d, n = 2, 2, 3, 40000
+    block, _ = ppcps.row_plan(n, "plain")
+    rng = np.random.default_rng(40)
+    corr = (rng.integers(-3, 4, (m, c, d, n))
+            + 1j * rng.integers(-3, 4, (m, c, d, n))).astype(np.complex64)
+    plants = {(0, 0): (5000, 5100),                  # one tile
+              (0, 1): (100, 100 + block),            # one lane, two tiles
+              (0, 2): (block + 52, 2 * block + 10),  # later tile, lower lane
+              (1, 0): (block - 1, block),            # across a tile edge
+              (1, 1): (0, n - 1),                    # the row's ends
+              (1, 2): (n - 1, n - 2)}
+    for (ci, di), cells in plants.items():
+        for cell in cells:
+            corr[:, ci, di, cell] = 9 + 9j
+    grid = np.sum(corr.real ** 2 + corr.imag ** 2, axis=0, dtype=np.float32)
+    want = [w.numpy() for w in ppcps._rows_plain(torch.from_numpy(corr))]
+    got = _tiled_rows(grid, block)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    for (ci, di), cells in plants.items():
+        assert got[1][ci, di] == min(cells)
+
+
+@pytest.mark.parametrize("n", [2000, 20000, 40000, 80000])
+def test_row_plan_tile(n):
+    """The row kernel never holds more than 2048 lanes of a row (one
+    program once held a 65536-lane row at N = 40000), in a power-of-two
+    tile."""
+    for form in ppcps.FORMS:
+        block, _ = ppcps.row_plan(n, form)
+        assert block <= 2048 and block & (block - 1) == 0
