@@ -1477,19 +1477,9 @@ def check_k3(dev):
     m, n, d, c = 2, 2000, dops.shape[0], cfc.shape[0]
     out = []
 
-    got = pcps.pcps_wipe(x, dops, t)
+    out.append(wipe_case(x, dops, t, f"GPS L1 C/A at {FS / 1e6:g} Msps",
+                         k3_search(cfc, m)))
     want = pcps._wipe_plain(x, dops, t)
-    torch.cuda.synchronize()
-    err = compare("K3 pcps_wipe", got, want, 1e-5)
-    n_bytes = m * n * 8 + d * 4 + n * 4 + m * d * n * 8
-    n_ops = m * d * n * (2 + 2 + 6)      # phase 2, sincos 2, product 6
-    out.append(_row(
-        "K3_pcps_wipe", "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
-        "gnss_sim_receiver_tpu/ops/pcps.py:33", err,
-        time_ms(lambda: pcps.pcps_wipe(x, dops, t)),
-        time_ms(lambda: pcps._wipe_plain(x, dops, t)), n_bytes, n_ops,
-        f"M={m} dwells, D={d} Doppler bins, N={n} samples"))
-
     spec = torch.fft.fft(want, dim=-1)
     corr = torch.fft.ifft(spec[:, None] * cfc[None, :, None], dim=-1)
     out.append(k3_peak_row(corr, m, None, 20))
@@ -1548,10 +1538,24 @@ def k3_peak_row(corr, m: int, label, plain_reps: int):
         + f", tile {tile} lanes in {warps} warps")
 
 
+def narrow_table(eng):
+    """A [C, D2] narrow Doppler table of `eng`'s two-step search: every
+    channel's 2 n2 + 1 bins, doppler_step2 apart, around a bin of the
+    coarse grid (channel c at bin 4 c, modulo the grid)."""
+    import torch
+    acq, dops = eng.conf, eng.dopplers
+    c, d2 = eng.code_fft_conj.shape[0], 2 * acq.num_doppler_bins_step2 + 1
+    centers = dops[(torch.arange(c, device=dops.device) * 4) % dops.shape[0]]
+    offs = (torch.arange(d2, device=dops.device) - d2 // 2) \
+        * float(acq.doppler_step2)
+    return (centers[:, None] + offs[None, :]).to(torch.float32).contiguous()
+
+
 def check_k3_search_shapes(dev, extra: list) -> None:
-    """K3's peak at three more searches of the phases, each on the
-    correlations its engine makes of its own scenario (wipeoff, cuFFT,
-    the code replicas), C=10, D=41; the rows go to `extra`:
+    """The wipeoff (its engine's grid and a [C, 9] narrow table, by
+    wipe_case) and K3's peak at three more searches of the phases, each on
+    the correlations its engine makes of its own scenario (wipeoff, cuFFT,
+    the code replicas), C=10; the rows go to `extra`:
     - phase 5's GPS L1 C/A search at 20 Msps (phase 8 runs the same):
       M=2 dwells of the hybrid scenario made by K6, PRNs 1-10, N=20000
       (one code period, no doubled FFT);
@@ -1577,6 +1581,11 @@ def check_k3_search_shapes(dev, extra: list) -> None:
             device=dev).reshape(m, eng.fft_size)
 
     def search(eng, x, label):
+        m, cfc = x.shape[0], eng.code_fft_conj
+        extra.append(wipe_case(x, eng.dopplers, eng._t, label,
+                               k3_search(cfc, m), 3))
+        extra.append(wipe_case(x, narrow_table(eng), eng._t, label,
+                               k3_search(cfc, m), 3))
         spec = torch.fft.fft(pcps.pcps_wipe(x, eng.dopplers, eng._t), dim=-1)
         corr = torch.fft.ifft(
             spec[:, None] * eng.code_fft_conj[None, :, None], dim=-1)
@@ -1604,6 +1613,76 @@ def check_k3_search_shapes(dev, extra: list) -> None:
     x = torch.from_numpy(synthesize(FS, 0.01, m * n).astype(np.complex64))
     search(eng, x.to(dev).reshape(m, n),
            f"GPS L1 C/A at {FS / 1e6:g} Msps, bit_transition_flag")
+
+
+def check_wipe_path_shapes(dev, extra: list) -> None:
+    """The wipeoff at the paths' shapes that the searches above do not
+    launch it at, each held by wipe_case; the rows go to `extra`:
+    - Tong's 10 single-dwell searches (phases 4d and 4e): 10 ms of the
+      static scenario at 2 Msps as [10, N], N = 2000 and, with
+      bit_transition_flag, 4000; PRNs 1-10;
+    - the ROC harness's trials as dwells (phase 4f): 384 trials of one and
+      of two dwells, M = 384 and 768, N = 2000, PRN 1 at 45 dB-Hz in
+      unit noise (models/acq_performance.py:trial_signal), the trials
+      searched as channels;
+    - the time-sharded search's segment with its halo (phase 9): one dwell
+      of L + N = 256000 samples of noise, D = 41 (no search: the path
+      folds the correlations, K7)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import constants
+    from gnss_sim_receiver_tpu_torch.models import acq_performance as perf
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.ops import pcps, prn_codes
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    for keys, label in (({}, "Tong"), (BIT_PROPS,
+                                        "Tong, bit_transition_flag")):
+        props = conf_properties(CONF.format(capture=""))
+        props["Acquisition_1C.implementation"] = \
+            "GPS_L1_CA_PCPS_Tong_Acquisition"
+        props.update(keys)
+        acq = receiver_conf_from_config(InMemoryConfiguration(props)).acq
+        eng = PcpsAcquisitionEngine(acq, tuple(range(1, 11)), device=dev)
+        m, n = acq.tong_max_dwells, eng.fft_size
+        x = torch.from_numpy(synthesize(FS, m * n / FS).astype(
+            np.complex64)).to(dev).reshape(m, n)
+        extra.append(wipe_case(x, eng.dopplers, eng._t,
+                               f"GPS L1 C/A at {FS / 1e6:g} Msps, {label}",
+                               k3_search(eng.code_fft_conj, m), 3))
+        torch.cuda.empty_cache()
+    n, trials = 2000, 384
+    code = prn_codes.sample_code(prn_codes.gps_l1_ca_code(1), FS,
+                                 constants.GPS_L1_CA_CODE_RATE_CPS, n)
+    cfc = torch.from_numpy(
+        np.conj(np.fft.fft(code))[None].astype(np.complex64)).to(dev)
+    code_t = torch.from_numpy(code.astype(np.float32)).to(dev)
+    dops = torch.from_numpy(pcps.doppler_grid(5000.0, 250.0)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    amp = float(np.sqrt(2.0 * 10.0 ** 4.5 / FS))
+    for m in (1, 2):
+        x = perf.trial_signal(gen, code_t, amp, 1375.0, 700, n, trials, FS,
+                              m).reshape(m * trials, n)
+
+        def trials_search(w, m=m):
+            corr = torch.fft.ifft(torch.fft.fft(w, dim=-1) * cfc[0],
+                                  dim=-1).reshape(m, trials, -1, n)
+            return pcps.pcps_peak(corr, m)
+        extra.append(wipe_case(x, dops, pcps.time_axis(n, FS, dev),
+                               f"the ROC harness, {trials} trials of {m} "
+                               f"dwell{'s' if m > 1 else ''}",
+                               trials_search, 3))
+        del x
+        torch.cuda.empty_cache()
+    n = OS_PERIODS * 2000 + 2000
+    x = _cnoise(np.random.default_rng(15), n, dev).reshape(1, n)
+    extra.append(wipe_case(x, dops, pcps.time_axis(n, FS, dev),
+                           "the time-sharded search's segment and halo",
+                           None, 3))
+    torch.cuda.empty_cache()
 
 
 def check_k3c(name: str, corr, m: int, spc: int, form: str, caf_bins: int,
@@ -1674,22 +1753,30 @@ def check_k5a(dev, rng):
         got = filters.fir_decim(xs, taps, dec, w)
         want = filters._fir_plain(
             xs if fc == 0.0 else filters._mix_plain(xs, w), taps, dec)
+        ref = filters._fir_decim_reference(xs, taps, dec, w)
         torch.cuda.synchronize()
+        what = f"K5a fir_decim dec={dec} T={n_taps} IF={fc:g}"
         # 1e-5 of the scale: the kernel sums the taps by fused multiply-adds
-        worst = max(worst, compare(
-            f"K5a fir_decim dec={dec} T={n_taps} IF={fc:g}", got, want, 1e-5))
-    del x, got, want
+        worst = max(worst, compare(what, got, want, 1e-5))
+        fir_bits(what, got, ref)
+    del x, got, want, ref
     n, n_taps, dec = int(FS_FILE * DUR), 31, 2
     x = _cnoise(rng, n, dev)
     taps = torch.from_numpy(filters.design_lowpass(n_taps, 0.45)).to(dev)
     got = filters.fir_decim(x, taps, dec)
     want = filters._fir_plain(x, taps, dec)
+    ref = filters._fir_decim_reference(x, taps, dec)
     torch.cuda.synchronize()
-    worst = max(worst, compare(
-        f"K5a fir_decim N={n} dec={dec} T={n_taps} (the main path's shape)",
-        got, want, 1e-5))
-    del want
+    what = f"K5a fir_decim N={n} dec={dec} T={n_taps} (the main path's shape)"
+    worst = max(worst, compare(what, got, want, 1e-5))
+    fir_bits(what, got, ref)
+    del want, ref
     ms = time_ms(lambda: filters.fir_decim(x, taps, dec), reps=3)
+    ref_ms = time_ms(lambda: filters._fir_decim_reference(x, taps, dec),
+                     reps=3)
+    print(f"  K5a fir_decim (the main path's shape): {ms:.4f} ms, the "
+          f"kernel before its redesign {ref_ms:.4f} ms; "
+          f"{sm_clock_during(lambda: filters.fir_decim(x, taps, dec))}")
     plain = time_ms(lambda: filters._fir_plain(x, taps, dec), reps=1)
     # the library yardstick: one conv1d over the two planes, given them
     # already split and padded (float32, TF32 off); the port never calls it
@@ -1704,12 +1791,23 @@ def check_k5a(dev, rng):
     library = time_ms(lambda: torch.nn.functional.conv1d(planes, kern,
                                                          stride=dec), reps=3)
     n_out = -(-n // dec)
-    return _row("K5a_fir_decim", "cuda",
-                "gnss_sim_receiver_tpu_torch/csrc/fir_decim.cu",
-                "gnss_sim_receiver_tpu/ops/filters.py:29", worst, ms, plain,
-                8 * n + 4 * n_taps + 8 * n_out, 4 * n_taps * n_out,
-                f"N={n} samples, T={n_taps} taps, decimation {dec}, no mixing",
-                library)
+    row = _row("K5a_fir_decim", "cuda",
+               "gnss_sim_receiver_tpu_torch/csrc/fir_decim.cu",
+               "gnss_sim_receiver_tpu/ops/filters.py:29", worst, ms, plain,
+               8 * n + 4 * n_taps + 8 * n_out, 4 * n_taps * n_out,
+               f"N={n} samples, T={n_taps} taps, decimation {dec}, no mixing",
+               library)
+    row["reference_ms"] = ref_ms
+    return row
+
+
+def fir_bits(what: str, got, ref) -> None:
+    """K5a's output bit for bit that of the kernel before its redesign."""
+    import torch
+    if not torch.equal(bits(got), bits(ref)):
+        fail(f"{what}: differs from the kernel before its redesign in "
+             f"{int((bits(got) != bits(ref)).sum())} words")
+    print(f"  {what}: bit for bit the kernel before its redesign")
 
 
 def check_k5b(dev, rng):
@@ -1839,10 +1937,8 @@ def check_k3b(dev):
     centers = dops[torch.arange(c, device=dev) * 5]
     dops2 = (centers[:, None] + (torch.arange(d2, device=dev) - 4)[None, :]
              * 125.0).to(torch.float32).contiguous()
-    got = pcps.pcps_wipe(x, dops2, t)
-    want = pcps._wipe_per_channel_plain(x, dops2, t)
-    torch.cuda.synchronize()
-    err = compare("K3b pcps_wipe, [C, D2] table", got, want, 1e-5)
+    row = wipe_case(x, dops2, t, f"GPS L1 C/A at {FS / 1e6:g} Msps",
+                    k3_search(cfc, m))
 
     def plain_search():
         stat, di, de = pcps.max_to_input_power_stat(
@@ -1863,15 +1959,7 @@ def check_k3b(dev):
     print(f"  K3b two-step search (M={m}, C={c}, D=41 then D2={d2}, N={n}): "
           f"port {port:.4f} ms, torch.fft + torch ops yardstick "
           f"{time_ms(plain_search):.4f} ms")
-    return _row("K3b_pcps_wipe_per_channel", "triton",
-                "gnss_sim_receiver_tpu_torch/ops/pcps.py",
-                "gnss_sim_receiver_tpu/ops/pcps.py:65", err,
-                time_ms(lambda: pcps.pcps_wipe(x, dops2, t)),
-                time_ms(lambda: pcps._wipe_per_channel_plain(x, dops2, t)),
-                m * n * 8 + c * d2 * 4 + n * 4 + m * c * d2 * n * 8,
-                m * c * d2 * n * 10,
-                f"M={m} dwells, C={c} channels, D2={d2} Doppler rows each, "
-                f"N={n} samples")
+    return row
 
 
 def hybrid_chain(fs: float, impl: str = "CCCWSR", keys: dict | None = None):
@@ -1915,9 +2003,14 @@ def check_k4a(dev, fs: float, variant: str, extra: list,
     x = torch.from_numpy(synthesize_hybrid(fs, need)).to(dev).reshape(m, -1)
     cfc = eng.code_fft_conj
     cfc2 = eng.code2_fft_conj if eng.code2_fft_conj is not None else cfc
+    label = f"{variant} at {fs / 1e6:g} Msps"
+    if fs == FS_REF_HYBRID:
+        extra.append(wipe_case(
+            x, eng.dopplers, eng._t, f"Galileo E1 {label}",
+            lambda w: pcps.pcps_dual_peak(pcps.dual_from_wiped(
+                w, cfc, cfc2, variant), m), 3))
     corr = pcps.dual_correlations(x, cfc, cfc2, eng.dopplers, eng._t,
                                   variant)
-    label = f"{variant} at {fs / 1e6:g} Msps"
     got = pcps.pcps_dual_peak(corr, m)
     want = pcps._dual_peak_plain(corr, m)
     torch.cuda.synchronize()
@@ -2076,19 +2169,10 @@ def check_wideband_shapes(dev, rng, extra: list) -> None:
     dops, t, cfc = eng.dopplers, eng._t, eng.code_fft_conj
     c, d = cfc.shape[0], dops.shape[0]
     label = f"GPS L5I at {FS_WIDEBAND / 1e6:g} Msps"
-    got = pcps.pcps_wipe(x, dops, t)
+    extra.append(wipe_case(x, dops, t, label, k3_search(cfc, m), 3))
     want = pcps._wipe_plain(x, dops, t)
-    torch.cuda.synchronize()
-    err = compare(f"K3 pcps_wipe ({label})", got, want, 1e-5)
-    extra.append(_row(
-        "K3_pcps_wipe", "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
-        "gnss_sim_receiver_tpu/ops/pcps.py:33", err,
-        time_ms(lambda: pcps.pcps_wipe(x, dops, t)),
-        time_ms(lambda: pcps._wipe_plain(x, dops, t)),
-        m * n * 8 + d * 4 + n * 4 + m * d * n * 8, m * d * n * 10,
-        f"{label}: M={m} dwells, D={d} Doppler bins, N={n} samples"))
     spec = torch.fft.fft(want, dim=-1)
-    del got, want
+    del want
     corr = torch.fft.ifft(spec[:, None] * cfc[None, :, None], dim=-1)
     del spec
     extra.append(k3_peak_row(corr, m, label, 3))
@@ -2097,21 +2181,7 @@ def check_wideband_shapes(dev, rng, extra: list) -> None:
     dops2 = (dops[torch.arange(c, device=dev) * 4][:, None]
              + (torch.arange(d2, device=dev) - d2 // 2)[None, :]
              * float(l5.acq.doppler_step2)).to(torch.float32).contiguous()
-    got = pcps.pcps_wipe(x, dops2, t)
-    want = pcps._wipe_per_channel_plain(x, dops2, t)
-    torch.cuda.synchronize()
-    err = compare(f"K3b pcps_wipe ({label}), [C, D2] table", got, want, 1e-5)
-    extra.append(_row(
-        "K3b_pcps_wipe_per_channel", "triton",
-        "gnss_sim_receiver_tpu_torch/ops/pcps.py",
-        "gnss_sim_receiver_tpu/ops/pcps.py:65", err,
-        time_ms(lambda: pcps.pcps_wipe(x, dops2, t)),
-        time_ms(lambda: pcps._wipe_per_channel_plain(x, dops2, t)),
-        m * n * 8 + c * d2 * 4 + n * 4 + m * c * d2 * n * 8,
-        m * c * d2 * n * 10,
-        f"{label}: M={m} dwells, C={c} channels, D2={d2} Doppler rows "
-        f"each, N={n} samples"))
-    del got, want
+    extra.append(wipe_case(x, dops2, t, label, k3_search(cfc, m), 3))
     torch.cuda.empty_cache()
 
 
@@ -2721,6 +2791,101 @@ def wideband_sats():
             + [("5X", p) for p in HYB_GAL_PRNS]):
         fail(f"wideband scenario: {[(s.signal, s.prn) for s in sats]}")
     return sats
+
+
+# (M, table form, N) of every wipeoff phase 3 held to its reference
+WIPE_CHECKED: set = set()
+
+
+def wipe_key(shape: tuple) -> tuple:
+    """(M, "grid" or "table", N) of a wipeoff launch's (M, *table, N): the
+    kernel's code paths and grid depend on M and N, its rows only repeat
+    (the narrow tables' channel counts follow the acquisitions pending)."""
+    return shape[0], "table" if len(shape) == 4 else "grid", shape[-1]
+
+
+def max_ulps(got, ref) -> int:
+    """The largest difference in units in the last place between two
+    float32 (or complex64) tensors of the same signs."""
+    import torch
+    a, b = bits(got).to(torch.int64), bits(ref).to(torch.int64)
+    return int((a - b).abs().max())
+
+
+def k3_search(cfc, m: int):
+    """The search after the wipeoff: cuFFT, the product with the code
+    replicas [C, N] (one family, or the [C, D2] table's channel's own),
+    cuFFT, K3's peak -> (stat, Doppler index, delay index)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+
+    def search(wiped):
+        spec = torch.fft.fft(wiped, dim=-1)
+        if wiped.dim() == 3:
+            spec = spec[:, None]
+        return pcps.pcps_peak(torch.fft.ifft(
+            spec * cfc[None, :, None], dim=-1), m)
+    return search
+
+
+def wipe_case(x, dops, t, label: str, search=None, plain_reps: int = 20):
+    """The wipeoff (pcps_wipe, csrc/pcps_wipe.cu) at one shape its paths
+    launch it at: within 1e-5 of the plain version's scale; bit for bit
+    the Triton kernel it replaced (_wipe_reference), or else the largest
+    difference in ulps printed; with `search` (wiped dwells -> stat,
+    Doppler index, delay index), the search's outputs from both kernels'
+    dwells: cells exact, the statistic within 1e-4 of its scale.  The
+    kernel, the reference and the plain version timed in the same call;
+    returns the row (reference_ms beside ms)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    per_channel = dops.dim() == 2
+    name = "K3b_pcps_wipe_per_channel" if per_channel else "K3_pcps_wipe"
+    plain = (pcps._wipe_per_channel_plain if per_channel
+             else pcps._wipe_plain)
+    m, n = x.shape
+    got = pcps.pcps_wipe(x, dops, t)
+    ref = pcps._wipe_reference(x, dops, t)
+    want = plain(x, dops, t)
+    torch.cuda.synchronize()
+    err = compare(f"{name} ({label})", got, want, 1e-5)
+    del want
+    same = torch.equal(bits(got), bits(ref))
+    ulps = 0 if same else max_ulps(got, ref)
+    print(f"  {name} ({label}): "
+          + ("bit for bit the Triton reference" if same else
+             f"differs from the Triton reference by up to {ulps} ulps"))
+    if search is not None:
+        a, b = search(got), search(ref)
+        torch.cuda.synchronize()
+        compare(f"{name} ({label}) search statistic against the "
+                "reference's", a[0], b[0], 1e-4)
+        compare(f"{name} ({label}) search cells against the reference's",
+                a[1:], b[1:], 0.0)
+        del a, b
+    del got, ref
+    torch.cuda.empty_cache()
+    WIPE_CHECKED.add(wipe_key((m, *dops.shape, n)))
+    rows = dops.numel()
+    ms = time_ms(lambda: pcps.pcps_wipe(x, dops, t))
+    ref_ms = time_ms(lambda: pcps._wipe_reference(x, dops, t))
+    plain_ms = time_ms(lambda: plain(x, dops, t), reps=plain_reps)
+    table = (f"C={dops.shape[0]} channels, D2={dops.shape[1]} Doppler rows "
+             "each" if per_channel else f"D={rows} Doppler bins")
+    out_mb = m * rows * n * 8 / 1e6
+    row = _row(name, "cuda", "gnss_sim_receiver_tpu_torch/csrc/pcps_wipe.cu",
+               "gnss_sim_receiver_tpu/ops/pcps.py:"
+               + ("65" if per_channel else "33"), err, ms, plain_ms,
+               m * n * 8 + rows * 4 + n * 4 + m * rows * n * 8,
+               m * rows * n * 10,        # phase 2, sincos 2, product 6
+               f"{label}: M={m} dwells, {table}, N={n} samples "
+               f"({out_mb:.1f} MB out)")
+    print(f"  {name} ({label}): reference {ref_ms:.4f} ms")
+    if out_mb >= 10 and ms > 2 * row["bound_ms"]:
+        fail(f"{name} ({label}): {ms:.4f} ms, above twice its bound "
+             f"{row['bound_ms']:.4f} ms")
+    row.update(reference_ms=ref_ms, bit_for_bit=same, max_ulps=ulps)
+    return row
 
 
 def wideband_dwells(dev, n: int):
@@ -4586,6 +4751,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     rows += k3c
     check_wideband_shapes(dev, rng, extra)
     check_k3_search_shapes(dev, extra)
+    check_wipe_path_shapes(dev, extra)
     rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
              *check_k5d(dev, rng)]
     torch.cuda.empty_cache()
@@ -4650,6 +4816,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
           "capture, kernel path against the plain block body", flush=True)
     check_block_chunk(root)
     torch.cuda.empty_cache()
+    pcps.pcps_wipe.shapes.clear()
     launches = main_path(root, wrappers)
     print("== phase 4b: the conditioner alone", flush=True)
     cond = conditioner_path(root, wrappers, notch_case)
@@ -4738,10 +4905,19 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     for r in rows:
         r["launches"] = launches[r["name"]]
 
+    wipe_shapes = dict(pcps.pcps_wipe.shapes)
+    print(f"  the wipeoff's launches in phases 4 to 9b by (M, Doppler table, "
+          f"N): {wipe_shapes}")
+    missing = sorted({wipe_key(k) for k in wipe_shapes} - WIPE_CHECKED)
+    if missing:
+        fail(f"the wipeoff ran at shapes phase 3 did not hold to its "
+             f"reference: {missing}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, "reference_ms": r.get("reference_ms")}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -40,7 +40,8 @@ units (under ``-rdc=true`` K1 ran its E1 shape 1.8 times slower, with the
 same bits; ``PERF.md``).  :func:`build_all` and :func:`load` also
 build a library with extra flags into a directory of its own, for checks
 that compare two builds.  The sigma-point filters' kernels (``sigma.cu``,
-K10a and K10b) are one more unit with the default flags.
+K10a and K10b) are one more unit with the default flags, and so is the
+PCPS wipeoff (``pcps_wipe.cu``, K3 and K3b).
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ LIBRARIES = {
     "notch": ("notch",),
     "device_generator": ("device_generator",),
     "sigma_kernels": ("sigma",),
+    "pcps_wipe": ("pcps_wipe",),
 }
 SOURCES = tuple(u for units in LIBRARIES.values() for u in units)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

@@ -8,7 +8,10 @@ Pulse_Blanking_Filter).
 
 - K5a :func:`fir_decim` serves :func:`fir_filter` and
   :func:`freq_xlating_fir_filter`: LO mix, real-tap FIR and decimation in
-  one hand-written CUDA kernel (``csrc/fir_decim.cu``).
+  one hand-written CUDA kernel (``csrc/fir_decim.cu``: R outputs a thread
+  from a register window at decimation 1, 2 and 4; the one-output-a-thread
+  kernel it replaced stays as :func:`_fir_decim_reference`, and takes any
+  other decimation).
 - K5b :func:`notch_filter`: the sequential second-order recurrence as a
   blocked linear-recurrence scan (``csrc/notch.cu``).
 - K5c :func:`pulse_blanking`: two Triton kernels (window power; blanking)
@@ -141,16 +144,7 @@ def fir_decim(x: torch.Tensor, taps: torch.Tensor, decimation: int = 1,
         if lo_step_rad != 0.0:
             x = _mix_plain(x, lo_step_rad)
         return _fir_plain(x, taps, decimation)
-    require(x, torch.complex64, x.device, "fir_decim: x")
-    require(taps, torch.float32, x.device, "fir_decim: taps")
-    n = x.shape[0]
-    n_out = -(-n // decimation)
-    out = torch.empty(n_out, dtype=torch.complex64, device=x.device)
-    err = _fir_lib().fir_decim(
-        x.data_ptr(), n, taps.data_ptr(), taps.shape[0], decimation,
-        lo_step_rad, int(lo_step_rad != 0.0), out.data_ptr(), n_out,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "fir_decim")
+    out = _fir_launch("fir_decim", x, taps, decimation, lo_step_rad)
     fir_decim.launches += 1
     return out
 
@@ -158,14 +152,39 @@ def fir_decim(x: torch.Tensor, taps: torch.Tensor, decimation: int = 1,
 fir_decim.launches = 0
 
 
+def _fir_decim_reference(x: torch.Tensor, taps: torch.Tensor,
+                         decimation: int = 1,
+                         lo_step_rad: float = 0.0) -> torch.Tensor:
+    """K5a before its redesign (one thread an output): the bit-for-bit
+    reference of :func:`fir_decim` on the card, CUDA tensors only; on no
+    path, not counted."""
+    return _fir_launch("fir_decim_reference", x, taps, int(decimation),
+                       lo_step_rad)
+
+
+def _fir_launch(symbol, x, taps, decimation, lo_step_rad):
+    """Check the CUDA tensors and launch the library's `symbol`."""
+    require(x, torch.complex64, x.device, "fir_decim: x")
+    require(taps, torch.float32, x.device, "fir_decim: taps")
+    n = x.shape[0]
+    n_out = -(-n // decimation)
+    out = torch.empty(n_out, dtype=torch.complex64, device=x.device)
+    err = getattr(_fir_lib(), symbol)(
+        x.data_ptr(), n, taps.data_ptr(), taps.shape[0], decimation,
+        lo_step_rad, int(lo_step_rad != 0.0), out.data_ptr(), n_out,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, symbol)
+    return out
+
+
 def _fir_lib():
     lib = cuda_build.load("fir_decim")
-    fn = lib.fir_decim
-    if fn.argtypes is None:
-        p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_longlong)
-        fn.argtypes = [p, ll, p, i, i, f, i, p, ll, p]
-        fn.restype = ctypes.c_int
+    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+    for fn in (lib.fir_decim, lib.fir_decim_reference):
+        if fn.argtypes is None:
+            fn.argtypes = [p, ll, p, i, i, f, i, p, ll, p]
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -8,11 +8,12 @@ grid with its CAF Doppler smoothing): the
 whole (channels x Doppler bins x code delay) grid of one acquisition is
 searched in one batch.
 
-The search is cut into two hand-written Triton kernels with cuFFT
+The search is cut into two hand-written kernels with cuFFT
 (``torch.fft``) between them:
 
-- :func:`pcps_wipe` writes the cuFFT input, the [M, D, N] Doppler-wiped
-  dwells;
+- :func:`pcps_wipe` (CUDA, ``csrc/pcps_wipe.cu``; the Triton
+  kernel it replaced stays as :func:`_wipe_reference`) writes the cuFFT
+  input, the [M, D, N] Doppler-wiped dwells;
 - ``torch.fft.fft``, the product with conj(code FFT) on the way into
   ``torch.fft.ifft``;
 - :func:`pcps_peak` reads the [M, C, D, N] correlations once and
@@ -85,6 +86,8 @@ the plain versions, line for line with the JAX functions.
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import functools
 import math
 
@@ -93,6 +96,7 @@ import torch
 from scipy import special as _sp_special
 
 from gnss_sim_receiver_tpu_torch.device import check_kernel_device, require
+from gnss_sim_receiver_tpu_torch.ops import cuda_build
 
 
 def doppler_grid(doppler_max: float, doppler_step: float,
@@ -124,8 +128,14 @@ def time_axis(n: int, fs: float, device) -> torch.Tensor:
 
 # ---- plain versions --------------------------------------------------------
 
+def _wipe_phase(dopplers, t):
+    """The wipeoff's float32 phase [..., N] of a [D] grid or a [C, D2]
+    table: (-2 pi f) rounded first, then times t, as the kernels order it."""
+    return -2.0 * math.pi * dopplers[..., None] * t
+
+
 def _wipe_plain(x_dwells, dopplers, t):
-    phase = -2.0 * math.pi * dopplers[:, None] * t[None, :]
+    phase = _wipe_phase(dopplers, t)
     carrier = torch.complex(torch.cos(phase), torch.sin(phase))   # [D, N]
     return x_dwells[:, None, :] * carrier[None, :, :]             # [M, D, N]
 
@@ -144,7 +154,7 @@ def pcps_grid(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
 
 
 def _wipe_per_channel_plain(x_dwells, dopplers, t):
-    phase = -2.0 * math.pi * dopplers[:, :, None] * t[None, None, :]
+    phase = _wipe_phase(dopplers, t)
     carrier = torch.complex(torch.cos(phase), torch.sin(phase))   # [C, D, N]
     return x_dwells[:, None, None, :] * carrier[None]             # [M,C,D,N]
 
@@ -441,7 +451,8 @@ def _kernels():
     @triton.jit
     def wipe_kernel(x_ptr, t_ptr, dop_ptr, out_ptr, n, n_dop,
                     neg_two_pi, BLOCK: tl.constexpr):
-        # x [M, N] and out [M, D, N] complex64 as interleaved float32
+        # x [M, N] and out [M, D, N] complex64 as interleaved float32; the
+        # reference of csrc/pcps_wipe.cu (_wipe_reference), on no path
         pid_n = tl.program_id(0)
         d = tl.program_id(1)
         m = tl.program_id(2)
@@ -726,40 +737,79 @@ def _kernels():
 
 def pcps_wipe(x_dwells: torch.Tensor, dopplers: torch.Tensor,
               t: torch.Tensor) -> torch.Tensor:
-    """The wipeoff kernel: [M, N] dwells x exp(-j 2 pi f_d t) (the cuFFT
-    input).  A [D] Doppler grid gives [M, D, N] (K3; counted in
-    ``pcps_wipe.launches``); a [C, D2] per-channel table gives [M, C, D2, N]
-    (K3b, the two-step refinement; counted in
-    ``pcps_wipe.launches_per_channel``), the kernel running over the
-    table's C * D2 rows as its Doppler axis."""
+    """The wipeoff kernel (``csrc/pcps_wipe.cu``): [M, N] dwells x
+    exp(-j 2 pi f_d t) (the cuFFT input).  A [D] Doppler grid gives
+    [M, D, N] (K3; counted in ``pcps_wipe.launches``); a [C, D2]
+    per-channel table gives [M, C, D2, N] (K3b, the two-step refinement;
+    counted in ``pcps_wipe.launches_per_channel``), the kernel running over
+    the table's C * D2 rows as its Doppler axis.  ``pcps_wipe.shapes``
+    counts the launches by (M, the table's shape, N)."""
     if dopplers.dim() not in (1, 2):
         raise ValueError("pcps_wipe: dopplers must be [D] or [C, D2]")
     if not check_kernel_device(x_dwells, "pcps_wipe"):
         if dopplers.dim() == 2:
             return _wipe_per_channel_plain(x_dwells, dopplers, t)
         return _wipe_plain(x_dwells, dopplers, t)
-    dev = x_dwells.device
-    require(x_dwells, torch.complex64, dev, "pcps_wipe: x_dwells")
-    require(dopplers, torch.float32, dev, "pcps_wipe: dopplers")
-    require(t, torch.float32, dev, "pcps_wipe: t")
+    out = _wipe_out(x_dwells, dopplers, t)
     m, n = x_dwells.shape
-    out = torch.empty((m, *dopplers.shape, n), dtype=torch.complex64,
-                      device=dev)
-    wipe_kernel = _kernels()["wipe"]
-    rows = dopplers.numel()
-    block = 1024
-    wipe_kernel[((n + block - 1) // block, rows, m)](
-        torch.view_as_real(x_dwells), t, dopplers, torch.view_as_real(out),
-        n, rows, float(np.float32(-2.0 * math.pi)), BLOCK=block, num_warps=4)
+    err = _wipe_lib().pcps_wipe(
+        x_dwells.data_ptr(), t.data_ptr(), dopplers.data_ptr(),
+        out.data_ptr(), m, dopplers.numel(), n, NEG_TWO_PI,
+        torch.cuda.current_stream(x_dwells.device).cuda_stream)
+    cuda_build.check(err, "pcps_wipe")
     if dopplers.dim() == 2:
         pcps_wipe.launches_per_channel += 1
     else:
         pcps_wipe.launches += 1
+    pcps_wipe.shapes[(m, *dopplers.shape, n)] += 1
     return out
 
 
 pcps_wipe.launches = 0
 pcps_wipe.launches_per_channel = 0
+pcps_wipe.shapes = collections.Counter()
+
+# float32(-2 pi), the factor of the wipeoff's phase
+NEG_TWO_PI = float(np.float32(-2.0 * math.pi))
+
+
+def _wipe_out(x_dwells, dopplers, t):
+    """Check the wipeoff's CUDA inputs; its [M, *dopplers.shape, N]
+    output."""
+    dev = x_dwells.device
+    require(x_dwells, torch.complex64, dev, "pcps_wipe: x_dwells")
+    require(dopplers, torch.float32, dev, "pcps_wipe: dopplers")
+    require(t, torch.float32, dev, "pcps_wipe: t")
+    if x_dwells.dim() != 2 or t.shape != (x_dwells.shape[1],):
+        raise ValueError("pcps_wipe: x_dwells [M, N] and t [N]")
+    m, n = x_dwells.shape
+    return torch.empty((m, *dopplers.shape, n), dtype=torch.complex64,
+                       device=dev)
+
+
+def _wipe_reference(x_dwells: torch.Tensor, dopplers: torch.Tensor,
+                    t: torch.Tensor) -> torch.Tensor:
+    """The wipeoff before its redesign, the Triton ``wipe_kernel`` (one
+    program per tile, row and dwell): the reference of :func:`pcps_wipe`
+    on the card, CUDA tensors only; on no path, not counted."""
+    out = _wipe_out(x_dwells, dopplers, t)
+    m, n = x_dwells.shape
+    rows = dopplers.numel()
+    block = 1024
+    _kernels()["wipe"][((n + block - 1) // block, rows, m)](
+        torch.view_as_real(x_dwells), t, dopplers, torch.view_as_real(out),
+        n, rows, NEG_TWO_PI, BLOCK=block, num_warps=4)
+    return out
+
+
+def _wipe_lib():
+    lib = cuda_build.load("pcps_wipe")
+    fn = lib.pcps_wipe
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def pcps_peak(corr: torch.Tensor, n_dwells: int):
@@ -1084,8 +1134,16 @@ def dual_correlations(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
     - "iq_caf": as "cccwsr", plane 0 with `code_fft_conj` (E5a-I), plane 1
       with `code2_fft_conj` (E5a-Q).
     `t` is the wipeoff's time axis over the dwell ([N] or [2N])."""
-    m = x_dwells.shape[0]
-    wiped = pcps_wipe(x_dwells, dopplers, t)                 # [M, D, n]
+    return dual_from_wiped(pcps_wipe(x_dwells, dopplers, t), code_fft_conj,
+                           code2_fft_conj, variant)
+
+
+def dual_from_wiped(wiped: torch.Tensor, code_fft_conj: torch.Tensor,
+                    code2_fft_conj: torch.Tensor | None,
+                    variant: str) -> torch.Tensor:
+    """:func:`dual_correlations` from the wiped dwells [M, D, n] on: the
+    forward cuFFT, the products with the replicas, the inverse cuFFT."""
+    m = wiped.shape[0]
     if variant in ("cccwsr", "iq_caf"):
         spec = torch.fft.fft(wiped, dim=-1)[:, None, :, None, :]
         pair = ((code2_fft_conj, code_fft_conj) if variant == "cccwsr"

@@ -6,6 +6,9 @@ The same inputs, made from a numpy seed, go through the JAX function and
 its counterpart in the port.  Each assert states its tolerance.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -261,3 +264,112 @@ def test_conditioner_needs_a_card_or_cpu_by_name():
                     "CPU machines'")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SignalConditioner(InMemoryConfiguration(), fs_in=4e6)
+
+
+# ---- K5a's blocked kernel: its index arithmetic, step for step -------------
+
+def _fir_constants():
+    """kThreads and the outputs a thread at decimation 1, 2 and 4
+    (FIR_R_DEC1, _DEC2, _DEC4) of csrc/fir_decim.cu."""
+    src = (Path(filters.__file__).parents[1] / "csrc"
+           / "fir_decim.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    return threads, {d: int(re.search(rf"#define FIR_R_DEC{d} (\d+)",
+                                      src)[1]) for d in (1, 2, 4)}
+
+
+def _fir_cta_reads(n, n_taps, dec, cta):
+    """fir_decim_blocked_kernel's CTA `cta` in numpy: the outputs it writes
+    [K] and the input index each of their taps reads [K, T] in tap order
+    (-1 where it reads the zero pad).
+
+    Written by hand to mirror csrc/fir_decim.cu:128-144 (the tile's extent),
+    :145-187 (the staging pairs from an even input index and the skewed
+    plane words they land in), :195-209 with taps_block (:85-103: the
+    window words a tap block reads, the taps it runs) and :211-221 (the
+    outputs a thread stores): an edit to either must be made to the other.
+    Only kThreads and R are read from the source, so these tests check this
+    copy; what holds the kernel itself is chip_smoke.py's bit-for-bit check
+    against the kernel before its redesign."""
+    threads, rs = _fir_constants()
+    r_out = rs[dec]
+    s = r_out * dec
+    w = (r_out - 1) * dec + s
+    nb = -(-n_taps // s)
+    pad = n_taps // 2
+    n_out = -(-n // dec)
+    k0 = cta * threads * r_out
+    m0 = k0 * dec - pad
+    length = threads * s + n_taps - 1
+    # staging: plane word -> the input index it holds (-1 the zero pad,
+    # -2 never written)
+    plane = np.full((threads + nb + 1) * (s + 1), -2, np.int64)
+    writes = np.zeros_like(plane)
+    e = m0 & 1
+    q = np.arange((length + e + 1) // 2)
+    for m, j, keep in ((m0 - e + 2 * q, 2 * q - e, 2 * q - e >= 0),
+                       (m0 - e + 2 * q + 1, 2 * q - e + 1,
+                        2 * q - e + 1 < length)):
+        word = (j + j // s)[keep]
+        np.add.at(writes, word, 1)
+        plane[word] = np.where((m >= 0) & (m < n), m, -1)[keep]
+    assert writes.max() == 1, "a plane word staged twice"
+    t = np.arange(threads)
+    reads = np.full((threads, r_out, n_taps), -3, np.int64)
+    off = np.arange(w) + np.arange(w) // s
+    for blk in range(nb):
+        window = plane[((t + blk) * (s + 1))[:, None] + off[None, :]]
+        for u in range(min(s, n_taps - blk * s)):
+            for r in range(r_out):
+                reads[:, r, blk * s + u] = window[:, r * dec + u]
+    k = k0 + t[:, None] * r_out + np.arange(r_out)[None, :]
+    stored = k < n_out
+    return k[stored], reads[stored]
+
+
+def _fir_check(n, n_taps, dec, ctas=None):
+    """Every output k of the CTAs `ctas` (all by default) reads inputs
+    k dec + i - pad, i < T, in tap order (the zero pad outside [0, N));
+    each CTA stores its own outputs below ceil(N / dec), each once, so
+    that with every CTA every output is stored exactly once."""
+    threads, rs = _fir_constants()
+    n_out = -(-n // dec)
+    per_cta = threads * rs[dec]
+    n_cta = -(-n_out // per_cta)
+    everyone = ctas is None
+    counts = np.zeros(n_out + per_cta, np.int64)
+    for cta in range(n_cta) if everyone else ctas(n_cta):
+        k, reads = _fir_cta_reads(n, n_taps, dec, cta)
+        np.add.at(counts, k, 1)
+        np.testing.assert_array_equal(
+            np.sort(k), np.arange(cta * per_cta,
+                                  min((cta + 1) * per_cta, n_out)))
+        want = k[:, None] * dec + np.arange(n_taps)[None, :] - n_taps // 2
+        want = np.where((want >= 0) & (want < n), want, -1)
+        np.testing.assert_array_equal(reads, want)
+    assert counts.max() == 1 and not counts[n_out:].any()
+    if everyone:
+        assert (counts[:n_out] == 1).all()
+
+
+@pytest.mark.parametrize("n", [4096, 4099])
+@pytest.mark.parametrize("dec", [1, 2, 4])
+def test_fir_blocked_reads_every_cta(dec, n):
+    """Every CTA at N = 4096 and 4099 (a partial last CTA, and at
+    4099 a partial last thread), T = 5, 31 and 63: the first CTA's reads
+    start in the zero pad, the last ones end in it."""
+    for n_taps in (5, 31, 63):
+        _fir_check(n, n_taps, dec)
+
+
+@pytest.mark.parametrize("dec", [1, 2, 4])
+def test_fir_blocked_reads_long_stream(dec):
+    """N = 4 x 2^20 + 3 (phase 3's length): the first two CTAs, two in the
+    middle and the last two, T = 5, 31 and 63."""
+    n = 4 * 2 ** 20 + 3
+    threads, rs = _fir_constants()
+    n_out = -(-n // dec)
+    assert n_out % rs[dec], "the last thread must be partial"
+    for n_taps in (5, 31, 63):
+        _fir_check(n, n_taps, dec,
+                   lambda c: (0, 1, c // 2, c // 2 + 1, c - 2, c - 1))

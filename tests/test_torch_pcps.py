@@ -10,6 +10,10 @@ is written out in numpy and held to the plain rows exactly, ties
 included, and its launch plan never takes a tile above 2048 lanes.
 """
 
+import math
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,3 +206,92 @@ def test_row_plan_tile(n):
     for form in ppcps.FORMS:
         block, _ = ppcps.row_plan(n, form)
         assert block <= 2048 and block & (block - 1) == 0
+
+
+# ---- the wipeoff kernel: its index arithmetic and phase, step for step -----
+
+def _wipe_constants():
+    """kThreads, kPerThread and kDwells of csrc/pcps_wipe.cu."""
+    src = (Path(ppcps.__file__).parents[1] / "csrc"
+           / "pcps_wipe.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+                 for name in ("kThreads", "kPerThread", "kDwells"))
+
+
+def _wipe_writes(m_dw, rows, n):
+    """pcps_wipe_kernel's stores in numpy: for every store, the flat output
+    element it writes and the dwell, row and sample it reads x, t and the
+    Doppler table at -> four int64 arrays.
+
+    Written by hand to mirror csrc/pcps_wipe.cu:71-102 (a thread's row,
+    samples and dwell slice, the early exit and the odd tail sample, the
+    element each store writes; the 16-byte path stores the same two
+    elements as the 8-byte one) and the grid of :114-117: an edit to
+    either must be made to the other.  Only kThreads, kPerThread and
+    kDwells are read from the source, so these tests check this copy."""
+    threads, per, dwells = _wipe_constants()
+    assert per == 2, "the mirror holds two samples a thread"
+    gx = -(-n // (threads * per))
+    gz = -(-m_dw // dwells)
+    n0 = (np.arange(gx)[:, None] * threads
+          + np.arange(threads)[None, :]).ravel() * per
+    n0 = n0[n0 < n]
+    dst, m_of, row_of, n_of = [], [], [], []
+    for z in range(gz):
+        for m in range(z * dwells, min(m_dw, z * dwells + dwells)):
+            for row in range(rows):
+                for lane, keep in ((0, np.ones_like(n0, bool)),
+                                   (1, n0 + 1 < n)):
+                    nn = n0[keep] + lane
+                    dst.append((m * rows + row) * n + nn)
+                    n_of.append(nn)
+                    m_of.append(np.full_like(nn, m))
+                    row_of.append(np.full_like(nn, row))
+    return tuple(np.concatenate(a) for a in (dst, m_of, row_of, n_of))
+
+
+@pytest.mark.parametrize("n", [2000, 4001, 160000])
+@pytest.mark.parametrize("form", ["grid", "table"])
+def test_wipe_kernel_covers_plain_outputs(form, n):
+    """Every element of _wipe_plain's [M, D, N] (form "grid") or
+    _wipe_per_channel_plain's [M, C, D2, N] output ("table", row c D2 + j)
+    is stored exactly once, from x[m, n], t[n] and the row's Doppler;
+    N odd takes the 8-byte path's lone last sample, and M = 19 three dwell
+    slices, the last partial."""
+    m_dw = 19 if n == 2000 else 2
+    dops = (torch.linspace(-500.0, 500.0, 5) if form == "grid"
+            else torch.linspace(-500.0, 500.0, 6).reshape(2, 3))
+    x = torch.zeros((m_dw, n), dtype=torch.complex64)
+    t = ppcps.time_axis(n, 2e6, torch.device("cpu"))
+    plain = ppcps.pcps_wipe(x, dops, t)      # the plain version on the CPU
+    assert plain.shape == (m_dw, *dops.shape, n)
+    rows = dops.numel()
+    dst, m_of, row_of, n_of = _wipe_writes(m_dw, rows, n)
+    counts = np.bincount(dst, minlength=plain.numel())
+    assert counts.shape == (plain.numel(),) and (counts == 1).all()
+    np.testing.assert_array_equal(dst, (m_of * rows + row_of) * n + n_of)
+    assert n_of.max() == n - 1 and m_of.max() == m_dw - 1
+
+
+@pytest.mark.parametrize("form", ["grid", "table"])
+def test_wipe_kernel_phase_is_the_plain_phase(form):
+    """The kernel's phase, w = float32(-2 pi) * f rounded, then w * t[n]
+    rounded (csrc/pcps_wipe.cu:77-80), in numpy, is the plain version's
+    phase bit for bit: the receivers' grid at 2 and 20 Msps over N = 2000
+    and 80000 samples, and a [C, D2] table of off-grid Dopplers."""
+    rng = np.random.default_rng(3)
+    for fs, n in ((2e6, 2000), (20e6, 80000)):
+        if form == "grid":
+            dops = ppcps.doppler_grid(5000.0, 250.0)
+        else:
+            dops = (rng.uniform(-5000.0, 5000.0, (10, 1))
+                    + 62.5 * np.arange(-4, 5)[None, :]).astype(np.float32)
+        t = ppcps.time_axis(n, fs, torch.device("cpu"))
+        want = ppcps._wipe_phase(torch.from_numpy(dops), t).numpy()
+        w = np.float32(-2.0 * math.pi) * dops
+        assert w.dtype == np.float32
+        got = w[..., None] * t.numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+        assert np.float32(ppcps.NEG_TWO_PI) == np.float32(-2.0 * math.pi)
