@@ -29,9 +29,14 @@ Phases (any failure exits non-zero, before the result line):
    against the three-launch chunk and the plain chunk, bit for bit over
    50 blocks at the same four shapes; K1 and
    K2 with the GPS and the Galileo E1 tables, K3 wipeoff and peak, K3b,
-   K4a in both modes, K4b fold and resolve, K4c with and without its
+   K4a in both modes, K4b fold and resolve (the resolve, one CUDA launch,
+   also against the Triton kernel it replaced, at C=8, fold 4 and at
+   C=10, fold 8 with an exact tie, beside an empty kernel's launch
+   floor), K4c with and without its
    Doppler boxcar, K3c (the first-vs-second-peak statistic) in its plain,
-   dual and CAF forms on K3's, K4a's and K4c's correlations, K5a, K5b,
+   dual and CAF forms on K3's, K4a's and K4c's correlations, K5a, K5b
+   (the single-pass scan, also at a narrow notch and, at 4 M and 104 M
+   samples, against the three-launch kernel it replaced, both timed),
    K5c, K5d in both modes, K6 (also bit for bit the kernel before its
    redesign, one thread per sample, noiseless and with the phases' noise
    key, on the first and the last chunk of the hybrid, full-chain and
@@ -188,6 +193,8 @@ COND_SAMPLES = 4_000_000       # phase 4b: the conditioner alone
 # minute per million samples on the card, so both phases use this length
 NOTCH_SAMPLES = (1 << 20) + 5
 NOTCH_F0, NOTCH_BW = 0.1, 0.01
+# phase 3's narrow notch: its state lasts thousands of samples
+NOTCH_NARROW_SAMPLES, NOTCH_NARROW_BW = (1 << 18) + 3, 0.0005
 RX_LLH = (40.0, -75.0, 100.0)
 # phase 5: the hybrid scenario of tests/test_hybrid_position.py (4 GPS and
 # 5 Galileo satellites, 48 dB-Hz, seed 17), 26 s at the reference hybrid
@@ -1811,39 +1818,79 @@ def fir_bits(what: str, got, ref) -> None:
 
 
 def check_k5b(dev, rng):
-    """K5b at the length, notch frequency and width that phase 4b gives it
-    (N = 1 M + 5: 16 CTAs of chunks, so the carries cross CTAs) against the
-    sequential plain version run on the card over the whole stream, with a
-    strong continuous wave on the notch.  Returns the row and the (input,
-    plain output) pair, which phase 4b sends through the conditioner."""
+    """K5b, the single-pass scan, at the length, notch frequency and width
+    that phase 4b gives it (N = 1 M + 5: 513 tiles of one sub-tile, so the
+    carries cross hundreds of tiles) and at a narrow notch (bw = 0.0005,
+    whose state lasts thousands of samples) on 256 K + 3 samples, each
+    against the sequential plain version run on the card over the whole
+    stream, with a strong continuous wave on the notch; then, after the
+    timing's CUDA graph replays (the tile status is reused), at phase 4b's
+    length again.  At 4 M (tiles of one sub-tile) and 104 M samples (the
+    capture's length; tiles of 4) against the three-launch kernel it
+    replaced.  All within 1e-4 of the output's scale; the new and the
+    replaced kernel timed at the three lengths.  Returns the row and the
+    (input, plain output) pair, which phase 4b sends through the
+    conditioner."""
     import torch
     from gnss_sim_receiver_tpu_torch.ops import filters
     n, f0, bw = NOTCH_SAMPLES, NOTCH_F0, NOTCH_BW
-    x = _cnoise(rng, n, dev)
-    x = x + 10.0 * torch.exp(2j * np.pi * f0 * torch.arange(
-        n, device=dev, dtype=torch.float64)).to(torch.complex64)
+
+    def with_tone(x, f0):
+        return x + 10.0 * torch.exp(2j * np.pi * f0 * torch.arange(
+            x.shape[0], device=dev, dtype=torch.float64)).to(torch.complex64)
+    # 1e-4 of the scale: the carries round apart from the sequential scan;
+    # the pole radius 1 - pi*bw forgets them
+    xn = with_tone(_cnoise(rng, NOTCH_NARROW_SAMPLES, dev), f0)
+    got = filters.notch_filter(xn, f0, NOTCH_NARROW_BW)
+    want = filters._notch_plain(
+        xn, *filters.notch_coefficients(f0, NOTCH_NARROW_BW))
+    torch.cuda.synchronize()
+    err = compare(f"K5b notch_filter N={xn.shape[0]} f0={f0} "
+                  f"bw={NOTCH_NARROW_BW} (the narrow notch)", got, want, 1e-4)
+    del xn, got, want
+    x = with_tone(_cnoise(rng, n, dev), f0)
     got = filters.notch_filter(x, f0, bw)
+    ref = filters._notch_reference(x, f0, bw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = filters._notch_plain(x, *filters.notch_coefficients(f0, bw))
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
-    # 1e-4 of the scale: the chunk carries round differently from the
-    # sequential scan; the pole radius 1 - pi*bw forgets them
-    err = compare(f"K5b notch_filter N={n} f0={f0} bw={bw}", got, want, 1e-4)
-    ms = time_ms(lambda: filters.notch_filter(x, f0, bw))
-    for n_big in (COND_SAMPLES, int(FS_FILE * DUR)):
-        xb = _cnoise(rng, n_big, dev)
-        t = time_ms(lambda: filters.notch_filter(xb, f0, bw), reps=3)
-        print(f"  K5b notch_filter at N={n_big} (timed only): {t:.4f} ms "
-              f"(bound {bound_ms(16 * n_big, 16 * n_big)[0]:.4f} ms)")
+    err = max(err, compare(f"K5b notch_filter N={n} f0={f0} bw={bw}", got,
+                           want, 1e-4))
+    compare(f"K5b the replaced kernel N={n}", ref, want, 1e-4)
+    lengths = []
+    for n_at in (n, COND_SAMPLES, int(FS_FILE * DUR)):
+        xb = x if n_at == n else _cnoise(rng, n_at, dev)
+        reps = 20 if n_at == n else 3
+        if n_at != n:
+            err = max(err, compare(
+                f"K5b notch_filter N={n_at} against the replaced kernel",
+                filters.notch_filter(xb, f0, bw),
+                filters._notch_reference(xb, f0, bw), 1e-4))
+        ref_ms = [time_ms(lambda: filters._notch_reference(xb, f0, bw), reps)]
+        ms = time_ms(lambda: filters.notch_filter(xb, f0, bw), reps)
+        ref_ms.append(time_ms(lambda: filters._notch_reference(xb, f0, bw),
+                              reps))
+        b_ms = bound_ms(16 * n_at, 16 * n_at)[0]
+        print(f"  K5b notch_filter at N={n_at}: {ms:.4f} ms, the replaced "
+              f"kernel {ref_ms[0]:.4f} / {ref_ms[1]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({ms / b_ms:.2f} x)")
+        lengths.append(dict(n=n_at, ms=ms, reference_ms=ref_ms, bound_ms=b_ms))
+        if n_at == n:
+            row_ms, row_ref_ms = ms, float(np.mean(ref_ms))
         del xb
+    again = filters.notch_filter(x, f0, bw)
+    torch.cuda.synchronize()
+    compare(f"K5b notch_filter N={n} after the graph replays", again, want,
+            1e-4)
     row = _row("K5b_notch_filter", "cuda",
                "gnss_sim_receiver_tpu_torch/csrc/notch.cu",
-               "gnss_sim_receiver_tpu/ops/filters.py:58", err, ms, plain,
+               "gnss_sim_receiver_tpu/ops/filters.py:58", err, row_ms, plain,
                16 * n, 16 * n,
                f"N={n} samples, f0={f0}, bw={bw}; plain_ms is one eager run, "
                "host-timed")
+    row.update(reference_ms=row_ref_ms, lengths=lengths)
     return row, (x, want)
 
 
@@ -2242,27 +2289,19 @@ def check_k4b(dev, extra: list):
         m * c * d * nf * 8 + c * 12, m * c * d * nf * 3 + c * d * nf * 2,
         f"GPS L1 C/A QuickSync: M={m} dwells, C={c} channels, D={d} Doppler "
         f"bins, N/fold={nf} folded lags"))
-    # the resolve at the folded search's peaks
+    # the resolve at the folded search's peaks, then at C=10, fold 8
     stat, di, lag = peak
     dop_hz = dops[di.long()].contiguous()
-    got = pcps.pcps_quicksync_resolve(x[0], codes, dop_hz, lag, t, fold)
-    want = pcps._resolve_plain(x[0], codes, dop_hz, lag, t, fold)
-    torch.cuda.synchronize()
-    compare("K4b pcps_quicksync_resolve delays", got[0], want[0], 0.0)
-    err = compare("K4b pcps_quicksync_resolve magnitudes", got[1], want[1],
-                  1e-4)
+    err, ms, ref_ms, plain, floor_ms = check_resolve(x[0], codes, dop_hz, lag,
+                                                     t, fold)
     rows.append(_row(
-        "K4b_quicksync_resolve", "triton", src,
-        "gnss_sim_receiver_tpu/ops/pcps.py:182", err,
-        time_ms(lambda: pcps.pcps_quicksync_resolve(x[0], codes, dop_hz, lag,
-                                                    t, fold)),
-        time_ms(lambda: pcps._resolve_plain(x[0], codes, dop_hz, lag, t,
-                                            fold)),
-        n * 8 + n * 4 + c * n * 4 + c * 8 + c * 8,
-        # per (channel, candidate, sample): phase 2, sincos 2, wipeoff 6,
-        # index 2, multiply-accumulate 4
-        c * fold * n * 16,
+        "K4b_quicksync_resolve", "cuda",
+        "gnss_sim_receiver_tpu_torch/csrc/quicksync_resolve.cu",
+        "gnss_sim_receiver_tpu/ops/pcps.py:182", err, ms, plain,
+        *resolve_work(c, n, fold),
         f"C={c} channels x {fold} candidates, N={n} samples (dwell 0)"))
+    rows[-1].update(reference_ms=ref_ms, launch_floor_ms=floor_ms)
+    extra.append(resolve_fold8(dev, x, acq, dops, t))
     del corr, spec
     # the whole search against the JAX functions' form
     buf = pcps.pcps_search_quicksync(x, codes, cffc, dops, t, fold)
@@ -2279,6 +2318,85 @@ def check_k4b(dev, extra: list):
     print(f"  K4b search: detected PRNs {found} at fold {fold}, {m} dwells "
           f"(port {time_ms(lambda: pcps.pcps_search_quicksync(x, codes, cffc, dops, t, fold)):.4f} ms)")
     return rows
+
+
+def resolve_work(c: int, n: int, fold: int) -> tuple[int, int]:
+    """The resolve's bytes (x, t, the codes and the per-channel inputs
+    read once, delays and magnitudes written once) and operations (per
+    (channel, sample): phase 2, sincos 2, wipeoff 6; per candidate: index
+    2, multiply-accumulate 4)."""
+    return (n * 8 + n * 4 + c * n * 4 + c * 8 + c * 8,
+            c * n * 10 + c * fold * n * 6)
+
+
+def check_resolve(x0, codes, dop_hz, lag, t, fold):
+    """K4b's resolve kernel against its plain version and the Triton
+    kernel it replaced (with its torch tail): delays identical, magnitudes
+    within 1e-4 of the scale.  Returns (error, ms, the replaced kernel's
+    ms, plain ms, the launch floor: an empty kernel on the same grid,
+    timed the same way)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    c = codes.shape[0]
+    got = pcps.pcps_quicksync_resolve(x0, codes, dop_hz, lag, t, fold)
+    want = pcps._resolve_plain(x0, codes, dop_hz, lag, t, fold)
+    ref = pcps._resolve_reference(x0, codes, dop_hz, lag, t, fold)
+    torch.cuda.synchronize()
+    what = f"K4b pcps_quicksync_resolve C={c} fold {fold}"
+    compare(f"{what} delays", got[0], want[0], 0.0)
+    compare(f"{what} delays against the replaced kernel", got[0], ref[0],
+            0.0)
+    err = compare(f"{what} magnitudes", got[1], want[1], 1e-4)
+    compare(f"{what} magnitudes against the replaced kernel", got[1], ref[1],
+            1e-4)
+    floor_ms = time_ms(lambda: pcps._resolve_empty(c, x0.device))
+    ms = time_ms(lambda: pcps.pcps_quicksync_resolve(x0, codes, dop_hz, lag,
+                                                     t, fold))
+    ref_ms = time_ms(lambda: pcps._resolve_reference(x0, codes, dop_hz, lag,
+                                                     t, fold))
+    plain = time_ms(lambda: pcps._resolve_plain(x0, codes, dop_hz, lag, t,
+                                                fold))
+    print(f"  {what}: {ms:.4f} ms, the replaced kernel {ref_ms:.4f} ms, an "
+          f"empty kernel on its grid {floor_ms:.4f} ms ({ms / floor_ms:.2f} "
+          "x that floor)")
+    return err, ms, ref_ms, plain, floor_ms
+
+
+def resolve_fold8(dev, x, acq, dops, t):
+    """The resolve at C=10 (PRNs 1-10), fold 8, at the fold-8 search's own
+    peaks on phase 4d's dwells; PRN 10's code replaced by its first N/8
+    samples 8 times, so that its 8 candidates tie exactly and the first
+    must win.  Returns its row (for the other_shapes line)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import sampled_codes
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    fold, m = 8, x.shape[0]
+    codes_h = sampled_codes(acq, range(1, 11))
+    n = codes_h.shape[1]
+    nf = n // fold
+    codes_h[9] = np.tile(codes_h[9][:nf], fold)
+    codes = torch.from_numpy(codes_h).to(dev)
+    cffc = torch.from_numpy(pcps.fold_codes(codes_h, fold)).to(dev)
+    folded = pcps.pcps_quicksync_fold(x, dops, t, fold)
+    corr = torch.fft.ifft(torch.fft.fft(folded, dim=-1)[:, None]
+                          * cffc[None, :, None], dim=-1)
+    _, di, lag = pcps.pcps_peak(corr, m)
+    dop_hz = dops[di.long()].contiguous()
+    c = codes.shape[0]
+    err, ms, ref_ms, plain, floor_ms = check_resolve(x[0], codes, dop_hz, lag,
+                                                     t, fold)
+    got = pcps.pcps_quicksync_resolve(x[0], codes, dop_hz, lag, t, fold)
+    if int(got[0][9]) != int(lag[9]):
+        fail(f"K4b resolve: the tie of PRN 10's {fold} candidates went to "
+             f"delay {int(got[0][9])}, not the first's {int(lag[9])}")
+    row = _row("K4b_quicksync_resolve", "cuda",
+               "gnss_sim_receiver_tpu_torch/csrc/quicksync_resolve.cu",
+               "gnss_sim_receiver_tpu/ops/pcps.py:182", err, ms, plain,
+               *resolve_work(c, n, fold),
+               f"C={c} channels x {fold} candidates, N={n} samples (dwell 0; "
+               "PRN 10 an exact tie)")
+    row.update(reference_ms=ref_ms, launch_floor_ms=floor_ms)
+    return row
 
 
 def check_k6(dev, fs: float, sats, dur: float, seed: int, label: str):
@@ -4916,7 +5034,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(card)
     print(json.dumps({"kernels": [
-        {**{k: r[k] for k in keys}, "reference_ms": r.get("reference_ms")}
+        {**{k: r[k] for k in keys}, "reference_ms": r.get("reference_ms"),
+         **{k: r[k] for k in ("launch_floor_ms", "lengths") if k in r}}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,9 @@ Pulse_Blanking_Filter).
   kernel it replaced stays as :func:`_fir_decim_reference`, and takes any
   other decimation).
 - K5b :func:`notch_filter`: the sequential second-order recurrence as a
-  blocked linear-recurrence scan (``csrc/notch.cu``).
+  single-pass scan with a decoupled look-back (``csrc/notch.cu``, one
+  launch; the three-launch blocked scan it replaced stays as
+  :func:`_notch_reference`).
 - K5c :func:`pulse_blanking`: two Triton kernels (window power; blanking)
   with the median of the window powers, a torch sort, between them.
 
@@ -208,13 +210,112 @@ def notch_filter(x: torch.Tensor, f0_norm, bw_norm) -> torch.Tensor:
     """K5b wrapper: second-order IIR notch at normalized frequency f0 (of
     fs), -3 dB width bw (the role of Notch_Filter_Lite):
     y[n] = x[n] - 2cos(w0) x[n-1] + x[n-2] + 2r cos(w0) y[n-1] - r^2 y[n-2]
-    with r = 1 - pi*bw, divided by the passband gain."""
+    with r = 1 - pi*bw, divided by the passband gain.  On the card: one
+    launch of the single-pass scan (``csrc/notch.cu``), which keeps its
+    tiles' status in a scratch of the device's (:func:`_notch_status`);
+    calls on one device must not run on two streams at once."""
     if x.dim() != 1:
         raise ValueError("notch_filter: x must be one-dimensional")
     b1, a1, a2, g = notch_coefficients(f0_norm, bw_norm)
     if not check_kernel_device(x, "notch_filter"):
         return _notch_plain(x, b1, a1, a2, g)
+    out = _notch_scan(_notch_lib(), x, b1, a1, a2, g)
+    notch_filter.launches += 1
+    return out
+
+
+notch_filter.launches = 0
+
+
+def _notch_scan(lib, x, b1, a1, a2, g, sub=None):
+    """Launch `lib`'s single-pass notch on the CUDA tensor x, with tiles of
+    `sub` sub-tiles (by default :func:`notch_sub_tiles`)."""
     require(x, torch.complex64, x.device, "notch_filter: x")
+    threads, per_thread = lib.notch_tile_threads(), lib.notch_per_thread()
+    n = x.shape[0]
+    sub = notch_sub_tiles(n, threads * per_thread) if sub is None else sub
+    n_tiles = -(-n // (sub * threads * per_thread))
+    tables = _notch_tables_on(float(a1), float(a2), per_thread, threads,
+                              lib.notch_lookback(), sub, x.device)
+    status = _notch_status(lib, x.device, n_tiles)
+    out = torch.empty_like(x)
+    err = lib.notch_filter(
+        x.data_ptr(), n, float(b1), float(a1), float(a2), float(g),
+        tables.data_ptr(), sub, status.data_ptr(), status.capacity,
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "notch_filter")
+    return out
+
+
+def notch_sub_tiles(n: int, sub_tile: int) -> int:
+    """Sub-tiles a tile of the scan at N samples (sub-tiles of `sub_tile`
+    samples): 4 where the stream holds NOTCH_LONG sub-tiles or more (the
+    capture's 104 M samples: 0.7065 ms against 0.8373 with tiles of one,
+    tools/probe_notch.py on an H100), else 1 (4 M samples: 0.0406 ms
+    against 0.0431; 1 M + 5: 0.0105 against 0.0118)."""
+    return 4 if n >= NOTCH_LONG * sub_tile else 1
+
+
+NOTCH_LONG = 8192
+
+
+def _notch_tables(a1: float, a2: float, per_thread: int, threads: int,
+                  lookback: int, sub: int = 1) -> np.ndarray:
+    """[threads + lookback + 2, 4] float32: the powers of
+    M = [[a1, a2], [1, 0]] the single-pass scan composes its carries with,
+    each a 2x2 matrix row major: rows j <= threads hold A^j with
+    A = M^per_thread (a thread's samples; A^threads carries a sub-tile),
+    then rows threads + 1 + d, d <= lookback, hold (M^T)^d with
+    T = sub threads per_thread (a tile's).  Formed in float64, rounded to
+    float32 once."""
+    m = np.array([[a1, a2], [1.0, 0.0]])
+    a = np.linalg.matrix_power(m, per_thread)
+    tile = np.linalg.matrix_power(a, threads * sub)
+    rows = ([np.linalg.matrix_power(a, j) for j in range(threads + 1)]
+            + [np.linalg.matrix_power(tile, i) for i in range(lookback + 1)])
+    return np.stack([r.reshape(4) for r in rows]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _notch_tables_on(a1, a2, per_thread, threads, lookback, sub, device):
+    """:func:`_notch_tables` on `device`, cached: a repeated call uploads
+    nothing."""
+    return torch.from_numpy(_notch_tables(a1, a2, per_thread, threads,
+                                          lookback, sub)).to(device)
+
+
+# the tile status scratches of each (library, device), newest last; an older
+# one is kept alive, since a captured CUDA graph may still launch on it
+_notch_scratches: dict = {}
+
+
+def _notch_status(lib, device, n_tiles: int) -> torch.Tensor:
+    """The status scratch of `lib`'s scan on `device` for at least `n_tiles`
+    tiles (its ``capacity``): allocated zeroed once, then reused, since
+    each launch leaves it as it found it (the kernel resets its ticket and
+    advances its generation)."""
+    key = (lib._name, str(device))
+    have = _notch_scratches.setdefault(key, [])
+    if have and have[-1].capacity >= n_tiles:
+        return have[-1]
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("notch_filter: call it once outside a CUDA graph "
+                           "capture first, at the longest length")
+    capacity = max(n_tiles, 2 * have[-1].capacity if have else 1024)
+    status = torch.zeros(lib.notch_status_bytes(capacity), dtype=torch.uint8,
+                         device=device)
+    status.capacity = capacity
+    have.append(status)
+    return status
+
+
+def _notch_reference(x: torch.Tensor, f0_norm, bw_norm) -> torch.Tensor:
+    """K5b before its redesign (a chunk pass from zero state, a one-warp
+    carry scan, the chunk pass again: three launches, x read twice): the
+    reference of :func:`notch_filter` on the card, CUDA tensors only; on
+    no path, not counted."""
+    require(x, torch.complex64, x.device, "notch_filter: x")
+    b1, a1, a2, g = notch_coefficients(f0_norm, bw_norm)
     lib = _notch_lib()
     chunk = lib.notch_chunk_len()
     n = x.shape[0]
@@ -223,24 +324,20 @@ def notch_filter(x: torch.Tensor, f0_norm, bw_norm) -> torch.Tensor:
     scratch = torch.empty((2 * n_chunks, 4), dtype=torch.float32,
                           device=x.device)
     out = torch.empty_like(x)
-    err = lib.notch_filter(
+    err = lib.notch_filter_reference(
         x.data_ptr(), n, float(b1), float(a1), float(a2), float(g),
         powers.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "notch_filter")
-    notch_filter.launches += 1
+    cuda_build.check(err, "notch_filter_reference")
     return out
-
-
-notch_filter.launches = 0
 
 
 @functools.lru_cache(maxsize=16)
 def _notch_powers(a1: float, a2: float, chunk: int, device) -> torch.Tensor:
-    """[32, 4] float32 on `device`: A^(j+1) row major, j < 32, with
-    A = M^chunk the state transition over one chunk of samples and
-    M = [[a1, a2], [1, 0]]; computed in float64.  Cached, so a repeated
-    call uploads nothing."""
+    """[32, 4] float32 on `device` for :func:`_notch_reference`: A^(j+1)
+    row major, j < 32, with A = M^chunk the state transition over one chunk
+    of samples and M = [[a1, a2], [1, 0]]; computed in float64.  Cached, so
+    a repeated call uploads nothing."""
     m = np.array([[a1, a2], [1.0, 0.0]])
     a = np.linalg.matrix_power(m, chunk)
     powers = np.stack([np.linalg.matrix_power(a, j + 1).reshape(4)
@@ -248,15 +345,23 @@ def _notch_powers(a1: float, a2: float, chunk: int, device) -> torch.Tensor:
     return torch.from_numpy(powers).to(device)
 
 
-def _notch_lib():
-    lib = cuda_build.load("notch")
-    fn = lib.notch_filter
-    if fn.argtypes is None:
-        p, f, ll = ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong
-        fn.argtypes = [p, ll, f, f, f, f, p, p, p, p]
-        fn.restype = ctypes.c_int
-        lib.notch_chunk_len.argtypes = []
-        lib.notch_chunk_len.restype = ctypes.c_int
+def _notch_lib(extra: tuple[str, ...] = (), build_dir=None):
+    """The notch library (with `extra` nvcc flags into `build_dir`: the
+    probe builds of tools/probe_notch.py), its entry points typed."""
+    lib = cuda_build.load("notch", extra, build_dir)
+    if lib.notch_filter.argtypes is None:
+        p, f, ll, i = (ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong,
+                       ctypes.c_int)
+        lib.notch_filter.argtypes = [p, ll, f, f, f, f, p, i, p, ll, p, p]
+        lib.notch_filter_reference.argtypes = [p, ll, f, f, f, f, p, p, p, p]
+        lib.notch_status_bytes.argtypes = [ll]
+        lib.notch_status_bytes.restype = ll
+        for fn in (lib.notch_filter, lib.notch_filter_reference):
+            fn.restype = i
+        for fn in (lib.notch_chunk_len, lib.notch_tile_threads,
+                   lib.notch_per_thread, lib.notch_lookback):
+            fn.argtypes = []
+            fn.restype = i
     return lib
 
 

@@ -64,7 +64,9 @@ dwells never reach device memory); cuFFT, the product with the folded
 code's conjugate spectrum and the K3 peak kernel follow on the
 [M, C, D, N/fold] planes; the resolve kernel (:func:`pcps_quicksync_resolve`)
 then takes the full-length correlation of dwell 0 at the `fold` candidate
-delays of each channel and keeps the largest, on the card.
+delays of each channel and keeps the largest, on the card, in one CUDA
+launch (``csrc/quicksync_resolve.cu``; the Triton kernel and torch tail it
+replaced stay as :func:`_resolve_reference`).
 :func:`pcps_search_quicksync` packs the [4, C] buffer.  The Fine Doppler
 (:func:`pcps_search_fine_doppler`) and Tong (:func:`pcps_search_dwells`)
 searches reuse K3 and K3b.
@@ -676,7 +678,8 @@ def _kernels():
     def resolve_kernel(x_ptr, t_ptr, code_ptr, dop_ptr, lag_ptr, mag_ptr,
                        n, nf, fold, neg_two_pi, BLOCK: tl.constexpr):
         # K4b resolve, one (channel, candidate k): |sum_i x[i] exp(-j w t_i)
-        # code[c, (i - d) mod N]| at d = lag[c] + k NF
+        # code[c, (i - d) mod N]| at d = lag[c] + k NF; the reference of
+        # csrc/quicksync_resolve.cu (_resolve_reference), on no path
         c = tl.program_id(0)
         k = tl.program_id(1)
         dly = tl.load(lag_ptr + c) + k * nf
@@ -1233,16 +1236,36 @@ def pcps_quicksync_resolve(x_dwell: torch.Tensor,
                            doppler_hz: torch.Tensor,
                            delay_mod: torch.Tensor, t: torch.Tensor,
                            fold: int):
-    """K4b resolve kernel: for each channel c, the full-length correlation
-    |sum_i x[i] exp(-j 2 pi f_c t_i) code[c, (i - d) mod N]| at the `fold`
-    candidates d = delay_mod[c] + k * N // fold (one program per (channel,
-    candidate)), then the largest candidate, first on ties, on the card ->
-    ([C] int32 delays, [C] float32 magnitudes).  x_dwell [N] complex64,
-    codes_sampled [C, N] float32, doppler_hz [C] float32, delay_mod [C]
-    int32."""
+    """K4b resolve kernel (``csrc/quicksync_resolve.cu``): for each channel
+    c, the full-length correlation |sum_i x[i] exp(-j 2 pi f_c t_i)
+    code[c, (i - d) mod N]| at the `fold` candidates d = delay_mod[c] +
+    k * N // fold, and the largest candidate, first on ties, in one launch
+    (one CTA per channel) -> ([C] int32 delays, [C] float32 magnitudes).
+    x_dwell [N] complex64, codes_sampled [C, N] float32, doppler_hz [C]
+    float32, delay_mod [C] int32."""
     if not check_kernel_device(x_dwell, "pcps_quicksync_resolve"):
         return _resolve_plain(x_dwell, codes_sampled, doppler_hz, delay_mod,
                               t, fold)
+    c, n = _resolve_check(x_dwell, codes_sampled, doppler_hz, delay_mod, t,
+                          fold)
+    dev = x_dwell.device
+    delays = torch.empty(c, dtype=torch.int32, device=dev)
+    mags = torch.empty(c, dtype=torch.float32, device=dev)
+    err = _resolve_lib().quicksync_resolve(
+        x_dwell.data_ptr(), t.data_ptr(), codes_sampled.data_ptr(),
+        doppler_hz.data_ptr(), delay_mod.data_ptr(), c, n, fold, NEG_TWO_PI,
+        delays.data_ptr(), mags.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "quicksync_resolve")
+    pcps_quicksync_resolve.launches += 1
+    return delays, mags
+
+
+pcps_quicksync_resolve.launches = 0
+
+
+def _resolve_check(x_dwell, codes_sampled, doppler_hz, delay_mod, t, fold):
+    """Check the resolve's CUDA inputs; (C, N)."""
     dev = x_dwell.device
     require(x_dwell, torch.complex64, dev, "pcps_quicksync_resolve: x_dwell")
     require(codes_sampled, torch.float32, dev,
@@ -1252,22 +1275,48 @@ def pcps_quicksync_resolve(x_dwell: torch.Tensor,
     require(delay_mod, torch.int32, dev, "pcps_quicksync_resolve: delay_mod")
     require(t, torch.float32, dev, "pcps_quicksync_resolve: t")
     c, n = codes_sampled.shape
-    nf = n // fold
     if x_dwell.shape != (n,) or t.shape[0] < n or doppler_hz.shape != (c,) \
-            or delay_mod.shape != (c,) or nf < 1:
+            or delay_mod.shape != (c,) or fold < 1 or n // fold < 1:
         raise ValueError("pcps_quicksync_resolve: bad shapes")
-    mags = torch.empty((c, fold), dtype=torch.float32, device=dev)
+    return c, n
+
+
+def _resolve_reference(x_dwell, codes_sampled, doppler_hz, delay_mod, t,
+                       fold: int):
+    """The resolve before its redesign: the Triton ``resolve_kernel`` (one
+    program per (channel, candidate)), then argmax, a cast and a gather in
+    torch.  The reference of :func:`pcps_quicksync_resolve` on the card,
+    CUDA tensors only; on no path, not counted."""
+    c, n = _resolve_check(x_dwell, codes_sampled, doppler_hz, delay_mod, t,
+                          fold)
+    nf = n // fold
+    mags = torch.empty((c, fold), dtype=torch.float32, device=x_dwell.device)
     _kernels()["resolve"][(c, fold)](
         torch.view_as_real(x_dwell), t, codes_sampled, doppler_hz, delay_mod,
-        mags, n, nf, fold, float(np.float32(-2.0 * math.pi)), BLOCK=1024,
-        num_warps=4)
-    pcps_quicksync_resolve.launches += 1
+        mags, n, nf, fold, NEG_TWO_PI, BLOCK=1024, num_warps=4)
     k = torch.argmax(mags, dim=1)
     delays = delay_mod + nf * k.to(torch.int32)
     return delays, torch.gather(mags, 1, k[:, None])[:, 0]
 
 
-pcps_quicksync_resolve.launches = 0
+def _resolve_lib():
+    lib = cuda_build.load("quicksync_resolve")
+    if lib.quicksync_resolve.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.quicksync_resolve.argtypes = [p, p, p, p, p, i, i, i,
+                                          ctypes.c_float, p, p, p]
+        lib.quicksync_resolve.restype = i
+        lib.quicksync_resolve_empty.argtypes = [i, p]
+        lib.quicksync_resolve_empty.restype = i
+    return lib
+
+
+def _resolve_empty(c: int, device) -> None:
+    """An empty kernel on the resolve's grid (C CTAs): the launch floor
+    chip_smoke.py times the resolve against; not counted."""
+    err = _resolve_lib().quicksync_resolve_empty(
+        c, torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.check(err, "quicksync_resolve_empty")
 
 
 def pcps_search_quicksync(x_dwells: torch.Tensor, codes_sampled: torch.Tensor,

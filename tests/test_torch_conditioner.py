@@ -111,6 +111,189 @@ def test_notch_filter_matches_jax(f0, bw):
     assert np.abs(got[2048:]).mean() < 0.3 * np.abs(x[2048:]).mean()
 
 
+# ---- K5b's single-pass scan: its tile algebra, step for step ---------------
+
+def _matvec(m, v):
+    """2x2 matrices m [..., 4] (row major) times complex 2-vectors v
+    [..., 4] = (y1.re, y1.im, y2.re, y2.im), float32."""
+    return torch.stack([m[..., 0] * v[..., 0] + m[..., 1] * v[..., 2],
+                        m[..., 0] * v[..., 1] + m[..., 1] * v[..., 3],
+                        m[..., 2] * v[..., 0] + m[..., 3] * v[..., 2],
+                        m[..., 2] * v[..., 1] + m[..., 3] * v[..., 3]], -1)
+
+
+def _notch_run(coef, xs, h1, h2, y1, y2):
+    """The recurrence over the samples xs [P, R, 2] of P threads from
+    their input history h1, h2 [P, 2] and output state y1, y2 [P, 2], in
+    the kernel's order (((x + b1 x1) + x2) + a1 y1) + a2 y2; returns every
+    output [P, R, 2]."""
+    b1, a1, a2 = (torch.tensor(v, dtype=torch.float32) for v in coef[:3])
+    out = []
+    for i in range(xs.shape[1]):
+        xn = xs[:, i]
+        yn = (((xn + b1 * h1) + h2) + a1 * y1) + a2 * y2
+        h2, h1, y2, y1 = h1, xn, y1, yn
+        out.append(yn)
+    return torch.stack(out, 1)
+
+
+def _notch_tiles(x, f0, bw, per_thread, threads, warp, lookback,
+                 incl_every, sub):
+    """csrc/notch.cu's notch_scan_kernel in float32 torch, with a warp of
+    `warp` lanes (the kernel's 32) and `lookback` tiles a look-back step
+    (the kernel's 32), tiles of `sub` sub-tiles of threads x per_thread
+    samples, so that a few thousand samples cross many tiles and steps:
+    per-thread zero-state runs, the inclusive warp scans with A^(2^b), the
+    scan of the warps' sums with A^(warp 2^b), the sub-tiles' aggregates
+    chained with A^threads into the tile's, the tiles' carries by the
+    look-back with (M^T)^d (a tile's inclusive state is seen only for
+    every `incl_every`-th tile, so the look-back crosses steps), then each
+    thread's rerun from its true entry state, out = y / g.  The powers are
+    the table the wrapper uploads (filters._notch_tables)."""
+    coef = filters.notch_coefficients(f0, bw)
+    tab = torch.from_numpy(filters._notch_tables(
+        float(coef[1]), float(coef[2]), per_thread, threads, lookback, sub))
+    pow_t = tab[threads + 1:]
+    tile = sub * threads * per_thread
+    n = x.shape[0]
+    n_tiles = -(-n // tile)
+    xr = torch.view_as_real(torch.from_numpy(x))
+    xp = torch.cat([torch.zeros(2, 2), xr,
+                    torch.zeros(n_tiles * tile - n, 2)])
+    xs = xp[2:].reshape(n_tiles * sub * threads, per_thread, 2)
+    starts = torch.arange(n_tiles * sub * threads) * per_thread
+    h1, h2 = xp[starts + 1], xp[starts]                 # x[n0-1], x[n0-2]
+    zero = torch.zeros_like(h1)
+    y = _notch_run(coef, xs, h1, h2, zero, zero)
+    # each sub-tile's scans: [tiles x sub-tiles, threads, 4]
+    n_sub = n_tiles * sub
+    e = torch.cat([y[:, -1], y[:, -2]], -1).reshape(n_sub, threads, 4)
+    lanes = torch.arange(threads) % warp
+    v = e.clone()
+    b = 0
+    while (1 << b) < warp:
+        d = 1 << b
+        up = torch.cat([torch.zeros(n_sub, d, 4), v[:, :-d]], 1)
+        v = torch.where((lanes >= d)[None, :, None],
+                        v + _matvec(tab[d], up), v)
+        b += 1
+    v_excl = torch.cat([torch.zeros(n_sub, 1, 4), v[:, :-1]], 1)
+    v_excl[:, lanes == 0] = 0.0
+    n_warps = threads // warp
+    w = v[:, warp - 1::warp].clone()                    # [sub-tiles, warps, 4]
+    b = 0
+    while (1 << b) < n_warps:
+        d = 1 << b
+        up = torch.cat([torch.zeros(n_sub, d, 4), w[:, :-d]], 1)
+        w = torch.where((torch.arange(n_warps) >= d)[None, :, None],
+                        w + _matvec(tab[warp << b], up), w)
+        b += 1
+    w_excl = torch.cat([torch.zeros(n_sub, 1, 4), w[:, :-1]], 1)
+    # the sub-tiles' aggregates chained into the tile's
+    sub_agg = w[:, -1].reshape(n_tiles, sub, 4)
+    sub_in = torch.zeros(n_tiles, sub, 4)
+    agg = torch.zeros(n_tiles, 4)
+    for s in range(sub):
+        sub_in[:, s] = agg
+        agg = _matvec(tab[threads], agg) + sub_agg[:, s]
+    # the look-back, tile after tile
+    incl = torch.zeros(n_tiles, 4)
+    carry = torch.zeros(n_tiles, 4)
+    for t in range(n_tiles):
+        first = t - 1
+        run = torch.zeros(4)
+        q_pow = torch.tensor([1.0, 0.0, 0.0, 1.0])
+        while t > 0:
+            u = first - torch.arange(lookback)
+            seen = (u < 0) | (u % incl_every == 0)
+            last = int(torch.nonzero(seen)[0]) if seen.any() else lookback - 1
+            val = torch.where((u % incl_every == 0)[:, None],
+                              incl[u.clamp(min=0)], agg[u.clamp(min=0)])
+            val[u < 0] = 0.0
+            term = _matvec(pow_t[:lookback], val)[:last + 1].sum(0)
+            run = run + _matvec(q_pow, term)
+            if seen.any():
+                break
+            q_pow = torch.stack([
+                q_pow[0] * pow_t[lookback][0] + q_pow[1] * pow_t[lookback][2],
+                q_pow[0] * pow_t[lookback][1] + q_pow[1] * pow_t[lookback][3],
+                q_pow[2] * pow_t[lookback][0] + q_pow[3] * pow_t[lookback][2],
+                q_pow[2] * pow_t[lookback][1] + q_pow[3] * pow_t[lookback][3]])
+            first -= lookback
+        carry[t] = run
+        incl[t] = _matvec(pow_t[1], run) + agg[t]
+    # the true state entering each sub-tile, (A^threads)^s C + sub_in,
+    # then each thread's: A^j S + A^lane W + v_excl
+    into = torch.zeros(n_tiles, sub, 4)
+    c = carry
+    for s in range(sub):
+        into[:, s] = c + sub_in[:, s]
+        c = _matvec(tab[threads], c)
+    j = torch.arange(threads)
+    entry = (_matvec(tab[j][None], into.reshape(n_sub, 4)[:, None])
+             + _matvec(tab[lanes][None],
+                       w_excl[:, j // warp]) + v_excl).reshape(-1, 4)
+    y = _notch_run(coef, xs, h1, h2, entry[:, :2], entry[:, 2:])
+    out = torch.view_as_complex((y / torch.tensor(coef[3])).reshape(-1, 2)
+                                .contiguous())
+    return out[:n].numpy()
+
+
+@pytest.mark.parametrize("n,sub", [
+    (3 * 1024 + 5, 1),  # 49 tiles of 64 samples, the last one ragged
+    (3 * 1024 + 5, 4),  # 13 tiles of 4 sub-tiles, the last one ragged
+    (21, 1),            # shorter than one tile
+    (133, 4),           # one tile, its third sub-tile ragged
+])
+@pytest.mark.parametrize("bw", [0.01, 0.0005])
+def test_notch_tile_algebra_matches_jax(bw, n, sub):
+    """The single-pass scan's carry algebra without a card, at a small
+    sub-tile (4 samples a thread, 16 threads in warps of 4: 64 samples),
+    tiles of 1 and 4 sub-tiles and look-back steps of 8 tiles (4 with
+    tiles of 4 sub-tiles, so that the look-back still crosses steps),
+    against JAX's sequential notch_filter, with a strong continuous wave on
+    the notch.  The narrow notch (bw 0.0005, pole radius 0.9984) keeps its
+    state for thousands of samples, so a carry composed with the wrong
+    power or the wrong tile would show.  Tolerance 1e-4 of the output's
+    scale, as phase 3 holds the kernel to it: the carries round apart from
+    the sequential scan."""
+    f0 = 0.1
+    x = _noise(n, seed=5)
+    x += (10.0 * np.exp(2j * np.pi * f0 * np.arange(n))).astype(np.complex64)
+    want = np.asarray(jfilters.notch_filter(
+        jnp.asarray(x), jnp.float32(f0), jnp.float32(bw)))
+    got = _notch_tiles(x, f0, bw, per_thread=4, threads=16, warp=4,
+                       lookback=8 if sub == 1 else 4,
+                       incl_every=20 if sub == 1 else 6, sub=sub)
+    assert got.shape == want.shape
+    assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("sub", [1, 4])
+def test_notch_tables_are_the_powers(sub):
+    """The table's rows at the kernel's shape (256 threads, 8 samples a
+    thread, 32 tiles a look-back step) for tiles of 1 and 4 sub-tiles:
+    A^j = M^(8 j) for j <= 256, then (M^T)^d for d <= 32 with
+    T = 2048 sub, each to float32's rounding of the float64 power."""
+    b1, a1, a2, g = filters.notch_coefficients(0.1, 0.0005)
+    tab = filters._notch_tables(float(a1), float(a2), 8, 256, 32, sub)
+    assert tab.shape == (256 + 1 + 33, 4) and tab.dtype == np.float32
+    m = np.array([[float(a1), float(a2)], [1.0, 0.0]])
+    t = 2048 * sub
+    for row, p in ((0, 0), (1, 8), (37, 8 * 37), (256, 2048),
+                   (257, 0), (258, t), (257 + 3, 3 * t)):
+        want = np.linalg.matrix_power(m, p).reshape(4)
+        np.testing.assert_allclose(tab[row], want, rtol=1e-6, atol=1e-30)
+
+
+def test_notch_sub_tiles_by_length():
+    """Tiles of 4 sub-tiles for the capture's 104 M samples, 1 for phase
+    4b's 1 M + 5."""
+    assert filters.notch_sub_tiles(104_000_000, 2048) == 4
+    assert filters.notch_sub_tiles((1 << 20) + 5, 2048) == 1
+    assert filters.notch_sub_tiles(1, 2048) == 1
+
+
 @pytest.mark.parametrize("n", [
     64 * 128,           # even window count
     64 * 127,           # odd window count

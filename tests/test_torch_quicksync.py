@@ -7,7 +7,8 @@ package on the CPU: QuickSync (kernel K4b's path), Tong and Fine Doppler.
   K4b's fold kernel's plain version, cuFFT and the K3 peak give that grid's
   statistic.
 - ``quicksync_resolve`` (the resolve kernel's plain version) at the grid's
-  peak: the same delays, magnitudes within rtol 1e-4.
+  peak, fold 2, 4 and 8 and an exact tie of two candidates: the same
+  delays, magnitudes within rtol 1e-4.
 - The engines (QuickSync, Tong, Fine Doppler) against the JAX engines on
   the captures of tests/test_acq_variants.py and
   tests/test_factory_chains.py: the same detections, Doppler, delay and
@@ -97,27 +98,41 @@ def test_quicksync_grid_matches_jax(dwells):
     assert np.allclose(stat.numpy(), np.asarray(ws), rtol=1e-4)
 
 
-def test_quicksync_resolve_matches_jax(dwells):
+@pytest.mark.parametrize("fold,tie", [(2, False), (4, False), (8, False),
+                                      (2, True)])
+def test_quicksync_resolve_matches_jax(dwells, fold, tie):
+    """At the folded grid's peak of each channel, fold 2, 4 and 8: the
+    same delays, magnitudes within rtol 1e-4.  `tie`: PRN 7's code is
+    replaced by its first N/2 samples twice, so that its two candidates
+    correlate to the same bits and the first one must win in both
+    packages."""
     x, codes, dops = dwells
+    if tie:
+        codes = codes.copy()
+        codes[0] = np.tile(codes[0][:N // 2], 2)
+    nf = N // fold
     g = np.asarray(jpcps.pcps_quicksync_grid(
-        jnp.asarray(x), jnp.asarray(codes), jnp.asarray(dops), FS, FOLD))
+        jnp.asarray(x), jnp.asarray(codes), jnp.asarray(dops), FS, fold))
     flat = g.reshape(2, -1).argmax(axis=1)
-    dop = dops[flat // (N // FOLD)].astype(np.float32)
-    lag = (flat % (N // FOLD)).astype(np.int32)
+    dop = dops[flat // nf].astype(np.float32)
+    lag = (flat % nf).astype(np.int32)
     wd, wm = jpcps.quicksync_resolve(jnp.asarray(x[0]), jnp.asarray(codes),
                                      jnp.asarray(dop), jnp.asarray(lag), FS,
-                                     fold=FOLD)
+                                     fold=fold)
     gd, gm = ppcps.quicksync_resolve(
         torch.from_numpy(x[0]), torch.from_numpy(codes),
-        torch.from_numpy(dop), torch.from_numpy(lag), FS, fold=FOLD)
+        torch.from_numpy(dop), torch.from_numpy(lag), FS, fold=fold)
     assert np.array_equal(gd.numpy(), np.asarray(wd))
     assert np.allclose(gm.numpy(), np.asarray(wm), rtol=1e-4)
     # the wrapper (plain version on the CPU) on the same inputs
     kd, km = ppcps.pcps_quicksync_resolve(
         torch.from_numpy(x[0]), torch.from_numpy(codes),
         torch.from_numpy(dop), torch.from_numpy(lag),
-        ppcps.time_axis(N, FS, "cpu"), FOLD)
+        ppcps.time_axis(N, FS, "cpu"), fold)
     assert torch.equal(kd, gd) and torch.equal(km, gm)
+    if tie:
+        assert int(gd[0]) == int(wd[0]) == int(lag[0])
+        return
     # the winner of PRN 7 is its absolute delay (roll convention: N - delay)
     exp = 612.25 * FS / 1.023e6
     got = int(gd[0])
