@@ -290,6 +290,29 @@ def time_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def device_ops(fn, reps: int = 5) -> dict:
+    """What one call of `fn` runs on the card, by torch.profiler over
+    `reps` calls after a warm one: {name: [launches, device us]} a call
+    (kernels, memsets and copies); {} where the profiler saw no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for evt in prof.events():
+        if "CUDA" not in str(evt.device_type):
+            continue
+        op = ops.setdefault(evt.name, [0.0, 0.0])
+        op[0] += 1.0 / reps
+        op[1] += evt.time_range.elapsed_us() / reps
+    return ops
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
     t_o = n_ops / FP32_OPS_PER_S * 1e3
@@ -1894,33 +1917,121 @@ def check_k5b(dev, rng):
     return row, (x, want)
 
 
-def check_k5c(dev, rng):
-    """K5c at 4 M samples with an even window count, and with an odd count
-    and a ragged tail; pulses over some windows.  The outputs must be
-    identical: the same windows blanked, every other sample untouched."""
+def blank_case(x, label: str, th: float = 4.0, window: int = 64) -> None:
+    """K5c on x against the plain version and the replaced form (every
+    sample identical), and its threshold against _blank_threshold of its
+    own window powers (the same bits)."""
     import torch
     from gnss_sim_receiver_tpu_torch.ops import filters
-    worst = 0.0
-    for n in (COND_SAMPLES, COND_SAMPLES - 64 + 17):
-        x = _cnoise(rng, n, dev) * float(np.sqrt(0.5))
-        for start in rng.integers(0, n - 200, 50):
-            x[start:start + 150] += 40.0
-        got = filters.pulse_blanking(x, 4.0, 64)
-        want = filters._blank_plain(x, 4.0, 64)
-        torch.cuda.synchronize()
-        n_diff = int((got != want).sum())
-        print(f"  K5c pulse_blanking N={n} ({n // 64} windows): "
-              f"{int((want == 0).sum())} samples blanked, {n_diff} differ")
-        if n_diff:
-            fail(f"K5c pulse_blanking: {n_diff} samples differ")
-        worst = max(worst, float((got - want).abs().max()))
-    ms = time_ms(lambda: filters.pulse_blanking(x, 4.0, 64))
+    got, pw, thr = filters._blank_cuda(x, th, window)
+    want = filters._blank_plain(x, th, window)
+    ref = filters._blank_reference(x, th, window)
+    thr_want = filters._blank_threshold(pw, th).reshape(1)
+    torch.cuda.synchronize()
+    n, n_win = x.shape[0], x.shape[0] // window
+    d_plain, d_ref = int((got != want).sum()), int((got != ref).sum())
+    same_thr = torch.equal(thr.view(torch.int32), thr_want.view(torch.int32))
+    print(f"  K5c pulse_blanking {label}: N={n}, {n_win} windows of "
+          f"{window}{' (odd)' if n_win % 2 else ''}, tail {n % window}: "
+          f"{int((want == 0).sum())} samples blanked; {d_plain} differ from "
+          "the plain version, "
+          f"{d_ref} from the replaced form; threshold {float(thr):.6g}, "
+          f"{'the' if same_thr else 'NOT the'} bits of _blank_threshold of "
+          "its window powers")
+    if d_plain or d_ref or not same_thr:
+        fail(f"K5c pulse_blanking {label}: {d_plain} samples differ from the "
+             f"plain version, {d_ref} from the replaced form, threshold "
+             f"{'equal' if same_thr else 'differs'}")
+
+
+def blank_stream(rng, dev, n: int, kind: str):
+    """n samples for K5c: noise (unit power over the two planes) with 150-
+    sample pulses of amplitude 40; "tie-heavy": a third of the windows all
+    zero and a third constant at 1 + 1j (many equal powers), with the
+    pulses; "zero-majority": three windows in five all zero (the median is
+    0, so every window with power is blanked)."""
+    import torch
+    x = _cnoise(rng, n, dev) * float(np.sqrt(0.5))
+    n_win = n // 64
+    pick = rng.random(n_win)
+    whole = x[: n_win * 64].view(-1, 64)
+    if kind == "tie-heavy":
+        whole[torch.from_numpy(pick < 1 / 3).to(dev)] = 0
+        whole[torch.from_numpy((pick >= 1 / 3) & (pick < 2 / 3)).to(dev)] = (
+            1 + 1j)
+    elif kind == "zero-majority":
+        whole[torch.from_numpy(pick < 0.6).to(dev)] = 0
+        return x
+    for start in rng.integers(0, n - 200, max(1, n // 80_000)):
+        x[start:start + 150] += 40.0
+    return x
+
+
+def check_k5c(dev, rng):
+    """K5c, three launches of csrc/pulse_blank.cu, against the plain version
+    and the replaced form (the two Triton kernels and the torch sort) on
+    every case: phase 4b's 4 M samples (an even window count) and with an
+    odd count and a ragged tail, x not 16-byte aligned, a tie-heavy stream,
+    a zero-majority one, windows of 1, 2, 128 and 1024, and the capture's
+    104 M samples.  The outputs identical, the threshold the bits of
+    _blank_threshold of the kernel's own window powers.  Its launches a
+    call from its counter and torch.profiler (at most 3, no library call).
+    Times at 4 M and 104 M beside the replaced form's and the bound (16 N
+    bytes and the powers)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import filters
+    n = COND_SAMPLES
+    x = blank_stream(rng, dev, n, "pulses")
+    blank_case(x, "pulses")
+    blank_case(x[1:], "pulses, x not 16-byte aligned")
+    xo = blank_stream(rng, dev, n - 64 + 17, "pulses")
+    blank_case(xo, "pulses")
+    del xo
+    for kind in ("tie-heavy", "zero-majority"):
+        blank_case(blank_stream(rng, dev, 64 * 20001 + 33, kind), kind)
+        blank_case(blank_stream(rng, dev, 64 * 20000, kind), kind)
+    for window in (1, 2, 128, 1024):
+        xw = blank_stream(rng, dev, 100_003, "pulses")
+        blank_case(xw, f"window {window}", 3.0, window)
+    before = filters.pulse_blanking.launches
+    ops = device_ops(lambda: filters.pulse_blanking(x, 4.0, 64))
+    counted = filters.pulse_blanking.launches - before
+    kernels = sum(c for c, _ in ops.values())
+    print(f"  K5c pulse_blanking: {counted / 6:.0f} counted launch a call, "
+          f"{kernels:.0f} device operations a call in torch.profiler: "
+          + ", ".join(f"{c:.0f} x {name[:40]}" for name, (c, _) in
+                      ops.items()))
+    if counted != 6 or (ops and (kernels > 3 or any(
+            "blank_" not in name for name in ops))):
+        fail("K5c pulse_blanking: more than its three launches a call")
+    lengths = []
+    for n_at in (n, int(FS_FILE * DUR)):
+        xb = x if n_at == n else blank_stream(rng, dev, n_at, "pulses")
+        if n_at != n:
+            blank_case(xb, "pulses (the capture's length)")
+        reps = 20 if n_at == n else 5
+        ref_ms = [time_ms(lambda: filters._blank_reference(xb, 4.0, 64),
+                          reps)]
+        ms = time_ms(lambda: filters.pulse_blanking(xb, 4.0, 64), reps)
+        ref_ms.append(time_ms(lambda: filters._blank_reference(xb, 4.0, 64),
+                              reps))
+        b_ms = bound_ms(16 * n_at + 8 * (n_at // 64), 5 * n_at)[0]
+        print(f"  K5c pulse_blanking at N={n_at}: {ms:.4f} ms, the replaced "
+              f"form {ref_ms[0]:.4f} / {ref_ms[1]:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({ms / b_ms:.2f} x)")
+        lengths.append(dict(n=n_at, ms=ms, reference_ms=ref_ms,
+                            bound_ms=b_ms))
+        if n_at == n:
+            row_ms, row_ref_ms = ms, float(np.mean(ref_ms))
+        del xb
     plain = time_ms(lambda: filters._blank_plain(x, 4.0, 64), reps=5)
-    return _row("K5c_pulse_blanking", "triton",
-                "gnss_sim_receiver_tpu_torch/ops/filters.py",
-                "gnss_sim_receiver_tpu/ops/filters.py:82", worst, ms, plain,
-                16 * n + 8 * (n // 64), 5 * n,
-                f"N={n} samples, {n // 64} windows of 64 and a ragged tail")
+    row = _row("K5c_pulse_blanking", "cuda",
+               "gnss_sim_receiver_tpu_torch/csrc/pulse_blank.cu",
+               "gnss_sim_receiver_tpu/ops/filters.py:82", 0.0, row_ms, plain,
+               16 * n + 8 * (n // 64), 5 * n,
+               f"N={n} samples, {n // 64} windows of 64")
+    row.update(reference_ms=row_ref_ms, lengths=lengths)
+    return row
 
 
 def check_k5d(dev, rng):
@@ -2241,7 +2352,9 @@ def check_k4b(dev, extra: list):
     (1e-4; its row at this shape goes to `extra`); the resolve kernel
     against its plain version at the folded search's own peaks (delays
     identical, magnitudes to 1e-4); then the whole search against the
-    JAX-form grid, statistic and resolve at M=8."""
+    JAX-form grid, statistic and resolve at M=8.  The fold is also held to
+    the Triton kernel it replaced bit for bit, there and at M=10, fold 8
+    (its row goes to `extra`)."""
     import torch
     from gnss_sim_receiver_tpu_torch.models.acquisition import (AcqConf,
                                                                 sampled_codes)
@@ -2261,20 +2374,10 @@ def check_k4b(dev, extra: list):
     n, d, c = 2000, dops.shape[0], codes.shape[0]
     nf = n // fold
     src = "gnss_sim_receiver_tpu_torch/ops/pcps.py"
-    got = pcps.pcps_quicksync_fold(x, dops, t, fold)
+    rows = [check_fold(x, dops, t, fold, "phase 4d's shape")]
+    extra.append(check_fold(acq_dwells(dev, 10), dops, t, 8,
+                            "more dwells than a CTA's slice of 8"))
     want = pcps._fold_plain(x, dops, t, fold)
-    torch.cuda.synchronize()
-    err = compare("K4b pcps_quicksync_fold", got, want, 1e-5)
-    rows = [_row(
-        "K4b_quicksync_fold", "triton", src,
-        "gnss_sim_receiver_tpu/ops/pcps.py:151", err,
-        time_ms(lambda: pcps.pcps_quicksync_fold(x, dops, t, fold)),
-        time_ms(lambda: pcps._fold_plain(x, dops, t, fold)),
-        m * n * 8 + n * 4 + d * 4 + m * d * nf * 8,
-        # per (dwell, bin, sample): phase 2, sincos 2, product 6, fold sum 2
-        m * d * n * 12,
-        f"M={m} dwells, D={d} Doppler bins, N={n} samples, fold {fold} "
-        f"-> N/fold={nf}")]
     # the K3 peak kernel on the folded planes, as the search launches it
     spec = torch.fft.fft(want, dim=-1)
     corr = torch.fft.ifft(spec[:, None] * cffc[None, :, None], dim=-1)
@@ -2318,6 +2421,42 @@ def check_k4b(dev, extra: list):
     print(f"  K4b search: detected PRNs {found} at fold {fold}, {m} dwells "
           f"(port {time_ms(lambda: pcps.pcps_search_quicksync(x, codes, cffc, dops, t, fold)):.4f} ms)")
     return rows
+
+
+def check_fold(x, dops, t, fold: int, label: str) -> dict:
+    """K4b's fold (csrc/pcps_wipe.cu) on the dwells x: within 1e-5 of the
+    scale of its plain version, bit for bit the Triton kernel it replaced
+    (_fold_reference); timed beside that kernel (in turns), the plain
+    version and an empty kernel on its grid.  Returns its row."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    (m, n), d = x.shape, dops.shape[0]
+    nf = n // fold
+    what = f"K4b pcps_quicksync_fold M={m} fold {fold}"
+    got = pcps.pcps_quicksync_fold(x, dops, t, fold)
+    ref = pcps._fold_reference(x, dops, t, fold)
+    err = compare(what, got, pcps._fold_plain(x, dops, t, fold), 1e-5)
+    same_bits(f"{what} against the replaced kernel", got, ref)
+    ref_ms = [time_ms(lambda: pcps._fold_reference(x, dops, t, fold))]
+    ms = time_ms(lambda: pcps.pcps_quicksync_fold(x, dops, t, fold))
+    ref_ms.append(time_ms(lambda: pcps._fold_reference(x, dops, t, fold)))
+    floor_ms = time_ms(lambda: pcps._fold_empty(m, d, nf, x.device))
+    print(f"  {what}: {ms:.4f} ms, the replaced kernel {ref_ms[0]:.4f} / "
+          f"{ref_ms[1]:.4f} ms, an empty kernel on its grid {floor_ms:.4f} "
+          f"ms ({ms / floor_ms:.2f} x)")
+    row = _row(
+        "K4b_quicksync_fold", "cuda",
+        "gnss_sim_receiver_tpu_torch/csrc/pcps_wipe.cu",
+        "gnss_sim_receiver_tpu/ops/pcps.py:152", err, ms,
+        time_ms(lambda: pcps._fold_plain(x, dops, t, fold)),
+        m * n * 8 + n * 4 + d * 4 + m * d * nf * 8,
+        # per (bin, sample): phase 2, sincos 2; per (dwell, bin, sample):
+        # product 6, fold sum 2
+        d * n * 4 + m * d * n * 8,
+        f"M={m} dwells, D={d} Doppler bins, N={n} samples, fold {fold} "
+        f"-> N/fold={nf} ({label})")
+    row.update(reference_ms=float(np.mean(ref_ms)), launch_floor_ms=floor_ms)
+    return row
 
 
 def resolve_work(c: int, n: int, fold: int) -> tuple[int, int]:

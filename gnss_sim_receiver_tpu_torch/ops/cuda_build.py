@@ -41,8 +41,9 @@ same bits; ``PERF.md``).  :func:`build_all` and :func:`load` also
 build a library with extra flags into a directory of its own, for checks
 that compare two builds.  The sigma-point filters' kernels (``sigma.cu``,
 K10a and K10b) are one more unit with the default flags, and so are the
-PCPS wipeoff (``pcps_wipe.cu``, K3 and K3b) and QuickSync's resolve
-(``quicksync_resolve.cu``, K4b).
+PCPS wipeoff and QuickSync's fold (``pcps_wipe.cu``, K3, K3b and K4b),
+QuickSync's resolve (``quicksync_resolve.cu``, K4b) and pulse blanking
+(``pulse_blank.cu``, K5c).
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ LIBRARIES = {
     "sigma_kernels": ("sigma",),
     "pcps_wipe": ("pcps_wipe",),
     "quicksync_resolve": ("quicksync_resolve",),
+    "pulse_blank": ("pulse_blank",),
 }
 SOURCES = tuple(u for units in LIBRARIES.values() for u in units)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

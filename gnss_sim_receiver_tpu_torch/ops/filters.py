@@ -16,8 +16,12 @@ Pulse_Blanking_Filter).
   single-pass scan with a decoupled look-back (``csrc/notch.cu``, one
   launch; the three-launch blocked scan it replaced stays as
   :func:`_notch_reference`).
-- K5c :func:`pulse_blanking`: two Triton kernels (window power; blanking)
-  with the median of the window powers, a torch sort, between them.
+- K5c :func:`pulse_blanking`: three launches of ``csrc/pulse_blank.cu``
+  (window powers and the copy of x in one read, with a histogram of the
+  powers' top bits; the median by radix select in one thread-block
+  cluster; the zeroing), no library call; the two Triton kernels with a
+  torch sort between them that it replaced stay as
+  :func:`_blank_reference`.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (``_fir_plain``, ``_mix_plain``, ``_notch_plain``, ``_blank_plain``;
@@ -365,12 +369,90 @@ def _notch_lib(extra: tuple[str, ...] = (), build_dir=None):
     return lib
 
 
-# ---- K5c: pulse blanking (Triton) ------------------------------------------
+# ---- K5c: pulse blanking (CUDA) --------------------------------------------
+
+def pulse_blanking(x: torch.Tensor, threshold_sigmas: float = 4.0,
+                   window: int = 64) -> torch.Tensor:
+    """K5c wrapper: zero out the whole `window`-sample windows whose mean
+    power exceeds threshold_sigmas^2 x the stream's median window power
+    (the reference Pulse_Blanking_Filter); the ragged tail is kept.  On the
+    card: three launches of ``csrc/pulse_blank.cu`` (:func:`_blank_cuda`);
+    calls on one device must not run on two streams at once (they share
+    the histogram scratch of :func:`_blank_hist`)."""
+    if x.dim() != 1:
+        raise ValueError("pulse_blanking: x must be one-dimensional")
+    if x.shape[0] // window == 0:
+        return x.clone()
+    if not check_kernel_device(x, "pulse_blanking"):
+        return _blank_plain(x, threshold_sigmas, window)
+    out, _, _ = _blank_cuda(x, threshold_sigmas, window)
+    pulse_blanking.launches += 1
+    return out
+
+
+pulse_blanking.launches = 0
+
+
+def _blank_check(x, window: int) -> None:
+    require(x, torch.complex64, x.device, "pulse_blanking: x")
+    if window & (window - 1) or 2 * x.shape[0] >= 2 ** 31:
+        raise ValueError("pulse_blanking: the kernel needs a power-of-two "
+                         "window and fewer than 2^30 samples")
+
+
+def _blank_cuda(x: torch.Tensor, threshold_sigmas: float, window: int):
+    """Launch K5c on the CUDA tensor x (at least one whole window) ->
+    (out, the [n // window] window powers, the [1] threshold), all on the
+    card; not counted."""
+    _blank_check(x, window)
+    lib = _blank_lib()
+    n = x.shape[0]
+    th = np.float32(threshold_sigmas)
+    out = torch.empty_like(x)
+    pw = torch.empty(n // window, dtype=torch.float32, device=x.device)
+    thr = torch.empty(1, dtype=torch.float32, device=x.device)
+    err = lib.pulse_blank(
+        x.data_ptr(), n, window, float(th * th), out.data_ptr(),
+        pw.data_ptr(), thr.data_ptr(), _blank_hist(lib, x.device).data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "pulse_blank")
+    return out, pw, thr
+
+
+# the top-digit histogram of each device, allocated zeroed once
+_blank_hists: dict = {}
+
+
+def _blank_hist(lib, device) -> torch.Tensor:
+    """The global histogram K5c counts the window powers' top bits into:
+    allocated zeroed once per device, then reused, since each call leaves
+    it zeroed (the selection launch clears it as it reads it)."""
+    key = str(device)
+    if key not in _blank_hists:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("pulse_blanking: call it once outside a CUDA "
+                               "graph capture first")
+        _blank_hists[key] = torch.zeros(lib.pulse_blank_bins(),
+                                        dtype=torch.int32, device=device)
+    return _blank_hists[key]
+
+
+def _blank_lib():
+    lib = cuda_build.load("pulse_blank")
+    if lib.pulse_blank.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.pulse_blank.argtypes = [p, ll, i, ctypes.c_float, p, p, p, p, p]
+        lib.pulse_blank.restype = i
+        lib.pulse_blank_bins.argtypes = []
+        lib.pulse_blank_bins.restype = i
+    return lib
+
 
 @functools.cache
 def _kernels():
-    """Define the Triton kernels (imported here, never at module import:
-    the CPU machines that run the tests have no triton)."""
+    """Define the Triton kernels of :func:`_blank_reference` (imported here,
+    never at module import: the CPU machines that run the tests have no
+    triton)."""
     import triton
     import triton.language as tl
 
@@ -403,38 +485,44 @@ def _kernels():
     return window_power_kernel, blank_kernel
 
 
-def pulse_blanking(x: torch.Tensor, threshold_sigmas: float = 4.0,
-                   window: int = 64) -> torch.Tensor:
-    """K5c wrapper: zero out the whole `window`-sample windows whose mean
-    power exceeds threshold_sigmas^2 x the stream's median window power
-    (the reference Pulse_Blanking_Filter); the ragged tail is kept."""
-    if x.dim() != 1:
-        raise ValueError("pulse_blanking: x must be one-dimensional")
-    n = x.shape[0]
-    n_win = n // window
-    if n_win == 0:
-        return x.clone()
-    if not check_kernel_device(x, "pulse_blanking"):
-        return _blank_plain(x, threshold_sigmas, window)
-    require(x, torch.complex64, x.device, "pulse_blanking: x")
-    if window & (window - 1) or 2 * n >= 2 ** 31:
-        raise ValueError("pulse_blanking: the kernel needs a power-of-two "
-                         "window and fewer than 2^30 samples")
-    import triton
-    window_power_kernel, blank_kernel = _kernels()
-    xf = torch.view_as_real(x)
-    pw = torch.empty(n_win, dtype=torch.float32, device=x.device)
-    bw = 16
-    window_power_kernel[(triton.cdiv(n_win, bw),)](
-        xf, pw, n_win, WINDOW2=2 * window, BW=bw, num_warps=4)
-    thr = _blank_threshold(pw, threshold_sigmas).reshape(1)
-    out = torch.empty_like(x)
-    block = 2048
-    blank_kernel[(triton.cdiv(2 * n, block),)](
-        xf, pw, thr, torch.view_as_real(out), 2 * n_win * window, 2 * n,
-        WINDOW2=2 * window, BLOCK=block, num_warps=4)
-    pulse_blanking.launches += 1
+def _blank_reference(x: torch.Tensor, threshold_sigmas: float = 4.0,
+                     window: int = 64) -> torch.Tensor:
+    """K5c before its redesign: the window powers (Triton), their median
+    (a torch sort and four small torch operations), the blanking (Triton),
+    x read twice.  The reference of :func:`pulse_blanking` on the card,
+    CUDA tensors with at least one whole window only; on no path, not
+    counted."""
+    out, stages = _blank_reference_stages(x, threshold_sigmas, window)
+    for stage in stages:
+        stage()
     return out
 
 
-pulse_blanking.launches = 0
+def _blank_reference_stages(x, threshold_sigmas: float, window: int):
+    """:func:`_blank_reference` as (out, its three stages: power,
+    threshold, blank), callables run in that order to fill out;
+    tools/probe_blanking.py times them apart."""
+    _blank_check(x, window)
+    import triton
+    window_power_kernel, blank_kernel = _kernels()
+    n = x.shape[0]
+    n_win = n // window
+    xf = torch.view_as_real(x)
+    pw = torch.empty(n_win, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    thr = [None]
+    bw, block = 16, 2048
+
+    def power():
+        window_power_kernel[(triton.cdiv(n_win, bw),)](
+            xf, pw, n_win, WINDOW2=2 * window, BW=bw, num_warps=4)
+
+    def threshold():
+        thr[0] = _blank_threshold(pw, threshold_sigmas).reshape(1)
+
+    def blank():
+        blank_kernel[(triton.cdiv(2 * n, block),)](
+            xf, pw, thr[0], torch.view_as_real(out), 2 * n_win * window,
+            2 * n, WINDOW2=2 * window, BLOCK=block, num_warps=4)
+
+    return out, (power, threshold, blank)

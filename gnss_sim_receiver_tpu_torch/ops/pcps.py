@@ -58,10 +58,12 @@ combines the tiles' maxima into the ratio; :func:`detect` picks K3c or
 the CFAR kernel for every search function.
 
 QuickSync (kernel K4b) folds the dwell by `fold` before the FFT: the fold
-kernel (:func:`pcps_quicksync_fold`) wipes the carrier and sums the `fold`
-equal segments in one pass, writing [M, D, N/fold] (the [M, D, N] wiped
-dwells never reach device memory); cuFFT, the product with the folded
-code's conjugate spectrum and the K3 peak kernel follow on the
+kernel (:func:`pcps_quicksync_fold`, CUDA, ``csrc/pcps_wipe.cu``: one
+sincosf per (bin, sample) for its CTA's slice of dwells; the Triton kernel
+it replaced stays as :func:`_fold_reference`) wipes the carrier and sums
+the `fold` equal segments in one pass, writing [M, D, N/fold] (the
+[M, D, N] wiped dwells never reach device memory); cuFFT, the product with
+the folded code's conjugate spectrum and the K3 peak kernel follow on the
 [M, C, D, N/fold] planes; the resolve kernel (:func:`pcps_quicksync_resolve`)
 then takes the full-length correlation of dwell 0 at the `fold` candidate
 delays of each channel and keeps the largest, on the card, in one CUDA
@@ -651,7 +653,8 @@ def _kernels():
     def fold_kernel(x_ptr, t_ptr, dop_ptr, out_ptr, n, nf, n_dop, fold,
                     neg_two_pi, BLOCK: tl.constexpr):
         # K4b fold: x [M, N] -> out [M, D, NF] complex64 (interleaved
-        # float32), out[m, d, j] = sum_f x[m, f NF + j] exp(-j w_d t)
+        # float32), out[m, d, j] = sum_f x[m, f NF + j] exp(-j w_d t); the
+        # reference of csrc/pcps_wipe.cu (_fold_reference), on no path
         pid_j = tl.program_id(0)
         d = tl.program_id(1)
         m = tl.program_id(2)
@@ -806,12 +809,16 @@ def _wipe_reference(x_dwells: torch.Tensor, dopplers: torch.Tensor,
 
 
 def _wipe_lib():
+    """The wipeoff and fold library, its entry points typed."""
     lib = cuda_build.load("pcps_wipe")
-    fn = lib.pcps_wipe
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+    if lib.pcps_wipe.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.pcps_wipe.argtypes = [p, p, p, p, i, i, i, f, p]
+        lib.quicksync_fold.argtypes = [p, p, p, p, i, i, i, i, f, p]
+        lib.quicksync_fold_empty.argtypes = [i, i, i, p]
+        for fn in (lib.pcps_wipe, lib.quicksync_fold,
+                   lib.quicksync_fold_empty):
+            fn.restype = i
     return lib
 
 
@@ -1203,32 +1210,62 @@ def pcps_search_iq_caf(x_dwells: torch.Tensor, code_i_fft_conj: torch.Tensor,
 
 def pcps_quicksync_fold(x_dwells: torch.Tensor, dopplers: torch.Tensor,
                         t: torch.Tensor, fold: int) -> torch.Tensor:
-    """K4b fold kernel: [M, N] dwells x exp(-j 2 pi f_d t) over a [D]
-    Doppler grid, summed over `fold` equal segments -> [M, D, N // fold]
-    complex64 (the QuickSync cuFFT input); the [M, D, N] wiped dwells are
-    never written."""
+    """K4b fold kernel (``csrc/pcps_wipe.cu``): [M, N] dwells x
+    exp(-j 2 pi f_d t) over a [D] Doppler grid, summed over `fold` equal
+    segments -> [M, D, N // fold] complex64 (the QuickSync cuFFT input);
+    the [M, D, N] wiped dwells are never written."""
     if not check_kernel_device(x_dwells, "pcps_quicksync_fold"):
         return _fold_plain(x_dwells, dopplers, t, fold)
+    out = _fold_out(x_dwells, dopplers, t, fold)
+    m, n = x_dwells.shape
+    err = _wipe_lib().quicksync_fold(
+        x_dwells.data_ptr(), t.data_ptr(), dopplers.data_ptr(),
+        out.data_ptr(), m, dopplers.shape[0], n, fold, NEG_TWO_PI,
+        torch.cuda.current_stream(x_dwells.device).cuda_stream)
+    cuda_build.check(err, "quicksync_fold")
+    pcps_quicksync_fold.launches += 1
+    return out
+
+
+pcps_quicksync_fold.launches = 0
+
+
+def _fold_out(x_dwells, dopplers, t, fold: int):
+    """Check the fold's CUDA inputs; its [M, D, N // fold] output."""
     dev = x_dwells.device
     require(x_dwells, torch.complex64, dev, "pcps_quicksync_fold: x_dwells")
     require(dopplers, torch.float32, dev, "pcps_quicksync_fold: dopplers")
     require(t, torch.float32, dev, "pcps_quicksync_fold: t")
     m, n = x_dwells.shape
     nf = n // fold
-    d = dopplers.shape[0]
     if dopplers.dim() != 1 or fold < 1 or nf < 1 or t.shape[0] < nf * fold:
         raise ValueError("pcps_quicksync_fold: bad shapes")
-    out = torch.empty((m, d, nf), dtype=torch.complex64, device=dev)
+    return torch.empty((m, dopplers.shape[0], nf), dtype=torch.complex64,
+                       device=dev)
+
+
+def _fold_reference(x_dwells: torch.Tensor, dopplers: torch.Tensor,
+                    t: torch.Tensor, fold: int) -> torch.Tensor:
+    """The fold before its redesign, the Triton ``fold_kernel`` (one
+    program per tile, bin and dwell; cos and sin per dwell): the reference
+    of :func:`pcps_quicksync_fold` on the card, CUDA tensors only; on no
+    path, not counted."""
+    out = _fold_out(x_dwells, dopplers, t, fold)
+    m, d, nf = out.shape
     block = 512
     _kernels()["fold"][((nf + block - 1) // block, d, m)](
         torch.view_as_real(x_dwells), t, dopplers, torch.view_as_real(out),
-        n, nf, d, fold, float(np.float32(-2.0 * math.pi)), BLOCK=block,
+        x_dwells.shape[1], nf, d, fold, NEG_TWO_PI, BLOCK=block,
         num_warps=4)
-    pcps_quicksync_fold.launches += 1
     return out
 
 
-pcps_quicksync_fold.launches = 0
+def _fold_empty(m: int, d: int, nf: int, device) -> None:
+    """An empty kernel on the fold's grid: the launch floor chip_smoke.py
+    times the fold against; not counted."""
+    err = _wipe_lib().quicksync_fold_empty(
+        m, d, nf, torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.check(err, "quicksync_fold_empty")
 
 
 def pcps_quicksync_resolve(x_dwell: torch.Tensor,

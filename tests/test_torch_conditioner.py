@@ -294,26 +294,49 @@ def test_notch_sub_tiles_by_length():
     assert filters.notch_sub_tiles(1, 2048) == 1
 
 
-@pytest.mark.parametrize("n", [
-    64 * 128,           # even window count
-    64 * 127,           # odd window count
-    64 * 128 + 37,      # even count and a ragged tail
-    64 * 127 + 1,       # odd count and a one-sample tail
-])
-def test_pulse_blanking_matches_jax(n):
-    """Exact agreement: both sides blank the same windows (the median
-    averages the two middle values for an even count, as jnp.median does)
-    and pass the other samples through untouched."""
+def _blank_stream(n, stream):
+    """n samples of noise (unit power) with pulses over two windows, or a
+    tie-heavy stream (a third of the windows all zero, a third constant at
+    1 + 1j, so that many powers are exactly equal; a pulse), or a
+    zero-majority one (three windows in five all zero: the median is 0, so
+    every window with any power is blanked)."""
     x = _noise(n, seed=n) * np.float32(np.sqrt(0.5))
+    n_win = n // 64
+    kind = np.random.default_rng(n + 1).random(n_win)
+    whole = x[:n_win * 64].reshape(-1, 64)
+    if stream == "tie-heavy":
+        whole[kind < 1 / 3] = 0.0
+        whole[(kind >= 1 / 3) & (kind < 2 / 3)] = 1.0 + 1.0j
+    elif stream == "zero-majority":
+        whole[kind < 0.6] = 0.0
     if n > 2000:
         x[1000:1100] += 50.0
         x[3000:3010] += 9.0
+    return x
+
+
+@pytest.mark.parametrize("n,stream", [
+    pytest.param(64 * 128, "pulses", id="8192"),       # even window count
+    pytest.param(64 * 127, "pulses", id="8128"),       # odd window count
+    pytest.param(64 * 128 + 37, "pulses", id="8229"),  # a ragged tail
+    pytest.param(64 * 127 + 1, "pulses", id="8129"),   # a one-sample tail
+    pytest.param(64 * 128 + 37, "tie-heavy", id="tie-heavy"),
+    pytest.param(64 * 127, "zero-majority", id="zero-majority"),
+])
+def test_pulse_blanking_matches_jax(n, stream):
+    """Exact agreement: both sides blank the same windows (the median
+    averages the two middle values for an even count, as jnp.median does)
+    and pass the other samples through untouched."""
+    x = _blank_stream(n, stream)
     want = np.asarray(jfilters.pulse_blanking(jnp.asarray(x), 4.0, 64))
     got = filters.pulse_blanking(torch.from_numpy(x), 4.0, 64).numpy()
     assert np.array_equal(got, want)
     if n > 2000:
         assert np.abs(got[1024:1088]).max() == 0.0
         assert np.array_equal(got[n - n % 64:], x[n - n % 64:])
+    if stream == "zero-majority":
+        assert np.array_equal(got[:n - n % 64] != 0,
+                              np.zeros(n - n % 64, bool))
 
 
 def test_pulse_blanking_shorter_than_a_window_passes_through():
@@ -328,6 +351,91 @@ def test_median_averages_the_middle_pair():
     assert float(filters._median(v)) == 2.5 == float(jnp.median(
         jnp.asarray(v.numpy())))
     assert float(filters._median(v[:3])) == 3.0
+
+
+# ---- K5c's median on the card: its radix select, digit by digit ----------
+
+def _find_rank(hist, k, high, bits):
+    """The bin of `hist` holding rank k (the first whose running count
+    passes k) -> (high << bits | bin, k's rank within the bin), as
+    csrc/pulse_blank.cu's find_rank."""
+    cum = np.cumsum(hist)
+    b = int(np.searchsorted(cum, k, side="right"))
+    return (high << bits) | b, k - int(cum[b] - hist[b])
+
+
+def _radix_median(pw):
+    """csrc/pulse_blank.cu's selection in numpy: ranks (n-1)/2 and n/2 of
+    the powers' uint32 bit patterns (non-negative floats sort as their
+    bits) through a histogram of the top 11 bits (the power pass), then
+    the next 11 and the last 10 among the powers of each rank's prefix
+    (one histogram while the two share it, one each after they part), and
+    the median in _median's float32 order."""
+    bits = np.asarray(pw, np.float32).view(np.uint32)
+    n = bits.size
+    sel = [_find_rank(np.bincount(bits >> 21, minlength=2048), k, 0, 0)
+           for k in ((n - 1) // 2, n // 2)]
+    for key_shift, shift, width in ((21, 10, 11), (10, 0, 10)):
+        split = sel[0][0] != sel[1][0]
+        hists = [np.bincount((bits[(bits >> key_shift) == sel[r][0]] >> shift)
+                             & ((1 << width) - 1), minlength=1 << width)
+                 for r in range(2 if split else 1)]
+        sel = [_find_rank(hists[r if split else 0], sel[r][1], sel[r][0],
+                          width) for r in range(2)]
+    v = np.array([p for p, _ in sel], np.uint32).view(np.float32)
+    half = np.float32(0.5)
+    return np.float32(v[0] * half) + np.float32(v[1] * half)
+
+
+def _selection_inputs(case):
+    rng = np.random.default_rng(len(case))
+    one = np.float32(1.0)
+    if case == "random":               # 64-sample window powers of noise
+        return (rng.chisquare(128, 4001) / 128).astype(np.float32)
+    if case == "random-even":
+        return (rng.chisquare(128, 4000) / 128).astype(np.float32)
+    if case == "tie-heavy":
+        return rng.choice(np.float32([0.0, 0.5, 2.0, 2.0, 7.0]), 3000)
+    if case == "all-equal":
+        return np.full(777, np.float32(1.3))
+    if case == "zero-majority":
+        v = (rng.chisquare(128, 1001) / 128).astype(np.float32)
+        v[rng.random(1001) < 0.6] = 0.0
+        return v
+    if case == "half-zero":            # median between 0 and a power
+        return np.concatenate([np.zeros(500, np.float32),
+                               np.full(500, np.float32(3.0))])
+    if case == "part-top":             # the middle pair in two top bins
+        return np.float32([1.0, 1.0, 3.0, 3.0, 0.2, 9.0])
+    if case == "part-second":          # ... in two bins of the second digit
+        return np.float32([one, one + np.float32(2.0 ** -10), 5.0, 0.0])
+    if case == "part-last":            # ... one ulp apart
+        return np.float32([one, np.nextafter(one, np.float32(2.0)), 4.0,
+                           0.0])
+    if case == "inf":
+        v = (rng.chisquare(128, 2001) / 128).astype(np.float32)
+        v[rng.random(2001) < 0.1] = np.inf
+        return v
+    if case == "inf-median":
+        return np.float32([np.inf, np.inf, np.inf, 1.0, 2.0])
+    if case == "tiny":                 # subnormal powers, a one-window stream
+        return np.float32([1e-40])
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "random", "random-even", "tie-heavy", "all-equal", "zero-majority",
+    "half-zero", "part-top", "part-second", "part-last", "inf",
+    "inf-median", "tiny"])
+def test_radix_median_is_the_sorted_median(case):
+    """The kernel's selection, emulated, against _median (torch.sort),
+    bit for bit, on odd and even counts, ties, zeros, the middle pair
+    parted at each digit, +inf and a subnormal."""
+    pw = _selection_inputs(case)
+    want = filters._median(torch.from_numpy(pw)).numpy()
+    got = _radix_median(pw)
+    assert got.dtype == np.float32
+    assert np.float32(got).view(np.uint32) == want.view(np.uint32)
 
 
 @pytest.mark.parametrize("n_in", [4000, 4001])

@@ -98,6 +98,34 @@ def test_quicksync_grid_matches_jax(dwells):
     assert np.allclose(stat.numpy(), np.asarray(ws), rtol=1e-4)
 
 
+@pytest.mark.parametrize("m,fold", [(10, 8)])
+def test_quicksync_fold_matches_jax_grid(m, fold):
+    """K4b's fold kernel's plain version on M = 10 dwells at fold 8 (more
+    dwells than one CTA of the CUDA kernel takes), then cuFFT's role, the
+    folded replica and |.|^2 summed over the dwells, against the JAX
+    folded grid: within 1e-4 of its max (two float32 FFT libraries), the
+    same peak cell."""
+    x, n = _gps_dwells(delay_chips=612.25, cn0=48.0, m=m)
+    x = np.array(x)
+    codes = np.stack([jpc.sample_code(jpc.gps_l1_ca_code(p), FS, 1.023e6, N)
+                      for p in (7, 9)]).astype(np.float32)
+    dops = jpcps.doppler_grid(5000.0, 250.0)
+    want = np.asarray(jpcps.pcps_quicksync_grid(
+        jnp.asarray(x), jnp.asarray(codes), jnp.asarray(dops), FS, fold))
+    folded = ppcps.pcps_quicksync_fold(
+        torch.from_numpy(x), torch.from_numpy(dops),
+        ppcps.time_axis(n, FS, "cpu"), fold)
+    assert folded.shape == (m, 41, n // fold)
+    cffc = torch.from_numpy(ppcps.fold_codes(codes, fold))
+    corr = torch.fft.ifft(torch.fft.fft(folded, dim=-1)[:, None]
+                          * cffc[None, :, None], dim=-1)
+    got = (corr.real ** 2 + corr.imag ** 2).sum(dim=0).numpy()
+    assert got.shape == want.shape == (2, 41, n // fold)
+    assert np.abs(got - want).max() < 1e-4 * want.max()
+    assert (np.unravel_index(int(np.argmax(got)), got.shape)
+            == np.unravel_index(int(np.argmax(want)), want.shape))
+
+
 @pytest.mark.parametrize("fold,tie", [(2, False), (4, False), (8, False),
                                       (2, True)])
 def test_quicksync_resolve_matches_jax(dwells, fold, tie):
