@@ -34,15 +34,20 @@ Phases (any failure exits non-zero, before the result line):
    C=10, fold 8 with an exact tie, beside an empty kernel's launch
    floor), K4c with and without its
    Doppler boxcar, K3c (the first-vs-second-peak statistic) in its plain,
-   dual and CAF forms on K3's, K4a's and K4c's correlations, K5a, K5b
+   dual and CAF forms on K3's, K4a's and K4c's correlations (the plain
+   form, one CUDA launch, also bit for bit the three Triton launches it
+   replaced, at phase 4's shape, N = 4000, the ROC harness's C = 384,
+   N = 20000, 40000, 2001 and 800001, and on planted ties, peaks at the
+   row's ends and zones covering the row), K5a, K5b
    (the single-pass scan, also at a narrow notch and, at 4 M and 104 M
    samples, against the three-launch kernel it replaced, both timed),
    K5c, K5d in both modes, K6 (also bit for bit the kernel before its
    redesign, one thread per sample, noiseless and with the phases' noise
    key, on the first and the last chunk of the hybrid, full-chain and
    wideband scenarios; both timed), K3's row kernel alone at phase 9's
-   Doppler-sharded shape, K7's overlap-save fold at phase 9's shape
-   and at L = 4 N, K10a and K10b, the sigma-point filters' kernels, at
+   Doppler-sharded shape, K7's overlap-save fold (CUDA, bit for bit the
+   Triton kernel it replaced) at phase 9's shape, at L = 4 N, at an odd N
+   and at L = N, K10a and K10b, the sigma-point filters' kernels, at
    4096 filters of 4 and of 9 states under both rules, beside
    torch.linalg.cholesky_ex and solve_ex) against its
    plain PyTorch version on the card at the shape its path
@@ -1720,22 +1725,29 @@ def check_k3c(name: str, corr, m: int, spc: int, form: str, caf_bins: int,
     """K3c (pcps_second_peak) in the grid form `form` on the correlations
     its search gives it, against its plain version (the grid materialised,
     then first_vs_second_peak_stat): the statistic to 1e-4 of its scale,
-    the cells exact.  Timed whole (the form's row kernel, the tiles of the
-    peak row, the ratio) and the row kernel alone, whose difference is
-    what K3c adds to the search's peak; bound: the correlations read once
+    the cells exact.  The plain form (one CUDA launch, csrc/pcps_rows.cu)
+    also bit for bit the three Triton launches it replaced
+    (_second_peak_reference), one device operation a call, timed beside
+    them in turns and beside an empty kernel on its grid.  Every form is
+    timed whole and against its Triton row kernel alone, whose difference
+    is what K3c adds to a row pass; bound: the correlations read once
     (that of the added part: the peak row's planes read again)."""
-    import torch
     from gnss_sim_receiver_tpu_torch.ops import pcps
     label = f"{form} form, spc={spc}" + (f", b={caf_bins}" if form == "caf"
                                          else "")
-    got = pcps.pcps_second_peak(corr, m, spc, form, caf_bins)
-    want = pcps._second_peak_plain(corr, spc, form, caf_bins)
-    torch.cuda.synchronize()
-    err = compare(f"K3c pcps_second_peak ({label}) statistic", got[0],
-                  want[0], 1e-4)
-    compare(f"K3c pcps_second_peak ({label}) cells", got[1:], want[1:], 0.0)
-    ms = time_ms(lambda: pcps.pcps_second_peak(corr, m, spc, form,
-                                               caf_bins))
+    err = k3c_case(corr, m, spc, form, caf_bins, label)
+    plain_form = form == "plain"
+
+    def call():
+        return pcps.pcps_second_peak(corr, m, spc, form, caf_bins)
+
+    def ref():
+        return pcps._second_peak_reference(corr, m, spc)
+    if plain_form:
+        ref_ms = [time_ms(ref)]
+    ms = time_ms(call)
+    if plain_form:
+        ref_ms.append(time_ms(ref))
     row_ms = time_ms(lambda: pcps._row_pass(corr, m, form, caf_bins, "K3c"))
     plain = time_ms(lambda: pcps._second_peak_plain(corr, spc, form,
                                                     caf_bins), reps=3)
@@ -1744,23 +1756,131 @@ def check_k3c(name: str, corr, m: int, spc: int, form: str, caf_bins: int,
     k = 2 * caf_bins + 1 if form == "caf" else 1
     row_bytes = m * c * n * 8 * planes * k
     added_bound, _ = bound_ms(row_bytes, 0)
-    print(f"  K3c ({label}): the peak row's tiles and the ratio add "
-          f"{ms - row_ms:.4f} ms to the row kernel's {row_ms:.4f} ms; "
-          f"their bound {added_bound:.4f} ms (the peak row's planes read "
-          f"again, {row_bytes / 1e6:.3f} MB)")
-    # per (dwell, cell) of the grid and again of the peak row: |.|^2 3
-    # (plain), the sign hypotheses 12 (dual), two |.|^2 and their sum 8
-    # per boxcar row (CAF); per cell compare, sum 2; per row cell the zone
-    # 4 and the max 1
+    print(f"  K3c ({label}): {ms:.4f} ms, {ms - row_ms:.4f} ms over the "
+          f"Triton row kernel's {row_ms:.4f} ms; the added part's bound "
+          f"{added_bound:.4f} ms (the peak row's planes read again, "
+          f"{row_bytes / 1e6:.3f} MB)")
+    # per (dwell, cell): |.|^2 3 (plain), the sign hypotheses 12 (dual),
+    # two |.|^2 and their sum 8 per boxcar row (CAF); per cell compare,
+    # sum 2; the plain form's zone 4 and max 1 per cell of every row, the
+    # others' per cell of the peak row, formed again
     per = {"plain": 3, "dual": 12, "caf": 8 * k}[form]
-    n_ops = (m * c * d * n * per + c * d * n * (2 + (k if k > 1 else 0))
-             + m * c * n * per + c * n * 5)
-    row = _row(name, "triton", "gnss_sim_receiver_tpu_torch/ops/pcps.py",
+    n_ops = m * c * d * n * per + c * d * n * (2 + (k if k > 1 else 0))
+    n_ops += (c * d * n * 5 if plain_form
+              else m * c * n * per + c * n * 5)
+    row = _row(name, "cuda" if plain_form else "triton",
+               "gnss_sim_receiver_tpu_torch/"
+               + ("csrc/pcps_rows.cu" if plain_form else "ops/pcps.py"),
                "gnss_sim_receiver_tpu/ops/pcps.py:123", err, ms, plain,
                corr.numel() * 8 + c * 12, n_ops, f"{label}: {shape}")
     row["added_ms"] = ms - row_ms
     row["added_bound_ms"] = added_bound
+    if plain_form:
+        ops = device_ops(call)
+        n_dev = sum(v[0] for v in ops.values())
+        print(f"  K3c ({label}): {n_dev:g} device operations a call "
+              f"(torch.profiler): "
+              + "; ".join(f"{v[0]:g} x {k_[:60]} {v[1]:.1f} us"
+                          for k_, v in ops.items()))
+        if ops and round(n_dev) != 1:
+            fail(f"K3c ({label}): {n_dev:g} device operations a call, not 1")
+        floor_ms = time_ms(lambda: pcps._second_peak_empty(c, d,
+                                                           corr.device))
+        print(f"  K3c ({label}): the replaced form {ref_ms[0]:.4f} / "
+              f"{ref_ms[1]:.4f} ms, an empty kernel on its grid "
+              f"{floor_ms:.4f} ms ({ms / floor_ms:.2f} x)")
+        row.update(reference_ms=float(np.mean(ref_ms)),
+                   launch_floor_ms=floor_ms)
     return row
+
+
+def k3c_case(corr, m: int, spc: int, form: str, caf_bins: int,
+             label: str) -> float:
+    """K3c against its plain version (the statistic within 1e-4 of its
+    scale, the Doppler and delay cells exact) and, in the plain form,
+    against the replaced three Triton launches bit for bit (statistic and
+    both indices).  Returns the statistic's error."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    got = pcps.pcps_second_peak(corr, m, spc, form, caf_bins)
+    want = pcps._second_peak_plain(corr, spc, form, caf_bins)
+    torch.cuda.synchronize()
+    err = compare(f"K3c pcps_second_peak ({label}) statistic", got[0],
+                  want[0], 1e-4)
+    compare(f"K3c pcps_second_peak ({label}) cells", got[1:], want[1:], 0.0)
+    if form == "plain":
+        ref = pcps._second_peak_reference(corr, m, spc)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0].view(torch.int32),
+                            ref[0].view(torch.int32))
+                and torch.equal(got[1], ref[1])
+                and torch.equal(got[2], ref[2])):
+            fail(f"K3c ({label}): differs from the replaced kernels: "
+                 f"{got} vs {ref}")
+        print(f"  K3c ({label}): statistic and indices bit for bit the "
+              "replaced kernels'")
+    return err
+
+
+def _plants(rng, m: int, c: int, d: int, n: int, dev):
+    """[M, C, D, N] integer correlations (every |.|^2 and sum exact) with
+    planted cells: channel 0 the max in rows 1 and 3 (a tie across rows,
+    row 1 first); 1 the max twice in row 2, at delays 700 and 10; 2 the
+    max at delay 0 with a near peak at N - 1 (inside the zone across the
+    wrap); 3 the max at N - 1 with a near peak at 0 and the second at
+    N - 4; 4 noise alone; 5 the max at 321, its zone across a 64-cell
+    tile edge.  Returns (corr, {channel: (d*, k*)})."""
+    import torch
+    x = (rng.integers(-3, 4, (m, c, d, n))
+         + 1j * rng.integers(-3, 4, (m, c, d, n))).astype(np.complex64)
+    for ci, di, k, v in ((0, 1, 100, 9), (0, 3, 50, 9), (1, 2, 700, 9),
+                         (1, 2, 10, 9), (2, 0, 0, 9), (2, 0, n - 1, 8),
+                         (3, 4, n - 1, 9), (3, 4, 0, 8), (3, 4, n - 4, 6),
+                         (5, 2, 321, 9), (5, 2, 319, 8), (5, 2, 324, 7)):
+        x[:, ci, di, k] = v + 1j * v
+    want = {0: (1, 100), 1: (2, 10), 2: (0, 0), 3: (4, n - 1), 5: (2, 321)}
+    return torch.from_numpy(x).to(dev), want
+
+
+def check_k3c_shapes(dev, extra: list) -> None:
+    """K3c's plain form (csrc/pcps_rows.cu) at the other shapes the paths
+    give it and at planted edge cases, each by k3c_case (bit for bit the
+    replaced kernels, 1e-4 of the plain version, cells exact): noise
+    correlations at N = 4000 (bit_transition_flag's doubled FFT), the ROC
+    harness's M = 1, C = 384 (phase 4f), N = 20000 and 40000 (GPS at 20
+    Msps, L5I; rows of several rounds, the tile maxima), N = 2001 (odd,
+    8-byte loads) and N = 800001 (more tiles than shared memory holds:
+    the planes read again); integer correlations with planted ties,
+    peaks at delays 0 and N - 1 and a zone across a tile edge at N = 2000
+    and 6000, at spc = 2, 0 and >= N / 2.  The four path shapes are timed
+    beside the replaced form; their rows go to `extra`."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    rng = np.random.default_rng(18)
+    for m, c, d, n in ((2, 10, 41, 4000), (1, 384, 41, 2000),
+                       (2, 10, 41, 20000), (2, 10, 41, 40000)):
+        corr = _cnoise(rng, m * c * d * n, dev).reshape(m, c, d, n)
+        extra.append(check_k3c("K3c_pcps_second_peak", corr, m, 2, "plain",
+                               0, f"M={m} dwells, C={c} channels, D={d} "
+                               f"Doppler bins, N={n} samples (noise)"))
+        del corr
+    for m, c, d, n in ((2, 3, 5, 2001), (1, 2, 3, 800001)):
+        corr = _cnoise(rng, m * c * d * n, dev).reshape(m, c, d, n)
+        k3c_case(corr, m, 2, "plain", 0, f"M={m}, C={c}, D={d}, N={n}")
+    for n in (2000, 6000):
+        corr, want = _plants(rng, 2, 6, 5, n, dev)
+        for spc in (2, 0, n // 2):
+            k3c_case(corr, 2, spc, "plain", 0,
+                     f"planted, N={n}, spc={spc}")
+            stat, di, de = pcps.pcps_second_peak(corr, 2, spc)
+            got = {ci: (int(di[ci]), int(de[ci])) for ci in want}
+            if got != want:
+                fail(f"K3c planted, N={n}, spc={spc}: cells {got}, not "
+                     f"{want}")
+            if spc < n // 2 and float(stat[1]) != 1.0:
+                fail(f"K3c planted, N={n}, spc={spc}: a tie within a row "
+                     f"gave {float(stat[1])}, not 1")
+    torch.cuda.empty_cache()
 
 
 def check_k5a(dev, rng):
@@ -2647,31 +2767,48 @@ OS_DELAY, OS_DOPPLER = 777, 1500.0
 
 
 def check_k7(dev, rng, extra: list) -> dict:
-    """K7 (pcps_window_fold) against its plain version on the card: [D, L +
-    N] complex64 correlations folded to [D, N], 1e-5 of the plain grid's
-    largest value (the windows are summed in order, torch.sum in its own).
-    Returns the row of phase 9's shape; the L = 4 N row goes to `extra`."""
+    """K7 (pcps_window_fold, csrc/pcps_rows.cu) on the card: [D, L + N]
+    complex64 correlations folded to [D, N], 1e-5 of the plain grid's
+    largest value (the windows are summed in order, torch.sum in its own)
+    and bit for bit the Triton kernel it replaced (_window_fold_reference),
+    at phase 9's D = 41, L = 127 N, at D = 4, L = 4 N (both timed beside
+    that kernel in turns), at an odd N and at L = N.  Returns the row of
+    phase 9's shape; the L = 4 N row goes to `extra`."""
+    import torch
     from gnss_sim_receiver_tpu_torch.ops import pcps
-    n = 2000
     out = []
-    for d, periods in ((41, OS_PERIODS), (4, 4)):
+    for d, periods, n in ((41, OS_PERIODS, 2000), (4, 4, 2000),
+                          (5, 4, 1999), (3, 1, 2000)):
         row_len = (periods + 1) * n
         corr = _cnoise(rng, d * row_len, dev).reshape(d, row_len)
         got = pcps.pcps_window_fold(corr, n)
         want = pcps._window_fold_plain(corr, n)
-        err = compare(f"K7 pcps_window_fold (D={d}, L={periods} N)", got,
-                      want, 1e-5)
+        what = f"K7 pcps_window_fold (D={d}, L={periods} N, N={n})"
+        err = compare(what, got, want, 1e-5)
+        ref = pcps._window_fold_reference(corr, n)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            fail(f"{what}: differs from the replaced Triton kernel")
+        print(f"  {what}: bit for bit the replaced Triton kernel")
+        if n % 2 or periods == 1:
+            continue
+        ref_ms = [time_ms(lambda: pcps._window_fold_reference(corr, n))]
+        ms = time_ms(lambda: pcps.pcps_window_fold(corr, n))
+        ref_ms.append(time_ms(lambda: pcps._window_fold_reference(corr, n)))
+        print(f"  {what}: {ms:.4f} ms, the replaced kernel {ref_ms[0]:.4f} "
+              f"/ {ref_ms[1]:.4f} ms")
         n_lags = periods * n
-        out.append(_row(
-            "K7_pcps_window_fold", "triton",
-            "gnss_sim_receiver_tpu_torch/ops/pcps.py",
-            "gnss_sim_receiver_tpu/parallel/shard_steps.py:226", err,
-            time_ms(lambda: pcps.pcps_window_fold(corr, n)),
+        row = _row(
+            "K7_pcps_window_fold", "cuda",
+            "gnss_sim_receiver_tpu_torch/csrc/pcps_rows.cu",
+            "gnss_sim_receiver_tpu/parallel/shard_steps.py:226", err, ms,
             time_ms(lambda: pcps._window_fold_plain(corr, n)),
             d * n_lags * 8 + d * n * 4, d * n_lags * 4,
             f"D={d} Doppler bins, L={n_lags} lags of {periods} periods, "
-            f"N={n}"))
-        del corr, got, want
+            f"N={n}")
+        row["reference_ms"] = float(np.mean(ref_ms))
+        out.append(row)
+        del corr, got, want, ref
     extra.append(out[1])
     return out[0]
 
@@ -4997,6 +5134,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
             extra += [k1, k2]
         torch.cuda.empty_cache()
     rows += [*check_k3(dev), check_k3b(dev)]
+    check_k3c_shapes(dev, extra)
     k3c = []
     for variant in ("cccwsr", "8ms"):
         for fs in (FS_REF_HYBRID, FS_FILE):

@@ -42,8 +42,9 @@ build a library with extra flags into a directory of its own, for checks
 that compare two builds.  The sigma-point filters' kernels (``sigma.cu``,
 K10a and K10b) are one more unit with the default flags, and so are the
 PCPS wipeoff and QuickSync's fold (``pcps_wipe.cu``, K3, K3b and K4b),
-QuickSync's resolve (``quicksync_resolve.cu``, K4b) and pulse blanking
-(``pulse_blank.cu``, K5c).
+QuickSync's resolve (``quicksync_resolve.cu``, K4b), pulse blanking
+(``pulse_blank.cu``, K5c), and K3c's plain form with K7's fold
+(``pcps_rows.cu``).
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ LIBRARIES = {
     "pcps_wipe": ("pcps_wipe",),
     "quicksync_resolve": ("quicksync_resolve",),
     "pulse_blank": ("pulse_blank",),
+    "pcps_rows": ("pcps_rows",),
 }
 SOURCES = tuple(u for units in LIBRARIES.values() for u in units)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

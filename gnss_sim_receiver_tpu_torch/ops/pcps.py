@@ -49,13 +49,18 @@ grid with 2 M correlations per cell; :func:`pcps_search_iq_caf` packs the
 [4, C] buffer.
 
 The first-vs-second-peak statistic of ``use_CFAR_algorithm=false``
-(kernel K3c, :func:`pcps_second_peak`) takes the peak from the row kernel
-of the search that found it (K3's, K4a's or K4c's: the grid form
-"plain", "dual" or "caf"), forms only the peak's Doppler row again from
-the correlations, tiled over programs, zeroes the cells within
-samples_per_chip of the peak delay (circularly), and a second launch
-combines the tiles' maxima into the ratio; :func:`detect` picks K3c or
-the CFAR kernel for every search function.
+(kernel K3c, :func:`pcps_second_peak`) takes the peak of the search's
+grid, zeroes the cells of its Doppler row within samples_per_chip of the
+peak delay (circularly) and divides the peak by that row's max.  K3's
+grid (the "plain" form) is one CUDA launch (``csrc/pcps_rows.cu``: a CTA
+per Doppler row forms its cells once, its max, first argmax and its own
+second around that argmax; the channel's last CTA picks the first row at
+the peak and takes the ratio; the three Triton launches it replaced stay
+as :func:`_second_peak_reference`).  K4a's and K4c's grids ("dual",
+"caf") take the peak from their row kernel, form the peak's row again
+from the correlations, tiled over programs, and a third launch takes the
+ratio.  :func:`detect` picks K3c or the CFAR kernel for every search
+function.
 
 QuickSync (kernel K4b) folds the dwell by `fold` before the FFT: the fold
 kernel (:func:`pcps_quicksync_fold`, CUDA, ``csrc/pcps_wipe.cu``: one
@@ -76,8 +81,10 @@ searches reuse K3 and K3b.
 The sharded searches of ``parallel.shard_steps`` take two more: K3's row
 kernel alone (:func:`pcps_rows`, the per-row max, first argmax and sum a
 Doppler-sharded search reduces across ranks) and K7's fold
-(:func:`pcps_window_fold`, the time-sharded overlap-save search's |corr|^2
-folded modulo the code period over its valid lags).
+(:func:`pcps_window_fold`, CUDA, ``csrc/pcps_rows.cu``: the time-sharded
+overlap-save search's |corr|^2 folded modulo the code period over its
+valid lags; the Triton kernel it replaced stays as
+:func:`_window_fold_reference`).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors.  :func:`pcps_grid`, :func:`pcps_grid_per_channel`,
@@ -591,8 +598,10 @@ def _kernels():
         tl.store(del_ptr + c, delay)
 
     # K3c replaces gnss_sim_receiver_tpu/ops/pcps.py:123
-    # first_vs_second_peak_stat.  The peak (row d_best, delay) comes from
-    # the row buffers of the search's own row kernel (K3, K4a or K4c); only
+    # first_vs_second_peak_stat; these kernels are its dual and CAF forms,
+    # and the reference of its plain form (csrc/pcps_rows.cu since its
+    # redesign, _second_peak_reference).  The peak (row d_best, delay)
+    # comes from the row buffers of the search's own row kernel; only
     # the peak row of each channel is formed again from the correlations,
     # in the grid form FORM of that search (0: sum_m |c|^2; 1: sum_m
     # max(|a+b|^2, |a-b|^2); 2: the (2b+1)-row boxcar of sum_m |ci|^2 +
@@ -707,15 +716,12 @@ def _kernels():
         vi = tl.sum(acc_i, axis=0)
         tl.store(mag_ptr + c * fold + k, tl.sqrt(vr * vr + vi * vi))
 
-    # K7 replaces the fold of gnss_sim_receiver_tpu/parallel/
-    # shard_steps.py:224-227 (overlap_save_acq_grid, :184): |corr|^2 of the
-    # first L lags of each Doppler row folded modulo the code period N.  Bound
-    # by bytes: D L 8 read once, D N 4 written once (84 MB at D = 41, L =
-    # 254000), under one float32 operation per byte.  One program per
-    # (tile of N lags, row); the windows are summed in order in registers.
-    # Simple first: that is D ceil(N / 1024) programs (82 at D = 41), each
-    # a chain of L / N window loads, too few to keep the card's memory busy
-    # (PERF.md's table).
+    # K7's fold before its redesign (csrc/pcps_rows.cu; this kernel is
+    # its reference, _window_fold_reference, on no path): |corr|^2 of the
+    # first L lags of each Doppler row folded modulo the code period N, one
+    # program per (tile of N lags, row), the windows summed in order in
+    # registers.  That is D ceil(N / 1024) programs (82 at D = 41), each a
+    # chain of L / N window loads, too few to keep the card's memory busy.
     @triton.jit
     def window_fold_kernel(corr_ptr, out_ptr, row_len, n, n_win,
                            BLOCK: tl.constexpr):
@@ -939,34 +945,71 @@ def _window_fold_plain(corr, n: int):
     return mag.reshape(d, -1, n).sum(dim=1)
 
 
-WINDOW_FOLD_BLOCK = 1024
-
-
-def pcps_window_fold(corr: torch.Tensor, n: int) -> torch.Tensor:
-    """K7, the overlap-save fold: [D, L + N] complex64 linear correlations
-    of an extended segment -> [D, N] float32, grid[d, k] = sum_w
-    |corr[d, w N + k]|^2 over the L / N code-period windows of the first L
-    lags (the valid ones; the last N are the halo's).  Counted in
-    ``pcps_window_fold.launches``."""
+def _window_fold_check(corr, n: int) -> int:
+    """Check K7's input shape; the number of windows L / N."""
     if corr.dim() != 2 or n < 1:
         raise ValueError("pcps_window_fold: corr must be [D, L + N]")
-    d, row_len = corr.shape
-    n_lags = row_len - n
+    n_lags = corr.shape[1] - n
     if n_lags < n or n_lags % n:
         raise ValueError(f"pcps_window_fold: L = {n_lags} lags must be a "
                          f"positive multiple of N = {n}")
+    return n_lags // n
+
+
+def pcps_window_fold(corr: torch.Tensor, n: int) -> torch.Tensor:
+    """K7, the overlap-save fold (``csrc/pcps_rows.cu``): [D, L + N]
+    complex64 linear correlations of an extended segment -> [D, N] float32,
+    grid[d, k] = sum_w |corr[d, w N + k]|^2 over the L / N code-period
+    windows of the first L lags (the valid ones; the last N are the
+    halo's), the windows added in order.  Counted in
+    ``pcps_window_fold.launches``."""
+    n_win = _window_fold_check(corr, n)
     if not check_kernel_device(corr, "pcps_window_fold"):
         return _window_fold_plain(corr, n)
     require(corr, torch.complex64, corr.device, "pcps_window_fold: corr")
+    d = corr.shape[0]
     out = torch.empty((d, n), dtype=torch.float32, device=corr.device)
-    _kernels()["window_fold"][(-(-n // WINDOW_FOLD_BLOCK), d)](
-        torch.view_as_real(corr), out, row_len, n, n_lags // n,
-        BLOCK=WINDOW_FOLD_BLOCK, num_warps=4)
+    err = _rows_lib().pcps_window_fold(
+        corr.data_ptr(), out.data_ptr(), d, n, n_win,
+        torch.cuda.current_stream(corr.device).cuda_stream)
+    cuda_build.check(err, "pcps_window_fold")
     pcps_window_fold.launches += 1
     return out
 
 
 pcps_window_fold.launches = 0
+
+
+def _window_fold_reference(corr: torch.Tensor, n: int) -> torch.Tensor:
+    """K7 before its redesign, the Triton ``window_fold_kernel`` (one
+    program per 1024 lags and row, each lane a chain of window loads): the
+    reference of :func:`pcps_window_fold` on the card, CUDA tensors only;
+    on no path, not counted."""
+    n_win = _window_fold_check(corr, n)
+    require(corr, torch.complex64, corr.device, "pcps_window_fold: corr")
+    d, row_len = corr.shape
+    out = torch.empty((d, n), dtype=torch.float32, device=corr.device)
+    block = 1024
+    _kernels()["window_fold"][(-(-n // block), d)](
+        torch.view_as_real(corr), out, row_len, n, n_win, BLOCK=block,
+        num_warps=4)
+    return out
+
+
+def _rows_lib(extra: tuple[str, ...] = (), build_dir=None):
+    """K3c's plain form and K7's fold (``csrc/pcps_rows.cu``), typed;
+    `extra` flags and `build_dir` as :func:`cuda_build.load` takes them
+    (the stamped build of ``tools/probe_pcps_rows.py``)."""
+    lib = cuda_build.load("pcps_rows", extra, build_dir)
+    if lib.pcps_second_peak.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pcps_second_peak.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p]
+        lib.pcps_second_peak_empty.argtypes = [i, i, p]
+        lib.pcps_window_fold.argtypes = [p, p, i, i, i, p]
+        for fn in (lib.pcps_second_peak, lib.pcps_second_peak_empty,
+                   lib.pcps_window_fold):
+            fn.restype = i
+    return lib
 
 
 def pcps_dual_peak(corr: torch.Tensor, n_dwells: int):
@@ -1016,14 +1059,90 @@ def pcps_second_peak(corr: torch.Tensor, n_dwells: int, samples_per_chip: int,
     I and Q planes with the (2 caf_bins + 1)-row boxcar) -> (stat [C],
     doppler_idx [C] int32, delay_idx [C] int32): the grid's peak over the
     max of its Doppler row with the cells within `samples_per_chip` of the
-    peak delay (circularly) zeroed.  Three launches: the form's row kernel
-    (the peak), the row tiles of the peak row, the ratio, counted once in
-    ``pcps_second_peak.launches`` (plain form), ``.launches_dual`` or
-    ``.launches_caf``.  The [C, D, N] grid never reaches device memory."""
+    peak delay (circularly) zeroed.  The plain form is one CUDA launch
+    (``csrc/pcps_rows.cu``: a CTA per Doppler row, the channel's last CTA
+    takes the ratio); the dual and CAF forms three Triton launches (the
+    form's row kernel, the peak row's tiles, the ratio).  Counted once a
+    call in ``pcps_second_peak.launches`` (plain form), ``.launches_dual``
+    or ``.launches_caf``.  The [C, D, N] grid never reaches device
+    memory."""
     if form not in FORMS:
         raise ValueError(f"pcps_second_peak: form {form!r}")
     if not check_kernel_device(corr, "pcps_second_peak"):
         return _second_peak_plain(corr, samples_per_chip, form, caf_bins)
+    if form == "plain":
+        out = _second_peak_cuda(corr, n_dwells, samples_per_chip)
+    else:
+        out = _second_peak_triton(corr, n_dwells, samples_per_chip, form,
+                                  caf_bins)
+    counter = "launches" if form == "plain" else f"launches_{form}"
+    setattr(pcps_second_peak, counter,
+            getattr(pcps_second_peak, counter) + 1)
+    return out
+
+
+pcps_second_peak.launches = 0
+pcps_second_peak.launches_dual = 0
+pcps_second_peak.launches_caf = 0
+
+
+def _second_peak_cuda(corr, n_dwells: int, samples_per_chip: int):
+    """K3c's plain form on the card: one launch of ``pcps_second_peak``
+    (``csrc/pcps_rows.cu``) over the [M, C, D, N] correlations; not
+    counted."""
+    dev = corr.device
+    require(corr, torch.complex64, dev, "pcps_second_peak: corr")
+    if corr.dim() != 4 or corr.shape[0] != n_dwells:
+        raise ValueError("pcps_second_peak: corr must be [n_dwells, C, D, N]")
+    if samples_per_chip < 0:
+        raise ValueError("pcps_second_peak: samples_per_chip must be >= 0")
+    m, c, d, n = corr.shape
+    rows = torch.empty((c * d, 4), dtype=torch.int32, device=dev)
+    stat = torch.empty(c, dtype=torch.float32, device=dev)
+    dop_idx = torch.empty(c, dtype=torch.int32, device=dev)
+    del_idx = torch.empty(c, dtype=torch.int32, device=dev)
+    err = _rows_lib().pcps_second_peak(
+        corr.data_ptr(), m, c, d, n, int(samples_per_chip), rows.data_ptr(),
+        _second_tickets(dev, c).data_ptr(), stat.data_ptr(),
+        dop_idx.data_ptr(), del_idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "pcps_second_peak")
+    return stat, dop_idx, del_idx
+
+
+# K3c's per-channel tickets of each device, allocated zeroed and grown
+_tickets: dict = {}
+
+
+def _second_tickets(device, c: int) -> torch.Tensor:
+    """The per-channel tickets K3c's CTAs draw: at least `c` int32,
+    allocated zeroed once per device (grown when a call has more channels)
+    and reused, since each launch's last CTA of a channel sets its ticket
+    back to 0."""
+    key = str(device)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < c:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("pcps_second_peak: call it once at this many "
+                               "channels outside a CUDA graph capture first")
+        buf = torch.zeros(max(c, 1024), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
+
+
+def _second_peak_empty(c: int, d: int, device) -> None:
+    """An empty kernel on K3c's grid (C D CTAs): the launch floor
+    chip_smoke.py times K3c against; not counted."""
+    err = _rows_lib().pcps_second_peak_empty(
+        c, d, torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.check(err, "pcps_second_peak_empty")
+
+
+def _second_peak_triton(corr, n_dwells: int, samples_per_chip: int,
+                        form: str, caf_bins: int):
+    """K3c in three Triton launches: the form's row kernel (the peak), the
+    row tiles of each channel's peak row, the ratio; the dual and CAF
+    forms' route, not counted."""
     import triton
     rows = _row_pass(corr, n_dwells, form, caf_bins, "pcps_second_peak")
     c, d = rows[0].shape
@@ -1045,15 +1164,16 @@ def pcps_second_peak(corr: torch.Tensor, n_dwells: int, samples_per_chip: int,
         rows[0], rows[1], tmax, stat, dop_idx, del_idx, d, n_tiles,
         BLOCK_D=block_d, BLOCK_T=triton.next_power_of_2(n_tiles),
         num_warps=1)
-    counter = "launches" if form == "plain" else f"launches_{form}"
-    setattr(pcps_second_peak, counter,
-            getattr(pcps_second_peak, counter) + 1)
     return stat, dop_idx, del_idx
 
 
-pcps_second_peak.launches = 0
-pcps_second_peak.launches_dual = 0
-pcps_second_peak.launches_caf = 0
+def _second_peak_reference(corr: torch.Tensor, n_dwells: int,
+                           samples_per_chip: int):
+    """K3c's plain form before its redesign: the three Triton launches of
+    :func:`_second_peak_triton` (K3's row kernel, the peak row's tiles, the
+    ratio).  The reference of :func:`pcps_second_peak` (plain form) on the
+    card, CUDA tensors only; on no path, not counted."""
+    return _second_peak_triton(corr, n_dwells, samples_per_chip, "plain", 0)
 
 
 def detect(corr: torch.Tensor, n_dwells: int, use_cfar: bool = True,

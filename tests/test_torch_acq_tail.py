@@ -24,6 +24,8 @@ statistic within rtol 1e-4 (two float32 FFT libraries, and the kernel's
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -145,6 +147,216 @@ def test_zone_wraps_on_a_planted_grid():
                                              spc)[0].numpy()
         assert np.array_equal(ps, js)
     assert np.allclose(ps, [20.0, 2.5, 20.0])
+
+
+# ---- K3c's plain form on the card (csrc/pcps_rows.cu), emulated -----------
+
+ROWS_CU = Path(ppcps.__file__).parents[1] / "csrc" / "pcps_rows.cu"
+
+
+def _cu_zone_dist():
+    """zone_dist of csrc/pcps_rows.cu (the circular distance of delay k
+    from the row's argmax): the operand of its % read from the source and
+    evaluated here; the kernel takes its % n as at most two subtractions
+    of n, which needs the operand in [0, 3 n) for k and the argmax in
+    [0, N) (the + n keeps it >= 0).  dist(k, peak, n) -> int64 array."""
+    body = re.search(r"int zone_dist\(int k, int peak, int n, int half\) "
+                     r"\{(.*?)\n\}", ROWS_CU.read_text(), re.S)[1]
+    operand = re.search(r"int x = (.*?);", body)[1]
+
+    def dist(k, peak, n):
+        half = n // 2
+        x = eval(operand, {}, {"k": np.asarray(k, np.int64),
+                               "peak": np.asarray(peak, np.int64),
+                               "n": n, "half": half})
+        assert ((x >= 0) & (x < 3 * n)).all()
+        x = x - np.where(x >= n, n, 0)
+        x = x - np.where(x >= n, n, 0)
+        return np.abs(x - half)
+    return dist
+
+
+def _k3c_emulated(grid, spc: int, tiles: bool):
+    """csrc/pcps_rows.cu's K3c in numpy on a [C, D, N] float32 grid.  Per
+    (channel, row), one CTA's work: the row's max and first argmax, then
+    its own second around its own argmax.  A row of one round keeps its
+    cells (`tiles` False): the max of the threads' parts
+    (:func:`_own_seconds`).  A
+    longer row (`tiles` True) takes the max of the kTileCells-cell tile
+    maxima of the tiles wholly outside the zone and of the cells outside
+    the zone of the (at most two) tiles holding the zone's ends
+    (s = argmax - spc and e = argmax + spc, modulo N; a tile holding
+    neither end is decided by its first cell).  Per channel, the last
+    CTA's work: the first row at the channel's max, its argmax, its
+    second, the ratio.  Written by hand to mirror the kernel; only
+    kTileCells, kThreads, kSlots and zone_dist are read from the
+    source."""
+    src = ROWS_CU.read_text()
+    tc, threads, slots = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                        src)[1])
+                          for name in ("kTileCells", "kThreads", "kSlots"))
+    dist = _cu_zone_dist()
+    c, d, n = grid.shape
+    n_tiles = -(-n // tc)
+    padded = np.zeros((c, d, n_tiles * tc), np.float32)
+    padded[..., :n] = grid
+    tile_max = padded.reshape(c, d, n_tiles, tc).max(axis=-1)
+    rmax, rarg = grid.max(axis=-1), grid.argmax(axis=-1)
+    first = np.arange(n_tiles) * tc
+    second = np.zeros((c, d), np.float32)
+    zero = np.float32(0.0)
+    for ci in range(c):
+        for di in range(d):
+            k = int(rarg[ci, di])
+            if not tiles:
+                second[ci, di] = _own_seconds(grid[ci, di], k, spc, dist,
+                                              threads, slots).max()
+                continue
+            s, e = ((k - spc) % n + n) % n, (k + spc) % n
+            ends = {s // tc, e // tc}
+            whole = ((dist(first, k, n) > spc)
+                     & ~np.isin(np.arange(n_tiles), list(ends)))
+            best = tile_max[ci, di, whole].max(initial=zero)
+            for j in ends:
+                cells = np.arange(j * tc, min(j * tc + tc, n))
+                keep = cells[dist(cells, k, n) > spc]
+                best = max(best, grid[ci, di, keep].max(initial=zero))
+            second[ci, di] = best
+    d_star = rmax.argmax(axis=-1)              # the first row at the max
+    ch = np.arange(c)
+    stat = rmax[ch, d_star] / np.maximum(second[ch, d_star],
+                                         np.float32(1e-30))
+    return (stat.astype(np.float32), d_star.astype(np.int32),
+            rarg[ch, d_star].astype(np.int32))
+
+
+def _own_seconds(row, k: int, spc: int, dist, threads: int, slots: int):
+    """A one-round row's per-thread parts of the second around its argmax
+    k: thread t holds the pairs u threads + t (u < slots), cells 2 p and
+    2 p + 1; its part is its own first max where that lies outside the
+    zone, else the max of its cells outside the zone."""
+    n = row.shape[0]
+    p = np.arange(slots)[None, :] * threads + np.arange(threads)[:, None]
+    idx = np.stack([2 * p, 2 * p + 1], axis=-1).reshape(threads, -1)
+    assert idx.max() >= n - 1 and (np.diff(idx, axis=1) > 0).all()
+    valid = idx < n
+    idx = np.minimum(idx, n - 1)               # the invalid cells unread
+    cells = np.where(valid, row[idx], np.float32(-1.0))
+    first = cells.argmax(axis=1)
+    best = cells[np.arange(threads), first]
+    best_i = idx[np.arange(threads), first]
+    outside = valid & (dist(idx, k, n) > spc)
+    scanned = np.where(outside, cells, np.float32(0.0)).max(axis=1)
+    own = (best >= 0) & (dist(best_i, k, n) > spc)
+    return np.where(own, best, scanned).astype(np.float32)
+
+
+def _k3c_against_jax(grid, spc: int):
+    """The emulation, in both forms, bit for bit JAX's
+    first_vs_second_peak_stat."""
+    want = [np.asarray(a) for a in
+            jpcps.first_vs_second_peak_stat(jnp.asarray(grid), spc)]
+    for tiles in (False, True):
+        got = _k3c_emulated(grid, spc, tiles)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_array_equal(
+            got[0].view(np.int32), want[0].astype(np.float32).view(np.int32))
+    return got
+
+
+def test_cu_zone_dist_is_the_circular_distance():
+    """zone_dist as csrc/pcps_rows.cu writes it is min(|k - peak|,
+    N - |k - peak|) for every (k, peak) at an even and an odd N; without
+    its + n the operand of its % goes negative."""
+    dist = _cu_zone_dist()
+    for n in (64, 65):
+        k, peak = np.meshgrid(np.arange(n), np.arange(n))
+        r = np.abs(k - peak)
+        np.testing.assert_array_equal(dist(k, peak, n), np.minimum(r, n - r))
+
+
+@pytest.mark.parametrize("n", [64, 65, 100, 2000, 2001])
+@pytest.mark.parametrize("spc", [0, 1, 2, 31, 64])
+def test_k3c_emulation_matches_jax_on_random_grids(n, spc):
+    """Random grids (exponential cells, one channel with a strong peak)
+    at N a whole tile, a tile and one, ragged, the receivers' 2000 and
+    odd; the zone from a single cell to two whole tiles."""
+    rng = np.random.default_rng(n * 100 + spc)
+    grid = rng.standard_exponential((3, 5, n)).astype(np.float32)
+    grid[1, 3, n // 3] = 40.0
+    _k3c_against_jax(grid, spc)
+
+
+def test_k3c_emulation_on_the_search_grid():
+    """tests/test_torch_pcps.py's search grid (JAX's pcps_grid) and its
+    zone-wrapping variant, the receiver's spc = 2."""
+    for delays in GRID_CASES.values():
+        x, cfc, dops = _grid_case(delays)
+        grid = np.asarray(jpcps.pcps_grid(jnp.asarray(x), jnp.asarray(cfc),
+                                          jnp.asarray(dops), FS))
+        _k3c_against_jax(grid, SPC)
+
+
+def _planted(n=200, d=6, c=2, seed=7):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.0, 1.0, (c, d, n)).astype(np.float32)
+
+
+def test_k3c_emulation_tie_across_rows():
+    """Two rows at the channel's max: the first row wins, with its own
+    delay and second, not the later row's."""
+    g = _planted()
+    g[0, 1, 150], g[0, 4, 20] = 9.0, 9.0
+    g[0, 1, 10], g[0, 4, 100] = 3.0, 6.0        # the rows' own seconds
+    g[1, 5, 60], g[1, 2, 61] = 9.0, 9.0
+    stat, d_star, k_star = _k3c_against_jax(g, 2)
+    assert list(d_star) == [1, 2] and list(k_star) == [150, 61]
+    assert stat[0] == np.float32(3.0)
+
+
+def test_k3c_emulation_tie_within_a_row():
+    """Two delays of one row at the max: the first is k*; outside the zone
+    the other is the second (ratio 1), inside it the other is zeroed."""
+    g = _planted()
+    g[0, 3, 40], g[0, 3, 170] = 9.0, 9.0
+    g[1, 2, 40], g[1, 2, 42] = 9.0, 9.0
+    stat, d_star, k_star = _k3c_against_jax(g, 2)
+    assert list(k_star) == [40, 40] and stat[0] == np.float32(1.0)
+    assert stat[1] > 9.0
+
+
+@pytest.mark.parametrize("at", [0, -1])
+def test_k3c_emulation_peak_at_the_row_ends(at):
+    """k* at 0 and at N - 1 (N odd and even): the zone wraps; the cell
+    across the wrap at distance spc is zeroed, the one at spc + 1 is the
+    second."""
+    for n in (200, 201):
+        g = _planted(n)
+        k = at % n
+        g[:, 2, k] = 9.0
+        g[:, 2, (k + 2) % n] = 8.0              # inside the zone
+        g[0, 2, (k - 2) % n] = 8.5              # inside the zone
+        g[0, 2, (k + 3) % n] = 4.0              # the second, outside
+        g[1, 2, (k - 3) % n] = 5.0
+        stat, d_star, k_star = _k3c_against_jax(g, 2)
+        assert list(k_star) == [k, k]
+        assert list(stat) == [np.float32(9.0 / 4.0), np.float32(9.0 / 5.0)]
+
+
+def test_k3c_emulation_zone_covers_the_row():
+    """spc >= N / 2: every cell is in the zone, the second is 0 and the
+    ratio peak / 1e-30; spc = N / 2 - 1 at even N leaves the antipode."""
+    for n in (64, 200, 201):
+        g = _planted(n)
+        stat, _, _ = _k3c_against_jax(g, n // 2)
+        peak = g.max(axis=(1, 2))
+        np.testing.assert_array_equal(stat, peak / np.float32(1e-30))
+    g = _planted(200)
+    stat, d_star, k_star = _k3c_against_jax(g, 99)
+    for ci in range(2):
+        row = g[ci, d_star[ci]]
+        assert stat[ci] == row.max() / row[(k_star[ci] + 100) % 200]
 
 
 def _je(conf_kw, prns, **kw):

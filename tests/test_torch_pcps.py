@@ -295,3 +295,66 @@ def test_wipe_kernel_phase_is_the_plain_phase(form):
         np.testing.assert_array_equal(got.view(np.int32),
                                       want.view(np.int32))
         assert np.float32(ppcps.NEG_TWO_PI) == np.float32(-2.0 * math.pi)
+
+
+# ---- K7's fold on the card (csrc/pcps_rows.cu), emulated --------------------
+
+def _fold_emulated(corr, n: int):
+    """K7 in numpy on [D, (W + 1) N] correlations: per lag k the windows'
+    |corr[d, w N + k]|^2 added in window order w = 0 .. W - 1 from 0, in
+    float32; the halo's last N lags are not read."""
+    d, row_len = corr.shape
+    acc = np.zeros((d, n), np.float32)
+    for w in range(row_len // n - 1):
+        c = corr[:, w * n:(w + 1) * n]
+        acc = acc + (c.real * c.real + c.imag * c.imag)
+    return acc
+
+
+def _jax_fold(corr, n: int):
+    """The JAX fold expression (parallel/shard_steps.py:225-226) on the
+    valid lags."""
+    d, row_len = corr.shape
+    lags = jnp.asarray(corr[:, :row_len - n])
+    mag = jnp.real(lags) ** 2 + jnp.imag(lags) ** 2
+    return np.asarray(mag.reshape(d, -1, n).sum(axis=1))
+
+
+@pytest.mark.parametrize("n, windows", [(2000, 5), (1999, 5), (2000, 1),
+                                        (333, 1), (64, 127)])
+def test_fold_emulation_matches_jax_and_plain(n, windows):
+    """The in-order window sum against the JAX fold and the port's plain
+    version (1e-5 of the scale: their sums take their own order) at even
+    and odd N, at L = N (one window) and at phase 9's 127 windows."""
+    rng = np.random.default_rng(n + windows)
+    d = 3
+    corr = (rng.standard_normal((d, (windows + 1) * n))
+            + 1j * rng.standard_normal((d, (windows + 1) * n))
+            ).astype(np.complex64)
+    got = _fold_emulated(corr, n)
+    plain = ppcps.pcps_window_fold(torch.from_numpy(corr), n).numpy()
+    for want in (_jax_fold(corr, n), plain):
+        scale = float(np.abs(want).max())
+        assert np.abs(got - want).max() <= 1e-5 * scale
+    if windows == 1:
+        c = corr[:, :n]
+        np.testing.assert_array_equal(got, c.real * c.real + c.imag * c.imag)
+
+
+@pytest.mark.parametrize("n", [8, 9])
+def test_fold_emulation_adds_windows_in_order(n):
+    """The order is visible in the bits: 2^24 in window 0 then ones stays
+    2^24 (each + 1 rounds to even), while the ones first would give
+    2^24 + 4; the same lag with 2^24 last gives 2^24 + 4.  Integer cells,
+    so no contraction changes them; the halo holds a value that must not
+    be read."""
+    windows = 5
+    corr = np.zeros((2, (windows + 1) * n), np.complex64)
+    corr[:, :windows * n] = 1.0
+    corr[0, 3] = 4096.0                      # lag 3, window 0: 2^24
+    corr[1, (windows - 1) * n + 3] = 4096.0  # lag 3, the last window
+    corr[:, windows * n:] = 1e6              # the halo
+    got = _fold_emulated(corr, n)
+    assert got[0, 3] == np.float32(2.0 ** 24)
+    assert got[1, 3] == np.float32(2.0 ** 24 + 4)
+    assert (np.delete(got, 3, axis=1) == np.float32(windows)).all()
