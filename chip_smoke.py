@@ -48,7 +48,12 @@ Phases (any failure exits non-zero, before the result line):
    Doppler-sharded shape, K7's overlap-save fold (CUDA, bit for bit the
    Triton kernel it replaced) at phase 9's shape, at L = 4 N, at an odd N
    and at L = N, K10a and K10b, the sigma-point filters' kernels, at
-   4096 filters of 4 and of 9 states under both rules, beside
+   4096 filters of 4 and of 9 states under both rules, of 1 state
+   (phase 9b's tanh filters), of 32 and of 16 states and measurements,
+   at 4097 filters, on a P that is not positive definite, a pivot tie
+   and the unscented rule's negative centre weight, each also bit for
+   bit the one-warp-a-filter kernels they replaced and timed beside
+   them in turns, beside an empty kernel on their grid and beside
    torch.linalg.cholesky_ex and solve_ex) against its
    plain PyTorch version on the card at the shape its path
    launches it at, with the stated tolerance, and its time there beside
@@ -1776,14 +1781,7 @@ def check_k3c(name: str, corr, m: int, spc: int, form: str, caf_bins: int,
     row["added_ms"] = ms - row_ms
     row["added_bound_ms"] = added_bound
     if plain_form:
-        ops = device_ops(call)
-        n_dev = sum(v[0] for v in ops.values())
-        print(f"  K3c ({label}): {n_dev:g} device operations a call "
-              f"(torch.profiler): "
-              + "; ".join(f"{v[0]:g} x {k_[:60]} {v[1]:.1f} us"
-                          for k_, v in ops.items()))
-        if ops and round(n_dev) != 1:
-            fail(f"K3c ({label}): {n_dev:g} device operations a call, not 1")
+        one_device_op(f"K3c ({label})", call)
         floor_ms = time_ms(lambda: pcps._second_peak_empty(c, d,
                                                            corr.device))
         print(f"  K3c ({label}): the replaced form {ref_ms[0]:.4f} / "
@@ -2863,23 +2861,94 @@ def _spd(rng, b: int, n: int, dev, scale: float = 1.0):
     return torch.from_numpy(m.astype(np.float32)).to(dev)
 
 
+def same_sigma_bits(what: str, got, ref) -> None:
+    """Fails unless each tensor of `got` has the bits of `ref`'s (NaN
+    included: the card's arithmetic gives one NaN)."""
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        if not torch.equal(bits(g), bits(r)):
+            n = int((bits(g) != bits(r)).sum())
+            fail(f"{what}: {n} of {g.numel()} values differ from the "
+                 "replaced kernel's")
+    print(f"  {what}: bit for bit the replaced kernel")
+
+
+def in_turns(call, ref, floor=None) -> tuple:
+    """(ms of `call`, [ms of `ref` before and after it], ms of `floor`):
+    the replaced kernel timed on both sides of the new one."""
+    ref_ms = [time_ms(ref)]
+    ms = time_ms(call)
+    ref_ms.append(time_ms(ref))
+    return ms, ref_ms, None if floor is None else time_ms(floor)
+
+
+def graph_ops(fn) -> int:
+    """The device operations one call of `fn` issues (kernels, memsets,
+    copies): the nodes of a CUDA graph that captures it after a warm
+    call, as cuGraphGetNodes counts them.  Unlike torch.profiler it
+    cannot lose a record."""
+    import ctypes
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        fail(f"cuGraphGetNodes: CUresult {err}")
+    return n.value
+
+
+def one_device_op(what: str, call) -> None:
+    """Fails unless one call of `call` issues one device operation (the
+    nodes of a CUDA graph of it, graph_ops)."""
+    n_dev = graph_ops(call)
+    print(f"  {what}: {n_dev} device operation(s) a call (the nodes of a "
+          "CUDA graph of one call)")
+    if n_dev != 1:
+        fail(f"{what}: {n_dev} device operations a call, not 1")
+
+
+# (rule, nx, nz, filters, square H): phase 9b's shape first (the rows),
+# its tanh filters' (a row of its own under other_shapes), an 8-state PVT
+# filter plus one, an 8-state PVT filter over 12 pseudoranges (nz > nx:
+# lanes nx to nz - 1 hold LU columns and no row of K), the wrappers' limit
+# (the one-warp route), a square 16-state LU, and a last warp holding part
+# of a CTA's filters
+SIGMA_SHAPES = (("cubature", 4, 2, SIGMA_BATCH, False),
+                ("unscented", 4, 2, SIGMA_BATCH, False),
+                ("cubature", 1, 1, SIGMA_BATCH, False),
+                ("cubature", 9, 2, SIGMA_BATCH, False),
+                ("unscented", 9, 2, SIGMA_BATCH, False),
+                ("cubature", 8, 12, SIGMA_BATCH, False),
+                ("cubature", 32, 2, SIGMA_BATCH, False),
+                ("cubature", 16, 16, SIGMA_BATCH, True),
+                ("cubature", 4, 2, SIGMA_BATCH + 1, False))
+
+
 def check_k10(dev, rng, extra: list) -> list:
     """K10a (sigma_points) and K10b (sigma_moments, the time and the
-    measurement update) against their plain versions on the card at B =
-    SIGMA_BATCH filters, nx = 4, nz = 2 (phase 9b's shape) under both
-    rules and at nx = 9 (an 8-state PVT filter plus one), each within 1e-5
-    of the largest plain value: the factor, the sums and the solve run in
-    other orders (cuSOLVER's and cuBLAS's for the plain versions).  Timed
-    beside torch.linalg.cholesky_ex on [B, nx, nx] and
+    measurement update) on the card at SIGMA_SHAPES: against their plain
+    versions within 1e-5 of the largest plain value (the factor, the sums
+    and the solve run in other orders: cuSOLVER's and cuBLAS's), and bit
+    for bit the one-warp-a-filter kernels they replaced
+    (_sigma_points_reference, _sigma_moments_reference), which each shape
+    times on both sides of the new kernels, beside an empty kernel on the
+    new grid, torch.linalg.cholesky_ex on [B, nx, nx] and
     torch.linalg.solve_ex on [B, nz, nz] (the library reference times; the
-    _ex forms skip the host sync of the error check).  Returns the rows of
-    the cubature rule at nx = 4; the others go to `extra`."""
+    _ex forms skip the host sync of the error check).  Then the planted
+    cases (check_k10_planted).  Returns the rows of phase 9b's shape
+    (cubature, nx = 4, nz = 2); the others go to `extra`."""
     import torch
     from gnss_sim_receiver_tpu_torch.ops import nonlinear as nl
-    b = SIGMA_BATCH
     rows = []
-    for rule, nx, nz in (("cubature", 4, 2), ("unscented", 4, 2),
-                         ("cubature", 9, 2), ("unscented", 9, 2)):
+    for rule, nx, nz, b, square in SIGMA_SHAPES:
         shape = f"B={b} filters, nx={nx}, nz={nz}, {rule}"
         pre, post, centre = nl._rule(nx, rule, None, torch.float32)
         x = torch.from_numpy(rng.standard_normal((b, nx)).astype(
@@ -2890,45 +2959,73 @@ def check_k10(dev, rng, extra: list) -> list:
         pts = nl.sigma_points(x, P, rule)
         err = compare(f"K10a sigma_points ({shape})", pts,
                       nl._sigma_points_plain(x, P, pre, post, centre), 1e-5)
+        same_sigma_bits(f"K10a sigma_points ({shape})", pts,
+                        nl._sigma_points_reference(x, P, rule))
         plain_ms = time_ms(
             lambda: nl._sigma_points_plain(x, P, pre, post, centre))
         lib_ms = time_ms(lambda: torch.linalg.cholesky_ex(P))
+        ms, ref_ms, floor_ms = in_turns(
+            lambda: nl.sigma_points(x, P, rule),
+            lambda: nl._sigma_points_reference(x, P, rule),
+            lambda: nl._sigma_empty(b, nx, n_pts, dev))
+        print(f"  K10a ({shape}): {ms:.4f} ms, the replaced kernel "
+              f"{ref_ms[0]:.4f} / {ref_ms[1]:.4f} ms, an empty kernel on "
+              f"the grid {floor_ms:.4f} ms")
         # operations: the factor n^3/3 multiply-adds, n square roots and
         # n^2/2 divisions; the points a multiply and an add per element
         ops = b * (2 * nx ** 3 / 3 + nx * nx / 2 + nx + 4 * nx * nx)
         k10a = _row("K10a_sigma_points", "cuda",
                     "gnss_sim_receiver_tpu_torch/csrc/sigma.cu",
-                    "gnss_sim_receiver_tpu/ops/nonlinear.py:64", err,
-                    time_ms(lambda: nl.sigma_points(x, P, rule)), plain_ms,
-                    4 * b * (nx + nx * nx + n_pts * nx), ops, shape, lib_ms)
+                    "gnss_sim_receiver_tpu/ops/nonlinear.py:64", err, ms,
+                    plain_ms, 4 * b * (nx + nx * nx + n_pts * nx), ops,
+                    shape, lib_ms)
+        k10a.update(reference_ms=float(np.mean(ref_ms)),
+                    launch_floor_ms=floor_ms)
         F = torch.from_numpy(np.eye(nx, dtype=np.float32) + 0.05 * rng.
                              standard_normal((nx, nx)).astype(np.float32))
-        H = torch.from_numpy(rng.standard_normal((nz, nx)).astype(
-            np.float32))
+        H = rng.standard_normal((nz, nx)).astype(np.float32)
+        if square:
+            H = np.eye(nz, dtype=np.float32) + 0.1 * H
+        H = torch.from_numpy(H)
         ypts = (pts @ F.to(dev).T).contiguous()
         # a linear measurement: P_zz is H P H^T + R under either rule (the
         # unscented centre weight is negative at nx > 3), so the solve is
-        # well conditioned and the check measures the kernel's rounding
+        # well conditioned and the check measures the kernel's rounding;
+        # at nz > nx H P H^T has rank nx, and R at unit scale keeps P_zz's
+        # condition near 100 (at 0.1 float32 alone is 2e-5 off float64)
         zpts = (pts @ H.to(dev).T).contiguous()
         Q = 0.01 * torch.eye(nx, device=dev)
-        R = _spd(rng, b, nz, dev, 0.1)
+        R = _spd(rng, b, nz, dev, 1.0 if nz > nx else 0.1)
         z = torch.from_numpy(rng.standard_normal((b, nz)).astype(
             np.float32)).to(dev)
-        compare(f"K10b sigma_moments, time update ({shape})",
-                nl.sigma_moments(ypts, w, Q),
+        got = nl.sigma_moments(ypts, w, Q)
+        compare(f"K10b sigma_moments, time update ({shape})", got,
                 nl._sigma_moments_plain(ypts, w, Q), 1e-5)
+        same_sigma_bits(f"K10b sigma_moments, time update ({shape})", got,
+                        nl._sigma_moments_reference(ypts, w, Q))
         upd = dict(z=z, x_pred=x, P_pred=P, pts=pts)
+        got = nl.sigma_moments(zpts, w, R, **upd)
         err = compare(f"K10b sigma_moments, measurement update ({shape})",
-                      nl.sigma_moments(zpts, w, R, **upd),
-                      nl._sigma_moments_plain(zpts, w, R, **upd), 1e-5)
+                      got, nl._sigma_moments_plain(zpts, w, R, **upd), 1e-5)
+        same_sigma_bits(f"K10b sigma_moments, measurement update ({shape})",
+                        got, nl._sigma_moments_reference(zpts, w, R, **upd))
         plain_ms = time_ms(
             lambda: nl._sigma_moments_plain(zpts, w, R, **upd))
         pzz = _spd(rng, b, nz, dev)
         rhs = torch.from_numpy(rng.standard_normal((b, nz, nx)).astype(
             np.float32)).to(dev)
         lib_ms = time_ms(lambda: torch.linalg.solve_ex(pzz, rhs))
-        print("  K10b the time update: "
-              f"{time_ms(lambda: nl.sigma_moments(ypts, w, Q)):.4f} ms")
+        t_ms, t_ref, _ = in_turns(
+            lambda: nl.sigma_moments(ypts, w, Q),
+            lambda: nl._sigma_moments_reference(ypts, w, Q))
+        ms, ref_ms, floor_ms = in_turns(
+            lambda: nl.sigma_moments(zpts, w, R, **upd),
+            lambda: nl._sigma_moments_reference(zpts, w, R, **upd),
+            lambda: nl._sigma_empty(b, max(nx, nz), n_pts, dev))
+        print(f"  K10b ({shape}): the measurement update {ms:.4f} ms (the "
+              f"replaced kernel {ref_ms[0]:.4f} / {ref_ms[1]:.4f}), the time "
+              f"update {t_ms:.4f} ms ({t_ref[0]:.4f} / {t_ref[1]:.4f}); an "
+              f"empty kernel on the update's grid {floor_ms:.4f} ms")
         # the measurement update: the z mean and deviations, P_zz, P_xz,
         # the LU and the substitutions, K P_zz K^T, x, the symmetrisation
         ops = b * (3 * n_pts * nz + n_pts * nx + 3 * n_pts * nz * nz
@@ -2939,15 +3036,127 @@ def check_k10(dev, rng, extra: list) -> list:
                             + nz * nz) + n_pts)
         k10b = _row("K10b_sigma_moments", "cuda",
                     "gnss_sim_receiver_tpu_torch/csrc/sigma.cu",
-                    "gnss_sim_receiver_tpu/ops/nonlinear.py:80", err,
-                    time_ms(lambda: nl.sigma_moments(zpts, w, R, **upd)),
+                    "gnss_sim_receiver_tpu/ops/nonlinear.py:80", err, ms,
                     plain_ms, n_bytes, ops,
                     shape + ", the measurement update", lib_ms)
+        k10b.update(reference_ms=float(np.mean(ref_ms)),
+                    launch_floor_ms=floor_ms, time_update_ms=t_ms,
+                    time_update_reference_ms=float(np.mean(t_ref)))
         if rows:
             extra += [k10a, k10b]
         else:
+            one_device_op(f"K10a ({shape})",
+                          lambda: nl.sigma_points(x, P, rule))
+            one_device_op(f"K10b, time update ({shape})",
+                          lambda: nl.sigma_moments(ypts, w, Q))
+            one_device_op(f"K10b, measurement update ({shape})",
+                          lambda: nl.sigma_moments(zpts, w, R, **upd))
             rows = [k10a, k10b]
+    check_k10_planted(dev, rng)
     return rows
+
+
+def check_k10_planted(dev, rng) -> None:
+    """K10a and K10b bit for bit their replaced kernels on planted inputs:
+    under the unscented rule (its centre weight negative at nx = 4) a P
+    that is not positive definite in every third filter, which must give
+    NaN points but the centre, x itself; and P_zz^T's first column tied
+    in |.| across its two rows (zero-mean z points (1, 1) and (-1, -1)
+    and R with R[0][0] + 0.25 = -(R[1][0] + 0.25)), where the first row
+    pivots."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import nonlinear as nl
+    b, nx, nz = SIGMA_BATCH, 4, 2
+    x = torch.from_numpy(rng.standard_normal((b, nx)).astype(
+        np.float32)).to(dev)
+    P = _spd(rng, b, nx, dev)
+    bad = torch.arange(b, device=dev) % 3 == 0
+    P[bad] = P[bad] - 4.0 * torch.eye(nx, device=dev)
+    what = "K10a sigma_points (unscented, nx=4, P not positive definite)"
+    pts = nl.sigma_points(x, P, "unscented")
+    same_sigma_bits(what, pts, nl._sigma_points_reference(x, P,
+                                                          "unscented"))
+    nan_rows = torch.isnan(pts[:, 1:]).all(dim=(1, 2))
+    finite = torch.isfinite(pts).all(dim=(1, 2))
+    if not (torch.equal(pts[:, 0], x) and bool(nan_rows[bad].all())
+            and bool(finite[~bad].all())):
+        fail(f"{what}: not NaN points but the centre exactly where the "
+             "factor fails, and finite elsewhere")
+    w = nl.sigma_weights(nx, "unscented", None, torch.float32, dev)
+    zpts = torch.from_numpy(rng.standard_normal((b, 2 * nx + 1, nz)).astype(
+        np.float32)).to(dev)
+    R = _spd(rng, b, nz, dev, 0.1)
+    upd = dict(z=zpts[:, 0].contiguous(), x_pred=x, P_pred=P, pts=pts)
+    same_sigma_bits("K10b sigma_moments (unscented, nx=4, on those points)",
+                    nl.sigma_moments(zpts, w, R, **upd),
+                    nl._sigma_moments_reference(zpts, w, R, **upd))
+    print(f"  K10a: {int(bad.sum())} of {b} filters not positive definite "
+          "give NaN points but the centre")
+    # the tie: cubature weights 1/8, so P_zz = [[.25, .25], [.25, .25]] + R
+    # exactly; with R = [[s - .25, -s - .25], [-s - .25, 3 s]], s = 1 .. 8
+    # a filter, P_zz = [[s, -s], [-s, 3 s + .25]]
+    w = nl.sigma_weights(nx, "cubature", None, torch.float32, dev)
+    P = _spd(rng, b, nx, dev)
+    pts = nl.sigma_points(x, P, "cubature")
+    zpts = torch.zeros((b, 2 * nx, nz), device=dev)
+    zpts[:, 0] = 1.0
+    zpts[:, 1] = -1.0
+    s = torch.from_numpy(rng.integers(1, 9, b).astype(np.float32)).to(dev)
+    R = torch.zeros((b, nz, nz), device=dev)
+    R[:, 0, 0] = s - 0.25
+    R[:, 1, 0] = R[:, 0, 1] = -s - 0.25
+    R[:, 1, 1] = 3.0 * s
+    upd = dict(z=torch.ones((b, nz), device=dev), x_pred=x, P_pred=P,
+               pts=pts)
+    got = nl.sigma_moments(zpts, w, R, **upd)
+    compare("K10b sigma_moments (P_zz^T's first column tied)", got,
+            nl._sigma_moments_plain(zpts, w, R, **upd), 1e-5)
+    same_sigma_bits("K10b sigma_moments (P_zz^T's first column tied)", got,
+                    nl._sigma_moments_reference(zpts, w, R, **upd))
+    check_k10_many_points(dev, rng)
+
+
+def check_k10_many_points(dev, rng) -> None:
+    """K10b where the points outnumber 2 G + 1 of the filter's own
+    dimensions, so that the lane group follows the points: time updates to
+    fewer outputs than states (ny = 1 of nx = 4 under the cubature rule,
+    8 points; ny = 2 of nx = 9 under the unscented, 19 points) and a
+    measurement update at nx = 2, nz = 1 on 8 points of a 4-state set;
+    each within 1e-5 of the plain version and bit for bit the replaced
+    kernel."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import nonlinear as nl
+    b = SIGMA_BATCH
+    for rule, nx, ny in (("cubature", 4, 1), ("unscented", 9, 2)):
+        what = f"K10b sigma_moments, time update ({rule}, nx={nx}, ny={ny})"
+        x = torch.from_numpy(rng.standard_normal((b, nx)).astype(
+            np.float32)).to(dev)
+        pts = nl.sigma_points(x, _spd(rng, b, nx, dev), rule)
+        w = nl.sigma_weights(nx, rule, None, torch.float32, dev)
+        A = torch.from_numpy(rng.standard_normal((ny, nx)).astype(
+            np.float32)).to(dev)
+        ypts = torch.tanh(pts @ A.T).contiguous()
+        Q = 0.01 * torch.eye(ny, device=dev)
+        got = nl.sigma_moments(ypts, w, Q)
+        compare(what, got, nl._sigma_moments_plain(ypts, w, Q), 1e-5)
+        same_sigma_bits(what, got, nl._sigma_moments_reference(ypts, w, Q))
+    what = "K10b sigma_moments, measurement update (nx=2, nz=1, 8 points)"
+    w = nl.sigma_weights(4, "cubature", None, torch.float32, dev)
+    x = torch.from_numpy(rng.standard_normal((b, 2)).astype(
+        np.float32)).to(dev)
+    pts = x[:, None] + torch.from_numpy(rng.standard_normal(
+        (b, 8, 2)).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.standard_normal((1, 2)).astype(
+        np.float32)).to(dev)
+    zpts = (pts @ h.T).contiguous()
+    R = _spd(rng, b, 1, dev, 0.1)
+    upd = dict(z=torch.from_numpy(rng.standard_normal((b, 1)).astype(
+        np.float32)).to(dev), x_pred=x, P_pred=_spd(rng, b, 2, dev),
+        pts=pts)
+    got = nl.sigma_moments(zpts, w, R, **upd)
+    compare(what, got, nl._sigma_moments_plain(zpts, w, R, **upd), 1e-5)
+    same_sigma_bits(what, got, nl._sigma_moments_reference(zpts, w, R,
+                                                           **upd))
 
 
 # ---- phases 4, 4b, 4c: the main paths --------------------------------------
@@ -5312,7 +5521,8 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     print(card)
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, "reference_ms": r.get("reference_ms"),
-         **{k: r[k] for k in ("launch_floor_ms", "lengths") if k in r}}
+         **{k: r[k] for k in ("launch_floor_ms", "lengths", "time_update_ms",
+                              "time_update_reference_ms") if k in r}}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

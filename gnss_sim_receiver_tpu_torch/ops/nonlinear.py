@@ -32,7 +32,12 @@ Each step is three stages:
 
 The kernels run on float32 CUDA tensors with at most 32 states and 32
 measurements a filter (the reference's GNSS filters have at most 9); the
-wrappers raise on anything else on the card.  A CPU tensor runs the plain
+wrappers raise on anything else on the card.  Up to 16 of them (and up
+to 33 points) a filter is a group of lanes of a warp, its column steps by
+shuffles between them; above that it is a warp (``csrc/sigma.cu``'s
+header, ``csrc/sigma_plan.cuh``).  The kernels
+they replaced stay as :func:`_sigma_points_reference` and
+:func:`_sigma_moments_reference`, on no path.  A CPU tensor runs the plain
 versions, in float32 or float64 (the JAX classes switch to float64 under
 ``jax_enable_x64``; the port's take a ``dtype``).  There is no backward:
 nothing differentiates these.
@@ -50,7 +55,7 @@ from gnss_sim_receiver_tpu_torch.device import (check_kernel_device,
 from gnss_sim_receiver_tpu_torch.ops import cuda_build
 
 RULES = ("cubature", "unscented")
-# one lane per state (or measurement) in the kernels' warp
+# the most states (or measurements) a filter the kernels take: a lane each
 MAX_KERNEL_DIM = 32
 
 
@@ -118,8 +123,11 @@ def _sigma_moments_plain(ypts, w, noise, z=None, x_pred=None, P_pred=None,
 
 # ---- kernels --------------------------------------------------------------
 
-def _lib():
-    lib = cuda_build.load("sigma_kernels")
+def _lib(extra: tuple[str, ...] = (), build_dir=None):
+    """K10a and K10b (``csrc/sigma.cu``), typed; `extra` flags and
+    `build_dir` as :func:`cuda_build.load` takes them (the stamped build of
+    ``tools/probe_sigma.py``)."""
+    lib = cuda_build.load("sigma_kernels", extra, build_dir)
     if lib.sigma_points.argtypes is None:
         p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_longlong)
@@ -127,8 +135,16 @@ def _lib():
         lib.sigma_predict_moments.argtypes = [p, p, p, ll, p, p, i, i, i, p]
         lib.sigma_update_moments.argtypes = [p, p, p, p, p, p, p, ll, p, p,
                                              i, i, i, i, p]
+        lib.sigma_points_reference.argtypes = lib.sigma_points.argtypes
+        lib.sigma_predict_moments_reference.argtypes = (
+            lib.sigma_predict_moments.argtypes)
+        lib.sigma_update_moments_reference.argtypes = (
+            lib.sigma_update_moments.argtypes)
+        lib.sigma_empty.argtypes = [i, i, i, p]
         for fn in (lib.sigma_points, lib.sigma_predict_moments,
-                   lib.sigma_update_moments):
+                   lib.sigma_update_moments, lib.sigma_points_reference,
+                   lib.sigma_predict_moments_reference,
+                   lib.sigma_update_moments_reference, lib.sigma_empty):
             fn.restype = ctypes.c_int
     return lib
 
@@ -154,6 +170,18 @@ def sigma_points(x: torch.Tensor, P: torch.Tensor, rule: str = "cubature",
     pre, post, centre = _rule(n, rule, kappa, x.dtype)
     if not check_kernel_device(x, "sigma_points"):
         return _sigma_points_plain(x, P, pre, post, centre)
+    pts = _points_launch(x, P, pre, post, centre, "sigma_points")
+    sigma_points.launches += 1
+    return pts
+
+
+sigma_points.launches = 0
+
+
+def _points_launch(x, P, pre: float, post: float, centre: int,
+                   entry: str) -> torch.Tensor:
+    """Check K10a's operands, then launch the library's `entry`."""
+    b, n = x.shape
     _kernel_dims("sigma_points", nx=n)
     require(x, torch.float32, x.device, "sigma_points: x")
     require(P, torch.float32, x.device, "sigma_points: P")
@@ -161,14 +189,20 @@ def sigma_points(x: torch.Tensor, P: torch.Tensor, rule: str = "cubature",
         raise ValueError("sigma_points: P must be [B, nx, nx]")
     pts = torch.empty((b, 2 * n + centre, n), dtype=torch.float32,
                       device=x.device)
-    cuda_build.check(_lib().sigma_points(
+    cuda_build.check(getattr(_lib(), entry)(
         x.data_ptr(), P.data_ptr(), pts.data_ptr(), b, n, pre, post, centre,
-        _stream(x)), "sigma_points")
-    sigma_points.launches += 1
+        _stream(x)), entry)
     return pts
 
 
-sigma_points.launches = 0
+def _sigma_points_reference(x: torch.Tensor, P: torch.Tensor,
+                            rule: str = "cubature", kappa=None):
+    """K10a before its redesign: one warp a filter, each row in shared
+    memory, as many filters a CTA as 48 KB hold.  The reference of
+    :func:`sigma_points` on the card (the same bits), CUDA tensors only;
+    on no path, not counted."""
+    pre, post, centre = _rule(x.shape[1], rule, kappa, x.dtype)
+    return _points_launch(x, P, pre, post, centre, "sigma_points_reference")
 
 
 def _noise_stride(noise: torch.Tensor, b: int, n: int, what: str) -> int:
@@ -192,9 +226,29 @@ def sigma_moments(ypts: torch.Tensor, w: torch.Tensor, noise: torch.Tensor,
     ``sigma_moments.launches``."""
     if not check_kernel_device(ypts, "sigma_moments"):
         return _sigma_moments_plain(ypts, w, noise, z, x_pred, P_pred, pts)
+    out = _moments_launch(ypts, w, noise, z, x_pred, P_pred, pts, "")
+    sigma_moments.launches += 1
+    return out
+
+
+sigma_moments.launches = 0
+
+
+def _moments_launch(ypts, w, noise, z, x_pred, P_pred, pts, suffix: str):
+    """Check K10b's operands, then launch the library's time or
+    measurement update (its name + `suffix`)."""
+    if ypts.dim() != 3:
+        raise ValueError("sigma_moments: ypts must be [B, Pn, ny]")
     b, n_pts, ny = ypts.shape
     dev = ypts.device
-    nx = 0 if z is None else x_pred.shape[1]
+    if w.shape != (n_pts,):
+        raise ValueError(f"sigma_moments: w must be [{n_pts}] (one weight "
+                         f"a point), got {list(w.shape)}")
+    nx = 0
+    if z is not None:
+        if x_pred is None or x_pred.dim() != 2 or x_pred.shape[0] != b:
+            raise ValueError(f"sigma_moments: x_pred must be [{b}, nx]")
+        nx = x_pred.shape[1]
     _kernel_dims("sigma_moments", ny=ny, nx=nx)
     for t, what in ((ypts, "ypts"), (w, "w"), (noise, "noise")):
         require(t, torch.float32, dev, f"sigma_moments: {what}")
@@ -203,11 +257,10 @@ def sigma_moments(ypts: torch.Tensor, w: torch.Tensor, noise: torch.Tensor,
     if z is None:
         mean = torch.empty((b, ny), dtype=torch.float32, device=dev)
         cov = torch.empty((b, ny, ny), dtype=torch.float32, device=dev)
-        cuda_build.check(_lib().sigma_predict_moments(
+        entry = "sigma_predict_moments" + suffix
+        cuda_build.check(getattr(_lib(), entry)(
             ypts.data_ptr(), w.data_ptr(), noise.data_ptr(), stride,
-            mean.data_ptr(), cov.data_ptr(), b, n_pts, ny, stream),
-            "sigma_moments")
-        sigma_moments.launches += 1
+            mean.data_ptr(), cov.data_ptr(), b, n_pts, ny, stream), entry)
         return mean, cov
     for t, what in ((z, "z"), (x_pred, "x_pred"), (P_pred, "P_pred"),
                     (pts, "pts")):
@@ -218,16 +271,32 @@ def sigma_moments(ypts: torch.Tensor, w: torch.Tensor, noise: torch.Tensor,
                          "[B, nx, nx], pts [B, Pn, nx]")
     x_est = torch.empty((b, nx), dtype=torch.float32, device=dev)
     p_est = torch.empty((b, nx, nx), dtype=torch.float32, device=dev)
-    cuda_build.check(_lib().sigma_update_moments(
+    entry = "sigma_update_moments" + suffix
+    cuda_build.check(getattr(_lib(), entry)(
         z.data_ptr(), x_pred.data_ptr(), P_pred.data_ptr(), pts.data_ptr(),
         ypts.data_ptr(), w.data_ptr(), noise.data_ptr(), stride,
-        x_est.data_ptr(), p_est.data_ptr(), b, n_pts, nx, ny, stream),
-        "sigma_moments")
-    sigma_moments.launches += 1
+        x_est.data_ptr(), p_est.data_ptr(), b, n_pts, nx, ny, stream), entry)
     return x_est, p_est
 
 
-sigma_moments.launches = 0
+def _sigma_moments_reference(ypts, w, noise, *, z=None, x_pred=None,
+                             P_pred=None, pts=None):
+    """K10b before its redesign: one warp a filter, the column steps through
+    shared memory.  The reference of :func:`sigma_moments` on the card (the
+    same bits), CUDA tensors only; on no path, not counted."""
+    return _moments_launch(ypts, w, noise, z, x_pred, P_pred, pts,
+                           "_reference")
+
+
+def _sigma_empty(batch: int, n: int, n_pts: int, device) -> None:
+    """An empty kernel on the grid K10a and K10b launch for `batch` filters
+    whose largest dimension is `n` and which sum `n_pts` points (kThreads /
+    G filters a CTA): the launch floor chip_smoke.py times them against;
+    not counted."""
+    _kernel_dims("sigma_empty", n=n)
+    cuda_build.check(_lib().sigma_empty(
+        batch, n, n_pts, torch.cuda.current_stream(device).cuda_stream),
+        "sigma_empty")
 
 
 # ---- the filter steps -----------------------------------------------------
