@@ -27,7 +27,13 @@ Phases (any failure exits non-zero, before the result line):
    prologue folded in against K1, K8b, then K8a; the two-launch block
    chunk (K8a once, then the cuFFT and the folded launch per block)
    against the three-launch chunk and the plain chunk, bit for bit over
-   50 blocks at the same four shapes; K1 and
+   50 blocks at the same four shapes; the same checks of the pilot form
+   (K8a's two replica families, K1's data prompt, K8b's CS25 sync; K8b
+   and the chunk within their tolerances of the plain versions where the
+   bits part) at phase 8c's E1 shape and at 4 Msps, a planted CS25 sync
+   that the fused launch must reach at the same block, offset and
+   polarity as the plain step, and of the GPS block step at phase 10's 3
+   Msps; K1 and
    K2 with the GPS and the Galileo E1 tables, K3 wipeoff and peak, K3b,
    K4a in both modes, K4b fold and resolve (the resolve, one CUDA launch,
    also against the Triton kernel it replaced, at C=8, fold 4 and at
@@ -138,6 +144,12 @@ Phases (any failure exits non-zero, before the result line):
    chunk kernel per chunk; phase 5's checks, every channel synced, the
    chunk kernel's epochs = the epochs run and its launches = the chunks
    dispatched, the real-time factor printed;
+8c. phase 8's capture again, both chains at extend_correlation_symbols=1:
+   GPS on the block kernels, the E1 chain
+   (galileo_e1b_chain(track_pilot=True)) on their pilot form; phase 8's
+   checks and its tracked sets, ephemerides and fixes kept, every tracked
+   E1 channel secondary-synced, the pilot form's launches on the E1 chain
+   and the chunk kernel on the chunk tails only;
 8b. phase 4's conf with Tracking_1C.extend_correlation_symbols=20 through
    the CLI on phase 4's file: phase 4's checks, the chunk kernel alone;
 9. the sharded steps (parallel.shard_steps, K7) on one rank over NCCL,
@@ -146,7 +158,9 @@ Phases (any failure exits non-zero, before the result line):
    192 GPS L1 C/A channels at 2 Msps (50 epochs, 50 blocks of 20), the
    Doppler-sharded cold start over all 32 PRNs (2 dwells of 1 ms, 41 bins
    of 250 Hz; K3's wipe and row kernel) and the time-sharded overlap-save
-   grid over 127 code periods of PRN 7 (K3's wipe, cuFFT, K7's fold).
+   grid over 127 code periods of PRN 7 (K3's wipe, cuFFT, K7's fold),
+   and the block step's pilot form (phase 8c's E1 chain, 10 channels, 20
+   blocks).
    One card is a world of one (NCCL refuses two ranks on one card), so
    every collective is a copy: each step must equal the unsharded call of
    the same port functions bit for bit; nothing here shows scaling.  The
@@ -158,7 +172,16 @@ Phases (any failure exits non-zero, before the result line):
    torch.func.vmap of the model): 40 steps of 4096 independent filters
    of tests/test_nonlinear.py's linear system under both rules, within
    1e-2 of the exact Kalman filter and 1e-4 of the plain versions' run on
-   the CPU, then 4096 tanh-measurement filters converging.
+   the CPU, then 4096 tanh-measurement filters converging;
+10. the fork's hybrid operating point (BASELINE.md): GPS L1 C/A, 9
+   channels, 3 Msps, 26 s of phase 4's sky and a pseudolite (PRN 17, 0 Hz,
+   50 dB-Hz, its clock 2.5 ms off GPS time, its own LNAV) made by K6 and
+   written as ibyte, through the CLI with the hybrid keys (channel 8 the
+   pseudolite, rx clock propagation and bias sharing on): the position,
+   no fix on channel 8, no bias record with its PRN, one clock
+   difference per fix once it is observed, the AOWR product within 5 ns
+   of the planted offset against the true receiver clock (the raw
+   median printed beside it).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -454,13 +477,16 @@ def counters_at_zero(name, arrivals) -> None:
     print(f"  {name}: arrival counters at 0 after the timed replays")
 
 
-def block_state(rng, conf, c: int, e: int, n_wins: int, dev):
+def block_state(rng, conf, c: int, e: int, n_wins: int, dev,
+                pilot: bool = False):
     """A TrackState of C channels with every field the block step reads
     spread over the range its paths give it: the last channel inactive,
     epochs on both sides of the FLL pull-in edge, ext_n on both sides of
     the DLL switch (50), lock_fail up to max_lock_fail, integer bit-sync
     histograms (one channel a transition short of sync), prev_sign in
-    {-1, 0, 1}, negative carrier phases."""
+    {-1, 0, 1}, negative carrier phases; with `pilot` the secondary-code
+    fields too: a sign history in {-1, 0, 1}, some channels synced at
+    random offsets and polarities."""
     import torch
     from gnss_sim_receiver_tpu_torch import interop
     from gnss_sim_receiver_tpu_torch.models import tracking as trk
@@ -498,18 +524,32 @@ def block_state(rng, conf, c: int, e: int, n_wins: int, dev):
         "bit_synced": rng.random(c) < 0.3,
         "bit_phase": rng.integers(0, 20, c).astype(np.int32),
         "ext_n": rng.integers(45, 55, c).astype(np.int32)})
+    if pilot:
+        st.update({
+            "sec_buf": f(rng.choice([-1.0, 0.0, 1.0], (c, 32))),
+            "sec_synced": rng.random(c) < 0.3,
+            "sec_off": rng.integers(0, 25, c).astype(np.int32),
+            "sec_polarity": f(rng.choice([-1.0, 1.0], c))})
     return interop.track_state_from_numpy(st, dev)
 
 
-def block_corr(rng, c: int, e: int, taps, dev):
+def block_corr(rng, c: int, e: int, taps, dev, data: bool = False):
     """[C, E, K] correlations shaped like a tracked channel's: a triangle
-    over the taps, a carrier phase error, nav-bit sign flips and noise."""
+    over the taps, a carrier phase error, nav-bit sign flips and noise;
+    with `data` (the pilot form) the data prompt as one more column, its
+    own symbols on the same phase."""
     import torch
     amp = rng.uniform(200.0, 2000.0, (c, 1, 1))
     tri = np.maximum(1.0 - np.abs(np.asarray(taps)) * 2.0, 0.1)[None, None]
+    if data:
+        tri = np.concatenate([tri, [[[0.7]]]], axis=2)
     bits = np.where(rng.random((c, e, 1)) < 0.2, -1.0, 1.0)
+    if data:
+        bits = np.concatenate([np.repeat(bits, len(taps), 2), np.where(
+            rng.random((c, e, 1)) < 0.5, -1.0, 1.0)], axis=2)
     ph = rng.normal(0.0, 0.3, (c, e, 1))
-    noise = rng.standard_normal((c, e, len(taps), 2)) @ [1.0, 1j] * 60.0
+    noise = rng.standard_normal((c, e, len(taps) + data, 2)) @ [1.0, 1j] \
+        * 60.0
     return torch.from_numpy((amp * tri * bits * np.exp(1j * ph) + noise
                              ).astype(np.complex64)).to(dev)
 
@@ -533,7 +573,8 @@ def closure_flips(conf, got, want) -> list:
     w = interop.track_state_to_numpy(want)
     flips = []
     for k in ("active", "pos", "epoch", "lock_fail", "lock_lost",
-              "bit_synced", "bit_phase", "ext_n", "bit_hist"):
+              "bit_synced", "bit_phase", "ext_n", "bit_hist", "sec_synced",
+              "sec_off"):
         diff = g[k] != w[k]
         for ch in np.flatnonzero(diff.reshape(diff.shape[0], -1).any(1)):
             margin = None
@@ -559,8 +600,31 @@ def fmad_false_dir():
     return cuda_build.BUILD_DIR / "fmad_false"
 
 
+def pilot_tables(conf, c: int, provider, data_provider, dev, prns=None):
+    """The block step's replica tables of PRNs 1..C (or `prns`) at `conf`'s
+    shape:
+    [C, F], or with `data_provider` (the pilot form) [2, C, F] with the
+    data code's second, and the +-1 secondary code on the card (else
+    None)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.ops import prn_codes
+
+    def rep(prov):
+        return tb.code_spectra(conf, np.stack([
+            prn_codes.bandlimited_table_normalized(
+                prov(p), conf.fs, conf.code_rate_cps,
+                conf.nominal_epoch_samples, 8)
+            for p in (prns or range(1, c + 1))]), dev)
+    if data_provider is None:
+        return rep(provider), None
+    return (torch.stack([rep(provider), rep(data_provider)]),
+            torch.from_numpy(trk.secondary_pm1(conf)).to(dev))
+
+
 def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
-             names, label: str):
+             names, label: str, data_provider=None):
     """K8a and K8b against their plain versions at `conf`'s FFT length, C
     channels, E = the conf's block epochs, the given taps (chips), the
     block replica of `provider`'s band-limited codes, a chunk of `n_wins`
@@ -571,22 +635,23 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
     flipped only where the plain version's carrier lock or C/N0 lies
     within K8_RTOL of its threshold.  Then both bit for bit: against their
     plain versions, and against the same kernels of the block library
-    built with --fmad=false."""
+    built with --fmad=false.  With `data_provider` the pilot form: both
+    replica families (the data code's second), the data prompt as K1's
+    last column, the secondary code's sync in K8b, the sec_* fields of
+    the state among those held."""
     import torch
     from gnss_sim_receiver_tpu_torch import interop
     from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
-    from gnss_sim_receiver_tpu_torch.ops import prn_codes
-    s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
+    nfft = tb.block_fft_size(conf)
     e = max(2, int(round(0.02 / conf.t_epoch_nominal_s)))
     k = len(taps)
-    tables = np.stack([prn_codes.bandlimited_table_normalized(
-        provider(p), conf.fs, conf.code_rate_cps, s0, 8)
-        for p in range(1, c + 1)])
-    codes_rep = tb.code_spectra(conf, tables, dev)
+    codes_rep, sec = pilot_tables(conf, c, provider, data_provider, dev)
+    pilot = sec is not None
+    fam = 1 + pilot
     taps_t = torch.tensor(taps, dtype=torch.float32, device=dev)
-    st = block_state(rng, conf, c, e, n_wins, dev)
+    st = block_state(rng, conf, c, e, n_wins, dev, pilot)
     shape = (f"{label}: C={c} channels, E={e} epochs, K={k} taps, "
-             f"F={nfft} bins")
+             f"F={nfft} bins" + (", with the data family" if pilot else ""))
 
     # ---- K8a ----------------------------------------------------------
     got = tb.block_prologue(conf, e, codes_rep, taps_t, n_wins, st)
@@ -602,8 +667,8 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
         worst_ulp = max(worst_ulp, u)
         if u > 2.0:
             fail(f"K8a ({label}): {name} {u:g} ulp from the plain version")
-    rep_err = ((got.rep_t - want.rep_t).abs().amax(1)
-               / want.rep_t.abs().amax(1).clamp(min=1e-30)).max().item()
+    rep_err = ((got.rep_t - want.rep_t).abs().amax(-1)
+               / want.rep_t.abs().amax(-1).clamp(min=1e-30)).max().item()
     print(f"  K8a_block_prologue ({label}): integer outputs identical, "
           f"floats within {worst_ulp:g} ulp (tolerance 2), replica within "
           f"{rep_err:.2e} of its row's max modulus (tolerance 1e-6)")
@@ -617,24 +682,24 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
     # reads: the replica table and 5 state fields; writes: the complex
     # replica, 6 [C, E] and 4 [C] vectors and the taps;
     # per (c, m): angle 1, sincos 2, two products 2
-    a_bytes = c * nfft * (4 + 8) + c * 5 * 4 + c * e * 6 * 4 + c * 4 * 4 \
-        + c * k * 4
-    a_ops = c * nfft * 5 + c * e * 30
+    a_bytes = fam * c * nfft * (4 + 8) + c * 5 * 4 + c * e * 6 * 4 \
+        + c * 4 * 4 + c * k * 4
+    a_ops = c * nfft * (3 + 2 * fam) + c * e * 30
     row_a = _row(names[0], "cuda",
                  "gnss_sim_receiver_tpu_torch/csrc/block_step.cu",
                  "gnss_sim_receiver_tpu/models/tracking_block.py:204",
                  a_err, a_ms, a_plain, a_bytes, a_ops, shape)
 
     # ---- K8b ----------------------------------------------------------
-    corr = block_corr(rng, c, e, taps, dev)
+    corr = block_corr(rng, c, e, taps, dev, pilot)
     t = 3 * e
     planes = tb._empty_planes(t, c, dev)
     planes_p = tb._empty_planes(t, c, dev)
     for pl in (planes, planes_p):
         for v in pl.values():
             v.zero_()
-    new_k = tb.block_closure(conf, e, corr, want, st, planes, 1)
-    new_p, outs = tb._block_closure_plain(conf, e, corr, want, st)
+    new_k = tb.block_closure(conf, e, corr, want, st, planes, 1, sec)
+    new_p, outs = tb._block_closure_plain(conf, e, corr, want, st, sec)
     tb._write_rows(planes_p, outs, 1, e)
     torch.cuda.synchronize()
     flips = closure_flips(conf, new_k, new_p)
@@ -649,7 +714,8 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
     b_err = 0.0
     for key in gp:
         if key in ("active", "pos", "epoch", "lock_fail", "lock_lost",
-                   "bit_synced", "bit_phase", "ext_n", "bit_hist"):
+                   "bit_synced", "bit_phase", "ext_n", "bit_hist",
+                   "sec_synced", "sec_off"):
             continue
         if not np.array_equal(gk[key], gp[key]):
             b_err = max(b_err, compare(
@@ -663,22 +729,24 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
           f"fields flipped at a threshold; state and plane rows within "
           f"{b_err:.3e} (tolerance {K8_RTOL:g} x max |plain|)")
     same_k8_bits(dev, conf, e, codes_rep, taps_t, n_wins, st, corr, got,
-                 want, new_k, new_p, planes, planes_p, label)
+                 want, new_k, new_p, planes, planes_p, label, sec)
     b_ms = time_ms(lambda: tb.block_closure(conf, e, corr, want, st,
-                                            planes, 1))
+                                            planes, 1, sec))
 
     def plain_closure():
-        _, o = tb._block_closure_plain(conf, e, corr, want, st)
+        _, o = tb._block_closure_plain(conf, e, corr, want, st, sec)
         tb._write_rows(planes_p, o, 1, e)
     b_plain = time_ms(plain_closure)
     # reads: 23 state fields (bit_hist 20 wide), the correlations, 6 of
     # K8a's vectors; writes: the next state and E rows of the 12 planes;
     # per (c, e): discriminators 30, FLL 20, lock 10, bit sync 20 + 2E
     # (rank and bin counts); per c: loop filters and commit 80
-    st_bytes = c * (22 * 4 + 8 + 20 * 4)
-    b_bytes = 2 * st_bytes + c * e * k * 8 + c * e * 4 * 4 + c * 2 * 4 \
-        + e * c * (8 + 9 * 4 + 2 * 4 + 1)
-    b_ops = c * e * (80 + 2 * e) + c * 80
+    # (the pilot form: 35 more state floats, the data column, and per
+    # (c, e) the sync's 25-term match and the wipe, 60)
+    st_bytes = c * (22 * 4 + 8 + 20 * 4 + pilot * (32 * 4 + 9))
+    b_bytes = 2 * st_bytes + c * e * (k + pilot) * 8 + c * e * 4 * 4 \
+        + c * 2 * 4 + e * c * (8 + 9 * 4 + 2 * 4 + 1)
+    b_ops = c * e * (80 + 2 * e + pilot * 60) + c * 80
     row_b = _row(names[1], "cuda",
                  "gnss_sim_receiver_tpu_torch/csrc/block_step.cu",
                  "gnss_sim_receiver_tpu/models/tracking_block.py:359",
@@ -686,12 +754,13 @@ def check_k8(dev, rng, conf, c: int, taps, provider, n_wins: int,
     rows_f = check_block_close(dev, rng, conf, c, e, got, st, n_wins,
                                names[2:],
                                label, shape, (codes_rep, taps_t),
-                               (a_bytes, a_ops), (b_ms, b_bytes, b_ops))
+                               (a_bytes, a_ops), (b_ms, b_bytes, b_ops), sec)
     return (row_a, row_b, *rows_f)
 
 
 def same_k8_bits(dev, conf, e, codes_rep, taps_t, n_wins, st, corr, got,
-                 want, new_k, new_p, planes, planes_p, label) -> None:
+                 want, new_k, new_p, planes, planes_p, label,
+                 sec=None) -> None:
     """K8a's outputs `got` and K8b's next state `new_k` and plane rows
     `planes` bit for bit those of the plain versions (`want`, `new_p`,
     `planes_p`) and of the block library built with --fmad=false on the
@@ -701,21 +770,23 @@ def same_k8_bits(dev, conf, e, codes_rep, taps_t, n_wins, st, corr, got,
     from gnss_sim_receiver_tpu_torch.ops import cuda_build
     alt = tb.bind(cuda_build.load("block_kernels", FMAD_FALSE,
                                   fmad_false_dir()))
-    c, nfft = codes_rep.shape
+    c, nfft = codes_rep.shape[-2:]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    got_f = tb._empty_prologue(c, e, nfft, taps_t.shape[0], dev)
+    got_f = tb._empty_prologue(c, e, nfft, taps_t.shape[0], dev,
+                               1 + (sec is not None))
     cuda_build.check(alt.block_prologue(tb._prologue_args(
         conf, e, codes_rep, taps_t, n_wins, st, got_f), c, stream),
         "block_prologue (--fmad=false)")
-    new_f = tb._empty_state(st)
+    new_f = tb._empty_state(st, sec is not None)
     planes_f = tb._empty_planes(planes["prompt"].shape[0], c, dev)
     for v in planes_f.values():
         v.zero_()
     cuda_build.check(alt.block_closure(tb._closure_args(
-        conf, e, corr, want, st, new_f, planes_f), 1, stream),
+        conf, e, corr, want, st, new_f, planes_f, sec), 1, stream),
         "block_closure (--fmad=false)")
     torch.cuda.synchronize()
     fields = tb.BlockPrologue._fields
+    plain_diff = []
     for other, what in ((want, "the plain version"),
                         (got_f, "the --fmad=false build")):
         diff = [n for n in fields if not torch.equal(
@@ -725,10 +796,15 @@ def same_k8_bits(dev, conf, e, codes_rep, taps_t, n_wins, st, corr, got,
     for st_o, pl_o, what in ((new_p, planes_p, "the plain version"),
                              (new_f, planes_f, "the --fmad=false build")):
         diff = differing(new_k, st_o, planes, pl_o)
-        if diff:
+        if diff and (sec is None or st_o is new_f):
             fail(f"K8b ({label}): {diff} differ in bits from {what}")
+        if diff:        # the pilot form: held to the plain version above
+            plain_diff = diff
     print(f"  K8a and K8b ({label}): every output bit for bit that of the "
-          "plain version and of the --fmad=false build")
+          + ("plain version and of " if not plain_diff else "")
+          + "the --fmad=false build"
+          + (f"; K8b's {plain_diff} within the tolerance of the plain "
+             "version, not bit for bit" if plain_diff else ""))
 
 
 def bits(t):
@@ -754,7 +830,8 @@ def differing(got_state, want_state, got_planes, want_planes) -> list:
 
 
 def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
-                      names, label: str, shape: str, fold_in, k8a, k8b):
+                      names, label: str, shape: str, fold_in, k8a, k8b,
+                      sec=None):
     """K1 with K8b's closure in its epilogue (block_correlate_close, on the
     replica spectrum as the FFT leaves it) against K1 on the conjugated
     spectrum followed by the standalone K8b, from K8a's outputs `pro` and
@@ -767,8 +844,9 @@ def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
     Timed beside K1 alone on the same inputs (the fused launch less K1's
     is what the closure costs there) and the standalone K8a.  `k8a` and
     `k8b` are (bytes, operations) and (ms, bytes, operations) of the
-    standalone kernels.  Returns the rows of the fused launch without and
-    with the fold."""
+    standalone kernels.  `sec` (the secondary code; `pro` with both replica
+    families) selects the pilot form.  Returns the rows of the fused launch
+    without and with the fold."""
     import torch
     from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
     s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
@@ -778,7 +856,8 @@ def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
     rf = torch.fft.fft(pro.rep_t, dim=-1)
     rf_c = torch.conj_physical(rf)
     k = pro.tap_samps.shape[1]
-    scratch = tb.k1_scratch(c, e, k, nfft, dev)
+    pilot = sec is not None
+    scratch = tb.k1_scratch(c, e, k + pilot, nfft, dev)
     slabs = scratch.partials.shape[1]
     k1_in = (pro.w0, pro.lag_int, pro.lag_frac, pro.ph_sc, pro.tap_samps,
              pro.omega)
@@ -791,10 +870,10 @@ def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
         return pl
 
     def next_pro():
-        return tb._empty_prologue(c, e, nfft, k, dev)
+        return tb._empty_prologue(c, e, nfft, k, dev, 1 + pilot)
     corr_r = tb.block_correlate(xf_all, rf_c, *k1_in, scratch=scratch)
     pl_r = planes()
-    new_r = tb.block_closure(conf, e, corr_r, pro, st, pl_r, 1)
+    new_r = tb.block_closure(conf, e, corr_r, pro, st, pl_r, 1, sec)
     nxt_r = tb.block_prologue(conf, e, codes_rep, taps_t, n_wins, new_r)
     outs = []
     for fold in (None, None, next_pro(), next_pro()):
@@ -802,7 +881,8 @@ def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
         new_f = tb.block_correlate_close(
             conf, e, xf_all, rf, pro, st, pl_f, 1, corr=corr_f,
             scratch=scratch,
-            fold=None if fold is None else (codes_rep, taps_t, fold))
+            fold=None if fold is None else (codes_rep, taps_t, fold),
+            sec_code=sec)
         outs.append((corr_f, new_f, pl_f, fold))
     torch.cuda.synchronize()
     flags = scratch.flags.tolist()
@@ -828,10 +908,11 @@ def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
           f"state, fold flags {flags[0]} after two launches")
     pl_f, corr_f, nxt = planes(), torch.empty_like(corr_r), next_pro()
     ms = time_ms(lambda: tb.block_correlate_close(
-        conf, e, xf_all, rf, pro, st, pl_f, 1, corr=corr_f, scratch=scratch))
+        conf, e, xf_all, rf, pro, st, pl_f, 1, corr=corr_f, scratch=scratch,
+        sec_code=sec))
     ms_fold = time_ms(lambda: tb.block_correlate_close(
         conf, e, xf_all, rf, pro, st, pl_f, 1, corr=corr_f, scratch=scratch,
-        fold=(codes_rep, taps_t, nxt)))
+        fold=(codes_rep, taps_t, nxt), sec_code=sec))
     k1_ms = time_ms(lambda: tb.block_correlate(
         xf_all, rf_c, *k1_in, out=corr_r, scratch=scratch))
     k8a_ms = time_ms(lambda: tb.block_prologue(conf, e, codes_rep, taps_t,
@@ -841,13 +922,13 @@ def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
     def plain():
         corr = tb._block_correlate_plain(xf_all, torch.conj_physical(rf),
                                          *k1_in)
-        _, o = tb._block_closure_plain(conf, e, corr, pro, st)
+        _, o = tb._block_closure_plain(conf, e, corr, pro, st, sec)
         tb._write_rows(pl_r, o, 1, e)
     plain_ms = time_ms(plain, reps=3)
 
     def plain_fold():
         _, _, o, _ = tb._step_plain(conf, e, xf_all, rf, pro, st,
-                                    codes_rep, taps_t)
+                                    codes_rep, taps_t, sec_code=sec)
         tb._write_rows(pl_r, o, 1, e)
     plain_fold_ms = time_ms(plain_fold, reps=3)
     print(f"  {names[0]} ({label}): fused {ms:.4f} ms, K1 alone {k1_ms:.4f} "
@@ -859,9 +940,11 @@ def check_block_close(dev, rng, conf, c: int, e: int, pro, st, n_wins: int,
           f"{abs(ms + k8a_ms - ms_fold):.4f} ms of device time a block)")
     rows = len({min(max(int(w), 0), n_wins - e) + i
                 for w in pro.w0.tolist() for i in range(e)})
-    n_bytes = rows * nfft * 8 + c * nfft * 8 + c * e * 12 + c * e * k * 8 \
-        + k8b[1]
-    n_ops = c * nfft * (k * 5 + e * (18 + k * 8)) + k8b[2]
+    # the pilot form: the data spectrum read once (C F 8 bytes), per
+    # (c, e, f) two complex products and an accumulate, 14
+    n_bytes = rows * nfft * 8 + (1 + pilot) * c * nfft * 8 + c * e * 12 \
+        + c * e * (k + pilot) * 8 + k8b[1]
+    n_ops = c * nfft * (k * 5 + e * (18 + k * 8 + 14 * pilot)) + k8b[2]
     src = "gnss_sim_receiver_tpu_torch/csrc/block_correlator.cu"
     at = "gnss_sim_receiver_tpu/models/tracking_block.py:149"
     row = _row(names[0], "cuda", src, at, 0.0, ms, plain_ms, n_bytes, n_ops,
@@ -878,7 +961,7 @@ BLOCK_CHUNK_BLOCKS = 50
 
 
 def check_block_chunk_bits(dev, rng, conf, c: int, taps, provider,
-                           label: str) -> dict:
+                           label: str, data_provider=None) -> dict:
     """The two-launch chunk (K8a for the first block, then per block the
     cuFFT and K1 with K8b's closure and the next block's prologue fused)
     against the three-launch chunk (per block K8a, the cuFFT, K1 with K8b)
@@ -887,37 +970,41 @@ def check_block_chunk_bits(dev, rng, conf, c: int, taps, provider,
     block_state's edge states on a noise capture: every plane and the final
     state bit for bit; the arrival counters back at 0 and the fold flags at
     the chunk's folded launches (with S > 1).  Timed per chunk by graph
-    replay and on the host per block, both forms."""
+    replay and on the host per block, both forms.  With `data_provider`
+    the pilot form (both replica families, the secondary code)."""
     import torch
     from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
-    from gnss_sim_receiver_tpu_torch.ops import prn_codes
     s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
     e = max(2, int(round(0.02 / conf.t_epoch_nominal_s)))
     n = BLOCK_CHUNK_BLOCKS
-    tables = np.stack([prn_codes.bandlimited_table_normalized(
-        provider(p), conf.fs, conf.code_rate_cps, s0, 8)
-        for p in range(1, c + 1)])
-    codes_rep = tb.code_spectra(conf, tables, dev)
+    codes_rep, sec = pilot_tables(conf, c, provider, data_provider, dev)
+    pilot = sec is not None
     taps_t = torch.tensor(taps, dtype=torch.float32, device=dev)
-    st = block_state(rng, conf, c, e, 2 * e + 2, dev)
+    st = block_state(rng, conf, c, e, 2 * e + 2, dev, pilot)
     x = _cnoise(rng, (n * e + 2 * e + 4) * s0 + nfft, dev)
     xf_all = tb._window_spectra(x, s0, nfft).contiguous()
     args = (conf, n, e, codes_rep, taps_t, xf_all, st)
-    k1 = tb.k1_scratch(c, e, len(taps), nfft, dev)
+    k1 = tb.k1_scratch(c, e, len(taps) + pilot, nfft, dev)
     slabs = k1.partials.shape[1]
-    two_st, two = tb._chunk_cuda(*args, fold=True, k1=k1)
-    three_st, three = tb._chunk_cuda(*args, fold=False)
-    plain_st, plain = tb._chunk_plain(*args)
+    two_st, two = tb._chunk_cuda(*args, fold=True, k1=k1, sec_code=sec)
+    three_st, three = tb._chunk_cuda(*args, fold=False, sec_code=sec)
+    plain_st, plain = tb._chunk_plain(*args, sec)
     torch.cuda.synchronize()
     flags = k1.flags.tolist()
     if flags != [n - 1 if slabs > 1 else 0] * c:
         fail(f"two-launch chunk ({label}): fold flags {flags} after "
              f"{n - 1} folded launches of S={slabs} slabs")
     counters_at_zero(f"two-launch chunk ({label})", k1.arrivals)
+    plain_note = "and of the plain chunk"
     for ref_st, ref, what in ((three_st, three, "the three-launch chunk"),
                               (plain_st, plain, "the plain chunk")):
         diff = differing(two_st, ref_st, two, ref)
-        if diff:
+        if diff and pilot and ref is plain:
+            # the pilot form: held to the plain chunk as phase 3's 50-block
+            # chunk of phase 4's path is, where their bits part
+            plain_note = pilot_chunk_within(conf, two_st, two, plain_st,
+                                            plain, label)
+        elif diff:
             fail(f"two-launch chunk ({label}): {diff} differ in bits from "
                  f"{what}")
     active = int(two_st.active.sum())
@@ -925,17 +1012,19 @@ def check_block_chunk_bits(dev, rng, conf, c: int, taps, provider,
     def host_ms(fold):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tb._chunk_cuda(*args, fold=fold)
+        tb._chunk_cuda(*args, fold=fold, sec_code=sec)
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / n
     # the median of 5 runs of each, in turns
     runs = [(host_ms(True), host_ms(False)) for _ in range(5)]
     h_two, h_three = (float(np.median(r)) for r in zip(*runs))
-    ms_two = time_ms(lambda: tb._chunk_cuda(*args, fold=True), reps=2)
-    ms_three = time_ms(lambda: tb._chunk_cuda(*args, fold=False), reps=2)
+    ms_two = time_ms(lambda: tb._chunk_cuda(*args, fold=True, sec_code=sec),
+                     reps=2)
+    ms_three = time_ms(lambda: tb._chunk_cuda(*args, fold=False,
+                                              sec_code=sec), reps=2)
     print(f"  two-launch chunk ({label}: C={c}, E={e}, F={nfft}, S={slabs}): "
           f"{n} blocks, planes and final state bit for bit those of the "
-          f"three-launch chunk and of the plain chunk ({active} channels "
+          f"three-launch chunk {plain_note} ({active} channels "
           f"still active); fold flags {flags[0]}; device {ms_two:.4f} ms a "
           f"chunk ({ms_two / n:.5f} a block) against {ms_three:.4f} "
           f"({ms_three / n:.5f}); host {h_two:.4f} ms a block against "
@@ -945,6 +1034,129 @@ def check_block_chunk_bits(dev, rng, conf, c: int, taps, provider,
                 ms_two_launch=ms_two, ms_three_launch=ms_three,
                 host_ms_per_block_two_launch=h_two,
                 host_ms_per_block_three_launch=h_three)
+
+
+PILOT_SYNC_PRNS = tuple(range(11, 21))
+PILOT_SYNC_BLOCKS = 8
+
+
+def check_pilot_sync(dev, conf, label: str) -> dict:
+    """Phase 3, the pilot form: a planted CS25 sync.  Ten Galileo
+    satellites carrying E1-B (random symbols) and E1-C (the CS25 tiled), 45
+    dB-Hz each, made by K6 with noise; every channel armed on truth three
+    epochs in, its sign history empty.  PILOT_SYNC_BLOCKS blocks through
+    the fused launch with the fold (from one K8a) and through the plain
+    step (_step_plain), each from its own state: every channel must sync,
+    in both at the same block with the same sec_off and polarity."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import signals
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
+        SatelliteSignalParams
+    fs, s0 = conf.fs, conf.nominal_epoch_samples
+    nfft = tb.block_fft_size(conf)
+    e, nb, start = 5, PILOT_SYNC_BLOCKS, 3
+    c = len(PILOT_SYNC_PRNS)
+    rng = np.random.default_rng(25)
+    dops = rng.uniform(-3000.0, 3000.0, c)
+    delays = rng.integers(100, s0 - 100, c)
+    cs25 = signals.e1c_secondary_code().astype(np.int8)
+    sats = []
+    for p, d, n in zip(PILOT_SYNC_PRNS, dops, delays):
+        kw = dict(prn=p, system="Galileo", cn0_db_hz=45.0,
+                  doppler_hz=float(d), delay_chips=float(n) * 1.023e6 / fs)
+        sats += [SatelliteSignalParams(
+                     signal="1B", nav_bits=rng.choice([-1, 1], 40).astype(
+                         np.int8), **kw),
+                 SatelliteSignalParams(signal="1P", nav_bits=np.tile(cs25, 3),
+                                       **kw)]
+    n = int(delays.max()) + (start + nb * e + 4) * s0 + nfft
+    x = generate_baseband_device_resident(sats, fs, n, noise=True, seed=25,
+                                          device=dev)
+    xf_all = tb._window_spectra(x, s0, nfft).contiguous()
+    n_wins = xf_all.shape[0]
+    codes_rep, sec = pilot_tables(conf, c, signals.CodeProvider("1B", "C"),
+                                  signals.CodeProvider("1B"), dev,
+                                  PILOT_SYNC_PRNS)
+    st = trk._init_state(c, dev)
+    for ch, d in enumerate(dops):
+        st = trk._arm_channel(st, ch, float(d), conf.code_rate_cps
+                              * (1.0 + float(d) / conf.carrier_freq_hz))
+    pos = delays.astype(np.int64) + start * s0
+    st = st._replace(
+        pos=torch.from_numpy(pos.astype(np.int32)).to(dev),
+        rem_carr_phase=torch.from_numpy(np.mod(
+            2.0 * np.pi * dops * pos / fs, 2.0 * np.pi).astype(
+                np.float32)).to(dev))
+    taps_t = torch.tensor(conf_taps(conf), dtype=torch.float32, device=dev)
+    k = taps_t.shape[0]
+    scratch = tb.k1_scratch(c, e, k + 1, nfft, dev)
+    planes = tb._empty_planes(nb * e, c, dev)
+    pro_k = tb.block_prologue(conf, e, codes_rep, taps_t, n_wins, st)
+    pro_p = tb._block_prologue_plain(conf, e, codes_rep, taps_t, n_wins, st)
+    st_k = st_p = st
+    first = {}
+    for b in range(nb):
+        nxt = tb._empty_prologue(c, e, nfft, k, dev, 2)
+        st_k = tb.block_correlate_close(
+            conf, e, xf_all, torch.fft.fft(pro_k.rep_t, dim=-1), pro_k,
+            st_k, planes, b, scratch=scratch,
+            fold=(codes_rep, taps_t, nxt), sec_code=sec)
+        pro_k = nxt
+        _, st_p, _, pro_p = tb._step_plain(
+            conf, e, xf_all, torch.fft.fft(pro_p.rep_t, dim=-1), pro_p,
+            st_p, codes_rep, taps_t, sec_code=sec)
+        for name, s_ in (("kernel", st_k), ("plain", st_p)):
+            synced = s_.sec_synced.cpu().numpy()
+            off = s_.sec_off.cpu().numpy()
+            pol = s_.sec_polarity.cpu().numpy()
+            for ch in np.flatnonzero(synced):
+                first.setdefault((name, int(ch)),
+                                 (b, int(off[ch]), float(pol[ch])))
+    got = [first.get(("kernel", ch)) for ch in range(c)]
+    want = [first.get(("plain", ch)) for ch in range(c)]
+    print(f"  planted CS25 ({label}, {c} channels, {nb} blocks): the fused "
+          f"launch syncs at (block, sec_off, polarity) {got}; the plain "
+          f"step at {want}")
+    if None in want or got != want:
+        fail(f"planted CS25 ({label}): the fused launch syncs at {got}, "
+             f"the plain step at {want}")
+    return dict(name="planted_cs25_sync", shape=f"{label}: C={c}, E={e}, "
+                f"F={nfft}, {nb} blocks", sync=got)
+
+
+def pilot_chunk_within(conf, got_st, got, want_st, want, label) -> str:
+    """The pilot-form chunk `got` against the plain chunk `want` where
+    their bits part: the active and secondary-sync sets identical, the
+    code boundary of every epoch within 1e-3 chip, the Doppler within 0.5
+    Hz and the prompts within 1e-3 of their largest modulus (the bounds of
+    phase 3's 50-block chunk of phase 4's path).  Returns what it found,
+    for the log."""
+    import torch
+    valid = want["valid"]
+
+    def boundary(o):
+        end = (o["pos_start"] + o["n_samples"]).double()
+        return ((end - o["code_phase_samples"].double())
+                * o["code_freq_cps"].double() / conf.fs)
+    d_code = (boundary(got) - boundary(want))[valid].abs().max().item()
+    d_dop = (got["carrier_doppler_hz"] - want["carrier_doppler_hz"]
+             ).abs().max().item()
+    d_prompt = ((got["prompt"] - want["prompt"]).abs().max()
+                / want["prompt"].abs().max()).item()
+    same = all(torch.equal(getattr(got_st, k), getattr(want_st, k))
+               for k in ("active", "sec_synced", "sec_off"))
+    if not (same and torch.equal(got["valid"], valid) and d_code < 1e-3
+            and d_dop < 0.5 and d_prompt < 1e-3):
+        fail(f"two-launch chunk ({label}): departs from the plain chunk: "
+             f"sets {'identical' if same else 'DIFFERENT'}, code {d_code}, "
+             f"Doppler {d_dop}, prompts {d_prompt}")
+    return (f"and within the plain chunk's bounds (code {d_code:.2e} chip, "
+            f"Doppler {d_dop:.2e} Hz, prompts {d_prompt:.2e}; active and "
+            "sync sets identical)")
 
 
 def check_k2(dev, rng, conf, c: int, taps, provider, name: str,
@@ -1603,7 +1815,9 @@ def check_k3_search_shapes(dev, extra: list) -> None:
       dwells of phase 8's scenario made by K6, PRNs 11-20, N=80000;
     - phase 4e's GPS L1 C/A search with bit_transition_flag: M=2 dwells of
       the static scenario at 2 Msps, PRNs 1-10, N=4000 (the doubled
-      FFT)."""
+      FFT);
+    - phase 10's GPS L1 C/A search at 3 Msps: M=2 dwells of its scenario
+      made by K6, PRNs 1-10, N=3000."""
     import torch
     from gnss_sim_receiver_tpu_torch.models.acquisition import \
         PcpsAcquisitionEngine
@@ -1653,6 +1867,13 @@ def check_k3_search_shapes(dev, extra: list) -> None:
     x = torch.from_numpy(synthesize(FS, 0.01, m * n).astype(np.complex64))
     search(eng, x.to(dev).reshape(m, n),
            f"GPS L1 C/A at {FS / 1e6:g} Msps, bit_transition_flag")
+    acq = receiver_conf_from_config(InMemoryConfiguration(conf_properties(
+        PS_CONF.format(capture="")))).acq
+    eng = PcpsAcquisitionEngine(acq, tuple(range(1, 11)), device=dev)
+    m, n = acq.max_dwells, eng.fft_size
+    search(eng, generate_baseband_device_resident(
+        ps_sats(), FS_PS, m * n, noise=True, seed=29, device=dev).reshape(
+            m, n), f"phase 10's GPS L1 C/A search at {FS_PS / 1e6:g} Msps")
 
 
 def check_wipe_path_shapes(dev, extra: list) -> None:
@@ -4579,13 +4800,16 @@ def wideband_path(root: str, wrappers, card: str) -> dict:
     return launches
 
 
-def pilot_receiver_conf(fs: float = FS_REF_HYBRID):
+def pilot_receiver_conf(fs: float = FS_REF_HYBRID, gps_extend: int = 20,
+                        e1_extend: int = 5):
     """Phase 8's receiver: phase 5's conf (GPS acquisition, observables,
     PVT.output_rate_ms=20) with GPS tracking at extend_correlation_symbols
     20 and, in place of its E1-B chain, galileo_e1b_chain(fs,
     n_channels=10, track_pilot=True, extend_correlation_symbols=5) with
     phase 5's E1 tracking keys (very-early-late 0.6 chips, PLL 15 Hz) and
-    the chain's own two-step PCPS acquisition."""
+    the chain's own two-step PCPS acquisition.  Phase 8c's: both chains at
+    extend_correlation_symbols 1 (`gps_extend`, `e1_extend`), where both
+    close on the block kernels, the E1 chain on their pilot form."""
     import dataclasses
     from gnss_sim_receiver_tpu_torch.models.factory import \
         receiver_conf_from_config
@@ -4597,12 +4821,12 @@ def pilot_receiver_conf(fs: float = FS_REF_HYBRID):
     (e1,) = rconf.chains
     pilot = galileo_e1b_chain(
         fs, n_channels=e1.n_channels, track_pilot=True,
-        extend_correlation_symbols=5,
+        extend_correlation_symbols=e1_extend,
         very_early_late_space_chips=e1.trk.very_early_late_space_chips,
         pll_bw_hz=e1.trk.pll_bw_hz)
     return dataclasses.replace(
-        rconf, trk=dataclasses.replace(rconf.trk,
-                                       extend_correlation_symbols=20),
+        rconf, trk=dataclasses.replace(
+            rconf.trk, extend_correlation_symbols=gps_extend),
         chains=(pilot,))
 
 
@@ -4723,7 +4947,7 @@ def check_pilot_states(session) -> None:
             fail(f"{rt.spec.signal} chain: {flag} {synced}, ext_n {ext_n}")
 
 
-def pilot_path(wrappers, card: str) -> dict:
+def pilot_path(wrappers, card: str, then=None) -> dict:
     """Phase 8: phase 8's scenario (phase 5's, each Galileo satellite with
     E1-B and E1-C) made on the card by K6 for 26 s at 20 Msps and kept
     there, through the array entry point's session (ReceiverSession,
@@ -4731,7 +4955,9 @@ def pilot_path(wrappers, card: str) -> dict:
     to read the engines' states after) with pilot_receiver_conf: the
     tracked sets, ephemerides (I/NAV from the data prompt), fixes and mean
     position error as phase 5 (GPS held to PILOT_GPS_MIN), every tracking
-    channel synced, and K2 and K9 once per epoch of the two chains."""
+    channel synced, and K2 and K9 once per epoch of the two chains.  With
+    `then`, then(x, run) runs on the same capture before it is freed (phase
+    8c); its result is returned under "then"."""
     import torch
     from gnss_sim_receiver_tpu_torch.models.receiver import ReceiverSession
     from gnss_sim_receiver_tpu_torch.sim.device_generator import \
@@ -4782,13 +5008,89 @@ def pilot_path(wrappers, card: str) -> dict:
             torch.cuda.synchronize()
             return f"receiver wall {time.perf_counter() - t0:.3f} s"
         profile_path(again)
-    del x, session
+    del session
+    if then is not None:
+        launches["then"] = then(x, run)
+    del x
     torch.cuda.empty_cache()
     launches["K9_epoch_chunk"] = chunks["1C"]
     launches["K9_epoch_chunk_E1"] = chunks["1B"]
     launches["K9_epoch_closure_E1"] = launches["K9_epoch_closure"]
     launches["K2_multicorrelate_E1_data"] = launches["K2_multicorrelate"]
     launches["K6_device_generator"] = k6["K6_device_generator"]
+    return launches
+
+
+PILOT_BLOCK_KERNELS = ("K8a_block_prologue_E1_pilot",
+                       "K1_K8b_K8a_block_step_E1_pilot")
+
+
+def pilot_block_path(wrappers, card: str, x, phase8) -> dict:
+    """Phase 8c: phase 8's capture (made by K6 for phase 8, still on the
+    card) through the array entry point's session with both chains at
+    extend_correlation_symbols 1 (pilot_receiver_conf(gps_extend=1,
+    e1_extend=1)): GPS L1 C/A on the block kernels, the E1 chain on their
+    pilot form (both replica families, the data prompt for I/NAV, the
+    block's CS25 sync).  Phase 8's checks and its tracked sets,
+    ephemerides and fixes kept (`phase8` is its run); every tracked E1
+    channel secondary-synced; the block launches as on every block path
+    (K1 with K8b fused once per block, K8a once per chunk, the fold on the
+    others, the chunk kernel on the chunk tails), the pilot form on the E1
+    chain (its K8a and folds adding up to its fused launches, fewer than
+    all the fused launches)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.models.receiver import ReceiverSession
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session = ReceiverSession(pilot_receiver_conf(gps_extend=1, e1_extend=1))
+    session.attach_array(x)
+    session.run_to_end()
+    run = session.result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers, BLOCK_PATH_KERNELS
+                             + PILOT_BLOCK_KERNELS)
+    check_hybrid_run(run, gps_min=PILOT_GPS_MIN)
+
+    def tracked(r):
+        return {(sy, p) for p, st, sy in zip(r.channel_prns,
+                                              r.channel_states,
+                                              r.channel_systems)
+                if st == ChannelState.TRACKING}
+    lost = tracked(phase8) - tracked(run)
+    lost_eph = set(phase8.ephemerides) - set(run.ephemerides)
+    print(f"  phase 8's tracked set {sorted(tracked(phase8))}, here "
+          f"{sorted(tracked(run))}; phase 8's ephemerides kept: "
+          f"{not lost_eph}; fixes {len(run.solutions)} (phase 8: "
+          f"{len(phase8.solutions)})")
+    if lost or lost_eph or len(run.solutions) < min(
+            len(phase8.solutions), 5):
+        fail(f"phase 8c loses phase 8's {sorted(lost)}, ephemerides "
+             f"{sorted(lost_eph, key=str)} or fixes")
+    for rt in session.chains:
+        if rt.spec.signal != "1B":
+            continue
+        chans = [c for c in range(rt.spec.n_channels)
+                 if rt.mgr.channels[c].state == ChannelState.TRACKING]
+        synced = rt.trk.state.sec_synced.cpu().numpy()[chans]
+        print(f"  E1 pilot chain: sec_synced {synced.tolist()} on the "
+              f"tracked channels {chans}")
+        if not len(chans) or not synced.all():
+            fail(f"E1 pilot chain: sec_synced {synced} on {chans}")
+    check_block_launches(launches, wall)
+    fused = launches["K1_K8b_block_correlate_close"]
+    fused_p = launches["K1_K8b_block_correlate_close_E1_pilot"]
+    k8a_p, folds_p = (launches[n] for n in PILOT_BLOCK_KERNELS)
+    print(f"  pilot form on the E1 chain: {fused_p} fused launches of "
+          f"{fused}, K8a {k8a_p}, with the fold {folds_p}")
+    if not (0 < fused_p < fused and k8a_p + folds_p == fused_p):
+        fail(f"the pilot form ran {fused_p} of {fused} fused launches, "
+             f"K8a {k8a_p}, folds {folds_p}")
+    print(f"  receiver wall {wall:.3f} s for {DUR:.0f} s of signal: "
+          f"real-time factor {DUR / wall:.3f} ({card})")
+    del session
     return launches
 
 
@@ -4834,6 +5136,7 @@ SHARD_KERNELS = {
     "per-epoch tracking": ("K9_epoch_chunk",),
     "block tracking": ("K8a_block_prologue", "K1_K8b_block_correlate_close",
                        "K1_K8b_K8a_block_step"),
+    "block tracking, pilot form": PILOT_BLOCK_KERNELS,
     "Doppler-sharded acquisition": ("K3_pcps_wipe", "K3_pcps_rows"),
     "time-sharded acquisition": ("K3_pcps_wipe", "K7_pcps_window_fold")}
 
@@ -4880,6 +5183,32 @@ def shard_inputs(dev, rng):
         dops=torch.from_numpy(pcps.doppler_grid(5000.0, 250.0)).to(dev),
         os_x=torch.from_numpy(os_x).to(dev),
         os_code=torch.from_numpy(np.asarray(code7, np.float32)).to(dev))
+
+
+SHARD_PILOT_BLOCKS = 20
+
+
+def pilot_shard_inputs(dev, rng):
+    """Phase 9's pilot-form block step: phase 8c's E1 pilot chain at 20
+    Msps, its 10 channels on PRNs 11-20 (both replica families), armed on
+    a Doppler ramp, a noise capture of SHARD_PILOT_BLOCKS blocks."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import signals
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    conf = pilot_receiver_conf(gps_extend=1, e1_extend=1).chains[0].trk
+    c, s0 = len(PILOT_SYNC_PRNS), conf.nominal_epoch_samples
+    reps, sec = pilot_tables(conf, c, signals.CodeProvider("1B", "C"),
+                             signals.CodeProvider("1B"), dev,
+                             PILOT_SYNC_PRNS)
+    st = trk._init_state(c, dev)._replace(
+        active=torch.ones(c, dtype=torch.bool, device=dev),
+        carrier_doppler=torch.linspace(-3000.0, 3000.0, c, device=dev))
+    return dict(conf=conf, reps=reps, sec=sec, state=st,
+                taps=torch.tensor(conf_taps(conf), dtype=torch.float32,
+                                  device=dev),
+                x=_cnoise(rng, (SHARD_PILOT_BLOCKS * 5 + 14) * s0
+                          + tb.block_fft_size(conf), dev))
 
 
 def _sharded_step(name, wrappers, ss, run, unsharded, same) -> dict:
@@ -4973,6 +5302,20 @@ def sharded_path(wrappers) -> dict:
                                                SHARD_E, rep, taps, xb, st),
         lambda: tb.track_chunk_blocks(conf, SHARD_BLOCKS, SHARD_E, rep, taps,
                                       xb, st), same_tracking)
+    pil = pilot_shard_inputs(mesh.device, np.random.default_rng(98))
+    p_rep, p_data, p_st = (shard_channel_axis(t, mesh) for t in (
+        pil["reps"][0], pil["reps"][1], pil["state"]))
+    p_x, p_taps, p_sec = replicate((pil["x"], pil["taps"], pil["sec"]),
+                                   mesh)
+    _sharded_step(
+        "block tracking, pilot form", wrappers, ss,
+        lambda: ss.tracking_block_step_sharded(
+            mesh, pil["conf"], SHARD_PILOT_BLOCKS, 5, p_rep, p_taps, p_x,
+            p_st, sec_code=p_sec, data_codes_rep=p_data),
+        lambda: tb.track_chunk_blocks(pil["conf"], SHARD_PILOT_BLOCKS, 5,
+                                      p_rep, p_taps, p_x, p_st, p_sec,
+                                      p_data), same_tracking)
+    del pil, p_x
     dops_l = shard_channel_axis(inp["dops"], mesh)
     acq_x, cfc = replicate((inp["acq_x"], inp["acq_cfc"]), mesh)
     rows = _sharded_step(
@@ -5126,6 +5469,215 @@ def filters_path(wrappers, dev) -> dict:
                                         "K10b_sigma_moments"))
     return {k: launches[k] for k in ("K10a_sigma_points",
                                      "K10b_sigma_moments")}
+
+
+# ---- phase 10: the fork's hybrid operating point ---------------------------
+
+# BASELINE.md's "Fork hybrid operating point" (the fork's bladeRF2 hybrid
+# navigation conf, GPS L1 C/A, 9 channels of which one tracks a pseudolite,
+# 3 Msps), made by K6 from phase 4's sky: the pseudolite is one more GPS
+# signal on a PRN no sky satellite uses, at 0 Hz and 50 dB-Hz, with its own
+# LNAV stream (so that its TOW decodes) and a clock PS_DT_S off GPS time:
+# it is received PS_RANGE_M / c - PS_DT_S after it leaves, and the AOWR
+# clock difference it yields after each fix is PS_DT_S
+FS_PS = 3_000_000.0
+PS_PRN = 17
+PS_CHANNEL = 8
+PS_RANGE_M = 0.4
+PS_DT_S = -2.5e-3
+PS_CN0 = 50.0
+# The clock difference after a fix is -dt_by_cp + the fix's rx clock bias:
+# PS_DT_S plus the fix's own clock error less the pseudolite's ranging
+# error.  With PVT.enable_rx_clock_propagation the clock is held from the
+# 10th fix on, so the first term is one least-squares fix's clock error
+# for the rest of the run.  tools/probe_hybrid_ps.py's CPU run of this
+# scenario (the port's plain versions, the same 26 s) puts the median 11.5
+# ns from PS_DT_S: the held clock 8.7 ns off (the 10th fix's), the
+# pseudolite's range 2.7 ns (0.8 m).  That is past the AOWR's own 3 m
+# gate (10 ns) and is reported, not allowed: phase 10 holds the AOWR
+# product against the scenario's true receiver clock (the clock
+# difference less the fix's clock error, which the scenario knows from
+# each epoch's sample counter) within PS_CLOCK_TOL_S, twice the CPU
+# run's 2.7 ns, and prints the raw median and the held clock's error
+PS_CLOCK_TOL_S = 5e-9
+PS_CONF = """\
+GNSS-SDR.internal_fs_sps=3000000
+GNSS-SDR.hybrid_mode=true
+GNSS-SDR.pseudo_sat_ch_id=8
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={capture}
+SignalSource.item_type=ibyte
+SignalSource.sampling_frequency=3000000
+Channels_1C.count=9
+Channels.in_acquisition=9
+Channel8.satellite=17
+Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition
+Acquisition_1C.coherent_integration_time_ms=1
+Acquisition_1C.pfa=0.01
+Acquisition_1C.doppler_max=5000
+Acquisition_1C.doppler_step=250
+Acquisition_1C.max_dwells=2
+Acquisition_1C.make_two_steps=true
+Acquisition_1C.second_nbins=4
+Acquisition_1C.second_doppler_step=125
+Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking
+Observables.implementation=Hybrid_Observables
+PVT.implementation=RTKLIB_PVT
+PVT.positioning_mode=Single
+PVT.output_rate_ms=20
+PVT.enable_rx_clock_propagation=true
+PVT.share_rx_clock_bias=true
+"""
+PS_KERNELS = BLOCK_PATH_KERNELS + ACQUISITION_KERNELS
+
+
+def ps_sats():
+    """Phase 10's signals: phase 4's sky (its 6 satellites, 47 dB-Hz, the
+    26 s geometry) and the pseudolite."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch import constants
+    from gnss_sim_receiver_tpu_torch.nav import lnav
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
+        SatelliteSignalParams
+    sky = make_sky_constellation(RX_LLH[0], RX_LLH[1], toe=T0 + 600)
+    if PS_PRN in {e.prn for e in sky}:
+        raise ValueError("the pseudolite's PRN is a sky satellite's")
+    sats = build_static_scenario([e for e in sky if e.prn in SCENARIO_PRNS],
+                                 rx_true_ecef(), T0, DUR, cn0_db_hz=47.0,
+                                 subframe_cycle=(1, 2, 3))
+    cycle = (1, 2, 3)
+    stream = lnav.frames_for_ephemeris(
+        dataclasses.replace(sky[1], prn=PS_PRN), T0,
+        n_frames=int(np.ceil((DUR + 60.0) / (6.0 * len(cycle)))),
+        subframe_cycle=cycle)
+    return sats + [SatelliteSignalParams(
+        prn=PS_PRN, system="GPS", signal="1C", cn0_db_hz=PS_CN0,
+        doppler_hz=0.0,
+        delay_sec=PS_RANGE_M / constants.SPEED_OF_LIGHT_M_S - PS_DT_S,
+        delay_chips=0.0, nav_bits=(2 * stream - 1).astype(np.int8))]
+
+
+def make_ps_capture(path: str, device) -> None:
+    """Phase 10's 26 s capture at 3 Msps made by K6 (noise seed 29) on
+    `device`, quantized there and written as ibyte."""
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    x = generate_baseband_device_resident(ps_sats(), FS_PS, int(FS_PS * DUR),
+                                          noise=True, seed=29, device=device)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + f".{os.getpid()}.tmp"
+    write_samples(tmp, x, "ibyte", scale=HYB_BYTE_SCALE)
+    os.replace(tmp, path)
+
+
+def check_ps_run(run) -> dict:
+    """Phase 10's checks on a run of PS_CONF: the mean position error
+    (2D < 2 m, 3D < 5 m), no fix on the pseudolite's channel, no bias
+    record tagged with its PRN and one per fix, one clock difference per
+    fix from the first epoch that observes the pseudolite, and the median
+    AOWR product against the true receiver clock (each clock difference
+    less its fix's clock error: the scenario's sample 0 is GPS time T0,
+    so an epoch's true receiver clock offset is its rx time less T0 +
+    its sample counter over FS_PS) within PS_CLOCK_TOL_S of PS_DT_S.
+    Returns the numbers, the raw median and the fixes' clock errors
+    among them."""
+    sols = run.solutions
+    if run.channel_prns[PS_CHANNEL] != PS_PRN or len(sols) < 5:
+        fail(f"channel {PS_CHANNEL} holds PRN {run.channel_prns[PS_CHANNEL]}"
+             f", {len(sols)} fixes")
+    err_2d, err_3d = mean_error(run)
+    used = sorted({int(c) for s in sols for c in s.used_channels})
+    tags = sorted({prn for *_, prn in run.rx_clock_bias_log})
+    true_clock = {round(e.rx_time_s, 3):
+                  e.rx_time_s - (T0 + e.tick_sample / FS_PS)
+                  for e in run.observation_epochs}
+    seen = [e.rx_time_s for e in run.observation_epochs
+            if e.valid[PS_CHANNEL]]
+    fix_t = [round(s.rx_time_corrected_s + s.rx_clock_bias_s, 3)
+             for s in sols]
+    clock_err = np.array([s.rx_clock_bias_s - true_clock[t]
+                          for s, t in zip(sols, fix_t)])
+    after = [t >= round(seen[0], 3) for t in fix_t] if seen else []
+    diffs = np.array([d for d, _ in run.clock_differences])
+    med = float(np.median(diffs)) if len(diffs) else float("nan")
+    aowr = float(np.median(diffs - clock_err[after])) \
+        if len(diffs) == sum(after) else float("nan")
+    out = dict(fixes=len(sols), err_2d=err_2d, err_3d=err_3d,
+               used_channels=used, bias_tags=tags,
+               clock_differences=len(diffs), fixes_after_ps=sum(after),
+               median_clock_difference_s=med,
+               raw_gap_s=med - PS_DT_S,
+               median_fix_clock_error_s=float(np.median(clock_err)),
+               aowr_gap_s=aowr - PS_DT_S)
+    print(f"  {len(sols)} fixes on channels {used}; mean error 2D "
+          f"{err_2d:.3f} m, 3D {err_3d:.3f} m; bias records tagged {tags}; "
+          f"{len(diffs)} clock differences for {sum(after)} fixes since "
+          f"the pseudolite was first observed; their median {med!r} s "
+          f"against {PS_DT_S!r}: {med - PS_DT_S:.3e} s off, of which the "
+          f"fixes' clock error (median {np.median(clock_err):.3e} s; held "
+          f"from the 10th fix: {clock_err[-1]:.3e} s); against the true "
+          f"receiver clock {aowr - PS_DT_S:.3e} s (tolerance "
+          f"{PS_CLOCK_TOL_S:g})")
+    if not (err_2d < 2.0 and err_3d < 5.0):
+        fail(f"position error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
+    if PS_CHANNEL in used or PS_PRN in tags \
+            or len(run.rx_clock_bias_log) != len(sols):
+        fail(f"the pseudolite's channel in a fix ({used}) or its PRN in "
+             f"a bias record ({tags})")
+    if not seen or len(diffs) != sum(after):
+        fail(f"{len(diffs)} clock differences, {sum(after)} fixes after "
+             "the pseudolite was observed")
+    if not abs(aowr - PS_DT_S) < PS_CLOCK_TOL_S:
+        fail(f"the AOWR product against the true receiver clock {aowr!r} "
+             f"s, planted {PS_DT_S!r} s")
+    return out
+
+
+def ps_path(root: str, wrappers, card: str) -> dict:
+    """Phase 10: the hybrid operating point through the CLI (the port's
+    factory reads PS_CONF's hybrid keys) on the card: K6 makes the capture
+    (its launches counted apart), then the counters are set to 0 just
+    before the CLI and read just after; the block path's kernels and the
+    acquisition's must run (GPS at 3 Msps: K1 with K8b and the fold, the
+    chunk kernel on the tails); check_ps_run's checks."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    path = os.path.join(root, "build", "ps_scenario_26s_3msps_v1.ibyte")
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    make_ps_capture(path, "cuda")
+    k6 = read_launches(wrappers, ("K6_device_generator",))
+    print(f"  K6 made and wrote {os.path.getsize(path) / 1e6:.0f} MB ibyte "
+          f"at {FS_PS / 1e6:g} Msps in {time.perf_counter() - t0:.3f} s "
+          "(not timed)")
+    conf = os.path.join(root, "build", "chip_smoke_ps.conf")
+    with open(conf, "w") as fh:
+        fh.write(PS_CONF.format(capture=path))
+    reset(wrappers)
+    torch.cuda.synchronize()
+    res = run_cli([f"--config_file={conf}"])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, PS_KERNELS)
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    check_ps_run(res.run)
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}")
+    check_block_launches(launches, sec["receiver"])
+    print(f"  wall {wall:.3f} s from file open to the last fix for "
+          f"{DUR:.0f} s of signal: real-time factor {DUR / wall:.3f} "
+          f"({card})")
+    os.remove(path)
+    launches["K6_device_generator"] = k6["K6_device_generator"]
+    return launches
 
 
 def profile_path(run) -> None:
@@ -5306,6 +5858,31 @@ def run_phases(root: str, card: str, procs: dict) -> int:
               *check_k8(dev, rng8, gps20, 10, gps_taps, gps_code, 250, k8,
                         "GPS L1 C/A at 20 Msps")]
     torch.cuda.empty_cache()
+    # the pilot form (a track_pilot chain at extend 1: both replica
+    # families, the data prompt, the block's CS25 sync) at phase 8c's E1
+    # shape and at 4 Msps, with a planted CS25 sync; the GPS block step at
+    # phase 10's 3 Msps
+    e1_pilot = pilot_receiver_conf(gps_extend=1, e1_extend=1).chains[0].trk
+    e1_code = signals.CodeProvider("1B", "C")
+    e1_data = signals.CodeProvider("1B")
+    k8_p = tuple(n + "_E1_pilot" for n in k8)
+    pil = check_k8(dev, rng8, e1_pilot, 10, conf_taps(e1_pilot), e1_code,
+                   250, k8_p, "Galileo E1 pilot at 20 Msps",
+                   data_provider=e1_data)
+    rows += [pil[0], pil[3]]
+    extra += [pil[1], pil[2]]
+    e1_pilot4 = pilot_receiver_conf(FS_FILE, 1, 1).chains[0].trk
+    extra += check_k8(dev, rng8, e1_pilot4, 10, conf_taps(e1_pilot4),
+                      e1_code, 250, k8_p, "Galileo E1 pilot at 4 Msps",
+                      data_provider=e1_data)
+    extra.append(check_pilot_sync(dev, e1_pilot,
+                                  "Galileo E1 pilot at 20 Msps"))
+    gps3 = trk.TrackingConf(fs=FS_PS)
+    g3 = check_k8(dev, rng8, gps3, 9, gps_taps, gps_code, 1000,
+                  tuple(n + "_3Msps" for n in k8), "GPS L1 C/A at 3 Msps")
+    rows.append(g3[3])
+    extra += g3[:3]
+    torch.cuda.empty_cache()
     # the two-launch chunk at the same four shapes
     for conf_, c_, taps_, prov, lab in (
             (gps, 8, gps_taps, gps_code, "GPS L1 C/A at 2 Msps"),
@@ -5316,6 +5893,16 @@ def run_phases(root: str, card: str, procs: dict) -> int:
              "Galileo E1-B at 20 Msps")):
         extra.append(check_block_chunk_bits(dev, rng8, conf_, c_, taps_,
                                             prov, lab))
+        torch.cuda.empty_cache()
+    # and the pilot form's and phase 10's
+    for conf_, c_, taps_, prov, data, lab in (
+            (e1_pilot, 10, conf_taps(e1_pilot), e1_code, e1_data,
+             "Galileo E1 pilot at 20 Msps"),
+            (e1_pilot4, 10, conf_taps(e1_pilot4), e1_code, e1_data,
+             "Galileo E1 pilot at 4 Msps"),
+            (gps3, 9, gps_taps, gps_code, None, "GPS L1 C/A at 3 Msps")):
+        extra.append(check_block_chunk_bits(dev, rng8, conf_, c_, taps_,
+                                            prov, lab, data))
         torch.cuda.empty_cache()
     k5b_row, notch_case = check_k5b(dev, rng)
     rows += [check_k1(dev, rng, gps, 8, 20, gps_taps, 1000,
@@ -5385,6 +5972,11 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         "K1_K8b_block_correlate_close": (tb.block_correlate_close,
                                          "launches"),
         "K1_K8b_K8a_block_step": (tb.block_correlate_close, "folds"),
+        "K8a_block_prologue_E1_pilot": (tb.block_prologue, "launches_pilot"),
+        "K1_K8b_block_correlate_close_E1_pilot": (tb.block_correlate_close,
+                                                  "launches_pilot"),
+        "K1_K8b_K8a_block_step_E1_pilot": (tb.block_correlate_close,
+                                           "folds_pilot"),
         "block_chunks": (tb.track_chunk_blocks, "chunks"),
         "K9_epoch_closure": (trk.epoch_closure, "launches"),
         "K2_multicorrelate": (correlator.multicorrelate, "launches"),
@@ -5485,7 +6077,14 @@ def run_phases(root: str, card: str, procs: dict) -> int:
           "-> process_array's session -> GPS L1 C/A at 20 ms + Galileo E1-C "
           "pilot with the E1-B data prompt at 20 ms -> joint position)",
           flush=True)
-    pilot = pilot_path(wrappers, card)
+    def phase_8c(x, run):
+        print("== phase 8c: phase 8's capture with GPS and the E1 pilot "
+              "chain at extend_correlation_symbols=1 (the block kernels, the "
+              "E1 chain on their pilot form)", flush=True)
+        return pilot_block_path(wrappers, card, x, run)
+    pilot = pilot_path(wrappers, card, then=phase_8c)
+    for name in PILOT_BLOCK_KERNELS:
+        launches[name] = pilot["then"][name]
     for name in ("K9_epoch_closure", "K9_epoch_closure_E1",
                  "K2_multicorrelate_E1_data", "K9_epoch_chunk",
                  "K9_epoch_chunk_E1"):
@@ -5503,9 +6102,17 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     print("== phase 9b: the sigma-point filters (4096 filters through K10a, "
           "torch.func.vmap and K10b)", flush=True)
     launches.update(filters_path(wrappers, dev))
-    # K6's launches: the captures of phases 5, 6, 7 and 8
+    torch.cuda.empty_cache()
+    print("== phase 10: the fork's hybrid operating point (GPS L1 C/A, 9 "
+          "channels, one a pseudolite, 3 Msps: device generator -> ibyte "
+          "file -> hybrid conf through the CLI -> position and AOWR clock "
+          "differences)", flush=True)
+    ps = ps_path(root, wrappers, card)
+    launches["K1_K8b_K8a_block_step_3Msps"] = ps["K1_K8b_K8a_block_step"]
+    # K6's launches: the captures of phases 5, 6, 7, 8 and 10
     launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
-                                       + k6_wb + pilot["K6_device_generator"])
+                                       + k6_wb + pilot["K6_device_generator"]
+                                       + ps["K6_device_generator"])
     for r in rows:
         r["launches"] = launches[r["name"]]
 

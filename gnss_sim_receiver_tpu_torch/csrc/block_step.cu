@@ -34,6 +34,16 @@
 // into another (the caller ping-pongs two), so nothing is aliased.
 // Latency-bound: it moves a few kB.
 //
+// The pilot form (a track_pilot chain, the JAX body's sec_code and
+// data_codes_rep, tracking_block.py:301-357) is a second instantiation of
+// each kernel: K8a ramps the data code's table beside the pilot's, into a
+// [2, C, F] replica that one cuFFT transforms; K8b reads the data prompt
+// (K1's last column) for the prompt plane and, before the discriminators,
+// runs the block's secondary-code sync on every warp (lane i holds slot i
+// of the 32-slot sign history; lane o < n_sec the hard match at offset o)
+// and wipes the prompt, early and late taps where synced; warp 1 commits
+// the sync.
+//
 // The arithmetic is the plain PyTorch version's, operation by operation
 // (gnss_sim_receiver_tpu_torch/models/tracking_block.py:
 // _block_prologue_plain, _block_closure_plain), as torch runs it on the
@@ -63,6 +73,7 @@ constexpr int kPrologueThreads = 256;
 constexpr int kMaxEpochs = 32;
 constexpr int kMaxTaps = 8;
 constexpr int kBits = 20;               // bit-sync histogram bins
+constexpr int kSecMax = 32;             // the sign history's slots
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int floor_div(int a, int b) {   // b > 0
@@ -143,19 +154,23 @@ __device__ __forceinline__ float prologue_omega(const PrologueArgs& a,
 // `n_threads` in turn: angle = omega * float(m), never accumulated
 // (float(m) is exact below 2^24); kBatch samples of a thread at a time,
 // their table loads issued together (the fold's CTAs write many samples
-// each)
-template <int kBatch>
+// each).  kFam families (2 in the pilot form: the pilot's and the data
+// code's, C F apart) share each sample's phasor
+template <int kBatch, int kFam>
 __device__ __forceinline__ void prologue_replica(const PrologueArgs& a, int c,
                                                  float omega, int lo, int hi,
                                                  int tid, int n_threads) {
+  const size_t stride = (size_t)a.n_ch * a.nfft;
   const float* codes = a.codes_rep + (size_t)c * a.nfft;
   float2* rep = a.out.rep_t + (size_t)c * a.nfft;
   for (int m0 = lo + tid; m0 < hi; m0 += kBatch * n_threads) {
-    float code[kBatch];
+    float code[kBatch][kFam];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int m = m0 + u * n_threads;
-      code[u] = m < hi ? codes[m] : 0.0f;
+#pragma unroll
+      for (int f = 0; f < kFam; ++f)
+        code[u][f] = m < hi ? codes[f * stride + m] : 0.0f;
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
@@ -163,7 +178,10 @@ __device__ __forceinline__ void prologue_replica(const PrologueArgs& a, int c,
       if (m < hi) {
         float sn, co;
         sincosf(__fmul_rn(omega, (float)m), &sn, &co);
-        rep[m] = make_float2(__fmul_rn(code[u], co), __fmul_rn(code[u], sn));
+#pragma unroll
+        for (int f = 0; f < kFam; ++f)
+          rep[f * stride + m] = make_float2(__fmul_rn(code[u][f], co),
+                                            __fmul_rn(code[u][f], sn));
       }
     }
   }
@@ -222,11 +240,13 @@ __device__ __forceinline__ void prologue_vectors(const PrologueArgs& a, int c,
   }
 }
 
-// one sample of the replica per thread; the CTA that writes the vectors
-// loads the state before the replica's stores, which the compiler cannot
-// prove do not alias it, so that its loads overlap the table's (loaded
-// after them, they would wait on the table load, the sincos and the
-// stores); the other CTAs load only the Doppler
+// one sample of the replica per thread (of each of the kFam families);
+// the CTA that writes the vectors loads the state before the replica's
+// stores, which the compiler cannot prove do not alias it, so that its
+// loads overlap the table's (loaded after them, they would wait on the
+// table load, the sincos and the stores); the other CTAs load only the
+// Doppler
+template <int kFam>
 __global__ void __launch_bounds__(kPrologueThreads)
 block_prologue_kernel(const __grid_constant__ PrologueArgs a) {
   const int c = blockIdx.y;
@@ -235,11 +255,17 @@ block_prologue_kernel(const __grid_constant__ PrologueArgs a) {
       : ProState{0.0f, a.st.carrier_doppler[c], 0.0f, 0.0f, 0};
   const int m = blockIdx.x * kPrologueThreads + threadIdx.x;
   if (m < a.nfft) {
+    const size_t stride = (size_t)a.n_ch * a.nfft;
     const size_t i = (size_t)c * a.nfft + m;
-    const float code = a.codes_rep[i];
+    float code[kFam];
+#pragma unroll
+    for (int f = 0; f < kFam; ++f) code[f] = a.codes_rep[f * stride + i];
     float sn, co;
     sincosf(__fmul_rn(prologue_ramp(a, s.dop), (float)m), &sn, &co);
-    a.out.rep_t[i] = make_float2(__fmul_rn(code, co), __fmul_rn(code, sn));
+#pragma unroll
+    for (int f = 0; f < kFam; ++f)
+      a.out.rep_t[f * stride + i] =
+          make_float2(__fmul_rn(code[f], co), __fmul_rn(code[f], sn));
   }
   if (blockIdx.x == 0) prologue_vectors(a, c, threadIdx.x, s);
 }
@@ -247,23 +273,86 @@ block_prologue_kernel(const __grid_constant__ PrologueArgs a) {
 bool prologue_args_invalid(const PrologueArgs& a, int n_ch) {
   return n_ch < 1 || a.n_epochs < 1 || a.n_epochs > kPrologueThreads ||
          a.n_taps < 1 || a.n_taps > kPrologueThreads || a.nfft < 1 ||
-         a.s0 < 1;
+         a.s0 < 1 || a.n_ch != n_ch || a.families < 1 || a.families > 2;
 }
 
 // ---- K8b -----------------------------------------------------------------
 
 constexpr int kCloseWarps = 3;          // the closure's warps per channel
 
+// a secondary-code channel's sync state after the block (the pilot form)
+struct SecSync {
+  float buf;                            // lane i: slot i of the history
+  bool synced;
+  int32_t off;
+  float polarity;
+};
+
 // one lane's view of the block: lane e holds epoch e (idle lanes mirror
-// epoch 0)
+// epoch 0); in the pilot form the prompt and its neighbours are wiped of
+// the secondary code where synced, the data prompt beside them
 struct CloseLane {
   int lane, n_e, e, ce;
   bool on, act;
   float rate, dop, t_blk;
   int32_t epoch;
-  float2 prompt, early, late;
+  float2 prompt, early, late, data;
+  SecSync sec;
 };
 
+__device__ __forceinline__ int floor_mod_i(int a, int b) {   // b > 0
+  const int m = a % b;
+  return m < 0 ? m + b : m;
+}
+
+// z times the real w as torch multiplies a complex tensor by a real one
+// (w promoted to w + 0j): (x w - y 0, x 0 + y w)
+__device__ __forceinline__ float2 cmul_real(float2 z, float w) {
+  return make_float2(__fsub_rn(__fmul_rn(z.x, w), __fmul_rn(z.y, 0.0f)),
+                     __fadd_rn(__fmul_rn(z.x, 0.0f), __fmul_rn(z.y, w)));
+}
+
+// The block's secondary-code sync of channel c, each lane of a warp
+// holding one slot of the sign history: the E prompt signs (lane e's,
+// before the wipe) roll into the 32-slot history, then lane o < n_sec
+// holds the hard match of the last n_sec slots against the code at
+// offset o, m_o = sum_j last_j sec[(e_last - (n_sec - 1 - j) + o) mod
+// n_sec] (integers: exact in any order); the first largest |m_o| is a
+// hit when it reaches n_sec, and a newly synced active channel takes o
+// and the sign of m_o.  Returns the sync state and the lane's wipe.
+__device__ __forceinline__ float close_sec(const ClosureArgs& a, int c,
+                                           const CloseLane& l, SecSync& out) {
+  const int n = a.n_sec;
+  const int e_n = l.n_e;
+  const float sgn = l.prompt.x >= 0.0f ? 1.0f : -1.0f;
+  const float from_sign = __shfl_sync(kFull, sgn, (l.lane + e_n) & 31);
+  out.buf = l.lane + e_n < kSecMax
+      ? a.src.sec_buf[c * kSecMax + l.lane + e_n] : from_sign;
+  const int e_last = l.epoch + e_n - 1;
+  const int o = l.lane < n ? l.lane : 0;
+  float m = 0.0f;
+  for (int j = 0; j < n; ++j) {
+    const float last = __shfl_sync(kFull, out.buf, kSecMax - n + j);
+    m = __fadd_rn(m, __fmul_rn(
+        last, a.sec_code[floor_mod_i(e_last - (n - 1 - j) + o, n)]));
+  }
+  const float mag = l.lane < n ? fabsf(m) : -1.0f;
+  const float top = warp_max(mag);
+  const int best = __ffs(__ballot_sync(kFull, l.lane < n && mag == top)) - 1;
+  const float best_val = __shfl_sync(kFull, m, best);
+  const bool hit = fabsf(best_val) >= (float)n;
+  const bool synced0 = a.src.sec_synced[c] != 0;
+  const bool newly = hit && !synced0 && l.act;
+  out.synced = synced0 || newly;
+  out.off = newly ? best : a.src.sec_off[c];
+  out.polarity = newly ? (best_val > 0.0f ? 1.0f : -1.0f)
+                       : a.src.sec_polarity[c];
+  const float chip = __fmul_rn(
+      a.sec_code[floor_mod_i(l.epoch + l.e + out.off, n)], out.polarity);
+  return out.synced ? chip : 1.0f;
+}
+
+template <bool kPilot>
 __device__ __forceinline__ CloseLane close_lane(const ClosureArgs& a, int c) {
   CloseLane l;
   l.lane = threadIdx.x & 31;
@@ -275,12 +364,19 @@ __device__ __forceinline__ CloseLane close_lane(const ClosureArgs& a, int c) {
   l.rate = a.src.code_freq[c];
   l.dop = a.src.carrier_doppler[c];
   l.epoch = a.src.epoch[c];
-  const float2* cr = a.corr + (size_t)l.ce * a.n_taps;
+  const float2* cr = a.corr + (size_t)l.ce * (a.n_taps + kPilot);
   const int pi = a.n_taps / 2;
   l.prompt = cr[pi];
   l.early = cr[pi - 1];
   l.late = cr[pi + 1];
   l.t_blk = __fmul_rn(a.pro.n_total[c], a.inv_fs);
+  if (kPilot) {
+    l.data = cr[a.n_taps];
+    const float wipe = close_sec(a, c, l, l.sec);
+    l.prompt = cmul_real(l.prompt, wipe);
+    l.early = cmul_real(l.early, wipe);
+    l.late = cmul_real(l.late, wipe);
+  }
   return l;
 }
 
@@ -305,7 +401,22 @@ __device__ __forceinline__ float2 close_lock(const ClosureArgs& a,
   return make_float2(carrier_lock, __fmul_rn(10.0f, log10f(cn0_lin)));
 }
 
-// warp 1: the bit-sync histogram (lane p < 20 holds bin p) and its commit
+// the median of the E lanes' values f: every lane ranks its value, then
+// the midpoint rule (the mean of the two middle values for an even E)
+__device__ __forceinline__ float lane_median(float f, const CloseLane& l) {
+  int rank = 0;
+  for (int j = 0; j < l.n_e; ++j) {
+    const float v = __shfl_sync(kFull, f, j);
+    rank += (v < f || (v == f && j < l.lane)) ? 1 : 0;
+  }
+  const float lo = warp_rank_value(f, rank, (l.n_e - 1) / 2, l.n_e);
+  const float hi = warp_rank_value(f, rank, l.n_e / 2, l.n_e);
+  return __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+}
+
+// warp 1: the bit-sync histogram (lane p < 20 holds bin p) and its commit,
+// and in the pilot form the secondary-code sync's
+template <bool kPilot>
 __device__ __forceinline__ void close_bit_sync(const ClosureArgs& a, int c,
                                                const CloseLane& l) {
   const StatePtrs& s = a.src;
@@ -333,6 +444,15 @@ __device__ __forceinline__ void close_bit_sync(const ClosureArgs& a, int c,
   const bool newly_bit = sync_ok && !was_synced && l.act;
   const float last_sign = __shfl_sync(kFull, sign_e, l.n_e - 1);
   if (bin) d.bit_hist[c * kBits + l.lane] = l.act ? hist : hist_in;
+  if (kPilot) {                         // the secondary-code sync's commit
+    const int slot = c * kSecMax + l.lane;
+    d.sec_buf[slot] = l.act ? l.sec.buf : s.sec_buf[slot];
+    if (l.lane == 0) {
+      d.sec_synced[c] = l.act ? (l.sec.synced ? 1 : 0) : s.sec_synced[c];
+      d.sec_off[c] = l.act ? l.sec.off : s.sec_off[c];
+      d.sec_polarity[c] = l.act ? l.sec.polarity : s.sec_polarity[c];
+    }
+  }
   if (l.lane != 0) return;
   d.prev_sign[c] = l.act ? last_sign : s.prev_sign[c];
   d.bit_synced[c] =
@@ -340,7 +460,9 @@ __device__ __forceinline__ void close_bit_sync(const ClosureArgs& a, int c,
   d.bit_phase[c] = newly_bit ? top : s.bit_phase[c];
 }
 
-// warp 2: the block's E rows of the output planes
+// warp 2: the block's E rows of the output planes (the prompt plane the
+// data prompt in the pilot form)
+template <bool kPilot>
 __device__ __forceinline__ void close_planes(const ClosureArgs& a, int c,
                                              int block, const CloseLane& l) {
   const StatePtrs& s = a.src;
@@ -348,7 +470,7 @@ __device__ __forceinline__ void close_planes(const ClosureArgs& a, int c,
   if (!l.on) return;
   const size_t o = ((size_t)block * l.n_e + l.lane) * a.n_ch + c;
   const float rem_end = a.pro.rem_end[l.ce];
-  a.planes.prompt[o] = l.prompt;
+  a.planes.prompt[o] = kPilot ? l.data : l.prompt;
   a.planes.early_mag[o] = hypotf(l.early.x, l.early.y);
   a.planes.late_mag[o] = hypotf(l.late.x, l.late.y);
   a.planes.carrier_doppler_hz[o] = l.dop;
@@ -375,20 +497,23 @@ __device__ __forceinline__ void close_planes(const ClosureArgs& a, int c,
 // arrivals), warp 0 writes the next block's omega from the committed
 // Doppler as soon as it has it and publishes gen + 1 with release order,
 // so that the channel's other CTAs start on the next replica while the
-// closure goes on.
+// closure goes on.  kPilot: the pilot form (a.sec_code, the data prompt as
+// the correlations' last column), whose every warp runs the
+// secondary-code sync on its lanes and wipes the taps (close_lane).
+template <bool kPilot>
 __device__ __forceinline__ void block_close(const ClosureArgs& a, int c,
                                             int block,
                                             const PrologueArgs* next = nullptr,
                                             unsigned* flag = nullptr,
                                             unsigned gen = 0u) {
-  const CloseLane l = close_lane(a, c);
+  const CloseLane l = close_lane<kPilot>(a, c);
   const int warp = threadIdx.x >> 5;
   if (warp == 1) {
-    close_bit_sync(a, c, l);
+    close_bit_sync<kPilot>(a, c, l);
     return;
   }
   if (warp == 2) {
-    close_planes(a, c, block, l);
+    close_planes<kPilot>(a, c, block, l);
     return;
   }
   const StatePtrs& s = a.src;
@@ -439,23 +564,19 @@ __device__ __forceinline__ void block_close(const ClosureArgs& a, int c,
                                   __fmul_rn(prompt.x, prev.y));
     const float dot = __fadd_rn(__fmul_rn(prev.x, prompt.x),
                                 __fmul_rn(prev.y, prompt.y));
-    float f_err;
+    const float sgn = dot >= 0.0f ? 1.0f : -1.0f;
+    const float two_quadrant = __fdiv_rn(
+        atan2f(__fmul_rn(cross, sgn), fabsf(dot)),
+        __fmul_rn(a.two_pi, t_pair));
+    float f_err_m;
     if (a.fll_decision) {
-      const float sgn = dot >= 0.0f ? 1.0f : -1.0f;
-      f_err = __fdiv_rn(atan2f(__fmul_rn(cross, sgn), fabsf(dot)),
-                        __fmul_rn(a.two_pi, t_pair));
+      f_err_m = lane_median(two_quadrant, l);
     } else {
-      f_err = __fdiv_rn(atan2f(cross, dot), __fmul_rn(a.two_pi, t_pair));
+      f_err_m = lane_median(
+          __fdiv_rn(atan2f(cross, dot), __fmul_rn(a.two_pi, t_pair)), l);
+      // a secondary-code chain before its sync: the two-quadrant form
+      if (kPilot && !l.sec.synced) f_err_m = lane_median(two_quadrant, l);
     }
-    // exact median: every lane ranks its value, then the midpoint rule
-    int rank = 0;
-    for (int j = 0; j < l.n_e; ++j) {
-      const float v = __shfl_sync(kFull, f_err, j);
-      rank += (v < f_err || (v == f_err && j < l.lane)) ? 1 : 0;
-    }
-    const float lo = warp_rank_value(f_err, rank, (l.n_e - 1) / 2, l.n_e);
-    const float hi = warp_rank_value(f_err, rank, l.n_e / 2, l.n_e);
-    const float f_err_m = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
     const bool in_pullin =
         pullin_epochs || (s.carrier_lock[c] < a.lock_threshold);
     float g_fll = __fmul_rn(a.fll_k4, t_blk);
@@ -530,16 +651,20 @@ __device__ __forceinline__ void block_close(const ClosureArgs& a, int c,
   d.ext_n[c] = act ? (ext_n + 1 < 10000 ? ext_n + 1 : 10000) : ext_n;
 }
 
+template <bool kPilot>
 __global__ void __launch_bounds__(32 * kCloseWarps)
 block_closure_kernel(const __grid_constant__ ClosureArgs a, int block) {
-  block_close(a, blockIdx.x, block);
+  block_close<kPilot>(a, blockIdx.x, block);
 }
 
-// true where the closure's arguments are past what it takes
+// true where the closure's arguments are past what it takes (the pilot
+// form: a secondary code of 1 to 32 chips)
 bool closure_args_invalid(const ClosureArgs& a, int block) {
   return a.n_ch < 1 || a.n_epochs < 1 || a.n_epochs > kMaxEpochs ||
          a.n_taps < 3 || a.n_taps > kMaxTaps || a.n_taps % 2 == 0 ||
-         block < 0 || (block + 1) * a.n_epochs > a.n_rows;
+         block < 0 || (block + 1) * a.n_epochs > a.n_rows ||
+         (a.sec_code != nullptr) != (a.n_sec > 0) || a.n_sec < 0 ||
+         a.n_sec > kSecMax;
 }
 
 }  // namespace
@@ -547,13 +672,16 @@ bool closure_args_invalid(const ClosureArgs& a, int block) {
 extern "C" int block_prologue(PrologueArgs a, int n_ch, void* stream) {
   if (prologue_args_invalid(a, n_ch)) return (int)cudaErrorInvalidValue;
   dim3 grid((a.nfft + kPrologueThreads - 1) / kPrologueThreads, n_ch);
-  block_prologue_kernel<<<grid, kPrologueThreads, 0, (cudaStream_t)stream>>>(a);
+  auto kernel = a.families == 2 ? block_prologue_kernel<2>
+                                : block_prologue_kernel<1>;
+  kernel<<<grid, kPrologueThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 extern "C" int block_closure(ClosureArgs a, int block, void* stream) {
   if (closure_args_invalid(a, block)) return (int)cudaErrorInvalidValue;
-  block_closure_kernel<<<a.n_ch, 32 * kCloseWarps, 0, (cudaStream_t)stream>>>(
-      a, block);
+  auto kernel = a.n_sec > 0 ? block_closure_kernel<true>
+                            : block_closure_kernel<false>;
+  kernel<<<a.n_ch, 32 * kCloseWarps, 0, (cudaStream_t)stream>>>(a, block);
   return (int)cudaGetLastError();
 }

@@ -38,11 +38,18 @@ struct StatePtrs {
   uint8_t* bit_synced;
   int32_t* bit_phase;
   int32_t* ext_n;
+  // the secondary-code sync's fields: read and written by the pilot form
+  // only (the other form's source and destination share them)
+  float* sec_buf;                       // [C, 32] recent prompt signs
+  uint8_t* sec_synced;
+  int32_t* sec_off;
+  float* sec_polarity;
 };
 
 // K8a's outputs; K8b reads the epoch boundaries back
 struct ProloguePtrs {
-  float2* rep_t;                        // [C, F]
+  float2* rep_t;                        // [C, F]; [2, C, F] in the pilot
+                                        // form (pilot, data)
   float* n_cum;                         // [C, E]
   float* n_next;                        // [C, E]
   float* n_len;                         // [C, E]
@@ -60,7 +67,7 @@ struct ProloguePtrs {
 struct PrologueArgs {
   StatePtrs st;
   ProloguePtrs out;
-  const float* codes_rep;               // [C, F]
+  const float* codes_rep;               // [families, C, F]
   const float* taps;                    // [K] chips
   float fs;
   float l_chips;
@@ -73,6 +80,8 @@ struct PrologueArgs {
   int32_t nfft;
   int32_t n_taps;
   int32_t w_max;                        // max(n_wins - E, 0)
+  int32_t families;                     // 1, or 2 in the pilot form
+  int32_t n_ch;                         // C: the families' stride is C F
 };
 
 // the chunk's [T, C] output planes
@@ -96,7 +105,8 @@ struct ClosureArgs {
   StatePtrs dst;
   ProloguePtrs pro;
   PlanePtrs planes;
-  const float2* corr;                   // [C, E, K]
+  const float2* corr;                   // [C, E, K]; [C, E, K + 1] in the
+                                        // pilot form (the data prompt last)
   float fs;
   float inv_fs;
   float two_pi;
@@ -124,4 +134,6 @@ struct ClosureArgs {
   int32_t fll_pullin_epochs;
   int32_t enable_fll;
   int32_t fll_decision;
+  const float* sec_code;                // [n_sec] +-1, the pilot form
+  int32_t n_sec;
 };

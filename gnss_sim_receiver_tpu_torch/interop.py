@@ -152,11 +152,8 @@ _ABSENT = {
     SignalChainConf: dict(rf_channel_id=0, acq_decim=1, freq_slot=0,
                           day_base_s=0.0),
     ReceiverConf: dict(enable_pvt_kf=False, enable_pvt_ekf=False,
-                       pvt_ekf=None, rf_fs={}, hybrid_mode=False,
-                       pre_2009_file=False, ps_channel=-1,
-                       ps_range_m=0.4, enable_rx_clock_propagation=False,
-                       clk_prop_after_n_fixes=10, share_rx_clock_bias=False,
-                       rtk=None, rtk_base_ecef_m=None),
+                       pvt_ekf=None, rf_fs={}, rtk=None,
+                       rtk_base_ecef_m=None),
 }
 
 

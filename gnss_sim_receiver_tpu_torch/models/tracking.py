@@ -1213,6 +1213,7 @@ class TrackingEngine:
         self.active_host = np.zeros(self.n_channels, bool)
         self.lock_lost_host = np.zeros(self.n_channels, bool)
         self._codes_rep = None          # block-kernel replica, built lazily
+        self._data_rep = self._sec_code = None
 
     def _replica_table(self, provider, prn: int) -> np.ndarray:
         if prn <= 0:
@@ -1299,10 +1300,19 @@ class TrackingEngine:
                 and n_epochs >= 2 * self.block_epochs)
 
     def _ensure_block_tables(self):
+        """The block kernel's replica tables from the same band-limited
+        tables the per-epoch kernel gathers from: the code's, on a
+        track_pilot chain the data code's, and the secondary code (+-1)."""
         from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
         if self._codes_rep is None:
             self._codes_rep = tb.code_spectra(self.conf, self._codes_host,
                                               device=self.device)
+            self._data_rep = None
+            if self._data_host is not None:
+                self._data_rep = tb.code_spectra(self.conf, self._data_host,
+                                                 device=self.device)
+        if self._sec_code is None and self.conf.secondary_code:
+            self._sec_code = _sec_device(self.conf, self.device)
 
     def process(self, x, x_abs_start: int, n_epochs: int, decim: int = 1):
         """Track `n_epochs` epochs of the samples `x` (absolute start index
@@ -1335,11 +1345,6 @@ class TrackingEngine:
                 "engine a windowed sample array with a larger x_abs_start")
         from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
         use_blk = use_blocks and self.block_mode_ok(n_epochs)
-        if use_blk and (self.conf.secondary_code or self.conf.track_pilot):
-            raise NotImplementedError(
-                "the block kernel's secondary-code sync and data prompt "
-                "(a pilot chain with extend_correlation_symbols == 1) are "
-                "not ported")
         blk_extra = tb.block_fft_size(self.conf) + 256 if use_blk else 0
         need0 = int(rel[active].max()) + n_epochs * (
             self.conf.nominal_epoch_samples + 2) + self.conf.block_size
@@ -1385,7 +1390,8 @@ class TrackingEngine:
             e_blk = self.block_epochs
             new_state, buf = tb.track_chunk_blocks_packed_decim(
                 self.conf, n_epochs // e_blk, e_blk, int(decim),
-                self._codes_rep, self.taps, x_dev, state)
+                self._codes_rep, self.taps, x_dev, state,
+                sec_code=self._sec_code, data_codes_rep=self._data_rep)
         else:
             new_state, buf = track_chunk_packed_decim(
                 self.conf, int(n_epochs), int(decim), self.codes,

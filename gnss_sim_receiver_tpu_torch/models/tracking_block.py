@@ -1,6 +1,6 @@
 """Block-processing tracking, PyTorch port of
 ``gnss_sim_receiver_tpu.models.tracking_block`` (dll_pll: GPS L1 C/A, and
-Galileo E1-B data with 5 taps).
+Galileo E1 with 5 taps, on E1-B data or on the E1-C pilot).
 
 One step per BLOCK of `e_block` epochs (~20 ms: 20 GPS epochs, 5 E1
 epochs), with the loops closing at block cadence:
@@ -35,6 +35,17 @@ epochs), with the loops closing at block cadence:
   (``_chunk_cuda(..., fold=False)``: K8a, cuFFT, K1 with K8b per block),
   are what the fused forms are held against.
 
+The pilot form (a track_pilot chain: ``sec_code`` and ``data_codes_rep``
+given) carries a second replica family, the data code's, through the same
+steps: K8a ramps both families into one [2, C, F] tensor, one batched FFT
+transforms both, K1 adds the data prompt at the prompt lag as one more
+column of its output, and K8b runs the block's secondary-code sync (a
+cyclic-shift hard match over the last n_sec prompt signs) and wipes the
+prompt and the taps beside it before the discriminators; the output
+``prompt`` plane is then the data prompt.  The pilot form is its own
+instantiation of each kernel: the forms every other chain launches compile
+from the same code as before.
+
 Epoch boundaries are closed-form within a block (the code NCO rate is
 constant there): the cumulative sample count of epoch e is exactly
 round(e*S - u0).  The kernel consumes and produces the same TrackState as
@@ -53,8 +64,8 @@ import torch
 from gnss_sim_receiver_tpu_torch.device import (H100_SMS, check_kernel_device,
                                                 require, sm_count)
 from gnss_sim_receiver_tpu_torch.models.tracking import (
-    F32, I32, PLANES, TrackState, TrackingConf, _empty_planes, _fl, _recip,
-    code_rate_from_doppler, f32, pack_decim)
+    F32, I32, N_SEC_MAX, PLANES, TrackState, TrackingConf, _empty_planes,
+    _fl, _recip, code_rate_from_doppler, f32, pack_decim)
 from gnss_sim_receiver_tpu_torch.ops import cuda_build, discriminators
 from gnss_sim_receiver_tpu_torch.ops import loop_filters as lf
 
@@ -168,7 +179,12 @@ def k1_scratch(n_ch: int, n_epochs: int, n_taps: int, nfft: int,
 
 def _block_correlate_plain(xf_all, rf, w0, lag_int, lag_frac, ph_sc,
                            tap_samps, omega):
-    """Plain version of K1, the JAX program's [C, E, F] form."""
+    """Plain version of K1, the JAX program's [C, E, F] form.  With `rf`
+    [2, C, F] (the pilot's and the data code's spectra) the data prompt at
+    the prompt lag is one more column: [C, E, K + 1]."""
+    rfd = None
+    if rf.dim() == 3:
+        rf, rfd = rf[0], rf[1]
     c, e = lag_int.shape
     nfft = xf_all.shape[1]
     n_wins = xf_all.shape[0]
@@ -188,7 +204,14 @@ def _block_correlate_plain(xf_all, rf, w0, lag_int, lag_frac, ph_sc,
              / f32(nfft) - (omega[:, None] * tap_samps)[..., None])
     pt = torch.complex(torch.cos(ang_t), torch.sin(ang_t))    # [C, K, F]
     z = xf * rf[:, None, :] * pl
-    return torch.einsum("cef,ckf->cek", z, pt) / f32(nfft)
+    corr = torch.einsum("cef,ckf->cek", z, pt) / f32(nfft)
+    if rfd is None:
+        return corr
+    # the data prompt: the data spectrum at the PROMPT lag only (the
+    # centred prompt tap's phasor is 1; the lag phasor places the replica)
+    yd = xf * rfd[:, None, :]
+    data = torch.sum(yd * pl, dim=-1) / f32(nfft)
+    return torch.cat([corr, data[..., None]], dim=2)
 
 
 def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
@@ -203,7 +226,9 @@ def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
     e^{j ang_t[c,k,f]}, with ang_l = 2 pi ((f lag_int mod F) + f lag_frac)/F
     - ph_sc[c,e] (the int32 product reduced exactly) and ang_t = 2 pi f
     tap_samps[c,k]/F - omega[c] tap_samps[c,k]; f runs over the signed bins;
-    rows clamp the start, clamp(w0, 0, W - E) + e.  Launches
+    rows clamp the start, clamp(w0, 0, W - E) + e.  With `rf` [2, C, F]
+    (the pilot form: the data code's spectrum second) the data prompt
+    1/F sum_f xf rfd e^{j ang_l} is column K of [C, E, K + 1].  Launches
     ``csrc/block_correlator.cu`` for CUDA tensors, with `scratch` from
     :func:`k1_scratch` (or its own), runs the plain version for CPU
     tensors; the result goes into `out` when it is given."""
@@ -213,8 +238,8 @@ def block_correlate(xf_all: torch.Tensor, rf: torch.Tensor,
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty((lag_int.shape[0], lag_int.shape[1],
-                           tap_samps.shape[1]), dtype=torch.complex64,
-                          device=xf_all.device)
+                           tap_samps.shape[1] + (rf.dim() == 3)),
+                          dtype=torch.complex64, device=xf_all.device)
     _launch_k1(_k1_args(xf_all, rf, w0, lag_int, lag_frac, ph_sc, tap_samps,
                         omega, out, scratch))
     return out
@@ -225,7 +250,8 @@ block_correlate.launches = 0
 
 def _k1_args(xf_all, rf, w0, lag_int, lag_frac, ph_sc, tap_samps, omega,
              out, scratch: K1Scratch | None) -> tuple:
-    """K1's checked launch arguments on CUDA tensors (the stream last)."""
+    """K1's checked launch arguments on CUDA tensors (the stream last; the
+    data spectrum's pointer third, 0 but in the pilot form)."""
     dev = xf_all.device
     c, e = lag_int.shape
     k = tap_samps.shape[1]
@@ -236,22 +262,26 @@ def _k1_args(xf_all, rf, w0, lag_int, lag_frac, ph_sc, tap_samps, omega,
                         ("ph_sc", ph_sc, F32), ("tap_samps", tap_samps, F32),
                         ("omega", omega, F32), ("out", out, torch.complex64)):
         require(t, dt, dev, f"block_correlate: {name}")
-    if rf.shape != (c, nfft) or n_wins < e:
+    pilot = rf.dim() == 3
+    if rf.shape[-2:] != (c, nfft) or rf.shape[:-2] not in ((), (2,)) \
+            or n_wins < e:
         raise ValueError("block_correlate: shape mismatch")
-    if out.shape != (c, e, k):
+    cols = k + pilot                        # the data prompt's column
+    if out.shape != (c, e, cols):
         raise ValueError("block_correlate: out shape mismatch")
     if scratch is None:
-        scratch = k1_scratch(c, e, k, nfft, dev)
+        scratch = k1_scratch(c, e, cols, nfft, dev)
     slabs = scratch.partials.shape[1]
     require(scratch.partials, torch.complex64, dev,
             "block_correlate: scratch partials")
     require(scratch.arrivals, I32, dev, "block_correlate: scratch arrivals")
     require(scratch.flags, I32, dev, "block_correlate: scratch flags")
-    if (scratch.partials.shape != (c, slabs, e, k)
+    if (scratch.partials.shape != (c, slabs, e, cols)
             or scratch.arrivals.shape != (c,) or scratch.flags.shape != (c,)
             or not 1 <= slabs <= nfft):
         raise ValueError("block_correlate: scratch shape mismatch")
-    return (xf_all.data_ptr(), rf.data_ptr(), w0.data_ptr(),
+    return (xf_all.data_ptr(), rf.data_ptr(),
+            rf[1].data_ptr() if pilot else None, w0.data_ptr(),
             lag_int.data_ptr(), lag_frac.data_ptr(), ph_sc.data_ptr(),
             tap_samps.data_ptr(), omega.data_ptr(), out.data_ptr(), c, e, k,
             n_wins, nfft, slabs, scratch.partials.data_ptr(),
@@ -267,8 +297,11 @@ def _launch_k1(args: tuple, close: tuple | None = None) -> None:
     given the next block's arguments, writes that block's prologue.  Counts
     every launch in ``block_correlate.launches``, the fused ones also in
     ``block_correlate_close.launches`` and those with a fold in
-    ``block_correlate_close.folds``."""
+    ``block_correlate_close.folds``; the fused pilot form's (a data
+    spectrum given) also in ``block_correlate_close.launches_pilot`` and
+    ``.folds_pilot``."""
     lib = _lib()
+    pilot = args[2] is not None
     if close is None:
         cuda_build.check(lib.block_correlate(*args), "block_correlate")
     else:
@@ -277,13 +310,15 @@ def _launch_k1(args: tuple, close: tuple | None = None) -> None:
                          "block_correlate_close")
         block_correlate_close.launches += 1
         block_correlate_close.folds += close[2] is not None
+        block_correlate_close.launches_pilot += pilot
+        block_correlate_close.folds_pilot += pilot and close[2] is not None
     block_correlate.launches += 1
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of a block library's entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    k1 = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p]
+    k1 = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p]
     for fn, types in (
             (lib.block_correlate, k1 + [p]),
             (lib.block_correlate_close,
@@ -306,7 +341,8 @@ def _lib():
 
 class BlockPrologue(NamedTuple):
     """One block's epoch boundaries and K1 inputs (kernel K8a's outputs)."""
-    rep_t: torch.Tensor       # [C, F] complex64 Doppler-ramped replica
+    rep_t: torch.Tensor       # [C, F] complex64 Doppler-ramped replica;
+    #                           [2, C, F] in the pilot form (pilot, data)
     n_cum: torch.Tensor       # [C, E] samples from pos to epoch e's start
     n_next: torch.Tensor      # [C, E] ... to epoch e's end
     n_len: torch.Tensor       # [C, E] epoch lengths, samples
@@ -332,7 +368,9 @@ def _median(x: torch.Tensor) -> torch.Tensor:
 def _block_prologue_plain(conf: TrackingConf, e_block: int, codes_rep,
                           taps, n_wins: int, st: TrackState) -> BlockPrologue:
     """Plain version of K8a: the closed-form epoch boundaries of the block,
-    the Doppler-ramped replica and K1's window, lag and phase inputs."""
+    the Doppler-ramped replica and K1's window, lag and phase inputs.
+    `codes_rep` [2, C, F] (the pilot's and the data code's tables) ramps
+    both families with the same phasor: rep_t [2, C, F]."""
     fs = conf.fs
     dev = codes_rep.device
     s0 = conf.nominal_epoch_samples
@@ -363,7 +401,7 @@ def _block_prologue_plain(conf: TrackingConf, e_block: int, codes_rep,
     omega = two_pi * dop / fs32                                # rad/sample
     ramp = omega[:, None] * m_axis                             # [C, F]
     rep_t = torch.complex(codes_rep * torch.cos(ramp),
-                          codes_rep * torch.sin(ramp))
+                          codes_rep * torch.sin(ramp))         # [(2,) C, F]
 
     # ---- window selection: epoch e of channel c reads window w0_c + e --
     w0 = torch.clamp(torch.div(st.pos, s0, rounding_mode="floor"), 0,
@@ -390,18 +428,57 @@ def _block_prologue_plain(conf: TrackingConf, e_block: int, codes_rep,
         tap_samps=tap_samps.contiguous(), omega=omega.contiguous())
 
 
+def _sec_sync_plain(e_block: int, prompt, sec_code, st: TrackState):
+    """The block's secondary-code sync (the JAX block body's, not the
+    per-epoch one's): the prompt signs rolled into the sign history, a
+    hard match of its last n_sec slots against every cyclic shift of the
+    code, the first largest |match| a hit when it reaches n_sec; a newly
+    synced active channel takes that offset and polarity.  -> (the wipe
+    [C, E], sec_buf, sec_synced, sec_off, sec_polarity)."""
+    dev = prompt.device
+    n_sec = sec_code.shape[0]
+    sign_e = torch.where(prompt.real >= 0, 1.0, -1.0)          # [C, E]
+    buf = torch.cat([st.sec_buf[:, e_block % N_SEC_MAX:],
+                     sign_e[:, -min(e_block, N_SEC_MAX):]],
+                    dim=1)[:, -N_SEC_MAX:]
+    last = buf[:, N_SEC_MAX - n_sec:]                          # [C, n_sec]
+    e_last = st.epoch + e_block - 1
+    j = torch.arange(n_sec, device=dev)
+    # chip expected at slot j for offset o:
+    # sec[(e_last - (n_sec-1-j) + o) mod n_sec]
+    idx = torch.remainder(e_last[:, None, None] - (n_sec - 1 - j)[None, None, :]
+                          + j[None, :, None], n_sec)
+    m = torch.einsum("cj,coj->co", last, sec_code[idx])        # [C, O]
+    best = torch.argmax(torch.abs(m), dim=1)
+    best_val = torch.gather(m, 1, best[:, None])[:, 0]
+    hit = torch.abs(best_val) >= f32(n_sec)
+    newly = hit & ~st.sec_synced & st.active
+    synced = st.sec_synced | newly
+    off = torch.where(newly, best.to(I32), st.sec_off)
+    pol = torch.where(newly, torch.sign(best_val), st.sec_polarity)
+    epoch_g = st.epoch[:, None] + torch.arange(e_block, device=dev)[None, :]
+    chip = sec_code[torch.remainder(epoch_g + off[:, None], n_sec)] \
+        * pol[:, None]
+    wipe = torch.where(synced[:, None], chip, 1.0)
+    return wipe, buf, synced, off, pol
+
+
 def _block_closure_plain(conf: TrackingConf, e_block: int, corr,
-                         pro: BlockPrologue, st: TrackState):
+                         pro: BlockPrologue, st: TrackState, sec_code=None):
     """Plain version of K8b: the loop closure of one block from its
     correlations [C, E, K] -> (the next TrackState, the block's [E, C]
-    output planes)."""
+    output planes).  A K + 1-th column of `corr` is the data prompt (the
+    pilot form), which becomes the ``prompt`` plane; with `sec_code` (the
+    +-1 secondary code [n_sec]) the block's secondary-code sync wipes the
+    prompt and its neighbours before the discriminators."""
     fs = conf.fs
     dev = corr.device
     s0 = conf.nominal_epoch_samples
     c_ch = corr.shape[0]
     two_pi = f32(2.0 * np.pi)
     fs32 = f32(fs)
-    prompt_i = corr.shape[2] // 2
+    n_taps = pro.tap_samps.shape[1]
+    prompt_i = n_taps // 2
     act = st.active
     rate = st.code_freq
     dop = st.carrier_doppler
@@ -411,7 +488,12 @@ def _block_closure_plain(conf: TrackingConf, e_block: int, corr,
     prompt = corr[:, :, prompt_i]                              # [C, E]
     early = corr[:, :, prompt_i - 1]
     late = corr[:, :, prompt_i + 1]
+    data_prompt = corr[:, :, n_taps] if corr.shape[2] > n_taps else None
     epoch_g = st.epoch[:, None] + torch.arange(e_block, device=dev)[None, :]
+    sec = (st.sec_buf, st.sec_synced, st.sec_off, st.sec_polarity)
+    if sec_code is not None:
+        wipe, *sec = _sec_sync_plain(e_block, prompt, sec_code, st)
+        prompt, early, late = prompt * wipe, early * wipe, late * wipe
 
     # ---- per-epoch discriminators, block-averaged closure -------------
     carr_err = discriminators.pll_costas(prompt) / two_pi       # [C, E]
@@ -443,6 +525,12 @@ def _block_closure_plain(conf: TrackingConf, e_block: int, corr,
                   if conf.fll_decision_directed
                   else discriminators.fll_cross_dot)
         f_err_m = _median(fll_fn(prev_prompts, prompt, t_pair))
+        if sec_code is not None and not conf.fll_decision_directed:
+            # before its sync a secondary-code chain's chips flip between
+            # arbitrary epochs: the two-quadrant form until then
+            f_err_m = torch.where(sec[1], f_err_m, _median(
+                discriminators.fll_cross_dot_decision(prev_prompts, prompt,
+                                                      t_pair)))
         # engaged during pull-in AND whenever carrier lock is missing
         in_pullin = ((st.epoch < conf.fll_pullin_epochs)
                      | (st.carrier_lock < f32(conf.carrier_lock_threshold)))
@@ -536,8 +624,15 @@ def _block_closure_plain(conf: TrackingConf, e_block: int, corr,
         ext_n=torch.where(act, torch.clamp(st.ext_n + 1, max=10000),
                           st.ext_n),
     )
+    if sec_code is not None:
+        new_state = new_state._replace(
+            sec_buf=torch.where(act[:, None], sec[0], st.sec_buf),
+            sec_synced=sel(sec[1], st.sec_synced),
+            sec_off=sel(sec[2], st.sec_off),
+            sec_polarity=sel(sec[3], st.sec_polarity))
     outs = {
-        "prompt": prompt.T,                                    # [E, C]
+        "prompt": (prompt if data_prompt is None
+                   else data_prompt).T,                        # [E, C]
         "early_mag": torch.abs(early).T,
         "late_mag": torch.abs(late).T,
         "carrier_doppler_hz": dop[None, :].expand(e_block, c_ch),
@@ -564,7 +659,8 @@ def _write_rows(planes: dict, outs: dict, block: int, e_block: int) -> None:
 
 # the TrackState fields that the block step reads or writes, in the order
 # of csrc/block_step.cu's StatePtrs ("dll_vel" is st.dll.vel); the others
-# (cn0_acc, kf_*, ext_p/e/l, sec_*, bayes_*) pass through unchanged
+# (cn0_acc, kf_*, ext_p/e/l, bayes_*) pass through unchanged, and so do the
+# sec_* fields but in the pilot form
 _STATE_FIELDS = (
     ("active", torch.bool), ("pos", I32), ("rem_code_phase", F32),
     ("code_freq", F32), ("carrier_doppler", F32), ("rem_carr_phase", F32),
@@ -573,7 +669,10 @@ _STATE_FIELDS = (
     ("prompt_prev", torch.complex64), ("epoch", I32), ("cn0_db_hz", F32),
     ("carrier_lock", F32), ("lock_fail", F32), ("lock_lost", torch.bool),
     ("bit_hist", F32), ("prev_sign", F32), ("bit_synced", torch.bool),
-    ("bit_phase", I32), ("ext_n", I32))
+    ("bit_phase", I32), ("ext_n", I32), ("sec_buf", F32),
+    ("sec_synced", torch.bool), ("sec_off", I32), ("sec_polarity", F32))
+_SEC_FIELDS = ("sec_buf", "sec_synced", "sec_off", "sec_polarity")
+_WIDE = {"bit_hist": 20, "sec_buf": N_SEC_MAX}
 _P = ctypes.c_void_p
 _F = ctypes.c_float
 _I = ctypes.c_int
@@ -603,7 +702,7 @@ class _PrologueArgs(ctypes.Structure):
                 *((n, _F) for n in ("fs", "l_chips", "inv_fs", "two_pi",
                                     "inv_fc", "lead")),
                 *((n, _I) for n in ("s0", "n_epochs", "nfft", "n_taps",
-                                    "w_max"))]
+                                    "w_max", "families", "n_ch"))]
 
 
 class _ClosureArgs(ctypes.Structure):
@@ -618,7 +717,8 @@ class _ClosureArgs(ctypes.Structure):
                     "code_rate", "inv_fc", "bit_sync_min")),
                 *((n, _I) for n in (
                     "s0", "n_epochs", "n_taps", "n_ch", "n_rows",
-                    "fll_pullin_epochs", "enable_fll", "fll_decision"))]
+                    "fll_pullin_epochs", "enable_fll", "fll_decision")),
+                ("sec_code", _P), ("n_sec", _I)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -658,7 +758,7 @@ def _state_ptrs(st: TrackState, dev, what: str) -> _StatePtrs:
     for name, dt in _STATE_FIELDS:
         t = _state_field(st, name)
         require(t, dt, dev, f"{what}: state field {name}")
-        if t.shape != ((c, 20) if name == "bit_hist" else (c,)):
+        if t.shape != ((c, _WIDE[name]) if name in _WIDE else (c,)):
             raise ValueError(f"{what}: state field {name} has shape "
                              f"{tuple(t.shape)}")
         setattr(ptrs, name, t.data_ptr())
@@ -666,12 +766,13 @@ def _state_ptrs(st: TrackState, dev, what: str) -> _StatePtrs:
 
 
 def _prologue_ptrs(pro: BlockPrologue, c: int, e: int, nfft: int, k: int,
-                   dev) -> _ProloguePtrs:
+                   dev, families: int = 1) -> _ProloguePtrs:
     ptrs = _ProloguePtrs()
+    rep = (c, nfft) if families == 1 else (families, c, nfft)
     for name, t in zip(BlockPrologue._fields, pro):
         dt = (torch.complex64 if name == "rep_t"
               else I32 if name in ("w0", "lag_int") else F32)
-        shape = {"rep_t": (c, nfft), "tap_samps": (c, k)}.get(
+        shape = {"rep_t": rep, "tap_samps": (c, k)}.get(
             name, (c,) if name in ("n_total", "rem_new", "w0", "omega")
             else (c, e))
         require(t, dt, dev, f"block step: {name}")
@@ -682,23 +783,29 @@ def _prologue_ptrs(pro: BlockPrologue, c: int, e: int, nfft: int, k: int,
     return ptrs
 
 
-def _empty_prologue(c: int, e: int, nfft: int, k: int, dev) -> BlockPrologue:
+def _empty_prologue(c: int, e: int, nfft: int, k: int, dev,
+                    families: int = 1) -> BlockPrologue:
+    """Prologue buffers; `families` 2 for the pilot form's [2, C, F]
+    replica."""
     def t(*shape, dt=F32):
         return torch.empty(shape, dtype=dt, device=dev)
+    rep = (c, nfft) if families == 1 else (families, c, nfft)
     return BlockPrologue(
-        rep_t=t(c, nfft, dt=torch.complex64), n_cum=t(c, e), n_next=t(c, e),
+        rep_t=t(*rep, dt=torch.complex64), n_cum=t(c, e), n_next=t(c, e),
         n_len=t(c, e), rem_end=t(c, e), n_total=t(c), rem_new=t(c),
         w0=t(c, dt=I32), lag_int=t(c, e, dt=I32), lag_frac=t(c, e),
         ph_sc=t(c, e), tap_samps=t(c, k), omega=t(c))
 
 
-def _empty_state(st: TrackState) -> TrackState:
+def _empty_state(st: TrackState, pilot: bool = False) -> TrackState:
     """A TrackState with fresh tensors for the fields the block step
-    writes and `st`'s own tensors for the rest."""
+    writes and `st`'s own tensors for the rest (the sec_* fields but in the
+    pilot form)."""
     def fresh(t):
         return torch.empty(t.shape, dtype=t.dtype, device=t.device)
     new = {name: fresh(getattr(st, name)) for name, _ in _STATE_FIELDS
-           if name[:4] not in ("dll_", "pll_")}
+           if name[:4] not in ("dll_", "pll_")
+           and (pilot or name not in _SEC_FIELDS)}
     new["dll"] = lf.LoopFilterState(*map(fresh, st.dll))
     new["pll"] = lf.LoopFilterState(*map(fresh, st.pll))
     return st._replace(**new)
@@ -706,31 +813,61 @@ def _empty_state(st: TrackState) -> TrackState:
 
 def _prologue_args(conf, e_block, codes_rep, taps, n_wins, st,
                    out) -> _PrologueArgs:
+    """K8a's launch arguments; `codes_rep` [C, F], or [2, C, F] in the
+    pilot form (then `out`'s replica is [2, C, F] too)."""
     dev = codes_rep.device
-    c, nfft = codes_rep.shape
+    c, nfft = codes_rep.shape[-2:]
+    families = 1 if codes_rep.dim() == 2 else codes_rep.shape[0]
     k = taps.shape[0]
     require(codes_rep, F32, dev, "block_prologue: codes_rep")
     require(taps, F32, dev, "block_prologue: taps")
-    if nfft != block_fft_size(conf) or st.active.shape != (c,):
+    if nfft != block_fft_size(conf) or st.active.shape != (c,) \
+            or families not in (1, 2):
         raise ValueError("block_prologue: shape mismatch")
     consts = _constants(conf, e_block)
     return _PrologueArgs(
         st=_state_ptrs(st, dev, "block_prologue"),
-        out=_prologue_ptrs(out, c, e_block, nfft, k, dev),
+        out=_prologue_ptrs(out, c, e_block, nfft, k, dev, families),
         codes_rep=codes_rep.data_ptr(), taps=taps.data_ptr(),
         **{n: consts[n] for n, _ in _PrologueArgs._fields_ if n in consts},
         n_epochs=e_block, nfft=nfft, n_taps=k,
-        w_max=max(n_wins - e_block, 0))
+        w_max=max(n_wins - e_block, 0), families=families, n_ch=c)
 
 
-def _closure_args(conf, e_block, corr, pro, src, dst,
-                  planes) -> _ClosureArgs:
+def _pilot_form(data: bool, sec_code, what: str) -> bool:
+    """Whether the card runs the pilot form: the data replica and the
+    secondary code come together there (a track_pilot chain's block
+    step); either alone runs on the plain versions only."""
+    if data != (sec_code is not None):
+        raise NotImplementedError(
+            f"{what}: the block kernels' pilot form takes the data replica "
+            "and the secondary code together; either alone is not ported "
+            "to the card")
+    return data
+
+
+def _closure_args(conf, e_block, corr, pro, src, dst, planes,
+                  sec_code=None) -> _ClosureArgs:
+    """K8b's launch arguments; in the pilot form (`sec_code`, the +-1
+    secondary code on the card) `corr` carries the data prompt as column
+    K, the replica is [2, C, F] and both states carry the sec_* fields."""
     dev = corr.device
-    c, e, k = corr.shape
+    c, e, n_cols = corr.shape
+    k = pro.tap_samps.shape[1]
+    pilot = _pilot_form(n_cols == k + 1, sec_code, "block_closure")
     require(corr, torch.complex64, dev, "block_closure: corr")
     if e != e_block or not 1 <= e_block <= 32:
         raise ValueError("block_closure: E must match the block and be "
                          "at most 32 (one warp lane per epoch)")
+    if n_cols != k + pilot:
+        raise ValueError("block_closure: corr shape mismatch")
+    n_sec = 0
+    if pilot:
+        require(sec_code, F32, dev, "block_closure: sec_code")
+        n_sec = sec_code.shape[0]
+        if sec_code.dim() != 1 or not 1 <= n_sec <= N_SEC_MAX:
+            raise ValueError("block_closure: the secondary code must be "
+                             f"1 to {N_SEC_MAX} chips")
     n_rows = planes["prompt"].shape[0]
     pp = _PlanePtrs()
     for name, dt in PLANES:
@@ -742,16 +879,19 @@ def _closure_args(conf, e_block, corr, pro, src, dst,
     return _ClosureArgs(
         src=_state_ptrs(src, dev, "block_closure"),
         dst=_state_ptrs(dst, dev, "block_closure"),
-        pro=_prologue_ptrs(pro, c, e, pro.rep_t.shape[1], k, dev),
+        pro=_prologue_ptrs(pro, c, e, pro.rep_t.shape[-1], k, dev,
+                           1 + pilot),
         planes=pp, corr=corr.data_ptr(),
         **{n: consts[n] for n, _ in _ClosureArgs._fields_ if n in consts},
-        n_epochs=e, n_taps=k, n_ch=c, n_rows=n_rows)
+        n_epochs=e, n_taps=k, n_ch=c, n_rows=n_rows,
+        sec_code=sec_code.data_ptr() if pilot else None, n_sec=n_sec)
 
 
 def _launch_prologue(args: _PrologueArgs, n_ch: int, stream: int) -> None:
     cuda_build.check(_lib().block_prologue(args, n_ch, stream),
                      "block_prologue")
     block_prologue.launches += 1
+    block_prologue.launches_pilot += args.families == 2
 
 
 def _launch_closure(args: _ClosureArgs, block: int, stream: int) -> None:
@@ -764,14 +904,18 @@ def block_prologue(conf: TrackingConf, e_block: int, codes_rep: torch.Tensor,
                    taps: torch.Tensor, n_wins: int,
                    st: TrackState) -> BlockPrologue:
     """K8a wrapper: one block's epoch boundaries, K1's inputs and the
-    Doppler-ramped replica from the state (see BlockPrologue).  Launches
-    ``csrc/block_step.cu``'s block_prologue for CUDA tensors, runs
-    :func:`_block_prologue_plain` for CPU tensors."""
+    Doppler-ramped replica from the state (see BlockPrologue); with
+    `codes_rep` [2, C, F] (the pilot form) both families' replicas.
+    Launches ``csrc/block_step.cu``'s block_prologue for CUDA tensors, runs
+    :func:`_block_prologue_plain` for CPU tensors; counts its launches in
+    ``block_prologue.launches`` and the pilot form's also in
+    ``block_prologue.launches_pilot``."""
     if not check_kernel_device(codes_rep, "block_prologue"):
         return _block_prologue_plain(conf, e_block, codes_rep, taps, n_wins,
                                      st)
-    c, nfft = codes_rep.shape
-    out = _empty_prologue(c, e_block, nfft, taps.shape[0], codes_rep.device)
+    c, nfft = codes_rep.shape[-2:]
+    out = _empty_prologue(c, e_block, nfft, taps.shape[0], codes_rep.device,
+                          1 if codes_rep.dim() == 2 else codes_rep.shape[0])
     _launch_prologue(
         _prologue_args(conf, e_block, codes_rep, taps, n_wins, st, out), c,
         torch.cuda.current_stream(codes_rep.device).cuda_stream)
@@ -779,22 +923,27 @@ def block_prologue(conf: TrackingConf, e_block: int, codes_rep: torch.Tensor,
 
 
 block_prologue.launches = 0
+block_prologue.launches_pilot = 0
 
 
 def block_closure(conf: TrackingConf, e_block: int, corr: torch.Tensor,
                   pro: BlockPrologue, st: TrackState, planes: dict,
-                  block: int) -> TrackState:
+                  block: int, sec_code: torch.Tensor | None = None
+                  ) -> TrackState:
     """K8b wrapper: the loop closure of one block from its correlations
-    [C, E, K]; returns the next TrackState and writes the block's rows
+    [C, E, K] ([C, E, K + 1] with the data prompt, and `sec_code`, in the
+    pilot form); returns the next TrackState and writes the block's rows
     block*E.. of the chunk's [T, C] `planes`.  Launches
     ``csrc/block_step.cu``'s block_closure for CUDA tensors, runs
     :func:`_block_closure_plain` for CPU tensors."""
     if not check_kernel_device(corr, "block_closure"):
-        new, outs = _block_closure_plain(conf, e_block, corr, pro, st)
+        new, outs = _block_closure_plain(conf, e_block, corr, pro, st,
+                                         sec_code)
         _write_rows(planes, outs, block, e_block)
         return new
-    out = _empty_state(st)
-    _launch_closure(_closure_args(conf, e_block, corr, pro, st, out, planes),
+    out = _empty_state(st, sec_code is not None)
+    _launch_closure(_closure_args(conf, e_block, corr, pro, st, out, planes,
+                                  sec_code),
                     block, torch.cuda.current_stream(corr.device).cuda_stream)
     return out
 
@@ -804,7 +953,7 @@ block_closure.launches = 0
 
 def _step_plain(conf: TrackingConf, e_block: int, xf_all, rf,
                 pro: BlockPrologue, st: TrackState, codes_rep=None,
-                taps=None):
+                taps=None, sec_code=None):
     """Plain version of the fused launch: K1's plain version on conj(rf),
     K8b's closure on its correlations and, given `codes_rep` and `taps` (a
     fold), the next block's prologue from the state the closure returned
@@ -813,7 +962,7 @@ def _step_plain(conf: TrackingConf, e_block: int, xf_all, rf,
     corr = _block_correlate_plain(xf_all, torch.conj_physical(rf), pro.w0,
                                   pro.lag_int, pro.lag_frac, pro.ph_sc,
                                   pro.tap_samps, pro.omega)
-    new, outs = _block_closure_plain(conf, e_block, corr, pro, st)
+    new, outs = _block_closure_plain(conf, e_block, corr, pro, st, sec_code)
     nxt = None if codes_rep is None else _block_prologue_plain(
         conf, e_block, codes_rep, taps, xf_all.shape[0], new)
     return corr, new, outs, nxt
@@ -824,19 +973,23 @@ def block_correlate_close(conf: TrackingConf, e_block: int,
                           pro: BlockPrologue, st: TrackState, planes: dict,
                           block: int, corr: torch.Tensor | None = None,
                           scratch: K1Scratch | None = None,
-                          fold: tuple | None = None) -> TrackState:
+                          fold: tuple | None = None,
+                          sec_code: torch.Tensor | None = None) -> TrackState:
     """K1 and K8b fused: K1 on the replica spectrum `rf` as the FFT leaves
     it (the kernel conjugates it on load), then K8b's closure of block
     `block` in the same launch; returns the next TrackState, writes the
     block's rows of `planes` and the correlations into `corr` when given.
     With `fold` = (codes_rep, taps, next_pro) the launch also writes the
     next block's prologue (K8a's outputs) from the next state into the
-    BlockPrologue `next_pro` (which must not be `pro`).  Launches
+    BlockPrologue `next_pro` (which must not be `pro`).  The pilot form:
+    `rf` [2, C, F] with the data spectrum second, `sec_code` the +-1
+    secondary code (the codes_rep of a fold [2, C, F]).  Launches
     ``csrc/block_correlator.cu``'s fused form for CUDA tensors; for CPU
     tensors :func:`_step_plain`."""
     if not check_kernel_device(xf_all, "block_correlate_close"):
         res, new, outs, nxt = _step_plain(conf, e_block, xf_all, rf, pro, st,
-                                          *(fold or ())[:2])
+                                          *(fold or (None, None))[:2],
+                                          sec_code=sec_code)
         if corr is not None:
             corr.copy_(res)
         _write_rows(planes, outs, block, e_block)
@@ -844,12 +997,14 @@ def block_correlate_close(conf: TrackingConf, e_block: int,
             for dst, src in zip(fold[2], nxt):
                 dst.copy_(src)
         return new
+    c, nfft = rf.shape[-2:]
+    pilot = _pilot_form(rf.dim() == 3, sec_code, "block_correlate_close")
     if corr is None:
-        corr = torch.empty((rf.shape[0], e_block, pro.tap_samps.shape[1]),
+        corr = torch.empty((c, e_block, pro.tap_samps.shape[1] + pilot),
                            dtype=torch.complex64, device=rf.device)
     if scratch is None:
-        scratch = k1_scratch(*corr.shape, rf.shape[1], rf.device)
-    out = _empty_state(st)
+        scratch = k1_scratch(*corr.shape, nfft, rf.device)
+    out = _empty_state(st, pilot)
     nxt = None
     if fold:
         codes_rep, taps, next_pro = fold
@@ -860,23 +1015,27 @@ def block_correlate_close(conf: TrackingConf, e_block: int,
             conf, e_block, codes_rep, taps, xf_all.shape[0], out, next_pro))
     _launch_k1(_k1_args(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
                         pro.ph_sc, pro.tap_samps, pro.omega, corr, scratch),
-               (_closure_args(conf, e_block, corr, pro, st, out, planes),
+               (_closure_args(conf, e_block, corr, pro, st, out, planes,
+                              sec_code),
                 block, nxt, scratch.flags.data_ptr()))
     return out
 
 
 block_correlate_close.launches = 0
 block_correlate_close.folds = 0
+block_correlate_close.launches_pilot = 0
+block_correlate_close.folds_pilot = 0
 
 
 # ---- the chunk -------------------------------------------------------------
 
 def _chunk_plain(conf: TrackingConf, n_blocks: int, e_block: int,
-                 codes_rep, taps, xf_all, state: TrackState):
+                 codes_rep, taps, xf_all, state: TrackState, sec_code=None):
     """The block loop through the plain versions (on any device; K1
     through its wrapper): the form the CPU runs and the card's K8a and
-    K8b are held against."""
-    planes = _empty_planes(n_blocks * e_block, codes_rep.shape[0],
+    K8b are held against.  `codes_rep` [2, C, F] and `sec_code` in the
+    pilot form."""
+    planes = _empty_planes(n_blocks * e_block, codes_rep.shape[-2],
                            xf_all.device)
     for b in range(n_blocks):
         pro = _block_prologue_plain(conf, e_block, codes_rep, taps,
@@ -884,33 +1043,36 @@ def _chunk_plain(conf: TrackingConf, n_blocks: int, e_block: int,
         rf = torch.conj_physical(torch.fft.fft(pro.rep_t, dim=-1))
         corr = block_correlate(xf_all, rf, pro.w0, pro.lag_int, pro.lag_frac,
                                pro.ph_sc, pro.tap_samps, pro.omega)
-        state, outs = _block_closure_plain(conf, e_block, corr, pro, state)
+        state, outs = _block_closure_plain(conf, e_block, corr, pro, state,
+                                           sec_code)
         _write_rows(planes, outs, b, e_block)
     return state, planes
 
 
 def _chunk_plain_folded(conf: TrackingConf, n_blocks: int, e_block: int,
-                        codes_rep, taps, xf_all, state: TrackState):
+                        codes_rep, taps, xf_all, state: TrackState,
+                        sec_code=None):
     """The plain versions in the order of the card's two-launch chunk: K8a
     for the first block, then per block the replica FFT and the fused
     step, whose closure's state gives the next block's prologue
     (:func:`_step_plain`; the last block writes none)."""
-    planes = _empty_planes(n_blocks * e_block, codes_rep.shape[0],
+    planes = _empty_planes(n_blocks * e_block, codes_rep.shape[-2],
                            xf_all.device)
     pro = _block_prologue_plain(conf, e_block, codes_rep, taps,
                                 xf_all.shape[0], state)
     for b in range(n_blocks):
         rf = torch.fft.fft(pro.rep_t, dim=-1)
-        fold = (codes_rep, taps) if b + 1 < n_blocks else ()
+        fold = (codes_rep, taps) if b + 1 < n_blocks else (None, None)
         _, state, outs, pro = _step_plain(conf, e_block, xf_all, rf, pro,
-                                          state, *fold)
+                                          state, *fold, sec_code=sec_code)
         _write_rows(planes, outs, b, e_block)
     return state, planes
 
 
 def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
                 codes_rep, taps, xf_all, state: TrackState,
-                fold: bool = True, k1: K1Scratch | None = None):
+                fold: bool = True, k1: K1Scratch | None = None,
+                sec_code=None):
     """The block loop on the card into buffers allocated once per chunk
     (K1's scratch among them), with no host sync.  With the fold (the
     receiver's form, at every shape): K8a for the first block, then per
@@ -919,28 +1081,34 @@ def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
     the fold's reference: per block K8a, the cuFFT and K1 with K8b (three
     launches).  The state ping-pongs between two buffers; every launch's
     arguments for the three (source, destination) pairs are built once,
-    K1's with the first spectrum's pointer, which each block's FFT output
-    replaces.  `k1` is K1's scratch (by default its own).  Counts the
-    chunks in ``track_chunk_blocks.chunks``."""
+    K1's with the first spectrum's pointers, which each block's FFT output
+    replaces.  In the pilot form (`codes_rep` [2, C, F], `sec_code`) the
+    replica buffers hold both families and one cuFFT transforms both.
+    `k1` is K1's scratch (by default its own).  Counts the chunks in
+    ``track_chunk_blocks.chunks``."""
     dev = xf_all.device
-    c, nfft = codes_rep.shape
+    c, nfft = codes_rep.shape[-2:]
+    families = 1 if codes_rep.dim() == 2 else codes_rep.shape[0]
+    pilot = _pilot_form(families == 2, sec_code, "track_chunk_blocks")
     k = taps.shape[0]
     n_wins = xf_all.shape[0]
     if k1 is None:
-        k1 = k1_scratch(c, e_block, k, nfft, dev)
+        k1 = k1_scratch(c, e_block, k + pilot, nfft, dev)
     track_chunk_blocks.chunks += 1
     planes = _empty_planes(n_blocks * e_block, c, dev)
-    pros = [_empty_prologue(c, e_block, nfft, k, dev)
+    pros = [_empty_prologue(c, e_block, nfft, k, dev, families)
             for _ in range(2 if fold else 1)]
-    bufs = (_empty_state(state), _empty_state(state))
-    corr = torch.empty((c, e_block, k), dtype=torch.complex64, device=dev)
+    bufs = (_empty_state(state, pilot), _empty_state(state, pilot))
+    corr = torch.empty((c, e_block, k + pilot), dtype=torch.complex64,
+                       device=dev)
     pairs = ((state, bufs[0]), (bufs[0], bufs[1]), (bufs[1], bufs[0]))
     # the prologue buffer each pair's block reads: block 0 and the even
     # blocks pair 0 and 2, the odd ones pair 1
     ipro = (0, 1, 0) if fold else (0, 0, 0)
     p_args = [_prologue_args(conf, e_block, codes_rep, taps, n_wins, src,
                              pros[j]) for (src, _), j in zip(pairs, ipro)]
-    c_args = [_closure_args(conf, e_block, corr, pros[j], src, dst, planes)
+    c_args = [_closure_args(conf, e_block, corr, pros[j], src, dst, planes,
+                            sec_code)
               for (src, dst), j in zip(pairs, ipro)]
     # with the fold, the prologue that pair i's block writes is the one the
     # pair of the next block reads: 0 -> 1, 1 -> 2, 2 -> 1
@@ -955,37 +1123,66 @@ def _chunk_cuda(conf: TrackingConf, n_blocks: int, e_block: int,
         if b == 0 or not fold:
             _launch_prologue(p_args[i], c, stream)
         # no out= for the FFT: ATen would add a kernel that applies the
-        # (unit) normalization into it; K1 conjugates the spectrum on load
+        # (unit) normalization into it; K1 conjugates the spectrum on load.
+        # One call over both families in the pilot form
         rf = torch.fft.fft(pro.rep_t, dim=-1)
         if not k1_args:
             k1_args = [_k1_args(xf_all, rf, q.w0, q.lag_int, q.lag_frac,
                                 q.ph_sc, q.tap_samps, q.omega, corr, k1)
                        for q in pros]
         a = k1_args[ipro[i]]
-        _launch_k1((a[0], rf.data_ptr()) + a[2:],
+        _launch_k1((a[0], rf.data_ptr(),
+                    rf[1].data_ptr() if pilot else None) + a[3:],
                    (c_args[i], b, n_args[i] if b + 1 < n_blocks else None,
                     flags))
     return bufs[(n_blocks - 1) % 2], planes
 
 
+def _pilot_tables(codes_rep, sec_code, data_codes_rep):
+    """The replica tables of the block step: [C, F], or [2, C, F] with the
+    data code's second (the pilot form); the secondary code as a float32
+    tensor on the tables' device, or None.  Raises where the data table is
+    not the code table's shape or the secondary code is not a vector of 1
+    to N_SEC_MAX chips."""
+    if data_codes_rep is not None:
+        if tuple(data_codes_rep.shape) != tuple(codes_rep.shape):
+            raise ValueError(
+                f"track_chunk_blocks: data replica of shape "
+                f"{tuple(data_codes_rep.shape)}, the code replica's is "
+                f"{tuple(codes_rep.shape)}")
+        codes_rep = torch.stack([codes_rep, data_codes_rep.to(codes_rep)])
+    if sec_code is not None:
+        sec_code = torch.as_tensor(sec_code, dtype=F32).to(codes_rep.device)
+        if sec_code.dim() != 1 or not 1 <= sec_code.shape[0] <= N_SEC_MAX:
+            raise ValueError(f"track_chunk_blocks: the secondary code must "
+                             f"be 1 to {N_SEC_MAX} chips")
+    return codes_rep, sec_code
+
+
 def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
                        codes_rep: torch.Tensor, taps: torch.Tensor,
-                       x_chunk: torch.Tensor, state: TrackState):
+                       x_chunk: torch.Tensor, state: TrackState,
+                       sec_code: torch.Tensor | None = None,
+                       data_codes_rep: torch.Tensor | None = None):
     """Run n_blocks blocks of e_block epochs each.  Returns (new_state,
     outs) with the same per-epoch [T, C] output planes as track_chunk
-    (T = n_blocks*e_block).  `codes_rep` is the [C, F] time-domain block
-    replica of code_spectra().  On the card K8a for the first block, then
-    per block the cuFFT and K1 with K8b's closure and the next block's
-    prologue fused (:func:`_chunk_cuda`); on the CPU the plain versions."""
+    (T = n_blocks*e_block).  `codes_rep` / `data_codes_rep` are the [C, F]
+    time-domain block replicas of code_spectra() (the data code's for a
+    track_pilot chain, whose data prompt becomes the ``prompt`` plane);
+    `sec_code` the +-1 secondary code.  On the card K8a for the first
+    block, then per block the cuFFT and K1 with K8b's closure and the next
+    block's prologue fused (:func:`_chunk_cuda`); on the CPU the plain
+    versions."""
     if n_blocks < 1:
         raise ValueError("track_chunk_blocks: n_blocks must be >= 1")
+    codes_rep, sec_code = _pilot_tables(codes_rep, sec_code, data_codes_rep)
     xf_all = _window_spectra(x_chunk, conf.nominal_epoch_samples,
                              block_fft_size(conf))
     if check_kernel_device(xf_all, "track_chunk_blocks"):
         return _chunk_cuda(conf, n_blocks, e_block, codes_rep, taps, xf_all,
-                           state)
+                           state, sec_code=sec_code)
     return _chunk_plain(conf, n_blocks, e_block, codes_rep, taps, xf_all,
-                        state)
+                        state, sec_code)
 
 
 track_chunk_blocks.chunks = 0
@@ -996,9 +1193,12 @@ def track_chunk_blocks_packed_decim(conf: TrackingConf, n_blocks: int,
                                     codes_rep: torch.Tensor,
                                     taps: torch.Tensor,
                                     x_chunk: torch.Tensor,
-                                    state: TrackState):
+                                    state: TrackState,
+                                    sec_code: torch.Tensor | None = None,
+                                    data_codes_rep: torch.Tensor | None = None):
     """Block kernel + the same rate-split single-buffer transfer format as
     tracking.track_chunk_packed_decim."""
     new_state, outs = track_chunk_blocks(conf, n_blocks, e_block, codes_rep,
-                                         taps, x_chunk, state)
+                                         taps, x_chunk, state, sec_code,
+                                         data_codes_rep)
     return new_state, pack_decim(outs, new_state, n_blocks * e_block, decim)

@@ -134,17 +134,13 @@ def tracking_block_step_sharded(mesh: ChannelMesh, conf, n_blocks: int,
     """The block-FFT tracking scan (``tracking_block.track_chunk_blocks``)
     with the channels sharded over `mesh`.  `codes_rep` ([C/S, F] replica
     tables) and `state` are this rank's channel block, `taps` and `x`
-    whole.  Returns (this rank's new state, the outputs gathered on every
-    rank: [T, C] planes along axis 1, [C] fields along axis 0).  The
-    secondary code and the data replica of a pilot chain on the block
-    path are not ported."""
-    if sec_code is not None or data_codes_rep is not None:
-        raise NotImplementedError(
-            "the block kernel's secondary-code sync and data prompt (a "
-            "pilot chain with extend_correlation_symbols == 1) are not "
-            "ported")
+    whole; on a pilot chain `data_codes_rep` ([C/S, F], this rank's block)
+    and `sec_code` (the chain's secondary code, whole) too.  Returns (this
+    rank's new state, the outputs gathered on every rank: [T, C] planes
+    along axis 1, [C] fields along axis 0)."""
     new_state, outs = tb.track_chunk_blocks(conf, n_blocks, e_block,
-                                            codes_rep, taps, x, state)
+                                            codes_rep, taps, x, state,
+                                            sec_code, data_codes_rep)
     return new_state, _gather_outs(outs, mesh)
 
 

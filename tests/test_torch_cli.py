@@ -180,22 +180,34 @@ def test_factory_refuses_unported_e1_keys(tmp_path, line):
 
 
 # keys these refusal tests once listed, now ported (the first-vs-second-
-# peak statistic and the fixed threshold), and the AcqConf field each sets
+# peak statistic and the fixed threshold; the fork's hybrid pseudolite
+# navigation, its rx clock keys and the pre-2009 week), and the field each
+# sets: its chain's AcqConf's, or the ReceiverConf's
 PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                ("use_cfar_algorithm", False),
                "Acquisition_1C.use_CFAR_algorithm=false":
                ("use_cfar_algorithm", False),
-               "Acquisition_1C.pfa=0": ("pfa", 0)}
+               "Acquisition_1C.pfa=0": ("pfa", 0),
+               "GNSS-SDR.hybrid_mode=true": ("hybrid_mode", True),
+               "GNSS-SDR.pseudo_sat_ch_id=3": ("ps_channel", 3),
+               "GNSS-SDR.pre_2009_file=true": ("pre_2009_file", True),
+               "PVT.enable_rx_clock_propagation=true":
+               ("enable_rx_clock_propagation", True),
+               "PVT.share_rx_clock_bias=true": ("share_rx_clock_bias", True)}
 
 
 def _check_ported_key(path, line):
     """The conf at `path` builds, in both packages, the same configuration,
-    the key's value in its chain's AcqConf."""
+    the key's value in its field: the ReceiverConf's, else its chain's
+    AcqConf's."""
     ref = jfactory.receiver_conf_from_config(JaxFileConfiguration(path))
     got = factory.receiver_conf_from_config(FileConfiguration(path))
     assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
-    acq = got.acq if "_1C." in line else got.chains[0].acq
     field, value = PORTED_KEYS[line]
+    if hasattr(got, field):
+        assert getattr(got, field) == value
+        return
+    acq = got.acq if "_1C." in line else got.chains[0].acq
     assert getattr(acq, field) == value
 
 
@@ -225,16 +237,12 @@ def test_factory_maps_extend_correlation_symbols_like_jax(tmp_path, line):
 def test_e1_pilot_chain_like_jax_or_not_ported(ext):
     """galileo_e1b_chain(track_pilot=True) builds the JAX chain's
     configuration (pilot code, CS25, the data code beside) at
-    extend_correlation_symbols 5, and refuses 1, which the JAX package
-    closes on the block kernel's pilot form."""
+    extend_correlation_symbols 5 and at 1, which both packages close on
+    the block kernels' pilot form; nothing of it is refused any more."""
     from gnss_sim_receiver_tpu import signals as jsig
     from gnss_sim_receiver_tpu.models import receiver as jrx
     from gnss_sim_receiver_tpu_torch import signals
     from gnss_sim_receiver_tpu_torch.models import receiver as prx
-    if ext == 1:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            prx.galileo_e1b_chain(4e6, track_pilot=True)
-        return
     kw = dict(n_channels=3, track_pilot=True, extend_correlation_symbols=ext)
     ref = jrx.ReceiverConf(fs=4e6, gps_chain=False,
                            chains=(jrx.galileo_e1b_chain(4e6, **kw),))
@@ -280,6 +288,7 @@ def test_factory_defaults_match_jax():
     "GNSS-SDR.hybrid_mode=true",
     "GNSS-SDR.pseudo_sat_ch_id=3",
     "GNSS-SDR.pre_2009_file=true",
+    "PVT.enable_rx_clock_propagation=true",
     "GNSS-SDR.use_acquisition_resampler=true",
 ])
 def test_factory_refuses_unported_keys(tmp_path, line):

@@ -2,7 +2,8 @@
 CPU, and its state carries across intact.
 
 - no file of gnss_sim_receiver_tpu_torch/ nor chip_smoke.py imports jax or
-  gnss_sim_receiver_tpu (an AST scan);
+  gnss_sim_receiver_tpu (an AST scan), models/hybrid.py, the port's copy
+  of a NumPy-only JAX module, among them;
 - the port acquires and tracks (GPS L1 C/A, and Galileo E1-B with the
   sign-recovery acquisition and 5 taps), builds the wideband chains and
   acquires E5a with the I/Q search, in a process where both names cannot
@@ -60,6 +61,18 @@ def test_port_imports_nothing_of_jax():
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
+
+
+def test_hybrid_module_is_the_ports_own():
+    """models/hybrid.py, the port's copy of the JAX package's NumPy-only
+    hybrid module, is scanned with the rest and imports neither jax nor
+    the JAX package; the receiver takes it from the port."""
+    path = ROOT / "gnss_sim_receiver_tpu_torch" / "models" / "hybrid.py"
+    assert path in _port_files()
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN), roots
+    from gnss_sim_receiver_tpu_torch.models import hybrid, receiver
+    assert receiver.AowrTimeTransfer is hybrid.AowrTimeTransfer
 
 
 _BLOCKED_RUN = r"""
@@ -209,6 +222,13 @@ assert len(fec.viterbi27_decode(np.ones(16, np.float32))) == 8
 for dec in (GalileoE5aTelemetryDecoder([4]), GpsCnavTelemetryDecoder([4])):
     dec.process({"prompt": np.ones((40, 1), np.complex64),
                  "valid": np.ones((40, 1), bool)})
+# the hybrid slice: the AOWR estimator and the clock-sharing records
+from gnss_sim_receiver_tpu_torch.models import hybrid
+aowr = hybrid.AowrTimeTransfer(hybrid.AowrConf(r_ps_true_m=0.4))
+for k in range(5):
+    aowr.update(299792458.0 * 0.25 + 0.1 * k, 12345.678)
+assert aowr.observed and abs(aowr.dt_s - 0.25) < 1e-8
+assert hybrid.format_rx_clock_bias_line(1.0, 2.0, 3e-4, 7).endswith(",07\n")
 builtins.open = _open
 assert any(p.endswith("galileo_e1_codes.npz") for p in opened), opened
 assert any(p.endswith("galileo_e5a_codes.npz") for p in opened), opened

@@ -45,6 +45,7 @@ from gnss_sim_receiver_tpu_torch.models import tracking as ptrk
 from gnss_sim_receiver_tpu_torch.models import tracking_block as ptb
 from gnss_sim_receiver_tpu_torch.parallel import mesh as pmesh
 from gnss_sim_receiver_tpu_torch.parallel import shard_steps as pss
+from tests.test_torch_tracking import _compare_outputs
 
 REPO = Path(__file__).resolve().parents[1]
 FS = 2_000_000.0
@@ -62,6 +63,7 @@ torch.set_num_threads(1)
 sys.path.insert(0, sys.argv[3])
 from gnss_sim_receiver_tpu_torch import interop
 from gnss_sim_receiver_tpu_torch.models import tracking as trk
+from gnss_sim_receiver_tpu_torch.models.receiver import galileo_e1b_chain
 from gnss_sim_receiver_tpu_torch.parallel import (make_mesh, replicate,
                                                   shard_channel_axis)
 from gnss_sim_receiver_tpu_torch.parallel import shard_steps as ss
@@ -100,6 +102,13 @@ save(res, "blk", *ss.tracking_block_step_sharded(
     mesh, conf, int(inp["n_blocks"]), int(inp["e_block"]),
     shard_channel_axis(t("blk_rep"), mesh), taps,
     replicate(t("blk_x"), mesh), shard_channel_axis(state("blk_st."), mesh)))
+pconf = galileo_e1b_chain(float(inp["pil_fs"]), track_pilot=True).trk
+save(res, "pil", *ss.tracking_block_step_sharded(
+    mesh, pconf, int(inp["pil_blocks"]), int(inp["pil_e"]),
+    shard_channel_axis(t("pil_rep"), mesh), replicate(t("pil_taps"), mesh),
+    replicate(t("pil_x"), mesh), shard_channel_axis(state("pil_st."), mesh),
+    sec_code=replicate(t("pil_sec"), mesh),
+    data_codes_rep=shard_channel_axis(t("pil_data"), mesh)))
 save(res, "mh", *ss.tracking_step_sharded(
     mh, trk.TrackingConf(fs=fs, enable_fll_pullin=False),
     int(inp["mh_epochs"]), shard_channel_axis(t("mh_codes"), mh), taps,
@@ -116,6 +125,56 @@ for k, v in ss.collectives.items():
     res[f"collectives.{k}"] = np.asarray(v)
 np.savez(sys.argv[2], **res)
 """
+
+
+PILOT_FS = 4_000_000.0
+PILOT_E = 5
+PILOT_BLOCKS = 6
+
+
+def _pilot_chain():
+    from gnss_sim_receiver_tpu.models import receiver as jrx
+    return jrx.galileo_e1b_chain(PILOT_FS, track_pilot=True)
+
+
+def _pilot_conf():
+    return _pilot_chain().trk
+
+
+def _pilot_signal(conf):
+    """PRNs 11-14 with both E1 components (E1-C carrying the CS25) at 48
+    dB-Hz with noise, PILOT_BLOCKS blocks long, and the state armed on
+    truth: the channels sync their secondary code inside the step."""
+    from gnss_sim_receiver_tpu import signals as jsig
+    from gnss_sim_receiver_tpu.sim import (SatelliteSignalParams,
+                                           generate_baseband)
+    rng = np.random.default_rng(13)
+    s0 = conf.nominal_epoch_samples
+    dops, delays = [-2000.0, -700.0, 600.0, 1900.0], [1234, 5021, 9876, 14001]
+    cs25 = jsig.e1c_secondary_code().astype(np.int8)
+    sats = []
+    for p, dop, n in zip(range(11, 15), dops, delays):
+        kw = dict(prn=p, system="Galileo", cn0_db_hz=45.0, doppler_hz=dop,
+                  delay_chips=n * 1.023e6 / PILOT_FS)
+        sats += [SatelliteSignalParams(signal="1B", nav_bits=np.where(
+                     rng.random(60) < 0.5, 1, -1).astype(np.int8), **kw),
+                 SatelliteSignalParams(signal="1P", nav_bits=np.tile(cs25, 3),
+                                       **kw)]
+    n = max(delays) + (PILOT_BLOCKS * PILOT_E + 3) * s0 \
+        + jtb.block_fft_size(conf)
+    x = generate_baseband(sats, PILOT_FS, n, noise=False)
+    x = (x + (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         * np.float32(0.3 * np.abs(x).std())).astype(np.complex64)
+    st = jtrk._init_state(4)
+    for ch, dop in enumerate(dops):
+        st = jtrk._arm_channel(st, ch, dop, conf.code_rate_cps
+                               * (1.0 + dop / conf.carrier_freq_hz))
+    pos = np.asarray(delays, np.int64)
+    return x, st._replace(
+        pos=jnp.asarray(pos.astype(np.int32)),
+        rem_carr_phase=jnp.asarray(np.mod(
+            2.0 * np.pi * np.asarray(dops) * pos / PILOT_FS,
+            2.0 * np.pi).astype(np.float32)))
 
 
 def _free_port():
@@ -157,8 +216,28 @@ def _inputs():
                           conf.nominal_epoch_samples
                           * (N_BLOCKS * E_BLOCK + 2)
                           + jtb.block_fft_size(conf))
+    # the pilot form of the block step: the Galileo E1 pilot chain at 4
+    # Msps, 4 channels (one a rank), the E1-C and E1-B tables of PRNs 11-14
+    pconf = _pilot_conf()
+    ptables = [np.stack([jpc.bandlimited_table_normalized(
+        np.asarray(prov(p), np.float32), PILOT_FS, pconf.code_rate_cps,
+        pconf.nominal_epoch_samples, 8) for p in range(11, 15)])
+        for prov in (_pilot_chain().code_provider,
+                     _pilot_chain().data_code_provider)]
+    inp["pil_fs"] = np.float64(PILOT_FS)
+    inp["pil_e"] = PILOT_E
+    inp["pil_blocks"] = PILOT_BLOCKS
+    inp["pil_rep"] = np.asarray(jtb.code_spectra(pconf, ptables[0]))
+    inp["pil_data"] = np.asarray(jtb.code_spectra(pconf, ptables[1]))
+    inp["pil_sec"] = (2.0 * np.asarray(pconf.secondary_code, np.float32)
+                      - 1.0)
+    d, dv = (pconf.early_late_space_chips,
+             pconf.very_early_late_space_chips)
+    inp["pil_taps"] = np.array([dv, d / 2, 0.0, -d / 2, -dv], np.float32)
+    inp["pil_x"], pil_st = _pilot_signal(pconf)
     states = {"trk_st.": _armed_state(16, -3000, 3000),
               "blk_st.": _armed_state(16, -3000, 3000),
+              "pil_st.": pil_st,
               "mh_st.": _armed_state(8, -4000, 4000)}
     for prefix, st in states.items():
         inp.update({prefix + k: v for k, v in
@@ -326,6 +405,69 @@ def test_tracking_block_step_sharded_matches_jax_and_unsharded(ranks):
                 interop.track_state_to_numpy(pst))
 
 
+def test_tracking_block_step_sharded_pilot_matches_jax_and_unsharded(ranks):
+    """The pilot form of the sharded block step (a track_pilot chain's:
+    the data replica sharded with the code replica, the CS25 whole) on 4
+    gloo ranks, 6 blocks in which every channel syncs its secondary code,
+    against the JAX step on make_mesh(4) and the port's unsharded call:
+    the prompt plane (the data prompt) with the block planes' tolerance,
+    the sec_* fields equal."""
+    res, inp, states = ranks
+    _same_on_every_rank(res, "pil.out.")
+    mesh = jmake_mesh(RANKS)
+    jst, jouts = jss.tracking_block_step_sharded(
+        mesh, _pilot_conf(), PILOT_BLOCKS, PILOT_E, inp["pil_rep"],
+        inp["pil_taps"], inp["pil_x"],
+        jshard_channel_axis(states["pil_st."], mesh),
+        sec_code=jnp.asarray(inp["pil_sec"]),
+        data_codes_rep=inp["pil_data"])
+    # on planted signals the loops move: a last-bit flip of the float32
+    # code rate (0.25 chip/s) between the two FFT libraries' correlations
+    # rounds an epoch length the other way now and then, which moves the
+    # epoch's end by a sample, its code phase with it, and reads the
+    # early and late taps a sample off the triangle (measured: 2 of 120
+    # ends, 0.96 sample of code phase, 3.8 % of an early magnitude).  So
+    # the planes are held as test_torch_tracking.py holds the scans: the
+    # data prompt within 2 % of the mean prompt (median 0.2 %), the ends
+    # within a sample, the code boundary the observables read (end minus
+    # code phase) within 0.1 sample (a flipped rate walks it up to 0.25
+    # chip/s x 120 ms, 0.06 sample; measured 0.037), the Doppler within
+    # 0.05 Hz (measured 0.022); the early and late magnitudes within 5 %
+    # (median 0.1 %) of the mean; the C/N0, sig / (total - sig) over a
+    # block's 5 prompts, which the planted per-epoch SNR (~100) makes ~200
+    # times as sensitive as the prompts, within 0.5 dB (measured 0.18);
+    # the other planes as the block step's
+    got = {k: torch.from_numpy(res[0]["pil.out." + k]) for k in jouts}
+    _compare_outputs(jouts, got, prompt_max=0.02, prompt_med=0.002,
+                     pos_tol=1, dop_tol=0.05, boundary_tol=0.1)
+    for k in ("early_mag", "late_mag"):
+        rel = np.abs(got[k].numpy() - np.asarray(jouts[k])) \
+            / np.abs(np.asarray(jouts[k])).mean()
+        assert rel.max() < 0.05 and np.median(rel) < 1e-3, k
+    assert np.abs(got["cn0_db_hz"].numpy()
+                  - np.asarray(jouts["cn0_db_hz"])).max() < 0.5
+    _hold_planes(res[0], {k: v for k, v in jouts.items() if k in (
+        "acc_phase_cycles", "valid")}, "pil.out.")
+    assert res[0]["pil.out.prompt"].shape == (PILOT_BLOCKS * PILOT_E, 4)
+    got = _gathered_state(res, "pil")
+    assert got["sec_synced"].all(), got["sec_synced"]
+    _hold_state(got, interop.track_state_to_numpy(jst))
+    for k in ("sec_synced", "sec_off", "sec_polarity", "sec_buf"):
+        np.testing.assert_array_equal(
+            got[k], interop.track_state_to_numpy(jst)[k], err_msg=k)
+    from gnss_sim_receiver_tpu_torch.models import receiver as prx
+    pst, pouts = ptb.track_chunk_blocks(
+        prx.galileo_e1b_chain(PILOT_FS, track_pilot=True).trk,
+        PILOT_BLOCKS, PILOT_E, torch.from_numpy(inp["pil_rep"]),
+        torch.from_numpy(inp["pil_taps"]), torch.from_numpy(inp["pil_x"]),
+        _port_state(inp, "pil_st."),
+        sec_code=torch.from_numpy(inp["pil_sec"]),
+        data_codes_rep=torch.from_numpy(inp["pil_data"]))
+    _hold_planes(res[0], {k: v.numpy() for k, v in pouts.items()},
+                 "pil.out.")
+    _hold_state(got, interop.track_state_to_numpy(pst))
+
+
 def test_multihost_mesh_tracking_matches_single_process(ranks):
     """tests/test_multihost.py's scenario (8 channels, FLL off, 4 epochs)
     through ``make_multihost_mesh`` from torchrun's variables: every rank
@@ -399,7 +541,7 @@ def test_overlap_save_sharded_matches_jax_and_unsharded(ranks):
     assert int(c["collectives.p2p"]) == 1
     assert int(c["collectives.all_reduce"]) == 2
     n_planes = sum(1 for k in c if k.startswith(("trk.out.", "blk.out.",
-                                                 "mh.out.")))
+                                                 "pil.out.", "mh.out.")))
     assert int(c["collectives.all_gather"]) == n_planes + 1
 
 
@@ -434,10 +576,22 @@ def test_shard_channel_axis_refuses_an_axis_that_does_not_divide():
 
 
 def test_block_step_refuses_the_pilot_arguments():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pss.tracking_block_step_sharded(_fake_mesh(0, 1), None, 1, 1, None,
-                                        None, None, None,
-                                        sec_code=np.ones(25))
+    """The sharded block step takes a pilot chain's arguments now; it
+    refuses a data replica that is not this rank's block of the code
+    replica's shape, and a secondary code longer than the sign history."""
+    rep = torch.zeros(4, 4096)
+    with pytest.raises(ValueError, match="data replica"):
+        pss.tracking_block_step_sharded(
+            _fake_mesh(0, 1), ptrk.TrackingConf(fs=FS), 1, 20, rep,
+            torch.zeros(3), torch.zeros(50000, dtype=torch.complex64),
+            ptrk._init_state(4, "cpu"), sec_code=torch.ones(25),
+            data_codes_rep=torch.zeros(8, 4096))
+    with pytest.raises(ValueError, match="secondary code"):
+        pss.tracking_block_step_sharded(
+            _fake_mesh(0, 1), ptrk.TrackingConf(fs=FS), 1, 20, rep,
+            torch.zeros(3), torch.zeros(50000, dtype=torch.complex64),
+            ptrk._init_state(4, "cpu"), sec_code=torch.ones(40),
+            data_codes_rep=torch.zeros(4, 4096))
 
 
 @pytest.fixture(scope="module")
