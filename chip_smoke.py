@@ -32,8 +32,12 @@ Phases (any failure exits non-zero, before the result line):
    and the chunk within their tolerances of the plain versions where the
    bits part) at phase 8c's E1 shape and at 4 Msps, a planted CS25 sync
    that the fused launch must reach at the same block, offset and
-   polarity as the plain step, and of the GPS block step at phase 10's 3
-   Msps; K1 and
+   polarity as the plain step, then the same from a planted sign history
+   one and two signs off the code (the sync threshold: they must sync at
+   blocks 3 and 2, not earlier), and of the GPS block step at phase 10's
+   3 Msps and phase 11's 8 Msps; the assisted search at phase 11's L5
+   shape (the K3b wipe on a [C, 9] table and K3's row kernel, with the
+   mean-pool decimation's time beside); K1 and
    K2 with the GPS and the Galileo E1 tables, K3 wipeoff and peak, K3b,
    K4a in both modes, K4b fold and resolve (the resolve, one CUDA launch,
    also against the Triton kernel it replaced, at C=8, fold 4 and at
@@ -181,7 +185,23 @@ Phases (any failure exits non-zero, before the result line):
    no fix on channel 8, no bias record with its PRN, one clock
    difference per fix once it is observed, the AOWR product within 5 ns
    of the planted offset against the true receiver clock (the raw
-   median printed beside it).
+   median printed beside it);
+11. the multi-band front end: phase 4's sky with L5 on four of its six
+   satellites, 30 s made by K6 as two RF streams, GPS L1 C/A at 8 Msps
+   (RF 0, 8 channels, acquisition on the x4 mean-pooled stream) and GPS
+   L5I at 20 Msps (RF 1, 8 channels, assist-gated), through
+   ReceiverSession.attach_arrays: every L5 acquisition assisted (the log,
+   no cold L5 search), each center within 50 Hz of the true L1 Doppler x
+   f_L5 / f_L1, no L5 channel on a PRN without L5, the position, a fix
+   using both bands, |PR_L5 - PR_L1| < 30 m per PRN, and the launches at
+   the assisted shape and at 8 and 20 Msps;
+12. the live session: phase 4's capture, conditioned, through feed() in
+   1 s host blocks against process_array (fix counts within 2, the first
+   four fixes within 0.5 m, the last within 3 m), the streaming
+   real-time factor printed beside phase 4's; then a warm-started
+   session under the TCP telecommand server on 127.0.0.1: status,
+   standby (2 s dropped, no fix), hotstart (a refix), coldstart (the
+   ephemerides cleared).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -201,6 +221,7 @@ result line: the quick check of a new kernel.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -1038,6 +1059,10 @@ def check_block_chunk_bits(dev, rng, conf, c: int, taps, provider,
 
 PILOT_SYNC_PRNS = tuple(range(11, 21))
 PILOT_SYNC_BLOCKS = 8
+# the planted sign histories (tests/test_torch_block_pilot.py): channel ->
+# its wrong epochs before the arm, and the block at which it must sync
+SYNC_WRONG = {0: (-10,), 1: (-20, -15)}
+SYNC_BLOCK = {0: 3, 1: 2}
 
 
 def check_pilot_sync(dev, conf, label: str) -> dict:
@@ -1095,37 +1120,73 @@ def check_pilot_sync(dev, conf, label: str) -> dict:
     k = taps_t.shape[0]
     scratch = tb.k1_scratch(c, e, k + 1, nfft, dev)
     planes = tb._empty_planes(nb * e, c, dev)
-    pro_k = tb.block_prologue(conf, e, codes_rep, taps_t, n_wins, st)
-    pro_p = tb._block_prologue_plain(conf, e, codes_rep, taps_t, n_wins, st)
-    st_k = st_p = st
-    first = {}
-    for b in range(nb):
-        nxt = tb._empty_prologue(c, e, nfft, k, dev, 2)
-        st_k = tb.block_correlate_close(
-            conf, e, xf_all, torch.fft.fft(pro_k.rep_t, dim=-1), pro_k,
-            st_k, planes, b, scratch=scratch,
-            fold=(codes_rep, taps_t, nxt), sec_code=sec)
-        pro_k = nxt
-        _, st_p, _, pro_p = tb._step_plain(
-            conf, e, xf_all, torch.fft.fft(pro_p.rep_t, dim=-1), pro_p,
-            st_p, codes_rep, taps_t, sec_code=sec)
-        for name, s_ in (("kernel", st_k), ("plain", st_p)):
-            synced = s_.sec_synced.cpu().numpy()
-            off = s_.sec_off.cpu().numpy()
-            pol = s_.sec_polarity.cpu().numpy()
-            for ch in np.flatnonzero(synced):
-                first.setdefault((name, int(ch)),
-                                 (b, int(off[ch]), float(pol[ch])))
-    got = [first.get(("kernel", ch)) for ch in range(c)]
-    want = [first.get(("plain", ch)) for ch in range(c)]
+
+    def first_syncs(st0):
+        """(block, sec_off, polarity) of each channel's first sync, through
+        the fused launch and through the plain step, from `st0`."""
+        pro_k = tb.block_prologue(conf, e, codes_rep, taps_t, n_wins, st0)
+        pro_p = tb._block_prologue_plain(conf, e, codes_rep, taps_t, n_wins,
+                                         st0)
+        st_k = st_p = st0
+        first = {}
+        for b in range(nb):
+            nxt = tb._empty_prologue(c, e, nfft, k, dev, 2)
+            st_k = tb.block_correlate_close(
+                conf, e, xf_all, torch.fft.fft(pro_k.rep_t, dim=-1), pro_k,
+                st_k, planes, b, scratch=scratch,
+                fold=(codes_rep, taps_t, nxt), sec_code=sec)
+            pro_k = nxt
+            _, st_p, _, pro_p = tb._step_plain(
+                conf, e, xf_all, torch.fft.fft(pro_p.rep_t, dim=-1), pro_p,
+                st_p, codes_rep, taps_t, sec_code=sec)
+            for name, s_ in (("kernel", st_k), ("plain", st_p)):
+                synced = s_.sec_synced.cpu().numpy()
+                off = s_.sec_off.cpu().numpy()
+                pol = s_.sec_polarity.cpu().numpy()
+                for ch in np.flatnonzero(synced):
+                    first.setdefault((name, int(ch)),
+                                     (b, int(off[ch]), float(pol[ch])))
+        return ([first.get(("kernel", ch)) for ch in range(c)],
+                [first.get(("plain", ch)) for ch in range(c)])
+
+    got, want = first_syncs(st)
     print(f"  planted CS25 ({label}, {c} channels, {nb} blocks): the fused "
           f"launch syncs at (block, sec_off, polarity) {got}; the plain "
           f"step at {want}")
     if None in want or got != want:
         fail(f"planted CS25 ({label}): the fused launch syncs at {got}, "
              f"the plain step at {want}")
+    # the sync threshold (n_sec): on SYNC_WRONG's channels the sign history
+    # of the 20 epochs before the arm planted right but for the listed
+    # signs holds the best match at n_sec - 2 (n_sec - 4) until they leave
+    # the last n_sec epochs; the other channels' histories stay empty
+    hist = np.zeros((c, trk.N_SEC_MAX), np.float32)
+    sec_h = sec.cpu().numpy()
+    k_ep = np.arange(-20, 0)
+    for ch, wrong in SYNC_WRONG.items():
+        _, off, pol = want[ch]
+        hist[ch, -20:] = pol * sec_h[(k_ep + off) % len(sec_h)]
+        for w in wrong:
+            hist[ch, w] *= -1.0
+    got_p, want_p = first_syncs(st._replace(
+        sec_buf=torch.from_numpy(hist).to(dev)))
+    print(f"  planted CS25 history ({label}; channel -> wrong epochs "
+          f"{SYNC_WRONG}): the fused launch syncs at {got_p}; the plain "
+          f"step at {want_p}")
+    # a planted channel's block is known where its first n_sec signs were
+    # right unplanted (it synced at the earliest block, 4)
+    expect = {ch: SYNC_BLOCK[ch] for ch in SYNC_WRONG if want[ch][0] == 4}
+    if (got_p != want_p or not expect
+            or any(want_p[ch][0] != b for ch, b in expect.items())
+            or any(want_p[ch][1:] != want[ch][1:] for ch in range(c))
+            or any(want_p[ch] != want[ch] for ch in range(c)
+                   if ch not in SYNC_WRONG)):
+        fail(f"planted CS25 history ({label}): the fused launch syncs at "
+             f"{got_p}, the plain step at {want_p}; channels {expect} must "
+             "sync at those blocks, every channel at its unplanted offset "
+             "and polarity, the unplanted ones at their unplanted blocks")
     return dict(name="planted_cs25_sync", shape=f"{label}: C={c}, E={e}, "
-                f"F={nfft}, {nb} blocks", sync=got)
+                f"F={nfft}, {nb} blocks", sync=got, planted_sync=got_p)
 
 
 def pilot_chunk_within(conf, got_st, got, want_st, want, label) -> str:
@@ -4007,6 +4068,7 @@ def main_path(root: str, wrappers) -> dict:
     check_block_launches(launches, sec["receiver"])
     print(f"  wall {wall:.3f} s from file open to the last fix for "
           f"{DUR:.0f} s of signal: real-time factor {DUR / wall:.3f}")
+    main_path.rtf = DUR / wall
     return launches
 
 
@@ -5680,6 +5742,466 @@ def ps_path(root: str, wrappers, card: str) -> dict:
     return launches
 
 
+# ---- phases 11 and 12: the multi-band front end and the live session ------
+
+FS_MB_L1 = 8_000_000.0         # phase 11: GPS L1 C/A on RF channel 0
+FS_MB_L5 = FS_WIDEBAND         # phase 11: GPS L5I on RF channel 1
+MB_DEC = 4                     # acquisition at 2 Msps (acq_decim)
+MB_DUR = 30.0
+# on the grids of both LNAV's toe (16 s) and CNAV's (300 s): make_sky's
+# T0 + 600 rounds to 346208 s, which CNAV carries as 346200 s, and the
+# decoded CNAV ephemeris then replaces the LNAV one under its PRN (as in
+# JAX), moving the fix by kilometres.  At T0 the six satellites' Dopplers
+# lie at least 129 Hz apart; at T0 + 1200 s PRNs 4 and 10 fall 4.2 Hz
+# apart and their C/A codes' cross-correlation walks through both
+# trackers, moving the fix ~10 m for a few seconds
+# (tools/probe_multiband.py shows all three).
+MB_TOE = T0
+MB_L5_PRNS = (1, 3, 4, 5)      # the four of phase 4's six with L5 signals
+MB_CHANNELS = 8
+MB_ASSIST_TOL_HZ = 50.0        # tests/test_assisted_acq.py's bound
+MB_PR_TOL_M = 30.0             # tests/test_multiband.py's bound
+MB_PVT_RATE_MS = 200
+MB_KERNELS = ("K1_block_correlate", "K1_K8b_K8a_block_step", "K3_pcps_wipe",
+              "K3_pcps_peak", "K3b_pcps_wipe_per_channel")
+
+
+def multiband_sats():
+    """Phase 11's sky: phase 4's six satellites on L1 C/A (47 dB-Hz, the
+    30 s geometry) and four of them, MB_L5_PRNS, on L5I (48 dB-Hz; the
+    other two have no L5 signal, as older GPS satellites).  One ephemeris
+    per satellite, toe = toc = MB_TOE, which both LNAV (16 s) and CNAV
+    (300 s) carry exactly: the receiver stores either band's decoded
+    ephemeris under the PRN, as JAX's does."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    ephs = [dataclasses.replace(e, toe=MB_TOE, toc=MB_TOE)
+            for e in make_sky_constellation(RX_LLH[0], RX_LLH[1],
+                                            toe=MB_TOE)
+            if e.prn in SCENARIO_PRNS]
+    l1 = build_static_scenario(ephs, rx_true_ecef(), T0, MB_DUR,
+                               cn0_db_hz=47.0, subframe_cycle=(1, 2, 3))
+    l5 = build_static_scenario([e for e in ephs if e.prn in MB_L5_PRNS],
+                               rx_true_ecef(), T0, MB_DUR, cn0_db_hz=48.0,
+                               band="L5")
+    if sorted(s.prn for s in l1) != list(SCENARIO_PRNS) \
+            or sorted(s.prn for s in l5) != list(MB_L5_PRNS):
+        fail(f"multi-band sky: {[s.prn for s in l1]}, {[s.prn for s in l5]}")
+    return {e.prn: e for e in ephs}, l1, l5
+
+
+def multiband_conf():
+    """Phase 11's receiver: GPS L1 C/A at 8 Msps on RF 0 with acquisition on
+    the x4 mean-pooled stream (tests/test_multiband.py:110-116's chain:
+    gps_chain=False and an explicit "1C" chain), GPS L5I at 20 Msps on
+    RF 1 (gps_l5_chain, assist-gated, bit_transition_flag), 8 channels
+    each."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.models.acquisition import AcqConf
+    from gnss_sim_receiver_tpu_torch.models.receiver import (ReceiverConf,
+                                                             SignalChainConf,
+                                                             gps_l5_chain)
+    from gnss_sim_receiver_tpu_torch.models.tracking import TrackingConf
+    prns = tuple(range(1, 11))
+    l1 = SignalChainConf(
+        signal="1C", system="GPS", prns=prns, n_channels=MB_CHANNELS,
+        max_acq_channels=MB_CHANNELS,
+        acq=AcqConf(fs_in=FS_MB_L1 / MB_DEC, max_dwells=2),
+        trk=TrackingConf(fs=FS_MB_L1), acq_decim=MB_DEC)
+    l5 = dataclasses.replace(
+        gps_l5_chain(FS_MB_L5, prns=SCENARIO_PRNS, n_channels=MB_CHANNELS),
+        rf_channel_id=1)
+    # the doubled FFT, as phase 7's conf sets it (ROADMAP queue 3: NH10
+    # flips the sign every 1 ms epoch).  With the chain's defaults the
+    # assisted search finds all four, but an NH10 flip cuts PRN 4's dwell
+    # and its loop locks 493 Hz off (-1494.5 against -1987.6 Hz): its
+    # CNAV never decodes (tools/probe_multiband.py, "nh10")
+    l5.acq = dataclasses.replace(l5.acq, bit_transition_flag=True)
+    return ReceiverConf(fs=FS_MB_L1, prns=prns, gps_chain=False,
+                        rf_fs={1: FS_MB_L5}, chains=(l1, l5),
+                        pvt_rate_ms=MB_PVT_RATE_MS)
+
+
+def check_assisted(dev) -> tuple:
+    """Phase 3: the assisted search at phase 11's L5 shape: M=2 dwells,
+    C=8 channels (PRNs 1-8), D2=9 Doppler rows each (+-250 Hz in 62.5 Hz
+    steps), N=the chain's FFT (40000 at 20 Msps: 1 ms doubled by
+    bit_transition_flag), on 4 ms of phase 11's L5 stream made by K6.
+    The K3b wipe (wipe_case) and K3's row kernel (k3_peak_row) on its
+    correlations, each against its plain version; the whole search
+    (pcps_search_assisted) against its plain composition; the mean-pool
+    decimation of phase 11's L1 window (4000 x 4 samples, one PyTorch
+    call) timed beside.  Returns the two rows and the decimation's entry
+    for the other shapes."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    chain = multiband_conf().chains[1]
+    eng = PcpsAcquisitionEngine(chain.acq, tuple(range(1, 9)),
+                                code_provider=chain.code_provider,
+                                sc_rate=chain.sc_rate, device=dev)
+    m, n = chain.acq.max_dwells, eng.fft_size
+    x = generate_baseband_device_resident(
+        multiband_sats()[2], FS_MB_L5, m * n, noise=True, seed=41,
+        device=dev).reshape(m, n)
+    table = narrow_table(eng)
+    cfc = eng.code_fft_conj
+    label = f"phase 11's assisted L5 search at {FS_MB_L5 / 1e6:g} Msps"
+    wipe = wipe_case(x, table, eng._t, label, k3_search(cfc, m), 3)
+    wipe["name"] = "K3b_pcps_wipe_per_channel_assisted"
+    corr = torch.fft.ifft(torch.fft.fft(pcps.pcps_wipe(x, table, eng._t),
+                                        dim=-1) * cfc[None, :, None],
+                          dim=-1)
+    peak = k3_peak_row(corr, m, label, 3)
+    peak["name"] = "K3_pcps_peak_assisted"
+    del corr
+    got = pcps.pcps_search_assisted(x, cfc, table, eng._t)
+    stat, di, de = pcps.max_to_input_power_stat(
+        pcps.pcps_grid_per_channel(x, cfc, table, FS_MB_L5), float(m))
+    want = torch.stack([stat, torch.gather(table, 1, di.long()[:, None])[:, 0],
+                        de.to(torch.float32)])
+    torch.cuda.synchronize()
+    compare("pcps_search_assisted statistic", got[0], want[0], 1e-4)
+    compare("pcps_search_assisted cells", got[1:], want[1:], 0.0)
+    torch.cuda.empty_cache()
+    xd = _cnoise(np.random.default_rng(43), 4000 * MB_DEC, dev)
+    pool_ms = time_ms(lambda: xd.reshape(-1, MB_DEC).mean(dim=1))
+    print(f"  mean-pool decimation (phase 11's L1 acquisition window, "
+          f"{4000 * MB_DEC} samples x{MB_DEC}, one PyTorch call): "
+          f"{pool_ms:.4f} ms")
+    return [wipe, peak], dict(
+        name="mean_pool_decimation", route="torch", ms=pool_ms,
+        shape=f"{4000 * MB_DEC} complex64 samples, reshape(-1, {MB_DEC})"
+              ".mean(1)")
+
+
+def multiband_path(wrappers, card: str) -> dict:
+    """Phase 11: the multi-band front end at full width.  K6 makes the two
+    RF streams of one sky (its launches counted apart); the counters are
+    set to 0 just before ReceiverSession.attach_arrays({0: L1, 1: L5}) +
+    run_to_end (warm-started with the scenario's ephemerides, as
+    tests/test_multiband.py's dual-band run) and read just after.  Checks:
+    every L5 acquisition took the assisted path (the assist log lists each
+    tracked L5 PRN as detected; no cold L5 search), each center within
+    50 Hz of the true L1 Doppler scaled by f_L5 / f_L1 at its window, no L5
+    channel on a PRN without L5, 2D < 2 m and 3D < 5 m, a fix using both
+    bands, |PR_L5 - PR_L1| < 30 m per PRN at the common epochs, and the
+    launch counters: K3b and K3 at the assisted shape, the block step at
+    8 and 20 Msps."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import constants
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    ephs, l1_sats, l5_sats = multiband_sats()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x1 = generate_baseband_device_resident(l1_sats, FS_MB_L1,
+                                           int(FS_MB_L1 * MB_DUR),
+                                           noise=True, seed=41, device="cuda")
+    x5 = generate_baseband_device_resident(l5_sats, FS_MB_L5,
+                                           int(FS_MB_L5 * MB_DUR),
+                                           noise=True, seed=42, device="cuda")
+    torch.cuda.synchronize()
+    k6 = read_launches(wrappers, ("K6_device_generator",))
+    print(f"  K6 made {len(x1) / 1e6:.0f} M samples at {FS_MB_L1 / 1e6:g} "
+          f"Msps and {len(x5) / 1e6:.0f} M at {FS_MB_L5 / 1e6:g} Msps in "
+          f"{time.perf_counter() - t0:.3f} s (not timed)")
+    conf = multiband_conf()
+    f_ratio = constants.GPS_L5_FREQ_HZ / constants.GPS_L1_FREQ_HZ
+    windows = []
+    assisted = PcpsAcquisitionEngine.acquire_assisted
+
+    def acquire_assisted(self, x, start, centers, *a, **k):
+        windows.append((start / FS_MB_L5, list(centers)))
+        return assisted(self, x, start, centers, *a, **k)
+    PcpsAcquisitionEngine.acquire_assisted = acquire_assisted
+    shapes0 = (collections.Counter(pcps.pcps_wipe.shapes),
+               collections.Counter(pcps.pcps_peak.shapes))
+    tb.block_correlate_close.fold_shapes.clear()
+    tb.block_prologue.shapes.clear()
+    try:
+        session = Receiver(conf).start_session(ephemerides=dict(ephs))
+        # each observation epoch's channel -> PRN map, as the session holds
+        # it when the epoch is formed (re-acquisitions move PRNs between
+        # channels; a re-armed channel's history is cleared)
+        epoch_prns = []
+        solve = session._solve
+
+        def solve_logged(bound):
+            n0 = len(session.obs_epochs)
+            prns = [c.prn for rt in session.chains for c in rt.mgr.channels]
+            solve(bound)
+            epoch_prns.extend([prns] * (len(session.obs_epochs) - n0))
+        session._solve = solve_logged
+        reset(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.attach_arrays({0: x1, 1: x5})
+        session.run_to_end()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        PcpsAcquisitionEngine.acquire_assisted = assisted
+    launches = read_launches(wrappers, MB_KERNELS)
+    run = session.result()
+    del x1, x5
+    torch.cuda.empty_cache()
+    # the assisted searches
+    n1 = conf.chains[0].n_channels
+    states = list(zip(run.channel_prns, run.channel_states))
+    l1_trk = sorted(p for p, s in states[:n1] if s == ChannelState.TRACKING)
+    l5_trk = sorted(p for p, s in states[n1:] if s == ChannelState.TRACKING)
+    print(f"  L1 tracks {l1_trk}, L5 tracks {l5_trk}; searches "
+          f"{dict(session.searches)}; assist log {session.assist_log}")
+    if l1_trk != list(SCENARIO_PRNS) or l5_trk != list(MB_L5_PRNS):
+        fail(f"tracked L1 {l1_trk}, L5 {l5_trk}: expected "
+             f"{list(SCENARIO_PRNS)} and {list(MB_L5_PRNS)}")
+    if session.searches[("L5", "cold")]:
+        fail(f"cold L5 searches: {dict(session.searches)}")
+    detected = {p for s, p, _, d in session.assist_log if s == "L5" and d}
+    if not set(l5_trk) <= detected:
+        fail(f"L5 PRNs {l5_trk} tracked, assisted detections {detected}")
+    truth = {s.prn: s for s in l1_sats}
+    centers = [c for _, cs in windows for c in cs]
+    if len(centers) != len(session.assist_log):
+        fail(f"{len(centers)} assisted centers, {len(session.assist_log)} "
+             "log entries")
+    worst = 0.0
+    k = 0
+    for t_win, cs in windows:
+        for c in cs:
+            _, prn, center, _ = session.assist_log[k]
+            k += 1
+            sat = truth[prn]
+            want = f_ratio * (sat.doppler_hz + sat.doppler_rate_hz_s * t_win)
+            worst = max(worst, abs(center - want))
+    print(f"  {len(session.assist_log)} assisted searches; the largest "
+          f"center error against the true L1 Doppler x f_L5/f_L1 {worst:.3f} "
+          "Hz")
+    if worst >= MB_ASSIST_TOL_HZ:
+        fail(f"an assisted center {worst:.3f} Hz off the scaled L1 Doppler")
+    # the fix and the two bands' observables
+    check_run_position(run, min_fixes=5)
+    both = [s for s in run.solutions if s.used_channels is not None
+            and (s.used_channels < n1).any()
+            and (s.used_channels >= n1).any()]
+    if not both:
+        fail("no fix used observables of both bands")
+    diffs = collections.defaultdict(list)
+    for ep, prns in zip(run.observation_epochs, epoch_prns):
+        for c5 in range(n1, len(prns)):
+            prn = prns[c5]
+            if not ep.valid[c5] or prn not in prns[:n1]:
+                continue
+            c1 = prns[:n1].index(prn)
+            if ep.valid[c1]:
+                diffs[prn].append(ep.pseudorange_m[c5] - ep.pseudorange_m[c1])
+    worst_pr = {p: float(np.abs(d).max()) for p, d in diffs.items()}
+    print(f"  {len(both)} of {len(run.solutions)} fixes use both bands; "
+          f"max |PR_L5 - PR_L1| by PRN {worst_pr} m over "
+          f"{sum(len(d) for d in diffs.values())} pairs")
+    if sorted(diffs) != list(MB_L5_PRNS) \
+            or max(worst_pr.values()) >= MB_PR_TOL_M:
+        fail(f"L5 against L1 pseudoranges: {worst_pr}")
+    # the launch counters at the new shapes
+    wipe = collections.Counter(pcps.pcps_wipe.shapes) - shapes0[0]
+    peak = collections.Counter(pcps.pcps_peak.shapes) - shapes0[1]
+    n5 = PcpsAcquisitionEngine(conf.chains[1].acq, (1,), device="cuda"
+                               ).fft_size
+    k3b = sum(v for s, v in wipe.items() if len(s) == 4 and s[-1] == n5)
+    k3 = sum(v for s, v in peak.items() if s[2] == 9 and s[-1] == n5)
+    f8 = tb.block_fft_size(conf.chains[0].trk)
+    f20 = tb.block_fft_size(conf.chains[1].trk)
+    folds = dict(tb.block_correlate_close.fold_shapes)
+    pro = dict(tb.block_prologue.shapes)
+    by_f = {f: (sum(v for s, v in pro.items() if s[2] == f),
+                sum(v for s, v in folds.items() if s[2] == f))
+            for f in (f8, f20)}
+    print(f"  assisted shape: K3b {k3b} launches at N={n5} ({dict(wipe)}), "
+          f"K3's peak {k3} ({dict(peak)}); block step (K8a, folds) at "
+          f"F={f8} (8 Msps) {by_f[f8]}, at F={f20} (20 Msps) {by_f[f20]}")
+    if not (k3b and k3 == k3b and all(all(v) for v in by_f.values())):
+        fail("phase 11 did not launch K3b and K3 at the assisted shape and "
+             "the block step at 8 and 20 Msps")
+    print(f"  wall {wall:.3f} s for {MB_DUR:.0f} s of two RF streams: "
+          f"real-time factor {MB_DUR / wall:.3f} ({card})")
+    launches.update({
+        "K6_device_generator": k6["K6_device_generator"],
+        "K3b_pcps_wipe_per_channel_assisted": k3b,
+        "K3_pcps_peak_assisted": k3,
+        "K8a_block_prologue_8Msps": by_f[f8][0],
+        "K1_K8b_K8a_block_step_8Msps": by_f[f8][1]})
+    return launches
+
+
+def check_run_position(run, min_fixes: int) -> None:
+    """check_run's position checks without its tracked set."""
+    from gnss_sim_receiver_tpu_torch.utils import geodesy
+    ref = (np.radians(RX_LLH[0]), np.radians(RX_LLH[1]))
+    enu = np.array([geodesy.ecef_to_enu(s.rx_ecef_m - rx_true_ecef(), ref)
+                    for s in run.solutions]).reshape(-1, 3)
+    if len(run.solutions) < min_fixes or not np.isfinite(enu).all():
+        fail(f"{len(run.solutions)} fixes, finite: {np.isfinite(enu).all()}")
+    err_2d = float(np.linalg.norm(enu.mean(0)[:2]))
+    err_3d = float(np.linalg.norm(enu.mean(0)))
+    print(f"  {len(run.solutions)} fixes, mean error 2D {err_2d:.3f} m, 3D "
+          f"{err_3d:.3f} m")
+    if not (err_2d < 2.0 and err_3d < 5.0):
+        fail(f"position error 2D {err_2d:.3f} m, 3D {err_3d:.3f} m")
+
+
+LIVE_STEP_S = 1.0               # feed blocks (tests/test_control_plane.py)
+LIVE_WARM_S = 12                # fed before standby
+LIVE_STANDBY_S = 2              # dropped in standby
+LIVE_FIX_COUNT_TOL = 2          # tests/test_control_plane.py's bounds
+LIVE_FIRST_TOL_M = 0.5
+LIVE_LAST_TOL_M = 3.0
+LIVE_REFIX_TOL_M = 20.0
+
+
+def _cmd(port: int, line: str) -> str:
+    import socket
+    with socket.create_connection(("127.0.0.1", port), timeout=5) as s:
+        fh = s.makefile("rw", newline="\n")
+        fh.write(line + "\nexit\n")
+        fh.flush()
+        return fh.readline().strip()
+
+
+def live_path(root: str, wrappers, card: str, batch_rtf: float) -> dict:
+    """Phase 12: the live session.  Phase 4's capture, conditioned as phase
+    4 conditions it (GPS L1 C/A, 2 Msps, 26 s), through process_array and
+    through feed() in 1 s host blocks + run_to_end (cold, both), on the
+    receiver of tests/test_control_plane.py (PRNs 1-10, 8 channels: with
+    phase 4's 32 PRNs the re-acquisition waves land on other chunk
+    boundaries in the two modes before the first fix), held to each other
+    under that test's bounds; the counters are set to 0 just before the
+    streaming run and read just after.  Then
+    a session warm-started with the batch run's ephemerides, fed in 1 s
+    blocks, under a TcpCmdServer on 127.0.0.1: `status` answers running,
+    `standby` drops the next 2 s with no fix from them, `hotstart` refixes
+    within the capture's remaining 12 s (the JAX test's window), within
+    20 m, the ephemerides kept; `coldstart` clears them."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.conditioner import \
+        SignalConditioner
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.models.receiver import (Receiver,
+                                                             ReceiverConf)
+    from gnss_sim_receiver_tpu_torch.monitor.tcp_cmd import TcpCmdServer
+    from gnss_sim_receiver_tpu_torch.utils.config import FileConfiguration
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import read_samples
+    config = FileConfiguration(os.path.join(root, "build",
+                                            "chip_smoke_rx.conf"))
+    x = read_samples(capture_paths(root)["file"], "ishort")
+    y = SignalConditioner(config, fs_in=FS_FILE).process(x)
+    torch.cuda.synchronize()
+    y_host = y.cpu().numpy()
+    rx = Receiver(ReceiverConf(fs=FS, prns=tuple(range(1, 11)),
+                               max_channels=8))
+    t0 = time.perf_counter()
+    batch = rx.process_array(y)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    del y
+    torch.cuda.empty_cache()
+    step = int(FS * LIVE_STEP_S)
+    session = rx.start_session()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(0, len(y_host), step):
+        session.feed(y_host[k:k + step])
+    session.run_to_end()
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = read_launches(wrappers, BLOCK_PATH_KERNELS
+                             + ACQUISITION_KERNELS)
+    run = session.result()
+    check_run(batch, min_fixes=5)
+    check_run(run, min_fixes=5)
+    n_b, n_s = len(batch.solutions), len(run.solutions)
+    d0 = max(np.linalg.norm(run.solutions[i].rx_ecef_m
+                            - batch.solutions[i].rx_ecef_m)
+             for i in range(min(4, n_s)))
+    d_last = float(np.linalg.norm(run.solutions[-1].rx_ecef_m
+                                  - batch.solutions[-1].rx_ecef_m))
+    print(f"  streaming {n_s} fixes, batch {n_b}; the first four within "
+          f"{d0:.4f} m, the last {d_last:.4f} m apart")
+    if abs(n_s - n_b) > LIVE_FIX_COUNT_TOL or d0 >= LIVE_FIRST_TOL_M \
+            or d_last >= LIVE_LAST_TOL_M:
+        fail(f"streaming against batch: {n_s} against {n_b} fixes, first "
+             f"four {d0:.4f} m, last {d_last:.4f} m")
+    dur = len(y_host) / FS
+    print(f"  receiver {batch_s:.3f} s batch (real-time factor "
+          f"{dur / batch_s:.3f}), {stream_s:.3f} s streaming in "
+          f"{LIVE_STEP_S:g} s host blocks (real-time factor "
+          f"{dur / stream_s:.3f}); phase 4's batch real-time factor "
+          f"{batch_rtf:.3f} ({card})")
+    # the warm-started session under the TCP server
+    live = rx.start_session(ephemerides=dict(batch.ephemerides))
+    srv = TcpCmdServer(live)
+    try:
+        status = _cmd(srv.port, "status")
+        if not status.startswith("running"):
+            fail(f"status: {status!r}")
+        pos = 0
+
+        def feed(seconds):
+            nonlocal pos
+            for _ in range(seconds):
+                live.feed(y_host[pos:pos + step])
+                pos += step
+        feed(LIVE_WARM_S)
+        n_warm = len(live.solutions)
+        if not n_warm:
+            fail(f"no warm fix within {LIVE_WARM_S} s")
+        reply = _cmd(srv.port, "standby")
+        feed(LIVE_STANDBY_S)
+        idle = all(c.state == ChannelState.IDLE for rt in live.chains
+                   for c in rt.mgr.channels)
+        status = _cmd(srv.port, "status")
+        if (reply != "OK standby" or not idle or len(live.solutions) != n_warm
+                or not status.startswith("standby")):
+            fail(f"standby: {reply!r}, channels idle {idle}, fixes "
+                 f"{len(live.solutions)} after {n_warm}, status {status!r}")
+        reply = _cmd(srv.port, "hotstart")
+        t_hot = pos / FS
+        feed(int(len(y_host) / step) - LIVE_WARM_S - LIVE_STANDBY_S)
+        live.run_to_end()
+        refix = len(live.solutions) - n_warm
+        err = float(np.linalg.norm(live.solutions[-1].rx_ecef_m
+                                   - rx_true_ecef()))
+        print(f"  TCP: warm fixes {n_warm} in {LIVE_WARM_S} s, standby "
+              f"dropped {LIVE_STANDBY_S} s with none, hotstart at "
+              f"{t_hot:.0f} s: {refix} fixes after it, the last {err:.3f} m "
+              f"off; {len(live.ephemerides)} ephemerides kept")
+        if reply != "OK hotstart" or refix <= 0 or err >= LIVE_REFIX_TOL_M \
+                or len(live.ephemerides) < len(SCENARIO_PRNS):
+            fail(f"hotstart: {reply!r}, {refix} fixes after it, the last "
+                 f"{err:.3f} m off, {len(live.ephemerides)} ephemerides")
+        reply = _cmd(srv.port, "coldstart")
+        if reply != "OK coldstart" or live.ephemerides:
+            fail(f"coldstart: {reply!r}, {len(live.ephemerides)} "
+                 "ephemerides left")
+    finally:
+        srv.close()
+    return launches
+
+
 def profile_path(run) -> None:
     """`--profile`: `run()` (one run of a path, returning a line to print)
     twice more, plain and under torch.profiler: wall time, device busy
@@ -5749,7 +6271,7 @@ def main() -> int:
 
 
 def run_phases(root: str, card: str, procs: dict) -> int:
-    """Phases 2 to 8b and the result lines; `procs` are the synthesis
+    """Phases 2 to 12 and the result lines; `procs` are the synthesis
     children (none with --kernels-only)."""
     import torch
     from gnss_sim_receiver_tpu_torch import signals
@@ -5883,6 +6405,14 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     rows.append(g3[3])
     extra += g3[:3]
     torch.cuda.empty_cache()
+    # phase 11's L1 chain: GPS at 8 Msps, 8 channels
+    gps8 = multiband_conf().chains[0].trk
+    g8 = check_k8(dev, rng8, gps8, MB_CHANNELS, gps_taps, gps_code, 1000,
+                  tuple(n + "_8Msps" for n in k8),
+                  f"GPS L1 C/A at {FS_MB_L1 / 1e6:g} Msps")
+    rows += [g8[0], g8[3]]
+    extra += g8[1:3]
+    torch.cuda.empty_cache()
     # the two-launch chunk at the same four shapes
     for conf_, c_, taps_, prov, lab in (
             (gps, 8, gps_taps, gps_code, "GPS L1 C/A at 2 Msps"),
@@ -5900,7 +6430,9 @@ def run_phases(root: str, card: str, procs: dict) -> int:
              "Galileo E1 pilot at 20 Msps"),
             (e1_pilot4, 10, conf_taps(e1_pilot4), e1_code, e1_data,
              "Galileo E1 pilot at 4 Msps"),
-            (gps3, 9, gps_taps, gps_code, None, "GPS L1 C/A at 3 Msps")):
+            (gps3, 9, gps_taps, gps_code, None, "GPS L1 C/A at 3 Msps"),
+            (gps8, MB_CHANNELS, gps_taps, gps_code, None,
+             f"GPS L1 C/A at {FS_MB_L1 / 1e6:g} Msps")):
         extra.append(check_block_chunk_bits(dev, rng8, conf_, c_, taps_,
                                             prov, lab, data))
         torch.cuda.empty_cache()
@@ -5930,6 +6462,9 @@ def run_phases(root: str, card: str, procs: dict) -> int:
             extra += [k1, k2]
         torch.cuda.empty_cache()
     rows += [*check_k3(dev), check_k3b(dev)]
+    assisted_rows, pool = check_assisted(dev)
+    rows += assisted_rows
+    extra.append(pool)
     check_k3c_shapes(dev, extra)
     k3c = []
     for variant in ("cccwsr", "8ms"):
@@ -6109,15 +6644,33 @@ def run_phases(root: str, card: str, procs: dict) -> int:
           "differences)", flush=True)
     ps = ps_path(root, wrappers, card)
     launches["K1_K8b_K8a_block_step_3Msps"] = ps["K1_K8b_K8a_block_step"]
-    # K6's launches: the captures of phases 5, 6, 7, 8 and 10
+    torch.cuda.empty_cache()
+    print("== phase 11: the multi-band front end (device generator -> GPS "
+          f"L1 C/A at {FS_MB_L1 / 1e6:g} Msps on RF 0 with acquisition on "
+          f"the x{MB_DEC} mean-pooled stream + GPS L5I at "
+          f"{FS_MB_L5 / 1e6:g} Msps on RF 1, Doppler-assisted -> "
+          "attach_arrays -> dual-band position)", flush=True)
+    mb = multiband_path(wrappers, card)
+    for name in ("K3b_pcps_wipe_per_channel_assisted",
+                 "K3_pcps_peak_assisted", "K8a_block_prologue_8Msps",
+                 "K1_K8b_K8a_block_step_8Msps"):
+        launches[name] = mb[name]
+    torch.cuda.empty_cache()
+    print("== phase 12: the live session (phase 4's conditioned capture fed "
+          f"in {LIVE_STEP_S:g} s host blocks against process_array; a "
+          "warm-started session under the TCP telecommand server: status, "
+          "standby, hotstart, coldstart)", flush=True)
+    live_path(root, wrappers, card, main_path.rtf)
+    # K6's launches: the captures of phases 5, 6, 7, 8, 10 and 11
     launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
                                        + k6_wb + pilot["K6_device_generator"]
-                                       + ps["K6_device_generator"])
+                                       + ps["K6_device_generator"]
+                                       + mb["K6_device_generator"])
     for r in rows:
         r["launches"] = launches[r["name"]]
 
     wipe_shapes = dict(pcps.pcps_wipe.shapes)
-    print(f"  the wipeoff's launches in phases 4 to 9b by (M, Doppler table, "
+    print(f"  the wipeoff's launches in phases 4 to 12 by (M, Doppler table, "
           f"N): {wipe_shapes}")
     missing = sorted({wipe_key(k) for k in wipe_shapes} - WIPE_CHECKED)
     if missing:

@@ -7,6 +7,8 @@ the plain PyTorch versions of the kernels (as the CPU tests do).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -42,6 +44,19 @@ def upload(a, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+@contextlib.contextmanager
+def device_context(device: torch.device):
+    """Run the block's device work on `device`'s default stream, whatever
+    thread runs it (a command thread has its own current device and
+    stream)."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device), \
+            torch.cuda.stream(torch.cuda.default_stream(device)):
+        yield
 
 
 def require(t: torch.Tensor, dtype, device, what: str) -> None:

@@ -149,11 +149,9 @@ _ABSENT = {
     PvtConf: dict(iono_alpha=(0.0,) * 4, iono_beta=(0.0,) * 4,
                   raim_fde=False, raim_threshold_m=30.0,
                   raim_max_exclusions=2),
-    SignalChainConf: dict(rf_channel_id=0, acq_decim=1, freq_slot=0,
-                          day_base_s=0.0),
+    SignalChainConf: dict(freq_slot=0, day_base_s=0.0),
     ReceiverConf: dict(enable_pvt_kf=False, enable_pvt_ekf=False,
-                       pvt_ekf=None, rf_fs={}, rtk=None,
-                       rtk_base_ecef_m=None),
+                       pvt_ekf=None, rtk=None, rtk_base_ecef_m=None),
 }
 
 

@@ -29,6 +29,12 @@ host per acquisition:
   single-dwell searches (K3, :func:`ops.pcps.pcps_search_dwells`), its
   counters run on the host after the one pull.
 
+``acquire(x, samplestamp)`` searches the first window of `x` exactly (the
+acquisition-only resampler's decimated window); ``acquire_assisted(x,
+start, centers_hz)`` searches each channel's +-250 Hz grid around its own
+predicted Doppler in one dwell (K3b on a [C, 9] table, K3's peak,
+:func:`ops.pcps.pcps_search_assisted`).
+
 With ``use_cfar_algorithm=False`` every variant but QuickSync (which keeps
 the CFAR statistic, as the JAX engine does) takes the first-vs-second-peak
 ratio of its coarse grid (kernel K3c, in the grid form of the search); the
@@ -236,31 +242,67 @@ class PcpsAcquisitionEngine:
         Every other variant: the window [start, start + need) exactly, as
         the JAX engine's `acquire` on a slice; a device capture is sliced on
         the device (a view, no host round trip)."""
-        conf = self.conf
-        if conf.variant != "pcps":
-            return self._acquire_variant(x, int(start))
-        m = conf.max_dwells
-        need = self.n_samples_needed
+        start = int(start)
+        if self.conf.variant != "pcps":
+            return self._acquire_variant(x, start)
         if isinstance(x, torch.Tensor):
-            g = -(-need // 128) * 128
+            g = -(-self.n_samples_needed // 128) * 128
             w = len(x) // g
             if w < 2:
                 raise ValueError("device capture shorter than one "
                                  "acquisition window pair")
-            row = min(max(int(start) // g, 0), w - 2)
-            samplestamp = row * g
-            x_dwells = x[samplestamp:samplestamp + need].to(self.device)
-        else:
-            samplestamp = int(start)
-            x_dwells = self._window(x, samplestamp, need)
-        x_dwells = x_dwells.to(torch.complex64).reshape(m, self.fft_size)
+            start = min(max(start // g, 0), w - 2) * g
+        return self.acquire(x[start:], start)
+
+    def acquire(self, x, samplestamp: int = 0) -> AcqResults:
+        """Search every channel's grid over the first n_samples_needed
+        samples of `x` exactly (acquisition.py:acquire; no row rounding):
+        the acquisition-only resampler's decimated window, stamped
+        `samplestamp`."""
+        conf = self.conf
+        if conf.variant != "pcps":
+            return self._acquire_variant(x, 0, int(samplestamp))
+        x_dwells = self._window(x, 0, self.n_samples_needed).reshape(
+            conf.max_dwells, self.fft_size)
         buf = pcps.pcps_search_two_steps(
             x_dwells, self.code_fft_conj, self.dopplers, self._t,
             two_steps=bool(conf.make_two_steps),
             n_side=int(conf.num_doppler_bins_step2),
             step2=float(conf.doppler_step2),
             **self._statistic()).cpu().numpy()
-        return self._finish(buf, samplestamp)
+        return self._finish(buf, int(samplestamp))
+
+    def acquire_assisted(self, x, start: int, centers_hz,
+                         span_hz: float = 250.0,
+                         step_hz: float = 62.5) -> AcqResults:
+        """Doppler-assisted acquisition (acquisition.py:acquire_assisted):
+        each channel searches a +-span_hz grid step_hz apart around its own
+        predicted Doppler (the other band's lock scaled by the carrier
+        ratio) over the window x[start : start + need] exactly, one K3b
+        wipe on the [C, 2 n_side + 1] table, cuFFT and K3's peak.  The
+        table is formed in float64 and rounded to float32, the threshold
+        sized for the narrow grid's cells."""
+        conf = self.conf
+        m, n = conf.max_dwells, self.fft_size
+        x_dwells = self._window(x, int(start), m * n).reshape(m, n)
+        n_side = max(1, int(round(span_hz / step_hz)))
+        offsets = (np.arange(2 * n_side + 1) - n_side) * step_hz
+        dops = (np.asarray(centers_hz, np.float64)[:, None]
+                + offsets[None, :]).astype(np.float32)
+        buf = pcps.pcps_search_assisted(
+            x_dwells, self.code_fft_conj, upload(dops, self.device),
+            self._t).cpu().numpy()
+        thr = (pcps.cfar_threshold(conf.pfa, n * (2 * n_side + 1),
+                                   conf.max_dwells)
+               if conf.pfa > 0 else conf.threshold)
+        stat = buf[0].astype(np.float64)
+        delay = buf[2].astype(np.float64)
+        if conf.bit_transition_flag:
+            delay = np.mod(delay, self.n_coherent)
+        return AcqResults(
+            detected=stat > thr, test_stat=stat, delay_samples=delay,
+            doppler_hz=buf[1].astype(np.float64), threshold=thr,
+            samplestamp=int(start))
 
     def _statistic(self) -> dict:
         """The searches' statistic arguments: CFAR or first-vs-second."""
@@ -293,9 +335,14 @@ class PcpsAcquisitionEngine:
             raise ValueError(f"need {need} samples, got {len(seg)}")
         return seg.to(torch.complex64)
 
-    def _acquire_variant(self, x, start: int) -> AcqResults:
-        """The variants' searches on the window [start, start + need)."""
+    def _acquire_variant(self, x, start: int,
+                         samplestamp: int | None = None) -> AcqResults:
+        """The variants' searches on the window [start, start + need),
+        stamped `samplestamp` (default `start`)."""
         conf = self.conf
+        if samplestamp is not None:
+            res = self._acquire_variant(x, start)
+            return dataclasses.replace(res, samplestamp=int(samplestamp))
         m, n = conf.max_dwells, self.fft_size
         seg = self._window(x, start, self.n_samples_needed)
         if conf.variant == "tong":

@@ -7,7 +7,8 @@ src/core/receiver/gnss_block_factory.cc:639-1335): maps the
 `Role.implementation` strings and per-role keys of a GNSS-SDR conf file onto
 the port's engine confs.
 
-The port carries these four chains and a subset of their options.  A conf
+The port carries these four chains, each on its own RF channel and rate
+if the conf says so, and a subset of their options.  A conf
 key that selects something the port lacks is never read and dropped: it
 raises NotImplementedError naming the key, with the words "not ported".
 """
@@ -224,8 +225,16 @@ def pvt_conf_from_config(config: Configuration) -> PvtConf:
 def chains_from_config(config: Configuration) -> list:
     """The chains beyond GPS L1 C/A that Channels_<sig>.count configures,
     in the JAX factory's order: the Galileo E1-B data chain ("1B"), GPS L5I
-    ("L5") and Galileo E5a-I ("5X"), each on the one RF stream; every other
-    signal is refused."""
+    ("L5") and Galileo E5a-I ("5X"); every other signal is refused.
+
+    Multi-band keys: ``Channels_<sig>.RF_channel_ID`` selects the RF
+    channel whose stream the chain reads (gnss_flowgraph.cc:1018-1019),
+    ``SignalSource.sample_rate_rf<id>`` that RF channel's rate (default
+    internal_fs_sps), at which the chain is built.
+    ``GNSS-SDR.use_acquisition_resampler`` is read as the JAX factory reads
+    it: its decimation applies to a "1C" entry of the loop over the chains
+    beyond GPS L1 C/A, which never comes, so it changes nothing
+    (factory.py:346-352)."""
     fs = float(config.property("GNSS-SDR.internal_fs_sps", 2_000_000))
     for sig in _OTHER_SIGNALS:
         key = f"Channels_{sig}.count"
@@ -239,9 +248,11 @@ def chains_from_config(config: Configuration) -> list:
         n = config.property(f"Channels_{sig}.count", 0)
         if n <= 0:
             continue
-        # one RF stream: the multi-band front end is not ported
-        _refuse_unless(config, f"Channels_{sig}.RF_channel_ID", 0)
-        chain = builder(fs, n_channels=n)
+        rf_id = int(config.property(f"Channels_{sig}.RF_channel_ID", 0))
+        rf_fs = float(config.property(f"SignalSource.sample_rate_rf{rf_id}",
+                                      fs))
+        chain = builder(rf_fs, n_channels=n)
+        chain.rf_channel_id = rf_id
         if in_acq:
             chain.max_acq_channels = min(in_acq, n)
         chain.acq = _acq_from_config(config, sig, chain.acq)
@@ -265,7 +276,6 @@ def receiver_conf_from_config(config: Configuration) -> ReceiverConf:
     chains."""
     fs = float(config.property("GNSS-SDR.internal_fs_sps", 2_000_000))
     chains = chains_from_config(config)
-    _refuse_unless(config, "GNSS-SDR.use_acquisition_resampler", False)
     _refuse_unless(config, "PVT.enable_pvt_kf", False)
     _refuse_unless(config, "Observables.smoothing_factor", 0)
 
@@ -281,7 +291,11 @@ def receiver_conf_from_config(config: Configuration) -> ReceiverConf:
     interval_ms = config.property("Observables.observable_interval_ms", 20)
     obs = ObsConf(fs=fs, interval_ms=interval_ms)
     in_acq = config.property("Channels.in_acquisition", 0)
+    # multi-band: the per-RF-channel rates gathered from the chains
+    rf_fs = {c.rf_channel_id: float(c.trk.fs) for c in chains
+             if c.rf_channel_id != 0}
     return ReceiverConf(
+        rf_fs=rf_fs,
         pinned_channels=_pinned_channels(config, 0, n_1c),
         fs=fs, prns=tuple(range(1, 33)), max_channels=max(n_1c, 1),
         max_acq_channels=(min(in_acq, n_1c) if in_acq and n_1c

@@ -54,6 +54,7 @@ the per-epoch scan, so chunks can alternate between the two.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -297,9 +298,9 @@ def _launch_k1(args: tuple, close: tuple | None = None) -> None:
     given the next block's arguments, writes that block's prologue.  Counts
     every launch in ``block_correlate.launches``, the fused ones also in
     ``block_correlate_close.launches`` and those with a fold in
-    ``block_correlate_close.folds``; the fused pilot form's (a data
-    spectrum given) also in ``block_correlate_close.launches_pilot`` and
-    ``.folds_pilot``."""
+    ``block_correlate_close.folds`` (and in ``.fold_shapes`` by (C, E,
+    F)); the fused pilot form's (a data spectrum given) also in
+    ``block_correlate_close.launches_pilot`` and ``.folds_pilot``."""
     lib = _lib()
     pilot = args[2] is not None
     if close is None:
@@ -310,6 +311,9 @@ def _launch_k1(args: tuple, close: tuple | None = None) -> None:
                          "block_correlate_close")
         block_correlate_close.launches += 1
         block_correlate_close.folds += close[2] is not None
+        if close[2] is not None:
+            block_correlate_close.fold_shapes[args[10], args[11],
+                                              args[14]] += 1
         block_correlate_close.launches_pilot += pilot
         block_correlate_close.folds_pilot += pilot and close[2] is not None
     block_correlate.launches += 1
@@ -892,6 +896,7 @@ def _launch_prologue(args: _PrologueArgs, n_ch: int, stream: int) -> None:
                      "block_prologue")
     block_prologue.launches += 1
     block_prologue.launches_pilot += args.families == 2
+    block_prologue.shapes[n_ch, args.n_epochs, args.nfft] += 1
 
 
 def _launch_closure(args: _ClosureArgs, block: int, stream: int) -> None:
@@ -908,8 +913,8 @@ def block_prologue(conf: TrackingConf, e_block: int, codes_rep: torch.Tensor,
     `codes_rep` [2, C, F] (the pilot form) both families' replicas.
     Launches ``csrc/block_step.cu``'s block_prologue for CUDA tensors, runs
     :func:`_block_prologue_plain` for CPU tensors; counts its launches in
-    ``block_prologue.launches`` and the pilot form's also in
-    ``block_prologue.launches_pilot``."""
+    ``block_prologue.launches`` (and in ``.shapes`` by (C, E, F)) and the
+    pilot form's also in ``block_prologue.launches_pilot``."""
     if not check_kernel_device(codes_rep, "block_prologue"):
         return _block_prologue_plain(conf, e_block, codes_rep, taps, n_wins,
                                      st)
@@ -924,6 +929,7 @@ def block_prologue(conf: TrackingConf, e_block: int, codes_rep: torch.Tensor,
 
 block_prologue.launches = 0
 block_prologue.launches_pilot = 0
+block_prologue.shapes = collections.Counter()
 
 
 def block_closure(conf: TrackingConf, e_block: int, corr: torch.Tensor,
@@ -1025,6 +1031,7 @@ block_correlate_close.launches = 0
 block_correlate_close.folds = 0
 block_correlate_close.launches_pilot = 0
 block_correlate_close.folds_pilot = 0
+block_correlate_close.fold_shapes = collections.Counter()
 
 
 # ---- the chunk -------------------------------------------------------------

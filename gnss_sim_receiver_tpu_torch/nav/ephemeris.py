@@ -267,6 +267,48 @@ def words_to_galileo_ephemeris(prn: int, words: dict[int, dict]
     )
 
 
+def almanac_to_ephemeris(prn: int, fields: dict, week: int = 0
+                         ) -> GpsEphemeris:
+    """Reduced-precision GpsEphemeris from LNAV subframe 4/5 almanac
+    fields (IS-GPS-200 20.3.3.5.2.1: i = 0.3 semicircles + delta_i, no
+    harmonic corrections), good to ~1-2 km: what visible-satellite
+    prediction needs (control_thread.cc get_visible_sats)."""
+    return GpsEphemeris(
+        prn=int(prn), week=week,
+        toc=float(fields.get("toa", 0.0)), toe=float(fields.get("toa",
+                                                                0.0)),
+        af0=float(fields.get("af0", 0.0)), af1=float(fields.get("af1",
+                                                                0.0)),
+        af2=0.0, iodc=0, iode=0,
+        sqrt_a=float(fields.get("sqrt_a", 0.0)),
+        ecc=float(fields.get("ecc", 0.0)),
+        m0_sc=float(fields.get("m0", 0.0)),
+        delta_n_sc=0.0,
+        omega_sc=float(fields.get("omega", 0.0)),
+        omega0_sc=float(fields.get("omega0", 0.0)),
+        omega_dot_sc=float(fields.get("omega_dot", 0.0)),
+        i0_sc=0.3 + float(fields.get("delta_i", 0.0)),
+        idot_sc=0.0,
+        cuc=0.0, cus=0.0, crc=0.0, crs=0.0, cic=0.0, cis=0.0)
+
+
+def save_ephemerides(path, ephemerides: dict) -> None:
+    """Write decoded ephemerides as JSON for a warm or hot start (the
+    reference's gps_ephemeris.xml dumps, control_thread.cc:500-560)."""
+    import json
+    out = {str(prn): dataclasses.asdict(e) for prn, e in ephemerides.items()}
+    with open(path, "w") as fh:
+        json.dump(out, fh, indent=1)
+
+
+def load_ephemerides(path) -> dict:
+    """The ephemerides save_ephemerides wrote, keyed by PRN."""
+    import json
+    with open(path) as fh:
+        raw = json.load(fh)
+    return {int(prn): GpsEphemeris(**fields) for prn, fields in raw.items()}
+
+
 def make_sky_constellation(rx_lat_deg: float, rx_lon_deg: float,
                            toe: float, week: int = 2200,
                            offsets_deg=None) -> list[GpsEphemeris]:

@@ -831,16 +831,19 @@ def _wipe_lib():
 def pcps_peak(corr: torch.Tensor, n_dwells: int):
     """K3 peak kernel: [M, C, D, N] complex64 correlations -> (stat [C],
     doppler_idx [C] int32, delay_idx [C] int32): the CFAR statistic of
-    max_to_input_power_stat over the dwell-summed |corr|^2 grid."""
+    max_to_input_power_stat over the dwell-summed |corr|^2 grid.  Counted
+    in ``pcps_peak.launches`` and, by (M, C, D, N), ``pcps_peak.shapes``."""
     if not check_kernel_device(corr, "pcps_peak"):
         return _peak_plain(corr, n_dwells)
     rows = _row_pass(corr, n_dwells, "plain", 0, "pcps_peak")
     out = _stat(rows, corr.shape[-1], n_dwells)
     pcps_peak.launches += 1
+    pcps_peak.shapes[tuple(corr.shape)] += 1
     return out
 
 
 pcps_peak.launches = 0
+pcps_peak.shapes = collections.Counter()
 
 
 def _row_buffers(c, d, dev):
@@ -1211,13 +1214,15 @@ def pcps_search(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
 
 def _narrow_search(x_dwells, code_fft_conj, dops2, t):
     """One narrow per-channel grid (K3b wipe, cuFFT, K3 peak) over the
-    [C, D2] Doppler table -> (stat2 [C], the winning Doppler [C])."""
+    [C, D2] Doppler table -> (stat2 [C], the winning Doppler [C], the
+    winning delay index [C])."""
     m = x_dwells.shape[0]
     wiped = pcps_wipe(x_dwells, dops2, t)
     spec = torch.fft.fft(wiped, dim=-1)
     corr = torch.fft.ifft(spec * code_fft_conj[None, :, None, :], dim=-1)
-    stat2, dop2_idx, _ = pcps_peak(corr, m)
-    return stat2, torch.gather(dops2, 1, dop2_idx.long()[:, None])[:, 0]
+    stat2, dop2_idx, del_idx = pcps_peak(corr, m)
+    return (stat2, torch.gather(dops2, 1, dop2_idx.long()[:, None])[:, 0],
+            del_idx)
 
 
 def pcps_search_two_steps(x_dwells: torch.Tensor,
@@ -1241,9 +1246,23 @@ def pcps_search_two_steps(x_dwells: torch.Tensor,
         offs = ((torch.arange(2 * n_side + 1, device=dopplers.device)
                  - n_side) * float(np.float32(step2))).to(torch.float32)
         dops2 = (dop_hz[:, None] + offs[None, :]).contiguous()    # [C, D2]
-        stat2, dop_hz = _narrow_search(x_dwells, code_fft_conj, dops2, t)
+        stat2, dop_hz, _ = _narrow_search(x_dwells, code_fft_conj, dops2,
+                                          t)
     return torch.stack([stat.to(torch.float32), dop_hz.to(torch.float32),
                         del_idx.to(torch.float32), stat2.to(torch.float32)])
+
+
+def pcps_search_assisted(x_dwells: torch.Tensor,
+                         code_fft_conj: torch.Tensor,
+                         dops2: torch.Tensor,
+                         t: torch.Tensor) -> torch.Tensor:
+    """The Doppler-assisted search (acquisition.py:_narrow_grid_full): every
+    channel's own narrow grid, the [C, D2] table `dops2`, in one K3b wipe,
+    cuFFT and K3's peak, under the CFAR statistic.  Returns the packed
+    [3, C] float32 buffer (stat, doppler_hz, delay_idx)."""
+    stat, dop, del_idx = _narrow_search(x_dwells, code_fft_conj, dops2, t)
+    return torch.stack([stat.to(torch.float32), dop.to(torch.float32),
+                        del_idx.to(torch.float32)])
 
 
 def dual_correlations(x_dwells: torch.Tensor, code_fft_conj: torch.Tensor,
@@ -1525,7 +1544,7 @@ def pcps_search_fine_doppler(x_dwells: torch.Tensor,
                 - 4) * step
         dops2 = (dop.to(torch.float64)[:, None] + offs[None, :]).to(
             torch.float32).contiguous()
-        stat2, dop = _narrow_search(x_dwells, code_fft_conj, dops2, t)
+        stat2, dop, _ = _narrow_search(x_dwells, code_fft_conj, dops2, t)
         step /= 4.0
     return torch.stack([stat.to(torch.float32), dop.to(torch.float32),
                         del_idx.to(torch.float32), stat2.to(torch.float32)])

@@ -15,6 +15,8 @@ prompt column, K8b's sync) run against the JAX block scan
   directed FLL (the chain's) and with the four-quadrant one, which takes
   the two-quadrant form until the sync (the JAX body's secondary branch);
 - its packed-decim entry, byte layout and contents;
+- the sync threshold: a planted sign history one and two signs off, block
+  by block, syncs at the same blocks as JAX;
 - the receiver: tests/test_track_pilot.py's scenario (one satellite, 4 Msps,
   16 s) through both packages at extend 1.
 
@@ -197,6 +199,64 @@ def test_block_pilot_packed_decim_matches_jax(scenario):
         c["pconf"], N_BLOCKS, E, decim, *_port_args(c),
         **_pilot_kw(c, False))
     _compare_packed(np.asarray(bj), bp, N_BLOCKS * E, len(PRNS), decim)
+
+
+# channel -> the history epochs (before the arm) whose planted CS25 sign is
+# wrong, and the block at which the sync must then hit: one wrong sign keeps
+# the best match at n_sec - 2 until it leaves the last n_sec epochs
+SYNC_WRONG = {0: (-10,), 1: (-20, -15)}
+SYNC_BLOCK = {0: 3, 1: 2}
+
+
+def planted_history(off, pol, sec, wrong):
+    """[C, N_SEC_MAX] sign histories: the 20 epochs before the arm carry
+    the CS25 chips at each channel's offset and polarity (where the chunk
+    syncs unplanted), with the `wrong` epochs' signs flipped."""
+    n = len(sec)
+    k = np.arange(-20, 0)
+    hist = np.zeros((len(off), ptrk.N_SEC_MAX), np.float32)
+    for ch in range(len(off)):
+        hist[ch, -20:] = pol[ch] * sec[(k + off[ch]) % n]
+        for w in wrong.get(ch, ()):
+            hist[ch, w] *= -1.0
+    return hist
+
+
+def test_block_pilot_sync_threshold_matches_jax(scenario):
+    """The block's CS25 sync hits when the best cyclic match reaches n_sec
+    (25).  A planted sign history, right but for one sign on channel 0 and
+    two on channel 1, holds the match at 23 and 21 for the first blocks:
+    JAX syncs channel 0 at block 3 and channel 1 at block 2 (unplanted: 4),
+    block by block; the port's plain form syncs at the same blocks with the
+    same offset and polarity (a threshold of n_sec - 2 would sync them at
+    blocks 0 and 1)."""
+    c = scenario
+    sp, _ = ptb.track_chunk_blocks(c["pconf"], 5, E, *_port_args(c),
+                                   **_pilot_kw(c, False))
+    assert bool(sp.sec_synced.all())
+    off, pol = sp.sec_off.numpy(), sp.sec_polarity.numpy()
+    hist = planted_history(off, pol, c["sec"], SYNC_WRONG)
+    rep_j, taps_j, x_j, jst = _jax_args(c)
+    rep_p, taps_p, x_p, pst = _port_args(c)
+    jst = jst._replace(sec_buf=jnp.asarray(hist))
+    pst = pst._replace(sec_buf=torch.from_numpy(hist))
+    first = {"jax": {}, "port": {}}
+    for b in range(5):
+        jst, _ = jtb.track_chunk_blocks(c["jconf"], 1, E, rep_j, taps_j, x_j,
+                                        jst, **_pilot_kw(c, True))
+        pst, _ = ptb.track_chunk_blocks(c["pconf"], 1, E, rep_p, taps_p, x_p,
+                                        pst, **_pilot_kw(c, False))
+        for name, st in (("jax", jst), ("port", pst)):
+            d = interop.track_state_to_numpy(st) if name == "port" else {
+                k: np.asarray(getattr(st, k))
+                for k in ("sec_synced", "sec_off", "sec_polarity")}
+            for ch in np.flatnonzero(d["sec_synced"]):
+                first[name].setdefault(int(ch), (b, int(d["sec_off"][ch]),
+                                                 float(d["sec_polarity"][ch])))
+    assert first["port"] == first["jax"]
+    assert {ch: v[0] for ch, v in first["jax"].items()} == SYNC_BLOCK
+    assert all(first["jax"][ch][1:] == (int(off[ch]), float(pol[ch]))
+               for ch in SYNC_BLOCK)
 
 
 def test_block_pilot_refuses_half_a_pilot_on_the_card():

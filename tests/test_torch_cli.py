@@ -193,19 +193,30 @@ PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                "GNSS-SDR.pre_2009_file=true": ("pre_2009_file", True),
                "PVT.enable_rx_clock_propagation=true":
                ("enable_rx_clock_propagation", True),
-               "PVT.share_rx_clock_bias=true": ("share_rx_clock_bias", True)}
+               "PVT.share_rx_clock_bias=true": ("share_rx_clock_bias", True),
+               # the multi-band front end: a chain's RF channel, and the
+               # acquisition resampler key, which sets no field in either
+               # package (the JAX factory applies it to no chain)
+               "Channels_1B.RF_channel_ID=1": ("rf_channel_id", 1),
+               "GNSS-SDR.use_acquisition_resampler=true": None}
 
 
 def _check_ported_key(path, line):
     """The conf at `path` builds, in both packages, the same configuration,
-    the key's value in its field: the ReceiverConf's, else its chain's
-    AcqConf's."""
+    the key's value in its field: the ReceiverConf's, else its chain's, else
+    its chain's AcqConf's.  A key that sets no field (None) is checked by
+    the equality alone."""
     ref = jfactory.receiver_conf_from_config(JaxFileConfiguration(path))
     got = factory.receiver_conf_from_config(FileConfiguration(path))
     assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    if PORTED_KEYS[line] is None:
+        return
     field, value = PORTED_KEYS[line]
     if hasattr(got, field):
         assert getattr(got, field) == value
+        return
+    if "_1C." not in line and hasattr(got.chains[0], field):
+        assert getattr(got.chains[0], field) == value
         return
     acq = got.acq if "_1C." in line else got.chains[0].acq
     assert getattr(acq, field) == value

@@ -197,12 +197,17 @@ def test_factory_strings_like_jax(impl, window, variant, bins):
      "Channels_5X.RF_channel_ID"),
 ])
 def test_wideband_refusals(props, key):
-    """A wideband chain beside another band of its own system (the JAX
-    receiver's Doppler-assisted secondary-band gate) and a second RF
-    channel are refused as not ported."""
-    with pytest.raises(NotImplementedError, match="not ported") as err:
-        receiver_conf_from_config(InMemoryConfiguration(props))
+    """The confs these cases once refused (a wideband chain beside another
+    band of its own system, where the Doppler-assisted secondary-band gate
+    acts, and a second RF channel) now build the JAX factory's
+    configuration: the gated chain keeps assist_wait, the RF channel and
+    its rate (internal_fs_sps, no sample_rate_rf1) reach the chain and
+    ReceiverConf.rf_fs."""
+    got = receiver_conf_from_config(InMemoryConfiguration(props))
+    ref = jconf_from(JConfig(props))
+    assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    chain = {c.signal: c for c in got.chains}[key.split("_")[1][:2]]
     if "RF" in key:
-        assert key in str(err.value)
+        assert chain.rf_channel_id == 1 and got.rf_fs == {1: 2_000_000.0}
     else:
-        assert key.split("_")[1] in str(err.value)
+        assert chain.assist_wait and len(got.all_chains()) == 2

@@ -2,12 +2,14 @@
 CPU, and its state carries across intact.
 
 - no file of gnss_sim_receiver_tpu_torch/ nor chip_smoke.py imports jax or
-  gnss_sim_receiver_tpu (an AST scan), models/hybrid.py, the port's copy
-  of a NumPy-only JAX module, among them;
+  gnss_sim_receiver_tpu (an AST scan), models/hybrid.py and
+  monitor/tcp_cmd.py, the port's copies of JAX modules free of jax, among
+  them;
 - the port acquires and tracks (GPS L1 C/A, and Galileo E1-B with the
   sign-recovery acquisition and 5 taps), builds the wideband chains and
-  acquires E5a with the I/Q search, in a process where both names cannot
-  be imported, and opens no file of the JAX package: its Galileo code
+  acquires E5a with the I/Q search, runs a streaming session and drives
+  it over the TCP server, in a process where both names cannot be
+  imported, and opens no file of the JAX package: its Galileo code
   tables are its own package data, shipped by pyproject.toml;
 - the entry points raise without a card unless device="cpu" is passed;
 - chip_smoke.py fails, printing no result line, without a card and in a
@@ -128,6 +130,29 @@ y = SignalConditioner(conf, fs_in=fs, device="cpu").process(x)
 assert y.shape == (22500,) and bool(torch.isfinite(y.abs()).all())
 assert receiver_conf_from_config(conf).acq.make_two_steps
 assert cli.unported_key(conf) is None
+# the live session: a streaming session fed in pieces, then driven over the
+# TCP telecommand server
+import socket
+from gnss_sim_receiver_tpu_torch.models.receiver import (Receiver,
+                                                         ReceiverConf)
+from gnss_sim_receiver_tpu_torch.monitor.tcp_cmd import TcpCmdServer
+xs = generate_baseband([sat], 2e6, 400000, noise=True, seed=3)
+ss = Receiver(ReceiverConf(fs=2e6, prns=(7, 8), max_channels=2,
+                           chunk_epochs=50), device="cpu").start_session()
+for k in range(0, len(xs), 100000):
+    ss.feed(xs[k:k + 100000])
+ss.run_to_end()
+run = ss.result()
+assert run.channel_prns[0] == 7 and run.channel_states[0].name == "TRACKING"
+srv = TcpCmdServer(ss)
+with socket.create_connection(("127.0.0.1", srv.port), timeout=5) as sk:
+    fh = sk.makefile("rw", newline="\n")
+    fh.write("status\nstandby\nexit\n")
+    fh.flush()
+    assert fh.readline().startswith("running ch0=GPS:7:TRACKING")
+    assert fh.readline().strip() == "OK standby"
+srv.close()
+assert ss._standby
 # the hybrid slice: the E1 chain from a conf, its code tables (the port's
 # own package data), the sign-recovery acquisition, 5-tap tracking and
 # the I/NAV decoder, with every file open watched
@@ -239,6 +264,19 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
 """
+
+
+def test_monitor_is_the_ports_own():
+    """monitor/tcp_cmd.py, the port's copy of the JAX package's NumPy-free
+    TCP server, is scanned with the rest and imports neither jax nor the
+    JAX package; so is the receiver module that serves its commands."""
+    pkg = ROOT / "gnss_sim_receiver_tpu_torch"
+    for path in (pkg / "monitor" / "tcp_cmd.py",
+                 pkg / "monitor" / "__init__.py",
+                 pkg / "models" / "receiver.py"):
+        assert path in _port_files()
+        roots = set(_imported_roots(path))
+        assert not roots & set(FORBIDDEN), (path, roots)
 
 
 def test_port_runs_with_jax_blocked():
