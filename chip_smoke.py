@@ -201,7 +201,21 @@ Phases (any failure exits non-zero, before the result line):
    real-time factor printed beside phase 4's; then a warm-started
    session under the TCP telecommand server on 127.0.0.1: status,
    standby (2 s dropped, no fix), hotstart (a refix), coldstart (the
-   ephemerides cleared).
+   ephemerides cleared);
+13. the Kalman trackers and the full planes on phase 4's capture and
+   conf: the KF (``Tracking_1C.implementation=GPS_L1_CA_KF_Tracking``)
+   through the CLI, its real-time factor printed; the gaussian mode on
+   the conditioned capture through a Receiver session, every tracking
+   channel's posterior count above 50; ``collect_track_outputs=True`` in
+   dll_pll mode and with ``Tracking_1C.order=2``: the 13 planes [T, C],
+   the sample counters, each tracking channel's ``.mat`` dump read back
+   equal.  Each is held to phase 4's tracked set, fixes and position
+   error, its every chunk on the chunk kernel's form and none on the
+   block kernels (phase 3 holds the KF, gaussian and second-order forms
+   of K9 and of the chunk kernel, ``K9_epoch_chunk_kf``, ``_gaussian``
+   and ``_pll2``, to the plain closure and the two-launch chunk at GPS
+   2 Msps, C = 8, from edge states with a singular innovation matrix and
+   the posterior's floors).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -1323,7 +1337,7 @@ def epoch_corr(rng, c: int, taps, data: bool, dev):
     return torch.from_numpy(z.astype(np.complex64)).to(dev)
 
 
-def epoch_state(rng, conf, c: int, sign, dev):
+def epoch_state(rng, conf, c: int, sign, dev, kalman_edges: bool = True):
     """A TrackState of C >= 6 channels on the per-epoch closure's edges,
     every other field spread over the range its paths give it (consistent
     C/N0 sums, ext sums of ext_n prompts).  `sign` [C]: the sign of each
@@ -1332,7 +1346,12 @@ def epoch_state(rng, conf, c: int, sign, dev):
     transition short of dominance (GPS); 1: synced (pilot polarity -1), a
     coherent group that closes; 2: a group that restarts at its boundary,
     on the C/N0 window's last epoch; 3: a lock loss on that epoch; 4:
-    inactive; 5: in the FLL pull-in."""
+    inactive; 5: in the FLL pull-in.  A Kalman conf's (kf, gaussian)
+    covariances are random positive definite ones, its Doppler rates and
+    posteriors spread; with `kalman_edges` (C >= 8) channel 6's covariance
+    makes the innovation matrix S singular (its determinant floored at
+    1e-20) and channel 7's posterior has nu < 3 and scale sums under the
+    floors of R (the gaussian mode's floors)."""
     from gnss_sim_receiver_tpu_torch import interop
     from gnss_sim_receiver_tpu_torch.models import tracking as trk
     st = interop.track_state_to_numpy(trk._init_state(c, "cpu"))
@@ -1405,7 +1424,42 @@ def epoch_state(rng, conf, c: int, sign, dev):
         st["sec_buf"][0, :n] = pol0 * sec[(np.arange(n) + off0) % n]
         st["sec_off"][1] = (3 - epoch[1]) % n
         st["sec_off"][2] = (-epoch[2]) % n
+    if conf.kalman:
+        scale = np.sqrt([1e-2, 1e-2, 30.0, 3.0])
+        m = rng.standard_normal((c, 4, 4)) * scale[None, :, None]
+        st["kf_p"] = f(m @ m.transpose(0, 2, 1) / 4.0
+                       + np.diag([1e-4, 1e-5, 1.0, 0.1])[None])
+        st["kf_fdot"] = f(rng.uniform(-5.0, 5.0, c))
+        nu = rng.uniform(30.0, 200.0, c)
+        st["bayes_nu"] = f(nu)
+        st["bayes_psi_code"] = f(nu * rng.uniform(1e-3, 1e-2, c))
+        st["bayes_psi_carr"] = f(nu * rng.uniform(1e-4, 1e-3, c))
+        if kalman_edges:
+            # P[:2, :2] not positive definite: S's determinant < 0
+            st["kf_p"][6] = f(np.diag([0.05, 0.05, 100.0, 10.0]))
+            st["kf_p"][6, 0, 1] = st["kf_p"][6, 1, 0] = 0.2
+            st["bayes_nu"][7] = 2.5
+            st["bayes_psi_code"][7] = 1e-7
+            st["bayes_psi_carr"][7] = 1e-8
     return interop.track_state_from_numpy(st, dev)
+
+
+def state_bytes(conf) -> int:
+    """Bytes of one channel's state that the closure moves each way: the
+    Kalman trackers' fields in their modes only."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    return sum(torch.empty(0, dtype=dt).element_size() * trk._WIDE.get(f, 1)
+               for f, dt in trk._EPOCH_STATE_FIELDS
+               if conf.kalman or f not in trk._KALMAN_FIELDS)
+
+
+def closure_ops(conf) -> int:
+    """The closure's operations per channel: ~300, the n_sec x n_sec shift
+    correlation, and in the Kalman modes the 4x4 products F P F^T and
+    (I - K H) P' (3 x 64 products, 3 x 48 sums) and the gain (~50)."""
+    n_sec = len(conf.secondary_code)
+    return 300 + 2 * n_sec * n_sec + (386 if conf.kalman else 0)
 
 
 def check_k9(dev, rng, conf, c: int, name: str, label: str):
@@ -1465,9 +1519,26 @@ def check_k9(dev, rng, conf, c: int, name: str, label: str):
         edges["secondary hit"] = bool(gp["sec_synced"][0])
     elif k_ext > 1:
         edges["bit sync"] = bool(gp["bit_synced"][0])
-    if k_ext > 1:
+    if k_ext > 1 and not conf.kalman:
         edges["group closes"] = gp["ext_n"][1] == 0
         edges["group restarts"] = gp["ext_n"][2] == 1
+    if conf.kalman:
+        # S = P'[:2, :2] + R of channel 6, from the plain prediction
+        pred = trk._kf_predict(conf, st.kf_p, n_c.to(torch.float32)
+                               / np.float32(conf.fs)).cpu().numpy()[6]
+        r = (conf.kf_r_code_chips2, conf.kf_r_phase_cyc2)
+        if conf.tracking_mode == "gaussian":
+            r = tuple(float(v[6]) for v in trk._bayes_r(st))
+        det = ((pred[0, 0] + r[0]) * (pred[1, 1] + r[1])
+               - pred[0, 1] * pred[0, 1])
+        edges["determinant floor"] = det <= 1e-20
+        edges["covariance updated"] = not np.array_equal(
+            gp["kf_p"][0], interop.track_state_to_numpy(st)["kf_p"][0])
+        if conf.tracking_mode == "gaussian":
+            nu7 = float(st.bayes_nu[7])
+            edges["posterior floors"] = (nu7 - 2.0 < 1.0 and all(
+                float(v[7]) in (np.float32(1e-5), np.float32(1e-6))
+                for v in trk._bayes_r(st)))
     missed = [e for e, ok in edges.items() if not ok]
     if missed:
         fail(f"{name} ({label}): edges not reached: {missed}")
@@ -1476,7 +1547,7 @@ def check_k9(dev, rng, conf, c: int, name: str, label: str):
              if not differ else f"{len(differ)} fields not identical, "
              f"worst {worst_ulp:g} ulp, within {err:.3e} (tolerance "
              f"{K9_RTOL:g} x max |plain|)"))
-    out = trk._empty_epoch_state(st)
+    out = trk._empty_epoch_state(st, conf.kalman)
     nc_t = n_c.clone()
     args = trk._epoch_args(conf, corr, nc_t, trk._sec_device(conf, dev), st,
                            out, planes)
@@ -1485,28 +1556,33 @@ def check_k9(dev, rng, conf, c: int, name: str, label: str):
     plain = time_ms(lambda: trk._epoch_closure_plain(conf, st, corr[:, :k],
                                                      dcol, n_c))
     # reads and writes the state fields, reads the correlations, reads and
-    # writes n_c, writes one row of the 13 planes; per channel ~300
-    # operations plus the n_sec x n_sec shift correlation
-    st_bytes = c * sum(torch.empty(0, dtype=dt).element_size()
-                       * trk._WIDE.get(f, 1)
-                       for f, dt in trk._EPOCH_STATE_FIELDS)
+    # writes n_c, writes one row of the 13 planes; per channel the
+    # closure's operations (closure_ops)
+    st_bytes = c * state_bytes(conf)
     row_bytes = c * (2 * 8 + 8 * 4 + 2 * 4 + 1)
     n_bytes = 2 * st_bytes + corr.numel() * 8 + 2 * c * 4 + row_bytes
     n_sec = len(conf.secondary_code)
-    n_ops = c * (300 + 2 * n_sec * n_sec)
+    n_ops = c * closure_ops(conf)
     return _row(name, "cuda", "gnss_sim_receiver_tpu_torch/csrc/epoch_step.cu",
                 "gnss_sim_receiver_tpu/models/tracking.py:376", err, ms, plain,
                 n_bytes, n_ops,
                 f"{label}: C={c} channels, K={k} taps"
                 + (" + data tap" if data else "")
                 + (f", secondary {n_sec}" if n_sec else "")
-                + f", k_ext={k_ext}")
+                + f", k_ext={k_ext}" + form_label(conf))
+
+
+def form_label(conf) -> str:
+    """The closure form of a shape's label, but the third-order loops'."""
+    if conf.kalman:
+        return f", {conf.tracking_mode}"
+    return ", second-order PLL" if conf.pll_filter_order != 3 else ""
 
 
 CHUNK_CHECK_EPOCHS = 50
 
 
-def chunk_bytes(x, st0, st1, codes, data, planes) -> float:
+def chunk_bytes(x, st0, st1, codes, data, planes, conf) -> float:
     """The bytes one chunk must move: the samples of `x` that its channels
     read (the union of each channel's window, from its position in `st0`
     to its position in `st1`), each code table once (they stay in L2),
@@ -1522,9 +1598,7 @@ def chunk_bytes(x, st0, st1, codes, data, planes) -> float:
         if b > a:
             n_samp += b - a
             end = b
-    st_bytes = codes.shape[0] * sum(
-        torch.empty(0, dtype=dt).element_size() * trk._WIDE.get(f, 1)
-        for f, dt in trk._EPOCH_STATE_FIELDS)
+    st_bytes = codes.shape[0] * state_bytes(conf)
     return float(n_samp * x.element_size()
                  + sum(t.numel() * t.element_size() for t in
                        (codes, *(() if data is None else (data,))))
@@ -1556,7 +1630,10 @@ def check_epoch_chunk_bits(dev, rng, conf, c: int, name: str, label: str,
                                  device=dev)
     codes, taps, dcodes = eng.codes, eng.taps, eng.data_codes
     k = taps.shape[0]
-    st = epoch_state(rng, conf, c, rng.choice([-1.0, 1.0], c), dev)
+    # (a Kalman conf's covariances all positive definite: a singular S would
+    # send the channel's loops off over the epochs)
+    st = epoch_state(rng, conf, c, rng.choice([-1.0, 1.0], c), dev,
+                     kalman_edges=False)
     x = _cnoise(rng, (1 << 20) + (path_epochs + 2) * conf.block_size, dev)
     args = (conf, t, codes, taps, x, st, dcodes)
     trk.epoch_chunk(*args)                       # builds, plans
@@ -1571,7 +1648,7 @@ def check_epoch_chunk_bits(dev, rng, conf, c: int, name: str, label: str,
                  f"two-launch chunk in {diff}")
     data, _, _, k2 = trk._chunk_inputs(conf, codes, taps, dcodes)
     n_out = k + int(data is not None)
-    plan = trk._chunk_plan(c, k2, n_out)
+    plan = trk._chunk_plan(c, k2, n_out, trk.epoch_form(conf))
     print(f"  {name} ({label}): {t} epochs, planes and final state bit for "
           "bit those of the two-launch chunk (K2 then K9 per epoch); two "
           f"launches bit-identical; S={k2.slabs} slabs on clusters of "
@@ -1612,16 +1689,16 @@ def check_epoch_chunk_bits(dev, rng, conf, c: int, name: str, label: str,
           f"{h_two:.4f} ms; plain loop {plain_ms / t:.3f} ms per epoch")
     # per epoch K2's operations (check_k2) and K9's (check_k9)
     n_samp = float(trk._epoch_length(conf, st).sum())
-    n_sec = len(conf.secondary_code)
-    n_ops = n_samp * (14 + n_out * 7) + c * (300 + 2 * n_sec * n_sec)
-    n_bytes = chunk_bytes(x, st, runs[0][0], codes, data, runs[0][1])
+    n_ops = n_samp * (14 + n_out * 7) + c * closure_ops(conf)
+    n_bytes = chunk_bytes(x, st, runs[0][0], codes, data, runs[0][1],
+                          conf)
     row = _row(name, "cuda", "gnss_sim_receiver_tpu_torch/csrc/epoch_chunk.cu",
                "gnss_sim_receiver_tpu/models/tracking.py:712", err, ms,
                plain_ms, n_bytes, t * n_ops,
                f"{label}: C={c} channels, K={k} taps"
                + (" + data tap" if data is not None else "")
                + f", k_ext={conf.extend_correlation_symbols}, T={t} epochs,"
-               f" S={k2.slabs} slabs, S'={plan.cluster}")
+               f" S={k2.slabs} slabs, S'={plan.cluster}" + form_label(conf))
     row["ms_per_epoch"] = ms / t
     row["ms_path_chunk"] = ms_path
     row["path_epochs"] = path_epochs
@@ -1680,7 +1757,7 @@ def check_epoch_chunk_waves(dev, rng):
                "gnss_sim_receiver_tpu_torch/csrc/epoch_chunk.cu",
                "gnss_sim_receiver_tpu/models/tracking.py:712", 0.0, ms,
                two_ms, chunk_bytes(x, st, runs[0][0], codes, None,
-                                   runs[0][1]), t * n_ops,
+                                   runs[0][1], conf), t * n_ops,
                f"GPS L1 C/A at 2 Msps: C={c} channels, K={k} taps, T={t} "
                f"epochs, S={k2.slabs}, S'={plan.cluster}, {plan.waves} waves "
                f"({resident} clusters resident); plain_ms: the two-launch "
@@ -6047,6 +6124,196 @@ def multiband_path(wrappers, card: str) -> dict:
     return launches
 
 
+# phase 13's forms: (TrackingConf keys, row suffix, label)
+KALMAN_FORMS = (({"tracking_mode": "kf"}, "_kf", "KF"),
+                ({"tracking_mode": "gaussian"}, "_gaussian", "gaussian"),
+                ({"pll_filter_order": 2}, "_pll2", "second-order PLL"))
+TRACK_OUTPUT_KEYS = ("prompt", "valid", "carrier_doppler_hz",
+                     "acc_phase_cycles", "code_phase_samples", "cn0_db_hz",
+                     "early_mag", "late_mag", "code_freq_cps",
+                     "rem_code_phase_chips", "pos_start", "n_samples",
+                     "sample_counter")
+
+
+def epoch_path_launches(wrappers, form, receiver_s: float) -> dict:
+    """The launches of a per-epoch path whose every chunk ran the closure
+    form `form` (a wrapper name, or None for the third-order loops): the
+    chunk kernel and acquisition launched, no block kernel, no standalone
+    K2, K9 or K8b, and every chunk launch counted under the form."""
+    launches = read_launches(wrappers, EPOCH_KERNELS + ACQUISITION_KERNELS)
+    check_epoch_launches(launches, None, receiver_s)
+    forms = ("K9_epoch_chunk_kf", "K9_epoch_chunk_gaussian",
+             "K9_epoch_chunk_pll2")
+    for name in forms:
+        want = launches["K9_epoch_chunk"] if name == form else 0
+        if launches[name] != want:
+            fail(f"{name}: {launches[name]} launches, {want} expected")
+    return launches
+
+
+def check_track_outputs(session, run, root: str, label: str) -> None:
+    """collect_track_outputs: all 13 planes [T, C], T the epochs of every
+    chunk the session dispatched; on each tracking channel's last run of
+    valid epochs the sample counter rises by each epoch's length; each
+    tracking channel's dump_tracking_mat written under build/ and read back
+    equal to its planes."""
+    from gnss_sim_receiver_tpu_torch.models import dumps
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    outs = run.track_outputs
+    (rt,) = session.chains
+    t, c = rt.trk.epochs_dispatched, rt.spec.n_channels
+    if outs is None or sorted(outs) != sorted(TRACK_OUTPUT_KEYS):
+        fail(f"{label}: track_outputs keys "
+             f"{None if outs is None else sorted(outs)}")
+    shapes = {k: v.shape for k, v in outs.items()}
+    if any(v != (t, c) for v in shapes.values()):
+        fail(f"{label}: plane shapes {shapes}, expected {(t, c)}")
+    tracking = [ch for ch, st in enumerate(run.channel_states)
+                if st == ChannelState.TRACKING]
+    sc, n_s, valid = (outs[k] for k in ("sample_counter", "n_samples",
+                                        "valid"))
+    runs = []
+    for ch in tracking:
+        bad = np.flatnonzero(~valid[:, ch])
+        first = int(bad[-1]) + 1 if bad.size else 0
+        steps = np.diff(sc[first:, ch])
+        if len(steps) < 500 or not np.array_equal(steps,
+                                                   n_s[first + 1:, ch]):
+            fail(f"{label}: channel {ch}'s sample counter over its last "
+                 f"{len(steps) + 1} valid epochs does not rise by the epoch "
+                 "lengths")
+        runs.append(len(steps) + 1)
+    d = os.path.join(root, "build", "phase13_dumps")
+    os.makedirs(d, exist_ok=True)
+    for ch in tracking:
+        path = os.path.join(d, f"trk_ch{ch}.mat")
+        dumps.dump_tracking_mat(path, outs, channel=ch)
+        m = dumps.load_mat(path)
+        want = {"Prompt_I": outs["prompt"][:, ch].real,
+                "Prompt_Q": outs["prompt"][:, ch].imag,
+                "abs_E": outs["early_mag"][:, ch],
+                "abs_L": outs["late_mag"][:, ch],
+                "PRN_start_sample_count": outs["sample_counter"][:, ch],
+                "carrier_doppler_hz": outs["carrier_doppler_hz"][:, ch],
+                "code_freq_chips": outs["code_freq_cps"][:, ch],
+                "rem_code_phase_sample": outs["code_phase_samples"][:, ch],
+                "CN0_SNV_dB_Hz": outs["cn0_db_hz"][:, ch]}
+        for k, v in want.items():
+            if not np.array_equal(m[k].ravel(), np.asarray(v).astype(
+                    m[k].dtype)):
+                fail(f"{label}: {path}: {k} read back differs")
+    print(f"  {label}: track_outputs {len(outs)} planes of [{t}, {c}]; "
+          f"tracking channels {tracking}: the sample counter rises by the "
+          f"epoch length over their last {runs} valid epochs; {len(tracking)}"
+          f" tracking dumps written to {d} and read back equal")
+
+
+def kalman_path(root: str, wrappers, card: str) -> dict:
+    """Phase 13 on phase 4's capture and conf: (a) the KF
+    (Tracking_1C.implementation=GPS_L1_CA_KF_Tracking) through the CLI,
+    every chunk on the chunk kernel's KF form, the real-time factor
+    printed; (b) the gaussian mode on the conditioned capture through
+    Receiver.process_array's session, every tracking channel's
+    posterior count above 50 at the end; (c) collect_track_outputs in
+    dll_pll mode: no block launch, the planes and dumps of
+    check_track_outputs; (d) (c) with Tracking_1C.order=2, the
+    second-order PLL on every chunk.  Each is held to phase 4's tracked set,
+    fixes and position error, with its counters set to 0 just before it
+    and read just after."""
+    import dataclasses
+    import torch
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    from gnss_sim_receiver_tpu_torch.models.conditioner import \
+        SignalConditioner
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
+    from gnss_sim_receiver_tpu_torch.utils.config import FileConfiguration
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import read_samples
+    capture = capture_paths(root)["file"]
+    text = CONF.format(capture=capture)
+    kf_conf = os.path.join(root, "build", "chip_smoke_rx_kf.conf")
+    with open(kf_conf, "w") as fh:
+        fh.write(text.replace("GPS_L1_CA_DLL_PLL_Tracking",
+                              "GPS_L1_CA_KF_Tracking"))
+    pll2_conf = os.path.join(root, "build", "chip_smoke_rx_pll2.conf")
+    with open(pll2_conf, "w") as fh:
+        fh.write(text + "Tracking_1C.order=2\n")
+    print("  (a) the KF through the CLI", flush=True)
+    reset(wrappers)
+    torch.cuda.synchronize()
+    res = run_cli([f"--config_file={kf_conf}"])
+    torch.cuda.synchronize()
+    launches = epoch_path_launches(wrappers, "K9_epoch_chunk_kf",
+                                   res.seconds["receiver"])
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    check_run(res.run, min_fixes=5)
+    sec = res.seconds
+    wall = sum(sec.values())
+    ep = launches["K9_epoch_chunk_epochs"]
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f} "
+          f"({1e3 * sec['receiver'] / ep:.4f} ms per epoch, {ep} epochs in "
+          f"{launches['K9_epoch_chunk']} chunks); wall {wall:.3f} s for "
+          f"{DUR:.0f} s of signal: real-time factor {DUR / wall:.3f} ({card})")
+    out = {"K9_epoch_chunk_kf": launches["K9_epoch_chunk_kf"]}
+
+    config = FileConfiguration(os.path.join(root, "build",
+                                            "chip_smoke_rx.conf"))
+    y = SignalConditioner(config, fs_in=FS_FILE).process(
+        read_samples(capture, "ishort"))
+    torch.cuda.synchronize()
+    base = receiver_conf_from_config(config)
+
+    def session_run(conf, collect: bool, form, label: str):
+        reset(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session = Receiver(conf).start_session(collect_track_outputs=collect)
+        session.attach_array(y)
+        session.run_to_end()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = epoch_path_launches(wrappers, form, wall)
+        run = session.result()
+        check_run(run, min_fixes=5)
+        print(f"  {label}: receiver {wall:.3f} s for {DUR:.0f} s of signal: "
+              f"real-time factor {DUR / wall:.3f} ({card})")
+        return session, run, launches
+
+    print("  (b) the gaussian mode through process_array's session",
+          flush=True)
+    gauss = dataclasses.replace(base, trk=dataclasses.replace(
+        base.trk, tracking_mode="gaussian"))
+    session, run, launches = session_run(gauss, False,
+                                         "K9_epoch_chunk_gaussian",
+                                         "gaussian")
+    out["K9_epoch_chunk_gaussian"] = launches["K9_epoch_chunk_gaussian"]
+    nu = session.chains[0].trk.state.bayes_nu.cpu().numpy()
+    tracking = [ch for ch, st in enumerate(run.channel_states)
+                if st == ChannelState.TRACKING]
+    print(f"  posterior counts bayes_nu of the tracking channels "
+          f"{tracking}: {nu[tracking].round(3).tolist()}")
+    if not (nu[tracking] > 50.0).all():
+        fail(f"bayes_nu {nu[tracking]} not above 50 on every tracking "
+             "channel")
+    print("  (c) collect_track_outputs (dll_pll)", flush=True)
+    session, run, _ = session_run(base, True, None, "collect_track_outputs")
+    check_track_outputs(session, run, root, "collect_track_outputs")
+    print("  (d) collect_track_outputs with Tracking_1C.order=2", flush=True)
+    pll2 = receiver_conf_from_config(FileConfiguration(pll2_conf))
+    if pll2.trk.pll_filter_order != 2:
+        fail(f"Tracking_1C.order=2 gave order {pll2.trk.pll_filter_order}")
+    session, run, launches = session_run(pll2, True, "K9_epoch_chunk_pll2",
+                                         "second-order PLL")
+    check_track_outputs(session, run, root, "second-order PLL")
+    out["K9_epoch_chunk_pll2"] = launches["K9_epoch_chunk_pll2"]
+    del y
+    return out
+
+
 def check_run_position(run, min_fixes: int) -> None:
     """check_run's position checks without its tracked set."""
     from gnss_sim_receiver_tpu_torch.utils import geodesy
@@ -6362,6 +6629,23 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                             1000))]
     extra.append(check_epoch_chunk_waves(dev, rng9))
     check_epoch_chunk_cluster_sizes(dev, np.random.default_rng(11))
+    # the closure's Kalman and second-order PLL forms at GPS 2 Msps (phase
+    # 13's shape), each alone, then in the chunk kernel (the second-order
+    # closure also at k_ext 20, its narrow form)
+    rng13 = np.random.default_rng(13)
+    for kw, suffix, lab in KALMAN_FORMS:
+        conf_ = trk.TrackingConf(fs=FS, **kw)
+        extra.append(check_k9(dev, rng13, conf_, 8,
+                              "K9_epoch_closure" + suffix,
+                              f"GPS L1 C/A at 2 Msps, {lab}"))
+        rows.append(check_epoch_chunk_bits(
+            dev, rng13, conf_, 8, "K9_epoch_chunk" + suffix,
+            f"GPS L1 C/A at 2 Msps, {lab}", 1000))
+    extra.append(check_k9(
+        dev, rng13, trk.TrackingConf(fs=FS, pll_filter_order=2,
+                                     extend_correlation_symbols=20), 8,
+        "K9_epoch_closure_pll2", "GPS L1 C/A at 2 Msps, second-order PLL, "
+        "k_ext 20"))
     torch.cuda.empty_cache()
     check_epoch_chunk(dev)
     torch.cuda.empty_cache()
@@ -6517,6 +6801,9 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         "K2_multicorrelate": (correlator.multicorrelate, "launches"),
         "K9_epoch_chunk": (trk.epoch_chunk, "launches"),
         "K9_epoch_chunk_epochs": (trk.epoch_chunk, "epochs"),
+        "K9_epoch_chunk_kf": (trk.epoch_chunk, "launches_kf"),
+        "K9_epoch_chunk_gaussian": (trk.epoch_chunk, "launches_gaussian"),
+        "K9_epoch_chunk_pll2": (trk.epoch_chunk, "launches_pll2"),
         "K3_pcps_wipe": (pcps.pcps_wipe, "launches"),
         "K3_pcps_peak": (pcps.pcps_peak, "launches"),
         "K3b_pcps_wipe_per_channel": (pcps.pcps_wipe,
@@ -6661,6 +6948,12 @@ def run_phases(root: str, card: str, procs: dict) -> int:
           "warm-started session under the TCP telecommand server: status, "
           "standby, hotstart, coldstart)", flush=True)
     live_path(root, wrappers, card, main_path.rtf)
+    torch.cuda.empty_cache()
+    print("== phase 13: the Kalman trackers and the full planes (phase 4's "
+          "capture: the KF through the CLI, the gaussian mode through "
+          "process_array, collect_track_outputs with the .mat dumps, the "
+          "second-order PLL)", flush=True)
+    launches.update(kalman_path(root, wrappers, card))
     # K6's launches: the captures of phases 5, 6, 7, 8, 10 and 11
     launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
                                        + k6_wb + pilot["K6_device_generator"]
@@ -6670,7 +6963,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         r["launches"] = launches[r["name"]]
 
     wipe_shapes = dict(pcps.pcps_wipe.shapes)
-    print(f"  the wipeoff's launches in phases 4 to 12 by (M, Doppler table, "
+    print(f"  the wipeoff's launches in phases 4 to 13 by (M, Doppler table, "
           f"N): {wipe_shapes}")
     missing = sorted({wipe_key(k) for k in wipe_shapes} - WIPE_CHECKED)
     if missing:

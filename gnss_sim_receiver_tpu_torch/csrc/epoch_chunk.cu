@@ -42,6 +42,12 @@
 //   after the chunk go out through it.  Inactive channels are correlated
 //   and masked by the closure, as in the two-launch loop.
 //
+// - the kernel is a template on the closure's form (csrc/epoch_step.cuh
+//   EpochForm), one instantiation each; the leader holds the Kalman
+//   trackers' state fields (covariance, Doppler rate, posterior) and
+//   their pointers in the Kalman forms only, so the DLL/PLL forms keep
+//   their shared memory (880 bytes of static shared memory on sm_90a).
+//
 // The barriers (barrier.cluster arrive.release / wait.acquire) order the
 // shared and distributed shared memory between the epochs; the planes and
 // dst are read only after the launch, so no fence is needed.  This file
@@ -75,16 +81,26 @@ constexpr int kMaxOut = kK2MaxTaps + 1;
 constexpr int kMaxCluster = 16;
 constexpr int kPortableCluster = 8;
 constexpr int kStateFields = sizeof(EpochStatePtrs) / sizeof(void*);
-static_assert(kStateFields == 37, "kFieldBytes lists every field");
+static_assert(kStateFields == 42, "kFieldBytes lists every field");
+// the fields before the Kalman trackers' five, which the DLL/PLL forms
+// neither read nor write
+constexpr int kLoopFields = 37;
 
 // bytes of one channel's entry of each EpochStatePtrs field, in its order
-// (a bool one byte, bit_hist 20 floats, sec_buf 32)
+// (a bool one byte, bit_hist 20 floats, sec_buf 32, kf_p 16)
 __constant__ uint8_t kFieldBytes[kStateFields] = {
     1, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 8, 4,   // active .. epoch
     4, 4, 4, 4, 4, 4, 4,                        // the C/N0 accumulators
     4, 4, 4, 1, 80, 4, 1, 4,                    // cn0_db_hz .. bit_phase
-    8, 8, 8, 4, 128, 1, 4, 4};                  // ext_p .. sec_polarity
-constexpr int kStateBytes = 35 * 8 + 80 + 128;  // in 8-byte slots
+    8, 8, 8, 4, 128, 1, 4, 4,                   // ext_p .. sec_polarity
+    64, 4, 4, 4, 4};                            // kf_p .. bayes_psi_carr
+// the fields a form holds, and their bytes in 8-byte slots
+template <int kForm>
+constexpr int kFormFields =
+    kForm == kFormKf || kForm == kFormGauss ? kStateFields : kLoopFields;
+template <int kForm>
+constexpr int kStateBytes =
+    35 * 8 + 80 + 128 + (kFormFields<kForm> == kLoopFields ? 0 : 64 + 4 * 8);
 
 // one epoch's NCO inputs of a channel, as the leader publishes them
 struct Inputs {
@@ -117,8 +133,10 @@ __device__ __forceinline__ void publish(Inputs& in, const EpochStatePtrs& st) {
   in.dop = st.carrier_doppler[0];
 }
 
+template <int kForm>
 __global__ void __launch_bounds__(kThreads)
 epoch_chunk_kernel(const __grid_constant__ EpochChunkArgs a) {
+  constexpr int kFields = kFormFields<kForm>;
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
   const unsigned n_cta = cluster.num_blocks();
@@ -131,16 +149,21 @@ epoch_chunk_kernel(const __grid_constant__ EpochChunkArgs a) {
   float* part = k2_stage + a.k2.stage_cap + a.k2.data_stage_cap;
   __shared__ Inputs in;                         // the leader's, published
   __shared__ __align__(8) float corr[2 * kMaxOut];
-  __shared__ EpochStatePtrs st;                 // slots of st_buf
-  __shared__ __align__(8) uint8_t st_buf[kStateBytes];
+  // the slots of st_buf, as the first kFields pointers of EpochStatePtrs
+  // (a DLL/PLL form holds none for the Kalman fields, which its closure
+  // never touches, so its shared memory is what it was before them)
+  __shared__ uint8_t* st_slots[kFields];
+  __shared__ __align__(8) uint8_t st_buf[kStateBytes<kForm>];
+  const EpochStatePtrs& st =
+      *reinterpret_cast<const EpochStatePtrs*>(st_slots);
 
   if (leader) {
-    if (tid < kStateFields) {
+    if (tid < kFields) {
       int off = 0;
       for (int i = 0; i < tid; ++i) off += (kFieldBytes[i] + 7) & ~7;
       const int nb = kFieldBytes[tid];
       uint8_t* slot = st_buf + off;
-      reinterpret_cast<uint8_t**>(&st)[tid] = slot;
+      st_slots[tid] = slot;
       const uint8_t* src = field(a.ep.src, tid) + (size_t)c * nb;
       for (int b = 0; b < nb; ++b) slot[b] = src[b];
     }
@@ -181,15 +204,15 @@ epoch_chunk_kernel(const __grid_constant__ EpochChunkArgs a) {
         corr[tid] = t;
       }
       __syncwarp();
-      epoch_close(a.ep, st, st, 0, c, reinterpret_cast<const float2*>(corr),
-                  &in.n_c, e);
+      epoch_close<kForm>(a.ep, st, st, 0, c,
+                         reinterpret_cast<const float2*>(corr), &in.n_c, e);
       if (tid == 0) publish(in, st);
     }
     cluster_sync(cluster, n_cta);
   }
 
   if (leader) {
-    if (tid < kStateFields) {
+    if (tid < kFields) {
       const int nb = kFieldBytes[tid];
       const uint8_t* slot = field(st, tid);
       uint8_t* dst = field(a.ep.dst, tid) + (size_t)c * nb;
@@ -216,26 +239,49 @@ cudaLaunchConfig_t launch_config(int cluster, int n_ch, int smem,
   return cfg;
 }
 
-// the dynamic shared memory a launch may take, and clusters past the
-// portable 8 CTAs; each set once, on the first launch or query that needs
-// it (so that a launch captured in a CUDA graph sets nothing)
+// the dynamic shared memory a launch of form kForm may take, and clusters
+// past the portable 8 CTAs; each set once per form, on the first launch or
+// query that needs it (so that a launch captured in a CUDA graph sets
+// nothing)
+template <int kForm>
 cudaError_t allow(int smem, int cluster) {
   static int smem_allowed = -1;
   static bool wide_allowed = false;
   cudaError_t err = cudaSuccess;
   if (smem > smem_allowed) {
-    err = cudaFuncSetAttribute(epoch_chunk_kernel,
+    err = cudaFuncSetAttribute(epoch_chunk_kernel<kForm>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err == cudaSuccess) smem_allowed = smem;
   }
   if (err == cudaSuccess && cluster > kPortableCluster && !wide_allowed) {
-    err = cudaFuncSetAttribute(epoch_chunk_kernel,
+    err = cudaFuncSetAttribute(epoch_chunk_kernel<kForm>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     wide_allowed = err == cudaSuccess;
   }
   return err;
+}
+
+template <int kForm>
+cudaError_t launch(const EpochChunkArgs& a, int cluster, int smem,
+                   cudaStream_t stream) {
+  cudaError_t err = allow<kForm>(smem, cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(cluster, a.ep.n_ch, smem,
+                                               stream, &attr);
+  return cudaLaunchKernelEx(&cfg, epoch_chunk_kernel<kForm>, a);
+}
+
+template <int kForm>
+cudaError_t max_clusters(int cluster, int n_ch, int smem, int* n) {
+  cudaError_t err = allow<kForm>(smem, cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(cluster, n_ch, smem, nullptr,
+                                               &attr);
+  return cudaOccupancyMaxActiveClusters(n, epoch_chunk_kernel<kForm>, &cfg);
 }
 
 // the dynamic shared memory of a launch: the stages and this CTA's slabs'
@@ -256,26 +302,34 @@ extern "C" int epoch_chunk(EpochChunkArgs a, int cluster, int smem,
       a.k2.n_taps + (a.k2.data ? 1 : 0) != a.ep.n_taps + a.ep.has_data ||
       (size_t)smem < chunk_smem(a.k2, cluster))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow(smem, cluster);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(cluster, a.ep.n_ch, smem,
-                                               (cudaStream_t)stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, epoch_chunk_kernel, a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (epoch_form(a.ep)) {
+    case kFormLoop3: err = launch<kFormLoop3>(a, cluster, smem, st); break;
+    case kFormLoop2: err = launch<kFormLoop2>(a, cluster, smem, st); break;
+    case kFormKf: err = launch<kFormKf>(a, cluster, smem, st); break;
+    default: err = launch<kFormGauss>(a, cluster, smem, st);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// cudaOccupancyMaxActiveClusters for clusters of `cluster` CTAs with
-// `smem` bytes of dynamic shared memory each, into *n
+// cudaOccupancyMaxActiveClusters for the form `form` (EpochForm) in
+// clusters of `cluster` CTAs with `smem` bytes of dynamic shared memory
+// each, into *n
 extern "C" int epoch_chunk_max_clusters(int cluster, int n_ch, int smem,
-                                        int* n) {
-  if (cluster < 1 || cluster > kMaxCluster || n_ch < 1 || smem < 0 || !n)
+                                        int form, int* n) {
+  if (cluster < 1 || cluster > kMaxCluster || n_ch < 1 || smem < 0 || !n ||
+      form < 0 || form >= kEpochForms)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow(smem, cluster);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(cluster, n_ch, smem, nullptr,
-                                               &attr);
-  return (int)cudaOccupancyMaxActiveClusters(n, epoch_chunk_kernel, &cfg);
+  switch (form) {
+    case kFormLoop3:
+      return (int)max_clusters<kFormLoop3>(cluster, n_ch, smem, n);
+    case kFormLoop2:
+      return (int)max_clusters<kFormLoop2>(cluster, n_ch, smem, n);
+    case kFormKf:
+      return (int)max_clusters<kFormKf>(cluster, n_ch, smem, n);
+    default:
+      return (int)max_clusters<kFormGauss>(cluster, n_ch, smem, n);
+  }
 }

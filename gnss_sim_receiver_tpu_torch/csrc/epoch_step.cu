@@ -20,7 +20,10 @@
 //   slot epoch % n_sec, the hard match over every cyclic shift, sec_off
 //   and sec_polarity on the first full match, the wipeoff of P, E and L;
 // - the wide closure (:464-506): Costas PLL, E - L or VEMLP DLL, the
-//   third-order PLL and second-order DLL with the FLL pull-in;
+//   third- or second-order PLL and second-order DLL with the FLL pull-in,
+//   or in the kf and gaussian modes the joint code/carrier Kalman tracker
+//   (_kf_update, :305-373; R from the NIW posterior in gaussian mode,
+//   :476-500) in place of the loop filters;
 // - extended integration (:508-593): the bit-sync histogram and its
 //   dominance test (GPS) or secondary-aligned groups (pilot), the coherent
 //   sums, the narrow closure on them, the per-channel wide / closed / hold
@@ -28,6 +31,14 @@
 // - the NCO carry, C/N0 and lock on the wiped prompt (:595-630), the
 //   commit under the active mask, the epoch's row of the chunk's [T, C]
 //   output planes, and the NEXT epoch's length, which K2 reads from n_c.
+//
+// The forms (the PLL's order, the Kalman modes) are compile-time
+// instantiations of one template, so the DLL/PLL form's instructions are
+// those it had before the others came.  The Kalman form holds the 4x4
+// covariance in lanes 0-15, lane 4i+j P[i][j]: the prediction F P F^T + Q
+// and the update (I - K H) P' are products of rows and columns gathered by
+// shuffles, lane 0 forms the 2x2 innovation inverse and broadcasts it,
+// each lane forms its row of the gain K.
 //
 // It reads the state from one set of arrays and writes the next state into
 // another: the standalone kernel's caller ping-pongs two buffers, the
@@ -105,12 +116,13 @@ __device__ __forceinline__ float dll_raw(float a, float b) {
   return denom > 0.0f ? (a - b) / clamp_min(denom, 1e-20f) : 0.0f;
 }
 
-// the loop filters of one _dll_pll_update: the third-order PLL's
-// integrators and the second-order DLL (its velocity and output)
+// the loop filters of one _dll_pll_update: the PLL's integrators and the
+// second-order DLL (its velocity and output)
 struct Loop {
   float pll_vel, pll_acc, dll_vel, dll_out;
 };
 
+// the third-order PLL (k3 = wn^3, k11 = 1.1 wn^2)
 __device__ __forceinline__ Loop loop_filters(float k3, float k11, float dk2,
                                              float dk14, float pll_vel0,
                                              float pll_acc0, float dll_vel0,
@@ -124,6 +136,136 @@ __device__ __forceinline__ Loop loop_filters(float k3, float k11, float dk2,
   return r;
 }
 
+// the second-order PLL (k2 = wn^2; its acceleration held)
+__device__ __forceinline__ Loop loop_filters2(float k2, float dk2, float dk14,
+                                              float pll_vel0, float pll_acc0,
+                                              float dll_vel0, float carr_err,
+                                              float code_err, float t) {
+  Loop r;
+  r.pll_acc = pll_acc0;
+  r.pll_vel = pll_vel0 + k2 * t * carr_err;
+  r.dll_vel = dll_vel0 + dk2 * t * code_err;
+  r.dll_out = r.dll_vel + dk14 * code_err;
+  return r;
+}
+
+// the loops of form kForm (kFormLoop3 or kFormLoop2), wide or narrow
+template <int kForm>
+__device__ __forceinline__ Loop loops(const EpochArgs& a, bool narrow,
+                                      float pll_vel0, float pll_acc0,
+                                      float dll_vel0, float carr_err,
+                                      float code_err, float t) {
+  const float dk2 = narrow ? a.ndll_k2 : a.dll_k2;
+  const float dk14 = narrow ? a.ndll_k14 : a.dll_k14;
+  if constexpr (kForm == kFormLoop3)
+    return loop_filters(narrow ? a.npll_k3 : a.pll_k3,
+                        narrow ? a.npll_k11 : a.pll_k11, dk2, dk14, pll_vel0,
+                        pll_acc0, dll_vel0, carr_err, code_err, t);
+  else
+    return loop_filters2(narrow ? a.npll2_k2 : a.pll2_k2, dk2, dk14,
+                         pll_vel0, pll_acc0, dll_vel0, carr_err, code_err, t);
+}
+
+// the PLL's output gain of form kForm: 2.4 wn or 1.414213562 wn
+template <int kForm>
+__device__ __forceinline__ float pll_gain(const EpochArgs& a, bool narrow) {
+  if constexpr (kForm == kFormLoop3)
+    return narrow ? a.npll_k24 : a.pll_k24;
+  else
+    return narrow ? a.npll2_k14 : a.pll2_k14;
+}
+
+// the FLL discriminator (discriminators.fll_cross_dot, or its
+// decision-directed form) between the previous prompt and this one
+__device__ __forceinline__ float fll_err(const EpochArgs& a, float2 prev,
+                                         float2 p, float t_int) {
+  const float cross = prev.x * p.y - p.x * prev.y;
+  const float dot = prev.x * p.x + prev.y * p.y;
+  if (a.fll_decision) {
+    const float sgn = dot >= 0.0f ? 1.0f : -1.0f;
+    return atan2f(cross * sgn, fabsf(dot)) / (a.two_pi * t_int);
+  }
+  return atan2f(cross, dot) / (a.two_pi * t_int);
+}
+
+// F[i][j] of the KF's state transition (models/tracking.py:_kf_transition)
+__device__ __forceinline__ float kf_f(int i, int j, float dt, float f02,
+                                      float f03, float f13) {
+  if (i == j) return 1.0f;
+  if (i == 0) return j == 2 ? f02 : (j == 3 ? f03 : 0.0f);
+  if (i == 1) return j == 2 ? dt : (j == 3 ? f13 : 0.0f);
+  return (i == 2 && j == 3) ? dt : 0.0f;
+}
+
+// the Kalman tracker's step on one warp (models/tracking.py:_kf_update):
+// lane L < 16 holds P[L / 4][L % 4] in p (lanes 16-31 repeat lanes 0-15);
+// returns the updated covariance entry of the lane and, in dx[0..3], the
+// state step every lane
+__device__ __forceinline__ float kf_step(const EpochArgs& a, int lane,
+                                         float p, float dt, float r0,
+                                         float r1, float code_err,
+                                         float carr_err, float dx[4]) {
+  const int i = (lane >> 2) & 3, k = lane & 3;
+  const float f02 = a.kf_beta * dt;
+  const float f03 = f02 * dt * 0.5f;
+  const float f13 = dt * dt * 0.5f;
+  // A = F P, then P' = A F^T + Q, each sum in index order
+  float fp = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float t = kf_f(i, j, dt, f02, f03, f13) *
+                    __shfl_sync(kFull, p, 4 * j + k);
+    fp = j == 0 ? t : fp + t;
+  }
+  float pp = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float t = __shfl_sync(kFull, fp, 4 * i + j) *
+                    kf_f(k, j, dt, f02, f03, f13);
+    pp = j == 0 ? t : pp + t;
+  }
+  const float q = i != k ? 0.0f
+                         : (i == 0 ? a.kf_q_code
+                                   : (i == 1 ? a.kf_q_phase
+                                             : (i == 2 ? a.kf_q_dop
+                                                       : a.kf_q_doprate)));
+  pp = pp + q;
+  // S = P'[:2, :2] + R and its inverse, formed on lane 0
+  const float p00 = __shfl_sync(kFull, pp, 0);
+  const float p01 = __shfl_sync(kFull, pp, 1);
+  const float p11 = __shfl_sync(kFull, pp, 5);
+  float si00 = 0.0f, si01 = 0.0f, si11 = 0.0f;
+  if (lane == 0) {
+    const float s00 = p00 + r0;
+    const float s11 = p11 + r1;
+    const float det = clamp_min(s00 * s11 - p01 * p01, 1e-20f);
+    si00 = s11 / det;
+    si01 = -p01 / det;
+    si11 = s00 / det;
+  }
+  si00 = __shfl_sync(kFull, si00, 0);
+  si01 = __shfl_sync(kFull, si01, 0);
+  si11 = __shfl_sync(kFull, si11, 0);
+  // row i of the gain K, and of the state step
+  const float ph0 = __shfl_sync(kFull, pp, 4 * i);
+  const float ph1 = __shfl_sync(kFull, pp, 4 * i + 1);
+  const float k0 = ph0 * si00 + ph1 * si01;
+  const float k1 = ph0 * si01 + ph1 * si11;
+  const float dxi = k0 * code_err + k1 * carr_err;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) dx[j] = __shfl_sync(kFull, dxi, 4 * j);
+  // P = (I - K H) P'
+  float pn = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float e = i == j ? 1.0f : 0.0f;
+    const float kh = j == 0 ? k0 : (j == 1 ? k1 : 0.0f);
+    const float t = (e - kh) * __shfl_sync(kFull, pp, 4 * j + k);
+    pn = j == 0 ? t : pn + t;
+  }
+  return pn;
+}
+
 // code_rate_from_doppler: the carrier-aided code rate
 __device__ __forceinline__ float aided_rate(const EpochArgs& a, float dop) {
   return a.code_rate * (1.0f + dop * a.inv_fc);
@@ -131,9 +273,11 @@ __device__ __forceinline__ float aided_rate(const EpochArgs& a, float dop) {
 
 }  // namespace
 
+template <int kForm>
 __device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
                             const EpochStatePtrs& d, int sc, int c,
                             const float2* cr, int32_t* n_c_io, int row) {
+  constexpr bool kKalman = kForm == kFormKf || kForm == kFormGauss;
   const int lane = threadIdx.x & 31;
   const bool act = s.active[sc] != 0;
   const int32_t epoch = s.epoch[sc];
@@ -198,27 +342,57 @@ __device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
   const float dll_acc0 = s.dll_acc[sc];
   const float dop0 = s.carrier_doppler[sc];
   const float rate0 = s.code_freq[sc];
-  Loop w = loop_filters(a.pll_k3, a.pll_k11, a.dll_k2, a.dll_k14, pll_vel0,
-                        pll_acc0, dll_vel0, carr_err, code_err, t_int);
-  if (a.fll_on) {
-    const float2 prev = s.prompt_prev[sc];
-    const float cross = prev.x * prompt_w.y - prompt_w.x * prev.y;
-    const float dot = prev.x * prompt_w.x + prev.y * prompt_w.y;
-    float f_err;
-    if (a.fll_decision) {
-      const float sgn = dot >= 0.0f ? 1.0f : -1.0f;
-      f_err = atan2f(cross * sgn, fabsf(dot)) / (a.two_pi * t_int);
-    } else {
-      f_err = atan2f(cross, dot) / (a.two_pi * t_int);
+  float doppler, code_freq, pll_vel, pll_acc, dll_vel;
+  // the Kalman forms' phase steps, covariance entry (lanes 0-15), Doppler
+  // rate and posterior
+  float dtau = 0.0f, dphi = 0.0f, kf_p = 0.0f, kf_fdot = 0.0f;
+  float nu = 0.0f, psi_code = 0.0f, psi_carr = 0.0f;
+  if constexpr (kKalman) {
+    const float kf_p0 = s.kf_p[sc * 16 + (lane & 15)];
+    const float fdot0 = s.kf_fdot[sc];
+    float r0 = a.kf_r_code, r1 = a.kf_r_phase;
+    nu = s.bayes_nu[sc];
+    psi_code = s.bayes_psi_code[sc];
+    psi_carr = s.bayes_psi_carr[sc];
+    if constexpr (kForm == kFormGauss) {
+      const float denom = clamp_min(nu - 2.0f, 1.0f);
+      r0 = clamp_min(psi_code / denom, 1e-5f);
+      r1 = clamp_min(psi_carr / denom, 1e-6f);
     }
-    if (epoch > 0 && epoch < a.fll_pullin_epochs)
-      w.pll_vel = w.pll_vel + a.fll_k4 * t_int * f_err;
+    float dx[4];
+    kf_p = kf_step(a, lane, kf_p0, t_int, r0, r1, code_err, carr_err, dx);
+    dtau = dx[0];
+    dphi = dx[1];
+    doppler = dop0 + fdot0 * t_int + dx[2];
+    kf_fdot = fdot0 + dx[3];
+    if (a.fll_on && epoch > 0 && epoch < a.fll_pullin_epochs)
+      doppler = doppler + a.fll_k4 * t_int *
+                              fll_err(a, s.prompt_prev[sc], prompt_w, t_int);
+    code_freq = aided_rate(a, doppler);
+    if constexpr (kForm == kFormGauss) {
+      nu = a.bayes_lam * nu + 1.0f;
+      psi_code = a.bayes_lam * psi_code + code_err * code_err;
+      psi_carr = a.bayes_lam * psi_carr + carr_err * carr_err;
+    }
+    pll_vel = doppler;
+    pll_acc = pll_acc0;
+    dll_vel = dll_vel0;
+  } else {
+    Loop w = loops<kForm>(a, false, pll_vel0, pll_acc0, dll_vel0, carr_err,
+                          code_err, t_int);
+    if (a.fll_on) {
+      const float f_err = fll_err(a, s.prompt_prev[sc], prompt_w, t_int);
+      if (epoch > 0 && epoch < a.fll_pullin_epochs)
+        w.pll_vel = w.pll_vel + a.fll_k4 * t_int * f_err;
+    }
+    doppler = w.pll_vel + pll_gain<kForm>(a, false) * carr_err;
+    code_freq = aided_rate(a, doppler) + w.dll_out;
+    pll_vel = w.pll_vel;
+    pll_acc = w.pll_acc;
+    dll_vel = w.dll_vel;
   }
-  float doppler = w.pll_vel + a.pll_k24 * carr_err;
-  float code_freq = aided_rate(a, doppler) + w.dll_out;
-  float pll_vel = w.pll_vel, pll_acc = w.pll_acc, dll_vel = w.dll_vel;
 
-  // ---- extended coherent integration --------------------------------------
+  // ---- extended coherent integration (not in the Kalman forms) -----------
   const bool bin = lane < kBits;
   float hist = bin ? s.bit_hist[sc * kBits + lane] : 0.0f;
   float prev_sign = s.prev_sign[sc];
@@ -226,7 +400,7 @@ __device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
   int32_t bit_phase = s.bit_phase[sc];
   float2 ext_p = s.ext_p[sc], ext_e = s.ext_e[sc], ext_l = s.ext_l[sc];
   int32_t ext_n = s.ext_n[sc];
-  if (a.k_ext > 1) {
+  if (!kKalman && a.k_ext > 1) {
     bool at_bit_start;
     if (a.n_sec > 0) {
       bit_synced = sec_synced;
@@ -261,10 +435,11 @@ __device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
     // the narrow closure on the coherent sums (no FLL)
     const float carr_x = costas_cyc(ext_p, a.inv_two_pi);
     const float code_x = a.el_gain * dll_raw(cmag(ext_e), cmag(ext_l));
-    const Loop x = loop_filters(a.npll_k3, a.npll_k11, a.ndll_k2, a.ndll_k14,
-                                pll_vel0, pll_acc0, dll_vel0, carr_x, code_x,
-                                t_int * a.k_ext_f);
-    const float dop_x = x.pll_vel + a.npll_k24 * carr_x;
+    const Loop x = loops<kKalman ? kFormLoop3 : kForm>(
+        a, true, pll_vel0, pll_acc0, dll_vel0, carr_x, code_x,
+        t_int * a.k_ext_f);
+    const float dop_x =
+        x.pll_vel + pll_gain<kKalman ? kFormLoop3 : kForm>(a, true) * carr_x;
     if (ext_on) {                      // closed, else hold
       doppler = close_now ? dop_x : dop0;
       code_freq = close_now ? aided_rate(a, dop_x) + x.dll_out : rate0;
@@ -279,9 +454,14 @@ __device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
   }
 
   // ---- NCO phase carry with the frequencies used this epoch ---------------
+  // (the Kalman forms feed their phase steps into the remnants)
   const float rem_code0 = s.rem_code_phase[sc];
-  const float rem_code = rem_code0 + rate0 * t_int - a.code_len;
-  const float carr_adv = dop0 * t_int;
+  float rem_code = rem_code0 + rate0 * t_int - a.code_len;
+  float carr_adv = dop0 * t_int;
+  if constexpr (kKalman) {
+    rem_code = rem_code + dtau;
+    carr_adv = carr_adv + dphi;
+  }
   const float rem_carr =
       floor_mod(s.rem_carr_phase[sc] + a.two_pi * carr_adv, a.two_pi);
   const float acc_cyc = s.acc_phase_cycles[sc];
@@ -347,7 +527,17 @@ __device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
   __syncwarp();
   if (bin) d.bit_hist[sc * kBits + lane] = act ? hist : s.bit_hist[sc * kBits + lane];
   d.sec_buf[sc * kSecMax + lane] = act ? buf : s.sec_buf[sc * kSecMax + lane];
+  if constexpr (kKalman) {
+    if (lane < 16)
+      d.kf_p[sc * 16 + lane] = act ? kf_p : s.kf_p[sc * 16 + lane];
+  }
   if (lane != 0) return;
+  if constexpr (kKalman) {
+    d.kf_fdot[sc] = act ? kf_fdot : s.kf_fdot[sc];
+    d.bayes_nu[sc] = act ? nu : s.bayes_nu[sc];
+    d.bayes_psi_code[sc] = act ? psi_code : s.bayes_psi_code[sc];
+    d.bayes_psi_carr[sc] = act ? psi_carr : s.bayes_psi_carr[sc];
+  }
   const float rem_code_new = act ? rem_code : rem_code0;
   const float code_freq_new = act ? code_freq : rate0;
   d.active[sc] = (act && !lost) ? 1 : 0;
@@ -392,13 +582,29 @@ __device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
   *n_c_io = n_next;
 }
 
+// the forms the chunk kernel (csrc/epoch_chunk.cu) calls
+template __device__ void epoch_close<kFormLoop3>(
+    const EpochArgs&, const EpochStatePtrs&, const EpochStatePtrs&, int, int,
+    const float2*, int32_t*, int);
+template __device__ void epoch_close<kFormLoop2>(
+    const EpochArgs&, const EpochStatePtrs&, const EpochStatePtrs&, int, int,
+    const float2*, int32_t*, int);
+template __device__ void epoch_close<kFormKf>(
+    const EpochArgs&, const EpochStatePtrs&, const EpochStatePtrs&, int, int,
+    const float2*, int32_t*, int);
+template __device__ void epoch_close<kFormGauss>(
+    const EpochArgs&, const EpochStatePtrs&, const EpochStatePtrs&, int, int,
+    const float2*, int32_t*, int);
+
 namespace {
 
+template <int kForm>
 __global__ void __launch_bounds__(32)
 epoch_closure_kernel(const __grid_constant__ EpochArgs a, int row) {
   const int c = blockIdx.x;
-  epoch_close(a, a.src, a.dst, c, c,
-              a.corr + (size_t)c * (a.n_taps + a.has_data), a.n_c + c, row);
+  epoch_close<kForm>(a, a.src, a.dst, c, c,
+                     a.corr + (size_t)c * (a.n_taps + a.has_data), a.n_c + c,
+                     row);
 }
 
 }  // namespace
@@ -407,12 +613,27 @@ bool epoch_args_invalid(const EpochArgs& a) {
   return a.n_ch < 1 || (a.n_taps != 3 && a.n_taps != 5) ||
          a.veml != (a.n_taps == 5) || a.has_data < 0 || a.has_data > 1 ||
          a.n_sec < 0 || a.n_sec > kSecMax || a.cn0_window < 1 ||
-         a.block_size < 1;
+         a.block_size < 1 || a.mode < 0 || a.mode > 2 ||
+         (a.pll_order != 2 && a.pll_order != 3) ||
+         (a.mode != 0 && a.k_ext != 1);
 }
 
 extern "C" int epoch_closure(EpochArgs a, int row, void* stream) {
   if (epoch_args_invalid(a) || row < 0 || row >= a.n_rows)
     return (int)cudaErrorInvalidValue;
-  epoch_closure_kernel<<<a.n_ch, 32, 0, (cudaStream_t)stream>>>(a, row);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (epoch_form(a)) {
+    case kFormLoop3:
+      epoch_closure_kernel<kFormLoop3><<<a.n_ch, 32, 0, st>>>(a, row);
+      break;
+    case kFormLoop2:
+      epoch_closure_kernel<kFormLoop2><<<a.n_ch, 32, 0, st>>>(a, row);
+      break;
+    case kFormKf:
+      epoch_closure_kernel<kFormKf><<<a.n_ch, 32, 0, st>>>(a, row);
+      break;
+    default:
+      epoch_closure_kernel<kFormGauss><<<a.n_ch, 32, 0, st>>>(a, row);
+  }
   return (int)cudaGetLastError();
 }

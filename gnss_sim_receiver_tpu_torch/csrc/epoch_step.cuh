@@ -13,7 +13,8 @@
 // Structures)
 
 // the TrackState fields the closure reads or writes (dll, pll and the
-// seven C/N0 accumulators split); bool fields are one byte
+// seven C/N0 accumulators split); bool fields are one byte.  The last five
+// are the Kalman trackers': only their forms read or write them
 struct EpochStatePtrs {
   uint8_t* active;
   int32_t* pos;
@@ -52,6 +53,11 @@ struct EpochStatePtrs {
   uint8_t* sec_synced;
   int32_t* sec_off;
   float* sec_polarity;
+  float* kf_p;                          // [C, 4, 4]
+  float* kf_fdot;
+  float* bayes_nu;
+  float* bayes_psi_code;
+  float* bayes_psi_carr;
 };
 
 // the chunk's [T, C] output planes
@@ -104,6 +110,18 @@ struct EpochArgs {
   float inv_fc;                         // float(1 / float(carrier_freq_hz))
   float bit_sync_min;
   float sec_thresh;                     // float32(n_sec) - 0.5
+  float pll2_k2;                        // wn^2, 1.414213562 wn (wide PLL,
+  float pll2_k14;                       // second order)
+  float npll2_k2;                       // the same, narrow PLL
+  float npll2_k14;
+  float kf_beta;                        // code rate / carrier frequency
+  float kf_q_code;                      // the KF's Q diagonal and R
+  float kf_q_phase;
+  float kf_q_dop;
+  float kf_q_doprate;
+  float kf_r_code;
+  float kf_r_phase;
+  float bayes_lam;                      // the gaussian mode's forgetting
   int32_t n_taps;                       // 3, or 5 (VEML)
   int32_t veml;
   int32_t has_data;                     // corr has the data prompt column
@@ -112,18 +130,36 @@ struct EpochArgs {
   int32_t n_sec;                        // 0: no secondary code
   int32_t k_ext;                        // extend_correlation_symbols
   int32_t fll_on;                       // FLL pull-in on the wide closure
+                                        // (on the KF's, in its modes)
   int32_t fll_decision;
   int32_t fll_pullin_epochs;
   int32_t cn0_window;
   int32_t block_size;
   int32_t nominal;                      // nominal epoch samples
+  int32_t mode;                         // 0 dll_pll, 1 kf, 2 gaussian
+  int32_t pll_order;                    // 3, or 2 (dll_pll)
 };
+
+// the closure's forms, each a compile-time instantiation: the DLL/PLL
+// loops with the third- or second-order PLL, the Kalman tracker with a
+// fixed or an estimated measurement noise
+enum EpochForm { kFormLoop3 = 0, kFormLoop2 = 1, kFormKf = 2, kFormGauss = 3 };
+constexpr int kEpochForms = 4;
+
+// the form of the closure that a's mode and order select
+inline int epoch_form(const EpochArgs& a) {
+  if (a.mode == 1) return kFormKf;
+  if (a.mode == 2) return kFormGauss;
+  return a.pll_order == 3 ? kFormLoop3 : kFormLoop2;
+}
 
 // One epoch's loop closure of channel c, run by one whole warp: reads the
 // channel's state at index sc of `s` and commits the next state at index
 // sc of `d` (`s` and `d` may be the same arrays), from its correlations
 // `cr` [K] or [K + 1] over *n_c samples; writes row `row` of the planes
-// and, from lane 0, the next epoch's length into *n_c.
+// and, from lane 0, the next epoch's length into *n_c.  kForm must be
+// epoch_form(a).
+template <int kForm>
 __device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
                             const EpochStatePtrs& d, int sc, int c,
                             const float2* cr, int32_t* n_c, int row);

@@ -137,14 +137,8 @@ _SUPPORTED = {(AcqConf, "variant"): VARIANTS}
 # (the default) under which the port computes the same thing
 _ABSENT = {
     AcqConf: {},
-    TrackingConf: dict(pll_filter_order=3, dll_filter_order=2,
-                       lock_rectify=False,
-                       tracking_mode="dll_pll", bayes_forgetting=0.995,
-                       bayes_nu0=30.0, doppler_bias_hz=0.0,
-                       kf_q_code_chips2=1e-4,
-                       kf_q_phase_cyc2=1e-6, kf_q_dop_hz2=1.0,
-                       kf_q_doprate_hz2s2=10.0, kf_r_code_chips2=2e-3,
-                       kf_r_phase_cyc2=5e-4),
+    TrackingConf: dict(dll_filter_order=2, bayes_nu0=30.0,
+                       lock_rectify=False, doppler_bias_hz=0.0),
     ObsConf: {},
     PvtConf: dict(iono_alpha=(0.0,) * 4, iono_beta=(0.0,) * 4,
                   raim_fde=False, raim_threshold_m=30.0,

@@ -44,7 +44,7 @@ _ACQ_IMPLS = {
            "Galileo_E5a_Noncoherent_IQ_Acquisition_CAF": "iq_caf"},
 }
 _TRK_IMPLS = {
-    "1C": ("GPS_L1_CA_DLL_PLL_Tracking",),
+    "1C": ("GPS_L1_CA_DLL_PLL_Tracking", "GPS_L1_CA_KF_Tracking"),
     "1B": ("Galileo_E1_DLL_PLL_VEML_Tracking",),
     "L5": ("GPS_L5_DLL_PLL_Tracking", "GPS_L5i_DLL_PLL_Tracking"),
     "5X": ("Galileo_E5a_DLL_PLL_Tracking",),
@@ -159,13 +159,18 @@ def _trk_from_config(config: Configuration, sig: str,
     impl = config.property(p + "implementation", _TRK_IMPLS[sig][0])
     if impl not in _TRK_IMPLS[sig]:
         raise _not_ported(p + "implementation", impl)
-    _refuse_unless(config, p + "order", 3)
     # spacing keys are in chips; the sub-chip engines of E1 (BOC) scale x2
     sc = 2.0 if sig == "1B" else 1.0
     return dataclasses.replace(
         base,
+        # the KF tracking block selects the Kalman tracker (JAX
+        # factory.py:231-232)
+        tracking_mode=("kf" if impl.endswith("KF_Tracking")
+                       else base.tracking_mode),
         pll_bw_hz=config.property(p + "pll_bw_hz", base.pll_bw_hz),
         dll_bw_hz=config.property(p + "dll_bw_hz", base.dll_bw_hz),
+        pll_filter_order=config.property(p + "order",
+                                         base.pll_filter_order),
         enable_fll_pullin=config.property(p + "enable_fll_pullin",
                                           base.enable_fll_pullin),
         fll_bw_hz=config.property(p + "fll_bw_hz", base.fll_bw_hz),

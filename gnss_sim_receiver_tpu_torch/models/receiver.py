@@ -277,6 +277,10 @@ class ReceiverRun:
     channel_states: list       # final ChannelState per channel
     ephemerides: dict          # prn (GPS) | (system, prn) -> GpsEphemeris
     events: list               # [(channel, ChannelEvent)]
+    # every epoch's tracking planes ([T, C] per key) with
+    # collect_track_outputs: one dict per signal, or the dict itself when
+    # there is one signal
+    track_outputs: dict | None = None
     channel_systems: list = ()  # constellation per channel
     # hybrid-mode AOWR products: [(clock_diff_s, est_tx_tow_s)] per fix
     clock_differences: list = dataclasses.field(default_factory=list)
@@ -347,6 +351,11 @@ class ReceiverSession:
     PRIMARY (`conf.fs`) sample domain and convert per chain.  `result()`
     snapshots a ReceiverRun at any time.
 
+    `collect_track_outputs=True` pulls every epoch's full planes from every
+    chain (the per-epoch chunk kernel runs them all, never the block
+    kernels) and keeps them for `result().track_outputs`, the input of
+    the .mat dumps (models/dumps.py).
+
     Control plane (tcp_cmd_interface.cc:46-176): `standby()` parks every
     channel and drops inflow; `coldstart()` also drops the ephemerides and
     the last fix; `warmstart()` keeps the ephemerides; `hotstart()` keeps
@@ -364,21 +373,21 @@ class ReceiverSession:
             raise NotImplementedError(
                 f"PVT.positioning_mode {conf.pvt.positioning_mode} is not "
                 "ported")
-        if collect_track_outputs:
-            raise NotImplementedError(
-                "collect_track_outputs (every epoch's tracking planes) is "
-                "not ported")
         if base_observations is not None:
             raise NotImplementedError("base_observations (RTK) is not ported")
         self.conf = conf
         self.device = resolve_device(device)
-        # decimated transfers push one observables row per tick
-        self.max_mult = 128
+        self.collect = bool(collect_track_outputs)
+        # collecting pulls every epoch's full planes and pushes every epoch
+        # into the observables history, so chunks grow less; decimated
+        # transfers push one observables row per tick
+        self.max_mult = 8 if self.collect else 128
         chains = []
         n_total = 0
         for spec in conf.all_chains():
             chains.append(_ChainRt(spec, n_total, self.device))
             n_total += spec.n_channels
+            chains[-1].trk.full_outputs = self.collect
         self.chains = chains
         self.n_total = n_total
         self.freq_map = np.concatenate(
@@ -389,8 +398,9 @@ class ReceiverSession:
             # the observables history interpolation stays bracketed); the
             # history must hold what one chunk pushes at the largest chunk
             epoch_ms = rt.nominal / self._chain_fs(rt) * 1000.0
-            rt.decim = max(1, int(min(conf.obs.interval_ms, 90.0)
-                                  // epoch_ms))
+            rt.decim = (1 if self.collect else
+                        max(1, int(min(conf.obs.interval_ms, 90.0)
+                                   // epoch_ms)))
             rows = int(conf.chunk_epochs * self.max_mult // rt.decim) + 256
             if conf.obs.history_len < rows:
                 conf.obs.history_len = rows
@@ -420,6 +430,7 @@ class ReceiverSession:
                 r_ps_true_m=conf.ps_range_m, carrier_freq_hz=ps_freq))
         self.clock_differences = []
         self.rx_clock_bias_log = []
+        self.collected = [] if self.collect else None  # (signal, outputs)
         # input state: absolute sample indexes in the PRIMARY (conf.fs)
         # domain, shared by both modes
         self._array_mode = False
@@ -901,27 +912,39 @@ class ReceiverSession:
         stale = outs.pop("stale_channels")
         if stale.any():
             outs["valid"] = outs["valid"] & ~stale[None, :]
-            outs["valid_full"] = outs["valid_full"] & ~stale[None, :]
+            if "valid_full" in outs:
+                outs["valid_full"] = outs["valid_full"] & ~stale[None, :]
         for c in range(spec.n_channels):
             rt.epoch_base[c] += n
         inc = [c for c in tracking if not stale[c]]
         rt.epochs_run[inc] += n
+        if self.collected is not None:
+            self.collected.append((spec.signal, outs))
         # a channel feeds OBSERVABLES only once its loops have settled after
         # (re)acquisition; telemetry sees every epoch.  Gating is
         # epoch-index exact, whatever the chunk sizes.
         settle = spec.trk.fll_pullin_epochs + 2500
         eb_settle = rt.epochs_run - n
-        rows = outs["rows"]
-        tlm_res = rt.tlm.process({"prompt": outs["prompt"],
-                                  "valid": outs["valid_full"]})
-        if len(rows) == 0:
-            # tail chunk shorter than one tick stride: telemetry only
-            for _, eph in tlm_res.new_ephemerides:
-                self._store_eph(rt, eph)
-            return self._handle_lock_loss(rt, tracking), None
-        tlm_obs = dataclasses.replace(
-            tlm_res, tow_at_epoch_ms=tlm_res.tow_at_epoch_ms[rows],
-            tow_valid=tlm_res.tow_valid[rows])
+        rows = outs.get("rows")
+        if rows is None:
+            # every epoch's planes (the full transfer): telemetry and
+            # observables read the same rows
+            tlm_res = rt.tlm.process(outs)
+            tlm_obs = tlm_res
+            rows = np.arange(outs["valid"].shape[0])
+        else:
+            # decimated transfer: telemetry sees the full-rate symbol
+            # planes, observables the tick-rate planes
+            tlm_res = rt.tlm.process({"prompt": outs["prompt"],
+                                      "valid": outs["valid_full"]})
+            if len(rows) == 0:
+                # tail chunk shorter than one tick stride: telemetry only
+                for _, eph in tlm_res.new_ephemerides:
+                    self._store_eph(rt, eph)
+                return self._handle_lock_loss(rt, tracking), None
+            tlm_obs = dataclasses.replace(
+                tlm_res, tow_at_epoch_ms=tlm_res.tow_at_epoch_ms[rows],
+                tow_valid=tlm_res.tow_valid[rows])
         gate = (rows[:, None] + eb_settle[None, :]) < settle
         if (gate & outs["valid"]).any():
             # gate a COPY for the observables push only: the cursor, tick
@@ -1083,6 +1106,15 @@ class ReceiverSession:
     # -- output ----------------------------------------------------------------
 
     def result(self) -> ReceiverRun:
+        track_outputs = None
+        if self.collected:
+            track_outputs = {}
+            for sig in {s for s, _ in self.collected}:
+                parts = [o for s, o in self.collected if s == sig]
+                track_outputs[sig] = {k: np.concatenate([p[k] for p in parts])
+                                      for k in parts[0]}
+            if len(track_outputs) == 1:   # the single-chain shape
+                track_outputs = next(iter(track_outputs.values()))
         prn_map, sys_map = _channel_maps(self.chains, self.n_total)
         states, events = [], []
         for rt in self.chains:
@@ -1094,7 +1126,7 @@ class ReceiverSession:
             observation_epochs=self.obs_epochs,
             channel_prns=prn_map, channel_states=states,
             ephemerides=self.ephemerides, events=events,
-            channel_systems=sys_map,
+            track_outputs=track_outputs, channel_systems=sys_map,
             clock_differences=self.clock_differences,
             rx_clock_bias_log=self.rx_clock_bias_log,
             almanac=self.broadcast_almanac(),

@@ -182,7 +182,7 @@ def test_factory_refuses_unported_e1_keys(tmp_path, line):
 # keys these refusal tests once listed, now ported (the first-vs-second-
 # peak statistic and the fixed threshold; the fork's hybrid pseudolite
 # navigation, its rx clock keys and the pre-2009 week), and the field each
-# sets: its chain's AcqConf's, or the ReceiverConf's
+# sets: its chain's AcqConf's or TrackingConf's, or the ReceiverConf's
 PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                ("use_cfar_algorithm", False),
                "Acquisition_1C.use_CFAR_algorithm=false":
@@ -198,13 +198,19 @@ PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                # acquisition resampler key, which sets no field in either
                # package (the JAX factory applies it to no chain)
                "Channels_1B.RF_channel_ID=1": ("rf_channel_id", 1),
-               "GNSS-SDR.use_acquisition_resampler=true": None}
+               "GNSS-SDR.use_acquisition_resampler=true": None,
+               # the Kalman tracker and the second-order PLL: their chain's
+               # TrackingConf's field
+               "Tracking_1C.implementation=GPS_L1_CA_KF_Tracking":
+               ("tracking_mode", "kf"),
+               "Tracking_1C.order=2": ("pll_filter_order", 2)}
 
 
 def _check_ported_key(path, line):
     """The conf at `path` builds, in both packages, the same configuration,
-    the key's value in its field: the ReceiverConf's, else its chain's, else
-    its chain's AcqConf's.  A key that sets no field (None) is checked by
+    the key's value in its field: a Tracking_ key's in its chain's
+    TrackingConf, else the ReceiverConf's, else its chain's, else its
+    chain's AcqConf's.  A key that sets no field (None) is checked by
     the equality alone."""
     ref = jfactory.receiver_conf_from_config(JaxFileConfiguration(path))
     got = factory.receiver_conf_from_config(FileConfiguration(path))
@@ -212,6 +218,10 @@ def _check_ported_key(path, line):
     if PORTED_KEYS[line] is None:
         return
     field, value = PORTED_KEYS[line]
+    if line.startswith("Tracking_"):
+        trk = got.trk if "_1C." in line else got.chains[0].trk
+        assert getattr(trk, field) == value
+        return
     if hasattr(got, field):
         assert getattr(got, field) == value
         return

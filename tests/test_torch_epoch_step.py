@@ -4,9 +4,12 @@ split plain path, K2's plain version and then the plain version of kernel
 K9 (tracking._epoch_closure_plain); and the chunk's [T, C] planes of the
 CPU loop against the per-epoch outputs they collect.
 
-Four cases: GPS L1 C/A with 3 taps at extend_correlation_symbols 1 and 20
-(bit sync), a GPS-rate pilot with the NH20 secondary at 20, and the Galileo
-E1 pilot (E1-C with CS25, 5 VEML taps) with the E1-B data-prompt tap at 5.
+Five cases: GPS L1 C/A with 3 taps at extend_correlation_symbols 1 and 20
+(bit sync), a GPS-rate pilot with the NH20 secondary at 20, the Galileo E1
+pilot (E1-C with CS25, 5 VEML taps) with the E1-B data-prompt tap at 5,
+and GPS at 20 with the second-order PLL (Tracking.order=2) on the wide
+and the narrow closure.  (tests/test_torch_kf_tracking.py holds the
+Kalman forms.)
 The channels are armed on truth START epochs into a noisy capture and put
 on edges with a NumPy seed: secondary sync about to hit, synced with
 polarity -1, a bit-sync histogram one transition short of dominance, a
@@ -65,6 +68,8 @@ def _confs(case, fs):
     kw = dict(fs=fs)
     if case == "gps_ext20":
         kw.update(extend_correlation_symbols=20)
+    if case == "gps_pll2_ext20":
+        kw.update(extend_correlation_symbols=20, pll_filter_order=2)
     if case == "nh20_pilot":   # tests/test_secondary_code.py's pilot conf
         kw.update(secondary_code=NH20, extend_correlation_symbols=20,
                   enable_fll_pullin=False, pll_bw_hz=20.0,
@@ -169,7 +174,7 @@ def _edge(case, c, a, rng):
     prompt = _port_correlate(c, a)[:, 2 if conf.very_early_late_space_chips
                                    else 1]
     sign = np.where(prompt.real >= 0, 1.0, -1.0).astype(np.float32)
-    if case == "gps_ext20":
+    if case in ("gps_ext20", "gps_pll2_ext20"):
         # 0: one transition short of bit sync, 1: a group restarts at the bit
         # start, 2: a group closes (and the window's last epoch), 3: inactive
         a["epoch"][:] = [ep + 23, ep + 61, window_end(2), ep + 30]
@@ -220,7 +225,8 @@ EXACT = ("active", "pos", "rem_code_phase", "rem_carr_phase",
          "lock_lost", "bit_hist", "prev_sign", "bit_synced", "bit_phase",
          "ext_n", "sec_buf", "sec_synced", "sec_off", "sec_polarity",
          "cn0_acc.count")
-CASES = {"gps_ext1": 1, "gps_ext20": 2, "nh20_pilot": 3, "e1_pilot": 4}
+CASES = {"gps_ext1": 1, "gps_ext20": 2, "nh20_pilot": 3, "e1_pilot": 4,
+         "gps_pll2_ext20": 5}
 
 
 def _rel(got, want):

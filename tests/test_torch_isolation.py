@@ -2,10 +2,11 @@
 CPU, and its state carries across intact.
 
 - no file of gnss_sim_receiver_tpu_torch/ nor chip_smoke.py imports jax or
-  gnss_sim_receiver_tpu (an AST scan), models/hybrid.py and
-  monitor/tcp_cmd.py, the port's copies of JAX modules free of jax, among
-  them;
-- the port acquires and tracks (GPS L1 C/A, and Galileo E1-B with the
+  gnss_sim_receiver_tpu (an AST scan), models/hybrid.py, models/dumps.py
+  and monitor/tcp_cmd.py, the port's copies of JAX modules free of jax,
+  among them;
+- the port acquires and tracks (GPS L1 C/A, on the loops and on the
+  Kalman tracker whose planes it dumps to a .mat file, and Galileo E1-B with the
   sign-recovery acquisition and 5 taps), builds the wideband chains and
   acquires E5a with the I/Q search, runs a streaming session and drives
   it over the TCP server, in a process where both names cannot be
@@ -97,8 +98,22 @@ res = eng.acquire_from(x, 0)
 assert list(res.detected) == [True, False], res
 te = trk.TrackingEngine(trk.TrackingConf(fs=fs), [7], device="cpu")
 te.start_tracking(0, float(res.doppler_hz[0]), int(res.delay_samples[0]))
+te.full_outputs = False               # the receiver's decimated pulls
 outs = te.process_end(te.process_begin(x, 0, 20, decim=10))
 assert outs["valid_full"].all() and outs["sample_counter"].shape == (2, 1)
+# the Kalman tracker's every-epoch planes, written and read back as the
+# reference's tracking dump (models/dumps.py, SciPy's .mat files)
+import tempfile
+from gnss_sim_receiver_tpu_torch.models import dumps
+te = trk.TrackingEngine(trk.TrackingConf(fs=fs, tracking_mode="kf"), [7],
+                        device="cpu")
+te.start_tracking(0, float(res.doppler_hz[0]), int(res.delay_samples[0]))
+outs = te.process(x, 0, 20)
+assert outs["valid"].all() and outs["early_mag"].shape == (20, 1)
+with tempfile.TemporaryDirectory() as tmp:
+    dumps.dump_tracking_mat(os.path.join(tmp, "trk.mat"), outs, channel=0)
+    mat = dumps.load_mat(os.path.join(tmp, "trk.mat"))
+assert np.array_equal(mat["Prompt_I"].ravel(), outs["prompt"][:, 0].real)
 # the device generator (K6's plain version) and the QuickSync, Tong and
 # Fine Doppler engines on its capture
 from gnss_sim_receiver_tpu_torch.sim.device_generator import (
@@ -189,6 +204,7 @@ te = trk.TrackingEngine(chain.trk, [12], code_provider=chain.code_provider,
                         device="cpu")
 assert te.taps.numel() == 5
 te.start_tracking(0, float(res.doppler_hz[0]), int(res.delay_samples[0]))
+te.full_outputs = False               # the receiver's decimated pulls
 outs = te.process_end(te.process_begin(x, 0, 10, decim=5))
 assert outs["valid_full"].all() and outs["sample_counter"].shape == (2, 1)
 GalileoE1bTelemetryDecoder([12]).process({"prompt": outs["prompt"],
@@ -204,7 +220,7 @@ te = trk.TrackingEngine(pilot.trk, [12], code_provider=pilot.code_provider,
 assert te.data_codes is not None and te.codes.shape == te.data_codes.shape
 te.start_tracking(0, float(res.doppler_hz[0]), int(res.delay_samples[0]))
 outs = te.process(x, 0, 10)
-assert outs["valid_full"].all() and int(te.state.epoch[0]) == 10
+assert outs["valid"].all() and int(te.state.epoch[0]) == 10
 assert len(inav.pages_for_ephemeris(
     __import__("gnss_sim_receiver_tpu_torch.nav.ephemeris",
                fromlist=["x"]).make_sky_constellation(40.0, -75.0,
@@ -264,6 +280,17 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
 """
+
+
+def test_dumps_module_is_the_ports_own():
+    """models/dumps.py, the port's copy of the JAX package's NumPy and
+    SciPy .mat dump writers, is scanned with the rest and imports neither
+    jax nor the JAX package (the blocked run writes and reads a dump)."""
+    path = ROOT / "gnss_sim_receiver_tpu_torch" / "models" / "dumps.py"
+    assert path in _port_files()
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN), roots
+    assert roots <= {"__future__", "numpy", "scipy"}, roots
 
 
 def test_monitor_is_the_ports_own():

@@ -18,8 +18,8 @@ control plane and the TCP telecommand server, against the JAX package.
 - tests/test_tcp_cmd.py's two cases against the port's server, a port
   session driven over the socket, and eight client threads' commands
   beside the main thread's feeds.
-- The refusals: feed with a chain on RF channel 1, collect_track_outputs,
-  base_observations.
+- The refusals: feed with a chain on RF channel 1, base_observations;
+  collect_track_outputs, once refused, accepted.
 """
 
 import dataclasses
@@ -332,10 +332,15 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="RF channel 1"):
         s.feed(np.zeros(1000, np.complex64))
     rx = prx.Receiver(_conf(prx), device="cpu")
-    for call in (lambda: rx.start_session(collect_track_outputs=True),
-                 lambda: rx.process_array(np.zeros(10, np.complex64),
-                                          collect_track_outputs=True),
-                 lambda: rx.start_session(base_observations=object())):
+    # collect_track_outputs is ported: every chain pulls every epoch's full
+    # planes, and a run that tracked nothing collects none
+    s = rx.start_session(collect_track_outputs=True)
+    assert s.collected == [] and s.max_mult == 8
+    assert all(rt.trk.full_outputs and rt.decim == 1 for rt in s.chains)
+    run = rx.process_array(np.zeros(10, np.complex64),
+                           collect_track_outputs=True)
+    assert run.track_outputs is None and not run.solutions
+    for call in (lambda: rx.start_session(base_observations=object()),):
         with pytest.raises(NotImplementedError, match="not ported"):
             call()
     s = rx.start_session()

@@ -119,8 +119,9 @@ def add_queries(d: Path) -> None:
     s = s.replace("    cluster_sync(cluster, n_cta);\n    if (leader && tid",
                   "    STAMP(1)\n    cluster_sync(cluster, n_cta);\n"
                   "    STAMP(2)\n    if (leader && tid")
-    s = s.replace("      __syncwarp();\n      epoch_close(",
-                  "      __syncwarp();\n      STAMP(3)\n      epoch_close(")
+    s = s.replace("      __syncwarp();\n      epoch_close<kForm>(",
+                  "      __syncwarp();\n      STAMP(3)\n"
+                  "      epoch_close<kForm>(")
     s = s.replace("      if (tid == 0) publish(in, st);\n    }\n"
                   "    cluster_sync(cluster, n_cta);\n  }",
                   "      if (tid == 0) publish(in, st);\n      STAMP(4)\n"
@@ -129,10 +130,10 @@ def add_queries(d: Path) -> None:
     s += '''
 extern "C" int probe_attrs(int* out) {
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, epoch_chunk_kernel);
+  cudaError_t e = cudaFuncGetAttributes(&a, epoch_chunk_kernel<kFormLoop3>);
   out[0] = a.numRegs;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], epoch_chunk_kernel,
-                                                256, 4096);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], epoch_chunk_kernel<kFormLoop3>, 256, 4096);
   return (int)e;
 }
 extern "C" int probe_stamps(void* dst) {
@@ -172,7 +173,7 @@ def probe_chunk(dev) -> None:
                     cuda_build.LIBRARIES["epoch_kernels"], epoch_flags(cap),
                     add_queries)
         lib.epoch_chunk.argtypes = [trk._EpochChunkArgs, I, I, P]
-        lib.epoch_chunk_max_clusters.argtypes = [I, I, I,
+        lib.epoch_chunk_max_clusters.argtypes = [I, I, I, I,
                                                  ctypes.POINTER(I)]
         attrs = (I * 2)()
         lib.probe_attrs(attrs)
@@ -183,7 +184,7 @@ def probe_chunk(dev) -> None:
         for cl in range(1, 17):
             n = I()
             lib.epoch_chunk_max_clusters(cl, C, trk.epoch_chunk_smem(
-                k2, n_out, cl), ctypes.byref(n))
+                k2, n_out, cl), trk.FORM_LOOP3, ctypes.byref(n))
             occ[cl] = n.value
         label = "capped at 128" if cap else "uncapped"
         print(f"chunk kernel, registers {label}: {attrs[0]} registers, "

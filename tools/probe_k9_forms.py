@@ -1,0 +1,138 @@
+"""Probe, on one CUDA card, the per-epoch closure K9 and the chunk kernel
+in each of their forms, and the loops' form against another tree's.
+
+    python3 tools/probe_k9_forms.py                   # the forms
+    python3 tools/probe_k9_forms.py --tree build/parent --parity
+
+Without --parity: builds the tracking library of this checkout and runs
+chip_smoke.py's phase 3 checks of the KF, gaussian and second-order PLL
+forms at GPS 2 Msps (C = 8, K = 3): K9 from edge states against its plain
+closure, then the chunk kernel against the two-launch chunk bit for bit
+over 50 epochs and against the plain loop, each timed (the quick check of
+a new form, about a minute).
+
+With --parity: imports the package and chip_smoke.py of the tree `--tree`
+(default: this checkout) and runs the chunk kernel at phase 3's four
+DLL/PLL K9 shapes (GPS at 20 Msps with k_ext 20, the Galileo E1 pilot at
+20 Msps, GPS at 2 Msps with k_ext 1 and 20) from the same seeded edge
+states and noise capture, printing per shape one JSON line: a SHA-256 of
+every plane and state field after 50 epochs, and the device milliseconds
+of a 50-epoch chunk and of the path's chunk by CUDA-graph replay.  Run it
+on two trees in one call (parent, change, change, parent) to hold the
+loops' bits and times across a change of the kernels.  Prints the card's
+name and power limit first.
+
+Needs the card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def parity(cs, trk, interop, torch) -> None:
+    """The DLL/PLL shapes of phase 3's K9_epoch_chunk rows: hashes, times."""
+    dev = torch.device("cuda")
+    shapes = (
+        ("GPS L1 C/A at 20 Msps, k_ext 20",
+         trk.TrackingConf(fs=cs.FS_REF_HYBRID, extend_correlation_symbols=20),
+         10, 1000, None),
+        ("Galileo E1 pilot at 20 Msps", cs.pilot_receiver_conf().chains[0].trk,
+         10, 250, cs.pilot_receiver_conf().chains[0]),
+        ("GPS L1 C/A at 2 Msps, k_ext 1", trk.TrackingConf(fs=cs.FS), 8, 30,
+         None),
+        ("GPS L1 C/A at 2 Msps, k_ext 20",
+         trk.TrackingConf(fs=cs.FS, extend_correlation_symbols=20), 8, 1000,
+         None))
+    for i, (label, conf, c, path_epochs, chain) in enumerate(shapes):
+        rng = np.random.default_rng(100 + i)
+        if chain is None:
+            eng = trk.TrackingEngine(conf, range(1, c + 1), device=dev)
+        else:
+            eng = trk.TrackingEngine(
+                conf, range(11, 11 + c), code_provider=chain.code_provider,
+                data_code_provider=chain.data_code_provider, device=dev)
+        st = cs.epoch_state(rng, conf, c, rng.choice([-1.0, 1.0], c), dev)
+        x = cs._cnoise(rng, (1 << 20) + (path_epochs + 2) * conf.block_size,
+                       dev)
+        t = cs.CHUNK_CHECK_EPOCHS
+        new, planes = trk.epoch_chunk(conf, t, eng.codes, eng.taps, x, st,
+                                      eng.data_codes)
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for k, _ in trk.EPOCH_PLANES:
+            h.update(planes[k].cpu().numpy().tobytes())
+        for k, v in sorted(interop.track_state_to_numpy(new).items()):
+            h.update(k.encode() + np.ascontiguousarray(v).tobytes())
+
+        def fixed(n_ep):
+            launch = trk.chunk_launch(conf, n_ep, eng.codes, eng.taps, x, st,
+                                      eng.data_codes)
+            return lambda: trk.launch_chunk(launch)
+        ms = cs.time_ms(fixed(t), reps=5)
+        ms_path = cs.time_ms(fixed(path_epochs), reps=2)
+        print(json.dumps({"shape": label, "sha256": h.hexdigest(),
+                          "ms": ms, "ms_per_epoch": ms / t,
+                          "ms_path_chunk": ms_path,
+                          "path_epochs": path_epochs}), flush=True)
+
+
+def forms(cs, trk, torch) -> None:
+    """chip_smoke.py's phase 3 checks of the new forms."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    rows = []
+    for kw, suffix, lab in cs.KALMAN_FORMS:
+        conf = trk.TrackingConf(fs=cs.FS, **kw)
+        rows.append(cs.check_k9(dev, rng, conf, 8, "K9_epoch_closure" + suffix,
+                                f"GPS L1 C/A at 2 Msps, {lab}"))
+        rows.append(cs.check_epoch_chunk_bits(
+            dev, rng, conf, 8, "K9_epoch_chunk" + suffix,
+            f"GPS L1 C/A at 2 Msps, {lab}", 1000))
+    rows.append(cs.check_k9(
+        dev, rng, trk.TrackingConf(fs=cs.FS, pll_filter_order=2,
+                                   extend_correlation_symbols=20), 8,
+        "K9_epoch_closure_pll2", "GPS L1 C/A at 2 Msps, second-order PLL, "
+        "k_ext 20"))
+    print(json.dumps({"rows": rows}))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--parity", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("probe_k9_forms: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from gnss_sim_receiver_tpu_torch import interop
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.ops import cuda_build
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip(), flush=True)
+    print(f"tree {Path(cs.__file__).parent}; built epoch_kernels in "
+          f"{cuda_build.build_all(('epoch_kernels',))['epoch_kernels']:.1f} "
+          "s", flush=True)
+    if args.parity:
+        parity(cs, trk, interop, torch)
+    else:
+        forms(cs, trk, torch)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
