@@ -215,7 +215,29 @@ Phases (any failure exits non-zero, before the result line):
    of K9 and of the chunk kernel, ``K9_epoch_chunk_kf``, ``_gaussian``
    and ``_pll2``, to the plain closure and the two-launch chunk at GPS
    2 Msps, C = 8, from edge states with a singular innovation matrix and
-   the posterior's floors).
+   the posterior's floors);
+14. the GPS L2C (CM) and Galileo E5b-I chains: (a) phase 4's six
+   satellites on L2C alone (45 dB-Hz, CNAV at 25 bps), 54 s made by K6
+   at 4 Msps and written as ishort, through the CLI with phase 4's
+   conditioner and 8 L2C channels: the cold search on the L2C grid (K3 at
+   M=1, D=168, N=80000, then K3b), the tracked set, >= 5 CNAV
+   ephemerides, >= 5 fixes (2D < 2 m, 3D < 5 m), every chunk on the chunk
+   kernel (decim 1), the real-time factor; (b) GPS L1 C/A and L2C on two
+   RF streams at 4 Msps (54 s, L2C on four of the six) through
+   attach_arrays twice: at a 100 ms observable interval the L2C blocks on
+   the block step at E = 2 (where the L2C loops lose lock, as JAX's do:
+   printed, not held), every L2C search assisted within 50 Hz of the L1
+   Doppler x f_L2 / f_L1, the position; at the default 20 ms the same and
+   each L2C Doppler within 1 Hz of its L1 channel's scaled over the last
+   second, CNAV decoded on each L2C channel, |PR_L2 - PR_L1| < 30 m, a fix
+   of both bands; (c) GPS L1 C/A at 4 Msps and Galileo E5b-I at 20 Msps (the
+   hybrid sky, 30 s): E5b searched cold, phase 5's checks on the joint
+   run, the E5b blocks on the block step.  Phase 3 holds the kernels at
+   these new shapes (the cold L2C search's wipeoff and peak, with the
+   search's time and peak memory; step two's and the 4 Msps assisted
+   search's K3b; the chunk kernel at L2C's 40000 and 80000 samples an
+   epoch; K8a, K8b and K1 at L2C's E = 2, at GPS L1 C/A 4 Msps and with
+   E5b-I's codes at phase 7's shape; K6 on the L2C and E5b skies).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -1928,16 +1950,17 @@ def k3_peak_row(corr, m: int, label, plain_reps: int):
         + f", tile {tile} lanes in {warps} warps")
 
 
-def narrow_table(eng):
+def narrow_table(eng, step=None):
     """A [C, D2] narrow Doppler table of `eng`'s two-step search: every
-    channel's 2 n2 + 1 bins, doppler_step2 apart, around a bin of the
-    coarse grid (channel c at bin 4 c, modulo the grid)."""
+    channel's 2 n2 + 1 bins, doppler_step2 apart (or `step`: the assisted
+    search's 62.5 Hz), around a bin of the coarse grid (channel c at bin
+    4 c, modulo the grid)."""
     import torch
     acq, dops = eng.conf, eng.dopplers
     c, d2 = eng.code_fft_conj.shape[0], 2 * acq.num_doppler_bins_step2 + 1
     centers = dops[(torch.arange(c, device=dops.device) * 4) % dops.shape[0]]
     offs = (torch.arange(d2, device=dops.device) - d2 // 2) \
-        * float(acq.doppler_step2)
+        * float(acq.doppler_step2 if step is None else step)
     return (centers[:, None] + offs[None, :]).to(torch.float32).contiguous()
 
 
@@ -3648,15 +3671,13 @@ def synthesize(fs: float, dur: float, n_samples=None) -> np.ndarray:
         noise=True, seed=42, bandlimit_oversample=4)
 
 
-def hybrid_sats():
-    """The hybrid scenario's satellites: GPS PRNs 1, 3, 4, 5 (LNAV) and
-    Galileo PRNs 11-15 (E1-B, I/NAV pages), 48 dB-Hz, the 26 s geometry
-    (tests/test_hybrid_position.py:25-58)."""
+def hybrid_ephemerides():
+    """The hybrid scenario's broadcast ephemerides: GPS PRNs 1, 3, 4, 5 of
+    the sky at toe = T0 + 600 and Galileo PRNs 11-15 on the other
+    satellites' orbits (toe on the 60 s I/NAV grid, BGD(E1,E5b) 0)."""
     import dataclasses
     from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
         make_sky_constellation
-    from gnss_sim_receiver_tpu_torch.sim.scenario import \
-        build_static_scenario
     base = make_sky_constellation(RX_LLH[0], RX_LLH[1], toe=T0 + 600)
     gps = [e for e in base if e.prn in HYB_GPS_PRNS]
     toe60 = round((T0 + 600) / 60.0) * 60.0   # INAV toe LSB is 60 s
@@ -3664,6 +3685,16 @@ def hybrid_sats():
                                toc=toe60, iod_nav=137, bgd_e1e5b=0.0)
            for prn, e in zip(HYB_GAL_PRNS, (e for e in base
                                             if e.prn not in HYB_GPS_PRNS))]
+    return gps, gal
+
+
+def hybrid_sats():
+    """The hybrid scenario's satellites: GPS PRNs 1, 3, 4, 5 (LNAV) and
+    Galileo PRNs 11-15 (E1-B, I/NAV pages), 48 dB-Hz, the 26 s geometry
+    (tests/test_hybrid_position.py:25-58)."""
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    gps, gal = hybrid_ephemerides()
     return build_static_scenario(gps + gal, rx_true_ecef(), T0, DUR,
                                  cn0_db_hz=48.0, subframe_cycle=(1, 2, 3))
 
@@ -3697,13 +3728,14 @@ def synthesize_hybrid(fs: float, n_samples: int) -> np.ndarray:
                              seed=17, bandlimit_oversample=4)
 
 
-def e5a_satellites(ephs, rx_ecef, t0: float, dur: float, cn0: float):
-    """Galileo E5a-I signals for Galileo ephemerides, as the scenario's L5
-    branch builds GPS L5 ones (the scenario builder has no E5a band):
-    the light-time delay fitted by a quadratic over `dur`, Doppler, code
-    Doppler and carrier phase on the 1176.45 MHz carrier, F/NAV pages from
-    `t0` spread by CS20 as per-epoch signs."""
-    from gnss_sim_receiver_tpu_torch.nav import fnav
+def offband_satellites(ephs, rx_ecef, t0: float, dur: float, cn0: float,
+                       signal: str, f_c: float, nav_bits):
+    """`signal` signals on the carrier `f_c` for ephemerides `ephs`, as the
+    scenario's L5 branch builds GPS L5 ones (the scenario builder has no
+    other band): the light-time delay fitted by a quadratic over `dur`,
+    Doppler, code Doppler and carrier phase on `f_c`, `nav_bits(eph)` the
+    satellite's signs (per symbol, or per code epoch where a secondary
+    code spreads the symbols)."""
     from gnss_sim_receiver_tpu_torch.sim import scenario
     from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
         SatelliteSignalParams
@@ -3715,17 +3747,26 @@ def e5a_satellites(ephs, rx_ecef, t0: float, dur: float, cn0: float):
         d0 = d[0]
         d2 = (d[2] - 2.0 * d[1] + d[0]) / (dur / 2.0) ** 2
         d1 = (d[2] - d[0]) / dur - d2 * dur / 2.0
-        pages = fnav.pages_for_ephemeris(
-            eph, t0, n_repeats=int(np.ceil((dur + 20.0) / 40.0)))
         out.append(SatelliteSignalParams(
-            prn=eph.prn, system="Galileo", signal="5X", cn0_db_hz=cn0,
-            doppler_hz=-F_L5 * d1, doppler_rate_hz_s=-F_L5 * d2,
+            prn=eph.prn, system=eph.system, signal=signal, cn0_db_hz=cn0,
+            doppler_hz=-f_c * d1, doppler_rate_hz_s=-f_c * d2,
             delay_sec=d0, delay_chips=0.0,
-            carrier_phase_rad=float(np.mod(-2.0 * np.pi * F_L5 * d0,
+            carrier_phase_rad=float(np.mod(-2.0 * np.pi * f_c * d0,
                                            2.0 * np.pi)),
-            code_doppler_hz=-F_L5 * d1, carrier_ref_hz=F_L5,
-            nav_bits=fnav.e5a_epoch_signs(pages, eph.prn)))
+            code_doppler_hz=-f_c * d1, carrier_ref_hz=f_c,
+            nav_bits=nav_bits(eph)))
     return out
+
+
+def e5a_satellites(ephs, rx_ecef, t0: float, dur: float, cn0: float):
+    """Galileo E5a-I signals for Galileo ephemerides: F/NAV pages from `t0`
+    spread by CS20 as per-epoch signs."""
+    from gnss_sim_receiver_tpu_torch.nav import fnav
+    n_rep = int(np.ceil((dur + 20.0) / 40.0))
+    return offband_satellites(
+        ephs, rx_ecef, t0, dur, cn0, "5X", F_L5,
+        lambda e: fnav.e5a_epoch_signs(
+            fnav.pages_for_ephemeris(e, t0, n_repeats=n_rep), e.prn))
 
 
 def wideband_sats():
@@ -5977,8 +6018,6 @@ def multiband_path(wrappers, card: str) -> dict:
     from gnss_sim_receiver_tpu_torch.models.acquisition import \
         PcpsAcquisitionEngine
     from gnss_sim_receiver_tpu_torch.models.control import ChannelState
-    from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
-    from gnss_sim_receiver_tpu_torch.ops import pcps
     from gnss_sim_receiver_tpu_torch.sim.device_generator import \
         generate_baseband_device_resident
     ephs, l1_sats, l5_sats = multiband_sats()
@@ -5998,42 +6037,11 @@ def multiband_path(wrappers, card: str) -> dict:
           f"{time.perf_counter() - t0:.3f} s (not timed)")
     conf = multiband_conf()
     f_ratio = constants.GPS_L5_FREQ_HZ / constants.GPS_L1_FREQ_HZ
-    windows = []
-    assisted = PcpsAcquisitionEngine.acquire_assisted
-
-    def acquire_assisted(self, x, start, centers, *a, **k):
-        windows.append((start / FS_MB_L5, list(centers)))
-        return assisted(self, x, start, centers, *a, **k)
-    PcpsAcquisitionEngine.acquire_assisted = acquire_assisted
-    shapes0 = (collections.Counter(pcps.pcps_wipe.shapes),
-               collections.Counter(pcps.pcps_peak.shapes))
-    tb.block_correlate_close.fold_shapes.clear()
-    tb.block_prologue.shapes.clear()
-    try:
-        session = Receiver(conf).start_session(ephemerides=dict(ephs))
-        # each observation epoch's channel -> PRN map, as the session holds
-        # it when the epoch is formed (re-acquisitions move PRNs between
-        # channels; a re-armed channel's history is cleared)
-        epoch_prns = []
-        solve = session._solve
-
-        def solve_logged(bound):
-            n0 = len(session.obs_epochs)
-            prns = [c.prn for rt in session.chains for c in rt.mgr.channels]
-            solve(bound)
-            epoch_prns.extend([prns] * (len(session.obs_epochs) - n0))
-        session._solve = solve_logged
-        reset(wrappers)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        session.attach_arrays({0: x1, 1: x5})
-        session.run_to_end()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        PcpsAcquisitionEngine.acquire_assisted = assisted
-    launches = read_launches(wrappers, MB_KERNELS)
-    run = session.result()
+    # each observation epoch's channel -> PRN map, as the session holds it
+    # when the epoch is formed (re-acquisitions move PRNs between
+    # channels; a re-armed channel's history is cleared): logged_session
+    session, run, launches, windows, wall, wipe, peak = assisted_session(
+        wrappers, conf, {0: x1, 1: x5}, ephs, MB_KERNELS, FS_MB_L5)
     del x1, x5
     torch.cuda.empty_cache()
     # the assisted searches
@@ -6041,35 +6049,11 @@ def multiband_path(wrappers, card: str) -> dict:
     states = list(zip(run.channel_prns, run.channel_states))
     l1_trk = sorted(p for p, s in states[:n1] if s == ChannelState.TRACKING)
     l5_trk = sorted(p for p, s in states[n1:] if s == ChannelState.TRACKING)
-    print(f"  L1 tracks {l1_trk}, L5 tracks {l5_trk}; searches "
-          f"{dict(session.searches)}; assist log {session.assist_log}")
+    print(f"  L1 tracks {l1_trk}, L5 tracks {l5_trk}")
     if l1_trk != list(SCENARIO_PRNS) or l5_trk != list(MB_L5_PRNS):
         fail(f"tracked L1 {l1_trk}, L5 {l5_trk}: expected "
              f"{list(SCENARIO_PRNS)} and {list(MB_L5_PRNS)}")
-    if session.searches[("L5", "cold")]:
-        fail(f"cold L5 searches: {dict(session.searches)}")
-    detected = {p for s, p, _, d in session.assist_log if s == "L5" and d}
-    if not set(l5_trk) <= detected:
-        fail(f"L5 PRNs {l5_trk} tracked, assisted detections {detected}")
-    truth = {s.prn: s for s in l1_sats}
-    centers = [c for _, cs in windows for c in cs]
-    if len(centers) != len(session.assist_log):
-        fail(f"{len(centers)} assisted centers, {len(session.assist_log)} "
-             "log entries")
-    worst = 0.0
-    k = 0
-    for t_win, cs in windows:
-        for c in cs:
-            _, prn, center, _ = session.assist_log[k]
-            k += 1
-            sat = truth[prn]
-            want = f_ratio * (sat.doppler_hz + sat.doppler_rate_hz_s * t_win)
-            worst = max(worst, abs(center - want))
-    print(f"  {len(session.assist_log)} assisted searches; the largest "
-          f"center error against the true L1 Doppler x f_L5/f_L1 {worst:.3f} "
-          "Hz")
-    if worst >= MB_ASSIST_TOL_HZ:
-        fail(f"an assisted center {worst:.3f} Hz off the scaled L1 Doppler")
+    check_assisted_centres(session, windows, l1_sats, f_ratio, "L5", l5_trk)
     # the fix and the two bands' observables
     check_run_position(run, min_fixes=5)
     both = [s for s in run.solutions if s.used_channels is not None
@@ -6077,15 +6061,7 @@ def multiband_path(wrappers, card: str) -> dict:
             and (s.used_channels >= n1).any()]
     if not both:
         fail("no fix used observables of both bands")
-    diffs = collections.defaultdict(list)
-    for ep, prns in zip(run.observation_epochs, epoch_prns):
-        for c5 in range(n1, len(prns)):
-            prn = prns[c5]
-            if not ep.valid[c5] or prn not in prns[:n1]:
-                continue
-            c1 = prns[:n1].index(prn)
-            if ep.valid[c1]:
-                diffs[prn].append(ep.pseudorange_m[c5] - ep.pseudorange_m[c1])
+    diffs = band_pr_diffs(run, session.epoch_prns, n1)
     worst_pr = {p: float(np.abs(d).max()) for p, d in diffs.items()}
     print(f"  {len(both)} of {len(run.solutions)} fixes use both bands; "
           f"max |PR_L5 - PR_L1| by PRN {worst_pr} m over "
@@ -6094,19 +6070,13 @@ def multiband_path(wrappers, card: str) -> dict:
             or max(worst_pr.values()) >= MB_PR_TOL_M:
         fail(f"L5 against L1 pseudoranges: {worst_pr}")
     # the launch counters at the new shapes
-    wipe = collections.Counter(pcps.pcps_wipe.shapes) - shapes0[0]
-    peak = collections.Counter(pcps.pcps_peak.shapes) - shapes0[1]
     n5 = PcpsAcquisitionEngine(conf.chains[1].acq, (1,), device="cuda"
                                ).fft_size
     k3b = sum(v for s, v in wipe.items() if len(s) == 4 and s[-1] == n5)
     k3 = sum(v for s, v in peak.items() if s[2] == 9 and s[-1] == n5)
     f8 = tb.block_fft_size(conf.chains[0].trk)
     f20 = tb.block_fft_size(conf.chains[1].trk)
-    folds = dict(tb.block_correlate_close.fold_shapes)
-    pro = dict(tb.block_prologue.shapes)
-    by_f = {f: (sum(v for s, v in pro.items() if s[2] == f),
-                sum(v for s, v in folds.items() if s[2] == f))
-            for f in (f8, f20)}
+    by_f = {f: block_counts(f, 20) for f in (f8, f20)}
     print(f"  assisted shape: K3b {k3b} launches at N={n5} ({dict(wipe)}), "
           f"K3's peak {k3} ({dict(peak)}); block step (K8a, folds) at "
           f"F={f8} (8 Msps) {by_f[f8]}, at F={f20} (20 Msps) {by_f[f20]}")
@@ -6469,6 +6439,774 @@ def live_path(root: str, wrappers, card: str, batch_rtf: float) -> dict:
     return launches
 
 
+# ---- phase 14: the GPS L2C (CM) and Galileo E5b-I chains -------------------
+
+F_L2 = 1_227.6e6
+F_E5B = 1_207.14e6
+# (a): L2C alone, 54 s.  A channel feeds the observables only after
+# fll_pullin_epochs + 2500 epochs of tracking (receiver.py's settle gate,
+# counted in epochs as JAX's: 2.5 s at 1 ms, 50.5 s at L2C's 20 ms; ROADMAP
+# queue 3), so the fixes start ~51 s in.  And channels acquired in a later
+# cold search are armed at the chain's front (~1 s) and miss the first
+# message (MT 10, 0-12 s): the decoder wants 400 bits (16 s) of symbols
+# behind a message's start (nav/cnav.py WINDOW_BITS), so their MT 10 of
+# 36-48 s decodes at ~51.5 s
+L2C_DUR = 54.0
+L2C_CN0 = 45.0
+L2C_CHANNELS = 8
+# (b): L1 C/A + L2C on two RF streams at 4 Msps, 54 s (the settle gate, as
+# (a)'s).  At a 100 ms observable interval the 20 ms L2C epoch is
+# decimated by 4 (receiver.py's min(interval, 90) // epoch) and runs on the
+# block step at E = 2, whose loops close once a 40 ms block: the L2C
+# channels lose lock within seconds of each acquisition, in the JAX package
+# too (with the FLL pull-in off they walk tens of Hz off within a second of
+# moving to the block step; ROADMAP.md queue 3).  So (b) runs the capture
+# twice: at 100 ms for the block step's launches, and at the default 20 ms
+# (decim 1, the chunk kernel) for the L2C chain's checks
+FS_L2C_MB = FS_FILE
+L2C_MB_DUR = 54.0
+L2C_MB_INTERVAL_MS = 100
+L2C_MB_PRNS = MB_L5_PRNS        # the four of phase 4's six with L2C signals
+L2C_DOPPLER_TOL_HZ = 1.0
+# (c): GPS L1 C/A + Galileo E5b-I, E5b at 20 Msps with phase 7's channels
+FS_E5B = FS_WIDEBAND
+E5B_DUR = 30.0
+E5B_CHANNELS = 10
+# Acquisition_7X.max_dwells: at the chain's 2 dwells of 1 ms (doubled), 4
+# of 60 searches of (c)'s sky at 48 dB-Hz put the Doppler 200 to 606 Hz
+# off; the decision-directed FLL (+-250 Hz at 1 ms, flip-proof for CS4)
+# then locks the channel 500 Hz off and its I/NAV never decodes, in JAX
+# too (ROADMAP.md queue 3).  8 dwells: none of 60 beyond 81 Hz (a CPU
+# count at 12.5 Msps)
+E5B_DWELLS = 8
+L2C_KERNELS = ("K9_epoch_chunk", "K3_pcps_wipe", "K3_pcps_peak",
+               "K3b_pcps_wipe_per_channel", "K5a_fir_decim")
+L2C_MB_KERNELS = ("K1_block_correlate", "K1_K8b_K8a_block_step",
+                  "K3_pcps_wipe", "K3_pcps_peak", "K3b_pcps_wipe_per_channel")
+E5B_KERNELS = L2C_MB_KERNELS
+
+# (a)'s conf: phase 4's conditioner and the L2C chain alone (no 1C channel:
+# the factory then drops the GPS L1 chain, as JAX's does)
+L2C_CONF = """\
+GNSS-SDR.internal_fs_sps=2000000
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={capture}
+SignalSource.item_type=ishort
+SignalSource.sampling_frequency=4000000
+InputFilter.implementation=Freq_Xlating_Fir_Filter
+InputFilter.number_of_taps=31
+InputFilter.cutoff=0.45
+InputFilter.decimation_factor=2
+InputFilter.IF=0
+Resampler.implementation=Pass_Through
+Channels_2S.count=8
+Channels.in_acquisition=8
+Acquisition_2S.implementation=GPS_L2_M_PCPS_Acquisition
+Tracking_2S.implementation=GPS_L2_M_DLL_PLL_Tracking
+Observables.implementation=Hybrid_Observables
+PVT.implementation=RTKLIB_PVT
+PVT.output_rate_ms=20
+"""
+
+
+def l2c_satellites(ephs, dur: float, cn0: float):
+    """GPS L2C CM signals: CNAV at 25 bps (one 50-sps symbol per 20 ms code
+    epoch) from T0, MT 10, 11, 30 cycling."""
+    from gnss_sim_receiver_tpu_torch.nav import cnav
+    n_rep = int(np.ceil((dur + 36.0) / 36.0))
+    return offband_satellites(
+        ephs, rx_true_ecef(), T0, dur, cn0, "2S", F_L2,
+        lambda e: (2 * cnav.symbols_for_ephemeris(
+            e, T0, n_repeats=n_rep, bps=25.0) - 1).astype(np.int8))
+
+
+def e5b_satellites(ephs, dur: float, cn0: float):
+    """Galileo E5b-I signals: I/NAV pages from T0 spread by CS4 as per-epoch
+    signs (nav.inav.e5b_epoch_signs)."""
+    from gnss_sim_receiver_tpu_torch.nav import inav
+    n_rep = int(np.ceil((dur + 12.0) / (5 * inav.PAGE_SECONDS)))
+    return offband_satellites(
+        ephs, rx_true_ecef(), T0, dur, cn0, "7X", F_E5B,
+        lambda e: inav.e5b_epoch_signs(
+            inav.pages_for_ephemeris(e, t0_gst_s=T0, n_repeats=n_rep)))
+
+
+def l2c_ephemerides():
+    """Phase 4's six satellites with toe = toc = T0, on both CNAV's 300 s
+    grid and LNAV's 16 s one (multiband_sats)."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    return [dataclasses.replace(e, toe=T0, toc=T0)
+            for e in make_sky_constellation(RX_LLH[0], RX_LLH[1], toe=T0)
+            if e.prn in SCENARIO_PRNS]
+
+
+def l2c_multiband_sats():
+    """(b)'s sky: phase 4's six satellites on L1 C/A (47 dB-Hz) and four of
+    them, L2C_MB_PRNS, on L2C (45 dB-Hz); one ephemeris each."""
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    ephs = l2c_ephemerides()
+    l1 = build_static_scenario(ephs, rx_true_ecef(), T0, L2C_MB_DUR,
+                               cn0_db_hz=47.0, subframe_cycle=(1, 2, 3))
+    l2 = l2c_satellites([e for e in ephs if e.prn in L2C_MB_PRNS],
+                        L2C_MB_DUR, L2C_CN0)
+    return {e.prn: e for e in ephs}, l1, l2
+
+
+def e5b_sky():
+    """(c)'s sky: the hybrid sky's GPS satellites on L1 C/A (LNAV, 48 dB-Hz)
+    and its Galileo satellites on E5b-I (48 dB-Hz)."""
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    gps, gal = hybrid_ephemerides()
+    l1 = build_static_scenario(gps, rx_true_ecef(), T0, E5B_DUR,
+                               cn0_db_hz=48.0, subframe_cycle=(1, 2, 3))
+    return gal, l1, e5b_satellites(gal, E5B_DUR, 48.0)
+
+
+def l1_chain_4msps():
+    """GPS L1 C/A on RF 0 at 4 Msps, 8 channels, acquisition on the x2
+    mean-pooled stream (phase 11's L1 chain at half its rate)."""
+    from gnss_sim_receiver_tpu_torch.models.acquisition import AcqConf
+    from gnss_sim_receiver_tpu_torch.models.receiver import SignalChainConf
+    from gnss_sim_receiver_tpu_torch.models.tracking import TrackingConf
+    dec = int(FS_L2C_MB // FS)
+    return SignalChainConf(
+        signal="1C", system="GPS", prns=tuple(range(1, 11)),
+        n_channels=MB_CHANNELS, max_acq_channels=MB_CHANNELS,
+        acq=AcqConf(fs_in=FS_L2C_MB / dec, max_dwells=2),
+        trk=TrackingConf(fs=FS_L2C_MB), acq_decim=dec)
+
+
+def l2c_multiband_conf():
+    """(b)'s receiver: l1_chain_4msps on RF 0 and gps_l2c_chain at 4 Msps on
+    RF 1 (8 channels, assist-gated), observables every 100 ms."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.models.receiver import (ReceiverConf,
+                                                             gps_l2c_chain)
+    l2 = dataclasses.replace(
+        gps_l2c_chain(FS_L2C_MB, prns=SCENARIO_PRNS, n_channels=MB_CHANNELS),
+        rf_channel_id=1)
+    return ReceiverConf(fs=FS_L2C_MB, prns=tuple(range(1, 11)),
+                        gps_chain=False, rf_fs={1: FS_L2C_MB},
+                        chains=(l1_chain_4msps(), l2),
+                        output_rate_ms=L2C_MB_INTERVAL_MS)
+
+
+def e5b_conf():
+    """(c)'s receiver: l1_chain_4msps on RF 0 and galileo_e5b_chain at
+    20 Msps on RF 1 (10 channels; no other Galileo band, so its assist gate
+    stays open and it searches cold), with the doubled FFT (CS4 flips the
+    sign at code epochs, and a 1 ms dwell cut by a flip puts the Doppler
+    peak off; phase 7's note) and E5B_DWELLS dwells."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.models.receiver import (
+        ReceiverConf, galileo_e5b_chain)
+    e5b = dataclasses.replace(
+        galileo_e5b_chain(FS_E5B, n_channels=E5B_CHANNELS), rf_channel_id=1)
+    e5b.acq = dataclasses.replace(e5b.acq, bit_transition_flag=True,
+                                  max_dwells=E5B_DWELLS)
+    return ReceiverConf(fs=FS_L2C_MB, prns=tuple(range(1, 11)),
+                        gps_chain=False, rf_fs={1: FS_E5B},
+                        chains=(l1_chain_4msps(), e5b))
+
+
+def check_l2c_e5b_shapes(dev, card: str, rows: list, extra: list) -> None:
+    """Phase 3 at phase 14's new shapes, each against its plain version
+    with its kernel's tolerance (the wipeoff also bit for bit its Triton
+    reference and the searches after it, wipe_case); rows named with
+    _L2C and _E5b go to `rows`, the others to `extra`:
+    - (a)'s cold L2C search at 2 Msps (gps_l2c_chain: one 20 ms dwell, the
+      doubled FFT of bit_transition_flag, 60 Hz steps over +-5 kHz): the
+      K3 wipeoff and K3's peak at M=1, C=8 (PRNs 1-8), D=168, N=80000 on
+      (a)'s sky made by K6; the whole two-step search timed and its peak
+      memory read (torch.cuda.max_memory_allocated above what is held,
+      the cuFFT plans' workspace included); step two's K3b (D2=9, 15 Hz)
+      and K3's peak there;
+    - (b)'s assisted L2C search at 4 Msps: K3b and K3's peak at M=1, C=8,
+      D2=9 (62.5 Hz), N=160000, the whole pcps_search_assisted against its
+      plain composition;
+    - (c)'s cold E5b search at 20 Msps: the wipeoff, K3b and K3's peak at
+      M=8 (E5B_DWELLS), C=10, D=41 and D2=9, N=40000;
+    - the chunk kernel at (a)'s shape (C=8, 40000 samples an epoch, the
+      path's chunk T=50) and at (b)'s (4 Msps, 80000 samples an epoch);
+    - K8a, K8b, K1 with both and the two-launch chunk at (b)'s L2C shape
+      (4 Msps, C=8, E=2) and at its L1 chain's (GPS L1 C/A at 4 Msps,
+      C=8, E=20); the same with E5b-I's code table at phase 7's shape
+      (20 Msps, C=10, E=20);
+    - K6 on (a)'s and (c)'s E5b skies."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import signals
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.receiver import (
+        galileo_e5b_chain, gps_l2c_chain)
+    from gnss_sim_receiver_tpu_torch.models.tracking import TrackingConf
+    from gnss_sim_receiver_tpu_torch.ops import pcps, prn_codes
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    rng = np.random.default_rng(14)
+    l2c_sats = l2c_satellites(l2c_ephemerides(), L2C_DUR, L2C_CN0)
+
+    def dwells(sats, fs, eng, seed):
+        m, n = eng.conf.max_dwells, eng.fft_size
+        return generate_baseband_device_resident(
+            sats, fs, m * n, noise=True, seed=seed, device=dev).reshape(m, n)
+
+    def peak(x, table, t, cfc, label, name=None):
+        """K3's peak on the correlations of `x` wiped by `table`."""
+        spec = torch.fft.fft(pcps.pcps_wipe(x, table, t), dim=-1)
+        if table.dim() == 1:
+            spec = spec[:, None]
+        corr = torch.fft.ifft(spec * cfc[None, :, None], dim=-1)
+        del spec
+        row = k3_peak_row(corr, x.shape[0], label, 3)
+        del corr
+        torch.cuda.empty_cache()
+        if name is None:
+            extra.append(row)
+        else:
+            row["name"] = name
+            rows.append(row)
+
+    # (a)'s cold search and its step two
+    l2c = gps_l2c_chain(FS, n_channels=L2C_CHANNELS)
+    eng = PcpsAcquisitionEngine(l2c.acq, tuple(range(1, L2C_CHANNELS + 1)),
+                                code_provider=l2c.code_provider,
+                                sc_rate=l2c.sc_rate, device=dev)
+    x = dwells(l2c_sats, FS, eng, 53)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    label = f"(a)'s cold L2C search at {FS / 1e6:g} Msps"
+    row = wipe_case(x, eng.dopplers, eng._t, label, k3_search(cfc, m), 3)
+    row["name"] = "K3_pcps_wipe_L2C"
+    rows.append(row)
+    peak(x, eng.dopplers, eng._t, cfc, label, "K3_pcps_peak_L2C")
+    search = (lambda: pcps.pcps_search_two_steps(
+        x, cfc, eng.dopplers, eng._t, two_steps=True,
+        n_side=int(l2c.acq.num_doppler_bins_step2),
+        step2=float(l2c.acq.doppler_step2), **eng._statistic()))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.cufft_plan_cache.clear()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    buf = search()
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - held) / 1e6
+    del buf
+    search_ms = time_ms(search, reps=3)
+    print(f"  the cold L2C search (M=1, C={cfc.shape[0]}, "
+          f"D={eng.dopplers.shape[0]}, N={eng.fft_size}, both steps, one "
+          f"packed buffer): {search_ms:.4f} ms, peak memory {peak_mb:.1f} MB "
+          f"above the {held / 1e6:.0f} MB held ({card})")
+    extra.append(dict(name="L2C_cold_search", route="cuda+cufft",
+                      ms=search_ms, peak_mb=peak_mb,
+                      shape=f"M=1, C={cfc.shape[0]}, D="
+                            f"{eng.dopplers.shape[0]}, N={eng.fft_size}, "
+                            "two steps"))
+    torch.cuda.empty_cache()
+    table = narrow_table(eng)
+    label2 = f"(a)'s L2C step two at {FS / 1e6:g} Msps"
+    row = wipe_case(x, table, eng._t, label2, k3_search(cfc, m), 3)
+    row["name"] = "K3b_pcps_wipe_per_channel_L2C"
+    rows.append(row)
+    peak(x, table, eng._t, cfc, label2)
+    del x
+    torch.cuda.empty_cache()
+    # (b)'s assisted search at 4 Msps
+    l2c4 = gps_l2c_chain(FS_L2C_MB, n_channels=L2C_CHANNELS)
+    eng = PcpsAcquisitionEngine(l2c4.acq, tuple(range(1, L2C_CHANNELS + 1)),
+                                code_provider=l2c4.code_provider,
+                                sc_rate=l2c4.sc_rate, device=dev)
+    x = dwells(l2c_multiband_sats()[2], FS_L2C_MB, eng, 55)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    table = narrow_table(eng, 62.5)
+    label = f"(b)'s assisted L2C search at {FS_L2C_MB / 1e6:g} Msps"
+    row = wipe_case(x, table, eng._t, label, k3_search(cfc, m), 3)
+    row["name"] = "K3b_pcps_wipe_per_channel_assisted_L2C"
+    rows.append(row)
+    peak(x, table, eng._t, cfc, label, "K3_pcps_peak_assisted_L2C")
+    got = pcps.pcps_search_assisted(x, cfc, table, eng._t)
+    stat, di, de = pcps.max_to_input_power_stat(
+        pcps.pcps_grid_per_channel(x, cfc, table, FS_L2C_MB), float(m))
+    want = torch.stack([stat, torch.gather(table, 1, di.long()[:, None])[:, 0],
+                        de.to(torch.float32)])
+    torch.cuda.synchronize()
+    compare(f"pcps_search_assisted ({label}) statistic", got[0], want[0],
+            1e-4)
+    compare(f"pcps_search_assisted ({label}) cells", got[1:], want[1:], 0.0)
+    del x, got, want, stat, di, de
+    torch.cuda.empty_cache()
+    # (c)'s cold E5b search at 20 Msps: E5B_DWELLS dwells, doubled FFT
+    e5c = e5b_conf().chains[1]
+    eng = PcpsAcquisitionEngine(e5c.acq, tuple(range(11, 11 + E5B_CHANNELS)),
+                                code_provider=e5c.code_provider,
+                                sc_rate=e5c.sc_rate, device=dev)
+    x = dwells(e5b_sky()[2], FS_E5B, eng, 59)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    label = f"(c)'s cold E5b search at {FS_E5B / 1e6:g} Msps"
+    for table, lab in ((eng.dopplers, label),
+                       (narrow_table(eng), label + ", step two")):
+        extra.append(wipe_case(x, table, eng._t, lab, k3_search(cfc, m), 3))
+        peak(x, table, eng._t, cfc, lab)
+    del x
+    torch.cuda.empty_cache()
+    # the chunk kernel at (a)'s shape and at (b)'s L2C chain's
+    rows.append(check_epoch_chunk_bits(
+        dev, rng, l2c.trk, L2C_CHANNELS, "K9_epoch_chunk_L2C",
+        f"GPS L2C CM at {FS / 1e6:g} Msps", 50, chain=l2c))
+    torch.cuda.empty_cache()
+    l2mb = l2c_multiband_conf().chains[1]
+    extra.append(check_epoch_chunk_bits(
+        dev, rng, l2mb.trk, L2C_CHANNELS, "K9_epoch_chunk_L2C",
+        f"GPS L2C CM at {FS_L2C_MB / 1e6:g} Msps", 50, chain=l2mb))
+    torch.cuda.empty_cache()
+    # the block step at (b)'s two shapes and with E5b's table at phase 7's
+    k8 = ("K8a_block_prologue", "K8b_block_closure",
+          "K1_K8b_block_correlate_close", "K1_K8b_K8a_block_step")
+    taps = (0.25, 0.0, -0.25)
+    gps4 = TrackingConf(fs=FS_L2C_MB)
+    e5b = galileo_e5b_chain(FS_E5B, n_channels=E5B_CHANNELS).trk
+    for conf_, c_, prov, n_wins, suffix, lab in (
+            (l2c4.trk, L2C_CHANNELS, l2c4.code_provider, 50, "_L2C",
+             f"GPS L2C CM at {FS_L2C_MB / 1e6:g} Msps"),
+            (gps4, MB_CHANNELS, prn_codes.gps_l1_ca_code, 1000, "_4Msps",
+             f"GPS L1 C/A at {FS_L2C_MB / 1e6:g} Msps"),
+            (e5b, E5B_CHANNELS, signals.CodeProvider("7X"), 1000, "_E5b",
+             f"Galileo E5b-I at {FS_E5B / 1e6:g} Msps")):
+        got = check_k8(dev, rng, conf_, c_, taps, prov, n_wins,
+                       tuple(n + suffix for n in k8), lab)
+        if suffix == "_4Msps":
+            extra += got
+        else:
+            rows += [got[0], got[3]]
+            extra += got[1:3]
+        torch.cuda.empty_cache()
+        extra.append(check_block_chunk_bits(dev, rng, conf_, c_, taps, prov,
+                                            lab))
+        torch.cuda.empty_cache()
+    # K6 on the new skies
+    for fs, sats, dur, seed, name, lab in (
+            (FS_FILE, l2c_sats, L2C_DUR, 51, "K6_device_generator_L2C",
+             f"(a)'s L2C sky at {FS_FILE / 1e6:g} Msps"),
+            (FS_E5B, e5b_sky()[2], E5B_DUR, 57, "K6_device_generator_E5b",
+             f"(c)'s E5b sky at {FS_E5B / 1e6:g} Msps")):
+        row = check_k6(dev, fs, sats, dur, seed, lab)
+        row["name"] = name
+        rows.append(row)
+        torch.cuda.empty_cache()
+
+
+def shape_counts() -> tuple:
+    """The wipeoff's and K3's peak's launch counters by shape, copied."""
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    return (collections.Counter(pcps.pcps_wipe.shapes),
+            collections.Counter(pcps.pcps_peak.shapes))
+
+
+def block_counts(f: int, e: int) -> tuple:
+    """(K8a launches, folded K1 launches) at FFT length `f` and E = `e`
+    since the shape counters were cleared."""
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    pro = sum(v for s, v in tb.block_prologue.shapes.items()
+              if s[1] == e and s[2] == f)
+    fold = sum(v for s, v in tb.block_correlate_close.fold_shapes.items()
+               if s[1] == e and s[2] == f)
+    return pro, fold
+
+
+def l2c_path(root: str, wrappers, card: str) -> dict:
+    """Phase 14(a): L2C alone through the CLI.  K6 makes (a)'s sky (phase
+    4's six satellites on L2C CM, 45 dB-Hz, CNAV at 25 bps, toe = toc =
+    T0) at 4 Msps for L2C_DUR seconds and it is written as ishort (its
+    launches counted apart); the counters are set to 0 just before
+    run_cli(L2C_CONF) and read just after.  Checks: the cold search on the
+    L2C grid (the wipeoff at M=1, D=168, N=80000, K3's peak there, K3b at
+    step two) and no assisted one, phase 4's tracked set, >= 5 CNAV
+    ephemerides, >= 5 fixes with 2D < 2 m and 3D < 5 m, every chunk on
+    the chunk kernel and none on the block kernels (decim 1 at the 20 ms
+    interval); the real-time factor printed."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    path = os.path.join(root, "build", "l2c_scenario_54s_4msps_v1.ishort")
+    sats = l2c_satellites(l2c_ephemerides(), L2C_DUR, L2C_CN0)
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = generate_baseband_device_resident(sats, FS_FILE,
+                                          int(FS_FILE * L2C_DUR), noise=True,
+                                          seed=51, device="cuda")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_samples(path, x, "ishort", scale=200.0)
+    del x
+    torch.cuda.empty_cache()
+    k6 = read_launches(wrappers, ("K6_device_generator",))
+    print(f"  K6 made and wrote {os.path.getsize(path) / 1e6:.0f} MB ishort "
+          f"at {FS_FILE / 1e6:g} Msps in {time.perf_counter() - t0:.3f} s "
+          "(not timed)")
+    conf = os.path.join(root, "build", "chip_smoke_l2c.conf")
+    with open(conf, "w") as fh:
+        fh.write(L2C_CONF.format(capture=path))
+    shapes0 = shape_counts()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    res = run_cli([f"--config_file={conf}"])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, L2C_KERNELS)
+    os.remove(path)
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    run = res.run
+    check_run(run, min_fixes=5)
+    n_eph = len(run.ephemerides)
+    print(f"  CNAV ephemerides of PRNs {sorted(run.ephemerides)}")
+    if n_eph < 5:
+        fail(f"{n_eph} CNAV ephemerides")
+    wipe, peak = (a - b for a, b in zip(shape_counts(), shapes0))
+    n = 2 * int(round(FS * 0.02))
+    cold = sum(v for s, v in wipe.items() if len(s) == 3 and s[0] == 1
+               and s[-1] == n and s[1] == 168)
+    step2 = sum(v for s, v in wipe.items() if len(s) == 4 and s[0] == 1
+                and s[2] == 9 and s[-1] == n)
+    cold_peak = sum(v for s, v in peak.items() if s[2] == 168 and s[-1] == n)
+    print(f"  the wipeoff by shape {dict(wipe)}, K3's peak {dict(peak)}")
+    if not (cold and step2 and cold_peak == cold):
+        fail(f"(a) did not search cold on the L2C grid: {dict(wipe)}")
+    blocks = [launches[k] for k in ("K1_block_correlate",
+                                    "K8a_block_prologue",
+                                    "K1_K8b_K8a_block_step")]
+    if any(blocks):
+        fail(f"(a) launched the block kernels {blocks} at decim 1")
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  K9's chunk kernel: {launches['K9_epoch_chunk']} launches, "
+          f"{launches['K9_epoch_chunk_epochs']} epochs; seconds: read "
+          f"{sec['read']:.3f}, upload and conditioning {sec['condition']:.3f}"
+          f", receiver {sec['receiver']:.3f}")
+    print(f"  wall {wall:.3f} s from file open to the last fix for "
+          f"{L2C_DUR:.0f} s of signal: real-time factor "
+          f"{L2C_DUR / wall:.3f} ({card})")
+    launches.update({"K6_device_generator": k6["K6_device_generator"],
+                     "K6_device_generator_L2C": k6["K6_device_generator"],
+                     "K3_pcps_wipe_L2C": cold, "K3_pcps_peak_L2C": cold_peak,
+                     "K3b_pcps_wipe_per_channel_L2C": step2,
+                     "K9_epoch_chunk_L2C": launches["K9_epoch_chunk"]})
+    return launches
+
+
+def band_pr_diffs(run, epoch_prns, n1: int) -> dict:
+    """PRN -> [PR_band2 - PR_band1] at the observation epochs where both of
+    its channels are valid: channels [0, n1) the first band's, the rest
+    the second's, `epoch_prns` each epoch's channel -> PRN map."""
+    diffs = collections.defaultdict(list)
+    for ep, prns in zip(run.observation_epochs, epoch_prns):
+        for c2 in range(n1, len(prns)):
+            prn = prns[c2]
+            if not ep.valid[c2] or prn not in prns[:n1]:
+                continue
+            c1 = prns[:n1].index(prn)
+            if ep.valid[c1]:
+                diffs[prn].append(ep.pseudorange_m[c2] - ep.pseudorange_m[c1])
+    return diffs
+
+
+def logged_session(conf, ephemerides=None):
+    """A session of `conf` whose observation epochs are logged with the
+    channel -> PRN map the session holds when each is formed."""
+    from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
+    session = Receiver(conf).start_session(ephemerides=ephemerides)
+    session.epoch_prns = []
+    solve = session._solve
+
+    def solve_logged(bound):
+        n0 = len(session.obs_epochs)
+        prns = [c.prn for rt in session.chains for c in rt.mgr.channels]
+        solve(bound)
+        session.epoch_prns.extend([prns] * (len(session.obs_epochs) - n0))
+    session._solve = solve_logged
+    return session
+
+
+def assisted_session(wrappers, conf, arrays: dict, ephs, kernels,
+                     fs2: float) -> tuple:
+    """One run of `conf` through attach_arrays(arrays) + run_to_end,
+    warm-started with `ephs` (logged_session): the counters set to 0 just
+    before and read just after; each assisted search's window (seconds at
+    the assisted chain's rate `fs2`) and centres logged.  Returns
+    (session, run, launches, windows, wall seconds, the wipeoff's and K3's
+    peak's launches by shape in the run); the block step's shape counters
+    hold the run's alone."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    windows = []
+    assisted = PcpsAcquisitionEngine.acquire_assisted
+
+    def acquire_assisted(self, x, start, centers, *a, **k):
+        windows.append((start / fs2, list(centers)))
+        return assisted(self, x, start, centers, *a, **k)
+    PcpsAcquisitionEngine.acquire_assisted = acquire_assisted
+    shapes0 = shape_counts()
+    tb.block_correlate_close.fold_shapes.clear()
+    tb.block_prologue.shapes.clear()
+    try:
+        session = logged_session(conf, dict(ephs))
+        reset(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.attach_arrays(arrays)
+        session.run_to_end()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        PcpsAcquisitionEngine.acquire_assisted = assisted
+    launches = read_launches(wrappers, kernels)
+    wipe, peak = (a - b for a, b in zip(shape_counts(), shapes0))
+    return session, session.result(), launches, windows, wall, wipe, peak
+
+
+def check_assisted_centres(session, windows, l1_sats, f_ratio: float,
+                           sig: str, tracked=None) -> None:
+    """The secondary band `sig`'s searches: every one assisted (none
+    cold), each centre within 50 Hz of the true L1 Doppler at its window x
+    `f_ratio` (tests/test_assisted_acq.py's bound), and with `tracked`
+    each tracked PRN among the assisted detections."""
+    print(f"  searches {dict(session.searches)}; assist log "
+          f"{session.assist_log}")
+    if session.searches[(sig, "cold")] or not session.assist_log:
+        fail(f"{sig} searches: {dict(session.searches)}")
+    truth = {s.prn: s for s in l1_sats}
+    centers = [(t_win, c) for t_win, cs in windows for c in cs]
+    if len(centers) != len(session.assist_log):
+        fail(f"{len(centers)} assisted centres, {len(session.assist_log)} "
+             "log entries")
+    worst = 0.0
+    for (t_win, c), (_, prn, center, _) in zip(centers, session.assist_log):
+        sat = truth[prn]
+        want = f_ratio * (sat.doppler_hz + sat.doppler_rate_hz_s * t_win)
+        worst = max(worst, abs(center - want))
+    print(f"  {len(session.assist_log)} assisted searches; the largest "
+          f"centre error against the true L1 Doppler x f_{sig}/f_L1 "
+          f"{worst:.3f} Hz")
+    if worst >= MB_ASSIST_TOL_HZ:
+        fail(f"an assisted centre {worst:.3f} Hz off the scaled L1 Doppler")
+    if tracked is not None:
+        detected = {p for s, p, _, d in session.assist_log
+                    if s == sig and d}
+        if not set(tracked) <= detected:
+            fail(f"{sig} PRNs {tracked} tracked, assisted detections "
+                 f"{detected}")
+
+
+def l2c_multiband_path(wrappers, card: str) -> dict:
+    """Phase 14(b): L1 C/A + L2C on two RF streams at 4 Msps, as phase 11
+    builds its receiver (warm-started with the sky's ephemerides).  K6
+    makes both streams of (b)'s sky once (its launches counted apart);
+    two runs on them, each with the counters set to 0 just before
+    attach_arrays({0: L1, 1: L2C}) + run_to_end and read just after:
+    - at a 100 ms observable interval, the L2C blocks on the block step at
+      E = 2 (checked by its launches at L2C's F and E), every L2C search
+      assisted within 50 Hz, L1 on phase 4's six and the position.  There
+      the L2C loops lose lock again and again, as JAX's do (ROADMAP.md
+      queue 3): their loss-of-lock events and their last Dopplers are
+      printed, not held;
+    - at the default 20 ms interval (decim 1, the chunk kernel): the same
+      checks, L2C on its four PRNs, each L2C channel's Doppler within 1 Hz
+      of its L1 channel's x f_L2 / f_L1 (the mean over the last second of
+      observation epochs), CNAV decoded on each, |PR_L2 - PR_L1| < 30 m
+      and a fix of both bands."""
+    import dataclasses
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.control import (ChannelEvent,
+                                                            ChannelState)
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    ephs, l1_sats, l2_sats = l2c_multiband_sats()
+    reset(wrappers)
+    n = int(FS_L2C_MB * L2C_MB_DUR)
+    x1 = generate_baseband_device_resident(l1_sats, FS_L2C_MB, n, noise=True,
+                                           seed=61, device="cuda")
+    x2 = generate_baseband_device_resident(l2_sats, FS_L2C_MB, n, noise=True,
+                                           seed=62, device="cuda")
+    torch.cuda.synchronize()
+    k6 = read_launches(wrappers, ("K6_device_generator",))
+    conf = l2c_multiband_conf()
+    n1 = conf.chains[0].n_channels
+    f_ratio = F_L2 / 1_575.42e6
+    n2 = PcpsAcquisitionEngine(conf.chains[1].acq, (1,), device="cuda"
+                               ).fft_size
+    f2 = tb.block_fft_size(conf.chains[1].trk)
+
+    def tracked(run):
+        states = list(zip(run.channel_prns, run.channel_states))
+        return [sorted(p for p, s in part if s == ChannelState.TRACKING)
+                for part in (states[:n1], states[n1:])]
+
+    # the block step at E = 2
+    print(f"  (b1) observables every {L2C_MB_INTERVAL_MS} ms: L2C decim "
+          f"{min(L2C_MB_INTERVAL_MS, 90) // 20} on the block step at E = 2",
+          flush=True)
+    session, run, launches, windows, wall, _, _ = assisted_session(
+        wrappers, conf, {0: x1, 1: x2}, ephs, L2C_MB_KERNELS, FS_L2C_MB)
+    l1_trk, l2_trk = tracked(run)
+    check_assisted_centres(session, windows, l1_sats, f_ratio, "2S")
+    if l1_trk != list(SCENARIO_PRNS):
+        fail(f"tracked L1 {l1_trk}, expected {list(SCENARIO_PRNS)}")
+    check_run_position(run, min_fixes=5)
+    pro, fold = block_counts(f2, 2)
+    rt2 = session.chains[1]
+    lost = sum(1 for c, ev in run.events
+               if c >= n1 and ev == ChannelEvent.TRK_LOST)
+    print(f"  the L2C block step at E=2, F={f2}: K8a {pro}, folds {fold}; "
+          f"L2C tracks {l2_trk} at the end after {lost} losses of lock, CNAV "
+          f"messages {[sorted(st.msgs) for st in rt2.tlm.ch]} (reproduced: "
+          f"JAX's block step at E = 2 holds no L2C lock either)")
+    if not (pro and fold):
+        fail("(b1) did not run the L2C blocks on the block step at E = 2")
+    print(f"  wall {wall:.3f} s for {L2C_MB_DUR:.0f} s of two RF streams: "
+          f"real-time factor {L2C_MB_DUR / wall:.3f} ({card})")
+    block_launches = {"K8a_block_prologue_L2C": pro,
+                      "K1_K8b_K8a_block_step_L2C": fold}
+    torch.cuda.empty_cache()
+    # the chunk kernel at the default interval
+    print("  (b2) observables every 20 ms: L2C decim 1 on the chunk kernel",
+          flush=True)
+    conf = dataclasses.replace(conf, output_rate_ms=20, obs=None)
+    session, run, launches, windows, wall, wipe, peak = assisted_session(
+        wrappers, conf, {0: x1, 1: x2}, ephs, L2C_KERNELS[:4], FS_L2C_MB)
+    del x1, x2
+    torch.cuda.empty_cache()
+    l1_trk, l2_trk = tracked(run)
+    print(f"  L1 tracks {l1_trk}, L2C tracks {l2_trk}")
+    if l1_trk != list(SCENARIO_PRNS) or l2_trk != list(L2C_MB_PRNS):
+        fail(f"tracked L1 {l1_trk}, L2C {l2_trk}: expected "
+             f"{list(SCENARIO_PRNS)} and {list(L2C_MB_PRNS)}")
+    check_assisted_centres(session, windows, l1_sats, f_ratio, "2S", l2_trk)
+    # each L2C channel's Doppler against its L1 channel's, the mean over
+    # the last second of observation epochs where both are valid
+    rt2 = session.chains[1]
+    cnav = {ch.prn: sorted(rt2.tlm.ch[c].msgs)
+            for c, ch in enumerate(rt2.mgr.channels)
+            if ch.state == ChannelState.TRACKING}
+    pairs = collections.defaultdict(list)
+    for ep, prns in zip(run.observation_epochs, session.epoch_prns):
+        for c2 in range(n1, len(prns)):
+            if ep.valid[c2] and prns[c2] in prns[:n1]:
+                c1 = prns[:n1].index(prns[c2])
+                if ep.valid[c1]:
+                    pairs[prns[c2]].append(
+                        ep.carrier_doppler_hz[c2]
+                        - ep.carrier_doppler_hz[c1] * f_ratio)
+    last = 1000 // 20
+    errs = {p: float(np.mean(d[-last:])) for p, d in pairs.items()}
+    print(f"  L2C Doppler - L1 Doppler x f_L2/f_L1 over the last second by "
+          f"PRN {errs} Hz; CNAV messages decoded by PRN {cnav}")
+    if sorted(errs) != list(L2C_MB_PRNS) or any(
+            len(pairs[p]) < last or abs(v) >= L2C_DOPPLER_TOL_HZ
+            for p, v in errs.items()):
+        fail(f"L2C Dopplers off the scaled L1 ones: {errs}")
+    if sorted(p for p, m in cnav.items() if m) != list(L2C_MB_PRNS):
+        fail(f"CNAV decoded on {cnav}")
+    check_run_position(run, min_fixes=5)
+    both = [s for s in run.solutions if s.used_channels is not None
+            and (s.used_channels < n1).any()
+            and (s.used_channels >= n1).any()]
+    diffs = band_pr_diffs(run, session.epoch_prns, n1)
+    worst_pr = {p: float(np.abs(d).max()) for p, d in diffs.items()}
+    print(f"  {len(both)} of {len(run.solutions)} fixes use both bands; "
+          f"max |PR_L2 - PR_L1| by PRN {worst_pr} m")
+    if not both or sorted(diffs) != list(L2C_MB_PRNS) \
+            or max(worst_pr.values()) >= MB_PR_TOL_M:
+        fail(f"both-band fixes {len(both)}, L2C against L1 pseudoranges "
+             f"{worst_pr}")
+    k3b = sum(v for s, v in wipe.items() if len(s) == 4 and s[-1] == n2)
+    k3 = sum(v for s, v in peak.items() if s[2] == 9 and s[-1] == n2)
+    print(f"  assisted shape: K3b {k3b} launches at N={n2}, K3's peak {k3}; "
+          f"K9's chunk kernel {launches['K9_epoch_chunk']} launches, "
+          f"{launches['K9_epoch_chunk_epochs']} epochs (both chains' tails)")
+    if not (k3b and k3 == k3b):
+        fail("(b2) did not launch K3b and K3 at the assisted shape")
+    print(f"  wall {wall:.3f} s for {L2C_MB_DUR:.0f} s of two RF streams: "
+          f"real-time factor {L2C_MB_DUR / wall:.3f} ({card})")
+    launches.update({
+        "K6_device_generator": k6["K6_device_generator"],
+        "K3b_pcps_wipe_per_channel_assisted_L2C": k3b,
+        "K3_pcps_peak_assisted_L2C": k3, **block_launches})
+    return launches
+
+
+def e5b_path(wrappers, card: str) -> dict:
+    """Phase 14(c): GPS L1 C/A on RF 0 at 4 Msps and Galileo E5b-I on RF 1
+    at 20 Msps, E5B_DUR seconds of (c)'s sky made by K6 (the E5b stream's
+    launches counted apart), through attach_arrays + run_to_end from a
+    cold start (no ephemerides).  Checks: E5b searched cold, phase 5's
+    checks (GPS PRNs 1, 3, 4, 5 and Galileo PRNs 11-15 tracked, their
+    LNAV and I/NAV ephemerides, >= 5 fixes, the last with >= 7
+    satellites, 2D < 2 m, 3D < 5 m), the E5b blocks on the block step."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    gal, l1_sats, e5b_sats = e5b_sky()
+    print(f"  the sky's BGD(E1,E5b) by Galileo PRN "
+          f"{ {e.prn: e.bgd_e1e5b for e in gal} } s")
+    reset(wrappers)
+    x1 = generate_baseband_device_resident(
+        l1_sats, FS_L2C_MB, int(FS_L2C_MB * E5B_DUR), noise=True, seed=71,
+        device="cuda")
+    torch.cuda.synchronize()
+    k6 = read_launches(wrappers, ("K6_device_generator",))[
+        "K6_device_generator"]
+    reset(wrappers)
+    x2 = generate_baseband_device_resident(
+        e5b_sats, FS_E5B, int(FS_E5B * E5B_DUR), noise=True, seed=57,
+        device="cuda")
+    torch.cuda.synchronize()
+    k6_e5b = read_launches(wrappers, ("K6_device_generator",))[
+        "K6_device_generator"]
+    conf = e5b_conf()
+    tb.block_correlate_close.fold_shapes.clear()
+    tb.block_prologue.shapes.clear()
+    session = logged_session(conf)
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.attach_arrays({0: x1, 1: x2})
+    session.run_to_end()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers, E5B_KERNELS)
+    run = session.result()
+    del x1, x2
+    torch.cuda.empty_cache()
+    print(f"  searches {dict(session.searches)}")
+    if not session.searches[("7X", "cold")] \
+            or session.searches[("7X", "assisted")]:
+        fail(f"E5b did not search cold alone: {dict(session.searches)}")
+    check_hybrid_run(run)
+    f2 = tb.block_fft_size(conf.chains[1].trk)
+    pro, fold = block_counts(f2, 20)
+    print(f"  the E5b block step at E=20, F={f2}: K8a {pro}, folds {fold}")
+    if not (pro and fold):
+        fail("(c) did not run E5b's blocks on the block step")
+    print(f"  wall {wall:.3f} s for {E5B_DUR:.0f} s of two RF streams: "
+          f"real-time factor {E5B_DUR / wall:.3f} ({card})")
+    launches.update({"K6_device_generator": k6 + k6_e5b,
+                     "K6_device_generator_E5b": k6_e5b,
+                     "K8a_block_prologue_E5b": pro,
+                     "K1_K8b_K8a_block_step_E5b": fold})
+    return launches
+
+
 def profile_path(run) -> None:
     """`--profile`: `run()` (one run of a path, returning a line to print)
     twice more, plain and under torch.profiler: wall time, device busy
@@ -6538,7 +7276,7 @@ def main() -> int:
 
 
 def run_phases(root: str, card: str, procs: dict) -> int:
-    """Phases 2 to 12 and the result lines; `procs` are the synthesis
+    """Phases 2 to 14 and the result lines; `procs` are the synthesis
     children (none with --kernels-only)."""
     import torch
     from gnss_sim_receiver_tpu_torch import signals
@@ -6762,6 +7500,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     check_wideband_shapes(dev, rng, extra)
     check_k3_search_shapes(dev, extra)
     check_wipe_path_shapes(dev, extra)
+    check_l2c_e5b_shapes(dev, card, rows, extra)
     rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
              *check_k5d(dev, rng)]
     torch.cuda.empty_cache()
@@ -6954,16 +7693,50 @@ def run_phases(root: str, card: str, procs: dict) -> int:
           "process_array, collect_track_outputs with the .mat dumps, the "
           "second-order PLL)", flush=True)
     launches.update(kalman_path(root, wrappers, card))
-    # K6's launches: the captures of phases 5, 6, 7, 8, 10 and 11
+    torch.cuda.empty_cache()
+    print("== phase 14(a): GPS L2C CM alone through the CLI (device "
+          f"generator -> {L2C_DUR:.0f} s ishort file at "
+          f"{FS_FILE / 1e6:g} Msps -> conditioner -> 8 L2C channels, cold "
+          "search -> CNAV -> position)", flush=True)
+    l2c = l2c_path(root, wrappers, card)
+    torch.cuda.empty_cache()
+    print("== phase 14(b): GPS L1 C/A + L2C on two RF streams at "
+          f"{FS_L2C_MB / 1e6:g} Msps (attach_arrays, L2C assisted; "
+          f"observables every {L2C_MB_INTERVAL_MS} ms: L2C on the block "
+          "step at E = 2, then every 20 ms: on the chunk kernel)",
+          flush=True)
+    l2mb = l2c_multiband_path(wrappers, card)
+    torch.cuda.empty_cache()
+    print("== phase 14(c): GPS L1 C/A at "
+          f"{FS_L2C_MB / 1e6:g} Msps + Galileo E5b-I at "
+          f"{FS_E5B / 1e6:g} Msps on two RF streams (attach_arrays, E5b "
+          "cold, I/NAV -> joint position)", flush=True)
+    e5b = e5b_path(wrappers, card)
+    torch.cuda.empty_cache()
+    for name in ("K6_device_generator_L2C", "K3_pcps_wipe_L2C",
+                 "K3_pcps_peak_L2C", "K3b_pcps_wipe_per_channel_L2C",
+                 "K9_epoch_chunk_L2C"):
+        launches[name] = l2c[name]
+    for name in ("K3b_pcps_wipe_per_channel_assisted_L2C",
+                 "K3_pcps_peak_assisted_L2C", "K8a_block_prologue_L2C",
+                 "K1_K8b_K8a_block_step_L2C"):
+        launches[name] = l2mb[name]
+    for name in ("K6_device_generator_E5b", "K8a_block_prologue_E5b",
+                 "K1_K8b_K8a_block_step_E5b"):
+        launches[name] = e5b[name]
+    # K6's launches: the captures of phases 5, 6, 7, 8, 10, 11 and 14
     launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
                                        + k6_wb + pilot["K6_device_generator"]
                                        + ps["K6_device_generator"]
-                                       + mb["K6_device_generator"])
+                                       + mb["K6_device_generator"]
+                                       + l2c["K6_device_generator"]
+                                       + l2mb["K6_device_generator"]
+                                       + e5b["K6_device_generator"])
     for r in rows:
         r["launches"] = launches[r["name"]]
 
     wipe_shapes = dict(pcps.pcps_wipe.shapes)
-    print(f"  the wipeoff's launches in phases 4 to 13 by (M, Doppler table, "
+    print(f"  the wipeoff's launches in phases 4 to 14 by (M, Doppler table, "
           f"N): {wipe_shapes}")
     missing = sorted({wipe_key(k) for k in wipe_shapes} - WIPE_CHECKED)
     if missing:

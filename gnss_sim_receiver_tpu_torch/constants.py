@@ -2,9 +2,8 @@
 
 Mirrors the per-system constant headers of the reference
 (``src/core/system_parameters/GPS_L1_CA.h`` etc.) with only the values the
-GPS L1 C/A, GPS L5, Galileo E1 and Galileo E5a chains of the PyTorch port
-need.  All values are
-public ICD constants.
+GPS L1 C/A, GPS L2C, GPS L5, Galileo E1, Galileo E5a and Galileo E5b chains
+of the PyTorch port need.  All values are public ICD constants.
 """
 
 # --- physical ---------------------------------------------------------------
@@ -26,6 +25,11 @@ GPS_L1_CA_CODES_PER_BIT = 20
 GPS_L1_CA_PREAMBLE_BITS = (1, 0, 0, 0, 1, 0, 1, 1)
 GPS_L1_CA_OPT_ACQ_FS_SPS = 2_000_000  # GPS_L1_CA.h:53 acquisition-optimal fs
 
+# --- GPS L2C (reference: src/core/system_parameters/GPS_L2C.h) -------------
+GPS_L2_FREQ_HZ = 1_227.60e6
+GPS_L2C_M_CODE_RATE_CPS = 0.5115e6
+GPS_L2C_M_CODE_LENGTH_CHIPS = 10230
+
 # --- GPS L5 (reference: src/core/system_parameters/GPS_L5.h) ---------------
 GPS_L5_FREQ_HZ = 1_176.45e6
 GPS_L5_CODE_RATE_CPS = 10.23e6
@@ -42,6 +46,13 @@ GALILEO_E1_CODE_PERIOD_S = 4e-3
 GALILEO_E5A_FREQ_HZ = 1_176.45e6
 GALILEO_E5A_CODE_RATE_CPS = 10.23e6
 GALILEO_E5A_CODE_LENGTH_CHIPS = 10230
+
+# --- Galileo E5b (reference: src/core/system_parameters/Galileo_E5b.h) ------
+GALILEO_E5B_FREQ_HZ = 1_207.14e6
+GALILEO_E5B_CODE_RATE_CPS = 10.23e6
+GALILEO_E5B_CODE_LENGTH_CHIPS = 10230
+# E5b-I secondary code CS4 (same for all SVs, ICD table 37: '1110')
+GALILEO_E5B_I_SECONDARY_CODE = (1, 1, 1, 0)
 
 # --- GPS time ---------------------------------------------------------------
 GPS_WEEK_SECONDS = 604_800

@@ -1,7 +1,8 @@
 """Receiver orchestration, PyTorch port of
 ``gnss_sim_receiver_tpu.models.receiver`` for the GPS L1 C/A ("1C"),
-Galileo E1-B ("1B"), GPS L5I ("L5") and Galileo E5a-I ("5X") signal chains,
-the batch entry point and the live session.
+Galileo E1-B ("1B"), GPS L2C CM ("2S"), GPS L5I ("L5"), Galileo E5a-I
+("5X") and Galileo E5b-I ("7X") signal chains, the batch entry point and
+the live session.
 
 The receiver runs one *signal chain* per configured signal — the
 reference's per-signal channel groups (Channels_1C.count /
@@ -56,7 +57,7 @@ from gnss_sim_receiver_tpu_torch.models.observables import (
 from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf, solve_pvt
 from gnss_sim_receiver_tpu_torch.models.telemetry import (
     GalileoE1bTelemetryDecoder, GalileoE5aTelemetryDecoder,
-    GpsCnavTelemetryDecoder, TelemetryDecoder)
+    GalileoE5bTelemetryDecoder, GpsCnavTelemetryDecoder, TelemetryDecoder)
 from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
                                                          TrackingEngine)
 from gnss_sim_receiver_tpu_torch.nav.ephemeris import (adj_gps_week,
@@ -68,7 +69,7 @@ from gnss_sim_receiver_tpu_torch.utils import geodesy
 class SignalChainConf:
     """One per-signal channel group (the reference's Channels_<sig> block +
     its Acquisition_<sig>/Tracking_<sig> engine parameters)."""
-    signal: str = "1C"                 # "1C" | "1B" | "L5" | "5X"
+    signal: str = "1C"       # "1C" | "1B" | "2S" | "L5" | "5X" | "7X"
     system: str = "GPS"
     prns: tuple = tuple(range(1, 33))
     n_channels: int = 8
@@ -105,10 +106,12 @@ class SignalChainConf:
             return GalileoE1bTelemetryDecoder(prns)
         if self.signal == "1C":
             return TelemetryDecoder(prns)
-        if self.signal == "L5":
-            return GpsCnavTelemetryDecoder(prns)
+        if self.signal in ("2S", "L5"):
+            return GpsCnavTelemetryDecoder(prns, signal=self.signal)
         if self.signal == "5X":
             return GalileoE5aTelemetryDecoder(prns)
+        if self.signal == "7X":
+            return GalileoE5bTelemetryDecoder(prns)
         raise NotImplementedError(f"signal chain {self.signal} is not ported")
 
 
@@ -152,11 +155,41 @@ def galileo_e1b_chain(fs: float, prns=tuple(range(1, 37)), n_channels=4,
         data_code_provider=data_provider, sc_rate=sig.sc_rate)
 
 
+def gps_l2c_chain(fs: float, prns=tuple(range(1, 33)), n_channels=4,
+                  **trk_overrides) -> SignalChainConf:
+    """GPS L2C CM chain: 20 ms code epochs carrying one 50-sps CNAV
+    symbol each (the GPS_L2_M_* blocks of the reference): an 8 Hz PLL and
+    0.75 Hz DLL with a 25-epoch decision-directed FLL pull-in, one 20 ms
+    dwell with the doubled FFT on a 60 Hz grid refined on 15 Hz
+    (receiver.py:161-184)."""
+    sig = signals.GPS_L2C_CM
+    trk_kw = dict(
+        fs=fs, code_rate_cps=sig.chip_rate_cps,
+        code_length_chips=sig.code_length_chips,
+        carrier_freq_hz=sig.carrier_freq_hz,
+        early_late_space_chips=0.5, pll_bw_hz=8.0, dll_bw_hz=0.75,
+        enable_fll_pullin=True, fll_decision_directed=True,
+        fll_pullin_epochs=25, cn0_window_epochs=20)
+    trk_kw.update(trk_overrides)
+    return SignalChainConf(
+        assist_wait=True,
+        signal="2S", system="GPS", prns=tuple(prns),
+        n_channels=n_channels, max_acq_channels=n_channels,
+        acq=AcqConf(fs_in=fs, sampled_ms=20, doppler_max=5000.0,
+                    doppler_step=60.0, max_dwells=1,
+                    make_two_steps=True, doppler_step2=15.0,
+                    bit_transition_flag=True),
+        trk=TrackingConf(**trk_kw),
+        code_provider=signals.CodeProvider("2S"),
+        sc_rate=sig.chip_rate_cps)
+
+
 def _wideband_chain(sig, fs: float, prns, n_channels: int,
                     trk_overrides) -> SignalChainConf:
-    """The GPS L5I and Galileo E5a-I chains: 10.23 Mcps, 1 ms epochs, a
-    50 Hz PLL with a 100-epoch decision-directed FLL pull-in, 2-dwell 1 ms
-    acquisition refined on a 62.5 Hz step (receiver.py:188-237)."""
+    """The GPS L5I, Galileo E5a-I and Galileo E5b-I chains: 10.23 Mcps,
+    1 ms epochs, a 50 Hz PLL with a 100-epoch decision-directed FLL
+    pull-in, 2-dwell 1 ms acquisition refined on a 62.5 Hz step
+    (receiver.py:188-237, :267-290)."""
     trk_kw = dict(
         fs=fs, code_rate_cps=sig.chip_rate_cps,
         code_length_chips=sig.code_length_chips,
@@ -190,6 +223,15 @@ def galileo_e5a_chain(fs: float, prns=tuple(range(1, 37)), n_channels=4,
     """Galileo E5a-I chain: 10.23 Mcps, 1 ms epochs, CS20-spread 50-sps
     F/NAV symbols (the GALILEO_E5A_* blocks)."""
     return _wideband_chain(signals.GALILEO_E5A_I, fs, prns, n_channels,
+                           trk_overrides)
+
+
+def galileo_e5b_chain(fs: float, prns=tuple(range(1, 37)), n_channels=4,
+                      **trk_overrides) -> SignalChainConf:
+    """Galileo E5b-I chain: 10.23 Mcps, 1 ms epochs, CS4-spread 250-sps
+    I/NAV symbols (the GALILEO_E5B_* blocks of the reference factory,
+    gnss_block_factory.cc signal '7X')."""
+    return _wideband_chain(signals.GALILEO_E5B_I, fs, prns, n_channels,
                            trk_overrides)
 
 

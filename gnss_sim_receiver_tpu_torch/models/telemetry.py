@@ -10,9 +10,10 @@ TOW_at_current_symbol_ms.  Bit-level work is 50 bps x channels — host work
 by design (SURVEY.md section 7: "decode host-side from device-produced
 prompt-symbol batches").
 
-GPS LNAV, Galileo E1-B I/NAV, GPS L5 CNAV and Galileo E5a F/NAV decoders
-copied from ``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port;
-the other signals' decoders wait for later slices."""
+GPS LNAV, Galileo E1-B I/NAV, GPS L2C and L5 CNAV, Galileo E5a F/NAV and
+Galileo E5b I/NAV decoders copied from
+``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port; the other
+signals' decoders wait for later slices."""
 
 from __future__ import annotations
 
@@ -385,20 +386,20 @@ def _fold_secondary(st: _CnavChannelTlmState, pattern: np.ndarray,
 
 
 class GpsCnavTelemetryDecoder:
-    """Consumes TrackingEngine outputs for GPS L5I ("L5": 1 ms epochs,
-    100-sps CNAV symbols spread by NH10) channels and produces TOW stamps +
-    CNAV ephemerides.
+    """Consumes TrackingEngine outputs for GPS L2C CM ("2S": one 50-sps
+    CNAV symbol per 20 ms epoch) or L5I ("L5": 1 ms epochs, 100-sps symbols
+    spread by NH10) channels and produces TOW stamps + CNAV ephemerides.
 
     Same process() interface as TelemetryDecoder.  TOW semantics: each
     message's TOW field is the GPS time of the NEXT message start
     (IS-GPS-705 20.3.3.1 / nav.cnav), i.e. of symbol start_symbol + 600.
-    (The JAX decoder's L2C CM mode, signal "2S", waits for the L2C chain.)
     """
 
-    EPOCHS_PER_SYMBOL = 10
-    EPOCH_MS = 1.0
+    EPOCHS_PER_SYMBOL = {"2S": 1, "L5": 10}
+    EPOCH_MS = {"2S": 20.0, "L5": 1.0}
 
-    def __init__(self, prns):
+    def __init__(self, prns, signal: str = "2S"):
+        self.signal = signal
         self.prns = [int(p) for p in prns]
         self.ch = [_CnavChannelTlmState(decoder=CnavDecoder())
                    for _ in self.prns]
@@ -420,12 +421,18 @@ class GpsCnavTelemetryDecoder:
         t_len, n_ch = prompts.shape
         tow = np.full((t_len, n_ch), np.nan)
         new_eph = []
-        epb = self.EPOCHS_PER_SYMBOL
+        epb = self.EPOCHS_PER_SYMBOL[self.signal]
+        epoch_ms = self.EPOCH_MS[self.signal]
         for c in range(n_ch):
             st = self.ch[c]
             pi, base, v = _collect_column(st, prompts[:, c], valid[:, c])
             st.pend.extend(pi.tolist())
-            for ev in st.decoder.push_symbols(_fold_secondary(st, self._nh)):
+            if self.signal == "L5":
+                soft = _fold_secondary(st, self._nh)
+            else:
+                # L2C CM: one symbol per epoch, no secondary code
+                soft, st.pend = st.pend, []
+            for ev in st.decoder.push_symbols(soft):
                 if not ev.crc_ok or ev.msg_type not in (10, 11, 30):
                     continue
                 st.msgs[ev.msg_type] = ev.fields
@@ -434,7 +441,7 @@ class GpsCnavTelemetryDecoder:
                                    + (ev.start_symbol + 600) * epb)
                 st.anchor_tow_ms = ev.tow_s * 1000.0
                 self._try_ephemeris(st, c, new_eph)
-            _stamp_tow_column(tow[:, c], v, base, st, self.EPOCH_MS,
+            _stamp_tow_column(tow[:, c], v, base, st, epoch_ms,
                               after_anchor=False)
         return TelemetryOutputs(tow_at_epoch_ms=tow,
                                 tow_valid=~np.isnan(tow),
@@ -519,3 +526,96 @@ class GalileoE5aTelemetryDecoder:
                 or st.ephemeris.toe != eph.toe):
             st.ephemeris = eph
             new_eph.append((c, eph))
+
+
+# ---------------------------------------------------------------------------
+# Galileo E5b I/NAV telemetry (the reference's unified
+# galileo_telemetry_decoder_gs with frame_type=3, E5b-I, host-side)
+# ---------------------------------------------------------------------------
+
+class GalileoE5bTelemetryDecoder:
+    """Consumes TrackingEngine outputs for E5b-I channels (1 ms code epochs;
+    250-sps I/NAV symbols spread by the fixed 4-chip CS4 secondary code),
+    synchronizes CS4, forms soft symbols, decodes I/NAV pages (nav.inav,
+    the same word layer as E1-B) and produces TOW stamps + Galileo
+    ephemerides.
+
+    TOW semantics follow the E1-B decoder: word 5's page-start symbol is
+    transmitted at GST TOW_5 (galileo_telemetry_decoder_gs.cc frame_type=3
+    branch); symbols span 4 epochs, so the anchor epoch is
+    symbol_base + 4 * page_start_symbol.  An ephemeris carries
+    tgd = BGD(E1,E5b) * (f_E1 / f_E5b)^2, the E5b single-frequency group
+    delay."""
+
+    EPOCHS_PER_SYMBOL = 4
+    EPOCH_MS = 1.0
+
+    def __init__(self, prns):
+        self.prns = [int(p) for p in prns]
+        self.ch = [_CnavChannelTlmState(decoder=InavPageDecoder())
+                   for _ in self.prns]
+        self._cs = signals.e5b_secondary_code().astype(np.float64)
+        self._words = [dict() for _ in self.prns]
+        self._words_iod = [dict() for _ in self.prns]
+
+    def reset_channel(self, c: int, prn: int | None = None,
+                      epoch_base: int | None = None) -> None:
+        st = _CnavChannelTlmState(decoder=InavPageDecoder())
+        if epoch_base is not None:
+            st.epoch_count = epoch_base
+        self.ch[c] = st
+        self._words[c] = {}
+        self._words_iod[c] = {}
+        if prn is not None:
+            self.prns[c] = int(prn)
+
+    def process(self, track_outs: dict) -> TelemetryOutputs:
+        prompts = track_outs["prompt"]
+        valid = track_outs["valid"]
+        t_len, n_ch = prompts.shape
+        tow = np.full((t_len, n_ch), np.nan)
+        new_eph = []
+        for c in range(n_ch):
+            st = self.ch[c]
+            pi, base, v = _collect_column(st, prompts[:, c], valid[:, c])
+            anchor0 = st.anchor_epoch
+            st.pend.extend(pi.tolist())
+            symbols = _fold_secondary(st, self._cs, margin=1.15,
+                                      min_symbols=60)
+            for ev in st.decoder.push_symbols(symbols):
+                if not ev.crc_ok:
+                    continue
+                self._handle_word(st, c, ev, new_eph)
+            _stamp_tow_column(tow[:, c], v, base, st, self.EPOCH_MS,
+                              after_anchor=True, anchor0=anchor0)
+        return TelemetryOutputs(tow_at_epoch_ms=tow,
+                                tow_valid=~np.isnan(tow),
+                                new_ephemerides=new_eph)
+
+    def _handle_word(self, st, c, ev, new_eph) -> None:
+        wt = ev.word_type
+        words, words_iod = self._words[c], self._words_iod[c]
+        if wt in (1, 2, 3, 4):
+            words[wt] = ev.fields
+            words_iod[wt] = int(ev.fields["iod_nav"])
+        elif wt == 5:
+            words[5] = ev.fields
+            # word 5's page start (in 250-sps symbols) at 4 epochs a symbol
+            st.anchor_epoch = (st.symbol_base
+                               + ev.page_start_symbol
+                               * self.EPOCHS_PER_SYMBOL)
+            st.anchor_tow_ms = ev.fields["tow"] * 1000.0
+        if all(k in words for k in (1, 2, 3, 4)):
+            iods = {words_iod[k] for k in (1, 2, 3, 4)}
+            if len(iods) == 1:
+                eph = words_to_galileo_ephemeris(self.prns[c], words)
+                # E5b single-frequency users apply BGD(E1,E5b)*(f1/f7)^2
+                if getattr(eph, "bgd_e1e5b", 0.0):
+                    ratio = (1575.42 / 1207.14) ** 2
+                    eph = dataclasses.replace(
+                        eph, tgd=eph.bgd_e1e5b * ratio)
+                if (st.ephemeris is None
+                        or st.ephemeris.iod_nav != eph.iod_nav
+                        or st.ephemeris.toe != eph.toe):
+                    st.ephemeris = eph
+                    new_eph.append((c, eph))

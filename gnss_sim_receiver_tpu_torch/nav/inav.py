@@ -1,4 +1,5 @@
-"""Galileo E1B I/NAV message layer: page encode (simulator) and decode.
+"""Galileo E1B and E5b-I I/NAV message layer: page encode (simulator) and
+decode, and the E5b-I per-epoch CS4 spreading of the symbols.
 
 Mirrors the reference's galileo_inav_message.cc (split_page, CRC-24Q test,
 page_jk_decoder word layouts from Galileo_INAV.h) and the INAV part of
@@ -32,6 +33,7 @@ import dataclasses
 
 import numpy as np
 
+from gnss_sim_receiver_tpu_torch import signals
 from gnss_sim_receiver_tpu_torch.nav.fec import (conv27_encode, crc24q,
                                                  viterbi27_decode)
 
@@ -319,3 +321,12 @@ class InavPageDecoder:
         data_jk = np.concatenate([even[2:114], bits[2:18]])
         wt, fields = unpack_word(data_jk)
         return InavWordEvent(wt, fields, self._even_start, True)
+
+
+def e5b_epoch_signs(symbols01: np.ndarray) -> np.ndarray:
+    """I/NAV symbols {0,1} at 250 sps -> +-1 per 1 ms E5b code epoch: each
+    4 ms symbol is spread by the fixed 4-chip CS4 secondary code (the
+    per-epoch modulation the simulator applies on E5b-I)."""
+    cs = signals.e5b_secondary_code().astype(np.int64)
+    sym = 2 * np.asarray(symbols01, np.int64) - 1
+    return (np.repeat(sym, 4) * np.tile(cs, len(sym))).astype(np.int8)

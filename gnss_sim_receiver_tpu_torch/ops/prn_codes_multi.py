@@ -1,10 +1,11 @@
-"""GPS L5 I/Q PRN code generation, the L5 part of
+"""GPS L2C (CM) and L5 I/Q PRN code generation, the L2C and L5 parts of
 ``gnss_sim_receiver_tpu.ops.prn_codes_multi`` for the PyTorch port.
 
 Host-side NumPy generation (the device sees constant tables), the
-functional equivalent of the reference replica generator
-(src/algorithms/libs/gps_l5_signal_replica.cc).  Register polynomials and
-per-PRN constants are public ICD data (IS-GPS-705 table 3-I).
+functional equivalents of the reference replica generators
+(src/algorithms/libs/gps_l2c_signal_replica.cc and
+gps_l5_signal_replica.cc).  Register polynomials and per-PRN constants are
+public ICD data (IS-GPS-200 table 3-II, IS-GPS-705 table 3-I).
 
 Codes are returned as +-1 float32 with bit b -> 2b-1 (the GPS C/A
 convention of ops.prn_codes).
@@ -16,7 +17,20 @@ import functools
 
 import numpy as np
 
+GPS_L2C_M_LENGTH = 10230
 GPS_L5_LENGTH = 10230
+
+# GPS L2C CM-code shift-register initial states, PRN 1..37
+# (IS-GPS-200 table 3-II; GPS_L2C.h GPS_L2C_M_INIT_REG)
+_L2CM_INIT = (
+    0o742417664, 0o756014035, 0o002747144, 0o066265724, 0o601403471,
+    0o703232733, 0o124510070, 0o617316361, 0o047541621, 0o733031046,
+    0o713512145, 0o024437606, 0o021264003, 0o230655351, 0o001314400,
+    0o222021506, 0o540264026, 0o205521705, 0o064022144, 0o120161274,
+    0o044023533, 0o724744327, 0o045743577, 0o741201660, 0o700274134,
+    0o010247261, 0o713433445, 0o737324162, 0o311627434, 0o710452007,
+    0o722462133, 0o050172213, 0o500653703, 0o755077436, 0o136717361,
+    0o756675453, 0o435506112)
 
 # XB code advance (chips) per PRN 1..37, IS-GPS-705 table 3-I (reference
 # GPS_L5.h GPS_L5I_INIT_REG / GPS_L5Q_INIT_REG)
@@ -32,6 +46,22 @@ _L5Q_XB_ADV = (1701, 323, 5292, 2020, 5429, 7136, 1041, 5947, 4315, 148,
 
 def _pm1(bits: np.ndarray) -> np.ndarray:
     return (2.0 * bits - 1.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def gps_l2c_m_code(prn: int) -> np.ndarray:
+    """GPS L2C CM code, 10230 chips at 511.5 kcps, PRN 1..37
+    (gps_l2c_signal_replica.cc:25-40): 27-stage modular LFSR
+    x' = (x >> 1) ^ (x & 1) * 0o445112474, per-PRN initial state.  Cached:
+    the register runs 10230 steps in Python once per PRN."""
+    if not 1 <= prn <= len(_L2CM_INIT):
+        raise ValueError(f"L2C PRN out of range: {prn}")
+    x = _L2CM_INIT[prn - 1]
+    out = np.empty(GPS_L2C_M_LENGTH, dtype=np.int8)
+    for i in range(GPS_L2C_M_LENGTH):
+        out[i] = x & 1
+        x = (x >> 1) ^ ((x & 1) * 0o445112474)
+    return _pm1(out)
 
 
 def _l5_xa() -> np.ndarray:

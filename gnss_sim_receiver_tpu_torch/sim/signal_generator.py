@@ -18,8 +18,8 @@ Signal model per satellite (constant Doppler + optional rate):
   carrier         = exp(j(2 pi (f_d t + f_dr t^2/2) + phi0))
   amplitude       = sqrt(10^(CN0/10) / fs)   with unit complex noise variance
 
-GPS L1 C/A, GPS L5I, Galileo E1 (E1-B data, E1-C pilot) and Galileo E5a-I
-copy of ``gnss_sim_receiver_tpu.sim.signal_generator`` for the PyTorch port:
+GPS L1 C/A, GPS L2C CM, GPS L5I, Galileo E1 (E1-B data, E1-C pilot),
+Galileo E5a-I and Galileo E5b-I copy of ``gnss_sim_receiver_tpu.sim.signal_generator`` for the PyTorch port:
 the same arithmetic, so a capture synthesized here equals the JAX package's
 fixture sample for sample.
 """
@@ -41,7 +41,8 @@ class SatelliteSignalParams:
     doppler_Hz_i, delay_chips_i, delay_sec_i} parameter set)."""
     prn: int
     system: str = "GPS"
-    # "1C" | "1B" (E1-B) | "1P" (E1-C) | "L5" (L5I) | "5X" (E5a-I)
+    # "1C" | "1B" (E1-B) | "1P" (E1-C) | "2S" (L2C CM) | "L5" (L5I) |
+    # "5X" (E5a-I) | "7X" (E5b-I)
     signal: str = "1C"
     cn0_db_hz: float = 44.0
     doppler_hz: float = 0.0
@@ -52,7 +53,8 @@ class SatelliteSignalParams:
     nav_bits: np.ndarray | None = None   # +-1 at 50 bps; None -> random
     # off-L1 signals: the PHYSICAL Doppler driving the code rate and delay
     # dynamics, and its reference carrier.  None -> doppler_hz over the L1
-    # carrier (the L5 / E5a scenarios set both to their own carrier)
+    # carrier (the L2C / L5 / E5a / E5b scenarios set both to their own
+    # carrier)
     code_doppler_hz: float | None = None
     carrier_ref_hz: float | None = None
 
@@ -81,6 +83,10 @@ def _sig_params(sat: SatelliteSignalParams):
         sub = sigdefs.boc11_expand(
             sigdefs.galileo_e1_code(sat.prn, "C")).astype(np.int8)
         return sub, sigdefs.GALILEO_E1B.sc_rate, len(sub)
+    if sat.signal == "2S":
+        # L2C CM: one 50-sps CNAV symbol per 20 ms code period
+        return (prn_codes_multi.gps_l2c_m_code(sat.prn).astype(np.int8),
+                constants.GPS_L2C_M_CODE_RATE_CPS, 10230)
     if sat.signal == "L5":
         # L5I: nav_bits are per-1 ms-EPOCH signs (symbol x NH10 pre-spread,
         # nav.cnav.l5i_epoch_signs)
@@ -91,6 +97,11 @@ def _sig_params(sat: SatelliteSignalParams):
         # secondary pre-spread, nav.fnav.e5a_epoch_signs)
         return (sigdefs.galileo_e5a_code(sat.prn, "I").astype(np.int8),
                 constants.GALILEO_E5A_CODE_RATE_CPS, 10230)
+    if sat.signal == "7X":
+        # E5b-I: nav_bits are per-1 ms-EPOCH signs (I/NAV symbol x CS4
+        # secondary pre-spread, nav.inav.e5b_epoch_signs)
+        return (sigdefs.galileo_e5b_code(sat.prn).astype(np.int8),
+                constants.GALILEO_E5B_CODE_RATE_CPS, 10230)
     raise NotImplementedError(
         f"simulator signal {sat.system}/{sat.signal} is not ported")
 

@@ -181,7 +181,8 @@ def test_factory_refuses_unported_e1_keys(tmp_path, line):
 
 # keys these refusal tests once listed, now ported (the first-vs-second-
 # peak statistic and the fixed threshold; the fork's hybrid pseudolite
-# navigation, its rx clock keys and the pre-2009 week), and the field each
+# navigation, its rx clock keys and the pre-2009 week; the L2C and E5b
+# chains), and the field each
 # sets: its chain's AcqConf's or TrackingConf's, or the ReceiverConf's
 PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                ("use_cfar_algorithm", False),
@@ -203,7 +204,11 @@ PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                # TrackingConf's field
                "Tracking_1C.implementation=GPS_L1_CA_KF_Tracking":
                ("tracking_mode", "kf"),
-               "Tracking_1C.order=2": ("pll_filter_order", 2)}
+               "Tracking_1C.order=2": ("pll_filter_order", 2),
+               # the GPS L2C CM and Galileo E5b-I chains: the chain's
+               # channel count
+               "Channels_7X.count=4": ("n_channels", 4),
+               "Channels_2S.count=2": ("n_channels", 2)}
 
 
 def _check_ported_key(path, line):
@@ -345,7 +350,7 @@ def test_interop_refuses_fields_the_port_lacks():
      "SignalSource.implementation"),
     ("SignalSource.implementation=Labsat_Signal_Source",
      "SignalSource.implementation"),
-    ("Channels_7X.count=4", "Channels_7X.count"),
+    ("Channels_1G.count=4", "Channels_1G.count"),
 ])
 def test_cli_stops_on_unported_features(tmp_path, capsys, line, key):
     """Exit code 2 and a message naming the key, before any file is read."""

@@ -173,7 +173,7 @@ def test_secondary_sync_and_decode_like_jax(system):
                                           bps=50.0)
         epochs = pcnav.l5i_epoch_signs(sym).astype(np.float64)
         off, prn, seed, lo, hi = 7, 4, 11, 300, 1500
-        decs = (ptlm.GpsCnavTelemetryDecoder([prn]),
+        decs = (ptlm.GpsCnavTelemetryDecoder([prn], signal="L5"),
                 jtlm.GpsCnavTelemetryDecoder([prn], signal="L5"))
     epochs = epochs[off:]
     rng = np.random.default_rng(seed)
@@ -207,4 +207,6 @@ def test_wideband_chain_confs_like_jax(signal):
         assert getattr(p.trk, f.name) == getattr(j.trk, f.name), f.name
     kind = {"L5": ptlm.GpsCnavTelemetryDecoder,
             "5X": ptlm.GalileoE5aTelemetryDecoder}[signal]
-    assert isinstance(p.telemetry_decoder([0]), kind)
+    dec = p.telemetry_decoder([0])
+    assert isinstance(dec, kind)
+    assert getattr(dec, "signal", signal) == signal

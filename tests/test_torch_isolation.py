@@ -9,9 +9,10 @@ CPU, and its state carries across intact.
   Kalman tracker whose planes it dumps to a .mat file, and Galileo E1-B with the
   sign-recovery acquisition and 5 taps), builds the wideband chains and
   acquires E5a with the I/Q search, runs a streaming session and drives
-  it over the TCP server, in a process where both names cannot be
-  imported, and opens no file of the JAX package: its Galileo code
-  tables are its own package data, shipped by pyproject.toml;
+  it over the TCP server, builds the L2C and E5b chains and simulates
+  their signals, in a process where both names cannot be imported, and
+  opens no file of the JAX package: its Galileo code tables are its own
+  package data, shipped by pyproject.toml;
 - the entry points raise without a card unless device="cpu" is passed;
 - chip_smoke.py fails, printing no result line, without a card and in a
   directory that holds nothing else of the repo;
@@ -260,7 +261,8 @@ assert len(fnav.pages_for_ephemeris(eph, 345600.0, n_repeats=1)) == 2000
 assert len(cnav.symbols_for_ephemeris(eph, 345600.0, n_repeats=1,
                                       bps=50.0)) == 1800
 assert len(fec.viterbi27_decode(np.ones(16, np.float32))) == 8
-for dec in (GalileoE5aTelemetryDecoder([4]), GpsCnavTelemetryDecoder([4])):
+for dec in (GalileoE5aTelemetryDecoder([4]),
+            GpsCnavTelemetryDecoder([4], signal="L5")):
     dec.process({"prompt": np.ones((40, 1), np.complex64),
                  "valid": np.ones((40, 1), bool)})
 # the hybrid slice: the AOWR estimator and the clock-sharing records
@@ -270,9 +272,26 @@ for k in range(5):
     aowr.update(299792458.0 * 0.25 + 0.1 * k, 12345.678)
 assert aowr.observed and abs(aowr.dt_s - 0.25) < 1e-8
 assert hybrid.format_rx_clock_bias_line(1.0, 2.0, 3e-4, 7).endswith(",07\n")
+# the L2C and E5b slice: both chains from a conf, their code tables (the
+# E5b rows are package data), the simulator's two signals
+from gnss_sim_receiver_tpu_torch.models.telemetry import \
+    GalileoE5bTelemetryDecoder
+l2c, e5b = receiver_conf_from_config(InMemoryConfiguration({
+    "GNSS-SDR.internal_fs_sps": "4000000", "Channels_2S.count": "2",
+    "Channels_7X.count": "2"})).chains
+assert (l2c.signal, e5b.signal) == ("2S", "7X")
+assert l2c.code_provider(7).shape == e5b.code_provider(11).shape == (10230,)
+assert isinstance(e5b.telemetry_decoder([11]), GalileoE5bTelemetryDecoder)
+x = generate_baseband(
+    [SatelliteSignalParams(prn=7, signal="2S", nav_bits=np.ones(4, np.int8)),
+     SatelliteSignalParams(prn=11, system="Galileo", signal="7X",
+                           nav_bits=np.ones(8, np.int8))],
+    4e6, 8192, noise=False)
+assert x.shape == (8192,) and np.isfinite(x).all()
 builtins.open = _open
 assert any(p.endswith("galileo_e1_codes.npz") for p in opened), opened
 assert any(p.endswith("galileo_e5a_codes.npz") for p in opened), opened
+assert any(p.endswith("galileo_e5b_codes.npz") for p in opened), opened
 bad = [p for p in opened if "gnss_sim_receiver_tpu" + os.sep in p
        or p.endswith("galileo_codes.npz")]
 assert not bad, bad
@@ -408,6 +427,21 @@ def test_package_data_ships_the_e5a_codes():
         assert z["e5ai"].shape == z["e5aq"].shape == (50, 1279)
         assert z["e5ai_sec"].shape == (20,)
         assert z["e5aq_sec"].shape == (47, 13)
+
+
+def test_package_data_ships_the_e5b_codes():
+    """The E5b table holds the E5b-I rows of every satellite and the CS4
+    secondary code's bits, the JAX package's rows (E5b-Q stays out)."""
+    with np.load(ROOT / "gnss_sim_receiver_tpu_torch" / "data"
+                 / "galileo_e5b_codes.npz") as z, \
+            np.load(ROOT / "gnss_sim_receiver_tpu" / "data"
+                    / "galileo_codes.npz") as ref:
+        assert sorted(z.files) == ["e5bi", "e5bi_sec"]
+        assert z["e5bi"].shape == (50, 1279)
+        assert z["e5bi_sec"].tolist() == [1, 1, 1, 0]
+        for k in z.files:
+            assert z[k].dtype == ref[k].dtype
+            assert np.array_equal(z[k], ref[k])
 
 
 def test_package_data_ships_the_e1_codes():
