@@ -237,7 +237,27 @@ Phases (any failure exits non-zero, before the result line):
    search's time and peak memory; step two's and the 4 Msps assisted
    search's K3b; the chunk kernel at L2C's 40000 and 80000 samples an
    epoch; K8a, K8b and K1 at L2C's E = 2, at GPS L1 C/A 4 Msps and with
-   E5b-I's codes at phase 7's shape; K6 on the L2C and E5b skies).
+   E5b-I's codes at phase 7's shape; K6 on the L2C and E5b skies);
+15. the BeiDou B1I and B3I chains (its own seconds printed): (a) phase
+   4's six satellites as BeiDou MEO PRNs on B1I alone (46 dB-Hz, D1
+   with NH20), 36.5 s made by K6 at 8 Msps and written as ishort, through
+   the CLI with phase 4's x2 conditioner and 8 B1I channels: the cold
+   search on the B1I grid, the tracked set, >= 5 D1 ephemerides, >= 5
+   fixes (2D < 2 m, 3D < 5 m), the block step and the chunk kernel at
+   B1I's shapes, the real-time factor; (b) B1I at 4 Msps on RF 0 and B3I
+   at 12.5 Msps on RF 1 (20 s, B3I on four of the six, warm-started)
+   through attach_arrays: every B3I search assisted within 50 Hz of the
+   B1I Doppler x f_B3 / f_B1, B3I on its four PRNs alone, |PR_B3 -
+   PR_B1| < 30 m, a fix of both bands, the launches at B3I's shapes; (c)
+   tests/test_d2.py's GEO run (PRN 2, D2 at 500 bps) at 8.192 Msps, 31.5
+   s on the per-epoch path with the rectified lock test: the Doppler
+   within 5 Hz, no loss of lock, the D2 ephemeris, the SOW ramp of 1 ms
+   an epoch, the chunk kernel's rectify form launched once per chunk.
+   Phase 3 holds K9's rectify form alone (against its plain closure, and
+   against the coherent form on the card) and in the chunk kernel, and
+   the kernels at the new shapes (the cold B1I and GEO searches, the
+   assisted B3I one, the chunk kernel at B1I's and B3I's epochs, K8a, K8b
+   and K1 at both E = 20 shapes, K6 on the three skies).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -3975,6 +3995,58 @@ def wait_for(procs: dict, which: str) -> None:
           "capture (synthesis, not timed)", flush=True)
 
 
+def launch_wrappers() -> dict:
+    """Each kernel's name -> (its wrapper, the wrapper's launch counter)."""
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.ops import (correlator, filters,
+                                                 nonlinear, pcps, resampler)
+    from gnss_sim_receiver_tpu_torch.sim import device_generator
+    return {
+        "K1_block_correlate": (tb.block_correlate, "launches"),
+        "K8a_block_prologue": (tb.block_prologue, "launches"),
+        "K8b_block_closure": (tb.block_closure, "launches"),
+        "K1_K8b_block_correlate_close": (tb.block_correlate_close,
+                                         "launches"),
+        "K1_K8b_K8a_block_step": (tb.block_correlate_close, "folds"),
+        "K8a_block_prologue_E1_pilot": (tb.block_prologue, "launches_pilot"),
+        "K1_K8b_block_correlate_close_E1_pilot": (tb.block_correlate_close,
+                                                  "launches_pilot"),
+        "K1_K8b_K8a_block_step_E1_pilot": (tb.block_correlate_close,
+                                           "folds_pilot"),
+        "block_chunks": (tb.track_chunk_blocks, "chunks"),
+        "K9_epoch_closure": (trk.epoch_closure, "launches"),
+        "K2_multicorrelate": (correlator.multicorrelate, "launches"),
+        "K9_epoch_chunk": (trk.epoch_chunk, "launches"),
+        "K9_epoch_chunk_epochs": (trk.epoch_chunk, "epochs"),
+        "K9_epoch_chunk_kf": (trk.epoch_chunk, "launches_kf"),
+        "K9_epoch_chunk_gaussian": (trk.epoch_chunk, "launches_gaussian"),
+        "K9_epoch_chunk_pll2": (trk.epoch_chunk, "launches_pll2"),
+        "K9_epoch_chunk_rectify": (trk.epoch_chunk, "launches_rectify"),
+        "K3_pcps_wipe": (pcps.pcps_wipe, "launches"),
+        "K3_pcps_peak": (pcps.pcps_peak, "launches"),
+        "K3b_pcps_wipe_per_channel": (pcps.pcps_wipe,
+                                      "launches_per_channel"),
+        "K4a_pcps_dual_peak": (pcps.pcps_dual_peak, "launches"),
+        "K4b_quicksync_fold": (pcps.pcps_quicksync_fold, "launches"),
+        "K4b_quicksync_resolve": (pcps.pcps_quicksync_resolve, "launches"),
+        "K4c_pcps_caf_peak": (pcps.pcps_caf_peak, "launches"),
+        "K3c_pcps_second_peak": (pcps.pcps_second_peak, "launches"),
+        "K3c_pcps_second_peak_dual": (pcps.pcps_second_peak,
+                                      "launches_dual"),
+        "K3c_pcps_second_peak_caf": (pcps.pcps_second_peak, "launches_caf"),
+        "K5a_fir_decim": (filters.fir_decim, "launches"),
+        "K5b_notch_filter": (filters.notch_filter, "launches"),
+        "K5c_pulse_blanking": (filters.pulse_blanking, "launches"),
+        "K5d_direct_resampler": (resampler.direct_resampler, "launches"),
+        "K5d_linear_resampler": (resampler.linear_resampler, "launches"),
+        "K6_device_generator": (device_generator.expand, "launches"),
+        "K3_pcps_rows": (pcps.pcps_rows, "launches"),
+        "K7_pcps_window_fold": (pcps.pcps_window_fold, "launches"),
+        "K10a_sigma_points": (nonlinear.sigma_points, "launches"),
+        "K10b_sigma_moments": (nonlinear.sigma_moments, "launches")}
+
+
 def reset(wrappers) -> None:
     """Set every launch counter to 0; `wrappers` maps a kernel's name to
     its wrapper and the wrapper's counter attribute."""
@@ -6613,6 +6685,38 @@ def e5b_conf():
                         chains=(l1_chain_4msps(), e5b))
 
 
+def search_dwells(sats, fs: float, eng, seed: int, dev):
+    """`eng`'s M dwells of N samples of the sky `sats` at `fs`, made by K6
+    with noise from `seed` on `dev` ([M, N])."""
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    m, n = eng.conf.max_dwells, eng.fft_size
+    return generate_baseband_device_resident(
+        sats, fs, m * n, noise=True, seed=seed, device=dev).reshape(m, n)
+
+
+def peak_case(rows: list, extra: list, x, table, t, cfc, label: str,
+              name=None) -> None:
+    """K3's peak (k3_peak_row) on the correlations of the dwells `x` wiped
+    by `table`: a row named `name` into `rows`, without a name into
+    `extra`."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    spec = torch.fft.fft(pcps.pcps_wipe(x, table, t), dim=-1)
+    if table.dim() == 1:
+        spec = spec[:, None]
+    corr = torch.fft.ifft(spec * cfc[None, :, None], dim=-1)
+    del spec
+    row = k3_peak_row(corr, x.shape[0], label, 3)
+    del corr
+    torch.cuda.empty_cache()
+    if name is None:
+        extra.append(row)
+    else:
+        row["name"] = name
+        rows.append(row)
+
+
 def check_l2c_e5b_shapes(dev, card: str, rows: list, extra: list) -> None:
     """Phase 3 at phase 14's new shapes, each against its plain version
     with its kernel's tolerance (the wipeoff also bit for bit its Triton
@@ -6645,44 +6749,22 @@ def check_l2c_e5b_shapes(dev, card: str, rows: list, extra: list) -> None:
         galileo_e5b_chain, gps_l2c_chain)
     from gnss_sim_receiver_tpu_torch.models.tracking import TrackingConf
     from gnss_sim_receiver_tpu_torch.ops import pcps, prn_codes
-    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
-        generate_baseband_device_resident
     rng = np.random.default_rng(14)
     l2c_sats = l2c_satellites(l2c_ephemerides(), L2C_DUR, L2C_CN0)
-
-    def dwells(sats, fs, eng, seed):
-        m, n = eng.conf.max_dwells, eng.fft_size
-        return generate_baseband_device_resident(
-            sats, fs, m * n, noise=True, seed=seed, device=dev).reshape(m, n)
-
-    def peak(x, table, t, cfc, label, name=None):
-        """K3's peak on the correlations of `x` wiped by `table`."""
-        spec = torch.fft.fft(pcps.pcps_wipe(x, table, t), dim=-1)
-        if table.dim() == 1:
-            spec = spec[:, None]
-        corr = torch.fft.ifft(spec * cfc[None, :, None], dim=-1)
-        del spec
-        row = k3_peak_row(corr, x.shape[0], label, 3)
-        del corr
-        torch.cuda.empty_cache()
-        if name is None:
-            extra.append(row)
-        else:
-            row["name"] = name
-            rows.append(row)
 
     # (a)'s cold search and its step two
     l2c = gps_l2c_chain(FS, n_channels=L2C_CHANNELS)
     eng = PcpsAcquisitionEngine(l2c.acq, tuple(range(1, L2C_CHANNELS + 1)),
                                 code_provider=l2c.code_provider,
                                 sc_rate=l2c.sc_rate, device=dev)
-    x = dwells(l2c_sats, FS, eng, 53)
+    x = search_dwells(l2c_sats, FS, eng, 53, dev)
     cfc, m = eng.code_fft_conj, x.shape[0]
     label = f"(a)'s cold L2C search at {FS / 1e6:g} Msps"
     row = wipe_case(x, eng.dopplers, eng._t, label, k3_search(cfc, m), 3)
     row["name"] = "K3_pcps_wipe_L2C"
     rows.append(row)
-    peak(x, eng.dopplers, eng._t, cfc, label, "K3_pcps_peak_L2C")
+    peak_case(rows, extra, x, eng.dopplers, eng._t, cfc, label,
+              "K3_pcps_peak_L2C")
     search = (lambda: pcps.pcps_search_two_steps(
         x, cfc, eng.dopplers, eng._t, two_steps=True,
         n_side=int(l2c.acq.num_doppler_bins_step2),
@@ -6712,7 +6794,7 @@ def check_l2c_e5b_shapes(dev, card: str, rows: list, extra: list) -> None:
     row = wipe_case(x, table, eng._t, label2, k3_search(cfc, m), 3)
     row["name"] = "K3b_pcps_wipe_per_channel_L2C"
     rows.append(row)
-    peak(x, table, eng._t, cfc, label2)
+    peak_case(rows, extra, x, table, eng._t, cfc, label2)
     del x
     torch.cuda.empty_cache()
     # (b)'s assisted search at 4 Msps
@@ -6720,14 +6802,15 @@ def check_l2c_e5b_shapes(dev, card: str, rows: list, extra: list) -> None:
     eng = PcpsAcquisitionEngine(l2c4.acq, tuple(range(1, L2C_CHANNELS + 1)),
                                 code_provider=l2c4.code_provider,
                                 sc_rate=l2c4.sc_rate, device=dev)
-    x = dwells(l2c_multiband_sats()[2], FS_L2C_MB, eng, 55)
+    x = search_dwells(l2c_multiband_sats()[2], FS_L2C_MB, eng, 55, dev)
     cfc, m = eng.code_fft_conj, x.shape[0]
     table = narrow_table(eng, 62.5)
     label = f"(b)'s assisted L2C search at {FS_L2C_MB / 1e6:g} Msps"
     row = wipe_case(x, table, eng._t, label, k3_search(cfc, m), 3)
     row["name"] = "K3b_pcps_wipe_per_channel_assisted_L2C"
     rows.append(row)
-    peak(x, table, eng._t, cfc, label, "K3_pcps_peak_assisted_L2C")
+    peak_case(rows, extra, x, table, eng._t, cfc, label,
+              "K3_pcps_peak_assisted_L2C")
     got = pcps.pcps_search_assisted(x, cfc, table, eng._t)
     stat, di, de = pcps.max_to_input_power_stat(
         pcps.pcps_grid_per_channel(x, cfc, table, FS_L2C_MB), float(m))
@@ -6744,13 +6827,13 @@ def check_l2c_e5b_shapes(dev, card: str, rows: list, extra: list) -> None:
     eng = PcpsAcquisitionEngine(e5c.acq, tuple(range(11, 11 + E5B_CHANNELS)),
                                 code_provider=e5c.code_provider,
                                 sc_rate=e5c.sc_rate, device=dev)
-    x = dwells(e5b_sky()[2], FS_E5B, eng, 59)
+    x = search_dwells(e5b_sky()[2], FS_E5B, eng, 59, dev)
     cfc, m = eng.code_fft_conj, x.shape[0]
     label = f"(c)'s cold E5b search at {FS_E5B / 1e6:g} Msps"
     for table, lab in ((eng.dopplers, label),
                        (narrow_table(eng), label + ", step two")):
         extra.append(wipe_case(x, table, eng._t, lab, k3_search(cfc, m), 3))
-        peak(x, table, eng._t, cfc, lab)
+        peak_case(rows, extra, x, table, eng._t, cfc, lab)
     del x
     torch.cuda.empty_cache()
     # the chunk kernel at (a)'s shape and at (b)'s L2C chain's
@@ -6972,11 +7055,13 @@ def assisted_session(wrappers, conf, arrays: dict, ephs, kernels,
 
 
 def check_assisted_centres(session, windows, l1_sats, f_ratio: float,
-                           sig: str, tracked=None) -> None:
+                           sig: str, tracked=None,
+                           primary: str = "L1") -> None:
     """The secondary band `sig`'s searches: every one assisted (none
-    cold), each centre within 50 Hz of the true L1 Doppler at its window x
-    `f_ratio` (tests/test_assisted_acq.py's bound), and with `tracked`
-    each tracked PRN among the assisted detections."""
+    cold), each centre within 50 Hz of the true Doppler of the `primary`
+    band (`l1_sats`) at its window x `f_ratio`
+    (tests/test_assisted_acq.py's bound), and with `tracked` each tracked
+    PRN among the assisted detections."""
     print(f"  searches {dict(session.searches)}; assist log "
           f"{session.assist_log}")
     if session.searches[(sig, "cold")] or not session.assist_log:
@@ -6992,10 +7077,11 @@ def check_assisted_centres(session, windows, l1_sats, f_ratio: float,
         want = f_ratio * (sat.doppler_hz + sat.doppler_rate_hz_s * t_win)
         worst = max(worst, abs(center - want))
     print(f"  {len(session.assist_log)} assisted searches; the largest "
-          f"centre error against the true L1 Doppler x f_{sig}/f_L1 "
-          f"{worst:.3f} Hz")
+          f"centre error against the true {primary} Doppler x "
+          f"f_{sig}/f_{primary} {worst:.3f} Hz")
     if worst >= MB_ASSIST_TOL_HZ:
-        fail(f"an assisted centre {worst:.3f} Hz off the scaled L1 Doppler")
+        fail(f"an assisted centre {worst:.3f} Hz off the scaled {primary} "
+             "Doppler")
     if tracked is not None:
         detected = {p for s, p, _, d in session.assist_log
                     if s == sig and d}
@@ -7207,6 +7293,606 @@ def e5b_path(wrappers, card: str) -> dict:
     return launches
 
 
+# ---- phase 15: the BeiDou B1I and B3I chains --------------------------------
+
+F_B1 = 1_561.098e6
+F_B3 = 1_268.52e6
+# phase 4's six satellites as BeiDou MEO/IGSO PRNs, D1 (the chains' default
+# PRNs are 6-30: 1-5 are GEO and broadcast D2), on phase 4's geometry with
+# toe = toc = T0, TGD1 = 0 (the D1 decoder gives any band tgd = TGD1, so a
+# B3I fix would carry a B1I group delay: ROADMAP.md queue 3).  SOW = T0
+# at the first bit: no BDT - GPST offset, in JAX neither (queue 3)
+BDS_PRNS = (6, 8, 11, 14, 19, 23)
+# (a): B1I alone through the CLI: 8 Msps ishort through phase 4's x2 FIR,
+# so 4 Msps keep B1I's 2.046 MHz main lobe; 36.5 s: a channel feeds the
+# observables 2.6 s after its acquisition (the settle gate) and its D1
+# ephemeris needs subframes 1-3 after two preambles (an 18 s frame); the
+# half second puts the capture off K6's 2048-sample tiles, so that its
+# last launch ends in a partial tile (check_k6 holds that tile)
+FS_B1_FILE = 8_000_000.0
+FS_B1 = 4_000_000.0
+B1_DUR = 36.5
+B1_CN0 = 46.0
+B1_CHANNELS = 8
+# Acquisition_B1.max_dwells: at the chain's 2 dwells of 1 ms (doubled), 7
+# of 72 searches of the sky at 46 dB-Hz put the Doppler 300 to 362 Hz off
+# (8 of 72 in JAX, up to 382 Hz), past the decision-directed FLL's
+# +-250 Hz: the channel locks 500 Hz off, as E5b's did (ROADMAP.md queue
+# 3).  8 dwells: none of 72 beyond 85 Hz (103 Hz in JAX; CPU counts at
+# 4 Msps)
+B1_DWELLS = 8
+# (b): B1I on RF 0 at 4 Msps + B3I on RF 1 at 12.5 Msps (tests/test_b3i.py's
+# rate) on four of the six, 20 s, warm-started: B3I's first D1 subframe
+# decodes ~12 s in, so its pseudoranges come from there on
+FS_B3 = 12_500_000.0
+B3_PRNS = BDS_PRNS[:4]
+B13_DUR = 20.0
+B3_CHANNELS = 8
+# (c): tests/test_d2.py's GEO PRN 2 (D2 at 500 bps, no NH, 48 dB-Hz,
+# 1350 Hz) at 8.192 Msps on the per-epoch path with lock_rectify; 31.5 s
+# hold the ten pages of a D2 ephemeris (one a 3 s frame) from any start,
+# and the tenth of a millisecond more puts the capture off K6's tiles (a
+# whole number of milliseconds at 8.192 Msps fills them)
+FS_GEO = 8_192_000.0
+GEO_PRN = 2
+GEO_DOP = 1350.0
+GEO_DUR = 31.5001
+GEO_CHUNK = 1000
+B1_KERNELS = ("K1_block_correlate", "K1_K8b_K8a_block_step", "K9_epoch_chunk",
+              "K3_pcps_wipe", "K3_pcps_peak", "K3b_pcps_wipe_per_channel",
+              "K5a_fir_decim")
+B13_KERNELS = ("K1_block_correlate", "K1_K8b_K8a_block_step",
+               "K3_pcps_wipe", "K3_pcps_peak", "K3b_pcps_wipe_per_channel")
+GEO_KERNELS = ("K9_epoch_chunk", "K9_epoch_chunk_rectify", "K3_pcps_wipe",
+               "K3_pcps_peak", "K3b_pcps_wipe_per_channel")
+
+# (a)'s conf: phase 4's conditioner at 8 Msps and the B1I chain alone
+B1_CONF = """\
+GNSS-SDR.internal_fs_sps=4000000
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={capture}
+SignalSource.item_type=ishort
+SignalSource.sampling_frequency=8000000
+InputFilter.implementation=Freq_Xlating_Fir_Filter
+InputFilter.number_of_taps=31
+InputFilter.cutoff=0.45
+InputFilter.decimation_factor=2
+InputFilter.IF=0
+Resampler.implementation=Pass_Through
+Channels_B1.count=8
+Channels.in_acquisition=8
+Acquisition_B1.implementation=BEIDOU_B1I_PCPS_Acquisition
+Acquisition_B1.max_dwells=8
+Tracking_B1.implementation=BEIDOU_B1I_DLL_PLL_Tracking
+Observables.implementation=Hybrid_Observables
+PVT.implementation=RTKLIB_PVT
+PVT.output_rate_ms=20
+"""
+
+
+def bds_ephemerides():
+    """Phase 4's six satellites as BeiDou ephemerides (BDS_PRNS), toe = toc
+    = T0, TGD1 = 0, AODE = AODC = 21 (what the D1 encoder writes)."""
+    import dataclasses
+    return [dataclasses.replace(e, prn=p, system="BeiDou", tgd=0.0, iode=21,
+                                iodc=21)
+            for e, p in zip(l2c_ephemerides(), BDS_PRNS)]
+
+
+def bds_satellites(ephs, dur: float, cn0: float, signal: str, f_c: float):
+    """BeiDou `signal` ("B1" or "B3") signals: D1 subframes 1-3 cycling from
+    SOW = T0, spread by NH20 as per-epoch signs (nav.dnav)."""
+    from gnss_sim_receiver_tpu_torch.nav import dnav
+    n_rep = int(np.ceil((dur + 18.0) / 18.0))
+    return offband_satellites(
+        ephs, rx_true_ecef(), T0, dur, cn0, signal, f_c,
+        lambda e: dnav.b1i_epoch_signs(
+            dnav.bits_for_ephemeris(e, T0, n_repeats=n_rep)))
+
+
+def geo_sky():
+    """(c)'s sky: tests/test_d2.py's GEO PRN 2 with the D2 pages of its
+    ephemeris from BDT 300 s, and that ephemeris."""
+    from gnss_sim_receiver_tpu_torch.nav import dnav
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
+        SatelliteSignalParams
+    eph = make_sky_constellation(30.0, 110.0, toe=7200.0)[0]
+    eph.prn, eph.system = GEO_PRN, "BeiDou"
+    bits = dnav.d2_bits_for_ephemeris(
+        eph, t0_bdt_s=300.0, n_frames=int(np.ceil(GEO_DUR / 3.0)) + 1)
+    sat = SatelliteSignalParams(prn=GEO_PRN, system="BeiDou", signal="B1",
+                                cn0_db_hz=48.0, doppler_hz=GEO_DOP,
+                                delay_chips=512.25,
+                                nav_bits=dnav.d2_epoch_signs(bits))
+    return [sat], eph
+
+
+def geo_chain():
+    """(c)'s chain: beidou_b1i_chain at 8.192 Msps on the GEO PRN, tracking
+    as tests/test_d2.py does (40 Hz PLL, no FLL pull-in, lock_rectify)."""
+    from gnss_sim_receiver_tpu_torch.models.receiver import beidou_b1i_chain
+    return beidou_b1i_chain(FS_GEO, prns=(GEO_PRN,), n_channels=1,
+                            lock_rectify=True, enable_fll_pullin=False)
+
+
+def b13_conf():
+    """(b)'s receiver: beidou_b1i_chain at 4 Msps on RF 0 (B1_DWELLS
+    dwells, as (a)'s conf) and beidou_b3i_chain at 12.5 Msps on RF 1 on
+    the sky's six PRNs, 8 channels each (B3I assist-gated on B1I: a B3I
+    channel waits for B1I's lock of its PRN, so PRNs no B1I channel
+    tracks would hold it)."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.models.receiver import (
+        ReceiverConf, beidou_b1i_chain, beidou_b3i_chain)
+    b1 = beidou_b1i_chain(FS_B1, n_channels=B1_CHANNELS)
+    b1.acq = dataclasses.replace(b1.acq, max_dwells=B1_DWELLS)
+    b3 = dataclasses.replace(
+        beidou_b3i_chain(FS_B3, prns=BDS_PRNS, n_channels=B3_CHANNELS),
+        rf_channel_id=1)
+    return ReceiverConf(fs=FS_B1, gps_chain=False, rf_fs={1: FS_B3},
+                        chains=(b1, b3))
+
+
+def check_rectify_flag(dev, rng) -> dict:
+    """K9's rectify form against its plain closure (check_k9, from the edge
+    states: channel 2 closes its C/N0 window) at (c)'s shape with C=8, and
+    the flag seen on the card: the same inputs through the coherent form
+    give channel 2 another carrier-lock value."""
+    import dataclasses
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    conf = geo_chain().trk
+    row = check_k9(dev, rng, conf, 8, "K9_epoch_closure_rectify",
+                   f"BeiDou B1I GEO at {FS_GEO / 1e6:g} Msps, rectified lock")
+    taps = conf_taps(conf)
+    corr = epoch_corr(rng, 8, taps, False, dev)
+    sign = np.where(corr[:, 1].real.cpu().numpy() >= 0, 1.0, -1.0)
+    st = epoch_state(rng, conf, 8, sign, dev)
+    locks = []
+    for rectify in (True, False):
+        c_ = dataclasses.replace(conf, lock_rectify=rectify)
+        planes = trk._empty_planes(3, 8, dev, trk.EPOCH_PLANES)
+        new = trk.epoch_closure(c_, corr, trk._epoch_length(c_, st), st,
+                                planes, 1)
+        locks.append(float(new.carrier_lock[2]))
+    torch.cuda.synchronize()
+    print(f"  the rectify flag on the card: channel 2's carrier lock "
+          f"{locks[0]:.6f} rectified, {locks[1]:.6f} coherent")
+    if locks[0] == locks[1]:
+        fail("K9's rectify form gave the coherent lock value")
+    return row
+
+
+def check_beidou_shapes(dev, card: str, rows: list, extra: list) -> None:
+    """Phase 3 at phase 15's new shapes, each against its plain version
+    with its kernel's tolerance (the wipeoff also bit for bit its Triton
+    reference and the searches after it, wipe_case); rows named with
+    _B1I, _B3I and _rectify go to `rows`, the others to `extra`:
+    - (a)'s cold B1I search at 4 Msps (beidou_b1i_chain at B1_DWELLS 1 ms
+      dwells, each the doubled FFT of bit_transition_flag, 250 Hz steps
+      over +-5 kHz): the wipeoff and K3's peak at M=8, C=8, D=41, N=8000
+      on (a)'s sky made by K6, step two's K3b (D2=9, 62.5 Hz) and K3's
+      peak; the whole two-step search timed;
+    - (b)'s assisted B3I search at 12.5 Msps: K3b and K3's peak at M=2,
+      C=8, D2=9, N=25000, the whole pcps_search_assisted against its
+      plain composition;
+    - (c)'s cold GEO search at 8.192 Msps: the wipeoff, K3b and K3's peak
+      at M=2, C=1, D=41, D2=9, N=16384;
+    - K9 in its rectify form alone (check_rectify_flag), the chunk kernel
+      at (a)'s and (b)'s B1I shape (C=8, 4000 samples an epoch), (b)'s
+      B3I one (C=8, 12500) and in the rectify form at (c)'s (8192; C=8:
+      the edge states need six channels);
+    - K8a, K8b, K1 with both and the two-launch chunk at B1I's and B3I's
+      E = 20 shapes (4 and 12.5 Msps, C=8);
+    - K6 on (a)'s, (b)'s B3I and (c)'s skies."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.ops import pcps
+    rng = np.random.default_rng(15)
+    ephs = bds_ephemerides()
+    b1_sats = bds_satellites(ephs, B1_DUR, B1_CN0, "B1", F_B1)
+    b3_sats = bds_satellites(ephs[:len(B3_PRNS)], B13_DUR, B1_CN0, "B3",
+                             F_B3)
+    conf = b13_conf()
+    b1, b3 = conf.chains
+
+    # (a)'s cold search and its step two
+    eng = PcpsAcquisitionEngine(b1.acq, BDS_PRNS + (7, 9),
+                                code_provider=b1.code_provider,
+                                sc_rate=b1.sc_rate, device=dev)
+    x = search_dwells(b1_sats, FS_B1, eng, 81, dev)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    label = f"(a)'s cold B1I search at {FS_B1 / 1e6:g} Msps"
+    row = wipe_case(x, eng.dopplers, eng._t, label, k3_search(cfc, m), 3)
+    row["name"] = "K3_pcps_wipe_B1I"
+    rows.append(row)
+    peak_case(rows, extra, x, eng.dopplers, eng._t, cfc, label,
+              "K3_pcps_peak_B1I")
+    search = (lambda: pcps.pcps_search_two_steps(
+        x, cfc, eng.dopplers, eng._t, two_steps=True,
+        n_side=int(b1.acq.num_doppler_bins_step2),
+        step2=float(b1.acq.doppler_step2), **eng._statistic()))
+    search()
+    search_ms = time_ms(search, reps=5)
+    print(f"  the cold B1I search (M={m}, C={cfc.shape[0]}, "
+          f"D={eng.dopplers.shape[0]}, N={eng.fft_size}, both steps, one "
+          f"packed buffer): {search_ms:.4f} ms ({card})")
+    extra.append(dict(name="B1I_cold_search", route="cuda+cufft",
+                      ms=search_ms,
+                      shape=f"M={m}, C={cfc.shape[0]}, D="
+                            f"{eng.dopplers.shape[0]}, N={eng.fft_size}, "
+                            "two steps"))
+    table = narrow_table(eng)
+    label2 = f"(a)'s B1I step two at {FS_B1 / 1e6:g} Msps"
+    row = wipe_case(x, table, eng._t, label2, k3_search(cfc, m), 3)
+    row["name"] = "K3b_pcps_wipe_per_channel_B1I"
+    rows.append(row)
+    peak_case(rows, extra, x, table, eng._t, cfc, label2)
+    del x
+    torch.cuda.empty_cache()
+    # (b)'s assisted B3I search at 12.5 Msps
+    eng = PcpsAcquisitionEngine(b3.acq, BDS_PRNS + (7, 9),
+                                code_provider=b3.code_provider,
+                                sc_rate=b3.sc_rate, device=dev)
+    x = search_dwells(b3_sats, FS_B3, eng, 83, dev)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    table = narrow_table(eng, 62.5)
+    label = f"(b)'s assisted B3I search at {FS_B3 / 1e6:g} Msps"
+    row = wipe_case(x, table, eng._t, label, k3_search(cfc, m), 3)
+    row["name"] = "K3b_pcps_wipe_per_channel_assisted_B3I"
+    rows.append(row)
+    peak_case(rows, extra, x, table, eng._t, cfc, label,
+              "K3_pcps_peak_assisted_B3I")
+    got = pcps.pcps_search_assisted(x, cfc, table, eng._t)
+    stat, di, de = pcps.max_to_input_power_stat(
+        pcps.pcps_grid_per_channel(x, cfc, table, FS_B3), float(m))
+    want = torch.stack([stat, torch.gather(table, 1, di.long()[:, None])[:, 0],
+                        de.to(torch.float32)])
+    torch.cuda.synchronize()
+    compare(f"pcps_search_assisted ({label}) statistic", got[0], want[0],
+            1e-4)
+    compare(f"pcps_search_assisted ({label}) cells", got[1:], want[1:], 0.0)
+    del x, got, want, stat, di, de
+    torch.cuda.empty_cache()
+    # (c)'s cold GEO search at 8.192 Msps
+    gchain = geo_chain()
+    eng = PcpsAcquisitionEngine(gchain.acq, (GEO_PRN,),
+                                code_provider=gchain.code_provider,
+                                sc_rate=gchain.sc_rate, device=dev)
+    x = search_dwells(geo_sky()[0], FS_GEO, eng, 85, dev)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    label = f"(c)'s cold GEO B1I search at {FS_GEO / 1e6:g} Msps"
+    for table, lab in ((eng.dopplers, label),
+                       (narrow_table(eng), label + ", step two")):
+        extra.append(wipe_case(x, table, eng._t, lab, k3_search(cfc, m), 3))
+        peak_case(rows, extra, x, table, eng._t, cfc, lab)
+    del x
+    torch.cuda.empty_cache()
+    # K9: the rectify form alone, the chunk kernel at the three shapes
+    extra.append(check_rectify_flag(dev, rng))
+    for conf_, chain, name, lab, path_epochs in (
+            (b1.trk, b1, "K9_epoch_chunk_B1I",
+             f"BeiDou B1I at {FS_B1 / 1e6:g} Msps", 19),
+            (b3.trk, b3, "K9_epoch_chunk_B3I",
+             f"BeiDou B3I at {FS_B3 / 1e6:g} Msps", 19),
+            (gchain.trk, gchain, "K9_epoch_chunk_rectify",
+             f"BeiDou B1I GEO at {FS_GEO / 1e6:g} Msps, rectified lock",
+             GEO_CHUNK)):
+        rows.append(check_epoch_chunk_bits(dev, rng, conf_, 8, name, lab,
+                                           path_epochs, chain=chain))
+        torch.cuda.empty_cache()
+    # the block step at the B1I and B3I shapes
+    k8 = ("K8a_block_prologue", "K8b_block_closure",
+          "K1_K8b_block_correlate_close", "K1_K8b_K8a_block_step")
+    taps = (0.25, 0.0, -0.25)
+    for chain, suffix, lab in (
+            (b1, "_B1I", f"BeiDou B1I at {FS_B1 / 1e6:g} Msps"),
+            (b3, "_B3I", f"BeiDou B3I at {FS_B3 / 1e6:g} Msps")):
+        got = check_k8(dev, rng, chain.trk, 8, taps, chain.code_provider,
+                       1000, tuple(n + suffix for n in k8), lab)
+        rows += [got[0], got[3]]
+        extra += got[1:3]
+        torch.cuda.empty_cache()
+        extra.append(check_block_chunk_bits(dev, rng, chain.trk, 8, taps,
+                                            chain.code_provider, lab))
+        torch.cuda.empty_cache()
+    # K6 on the new skies
+    for fs, sats, dur, seed, name, lab in (
+            (FS_B1_FILE, b1_sats, B1_DUR, 91, "K6_device_generator_BDS",
+             f"(a)'s B1I sky at {FS_B1_FILE / 1e6:g} Msps"),
+            (FS_B3, b3_sats, B13_DUR, 93, None,
+             f"(b)'s B3I sky at {FS_B3 / 1e6:g} Msps"),
+            (FS_GEO, geo_sky()[0], GEO_DUR, 95, None,
+             f"(c)'s GEO sky at {FS_GEO / 1e6:g} Msps")):
+        row = check_k6(dev, fs, sats, dur, seed, lab)
+        if name is None:
+            extra.append(row)
+        else:
+            row["name"] = name
+            rows.append(row)
+        torch.cuda.empty_cache()
+
+
+def epoch_shapes(c: int, nominal: int) -> int:
+    """The chunk kernel's launches with C channels of `nominal` samples an
+    epoch since its shape counter was cleared."""
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    return trk.epoch_chunk.shapes[(c, nominal)]
+
+
+def b1_path(root: str, wrappers, card: str) -> dict:
+    """Phase 15(a): B1I alone through the CLI.  K6 makes (a)'s sky (the six
+    BeiDou satellites on B1I, 46 dB-Hz, D1 from SOW = T0) at 8 Msps for
+    B1_DUR seconds and it is written as ishort (its launches counted
+    apart); the counters are set to 0 just before run_cli(B1_CONF) and
+    read just after.  Checks: the cold search on the B1I grid (the wipeoff
+    at M=8, D=41, N=8000, K3's peak there, K3b at step two), the six PRNs
+    tracked, >= 5 D1 ephemerides, >= 5 fixes with 2D < 2 m and 3D < 5 m,
+    the block step at B1I's E = 20 shape and the chunk kernel at B1I's C
+    and epoch for the chunk tails; the real-time factor printed."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    path = os.path.join(root, "build", "b1i_scenario_8msps_v1.ishort")
+    sats = bds_satellites(bds_ephemerides(), B1_DUR, B1_CN0, "B1", F_B1)
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = generate_baseband_device_resident(
+        sats, FS_B1_FILE, int(FS_B1_FILE * B1_DUR), noise=True, seed=91,
+        device="cuda")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_samples(path, x, "ishort", scale=200.0)
+    del x
+    torch.cuda.empty_cache()
+    k6 = read_launches(wrappers, ("K6_device_generator",))
+    print(f"  K6 made and wrote {os.path.getsize(path) / 1e6:.0f} MB ishort "
+          f"at {FS_B1_FILE / 1e6:g} Msps in {time.perf_counter() - t0:.3f} s "
+          "(not timed)")
+    conf = os.path.join(root, "build", "chip_smoke_b1i.conf")
+    with open(conf, "w") as fh:
+        fh.write(B1_CONF.format(capture=path))
+    chain = b13_conf().chains[0]
+    eng = PcpsAcquisitionEngine(chain.acq, (6,), device="cuda")
+    n, d = eng.fft_size, eng.dopplers.shape[0]
+    f1 = tb.block_fft_size(chain.trk)
+    shapes0 = shape_counts()
+    tb.block_correlate_close.fold_shapes.clear()
+    tb.block_prologue.shapes.clear()
+    trk.epoch_chunk.shapes.clear()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    res = run_cli([f"--config_file={conf}"])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, B1_KERNELS)
+    os.remove(path)
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    run = res.run
+    tracked = sorted(p for p, s in zip(run.channel_prns, run.channel_states)
+                     if s == ChannelState.TRACKING)
+    print(f"  tracked PRNs {tracked}; D1 ephemerides of "
+          f"{sorted(run.ephemerides)}")
+    if tracked != list(BDS_PRNS):
+        fail(f"tracked B1I PRNs {tracked}, expected {list(BDS_PRNS)}")
+    if len(run.ephemerides) < 5:
+        fail(f"{len(run.ephemerides)} D1 ephemerides")
+    check_run_position(run, min_fixes=5)
+    wipe, peak = (a - b for a, b in zip(shape_counts(), shapes0))
+    cold = sum(v for s, v in wipe.items() if len(s) == 3
+               and s[0] == B1_DWELLS and s[1] == d and s[-1] == n)
+    step2 = sum(v for s, v in wipe.items() if len(s) == 4
+                and s[0] == B1_DWELLS and s[-1] == n)
+    cold_peak = sum(v for s, v in peak.items() if s[2] == d and s[-1] == n)
+    print(f"  the wipeoff by shape {dict(wipe)}, K3's peak {dict(peak)}")
+    if not (cold and step2 and cold_peak == cold):
+        fail(f"(a) did not search cold on the B1I grid: {dict(wipe)}")
+    pro, fold = block_counts(f1, 20)
+    k9 = epoch_shapes(B1_CHANNELS, chain.trk.nominal_epoch_samples)
+    print(f"  the B1I block step at E=20, F={f1}: K8a {pro}, folds {fold}; "
+          f"K9's chunk kernel {k9} launches at C={B1_CHANNELS}, "
+          f"{chain.trk.nominal_epoch_samples} samples an epoch")
+    if not (pro and fold and k9):
+        fail("(a) did not run the B1I shapes of the block step and the "
+             "chunk kernel")
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}")
+    print(f"  wall {wall:.3f} s from file open to the last fix for "
+          f"{B1_DUR:g} s of signal: real-time factor "
+          f"{B1_DUR / wall:.3f} ({card})")
+    launches.update({"K6_device_generator": k6["K6_device_generator"],
+                     "K6_device_generator_BDS": k6["K6_device_generator"],
+                     "K3_pcps_wipe_B1I": cold, "K3_pcps_peak_B1I": cold_peak,
+                     "K3b_pcps_wipe_per_channel_B1I": step2,
+                     "K8a_block_prologue_B1I": pro,
+                     "K1_K8b_K8a_block_step_B1I": fold,
+                     "K9_epoch_chunk_B1I": k9})
+    return launches
+
+
+def b13_path(wrappers, card: str) -> dict:
+    """Phase 15(b): B1I on RF 0 at 4 Msps and B3I on RF 1 at 12.5 Msps, K6
+    making both streams of the sky (B3I on B3_PRNS; its launches counted
+    apart), warm-started with the ephemerides (assisted_session: the
+    counters set to 0 just before attach_arrays + run_to_end and read just
+    after).  Checks: every B3I search assisted, each centre within 50 Hz
+    of the true B1I Doppler x f_B3 / f_B1; B1I on the six PRNs, B3I on
+    B3_PRNS and on no PRN without a B3I signal; |PR_B3 - PR_B1| < 30 m per
+    PRN; a fix of both bands and the position; the launches at B3I's
+    shapes (K3b and K3's peak at its assisted N, the block step at its F
+    and E = 20, the chunk kernel at its C and epoch)."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    ephs = bds_ephemerides()
+    b1_sats = bds_satellites(ephs, B13_DUR, B1_CN0, "B1", F_B1)
+    b3_sats = bds_satellites(ephs[:len(B3_PRNS)], B13_DUR, B1_CN0, "B3",
+                             F_B3)
+    reset(wrappers)
+    x1 = generate_baseband_device_resident(
+        b1_sats, FS_B1, int(FS_B1 * B13_DUR), noise=True, seed=92,
+        device="cuda")
+    x2 = generate_baseband_device_resident(
+        b3_sats, FS_B3, int(FS_B3 * B13_DUR), noise=True, seed=93,
+        device="cuda")
+    torch.cuda.synchronize()
+    k6 = read_launches(wrappers, ("K6_device_generator",))
+    conf = b13_conf()
+    n1 = conf.chains[0].n_channels
+    b3 = conf.chains[1]
+    n2 = PcpsAcquisitionEngine(b3.acq, (6,), device="cuda").fft_size
+    f2 = tb.block_fft_size(b3.trk)
+    trk.epoch_chunk.shapes.clear()
+    session, run, launches, windows, wall, wipe, peak = assisted_session(
+        wrappers, conf, {0: x1, 1: x2},
+        {("BeiDou", e.prn): e for e in ephs}, B13_KERNELS, FS_B3)
+    del x1, x2
+    torch.cuda.empty_cache()
+    states = list(zip(run.channel_prns, run.channel_states))
+    b1_trk, b3_trk = [sorted(p for p, s in part if s == ChannelState.TRACKING)
+                      for part in (states[:n1], states[n1:])]
+    print(f"  B1I tracks {b1_trk}, B3I tracks {b3_trk}")
+    if b1_trk != list(BDS_PRNS) or b3_trk != list(B3_PRNS):
+        fail(f"tracked B1I {b1_trk}, B3I {b3_trk}: expected "
+             f"{list(BDS_PRNS)} and {list(B3_PRNS)}")
+    check_assisted_centres(session, windows, b1_sats, F_B3 / F_B1, "B3",
+                           b3_trk, primary="B1")
+    check_run_position(run, min_fixes=5)
+    both = [s for s in run.solutions if s.used_channels is not None
+            and (s.used_channels < n1).any()
+            and (s.used_channels >= n1).any()]
+    diffs = band_pr_diffs(run, session.epoch_prns, n1)
+    worst_pr = {p: float(np.abs(d).max()) for p, d in diffs.items()}
+    print(f"  {len(both)} of {len(run.solutions)} fixes use both bands; "
+          f"max |PR_B3 - PR_B1| by PRN {worst_pr} m")
+    if not both or sorted(diffs) != list(B3_PRNS) \
+            or max(worst_pr.values()) >= MB_PR_TOL_M:
+        fail(f"both-band fixes {len(both)}, B3I against B1I pseudoranges "
+             f"{worst_pr}")
+    k3b = sum(v for s, v in wipe.items() if len(s) == 4 and s[-1] == n2)
+    k3 = sum(v for s, v in peak.items() if s[2] == 9 and s[-1] == n2)
+    pro, fold = block_counts(f2, 20)
+    k9 = epoch_shapes(B3_CHANNELS, b3.trk.nominal_epoch_samples)
+    print(f"  B3I shapes: K3b {k3b} launches at N={n2}, K3's peak {k3}; the "
+          f"block step at E=20, F={f2}: K8a {pro}, folds {fold}; K9's chunk "
+          f"kernel {k9} launches at C={B3_CHANNELS}, "
+          f"{b3.trk.nominal_epoch_samples} samples an epoch")
+    if not (k3b and k3 == k3b and pro and fold and k9):
+        fail("(b) did not launch the kernels at B3I's shapes")
+    print(f"  wall {wall:.3f} s for {B13_DUR:.0f} s of two RF streams: "
+          f"real-time factor {B13_DUR / wall:.3f} ({card})")
+    launches.update({
+        "K6_device_generator": k6["K6_device_generator"],
+        "K3b_pcps_wipe_per_channel_assisted_B3I": k3b,
+        "K3_pcps_peak_assisted_B3I": k3, "K8a_block_prologue_B3I": pro,
+        "K1_K8b_K8a_block_step_B3I": fold, "K9_epoch_chunk_B3I": k9})
+    return launches
+
+
+def geo_path(wrappers, card: str) -> dict:
+    """Phase 15(c): tests/test_d2.py's GEO run on the card at 8.192 Msps:
+    K6 makes GEO_DUR seconds of (c)'s sky (launches counted apart), the
+    counters set to 0 just before the acquisition, read after the last
+    chunk: PcpsAcquisitionEngine (geo_chain's search), then TrackingEngine
+    in chunks of GEO_CHUNK epochs on the per-epoch path (lock_rectify:
+    the chunk kernel's rectify form) into BeidouB1iTelemetryDecoder's D2
+    arm.  Checks: the Doppler within 5 Hz over the last 50 epochs, no
+    loss of lock, the D2 ephemeris decoded (its pages against the sky's
+    ephemerides' to their scales), the SOW ramp 1 ms an epoch, and the
+    rectify form's launches equal to the chunks dispatched."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import interop
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.tracking import TrackingEngine
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    sats, eph = geo_sky()
+    chain = geo_chain()
+    reset(wrappers)
+    x = generate_baseband_device_resident(
+        sats, FS_GEO, int(FS_GEO * GEO_DUR), noise=True, seed=95,
+        device="cuda")
+    torch.cuda.synchronize()
+    k6 = read_launches(wrappers, ("K6_device_generator",))
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acq = PcpsAcquisitionEngine(chain.acq, (GEO_PRN,),
+                                code_provider=chain.code_provider,
+                                sc_rate=chain.sc_rate, device="cuda")
+    res = acq.acquire(x[:acq.n_samples_needed])
+    if not bool(res.detected[0]):
+        fail("(c) did not detect the GEO PRN")
+    eng = TrackingEngine(chain.trk, (GEO_PRN,),
+                         code_provider=chain.code_provider, device="cuda")
+    eng.start_tracking(0, float(res.doppler_hz[0]),
+                       int(res.samplestamp + res.delay_samples[0]))
+    tlm = chain.telemetry_decoder([GEO_PRN])
+    tows, ephs, chunks = [], [], 0
+    while eng.epochs_that_fit(len(x)) > GEO_CHUNK:
+        outs = eng.process(x, 0, GEO_CHUNK)
+        chunks += 1
+        r = tlm.process(outs)
+        tows.append(r.tow_at_epoch_ms[:, 0])
+        ephs += [e for _, e in r.new_ephemerides]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers, GEO_KERNELS)
+    del x
+    torch.cuda.empty_cache()
+    st = interop.track_state_to_numpy(eng.state)
+    dop = float(np.mean(outs["carrier_doppler_hz"][-50:, 0]))
+    tows = np.concatenate(tows)
+    fin = np.isfinite(tows)
+    steps = np.diff(tows[fin])
+    print(f"  {chunks} chunks of {GEO_CHUNK} epochs; Doppler {dop:.3f} Hz "
+          f"(true {GEO_DOP:g}); lock lost {bool(st['lock_lost'][0])}, "
+          f"carrier lock {float(st['carrier_lock'][0]):.4f}; {int(fin.sum())} "
+          f"epochs stamped, SOW steps {sorted(set(steps.tolist()))[:4]} ms; "
+          f"D2 ephemerides {len(ephs)}")
+    if abs(dop - GEO_DOP) >= 5.0:
+        fail(f"(c) Doppler {dop:.3f} Hz")
+    if st["lock_lost"][0] or not st["active"][0]:
+        fail("(c) lost the GEO channel's lock")
+    if not ephs:
+        fail("(c) decoded no D2 ephemeris")
+    for name, tol in (("sqrt_a", 2.0 ** -18), ("m0_sc", 2.0 ** -30),
+                      ("ecc", 2.0 ** -32), ("toe", 0.0)):
+        if abs(getattr(ephs[0], name) - getattr(eph, name)) > tol:
+            fail(f"(c) D2 ephemeris {name} {getattr(ephs[0], name)!r}, "
+                 f"sky {getattr(eph, name)!r}")
+    if fin.sum() < 5000 or not np.array_equal(steps, np.ones_like(steps)):
+        fail(f"(c) SOW ramp: {int(fin.sum())} epochs stamped, steps "
+             f"{sorted(set(steps.tolist()))[:8]}")
+    rect = launches["K9_epoch_chunk_rectify"]
+    print(f"  K9's chunk kernel: {launches['K9_epoch_chunk']} launches, "
+          f"{rect} in its rectify form, for {chunks} chunks dispatched")
+    if not (rect == chunks == launches["K9_epoch_chunk"]):
+        fail(f"(c): {rect} rectify launches for {chunks} chunks")
+    print(f"  wall {wall:.3f} s for {GEO_DUR:g} s of signal: real-time "
+          f"factor {GEO_DUR / wall:.3f} ({card})")
+    launches["K6_device_generator"] = k6["K6_device_generator"]
+    return launches
+
+
 def profile_path(run) -> None:
     """`--profile`: `run()` (one run of a path, returning a line to print)
     twice more, plain and under torch.profiler: wall time, device busy
@@ -7276,16 +7962,12 @@ def main() -> int:
 
 
 def run_phases(root: str, card: str, procs: dict) -> int:
-    """Phases 2 to 14 and the result lines; `procs` are the synthesis
+    """Phases 2 to 15 and the result lines; `procs` are the synthesis
     children (none with --kernels-only)."""
     import torch
     from gnss_sim_receiver_tpu_torch import signals
     from gnss_sim_receiver_tpu_torch.models import tracking as trk
-    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
-    from gnss_sim_receiver_tpu_torch.ops import (correlator, cuda_build,
-                                                 filters, nonlinear, pcps,
-                                                 prn_codes, resampler)
-    from gnss_sim_receiver_tpu_torch.sim import device_generator
+    from gnss_sim_receiver_tpu_torch.ops import cuda_build, pcps, prn_codes
     print("== phase 2: build", flush=True)
     t0 = time.perf_counter()
     # the block library a second time with --fmad=false (phase 3 holds its
@@ -7501,6 +8183,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     check_k3_search_shapes(dev, extra)
     check_wipe_path_shapes(dev, extra)
     check_l2c_e5b_shapes(dev, card, rows, extra)
+    check_beidou_shapes(dev, card, rows, extra)
     rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
              *check_k5d(dev, rng)]
     torch.cuda.empty_cache()
@@ -7523,48 +8206,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
         print(json.dumps({"kernels": rows}))
         return 0
 
-    wrappers = {
-        "K1_block_correlate": (tb.block_correlate, "launches"),
-        "K8a_block_prologue": (tb.block_prologue, "launches"),
-        "K8b_block_closure": (tb.block_closure, "launches"),
-        "K1_K8b_block_correlate_close": (tb.block_correlate_close,
-                                         "launches"),
-        "K1_K8b_K8a_block_step": (tb.block_correlate_close, "folds"),
-        "K8a_block_prologue_E1_pilot": (tb.block_prologue, "launches_pilot"),
-        "K1_K8b_block_correlate_close_E1_pilot": (tb.block_correlate_close,
-                                                  "launches_pilot"),
-        "K1_K8b_K8a_block_step_E1_pilot": (tb.block_correlate_close,
-                                           "folds_pilot"),
-        "block_chunks": (tb.track_chunk_blocks, "chunks"),
-        "K9_epoch_closure": (trk.epoch_closure, "launches"),
-        "K2_multicorrelate": (correlator.multicorrelate, "launches"),
-        "K9_epoch_chunk": (trk.epoch_chunk, "launches"),
-        "K9_epoch_chunk_epochs": (trk.epoch_chunk, "epochs"),
-        "K9_epoch_chunk_kf": (trk.epoch_chunk, "launches_kf"),
-        "K9_epoch_chunk_gaussian": (trk.epoch_chunk, "launches_gaussian"),
-        "K9_epoch_chunk_pll2": (trk.epoch_chunk, "launches_pll2"),
-        "K3_pcps_wipe": (pcps.pcps_wipe, "launches"),
-        "K3_pcps_peak": (pcps.pcps_peak, "launches"),
-        "K3b_pcps_wipe_per_channel": (pcps.pcps_wipe,
-                                      "launches_per_channel"),
-        "K4a_pcps_dual_peak": (pcps.pcps_dual_peak, "launches"),
-        "K4b_quicksync_fold": (pcps.pcps_quicksync_fold, "launches"),
-        "K4b_quicksync_resolve": (pcps.pcps_quicksync_resolve, "launches"),
-        "K4c_pcps_caf_peak": (pcps.pcps_caf_peak, "launches"),
-        "K3c_pcps_second_peak": (pcps.pcps_second_peak, "launches"),
-        "K3c_pcps_second_peak_dual": (pcps.pcps_second_peak,
-                                      "launches_dual"),
-        "K3c_pcps_second_peak_caf": (pcps.pcps_second_peak, "launches_caf"),
-        "K5a_fir_decim": (filters.fir_decim, "launches"),
-        "K5b_notch_filter": (filters.notch_filter, "launches"),
-        "K5c_pulse_blanking": (filters.pulse_blanking, "launches"),
-        "K5d_direct_resampler": (resampler.direct_resampler, "launches"),
-        "K5d_linear_resampler": (resampler.linear_resampler, "launches"),
-        "K6_device_generator": (device_generator.expand, "launches"),
-        "K3_pcps_rows": (pcps.pcps_rows, "launches"),
-        "K7_pcps_window_fold": (pcps.pcps_window_fold, "launches"),
-        "K10a_sigma_points": (nonlinear.sigma_points, "launches"),
-        "K10b_sigma_moments": (nonlinear.sigma_moments, "launches")}
+    wrappers = launch_wrappers()
     print("== phase 4: main path (conf file -> capture file -> conditioner "
           "-> receiver -> position)", flush=True)
     for which in procs:           # no child may run beside a timed window
@@ -7724,19 +8366,50 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     for name in ("K6_device_generator_E5b", "K8a_block_prologue_E5b",
                  "K1_K8b_K8a_block_step_E5b"):
         launches[name] = e5b[name]
-    # K6's launches: the captures of phases 5, 6, 7, 8, 10, 11 and 14
+    t15 = time.perf_counter()
+    print("== phase 15(a): BeiDou B1I alone through the CLI (device "
+          f"generator -> {B1_DUR:g} s ishort file at "
+          f"{FS_B1_FILE / 1e6:g} Msps -> conditioner -> 8 B1I channels, cold "
+          "search -> D1 -> position)", flush=True)
+    bds1 = b1_path(root, wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"== phase 15(b): BeiDou B1I at {FS_B1 / 1e6:g} Msps on RF 0 + "
+          f"B3I at {FS_B3 / 1e6:g} Msps on RF 1 (attach_arrays, B3I "
+          "assisted, D1 on both -> dual-band position)", flush=True)
+    bds13 = b13_path(wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"== phase 15(c): a GEO PRN's D2 on B1I at {FS_GEO / 1e6:g} Msps "
+          "on the per-epoch path with the rectified lock test (acquisition "
+          "-> TrackingEngine -> D2 pages -> ephemeris)", flush=True)
+    geo = geo_path(wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
+    for name in ("K6_device_generator_BDS", "K3_pcps_wipe_B1I",
+                 "K3_pcps_peak_B1I", "K3b_pcps_wipe_per_channel_B1I",
+                 "K8a_block_prologue_B1I", "K1_K8b_K8a_block_step_B1I",
+                 "K9_epoch_chunk_B1I"):
+        launches[name] = bds1[name]
+    for name in ("K3b_pcps_wipe_per_channel_assisted_B3I",
+                 "K3_pcps_peak_assisted_B3I", "K8a_block_prologue_B3I",
+                 "K1_K8b_K8a_block_step_B3I", "K9_epoch_chunk_B3I"):
+        launches[name] = bds13[name]
+    launches["K9_epoch_chunk_rectify"] = geo["K9_epoch_chunk_rectify"]
+    # K6's launches: the captures of phases 5, 6, 7, 8, 10, 11, 14 and 15
     launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
                                        + k6_wb + pilot["K6_device_generator"]
                                        + ps["K6_device_generator"]
                                        + mb["K6_device_generator"]
                                        + l2c["K6_device_generator"]
                                        + l2mb["K6_device_generator"]
-                                       + e5b["K6_device_generator"])
+                                       + e5b["K6_device_generator"]
+                                       + bds1["K6_device_generator"]
+                                       + bds13["K6_device_generator"]
+                                       + geo["K6_device_generator"])
     for r in rows:
         r["launches"] = launches[r["name"]]
 
     wipe_shapes = dict(pcps.pcps_wipe.shapes)
-    print(f"  the wipeoff's launches in phases 4 to 14 by (M, Doppler table, "
+    print(f"  the wipeoff's launches in phases 4 to 15 by (M, Doppler table, "
           f"N): {wipe_shapes}")
     missing = sorted({wipe_key(k) for k in wipe_shapes} - WIPE_CHECKED)
     if missing:

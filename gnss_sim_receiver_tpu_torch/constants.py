@@ -2,8 +2,9 @@
 
 Mirrors the per-system constant headers of the reference
 (``src/core/system_parameters/GPS_L1_CA.h`` etc.) with only the values the
-GPS L1 C/A, GPS L2C, GPS L5, Galileo E1, Galileo E5a and Galileo E5b chains
-of the PyTorch port need.  All values are public ICD constants.
+GPS L1 C/A, GPS L2C, GPS L5, Galileo E1, Galileo E5a, Galileo E5b, BeiDou
+B1I and BeiDou B3I chains of the PyTorch port need.  All values are public
+ICD constants.
 """
 
 # --- physical ---------------------------------------------------------------
@@ -53,6 +54,16 @@ GALILEO_E5B_CODE_RATE_CPS = 10.23e6
 GALILEO_E5B_CODE_LENGTH_CHIPS = 10230
 # E5b-I secondary code CS4 (same for all SVs, ICD table 37: '1110')
 GALILEO_E5B_I_SECONDARY_CODE = (1, 1, 1, 0)
+
+# --- BeiDou B1I -------------------------------------------------------------
+BEIDOU_B1I_FREQ_HZ = 1_561.098e6
+BEIDOU_B1I_CODE_RATE_CPS = 2.046e6
+BEIDOU_B1I_CODE_LENGTH_CHIPS = 2046
+
+# --- BeiDou B3I -------------------------------------------------------------
+BEIDOU_B3I_FREQ_HZ = 1_268.52e6
+BEIDOU_B3I_CODE_RATE_CPS = 10.23e6
+BEIDOU_B3I_CODE_LENGTH_CHIPS = 10230
 
 # --- GPS time ---------------------------------------------------------------
 GPS_WEEK_SECONDS = 604_800

@@ -488,8 +488,12 @@ __device__ void epoch_close(const EpochArgs& a, const EpochStatePtrs& s,
   const float p_d = sqrtf(clamp_min(2.0f * m2 * m2 - m4, 0.0f));
   const float p_n = clamp_min(m2 - p_d, 1e-20f);
   const float cn0_new = 10.0f * log10f(clamp_min(p_d / p_n / t_int, 1e-10f));
-  const float i2 = sum_i * sum_i;
-  const float q2 = sum_q * sum_q;
+  // the coherent test on the signed sums, or the rectified one on the
+  // |I| and |Q| sums (data zero-mean over every window: BeiDou D2)
+  const float li = a.lock_rectify ? sum_abs_i : sum_i;
+  const float lq = a.lock_rectify ? sum_abs_q : sum_q;
+  const float i2 = li * li;
+  const float q2 = lq * lq;
   const float lock_val = (i2 - q2) / clamp_min(i2 + q2, 1e-20f);
   const float lock0 = s.carrier_lock[sc];
   const float lock_new = 0.75f * lock0 + 0.25f * lock_val;
@@ -615,7 +619,8 @@ bool epoch_args_invalid(const EpochArgs& a) {
          a.n_sec < 0 || a.n_sec > kSecMax || a.cn0_window < 1 ||
          a.block_size < 1 || a.mode < 0 || a.mode > 2 ||
          (a.pll_order != 2 && a.pll_order != 3) ||
-         (a.mode != 0 && a.k_ext != 1);
+         (a.mode != 0 && a.k_ext != 1) || a.lock_rectify < 0 ||
+         a.lock_rectify > 1;
 }
 
 extern "C" int epoch_closure(EpochArgs a, int row, void* stream) {

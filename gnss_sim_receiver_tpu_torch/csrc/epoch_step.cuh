@@ -138,6 +138,8 @@ struct EpochArgs {
   int32_t nominal;                      // nominal epoch samples
   int32_t mode;                         // 0 dll_pll, 1 kf, 2 gaussian
   int32_t pll_order;                    // 3, or 2 (dll_pll)
+  int32_t lock_rectify;                 // 1: the carrier-lock test on the
+                                        // |I| and |Q| sums (any form)
 };
 
 // the closure's forms, each a compile-time instantiation: the DLL/PLL

@@ -138,7 +138,7 @@ _SUPPORTED = {(AcqConf, "variant"): VARIANTS}
 _ABSENT = {
     AcqConf: {},
     TrackingConf: dict(dll_filter_order=2, bayes_nu0=30.0,
-                       lock_rectify=False, doppler_bias_hz=0.0),
+                       doppler_bias_hz=0.0),
     ObsConf: {},
     PvtConf: dict(iono_alpha=(0.0,) * 4, iono_beta=(0.0,) * 4,
                   raim_fde=False, raim_threshold_m=30.0,

@@ -2,12 +2,13 @@
 
 PyTorch port of ``gnss_sim_receiver_tpu.models.factory`` for the GPS L1 C/A
 ("1C"), Galileo E1-B ("1B"), GPS L2C CM ("2S"), GPS L5I ("L5"), Galileo
-E5a-I ("5X") and Galileo E5b-I ("7X") chains (reference GNSSBlockFactory,
+E5a-I ("5X"), Galileo E5b-I ("7X"), BeiDou B1I ("B1") and BeiDou B3I
+("B3") chains (reference GNSSBlockFactory,
 src/core/receiver/gnss_block_factory.cc:639-1335): maps the
 `Role.implementation` strings and per-role keys of a GNSS-SDR conf file onto
 the port's engine confs.
 
-The port carries these six chains, each on its own RF channel and rate
+The port carries these eight chains, each on its own RF channel and rate
 if the conf says so, and a subset of their options.  A conf
 key that selects something the port lacks is never read and dropped: it
 raises NotImplementedError naming the key, with the words "not ported".
@@ -24,8 +25,9 @@ from gnss_sim_receiver_tpu_torch.models.acquisition import AcqConf
 from gnss_sim_receiver_tpu_torch.models.observables import ObsConf
 from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf
 from gnss_sim_receiver_tpu_torch.models.receiver import (
-    Receiver, ReceiverConf, galileo_e1b_chain, galileo_e5a_chain,
-    galileo_e5b_chain, gps_l2c_chain, gps_l5_chain)
+    Receiver, ReceiverConf, beidou_b1i_chain, beidou_b3i_chain,
+    galileo_e1b_chain, galileo_e5a_chain, galileo_e5b_chain, gps_l2c_chain,
+    gps_l5_chain)
 from gnss_sim_receiver_tpu_torch.models.tracking import TrackingConf
 from gnss_sim_receiver_tpu_torch.utils.config import Configuration
 
@@ -44,6 +46,8 @@ _ACQ_IMPLS = {
     "5X": {"Galileo_E5a_Pcps_Acquisition": "pcps",
            "Galileo_E5a_Noncoherent_IQ_Acquisition_CAF": "iq_caf"},
     "7X": {"Galileo_E5b_PCPS_Acquisition": "pcps"},
+    "B1": {"BEIDOU_B1I_PCPS_Acquisition": "pcps"},
+    "B3": {"BEIDOU_B3I_PCPS_Acquisition": "pcps"},
 }
 _TRK_IMPLS = {
     "1C": ("GPS_L1_CA_DLL_PLL_Tracking", "GPS_L1_CA_KF_Tracking"),
@@ -52,20 +56,26 @@ _TRK_IMPLS = {
     "L5": ("GPS_L5_DLL_PLL_Tracking", "GPS_L5i_DLL_PLL_Tracking"),
     "5X": ("Galileo_E5a_DLL_PLL_Tracking",),
     "7X": ("Galileo_E5b_DLL_PLL_Tracking",),
+    "B1": ("BEIDOU_B1I_DLL_PLL_Tracking",),
+    "B3": ("BEIDOU_B3I_DLL_PLL_Tracking",),
 }
 _DEFAULT_ACQ = {"1C": "GPS_L1_CA_PCPS_Acquisition",
                 "1B": "Galileo_E1_PCPS_Ambiguous_Acquisition",
                 "2S": "GPS_L2_M_PCPS_Acquisition",
                 "L5": "GPS_L5i_PCPS_Acquisition",
                 "5X": "Galileo_E5a_Pcps_Acquisition",
-                "7X": "Galileo_E5b_PCPS_Acquisition"}
+                "7X": "Galileo_E5b_PCPS_Acquisition",
+                "B1": "BEIDOU_B1I_PCPS_Acquisition",
+                "B3": "BEIDOU_B3I_PCPS_Acquisition"}
 # the ported chains beyond GPS L1 C/A, in the JAX factory's order
-# (ALL_SIGNALS, factory.py:126), and their builders
+# (ALL_SIGNALS, factory.py:126), and their builders; Channel<i>.satellite
+# pinning counts channels in this order
 _CHAIN_BUILDERS = {"1B": galileo_e1b_chain, "2S": gps_l2c_chain,
                    "L5": gps_l5_chain, "5X": galileo_e5a_chain,
-                   "7X": galileo_e5b_chain}
+                   "7X": galileo_e5b_chain, "B1": beidou_b1i_chain,
+                   "B3": beidou_b3i_chain}
 # the signal groups of the JAX factory whose chains the port lacks
-_OTHER_SIGNALS = ("E6", "1G", "2G", "B1", "B3", "S1")
+_OTHER_SIGNALS = ("E6", "1G", "2G", "S1")
 _PVT_MODES = ("Single", "Static")
 
 
@@ -237,8 +247,9 @@ def pvt_conf_from_config(config: Configuration) -> PvtConf:
 def chains_from_config(config: Configuration) -> list:
     """The chains beyond GPS L1 C/A that Channels_<sig>.count configures,
     in the JAX factory's order: the Galileo E1-B data chain ("1B"), GPS L2C
-    CM ("2S"), GPS L5I ("L5"), Galileo E5a-I ("5X") and Galileo E5b-I
-    ("7X"); every other signal is refused.
+    CM ("2S"), GPS L5I ("L5"), Galileo E5a-I ("5X"), Galileo E5b-I ("7X"),
+    BeiDou B1I ("B1") and BeiDou B3I ("B3"); every other signal is
+    refused.
 
     Multi-band keys: ``Channels_<sig>.RF_channel_ID`` selects the RF
     channel whose stream the chain reads (gnss_flowgraph.cc:1018-1019),
@@ -286,7 +297,7 @@ def chains_from_config(config: Configuration) -> list:
 def receiver_conf_from_config(config: Configuration) -> ReceiverConf:
     """Build the receiver configuration from reference-style keys for the
     GPS L1 C/A chain and the Galileo E1-B, GPS L2C CM, GPS L5I, Galileo
-    E5a-I and Galileo E5b-I chains."""
+    E5a-I, Galileo E5b-I, BeiDou B1I and BeiDou B3I chains."""
     fs = float(config.property("GNSS-SDR.internal_fs_sps", 2_000_000))
     chains = chains_from_config(config)
     _refuse_unless(config, "PVT.enable_pvt_kf", False)

@@ -1,8 +1,8 @@
 """Receiver orchestration, PyTorch port of
 ``gnss_sim_receiver_tpu.models.receiver`` for the GPS L1 C/A ("1C"),
 Galileo E1-B ("1B"), GPS L2C CM ("2S"), GPS L5I ("L5"), Galileo E5a-I
-("5X") and Galileo E5b-I ("7X") signal chains, the batch entry point and
-the live session.
+("5X"), Galileo E5b-I ("7X"), BeiDou B1I ("B1") and BeiDou B3I ("B3")
+signal chains, the batch entry point and the live session.
 
 The receiver runs one *signal chain* per configured signal — the
 reference's per-signal channel groups (Channels_1C.count /
@@ -56,7 +56,7 @@ from gnss_sim_receiver_tpu_torch.models.observables import (
     ObsConf, ObservablesEngine)
 from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf, solve_pvt
 from gnss_sim_receiver_tpu_torch.models.telemetry import (
-    GalileoE1bTelemetryDecoder, GalileoE5aTelemetryDecoder,
+    BeidouB1iTelemetryDecoder, GalileoE1bTelemetryDecoder, GalileoE5aTelemetryDecoder,
     GalileoE5bTelemetryDecoder, GpsCnavTelemetryDecoder, TelemetryDecoder)
 from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
                                                          TrackingEngine)
@@ -69,7 +69,8 @@ from gnss_sim_receiver_tpu_torch.utils import geodesy
 class SignalChainConf:
     """One per-signal channel group (the reference's Channels_<sig> block +
     its Acquisition_<sig>/Tracking_<sig> engine parameters)."""
-    signal: str = "1C"       # "1C" | "1B" | "2S" | "L5" | "5X" | "7X"
+    # "1C" | "1B" | "2S" | "L5" | "5X" | "7X" | "B1" | "B3"
+    signal: str = "1C"
     system: str = "GPS"
     prns: tuple = tuple(range(1, 33))
     n_channels: int = 8
@@ -112,6 +113,9 @@ class SignalChainConf:
             return GalileoE5aTelemetryDecoder(prns)
         if self.signal == "7X":
             return GalileoE5bTelemetryDecoder(prns)
+        if self.signal in ("B1", "B3"):
+            # B3I carries the same D1 NAV / NH20 structure as B1I
+            return BeidouB1iTelemetryDecoder(prns)
         raise NotImplementedError(f"signal chain {self.signal} is not ported")
 
 
@@ -233,6 +237,53 @@ def galileo_e5b_chain(fs: float, prns=tuple(range(1, 37)), n_channels=4,
     gnss_block_factory.cc signal '7X')."""
     return _wideband_chain(signals.GALILEO_E5B_I, fs, prns, n_channels,
                            trk_overrides)
+
+
+def _beidou_chain(sig, fs: float, prns, n_channels: int, assist_wait: bool,
+                  trk_overrides) -> SignalChainConf:
+    """The BeiDou B1I and B3I (MEO/IGSO, D1) chains: 1 ms epochs of
+    NH20-spread 50-bps D1 bits, a 40 Hz PLL with a 100-epoch
+    decision-directed FLL pull-in, 2-dwell 1 ms acquisition with the
+    doubled FFT refined on a 62.5 Hz step (receiver.py:240-263,
+    :1789-1811)."""
+    trk_kw = dict(
+        fs=fs, code_rate_cps=sig.chip_rate_cps,
+        code_length_chips=sig.code_length_chips,
+        carrier_freq_hz=sig.carrier_freq_hz,
+        early_late_space_chips=0.5, pll_bw_hz=40.0,
+        enable_fll_pullin=True, fll_decision_directed=True,
+        fll_pullin_epochs=100)
+    trk_kw.update(trk_overrides)
+    return SignalChainConf(
+        assist_wait=assist_wait,
+        signal=sig.signal, system=sig.system, prns=tuple(prns),
+        n_channels=n_channels, max_acq_channels=n_channels,
+        acq=AcqConf(fs_in=fs, sampled_ms=1, doppler_max=5000.0,
+                    doppler_step=250.0, max_dwells=2,
+                    make_two_steps=True, doppler_step2=62.5,
+                    bit_transition_flag=True),
+        trk=TrackingConf(**trk_kw),
+        code_provider=signals.CodeProvider(sig.signal),
+        sc_rate=sig.chip_rate_cps)
+
+
+def beidou_b1i_chain(fs: float, prns=tuple(range(6, 31)), n_channels=4,
+                     **trk_overrides) -> SignalChainConf:
+    """BeiDou B1I (MEO/IGSO, D1) chain: 2.046 Mcps, 1 ms epochs,
+    NH20-spread 50-bps D1 bits (the BEIDOU_B1I_* blocks).  A GEO PRN given
+    in `prns` decodes D2 (its decoder switches per PRN)."""
+    return _beidou_chain(signals.BEIDOU_B1I, fs, prns, n_channels, False,
+                         trk_overrides)
+
+
+def beidou_b3i_chain(fs: float, prns=tuple(range(6, 31)), n_channels=4,
+                     **trk_overrides) -> SignalChainConf:
+    """BeiDou B3I (MEO/IGSO, D1) chain: 10.23 Mcps, 1 ms epochs,
+    NH20-spread 50-bps D1 bits (the BEIDOU_B3I_* blocks of the reference
+    factory); beside a B1I chain it acquires each PRN around the B1I
+    Doppler (assist_wait)."""
+    return _beidou_chain(signals.BEIDOU_B3I, fs, prns, n_channels, True,
+                         trk_overrides)
 
 
 @dataclasses.dataclass

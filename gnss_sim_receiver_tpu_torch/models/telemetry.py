@@ -10,8 +10,8 @@ TOW_at_current_symbol_ms.  Bit-level work is 50 bps x channels — host work
 by design (SURVEY.md section 7: "decode host-side from device-produced
 prompt-symbol batches").
 
-GPS LNAV, Galileo E1-B I/NAV, GPS L2C and L5 CNAV, Galileo E5a F/NAV and
-Galileo E5b I/NAV decoders copied from
+GPS LNAV, Galileo E1-B I/NAV, GPS L2C and L5 CNAV, Galileo E5a F/NAV,
+Galileo E5b I/NAV and BeiDou D1/D2 decoders copied from
 ``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port; the other
 signals' decoders wait for later slices."""
 
@@ -25,11 +25,15 @@ from gnss_sim_receiver_tpu_torch import constants, signals
 from gnss_sim_receiver_tpu_torch.nav import lnav
 from gnss_sim_receiver_tpu_torch.nav.cnav import (CnavDecoder,
                                                   messages_to_ephemeris)
+from gnss_sim_receiver_tpu_torch.nav.dnav import (
+    D2SubframeDecoder, DnavSubframeDecoder, d2_pages_to_beidou_ephemeris,
+    is_geo_prn, subframes_to_beidou_ephemeris)
 from gnss_sim_receiver_tpu_torch.nav.ephemeris import (
     GpsEphemeris, fields_to_ephemeris, words_to_galileo_ephemeris)
 from gnss_sim_receiver_tpu_torch.nav.fnav import (FnavPageDecoder,
                                                   fnav_words_to_ephemeris)
 from gnss_sim_receiver_tpu_torch.nav.inav import InavPageDecoder
+from gnss_sim_receiver_tpu_torch.ops.prn_codes_multi import BEIDOU_NH20
 
 CODES_PER_BIT = 20
 E1B_EPOCH_MS = 4.0   # one 250-sps INAV symbol per 4 ms E1B code epoch
@@ -619,3 +623,102 @@ class GalileoE5bTelemetryDecoder:
                         or st.ephemeris.toe != eph.toe):
                     st.ephemeris = eph
                     new_eph.append((c, eph))
+
+
+# ---------------------------------------------------------------------------
+# BeiDou B1I / B3I telemetry (the reference's beidou_b1i_telemetry_decoder_gs,
+# host-side): D1 on the MEO/IGSO PRNs, D2 on the GEO ones
+# ---------------------------------------------------------------------------
+
+class BeidouB1iTelemetryDecoder:
+    """Consumes TrackingEngine outputs for B1I (and B3I, the same D1 / NH20
+    structure) channels.  MEO/IGSO PRNs carry D1 (1 ms code epochs; 50-bps
+    bits spread by NH20): synchronize NH20, fold 20-epoch bits, decode D1
+    subframes (nav.dnav).  GEO PRNs (1-5, >58) carry D2 at 500 bps with no
+    NH: per-epoch prompts feed the D2 page decoder directly (2 symbols per
+    bit), the reference's per-satellite mode switch
+    (beidou_b1i_telemetry_decoder_gs.cc set_satellite :368-420, decode
+    dispatch :268-276).
+
+    TOW semantics: every subframe's SOW field is the BDT of its own first
+    bit (BDS ICD 5.2.4.2), for both D1 and D2; it goes into the stamps as
+    it is, with no BDT - GPST offset."""
+
+    def __init__(self, prns):
+        self.prns = [int(p) for p in prns]
+        self.ch = [_CnavChannelTlmState(decoder=self._decoder(p))
+                   for p in self.prns]
+        self._nh = 1.0 - 2.0 * np.asarray(BEIDOU_NH20, np.float64)
+
+    @staticmethod
+    def _decoder(prn: int):
+        return D2SubframeDecoder() if is_geo_prn(prn) \
+            else DnavSubframeDecoder()
+
+    def reset_channel(self, c: int, prn: int | None = None,
+                      epoch_base: int | None = None) -> None:
+        if prn is not None:
+            self.prns[c] = int(prn)
+        st = _CnavChannelTlmState(decoder=self._decoder(self.prns[c]))
+        if epoch_base is not None:
+            st.epoch_count = epoch_base
+        self.ch[c] = st
+
+    def process(self, track_outs: dict) -> TelemetryOutputs:
+        prompts = track_outs["prompt"]
+        valid = track_outs["valid"]
+        t_len, n_ch = prompts.shape
+        tow = np.full((t_len, n_ch), np.nan)
+        new_eph = []
+        for c in range(n_ch):
+            st = self.ch[c]
+            pi, base, v = _collect_column(st, prompts[:, c], valid[:, c])
+            if is_geo_prn(self.prns[c]):
+                # D2: 1 ms prompts straight into the page decoder
+                for ev in st.decoder.push_symbols(pi):
+                    if not ev.ok or ev.fra_id != 1:
+                        continue
+                    st.msgs[ev.pnum] = ev.fields
+                    self._try_ephemeris_d2(st, c, new_eph)
+                    # SOW stamps the frame's first bit, subframe 1's first
+                    # symbol (BDS ICD 5.3.2 D2)
+                    st.anchor_epoch = st.symbol_base + ev.subframe_start_sym
+                    st.anchor_tow_ms = ev.fields["sow"] * 1000.0
+            else:
+                st.pend.extend(pi.tolist())
+                soft_bits = _fold_secondary(st, self._nh, margin=1.2,
+                                            min_symbols=10)
+                for ev in st.decoder.push_bits(soft_bits):
+                    if not ev.ok or ev.fra_id not in (1, 2, 3):
+                        continue
+                    st.msgs[ev.fra_id] = ev.fields
+                    # SOW stamps the subframe's own first bit (20 ep/bit)
+                    st.anchor_epoch = (st.symbol_base
+                                       + ev.subframe_start_bit * 20)
+                    st.anchor_tow_ms = ev.fields["sow"] * 1000.0
+                    self._try_ephemeris(st, c, new_eph)
+            _stamp_tow_column(tow[:, c], v, base, st, 1.0,
+                              after_anchor=False)
+        return TelemetryOutputs(tow_at_epoch_ms=tow,
+                                tow_valid=~np.isnan(tow),
+                                new_ephemerides=new_eph)
+
+    def _try_ephemeris_d2(self, st, c, new_eph) -> None:
+        if not all(p in st.msgs for p in range(1, 11)):
+            return
+        self._new_ephemeris(
+            st, c, new_eph, d2_pages_to_beidou_ephemeris(self.prns[c],
+                                                         st.msgs))
+
+    def _try_ephemeris(self, st, c, new_eph) -> None:
+        if not all(s in st.msgs for s in (1, 2, 3)):
+            return
+        self._new_ephemeris(
+            st, c, new_eph, subframes_to_beidou_ephemeris(self.prns[c],
+                                                          st.msgs))
+
+    @staticmethod
+    def _new_ephemeris(st, c, new_eph, eph) -> None:
+        if st.ephemeris is None or st.ephemeris.toe != eph.toe:
+            st.ephemeris = eph
+            new_eph.append((c, eph))

@@ -39,6 +39,7 @@ stated here (:func:`_kf_predict`), where JAX's einsum picks its own.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -99,6 +100,10 @@ class TrackingConf:
     # dll_nc_vemlp_normalized discriminator on the per-epoch path
     very_early_late_space_chips: float = 0.0
     cn0_window_epochs: int = 20
+    # rectified (|I|,|Q|) carrier-lock test for signals whose data is
+    # zero-mean over every window (BeiDou D2) — the coherent NBD/NBP test
+    # reads -1 there even in perfect lock
+    lock_rectify: bool = False
     cn0_min_db_hz: float = 25.0
     carrier_lock_threshold: float = 0.75
     max_lock_fail: int = 50
@@ -650,7 +655,8 @@ def _epoch_closure_plain(conf: TrackingConf, state: TrackState,
                                   conf.cn0_window_epochs) == 0
     cn0_new = cn0_ops.cn0_m2m4_estimate(acc, t_int)
     lock_new = (0.75 * state.carrier_lock
-                + 0.25 * cn0_ops.carrier_lock_value(acc))
+                + 0.25 * cn0_ops.carrier_lock_value(
+                    acc, rectify=conf.lock_rectify))
     cn0_db = torch.where(window_done, cn0_new, state.cn0_db_hz)
     carrier_lock = torch.where(window_done, lock_new, state.carrier_lock)
     in_transitory = state.epoch < conf.fll_pullin_epochs
@@ -847,7 +853,7 @@ class _EpochArgs(ctypes.Structure):
                     "n_taps", "veml", "has_data", "n_ch", "n_rows", "n_sec",
                     "k_ext", "fll_on", "fll_decision", "fll_pullin_epochs",
                     "cn0_window", "block_size", "nominal", "mode",
-                    "pll_order"))]
+                    "pll_order", "lock_rectify"))]
 
 
 def _recip(v) -> float:
@@ -895,7 +901,8 @@ def _epoch_constants(conf: TrackingConf) -> dict:
         kf_r_phase=_fl(conf.kf_r_phase_cyc2),
         bayes_lam=_fl(conf.bayes_forgetting),
         mode=TRACKING_MODES.index(conf.tracking_mode),
-        pll_order=3 if conf.pll_filter_order == 3 else 2)
+        pll_order=3 if conf.pll_filter_order == 3 else 2,
+        lock_rectify=int(conf.lock_rectify))
     c.update(
         fs=_fl(conf.fs), inv_fs=_recip(conf.fs),
         code_len=_fl(conf.code_length_chips), two_pi=_fl(2.0 * math.pi),
@@ -1225,16 +1232,21 @@ def chunk_launch(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
 def launch_chunk(launch: ChunkLaunch) -> None:
     """Launch the chunk kernel; counts the launch and its epochs, and the
     launch under its form's counter (the second-order PLL's, the KF's and
-    the gaussian mode's)."""
+    the gaussian mode's) and, with the rectified lock test, under
+    ``launches_rectify``; ``shapes`` counts the launches by (channels,
+    nominal samples an epoch)."""
     cuda_build.check(_epoch_lib().epoch_chunk(
         launch.args, launch.plan.cluster, launch.plan.smem,
         torch.cuda.current_stream(launch.n_c.device).cuda_stream),
         "epoch_chunk")
     epoch_chunk.launches += 1
     epoch_chunk.epochs += launch.args.n_epochs
+    epoch_chunk.shapes[(launch.args.ep.n_ch, launch.args.ep.nominal)] += 1
     if launch.form in _FORM_COUNTERS:
         name = _FORM_COUNTERS[launch.form]
         setattr(epoch_chunk, name, getattr(epoch_chunk, name) + 1)
+    if launch.args.ep.lock_rectify:
+        epoch_chunk.launches_rectify += 1
 
 
 def epoch_chunk(conf: TrackingConf, n_epochs: int, codes: torch.Tensor,
@@ -1263,6 +1275,8 @@ epoch_chunk.epochs = 0
 epoch_chunk.launches_pll2 = 0
 epoch_chunk.launches_kf = 0
 epoch_chunk.launches_gaussian = 0
+epoch_chunk.launches_rectify = 0
+epoch_chunk.shapes = collections.Counter()
 
 
 def _chunk_two_launch(conf: TrackingConf, n_epochs: int, codes, taps,

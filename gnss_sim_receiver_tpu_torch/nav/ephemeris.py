@@ -6,7 +6,8 @@ position math of rtklib_ephemeris.cc (eph2pos).
 Angles that LNAV transmits in semicircles are stored in semicircles here so
 the encode/decode roundtrip is bit-exact; the propagator converts.
 
-Copy of the GPS and Galileo parts of ``gnss_sim_receiver_tpu.nav.ephemeris``
+Copy of the GPS, Galileo and BeiDou parts of
+``gnss_sim_receiver_tpu.nav.ephemeris``
 for the PyTorch port (the port imports nothing from the JAX package).
 """
 
@@ -25,9 +26,10 @@ _PI = np.pi  # semicircle -> rad
 class GpsEphemeris:
     prn: int = 0
     week: int = 0
-    # constellation ("GPS" or "Galileo"): selects GM for the propagator and
-    # the group-delay fields that apply (tgd vs bgd_*); the Kepler broadcast
-    # model is otherwise identical (Galileo OS SIS ICD 5.1.1 vs IS-GPS-200)
+    # constellation ("GPS", "Galileo" or "BeiDou"): selects GM for the
+    # propagator and the group-delay fields that apply (tgd vs bgd_*); the
+    # Kepler broadcast model is otherwise identical (Galileo OS SIS ICD
+    # 5.1.1, BDS-SIS-ICD 5.2.4 vs IS-GPS-200)
     system: str = "GPS"
     # clock (subframe 1)
     toc: float = 0.0
@@ -173,8 +175,10 @@ def sat_states_batch(ephs, t_sv_s):
 
 
 def _gm(system: str) -> float:
-    """Earth's gravitational constant of the system's broadcast model."""
-    return constants.GALILEO_GM if system == "Galileo" else constants.GPS_GM
+    """Earth's gravitational constant of the system's broadcast model:
+    Galileo (GTRF) and BeiDou (CGCS2000) broadcast the same value."""
+    return (constants.GALILEO_GM if system in ("Galileo", "BeiDou")
+            else constants.GPS_GM)
 
 
 def _wrap_week(dt):

@@ -1,11 +1,14 @@
-"""GPS L2C (CM) and L5 I/Q PRN code generation, the L2C and L5 parts of
-``gnss_sim_receiver_tpu.ops.prn_codes_multi`` for the PyTorch port.
+"""BeiDou B1I and B3I, GPS L2C (CM) and L5 I/Q PRN code generation, the
+BeiDou, L2C and L5 parts of ``gnss_sim_receiver_tpu.ops.prn_codes_multi``
+for the PyTorch port.
 
 Host-side NumPy generation (the device sees constant tables), the
 functional equivalents of the reference replica generators
-(src/algorithms/libs/gps_l2c_signal_replica.cc and
+(src/algorithms/libs/beidou_b1i_signal_replica.cc,
+beidou_b3i_signal_replica.cc, gps_l2c_signal_replica.cc and
 gps_l5_signal_replica.cc).  Register polynomials and per-PRN constants are
-public ICD data (IS-GPS-200 table 3-II, IS-GPS-705 table 3-I).
+public ICD data (BeiDou ICD 5.1.3, BDS-SIS-ICD-B3I table 4-4, IS-GPS-200
+table 3-II, IS-GPS-705 table 3-I).
 
 Codes are returned as +-1 float32 with bit b -> 2b-1 (the GPS C/A
 convention of ops.prn_codes).
@@ -17,8 +20,42 @@ import functools
 
 import numpy as np
 
+BEIDOU_B1I_LENGTH = 2046
+BEIDOU_B3I_LENGTH = 10230
 GPS_L2C_M_LENGTH = 10230
 GPS_L5_LENGTH = 10230
+
+# BeiDou B1I G2 phase-selector taps per PRN 1..63 (BeiDou ICD table 4;
+# same data as beidou_b1i_signal_replica.cc:27-29). phase3 == 0 -> 2-tap.
+_BDS_PHASE1 = (1, 1, 1, 1, 1, 1, 1, 1, 2, 3, 3, 3, 3, 3, 3, 3, 4, 4, 4, 4,
+               4, 4, 5, 5, 5, 5, 5, 6, 6, 6, 6, 8, 8, 8, 9, 9, 10, 2, 3, 3,
+               3, 3, 3, 4, 4, 5, 5, 5, 5, 6, 8, 9, 9, 3, 5, 7, 4, 4, 5, 5,
+               5, 5, 6)
+_BDS_PHASE2 = (3, 4, 5, 6, 8, 9, 10, 11, 7, 4, 5, 6, 8, 9, 10, 11, 5, 6, 8,
+               9, 10, 11, 6, 8, 9, 10, 11, 8, 9, 10, 11, 9, 10, 11, 10, 11,
+               11, 7, 4, 6, 8, 10, 11, 5, 9, 6, 8, 10, 11, 9, 9, 10, 11, 7,
+               7, 9, 5, 9, 6, 8, 10, 11, 9)
+_BDS_PHASE3 = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+               0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1,
+               1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3,
+               3, 3, 3)
+
+# BeiDou Neuman-Hofman secondary code (20 bits, D1 message channels)
+BEIDOU_NH20 = (0, 0, 0, 0, 0, 1, 0, 0, 1, 1, 0, 1, 0, 1, 0, 0, 1, 1, 1, 0)
+
+# B3I G2 per-PRN initial register phases (BDS-SIS-ICD-B3I table 4-4),
+# bit i of the value = register cell i (cell 12 = MSB); the reference
+# equivalent is beidou_b3i_signal_replica.cc:46-109.
+_B3I_G2_INIT = (
+    0x15FF, 0x1E2B, 0x178A, 0x1FFB, 0x191F, 0x1264, 0x1FD2,
+    0x1DFD, 0x1402, 0x041B, 0x1D70, 0x059E, 0x0C95, 0x0E26,
+    0x1189, 0x1C7C, 0x04C5, 0x00EC, 0x1157, 0x02DE, 0x042D,
+    0x058A, 0x02CF, 0x0662, 0x0748, 0x0929, 0x16D3, 0x15E2,
+    0x02F5, 0x0FFF, 0x0D8F, 0x1589, 0x12AB, 0x19A5, 0x1A5D,
+    0x1F74, 0x0567, 0x1D10, 0x1B90, 0x1ACE, 0x1034, 0x0BD9,
+    0x0DBC, 0x1A71, 0x0722, 0x0AC5, 0x13E6, 0x1F48, 0x0149,
+    0x10AC, 0x1E4C, 0x098F, 0x0018, 0x1004, 0x06A6, 0x1646,
+    0x0E78, 0x05CA, 0x19F6, 0x1245, 0x0E20, 0x0642, 0x044E)
 
 # GPS L2C CM-code shift-register initial states, PRN 1..37
 # (IS-GPS-200 table 3-II; GPS_L2C.h GPS_L2C_M_INIT_REG)
@@ -46,6 +83,59 @@ _L5Q_XB_ADV = (1701, 323, 5292, 2020, 5429, 7136, 1041, 5947, 4315, 148,
 
 def _pm1(bits: np.ndarray) -> np.ndarray:
     return (2.0 * bits - 1.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=80)
+def beidou_b1i_code(prn: int) -> np.ndarray:
+    """BeiDou B1I 2046-chip code, PRN 1..63 (beidou_b1i_signal_replica.cc:
+    26-76): 11-stage G1/G2 with init 01010101010, G2 output from the
+    per-PRN phase-selector taps.  Cached: the registers run 2046 steps in
+    Python once per PRN."""
+    if not 1 <= prn <= 63:
+        raise ValueError(f"B1I PRN out of range: {prn}")
+    p1 = _BDS_PHASE1[prn - 1]
+    p2 = _BDS_PHASE2[prn - 1]
+    p3 = _BDS_PHASE3[prn - 1]
+    g1 = [i % 2 for i in range(11)]          # cell i = 1 where i is odd
+    g2 = list(g1)
+    out = np.empty(BEIDOU_B1I_LENGTH, dtype=np.int8)
+    for i in range(BEIDOU_B1I_LENGTH):
+        g2_out = g2[11 - p1] ^ g2[11 - p2]
+        if p3:
+            g2_out ^= g2[11 - p3]
+        out[i] = g1[0] ^ g2_out
+        fb1 = g1[0] ^ g1[1] ^ g1[2] ^ g1[3] ^ g1[4] ^ g1[10]
+        fb2 = (g2[0] ^ g2[2] ^ g2[3] ^ g2[6] ^ g2[7] ^ g2[8] ^ g2[9]
+               ^ g2[10])
+        g1 = g1[1:] + [fb1]
+        g2 = g2[1:] + [fb2]
+    return _pm1(out)
+
+
+@functools.lru_cache(maxsize=80)
+def beidou_b3i_code(prn: int) -> np.ndarray:
+    """BeiDou B3I 10230-chip code, PRN 1..63 (BDS-SIS-ICD-B3I 5.2.3;
+    reference behavior beidou_b3i_signal_replica.cc:26-165): two 13-stage
+    LFSRs, output = cell 0, shift toward cell 0.  G1 (all-ones init,
+    feedback cells 0,9,10,12) restarts to all-ones whenever it reaches the
+    truncation state (cells 2..12 set, cells 0..1 clear); G2 (per-PRN init
+    phase, feedback cells 0,1,3,4,6,7,8,12) runs free.  Chip = G1 xor G2.
+    Both registers are held as integers (bit i = cell i).  Cached: they
+    run 10230 steps in Python once per PRN."""
+    if not 1 <= prn <= 63:
+        raise ValueError(f"B3I PRN out of range: {prn}")
+    g1, g2 = 0x1FFF, _B3I_G2_INIT[prn - 1]
+    out = np.empty(BEIDOU_B3I_LENGTH, dtype=np.int8)
+    for i in range(BEIDOU_B3I_LENGTH):
+        out[i] = (g1 ^ g2) & 1
+        fb1 = (g1 ^ (g1 >> 9) ^ (g1 >> 10) ^ (g1 >> 12)) & 1
+        fb2 = (g2 ^ (g2 >> 1) ^ (g2 >> 3) ^ (g2 >> 4) ^ (g2 >> 6)
+               ^ (g2 >> 7) ^ (g2 >> 8) ^ (g2 >> 12)) & 1
+        g1 = (g1 >> 1) | (fb1 << 12)
+        g2 = (g2 >> 1) | (fb2 << 12)
+        if g1 == 0x1FFC:          # cells 2..12 set, cells 0..1 clear
+            g1 = 0x1FFF
+    return _pm1(out)
 
 
 @functools.lru_cache(maxsize=64)

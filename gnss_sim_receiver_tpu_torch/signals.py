@@ -1,7 +1,7 @@
 """Signal definitions: per-signal code tables and rates for the batched
 engines, a copy of the GPS L1 C/A, GPS L2C (CM), GPS L5, Galileo E1,
-Galileo E5a and Galileo E5b parts of ``gnss_sim_receiver_tpu.signals`` for
-the PyTorch port.
+Galileo E5a, Galileo E5b, BeiDou B1I and BeiDou B3I parts of
+``gnss_sim_receiver_tpu.signals`` for the PyTorch port.
 
 The acquisition and tracking engines are signal-agnostic: they consume a
 "sub-chip" table (the spreading waveform sampled at sc_rate, one entry per
@@ -35,8 +35,9 @@ from gnss_sim_receiver_tpu_torch.ops import prn_codes, prn_codes_multi
 
 @dataclasses.dataclass(frozen=True)
 class SignalDef:
-    system: str          # "GPS" | "Galileo"
-    signal: str          # "1C" | "1B" | "2S" | "L5" | "5X" | "7X"
+    system: str          # "GPS" | "Galileo" | "BeiDou"
+    # "1C" | "1B" | "2S" | "L5" | "5X" | "7X" | "B1" | "B3"
+    signal: str
     carrier_freq_hz: float
     chip_rate_cps: float        # ICD chip rate
     code_length_chips: int
@@ -79,6 +80,14 @@ GALILEO_E5A_I = SignalDef("Galileo", "5X", constants.GALILEO_E5A_FREQ_HZ,
 GALILEO_E5B_I = SignalDef("Galileo", "7X", constants.GALILEO_E5B_FREQ_HZ,
                           constants.GALILEO_E5B_CODE_RATE_CPS, 10230, 1,
                           1000.0)
+# BeiDou B1I (MEO/IGSO, D1): 1 ms code epochs; 50-bps D1 bits spread by
+# NH20 (nav_bits are per-EPOCH signs, nav.dnav.b1i_epoch_signs)
+BEIDOU_B1I = SignalDef("BeiDou", "B1", constants.BEIDOU_B1I_FREQ_HZ,
+                       constants.BEIDOU_B1I_CODE_RATE_CPS, 2046, 1, 1000.0)
+# BeiDou B3I (MEO/IGSO, D1): the same 1 ms epoch / NH20 / D1 structure as
+# B1I, at 10.23 Mcps with its own 10230-chip code family
+BEIDOU_B3I = SignalDef("BeiDou", "B3", constants.BEIDOU_B3I_FREQ_HZ,
+                       constants.BEIDOU_B3I_CODE_RATE_CPS, 10230, 1, 1000.0)
 
 _DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -172,6 +181,10 @@ def subchip_table(sig: SignalDef, prn: int) -> np.ndarray:
         return galileo_e5a_code(prn, "I")
     if sig.signal == "7X":
         return galileo_e5b_code(prn)
+    if sig.signal == "B1":
+        return prn_codes_multi.beidou_b1i_code(prn)
+    if sig.signal == "B3":
+        return prn_codes_multi.beidou_b3i_code(prn)
     raise NotImplementedError(f"signal {sig.signal} is not ported")
 
 
@@ -201,6 +214,7 @@ class CodeProvider:
 
 
 SIGNALS = {"1C": GPS_L1CA, "1B": GALILEO_E1B, "2S": GPS_L2C_CM,
-           "L5": GPS_L5I, "5X": GALILEO_E5A_I, "7X": GALILEO_E5B_I}
+           "L5": GPS_L5I, "5X": GALILEO_E5A_I, "7X": GALILEO_E5B_I,
+           "B1": BEIDOU_B1I, "B3": BEIDOU_B3I}
 # the pilot component of each signal that has one in the port
 PILOT_COMPONENT = {"1B": "C", "5X": "Q"}

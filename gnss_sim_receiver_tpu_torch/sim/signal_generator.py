@@ -19,7 +19,8 @@ Signal model per satellite (constant Doppler + optional rate):
   amplitude       = sqrt(10^(CN0/10) / fs)   with unit complex noise variance
 
 GPS L1 C/A, GPS L2C CM, GPS L5I, Galileo E1 (E1-B data, E1-C pilot),
-Galileo E5a-I and Galileo E5b-I copy of ``gnss_sim_receiver_tpu.sim.signal_generator`` for the PyTorch port:
+Galileo E5a-I, Galileo E5b-I, BeiDou B1I and BeiDou B3I copy of
+``gnss_sim_receiver_tpu.sim.signal_generator`` for the PyTorch port:
 the same arithmetic, so a capture synthesized here equals the JAX package's
 fixture sample for sample.
 """
@@ -42,7 +43,7 @@ class SatelliteSignalParams:
     prn: int
     system: str = "GPS"
     # "1C" | "1B" (E1-B) | "1P" (E1-C) | "2S" (L2C CM) | "L5" (L5I) |
-    # "5X" (E5a-I) | "7X" (E5b-I)
+    # "5X" (E5a-I) | "7X" (E5b-I) | "B1" (BeiDou B1I) | "B3" (BeiDou B3I)
     signal: str = "1C"
     cn0_db_hz: float = 44.0
     doppler_hz: float = 0.0
@@ -102,6 +103,15 @@ def _sig_params(sat: SatelliteSignalParams):
         # secondary pre-spread, nav.inav.e5b_epoch_signs)
         return (sigdefs.galileo_e5b_code(sat.prn).astype(np.int8),
                 constants.GALILEO_E5B_CODE_RATE_CPS, 10230)
+    if sat.signal == "B1":
+        # B1I: nav_bits are per-1 ms-EPOCH signs (D1 bit x NH20 pre-spread,
+        # nav.dnav.b1i_epoch_signs; D2 GEO: nav.dnav.d2_epoch_signs)
+        return (prn_codes_multi.beidou_b1i_code(sat.prn).astype(np.int8),
+                constants.BEIDOU_B1I_CODE_RATE_CPS, 2046)
+    if sat.signal == "B3":
+        # B3I: the same per-epoch-sign convention as B1I at 10.23 Mcps
+        return (prn_codes_multi.beidou_b3i_code(sat.prn).astype(np.int8),
+                constants.BEIDOU_B3I_CODE_RATE_CPS, 10230)
     raise NotImplementedError(
         f"simulator signal {sat.system}/{sat.signal} is not ported")
 

@@ -181,8 +181,8 @@ def test_factory_refuses_unported_e1_keys(tmp_path, line):
 
 # keys these refusal tests once listed, now ported (the first-vs-second-
 # peak statistic and the fixed threshold; the fork's hybrid pseudolite
-# navigation, its rx clock keys and the pre-2009 week; the L2C and E5b
-# chains), and the field each
+# navigation, its rx clock keys and the pre-2009 week; the L2C, E5b, B1I
+# and B3I chains), and the field each
 # sets: its chain's AcqConf's or TrackingConf's, or the ReceiverConf's
 PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                ("use_cfar_algorithm", False),
@@ -205,10 +205,12 @@ PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                "Tracking_1C.implementation=GPS_L1_CA_KF_Tracking":
                ("tracking_mode", "kf"),
                "Tracking_1C.order=2": ("pll_filter_order", 2),
-               # the GPS L2C CM and Galileo E5b-I chains: the chain's
-               # channel count
+               # the GPS L2C CM, Galileo E5b-I, BeiDou B1I and B3I chains:
+               # the chain's channel count
                "Channels_7X.count=4": ("n_channels", 4),
-               "Channels_2S.count=2": ("n_channels", 2)}
+               "Channels_2S.count=2": ("n_channels", 2),
+               "Channels_B1.count=3": ("n_channels", 3),
+               "Channels_B3.count=2": ("n_channels", 2)}
 
 
 def _check_ported_key(path, line):
@@ -306,6 +308,8 @@ def test_factory_defaults_match_jax():
     "Tracking_1C.order=2",
     "Channels_7X.count=4",
     "Channels_2S.count=2",
+    "Channels_B1.count=3",
+    "Channels_B3.count=2",
     "PVT.positioning_mode=RTK_Static",
     "PVT.positioning_mode=PPP_Static",
     "PVT.iono_model=Broadcast",

@@ -10,7 +10,9 @@ CPU, and its state carries across intact.
   sign-recovery acquisition and 5 taps), builds the wideband chains and
   acquires E5a with the I/Q search, runs a streaming session and drives
   it over the TCP server, builds the L2C and E5b chains and simulates
-  their signals, in a process where both names cannot be imported, and
+  their signals, builds the BeiDou B1I and B3I chains, simulates their
+  signals and decodes D1 and D2 prompts, in a process where both names
+  cannot be imported, and
   opens no file of the JAX package: its Galileo code tables are its own
   package data, shipped by pyproject.toml;
 - the entry points raise without a card unless device="cpu" is passed;
@@ -288,6 +290,33 @@ x = generate_baseband(
                            nav_bits=np.ones(8, np.int8))],
     4e6, 8192, noise=False)
 assert x.shape == (8192,) and np.isfinite(x).all()
+# the BeiDou slice: both chains from a conf, their codes, the simulator's
+# two signals, the D1 and D2 decoders on prompts of an encoded ephemeris
+from gnss_sim_receiver_tpu_torch.models.telemetry import \
+    BeidouB1iTelemetryDecoder
+from gnss_sim_receiver_tpu_torch.nav import dnav
+from gnss_sim_receiver_tpu_torch.nav.ephemeris import make_sky_constellation
+b1, b3 = receiver_conf_from_config(InMemoryConfiguration({
+    "GNSS-SDR.internal_fs_sps": "12000000", "Channels_B1.count": "2",
+    "Channels_B3.count": "2"})).chains
+assert (b1.signal, b3.signal) == ("B1", "B3") and b3.assist_wait
+assert b1.code_provider(14).shape == (2046,)
+assert b3.code_provider(14).shape == (10230,)
+x = generate_baseband(
+    [SatelliteSignalParams(prn=14, system="BeiDou", signal=s,
+                           nav_bits=np.ones(8, np.int8)) for s in ("B1", "B3")],
+    12e6, 8192, noise=False)
+assert x.shape == (8192,) and np.isfinite(x).all()
+eph = make_sky_constellation(30.0, 110.0, toe=345600.0)[0]
+eph.system = "BeiDou"
+d1 = dnav.b1i_epoch_signs(dnav.bits_for_ephemeris(eph, 345600.0, 2))
+d2 = dnav.d2_epoch_signs(dnav.d2_bits_for_ephemeris(eph, 300.0, 11))
+for prn, signs in ((14, d1), (2, d2)):
+    tlm = b1.telemetry_decoder([prn])
+    assert isinstance(tlm, BeidouB1iTelemetryDecoder)
+    out = tlm.process({"prompt": signs.astype(np.complex64)[:, None],
+                       "valid": np.ones((len(signs), 1), bool)})
+    assert len(out.new_ephemerides) == 1, prn
 builtins.open = _open
 assert any(p.endswith("galileo_e1_codes.npz") for p in opened), opened
 assert any(p.endswith("galileo_e5a_codes.npz") for p in opened), opened

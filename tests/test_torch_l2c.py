@@ -14,7 +14,7 @@ test):
   L2C chain acquires around the L1 lock scaled by the carrier ratio; and
   the L2C chain alone cold-starts;
 - the factory: tests/test_factory_chains.py's MULTI_CONF without the
-  chains the port lacks.
+  chains the port lacks, the BeiDou B1I and B3I chains built.
 """
 
 import dataclasses
@@ -365,38 +365,49 @@ def test_lone_l2c_chain_cold_starts(dual_band, two_threads):
     assert f == F_L2 and abs(dop - DOP_L1 * F_RATIO) < 2.0
 
 
-# tests/test_factory_chains.py's MULTI_CONF without the chains the port
-# lacks (GLONASS L1 C/A, BeiDou B1I and B3I)
-UNPORTED = ("1G", "B1", "B3")
+# the JAX factory's signal groups whose chains the port lacks: Galileo
+# E6-B, GLONASS L1 and L2 C/A, SBAS L1; tests/test_factory_chains.py's
+# MULTI_CONF holds the first GLONASS one
+UNPORTED = ("E6", "1G", "2G", "S1")
 
 
-def _multi_conf(drop=UNPORTED):
+def _multi_conf(drop=UNPORTED, add=()):
+    """tests/test_factory_chains.py's MULTI_CONF without the chains of
+    `drop` and with two channels of each signal in `add`."""
     from tests.test_factory_chains import MULTI_CONF
-    return {k: v for k, v in MULTI_CONF.items()
-            if not any(f"_{s}." in k for s in drop)}
+    props = {k: v for k, v in MULTI_CONF.items()
+             if not any(f"_{s}." in k for s in drop)}
+    props.update({f"Channels_{s}.count": "2" for s in add})
+    return props
 
 
 def test_factory_builds_the_jax_chains():
     """The port's factory gives the JAX factory's chains, compared through
-    interop, with Tracking_2S.dll_bw_hz = 0.4 on the L2C chain."""
+    interop, in its order (ALL_SIGNALS, which Channel<i>.satellite pinning
+    counts in), with Tracking_2S.dll_bw_hz = 0.4 on the L2C chain."""
     props = _multi_conf()
     ref = jfactory.receiver_conf_from_config(JConfig(props))
     got = factory.receiver_conf_from_config(InMemoryConfiguration(props))
     assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
-    assert [c.signal for c in got.chains] == ["1B", "2S", "L5", "5X", "7X"]
+    assert [c.signal for c in got.chains] == [c.signal for c in ref.chains] \
+        == ["1B", "2S", "L5", "5X", "7X", "B1", "B3"]
     by_sig = {c.signal: c for c in got.chains}
     assert by_sig["2S"].trk.dll_bw_hz == 0.4
-    assert by_sig["2S"].code_provider == signals.CodeProvider("2S")
-    assert by_sig["7X"].code_provider == signals.CodeProvider("7X")
+    for sig in ("2S", "7X", "B1", "B3"):
+        assert by_sig[sig].code_provider == signals.CodeProvider(sig)
+    assert not by_sig["B1"].assist_wait and by_sig["B3"].assist_wait
     assert isinstance(by_sig["2S"].telemetry_decoder([1]),
                       ptlm.GpsCnavTelemetryDecoder)
     assert isinstance(by_sig["7X"].telemetry_decoder([1]),
                       ptlm.GalileoE5bTelemetryDecoder)
+    for sig in ("B1", "B3"):
+        assert isinstance(by_sig[sig].telemetry_decoder([1]),
+                          ptlm.BeidouB1iTelemetryDecoder)
 
 
 @pytest.mark.parametrize("sig", UNPORTED)
 def test_factory_still_refuses_the_other_chains(sig):
-    props = _multi_conf(tuple(s for s in UNPORTED if s != sig))
+    props = _multi_conf(tuple(s for s in UNPORTED if s != sig), add=(sig,))
     with pytest.raises(NotImplementedError, match="not ported") as err:
         factory.receiver_conf_from_config(InMemoryConfiguration(props))
     assert f"Channels_{sig}.count" in str(err.value)

@@ -8,14 +8,18 @@ Without --parity: builds the tracking library of this checkout and runs
 chip_smoke.py's phase 3 checks of the KF, gaussian and second-order PLL
 forms at GPS 2 Msps (C = 8, K = 3): K9 from edge states against its plain
 closure, then the chunk kernel against the two-launch chunk bit for bit
-over 50 epochs and against the plain loop, each timed (the quick check of
-a new form, about a minute).
+over 50 epochs and against the plain loop, each timed; then the rectified
+lock test the same way at phase 15(c)'s GEO shape, K9 also against the
+coherent form on the same inputs, and the chunk in both forms in turns
+(the quick check of a new form, about a minute).
 
 With --parity: imports the package and chip_smoke.py of the tree `--tree`
-(default: this checkout) and runs the chunk kernel at phase 3's four
-DLL/PLL K9 shapes (GPS at 20 Msps with k_ext 20, the Galileo E1 pilot at
-20 Msps, GPS at 2 Msps with k_ext 1 and 20) from the same seeded edge
-states and noise capture, printing per shape one JSON line: a SHA-256 of
+(default: this checkout) and runs the chunk kernel at the KF, gaussian and
+second-order PLL forms' shape (GPS at 2 Msps, 1000-epoch path chunks) and
+at phase 3's four DLL/PLL K9 shapes (GPS at 20 Msps with k_ext 20, the
+Galileo E1 pilot at 20 Msps, GPS at 2 Msps with k_ext 1 and 20) from the
+same seeded states (the Kalman forms' covariances positive definite) and
+noise capture, printing per shape one JSON line: a SHA-256 of
 every plane and state field after 50 epochs, and the device milliseconds
 of a 50-epoch chunk and of the path's chunk by CUDA-graph replay.  Run it
 on two trees in one call (parent, change, change, parent) to hold the
@@ -28,6 +32,7 @@ Needs the card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -40,9 +45,13 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def parity(cs, trk, interop, torch) -> None:
-    """The DLL/PLL shapes of phase 3's K9_epoch_chunk rows: hashes, times."""
+    """The shapes of phase 3's K9_epoch_chunk rows in every form the tree
+    has in common with its parent (the DLL/PLL loops of order 3 and 2, the
+    KF, the gaussian mode): hashes, times."""
     dev = torch.device("cuda")
-    shapes = (
+    shapes = tuple(
+        (f"GPS L1 C/A at 2 Msps, {lab}", trk.TrackingConf(fs=cs.FS, **kw), 8,
+         1000, None) for kw, _, lab in cs.KALMAN_FORMS) + (
         ("GPS L1 C/A at 20 Msps, k_ext 20",
          trk.TrackingConf(fs=cs.FS_REF_HYBRID, extend_correlation_symbols=20),
          10, 1000, None),
@@ -61,7 +70,8 @@ def parity(cs, trk, interop, torch) -> None:
             eng = trk.TrackingEngine(
                 conf, range(11, 11 + c), code_provider=chain.code_provider,
                 data_code_provider=chain.data_code_provider, device=dev)
-        st = cs.epoch_state(rng, conf, c, rng.choice([-1.0, 1.0], c), dev)
+        st = cs.epoch_state(rng, conf, c, rng.choice([-1.0, 1.0], c), dev,
+                            kalman_edges=False)
         x = cs._cnoise(rng, (1 << 20) + (path_epochs + 2) * conf.block_size,
                        dev)
         t = cs.CHUNK_CHECK_EPOCHS
@@ -103,6 +113,19 @@ def forms(cs, trk, torch) -> None:
                                    extend_correlation_symbols=20), 8,
         "K9_epoch_closure_pll2", "GPS L1 C/A at 2 Msps, second-order PLL, "
         "k_ext 20"))
+    # the rectified lock test, a flag of every form: phase 15(c)'s GEO conf,
+    # its chunk in turns with the coherent form's at the same shape
+    rows.append(cs.check_rectify_flag(dev, rng))
+    gchain = cs.geo_chain()
+    coherent = dataclasses.replace(gchain.trk, lock_rectify=False)
+    for _ in range(2):
+        for conf, name, lab in (
+                (gchain.trk, "K9_epoch_chunk_rectify", "rectified lock"),
+                (coherent, "K9_epoch_chunk", "coherent lock")):
+            rows.append(cs.check_epoch_chunk_bits(
+                dev, rng, conf, 8, name,
+                f"BeiDou B1I GEO at 8.192 Msps, {lab}", cs.GEO_CHUNK,
+                chain=gchain))
     print(json.dumps({"rows": rows}))
 
 
