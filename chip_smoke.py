@@ -257,7 +257,35 @@ Phases (any failure exits non-zero, before the result line):
    against the coherent form on the card) and in the chunk kernel, and
    the kernels at the new shapes (the cold B1I and GEO searches, the
    assisted B3I one, the chunk kernel at B1I's and B3I's epochs, K8a, K8b
-   and K1 at both E = 20 shapes, K6 on the three skies).
+   and K1 at both E = 20 shapes, K6 on the three skies);
+16. the Galileo E6-B chain (its own seconds printed): (a) the hybrid
+   sky's Galileo PRNs 11-15 on E1-B and E6-B, each E6 satellite sending
+   one row of a two-page HAS message's C-matrix, 26 s made by K6 at
+   12.5 Msps and written as ibyte, through the CLI (`E6_CONF`, 5 + 5
+   pinned channels): E1 and E6 on the five PRNs, every E6 search assisted
+   within 50 Hz of the E1 Doppler x f_E6 / f_E1, the E6 TOW from the map
+   1 ms an epoch, PR_E6 - PR_E1 within 30 m of the map's extrapolation
+   (-age x range rate, the reference's; check_e6_observables), E1's fix
+   (2D < 2 m, 3D < 5 m), the HAS message rebuilt by Reed-Solomon erasure
+   decoding, equal to the planted one; (b) E6 alone, 5 s, through the
+   receiver: the cold search (D = 41, the doubled FFT), the Doppler
+   within 5 Hz, no loss of lock, the HAS message, and no TOW, observable
+   or fix.  The E6 chain's tail chunk raises KeyError('sample_counter')
+   at the end of a run, as the JAX receiver does (e6_tail: the result up
+   to it is checked);
+17. the GLONASS L1 and L2 C/A chains (its own seconds printed): (a) three
+   satellites on slots -7, 0 and +6, 16.5 s at 10 Msps as ibyte, through
+   the CLI with `Channels_1G.count=24` (the 13 slot chains): each on its
+   slot's chain, the Doppler within 3 Hz of the slot offset plus the
+   truth, three GNAV ephemerides within 3 m and 2 ns at tb + 200 s, the
+   TOW within 1 ms, the pseudorange differences within 30 m of the
+   planted delays', no fix (three satellites), the FDMA bias form of K8a,
+   K1 with K8b and K8a and the chunk kernel launched; (b) L1 at 10 Msps
+   and L2 at 8 Msps through attach_arrays: every L2 search assisted
+   within 50 Hz of the L1 Doppler x 7/9, |PR_L2 - PR_L1| < 30 m.  Phase 3
+   holds the bias form at slots -7 and +6 (and on L2), the GLONASS, E6
+   and E1 12.5 Msps searches, E6's block step and chunk kernel, and K6 on
+   the new skies.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -569,7 +597,10 @@ def block_state(rng, conf, c: int, e: int, n_wins: int, dev,
     from gnss_sim_receiver_tpu_torch.models import tracking as trk
     s0 = conf.nominal_epoch_samples
     st = interop.track_state_to_numpy(trk._init_state(c, "cpu"))
-    dop = rng.uniform(-4500.0, 4500.0, c)
+    # the Doppler around the chain's FDMA bias (0 but on GLONASS: adding
+    # and taking off 0.0 leaves every draw's bits)
+    bias = conf.doppler_bias_hz
+    dop = bias + rng.uniform(-4500.0, 4500.0, c)
     hist = rng.integers(0, 3, (c, 20)).astype(np.float32)
     hist[0] = 0.0
     hist[0, rng.integers(0, 20)] = conf.bit_sync_min_transitions - 1
@@ -581,7 +612,8 @@ def block_state(rng, conf, c: int, e: int, n_wins: int, dev,
         "active": np.arange(c) < c - 1,
         "pos": rng.integers(-8, (n_wins - e - 1) * s0, c).astype(np.int32),
         "rem_code_phase": f(rng.uniform(-0.5, 0.5, c)),
-        "code_freq": f(conf.code_rate_cps * (1.0 + dop / conf.carrier_freq_hz)
+        "code_freq": f(conf.code_rate_cps
+                       * (1.0 + (dop - bias) / conf.carrier_freq_hz)
                        + rng.uniform(-0.05, 0.05, c)),
         "carrier_doppler": f(dop),
         "rem_carr_phase": f(rng.uniform(-1.0, 2.0 * np.pi, c)),
@@ -1397,7 +1429,8 @@ def epoch_state(rng, conf, c: int, sign, dev, kalman_edges: bool = True):
     from gnss_sim_receiver_tpu_torch import interop
     from gnss_sim_receiver_tpu_torch.models import tracking as trk
     st = interop.track_state_to_numpy(trk._init_state(c, "cpu"))
-    dop = rng.uniform(-4500.0, 4500.0, c)
+    bias = conf.doppler_bias_hz          # as block_state's
+    dop = bias + rng.uniform(-4500.0, 4500.0, c)
     ep, w = conf.fll_pullin_epochs, conf.cn0_window_epochs
     k = max(conf.extend_correlation_symbols, 1)
     n = len(conf.secondary_code)
@@ -1418,7 +1451,8 @@ def epoch_state(rng, conf, c: int, sign, dev, kalman_edges: bool = True):
         "active": np.arange(c) != 4,
         "pos": rng.integers(0, 1 << 20, c).astype(np.int32),
         "rem_code_phase": f(rng.uniform(-0.5, 0.5, c)),
-        "code_freq": f(conf.code_rate_cps * (1.0 + dop / conf.carrier_freq_hz)
+        "code_freq": f(conf.code_rate_cps
+                       * (1.0 + (dop - bias) / conf.carrier_freq_hz)
                        + rng.uniform(-0.05, 0.05, c)),
         "carrier_doppler": f(dop),
         "rem_carr_phase": f(rng.uniform(-1.0, 2.0 * np.pi, c)),
@@ -4014,6 +4048,11 @@ def launch_wrappers() -> dict:
                                                   "launches_pilot"),
         "K1_K8b_K8a_block_step_E1_pilot": (tb.block_correlate_close,
                                            "folds_pilot"),
+        "K8a_block_prologue_bias": (tb.block_prologue, "launches_bias"),
+        "K1_K8b_block_correlate_close_bias": (tb.block_correlate_close,
+                                              "launches_bias"),
+        "K1_K8b_K8a_block_step_bias": (tb.block_correlate_close,
+                                       "folds_bias"),
         "block_chunks": (tb.track_chunk_blocks, "chunks"),
         "K9_epoch_closure": (trk.epoch_closure, "launches"),
         "K2_multicorrelate": (correlator.multicorrelate, "launches"),
@@ -4023,6 +4062,7 @@ def launch_wrappers() -> dict:
         "K9_epoch_chunk_gaussian": (trk.epoch_chunk, "launches_gaussian"),
         "K9_epoch_chunk_pll2": (trk.epoch_chunk, "launches_pll2"),
         "K9_epoch_chunk_rectify": (trk.epoch_chunk, "launches_rectify"),
+        "K9_epoch_chunk_bias": (trk.epoch_chunk, "launches_bias"),
         "K3_pcps_wipe": (pcps.pcps_wipe, "launches"),
         "K3_pcps_peak": (pcps.pcps_peak, "launches"),
         "K3b_pcps_wipe_per_channel": (pcps.pcps_wipe,
@@ -7002,7 +7042,13 @@ def logged_session(conf, ephemerides=None):
     """A session of `conf` whose observation epochs are logged with the
     channel -> PRN map the session holds when each is formed."""
     from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
-    session = Receiver(conf).start_session(ephemerides=ephemerides)
+    return log_epochs(Receiver(conf).start_session(ephemerides=ephemerides))
+
+
+def log_epochs(session):
+    """`session` with its observation epochs logged in
+    session.epoch_prns, each with the channel -> PRN map it was formed
+    under."""
     session.epoch_prns = []
     solve = session._solve
 
@@ -7893,6 +7939,1121 @@ def geo_path(wrappers, card: str) -> dict:
     return launches
 
 
+# ---- phase 16: the Galileo E6-B chain (C/NAV, HAS) -------------------------
+
+F_E1 = 1_575.42e6
+F_E6 = 1_278.75e6
+# (a): Galileo E1-B + E6-B on one stream at 12.5 Msps (tests/test_e6_has.py's
+# rate: it holds E6-B's +-5.115 MHz main lobe), the hybrid sky's Galileo
+# satellites, 26 s (phase 5's: their I/NAV ephemerides), written as ibyte
+# (ishort would be 1.3 GB).  Each satellite sends one row of the HAS
+# message's C-matrix once a second (E6_PIDS); the message fills two pages,
+# so no satellite holds enough rows alone and the receiver rebuilds it by
+# Reed-Solomon erasure decoding of two satellites' rows (the information
+# PID 1 and parity PIDs above 32)
+FS_E6 = 12_500_000.0
+E6_DUR = 26.0
+E6_CN0 = 48.0
+E6_PRNS = HYB_GAL_PRNS
+E6_PIDS = {11: 1, 12: 40, 13: 77, 14: 140, 15: 201}
+E6_MESSAGE_ID = 5
+E6_CHANNELS = len(E6_PRNS)
+# the observables' tick stride on E6's 1 ms epochs at PVT.output_rate_ms=20
+# (receiver.py: min(interval, 90) // epoch)
+E6_DECIM = 20
+# (b): the E6 signals alone, 5 s: two pages a satellite, the cold search
+E6_ALONE_DUR = 5.0
+# the E6 searches: a C/NAV symbol flips the sign at every 1 ms code epoch,
+# and at the chain's 2 dwells of 1 ms (one FFT of N = 12500 each) a dwell
+# cut by a flip puts the Doppler peak off: on (b)'s sky 15 of 55 searches
+# land 250 to 800 Hz off (CPU counts at 12.5 Msps; the JAX engine gives the
+# same cells on the same input), past the decision-directed FLL's +-250 Hz,
+# and a channel locks 500 Hz off or loses lock (ROADMAP.md queue 3, as
+# E5b's and B1I's).  The doubled FFT (bit_transition_flag) and 8 dwells:
+# none of 55 beyond 75 Hz
+E6_DWELLS = 8
+E6_KERNELS = ("K1_block_correlate", "K1_K8b_K8a_block_step", "K9_epoch_chunk",
+              "K9_epoch_chunk_rectify", "K3_pcps_wipe", "K3_pcps_peak",
+              "K3b_pcps_wipe_per_channel")
+E6_ALONE_KERNELS = E6_KERNELS
+
+# (a)'s conf: E1-B and E6-B, 5 channels each, every channel pinned to its
+# satellite (Channel<i>.satellite counts E1's channels first): an E6
+# channel's acquisition waits for E1's lock of its PRN (the assist gate),
+# so one left on a PRN no E1 channel tracks would wait for good (ROADMAP.md
+# queue 3, as B3I's)
+E6_CONF = """\
+GNSS-SDR.internal_fs_sps={fs:.0f}
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={capture}
+SignalSource.item_type=ibyte
+SignalSource.sampling_frequency={fs:.0f}
+Channels_1B.count=5
+Channels_E6.count=5
+Channels.in_acquisition=10
+Acquisition_1B.implementation=Galileo_E1_PCPS_Ambiguous_Acquisition
+Tracking_1B.implementation=Galileo_E1_DLL_PLL_VEML_Tracking
+Acquisition_E6.implementation=Galileo_E6_PCPS_Acquisition
+Acquisition_E6.bit_transition_flag=true
+Acquisition_E6.max_dwells=8
+Tracking_E6.implementation=Galileo_E6_DLL_PLL_Tracking
+PVT.implementation=RTKLIB_PVT
+PVT.positioning_mode=Single
+PVT.output_rate_ms=20
+""" + "".join(f"Channel{i}.satellite={p}\nChannel{i + 5}.satellite={p}\n"
+              for i, p in enumerate(E6_PRNS))
+
+
+def has_message():
+    """The HAS MT1 message the E6 satellites broadcast, of the kind
+    tests/test_e6_has.py:_has_fixture builds: every section (mask, orbit,
+    clock full set and subset, code and phase biases) over GPS and
+    Galileo."""
+    from gnss_sim_receiver_tpu_torch.nav import has
+
+    def mask(prns):
+        return sum(1 << (40 - p) for p in prns)
+    d = has.HasData()
+    d.header = has.HasHeader(
+        toh=450, mask_flag=True, orbit_correction_flag=True,
+        clock_fullset_flag=True, clock_subset_flag=True,
+        code_bias_flag=True, phase_bias_flag=True, mask_id=9, iod_set_id=3)
+    d.nsys = 2
+    d.gnss_id_mask = [has.GPS_SYSTEM, has.GALILEO_SYSTEM]
+    d.satellite_mask = [mask([1, 3, 5]), mask([2, 4])]
+    d.signal_mask = [0b1100000000000000, 0b1010000000000000]
+    d.cell_mask_flag = [False, True]
+    d.cell_mask = [np.ones((3, 2), bool), np.array([[1, 0], [1, 1]], bool)]
+    d.nav_message = [0, 0]
+    d.validity_orbit = 5
+    d.gnss_iod = [17, 18, 19, 257, 258]
+    d.delta_radial_m = [0.1, -0.2, 0.3, 0.05, -0.0725]
+    d.delta_in_track_m = [0.4, -0.8, 0.16, 0.024, -0.032]
+    d.delta_cross_track_m = [0.08, 0.016, -0.24, 0.8, 0.056]
+    d.validity_clock = 2
+    d.delta_clock_multiplier = [1, 2]
+    d.delta_clock_m = [0.05, -0.1, 0.0025, 0.01, -0.005]
+    d.validity_clock_subset = 1
+    d.nsys_sub = 1
+    d.gnss_id_clock_subset = [has.GPS_SYSTEM]
+    d.multiplier_clock_subset = [2]
+    d.satellite_submask = [0b101]
+    d.delta_clock_subset_m = [[0.01, -0.02]]
+    d.validity_code_bias = 9
+    d.code_bias_m = [[0.5, -0.3], [0.2, 0.1], [-0.8, 0.04], [1.2],
+                     [0.6, -0.02]]
+    d.validity_phase_bias = 11
+    d.phase_bias_cycles = [[0.25, -0.1], [0.0, 0.05], [-0.3, 0.12], [0.07],
+                           [0.2, -0.01]]
+    d.phase_discontinuity = [[0, 1], [2, 3], [1, 0], [2], [3, 0]]
+    return d
+
+
+def check_has(msgs, what: str) -> None:
+    """Every decoded message equal to the planted one (its MT1 bits parsed)
+    field by field: the masks, flags and lists exactly, the corrections
+    within 1e-12 (their scales' multiples)."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.nav import has
+    want = has.parse_mt1(has.pack_mt1(has_message()))
+    if not msgs:
+        fail(f"{what}: no HAS message decoded")
+    for got in msgs:
+        if dataclasses.asdict(got.header) != dataclasses.asdict(want.header):
+            fail(f"{what}: HAS header {got.header}")
+        for f in dataclasses.fields(want):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if f.name == "header":
+                continue
+            if f.name.endswith(("_m", "_cycles")):
+                fa = np.concatenate([np.ravel(v) for v in a]) if a else []
+                fb = np.concatenate([np.ravel(v) for v in b]) if b else []
+                if len(fa) != len(fb) or np.abs(np.subtract(fa, fb)).max(
+                        initial=0.0) > 1e-12:
+                    fail(f"{what}: HAS {f.name} {a} against {b}")
+            elif f.name == "cell_mask":
+                if len(a) != len(b) or not all(
+                        np.array_equal(x, y) for x, y in zip(a, b)):
+                    fail(f"{what}: HAS cell mask {a}")
+            elif a != b:
+                fail(f"{what}: HAS {f.name} {a!r} against {b!r}")
+    print(f"  {len(msgs)} HAS messages decoded, each the planted one field "
+          "by field (corrections within 1e-12)")
+
+
+def e6_sky(dur: float):
+    """(a)'s sky: the hybrid sky's Galileo satellites on E1-B (I/NAV,
+    48 dB-Hz) and on E6-B (48 dB-Hz, each its row of the HAS message's
+    C-matrix once a second, E6_PIDS).  Returns (E1 signals, E6 signals)."""
+    from gnss_sim_receiver_tpu_torch.nav import cnav_e6, has
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    _, gal = hybrid_ephemerides()
+    e1 = build_static_scenario(gal, rx_true_ecef(), T0, dur,
+                               cn0_db_hz=E6_CN0, subframe_cycle=(1, 2, 3))
+    msg = has_message()
+    n_pages = int(np.ceil(dur)) + 2
+
+    def signs(eph):
+        page = has.mt1_to_pages(msg, E6_MESSAGE_ID, pids=[E6_PIDS[eph.prn]])
+        return cnav_e6.e6b_epoch_signs(np.concatenate(page * n_pages))
+    e6 = offband_satellites(gal, rx_true_ecef(), T0, dur, E6_CN0, "E6", F_E6,
+                            signs)
+    return e1, e6
+
+
+def e6_chain():
+    """galileo_e6b_chain at 12.5 Msps on the five PRNs, its searches with
+    the doubled FFT and E6_DWELLS dwells (E6_CONF's keys)."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.models.receiver import galileo_e6b_chain
+    chain = galileo_e6b_chain(FS_E6, prns=E6_PRNS, n_channels=E6_CHANNELS)
+    chain.acq = dataclasses.replace(chain.acq, bit_transition_flag=True,
+                                    max_dwells=E6_DWELLS)
+    return chain
+
+
+def e6_alone_conf():
+    """(b)'s receiver: e6_chain alone (no other Galileo band: the assist
+    gate is off)."""
+    from gnss_sim_receiver_tpu_torch.models.receiver import ReceiverConf
+    return ReceiverConf(fs=FS_E6, gps_chain=False, chains=(e6_chain(),))
+
+
+def cli_session(argv, log: dict):
+    """run_cli(argv) with the session it builds kept in log["session"]:
+    its observation epochs logged with the channel -> PRN map
+    (logged_session), every assisted search's window (seconds) and centres
+    in log["windows"].  Returns the CliRun; an exception of the run
+    propagates, `log` filled up to it."""
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
+    windows = log.setdefault("windows", [])
+    start = Receiver.start_session
+    assisted = PcpsAcquisitionEngine.acquire_assisted
+
+    def start_logged(self, *a, **k):
+        log["session"] = log_epochs(start(self, *a, **k))
+        return log["session"]
+
+    def acquire_assisted(eng, x, start_, centers, *a, **k):
+        windows.append((start_ / eng.conf.fs_in, list(centers)))
+        return assisted(eng, x, start_, centers, *a, **k)
+    Receiver.start_session = start_logged
+    PcpsAcquisitionEngine.acquire_assisted = acquire_assisted
+    try:
+        return run_cli(argv)
+    finally:
+        Receiver.start_session = start
+        PcpsAcquisitionEngine.acquire_assisted = assisted
+
+
+def e6_tail(err: Exception, log: dict) -> None:
+    """Accept `err` when it is the JAX receiver's own failure at the E6
+    chain's tail chunk: a batch run's last chunk of a chain,
+    shorter than one tick stride (20 epochs at 1 ms and a 20 ms observable
+    interval), reaches the telemetry without the sample counter
+    (receiver.py's tail branch), which the E6-B decoder reads for its TOW
+    map, so the run raises KeyError('sample_counter') unless the chain's
+    last epochs come to a whole number of strides (ROADMAP.md queue 3;
+    JAX's receiver alike).  Any other error is raised again."""
+    session = log.get("session")
+    if not (isinstance(err, KeyError) and err.args == ("sample_counter",)
+            and session is not None
+            and any(rt.spec.signal == "E6" for rt in session.chains)):
+        raise err
+    print("  the run raised KeyError('sample_counter') at the E6 chain's "
+          "tail chunk (the reference's behaviour, ROADMAP.md queue 3); the "
+          "session's result up to it is checked")
+
+
+def check_e6_observables(run, session, e1_sats, ages, n1: int) -> None:
+    """(a)'s pseudoranges and fixes.  The receiver stamps each E6 epoch
+    with the TOW E1 last published for its PRN, moved on by the samples
+    since then at the primary rate (GalileoTowMap, as the JAX receiver):
+    receive time, where the satellite's transmit time runs slower by its
+    range rate over c, so PR_E6 - PR_E1 comes to -age x range rate, the
+    age the stamp's samples since the publication (ROADMAP.md queue 3;
+    km-sized, as the map is published once a tracking chunk).  Checks:
+    per PRN, PR_E6 - PR_E1 within 30 m of that at every common epoch, and
+    with the E1 channels alone the fixes' mean error 2D < 2 m, 3D < 5 m
+    (solve_pvt on each 50th observation epoch); the both-band fixes'
+    error printed.  `ages` PRN -> [(sample counter, age s)] of the stamps
+    at the tick rows the observables interpolate."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.models.pvt import solve_pvt
+    from gnss_sim_receiver_tpu_torch.utils import geodesy
+    c_light = 299_792_458.0
+    truth = {s.prn: s for s in e1_sats}
+    arrs = {p: np.array(sorted(v)) for p, v in ages.items()}
+    rows = collections.defaultdict(list)     # prn -> [(d, age, rr)]
+    for ep, prns in zip(run.observation_epochs, session.epoch_prns):
+        t = ep.tick_sample / FS_E6
+        for c2 in range(n1, len(prns)):
+            p = prns[c2]
+            if not ep.valid[c2] or p not in prns[:n1] or p not in arrs:
+                continue
+            c1 = prns[:n1].index(p)
+            if not ep.valid[c1]:
+                continue
+            # the observables interpolate the stamps bracketing the tick
+            # linearly, and the error is linear in the age: its age too
+            age = float(np.interp(ep.tick_sample, arrs[p][:, 0],
+                                  arrs[p][:, 1]))
+            sat = truth[p]
+            rr = -(sat.doppler_hz + sat.doppler_rate_hz_s * t) * c_light / F_E1
+            rows[p].append((ep.pseudorange_m[c2] - ep.pseudorange_m[c1],
+                            age, rr))
+    worst_raw, worst = {}, {}
+    for p in sorted(rows):
+        d, age, rr = (np.asarray(v) for v in zip(*rows[p]))
+        res = d + age * rr
+        worst_raw[p] = float(np.abs(d).max())
+        worst[p] = float(np.abs(res).max())
+        slope = (np.polyfit(age, d, 1)[0] if np.ptp(age) > 0 else np.nan)
+        print(f"    PRN {p}: {len(d)} epochs, PR_E6 - PR_E1 {d.min():.1f} "
+              f"to {d.max():.1f} m; stamp ages {age.min():.3f} to "
+              f"{age.max():.3f} s; slope on age {slope:.2f} m/s against "
+              f"-range rate {-rr.mean():.2f}; median |residual| "
+              f"{np.median(np.abs(res)):.2f} m")
+    print(f"  max |PR_E6 - PR_E1| by PRN {worst_raw} m; less the map's "
+          f"extrapolation (-age x range rate): {worst} m")
+    if sorted(rows) != list(E6_PRNS) or max(worst.values()) >= MB_PR_TOL_M:
+        fail(f"E6 against E1 pseudoranges less the map's extrapolation "
+             f"{worst}")
+    both = [s for s in run.solutions if s.used_channels is not None
+            and (s.used_channels < n1).any()
+            and (s.used_channels >= n1).any()]
+    if not both:
+        fail("no fix of both bands")
+    ref = (np.radians(RX_LLH[0]), np.radians(RX_LLH[1]))
+
+    def err(sols):
+        enu = np.array([geodesy.ecef_to_enu(s.rx_ecef_m - rx_true_ecef(),
+                                            ref) for s in sols])
+        return (float(np.linalg.norm(enu.mean(0)[:2])),
+                float(np.linalg.norm(enu.mean(0))))
+    e1_only = []
+    for ep in run.observation_epochs[::50]:
+        v = ep.valid.copy()
+        v[n1:] = False
+        sol = solve_pvt(dataclasses.replace(ep, valid=v), run.channel_prns,
+                        run.ephemerides, systems=list(run.channel_systems))
+        if sol.valid:
+            e1_only.append(sol)
+    both_2d, both_3d = err(both)
+    e1_2d, e1_3d = err(e1_only) if e1_only else (np.inf, np.inf)
+    print(f"  {len(both)} of {len(run.solutions)} fixes use both bands "
+          f"(mean error 2D {both_2d:.3f} m, 3D {both_3d:.3f} m: the E6 "
+          f"extrapolation's); E1 alone on {len(e1_only)} epochs: 2D "
+          f"{e1_2d:.3f} m, 3D {e1_3d:.3f} m")
+    if len(e1_only) < 5 or not (e1_2d < 2.0 and e1_3d < 5.0):
+        fail(f"E1 fixes: {len(e1_only)}, 2D {e1_2d:.3f} m, 3D {e1_3d:.3f} m")
+
+
+def e6_path(root: str, wrappers, card: str) -> dict:
+    """Phase 16(a): E1-B + E6-B through the CLI on one 12.5 Msps stream.  K6
+    makes (a)'s sky for E6_DUR seconds, written as ibyte (its launches
+    counted apart); the counters set to 0 just before run_cli(E6_CONF) and
+    read just after, the session kept (cli_session) and every E6 decoder's
+    TOW stamps logged.  Checks: E1 tracks the five PRNs; every E6 search
+    assisted, each centre within 50 Hz of the true E1 Doppler x f_E6 /
+    f_E1; the E6 TOW stamped from the TOW map, 1 ms an epoch; the
+    pseudoranges and fixes as check_e6_observables holds them; the HAS
+    message rebuilt, equal to the planted one; the real-time factor and
+    the launches at E6's and E1's 12.5 Msps shapes."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.models.telemetry import (
+        GalileoE6bTelemetryDecoder, GalileoTowMap)
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    path = os.path.join(root, "build", "e6_scenario_12p5msps_v1.ibyte")
+    e1_sats, e6_sats = e6_sky(E6_DUR)
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = generate_baseband_device_resident(
+        e1_sats + e6_sats, FS_E6, int(FS_E6 * E6_DUR), noise=True, seed=161,
+        device="cuda")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_samples(path, x, "ibyte", scale=HYB_BYTE_SCALE)
+    del x
+    torch.cuda.empty_cache()
+    k6 = read_launches(wrappers, ("K6_device_generator",))[
+        "K6_device_generator"]
+    print(f"  K6 made and wrote {os.path.getsize(path) / 1e6:.0f} MB ibyte "
+          f"at {FS_E6 / 1e6:g} Msps in {time.perf_counter() - t0:.3f} s "
+          "(not timed)")
+    conf = os.path.join(root, "build", "chip_smoke_e6.conf")
+    with open(conf, "w") as fh:
+        fh.write(E6_CONF.format(capture=path, fs=FS_E6))
+    stamps = []
+    process = GalileoE6bTelemetryDecoder.process
+    ages = collections.defaultdict(list)     # prn -> [(sample, age s)]
+    ticks = collections.defaultdict(set)     # prn -> tick rows' samples
+    tow_at = GalileoTowMap.tow_at_sample
+
+    def process_logged(self, outs):
+        res = process(self, outs)
+        stamps.append(res.tow_at_epoch_ms)
+        # the tick rows the observables take (receiver.py's decimation:
+        # every E6_DECIM-th epoch of a chunk)
+        sc = np.asarray(outs["sample_counter"])
+        for c, prn in enumerate(self.prns):
+            ticks[int(prn)].update(
+                sc[E6_DECIM - 1::E6_DECIM, c].tolist())
+        return res
+
+    def tow_at_logged(self, prn, sample_counter):
+        hit = self._m.get(int(prn))
+        out = tow_at(self, prn, sample_counter)
+        if out is not None:
+            ages[int(prn)].append((float(sample_counter),
+                                   (float(sample_counter) - hit[1])
+                                   / self.fs))
+        return out
+    GalileoE6bTelemetryDecoder.process = process_logged
+    GalileoTowMap.tow_at_sample = tow_at_logged
+    shapes0 = shape_counts()
+    tb.block_correlate_close.fold_shapes.clear()
+    tb.block_prologue.shapes.clear()
+    trk.epoch_chunk.shapes.clear()
+    log = {}
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = cli_session([f"--config_file={conf}"], log)
+    except Exception as err:       # e6_tail raises any other again
+        e6_tail(err, log)
+        res = None
+    finally:
+        GalileoE6bTelemetryDecoder.process = process
+        GalileoTowMap.tow_at_sample = tow_at
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers, E6_KERNELS)
+    os.remove(path)
+    session, windows = log["session"], log["windows"]
+    if res is not None and res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    run = session.result() if res is None else res.run
+    n1 = len(E6_PRNS)
+    states = list(zip(run.channel_prns, run.channel_states))
+    e1_trk, e6_trk = [sorted(p for p, s in part if s == ChannelState.TRACKING)
+                      for part in (states[:n1], states[n1:])]
+    print(f"  E1 tracks {e1_trk}, E6 tracks {e6_trk}; Galileo ephemerides "
+          f"{sorted(k[1] for k in run.ephemerides)}")
+    if e1_trk != list(E6_PRNS) or e6_trk != list(E6_PRNS):
+        fail(f"tracked E1 {e1_trk}, E6 {e6_trk}: expected {list(E6_PRNS)}")
+    check_assisted_centres(session, windows, e1_sats, F_E6 / F_E1, "E6",
+                           e6_trk, primary="E1")
+    # the E6 TOW: stamped from the map (E1's published TOW), 1 ms an epoch:
+    # an epoch lasts one code period at the Doppler'd chip rate, so a step
+    # departs from 1 ms by |f_d| / f_E6 (< 3e-6 here) and float rounding
+    n_stamped, worst_step = 0, 0.0
+    for tow in stamps:
+        for c in range(tow.shape[1]):
+            col = tow[:, c]
+            fin = np.isfinite(col)
+            n_stamped += int(fin.sum())
+            both = fin[1:] & fin[:-1]
+            if both.any():
+                worst_step = max(worst_step, float(np.abs(
+                    np.diff(col)[both] - 1.0).max()))
+    print(f"  {n_stamped} E6 epochs stamped from the TOW map "
+          f"({len(session.tow_map._m)} PRNs published), each step within "
+          f"{worst_step:.2e} ms of 1 ms")
+    if n_stamped < 5 * 5000 or worst_step > 1e-5:
+        fail(f"E6 TOW: {n_stamped} epochs stamped, steps within "
+             f"{worst_step:.2e} ms of 1 ms")
+    check_e6_observables(run, session, e1_sats, {
+        p: [(sc, a) for sc, a in v if sc in ticks[p]]
+        for p, v in ages.items()}, n1)
+    check_has(run.has_messages, "(a)")
+    wipe, peak = (a - b for a, b in zip(shape_counts(), shapes0))
+    n6 = PcpsAcquisitionEngine(e6_chain().acq, (11,), device="cuda").fft_size
+    k3b = sum(v for s, v in wipe.items() if len(s) == 4 and s[-1] == n6)
+    k3 = sum(v for s, v in peak.items() if s[2] == 9 and s[-1] == n6)
+    f6 = tb.block_fft_size(e6_alone_conf().chains[0].trk)
+    pro, fold = block_counts(f6, 20)
+    k9 = epoch_shapes(E6_CHANNELS, int(FS_E6 * 1e-3))
+    print(f"  the wipeoff by shape {dict(wipe)}, K3's peak {dict(peak)}; "
+          f"the E6 block step at E=20, F={f6}: K8a {pro}, folds {fold}; "
+          f"K9's chunk kernel {k9} launches at C={E6_CHANNELS}, "
+          f"{int(FS_E6 * 1e-3)} samples an epoch")
+    if not (k3b and k3 == k3b and pro and fold and k9):
+        fail("(a) did not launch the kernels at E6's shapes")
+    if res is not None:
+        sec = res.seconds
+        print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+              f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}")
+    print(f"  wall {wall:.3f} s from the CLI's start to its end for "
+          f"{E6_DUR:g} s of signal: real-time factor {E6_DUR / wall:.3f} "
+          f"({card})")
+    launches.update({"K6_device_generator": k6,
+                     "K6_device_generator_E6": k6,
+                     "K3b_pcps_wipe_per_channel_E6": k3b,
+                     "K3_pcps_peak_assisted_E6": k3,
+                     "K8a_block_prologue_E6": pro,
+                     "K1_K8b_K8a_block_step_E6": fold,
+                     "K9_epoch_chunk_E6": k9})
+    return launches
+
+
+def e6_alone_path(wrappers, card: str) -> dict:
+    """Phase 16(b): (a)'s E6 signals alone for E6_ALONE_DUR seconds, made
+    by K6 on the card (launches counted apart), through the receiver alone
+    (start_session, attach_array, run_to_end; the counters set to 0 just
+    before and read just after).  Checks: the searches cold (D = 41, N =
+    12500) and none assisted; the five PRNs tracked, each Doppler within
+    5 Hz of the truth, no loss of lock; the HAS message rebuilt; and, the
+    TOW map having no publisher, no E6 TOW, no valid observable and no fix,
+    as in JAX."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import interop
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    _, sats = e6_sky(E6_ALONE_DUR)
+    reset(wrappers)
+    x = generate_baseband_device_resident(
+        sats, FS_E6, int(FS_E6 * E6_ALONE_DUR), noise=True, seed=162,
+        device="cuda")
+    torch.cuda.synchronize()
+    k6 = read_launches(wrappers, ("K6_device_generator",))[
+        "K6_device_generator"]
+    conf = e6_alone_conf()
+    eng = PcpsAcquisitionEngine(conf.chains[0].acq, (11,), device="cuda")
+    n, d = eng.fft_size, eng.dopplers.shape[0]
+    shapes0 = shape_counts()
+    tb.block_correlate_close.fold_shapes.clear()
+    tb.block_prologue.shapes.clear()
+    trk.epoch_chunk.shapes.clear()
+    session = Receiver(conf).start_session()
+    # every chunk's tick-rate Doppler and validity, for the last second's
+    # mean (the 50 Hz PLL's jitter is a few Hz an epoch)
+    ticks = []
+    process_end = trk.TrackingEngine.process_end
+
+    def process_end_logged(eng_, handle):
+        outs = process_end(eng_, handle)
+        ticks.append((outs["carrier_doppler_hz"], outs["valid"]))
+        return outs
+    trk.TrackingEngine.process_end = process_end_logged
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.attach_array(x)
+    try:
+        session.run_to_end()
+    except Exception as err:       # e6_tail raises any other again
+        e6_tail(err, {"session": session})
+    finally:
+        trk.TrackingEngine.process_end = process_end
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers, E6_ALONE_KERNELS)
+    run = session.result()
+    del x
+    torch.cuda.empty_cache()
+    print(f"  searches {dict(session.searches)}")
+    wipe, peak = (a - b for a, b in zip(shape_counts(), shapes0))
+    cold = sum(v for s, v in wipe.items() if len(s) == 3 and s[1] == d
+               and s[-1] == n)
+    cold_peak = sum(v for s, v in peak.items() if s[2] == d and s[-1] == n)
+    step2 = sum(v for s, v in wipe.items() if len(s) == 4 and s[-1] == n)
+    print(f"  the wipeoff by shape {dict(wipe)}, K3's peak {dict(peak)}")
+    if session.searches[("E6", "assisted")] or not cold \
+            or cold_peak != cold or d != 41 or n != 2 * int(FS_E6 * 1e-3):
+        fail(f"(b) did not search cold at D=41, N=2 x 12500: searches "
+             f"{dict(session.searches)}, wipeoff {dict(wipe)}")
+    tracked = sorted(p for p, s in zip(run.channel_prns, run.channel_states)
+                     if s == ChannelState.TRACKING)
+    st = interop.track_state_to_numpy(session.chains[0].trk.state)
+    truth = {s.prn: s.doppler_hz + s.doppler_rate_hz_s * (E6_ALONE_DUR - 0.5)
+             for s in sats}
+    dop = np.concatenate([np.asarray(d) for d, _ in ticks])
+    ok = np.concatenate([np.asarray(v) for _, v in ticks])
+    errs = {}
+    for c, p in enumerate(run.channel_prns):
+        rows = np.flatnonzero(ok[:, c])[-50:]
+        if p and len(rows) == 50:
+            errs[int(p)] = float(dop[rows, c].mean() - truth[p])
+    print(f"  E6 tracks {tracked}; mean Doppler error over the last 50 "
+          f"ticks (1 s) by PRN {errs} Hz; lock lost "
+          f"{st['lock_lost'].tolist()}")
+    if tracked != list(E6_PRNS) or sorted(errs) != list(E6_PRNS) \
+            or max(abs(e) for e in errs.values()) >= 5.0 \
+            or st["lock_lost"].any() or not st["active"].all():
+        fail(f"(b): tracked {tracked}, Doppler errors {errs}")
+    check_has(run.has_messages, "(b)")
+    valid = sum(int(ep.valid.any()) for ep in run.observation_epochs)
+    print(f"  the TOW map holds {session.tow_map._m}; {valid} observation "
+          f"epochs with a valid channel; {len(run.solutions)} fixes")
+    if session.tow_map._m or valid or run.solutions:
+        fail("(b): an E6 TOW, observable or fix without a TOW publisher")
+    pro, fold = block_counts(tb.block_fft_size(conf.chains[0].trk), 20)
+    k9 = epoch_shapes(E6_CHANNELS, int(FS_E6 * 1e-3))
+    print(f"  the E6 block step: K8a {pro}, folds {fold}; K9's chunk kernel "
+          f"{k9} launches at C={E6_CHANNELS}, {int(FS_E6 * 1e-3)} samples an "
+          "epoch")
+    if not (pro and fold and k9):
+        fail("(b) did not run E6's shapes of the block step and the chunk "
+             "kernel")
+    print(f"  wall {wall:.3f} s for {E6_ALONE_DUR:g} s of signal: real-time "
+          f"factor {E6_ALONE_DUR / wall:.3f} ({card})")
+    launches.update({"K6_device_generator": k6, "K3_pcps_wipe_E6": cold,
+                     "K3_pcps_peak_E6": cold_peak,
+                     "K3b_pcps_wipe_per_channel_E6": step2,
+                     "K8a_block_prologue_E6": pro,
+                     "K1_K8b_K8a_block_step_E6": fold,
+                     "K9_epoch_chunk_E6": k9})
+    return launches
+
+
+# ---- phase 17: the GLONASS L1 and L2 C/A chains (GNAV, FDMA slots) ----------
+
+F_G1, DF_G1 = 1_602.0e6, 0.5625e6
+F_G2, DF_G2 = 1_246.0e6, 0.4375e6
+# three satellites on slots -7, 0 and +6 (PRNs 10, 11 and 4 by
+# GLONASS_PRN_SLOT), each a physical Doppler of a few kHz (the code Doppler
+# the physical one alone, on the slot's carrier: tests/test_glonass_l2.py)
+# and a delay of its own, 46 dB-Hz: (PRN, slot, Doppler Hz, delay s)
+GLO_SATS = ((10, -7, 2300.0, 0.0682), (11, 0, -1700.0, 0.0711),
+            (4, 6, 900.0, 0.0753))
+GLO_CN0 = 46.0
+# the GNAV frames start on a 30 s grid of the day; the sky starts 24 s into
+# one (its string 13), so the next frame's string 1 (the TOW) comes 6 s in
+# and its strings 1-4 (an ephemeris) by 14 s: (a) needs 16.5 s, not the
+# 38.5 s of tests/test_glonass_chain.py's capture from a frame start (the
+# half second puts K6's last launch in a partial tile).  The TOW is a time
+# of day: the factory passes day_base_s = 0
+GLO_FRAME_TOD = 43_200.0
+GLO_START_S = 24.0
+GLO_TB_TOD = GLO_FRAME_TOD + 900.0        # on tb's 15-minute grid
+# (a): L1 at 10 Msps holds slot -7's main lobe (-3.94 MHz +- 0.511)
+FS_G1 = 10_000_000.0
+GLO_DUR = 16.5
+# (b): L1 at 10 Msps on RF 0, L2 at 8 Msps on RF 1 (slot -7 at -3.06 MHz
+# on L2), 10.5 s: the TOW 8 s in, the pseudoranges over the last 2.5 s
+FS_G2 = 8_000_000.0
+GLO_MB_DUR = 10.5
+GLO_KERNELS = ("K1_block_correlate", "K1_K8b_K8a_block_step", "K9_epoch_chunk",
+               "K9_epoch_chunk_rectify", "K3_pcps_wipe", "K3_pcps_peak",
+               "K3b_pcps_wipe_per_channel", "K8a_block_prologue_bias",
+               "K1_K8b_K8a_block_step_bias", "K9_epoch_chunk_bias")
+GLO_MB_KERNELS = GLO_KERNELS
+
+GLO_CONF = """\
+GNSS-SDR.internal_fs_sps={fs:.0f}
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={capture}
+SignalSource.item_type=ibyte
+SignalSource.sampling_frequency={fs:.0f}
+Channels_1G.count=24
+Acquisition_1G.implementation=GLONASS_L1_CA_PCPS_Acquisition
+Tracking_1G.implementation=GLONASS_L1_CA_DLL_PLL_Tracking
+PVT.implementation=RTKLIB_PVT
+PVT.output_rate_ms=20
+"""
+
+
+def glonass_ephemeris(prn: int, k: int, i: int):
+    """Satellite i's broadcast state at tb (PZ-90; tests/test_gnav.py's
+    circular orbit, turned by i), tb a time of day."""
+    from gnss_sim_receiver_tpu_torch.nav import gnav
+    r = 25_508_000.0
+    v = np.sqrt(gnav._GM / r)
+    a = 0.4 * i
+    ca, sa = np.cos(a), np.sin(a)
+    return gnav.GlonassEphemeris(
+        prn=prn, freq_slot=k, tb_s=GLO_TB_TOD,
+        pos_m=(r * (0.6 * ca - 0.64 * sa), r * (0.6 * sa + 0.64 * ca),
+               r * 0.48),
+        vel_ms=(v * (-0.5 * ca - 0.1 * sa), v * (-0.5 * sa + 0.1 * ca),
+                v * 0.49),
+        acc_ms2=(1.9e-9, -2.4e-9, 0.9e-9), tau_n=-4.7e-5 + 1e-5 * i,
+        gamma_n=1.8e-12)
+
+
+def glonass_sky(signal: str = "1G"):
+    """The three satellites on `signal` ("1G" or "2G"): each slot's carrier
+    Doppler (the slot offset plus the physical Doppler scaled by the
+    carrier), the code Doppler the physical one, its GNAV strings from
+    GLO_START_S into a frame; and the broadcast ephemerides by PRN."""
+    from gnss_sim_receiver_tpu_torch.nav import gnav
+    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
+        SatelliteSignalParams
+    f0, df = (F_G1, DF_G1) if signal == "1G" else (F_G2, DF_G2)
+    sats, ephs = [], {}
+    for i, (prn, k, dop, delay) in enumerate(GLO_SATS):
+        eph = glonass_ephemeris(prn, k, i)
+        ephs[prn] = eph
+        sym = gnav.strings_for_ephemeris(eph, GLO_FRAME_TOD, n_repeats=2)
+        bits = (2 * sym[int(GLO_START_S * 100):] - 1).astype(np.int8)
+        f_c = f0 + k * df
+        phys = dop * f_c / (F_G1 + k * DF_G1)
+        sats.append(SatelliteSignalParams(
+            prn=prn, system="GLONASS", signal=signal, cn0_db_hz=GLO_CN0,
+            doppler_hz=k * df + phys, code_doppler_hz=phys,
+            carrier_ref_hz=f_c, delay_sec=delay, delay_chips=0.0,
+            nav_bits=bits))
+    return sats, ephs
+
+
+def glo_delay(prn: int, t):
+    """The true delay (s) of the sky's satellite on `prn`'s slot at receive
+    time t (s from the capture's start): delay0 - (code Doppler / carrier)
+    t."""
+    from gnss_sim_receiver_tpu_torch.constants import GLONASS_PRN_SLOT
+    k = GLONASS_PRN_SLOT[prn]
+    (dop, d0), = [(d, d0) for _, k_, d, d0 in GLO_SATS if k_ == k]
+    return d0 - dop / (F_G1 + k * DF_G1) * np.asarray(t)
+
+
+def glonass_mb_conf():
+    """(b)'s receiver: glonass_l1_chain at 10 Msps on RF 0 and
+    glonass_l2_chain at 8 Msps on RF 1, one chain of one channel per
+    satellite's slot on each band (L2 assist-gated on L1)."""
+    import dataclasses
+    from gnss_sim_receiver_tpu_torch.models.receiver import (
+        ReceiverConf, glonass_l1_chain, glonass_l2_chain)
+    l1 = [glonass_l1_chain(FS_G1, prns=(p,), freq_slot=k, n_channels=1)
+          for p, k, _, _ in GLO_SATS]
+    l2 = [dataclasses.replace(
+        glonass_l2_chain(FS_G2, prns=(p,), freq_slot=k, n_channels=1),
+        rf_channel_id=1) for p, k, _, _ in GLO_SATS]
+    return ReceiverConf(fs=FS_G1, gps_chain=False, rf_fs={1: FS_G2},
+                        chains=tuple(l1 + l2))
+
+
+def check_glonass_observables(run, epoch_prns, fs: float,
+                              label: str) -> None:
+    """The TOW of every valid channel at every observation epoch within
+    1 ms of the truth (the time of day the satellite sent at the tick),
+    and the pseudorange differences within 30 m of the planted delays';
+    `epoch_prns` each epoch's channel -> PRN map (logged_session)."""
+    worst_tow, worst_pr, n = 0.0, 0.0, 0
+    for ep, prns in zip(run.observation_epochs, epoch_prns):
+        t = ep.tick_sample / fs
+        chans = [c for c in range(len(ep.valid)) if ep.valid[c]]
+        for c in chans:
+            prn = prns[c]
+            truth = (GLO_FRAME_TOD + GLO_START_S + t - glo_delay(prn, t)) * 1e3
+            worst_tow = max(worst_tow, abs(ep.interp_tow_ms[c] - truth))
+            n += 1
+        for a in chans:
+            for b in chans:
+                pa, pb = prns[a], prns[b]
+                if pa < pb:
+                    want = 299_792_458.0 * (glo_delay(pa, t)
+                                            - glo_delay(pb, t))
+                    got = ep.pseudorange_m[a] - ep.pseudorange_m[b]
+                    worst_pr = max(worst_pr, abs(got - want))
+    print(f"  {label}: {n} valid observables; TOW within {worst_tow:.6f} ms "
+          f"of the truth, pseudorange differences within {worst_pr:.3f} m of "
+          "the planted delays'")
+    if n < 100 or worst_tow >= 1.0 or worst_pr >= MB_PR_TOL_M:
+        fail(f"{label}: {n} observables, TOW {worst_tow:.4f} ms, "
+             f"pseudorange differences {worst_pr:.3f} m")
+
+
+def glonass_path(root: str, wrappers, card: str) -> dict:
+    """Phase 17(a): GLONASS L1 C/A through the CLI, Channels_1G.count=24 (the
+    factory's 13 slot chains).  K6 makes the three satellites at 10 Msps
+    for GLO_DUR seconds, written as ibyte (launches counted apart); the
+    counters set to 0 just before run_cli(GLO_CONF) and read just after.
+    Checks: each satellite tracked on its own slot's chain and nothing
+    else tracked; the carrier Doppler within 3 Hz of the slot offset plus
+    the truth; three GNAV ephemerides, each with its RK4 state within 3 m
+    and its clock within 2e-9 s of the broadcast one at tb + 200 s; the
+    TOW within 1 ms of the truth and the pseudorange differences within
+    30 m of the planted delays'; no fix (three satellites, under
+    solve_pvt's four); the bias form of K8a, K1 with K8b and K8a, and the
+    chunk kernel launched; the real-time factor."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.constants import GLONASS_PRN_SLOT
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.config import FileConfiguration
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    path = os.path.join(root, "build", "glonass_scenario_10msps_v1.ibyte")
+    sats, ephs = glonass_sky()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = generate_baseband_device_resident(
+        sats, FS_G1, int(FS_G1 * GLO_DUR), noise=True, seed=171,
+        device="cuda")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_samples(path, x, "ibyte", scale=HYB_BYTE_SCALE)
+    del x
+    torch.cuda.empty_cache()
+    k6 = read_launches(wrappers, ("K6_device_generator",))[
+        "K6_device_generator"]
+    print(f"  K6 made and wrote {os.path.getsize(path) / 1e6:.0f} MB ibyte "
+          f"at {FS_G1 / 1e6:g} Msps in {time.perf_counter() - t0:.3f} s "
+          "(not timed)")
+    conf = os.path.join(root, "build", "chip_smoke_glonass.conf")
+    with open(conf, "w") as fh:
+        fh.write(GLO_CONF.format(capture=path, fs=FS_G1))
+    chains = receiver_conf_from_config(FileConfiguration(conf)).chains
+    slot_of = [c.freq_slot for c in chains for _ in range(c.n_channels)]
+    print(f"  {len(chains)} slot chains, slots "
+          f"{[c.freq_slot for c in chains]}, {len(slot_of)} channels")
+    if len(chains) != 13 or len(slot_of) != 24:
+        fail("the factory did not build the 13 slot chains of 24 channels")
+    shapes0 = shape_counts()
+    tb.block_correlate_close.fold_shapes.clear()
+    tb.block_prologue.shapes.clear()
+    trk.epoch_chunk.shapes.clear()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    log = {}
+    res = cli_session([f"--config_file={conf}"], log)
+    session = log["session"]
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, GLO_KERNELS)
+    os.remove(path)
+    run = res.run
+    if res.exit_code != 1 or run is None:
+        fail(f"the CLI returned {res.exit_code} (1: no fix, as three "
+             "satellites must give)")
+    # every satellite on its own slot's chain; the slots' other PRN (a
+    # slot's two satellites share code and carrier, the ICD's antipodal
+    # pairs) locks the same signal, in JAX alike (ROADMAP.md queue 3)
+    tracked = {p: slot_of[c] for c, (p, s) in enumerate(
+        zip(run.channel_prns, run.channel_states))
+        if s == ChannelState.TRACKING}
+    want = {p: k for p, k, _, _ in GLO_SATS}
+    slots = {k for k in want.values()}
+    print(f"  tracked PRN -> slot {tracked}; GNAV ephemerides "
+          f"{sorted(run.ephemerides)}")
+    if set(tracked.values()) != slots or any(
+            GLONASS_PRN_SLOT[p] != k for p, k in tracked.items()) \
+            or not set(want) <= set(tracked):
+        fail(f"tracked {tracked}, expected {want} on their slots alone")
+    last = run.observation_epochs[-50:]
+    dop_err = {}
+    for c, p in enumerate(run.channel_prns):
+        if p in tracked and all(ep.valid[c] for ep in last):
+            k = tracked[p]
+            (dop,) = [d for _, k_, d, _ in GLO_SATS if k_ == k]
+            dop_err[p] = float(np.mean([ep.carrier_doppler_hz[c]
+                                        for ep in last]) - (k * DF_G1 + dop))
+    print(f"  carrier Doppler less the slot offset and the truth, mean of "
+          f"the last 50 observation epochs (1 s): {dop_err} Hz")
+    if not set(want) <= set(dop_err) \
+            or max(abs(e) for e in dop_err.values()) >= 3.0:
+        fail(f"carrier Doppler errors {dop_err}")
+    worst = {}
+    for p in want:
+        got = run.ephemerides.get(("GLONASS", p))
+        if got is None:
+            fail(f"no GNAV ephemeris of PRN {p}")
+        pg, cg = got.sat_pos_clock(got.tb_s + 200.0)
+        pw, cw = ephs[p].sat_pos_clock(ephs[p].tb_s + 200.0)
+        worst[p] = (float(np.linalg.norm(np.asarray(pg) - np.asarray(pw))),
+                    abs(cg - cw), got.freq_slot, got.tb_s)
+    print(f"  GNAV ephemerides at tb + 200 s: (position m, clock s, slot, "
+          f"tb) {worst}")
+    if any(m >= 3.0 or c >= 2e-9 or k != want[p] or tb_ != GLO_TB_TOD
+           for p, (m, c, k, tb_) in worst.items()):
+        fail(f"GNAV ephemerides {worst}")
+    check_glonass_observables(run, session.epoch_prns, FS_G1, "(a)")
+    if run.solutions:
+        fail(f"{len(run.solutions)} fixes from three satellites")
+    wipe, peak = (a - b for a, b in zip(shape_counts(), shapes0))
+    n = int(FS_G1 * 1e-3)
+    cold = sum(v for s, v in wipe.items() if len(s) == 3 and s[1] == 41
+               and s[-1] == n)
+    cold_peak = sum(v for s, v in peak.items() if s[2] == 41 and s[-1] == n)
+    step2 = sum(v for s, v in wipe.items() if len(s) == 4 and s[-1] == n)
+    print(f"  the wipeoff by shape {dict(wipe)}, K3's peak {dict(peak)}; "
+          f"the bias form: K8a {launches['K8a_block_prologue_bias']}, K1 "
+          f"with K8b {launches['K1_K8b_block_correlate_close_bias']} (folds "
+          f"{launches['K1_K8b_K8a_block_step_bias']}), the chunk kernel "
+          f"{launches['K9_epoch_chunk_bias']}")
+    if not (cold and cold_peak == cold and step2):
+        fail(f"(a) did not search the slots' grids: {dict(wipe)}")
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}")
+    print(f"  wall {wall:.3f} s from file open to the end for {GLO_DUR:g} s "
+          f"of signal: real-time factor {GLO_DUR / wall:.3f} ({card})")
+    launches.update({"K6_device_generator": k6, "K6_device_generator_GLO": k6,
+                     "K3_pcps_wipe_GLO": cold, "K3_pcps_peak_GLO": cold_peak,
+                     "K3b_pcps_wipe_per_channel_GLO": step2})
+    return launches
+
+
+def glonass_mb_path(wrappers, card: str) -> dict:
+    """Phase 17(b): GLONASS L1 C/A on RF 0 at 10 Msps and L2 C/A on RF 1 at
+    8 Msps, the same three satellites, GLO_MB_DUR seconds made by K6 on the
+    card (launches counted apart), through attach_arrays + run_to_end from
+    a cold start (assisted_session: the counters set to 0 just before and
+    read just after).  Checks: every L2 search assisted, each centre within
+    50 Hz of the true L1 Doppler x 7/9 (the slot offsets scale alike); each
+    satellite tracked on both bands; |PR_L2 - PR_L1| < 30 m per PRN; the
+    TOW and the pseudorange differences as (a)'s; no fix."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    l1, _ = glonass_sky("1G")
+    l2, _ = glonass_sky("2G")
+    reset(wrappers)
+    x1 = generate_baseband_device_resident(
+        l1, FS_G1, int(FS_G1 * GLO_MB_DUR), noise=True, seed=172,
+        device="cuda")
+    x2 = generate_baseband_device_resident(
+        l2, FS_G2, int(FS_G2 * GLO_MB_DUR), noise=True, seed=173,
+        device="cuda")
+    torch.cuda.synchronize()
+    k6 = read_launches(wrappers, ("K6_device_generator",))[
+        "K6_device_generator"]
+    conf = glonass_mb_conf()
+    session, run, launches, windows, wall, wipe, peak = assisted_session(
+        wrappers, conf, {0: x1, 1: x2}, {}, GLO_MB_KERNELS, FS_G2)
+    del x1, x2
+    torch.cuda.empty_cache()
+    n1 = len(GLO_SATS)
+    states = list(zip(run.channel_prns, run.channel_states))
+    l1_trk, l2_trk = [sorted(p for p, s in part if s == ChannelState.TRACKING)
+                      for part in (states[:n1], states[n1:])]
+    want = sorted(p for p, _, _, _ in GLO_SATS)
+    print(f"  L1 tracks {l1_trk}, L2 tracks {l2_trk}")
+    if l1_trk != want or l2_trk != want:
+        fail(f"tracked L1 {l1_trk}, L2 {l2_trk}: expected {want}")
+    check_assisted_centres(session, windows, l1, 7.0 / 9.0, "2G", l2_trk,
+                           primary="1G")
+    diffs = band_pr_diffs(run, session.epoch_prns, n1)
+    worst_pr = {p: float(np.abs(d).max()) for p, d in diffs.items()}
+    print(f"  max |PR_L2 - PR_L1| by PRN {worst_pr} m")
+    if sorted(diffs) != want or max(worst_pr.values()) >= MB_PR_TOL_M:
+        fail(f"L2 against L1 pseudoranges {worst_pr}")
+    check_glonass_observables(run, session.epoch_prns, FS_G1, "(b)")
+    if run.solutions:
+        fail(f"{len(run.solutions)} fixes from three satellites")
+    n2 = int(FS_G2 * 1e-3)
+    k3b = sum(v for s, v in wipe.items() if len(s) == 4 and s[-1] == n2)
+    k3 = sum(v for s, v in peak.items() if s[2] == 9 and s[-1] == n2)
+    print(f"  L2's assisted searches: K3b {k3b} launches at N={n2}, K3's "
+          f"peak {k3}")
+    if not (k3b and k3 == k3b):
+        fail("(b) did not run L2's assisted searches on K3b")
+    print(f"  wall {wall:.3f} s for {GLO_MB_DUR:g} s of two RF streams: "
+          f"real-time factor {GLO_MB_DUR / wall:.3f} ({card})")
+    launches["K6_device_generator"] = k6
+    return launches
+
+
+def check_e6_glonass_shapes(dev, card: str, rows: list, extra: list) -> None:
+    """Phase 3 at phases 16's and 17's new shapes, each against its plain
+    version with its kernel's tolerance (the wipeoff also bit for bit its
+    Triton reference and the searches after it, wipe_case); rows named
+    with _bias, _E6 and _GLO go to `rows`, the others to `extra`:
+    - the FDMA bias form (a per-chain float off the Doppler in K8a's code
+      stretch, K8b's code rate and K9's): K8a, K8b and K1 with both at
+      slot -7's and +6's offsets (GLONASS L1 at 10 Msps, C=2, E=20) and
+      at slot -7 on L2 at 8 Msps; the two-launch chunk at slot -7; K9 and
+      the chunk kernel (with the rectified lock test, as the GLONASS
+      chains run it) at both slots from the edge states (C=8);
+    - the cold GLONASS searches centred at -3.9375 and +3.375 MHz (M=2,
+      C=2, D=41, N=10000) and step two's K3b; (b)'s assisted L2 search at
+      8 Msps (K3b and K3's peak, D2=9, N=8000);
+    - E6: the cold search at 12.5 Msps (M=2, C=5, D=41, N=12500), step
+      two's and the assisted search's K3b and K3's peak; K8a, K8b and K1
+      at E6's E = 20 (C=5), the chunk kernel's rectify form at 12500
+      samples an epoch (C=8); E1-B at 12.5 Msps: its cold search (M=2,
+      D=81, N=50000) and step two, K8a, K8b and K1 (C=5, E=5) and the
+      chunk kernel (C=8);
+    - K6 on (a)'s two skies (16: E1 + E6 at 12.5 Msps, 17: GLONASS L1 at
+      10 Msps) and on 17(b)'s L2 sky at 8 Msps."""
+    import torch
+    from gnss_sim_receiver_tpu_torch import signals
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.models.receiver import (
+        glonass_l1_chain, glonass_l2_chain)
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    rng = np.random.default_rng(16)
+    k8 = ("K8a_block_prologue", "K8b_block_closure",
+          "K1_K8b_block_correlate_close", "K1_K8b_K8a_block_step")
+    taps = (0.25, 0.0, -0.25)
+    glo = signals.CodeProvider("1G")
+    # ---- the bias form ----------------------------------------------------
+    for k, prns, dest in ((-7, (10, 14), rows), (6, (4, 8), extra)):
+        chain = glonass_l1_chain(FS_G1, prns=prns, freq_slot=k)
+        lab = (f"GLONASS L1 slot {k:+d} at {FS_G1 / 1e6:g} Msps, bias "
+               f"{chain.trk.doppler_bias_hz:g} Hz")
+        got = check_k8(dev, rng, chain.trk, 2, taps, glo, 1000,
+                       tuple(n + "_bias" for n in k8), lab)
+        if dest is rows:
+            rows += [got[0], got[3]]
+            extra += got[1:3]
+            extra.append(check_block_chunk_bits(dev, rng, chain.trk, 2,
+                                                taps, glo, lab))
+        else:
+            extra += got
+        extra.append(check_k9(dev, rng, chain.trk, 8,
+                              "K9_epoch_closure_bias", lab))
+        row = check_epoch_chunk_bits(dev, rng, chain.trk, 8,
+                                     "K9_epoch_chunk_bias", lab, 1000,
+                                     chain=chain)
+        dest.append(row)
+        torch.cuda.empty_cache()
+    l2 = glonass_l2_chain(FS_G2, prns=(10, 14), freq_slot=-7)
+    extra += check_k8(dev, rng, l2.trk, 1, taps, glo, 1000,
+                      tuple(n + "_bias" for n in k8),
+                      f"GLONASS L2 slot -7 at {FS_G2 / 1e6:g} Msps, bias "
+                      f"{l2.trk.doppler_bias_hz:g} Hz")
+    torch.cuda.empty_cache()
+    # ---- the GLONASS searches ---------------------------------------------
+    g_sats, _ = glonass_sky()
+    for k, prns, name in ((-7, (10, 14), "_GLO"), (6, (4, 8), None)):
+        chain = glonass_l1_chain(FS_G1, prns=prns, freq_slot=k)
+        eng = PcpsAcquisitionEngine(chain.acq, prns,
+                                    code_provider=chain.code_provider,
+                                    sc_rate=chain.sc_rate, device=dev)
+        x = search_dwells(g_sats, FS_G1, eng, 170 + k, dev)
+        cfc, m = eng.code_fft_conj, x.shape[0]
+        label = (f"17(a)'s cold search of slot {k:+d} at "
+                 f"{FS_G1 / 1e6:g} Msps, centred at "
+                 f"{chain.acq.doppler_center:g} Hz")
+        row = wipe_case(x, eng.dopplers, eng._t, label, k3_search(cfc, m), 3)
+        if name:
+            row["name"] = "K3_pcps_wipe" + name
+            rows.append(row)
+        else:
+            extra.append(row)
+        peak_case(rows, extra, x, eng.dopplers, eng._t, cfc, label,
+                  name and "K3_pcps_peak" + name)
+        table = narrow_table(eng)
+        label2 = label.replace("cold search", "step two")
+        row = wipe_case(x, table, eng._t, label2, k3_search(cfc, m), 3)
+        if name:
+            row["name"] = "K3b_pcps_wipe_per_channel" + name
+            rows.append(row)
+        else:
+            extra.append(row)
+        peak_case(rows, extra, x, table, eng._t, cfc, label2)
+        del x
+        torch.cuda.empty_cache()
+    l2_sats, _ = glonass_sky("2G")
+    eng = PcpsAcquisitionEngine(l2.acq, (10, 11, 4),
+                                code_provider=l2.code_provider,
+                                sc_rate=l2.sc_rate, device=dev)
+    x = search_dwells(l2_sats, FS_G2, eng, 174, dev)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    table = narrow_table(eng, 62.5)
+    label = f"17(b)'s assisted L2 search at {FS_G2 / 1e6:g} Msps"
+    extra.append(wipe_case(x, table, eng._t, label, k3_search(cfc, m), 3))
+    peak_case(rows, extra, x, table, eng._t, cfc, label)
+    del x
+    torch.cuda.empty_cache()
+    # ---- E6 and E1 at 12.5 Msps -------------------------------------------
+    e1_sats, e6_sats = e6_sky(E6_DUR)
+    e6 = e6_chain()
+    eng = PcpsAcquisitionEngine(e6.acq, E6_PRNS,
+                                code_provider=e6.code_provider,
+                                sc_rate=e6.sc_rate, device=dev)
+    x = search_dwells(e6_sats, FS_E6, eng, 163, dev)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    label = (f"16(b)'s cold E6 search at {FS_E6 / 1e6:g} Msps (the doubled "
+             "FFT)")
+    row = wipe_case(x, eng.dopplers, eng._t, label, k3_search(cfc, m), 3)
+    row["name"] = "K3_pcps_wipe_E6"
+    rows.append(row)
+    peak_case(rows, extra, x, eng.dopplers, eng._t, cfc, label,
+              "K3_pcps_peak_E6")
+    for table, lab, wipe_name, peak_name in (
+            (narrow_table(eng), "16(b)'s E6 step two",
+             "K3b_pcps_wipe_per_channel_E6", None),
+            (narrow_table(eng, 62.5), "16(a)'s assisted E6 search", None,
+             "K3_pcps_peak_assisted_E6")):
+        lab = f"{lab} at {FS_E6 / 1e6:g} Msps"
+        row = wipe_case(x, table, eng._t, lab, k3_search(cfc, m), 3)
+        if wipe_name:
+            row["name"] = wipe_name
+            rows.append(row)
+        else:
+            extra.append(row)
+        peak_case(rows, extra, x, table, eng._t, cfc, lab, peak_name)
+    del x
+    torch.cuda.empty_cache()
+    e1 = receiver_conf_from_config(InMemoryConfiguration(conf_properties(
+        E6_CONF.format(capture="absent.ibyte", fs=FS_E6)))).chains[0]
+    eng = PcpsAcquisitionEngine(e1.acq, E6_PRNS,
+                                code_provider=e1.code_provider,
+                                sc_rate=e1.sc_rate, device=dev)
+    x = search_dwells(e1_sats, FS_E6, eng, 164, dev)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    label = f"16(a)'s cold E1-B search at {FS_E6 / 1e6:g} Msps"
+    for table, lab in ((eng.dopplers, label),
+                       (narrow_table(eng), label + ", step two")):
+        extra.append(wipe_case(x, table, eng._t, lab, k3_search(cfc, m), 3))
+        peak_case(rows, extra, x, table, eng._t, cfc, lab)
+    del x
+    torch.cuda.empty_cache()
+    lab6 = f"Galileo E6-B at {FS_E6 / 1e6:g} Msps, rectified lock"
+    got = check_k8(dev, rng, e6.trk, E6_CHANNELS, taps, e6.code_provider,
+                   1000, tuple(n + "_E6" for n in k8), lab6)
+    rows += [got[0], got[3]]
+    extra += got[1:3]
+    torch.cuda.empty_cache()
+    rows.append(check_epoch_chunk_bits(dev, rng, e6.trk, 8,
+                                       "K9_epoch_chunk_E6", lab6, 1000,
+                                       chain=e6))
+    torch.cuda.empty_cache()
+    lab1 = f"Galileo E1-B at {FS_E6 / 1e6:g} Msps"
+    extra += check_k8(dev, rng, e1.trk, E6_CHANNELS, conf_taps(e1.trk),
+                      e1.code_provider, 250, k8, lab1)
+    torch.cuda.empty_cache()
+    extra.append(check_epoch_chunk_bits(dev, rng, e1.trk, 8,
+                                        "K9_epoch_chunk", lab1, 250,
+                                        chain=e1))
+    torch.cuda.empty_cache()
+    # ---- K6 on the new skies ----------------------------------------------
+    for fs, sats, dur, seed, name, lab in (
+            (FS_E6, e1_sats + e6_sats, E6_DUR, 161, "K6_device_generator_E6",
+             f"16(a)'s E1 + E6 sky at {FS_E6 / 1e6:g} Msps"),
+            (FS_G1, g_sats, GLO_DUR, 171, "K6_device_generator_GLO",
+             f"17(a)'s GLONASS L1 sky at {FS_G1 / 1e6:g} Msps"),
+            (FS_G2, l2_sats, GLO_MB_DUR, 173, None,
+             f"17(b)'s GLONASS L2 sky at {FS_G2 / 1e6:g} Msps")):
+        row = check_k6(dev, fs, sats, dur, seed, lab)
+        if name is None:
+            extra.append(row)
+        else:
+            row["name"] = name
+            rows.append(row)
+        torch.cuda.empty_cache()
+
+
 def profile_path(run) -> None:
     """`--profile`: `run()` (one run of a path, returning a line to print)
     twice more, plain and under torch.profiler: wall time, device busy
@@ -7962,7 +9123,7 @@ def main() -> int:
 
 
 def run_phases(root: str, card: str, procs: dict) -> int:
-    """Phases 2 to 15 and the result lines; `procs` are the synthesis
+    """Phases 2 to 17 and the result lines; `procs` are the synthesis
     children (none with --kernels-only)."""
     import torch
     from gnss_sim_receiver_tpu_torch import signals
@@ -8184,6 +9345,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     check_wipe_path_shapes(dev, extra)
     check_l2c_e5b_shapes(dev, card, rows, extra)
     check_beidou_shapes(dev, card, rows, extra)
+    check_e6_glonass_shapes(dev, card, rows, extra)
     rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
              *check_k5d(dev, rng)]
     torch.cuda.empty_cache()
@@ -8394,7 +9556,46 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                  "K1_K8b_K8a_block_step_B3I", "K9_epoch_chunk_B3I"):
         launches[name] = bds13[name]
     launches["K9_epoch_chunk_rectify"] = geo["K9_epoch_chunk_rectify"]
-    # K6's launches: the captures of phases 5, 6, 7, 8, 10, 11, 14 and 15
+    t16 = time.perf_counter()
+    print("== phase 16(a): Galileo E1-B + E6-B through the CLI (device "
+          f"generator -> {E6_DUR:g} s ibyte file at {FS_E6 / 1e6:g} Msps -> "
+          "5 + 5 channels, E6 assisted, C/NAV pages of a HAS message from "
+          "five satellites -> Reed-Solomon -> HAS; E6 TOW from E1's -> "
+          "dual-band position)", flush=True)
+    e6a = e6_path(root, wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"== phase 16(b): E6-B alone, {E6_ALONE_DUR:g} s at "
+          f"{FS_E6 / 1e6:g} Msps through the receiver (cold search, HAS; "
+          "no TOW publisher)", flush=True)
+    e6b = e6_alone_path(wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
+    t17 = time.perf_counter()
+    print("== phase 17(a): GLONASS L1 C/A through the CLI (device generator "
+          f"-> {GLO_DUR:g} s ibyte file at {FS_G1 / 1e6:g} Msps -> "
+          "Channels_1G.count=24: 13 slot chains, three satellites on slots "
+          "-7, 0, +6 -> GNAV -> TOW, ephemerides; no fix)", flush=True)
+    g1 = glonass_path(root, wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"== phase 17(b): GLONASS L1 at {FS_G1 / 1e6:g} Msps on RF 0 + L2 "
+          f"at {FS_G2 / 1e6:g} Msps on RF 1 (attach_arrays, L2 assisted)",
+          flush=True)
+    g12 = glonass_mb_path(wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
+    for name in ("K6_device_generator_E6", "K3b_pcps_wipe_per_channel_E6",
+                 "K3_pcps_peak_assisted_E6", "K8a_block_prologue_E6",
+                 "K1_K8b_K8a_block_step_E6", "K9_epoch_chunk_E6"):
+        launches[name] = e6a[name] + e6b.get(name, 0)
+    for name in ("K3_pcps_wipe_E6", "K3_pcps_peak_E6"):
+        launches[name] = e6b[name]
+    for name in ("K6_device_generator_GLO", "K3_pcps_wipe_GLO",
+                 "K3_pcps_peak_GLO", "K3b_pcps_wipe_per_channel_GLO"):
+        launches[name] = g1[name]
+    for name in ("K8a_block_prologue_bias", "K1_K8b_K8a_block_step_bias",
+                 "K9_epoch_chunk_bias"):
+        launches[name] = g1[name] + g12[name]
+    # K6's launches: the captures of phases 5, 6, 7, 8, 10, 11 and 14 to 17
     launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
                                        + k6_wb + pilot["K6_device_generator"]
                                        + ps["K6_device_generator"]
@@ -8404,12 +9605,16 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                                        + e5b["K6_device_generator"]
                                        + bds1["K6_device_generator"]
                                        + bds13["K6_device_generator"]
-                                       + geo["K6_device_generator"])
+                                       + geo["K6_device_generator"]
+                                       + e6a["K6_device_generator"]
+                                       + e6b["K6_device_generator"]
+                                       + g1["K6_device_generator"]
+                                       + g12["K6_device_generator"])
     for r in rows:
         r["launches"] = launches[r["name"]]
 
     wipe_shapes = dict(pcps.pcps_wipe.shapes)
-    print(f"  the wipeoff's launches in phases 4 to 15 by (M, Doppler table, "
+    print(f"  the wipeoff's launches in phases 4 to 17 by (M, Doppler table, "
           f"N): {wipe_shapes}")
     missing = sorted({wipe_key(k) for k in wipe_shapes} - WIPE_CHECKED)
     if missing:

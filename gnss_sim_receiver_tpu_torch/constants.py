@@ -2,8 +2,9 @@
 
 Mirrors the per-system constant headers of the reference
 (``src/core/system_parameters/GPS_L1_CA.h`` etc.) with only the values the
-GPS L1 C/A, GPS L2C, GPS L5, Galileo E1, Galileo E5a, Galileo E5b, BeiDou
-B1I and BeiDou B3I chains of the PyTorch port need.  All values are public
+GPS L1 C/A, GPS L2C, GPS L5, Galileo E1, Galileo E5a, Galileo E5b, Galileo
+E6-B, GLONASS L1/L2 C/A, BeiDou B1I and BeiDou B3I chains of the PyTorch
+port need.  All values are public
 ICD constants.
 """
 
@@ -54,6 +55,27 @@ GALILEO_E5B_CODE_RATE_CPS = 10.23e6
 GALILEO_E5B_CODE_LENGTH_CHIPS = 10230
 # E5b-I secondary code CS4 (same for all SVs, ICD table 37: '1110')
 GALILEO_E5B_I_SECONDARY_CODE = (1, 1, 1, 0)
+
+# --- Galileo E6 (B/C, HAS) ---------------------------------------------------
+# reference: Galileo_E6.h:30-45 (E6-B/C Codes Technical Note Issue 1, 2019)
+GALILEO_E6_FREQ_HZ = 1_278.75e6
+GALILEO_E6_CODE_RATE_CPS = 5.115e6
+GALILEO_E6_CODE_LENGTH_CHIPS = 5115
+
+# --- GLONASS L1 (FDMA) ------------------------------------------------------
+GLONASS_L1_FREQ_HZ = 1_602.0e6
+GLONASS_L1_DFREQ_HZ = 0.5625e6   # frequency-slot spacing (DFRQ1_GLO)
+GLONASS_L2_FREQ_HZ = 1_246.0e6
+GLONASS_L2_DFREQ_HZ = 0.4375e6   # L2 slot spacing (DFRQ2_GLO)
+GLONASS_CA_CODE_RATE_CPS = 0.511e6
+GLONASS_CA_CODE_LENGTH_CHIPS = 511
+# orbital-slot PRN -> frequency-channel number k (public GLONASS almanac
+# assignment; reference table GLONASS_L1_L2_CA.h:134 GLONASS_PRN)
+GLONASS_PRN_SLOT = {
+    1: 1, 2: -4, 3: 5, 4: 6, 5: 1, 6: -4, 7: 5, 8: 6,
+    9: -2, 10: -7, 11: 0, 12: -1, 13: -2, 14: -7, 15: 0, 16: -1,
+    17: 4, 18: -3, 19: 3, 20: -5, 21: 4, 22: -3, 23: 3, 24: 2,
+}
 
 # --- BeiDou B1I -------------------------------------------------------------
 BEIDOU_B1I_FREQ_HZ = 1_561.098e6

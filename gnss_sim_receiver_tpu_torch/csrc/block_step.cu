@@ -201,7 +201,9 @@ __device__ __forceinline__ void prologue_vectors(const PrologueArgs& a, int c,
   const int pos = s.pos;
   int w0 = floor_div(pos, a.s0);
   w0 = w0 < 0 ? 0 : (w0 > a.w_max ? a.w_max : w0);
-  const float stretch = __fmul_rn(__fmul_rn(a.l_chips, dop), a.inv_fc);
+  // the FDMA bias rides in the Doppler but not in the code
+  const float stretch = __fmul_rn(
+      __fmul_rn(a.l_chips, __fsub_rn(dop, a.dop_bias)), a.inv_fc);
   const float half_stretch =                                  // samples
       __fmul_rn(__fdiv_rn(__fmul_rn(0.5f, stretch), rate), a.fs);
   if (tid < n_e) {
@@ -597,7 +599,8 @@ __device__ __forceinline__ void block_close(const ClosureArgs& a, int c,
   }
   const float code_freq_new = __fadd_rn(
       __fmul_rn(a.code_rate,
-                __fadd_rn(1.0f, __fmul_rn(doppler_new, a.inv_fc))),
+                __fadd_rn(1.0f, __fmul_rn(__fsub_rn(doppler_new, a.dop_bias),
+                                          a.inv_fc))),
       dll_out);
 
   // ---- lock / C/N0 over the block ----------------------------------------

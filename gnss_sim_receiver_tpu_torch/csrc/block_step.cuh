@@ -74,6 +74,8 @@ struct PrologueArgs {
   float inv_fs;                         // float(1 / float(fs))
   float two_pi;                         // float32(2 pi)
   float inv_fc;                         // float(1 / float(carrier_freq_hz))
+  float dop_bias;                       // FDMA bias, Hz, off the stretch
+                                        // (0 but on GLONASS: dop - 0 exact)
   float lead;                           // window lead, samples
   int32_t s0;                           // nominal epoch samples
   int32_t n_epochs;
@@ -125,6 +127,7 @@ struct ClosureArgs {
   float max_lock_fail;
   float code_rate;
   float inv_fc;
+  float dop_bias;                       // FDMA bias, Hz, off the code rate
   float bit_sync_min;
   int32_t s0;
   int32_t n_epochs;

@@ -266,9 +266,10 @@ __device__ __forceinline__ float kf_step(const EpochArgs& a, int lane,
   return pn;
 }
 
-// code_rate_from_doppler: the carrier-aided code rate
+// code_rate_from_doppler: the carrier-aided code rate, the FDMA bias off
+// the Doppler first
 __device__ __forceinline__ float aided_rate(const EpochArgs& a, float dop) {
-  return a.code_rate * (1.0f + dop * a.inv_fc);
+  return a.code_rate * (1.0f + __fsub_rn(dop, a.dop_bias) * a.inv_fc);
 }
 
 }  // namespace

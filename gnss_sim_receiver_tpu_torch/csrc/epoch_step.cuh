@@ -108,6 +108,8 @@ struct EpochArgs {
   float max_lock_fail;
   float code_rate;
   float inv_fc;                         // float(1 / float(carrier_freq_hz))
+  float dop_bias;                       // FDMA bias, Hz, off the code rate
+                                        // (0 but on GLONASS: dop - 0 exact)
   float bit_sync_min;
   float sec_thresh;                     // float32(n_sec) - 0.5
   float pll2_k2;                        // wn^2, 1.414213562 wn (wide PLL,

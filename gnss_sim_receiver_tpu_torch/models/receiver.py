@@ -1,8 +1,9 @@
 """Receiver orchestration, PyTorch port of
 ``gnss_sim_receiver_tpu.models.receiver`` for the GPS L1 C/A ("1C"),
 Galileo E1-B ("1B"), GPS L2C CM ("2S"), GPS L5I ("L5"), Galileo E5a-I
-("5X"), Galileo E5b-I ("7X"), BeiDou B1I ("B1") and BeiDou B3I ("B3")
-signal chains, the batch entry point and the live session.
+("5X"), Galileo E5b-I ("7X"), Galileo E6-B ("E6"), GLONASS L1 and L2 C/A
+("1G", "2G", one chain per FDMA slot), BeiDou B1I ("B1") and BeiDou B3I
+("B3") signal chains, the batch entry point and the live session.
 
 The receiver runs one *signal chain* per configured signal — the
 reference's per-signal channel groups (Channels_1C.count /
@@ -56,8 +57,10 @@ from gnss_sim_receiver_tpu_torch.models.observables import (
     ObsConf, ObservablesEngine)
 from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf, solve_pvt
 from gnss_sim_receiver_tpu_torch.models.telemetry import (
-    BeidouB1iTelemetryDecoder, GalileoE1bTelemetryDecoder, GalileoE5aTelemetryDecoder,
-    GalileoE5bTelemetryDecoder, GpsCnavTelemetryDecoder, TelemetryDecoder)
+    BeidouB1iTelemetryDecoder, GalileoE1bTelemetryDecoder,
+    GalileoE5aTelemetryDecoder, GalileoE5bTelemetryDecoder,
+    GalileoE6bTelemetryDecoder, GalileoTowMap, GlonassTelemetryDecoder,
+    GpsCnavTelemetryDecoder, TelemetryDecoder)
 from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
                                                          TrackingEngine)
 from gnss_sim_receiver_tpu_torch.nav.ephemeris import (adj_gps_week,
@@ -69,7 +72,8 @@ from gnss_sim_receiver_tpu_torch.utils import geodesy
 class SignalChainConf:
     """One per-signal channel group (the reference's Channels_<sig> block +
     its Acquisition_<sig>/Tracking_<sig> engine parameters)."""
-    # "1C" | "1B" | "2S" | "L5" | "5X" | "7X" | "B1" | "B3"
+    # "1C" | "1B" | "2S" | "L5" | "5X" | "7X" | "E6" | "1G" | "2G" | "B1"
+    # | "B3"
     signal: str = "1C"
     system: str = "GPS"
     prns: tuple = tuple(range(1, 33))
@@ -95,6 +99,8 @@ class SignalChainConf:
     # samples; tracking stays at the full rate, delays rescale,
     # pcps_acquisition.cc:683-696).  1 = off.
     acq_decim: int = 1
+    freq_slot: int = 0                 # GLONASS FDMA slot k ("1G", "2G")
+    day_base_s: float = 0.0            # GLONASS day base for tk anchoring
     # secondary-band behavior: when another chain of the same system on
     # another carrier exists, each PRN's acquisition waits until that band
     # has locked it and then searches a Doppler-projected narrow grid in
@@ -116,6 +122,12 @@ class SignalChainConf:
         if self.signal in ("B1", "B3"):
             # B3I carries the same D1 NAV / NH20 structure as B1I
             return BeidouB1iTelemetryDecoder(prns)
+        if self.signal in ("1G", "2G"):
+            return GlonassTelemetryDecoder(
+                prns, freq_slots={p: self.freq_slot for p in self.prns},
+                day_base_s=self.day_base_s)
+        if self.signal == "E6":
+            return GalileoE6bTelemetryDecoder(prns)
         raise NotImplementedError(f"signal chain {self.signal} is not ported")
 
 
@@ -286,6 +298,98 @@ def beidou_b3i_chain(fs: float, prns=tuple(range(6, 31)), n_channels=4,
                          trk_overrides)
 
 
+def galileo_e6b_chain(fs: float, prns=tuple(range(1, 37)), n_channels=4,
+                      **trk_overrides) -> SignalChainConf:
+    """Galileo E6-B (HAS) chain: 5.115 Mcps memory codes, 1 ms epochs, one
+    1000-sps C/NAV symbol per epoch (the reference's
+    Galileo_E6_PCPS_Acquisition / Galileo_E6_DLL_PLL_Tracking /
+    Galileo_E6 telemetry blocks, gnss_block_factory.cc:1012,1150;
+    receiver.py:294-323).  Beside another Galileo band it acquires each
+    PRN around that band's Doppler (assist_wait) and stamps TOW from the
+    TOW that band publishes."""
+    sig = signals.GALILEO_E6B
+    trk_kw = dict(
+        fs=fs, code_rate_cps=sig.chip_rate_cps,
+        code_length_chips=sig.code_length_chips,
+        carrier_freq_hz=sig.carrier_freq_hz,
+        early_late_space_chips=0.5, pll_bw_hz=50.0,
+        enable_fll_pullin=True, fll_decision_directed=True,
+        # E6-B is a data component with one symbol per epoch: the coherent
+        # NBD/NBP lock test zero-means over any window; the rectified
+        # detector takes its place (the reference tracks the E6-C pilot)
+        lock_rectify=True,
+        fll_pullin_epochs=100)
+    trk_kw.update(trk_overrides)
+    return SignalChainConf(
+        assist_wait=True,
+        signal="E6", system="Galileo", prns=tuple(prns),
+        n_channels=n_channels, max_acq_channels=n_channels,
+        acq=AcqConf(fs_in=fs, sampled_ms=1, doppler_max=5000.0,
+                    doppler_step=250.0, max_dwells=2,
+                    make_two_steps=True, doppler_step2=62.5),
+        trk=TrackingConf(**trk_kw),
+        code_provider=signals.CodeProvider("E6"),
+        sc_rate=sig.chip_rate_cps)
+
+
+def _glonass_chain(sig, dfreq: float, fs: float, prns, freq_slot: int,
+                   n_channels: int | None, day_base_s: float,
+                   assist_wait: bool, trk_overrides) -> SignalChainConf:
+    """A GLONASS C/A chain for ONE frequency slot (FDMA: satellites on
+    slot k acquire around doppler_center = k * dfreq and track on the
+    offset carrier, the offset taken off the code rate as the FDMA
+    bias; one chain per occupied slot, the reference's per-PRN
+    d_doppler_bias, pcps_acquisition.cc:211-230; receiver.py:354-427).
+    FLL pull-in stays on (10 ms symbols corrupt only 1 in 10 FLL pairs)
+    and the rectified lock test handles the zero-mean meander data."""
+    prns = tuple(prns)
+    trk_kw = dict(
+        fs=fs, code_rate_cps=sig.chip_rate_cps,
+        code_length_chips=sig.code_length_chips,
+        carrier_freq_hz=sig.carrier_freq_hz + freq_slot * dfreq,
+        doppler_bias_hz=freq_slot * dfreq,
+        early_late_space_chips=0.5, lock_rectify=True,
+        # a 400-epoch FLL blend: the meander's 100 Hz data lines sit inside
+        # the Costas capture range, and a short FLL hand-over can leave a
+        # ~100 Hz residual that false-locks onto a line
+        enable_fll_pullin=True, fll_pullin_epochs=400)
+    trk_kw.update(trk_overrides)
+    return SignalChainConf(
+        assist_wait=assist_wait,
+        signal=sig.signal, system="GLONASS", prns=prns,
+        n_channels=n_channels or len(prns),
+        max_acq_channels=n_channels or len(prns),
+        acq=AcqConf(fs_in=fs, sampled_ms=1, doppler_max=5000.0,
+                    doppler_step=250.0, doppler_center=freq_slot * dfreq,
+                    max_dwells=2, make_two_steps=True, doppler_step2=62.5),
+        trk=TrackingConf(**trk_kw),
+        code_provider=signals.CodeProvider(sig.signal),
+        sc_rate=sig.chip_rate_cps,
+        freq_slot=freq_slot, day_base_s=day_base_s)
+
+
+def glonass_l1_chain(fs: float, prns, freq_slot: int = 0,
+                     n_channels: int | None = None, day_base_s: float = 0.0,
+                     **trk_overrides) -> SignalChainConf:
+    """GLONASS L1 C/A chain of one frequency slot (the carrier at
+    1602 MHz + k * 562.5 kHz)."""
+    return _glonass_chain(signals.GLONASS_L1_CA,
+                          constants.GLONASS_L1_DFREQ_HZ, fs, prns, freq_slot,
+                          n_channels, day_base_s, False, trk_overrides)
+
+
+def glonass_l2_chain(fs: float, prns, freq_slot: int = 0,
+                     n_channels: int | None = None, day_base_s: float = 0.0,
+                     **trk_overrides) -> SignalChainConf:
+    """GLONASS L2 C/A chain ("2G") of one frequency slot: the same 511-chip
+    code and GNAV stream on 1246 MHz + k * 437.5 kHz (the reference's
+    GLONASS_L2_CA blocks); assist_wait lets an L1 lock project the
+    Doppler by the 7/9 carrier ratio."""
+    return _glonass_chain(signals.GLONASS_L2_CA,
+                          constants.GLONASS_L2_DFREQ_HZ, fs, prns, freq_slot,
+                          n_channels, day_base_s, True, trk_overrides)
+
+
 @dataclasses.dataclass
 class ReceiverConf:
     fs: float = 2_000_000.0
@@ -375,6 +479,8 @@ class ReceiverRun:
     # there is one signal
     track_outputs: dict | None = None
     channel_systems: list = ()  # constellation per channel
+    # decoded Galileo HAS messages (nav.has.HasData), E6-B chains only
+    has_messages: list = dataclasses.field(default_factory=list)
     # hybrid-mode AOWR products: [(clock_diff_s, est_tx_tow_s)] per fix
     clock_differences: list = dataclasses.field(default_factory=list)
     # rx clock sharing records: [(rx_time_s, tag_tow_s, bias_s, prn)]
@@ -414,6 +520,26 @@ class _ChainRt:
 
     def eph_key(self, prn: int):
         return prn if self.spec.system == "GPS" else (self.spec.system, prn)
+
+
+def _expand_sc(sc_dec: np.ndarray, rows: np.ndarray, n_epochs: int,
+               nominal: int) -> np.ndarray:
+    """Reconstruct the per-epoch sample counter [T, C] from the decimated
+    one [Td, C]: linear interpolation over the epoch index (the counter
+    drifts from linear only by the Doppler rate, ~1e-7 samples over a
+    tick)."""
+    t = np.arange(n_epochs, dtype=np.float64)
+    out = np.empty((n_epochs, sc_dec.shape[1]), np.float64)
+    for c in range(sc_dec.shape[1]):
+        out[:, c] = np.interp(t, rows.astype(np.float64),
+                              sc_dec[:, c].astype(np.float64))
+    # extrapolate the ends with the nominal epoch length
+    first, last = rows[0], rows[-1]
+    if first > 0:
+        out[:first] = out[first] - (first - t[:first, None]) * nominal
+    if last < n_epochs - 1:
+        out[last + 1:] = out[last] + (t[last + 1:, None] - last) * nominal
+    return out
 
 
 def _channel_maps(chains, n_total):
@@ -483,6 +609,16 @@ class ReceiverSession:
             chains[-1].trk.full_outputs = self.collect
         self.chains = chains
         self.n_total = n_total
+        # cross-band Galileo TOW sharing: E6-B C/NAV is timeless, its
+        # channels stamp the TOW the other Galileo bands publish
+        # (galileo_tow_map.cc role); the map runs on the primary rate
+        self.tow_map = None
+        if any(rt.spec.signal == "E6" for rt in chains):
+            self.tow_map = GalileoTowMap(conf.fs)
+            for rt in chains:
+                if rt.spec.signal == "E6":
+                    rt.tlm.tow_map = self.tow_map
+        # each channel's carrier: a GLONASS slot chain's is its own
         self.freq_map = np.concatenate(
             [np.full(rt.spec.n_channels, rt.spec.trk.carrier_freq_hz)
              for rt in chains])
@@ -935,7 +1071,8 @@ class ReceiverSession:
                 if front > start_abs:
                     trk = spec.trk
                     cf0 = (trk.code_rate_cps
-                           * (1.0 + float(res.doppler_hz[k])
+                           * (1.0 + (float(res.doppler_hz[k])
+                                     - trk.doppler_bias_hz)
                               / trk.carrier_freq_hz))
                     s_per = self._chain_fs(rt) * trk.code_length_chips / cf0
                     kper = int(np.ceil((front - start_abs) / s_per))
@@ -1028,8 +1165,13 @@ class ReceiverSession:
         else:
             # decimated transfer: telemetry sees the full-rate symbol
             # planes, observables the tick-rate planes
-            tlm_res = rt.tlm.process({"prompt": outs["prompt"],
-                                      "valid": outs["valid_full"]})
+            tlm_in = {"prompt": outs["prompt"], "valid": outs["valid_full"]}
+            if len(rows) and getattr(rt.tlm, "tow_map", None) is not None:
+                # E6 stamps TOW per symbol epoch: the per-epoch sample
+                # counter rebuilt from the decimated one
+                tlm_in["sample_counter"] = _expand_sc(
+                    outs["sample_counter"], rows, n, rt.nominal)
+            tlm_res = rt.tlm.process(tlm_in)
             if len(rows) == 0:
                 # tail chunk shorter than one tick stride: telemetry only
                 for _, eph in tlm_res.new_ephemerides:
@@ -1046,6 +1188,16 @@ class ReceiverSession:
                         valid_ungated=outs["valid"])
         for _, eph in tlm_res.new_ephemerides:
             self._store_eph(rt, eph)
+        if (self.tow_map is not None and spec.system == "Galileo"
+                and spec.signal != "E6"):
+            # publish per-PRN TOW for the E6 channels (decimated rows
+            # suffice: TOW is linear in the epoch index)
+            tv = tlm_obs.tow_valid
+            for c in np.flatnonzero(tv.any(axis=0)):
+                e = int(np.flatnonzero(tv[:, c])[-1])
+                self.tow_map.update(rt.tlm.prns[c],
+                                    tlm_obs.tow_at_epoch_ms[e, c],
+                                    outs["sample_counter"][e, c])
         self.obs_eng.push_epochs(outs, tlm_obs, channel_offset=rt.offset)
         self._tow_seen[rt.offset:rt.offset + spec.n_channels] |= \
             tlm_obs.tow_valid.any(axis=0)
@@ -1220,6 +1372,8 @@ class ReceiverSession:
             channel_prns=prn_map, channel_states=states,
             ephemerides=self.ephemerides, events=events,
             track_outputs=track_outputs, channel_systems=sys_map,
+            has_messages=[m for rt in self.chains if rt.spec.signal == "E6"
+                          for m in rt.tlm.has.messages],
             clock_differences=self.clock_differences,
             rx_clock_bias_log=self.rx_clock_bias_log,
             almanac=self.broadcast_almanac(),

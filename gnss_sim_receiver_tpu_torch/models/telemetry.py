@@ -11,9 +11,10 @@ by design (SURVEY.md section 7: "decode host-side from device-produced
 prompt-symbol batches").
 
 GPS LNAV, Galileo E1-B I/NAV, GPS L2C and L5 CNAV, Galileo E5a F/NAV,
-Galileo E5b I/NAV and BeiDou D1/D2 decoders copied from
-``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port; the other
-signals' decoders wait for later slices."""
+Galileo E5b I/NAV, GLONASS GNAV, Galileo E6-B C/NAV (HAS, with the
+cross-band Galileo TOW map) and BeiDou D1/D2 decoders copied from
+``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port; the SBAS
+decoder waits for a later slice."""
 
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from gnss_sim_receiver_tpu_torch import constants, signals
 from gnss_sim_receiver_tpu_torch.nav import lnav
 from gnss_sim_receiver_tpu_torch.nav.cnav import (CnavDecoder,
                                                   messages_to_ephemeris)
+from gnss_sim_receiver_tpu_torch.nav.cnav_e6 import CnavPageDecoder
 from gnss_sim_receiver_tpu_torch.nav.dnav import (
     D2SubframeDecoder, DnavSubframeDecoder, d2_pages_to_beidou_ephemeris,
     is_geo_prn, subframes_to_beidou_ephemeris)
@@ -32,6 +34,9 @@ from gnss_sim_receiver_tpu_torch.nav.ephemeris import (
     GpsEphemeris, fields_to_ephemeris, words_to_galileo_ephemeris)
 from gnss_sim_receiver_tpu_torch.nav.fnav import (FnavPageDecoder,
                                                   fnav_words_to_ephemeris)
+from gnss_sim_receiver_tpu_torch.nav.gnav import (
+    GnavStringDecoder, strings_to_glonass_ephemeris)
+from gnss_sim_receiver_tpu_torch.nav.has import HasMessageAssembler
 from gnss_sim_receiver_tpu_torch.nav.inav import InavPageDecoder
 from gnss_sim_receiver_tpu_torch.ops.prn_codes_multi import BEIDOU_NH20
 
@@ -623,6 +628,175 @@ class GalileoE5bTelemetryDecoder:
                         or st.ephemeris.toe != eph.toe):
                     st.ephemeris = eph
                     new_eph.append((c, eph))
+
+
+# ---------------------------------------------------------------------------
+# GLONASS L1/L2 C/A GNAV telemetry (the reference's
+# glonass_l1_ca_telemetry_decoder_gs, host-side)
+# ---------------------------------------------------------------------------
+
+class GlonassTelemetryDecoder:
+    """Consumes TrackingEngine outputs for GLONASS C/A channels (1 ms code
+    epochs; 100-sps GNAV meander-half symbols spanning 10 epochs each),
+    synchronizes the 10-epoch symbol boundary by group-coherence voting,
+    decodes GNAV strings (nav.gnav) and produces TOW stamps + ECEF-state
+    ephemerides.
+
+    TOW semantics: string 1's tk field is the (compressed) frame start
+    time-of-day; `day_base_s` restores full seconds (the reference derives
+    it from the receiver date)."""
+
+    STRING_IDS = (1, 2, 3, 4, 5)
+
+    def __init__(self, prns, freq_slots=None, day_base_s: float = 0.0):
+        self.prns = [int(p) for p in prns]
+        self.freq_slots = dict(freq_slots or {})
+        self.day_base_s = float(day_base_s)
+        self.ch = [_CnavChannelTlmState(decoder=GnavStringDecoder())
+                   for _ in self.prns]
+        self._ones = np.ones(10, np.float64)
+
+    def reset_channel(self, c: int, prn: int | None = None,
+                      epoch_base: int | None = None) -> None:
+        st = _CnavChannelTlmState(decoder=GnavStringDecoder())
+        if epoch_base is not None:
+            st.epoch_count = epoch_base
+        self.ch[c] = st
+        if prn is not None:
+            self.prns[c] = int(prn)
+
+    def _symbols(self, st) -> list:
+        """st.pend epochs -> soft 100-sps symbols once boundary-locked
+        (all-ones pattern: the meander guarantees a sign flip at every
+        mid-bit symbol boundary, so group-coherence voting still works)."""
+        return _fold_secondary(st, self._ones, margin=1.1, min_symbols=40)
+
+    def process(self, track_outs: dict) -> TelemetryOutputs:
+        prompts = track_outs["prompt"]
+        valid = track_outs["valid"]
+        t_len, n_ch = prompts.shape
+        tow = np.full((t_len, n_ch), np.nan)
+        new_eph = []
+        for c in range(n_ch):
+            st = self.ch[c]
+            pi, base, v = _collect_column(st, prompts[:, c], valid[:, c])
+            st.pend.extend(pi.tolist())
+            for ev in st.decoder.push_symbols(self._symbols(st)):
+                if not ev.kx_ok or ev.string_id not in self.STRING_IDS:
+                    continue
+                st.msgs[ev.string_id] = ev.fields
+                if ev.string_id == 1:
+                    # string 1 starts the frame at time-of-day tk
+                    st.anchor_epoch = (st.symbol_base
+                                       + ev.string_start_symbol * 10)
+                    st.anchor_tow_ms = (self.day_base_s
+                                        + ev.fields["tk_s"]) * 1000.0
+                self._try_ephemeris(st, c, new_eph)
+            _stamp_tow_column(tow[:, c], v, base, st, 1.0,
+                              after_anchor=False)
+        return TelemetryOutputs(tow_at_epoch_ms=tow,
+                                tow_valid=~np.isnan(tow),
+                                new_ephemerides=new_eph)
+
+    def _try_ephemeris(self, st, c, new_eph) -> None:
+        if not all(s in st.msgs for s in (1, 2, 3, 4)):
+            return
+        prn = self.prns[c]
+        eph = strings_to_glonass_ephemeris(
+            prn, st.msgs,
+            day_base_s=np.floor(self.day_base_s / 86400.0) * 86400.0,
+            freq_slot=self.freq_slots.get(prn, 0))
+        if st.ephemeris is None or st.ephemeris.tb_s != eph.tb_s:
+            st.ephemeris = eph
+            new_eph.append((c, eph))
+
+
+# ---------------------------------------------------------------------------
+# Galileo E6-B C/NAV telemetry (the E6 arm of the reference's
+# galileo_telemetry_decoder_gs with its HAS message receiver, host-side)
+# ---------------------------------------------------------------------------
+
+class GalileoTowMap:
+    """Shared PRN -> (TOW, sample counter) map: channels that decode TOW on
+    any Galileo band publish it; E6-B channels, whose C/NAV pages carry no
+    TOW, stamp their epochs from it (role of the reference's
+    galileo_tow_map.cc and the telemetry decoder's d_E6_TOW_set path,
+    galileo_telemetry_decoder_gs.cc:1273-1290)."""
+
+    # extrapolation bound: a stamp older than this (in sample time) no
+    # longer produces a TOW: the reference re-validates TOW against fresh
+    # pages instead of extrapolating forever (galileo_tow_map.cc)
+    MAX_AGE_S = 30.0
+
+    def __init__(self, fs: float, max_age_s: float | None = None):
+        self.fs = float(fs)
+        self.max_age_s = float(max_age_s if max_age_s is not None
+                               else self.MAX_AGE_S)
+        self._m: dict[int, tuple[float, float]] = {}
+
+    def update(self, prn: int, tow_ms: float, sample_counter: float) -> None:
+        self._m[int(prn)] = (float(tow_ms), float(sample_counter))
+
+    def tow_at_sample(self, prn: int, sample_counter: float) -> float | None:
+        hit = self._m.get(int(prn))
+        if hit is None:
+            return None
+        tow_ms, sc_ref = hit
+        age_s = (float(sample_counter) - sc_ref) / self.fs
+        if age_s > self.max_age_s:
+            return None
+        return tow_ms + age_s * 1e3
+
+
+class GalileoE6bTelemetryDecoder:
+    """Galileo E6-B C/NAV telemetry: one 1000-sps HAS symbol per 1 ms code
+    epoch; pages decode through nav.cnav_e6.CnavPageDecoder and feed the
+    shared nav.has.HasMessageAssembler (decoded HAS messages accumulate in
+    `self.has.messages`).  TOW comes from the cross-band GalileoTowMap:
+    C/NAV itself is timeless (reference E6 arm of
+    galileo_telemetry_decoder_gs.cc:253,682-778 + the HAS msg receiver)."""
+
+    EPOCH_MS = 1.0
+
+    def __init__(self, prns, tow_map: GalileoTowMap | None = None):
+        self.prns = [int(p) for p in prns]
+        self.ch = [_GalChannelTlmState(decoder=CnavPageDecoder())
+                   for _ in self.prns]
+        self.has = HasMessageAssembler()
+        self.tow_map = tow_map
+        self.pages = []            # (channel, HasPageEvent), CRC-clean
+
+    def reset_channel(self, c: int, prn: int | None = None,
+                      epoch_base: int | None = None) -> None:
+        st = _GalChannelTlmState(decoder=CnavPageDecoder())
+        if epoch_base is not None:
+            st.epoch_count = epoch_base
+        self.ch[c] = st
+        if prn is not None:
+            self.prns[c] = int(prn)
+
+    def process(self, track_outs: dict) -> TelemetryOutputs:
+        prompts = track_outs["prompt"]
+        valid = track_outs["valid"]
+        sc = np.asarray(track_outs["sample_counter"], np.float64)
+        t_len, n_ch = prompts.shape
+        tow = np.full((t_len, n_ch), np.nan)
+        for c in range(n_ch):
+            st = self.ch[c]
+            pi, base, v = _collect_column(st, prompts[:, c], valid[:, c])
+            for ev in st.decoder.push_symbols(pi.tolist()):
+                if not ev.crc_ok:
+                    continue
+                self.pages.append((c, ev))
+                self.has.push_page(ev)
+            if self.tow_map is not None and v.any():
+                for e in np.flatnonzero(v):
+                    t_ms = self.tow_map.tow_at_sample(self.prns[c], sc[e, c])
+                    if t_ms is not None:
+                        tow[e, c] = t_ms
+        return TelemetryOutputs(tow_at_epoch_ms=tow,
+                                tow_valid=~np.isnan(tow),
+                                new_ephemerides=[])
 
 
 # ---------------------------------------------------------------------------

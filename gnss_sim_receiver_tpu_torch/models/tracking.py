@@ -121,6 +121,12 @@ class TrackingConf:
     # sync of the prompt signs against the sequence, then per-epoch wipeoff
     # (reference acquire_secondary(), dll_pll_veml_tracking.cc:925-969)
     secondary_code: tuple = ()
+    # non-physical baseband carrier offset excluded from code-Doppler
+    # aiding (a GLONASS FDMA slot k rides at +k*DFRQ in the tracked
+    # Doppler but does not Doppler the code; the reference biases
+    # acquisition by d_doppler_bias for the same reason,
+    # pcps_acquisition.cc:211-230)
+    doppler_bias_hz: float = 0.0
     # track_pilot: the loops close on the pilot code (this conf's code and
     # secondary describe the pilot) while a data-prompt correlator taps the
     # data code for telemetry (dll_pll_veml_tracking.cc:1050-1061); the
@@ -299,9 +305,11 @@ def _fll_on(conf: TrackingConf) -> bool:
 
 
 def code_rate_from_doppler(conf: TrackingConf, doppler) -> torch.Tensor:
-    """Carrier-aided code rate (float32): rate * (1 + dop/fc)."""
+    """Carrier-aided code rate (float32): rate * (1 + (dop - bias)/fc),
+    the FDMA bias subtracted first (exact at bias 0)."""
     return (f32(conf.code_rate_cps)
-            * (1.0 + doppler / f32(conf.carrier_freq_hz)))
+            * (1.0 + (doppler - f32(conf.doppler_bias_hz))
+               / f32(conf.carrier_freq_hz)))
 
 
 def _fll_pullin(conf: TrackingConf, state: TrackState, prompt, t_int,
@@ -844,10 +852,10 @@ class _EpochArgs(ctypes.Structure):
                     "npll_k3", "npll_k11", "npll_k24", "dll_k2", "dll_k14",
                     "ndll_k2", "ndll_k14", "fll_k4", "k_ext_f",
                     "lock_threshold", "cn0_min", "max_lock_fail",
-                    "code_rate", "inv_fc", "bit_sync_min", "sec_thresh",
-                    "pll2_k2", "pll2_k14", "npll2_k2", "npll2_k14",
-                    "kf_beta", "kf_q_code", "kf_q_phase", "kf_q_dop",
-                    "kf_q_doprate", "kf_r_code", "kf_r_phase",
+                    "code_rate", "inv_fc", "dop_bias", "bit_sync_min",
+                    "sec_thresh", "pll2_k2", "pll2_k14", "npll2_k2",
+                    "npll2_k14", "kf_beta", "kf_q_code", "kf_q_phase",
+                    "kf_q_dop", "kf_q_doprate", "kf_r_code", "kf_r_phase",
                     "bayes_lam")),
                 *((n, _I) for n in (
                     "n_taps", "veml", "has_data", "n_ch", "n_rows", "n_sec",
@@ -902,7 +910,8 @@ def _epoch_constants(conf: TrackingConf) -> dict:
         bayes_lam=_fl(conf.bayes_forgetting),
         mode=TRACKING_MODES.index(conf.tracking_mode),
         pll_order=3 if conf.pll_filter_order == 3 else 2,
-        lock_rectify=int(conf.lock_rectify))
+        lock_rectify=int(conf.lock_rectify),
+        dop_bias=_fl(conf.doppler_bias_hz))
     c.update(
         fs=_fl(conf.fs), inv_fs=_recip(conf.fs),
         code_len=_fl(conf.code_length_chips), two_pi=_fl(2.0 * math.pi),
@@ -1232,8 +1241,9 @@ def chunk_launch(conf: TrackingConf, n_epochs: int, codes, taps, x_chunk,
 def launch_chunk(launch: ChunkLaunch) -> None:
     """Launch the chunk kernel; counts the launch and its epochs, and the
     launch under its form's counter (the second-order PLL's, the KF's and
-    the gaussian mode's) and, with the rectified lock test, under
-    ``launches_rectify``; ``shapes`` counts the launches by (channels,
+    the gaussian mode's), with the rectified lock test under
+    ``launches_rectify`` and with an FDMA bias under ``launches_bias``;
+    ``shapes`` counts the launches by (channels,
     nominal samples an epoch)."""
     cuda_build.check(_epoch_lib().epoch_chunk(
         launch.args, launch.plan.cluster, launch.plan.smem,
@@ -1247,6 +1257,8 @@ def launch_chunk(launch: ChunkLaunch) -> None:
         setattr(epoch_chunk, name, getattr(epoch_chunk, name) + 1)
     if launch.args.ep.lock_rectify:
         epoch_chunk.launches_rectify += 1
+    if launch.args.ep.dop_bias != 0.0:
+        epoch_chunk.launches_bias += 1
 
 
 def epoch_chunk(conf: TrackingConf, n_epochs: int, codes: torch.Tensor,
@@ -1276,6 +1288,7 @@ epoch_chunk.launches_pll2 = 0
 epoch_chunk.launches_kf = 0
 epoch_chunk.launches_gaussian = 0
 epoch_chunk.launches_rectify = 0
+epoch_chunk.launches_bias = 0
 epoch_chunk.shapes = collections.Counter()
 
 
@@ -1559,7 +1572,8 @@ class TrackingEngine:
         starts at the absolute sample where a code period begins, Doppler
         seeds the PLL integrator (dll_pll_veml_tracking.cc:643-884)."""
         code_freq0 = (self.conf.code_rate_cps
-                      * (1.0 + doppler_hz / self.conf.carrier_freq_hz))
+                      * (1.0 + (doppler_hz - self.conf.doppler_bias_hz)
+                         / self.conf.carrier_freq_hz))
         self.state = _arm_channel(self.state, ch, float(doppler_hz),
                                   float(code_freq0))
         self.abs_start[ch] = int(abs_code_start_sample)
@@ -1831,5 +1845,6 @@ class TrackingEngine:
             self._code_freq_host = np.where(
                 fresh,
                 self.conf.code_rate_cps
-                * (1.0 + dop / self.conf.carrier_freq_hz),
+                * (1.0 + (dop - self.conf.doppler_bias_hz)
+                   / self.conf.carrier_freq_hz),
                 self._code_freq_host)

@@ -300,7 +300,8 @@ def _launch_k1(args: tuple, close: tuple | None = None) -> None:
     ``block_correlate_close.launches`` and those with a fold in
     ``block_correlate_close.folds`` (and in ``.fold_shapes`` by (C, E,
     F)); the fused pilot form's (a data spectrum given) also in
-    ``block_correlate_close.launches_pilot`` and ``.folds_pilot``."""
+    ``block_correlate_close.launches_pilot`` and ``.folds_pilot``, and
+    those with an FDMA bias in ``.launches_bias`` and ``.folds_bias``."""
     lib = _lib()
     pilot = args[2] is not None
     if close is None:
@@ -315,6 +316,9 @@ def _launch_k1(args: tuple, close: tuple | None = None) -> None:
             block_correlate_close.fold_shapes[args[10], args[11],
                                               args[14]] += 1
         block_correlate_close.launches_pilot += pilot
+        bias = close[0].dop_bias != 0.0
+        block_correlate_close.launches_bias += bias
+        block_correlate_close.folds_bias += bias and close[2] is not None
         block_correlate_close.folds_pilot += pilot and close[2] is not None
     block_correlate.launches += 1
 
@@ -416,7 +420,8 @@ def _block_prologue_plain(conf: TrackingConf, e_block: int, codes_rep,
     lag = (d_int[:, None] + (ecs - e_idx[None, :] * f32(s0))
            + f32(_LEAD))                                       # [C, E]
     # half-stretch correction (code Doppler within one epoch)
-    stretch = l_chips * dop / f32(conf.carrier_freq_hz)       # chips
+    stretch = (l_chips * (dop - f32(conf.doppler_bias_hz))
+               / f32(conf.carrier_freq_hz))                    # chips
     lag = lag - 0.5 * stretch[:, None] / rate[:, None] * fs32
     # a POSITIVE tap advances the replica: NEGATIVE lag
     tap_samps = (-taps[None, :] / rate[:, None] * fs32)        # [C, K]
@@ -704,7 +709,7 @@ class _PrologueArgs(ctypes.Structure):
     _fields_ = [("st", _StatePtrs), ("out", _ProloguePtrs),
                 ("codes_rep", _P), ("taps", _P),
                 *((n, _F) for n in ("fs", "l_chips", "inv_fs", "two_pi",
-                                    "inv_fc", "lead")),
+                                    "inv_fc", "dop_bias", "lead")),
                 *((n, _I) for n in ("s0", "n_epochs", "nfft", "n_taps",
                                     "w_max", "families", "n_ch"))]
 
@@ -718,7 +723,7 @@ class _ClosureArgs(ctypes.Structure):
                     "el_gain", "dll_bw_wide", "dll_bw_narrow", "inv_053",
                     "pll_k3", "pll_k11", "pll_k24", "fll_k4",
                     "lock_threshold", "cn0_min", "max_lock_fail",
-                    "code_rate", "inv_fc", "bit_sync_min")),
+                    "code_rate", "inv_fc", "dop_bias", "bit_sync_min")),
                 *((n, _I) for n in (
                     "s0", "n_epochs", "n_taps", "n_ch", "n_rows",
                     "fll_pullin_epochs", "enable_fll", "fll_decision")),
@@ -750,6 +755,7 @@ def _constants(conf: TrackingConf, e_block: int) -> dict:
         cn0_min=_fl(conf.cn0_min_db_hz), max_lock_fail=_fl(conf.max_lock_fail),
         code_rate=_fl(conf.code_rate_cps),
         bit_sync_min=_fl(conf.bit_sync_min_transitions),
+        dop_bias=_fl(conf.doppler_bias_hz),
         s0=conf.nominal_epoch_samples,
         fll_pullin_epochs=conf.fll_pullin_epochs,
         enable_fll=int(conf.enable_fll_pullin),
@@ -896,6 +902,7 @@ def _launch_prologue(args: _PrologueArgs, n_ch: int, stream: int) -> None:
                      "block_prologue")
     block_prologue.launches += 1
     block_prologue.launches_pilot += args.families == 2
+    block_prologue.launches_bias += args.dop_bias != 0.0
     block_prologue.shapes[n_ch, args.n_epochs, args.nfft] += 1
 
 
@@ -913,8 +920,9 @@ def block_prologue(conf: TrackingConf, e_block: int, codes_rep: torch.Tensor,
     `codes_rep` [2, C, F] (the pilot form) both families' replicas.
     Launches ``csrc/block_step.cu``'s block_prologue for CUDA tensors, runs
     :func:`_block_prologue_plain` for CPU tensors; counts its launches in
-    ``block_prologue.launches`` (and in ``.shapes`` by (C, E, F)) and the
-    pilot form's also in ``block_prologue.launches_pilot``."""
+    ``block_prologue.launches`` (and in ``.shapes`` by (C, E, F)), the
+    pilot form's also in ``block_prologue.launches_pilot`` and those with
+    an FDMA bias in ``block_prologue.launches_bias``."""
     if not check_kernel_device(codes_rep, "block_prologue"):
         return _block_prologue_plain(conf, e_block, codes_rep, taps, n_wins,
                                      st)
@@ -929,6 +937,7 @@ def block_prologue(conf: TrackingConf, e_block: int, codes_rep: torch.Tensor,
 
 block_prologue.launches = 0
 block_prologue.launches_pilot = 0
+block_prologue.launches_bias = 0
 block_prologue.shapes = collections.Counter()
 
 
@@ -1031,6 +1040,8 @@ block_correlate_close.launches = 0
 block_correlate_close.folds = 0
 block_correlate_close.launches_pilot = 0
 block_correlate_close.folds_pilot = 0
+block_correlate_close.launches_bias = 0
+block_correlate_close.folds_bias = 0
 block_correlate_close.fold_shapes = collections.Counter()
 
 

@@ -1,14 +1,15 @@
-"""BeiDou B1I and B3I, GPS L2C (CM) and L5 I/Q PRN code generation, the
-BeiDou, L2C and L5 parts of ``gnss_sim_receiver_tpu.ops.prn_codes_multi``
-for the PyTorch port.
+"""GLONASS C/A, BeiDou B1I and B3I, GPS L2C (CM) and L5 I/Q PRN code
+generation, the GLONASS, BeiDou, L2C and L5 parts of
+``gnss_sim_receiver_tpu.ops.prn_codes_multi`` for the PyTorch port.
 
 Host-side NumPy generation (the device sees constant tables), the
 functional equivalents of the reference replica generators
-(src/algorithms/libs/beidou_b1i_signal_replica.cc,
-beidou_b3i_signal_replica.cc, gps_l2c_signal_replica.cc and
-gps_l5_signal_replica.cc).  Register polynomials and per-PRN constants are
-public ICD data (BeiDou ICD 5.1.3, BDS-SIS-ICD-B3I table 4-4, IS-GPS-200
-table 3-II, IS-GPS-705 table 3-I).
+(src/algorithms/libs/glonass_l1_signal_replica.cc,
+beidou_b1i_signal_replica.cc, beidou_b3i_signal_replica.cc,
+gps_l2c_signal_replica.cc and gps_l5_signal_replica.cc).  Register
+polynomials and per-PRN constants are public ICD data (GLONASS ICD 5.1,
+BeiDou ICD 5.1.3, BDS-SIS-ICD-B3I table 4-4, IS-GPS-200 table 3-II,
+IS-GPS-705 table 3-I).
 
 Codes are returned as +-1 float32 with bit b -> 2b-1 (the GPS C/A
 convention of ops.prn_codes).
@@ -20,6 +21,7 @@ import functools
 
 import numpy as np
 
+GLONASS_CA_LENGTH = 511
 BEIDOU_B1I_LENGTH = 2046
 BEIDOU_B3I_LENGTH = 10230
 GPS_L2C_M_LENGTH = 10230
@@ -83,6 +85,21 @@ _L5Q_XB_ADV = (1701, 323, 5292, 2020, 5429, 7136, 1041, 5947, 4315, 148,
 
 def _pm1(bits: np.ndarray) -> np.ndarray:
     return (2.0 * bits - 1.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def glonass_l1_ca_code() -> np.ndarray:
+    """GLONASS L1/L2 C/A 511-chip m-sequence (shared by all satellites:
+    FDMA; glonass_l1_signal_replica.cc:25-49): 9-stage register, all-ones
+    init, output tap 3, feedback taps 5 and 9."""
+    reg = np.ones(9, dtype=np.int64)
+    out = np.empty(GLONASS_CA_LENGTH, dtype=np.int8)
+    for i in range(GLONASS_CA_LENGTH):
+        out[i] = reg[2]
+        fb = reg[4] ^ reg[0]
+        reg[:-1] = reg[1:]
+        reg[8] = fb
+    return _pm1(out)
 
 
 @functools.lru_cache(maxsize=80)

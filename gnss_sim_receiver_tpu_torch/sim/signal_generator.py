@@ -19,8 +19,9 @@ Signal model per satellite (constant Doppler + optional rate):
   amplitude       = sqrt(10^(CN0/10) / fs)   with unit complex noise variance
 
 GPS L1 C/A, GPS L2C CM, GPS L5I, Galileo E1 (E1-B data, E1-C pilot),
-Galileo E5a-I, Galileo E5b-I, BeiDou B1I and BeiDou B3I copy of
-``gnss_sim_receiver_tpu.sim.signal_generator`` for the PyTorch port:
+Galileo E5a-I, Galileo E5b-I, Galileo E6-B, GLONASS L1/L2 C/A, BeiDou B1I
+and BeiDou B3I copy of ``gnss_sim_receiver_tpu.sim.signal_generator`` for
+the PyTorch port:
 the same arithmetic, so a capture synthesized here equals the JAX package's
 fixture sample for sample.
 """
@@ -103,6 +104,12 @@ def _sig_params(sat: SatelliteSignalParams):
         # secondary pre-spread, nav.inav.e5b_epoch_signs)
         return (sigdefs.galileo_e5b_code(sat.prn).astype(np.int8),
                 constants.GALILEO_E5B_CODE_RATE_CPS, 10230)
+    if sat.signal in ("1G", "2G"):
+        # GLONASS FDMA: the slot offset (562.5 kHz L1 / 437.5 kHz L2 per
+        # slot) rides in doppler_hz; nav_bits are 100-sps GNAV symbols
+        # (10 code periods each); L2 C/A is the same code
+        return (prn_codes_multi.glonass_l1_ca_code().astype(np.int8),
+                constants.GLONASS_CA_CODE_RATE_CPS, 5110)
     if sat.signal == "B1":
         # B1I: nav_bits are per-1 ms-EPOCH signs (D1 bit x NH20 pre-spread,
         # nav.dnav.b1i_epoch_signs; D2 GEO: nav.dnav.d2_epoch_signs)
@@ -112,6 +119,11 @@ def _sig_params(sat: SatelliteSignalParams):
         # B3I: the same per-epoch-sign convention as B1I at 10.23 Mcps
         return (prn_codes_multi.beidou_b3i_code(sat.prn).astype(np.int8),
                 constants.BEIDOU_B3I_CODE_RATE_CPS, 10230)
+    if sat.signal == "E6":
+        # E6-B: one 1000-sps C/NAV symbol per 5115-chip code period
+        # (nav_bits = +-1 symbol signs, nav.cnav_e6.e6b_epoch_signs)
+        return (sigdefs.galileo_e6_code(sat.prn).astype(np.int8),
+                constants.GALILEO_E6_CODE_RATE_CPS, 5115)
     raise NotImplementedError(
         f"simulator signal {sat.system}/{sat.signal} is not ported")
 

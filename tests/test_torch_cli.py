@@ -181,8 +181,8 @@ def test_factory_refuses_unported_e1_keys(tmp_path, line):
 
 # keys these refusal tests once listed, now ported (the first-vs-second-
 # peak statistic and the fixed threshold; the fork's hybrid pseudolite
-# navigation, its rx clock keys and the pre-2009 week; the L2C, E5b, B1I
-# and B3I chains), and the field each
+# navigation, its rx clock keys and the pre-2009 week; the L2C, E5b, B1I,
+# B3I, E6-B and GLONASS chains), and the field each
 # sets: its chain's AcqConf's or TrackingConf's, or the ReceiverConf's
 PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                ("use_cfar_algorithm", False),
@@ -210,7 +210,12 @@ PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                "Channels_7X.count=4": ("n_channels", 4),
                "Channels_2S.count=2": ("n_channels", 2),
                "Channels_B1.count=3": ("n_channels", 3),
-               "Channels_B3.count=2": ("n_channels", 2)}
+               "Channels_B3.count=2": ("n_channels", 2),
+               # the Galileo E6-B chain; the GLONASS groups' first slot
+               # chain (slot -7, PRNs 10 and 14, filled first)
+               "Channels_E6.count=3": ("n_channels", 3),
+               "Channels_1G.count=2": ("n_channels", 2),
+               "Channels_2G.count=1": ("n_channels", 1)}
 
 
 def _check_ported_key(path, line):
@@ -310,6 +315,9 @@ def test_factory_defaults_match_jax():
     "Channels_2S.count=2",
     "Channels_B1.count=3",
     "Channels_B3.count=2",
+    "Channels_E6.count=3",
+    "Channels_1G.count=2",
+    "Channels_2G.count=1",
     "PVT.positioning_mode=RTK_Static",
     "PVT.positioning_mode=PPP_Static",
     "PVT.iono_model=Broadcast",
@@ -354,7 +362,7 @@ def test_interop_refuses_fields_the_port_lacks():
      "SignalSource.implementation"),
     ("SignalSource.implementation=Labsat_Signal_Source",
      "SignalSource.implementation"),
-    ("Channels_1G.count=4", "Channels_1G.count"),
+    ("Channels_S1.count=4", "Channels_S1.count"),
 ])
 def test_cli_stops_on_unported_features(tmp_path, capsys, line, key):
     """Exit code 2 and a message naming the key, before any file is read."""

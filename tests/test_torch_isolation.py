@@ -11,8 +11,9 @@ CPU, and its state carries across intact.
   acquires E5a with the I/Q search, runs a streaming session and drives
   it over the TCP server, builds the L2C and E5b chains and simulates
   their signals, builds the BeiDou B1I and B3I chains, simulates their
-  signals and decodes D1 and D2 prompts, in a process where both names
-  cannot be imported, and
+  signals and decodes D1 and D2 prompts, builds the Galileo E6-B and the
+  GLONASS slot chains, simulates their signals and decodes a HAS message
+  and GNAV strings, in a process where both names cannot be imported, and
   opens no file of the JAX package: its Galileo code tables are its own
   package data, shipped by pyproject.toml;
 - the entry points raise without a card unless device="cpu" is passed;
@@ -317,10 +318,55 @@ for prn, signs in ((14, d1), (2, d2)):
     out = tlm.process({"prompt": signs.astype(np.complex64)[:, None],
                        "valid": np.ones((len(signs), 1), bool)})
     assert len(out.new_ephemerides) == 1, prn
+# the E6-B and GLONASS slice: the E6 chain and the slot chains from a conf
+# (the E6 rows are package data), the simulator's three signals, a HAS
+# message through the E6 decoder and an ephemeris through the GNAV one
+from gnss_sim_receiver_tpu_torch.models.telemetry import (
+    GalileoE6bTelemetryDecoder, GlonassTelemetryDecoder)
+from gnss_sim_receiver_tpu_torch.nav import cnav_e6, gnav, has
+chains = receiver_conf_from_config(InMemoryConfiguration({
+    "GNSS-SDR.internal_fs_sps": "10000000", "Channels_E6.count": "2",
+    "Channels_1G.count": "3", "Channels_2G.count": "1"})).chains
+assert [(c.signal, c.freq_slot) for c in chains] == [
+    ("E6", 0), ("1G", -7), ("1G", -5), ("2G", -7)]
+assert chains[1].trk.doppler_bias_hz == -7 * 562500.0
+assert chains[0].code_provider(11).shape == (5115,)
+assert chains[3].code_provider(10).shape == (511,)
+x = generate_baseband(
+    [SatelliteSignalParams(prn=11, system="Galileo", signal="E6",
+                           nav_bits=np.ones(8, np.int8)),
+     *(SatelliteSignalParams(prn=10, system="GLONASS", signal=s,
+                             doppler_hz=-7 * df, nav_bits=np.ones(8, np.int8))
+       for s, df in (("1G", 562500.0), ("2G", 437500.0)))], 10e6, 8192,
+    noise=False)
+assert x.shape == (8192,) and np.isfinite(x).all()
+msg = has.HasData(header=has.HasHeader(toh=9, mask_flag=True), nsys=1,
+                  gnss_id_mask=[2], satellite_mask=[1 << 35],
+                  signal_mask=[1 << 15], cell_mask_flag=[False],
+                  cell_mask=[np.ones((1, 1), bool)], nav_message=[0])
+pages = has.mt1_to_pages(msg, message_id=3)
+signs = cnav_e6.e6b_epoch_signs(np.concatenate(pages * 3))
+tlm = chains[0].telemetry_decoder([11])
+assert isinstance(tlm, GalileoE6bTelemetryDecoder)
+tlm.process({"prompt": signs.astype(np.complex64)[:, None],
+             "valid": np.ones((len(signs), 1), bool),
+             "sample_counter": 1e4 * np.arange(1, len(signs) + 1)[:, None]})
+assert tlm.has.messages and tlm.has.messages[0].prns(0) == [5]
+geph = gnav.GlonassEphemeris(prn=10, freq_slot=-7, tb_s=900.0,
+                             pos_m=(1.5e7, 1.6e7, 1.2e7),
+                             vel_ms=(-1.9e3, 4e2, 1.9e3))
+sym = gnav.strings_for_ephemeris(geph, 0.0, 2)
+tlm = chains[1].telemetry_decoder([10])
+assert isinstance(tlm, GlonassTelemetryDecoder)
+out = tlm.process({"prompt": np.repeat(2.0 * sym - 1.0, 10).astype(
+    np.complex64)[:, None], "valid": np.ones((10 * len(sym), 1), bool)})
+assert len(out.new_ephemerides) == 1
+assert out.new_ephemerides[0][1].freq_slot == -7
 builtins.open = _open
 assert any(p.endswith("galileo_e1_codes.npz") for p in opened), opened
 assert any(p.endswith("galileo_e5a_codes.npz") for p in opened), opened
 assert any(p.endswith("galileo_e5b_codes.npz") for p in opened), opened
+assert any(p.endswith("galileo_e6_codes.npz") for p in opened), opened
 bad = [p for p in opened if "gnss_sim_receiver_tpu" + os.sep in p
        or p.endswith("galileo_codes.npz")]
 assert not bad, bad
@@ -471,6 +517,19 @@ def test_package_data_ships_the_e5b_codes():
         for k in z.files:
             assert z[k].dtype == ref[k].dtype
             assert np.array_equal(z[k], ref[k])
+
+
+def test_package_data_ships_the_e6_codes():
+    """The E6 table holds the E6-B rows of every satellite, the JAX
+    package's rows (E6-C and its secondary codes stay out)."""
+    with np.load(ROOT / "gnss_sim_receiver_tpu_torch" / "data"
+                 / "galileo_e6_codes.npz") as z, \
+            np.load(ROOT / "gnss_sim_receiver_tpu" / "data"
+                    / "galileo_codes.npz") as ref:
+        assert sorted(z.files) == ["e6b"]
+        assert z["e6b"].shape == (50, 640)
+        assert z["e6b"].dtype == ref["e6b"].dtype
+        assert np.array_equal(z["e6b"], ref["e6b"])
 
 
 def test_package_data_ships_the_e1_codes():

@@ -365,10 +365,12 @@ def test_lone_l2c_chain_cold_starts(dual_band, two_threads):
     assert f == F_L2 and abs(dop - DOP_L1 * F_RATIO) < 2.0
 
 
-# the JAX factory's signal groups whose chains the port lacks: Galileo
-# E6-B, GLONASS L1 and L2 C/A, SBAS L1; tests/test_factory_chains.py's
-# MULTI_CONF holds the first GLONASS one
-UNPORTED = ("E6", "1G", "2G", "S1")
+# the JAX factory's signal group whose chain the port lacks (SBAS L1), and
+# the groups it has taken up since this test began (Galileo E6-B, GLONASS
+# L1 and L2 C/A); tests/test_factory_chains.py's MULTI_CONF holds the
+# first GLONASS one
+UNPORTED = ("S1",)
+NEWLY_PORTED = ("E6", "1G", "2G")
 
 
 def _multi_conf(drop=UNPORTED, add=()):
@@ -385,16 +387,25 @@ def test_factory_builds_the_jax_chains():
     """The port's factory gives the JAX factory's chains, compared through
     interop, in its order (ALL_SIGNALS, which Channel<i>.satellite pinning
     counts in), with Tracking_2S.dll_bw_hz = 0.4 on the L2C chain."""
-    props = _multi_conf()
+    props = _multi_conf(add=("E6", "2G"))
     ref = jfactory.receiver_conf_from_config(JConfig(props))
     got = factory.receiver_conf_from_config(InMemoryConfiguration(props))
     assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    # the GLONASS groups as one chain per slot in sorted slot order:
+    # Channels_1G.count=3 fills slot -7 (PRNs 10, 14) and -5 (PRN 20),
+    # Channels_2G.count=2 slot -7
     assert [c.signal for c in got.chains] == [c.signal for c in ref.chains] \
-        == ["1B", "2S", "L5", "5X", "7X", "B1", "B3"]
+        == ["1B", "2S", "L5", "5X", "7X", "E6", "1G", "1G", "2G", "B1", "B3"]
+    assert [(c.freq_slot, c.n_channels) for c in got.chains
+            if c.signal in ("1G", "2G")] == [(-7, 2), (-5, 1), (-7, 2)]
     by_sig = {c.signal: c for c in got.chains}
     assert by_sig["2S"].trk.dll_bw_hz == 0.4
-    for sig in ("2S", "7X", "B1", "B3"):
+    for sig in ("2S", "7X", "E6", "1G", "2G", "B1", "B3"):
         assert by_sig[sig].code_provider == signals.CodeProvider(sig)
+    assert isinstance(by_sig["E6"].telemetry_decoder([1]),
+                      ptlm.GalileoE6bTelemetryDecoder)
+    assert isinstance(by_sig["2G"].telemetry_decoder([1]),
+                      ptlm.GlonassTelemetryDecoder)
     assert not by_sig["B1"].assist_wait and by_sig["B3"].assist_wait
     assert isinstance(by_sig["2S"].telemetry_decoder([1]),
                       ptlm.GpsCnavTelemetryDecoder)
@@ -405,9 +416,11 @@ def test_factory_builds_the_jax_chains():
                           ptlm.BeidouB1iTelemetryDecoder)
 
 
-@pytest.mark.parametrize("sig", UNPORTED)
+@pytest.mark.parametrize("sig", NEWLY_PORTED + UNPORTED)
 def test_factory_still_refuses_the_other_chains(sig):
-    props = _multi_conf(tuple(s for s in UNPORTED if s != sig), add=(sig,))
+    """SBAS L1 is refused by its key, alone and beside each chain ported
+    since (E6-B, GLONASS L1, L2)."""
+    props = _multi_conf(add=tuple({sig, "S1"}))
     with pytest.raises(NotImplementedError, match="not ported") as err:
         factory.receiver_conf_from_config(InMemoryConfiguration(props))
-    assert f"Channels_{sig}.count" in str(err.value)
+    assert "Channels_S1.count" in str(err.value)

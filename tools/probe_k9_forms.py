@@ -21,10 +21,15 @@ Galileo E1 pilot at 20 Msps, GPS at 2 Msps with k_ext 1 and 20) from the
 same seeded states (the Kalman forms' covariances positive definite) and
 noise capture, printing per shape one JSON line: a SHA-256 of
 every plane and state field after 50 epochs, and the device milliseconds
-of a 50-epoch chunk and of the path's chunk by CUDA-graph replay.  Run it
-on two trees in one call (parent, change, change, parent) to hold the
-loops' bits and times across a change of the kernels.  Prints the card's
-name and power limit first.
+of a 50-epoch chunk and of the path's chunk by CUDA-graph replay; then the
+block step the same way at phase 3's GPS 2 Msps, E1-B 20 Msps and E1
+pilot 20 Msps shapes: K8a alone and the two-launch chunk (K8a, then K1
+with K8b and the next block's K8a folded) over 50 blocks from
+block_state's edge states, a SHA-256 of K8a's outputs and one of the
+chunk's planes and final state, and the chunk's device milliseconds.  Run
+it on two trees in one call (parent, change, change, parent) to hold the
+kernels' bits and times across a change of them.  Prints the card's name
+and power limit first.
 
 Needs the card; imports nothing of JAX.
 """
@@ -96,6 +101,52 @@ def parity(cs, trk, interop, torch) -> None:
                           "path_epochs": path_epochs}), flush=True)
 
 
+def block_parity(cs, trk, interop, torch) -> None:
+    """The block step at phase 3's K8a and K1 with K8b and K8a rows'
+    shapes (check_block_chunk_bits' inputs): hashes, times."""
+    from gnss_sim_receiver_tpu_torch import signals
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.ops import prn_codes
+    dev = torch.device("cuda")
+    pilot = cs.pilot_receiver_conf(gps_extend=1, e1_extend=1).chains[0].trk
+    e1 = cs.hybrid_chain(cs.FS_REF_HYBRID).trk
+    shapes = (
+        ("GPS L1 C/A at 2 Msps", trk.TrackingConf(fs=cs.FS), 8,
+         (0.25, 0.0, -0.25), prn_codes.gps_l1_ca_code, None),
+        ("Galileo E1-B at 20 Msps", e1, 10, cs.conf_taps(e1),
+         signals.CodeProvider("1B"), None),
+        ("Galileo E1 pilot at 20 Msps", pilot, 10, cs.conf_taps(pilot),
+         signals.CodeProvider("1B", "C"), signals.CodeProvider("1B")))
+    for i, (label, conf, c, taps, provider, data) in enumerate(shapes):
+        rng = np.random.default_rng(200 + i)
+        s0, nfft = conf.nominal_epoch_samples, tb.block_fft_size(conf)
+        e = max(2, int(round(0.02 / conf.t_epoch_nominal_s)))
+        n = cs.BLOCK_CHUNK_BLOCKS
+        codes_rep, sec = cs.pilot_tables(conf, c, provider, data, dev)
+        taps_t = torch.tensor(taps, dtype=torch.float32, device=dev)
+        st = cs.block_state(rng, conf, c, e, 2 * e + 2, dev, sec is not None)
+        x = cs._cnoise(rng, (n * e + 2 * e + 4) * s0 + nfft, dev)
+        xf_all = tb._window_spectra(x, s0, nfft).contiguous()
+        pro = tb.block_prologue(conf, e, codes_rep, taps_t, xf_all.shape[0],
+                                st)
+        args = (conf, n, e, codes_rep, taps_t, xf_all, st)
+        new, planes = tb._chunk_cuda(*args, fold=True, sec_code=sec)
+        torch.cuda.synchronize()
+        h_pro = hashlib.sha256()
+        for k in pro._fields:
+            h_pro.update(k.encode() + getattr(pro, k).cpu().numpy().tobytes())
+        h = hashlib.sha256()
+        for k in sorted(planes):
+            h.update(k.encode() + planes[k].cpu().numpy().tobytes())
+        for k, v in sorted(interop.track_state_to_numpy(new).items()):
+            h.update(k.encode() + np.ascontiguousarray(v).tobytes())
+        ms = cs.time_ms(lambda: tb._chunk_cuda(*args, fold=True,
+                                               sec_code=sec), reps=2)
+        print(json.dumps({"shape": f"{label}, block step", "k8a_sha256":
+                          h_pro.hexdigest(), "chunk_sha256": h.hexdigest(),
+                          "ms_chunk": ms, "blocks": n}), flush=True)
+
+
 def forms(cs, trk, torch) -> None:
     """chip_smoke.py's phase 3 checks of the new forms."""
     dev = torch.device("cuda")
@@ -152,6 +203,9 @@ def main() -> int:
           "s", flush=True)
     if args.parity:
         parity(cs, trk, interop, torch)
+        secs = cuda_build.build_all(("block_kernels",))["block_kernels"]
+        print(f"built block_kernels in {secs:.1f} s", flush=True)
+        block_parity(cs, trk, interop, torch)
     else:
         forms(cs, trk, torch)
     return 0
