@@ -285,7 +285,30 @@ Phases (any failure exits non-zero, before the result line):
    within 50 Hz of the L1 Doppler x 7/9, |PR_L2 - PR_L1| < 30 m.  Phase 3
    holds the bias form at slots -7 and +6 (and on L2), the GLONASS, E6
    and E1 12.5 Msps searches, E6's block step and chunk kernel, and K6 on
-   the new skies.
+   the new skies;
+18. SBAS L1 and the corrected single-point fix (its own seconds printed):
+   (a) phase 4's six satellites with planted range biases, one
+   satellite's long-term error and a thin-shell iono delay in their code
+   delays, and two GEOs (PRNs 131, 133, 45 dB-Hz) sending MT1, MT2 (PRC =
+   -bias), MT25, MT18/MT26 (the grid) and MT9, 26 s made by K6 at 4 Msps
+   as ishort, through the CLI with phase 4's conditioner, 8 GPS and 2
+   pinned S1 channels: the GEOs tracked, every decoded message's CRC
+   passed and each one planted, every cycle entry decoded, the
+   corrections state the planted one, each GEO's MT9 ephemeris, the
+   corrected fix within 3 m and under half the error of the capture run
+   with Channels_S1.count=0 (the fixed epochs solved cold with the
+   session's corrections: the receiver's warm-started fixes skip the iono
+   grid, as the reference's do); (b) eight satellites at 2 Msps with the
+   Klobuchar delay of their own page-18 parameters, the Saastamoinen
+   delay and a 60 m fault planted, through the factory's receiver with
+   PVT.iono_model=Broadcast, trop_model=Saastamoinen and raim_fde=true
+   (the fault excluded in every fix, within 12 m; solved cold within
+   3 m), with them OFF (the fault in every fix, beyond 12 m), and with
+   Observables.smoothing_factor=100 and PVT.enable_pvt_kf=true (valid
+   fixes; the Hatch filter runs away, as the reference's does).  Phase 3
+   holds the S1 search at 2 Msps, the block step at the S1 chain's C=2,
+   the chunk kernel's rectify form at 2000 samples an epoch and K6 on
+   both skies.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -9054,6 +9077,633 @@ def check_e6_glonass_shapes(dev, card: str, rows: list, extra: list) -> None:
         torch.cuda.empty_cache()
 
 
+# ---- phase 18: SBAS L1 and the corrected single-point fix -------------------
+
+# 18(a): phase 4's sky and rate (a 4 Msps ishort file, the x2 FIR) with two
+# GEOs on the WAAS PRNs 131 and 133 (their longitudes, a small Doppler each,
+# 45 dB-Hz): (PRN, longitude deg, Doppler Hz)
+SBAS_GEOS = ((131, -117.0, 35.0), (133, -98.0, -60.0))
+SBAS_CN0 = 45.0
+SBAS_DUR = 26.0
+# the degradation the broadcast corrects, planted in the GPS signals' code
+# delays (the simulator emits no iono or tropo delay of its own): per
+# satellite of SCENARIO_PRNS a range bias (MT2's fast corrections carry
+# -bias), one satellite's long-term error (MT25: position and clock
+# deltas, (PRN, dpos m, daf0 s)) and a thin-shell iono delay (MT18/MT26's
+# grid, vertical 3 m at the receiver, linear in latitude and longitude so
+# that the grid's bilinear interpolation holds it exactly; slant by the
+# DO-229 obliquity at 350 km)
+SBAS_BIAS_M = (3.0, -4.5, 2.25, -1.75, 5.0, -2.5)
+SBAS_LT = (4, (1.5, -2.0, 0.625), 21 * 2.0 ** -31)
+# no MT12 in the broadcast: with MT12 the GEO channels stamp TOW, range,
+# and the fix raises AttributeError in both packages (the GEO's MT9
+# ephemeris reaches the Kepler batch; ROADMAP.md queue 3)
+SBAS_TOL_M = 3.0                # tests/test_sbas_apply.py's bounds
+SBAS_RATIO = 0.5
+SBAS_CONF = CONF.replace("Channels_1C.count=8", """\
+Channels_1C.count=8
+Channels_S1.count=2
+Channel8.satellite=131
+Channel9.satellite=133
+Acquisition_S1.implementation=SBAS_L1_PCPS_Acquisition
+Tracking_S1.implementation=SBAS_L1_DLL_PLL_Tracking""")
+SBAS_KERNELS = ("K1_block_correlate", "K1_K8b_K8a_block_step",
+                "K9_epoch_chunk", "K9_epoch_chunk_rectify", "K3_pcps_wipe",
+                "K3_pcps_peak", "K3b_pcps_wipe_per_channel")
+# 18(b): eight satellites of the sky at 2 Msps, ephemerides given (an
+# assisted start), LNAV subframes 1 and 4 with page 18's iono parameters
+# (the typical broadcast set of tests/test_pvt_extras.py); the Klobuchar
+# delay of those parameters, the Saastamoinen delay and a 60 m fault on
+# PRN 2 planted in the code delays
+MODES_PRNS = (1, 2, 3, 4, 5, 6, 9, 10)
+MODES_FAULT = (2, 60.0)
+MODES_ALPHA = (1.1176e-8, 7.4506e-9, -5.9605e-8, -5.9605e-8)
+MODES_BETA = (90112.0, 0.0, -196608.0, -65536.0)
+MODES_DUR = 16.5              # K6's last launch in a partial tile
+# the fixes' bounds: the receiver's warm-started fixes skip the atmosphere
+# (the reference's LS loop converges before its atmosphere iteration;
+# ROADMAP.md queue 3), so with the fault excluded they sit within 12 m,
+# and with the models and RAIM OFF the fault drags them beyond it; the
+# run's epochs solved cold with the models apply them: within 3 m
+MODES_WARM_TOL_M = 12.0
+MODES_COLD_TOL_M = 3.0
+MODES_CONF = """\
+GNSS-SDR.internal_fs_sps=2000000
+Channels_1C.count=8
+Channels.in_acquisition=8
+Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition
+Acquisition_1C.pfa=0.01
+Acquisition_1C.max_dwells=2
+Acquisition_1C.make_two_steps=true
+Acquisition_1C.second_nbins=4
+Acquisition_1C.second_doppler_step=125
+Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking
+PVT.output_rate_ms=20
+"""
+MODES_ON = {"PVT.iono_model": "Broadcast", "PVT.trop_model": "Saastamoinen",
+            "PVT.raim_fde": "true"}
+MODES_SMOOTH = {**MODES_ON, "Observables.smoothing_factor": "100",
+                "PVT.enable_pvt_kf": "true"}
+
+
+def _ipp(lat, lon, el, az):
+    """The pierce point (deg) at 350 km of a ray at (el, az) from (lat, lon)
+    (rad): solve_pvt's formulas (DO-229 A.4.4.10)."""
+    re, hi = 6378136.3, 350e3
+    psi = np.pi / 2 - el - np.arcsin(re / (re + hi) * np.cos(el))
+    lat_i = np.arcsin(np.sin(lat) * np.cos(psi)
+                      + np.cos(lat) * np.sin(psi) * np.cos(az))
+    lon_i = lon + np.arcsin(np.sin(psi) * np.sin(az) / np.cos(lat_i))
+    return np.degrees(lat_i), np.degrees(lon_i)
+
+
+def sbas_vertical_m(lat_deg, lon_deg):
+    """The planted vertical iono delay (m): 3 m at the receiver, a 0.05 m
+    per degree gradient north and 0.025 m per degree east (multiples of
+    MT26's 0.125 m at every 5-degree IGP)."""
+    return 3.0 + (lat_deg - RX_LLH[0]) / 20.0 + (lon_deg - RX_LLH[1]) / 40.0
+
+
+def _set_field(payload, start: int, n: int, value: int):
+    """`payload` with the n-bit field at `start` set to `value` (MSB
+    first): the DO-229 fields the packers leave at zero."""
+    out = payload.copy()
+    out[start:start + n] = [(value >> (n - 1 - i)) & 1 for i in range(n)]
+    return out
+
+
+def sbas_broadcast(ephs):
+    """The SBAS message cycle and the per-satellite range errors it
+    corrects: (messages without MT9, {PRN: planted error m}, {PRN: fast
+    correction m}, the IGPs {(lat, lon): vertical m}).  As a WAAS-like
+    broadcast does, the mask holds every GPS PRN (MT2 to MT4 carry their
+    fast corrections: -bias on the sky's, a few metres drawn from a seed
+    on the others) and the fields the packers leave at zero carry a
+    broadcast's values (DO-229 A.4.4): the issues of data (IODP 2, IODF 1,
+    IODI 3), the UDREIs (5 on the masked slots, 15 "do not use" on the
+    rest), MT25's second satellite (PRN 9, no delta) and MT26's GIVEIs (11
+    on the masked IGPs, 15 "not monitored" on the rest).  A sparser cycle
+    (the sky's PRNs alone, the zero fields) changes symbol at 22 % of the
+    boundaries, under the 25 % the decoder's epoch-pairing vote needs, and
+    no message decodes, in JAX alike (ROADMAP.md queue 3)."""
+    from gnss_sim_receiver_tpu_torch.nav import sbas
+    from gnss_sim_receiver_tpu_torch.utils import geodesy
+    rx = rx_true_ecef()
+    lat, lon = np.radians(RX_LLH[0]), np.radians(RX_LLH[1])
+    prns = [e.prn for e in ephs]
+    errors, igps = {}, {}
+    for e, bias in zip(ephs, SBAS_BIAS_M):
+        pos, _ = e.sat_pos_clock(T0 + SBAS_DUR / 2)
+        el, az = geodesy.elevation_azimuth(rx, pos)
+        la, lo = _ipp(lat, lon, el, az)
+        re, hi = 6378136.3, 350e3
+        slant = sbas_vertical_m(la, lo) / np.sqrt(
+            1.0 - (re * np.cos(el) / (re + hi)) ** 2)
+        errors[e.prn] = bias + slant
+        la0, lo0 = 5.0 * np.floor(la / 5.0), 5.0 * np.floor(lo / 5.0)
+        for c in ((la0, lo0), (la0 + 5, lo0), (la0, lo0 + 5),
+                  (la0 + 5, lo0 + 5)):
+            igps[c] = sbas_vertical_m(*c)
+        if e.prn == SBAS_LT[0]:
+            u = (pos - rx) / np.linalg.norm(pos - rx)
+            errors[e.prn] += (float(u @ np.asarray(SBAS_LT[1]))
+                              - 299_792_458.0 * SBAS_LT[2])
+    mask = list(range(1, 33))
+    rng = np.random.default_rng(180)
+    prc = {p: float(v) for p, v in zip(
+        mask, 0.125 * rng.integers(-40, 41, len(mask)))}
+    prc.update({p: -b for p, b in zip(prns, SBAS_BIAS_M)})
+    msgs = [(1, sbas.pack_mt1(mask, iodp=2))]
+    for k, mt in enumerate((2, 3, 4)):
+        slots = mask[13 * k:13 * k + 13]
+        pl = sbas.pack_mt2([prc[p] for p in slots], mt=mt, iodf=1, iodp=2)
+        for i in range(13):
+            pl = _set_field(pl, 160 + 4 * i, 4, 5 if i < len(slots) else 15)
+        msgs.append((mt, pl))
+    iode = {e.prn: e.iode for e in ephs}
+    msgs.append((25, sbas.pack_mt25([
+        sbas.SbasLongTerm(slot=SBAS_LT[0], iode=iode[SBAS_LT[0]],
+                          dpos_m=SBAS_LT[1], daf0_s=SBAS_LT[2]),
+        sbas.SbasLongTerm(slot=9, iode=iode[9])], iodp=2)))
+    bands = collections.defaultdict(list)
+    for la, lo in sorted(igps):
+        band = int((lo + 180.0) // 40.0)
+        mer = int(round((lo + 180.0 - 40.0 * band) / 5.0))
+        bands[band].append(mer * len(sbas.IGP_LATS)
+                           + list(sbas.IGP_LATS).index(int(la)))
+    for band, idx in sorted(bands.items()):
+        idx.sort()
+        msgs.append((18, sbas.pack_mt18(band, idx, n_bands=len(bands),
+                                        iodi=3)))
+        vals = [igps[sbas.igp_latlon(band, i)] for i in idx]
+        for b in range((len(vals) + 14) // 15):
+            mt26 = sbas.pack_mt26(band, b, vals[15 * b:15 * b + 15], iodi=3)
+            for i in range(15):
+                mt26 = _set_field(mt26, 8 + 13 * i + 9, 4,
+                                  11 if 15 * b + i < len(vals) else 15)
+            msgs.append((26, mt26))
+    return msgs, errors, prc, igps
+
+
+def sbas_geo_nav(lon_deg: float):
+    """A GEO's MT9 navigation: its ECEF position at T0 (on the equator at
+    35,786 km), at rest."""
+    from gnss_sim_receiver_tpu_torch.nav import sbas
+    from gnss_sim_receiver_tpu_torch.utils import geodesy
+    pos = geodesy.llh_to_ecef(0.0, np.radians(lon_deg), 35_786e3)
+    return sbas.parse_mt9(sbas.pack_mt9(sbas.SbasGeoNav(
+        iodn=5, t0_s=T0, pos_m=tuple(float(v) for v in pos))))
+
+
+def sbas_sky(dur: float = SBAS_DUR):
+    """18(a)'s sky: phase 4's six GPS satellites with the planted errors in
+    their code delays, and the GEOs, each sending the message cycle with
+    its own MT9 (message k of the stream is cycle[k % len(cycle)], with
+    preamble k % 3), repeated for `dur`: (satellites, the cycle by GEO
+    PRN, planted errors, fast corrections, IGPs)."""
+    from gnss_sim_receiver_tpu_torch.nav import sbas
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    from gnss_sim_receiver_tpu_torch.sim.signal_generator import \
+        SatelliteSignalParams
+    ephs = [e for e in make_sky_constellation(RX_LLH[0], RX_LLH[1],
+                                              toe=T0 + 600)
+            if e.prn in SCENARIO_PRNS]
+    cycle, errors, prc, igps = sbas_broadcast(ephs)
+    sats = build_static_scenario(ephs, rx_true_ecef(), T0, dur,
+                                 cn0_db_hz=47.0, subframe_cycle=(1, 2, 3))
+    for s in sats:
+        s.delay_sec += errors[s.prn] / 299_792_458.0
+    planted = {}
+    for prn, lon, dop in SBAS_GEOS:
+        nav = sbas_geo_nav(lon)
+        planted[prn] = one = cycle + [(9, sbas.pack_mt9(nav))]
+        msgs = one * int(np.ceil((dur + 3.0) / len(one)))
+        sats.append(SatelliteSignalParams(
+            prn=prn, system="SBAS", signal="S1", cn0_db_hz=SBAS_CN0,
+            doppler_hz=dop, delay_sec=float(np.linalg.norm(
+                np.asarray(nav.pos_m) - rx_true_ecef())) / 299_792_458.0,
+            nav_bits=sbas.sbas_epoch_signs(sbas.symbols_for_messages(msgs))))
+    return sats, planted, errors, prc, igps
+
+
+def enu_error(solutions) -> float:
+    """The 3D norm of the mean ENU error of `solutions`."""
+    from gnss_sim_receiver_tpu_torch.utils import geodesy
+    ref = (np.radians(RX_LLH[0]), np.radians(RX_LLH[1]))
+    enu = np.array([geodesy.ecef_to_enu(s.rx_ecef_m - rx_true_ecef(), ref)
+                    for s in solutions]).reshape(-1, 3)
+    if not len(enu) or not np.isfinite(enu).all():
+        fail(f"{len(enu)} fixes, finite: {np.isfinite(enu).all()}")
+    return float(np.linalg.norm(enu.mean(0)))
+
+
+def cold_fixes(run, session, conf, **kw) -> list:
+    """The run's observation epochs that the receiver fixed, solved again
+    from no prior position (x0 = None, as the receiver's first fix), with
+    the session's channel maps and ephemerides."""
+    from gnss_sim_receiver_tpu_torch.models.pvt import solve_pvt_raim
+    systems = [rt.spec.system for rt in session.chains
+               for _ in range(rt.spec.n_channels)]
+    fixed = {round((s.rx_time_corrected_s + s.rx_clock_bias_s) * 1e3)
+             for s in run.solutions}
+    out = []
+    for ep, prns in zip(run.observation_epochs, session.epoch_prns):
+        if round(ep.rx_time_s * 1e3) not in fixed:
+            continue
+        sol = solve_pvt_raim(ep, prns, run.ephemerides, conf,
+                             systems=systems,
+                             carrier_freq_hz=session.freq_map, **kw)
+        if sol.valid:
+            out.append(sol)
+    return out
+
+
+def check_sbas_messages(session, planted) -> None:
+    """Every decoded message's CRC passed and each one planted: the type,
+    payload and preamble of message k of its GEO's stream (cycle entry
+    k % L, preamble k % 3); every entry of each GEO's cycle decoded."""
+    seen = collections.defaultdict(set)
+    msgs = session.chains[1].tlm.messages
+    for _, prn, ev in msgs:
+        cycle = planted[prn]
+        hits = [j for j, (mt, pl) in enumerate(cycle)
+                if mt == ev.msg_type and np.array_equal(pl, ev.payload)
+                and any(k % 3 == ev.preamble_idx
+                        for k in range(j, 3 * len(cycle), len(cycle)))]
+        if not ev.crc_ok or not hits:
+            fail(f"GEO {prn}: message type {ev.msg_type} at symbol "
+                 f"{ev.start_symbol} is not one planted (CRC {ev.crc_ok})")
+        seen[prn].update(hits)
+    count = collections.Counter(prn for _, prn, _ in msgs)
+    whole = {p: f"{len(v)} of {len(planted[p])}" for p, v in seen.items()}
+    print(f"  decoded messages by GEO {dict(count)}, every CRC passing and "
+          f"each equal to one planted; cycle entries seen {whole}")
+    if any(len(seen[p]) != len(planted[p]) for p in planted):
+        fail("a GEO's cycle was not decoded whole")
+
+
+def sbas_path(root: str, wrappers, card: str) -> dict:
+    """Phase 18(a): GPS L1 C/A + SBAS L1 through the CLI at phase 4's rate.
+    K6 makes sbas_sky for SBAS_DUR seconds at 4 Msps, written as ishort
+    (launches counted apart); the counters set to 0 just before
+    run_cli(SBAS_CONF) and read just after, the session kept.  Checks: the
+    GPS set tracked and both GEOs on their pinned channels; every decoded
+    message's CRC passed and each one of those planted, a whole cycle from
+    each GEO; the corrections state equal to the planted one (the mask,
+    the fast corrections, the long-term deltas, every IGP's vertical delay)
+    and each GEO's MT9 ephemeris published; the corrected fix (the run's
+    fixed epochs solved from no prior position with the session's
+    corrections) within SBAS_TOL_M 3D and under SBAS_RATIO of the error
+    of the same capture run with Channels_S1.count=0; the run's own fixes
+    (the fast and long-term corrections on, the iono grid skipped after
+    the first fix, ROADMAP.md queue 3) printed beside them; the S1 chain's
+    launches at its shapes; the real-time factor."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+    from gnss_sim_receiver_tpu_torch.models import tracking as trk
+    from gnss_sim_receiver_tpu_torch.models import tracking_block as tb
+    from gnss_sim_receiver_tpu_torch.models.control import ChannelState
+    from gnss_sim_receiver_tpu_torch.nav.sbas import SbasGeoEphemeris
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    path = os.path.join(root, "build", "sbas_scenario_26s_4msps_v1.ishort")
+    sats, planted, errors, prc, igps = sbas_sky()
+    print(f"  planted range errors (m) by PRN "
+          f"{ {p: round(v, 3) for p, v in errors.items()} }; {len(igps)} "
+          f"IGPs; each GEO's cycle of message types "
+          f"{[m for m, _ in planted[SBAS_GEOS[0][0]]]}")
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = generate_baseband_device_resident(
+        sats, FS_FILE, int(FS_FILE * SBAS_DUR), noise=True, seed=181,
+        device="cuda")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_samples(path, x, "ishort", scale=200.0)
+    del x
+    torch.cuda.empty_cache()
+    k6 = read_launches(wrappers, ("K6_device_generator",))[
+        "K6_device_generator"]
+    print(f"  K6 made and wrote {os.path.getsize(path) / 1e6:.0f} MB ishort "
+          f"at {FS_FILE / 1e6:g} Msps in {time.perf_counter() - t0:.3f} s "
+          "(not timed)")
+    confs = {}
+    for name, text in (("sbas", SBAS_CONF), ("gps", CONF)):
+        confs[name] = os.path.join(root, "build", f"chip_smoke_{name}18.conf")
+        with open(confs[name], "w") as fh:
+            fh.write(text.format(capture=path))
+    tb.block_prologue.shapes.clear()
+    tb.block_correlate_close.fold_shapes.clear()
+    trk.epoch_chunk.shapes.clear()
+    shapes0 = shape_counts()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    log = {}
+    res = cli_session([f"--config_file={confs['sbas']}"], log)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, SBAS_KERNELS)
+    session, run = log["session"], res.run
+    if res.exit_code != 0:
+        fail(f"the CLI returned {res.exit_code}")
+    wipe, peak = (a - b for a, b in zip(shape_counts(), shapes0))
+    # the S1 chain's shapes: C = 2 on the block step and the chunk kernel,
+    # the doubled FFT (N = 4000 at 2 Msps) in its searches
+    n2 = 2 * int(FS * 1e-3)
+    s1 = {"K8a_block_prologue_S1": sum(
+              v for s, v in tb.block_prologue.shapes.items() if s[0] == 2),
+          "K1_K8b_K8a_block_step_S1": sum(
+              v for s, v in tb.block_correlate_close.fold_shapes.items()
+              if s[0] == 2),
+          "K9_epoch_chunk_S1": sum(v for s, v in trk.epoch_chunk.shapes.items()
+                                   if s[0] == 2),
+          "K3_pcps_wipe_S1": sum(v for s, v in wipe.items()
+                                 if len(s) == 3 and s[-1] == n2),
+          "K3_pcps_peak_S1": sum(v for s, v in peak.items()
+                                 if s[2] == 41 and s[-1] == n2),
+          "K3b_pcps_wipe_per_channel_S1": sum(
+              v for s, v in wipe.items() if len(s) == 4 and s[-1] == n2)}
+    tracked = [(p, s == ChannelState.TRACKING)
+               for p, s in zip(run.channel_prns, run.channel_states)]
+    print(f"  channels (PRN, tracking) {tracked}")
+    gps = sorted(p for p, t in tracked[:8] if t and p)
+    if gps != list(SCENARIO_PRNS) or tracked[8:] != [(131, True),
+                                                      (133, True)]:
+        fail(f"tracked {tracked}")
+    check_sbas_messages(session, planted)
+    corr = session.sbas_corr
+    lt = corr.long_term.get(SBAS_LT[0])
+    print(f"  corrections: mask {corr.prn_mask}, fast {corr.fast_prc}, "
+          f"long-term {lt}, {len(corr.iono)} IGPs held")
+    if (corr.prn_mask != list(range(1, 33)) or corr.fast_prc != prc
+            or lt is None or tuple(lt.dpos_m) != SBAS_LT[1]
+            or abs(lt.daf0_s - SBAS_LT[2]) > 2.0 ** -31
+            or sorted(corr.iono) != sorted(igps)
+            or max(abs(corr.iono[k] - v) for k, v in igps.items()) > 1e-9):
+        fail("the corrections state is not the planted one")
+    for prn, lon, _ in SBAS_GEOS:
+        geo = run.ephemerides.get(("SBAS", prn))
+        if not isinstance(geo, SbasGeoEphemeris) or \
+                tuple(geo.nav.pos_m) != tuple(sbas_geo_nav(lon).pos_m):
+            fail(f"GEO {prn}'s MT9 ephemeris: {geo}")
+    if any(ep.valid[8:].any() for ep in run.observation_epochs):
+        fail("a GEO channel gave an observable without MT12")
+    cold = cold_fixes(run, session, session.conf.pvt,
+                      sbas_corrections=corr)
+    cold_raw = cold_fixes(run, session, session.conf.pvt)
+    warm = enu_error(run.solutions)
+    reset(wrappers)
+    base = run_cli([f"--config_file={confs['gps']}"])
+    os.remove(path)
+    if base.exit_code != 0:
+        fail(f"the CLI without SBAS returned {base.exit_code}")
+    e_base = enu_error(base.run.solutions)
+    e_cold, e_raw = enu_error(cold), enu_error(cold_raw)
+    print(f"  mean 3D error: corrected fix (the {len(cold)} fixed epochs "
+          f"solved cold with the corrections) {e_cold:.3f} m, the same "
+          f"epochs without them {e_raw:.3f} m; Channels_S1.count=0 "
+          f"{e_base:.3f} m ({len(base.run.solutions)} fixes); the run's own "
+          f"{len(run.solutions)} fixes {warm:.3f} m (the grid skipped after "
+          "the first)")
+    if not (e_cold < SBAS_TOL_M and e_cold < SBAS_RATIO * e_base):
+        fail(f"the corrected fix: {e_cold:.3f} m against {e_base:.3f} m")
+    print(f"  the S1 chain's launches {s1}; the wipeoff by shape "
+          f"{dict(wipe)}, K3's peak {dict(peak)}")
+    if not all(s1.values()):
+        fail("the S1 chain did not run its searches, the block step and "
+             "the chunk kernel")
+    sec = res.seconds
+    wall = sum(sec.values())
+    print(f"  seconds: read {sec['read']:.3f}, upload and conditioning "
+          f"{sec['condition']:.3f}, receiver {sec['receiver']:.3f}")
+    print(f"  wall {wall:.3f} s from file open to the last fix for "
+          f"{SBAS_DUR:g} s of signal: real-time factor {SBAS_DUR / wall:.3f} "
+          f"({card})")
+    launches.update(s1, K6_device_generator=k6, K6_device_generator_S1=k6)
+    return launches
+
+
+def modes_sky(dur: float = MODES_DUR):
+    """18(b)'s sky: MODES_PRNS of the sky at 47 dB-Hz, LNAV subframes 1
+    and 4 (every subframe 4 page 18 with MODES_ALPHA, MODES_BETA) from T0,
+    the Klobuchar and Saastamoinen delays at mid-capture and the fault
+    planted in the code delays: (satellites, ephemerides by PRN, planted
+    delays by PRN)."""
+    from gnss_sim_receiver_tpu_torch.models.atmosphere import (
+        klobuchar_delay, saastamoinen_delay)
+    from gnss_sim_receiver_tpu_torch.nav import lnav
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    from gnss_sim_receiver_tpu_torch.utils import geodesy
+    ephs = [e for e in make_sky_constellation(RX_LLH[0], RX_LLH[1],
+                                              toe=T0 + 600)
+            if e.prn in MODES_PRNS]
+    iono = {**{f"alpha{i}": a for i, a in enumerate(MODES_ALPHA)},
+            **{f"beta{i}": b for i, b in enumerate(MODES_BETA)}}
+    sats = build_static_scenario(ephs, rx_true_ecef(), T0, dur,
+                                 cn0_db_hz=47.0, subframe_cycle=(1, 4))
+    lat, lon, h = RX_LLH
+    lat, lon = np.radians(lat), np.radians(lon)
+    delays = {}
+    for s, e in zip(sats, ephs):
+        s.nav_bits = (2 * lnav.frames_for_ephemeris(
+            e, T0, n_frames=int(dur // 12) + 2, subframe_cycle=(1, 4),
+            iono_utc=iono) - 1).astype(np.int8)
+        t = T0 + dur / 2
+        pos, _ = e.sat_pos_clock(t)
+        el, az = geodesy.elevation_azimuth(rx_true_ecef(), pos)
+        delays[e.prn] = (klobuchar_delay(MODES_ALPHA, MODES_BETA, lat, lon,
+                                         el, az, t)
+                         + saastamoinen_delay(lat, h, el)
+                         + (MODES_FAULT[1] if e.prn == MODES_FAULT[0]
+                            else 0.0))
+        s.delay_sec += delays[e.prn] / 299_792_458.0
+    return sats, {e.prn: e for e in ephs}, delays
+
+
+def modes_path(wrappers, card: str) -> dict:
+    """Phase 18(b): the PVT modes on one GPS capture.  K6 makes modes_sky
+    at 2 Msps for MODES_DUR seconds on the card (launches counted apart);
+    the receiver is built by the factory from MODES_CONF with (1)
+    PVT.iono_model=Broadcast, trop_model=Saastamoinen and raim_fde=true,
+    (2) none of them, (3) (1) with Observables.smoothing_factor=100 and
+    PVT.enable_pvt_kf=true, each run through process_array with the
+    ephemerides given (the counters set to 0 before and read after each).
+    Checks: the page-18 parameters fed into the run's PvtConf; (1) every
+    fix without the faulty channel, their mean 3D error within
+    MODES_WARM_TOL_M, the fixed epochs solved cold with the run's PvtConf
+    within MODES_COLD_TOL_M; (2) the faulty channel in every fix, the
+    error beyond MODES_WARM_TOL_M; (3) valid, finite fixes, both filters
+    on, the smoothed pseudoranges' distance from the raw ones printed (it
+    grows: the reference's Hatch filter runs away on the receiver's phase,
+    ROADMAP.md queue 3, and RAIM then excludes by the runaway's residuals,
+    so the fault's exclusion is printed, not held); the real-time
+    factors."""
+    import dataclasses
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    sats, ephs, delays = modes_sky()
+    print(f"  planted delays (m) by PRN "
+          f"{ {p: round(v, 3) for p, v in delays.items()} } (PRN "
+          f"{MODES_FAULT[0]}: with the {MODES_FAULT[1]:g} m fault)")
+    reset(wrappers)
+    x = generate_baseband_device_resident(
+        sats, FS, int(FS * MODES_DUR), noise=True, seed=182, device="cuda")
+    torch.cuda.synchronize()
+    k6 = read_launches(wrappers, ("K6_device_generator",))[
+        "K6_device_generator"]
+    fault_ch = MODES_PRNS.index(MODES_FAULT[0])
+    launches = {}
+    runs = {}
+    for name, keys in (("on", MODES_ON), ("off", {}),
+                       ("smooth", MODES_SMOOTH)):
+        conf = receiver_conf_from_config(InMemoryConfiguration(
+            {**conf_properties(MODES_CONF), **keys}))
+        conf = dataclasses.replace(conf, pinned_channels={
+            c: p for c, p in enumerate(MODES_PRNS)})
+        reset(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session = log_epochs(Receiver(conf).start_session(
+            ephemerides=dict(ephs)))
+        session.attach_array(x)
+        session.run_to_end()
+        run = session.result()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(wrappers, BLOCK_PATH_KERNELS)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        runs[name] = (session, run, conf)
+        used = [fault_ch in s.used_channels for s in run.solutions]
+        err = enu_error(run.solutions)
+        print(f"  ({name}) {len(run.solutions)} fixes, the faulty channel in "
+              f"{sum(used)}; mean 3D error {err:.3f} m; iono alpha "
+              f"{conf.pvt.iono_alpha}; {MODES_DUR / wall:.3f} x real time "
+              f"({wall:.3f} s of receiver; {card})")
+        if len(run.solutions) < 100:
+            fail(f"({name}) {len(run.solutions)} fixes")
+        if name == "off" and (not all(used) or err <= MODES_WARM_TOL_M):
+            fail(f"(off) the fault in {sum(used)} fixes, {err:.3f} m")
+        # page 18 carries alpha in 8 bits at 2^-30 to 2^-24
+        if name != "off" and not np.allclose(conf.pvt.iono_alpha,
+                                             MODES_ALPHA, rtol=0.01):
+            fail(f"({name}) alpha {conf.pvt.iono_alpha}")
+        if name == "on" and (any(used) or err >= MODES_WARM_TOL_M):
+            fail(f"(on) the fault in {sum(used)} fixes, {err:.3f} m")
+    session, run, conf = runs["on"]
+    cold = cold_fixes(run, session, conf.pvt)
+    e_cold = enu_error(cold)
+    excl = sum(fault_ch not in s.used_channels for s in cold)
+    print(f"  (on) the {len(cold)} fixed epochs solved cold with the run's "
+          f"PvtConf (models applied): mean 3D error {e_cold:.3f} m, the "
+          f"faulty channel excluded in {excl}")
+    if e_cold >= MODES_COLD_TOL_M or excl != len(cold):
+        fail(f"(on) cold: {e_cold:.3f} m, excluded in {excl} of {len(cold)}")
+    s_sess, s_run, s_conf = runs["smooth"]
+    if s_sess.pvt_kf is None or s_conf.obs.smoothing_factor != 100 \
+            or s_sess.obs_eng.conf.smoothing_factor != 100:
+        fail("(smooth) the Hatch filter or the PVT Kalman filter is off")
+    diff = [np.abs(a.pseudorange_m - b.pseudorange_m)[a.valid & b.valid]
+            for a, b in zip(s_run.observation_epochs,
+                            runs["on"][1].observation_epochs)]
+    drift = [float(d.max()) for d in diff if d.size]
+    print(f"  (smooth) the Hatch-smoothed pseudoranges against (on)'s raw "
+          f"ones: {drift[0]:.3f} m at the first epoch, {drift[-1]:.3f} m at "
+          "the last (the filter adds the loops' phase, which rises as the "
+          "range falls: the smoothed range runs away, in JAX alike, "
+          "ROADMAP.md queue 3)")
+    del x
+    torch.cuda.empty_cache()
+    launches["K6_device_generator"] = k6
+    return launches
+
+
+def check_sbas_shapes(dev, card: str, rows: list, extra: list) -> None:
+    """Phase 3 at phase 18's new shapes, each against its plain version
+    with its kernel's tolerance (the wipeoff also bit for bit its Triton
+    reference and the searches after it, wipe_case); rows named _S1 go to
+    `rows`, the others to `extra`:
+    - the S1 chain's cold search at 2 Msps (M=2, the doubled FFT: N=4000,
+      D=41, both GEOs' PRNs) and step two's K3b and K3's peak;
+    - K8a, K8b and K1 with both at the S1 chain's C=2 (E=20, the rectified
+      lock test), the two-launch chunk; the chunk kernel's rectify form at
+      C=8 (the edge states take six), 2000 samples an epoch;
+    - K6 on 18(a)'s sky (GPS and the GEOs at 4 Msps) and 18(b)'s (2 Msps).
+    18(b)'s GPS chain runs at phase 4's shapes (C=8, 2 Msps)."""
+    import dataclasses
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.acquisition import \
+        PcpsAcquisitionEngine
+    from gnss_sim_receiver_tpu_torch.models.receiver import sbas_l1_chain
+    rng = np.random.default_rng(18)
+    chain = sbas_l1_chain(FS, prns=tuple(p for p, _, _ in SBAS_GEOS))
+    sky = sbas_sky()[0]
+    geos = [s for s in sky if s.signal == "S1"]
+    eng = PcpsAcquisitionEngine(chain.acq, chain.prns,
+                                code_provider=chain.code_provider,
+                                sc_rate=chain.sc_rate, device=dev)
+    x = search_dwells(geos, FS, eng, 183, dev)
+    cfc, m = eng.code_fft_conj, x.shape[0]
+    label = (f"18(a)'s cold S1 search at {FS / 1e6:g} Msps (the doubled "
+             "FFT)")
+    row = wipe_case(x, eng.dopplers, eng._t, label, k3_search(cfc, m), 3)
+    row["name"] = "K3_pcps_wipe_S1"
+    rows.append(row)
+    peak_case(rows, extra, x, eng.dopplers, eng._t, cfc, label,
+              "K3_pcps_peak_S1")
+    table = narrow_table(eng)
+    label2 = label.replace("cold S1 search", "S1 step two")
+    row = wipe_case(x, table, eng._t, label2, k3_search(cfc, m), 3)
+    row["name"] = "K3b_pcps_wipe_per_channel_S1"
+    rows.append(row)
+    peak_case(rows, extra, x, table, eng._t, cfc, label2)
+    del x
+    torch.cuda.empty_cache()
+    k8 = ("K8a_block_prologue", "K8b_block_closure",
+          "K1_K8b_block_correlate_close", "K1_K8b_K8a_block_step")
+    taps = (0.25, 0.0, -0.25)
+    lab = f"SBAS L1 at {FS / 1e6:g} Msps, C = 2, rectified lock"
+
+    def codes(prn):
+        # the SBAS codes in place of the helpers' PRNs 1..C and 11..
+        return chain.code_provider(120 + prn % 19)
+    got = check_k8(dev, rng, chain.trk, 2, taps, codes, 1000,
+                   tuple(n + "_S1" for n in k8), lab)
+    rows += [got[0], got[3]]
+    extra += got[1:3]
+    extra.append(check_block_chunk_bits(dev, rng, chain.trk, 2, taps, codes,
+                                        lab))
+    torch.cuda.empty_cache()
+    # the chunk kernel at C = 8, as phase 3's other chunk rows: epoch_state's
+    # edge states take six channels (one cluster a channel; the path runs
+    # two)
+    rows.append(check_epoch_chunk_bits(
+        dev, rng, chain.trk, 8, "K9_epoch_chunk_S1",
+        lab.replace("C = 2", "C = 8"), 1000,
+        chain=dataclasses.replace(chain, code_provider=codes)))
+    torch.cuda.empty_cache()
+    row = check_k6(dev, FS_FILE, sky, SBAS_DUR, 181,
+                   f"18(a)'s GPS + SBAS sky at {FS_FILE / 1e6:g} Msps")
+    row["name"] = "K6_device_generator_S1"
+    rows.append(row)
+    torch.cuda.empty_cache()
+    extra.append(check_k6(dev, FS, modes_sky()[0], MODES_DUR, 182,
+                          f"18(b)'s GPS sky at {FS / 1e6:g} Msps"))
+    torch.cuda.empty_cache()
+
+
 def profile_path(run) -> None:
     """`--profile`: `run()` (one run of a path, returning a line to print)
     twice more, plain and under torch.profiler: wall time, device busy
@@ -9123,7 +9773,7 @@ def main() -> int:
 
 
 def run_phases(root: str, card: str, procs: dict) -> int:
-    """Phases 2 to 17 and the result lines; `procs` are the synthesis
+    """Phases 2 to 18 and the result lines; `procs` are the synthesis
     children (none with --kernels-only)."""
     import torch
     from gnss_sim_receiver_tpu_torch import signals
@@ -9346,6 +9996,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     check_l2c_e5b_shapes(dev, card, rows, extra)
     check_beidou_shapes(dev, card, rows, extra)
     check_e6_glonass_shapes(dev, card, rows, extra)
+    check_sbas_shapes(dev, card, rows, extra)
     rows += [check_k5a(dev, rng), k5b_row, check_k5c(dev, rng),
              *check_k5d(dev, rng)]
     torch.cuda.empty_cache()
@@ -9583,6 +10234,21 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     g12 = glonass_mb_path(wrappers, card)
     torch.cuda.empty_cache()
     print(f"  phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
+    t18 = time.perf_counter()
+    print("== phase 18(a): GPS L1 C/A + SBAS L1 through the CLI (device "
+          f"generator -> {SBAS_DUR:g} s ishort file at {FS_FILE / 1e6:g} Msps "
+          "-> conditioner -> 8 GPS + 2 S1 channels, GEOs 131 and 133 -> the "
+          "250-bit messages -> corrections -> the corrected fix, against "
+          "Channels_S1.count=0)", flush=True)
+    s1 = sbas_path(root, wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"== phase 18(b): the PVT modes on one GPS capture ({MODES_DUR:g} "
+          f"s at {FS / 1e6:g} Msps: broadcast iono from page 18, "
+          "Saastamoinen, RAIM against a 60 m fault; OFF; the Hatch filter "
+          "and the PVT Kalman filter)", flush=True)
+    modes = modes_path(wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 18 took {time.perf_counter() - t18:.1f} s", flush=True)
     for name in ("K6_device_generator_E6", "K3b_pcps_wipe_per_channel_E6",
                  "K3_pcps_peak_assisted_E6", "K8a_block_prologue_E6",
                  "K1_K8b_K8a_block_step_E6", "K9_epoch_chunk_E6"):
@@ -9595,7 +10261,12 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     for name in ("K8a_block_prologue_bias", "K1_K8b_K8a_block_step_bias",
                  "K9_epoch_chunk_bias"):
         launches[name] = g1[name] + g12[name]
-    # K6's launches: the captures of phases 5, 6, 7, 8, 10, 11 and 14 to 17
+    for name in ("K6_device_generator_S1", "K3_pcps_wipe_S1",
+                 "K3_pcps_peak_S1", "K3b_pcps_wipe_per_channel_S1",
+                 "K8a_block_prologue_S1", "K1_K8b_K8a_block_step_S1",
+                 "K9_epoch_chunk_S1"):
+        launches[name] = s1[name]
+    # K6's launches: the captures of phases 5, 6, 7, 8, 10, 11 and 14 to 18
     launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
                                        + k6_wb + pilot["K6_device_generator"]
                                        + ps["K6_device_generator"]
@@ -9609,12 +10280,14 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                                        + e6a["K6_device_generator"]
                                        + e6b["K6_device_generator"]
                                        + g1["K6_device_generator"]
-                                       + g12["K6_device_generator"])
+                                       + g12["K6_device_generator"]
+                                       + s1["K6_device_generator"]
+                                       + modes["K6_device_generator"])
     for r in rows:
         r["launches"] = launches[r["name"]]
 
     wipe_shapes = dict(pcps.pcps_wipe.shapes)
-    print(f"  the wipeoff's launches in phases 4 to 17 by (M, Doppler table, "
+    print(f"  the wipeoff's launches in phases 4 to 18 by (M, Doppler table, "
           f"N): {wipe_shapes}")
     missing = sorted({wipe_key(k) for k in wipe_shapes} - WIPE_CHECKED)
     if missing:

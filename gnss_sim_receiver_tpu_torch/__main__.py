@@ -1,9 +1,12 @@
 """CLI: run the receiver on a CUDA card from a GNSS-SDR-style configuration
 file.
 
-PyTorch port of ``gnss_sim_receiver_tpu.__main__`` for a conf with a GPS L1
-C/A chain, a Galileo E1-B chain or both (the hybrid operating point), or
-with GPS L5I and Galileo E5a-I chains (the wideband operating point; the
+PyTorch port of ``gnss_sim_receiver_tpu.__main__`` for a conf with any of
+the JAX factory's signal chains: a GPS L1 C/A chain, a Galileo E1-B chain
+or both (the hybrid operating point), GPS L5I and Galileo E5a-I chains
+(the wideband operating point), and the L2C, E5b-I, E6-B, GLONASS,
+BeiDou and SBAS L1 chains, with the PVT keys of the single-point fix
+(iono and tropo models, RAIM, the PVT Kalman filter, Hatch smoothing; the
 reference binary interface, src/main/main.cc:119).  Like the JAX CLI it
 attaches one stream, RF channel 0: a conf that puts a chain on another RF
 channel (Channels_<sig>.RF_channel_ID) builds, then stops with "no stream

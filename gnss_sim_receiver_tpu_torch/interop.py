@@ -139,12 +139,10 @@ _ABSENT = {
     AcqConf: {},
     TrackingConf: dict(dll_filter_order=2, bayes_nu0=30.0),
     ObsConf: {},
-    PvtConf: dict(iono_alpha=(0.0,) * 4, iono_beta=(0.0,) * 4,
-                  raim_fde=False, raim_threshold_m=30.0,
-                  raim_max_exclusions=2),
+    PvtConf: {},
     SignalChainConf: {},
-    ReceiverConf: dict(enable_pvt_kf=False, enable_pvt_ekf=False,
-                       pvt_ekf=None, rtk=None, rtk_base_ecef_m=None),
+    ReceiverConf: dict(enable_pvt_ekf=False, pvt_ekf=None, rtk=None,
+                       rtk_base_ecef_m=None),
 }
 
 

@@ -3,17 +3,17 @@
 PyTorch port of ``gnss_sim_receiver_tpu.models.factory`` for the GPS L1 C/A
 ("1C"), Galileo E1-B ("1B"), GPS L2C CM ("2S"), GPS L5I ("L5"), Galileo
 E5a-I ("5X"), Galileo E5b-I ("7X"), Galileo E6-B ("E6"), GLONASS L1 and L2
-C/A ("1G", "2G"), BeiDou B1I ("B1") and BeiDou B3I ("B3") chains
-(reference GNSSBlockFactory, src/core/receiver/gnss_block_factory.cc:
+C/A ("1G", "2G"), BeiDou B1I ("B1"), BeiDou B3I ("B3") and SBAS L1 ("S1")
+chains (reference GNSSBlockFactory, src/core/receiver/gnss_block_factory.cc:
 639-1335): maps the `Role.implementation` strings and per-role keys of a
 GNSS-SDR conf file onto the port's engine confs.
 
-The port carries these eleven chains, each on its own RF channel and rate
-if the conf says so (a GLONASS signal as one chain per FDMA slot, on the
-primary stream, as the JAX factory builds it), and a subset of their
-options.  A conf
-key that selects something the port lacks is never read and dropped: it
-raises NotImplementedError naming the key, with the words "not ported".
+The port carries every chain of the JAX factory, each on its own RF
+channel and rate if the conf says so (a GLONASS signal as one chain per
+FDMA slot, on the primary stream, as the JAX factory builds it), and a
+subset of their options.  A conf key that selects something the port
+lacks is never read and dropped: it raises NotImplementedError naming the
+key, with the words "not ported".
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from gnss_sim_receiver_tpu_torch.models.receiver import (
     Receiver, ReceiverConf, beidou_b1i_chain, beidou_b3i_chain,
     galileo_e1b_chain, galileo_e5a_chain, galileo_e5b_chain,
     galileo_e6b_chain, glonass_l1_chain, glonass_l2_chain, gps_l2c_chain,
-    gps_l5_chain)
+    gps_l5_chain, sbas_l1_chain)
 from gnss_sim_receiver_tpu_torch.models.tracking import TrackingConf
 from gnss_sim_receiver_tpu_torch.utils.config import Configuration
 
@@ -54,6 +54,8 @@ _ACQ_IMPLS = {
     "2G": {"GLONASS_L2_CA_PCPS_Acquisition": "pcps"},
     "B1": {"BEIDOU_B1I_PCPS_Acquisition": "pcps"},
     "B3": {"BEIDOU_B3I_PCPS_Acquisition": "pcps"},
+    "S1": {"SBAS_L1_PCPS_Acquisition": "pcps",
+           "GPS_L1_CA_PCPS_Acquisition": "pcps"},
 }
 _TRK_IMPLS = {
     "1C": ("GPS_L1_CA_DLL_PLL_Tracking", "GPS_L1_CA_KF_Tracking"),
@@ -67,6 +69,7 @@ _TRK_IMPLS = {
     "2G": ("GLONASS_L2_CA_DLL_PLL_Tracking",),
     "B1": ("BEIDOU_B1I_DLL_PLL_Tracking",),
     "B3": ("BEIDOU_B3I_DLL_PLL_Tracking",),
+    "S1": ("SBAS_L1_DLL_PLL_Tracking", "GPS_L1_CA_DLL_PLL_Tracking"),
 }
 _DEFAULT_ACQ = {"1C": "GPS_L1_CA_PCPS_Acquisition",
                 "1B": "Galileo_E1_PCPS_Ambiguous_Acquisition",
@@ -78,35 +81,26 @@ _DEFAULT_ACQ = {"1C": "GPS_L1_CA_PCPS_Acquisition",
                 "1G": "GLONASS_L1_CA_PCPS_Acquisition",
                 "2G": "GLONASS_L2_CA_PCPS_Acquisition",
                 "B1": "BEIDOU_B1I_PCPS_Acquisition",
-                "B3": "BEIDOU_B3I_PCPS_Acquisition"}
-# the ported chains beyond GPS L1 C/A, in the JAX factory's order
-# (ALL_SIGNALS, factory.py:126), and their builders; Channel<i>.satellite
+                "B3": "BEIDOU_B3I_PCPS_Acquisition",
+                "S1": "SBAS_L1_PCPS_Acquisition"}
+# the chains beyond GPS L1 C/A, in the JAX factory's order (ALL_SIGNALS,
+# factory.py:126), and their builders; Channel<i>.satellite
 # pinning counts channels in this order; a GLONASS builder makes one chain
 # of the slot it is given
 _CHAIN_BUILDERS = {"1B": galileo_e1b_chain, "2S": gps_l2c_chain,
                    "L5": gps_l5_chain, "5X": galileo_e5a_chain,
                    "7X": galileo_e5b_chain, "E6": galileo_e6b_chain,
                    "1G": glonass_l1_chain, "2G": glonass_l2_chain,
-                   "B1": beidou_b1i_chain, "B3": beidou_b3i_chain}
+                   "B1": beidou_b1i_chain, "B3": beidou_b3i_chain,
+                   "S1": sbas_l1_chain}
 # the FDMA slot spacing of each GLONASS signal
 _GLONASS_DFREQ = {"1G": constants.GLONASS_L1_DFREQ_HZ,
                   "2G": constants.GLONASS_L2_DFREQ_HZ}
-# the signal groups of the JAX factory whose chains the port lacks
-_OTHER_SIGNALS = ("S1",)
 _PVT_MODES = ("Single", "Static")
 
 
-def _not_ported(key: str, value, what: str = ""):
-    return NotImplementedError(
-        f"{key}={value}: {what + ' is ' if what else ''}not ported")
-
-
-def _refuse_unless(config: Configuration, key: str, default):
-    """Raise if `key` is set to anything but `default`, the one value the
-    port implements."""
-    value = config.property(key, default)
-    if value != default:
-        raise _not_ported(key, value)
+def _not_ported(key: str, value):
+    return NotImplementedError(f"{key}={value}: not ported")
 
 
 @dataclasses.dataclass
@@ -244,13 +238,14 @@ def pvt_conf_from_config(config: Configuration) -> PvtConf:
     mode = config.property("PVT.positioning_mode", "Single")
     if mode not in _PVT_MODES:
         raise _not_ported("PVT.positioning_mode", mode)
-    _refuse_unless(config, "PVT.iono_model", "OFF")
-    _refuse_unless(config, "PVT.trop_model", "OFF")
-    _refuse_unless(config, "PVT.raim_fde", False)
     return PvtConf(
         positioning_mode=mode,
         elevation_mask_deg=config.property("PVT.elevation_mask", 5.0),
         max_gdop=config.property("PVT.threshold_reject_GDOP", 30.0),
+        iono_model=config.property("PVT.iono_model", "OFF"),
+        trop_model=config.property("PVT.trop_model", "OFF"),
+        raim_fde=config.property("PVT.raim_fde", False),
+        raim_threshold_m=config.property("PVT.raim_threshold_m", 30.0),
         # fork receiver-antenna attitude (rtklib_pvt.cc:92-94)
         antenna_attitude_fix=config.property(
             "ReceiverAntennaAttitude.fix", True),
@@ -298,8 +293,8 @@ def chains_from_config(config: Configuration) -> list:
     in the JAX factory's order: the Galileo E1-B data chain ("1B"), GPS L2C
     CM ("2S"), GPS L5I ("L5"), Galileo E5a-I ("5X"), Galileo E5b-I ("7X"),
     Galileo E6-B ("E6"), GLONASS L1 and L2 C/A ("1G", "2G", one chain per
-    FDMA slot, :func:`_glonass_chains`), BeiDou B1I ("B1") and BeiDou B3I
-    ("B3"); SBAS is refused.
+    FDMA slot, :func:`_glonass_chains`), BeiDou B1I ("B1"), BeiDou B3I
+    ("B3") and SBAS L1 ("S1").
 
     Multi-band keys: ``Channels_<sig>.RF_channel_ID`` selects the RF
     channel whose stream the chain reads (gnss_flowgraph.cc:1018-1019),
@@ -310,11 +305,6 @@ def chains_from_config(config: Configuration) -> list:
     beyond GPS L1 C/A, which never comes, so it changes nothing
     (factory.py:346-352)."""
     fs = float(config.property("GNSS-SDR.internal_fs_sps", 2_000_000))
-    for sig in _OTHER_SIGNALS:
-        key = f"Channels_{sig}.count"
-        n = config.property(key, 0)
-        if n > 0:
-            raise _not_ported(key, n, f"the {sig} signal chain")
     in_acq = config.property("Channels.in_acquisition", 0)
     chains = []
     offset = config.property("Channels_1C.count", 0)
@@ -352,12 +342,10 @@ def chains_from_config(config: Configuration) -> list:
 def receiver_conf_from_config(config: Configuration) -> ReceiverConf:
     """Build the receiver configuration from reference-style keys for the
     GPS L1 C/A chain and the Galileo E1-B, GPS L2C CM, GPS L5I, Galileo
-    E5a-I, Galileo E5b-I, Galileo E6-B, GLONASS L1/L2 C/A, BeiDou B1I and
-    BeiDou B3I chains."""
+    E5a-I, Galileo E5b-I, Galileo E6-B, GLONASS L1/L2 C/A, BeiDou B1I,
+    BeiDou B3I and SBAS L1 chains."""
     fs = float(config.property("GNSS-SDR.internal_fs_sps", 2_000_000))
     chains = chains_from_config(config)
-    _refuse_unless(config, "PVT.enable_pvt_kf", False)
-    _refuse_unless(config, "Observables.smoothing_factor", 0)
 
     # GPS L1 C/A is the reference's default chain: 8 channels when nothing
     # else is configured, else exactly what Channels_1C.count says
@@ -369,7 +357,9 @@ def receiver_conf_from_config(config: Configuration) -> ReceiverConf:
                               sampled_ms=1, max_dwells=2, pfa=0.01))
     trk = _trk_from_config(config, "1C", TrackingConf(fs=fs))
     interval_ms = config.property("Observables.observable_interval_ms", 20)
-    obs = ObsConf(fs=fs, interval_ms=interval_ms)
+    obs = ObsConf(fs=fs, interval_ms=interval_ms,
+                  smoothing_factor=config.property(
+                      "Observables.smoothing_factor", 0))
     in_acq = config.property("Channels.in_acquisition", 0)
     # multi-band: the per-RF-channel rates gathered from the chains
     rf_fs = {c.rf_channel_id: float(c.trk.fs) for c in chains
@@ -383,6 +373,7 @@ def receiver_conf_from_config(config: Configuration) -> ReceiverConf:
         acq=acq, trk=trk, obs=obs, pvt=pvt_conf_from_config(config),
         output_rate_ms=interval_ms,
         pvt_rate_ms=config.property("PVT.output_rate_ms", 0),
+        enable_pvt_kf=config.property("PVT.enable_pvt_kf", False),
         chains=tuple(chains), gps_chain=n_1c > 0,
         # fork hybrid/pseudolite + rx clock keys (rtklib_pvt.cc:910-917,
         # conf/gnss-sdr_GPS_L1_bladeRF2_micro_hybrid_nav.conf); the ps

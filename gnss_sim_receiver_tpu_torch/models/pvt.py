@@ -5,14 +5,14 @@ Host-side (float64) equivalent of the reference's pntpos path
 rtklib_solver.cc:905 + src/algorithms/libs/rtklib/rtklib_pntpos.cc):
 iterated LS on code pseudoranges for (x, y, z, c*dt_r), Earth-rotation
 (Sagnac) correction, SV clock + TGD correction, elevation mask, DOPs, and a
-linear LS on Doppler for velocity + clock drift.  Atmospheric models are
-omitted for the simulator fixtures (the simulator emits no iono/tropo
-delay).
+linear LS on Doppler for velocity + clock drift, with the broadcast
+(Klobuchar) and Saastamoinen atmosphere models, SBAS fast, long-term and
+iono-grid corrections and RAIM fault detection and exclusion.  The
+simulator emits no iono or tropo delay, so the models stay OFF for its
+fixtures unless a scenario plants the delays.
 
 Copy of ``gnss_sim_receiver_tpu.models.pvt`` for the PyTorch port, single
-point only, GPS and Galileo: the iono and tropo models must stay "OFF" (the
-atmosphere module is not part of the port yet, and a non-OFF model
-raises), and the SBAS and RAIM hooks are left out.
+point only (PVT.positioning_mode Single or Static).
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 
 from gnss_sim_receiver_tpu_torch import constants
+from gnss_sim_receiver_tpu_torch.models.atmosphere import (klobuchar_delay,
+                                                           saastamoinen_delay)
 from gnss_sim_receiver_tpu_torch.nav.ephemeris import sat_states_batch
 from gnss_sim_receiver_tpu_torch.utils import geodesy
 
@@ -37,8 +39,16 @@ class PvtConf:
     elevation_mask_deg: float = 5.0
     max_gdop: float = 30.0
     apply_tgd: bool = True
-    iono_model: str = "OFF"        # only OFF in the port
-    trop_model: str = "OFF"        # only OFF in the port
+    iono_model: str = "OFF"        # OFF | Broadcast (Klobuchar)
+    trop_model: str = "OFF"        # OFF | Saastamoinen
+    iono_alpha: tuple = (0.0, 0.0, 0.0, 0.0)
+    iono_beta: tuple = (0.0, 0.0, 0.0, 0.0)
+    # PVT.raim_fde (rtklib_pvt.cc -> rtklib raim_fde()): residual-driven
+    # fault detection + exclusion; a satellite whose pseudorange residual
+    # exceeds the threshold is excluded and the epoch re-solved
+    raim_fde: bool = False
+    raim_threshold_m: float = 30.0
+    raim_max_exclusions: int = 2
     # receiver antenna attitude (fork feature, rtklib_pvt.cc:92-94 ->
     # rtklib satazel/enu2ant): the elevation mask is evaluated in the
     # ANTENNA frame whose boresight points (az, el); the default
@@ -67,16 +77,17 @@ class PvtSolution:
 
 def solve_pvt(obs, prns, ephemerides: dict, conf: PvtConf = PvtConf(),
               x0=None, systems=None, carrier_freq_hz=None,
-              exclude_channels=(), fixed_clock_bias_s=None) -> PvtSolution:
+              exclude_channels=(), fixed_clock_bias_s=None,
+              sbas_corrections=None) -> PvtSolution:
     """Solve position/time (+velocity) from one ObservationEpoch.
 
     obs: models.observables.ObservationEpoch
     prns: [C] channel -> PRN mapping
-    ephemerides: {prn: GpsEphemeris} for GPS; Galileo under ("Galileo",
-      prn) keys
+    ephemerides: {prn: GpsEphemeris} for GPS; other constellations under
+      (system, prn) keys
     systems: optional [C] channel -> constellation (default all "GPS");
       mixed-constellation epochs assume a common timescale (GGTO = 0, true
-      for the simulator)
+      for the simulator; broadcast GGTO is an extension hook)
     exclude_channels: channels never used in the solution (the hybrid
       pseudolite channel — its observable is a time-transfer product, not
       a navigation range; rtklib_pvt_gs.cc:2346 erases it from the map)
@@ -85,10 +96,6 @@ def solve_pvt(obs, prns, ephemerides: dict, conf: PvtConf = PvtConf(),
       (enable_rx_clock_propagation, rtklib_pvt_gs.cc:2444).  Needs >= 3
       satellites.
     """
-    if conf.iono_model != "OFF" or conf.trop_model != "OFF":
-        raise NotImplementedError(
-            "atmospheric models are not ported: iono_model and trop_model "
-            "must be OFF")
     prns = np.asarray(prns)
     if systems is None:
         systems = ["GPS"] * len(prns)
@@ -119,6 +126,18 @@ def solve_pvt(obs, prns, ephemerides: dict, conf: PvtConf = PvtConf(),
         # single-frequency group delay: dt_sv(L1) = dt_sv - T_GD
         # (IS-GPS-200 20.3.3.3.3.2; Galileo BGD is the same form)
         sat_clk = sat_clk - np.array([e.tgd for e in ephs])
+    if sbas_corrections is not None:
+        # SBAS fast + long-term corrections (DO-229 A.4.4.3/.7;
+        # rtklib_sbas.cc sbssatcorr): PR += PRC, sat state += deltas
+        for k in range(len(idx)):
+            if systems[idx[k]] != "GPS":
+                continue
+            prn_k = int(prns[idx[k]])
+            pr[k] += sbas_corrections.code_correction_m(prn_k)
+            lt = sbas_corrections.sat_correction(prn_k)
+            if lt is not None:
+                sat_pos[k] = sat_pos[k] + lt[0]
+                sat_clk[k] = sat_clk[k] + lt[1]
 
     # iterated LS for (x, y, z, c dtr) — or (x, y, z) with the clock held
     # at the propagated value
@@ -129,6 +148,8 @@ def solve_pvt(obs, prns, ephemerides: dict, conf: PvtConf = PvtConf(),
     if clock_fixed:
         x[3] = C * fixed_clock_bias_s
     el_mask_applied = np.ones(len(idx), bool)
+    atm = np.zeros(len(idx))
+    atm_done = False
     for it in range(10):
         # Sagnac: rotate SV positions into the ECEF frame at reception
         # (vectorized over satellites)
@@ -142,7 +163,39 @@ def solve_pvt(obs, prns, ephemerides: dict, conf: PvtConf = PvtConf(),
         rng = np.linalg.norm(d, axis=1)
         h = np.concatenate([-d / rng[:, None],
                             np.ones((len(idx), 1))], axis=1)
-        resid = pr - (rng + x[3] - C * sat_clk)
+        # atmospheric corrections once roughly converged (rtklib pntpos
+        # ionocorr/tropcorr); the geometry moves < mm afterwards, so they
+        # are computed once and reused by later iterations
+        if it >= 3 and not atm_done and (conf.iono_model != "OFF"
+                                         or conf.trop_model != "OFF"
+                                         or sbas_corrections is not None):
+            atm_done = True
+            lat_i, lon_i, h_i = geodesy.ecef_to_llh(x[:3])
+            for k in range(len(idx)):
+                el, az = geodesy.elevation_azimuth(x[:3], sat_pos[k])
+                el = max(el, np.radians(5.0))
+                sbas_iono = None
+                if sbas_corrections is not None:
+                    # pierce point at 350 km (DO-229 A.4.4.10)
+                    re, hi = 6378136.3, 350e3
+                    psi = (np.pi / 2 - el
+                           - np.arcsin(re / (re + hi) * np.cos(el)))
+                    lat_ipp = np.arcsin(
+                        np.sin(lat_i) * np.cos(psi)
+                        + np.cos(lat_i) * np.sin(psi) * np.cos(az))
+                    lon_ipp = lon_i + np.arcsin(
+                        np.sin(psi) * np.sin(az) / np.cos(lat_ipp))
+                    sbas_iono = sbas_corrections.iono_delay_m(
+                        np.degrees(lat_ipp), np.degrees(lon_ipp), el)
+                if sbas_iono is not None:
+                    atm[k] += sbas_iono    # SBAS grid replaces Klobuchar
+                elif conf.iono_model == "Broadcast":
+                    atm[k] += klobuchar_delay(conf.iono_alpha,
+                                              conf.iono_beta, lat_i, lon_i,
+                                              el, az, tow_tx_s[k])
+                if conf.trop_model == "Saastamoinen":
+                    atm[k] += saastamoinen_delay(lat_i, h_i, el)
+        resid = pr - (rng + x[3] - C * sat_clk + atm)
         sel = el_mask_applied
         if sel.sum() < min_sats:
             return bad
@@ -218,3 +271,34 @@ def solve_pvt(obs, prns, ephemerides: dict, conf: PvtConf = PvtConf(),
         gdop=gdop, pdop=pdop, hdop=hdop, vdop=vdop,
         n_sats=int(sel.sum()), residuals_m=resid_final,
         used_channels=np.asarray(idx)[sel])
+
+
+def solve_pvt_raim(obs, prns, ephemerides: dict, conf: PvtConf,
+                   **kw) -> PvtSolution:
+    """RAIM fault detection and exclusion around solve_pvt (the
+    PVT.raim_fde=true path of rtklib_pvt.cc -> rtklib.cc raim_fde): when
+    the worst pseudorange residual exceeds conf.raim_threshold_m and
+    redundancy allows, exclude that satellite's channel and re-solve;
+    keep the exclusion only if it shrinks the worst residual."""
+    excl = list(kw.pop("exclude_channels", ()))
+    sol = solve_pvt(obs, prns, ephemerides, conf,
+                    exclude_channels=tuple(excl), **kw)
+    if not conf.raim_fde:
+        return sol
+    for _ in range(conf.raim_max_exclusions):
+        if not sol.valid or sol.n_sats <= 5 \
+                or sol.used_channels is None:
+            break
+        k = int(np.argmax(np.abs(sol.residuals_m)))
+        worst = float(abs(sol.residuals_m[k]))
+        if worst <= conf.raim_threshold_m:
+            break
+        trial = excl + [int(sol.used_channels[k])]
+        sol2 = solve_pvt(obs, prns, ephemerides, conf,
+                         exclude_channels=tuple(trial), **kw)
+        if (sol2.valid
+                and float(np.abs(sol2.residuals_m).max()) < worst):
+            excl, sol = trial, sol2
+        else:
+            break
+    return sol

@@ -2,8 +2,9 @@
 ``gnss_sim_receiver_tpu.models.receiver`` for the GPS L1 C/A ("1C"),
 Galileo E1-B ("1B"), GPS L2C CM ("2S"), GPS L5I ("L5"), Galileo E5a-I
 ("5X"), Galileo E5b-I ("7X"), Galileo E6-B ("E6"), GLONASS L1 and L2 C/A
-("1G", "2G", one chain per FDMA slot), BeiDou B1I ("B1") and BeiDou B3I
-("B3") signal chains, the batch entry point and the live session.
+("1G", "2G", one chain per FDMA slot), BeiDou B1I ("B1"), BeiDou B3I
+("B3") and SBAS L1 ("S1") signal chains, the batch entry point and the
+live session.
 
 The receiver runs one *signal chain* per configured signal — the
 reference's per-signal channel groups (Channels_1C.count /
@@ -19,7 +20,9 @@ resampler).
 Host-side orchestration of every chain — acquisition scheduling with
 re-acquisition and satellite rotation, acquisition -> tracking handoff,
 chunked tracking over the capture, telemetry, observables ticks and
-least-squares PVT, and the fork's pseudolite hybrid navigation (a
+least-squares PVT (the broadcast iono feed, SBAS corrections and MT9's
+GEO ephemeris, RAIM, the PVT Kalman filter), and the fork's pseudolite
+hybrid navigation (a
 designated channel feeds AOWR time transfer instead of the fix, the rx
 clock held after enough fixes, models/hybrid.py) — driven by the
 AcquisitionManager event model
@@ -55,16 +58,20 @@ from gnss_sim_receiver_tpu_torch.models.hybrid import (AowrConf,
                                                        AowrTimeTransfer)
 from gnss_sim_receiver_tpu_torch.models.observables import (
     ObsConf, ObservablesEngine)
-from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf, solve_pvt
+from gnss_sim_receiver_tpu_torch.models.pvt import (PvtConf, solve_pvt,
+                                                    solve_pvt_raim)
+from gnss_sim_receiver_tpu_torch.models.pvt_kf import PvtKf
 from gnss_sim_receiver_tpu_torch.models.telemetry import (
     BeidouB1iTelemetryDecoder, GalileoE1bTelemetryDecoder,
     GalileoE5aTelemetryDecoder, GalileoE5bTelemetryDecoder,
     GalileoE6bTelemetryDecoder, GalileoTowMap, GlonassTelemetryDecoder,
-    GpsCnavTelemetryDecoder, TelemetryDecoder)
+    GpsCnavTelemetryDecoder, SbasL1TelemetryDecoder, TelemetryDecoder)
 from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
                                                          TrackingEngine)
 from gnss_sim_receiver_tpu_torch.nav.ephemeris import (adj_gps_week,
                                                        almanac_to_ephemeris)
+from gnss_sim_receiver_tpu_torch.nav.sbas import (SbasCorrections,
+                                                  SbasGeoEphemeris)
 from gnss_sim_receiver_tpu_torch.utils import geodesy
 
 
@@ -73,7 +80,7 @@ class SignalChainConf:
     """One per-signal channel group (the reference's Channels_<sig> block +
     its Acquisition_<sig>/Tracking_<sig> engine parameters)."""
     # "1C" | "1B" | "2S" | "L5" | "5X" | "7X" | "E6" | "1G" | "2G" | "B1"
-    # | "B3"
+    # | "B3" | "S1"
     signal: str = "1C"
     system: str = "GPS"
     prns: tuple = tuple(range(1, 33))
@@ -128,6 +135,8 @@ class SignalChainConf:
                 day_base_s=self.day_base_s)
         if self.signal == "E6":
             return GalileoE6bTelemetryDecoder(prns)
+        if self.signal == "S1":
+            return SbasL1TelemetryDecoder(prns)
         raise NotImplementedError(f"signal chain {self.signal} is not ported")
 
 
@@ -390,6 +399,34 @@ def glonass_l2_chain(fs: float, prns, freq_slot: int = 0,
                           n_channels, day_base_s, True, trk_overrides)
 
 
+def sbas_l1_chain(fs: float, prns=tuple(range(120, 139)), n_channels=2,
+                  **trk_overrides) -> SignalChainConf:
+    """SBAS L1 chain: GPS C/A chip plan on PRN 120-138, 500-sps conv-coded
+    symbols (2 epochs each) — the reference's SBAS_L1_* blocks
+    (sbas_l1_telemetry_decoder.cc adapter).  The symbols flip every 2
+    epochs at worst: the FLL pull-in runs decision-directed (JAX's chain
+    sets it so, whatever its docstring says) and the rectified lock test
+    handles the zero-mean symbol stream."""
+    sig = signals.SBAS_L1
+    trk_kw = dict(
+        fs=fs, code_rate_cps=sig.chip_rate_cps,
+        code_length_chips=sig.code_length_chips,
+        carrier_freq_hz=sig.carrier_freq_hz,
+        early_late_space_chips=0.5, pll_bw_hz=40.0,
+        lock_rectify=True, enable_fll_pullin=True,
+        fll_decision_directed=True)
+    trk_kw.update(trk_overrides)
+    return SignalChainConf(
+        signal="S1", system="SBAS", prns=tuple(prns),
+        n_channels=n_channels, max_acq_channels=n_channels,
+        acq=AcqConf(fs_in=fs, sampled_ms=1, doppler_max=5000.0,
+                    doppler_step=250.0, max_dwells=2, make_two_steps=True,
+                    doppler_step2=62.5, bit_transition_flag=True),
+        trk=TrackingConf(**trk_kw),
+        code_provider=signals.CodeProvider("S1"),
+        sc_rate=sig.chip_rate_cps)
+
+
 @dataclasses.dataclass
 class ReceiverConf:
     fs: float = 2_000_000.0
@@ -407,6 +444,7 @@ class ReceiverConf:
     # every output_rate_ms; the solver runs only on epochs aligned to
     # pvt_rate_ms.  0 = solve on every observable epoch.
     pvt_rate_ms: int = 0
+    enable_pvt_kf: bool = False        # PVT.enable_pvt_kf (Pvt_Kf analogue)
     chains: tuple = ()                # SignalChainConfs beyond GPS L1;
     # set gps_chain=False to drop the implicit GPS L1 chain entirely
     gps_chain: bool = True
@@ -513,6 +551,7 @@ class _ChainRt:
         self.done = 0
         self.total = 0
         self.decim = 1                # set by the session (tick stride)
+        self.sbas_consumed = 0        # messages already fed to corrections
         self.pending_resets = []      # (channel, prn) TLM/obs resets to
         #                               apply after the in-flight chunk
         # per-channel epochs since start_tracking
@@ -645,6 +684,14 @@ class ReceiverSession:
         self.last_fix = None
         self.last_fix_time = None
         self.n_fixes = 0
+        self.pvt_kf = PvtKf() if conf.enable_pvt_kf else None
+        # SBAS corrections state, fed from S1-chain messages and applied
+        # in PVT (rtklib_sbas.cc sbssatcorr/sbsioncorr roles); MT9 GEO
+        # navigation becomes an ("SBAS", prn) ephemeris so the GEO itself
+        # ranges like any satellite
+        self.sbas_corr = (SbasCorrections()
+                          if any(rt.spec.signal == "S1" for rt in chains)
+                          else None)
         self.aowr = None
         if conf.hybrid_mode and conf.ps_channel >= 0:
             # carrier-phase aiding scales by the ps channel's own signal
@@ -1201,6 +1248,7 @@ class ReceiverSession:
         self.obs_eng.push_epochs(outs, tlm_obs, channel_offset=rt.offset)
         self._tow_seen[rt.offset:rt.offset + spec.n_channels] |= \
             tlm_obs.tow_valid.any(axis=0)
+        self._feed_iono(rt)
         # publish each tracked satellite's Doppler for the other bands'
         # assisted acquisitions
         valid_last = outs.get("valid_ungated", outs["valid"])[-1]
@@ -1209,6 +1257,8 @@ class ReceiverSession:
             if valid_last[c]:
                 self.doppler_map[(spec.system, rt.mgr.channels[c].prn)] = (
                     float(dop_last[c]), spec.trk.carrier_freq_hz)
+        if spec.signal == "S1" and self.sbas_corr is not None:
+            self._feed_sbas(rt)
         if rt.pending_resets:
             for c, prn in rt.pending_resets:
                 rt.tlm.reset_channel(c, prn, epoch_base=rt.epoch_base[c])
@@ -1277,6 +1327,33 @@ class ReceiverSession:
                            if quiet else 1)
         return advanced
 
+    def _feed_iono(self, rt) -> None:
+        """The chain's decoded broadcast iono feeds the Klobuchar model, in
+        place (gps_navigation_message iono -> rtklib ionocorr path): a
+        PvtConf shared by several receivers carries it over, as in JAX."""
+        iono = getattr(rt.tlm, "iono_utc", None)
+        if iono and self.conf.pvt.iono_model == "Broadcast":
+            self.conf.pvt.iono_alpha = tuple(
+                iono.get(f"alpha{i}", 0.0) for i in range(4))
+            self.conf.pvt.iono_beta = tuple(
+                iono.get(f"beta{i}", 0.0) for i in range(4))
+
+    def _feed_sbas(self, rt) -> None:
+        """An S1 chain's new messages (CRC passed) into the correction
+        state; MT9 GEO navigation published as the ("SBAS", prn)
+        ephemeris, so the GEO ranges once its channel has TOW."""
+        msgs = rt.tlm.messages
+        for c, prn, ev in msgs[rt.sbas_consumed:]:
+            if not ev.crc_ok:
+                continue
+            self.sbas_corr.push(ev)
+            if ev.msg_type == 9:
+                nav = rt.tlm.geo_nav(c)
+                if nav is not None:
+                    self.ephemerides[("SBAS", prn)] = SbasGeoEphemeris(
+                        prn, nav)
+        rt.sbas_consumed = len(msgs)
+
     def _store_eph(self, rt, eph) -> None:
         """Adopt a decoded ephemeris under the chain's key, resolving the
         10-bit GPS week (adjgpsweek + GNSS-SDR.pre_2009_file)."""
@@ -1321,14 +1398,18 @@ class ReceiverSession:
                 dt = epoch.rx_time_s - self.last_fix_time
                 fixed_clk = (self.last_fix.rx_clock_bias_s
                              + self.last_fix.rx_clock_drift_ss * dt)
-            sol = solve_pvt(epoch, prn_map, self.ephemerides, conf.pvt,
-                            x0=None if self.last_fix is None
-                            else self.last_fix.rx_ecef_m,
-                            systems=sys_map, carrier_freq_hz=self.freq_map,
-                            exclude_channels=excl,
-                            fixed_clock_bias_s=fixed_clk)
+            solver = solve_pvt_raim if conf.pvt.raim_fde else solve_pvt
+            sol = solver(epoch, prn_map, self.ephemerides, conf.pvt,
+                         x0=None if self.last_fix is None
+                         else self.last_fix.rx_ecef_m,
+                         systems=sys_map, carrier_freq_hz=self.freq_map,
+                         exclude_channels=excl,
+                         fixed_clock_bias_s=fixed_clk,
+                         sbas_corrections=self.sbas_corr)
             if not sol.valid:
                 continue
+            if self.pvt_kf is not None:
+                self.pvt_kf.update(sol)
             self.last_fix = sol
             self.last_fix_time = epoch.rx_time_s
             self.n_fixes += 1

@@ -12,9 +12,8 @@ prompt-symbol batches").
 
 GPS LNAV, Galileo E1-B I/NAV, GPS L2C and L5 CNAV, Galileo E5a F/NAV,
 Galileo E5b I/NAV, GLONASS GNAV, Galileo E6-B C/NAV (HAS, with the
-cross-band Galileo TOW map) and BeiDou D1/D2 decoders copied from
-``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port; the SBAS
-decoder waits for a later slice."""
+cross-band Galileo TOW map), BeiDou D1/D2 and SBAS L1 decoders copied
+from ``gnss_sim_receiver_tpu.models.telemetry`` for the PyTorch port."""
 
 from __future__ import annotations
 
@@ -38,6 +37,8 @@ from gnss_sim_receiver_tpu_torch.nav.gnav import (
     GnavStringDecoder, strings_to_glonass_ephemeris)
 from gnss_sim_receiver_tpu_torch.nav.has import HasMessageAssembler
 from gnss_sim_receiver_tpu_torch.nav.inav import InavPageDecoder
+from gnss_sim_receiver_tpu_torch.nav.sbas import (SbasMessageDecoder,
+                                                  parse_mt12)
 from gnss_sim_receiver_tpu_torch.ops.prn_codes_multi import BEIDOU_NH20
 
 CODES_PER_BIT = 20
@@ -896,3 +897,125 @@ class BeidouB1iTelemetryDecoder:
         if st.ephemeris is None or st.ephemeris.toe != eph.toe:
             st.ephemeris = eph
             new_eph.append((c, eph))
+
+
+# ---------------------------------------------------------------------------
+# SBAS L1 telemetry — sbas_l1_telemetry_decoder_gs role
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _SbasChannelTlmState:
+    epoch_count: int = 0
+    symbol_base: int = -1
+    # epoch->symbol pairing resolved by correlating adjacent epoch
+    # products at both alignments (the reference's Sample_Aligner,
+    # sbas_l1_telemetry_decoder_gs.cc:115-170): the aligned pairing
+    # multiplies two epochs of the SAME symbol (positive product), the
+    # misaligned one straddles symbol boundaries; epochs buffer in `pend`
+    # until the vote has enough margin, then one decoder runs
+    decoder: object = None
+    pend: list = dataclasses.field(default_factory=list)
+    corr_paired: float = 0.0     # sum e[2k]   * e[2k+1]
+    corr_shift: float = 0.0      # sum e[2k+1] * e[2k+2]
+    n_voted: int = 0
+    phase: int | None = None
+    pend_base: int = -1          # global epoch index of pend[0]
+    n_sym_fed: int = 0           # symbols fed to the message decoder
+    # MT12-anchored GPS time (enables ranging on the GEO): epoch index +
+    # TOW of a message-start second boundary
+    anchor_epoch: int | None = None
+    anchor_tow_ms: float = 0.0
+
+
+class SbasL1TelemetryDecoder:
+    """Consumes TrackingEngine outputs for SBAS L1 channels (1 ms code
+    epochs; 500-sps rate-1/2-coded symbols spanning 2 epochs each) and
+    produces decoded SBAS messages (self.messages: (channel, prn,
+    SbasMessageEvent)) + per-channel MT9 GEO navigation (self.geo_nav).
+
+    TOW: a channel stamps its epochs once an MT12 (GPS time) message has
+    anchored it, from the epoch its message starts on; before that, and
+    without MT12, tow_at_epoch_ms stays NaN (the reference's SBAS
+    channels only publish messages)."""
+
+    EPOCHS_PER_SYMBOL = 2
+    EPOCH_MS = 1.0
+
+    def __init__(self, prns):
+        self.prns = [int(p) for p in prns]
+        self.ch = [self._new_state() for _ in self.prns]
+        self.messages = []
+
+    @staticmethod
+    def _new_state():
+        return _SbasChannelTlmState(decoder=SbasMessageDecoder())
+
+    def reset_channel(self, c: int, prn: int | None = None,
+                      epoch_base: int | None = None) -> None:
+        st = self._new_state()
+        if epoch_base is not None:
+            st.epoch_count = epoch_base
+        self.ch[c] = st
+        if prn is not None:
+            self.prns[c] = int(prn)
+
+    def geo_nav(self, c: int):
+        """Latest MT9 GEO navigation decoded on channel c (or None)."""
+        return self.ch[c].decoder.geo_nav
+
+    def process(self, track_outs: dict) -> TelemetryOutputs:
+        prompts = track_outs["prompt"]
+        valid = track_outs["valid"]
+        t_len, n_ch = prompts.shape
+        tow = np.full((t_len, n_ch), np.nan)
+        for c in range(n_ch):
+            st = self.ch[c]
+            # anchor BEFORE this batch's decodes: gating must be
+            # row-exact whatever the chunk sizes (same rule as the
+            # LNAV/INAV/GNAV decoders' anchor0)
+            anchor0 = st.anchor_epoch
+            pi, base, v = _collect_column(st, prompts[:, c], valid[:, c])
+            if len(pi) and not st.pend:
+                st.pend_base = base + int(np.argmax(v))
+            st.pend.extend(pi.tolist())
+            if st.phase is None:
+                # pairing vote over the buffered epochs (Sample_Aligner)
+                e = np.asarray(st.pend, np.float64)
+                if len(e) >= 3:
+                    st.corr_paired = float(
+                        (e[0:-1:2] * e[1::2]).sum())
+                    st.corr_shift = float(
+                        (e[1:-1:2] * e[2::2]).sum())
+                    st.n_voted = len(e)
+                if st.n_voted < 64:
+                    continue
+                hi = max(st.corr_paired, st.corr_shift)
+                lo = min(st.corr_paired, st.corr_shift)
+                if hi <= 0 or hi - lo < 0.5 * abs(hi):
+                    continue             # ambiguous, keep buffering
+                st.phase = 0 if st.corr_paired >= st.corr_shift else 1
+                del st.pend[:st.phase]   # odd pairing drops one epoch
+                st.pend_base += st.phase
+            n_sym = len(st.pend) // 2
+            if not n_sym:
+                continue
+            syms = np.asarray(st.pend[:2 * n_sym], np.float64
+                              ).reshape(-1, 2).sum(axis=1)
+            # decoder symbol s starts at global epoch sym_epoch0 + 2 s
+            sym_epoch0 = st.pend_base - 2 * st.n_sym_fed
+            del st.pend[:2 * n_sym]
+            st.pend_base += 2 * n_sym
+            st.n_sym_fed += n_sym
+            for ev in st.decoder.push_symbols(syms):
+                self.messages.append((c, self.prns[c], ev))
+                if ev.crc_ok and ev.msg_type == 12:
+                    # MT12 GPS-time anchor: the message starts on a whole
+                    # SBAS-network second == its broadcast GPS TOW
+                    tow_s, _wk = parse_mt12(ev.payload)
+                    st.anchor_epoch = sym_epoch0 + 2 * ev.start_symbol
+                    st.anchor_tow_ms = tow_s * 1000.0
+            _stamp_tow_column(tow[:, c], v, base, st, self.EPOCH_MS,
+                              after_anchor=True, anchor0=anchor0)
+        return TelemetryOutputs(tow_at_epoch_ms=tow,
+                                tow_valid=~np.isnan(tow),
+                                new_ephemerides=[])

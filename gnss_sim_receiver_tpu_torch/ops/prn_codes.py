@@ -1,7 +1,7 @@
 """PRN spreading-code generation.
 
-Host-side (NumPy) generation of the GPS L1 C/A local replica codes, a
-trimmed copy of ``gnss_sim_receiver_tpu.ops.prn_codes``: codes are produced
+Host-side (NumPy) generation of the GPS L1 C/A and SBAS L1 local replica
+codes, a trimmed copy of ``gnss_sim_receiver_tpu.ops.prn_codes``: codes are produced
 once at channel setup and live on the device as constant tables afterwards,
 so this is not a hot path.  Built from the public ICD definitions
 (IS-GPS-200 G1/G2 LFSRs + G2 delay table).
@@ -57,6 +57,31 @@ def _gps_ca_bits(prn: int) -> np.ndarray:
     delay = _GPS_CA_G2_DELAYS[prn - 1]
     g2_delayed = np.roll(g2, delay)
     return (g1 ^ g2_delayed).astype(np.int8)
+
+
+# SBAS L1 C/A G2 delays (chips) for PRN 120..138, DO-229 / same family as
+# GPS C/A (reference gps_sdr_signal_replica.cc delays[119..137])
+_SBAS_G2_DELAYS = (
+    145, 175, 52, 21, 237, 235, 886, 657, 634, 762,
+    355, 1012, 176, 603, 130, 359, 595, 68, 386,
+)
+
+
+@functools.lru_cache(maxsize=32)
+def _sbas_l1_bits(prn: int) -> np.ndarray:
+    """SBAS L1 code bits {0,1} for PRN 120..138 (same G1/G2 generators as
+    GPS C/A with the DO-229 delay assignments)."""
+    if not 120 <= prn <= 138:
+        raise ValueError(f"SBAS PRN out of range: {prn}")
+    g1 = _lfsr((3, 10), GPS_CA_CODE_LENGTH)
+    g2 = _lfsr((2, 3, 6, 8, 9, 10), GPS_CA_CODE_LENGTH)
+    g2_delayed = np.roll(g2, _SBAS_G2_DELAYS[prn - 120])
+    return (g1 ^ g2_delayed).astype(np.int8)
+
+
+def sbas_l1_code(prn: int) -> np.ndarray:
+    """SBAS L1 C/A code as +-1 float32 for PRN 120..138."""
+    return (2.0 * _sbas_l1_bits(prn) - 1.0).astype(np.float32)
 
 
 def gps_l1_ca_code(prn: int, chip_shift: int = 0) -> np.ndarray:

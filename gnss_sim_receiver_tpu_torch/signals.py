@@ -1,8 +1,8 @@
 """Signal definitions: per-signal code tables and rates for the batched
 engines, a copy of the GPS L1 C/A, GPS L2C (CM), GPS L5, Galileo E1,
-Galileo E5a, Galileo E5b, Galileo E6-B, GLONASS L1/L2 C/A, BeiDou B1I and
-BeiDou B3I parts of ``gnss_sim_receiver_tpu.signals`` for the PyTorch
-port.
+Galileo E5a, Galileo E5b, Galileo E6-B, GLONASS L1/L2 C/A, BeiDou B1I,
+BeiDou B3I and SBAS L1 parts of ``gnss_sim_receiver_tpu.signals`` for the
+PyTorch port.
 
 The acquisition and tracking engines are signal-agnostic: they consume a
 "sub-chip" table (the spreading waveform sampled at sc_rate, one entry per
@@ -38,9 +38,9 @@ from gnss_sim_receiver_tpu_torch.ops import prn_codes, prn_codes_multi
 
 @dataclasses.dataclass(frozen=True)
 class SignalDef:
-    system: str          # "GPS" | "Galileo" | "GLONASS" | "BeiDou"
+    system: str          # "GPS" | "Galileo" | "GLONASS" | "BeiDou" | "SBAS"
     # "1C" | "1B" | "2S" | "L5" | "5X" | "7X" | "E6" | "1G" | "2G" | "B1"
-    # | "B3"
+    # | "B3" | "S1"
     signal: str
     carrier_freq_hz: float
     chip_rate_cps: float        # ICD chip rate
@@ -104,6 +104,12 @@ BEIDOU_B3I = SignalDef("BeiDou", "B3", constants.BEIDOU_B3I_FREQ_HZ,
 # gnss_block_factory.cc:1012,1150)
 GALILEO_E6B = SignalDef("Galileo", "E6", constants.GALILEO_E6_FREQ_HZ,
                         constants.GALILEO_E6_CODE_RATE_CPS, 5115, 1, 1000.0)
+
+# SBAS L1: GPS C/A chip plan (PRN 120-138), 500 sps conv-coded symbols
+# spanning two 1 ms code epochs (reference signal "1C"/system SBAS,
+# sbas_l1_telemetry_decoder_gs.cc)
+SBAS_L1 = SignalDef("SBAS", "S1", constants.GPS_L1_FREQ_HZ,
+                    1.023e6, 1023, 1, 500.0)
 
 _DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -214,6 +220,8 @@ def subchip_table(sig: SignalDef, prn: int) -> np.ndarray:
         return prn_codes_multi.beidou_b3i_code(prn)
     if sig.signal == "E6":
         return galileo_e6_code(prn)
+    if sig.signal == "S1":
+        return prn_codes.sbas_l1_code(prn)
     raise NotImplementedError(f"signal {sig.signal} is not ported")
 
 
@@ -245,6 +253,6 @@ class CodeProvider:
 SIGNALS = {"1C": GPS_L1CA, "1B": GALILEO_E1B, "2S": GPS_L2C_CM,
            "L5": GPS_L5I, "5X": GALILEO_E5A_I, "7X": GALILEO_E5B_I,
            "1G": GLONASS_L1_CA, "2G": GLONASS_L2_CA, "B1": BEIDOU_B1I,
-           "B3": BEIDOU_B3I, "E6": GALILEO_E6B}
+           "B3": BEIDOU_B3I, "E6": GALILEO_E6B, "S1": SBAS_L1}
 # the pilot component of each signal that has one in the port
 PILOT_COMPONENT = {"1B": "C", "5X": "Q"}

@@ -19,9 +19,9 @@ Signal model per satellite (constant Doppler + optional rate):
   amplitude       = sqrt(10^(CN0/10) / fs)   with unit complex noise variance
 
 GPS L1 C/A, GPS L2C CM, GPS L5I, Galileo E1 (E1-B data, E1-C pilot),
-Galileo E5a-I, Galileo E5b-I, Galileo E6-B, GLONASS L1/L2 C/A, BeiDou B1I
-and BeiDou B3I copy of ``gnss_sim_receiver_tpu.sim.signal_generator`` for
-the PyTorch port:
+Galileo E5a-I, Galileo E5b-I, Galileo E6-B, GLONASS L1/L2 C/A, BeiDou B1I,
+BeiDou B3I and SBAS L1 copy of
+``gnss_sim_receiver_tpu.sim.signal_generator`` for the PyTorch port:
 the same arithmetic, so a capture synthesized here equals the JAX package's
 fixture sample for sample.
 """
@@ -45,6 +45,7 @@ class SatelliteSignalParams:
     system: str = "GPS"
     # "1C" | "1B" (E1-B) | "1P" (E1-C) | "2S" (L2C CM) | "L5" (L5I) |
     # "5X" (E5a-I) | "7X" (E5b-I) | "B1" (BeiDou B1I) | "B3" (BeiDou B3I)
+    # | "S1" (SBAS L1)
     signal: str = "1C"
     cn0_db_hz: float = 44.0
     doppler_hz: float = 0.0
@@ -124,6 +125,11 @@ def _sig_params(sat: SatelliteSignalParams):
         # (nav_bits = +-1 symbol signs, nav.cnav_e6.e6b_epoch_signs)
         return (sigdefs.galileo_e6_code(sat.prn).astype(np.int8),
                 constants.GALILEO_E6_CODE_RATE_CPS, 5115)
+    if sat.signal == "S1":
+        code = sigdefs.subchip_table(sigdefs.SBAS_L1, sat.prn).astype(np.int8)
+        # SBAS: nav_bits are per 1 ms code epoch (2 epochs per 500 sps
+        # symbol, nav.sbas.sbas_epoch_signs)
+        return code, sigdefs.SBAS_L1.chip_rate_cps, len(code)
     raise NotImplementedError(
         f"simulator signal {sat.system}/{sat.signal} is not ported")
 

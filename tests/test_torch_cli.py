@@ -182,8 +182,9 @@ def test_factory_refuses_unported_e1_keys(tmp_path, line):
 # keys these refusal tests once listed, now ported (the first-vs-second-
 # peak statistic and the fixed threshold; the fork's hybrid pseudolite
 # navigation, its rx clock keys and the pre-2009 week; the L2C, E5b, B1I,
-# B3I, E6-B and GLONASS chains), and the field each
-# sets: its chain's AcqConf's or TrackingConf's, or the ReceiverConf's
+# B3I, E6-B and GLONASS chains; the broadcast iono model, RAIM and the PVT
+# Kalman filter), and the field each sets: its chain's AcqConf's or
+# TrackingConf's, the PvtConf's, or the ReceiverConf's
 PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                ("use_cfar_algorithm", False),
                "Acquisition_1C.use_CFAR_algorithm=false":
@@ -215,15 +216,20 @@ PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                # chain (slot -7, PRNs 10 and 14, filled first)
                "Channels_E6.count=3": ("n_channels", 3),
                "Channels_1G.count=2": ("n_channels", 2),
-               "Channels_2G.count=1": ("n_channels", 1)}
+               "Channels_2G.count=1": ("n_channels", 1),
+               # the PVT modes: the PvtConf's fields, and the
+               # ReceiverConf's for the filter
+               "PVT.iono_model=Broadcast": ("iono_model", "Broadcast"),
+               "PVT.raim_fde=true": ("raim_fde", True),
+               "PVT.enable_pvt_kf=true": ("enable_pvt_kf", True)}
 
 
 def _check_ported_key(path, line):
     """The conf at `path` builds, in both packages, the same configuration,
     the key's value in its field: a Tracking_ key's in its chain's
-    TrackingConf, else the ReceiverConf's, else its chain's, else its
-    chain's AcqConf's.  A key that sets no field (None) is checked by
-    the equality alone."""
+    TrackingConf, a PVT. key's in the PvtConf, else the ReceiverConf's,
+    else its chain's, else its chain's AcqConf's.  A key that sets no field
+    (None) is checked by the equality alone."""
     ref = jfactory.receiver_conf_from_config(JaxFileConfiguration(path))
     got = factory.receiver_conf_from_config(FileConfiguration(path))
     assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
@@ -233,6 +239,9 @@ def _check_ported_key(path, line):
     if line.startswith("Tracking_"):
         trk = got.trk if "_1C." in line else got.chains[0].trk
         assert getattr(trk, field) == value
+        return
+    if line.startswith("PVT.") and hasattr(got.pvt, field):
+        assert getattr(got.pvt, field) == value
         return
     if hasattr(got, field):
         assert getattr(got, field) == value
@@ -362,7 +371,7 @@ def test_interop_refuses_fields_the_port_lacks():
      "SignalSource.implementation"),
     ("SignalSource.implementation=Labsat_Signal_Source",
      "SignalSource.implementation"),
-    ("Channels_S1.count=4", "Channels_S1.count"),
+    ("PVT.positioning_mode=PPP_Static", "PVT.positioning_mode"),
 ])
 def test_cli_stops_on_unported_features(tmp_path, capsys, line, key):
     """Exit code 2 and a message naming the key, before any file is read."""

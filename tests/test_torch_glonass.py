@@ -447,7 +447,8 @@ def test_factory_slot_chains_like_jax(count):
     slot in sorted slot order until the count is used (8: slots -7 to -2
     only), each centred on its slot, equal to the JAX factory's chains
     through interop, Channel<i>.satellite pinning counted in that order;
-    SBAS stays refused."""
+    an SBAS chain beside them comes last, as in JAX (it was refused until
+    the SBAS chain was ported)."""
     props = {"GNSS-SDR.internal_fs_sps": str(FS), "Channels_1C.count": "2",
              "Channels_1G.count": str(count), "Channels_2G.count": "3",
              "Channel5.satellite": "20"}
@@ -468,8 +469,12 @@ def test_factory_slot_chains_like_jax(count):
     assert [c.pinned for c in got.chains] == \
         [c.pinned for c in ref.chains]
     props["Channels_S1.count"] = "1"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        factory.receiver_conf_from_config(InMemoryConfiguration(props))
+    ref = jfactory.receiver_conf_from_config(JConfig(props))
+    got = factory.receiver_conf_from_config(InMemoryConfiguration(props))
+    assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    assert got.chains[-1].signal == "S1"
+    assert [c.pinned for c in got.chains] == \
+        [c.pinned for c in ref.chains]
 
 
 def test_glonass_fix_raises_like_jax():

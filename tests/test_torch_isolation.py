@@ -13,7 +13,9 @@ CPU, and its state carries across intact.
   their signals, builds the BeiDou B1I and B3I chains, simulates their
   signals and decodes D1 and D2 prompts, builds the Galileo E6-B and the
   GLONASS slot chains, simulates their signals and decodes a HAS message
-  and GNAV strings, in a process where both names cannot be imported, and
+  and GNAV strings, builds the SBAS chain with the PVT mode keys, decodes
+  SBAS messages into the corrections state and solves a fix with them, in
+  a process where both names cannot be imported, and
   opens no file of the JAX package: its Galileo code tables are its own
   package data, shipped by pyproject.toml;
 - the entry points raise without a card unless device="cpu" is passed;
@@ -362,6 +364,48 @@ out = tlm.process({"prompt": np.repeat(2.0 * sym - 1.0, 10).astype(
     np.complex64)[:, None], "valid": np.ones((10 * len(sym), 1), bool)})
 assert len(out.new_ephemerides) == 1
 assert out.new_ephemerides[0][1].freq_slot == -7
+# the SBAS slice: the S1 chain and the PVT mode keys from a conf, the
+# simulator's S1 signal, messages through the SBAS decoder (its encoder and
+# Viterbi decoder the port's nav/fec.py) into the corrections state, and a
+# fix with the atmosphere models, RAIM and the PVT Kalman filter
+from gnss_sim_receiver_tpu_torch.models.pvt import solve_pvt_raim
+from gnss_sim_receiver_tpu_torch.models.pvt_kf import PvtKf
+from gnss_sim_receiver_tpu_torch.models.telemetry import \
+    SbasL1TelemetryDecoder
+from gnss_sim_receiver_tpu_torch.nav import sbas
+conf = receiver_conf_from_config(InMemoryConfiguration({
+    "Channels_S1.count": "2", "PVT.iono_model": "Broadcast",
+    "PVT.trop_model": "Saastamoinen", "PVT.raim_fde": "true",
+    "Observables.smoothing_factor": "100", "PVT.enable_pvt_kf": "true"}))
+assert [c.signal for c in conf.chains] == ["S1"] and conf.enable_pvt_kf
+rng = np.random.default_rng(0)
+msgs = [(1, sbas.pack_mt1([1, 3, 4, 5])),
+        (2, sbas.pack_mt2([1.5, -2.0, 0.5, 3.0]))] + [
+    (63, rng.integers(0, 2, 212)) for _ in range(3)]
+signs = sbas.sbas_epoch_signs(sbas.symbols_for_messages(msgs))
+x = generate_baseband([SatelliteSignalParams(
+    prn=133, system="SBAS", signal="S1", nav_bits=signs)], 2e6, 8192,
+    noise=False)
+assert x.shape == (8192,) and np.isfinite(x).all()
+tlm = conf.chains[0].telemetry_decoder([133])
+assert isinstance(tlm, SbasL1TelemetryDecoder)
+tlm.process({"prompt": signs.astype(np.complex64)[:, None],
+             "valid": np.ones((len(signs), 1), bool)})
+corr = sbas.SbasCorrections()
+for _, _, ev in tlm.messages:
+    corr.push(ev)
+assert corr.fast_prc == {1: 1.5, 3: -2.0, 4: 0.5, 5: 3.0}, corr.fast_prc
+from gnss_sim_receiver_tpu_torch.models.observables import ObservationEpoch
+from gnss_sim_receiver_tpu_torch.nav.ephemeris import make_sky_constellation
+ephs = {e.prn: e for e in make_sky_constellation(40.0, -75.0, 346200.0)}
+prns = sorted(ephs)
+n = len(prns)
+ep = ObservationEpoch(345660.0, 0, np.ones(n, bool), np.full(n, 2.2e7),
+                      np.full(n, 345659930.0), np.zeros(n), np.zeros(n),
+                      np.full(n, 45.0))
+sol = solve_pvt_raim(ep, prns, ephs, conf.pvt, sbas_corrections=corr)
+if sol.valid:
+    PvtKf().update(sol)
 builtins.open = _open
 assert any(p.endswith("galileo_e1_codes.npz") for p in opened), opened
 assert any(p.endswith("galileo_e5a_codes.npz") for p in opened), opened

@@ -365,20 +365,18 @@ def test_lone_l2c_chain_cold_starts(dual_band, two_threads):
     assert f == F_L2 and abs(dop - DOP_L1 * F_RATIO) < 2.0
 
 
-# the JAX factory's signal group whose chain the port lacks (SBAS L1), and
-# the groups it has taken up since this test began (Galileo E6-B, GLONASS
-# L1 and L2 C/A); tests/test_factory_chains.py's MULTI_CONF holds the
-# first GLONASS one
-UNPORTED = ("S1",)
-NEWLY_PORTED = ("E6", "1G", "2G")
+# the signal groups the port has taken up since this test began (Galileo
+# E6-B, GLONASS L1 and L2 C/A, SBAS L1): the port's factory now lacks none
+# of the JAX factory's chains; tests/test_factory_chains.py's MULTI_CONF
+# holds the first GLONASS one
+NEWLY_PORTED = ("E6", "1G", "2G", "S1")
 
 
-def _multi_conf(drop=UNPORTED, add=()):
-    """tests/test_factory_chains.py's MULTI_CONF without the chains of
-    `drop` and with two channels of each signal in `add`."""
+def _multi_conf(add=()):
+    """tests/test_factory_chains.py's MULTI_CONF with two channels of each
+    signal in `add`."""
     from tests.test_factory_chains import MULTI_CONF
-    props = {k: v for k, v in MULTI_CONF.items()
-             if not any(f"_{s}." in k for s in drop)}
+    props = dict(MULTI_CONF)
     props.update({f"Channels_{s}.count": "2" for s in add})
     return props
 
@@ -416,11 +414,18 @@ def test_factory_builds_the_jax_chains():
                           ptlm.BeidouB1iTelemetryDecoder)
 
 
-@pytest.mark.parametrize("sig", NEWLY_PORTED + UNPORTED)
+@pytest.mark.parametrize("sig", NEWLY_PORTED)
 def test_factory_still_refuses_the_other_chains(sig):
-    """SBAS L1 is refused by its key, alone and beside each chain ported
-    since (E6-B, GLONASS L1, L2)."""
-    props = _multi_conf(add=tuple({sig, "S1"}))
-    with pytest.raises(NotImplementedError, match="not ported") as err:
-        factory.receiver_conf_from_config(InMemoryConfiguration(props))
-    assert "Channels_S1.count" in str(err.value)
+    """SBAS L1, once refused by its key alone and beside each chain ported
+    since (E6-B, GLONASS L1, L2), now builds: alone and beside each, the
+    JAX factory's chains (compared through interop), the S1 chain last in
+    ALL_SIGNALS order with the SBAS decoder."""
+    props = _multi_conf(add=tuple(sorted({sig, "S1"})))
+    ref = jfactory.receiver_conf_from_config(JConfig(props))
+    got = factory.receiver_conf_from_config(InMemoryConfiguration(props))
+    assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    s1 = got.chains[-1]
+    assert (s1.signal, s1.system, s1.n_channels) == ("S1", "SBAS", 2)
+    assert sum(c.signal == "S1" for c in got.chains) == 1
+    assert isinstance(s1.telemetry_decoder([120, 133]),
+                      ptlm.SbasL1TelemetryDecoder)
