@@ -309,6 +309,27 @@ Phases (any failure exits non-zero, before the result line):
    holds the S1 search at 2 Msps, the block step at the S1 chain's C=2,
    the chunk kernel's rectify form at 2000 samples an epoch and K6 on
    both skies.
+19. the PVT modes beyond the single-point fix (its own seconds printed),
+   on phase 4's sky at 2 Msps made by K6: (a) RTK through the CLI, a 44 s
+   base at 55 dB-Hz through process_array, its observables written as a
+   RINEX obs file, a 40 s rover 6, 3, 0.5 m east, north, up of it written
+   as ishort, through PVT.positioning_mode=RTK_Static with the base file
+   and position (the rover decodes its own ephemerides): at the last
+   fixed epoch the fixed baseline within 5 cm (tests/test_rtk_e2e.py's
+   bound) and its float within 1.1 times the JAX receiver's on this
+   capture, which is over the test's 0.8 m there (the float climbs,
+   ROADMAP.md queue 3); (b) the base run as RTCM MSM7, 1019 and 1005
+   frames over 127.0.0.1, decoded (the same bytes, the station within
+   1 mm, the same ephemerides) and fed to the rover's first 20 s through
+   process_array: fixed within 5 cm, its float within 0.8 m; (c)
+   PPP_Static on 16 s at 50 dB-Hz with the sky's ephemerides: the last
+   solution within 10 m; (d) the orbital EKF on the same capture: its
+   3D error (mean, largest, mean after 2 s) within 1.25 times the JAX
+   receiver's on this capture, and after 2 s under 0.9 of its own LS
+   fixes'.  The JAX figures come from the captures as the card makes
+   them, rebuilt on the CPU (python -m tests.test_torch_rtk).  Its
+   receivers run phase 4's GPS shapes (phase 3 holds them); their
+   launches join those rows.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -9704,6 +9725,397 @@ def check_sbas_shapes(dev, card: str, rows: list, extra: list) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 19: the PVT modes beyond the single-point fix --------------------
+
+# tests/fixtures.py's RTK pair, the port's own copy of its constants: phase
+# 4's sky (SCENARIO_PRNS at RX_LLH, T0, subframes 1, 2, 3) at a strong 55
+# dB-Hz (there the float solution converges within the capture), the rover
+# ROVER_ENU metres (east, north, up) from the base, both at 2 Msps
+RTK_CN0 = 55.0
+ROVER_ENU = (6.0, 3.0, 0.5)
+# 19(a): the base 44 s through process_array, the rover 40 s through the
+# CLI: the rover decodes its own ephemerides (the CLI has no assistance),
+# which takes up to ~24 s (tests/fixtures.py:61), and fixes after them
+RTK_BASE_DUR = 44.0
+RTK_ROVER_DUR = 40.0
+# 19(b): the rover's first 20 s over the RTCM stream, the decoder's
+# ephemerides given
+RTCM_ROVER_DUR = 20.0
+# tests/test_rtk_e2e.py:64-83's bounds on the last fixed epoch: the fixed
+# baseline within RTK_FIXED_TOL_M, its float within RTK_FLOAT_TOL_M.  The
+# float is code-driven and wanders with the DLL's sub-sample bias at 2 Msps
+# (ROADMAP.md queue 3).  On 19(a)'s capture, the card's own (K6's Philox
+# noise, reproduced on the CPU by python -m tests.test_torch_rtk), the JAX
+# receiver's float at the last fixed epoch is RTK_FLOAT_JAX_M, over
+# RTK_FLOAT_TOL_M: there (a) holds its float at the last fixed epoch to
+# RTK_FLOAT_MARGIN times the JAX receiver's reading, printed beside
+# RTK_FLOAT_TOL_M.  (b), the JAX test's own run (a 20 s rover with
+# ephemerides given), holds both bounds at its last fixed epoch.  Both
+# print the float over the fixed epochs of the last RTK_FLOAT_WINDOW_S.
+# The margin: over those epochs of (a) the port's float on the CPU runs
+# 0.096 m under to 0.070 m over the JAX receiver's (0.044 m under at the
+# last), on this capture
+RTK_FIXED_TOL_M = 0.05
+RTK_FLOAT_TOL_M = 0.8
+RTK_FLOAT_JAX_M = 0.9157
+RTK_FLOAT_MARGIN = 1.1
+RTK_FLOAT_WINDOW_S = 16.0
+# 19(c), (d): tests/test_ppp.py:79-95's scenario, 16 s at 50 dB-Hz, the
+# sky's ephemerides given
+PPP_DUR = 16.0
+PPP_CN0 = 50.0
+PPP_TOL_M = 10.0
+# 19(d): the JAX receiver's orbital EKF on the card's capture of (c)'s
+# scenario on the CPU (python -m tests.test_torch_rtk): the mean and the
+# largest 3D error over its solutions, EKF_JAX_MEAN_M and EKF_JAX_MAX_M
+# (the first), each held to EKF_MARGIN times; after its first EKF_SETTLE_S
+# its mean error EKF_JAX_LATE_M, EKF_JAX_BEATS_LS times the LS fixes' on
+# the same epochs: the port's EKF held to EKF_MARGIN times the former and
+# to EKF_BEATS_LS times its own LS fixes' error (an EKF that echoed the
+# fixes would read 1).  The port's on the CPU on this capture: 2.4805,
+# 6.5006, 2.0589 m and 0.7603 (its pseudoranges are not JAX's,
+# ROADMAP.md queue 3)
+EKF_JAX_MEAN_M = 2.6567
+EKF_JAX_MAX_M = 7.5883
+EKF_JAX_LATE_M = 2.1839
+EKF_JAX_BEATS_LS = 0.7834
+EKF_MARGIN = 1.25
+EKF_SETTLE_S = 2.0
+EKF_BEATS_LS = 0.9
+RTK_KERNELS = ("K6_device_generator", "K3_pcps_wipe", "K3_pcps_peak",
+               "K8a_block_prologue", "K1_K8b_K8a_block_step",
+               "K9_epoch_chunk")
+# the rover's and the PPP runs' conf: phase 4's search and tracking at
+# 2 Msps, read from a 2 Msps ishort file with no conditioning
+PVT_MODE_CONF = """\
+GNSS-SDR.internal_fs_sps=2000000
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={capture}
+SignalSource.item_type=ishort
+SignalSource.sampling_frequency=2000000
+Channels_1C.count=8
+Channels.in_acquisition=8
+Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition
+Acquisition_1C.pfa=0.01
+Acquisition_1C.max_dwells=2
+Acquisition_1C.make_two_steps=true
+Acquisition_1C.second_nbins=4
+Acquisition_1C.second_doppler_step=125
+Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking
+PVT.output_rate_ms=20
+"""
+
+
+def rover_true_ecef():
+    """tests/fixtures.py's rover: ROVER_ENU from the base (RX_LLH)."""
+    base = np.asarray(rx_true_ecef())
+    up = base / np.linalg.norm(base)
+    east = np.cross([0.0, 0.0, 1.0], up)
+    east /= np.linalg.norm(east)
+    north = np.cross(up, east)
+    e, n, u = ROVER_ENU
+    return base + e * east + n * north + u * up
+
+
+def sky_capture(wrappers, rx_ecef, dur: float, cn0: float, seed: int):
+    """K6's capture of phase 4's sky (LNAV subframes 1, 2, 3 from T0) seen
+    at `rx_ecef`, `dur` seconds at 2 Msps on the card, and the sky's
+    ephemerides; K6's launches read apart."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.nav.ephemeris import \
+        make_sky_constellation
+    from gnss_sim_receiver_tpu_torch.sim.device_generator import \
+        generate_baseband_device_resident
+    from gnss_sim_receiver_tpu_torch.sim.scenario import \
+        build_static_scenario
+    ephs = [e for e in make_sky_constellation(RX_LLH[0], RX_LLH[1],
+                                              toe=T0 + 600)
+            if e.prn in SCENARIO_PRNS]
+    sats = build_static_scenario(ephs, rx_ecef, T0, dur, cn0_db_hz=cn0,
+                                 subframe_cycle=(1, 2, 3))
+    reset(wrappers)
+    x = generate_baseband_device_resident(sats, FS, int(FS * dur),
+                                          noise=True, seed=seed,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    k6 = read_launches(wrappers, ("K6_device_generator",))[
+        "K6_device_generator"]
+    return x, {e.prn: e for e in ephs}, k6
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def rtk_check(run, truth, what: str, float_bound: float) -> None:
+    """tests/test_rtk_e2e.py's checks on a run's RTK solutions, printed:
+    RTK epochs formed, one fixed, the last fixed baseline within
+    RTK_FIXED_TOL_M of the truth and its float within `float_bound`; the
+    float over the fixed epochs of the last RTK_FLOAT_WINDOW_S printed."""
+    if not run.rtk_solutions:
+        fail(f"{what}: no RTK epochs formed")
+    fixed = [(t, s) for t, s in run.rtk_solutions if s.fixed]
+    last = run.rtk_solutions[-1][1]
+    if not fixed:
+        fail(f"{what}: never fixed; last ratio {last.ratio:.3f}, float "
+             f"error {np.linalg.norm(last.float_baseline_m - truth):.4f} m")
+    t_end, last_fixed = fixed[-1]
+    e_fix = float(np.linalg.norm(last_fixed.baseline_m - truth))
+    e_float = float(np.linalg.norm(last_fixed.float_baseline_m - truth))
+    window = np.array([np.linalg.norm(s.float_baseline_m - truth)
+                       for t, s in fixed if t > t_end - RTK_FLOAT_WINDOW_S])
+    print(f"  {what}: {len(run.rtk_solutions)} RTK epochs, {len(fixed)} "
+          f"fixed (the first at rx time {fixed[0][0]:.2f} s); last ratio "
+          f"{last.ratio:.3f}; the last fixed baseline {e_fix:.4f} m from "
+          f"the truth, its float {e_float:.4f} m (bounds {RTK_FIXED_TOL_M} "
+          f"m and {float_bound:.4f} m; within {RTK_FLOAT_TOL_M} m: "
+          f"{e_float < RTK_FLOAT_TOL_M}); the float over the {window.size} "
+          f"fixed epochs of the last {RTK_FLOAT_WINDOW_S:g} s: median "
+          f"{np.median(window):.4f} m, {window.min():.4f} to "
+          f"{window.max():.4f} m")
+    if e_fix >= RTK_FIXED_TOL_M or e_float >= float_bound:
+        fail(f"{what}: fixed {e_fix:.4f} m, float {e_float:.4f} m")
+
+
+def rtk_path(root: str, wrappers, card: str) -> dict:
+    """Phase 19(a) and (b): RTK, the base stream by RINEX file and by RTCM.
+    (a) K6 makes the base's RTK_BASE_DUR seconds and the rover's
+    RTK_ROVER_DUR (their own noise seeds, launches counted apart); the
+    base runs through process_array (Single, PVT_MODE_CONF, it decodes its
+    ephemerides) and its observables go through write_rinex_obs into a
+    file under build/; the rover, written as a 2 Msps ishort file, runs
+    through the CLI with PVT.positioning_mode=RTK_Static,
+    PVT.AR_ratio_threshold=2.5, PVT.rtk_base_rinex_obs and
+    PVT.rtk_base_position_ecef.  (b) RtcmBaseEncoder(base, station_id=7,
+    msm=7) encodes the base run with its ephemerides; serve_frames and
+    read_frames carry it over 127.0.0.1; the decoder's base stream and
+    ephemerides feed the rover's first RTCM_ROVER_DUR seconds through
+    process_array.  The counters set to 0 just before each receiver run
+    and read just after.  Checks: tests/test_rtk_e2e.py's (RTK epochs
+    formed, one fixed, the last fixed baseline within RTK_FIXED_TOL_M, its
+    float within RTK_FLOAT_MARGIN times the JAX receiver's on the same
+    capture in (a), within RTK_FLOAT_TOL_M in (b);
+    over RTCM the bytes received equal the bytes sent, the base position
+    within 1 mm, the ephemeris keys equal); the real-time factors.
+    Temporary files removed."""
+    import torch
+    from gnss_sim_receiver_tpu_torch.models import outputs, rtcm
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    from gnss_sim_receiver_tpu_torch.utils.sample_io import write_samples
+    launches = {}
+    base_true, rover_true = rx_true_ecef(), rover_true_ecef()
+    truth = np.asarray(rover_true) - np.asarray(base_true)
+    base_str = ",".join(f"{v:.4f}" for v in base_true)
+    build = os.path.join(root, "build")
+    os.makedirs(build, exist_ok=True)
+    obs_path = os.path.join(build, "phase19_base.obs")
+    cap = os.path.join(build, "phase19_rover_40s_2msps.ishort")
+    conf_path = os.path.join(build, "chip_smoke_rtk19.conf")
+    rtk_text = (PVT_MODE_CONF.format(capture=cap)
+                + "PVT.positioning_mode=RTK_Static\n"
+                  "PVT.AR_ratio_threshold=2.5\n"
+                  f"PVT.rtk_base_rinex_obs={obs_path}\n"
+                  f"PVT.rtk_base_position_ecef={base_str}\n")
+    try:
+        x_base, _, k6 = sky_capture(wrappers, base_true, RTK_BASE_DUR,
+                                    RTK_CN0, 191)
+        x_rover, _, k6_r = sky_capture(wrappers, rover_true, RTK_ROVER_DUR,
+                                       RTK_CN0, 192)
+        launches["K6_device_generator"] = k6 + k6_r
+        write_samples(cap, x_rover, "ishort", scale=200.0)
+        conf = receiver_conf_from_config(InMemoryConfiguration(
+            conf_properties(PVT_MODE_CONF)))
+        reset(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base_run = Receiver(conf).process_array(x_base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add_launches(launches, read_launches(wrappers, RTK_KERNELS[1:]))
+        del x_base
+        print(f"  (a) base: {len(base_run.observation_epochs)} observable "
+              f"epochs, {len(base_run.solutions)} fixes, ephemerides "
+              f"{sorted(base_run.ephemerides)}; {RTK_BASE_DUR / wall:.3f} x "
+              f"real time ({wall:.3f} s of receiver; {card})")
+        if sorted(base_run.ephemerides) != list(SCENARIO_PRNS):
+            fail(f"the base decoded {sorted(base_run.ephemerides)}")
+        week = next(iter(base_run.ephemerides.values())).week
+        outputs.write_rinex_obs(obs_path, base_run.observation_epochs,
+                                base_run.channel_prns, week)
+        with open(conf_path, "w") as fh:
+            fh.write(rtk_text)
+        from gnss_sim_receiver_tpu_torch.__main__ import run_cli
+        reset(wrappers)
+        torch.cuda.synchronize()
+        res = run_cli([f"--config_file={conf_path}"])
+        torch.cuda.synchronize()
+        add_launches(launches, read_launches(wrappers, RTK_KERNELS[1:]))
+        if res.exit_code != 0:
+            fail(f"the RTK rover's CLI returned {res.exit_code}")
+        sec = res.seconds
+        wall = sum(sec.values())
+        print(f"  (a) rover through the CLI: read {sec['read']:.3f} s, "
+              f"upload and conditioning {sec['condition']:.3f}, receiver "
+              f"{sec['receiver']:.3f}; {RTK_ROVER_DUR / wall:.3f} x real "
+              f"time from file open to the last epoch ({card}); "
+              f"ephemerides {sorted(res.run.ephemerides)}")
+        print(f"  (a) the JAX receiver's float at the last fixed epoch on "
+              f"this capture on the CPU: {RTK_FLOAT_JAX_M} m; bound "
+              f"x{RTK_FLOAT_MARGIN:g}")
+        rtk_check(res.run, truth, "(a) RINEX base",
+                  RTK_FLOAT_MARGIN * RTK_FLOAT_JAX_M)
+
+        enc = rtcm.RtcmBaseEncoder(base_true, station_id=7, msm=7)
+        stream = enc.encode_run(base_run, ephemerides=base_run.ephemerides)
+        port, srv = rtcm.serve_frames(stream)
+        try:
+            received = rtcm.read_frames("127.0.0.1", port)
+        finally:
+            srv.close()
+        dec = rtcm.RtcmBaseDecoder()
+        dec.feed(received)
+        base_obs = dec.base_observations()
+        d_base = float(np.abs(base_obs.base_ecef_m - base_true).max())
+        print(f"  (b) RTCM: {len(stream)} bytes sent, {len(received)} "
+              f"received, {len(base_obs.epochs)} base epochs decoded, the "
+              f"station {d_base * 1e3:.3f} mm from the base, ephemerides "
+              f"{sorted(dec.ephemerides)}")
+        if received != stream or d_base >= 1e-3 or \
+                set(dec.ephemerides) != set(base_run.ephemerides):
+            fail("(b) the RTCM stream did not round-trip")
+        rconf = receiver_conf_from_config(InMemoryConfiguration(
+            conf_properties(rtk_text)))
+        reset(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = Receiver(rconf).process_array(
+            x_rover[:int(FS * RTCM_ROVER_DUR)],
+            ephemerides=dict(dec.ephemerides), base_observations=base_obs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add_launches(launches, read_launches(wrappers, RTK_KERNELS[1:]))
+        print(f"  (b) rover {RTCM_ROVER_DUR:g} s through process_array: "
+              f"{RTCM_ROVER_DUR / wall:.3f} x real time ({wall:.3f} s of "
+              f"receiver; {card})")
+        rtk_check(run, truth, "(b) RTCM base", RTK_FLOAT_TOL_M)
+        del x_rover
+        torch.cuda.empty_cache()
+    finally:
+        for path in (obs_path, cap, conf_path):
+            if os.path.exists(path):
+                os.remove(path)
+    return launches
+
+
+def ekf_stats(run, truth) -> dict:
+    """A run's orbital-EKF 3D errors from `truth`: over all its solutions,
+    and over those after its first EKF_SETTLE_S beside the LS fixes of the
+    same epochs (an LS fix's epoch is its corrected time plus its clock
+    bias) and the EKF's mean distance from them."""
+    ekf = run.ekf_solutions
+    t = np.array([s[0] for s in ekf])
+    pos = np.array([s[1] for s in ekf])
+    err = np.linalg.norm(pos - truth, axis=1)
+    ls = {int(round((s.rx_time_corrected_s + s.rx_clock_bias_s) * 1e3)): s
+          for s in run.solutions}
+    late = [k for k in range(t.size) if t[k] > t[0] + EKF_SETTLE_S
+            and int(round(t[k] * 1e3)) in ls]
+    ls_pos = np.array([ls[int(round(t[k] * 1e3))].rx_ecef_m for k in late])
+    return {"n": int(t.size), "mean": float(err.mean()),
+            "largest": float(err.max()), "last": float(err[-1]),
+            "n_late": len(late), "late_mean": float(err[late].mean()),
+            "late_ls_mean": float(np.linalg.norm(ls_pos - truth,
+                                                 axis=1).mean()),
+            "late_from_ls": float(np.linalg.norm(pos[late] - ls_pos,
+                                                 axis=1).mean())}
+
+
+def ppp_ekf_path(wrappers, card: str) -> dict:
+    """Phase 19(c) and (d): PPP and the orbital EKF on one capture.  K6
+    makes PPP_DUR seconds of the sky at PPP_CN0 at the base position
+    (launches counted apart); the factory's PVT_MODE_CONF with (c)
+    PVT.positioning_mode=PPP_Static, (d) Single and enable_pvt_ekf, each
+    through process_array with the sky's ephemerides, the counters set to
+    0 just before and read just after.  Checks: (c) PPP solutions, the
+    last within PPP_TOL_M (tests/test_ppp.py:79-95); (d) EKF solutions,
+    finite, their mean and largest 3D error within EKF_MARGIN times the
+    JAX receiver's on the same capture, and after EKF_SETTLE_S their mean
+    within EKF_MARGIN times the JAX receiver's and under EKF_BEATS_LS
+    times the LS fixes' on the same epochs; the real-time factors."""
+    import dataclasses
+    import torch
+    from gnss_sim_receiver_tpu_torch.models.factory import \
+        receiver_conf_from_config
+    from gnss_sim_receiver_tpu_torch.models.receiver import Receiver
+    from gnss_sim_receiver_tpu_torch.utils.config import \
+        InMemoryConfiguration
+    truth = np.asarray(rx_true_ecef())
+    x, ephs, k6 = sky_capture(wrappers, truth, PPP_DUR, PPP_CN0, 193)
+    launches = {"K6_device_generator": k6}
+    runs = {}
+    for name, keys, ekf in (("(c) PPP_Static",
+                             {"PVT.positioning_mode": "PPP_Static"}, False),
+                            ("(d) the orbital EKF", {}, True)):
+        conf = receiver_conf_from_config(InMemoryConfiguration(
+            {**conf_properties(PVT_MODE_CONF), **keys}))
+        conf = dataclasses.replace(conf, enable_pvt_ekf=ekf)
+        reset(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = Receiver(conf).process_array(x, ephemerides=dict(ephs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add_launches(launches, read_launches(wrappers, RTK_KERNELS[1:]))
+        runs[name] = run
+        print(f"  {name}: {len(run.solutions)} LS fixes, "
+              f"{len(run.ppp_solutions)} PPP and {len(run.ekf_solutions)} "
+              f"EKF solutions; {PPP_DUR / wall:.3f} x real time ({wall:.3f} "
+              f"s of receiver; {card})")
+    ppp = runs["(c) PPP_Static"].ppp_solutions
+    if not ppp:
+        fail("(c) PPP produced no solutions")
+    e_ppp = float(np.linalg.norm(ppp[-1][1].rx_ecef_m - truth))
+    e_ls = float(np.linalg.norm(runs["(c) PPP_Static"].solutions[-1]
+                                .rx_ecef_m - truth))
+    print(f"  (c) the last PPP solution {e_ppp:.4f} m from the truth (bound "
+          f"{PPP_TOL_M:g} m; the last LS fix {e_ls:.4f} m)")
+    if not e_ppp < PPP_TOL_M:
+        fail(f"(c) PPP {e_ppp:.4f} m")
+    run = runs["(d) the orbital EKF"]
+    if not run.ekf_solutions:
+        fail("(d) the EKF produced no solutions")
+    if not all(np.isfinite(np.concatenate([np.ravel(v) for v in s[1:]])).all()
+               for s in run.ekf_solutions):
+        fail("(d) an EKF state is not finite")
+    st = ekf_stats(run, truth)
+    beats = st["late_mean"] / st["late_ls_mean"]
+    print(f"  (d) EKF 3D error over its {st['n']} solutions: mean "
+          f"{st['mean']:.4f} m, largest {st['largest']:.4f} m, last "
+          f"{st['last']:.4f} m; after {EKF_SETTLE_S:g} s, over "
+          f"{st['n_late']}: mean {st['late_mean']:.4f} m against the LS "
+          f"fixes' {st['late_ls_mean']:.4f} m on the same epochs ({beats:.4f}"
+          f" of it), {st['late_from_ls']:.4f} m from them on average (the "
+          f"JAX receiver's on this capture on the CPU: {EKF_JAX_MEAN_M}, "
+          f"{EKF_JAX_MAX_M}, after {EKF_SETTLE_S:g} s {EKF_JAX_LATE_M} m, "
+          f"{EKF_JAX_BEATS_LS} of LS; bounds x{EKF_MARGIN:g}, and "
+          f"{EKF_BEATS_LS} of LS)")
+    if (st["mean"] > EKF_MARGIN * EKF_JAX_MEAN_M
+            or st["largest"] > EKF_MARGIN * EKF_JAX_MAX_M
+            or st["late_mean"] > EKF_MARGIN * EKF_JAX_LATE_M
+            or beats > EKF_BEATS_LS):
+        fail(f"(d) EKF error mean {st['mean']:.4f} m, largest "
+             f"{st['largest']:.4f} m, after {EKF_SETTLE_S:g} s "
+             f"{st['late_mean']:.4f} m, {beats:.4f} of LS")
+    del x
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_path(run) -> None:
     """`--profile`: `run()` (one run of a path, returning a line to print)
     twice more, plain and under torch.profiler: wall time, device busy
@@ -9773,7 +10185,7 @@ def main() -> int:
 
 
 def run_phases(root: str, card: str, procs: dict) -> int:
-    """Phases 2 to 18 and the result lines; `procs` are the synthesis
+    """Phases 2 to 19 and the result lines; `procs` are the synthesis
     children (none with --kernels-only)."""
     import torch
     from gnss_sim_receiver_tpu_torch import signals
@@ -10249,6 +10661,24 @@ def run_phases(root: str, card: str, procs: dict) -> int:
     modes = modes_path(wrappers, card)
     torch.cuda.empty_cache()
     print(f"  phase 18 took {time.perf_counter() - t18:.1f} s", flush=True)
+    t19 = time.perf_counter()
+    print(f"== phase 19(a): RTK through the CLI (device generator -> a "
+          f"{RTK_BASE_DUR:g} s base through process_array -> RINEX obs file; "
+          f"a {RTK_ROVER_DUR:g} s rover {ROVER_ENU} m east/north/up of it -> "
+          "ishort file -> RTK_Static conf -> DD carrier phase, LAMBDA -> "
+          "fixed baseline)", flush=True)
+    print(f"== phase 19(b): RTK over RTCM (the base run -> MSM7, 1019, 1005 "
+          f"frames -> 127.0.0.1 -> decoder -> a {RTCM_ROVER_DUR:g} s rover "
+          "through process_array)", flush=True)
+    rtk = rtk_path(root, wrappers, card)
+    torch.cuda.empty_cache()
+    print(f"== phase 19(c), (d): PPP_Static and the orbital EKF on "
+          f"{PPP_DUR:g} s at {PPP_CN0:g} dB-Hz (process_array, the sky's "
+          "ephemerides)", flush=True)
+    ppp = ppp_ekf_path(wrappers, card)
+    print(f"  phase 19 took {time.perf_counter() - t19:.1f} s", flush=True)
+    p19 = {k: rtk.get(k, 0) + ppp.get(k, 0) for k in rtk.keys() | ppp.keys()}
+    print(f"  phase 19's launches: {dict(sorted(p19.items()))}")
     for name in ("K6_device_generator_E6", "K3b_pcps_wipe_per_channel_E6",
                  "K3_pcps_peak_assisted_E6", "K8a_block_prologue_E6",
                  "K1_K8b_K8a_block_step_E6", "K9_epoch_chunk_E6"):
@@ -10266,7 +10696,7 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                  "K8a_block_prologue_S1", "K1_K8b_K8a_block_step_S1",
                  "K9_epoch_chunk_S1"):
         launches[name] = s1[name]
-    # K6's launches: the captures of phases 5, 6, 7, 8, 10, 11 and 14 to 18
+    # K6's launches: the captures of phases 5, 6, 7, 8, 10, 11 and 14 to 19
     launches["K6_device_generator"] = (k6 + full["K6_device_generator"]
                                        + k6_wb + pilot["K6_device_generator"]
                                        + ps["K6_device_generator"]
@@ -10282,12 +10712,17 @@ def run_phases(root: str, card: str, procs: dict) -> int:
                                        + g1["K6_device_generator"]
                                        + g12["K6_device_generator"]
                                        + s1["K6_device_generator"]
-                                       + modes["K6_device_generator"])
+                                       + modes["K6_device_generator"]
+                                       + p19["K6_device_generator"])
+    # phase 19's receivers run phase 4's GPS shapes at 2 Msps: their
+    # launches join those rows'
+    for name in RTK_KERNELS[1:] + ("K3b_pcps_wipe_per_channel",):
+        launches[name] += p19[name]
     for r in rows:
         r["launches"] = launches[r["name"]]
 
     wipe_shapes = dict(pcps.pcps_wipe.shapes)
-    print(f"  the wipeoff's launches in phases 4 to 18 by (M, Doppler table, "
+    print(f"  the wipeoff's launches in phases 4 to 19 by (M, Doppler table, "
           f"N): {wipe_shapes}")
     missing = sorted({wipe_key(k) for k in wipe_shapes} - WIPE_CHECKED)
     if missing:

@@ -9,8 +9,11 @@ same arrays to the JAX functions and to the port makes their state and
 tables identical, bit for bit.  The conditioner's tables (FIR taps, beam
 weights) travel the same way, and :func:`receiver_conf_from_fields` turns a
 receiver configuration given as a plain dict of dataclass fields (the JAX
-package's ``dataclasses.asdict(ReceiverConf)``, signal chains included)
-into the port's.
+package's ``dataclasses.asdict(ReceiverConf)``, signal chains, the
+orbital EKF's and the RTK engine's confs included) into the port's.
+:func:`base_observations_from` carries an RTK base stream (its
+ObservationEpoch list, channel maps and position) across, so that both
+packages' engines are fed the same epochs.
 """
 
 from __future__ import annotations
@@ -21,11 +24,14 @@ import numpy as np
 import torch
 
 from gnss_sim_receiver_tpu_torch.models.acquisition import AcqConf, VARIANTS
-from gnss_sim_receiver_tpu_torch.models.observables import ObsConf
+from gnss_sim_receiver_tpu_torch.models.observables import (ObsConf,
+                                                            ObservationEpoch)
 from gnss_sim_receiver_tpu_torch.models.pvt import PvtConf
+from gnss_sim_receiver_tpu_torch.models.pvt_ekf_orbital import PvtEkfConf
 from gnss_sim_receiver_tpu_torch import signals
 from gnss_sim_receiver_tpu_torch.models.receiver import (ReceiverConf,
                                                          SignalChainConf)
+from gnss_sim_receiver_tpu_torch.models.rtk import BaseObservations, RtkConf
 from gnss_sim_receiver_tpu_torch.models.tracking import (TrackingConf,
                                                          TrackState)
 from gnss_sim_receiver_tpu_torch.ops import cn0 as cn0_ops
@@ -141,17 +147,19 @@ _ABSENT = {
     ObsConf: {},
     PvtConf: {},
     SignalChainConf: {},
-    ReceiverConf: dict(enable_pvt_ekf=False, pvt_ekf=None, rtk=None,
-                       rtk_base_ecef_m=None),
+    ReceiverConf: {},
+    PvtEkfConf: {},
+    RtkConf: {},
 }
 
 
 def _nested(fields: dict, where: str) -> dict:
-    """`fields` with its acq / trk / obs / pvt dicts turned into the port's
-    confs."""
+    """`fields` with its acq / trk / obs / pvt dicts (and a receiver's
+    pvt_ekf and rtk dicts) turned into the port's confs."""
     fields = dict(fields)
     for name, cls in (("acq", AcqConf), ("trk", TrackingConf),
-                      ("obs", ObsConf), ("pvt", PvtConf)):
+                      ("obs", ObsConf), ("pvt", PvtConf),
+                      ("pvt_ekf", PvtEkfConf), ("rtk", RtkConf)):
         if fields.get(name) is not None:
             fields[name] = _conf_from_fields(cls, fields[name],
                                              f"{where}.{name}")
@@ -196,3 +204,23 @@ def receiver_conf_from_fields(fields: dict) -> ReceiverConf:
         _chain_from_fields(c, f"receiver.chains[{i}]")
         for i, c in enumerate(fields.get("chains", ())))
     return _conf_from_fields(ReceiverConf, fields, "receiver")
+
+
+def observation_epoch_from(epoch) -> ObservationEpoch:
+    """The port's ObservationEpoch from any object of the same fields (the
+    JAX package's), its arrays copied."""
+    return ObservationEpoch(**{
+        f.name: (np.array(getattr(epoch, f.name), copy=True)
+                 if isinstance(getattr(epoch, f.name), np.ndarray)
+                 else getattr(epoch, f.name))
+        for f in dataclasses.fields(ObservationEpoch)})
+
+
+def base_observations_from(base) -> BaseObservations:
+    """The port's BaseObservations from the JAX package's (or any object
+    with `epochs`, `prns`, `systems` and `base_ecef_m`): the RTK base
+    stream carried across, its epochs copied."""
+    return BaseObservations(
+        epochs=[observation_epoch_from(e) for e in base.epochs],
+        prns=list(base.prns), systems=list(base.systems),
+        base_ecef_m=np.array(base.base_ecef_m, np.float64, copy=True))

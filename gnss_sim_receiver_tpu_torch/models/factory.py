@@ -31,6 +31,7 @@ from gnss_sim_receiver_tpu_torch.models.receiver import (
     galileo_e1b_chain, galileo_e5a_chain, galileo_e5b_chain,
     galileo_e6b_chain, glonass_l1_chain, glonass_l2_chain, gps_l2c_chain,
     gps_l5_chain, sbas_l1_chain)
+from gnss_sim_receiver_tpu_torch.models.rtk import RtkConf
 from gnss_sim_receiver_tpu_torch.models.tracking import TrackingConf
 from gnss_sim_receiver_tpu_torch.utils.config import Configuration
 
@@ -96,7 +97,10 @@ _CHAIN_BUILDERS = {"1B": galileo_e1b_chain, "2S": gps_l2c_chain,
 # the FDMA slot spacing of each GLONASS signal
 _GLONASS_DFREQ = {"1G": constants.GLONASS_L1_DFREQ_HZ,
                   "2G": constants.GLONASS_L2_DFREQ_HZ}
-_PVT_MODES = ("Single", "Static")
+# the JAX factory's modes (factory.py:363-367); DGPS parses and the receiver
+# refuses it, as JAX's does
+_PVT_MODES = ("Single", "Static", "Kinematic", "DGPS", "PPP_Static",
+              "PPP_Kinematic", "RTK_Static", "RTK_Kinematic")
 
 
 def _not_ported(key: str, value):
@@ -256,6 +260,21 @@ def pvt_conf_from_config(config: Configuration) -> PvtConf:
     )
 
 
+def rtk_conf_from_config(config: Configuration) -> RtkConf:
+    """RTK relative-positioning keys (rtklib_pvt.cc prcopt fill: AR ratio,
+    measurement sigmas) for PVT.positioning_mode = RTK_Static or
+    RTK_Kinematic; the base station's observables come apart (a RINEX obs
+    file or an RTCM stream)."""
+    mode = config.property("PVT.positioning_mode", "Single")
+    return RtkConf(
+        mode="kinematic" if mode == "RTK_Kinematic" else "static",
+        elevation_mask_deg=config.property("PVT.elevation_mask", 10.0),
+        code_sigma_m=config.property("PVT.code_sigma_m", 0.5),
+        carrier_sigma_m=config.property("PVT.carrier_sigma_m", 0.003),
+        ratio_threshold=config.property("PVT.AR_ratio_threshold", 3.0),
+    )
+
+
 def _glonass_chains(config: Configuration, sig: str, fs: float, n: int,
                     offset: int) -> list:
     """The GLONASS chains of `sig` ("1G" or "2G"): one per occupied FDMA
@@ -360,17 +379,25 @@ def receiver_conf_from_config(config: Configuration) -> ReceiverConf:
     obs = ObsConf(fs=fs, interval_ms=interval_ms,
                   smoothing_factor=config.property(
                       "Observables.smoothing_factor", 0))
+    pvt = pvt_conf_from_config(config)
+    rtk = rtk_base = None
+    if pvt.positioning_mode.startswith("RTK"):
+        rtk = rtk_conf_from_config(config)
+        base_str = config.property("PVT.rtk_base_position_ecef", "")
+        if base_str:
+            rtk_base = tuple(float(v) for v in base_str.split(","))
     in_acq = config.property("Channels.in_acquisition", 0)
     # multi-band: the per-RF-channel rates gathered from the chains
     rf_fs = {c.rf_channel_id: float(c.trk.fs) for c in chains
              if c.rf_channel_id != 0}
     return ReceiverConf(
         rf_fs=rf_fs,
+        rtk=rtk, rtk_base_ecef_m=rtk_base,
         pinned_channels=_pinned_channels(config, 0, n_1c),
         fs=fs, prns=tuple(range(1, 33)), max_channels=max(n_1c, 1),
         max_acq_channels=(min(in_acq, n_1c) if in_acq and n_1c
                           else max(n_1c, 1)),
-        acq=acq, trk=trk, obs=obs, pvt=pvt_conf_from_config(config),
+        acq=acq, trk=trk, obs=obs, pvt=pvt,
         output_rate_ms=interval_ms,
         pvt_rate_ms=config.property("PVT.output_rate_ms", 0),
         enable_pvt_kf=config.property("PVT.enable_pvt_kf", False),

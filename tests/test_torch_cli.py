@@ -183,7 +183,7 @@ def test_factory_refuses_unported_e1_keys(tmp_path, line):
 # peak statistic and the fixed threshold; the fork's hybrid pseudolite
 # navigation, its rx clock keys and the pre-2009 week; the L2C, E5b, B1I,
 # B3I, E6-B and GLONASS chains; the broadcast iono model, RAIM and the PVT
-# Kalman filter), and the field each sets: its chain's AcqConf's or
+# Kalman filter; the RTK and PPP modes), and the field each sets: its chain's AcqConf's or
 # TrackingConf's, the PvtConf's, or the ReceiverConf's
 PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                ("use_cfar_algorithm", False),
@@ -221,7 +221,13 @@ PORTED_KEYS = {"Acquisition_1B.use_CFAR_algorithm=false":
                # ReceiverConf's for the filter
                "PVT.iono_model=Broadcast": ("iono_model", "Broadcast"),
                "PVT.raim_fde=true": ("raim_fde", True),
-               "PVT.enable_pvt_kf=true": ("enable_pvt_kf", True)}
+               "PVT.enable_pvt_kf=true": ("enable_pvt_kf", True),
+               # the PVT modes beyond the single-point fix: the PvtConf's
+               # mode (RTK's engine conf rides in the ReceiverConf)
+               "PVT.positioning_mode=RTK_Static":
+               ("positioning_mode", "RTK_Static"),
+               "PVT.positioning_mode=PPP_Static":
+               ("positioning_mode", "PPP_Static")}
 
 
 def _check_ported_key(path, line):
@@ -371,7 +377,7 @@ def test_interop_refuses_fields_the_port_lacks():
      "SignalSource.implementation"),
     ("SignalSource.implementation=Labsat_Signal_Source",
      "SignalSource.implementation"),
-    ("PVT.positioning_mode=PPP_Static", "PVT.positioning_mode"),
+    ("PVT.gpx_output_enabled=true", "PVT.gpx_output_enabled"),
 ])
 def test_cli_stops_on_unported_features(tmp_path, capsys, line, key):
     """Exit code 2 and a message naming the key, before any file is read."""
@@ -493,3 +499,92 @@ def test_cli_hybrid_conf_runs_both_chains(tmp_path, capsys, hybrid_capture):
     ref_out = capsys.readouterr().out
     assert rc == res.exit_code
     assert _tracked(ref_out) == prns
+
+
+# ---------------------------------------------------------------------------
+# the PVT modes beyond the single-point fix
+# ---------------------------------------------------------------------------
+
+PVT_MODES = ("Single", "Static", "Kinematic", "DGPS", "PPP_Static",
+             "PPP_Kinematic", "RTK_Static", "RTK_Kinematic")
+RTK_KEYS = ("PVT.rtk_base_rinex_obs={obs}\n"
+            "PVT.rtk_base_position_ecef=1112189.9031,-4842955.0319,"
+            "3985352.2376\n")
+
+
+@pytest.mark.parametrize("mode", PVT_MODES)
+def test_every_pvt_mode_parses_like_jax(tmp_path, mode):
+    """The eight modes of the JAX factory (factory.py:363-367) build, in
+    both packages, the same configuration; the RTK modes with the engine
+    conf and the base position."""
+    text = f"PVT.positioning_mode={mode}\nPVT.AR_ratio_threshold=2.5\n"
+    if mode.startswith("RTK"):
+        text += RTK_KEYS.format(obs="base.obs")
+    path = _write_conf(tmp_path, text, "mode.conf")
+    ref = jfactory.receiver_conf_from_config(JaxFileConfiguration(path))
+    got = factory.receiver_conf_from_config(FileConfiguration(path))
+    assert got == interop.receiver_conf_from_fields(dataclasses.asdict(ref))
+    assert got.pvt.positioning_mode == mode
+    assert (got.rtk is None) == (not mode.startswith("RTK"))
+
+
+def test_cli_accepts_the_rtk_keys(tmp_path):
+    path = _write_conf(tmp_path, CONF.format(filename="absent.ishort")
+                       + "PVT.positioning_mode=RTK_Static\n"
+                       + RTK_KEYS.format(obs="base.obs"))
+    assert unported_key(FileConfiguration(path)) is None
+
+
+@pytest.mark.parametrize("missing", ["PVT.rtk_base_rinex_obs",
+                                     "PVT.rtk_base_position_ecef"])
+def test_cli_rtk_needs_its_base(tmp_path, capsys, missing):
+    """An RTK conf without the base file or the base position exits 2 with
+    the JAX CLI's message, before any file is read."""
+    keys = [ln for ln in RTK_KEYS.format(obs="base.obs").splitlines()
+            if not ln.startswith(missing)]
+    path = _write_conf(tmp_path, CONF.format(filename="absent.ishort")
+                       + "PVT.positioning_mode=RTK_Static\n"
+                       + "\n".join(keys) + "\n")
+    assert main([f"--config_file={path}", "--device=cpu"]) == 2
+    msg = f"RTK mode needs {missing}"
+    assert msg in capsys.readouterr().err
+    import inspect
+    from gnss_sim_receiver_tpu import __main__ as jax_cli
+    assert msg in inspect.getsource(jax_cli)
+
+
+def test_cli_refuses_dgps(tmp_path, capsys):
+    """DGPS parses in both factories, and neither receiver implements it:
+    the port's CLI exits 2 with the receiver's message."""
+    path = _write_conf(tmp_path, CONF.format(filename="absent.ishort")
+                       + "PVT.positioning_mode=DGPS\n")
+    assert main([f"--config_file={path}", "--device=cpu"]) == 2
+    assert "DGPS is not implemented" in capsys.readouterr().err
+
+
+def test_cli_rtk_reads_the_base_file(tmp_path, capsys):
+    """An RTK conf through the CLI: the base RINEX file (the JAX package's
+    writer) becomes the session's base stream; 0.5 s of noise forms no
+    observable epoch, so no RTK epoch and no fix (exit 1)."""
+    from gnss_sim_receiver_tpu.models import outputs as jout
+    from gnss_sim_receiver_tpu.models.observables import ObservationEpoch
+    n = 3
+    epochs = [ObservationEpoch(
+        rx_time_s=345600.0 + 0.02 * k, tick_sample=0,
+        valid=np.ones(n, bool), pseudorange_m=2.1e7 + np.arange(n),
+        interp_tow_ms=np.full(n, 345599930.0), carrier_doppler_hz=np.ones(n),
+        carrier_phase_cycles=-1e8 * np.ones(n), cn0_db_hz=np.full(n, 45.0))
+        for k in range(5)]
+    obs = tmp_path / "base.obs"
+    jout.write_rinex_obs(obs, epochs, [3, 9, 17], 2200)
+    cap = tmp_path / "noise.ishort"
+    rng = np.random.default_rng(0)
+    write_samples(cap, (rng.standard_normal(2_000_000)
+                        + 1j * rng.standard_normal(2_000_000)).astype(
+                            np.complex64), "ishort", scale=200.0)
+    path = _write_conf(tmp_path, CONF.format(filename=cap)
+                       + "PVT.positioning_mode=RTK_Static\n"
+                       + RTK_KEYS.format(obs=obs))
+    res = run_cli([f"--config_file={path}", "--device=cpu"])
+    assert res.exit_code == 1 and res.run.rtk_solutions == []
+    assert "No position fix." in capsys.readouterr().out

@@ -14,8 +14,10 @@ CPU, and its state carries across intact.
   signals and decodes D1 and D2 prompts, builds the Galileo E6-B and the
   GLONASS slot chains, simulates their signals and decodes a HAS message
   and GNAV strings, builds the SBAS chain with the PVT mode keys, decodes
-  SBAS messages into the corrections state and solves a fix with them, in
-  a process where both names cannot be imported, and
+  SBAS messages into the corrections state and solves a fix with them,
+  and runs the PVT modes' host modules (RTK and PPP from the factory,
+  LAMBDA, the RINEX base file, RTCM over loopback, the precise products,
+  the orbital EKF), in a process where both names cannot be imported, and
   opens no file of the JAX package: its Galileo code tables are its own
   package data, shipped by pyproject.toml;
 - the entry points raise without a card unless device="cpu" is passed;
@@ -406,6 +408,51 @@ ep = ObservationEpoch(345660.0, 0, np.ones(n, bool), np.full(n, 2.2e7),
 sol = solve_pvt_raim(ep, prns, ephs, conf.pvt, sbas_corrections=corr)
 if sol.valid:
     PvtKf().update(sol)
+# the PVT modes beyond the single-point fix: the RTK and PPP confs from the
+# factory, LAMBDA, the RINEX base file, the RTCM codec over loopback, the
+# precise products, a PPP and an RTK update and the orbital EKF's coast
+from gnss_sim_receiver_tpu_torch.models import outputs, ppp, rtcm, rtk
+from gnss_sim_receiver_tpu_torch.models.pvt_ekf_orbital import PvtEkfOrbital
+from gnss_sim_receiver_tpu_torch.nav import precise
+from gnss_sim_receiver_tpu_torch.utils import environment
+conf = receiver_conf_from_config(InMemoryConfiguration({
+    "PVT.positioning_mode": "RTK_Kinematic",
+    "PVT.rtk_base_position_ecef": "1,2,3"}))
+assert conf.rtk.mode == "kinematic" and conf.rtk_base_ecef_m == (1, 2, 3)
+cands, _ = rtk.lambda_ils(np.array([1.1, -2.2, 3.05]), np.eye(3) * 0.01)
+assert list(cands[0]) == [1, -2, 3]
+eps = [ObservationEpoch(345660.0 + 0.02 * k, 0, np.ones(n, bool),
+                        np.full(n, 2.2e7), np.full(n, 345659930.0),
+                        np.zeros(n), np.full(n, -1e8), np.full(n, 45.0))
+       for k in range(3)]
+with tempfile.TemporaryDirectory() as tmp:
+    outputs.write_rinex_obs(os.path.join(tmp, "b.obs"), eps, prns, 2200)
+    back, bprns, bsys = outputs.read_rinex_obs(os.path.join(tmp, "b.obs"))
+    base = rtk.BaseObservations(back, bprns, bsys, np.zeros(3))
+    sp3 = os.path.join(tmp, "o.sp3")
+    precise.write_sp3(sp3, 2200, 345600.0 + 900.0 * np.arange(13), {
+        1: (np.ones((13, 3)) * 2e7, np.zeros(13))})
+    assert 1 in precise.Sp3Ephemeris(open(sp3).read()).satellites()
+assert len(back) == 3 and base.aligned_to(345660.02, prns, None) is not None
+rx_ecef = np.array([1112189.9, -4842955.0, 3985352.2])
+rtk.RtkEngine(conf.rtk, rx_ecef).update(eps[0], eps[0], prns, ephs)
+ppp.PppEngine(ppp.PppConf()).update(eps[0], prns, ephs, x0=rx_ecef)
+assert precise.solid_earth_tide(2200, 345600.0, rx_ecef).shape == (3,)
+data = rtcm.frame(rtcm.encode_station(rx_ecef)) + b"".join(
+    rtcm.frame(rtcm.encode_ephemeris(e)) for e in list(ephs.values())[:2])
+port, srv = rtcm.serve_frames(data)
+try:
+    got = rtcm.read_frames("127.0.0.1", port)
+finally:
+    srv.close()
+dec = rtcm.RtcmBaseDecoder()
+dec.feed(got)
+assert got == data and len(dec.ephemerides) == 2
+ekf = PvtEkfOrbital()
+ekf.init_ecef(np.concatenate([rx_ecef, np.zeros(3)]), 0.0, 0.0, 345600.0)
+ekf.propagate_to(345630.0)
+assert np.isfinite(ekf.state_ecef()[0]).all()
+assert environment.moon().name == "Moon"
 builtins.open = _open
 assert any(p.endswith("galileo_e1_codes.npz") for p in opened), opened
 assert any(p.endswith("galileo_e5a_codes.npz") for p in opened), opened
@@ -429,6 +476,31 @@ def test_dumps_module_is_the_ports_own():
     roots = set(_imported_roots(path))
     assert not roots & set(FORBIDDEN), roots
     assert roots <= {"__future__", "numpy", "scipy"}, roots
+
+
+def test_pvt_mode_modules_are_the_ports_own():
+    """The PVT modes' host modules, the port's copies of the JAX
+    package's NumPy modules, are scanned with the rest and import neither
+    jax nor the JAX package: only the standard library, NumPy and the port
+    (models/rtcm.py's loopback transport takes socket and threading); the
+    blocked run drives each of them."""
+    pkg = ROOT / "gnss_sim_receiver_tpu_torch"
+    std = {"__future__", "dataclasses", "datetime", "pathlib", "numpy"}
+    for rel, extra in (("utils/environment.py", set()),
+                       ("models/pvt_ekf_orbital.py", set()),
+                       ("models/rtk.py", set()),
+                       ("models/outputs.py", set()),
+                       ("models/rtcm.py", {"socket", "threading"}),
+                       ("nav/precise.py", set()),
+                       ("models/ppp.py", set())):
+        path = pkg / rel
+        assert path in _port_files()
+        roots = set(_imported_roots(path))
+        assert not roots & set(FORBIDDEN), (rel, roots)
+        assert roots <= std | extra | {"gnss_sim_receiver_tpu_torch"}, (
+            rel, roots)
+    from gnss_sim_receiver_tpu_torch.models import receiver, rtk
+    assert receiver.RtkEngine is rtk.RtkEngine
 
 
 def test_monitor_is_the_ports_own():

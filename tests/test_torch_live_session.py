@@ -18,8 +18,9 @@ control plane and the TCP telecommand server, against the JAX package.
 - tests/test_tcp_cmd.py's two cases against the port's server, a port
   session driven over the socket, and eight client threads' commands
   beside the main thread's feeds.
-- The refusals: feed with a chain on RF channel 1, base_observations;
-  collect_track_outputs, once refused, accepted.
+- The refusals: feed with a chain on RF channel 1; collect_track_outputs
+  and base_observations, once refused, accepted (the base stream is used
+  by an RTK mode only, which refuses to start without one, as JAX's).
 """
 
 import dataclasses
@@ -340,9 +341,18 @@ def test_refusals():
     run = rx.process_array(np.zeros(10, np.complex64),
                            collect_track_outputs=True)
     assert run.track_outputs is None and not run.solutions
-    for call in (lambda: rx.start_session(base_observations=object()),):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    # base_observations is ported: a single-point session keeps it unused,
+    # as JAX's; an RTK session needs it, and DGPS is implemented in neither
+    s = rx.start_session(base_observations=object())
+    assert s.rtk_eng is None and s.ppp_eng is None and s.pvt_ekf is None
+    rtk_conf = _conf(prx)
+    rtk_conf.pvt = dataclasses.replace(rtk_conf.pvt,
+                                       positioning_mode="RTK_Static")
+    with pytest.raises(ValueError, match="base_observations"):
+        prx.Receiver(rtk_conf, device="cpu").start_session()
+    rtk_conf.pvt = dataclasses.replace(rtk_conf.pvt, positioning_mode="DGPS")
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        prx.Receiver(rtk_conf, device="cpu").start_session()
     s = rx.start_session()
     s.attach_array(np.zeros(1000, np.complex64))
     with pytest.raises(RuntimeError, match="array mode"):
